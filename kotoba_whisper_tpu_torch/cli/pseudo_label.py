@@ -1,0 +1,228 @@
+"""Stage-2 driver: teacher batch pseudo-labelling on the card.
+
+Streams utterances from tar shards, decodes audio with the native core,
+computes the log-mel features on the device (kernel K3), and greedy-
+decodes token-id pseudo-labels with timestamps in lockstep batches
+(encoder attention through K1, decode-step attention through K2). Writes
+pseudo_labels.jsonl and a CSV dump, the files the JAX driver writes.
+
+The flags mirror the JAX driver's. Ported: --num_beams 1, lockstep
+batching, one device, --kv_dtype compute|int8, --gemm_dtype compute,
+--wire_dtype float32|int16, --text_lang_task, and --no_fuse (the
+projection fusion itself is not ported). Any other value raises.
+
+Usage:
+  python -m kotoba_whisper_tpu_torch.cli.pseudo_label \
+      --dataset_dir /data/reazon --output_dir out/ \
+      --model preset:large-v3 --tokenizer byte:51866 --no_fuse \
+      --language ja --task transcribe --batch_size 16 --kv_dtype int8
+"""
+from __future__ import annotations
+
+import argparse
+import csv
+import os
+import sys
+
+import numpy as np
+import torch
+
+
+def _parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--dataset_dir", required=True)
+    ap.add_argument("--output_dir", required=True)
+    ap.add_argument("--model", default="preset:large-v3")
+    ap.add_argument("--tokenizer", default="byte")
+    ap.add_argument("--language", default="ja")
+    ap.add_argument("--task", default="transcribe",
+                    choices=["transcribe", "translate"])
+    ap.add_argument("--text_lang_task", default=None,
+                    help="comma list of lang:task pairs, e.g. "
+                    "'ja:transcribe,en:translate': each decoded separately "
+                    "per batch into whisper_transcript/{task}.{lang} columns")
+    ap.add_argument("--batch_size", type=int, default=16)
+    ap.add_argument("--num_beams", type=int, default=1)
+    ap.add_argument("--max_label_length", type=int, default=128)
+    ap.add_argument("--return_timestamps", action="store_true", default=True)
+    ap.add_argument("--no_timestamps", dest="return_timestamps",
+                    action="store_false")
+    ap.add_argument("--chunk_lo", type=int, default=None,
+                    help="shard range start (idempotent-chunk recipe)")
+    ap.add_argument("--chunk_hi", type=int, default=None)
+    ap.add_argument("--dtype", default="bfloat16",
+                    choices=["bfloat16", "float32"])
+    ap.add_argument("--wire_dtype", default="float32",
+                    choices=["float32", "int16"],
+                    help="int16: ship audio to the device as 16-bit PCM and "
+                    "normalize on device")
+    ap.add_argument("--kv_dtype", default="compute",
+                    choices=["compute", "int8", "int4"])
+    ap.add_argument("--gemm_dtype", default="compute",
+                    choices=["compute", "int8"])
+    ap.add_argument("--limit", type=int, default=None)
+    ap.add_argument("--no_fuse", action="store_true",
+                    help="run without the inference projection fusion "
+                    "(required: the fusion is not ported yet)")
+    ap.add_argument("--streaming", action="store_true")
+    ap.add_argument("--num_devices", type=int, default=1)
+    ap.add_argument("--mesh_model_axis", type=int, default=1)
+    ap.add_argument("--coordinator_address", default=None)
+    ap.add_argument("--num_processes", type=int, default=None)
+    ap.add_argument("--process_id", type=int, default=None)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu; with no card and no "
+                    "--device cpu the driver raises")
+    return ap
+
+
+def _check_ported(arg, dev: torch.device) -> None:
+    unported = [
+        (arg.num_beams != 1, f"--num_beams {arg.num_beams}"),
+        (arg.streaming, "--streaming"),
+        (arg.num_devices != 1, f"--num_devices {arg.num_devices}"),
+        (arg.mesh_model_axis != 1, f"--mesh_model_axis {arg.mesh_model_axis}"),
+        (arg.coordinator_address is not None, "--coordinator_address"),
+        (arg.kv_dtype == "int4", "--kv_dtype int4"),
+        (arg.gemm_dtype != "compute", f"--gemm_dtype {arg.gemm_dtype}"),
+        (not arg.no_fuse, "inference projection fusion (pass --no_fuse)"),
+        (dev.type == "cuda" and arg.dtype != "bfloat16",
+         f"--dtype {arg.dtype} on the card (K1 and K2 take bfloat16)"),
+    ]
+    for bad, what in unported:
+        if bad:
+            raise SystemExit(f"pseudo_label: {what} is not ported yet")
+
+
+def main(argv=None) -> None:
+    arg = _parser().parse_args(argv)
+
+    from kotoba_whisper_tpu_torch.cli import common
+    from kotoba_whisper_tpu_torch.core.config import FeatureConfig
+    from kotoba_whisper_tpu_torch.core.device import resolve_device
+    from kotoba_whisper_tpu_torch.data import reazon
+    from kotoba_whisper_tpu_torch.data.collator import CollatorConfig, collate_audio
+    from kotoba_whisper_tpu_torch.decode.greedy import GenerateOptions, generate_greedy
+    from kotoba_whisper_tpu_torch.ops.mel import log_mel_spectrogram
+    from kotoba_whisper_tpu_torch.train.logging import Throughput
+    from kotoba_whisper_tpu_torch.utils import native
+
+    dev = resolve_device(arg.device)
+    _check_ported(arg, dev)
+    dtype = torch.bfloat16 if arg.dtype == "bfloat16" else torch.float32
+
+    tok = common.load_tokenizer(arg.tokenizer)
+    model, cfg = common.load_model(arg.model, dev, dtype)
+    feat = FeatureConfig(n_mels=cfg.num_mel_bins)
+    ccfg = CollatorConfig(n_samples=feat.n_samples)
+
+    if arg.text_lang_task:
+        lang_tasks = [tuple(p.split(":")) for p in arg.text_lang_task.split(",")]
+    else:
+        lang_tasks = [(arg.language, arg.task)]
+    gen_defaults = common.load_generation_defaults(arg.model)
+    task_opts = {
+        f"{task}.{lang}": GenerateOptions(
+            prompt_ids=tuple(
+                tok.sot_sequence(lang, task, timestamps=arg.return_timestamps)
+            ),
+            max_length=arg.max_label_length,
+            return_timestamps=arg.return_timestamps,
+            **gen_defaults,
+        )
+        for lang, task in lang_tasks
+    }
+
+    def wire(a: np.ndarray) -> np.ndarray:
+        if arg.wire_dtype == "int16":
+            return np.clip(np.round(a * 32768.0), -32768, 32767).astype(np.int16)
+        return a
+
+    def generate(batch_audio: np.ndarray) -> dict[str, np.ndarray]:
+        mel = log_mel_spectrogram(wire(batch_audio), feat, device=dev).to(dtype)
+        return {
+            key: generate_greedy(
+                model, mel, opts, tok.special, kv_dtype=arg.kv_dtype, device=dev,
+            ).cpu().numpy()
+            for key, opts in task_opts.items()
+        }
+
+    chunk_range = (
+        (arg.chunk_lo, arg.chunk_hi)
+        if arg.chunk_lo is not None and arg.chunk_hi is not None
+        else None
+    )
+    utts = reazon.iter_dataset_dir(arg.dataset_dir, chunk_range=chunk_range)
+    os.makedirs(arg.output_dir, exist_ok=True)
+    jsonl_path = os.path.join(arg.output_dir, "pseudo_labels.jsonl")
+    csv_path = os.path.join(arg.output_dir, "pseudo_labels.csv")
+    tp = Throughput(n_cards=1)
+    tp.start()
+    n_done = 0
+
+    def host_batches():
+        """Audio decode + collation, run ahead on a background thread."""
+        for batch in common.batched(utts, arg.batch_size):
+            good, audio = [], []
+            for u in batch:
+                try:
+                    wav, _ = native.decode_audio(u.audio_bytes, feat.sampling_rate)
+                except ValueError:
+                    print(f"warning: skipping undecodable audio {u.name}",
+                          file=sys.stderr)
+                    continue
+                good.append(u)
+                audio.append(wav)
+            if good:
+                yield good, audio, collate_audio(audio, ccfg)
+
+    main_key = next(iter(task_opts))
+
+    def make_record(u, wav, per_task, bi, writer):
+        record = {"name": u.name, "transcription": u.transcription}
+        for key, toks in per_task.items():
+            ids = toks[bi].tolist()
+            if tok.special.eot in ids:
+                ids = ids[: ids.index(tok.special.eot) + 1]
+            col = (
+                "whisper_transcript"
+                if not arg.text_lang_task
+                else f"whisper_transcript/{key}"
+            )
+            record[col] = ids
+            if key == main_key:
+                text = tok.decode(
+                    ids, skip_special_tokens=False, decode_with_timestamps=True,
+                )
+                writer.writerow([u.name, text])
+        tp.add(len(wav) / feat.sampling_rate)
+        return record
+
+    def rows():
+        nonlocal n_done
+        with open(csv_path, "w", newline="") as cf:
+            writer = csv.writer(cf)
+            writer.writerow(["file_id", "whisper_transcript"])
+            for batch, audio, arr in common.prefetch(host_batches()):
+                if arg.limit is not None and n_done >= arg.limit:
+                    break
+                if arr.shape[0] < arg.batch_size:
+                    # pad ragged batches to the full width: one shape
+                    pad_rows = arg.batch_size - arr.shape[0]
+                    arr = np.concatenate(
+                        [arr, np.zeros((pad_rows,) + arr.shape[1:], arr.dtype)]
+                    )
+                per_task = generate(arr)
+                for bi, (u, wav) in enumerate(zip(batch, audio)):
+                    n_done += 1
+                    yield make_record(u, wav, per_task, bi, writer)
+
+    n = common.write_jsonl(jsonl_path, rows())
+    print(
+        f"pseudo-labelled {n} utterances -> {jsonl_path} "
+        f"({tp.rate():.1f} audio-s/s/card on {dev})"
+    )
+
+
+if __name__ == "__main__":
+    main()

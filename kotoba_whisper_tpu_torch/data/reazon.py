@@ -1,0 +1,84 @@
+"""ReazonSpeech shard reader: local tar archives + TSV transcript join.
+
+Native-pipeline replacement for reazonspeech_manual_dataloader.py:42-97 (an
+HF GeneratorBasedBuilder): iterates FLAC/WAV/MP3 members out of tar shards,
+joins transcriptions from the TSV, and yields
+{"name", "audio_bytes", "transcription"} — audio stays as raw bytes so
+decode (native/audio.cpp) can run in pipeline workers, not at read time.
+"""
+from __future__ import annotations
+
+import csv
+import io
+import os
+import tarfile
+from dataclasses import dataclass
+from typing import Iterator
+
+
+@dataclass
+class Utterance:
+    name: str
+    audio_bytes: bytes
+    transcription: str | None
+
+
+def read_tsv_transcripts(tsv_path: str) -> dict[str, str]:
+    """TSV rows of (member_name, transcription)."""
+    table: dict[str, str] = {}
+    with open(tsv_path, encoding="utf-8", newline="") as f:
+        for row in csv.reader(f, delimiter="\t"):
+            if len(row) >= 2:
+                table[row[0]] = row[1]
+    return table
+
+
+def iter_tar_utterances(
+    tar_path: str, transcripts: dict[str, str] | None = None
+) -> Iterator[Utterance]:
+    with tarfile.open(tar_path, "r") as tf:
+        for member in tf:
+            if not member.isfile():
+                continue
+            ext = os.path.splitext(member.name)[1].lower()
+            if ext not in (".flac", ".wav"):
+                continue
+            payload = tf.extractfile(member)
+            if payload is None:
+                continue
+            text = None
+            if transcripts is not None:
+                text = transcripts.get(member.name) or transcripts.get(
+                    os.path.basename(member.name)
+                )
+            yield Utterance(member.name, payload.read(), text)
+
+
+def iter_dataset_dir(
+    dataset_dir: str,
+    tsv_name: str = "transcript.tsv",
+    chunk_range: tuple[int, int] | None = None,
+) -> Iterator[Utterance]:
+    """Stream utterances from a directory of numbered tar shards; the TSV is
+    shared (ReazonSpeech v2 layout). chunk_range selects [lo, hi) shard
+    indices (the idempotent-chunk recipe)."""
+    tsv_path = os.path.join(dataset_dir, tsv_name)
+    transcripts = read_tsv_transcripts(tsv_path) if os.path.exists(tsv_path) else None
+    tars = sorted(
+        f for f in os.listdir(dataset_dir) if f.endswith(".tar")
+    )
+    if chunk_range is not None:
+        tars = tars[chunk_range[0] : chunk_range[1]]
+    for t in tars:
+        yield from iter_tar_utterances(os.path.join(dataset_dir, t), transcripts)
+
+
+def write_tar_shard(
+    out_path: str, utterances: list[tuple[str, bytes]]
+) -> None:
+    """Helper for tests/tools: pack (name, audio_bytes) into a tar shard."""
+    with tarfile.open(out_path, "w") as tf:
+        for name, payload in utterances:
+            info = tarfile.TarInfo(name)
+            info.size = len(payload)
+            tf.addfile(info, io.BytesIO(payload))

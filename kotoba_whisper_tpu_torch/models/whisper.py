@@ -1,0 +1,453 @@
+"""Whisper encoder-decoder in PyTorch, with the JAX package's numerics.
+
+The module tree carries HF's parameter names (model.encoder.layers.N.
+self_attn.q_proj.weight, ...), so an HF-layout state dict loads with
+`load_state_dict`. The computation is written as functions over the
+modules rather than in `forward`, to keep the JAX package's numerics:
+
+  - LayerNorm in fp32, cast back to the activation dtype;
+  - projections in the activation dtype, bias added after the product;
+  - conv stem with exact-erf GELU, fixed sinusoidal encoder positions;
+  - logits in fp32 against the tied token embedding.
+
+The activation (compute) dtype is the dtype of the model's weights: cast
+the model (`model.to(torch.bfloat16)`) to run in bf16.
+
+On the card the encoder's self-attention runs through kernel K1 and every
+single-token decode step's self- and cross-attention through K2; on the
+CPU the same calls take their plain twins.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from kotoba_whisper_tpu_torch.core.config import WhisperConfig
+from kotoba_whisper_tpu_torch.core.device import check_model_device, resolve_device
+from kotoba_whisper_tpu_torch.ops.attention import attention
+from kotoba_whisper_tpu_torch.ops.decode_attention import decode_attention
+from kotoba_whisper_tpu_torch.ops.flash_attention import flash_attention
+
+
+def sinusoidal_positions(length: int, channels: int) -> np.ndarray:
+    """Whisper's fixed encoder position table (log-spaced sinusoids)."""
+    assert channels % 2 == 0
+    log_timescale = np.log(10000.0) / (channels // 2 - 1)
+    inv_timescales = np.exp(-log_timescale * np.arange(channels // 2))
+    scaled = np.arange(length)[:, None] * inv_timescales[None, :]
+    return np.concatenate([np.sin(scaled), np.cos(scaled)], axis=1).astype(
+        np.float32
+    )
+
+
+# ---------------------------------------------------------------------------
+# Module tree (HF names)
+# ---------------------------------------------------------------------------
+
+class Attention(nn.Module):
+    def __init__(self, d: int):
+        super().__init__()
+        self.q_proj = nn.Linear(d, d)
+        self.k_proj = nn.Linear(d, d, bias=False)  # Whisper: no k bias
+        self.v_proj = nn.Linear(d, d)
+        self.out_proj = nn.Linear(d, d)
+
+
+class EncoderLayer(nn.Module):
+    def __init__(self, cfg: WhisperConfig):
+        super().__init__()
+        d = cfg.d_model
+        self.self_attn = Attention(d)
+        self.self_attn_layer_norm = nn.LayerNorm(d, eps=cfg.layer_norm_eps)
+        self.fc1 = nn.Linear(d, cfg.encoder_ffn_dim)
+        self.fc2 = nn.Linear(cfg.encoder_ffn_dim, d)
+        self.final_layer_norm = nn.LayerNorm(d, eps=cfg.layer_norm_eps)
+
+
+class DecoderLayer(nn.Module):
+    def __init__(self, cfg: WhisperConfig):
+        super().__init__()
+        d = cfg.d_model
+        self.self_attn = Attention(d)
+        self.self_attn_layer_norm = nn.LayerNorm(d, eps=cfg.layer_norm_eps)
+        self.encoder_attn = Attention(d)
+        self.encoder_attn_layer_norm = nn.LayerNorm(d, eps=cfg.layer_norm_eps)
+        self.fc1 = nn.Linear(d, cfg.decoder_ffn_dim)
+        self.fc2 = nn.Linear(cfg.decoder_ffn_dim, d)
+        self.final_layer_norm = nn.LayerNorm(d, eps=cfg.layer_norm_eps)
+
+
+class Encoder(nn.Module):
+    def __init__(self, cfg: WhisperConfig):
+        super().__init__()
+        d = cfg.d_model
+        self.conv1 = nn.Conv1d(cfg.num_mel_bins, d, 3, padding=1)
+        self.conv2 = nn.Conv1d(d, d, 3, stride=2, padding=1)
+        self.embed_positions = nn.Embedding(cfg.max_source_positions, d)
+        self.layers = nn.ModuleList(EncoderLayer(cfg) for _ in range(cfg.encoder_layers))
+        self.layer_norm = nn.LayerNorm(d, eps=cfg.layer_norm_eps)
+
+
+class Decoder(nn.Module):
+    def __init__(self, cfg: WhisperConfig):
+        super().__init__()
+        d = cfg.d_model
+        self.embed_tokens = nn.Embedding(cfg.vocab_size, d)
+        self.embed_positions = nn.Embedding(cfg.max_target_positions, d)
+        self.layers = nn.ModuleList(DecoderLayer(cfg) for _ in range(cfg.decoder_layers))
+        self.layer_norm = nn.LayerNorm(d, eps=cfg.layer_norm_eps)
+
+
+class WhisperModel(nn.Module):
+    def __init__(self, cfg: WhisperConfig):
+        super().__init__()
+        self.encoder = Encoder(cfg)
+        self.decoder = Decoder(cfg)
+
+
+class WhisperForConditionalGeneration(nn.Module):
+    """Parameter container. The output projection is tied to
+    model.decoder.embed_tokens and is not a separate parameter, so HF
+    state dicts load after dropping `proj_out.weight`."""
+
+    def __init__(self, cfg: WhisperConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.model = WhisperModel(cfg)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.model.decoder.embed_tokens.weight.dtype
+
+
+def init_params(
+    cfg: WhisperConfig,
+    generator: torch.Generator,
+    *,
+    device="cuda",
+    dtype: torch.dtype = torch.float32,
+) -> WhisperForConditionalGeneration:
+    """Random model as the JAX `init_params` draws it: dense, conv and
+    embedding weights N(0, 0.02), biases 0, LayerNorm 1/0, sinusoidal
+    encoder positions. `generator` must live on `device`."""
+    dev = resolve_device(device)
+    with torch.device("meta"):
+        model = WhisperForConditionalGeneration(cfg)
+    model = model.to_empty(device=dev).to(dtype)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("layer_norm.weight"):
+                p.fill_(1.0)
+            elif name.endswith(".bias"):
+                p.zero_()
+            elif name == "model.encoder.embed_positions.weight":
+                p.copy_(torch.from_numpy(
+                    sinusoidal_positions(cfg.max_source_positions, cfg.d_model)
+                ))
+            else:
+                p.normal_(0.0, 0.02, generator=generator)
+    return model.eval()
+
+
+# ---------------------------------------------------------------------------
+# Primitive layers
+# ---------------------------------------------------------------------------
+
+def layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
+    """PyTorch's fused LayerNorm computes in fp32 for bf16 inputs and
+    rounds once on output: the JAX package's fp32 LayerNorm."""
+    return F.layer_norm(x, ln.normalized_shape, ln.weight, ln.bias, ln.eps)
+
+
+def dense(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    y = F.linear(x, lin.weight)
+    if lin.bias is not None:
+        y = y + lin.bias
+    return y
+
+
+def conv1d(conv: nn.Conv1d, x: torch.Tensor) -> torch.Tensor:
+    """x (B, C_in, T); K=3, padding 1; bias added after the product."""
+    y = F.conv1d(x, conv.weight, None, stride=conv.stride, padding=conv.padding)
+    return y + conv.bias[None, :, None]
+
+
+def split_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
+    b, t, d = x.shape
+    return x.reshape(b, t, n_heads, d // n_heads)
+
+
+def merge_heads(x: torch.Tensor) -> torch.Tensor:
+    b, t, h, hd = x.shape
+    return x.reshape(b, t, h * hd)
+
+
+def logits_from(model: WhisperForConditionalGeneration, x: torch.Tensor) -> torch.Tensor:
+    """fp32 logits against the tied embedding: the product of two bf16
+    values is exact in fp32, so fp32 operands give bf16-in/fp32-out."""
+    emb = model.model.decoder.embed_tokens.weight
+    return F.linear(x.float(), emb.float())
+
+
+# ---------------------------------------------------------------------------
+# Encoder
+# ---------------------------------------------------------------------------
+
+def _encode(model: WhisperForConditionalGeneration, feats: torch.Tensor) -> torch.Tensor:
+    cfg, enc = model.cfg, model.model.encoder
+    x = feats.to(model.dtype)
+    x = F.gelu(conv1d(enc.conv1, x))
+    x = F.gelu(conv1d(enc.conv2, x)).transpose(1, 2)
+    x = x + enc.embed_positions.weight[None]
+    n_heads = cfg.encoder_attention_heads
+    for layer in enc.layers:
+        h = layer_norm(layer.self_attn_layer_norm, x)
+        sa = layer.self_attn
+        q = split_heads(dense(sa.q_proj, h), n_heads)
+        k = split_heads(dense(sa.k_proj, h), n_heads)
+        v = split_heads(dense(sa.v_proj, h), n_heads)
+        x = x + dense(sa.out_proj, merge_heads(flash_attention(q, k, v)))
+        h = layer_norm(layer.final_layer_norm, x)
+        x = x + dense(layer.fc2, F.gelu(dense(layer.fc1, h)))
+    return layer_norm(enc.layer_norm, x)
+
+
+@torch.inference_mode()
+def encode(
+    model: WhisperForConditionalGeneration, input_features, *, device="cuda"
+) -> torch.Tensor:
+    """(B, n_mels, 3000) log-mel -> (B, 1500, d) encoder states."""
+    dev = resolve_device(device)
+    check_model_device(model, dev)
+    return _encode(model, torch.as_tensor(input_features).to(dev))
+
+
+# ---------------------------------------------------------------------------
+# KV cache
+# ---------------------------------------------------------------------------
+
+@dataclass
+class KVCache:
+    """Fixed-capacity decoder cache, layers stacked on axis 0, K/V FLAT:
+    self_k/self_v (L, B, capacity, D); cross_k/cross_v (L, B, 1500, D),
+    projected once per utterance. `length` is the lockstep fill.
+
+    int8 mode: K/V stored int8 with per-row absmax scales (L, B, T, 1) fp32.
+    The buffers are updated in place by `decode`."""
+
+    self_k: torch.Tensor
+    self_v: torch.Tensor
+    cross_k: torch.Tensor
+    cross_v: torch.Tensor
+    length: int
+    self_k_scale: torch.Tensor | None = None
+    self_v_scale: torch.Tensor | None = None
+    cross_k_scale: torch.Tensor | None = None
+    cross_v_scale: torch.Tensor | None = None
+
+    @property
+    def is_quantized(self) -> bool:
+        return self.cross_k_scale is not None
+
+
+def quantize_kv_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(..., T, D) -> (int8 values, fp32 per-row scale (..., T, 1))."""
+    x32 = x.float()
+    amax = x32.abs().amax(dim=-1, keepdim=True)
+    scale = torch.clamp(amax, min=1e-8) / 127.0
+    q = torch.clamp(torch.round(x32 / scale), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def _init_cache(model, encoder_out, capacity, kv_dtype):
+    cfg, dec = model.cfg, model.model.decoder
+    n_layers, d = cfg.decoder_layers, cfg.d_model
+    b, t_enc = encoder_out.shape[:2]
+    dev = encoder_out.device
+    if kv_dtype not in ("compute", "int8"):
+        raise NotImplementedError(f"kv_dtype={kv_dtype!r} is not ported yet")
+    store = torch.int8 if kv_dtype == "int8" else model.dtype
+    cross_k = torch.empty((n_layers, b, t_enc, d), dtype=store, device=dev)
+    cross_v = torch.empty_like(cross_k)
+    scales = {}
+    if kv_dtype == "int8":
+        ck_s = torch.empty((n_layers, b, t_enc, 1), dtype=torch.float32, device=dev)
+        cv_s = torch.empty_like(ck_s)
+        ones = torch.ones((n_layers, b, capacity, 1), dtype=torch.float32, device=dev)
+        scales = dict(self_k_scale=ones, self_v_scale=ones.clone(),
+                      cross_k_scale=ck_s, cross_v_scale=cv_s)
+    # one layer at a time: only one layer's full-precision projection is
+    # ever live, whatever the depth and batch
+    for i, layer in enumerate(dec.layers):
+        k = dense(layer.encoder_attn.k_proj, encoder_out)
+        v = dense(layer.encoder_attn.v_proj, encoder_out)
+        if kv_dtype == "int8":
+            cross_k[i], ck_s[i] = quantize_kv_rows(k)
+            cross_v[i], cv_s[i] = quantize_kv_rows(v)
+        else:
+            cross_k[i], cross_v[i] = k, v
+    self_k = torch.zeros((n_layers, b, capacity, d), dtype=store, device=dev)
+    return KVCache(self_k, torch.zeros_like(self_k), cross_k, cross_v, 0, **scales)
+
+
+@torch.inference_mode()
+def init_cache(
+    model: WhisperForConditionalGeneration,
+    encoder_out: torch.Tensor,
+    capacity: int,
+    *,
+    kv_dtype: str = "compute",
+    device="cuda",
+) -> KVCache:
+    """kv_dtype: "compute" (the model's dtype) or "int8"."""
+    dev = resolve_device(device)
+    check_model_device(model, dev)
+    return _init_cache(model, encoder_out.to(dev), capacity, kv_dtype)
+
+
+# ---------------------------------------------------------------------------
+# Decoder
+# ---------------------------------------------------------------------------
+
+def _decode_full(model, input_ids, encoder_out):
+    cfg, dec = model.cfg, model.model.decoder
+    n_heads = cfg.decoder_attention_heads
+    t = input_ids.shape[1]
+    x = dec.embed_tokens.weight[input_ids] + dec.embed_positions.weight[:t][None]
+    enc = encoder_out.to(model.dtype)
+    for layer in dec.layers:
+        h = layer_norm(layer.self_attn_layer_norm, x)
+        sa = layer.self_attn
+        o = attention(
+            split_heads(dense(sa.q_proj, h), n_heads),
+            split_heads(dense(sa.k_proj, h), n_heads),
+            split_heads(dense(sa.v_proj, h), n_heads),
+            causal=True,
+        )
+        x = x + dense(sa.out_proj, merge_heads(o))
+        h = layer_norm(layer.encoder_attn_layer_norm, x)
+        ea = layer.encoder_attn
+        o = attention(
+            split_heads(dense(ea.q_proj, h), n_heads),
+            split_heads(dense(ea.k_proj, enc), n_heads),
+            split_heads(dense(ea.v_proj, enc), n_heads),
+        )
+        x = x + dense(ea.out_proj, merge_heads(o))
+        h = layer_norm(layer.final_layer_norm, x)
+        x = x + dense(layer.fc2, F.gelu(dense(layer.fc1, h)))
+    return logits_from(model, layer_norm(dec.layer_norm, x))
+
+
+def _dequant(vals, scale, dtype):
+    if scale is None:
+        return vals
+    return (vals.float() * scale).to(dtype)
+
+
+def _decode_step(model, input_ids, cache: KVCache):
+    """Incremental decode of a (B, t) token block against the cache."""
+    cfg, dec = model.cfg, model.model.decoder
+    n_heads = cfg.decoder_attention_heads
+    b, t = input_ids.shape
+    pos0 = cache.length
+    capacity = cache.self_k.shape[2]
+    if pos0 + t > capacity:
+        raise ValueError(f"cache capacity {capacity} exceeded at {pos0 + t}")
+    int8_kv = cache.is_quantized
+    x = (dec.embed_tokens.weight[input_ids]
+         + dec.embed_positions.weight[pos0 : pos0 + t][None])
+    if t > 1:
+        # prefill: token i (global pos length+i) attends to slots
+        # 0..length+i: causal within the block, full over history
+        dev = input_ids.device
+        kv_mask = (
+            torch.arange(capacity, device=dev)[None, :]
+            <= pos0 + torch.arange(t, device=dev)[:, None]
+        )[None, None]
+
+    def one_query(q_flat, k_flat, v_flat, valid, k_s, v_s):
+        o = decode_attention(
+            q_flat.reshape(b, n_heads, -1), k_flat, v_flat, valid,
+            n_heads=n_heads, k_scale=k_s, v_scale=v_s,
+        )
+        return o.reshape(b, 1, -1)
+
+    def many_queries(q_flat, k_flat, v_flat, k_s, v_s, mask=None):
+        o = attention(
+            split_heads(q_flat, n_heads),
+            split_heads(_dequant(k_flat, k_s, model.dtype), n_heads),
+            split_heads(_dequant(v_flat, v_s, model.dtype), n_heads),
+            mask,
+        )
+        return merge_heads(o)
+
+    for i, layer in enumerate(dec.layers):
+        sk, sv = cache.self_k[i], cache.self_v[i]
+        sk_s = cache.self_k_scale[i] if int8_kv else None
+        sv_s = cache.self_v_scale[i] if int8_kv else None
+        h = layer_norm(layer.self_attn_layer_norm, x)
+        sa = layer.self_attn
+        q_flat = dense(sa.q_proj, h)
+        k_new, v_new = dense(sa.k_proj, h), dense(sa.v_proj, h)
+        if int8_kv:
+            k_new, sk_s[:, pos0 : pos0 + t] = quantize_kv_rows(k_new)
+            v_new, sv_s[:, pos0 : pos0 + t] = quantize_kv_rows(v_new)
+        sk[:, pos0 : pos0 + t] = k_new
+        sv[:, pos0 : pos0 + t] = v_new
+        if t == 1:
+            o_flat = one_query(q_flat, sk, sv, pos0 + 1, sk_s, sv_s)
+        else:
+            o_flat = many_queries(q_flat, sk, sv, sk_s, sv_s, kv_mask)
+        x = x + dense(sa.out_proj, o_flat)
+
+        h = layer_norm(layer.encoder_attn_layer_norm, x)
+        ea = layer.encoder_attn
+        q_flat = dense(ea.q_proj, h)
+        ck, cv = cache.cross_k[i], cache.cross_v[i]
+        ck_s = cache.cross_k_scale[i] if int8_kv else None
+        cv_s = cache.cross_v_scale[i] if int8_kv else None
+        if t == 1:
+            o_flat = one_query(q_flat, ck, cv, ck.shape[1], ck_s, cv_s)
+        else:
+            o_flat = many_queries(q_flat, ck, cv, ck_s, cv_s)
+        x = x + dense(ea.out_proj, o_flat)
+
+        h = layer_norm(layer.final_layer_norm, x)
+        x = x + dense(layer.fc2, F.gelu(dense(layer.fc1, h)))
+    logits = logits_from(model, layer_norm(dec.layer_norm, x))
+    return logits, dataclasses.replace(cache, length=pos0 + t)
+
+
+@torch.inference_mode()
+def decode(
+    model: WhisperForConditionalGeneration,
+    input_ids,
+    encoder_out: torch.Tensor | None = None,
+    cache: KVCache | None = None,
+    *,
+    device="cuda",
+):
+    """Decoder forward.
+
+    Full-sequence mode (cache=None): causal self-attention over input_ids
+    (B, T) against encoder_out; returns fp32 logits (B, T, vocab).
+
+    Incremental mode (cache given): input_ids is the next token block
+    (B, t); returns (logits, cache advanced by t). The cache's buffers are
+    written in place; the returned cache shares them. Single-token steps
+    run their self- and cross-attention through K2 on the card; a prompt
+    prefill (t > 1) dequantizes and uses plain masked attention.
+    """
+    dev = resolve_device(device)
+    check_model_device(model, dev)
+    input_ids = torch.as_tensor(input_ids).to(dev)
+    if cache is None:
+        if encoder_out is None:
+            raise ValueError("full-sequence decode needs encoder_out")
+        return _decode_full(model, input_ids, encoder_out.to(dev))
+    return _decode_step(model, input_ids, cache)

@@ -1,0 +1,65 @@
+"""ctypes loader for the repo's native core (native/libkwt_native.so).
+
+The C++ library under native/ belongs to the repo; this is the port's own
+loader for the parts it uses: audio decode and BPE decoding. It builds
+the library with `make -C native/` when the shared object is missing.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+from functools import lru_cache
+
+import numpy as np
+
+_NATIVE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    "native",
+)
+_LIB_PATH = os.path.join(_NATIVE_DIR, "libkwt_native.so")
+
+_i64 = ctypes.c_int64
+_i32 = ctypes.c_int32
+_u8p = ctypes.POINTER(ctypes.c_uint8)
+_i32p = ctypes.POINTER(ctypes.c_int32)
+_i64p = ctypes.POINTER(ctypes.c_int64)
+_f32p = ctypes.POINTER(ctypes.c_float)
+
+
+@lru_cache(maxsize=1)
+def load() -> ctypes.CDLL:
+    if not os.path.exists(_LIB_PATH):
+        subprocess.run(["make", "-C", _NATIVE_DIR], check=True, capture_output=True)
+    lib = ctypes.CDLL(_LIB_PATH)
+
+    lib.kwt_bpe_new.restype = ctypes.c_void_p
+    lib.kwt_bpe_new.argtypes = [_u8p, _i64p, _i32, _i32p, _i32]
+    lib.kwt_bpe_decode.restype = _i64
+    lib.kwt_bpe_decode.argtypes = [ctypes.c_void_p, _i32p, _i64, _u8p, _i64]
+
+    lib.kwt_audio_decode.restype = _i64
+    lib.kwt_audio_decode.argtypes = [_u8p, _i64, _i32, _f32p, _i64, _i32p]
+    return lib
+
+
+def decode_audio(data: bytes, target_rate: int = 16000) -> tuple[np.ndarray, int]:
+    """FLAC/WAV/MP3 bytes -> (mono fp32 at target_rate, native_rate)."""
+    lib = load()
+    # generous bound: FLAC worst case ~ size in samples; WAV exact
+    max_out = max(len(data) * 4, 16000)
+    for _ in range(3):
+        out = np.zeros(max_out, np.float32)
+        rate = _i32(0)
+        buf = np.frombuffer(data, np.uint8)
+        n = lib.kwt_audio_decode(
+            buf.ctypes.data_as(_u8p), len(data), target_rate,
+            out.ctypes.data_as(_f32p), max_out, ctypes.byref(rate),
+        )
+        if n == -2:
+            max_out *= 4
+            continue
+        if n < 0:
+            raise ValueError("unsupported or corrupt audio payload")
+        return out[:n].copy(), rate.value
+    raise ValueError("audio decode buffer overflow")

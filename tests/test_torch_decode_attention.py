@@ -1,0 +1,73 @@
+"""K2's plain twin vs the JAX `decode_attention_reference` (compute-dtype
+and int8 K/V with per-row scales; scalar and (B,) valid_len) and vs the
+JAX Pallas `decode_attention_flat` in interpret mode. fp32 on the CPU;
+atol 2e-5 / rtol 1e-4."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from kotoba_whisper_tpu.models import whisper as jw
+from kotoba_whisper_tpu.ops import decode_attention as jda
+from kotoba_whisper_tpu_torch.ops import decode_attention as tda
+
+TOL = dict(atol=2e-5, rtol=1e-4)
+B, T, H, HD = 3, 70, 4, 64
+
+
+def _inputs(seed, int8):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, H, HD)).astype(np.float32)
+    k = rng.standard_normal((B, T, H * HD)).astype(np.float32)
+    v = rng.standard_normal((B, T, H * HD)).astype(np.float32)
+    if not int8:
+        return q, k, v, None, None
+    kq, ks = jw.quantize_kv_rows(jnp.asarray(k))
+    vq, vs = jw.quantize_kv_rows(jnp.asarray(v))
+    return q, np.array(kq), np.array(vq), np.array(ks), np.array(vs)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["compute", "int8"])
+@pytest.mark.parametrize("per_row", [False, True], ids=["scalar", "rows"])
+def test_reference_matches_jax(int8, per_row):
+    q, k, v, ks, vs = _inputs(int(int8) * 2 + int(per_row), int8)
+    valid = np.array([T, 17, 1], np.int32) if per_row else 41
+    ref = jda.decode_attention_reference(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(valid),
+        n_heads=H,
+        k_scale=None if ks is None else jnp.asarray(ks),
+        v_scale=None if vs is None else jnp.asarray(vs),
+    )
+    got = tda.decode_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        torch.from_numpy(valid) if per_row else valid, n_heads=H,
+        k_scale=None if ks is None else torch.from_numpy(ks),
+        v_scale=None if vs is None else torch.from_numpy(vs),
+    )
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+
+
+@pytest.mark.parametrize("per_row", [False, True], ids=["scalar", "rows"])
+def test_reference_matches_pallas_flat_interpret(per_row):
+    q, k, v, _, _ = _inputs(9, False)
+    valid = np.array([5, T, 33], np.int32) if per_row else np.int32(T)
+    ref = jda.decode_attention_flat(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(valid),
+        n_heads=H, interpret=True,
+    )
+    got = tda.decode_attention_reference(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        torch.from_numpy(valid) if per_row else int(valid), n_heads=H,
+    )
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+
+
+def test_wrapper_takes_plain_twin_on_cpu():
+    q, k, v, ks, vs = map(
+        lambda x: None if x is None else torch.from_numpy(x), _inputs(4, True)
+    )
+    before = tda.decode_attention.launches
+    got = tda.decode_attention(q, k, v, 9, n_heads=H, k_scale=ks, v_scale=vs)
+    ref = tda.decode_attention_reference(q, k, v, 9, n_heads=H, k_scale=ks, v_scale=vs)
+    torch.testing.assert_close(got, ref)
+    assert tda.decode_attention.launches == before

@@ -1,0 +1,82 @@
+"""Boundary checks of the PyTorch port.
+
+- Importing every module of kotoba_whisper_tpu_torch pulls in neither JAX
+  nor the JAX package (checked in a fresh interpreter).
+- The port's sources and chip_smoke.py import neither; the port calls no
+  library attention (scaled_dot_product_attention) and no torch.compile
+  (chip_smoke.py may time SDPA as a yardstick, never through the port).
+- Entry points asked for the card on a machine without one raise.
+"""
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+PORT = REPO / "kotoba_whisper_tpu_torch"
+MODULES = sorted(
+    ".".join(p.relative_to(REPO).with_suffix("").parts)
+    for p in PORT.rglob("*.py") if p.name != "__init__.py"
+)
+JAX_IMPORT = re.compile(r"^\s*(import jax\b|from jax\b)", re.M)
+JAX_PKG_IMPORT = re.compile(r"^\s*(import|from)\s+kotoba_whisper_tpu(?!_torch)\b", re.M)
+
+
+def test_port_modules_import_without_jax():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "             or m == 'kotoba_whisper_tpu' or m.startswith('kotoba_whisper_tpu.'))\n"
+        "print(len(sys.modules)); assert not bad, bad\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert len(MODULES) >= 15
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_sources_keep_to_the_port(path):
+    text = path.read_text()
+    assert not JAX_IMPORT.search(text), "imports jax"
+    assert not JAX_PKG_IMPORT.search(text), "imports the JAX package"
+    assert "torch.compile" not in text
+    if path.name != "chip_smoke.py":
+        assert "scaled_dot_product_attention" not in text
+
+
+def test_cuda_sources_have_their_notes():
+    """Each kernel source names the TPU kernel it replaces and what bounds
+    it on the card."""
+    for cu in sorted((PORT / "csrc").glob("*.cu")):
+        head = cu.read_text()[:3000]
+        assert "Replaces:" in head and "kotoba_whisper_tpu/ops/" in head, cu.name
+        assert "What bounds it on the card" in head, cu.name
+        assert "Design:" in head, cu.name
+
+
+def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
+    from kotoba_whisper_tpu_torch.cli import pseudo_label
+    from kotoba_whisper_tpu_torch.core.config import PRESETS, SpecialTokens
+    from kotoba_whisper_tpu_torch.decode.greedy import GenerateOptions, generate_greedy
+    from kotoba_whisper_tpu_torch.models.whisper import init_params
+    from kotoba_whisper_tpu_torch.ops.mel import log_mel_spectrogram
+
+    cfg = PRESETS["test-byte"]
+    model = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    st = SpecialTokens.layout(256, 99)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        generate_greedy(model, torch.zeros(1, 80, 3000),
+                        GenerateOptions(prompt_ids=(st.sot,), max_length=4), st)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        log_mel_spectrogram(torch.zeros(1, 480000))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pseudo_label.main(["--dataset_dir", str(tmp_path), "--output_dir",
+                           str(tmp_path), "--no_fuse"])
