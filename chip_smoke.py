@@ -9,14 +9,25 @@ Phases, in order; any failure exits nonzero and prints no result line:
   1. device: torch's device name and nvidia-smi's name and power limit;
   2. build: every CUDA kernel of the port (csrc/*.cu) with nvcc, in parallel;
   3. kernels: each kernel against its plain PyTorch twin on the card at the
-     main path's shapes (large-v3, B=16), with its time, the twin's time, a
-     library call's time and the least time the card could take;
+     shapes of the path that runs it (large-v3; B=16 pseudo-labelling, B=8
+     x 128 labels training), with its time, the twin's time, a library
+     call's time and the least time the card could take;
   4. main path: large-v3 width and depth with seeded random weights, bf16,
      int8 KV, B=16, 48 new tokens with eot disabled:
      log_mel_spectrogram -> generate_greedy, with launch counters checked;
      then at B=2 the kernel path against the plain path on the card;
+  4b. train path: distillation of a 32+2-layer student initialised from a
+     seeded random large-v3 teacher, B=8 x 128 labels, bf16 compute on fp32
+     master weights: one warm-up step and 3 timed steps with launch
+     counters checked; frozen encoder unchanged, decoder moved; at B=2 the
+     kernel path against the plain path (loss and decoder gradients); one
+     B=16 step in 2 microbatches;
   5. driver: cli/pseudo_label on synthetic WAV utterances in a tar shard;
-  6. a JSON line of every kernel with its main-path launches and numbers;
+  5b. training driver: cli/create_student (4-layer encoder at large-v3
+     width) -> cli/distill 2 steps, save -> resume to step 3 -> export;
+  6. a JSON line of every kernel with the launches of the path that runs
+     it (K1-K3: the pseudo-labelling run; K4, K5: the 3 timed train steps)
+     and its numbers;
   7. the last line: {"ok": true, "device": {...}}.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -50,6 +61,14 @@ PEAKS = {"H100 80GB HBM3": (989e12, 67e12, 3.35e12)}
 REL_L2_TOL = 1e-2
 B = 16            # main-path batch (lockstep)
 NEW_TOKENS = 48   # decode steps, eot disabled
+TRAIN_B = 8       # train-path batch (the JAX package's train-b8)
+LABELS = 128      # label length, the last 16 set to -100
+TRAIN_STEPS = 3   # timed train steps after one warm-up step
+# B=2 train step, kernel path vs plain path on the card (bf16 through the
+# 32-layer frozen encoder and teacher): loss relative difference, and
+# relative L2 of the student decoder's gradients, all parameters together.
+TRAIN_LOSS_TOL = 1e-2
+TRAIN_GRAD_TOL = 5e-2
 
 
 def log(msg: str) -> None:
@@ -105,18 +124,23 @@ def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device; this script runs on the card only")
         return 2
-    from kotoba_whisper_tpu_torch.cli import pseudo_label
+    from kotoba_whisper_tpu_torch.cli import create_student, pseudo_label
+    from kotoba_whisper_tpu_torch.cli import distill as distill_cli
     from kotoba_whisper_tpu_torch.core.config import PRESETS, FeatureConfig, SpecialTokens
     from kotoba_whisper_tpu_torch.data import reazon
+    from kotoba_whisper_tpu_torch.data.shards import ShardWriter
     from kotoba_whisper_tpu_torch.decode.greedy import (
         GenerateOptions, generate_greedy, transcribe_prompt,
     )
     from kotoba_whisper_tpu_torch.models import whisper
+    from kotoba_whisper_tpu_torch.models.student_init import init_student_from_teacher
     from kotoba_whisper_tpu_torch.models.whisper import quantize_kv_rows
     from kotoba_whisper_tpu_torch.ops import _build
     from kotoba_whisper_tpu_torch.ops import decode_attention as da
     from kotoba_whisper_tpu_torch.ops import flash_attention as fa
     from kotoba_whisper_tpu_torch.ops import mel
+    from kotoba_whisper_tpu_torch.train import distill, optim
+    from kotoba_whisper_tpu_torch.train.checkpoint import get_last_checkpoint, import_hf_model
 
     torch.backends.cuda.matmul.allow_tf32 = False   # the plain twins are fp32
     torch.backends.cudnn.allow_tf32 = False
@@ -264,6 +288,73 @@ def main() -> int:
         del x, got, ref, xf
     torch.cuda.empty_cache()
 
+    # K4: causal forward at the decoder's training shape (B=8, T=128). The
+    # first rows see one or a few keys and return V's rows nearly
+    # unaveraged (|O| up to ~4.5, where one bf16 rounding step is 2^-5), so
+    # max |err| is held to 1e-2 of the twin's largest magnitude, as K5's.
+    q, k, v = (randn(TRAIN_B, LABELS, h, 64, seed=s) for s in (7, 8, 9))
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    ro, rlse = fa.flash_attention_reference(q, k, v, causal=True)
+    k4_tol = 1e-2 * float(ro.float().abs().max())
+    lse_err = float((lse - rlse).abs().max())
+    if lse_err > 1e-3:
+        raise AssertionError(f"K4 LSE disagrees: {lse_err}")
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    pairs = LABELS * (LABELS + 1) // 2  # (query, key) pairs the mask keeps
+    record(
+        f"K4 flash_attention_fwd causal (B={TRAIN_B}, T={LABELS}, H=20, D=64, bf16)",
+        "kotoba_whisper_tpu_torch/csrc/flash_attention.cu",
+        "kotoba_whisper_tpu/ops/flash_attention.py:222", compare(o, ro), k4_tol,
+        time_ms(lambda: fa.flash_attention_fwd(q, k, v, causal=True)),
+        time_ms(lambda: fa.flash_attention_reference(q, k, v, causal=True)),
+        time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)),
+        bound(4.0 * TRAIN_B * h * pairs * 64, bf16_rate, nbytes(q, k, v, o, lse), mem_rate),
+    )
+    del q, k, v, o, lse, ro, rlse, qt, kt, vt
+
+    # K5: backward of the student decoder's causal self-attention (T=128)
+    # and of its cross-attention (128 labels x 1500 encoder frames). Each
+    # gradient is held to its twin by max |err| <= 1e-2 of the twin's
+    # largest magnitude (their scale follows the inputs) and by REL_L2_TOL.
+    for label, tk, causal in (("causal", LABELS, True), ("cross", t_enc, False)):
+        q = randn(TRAIN_B, LABELS, h, 64, seed=10)
+        k, v = randn(TRAIN_B, tk, h, 64, seed=11), randn(TRAIN_B, tk, h, 64, seed=12)
+        do = randn(TRAIN_B, LABELS, h, 64, seed=13)
+        o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+        got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+        ref = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, causal=causal)
+        errs, tol = [], 0.0
+        for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+            err, rel = compare(g, r)
+            g_tol = 1e-2 * float(r.float().abs().max())
+            log(f"[kernel] K5 {label} {name}: max_abs_err {err:.3e} (tol {g_tol:.3e}) "
+                f"rel_l2 {rel:.3e} (tol {REL_L2_TOL:g})")
+            if err > g_tol or rel > REL_L2_TOL:
+                raise AssertionError(f"K5 {label} {name} disagrees with its plain twin")
+            errs.append((err, rel))
+            tol = max(tol, g_tol)
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+        sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+        do_t = do.transpose(1, 2)
+        n_pairs = LABELS * (LABELS + 1) // 2 if causal else LABELS * tk
+        record(
+            f"K5 flash_attention_bwd {label} (B={TRAIN_B}, Tq={LABELS}, Tk={tk}, H=20, "
+            "D=64, bf16; dQ, dK, dV)",
+            "kotoba_whisper_tpu_torch/csrc/flash_attention_bwd.cu",
+            "kotoba_whisper_tpu/ops/flash_attention.py:315",
+            (max(e for e, _ in errs), max(r for _, r in errs)), tol,
+            time_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)),
+            time_ms(lambda: fa.flash_attention_bwd_reference(q, k, v, o, lse, do,
+                                                             causal=causal)),
+            time_ms(lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), do_t,
+                                                retain_graph=True)),
+            # S, dP, dV, dQ, dK: five products over the kept pairs
+            bound(10.0 * TRAIN_B * h * n_pairs * 64, bf16_rate,
+                  nbytes(q, k, v, o, lse, do, *got), mem_rate),
+        )
+        del q, k, v, do, o, lse, got, ref, qt, kt, vt, sdpa_out, do_t
+    torch.cuda.empty_cache()
+
     # ---- 4. main path -----------------------------------------------------
     counters = (fa.flash_attention_fwd, da.decode_attention, mel.log_mel_frames)
 
@@ -351,7 +442,8 @@ def main() -> int:
     @contextlib.contextmanager
     def plain_path():
         saved = (whisper.flash_attention, whisper.decode_attention, mel.log_mel_frames)
-        whisper.flash_attention = lambda q, k, v: fa.flash_attention_reference(q, k, v)[0]
+        whisper.flash_attention = (
+            lambda q, k, v, causal=False: fa.flash_attention_reference(q, k, v, causal)[0])
         whisper.decode_attention = da.decode_attention_reference
         mel.log_mel_frames = mel.log_mel_frames_reference
         try:
@@ -386,6 +478,144 @@ def main() -> int:
     del model, audio, small
     torch.cuda.empty_cache()
 
+    # ---- 4b. train path ---------------------------------------------------
+    def kernel_counts():
+        return {"K1": fa.flash_attention_fwd.launches, "K2": da.decode_attention.launches,
+                "K3": mel.log_mel_frames.launches, "K4": fa.flash_attention_fwd.causal_launches,
+                "K5": fa.flash_attention_bwd.launches}
+
+    def reset_all():
+        reset()
+        fa.flash_attention_fwd.causal_launches = 0
+        fa.flash_attention_bwd.launches = 0
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    teacher = whisper.init_params(large, gen, device="cuda", dtype=torch.float32)
+    student, s_cfg = init_student_from_teacher(teacher, large, decoder_layers=2)
+    teacher = teacher.to(torch.bfloat16).requires_grad_(False)  # as the JAX trainer casts it
+    distill.freeze_encoder_(student)
+    opt, sched = optim.make_optimizer(student, lr=1e-4, warmup_steps=500)
+    state = distill.TrainState(student, opt)
+    dc = distill.DistillConfig()  # 0.8 CE + KL(T=2), frozen shared encoder, bf16, remat
+    train_step = distill.make_train_step(dc, sched)
+    torch.cuda.synchronize()
+    n_train = sum(p.numel() for p in student.parameters() if p.requires_grad)
+    log(f"[train] teacher large-v3 (bf16) and student {s_cfg.encoder_layers}+"
+        f"{s_cfg.decoder_layers} layers (fp32 master weights, {n_train / 1e6:.1f} M "
+        f"trainable) built on the card in {time.perf_counter() - t0:.1f} s")
+
+    rng = np.random.default_rng(0)
+
+    def train_batch(b):
+        ids = rng.integers(10, 5000, size=(b, LABELS))
+        labels = torch.from_numpy(ids).cuda()
+        labels[:, -16:] = -100
+        return {
+            "input_features": torch.from_numpy(
+                rng.standard_normal((b, large.num_mel_bins, feat.n_frames)).astype(np.float32)
+            ).cuda().to(torch.bfloat16),
+            "labels": labels,
+            "decoder_input_ids": whisper.shift_labels_right(
+                labels, large.decoder_start_token_id, large.pad_token_id),
+        }
+
+    batch = train_batch(TRAIN_B)
+    enc_before = [p.detach().clone() for p in student.model.encoder.parameters()]
+    dec_before = [p.detach().clone() for p in student.model.decoder.parameters()]
+    train_step(state, teacher, batch)  # warm-up: cuBLAS plans, allocator; lr 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        metrics = train_step(state, teacher, batch)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / TRAIN_STEPS
+    train_launches = kernel_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    metrics = {k: float(v) for k, v in metrics.items()}
+    # per step: K1 = 32 encoder + 2 student cross + 2 recomputed (remat)
+    # + 32 teacher cross; K4 = 2 + 2 recomputed + 32 teacher self;
+    # K5 = 2 causal + 2 cross calls
+    per_step = {"K1": large.encoder_layers + 2 * s_cfg.decoder_layers + large.decoder_layers,
+                "K2": 0, "K3": 0,
+                "K4": 2 * s_cfg.decoder_layers + large.decoder_layers,
+                "K5": 2 * s_cfg.decoder_layers}
+    log(f"[train] B={TRAIN_B} x {LABELS} labels: {step_s * 1e3:.1f} ms/step over "
+        f"{TRAIN_STEPS} steps, {TRAIN_B * feat.chunk_length_s / step_s:.1f} training "
+        f"audio-s/s/card, peak memory {peak_gb:.2f} GB [{card}]; launches over the "
+        f"{TRAIN_STEPS} steps {train_launches}; metrics {metrics}")
+    if train_launches != {k: TRAIN_STEPS * n for k, n in per_step.items()}:
+        raise AssertionError(f"train launches {train_launches}, expected "
+                             f"{TRAIN_STEPS} x {per_step}")
+    if not all(math.isfinite(v) for v in metrics.values()) or state.step != TRAIN_STEPS + 1:
+        raise AssertionError(f"train step metrics {metrics} at step {state.step}")
+    if not all(torch.equal(a, p) for a, p in zip(enc_before, student.model.encoder.parameters())):
+        raise AssertionError("the frozen encoder changed")
+    moved = sum(not torch.equal(a, p) for a, p in zip(dec_before, student.model.decoder.parameters()))
+    if moved != len(dec_before):
+        raise AssertionError(f"{len(dec_before) - moved} decoder parameters did not move")
+    del enc_before, dec_before
+
+    if args.profile:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            train_step(state, teacher, batch)
+            torch.cuda.synchronize()
+            prof_wall = time.perf_counter() - t0
+        events = prof.key_averages()
+        with open(os.path.join(args.profile, "profile_train_step.txt"), "w") as f:
+            f.write(f"{card}\n{events.table(sort_by='self_device_time_total', row_limit=40)}\n")
+        kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+        busy_us = sum(e.self_device_time_total for e in kernels)
+        log(f"[profile] train step: traced wall {prof_wall * 1e3:.1f} ms, device busy "
+            f"{busy_us / 1e3:.1f} ms ({busy_us / 1e4 / prof_wall:.1f} %) [{card}]")
+        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:20]:
+            log(f"[profile] {e.self_device_time_total / 1e3:9.2f} ms  "
+                f"{e.count:6d}x  {e.key[:90]}")
+
+    # the kernel path against the plain path on the card, at B=2: loss and
+    # the student decoder's gradients (no optimizer update)
+    small = {k: v[:2] for k, v in batch.items()}
+
+    def loss_and_grads():
+        loss, _ = distill.distill_loss(student, teacher, dc, small)
+        loss.backward()
+        params = [p for p in student.parameters() if p.requires_grad]
+        grads = torch.cat([p.grad.float().flatten() for p in params])
+        for p in params:
+            p.grad = None
+        return float(loss.detach()), grads
+
+    loss_k, grads_k = loss_and_grads()
+    with plain_path():
+        loss_p, grads_p = loss_and_grads()
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    grad_rel = float((grads_k - grads_p).norm() / grads_p.norm())
+    log(f"[train] B=2 kernel vs plain path on the card: loss {loss_k:.6f} vs {loss_p:.6f} "
+        f"(rel {loss_rel:.3e}, tol {TRAIN_LOSS_TOL:g}), student decoder gradients "
+        f"rel-L2 {grad_rel:.3e} (tol {TRAIN_GRAD_TOL:g})")
+    if not (math.isfinite(loss_k) and loss_rel <= TRAIN_LOSS_TOL and grad_rel <= TRAIN_GRAD_TOL):
+        raise AssertionError("train kernel path disagrees with the plain path")
+    del grads_k, grads_p
+
+    # one B=16 step in two microbatches of 8
+    reset_all()
+    t0 = time.perf_counter()
+    mb_metrics = distill.make_train_step(dataclasses.replace(dc, num_microbatches=2), sched)(
+        state, teacher, train_batch(2 * TRAIN_B))
+    mb_loss = float(mb_metrics["loss"])
+    mb_s = time.perf_counter() - t0
+    mb_launches = kernel_counts()
+    log(f"[train] B={2 * TRAIN_B} in 2 microbatches: {mb_s * 1e3:.1f} ms, loss {mb_loss:.4f}, "
+        f"launches {mb_launches} [{card}]")
+    if mb_launches != {k: 2 * n for k, n in per_step.items()} or not math.isfinite(mb_loss):
+        raise AssertionError(f"microbatch step: launches {mb_launches}, loss {mb_loss}")
+    del teacher, student, state, opt, batch, small
+    torch.cuda.empty_cache()
+
     # ---- 5. driver ----------------------------------------------------------
     with tempfile.TemporaryDirectory() as tmp:
         rng = np.random.default_rng(1)
@@ -413,13 +643,59 @@ def main() -> int:
         ):
             raise AssertionError(f"driver wrote {len(rows)} records for {n_utts} utterances")
 
+    # ---- 5b. training driver --------------------------------------------------
+    # A 4-layer encoder at large-v3 width keeps the student's exports and
+    # checkpoints (~0.8 GB each) short; the decoder is the 2-layer student.
+    with tempfile.TemporaryDirectory() as tmp:
+        rng = np.random.default_rng(2)
+        split = os.path.join(tmp, "split")
+        writer = ShardWriter(split, shard_size=4)
+        for i in range(6):
+            toks = rng.integers(10, 5000, int(rng.integers(8, 24))).tolist()
+            feats_i = rng.standard_normal((large.num_mel_bins, feat.n_frames)).astype(np.float32)
+            writer.add({"name": f"utt{i}", "labels": [st.sot, *toks, st.eot]}, feats_i)
+        writer.close()
+        stu, out = os.path.join(tmp, "student"), os.path.join(tmp, "run")
+        distill_args = [
+            "--data_dir", split, "--student", stu, "--teacher", "preset:large-v3",
+            "--output_dir", out, "--per_device_train_batch_size", "2",
+            "--max_label_length", "32", "--warmup_steps", "1", "--logging_steps", "1",
+            "--save_steps", "100", "--num_train_epochs", "2",
+        ]
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            create_student.main(["--teacher", "preset:large-v3", "--save_dir", stu,
+                                 "--encoder_layers", "4", "--decoder_layers", "2"])
+            t_create = time.perf_counter() - t0
+            distill_cli.main(distill_args + ["--max_steps", "2"])
+            t_first = time.perf_counter() - t0 - t_create
+            distill_cli.main(distill_args + ["--max_steps", "3"])
+        t_all = time.perf_counter() - t0
+        said = buf.getvalue()
+        with open(os.path.join(out, "metrics.run.jsonl")) as f:
+            logged = [json.loads(line) for line in f]
+        exported, ex_cfg = import_hf_model(os.path.join(out, "final"))
+        log(f"[driver] create_student {t_create:.1f} s, distill 2 steps {t_first:.1f} s, "
+            f"resume to step 3 + export {t_all - t_create - t_first:.1f} s [{card}]; "
+            f"logged losses {[round(r['train/loss'], 4) for r in logged]}")
+        if not ([r["step"] for r in logged] == [1, 2, 3]
+                and all(math.isfinite(r["train/loss"]) for r in logged)
+                and "resumed from" in said
+                and get_last_checkpoint(out)[1] == 3
+                and (ex_cfg.encoder_layers, ex_cfg.decoder_layers) == (4, 2)
+                and all(torch.isfinite(p).all() for p in exported.parameters())):
+            raise AssertionError(f"training driver run is incomplete:\n{said[-3000:]}")
+        del exported
+
     # ---- 6. kernels line, 7. result ------------------------------------------
+    path_launches = {**{k: launches[fn] for k, fn in (
+        ("K1", "flash_attention_fwd"), ("K2", "decode_attention"), ("K3", "log_mel_frames"))},
+        "K4": train_launches["K4"], "K5": train_launches["K5"]}
     for rec in records:
-        fn = {"K1": "flash_attention_fwd", "K2": "decode_attention",
-              "K3": "log_mel_frames"}[rec["name"][:2]]
-        rec["launches"] = launches[fn]
+        rec["launches"] = path_launches[rec["name"][:2]]
         if rec["launches"] < 1:
-            raise AssertionError(f"{rec['name']} never launched on the main path")
+            raise AssertionError(f"{rec['name']} never launched on the path that runs it")
     log(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

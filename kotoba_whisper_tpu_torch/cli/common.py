@@ -80,6 +80,11 @@ def load_generation_defaults(model_spec: str) -> dict[str, Any]:
     return defaults
 
 
+def read_jsonl(path: str) -> list[dict[str, Any]]:
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
 def write_jsonl(path: str, rows: Iterator[dict[str, Any]]) -> int:
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     n = 0

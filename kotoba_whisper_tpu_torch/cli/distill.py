@@ -1,0 +1,197 @@
+"""Stage-5 driver: distillation training on one card.
+
+Streams the sharded feature splits (data/shards.py) through the epochs x
+splits schedule (train/loader.py), runs the CE + KL distillation step
+(train/distill.py: frozen shared encoder, remat student decoder, teacher
+decoder without grad, microbatch accumulation, clip + AdamW), saves,
+rotates and resumes checkpoints with the exact data position, logs the
+JAX driver's metric names (train/loss|ce_loss|kl_loss|grad_norm|
+learning_rate|time) and exports the student in HF layout at the end.
+
+The flags mirror the JAX driver's. Not ported (they raise): more than one
+device or process (--num_devices > 1, --mesh_model_axis > 1,
+--coordinator_address / --num_processes), wandb, and --dtype float32 on
+the card (K1, K4 and K5 take bfloat16). On the CPU (--device cpu) float32
+runs through the kernels' plain twins.
+
+Usage:
+  python -m kotoba_whisper_tpu_torch.cli.distill \
+      --train_splits data/ --student student/ --teacher teacher/ \
+      --output_dir run/ --per_device_train_batch_size 8
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+
+def _parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--data_dir", default=None,
+                    help="single split dir (alias for --train_splits with one split)")
+    ap.add_argument("--train_splits", default=None,
+                    help="a dir holding split_N subdirs, a comma list of dirs, or one dir")
+    ap.add_argument("--student", required=True)
+    ap.add_argument("--teacher", required=True)
+    ap.add_argument("--output_dir", required=True)
+    ap.add_argument("--tokenizer", default="byte")
+    ap.add_argument("--per_device_train_batch_size", type=int, default=8)
+    ap.add_argument("--gradient_accumulation_steps", type=int, default=1)
+    ap.add_argument("--learning_rate", type=float, default=1e-4)
+    ap.add_argument("--warmup_steps", type=int, default=500)
+    ap.add_argument("--lr_scheduler_type", default="constant_with_warmup")
+    ap.add_argument("--num_train_epochs", type=int, default=1)
+    ap.add_argument("--max_steps", type=int, default=-1)
+    ap.add_argument("--max_label_length", type=int, default=128)
+    ap.add_argument("--temperature", type=float, default=2.0)
+    ap.add_argument("--kl_weight", type=float, default=1.0)
+    ap.add_argument("--freeze_encoder", action="store_true", default=True)
+    ap.add_argument("--no_freeze_encoder", dest="freeze_encoder", action="store_false")
+    ap.add_argument("--save_steps", type=int, default=500)
+    ap.add_argument("--save_total_limit", type=int, default=1)
+    ap.add_argument("--logging_steps", type=int, default=25)
+    ap.add_argument("--seed", type=int, default=42)
+    ap.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32"])
+    ap.add_argument("--mesh_model_axis", type=int, default=1)
+    ap.add_argument("--num_devices", type=int, default=None)
+    ap.add_argument("--no_prefetch", action="store_true",
+                    help="disable the batch-assembly and next-split prefetch threads")
+    ap.add_argument("--resume_from_checkpoint", action="store_true", default=True)
+    ap.add_argument("--no_resume", dest="resume_from_checkpoint", action="store_false")
+    ap.add_argument("--wandb_project", default=None)
+    ap.add_argument("--coordinator_address", default=None)
+    ap.add_argument("--num_processes", type=int, default=None)
+    ap.add_argument("--process_id", type=int, default=None)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu; with no card and no --device cpu "
+                    "the driver raises")
+    return ap
+
+
+def _check_ported(arg, dev: torch.device) -> None:
+    unported = [
+        (arg.mesh_model_axis > 1, f"--mesh_model_axis {arg.mesh_model_axis}"),
+        (arg.num_devices is not None and arg.num_devices > 1, f"--num_devices {arg.num_devices}"),
+        (arg.coordinator_address is not None, "--coordinator_address"),
+        (arg.num_processes is not None and arg.num_processes > 1,
+         f"--num_processes {arg.num_processes}"),
+        (arg.wandb_project is not None, "--wandb_project"),
+        (dev.type == "cuda" and arg.dtype != "bfloat16",
+         f"--dtype {arg.dtype} on the card (K1, K4 and K5 take bfloat16)"),
+    ]
+    for bad, what in unported:
+        if bad:
+            raise SystemExit(f"distill: {what} is not ported yet")
+
+
+def main(argv=None) -> None:
+    ap = _parser()
+    arg = ap.parse_args(argv)
+    if not (arg.data_dir or arg.train_splits):
+        ap.error("one of --data_dir / --train_splits is required")
+
+    from kotoba_whisper_tpu_torch.cli import common
+    from kotoba_whisper_tpu_torch.core.device import resolve_device
+    from kotoba_whisper_tpu_torch.data.collator import CollatorConfig, collate_labels
+    from kotoba_whisper_tpu_torch.data.shards import resolve_split_dirs
+    from kotoba_whisper_tpu_torch.train import checkpoint, distill, optim
+    from kotoba_whisper_tpu_torch.train.loader import DataPosition, ScheduleLoader
+    from kotoba_whisper_tpu_torch.train.logging import MetricLogger
+
+    dev = resolve_device(arg.device)
+    _check_ported(arg, dev)
+    compute_dtype = torch.bfloat16 if arg.dtype == "bfloat16" else torch.float32
+
+    split_dirs = resolve_split_dirs(arg.train_splits or arg.data_dir)
+    common.load_tokenizer(arg.tokenizer)  # validates the spec, as the JAX driver does
+    student, s_cfg = common.load_model(arg.student, dev, torch.float32)
+    teacher, t_cfg = common.load_model(arg.teacher, dev, compute_dtype)
+    teacher.requires_grad_(False)
+
+    global_batch = arg.per_device_train_batch_size
+    loader = ScheduleLoader(split_dirs, seed=arg.seed, global_batch=global_batch,
+                            num_epochs=arg.num_train_epochs, prefetch=not arg.no_prefetch)
+    for s in range(len(split_dirs)):
+        if loader.batches_in_split(s) == 0:
+            raise SystemExit(f"split {split_dirs[s]} has {loader.split_size(s)} rows < "
+                             f"batch {global_batch}; shrink the batch")
+    steps_per_epoch = loader.steps_per_epoch()
+
+    dc = distill.DistillConfig(
+        kl_weight=arg.kl_weight,
+        temperature=arg.temperature,
+        freeze_encoder=arg.freeze_encoder,
+        share_hidden_states=arg.freeze_encoder and s_cfg.d_model == t_cfg.d_model,
+        num_microbatches=arg.gradient_accumulation_steps,
+        compute_dtype=compute_dtype,
+    )
+    if dc.freeze_encoder:
+        distill.freeze_encoder_(student)
+    opt, sched = optim.make_optimizer(
+        student, lr=arg.learning_rate, warmup_steps=arg.warmup_steps,
+        schedule=arg.lr_scheduler_type,
+        total_steps=arg.max_steps if arg.max_steps > 0 else None,
+    )
+    state = distill.TrainState(student, opt)
+    step_fn = distill.make_train_step(dc, sched, device=dev)
+
+    pos = DataPosition()
+    last = checkpoint.get_last_checkpoint(arg.output_dir)
+    if arg.resume_from_checkpoint and last is not None:
+        path, resumed_step, start_epoch = last
+        checkpoint.load_train_state(path, state)
+        saved = DataPosition.load(path)
+        if saved is not None:
+            pos = saved
+        elif steps_per_epoch > 0:
+            # a checkpoint without data_state.json: derive from the step
+            pos = DataPosition(start_epoch, 0, resumed_step - start_epoch * steps_per_epoch)
+        print(f"resumed from {path} (step {resumed_step}, {pos})")
+
+    logger = MetricLogger(arg.output_dir)
+    ccfg = CollatorConfig(
+        max_target_length=arg.max_label_length,
+        decoder_start_token_id=s_cfg.decoder_start_token_id,
+        pad_token_id=s_cfg.pad_token_id,
+    )
+
+    def save(pos_next: DataPosition) -> None:
+        ck = checkpoint.save_train_state(arg.output_dir, state, pos_next.epoch,
+                                         arg.save_total_limit)
+        pos_next.save(ck)
+
+    t_last = time.time()
+    last_pos = pos
+    for bpos, rows_b, feats_b in loader.batches(pos):
+        lab = collate_labels([r["labels"] for r in rows_b], ccfg)
+        batch = {
+            "input_features": torch.from_numpy(np.asarray(feats_b)).to(dev, compute_dtype),
+            "labels": torch.from_numpy(lab["labels"]).long().to(dev),
+            "decoder_input_ids": torch.from_numpy(lab["decoder_input_ids"]).long().to(dev),
+        }
+        metrics = step_fn(state, teacher, batch)
+        last_pos = bpos
+        if state.step % arg.logging_steps == 0:
+            metrics = {k: float(v) for k, v in metrics.items()}
+            metrics["epoch"] = bpos.epoch
+            metrics["split"] = bpos.split
+            metrics["time"] = time.time() - t_last
+            t_last = time.time()
+            logger.log(metrics, state.step)
+            print(f"step {state.step}: " + ", ".join(f"{k}={v:.4g}" for k, v in metrics.items()))
+        if state.step % arg.save_steps == 0:
+            save(loader.next_position(bpos))
+        if arg.max_steps > 0 and state.step >= arg.max_steps:
+            break
+
+    save(loader.next_position(last_pos))
+    checkpoint.export_hf_model(f"{arg.output_dir}/final", state.model, s_cfg)
+    print(f"training done at step {state.step}; model exported to {arg.output_dir}/final")
+
+
+if __name__ == "__main__":
+    main()

@@ -82,7 +82,7 @@ def generate_greedy(
     rc = opts.rule_config(special)
     pad, eot = cfg.pad_token_id, special.eot
 
-    encoder_out = whisper._encode(model, feats)
+    encoder_out = whisper.encoder_forward(model, feats)
     cache = whisper._init_cache(model, encoder_out, max_len, kv_dtype)
 
     tokens = torch.full((b, max_len), pad, dtype=torch.long, device=dev)

@@ -10,12 +10,20 @@ modules rather than in `forward`, to keep the JAX package's numerics:
   - conv stem with exact-erf GELU, fixed sinusoidal encoder positions;
   - logits in fp32 against the tied token embedding.
 
-The activation (compute) dtype is the dtype of the model's weights: cast
-the model (`model.to(torch.bfloat16)`) to run in bf16.
+The activation (compute) dtype is the dtype of the model's weights unless
+a function is given `compute_dtype`: serving casts the model
+(`model.to(torch.bfloat16)`); training keeps fp32 master weights and casts
+each weight to the compute dtype at its use, as the JAX package's `dense`
+does, so gradients reach the fp32 weights.
 
-On the card the encoder's self-attention runs through kernel K1 and every
-single-token decode step's self- and cross-attention through K2; on the
-CPU the same calls take their plain twins.
+On the card the encoder's self-attention runs through kernel K1, the
+full-sequence decoder's causal self-attention through K4 and its
+cross-attention through K1 (with K5 for the backward pass of both), and
+every single-token decode step's self- and cross-attention through K2; on
+the CPU the same calls take their plain twins.
+
+`encoder_forward`, `decoder_forward` and `forward` build autograd graphs
+(training); `encode`, `decode` and `init_cache` run under inference mode.
 """
 from __future__ import annotations
 
@@ -26,6 +34,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from kotoba_whisper_tpu_torch.core.config import WhisperConfig
 from kotoba_whisper_tpu_torch.core.device import check_model_device, resolve_device
@@ -159,22 +168,29 @@ def init_params(
 # ---------------------------------------------------------------------------
 
 def layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
-    """PyTorch's fused LayerNorm computes in fp32 for bf16 inputs and
-    rounds once on output: the JAX package's fp32 LayerNorm."""
-    return F.layer_norm(x, ln.normalized_shape, ln.weight, ln.bias, ln.eps)
+    """The JAX package's LayerNorm: fp32 statistics and affine, one rounding
+    to x's dtype. PyTorch's fused LayerNorm computes in fp32 for bf16 input
+    with weights of the same dtype; fp32 weights on bf16 activations (fp32
+    master weights in training) take the explicit fp32 path."""
+    if ln.weight.dtype == x.dtype:
+        return F.layer_norm(x, ln.normalized_shape, ln.weight, ln.bias, ln.eps)
+    return F.layer_norm(
+        x.float(), ln.normalized_shape, ln.weight.float(), ln.bias.float(), ln.eps
+    ).to(x.dtype)
 
 
 def dense(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-    y = F.linear(x, lin.weight)
+    """Product in x's dtype (the weight cast to it), bias added after."""
+    y = F.linear(x, lin.weight.to(x.dtype))
     if lin.bias is not None:
-        y = y + lin.bias
+        y = y + lin.bias.to(x.dtype)
     return y
 
 
 def conv1d(conv: nn.Conv1d, x: torch.Tensor) -> torch.Tensor:
-    """x (B, C_in, T); K=3, padding 1; bias added after the product."""
-    y = F.conv1d(x, conv.weight, None, stride=conv.stride, padding=conv.padding)
-    return y + conv.bias[None, :, None]
+    """x (B, C_in, T); K=3, padding 1; product in x's dtype, bias after."""
+    y = F.conv1d(x, conv.weight.to(x.dtype), None, stride=conv.stride, padding=conv.padding)
+    return y + conv.bias.to(x.dtype)[None, :, None]
 
 
 def split_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
@@ -187,33 +203,54 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(b, t, h * hd)
 
 
-def logits_from(model: WhisperForConditionalGeneration, x: torch.Tensor) -> torch.Tensor:
-    """fp32 logits against the tied embedding: the product of two bf16
-    values is exact in fp32, so fp32 operands give bf16-in/fp32-out."""
-    emb = model.model.decoder.embed_tokens.weight
-    return F.linear(x.float(), emb.float())
+def logits_from(emb: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """fp32 logits against the tied embedding, cast to x's dtype first (as
+    the JAX package does): the product of two bf16 values is exact in fp32,
+    so fp32 operands give bf16-in/fp32-out."""
+    return F.linear(x.float(), emb.to(x.dtype).float())
+
+
+def _maybe_remat(fn, remat: bool, *args):
+    """fn(*args), recomputed in the backward pass when `remat` (the JAX
+    package's jax.checkpoint of each scanned layer)."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return fn(*args)
 
 
 # ---------------------------------------------------------------------------
 # Encoder
 # ---------------------------------------------------------------------------
 
-def _encode(model: WhisperForConditionalGeneration, feats: torch.Tensor) -> torch.Tensor:
+def _encoder_layer(layer: EncoderLayer, n_heads: int, x: torch.Tensor) -> torch.Tensor:
+    h = layer_norm(layer.self_attn_layer_norm, x)
+    sa = layer.self_attn
+    q = split_heads(dense(sa.q_proj, h), n_heads)
+    k = split_heads(dense(sa.k_proj, h), n_heads)
+    v = split_heads(dense(sa.v_proj, h), n_heads)
+    x = x + dense(sa.out_proj, merge_heads(flash_attention(q, k, v)))
+    h = layer_norm(layer.final_layer_norm, x)
+    return x + dense(layer.fc2, F.gelu(dense(layer.fc1, h)))
+
+
+def encoder_forward(
+    model: WhisperForConditionalGeneration,
+    feats: torch.Tensor,
+    *,
+    compute_dtype: torch.dtype | None = None,
+    remat: bool = False,
+) -> torch.Tensor:
+    """(B, n_mels, 3000) log-mel on the model's device -> (B, 1500, d)
+    encoder states in the compute dtype (default: the weights' dtype).
+    Differentiable; run it under torch.no_grad() for a frozen encoder."""
     cfg, enc = model.cfg, model.model.encoder
-    x = feats.to(model.dtype)
+    dtype = compute_dtype or model.dtype
+    x = feats.to(dtype)
     x = F.gelu(conv1d(enc.conv1, x))
     x = F.gelu(conv1d(enc.conv2, x)).transpose(1, 2)
-    x = x + enc.embed_positions.weight[None]
-    n_heads = cfg.encoder_attention_heads
+    x = x + enc.embed_positions.weight.to(dtype)[None]
     for layer in enc.layers:
-        h = layer_norm(layer.self_attn_layer_norm, x)
-        sa = layer.self_attn
-        q = split_heads(dense(sa.q_proj, h), n_heads)
-        k = split_heads(dense(sa.k_proj, h), n_heads)
-        v = split_heads(dense(sa.v_proj, h), n_heads)
-        x = x + dense(sa.out_proj, merge_heads(flash_attention(q, k, v)))
-        h = layer_norm(layer.final_layer_norm, x)
-        x = x + dense(layer.fc2, F.gelu(dense(layer.fc1, h)))
+        x = _maybe_remat(_encoder_layer, remat, layer, cfg.encoder_attention_heads, x)
     return layer_norm(enc.layer_norm, x)
 
 
@@ -224,7 +261,7 @@ def encode(
     """(B, n_mels, 3000) log-mel -> (B, 1500, d) encoder states."""
     dev = resolve_device(device)
     check_model_device(model, dev)
-    return _encode(model, torch.as_tensor(input_features).to(dev))
+    return encoder_forward(model, torch.as_tensor(input_features).to(dev))
 
 
 # ---------------------------------------------------------------------------
@@ -314,33 +351,50 @@ def init_cache(
 # Decoder
 # ---------------------------------------------------------------------------
 
-def _decode_full(model, input_ids, encoder_out):
+def _decoder_layer(layer: DecoderLayer, n_heads: int, x: torch.Tensor,
+                   enc: torch.Tensor) -> torch.Tensor:
+    h = layer_norm(layer.self_attn_layer_norm, x)
+    sa = layer.self_attn
+    o = flash_attention(
+        split_heads(dense(sa.q_proj, h), n_heads),
+        split_heads(dense(sa.k_proj, h), n_heads),
+        split_heads(dense(sa.v_proj, h), n_heads),
+        causal=True,
+    )
+    x = x + dense(sa.out_proj, merge_heads(o))
+    h = layer_norm(layer.encoder_attn_layer_norm, x)
+    ea = layer.encoder_attn
+    o = flash_attention(
+        split_heads(dense(ea.q_proj, h), n_heads),
+        split_heads(dense(ea.k_proj, enc), n_heads),
+        split_heads(dense(ea.v_proj, enc), n_heads),
+    )
+    x = x + dense(ea.out_proj, merge_heads(o))
+    h = layer_norm(layer.final_layer_norm, x)
+    return x + dense(layer.fc2, F.gelu(dense(layer.fc1, h)))
+
+
+def decoder_forward(
+    model: WhisperForConditionalGeneration,
+    input_ids: torch.Tensor,
+    encoder_out: torch.Tensor,
+    *,
+    compute_dtype: torch.dtype | None = None,
+    remat: bool = False,
+) -> torch.Tensor:
+    """Full-sequence decoder (training, teacher forcing): causal
+    self-attention over input_ids (B, T) against encoder_out, both on the
+    model's device -> fp32 logits (B, T, vocab). Differentiable; `remat`
+    recomputes each layer in the backward pass."""
     cfg, dec = model.cfg, model.model.decoder
-    n_heads = cfg.decoder_attention_heads
+    dtype = compute_dtype or model.dtype
     t = input_ids.shape[1]
-    x = dec.embed_tokens.weight[input_ids] + dec.embed_positions.weight[:t][None]
-    enc = encoder_out.to(model.dtype)
+    emb = dec.embed_tokens.weight.to(dtype)
+    x = emb[input_ids] + dec.embed_positions.weight[:t].to(dtype)[None]
+    enc = encoder_out.to(dtype)
     for layer in dec.layers:
-        h = layer_norm(layer.self_attn_layer_norm, x)
-        sa = layer.self_attn
-        o = attention(
-            split_heads(dense(sa.q_proj, h), n_heads),
-            split_heads(dense(sa.k_proj, h), n_heads),
-            split_heads(dense(sa.v_proj, h), n_heads),
-            causal=True,
-        )
-        x = x + dense(sa.out_proj, merge_heads(o))
-        h = layer_norm(layer.encoder_attn_layer_norm, x)
-        ea = layer.encoder_attn
-        o = attention(
-            split_heads(dense(ea.q_proj, h), n_heads),
-            split_heads(dense(ea.k_proj, enc), n_heads),
-            split_heads(dense(ea.v_proj, enc), n_heads),
-        )
-        x = x + dense(ea.out_proj, merge_heads(o))
-        h = layer_norm(layer.final_layer_norm, x)
-        x = x + dense(layer.fc2, F.gelu(dense(layer.fc1, h)))
-    return logits_from(model, layer_norm(dec.layer_norm, x))
+        x = _maybe_remat(_decoder_layer, remat, layer, cfg.decoder_attention_heads, x, enc)
+    return logits_from(emb, layer_norm(dec.layer_norm, x))
 
 
 def _dequant(vals, scale, dtype):
@@ -419,7 +473,7 @@ def _decode_step(model, input_ids, cache: KVCache):
 
         h = layer_norm(layer.final_layer_norm, x)
         x = x + dense(layer.fc2, F.gelu(dense(layer.fc1, h)))
-    logits = logits_from(model, layer_norm(dec.layer_norm, x))
+    logits = logits_from(dec.embed_tokens.weight, layer_norm(dec.layer_norm, x))
     return logits, dataclasses.replace(cache, length=pos0 + t)
 
 
@@ -449,5 +503,55 @@ def decode(
     if cache is None:
         if encoder_out is None:
             raise ValueError("full-sequence decode needs encoder_out")
-        return _decode_full(model, input_ids, encoder_out.to(dev))
+        return decoder_forward(model, input_ids, encoder_out.to(dev))
     return _decode_step(model, input_ids, cache)
+
+
+# ---------------------------------------------------------------------------
+# Full forward + CE loss (HF forward(labels=...) with the -100 mask)
+# ---------------------------------------------------------------------------
+
+def forward(
+    model: WhisperForConditionalGeneration,
+    input_features,
+    decoder_input_ids,
+    *,
+    encoder_out: torch.Tensor | None = None,
+    compute_dtype: torch.dtype | None = None,
+    remat: bool = False,
+    device="cuda",
+):
+    """-> (fp32 logits (B, T, vocab), encoder_out). Differentiable."""
+    dev = resolve_device(device)
+    check_model_device(model, dev)
+    if encoder_out is None:
+        encoder_out = encoder_forward(
+            model, torch.as_tensor(input_features).to(dev),
+            compute_dtype=compute_dtype, remat=remat,
+        )
+    logits = decoder_forward(
+        model, torch.as_tensor(decoder_input_ids).to(dev), encoder_out.to(dev),
+        compute_dtype=compute_dtype, remat=remat,
+    )
+    return logits, encoder_out
+
+
+def ce_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Token-mean cross-entropy with the -100 ignore mask (HF semantics)."""
+    mask = labels != -100
+    safe = torch.where(mask, labels, 0)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, safe[..., None].long())[..., 0]
+    return (nll * mask).sum() / mask.sum().clamp(min=1)
+
+
+def shift_labels_right(
+    labels: torch.Tensor, decoder_start: int, pad_id: int = 50256
+) -> torch.Tensor:
+    """labels (with -100 pads) -> decoder_input_ids (collator semantics):
+    prepend the start token, drop the last, replace -100 with pad so the
+    embeddings are valid (those positions are loss-masked)."""
+    start = torch.full((labels.shape[0], 1), decoder_start, dtype=labels.dtype,
+                       device=labels.device)
+    shifted = torch.cat([start, labels[:, :-1]], dim=1)
+    return torch.where(shifted == -100, pad_id, shifted)

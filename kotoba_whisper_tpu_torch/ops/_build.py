@@ -2,14 +2,16 @@
 
 Each source compiles into its own shared library with a plain C interface
 (no PyTorch headers, so a build takes seconds), under build/torch_kernels/
-of the checkout, named by a hash of the source so an edited kernel is
-rebuilt. The first use builds every missing library, one nvcc process per
-source, all started together. Nothing here runs at import time: the CPU
-tests import every module of the package on machines without nvcc.
+of the checkout, named by a hash of the source and the shared headers
+(csrc/*.cuh), so an edited kernel is rebuilt. The first use builds every
+missing library, one nvcc process per source, all started together.
+Nothing here runs at import time: the CPU tests import every module of the
+package on machines without nvcc.
 """
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -20,7 +22,7 @@ import time
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
-SOURCES = ("flash_attention", "decode_attention", "mel")
+SOURCES = ("flash_attention", "flash_attention_bwd", "decode_attention", "mel")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -31,7 +33,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # c_void_p (ctypes would otherwise pass 32-bit ints and cut them)
 SIGNATURES = {
     "flash_attention": {
-        "kwt_flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "kwt_flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    },
+    "flash_attention_bwd": {
+        "kwt_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     },
     "decode_attention": {
         "kwt_decode_attention": [
@@ -52,8 +57,11 @@ def source_path(name: str) -> str:
 
 
 def library_path(name: str) -> str:
-    with open(source_path(name), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [source_path(name), *sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))]:
+        with open(path, "rb") as f:
+            h.update(f.read())
+    digest = h.hexdigest()
     return os.path.join(BUILD_DIR, f"{name}-{digest[:12]}.so")
 
 

@@ -53,8 +53,13 @@ def test_sources_keep_to_the_port(path):
 
 def test_cuda_sources_have_their_notes():
     """Each kernel source names the TPU kernel it replaces and what bounds
-    it on the card."""
-    for cu in sorted((PORT / "csrc").glob("*.cu")):
+    it on the card, and every source the build compiles is among them."""
+    from kotoba_whisper_tpu_torch.ops import _build
+
+    sources = sorted((PORT / "csrc").glob("*.cu"))
+    assert {cu.stem for cu in sources} == set(_build.SOURCES)
+    assert "flash_attention_bwd" in _build.SOURCES
+    for cu in sources:
         head = cu.read_text()[:3000]
         assert "Replaces:" in head and "kotoba_whisper_tpu/ops/" in head, cu.name
         assert "What bounds it on the card" in head, cu.name
@@ -62,11 +67,12 @@ def test_cuda_sources_have_their_notes():
 
 
 def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
-    from kotoba_whisper_tpu_torch.cli import pseudo_label
+    from kotoba_whisper_tpu_torch.cli import create_student, distill, pseudo_label
     from kotoba_whisper_tpu_torch.core.config import PRESETS, SpecialTokens
     from kotoba_whisper_tpu_torch.decode.greedy import GenerateOptions, generate_greedy
-    from kotoba_whisper_tpu_torch.models.whisper import init_params
+    from kotoba_whisper_tpu_torch.models.whisper import forward, init_params
     from kotoba_whisper_tpu_torch.ops.mel import log_mel_spectrogram
+    from kotoba_whisper_tpu_torch.train.distill import DistillConfig, make_train_step
 
     cfg = PRESETS["test-byte"]
     model = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
@@ -80,3 +86,12 @@ def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         pseudo_label.main(["--dataset_dir", str(tmp_path), "--output_dir",
                            str(tmp_path), "--no_fuse"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        forward(model, torch.zeros(1, 80, 3000), torch.zeros(1, 4, dtype=torch.long))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_train_step(DistillConfig())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        create_student.main(["--teacher", "preset:test-byte", "--save_dir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        distill.main(["--data_dir", str(tmp_path), "--student", "preset:test-byte",
+                      "--teacher", "preset:test-byte", "--output_dir", str(tmp_path)])

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1-K3) vs their plain twins, on the card.
+"""The port's CUDA kernels (K1-K5) vs their plain twins, on the card.
 
 Marked `cuda`: skipped where no card is present. Run on a machine with an
 H100:  python -m pytest tests/test_torch_kernels_cuda.py -q
@@ -6,7 +6,9 @@ Shapes cover the ragged edges (T not a multiple of the tiles, short and
 per-row valid lengths, batch tails). bf16 kernels are held to their twins
 elementwise (atol set from the card's readings, rtol 1e-2 for bf16 rounding
 of large values) and by relative L2 <= 1e-2, about 10x bf16 rounding, which a
-dropped or mis-weighted key tile exceeds; the fp32 mel kernel to 1e-4.
+dropped or mis-weighted key tile exceeds; the fp32 mel kernel to 1e-4. K5's
+gradients, whose scale follows the inputs, are held elementwise to 1e-2 of
+their largest magnitude (rtol 1e-2) and by the same relative L2.
 """
 import numpy as np
 import pytest
@@ -53,6 +55,64 @@ def test_flash_attention_kernel(b, tq, tk, h):
     ro, rlse = fa.flash_attention_reference(q, k, v)
     _assert_near(o, ro, atol=5e-3)
     torch.testing.assert_close(lse, rlse, atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.parametrize("b, t, h", [(2, 130, 3), (8, 128, 20), (3, 64, 2), (1, 1, 1)])
+def test_causal_flash_attention_kernel(b, t, h):
+    """K4: causal T not a multiple of the 64-row tile, the training shape,
+    one exact tile, and a single row."""
+    q, k, v = (_randn(b, t, h, 64, seed=s) for s in (7, 8, 9))
+    before = fa.flash_attention_fwd.causal_launches
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_fwd.causal_launches == before + 1
+    ro, rlse = fa.flash_attention_reference(q, k, v, causal=True)
+    _assert_near(o, ro, atol=5e-3)
+    torch.testing.assert_close(lse, rlse, atol=1e-3, rtol=1e-4)
+
+
+def _assert_grad_near(got, ref, name):
+    got, ref = got.float(), ref.float()
+    torch.testing.assert_close(got, ref, atol=1e-2 * float(ref.abs().max()), rtol=1e-2,
+                               msg=lambda m: f"{name}: {m}")
+    rel = float((got - ref).norm() / ref.norm())
+    assert rel <= 1e-2, f"{name}: relative L2 error {rel:.3e}"
+
+
+@pytest.mark.parametrize("b, tq, tk, h, causal", [
+    (2, 130, 130, 3, True),      # causal, ragged T
+    (8, 128, 128, 20, True),     # training self-attention shape
+    (1, 70, 1500, 3, False),     # cross, ragged Tq and Tk
+    (3, 64, 200, 2, False),      # one exact Q tile, B*H tail
+    (8, 128, 1500, 20, False),   # training cross-attention shape
+])
+def test_flash_attention_backward_kernel(b, tq, tk, h, causal):
+    q = _randn(b, tq, h, 64, seed=10)
+    k = _randn(b, tk, h, 64, seed=11)
+    v = _randn(b, tk, h, 64, seed=12)
+    do = _randn(b, tq, h, 64, seed=13)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+    before = fa.flash_attention_bwd.launches
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bwd.launches == before + 1
+    ref = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, causal=causal)
+    for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+        assert g.dtype == torch.bfloat16 and g.shape == r.shape
+        _assert_grad_near(g, r, name)
+
+
+def test_flash_attention_autograd_on_card():
+    """FlashAttention's gradients (K4 forward, K5 backward) against autograd
+    of the plain twin, bf16 on the card."""
+    q, k, v = (_randn(2, 96, 4, 64, seed=s).requires_grad_() for s in (14, 15, 16))
+    do = _randn(2, 96, 4, 64, seed=17)
+    fa.flash_attention(q, k, v, causal=True).backward(do)
+    got = [t.grad for t in (q, k, v)]
+    q2, k2, v2 = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    fa.flash_attention_reference(q2, k2, v2, causal=True)[0].backward(do)
+    for name, g, t in zip(("dq", "dk", "dv"), got, (q2, k2, v2)):
+        _assert_grad_near(g, t.grad, name)
 
 
 @pytest.mark.parametrize("int8", [True, False], ids=["int8", "bf16"])
