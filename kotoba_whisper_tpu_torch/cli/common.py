@@ -56,6 +56,28 @@ def load_model(spec: str, device: torch.device, dtype: torch.dtype, seed: int = 
     return model.to(device=device, dtype=dtype), cfg
 
 
+def fuse_unless(model, disabled: bool):
+    """Lossless inference projection fusion (models/optimized.py) unless
+    disabled: fewer, larger products in the decode loop."""
+    if disabled:
+        return model
+    from kotoba_whisper_tpu_torch.models.optimized import fuse_for_inference
+
+    return fuse_for_inference(model)
+
+
+def quantize_if(model, gemm_dtype: str):
+    """Opt-in w8a8 int8 projections (models/quantized.py). Changes the
+    outputs: the operator validates pseudo-label quality."""
+    if gemm_dtype == "compute":
+        return model
+    if gemm_dtype != "int8":
+        raise SystemExit(f"unsupported --gemm_dtype {gemm_dtype}")
+    from kotoba_whisper_tpu_torch.models.quantized import quantize_for_inference
+
+    return quantize_for_inference(model)
+
+
 def load_generation_defaults(model_spec: str) -> dict[str, Any]:
     """Decode defaults from a checkpoint dir's generation_config.json
     (HF layout): suppress lists and the initial-timestamp cap. Presets and

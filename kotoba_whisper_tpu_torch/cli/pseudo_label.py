@@ -3,19 +3,23 @@
 Streams utterances from tar shards, decodes audio with the native core,
 computes the log-mel features on the device (kernel K3), and greedy-
 decodes token-id pseudo-labels with timestamps in lockstep batches
-(encoder attention through K1, decode-step attention through K2). Writes
-pseudo_labels.jsonl and a CSV dump, the files the JAX driver writes.
+(encoder attention through K1, or K8 under KWT_FA_INT8=qk|qkpv;
+decode-step attention through K2). Writes pseudo_labels.jsonl and a CSV
+dump, the files the JAX driver writes.
 
-The flags mirror the JAX driver's. Ported: --num_beams 1, lockstep
-batching, one device, --kv_dtype compute|int8, --gemm_dtype compute,
---wire_dtype float32|int16, --text_lang_task, and --no_fuse (the
-projection fusion itself is not ported). Any other value raises.
+The flags mirror the JAX driver's. As there, the attention projections
+are fused for inference unless --no_fuse is given, and --gemm_dtype int8
+quantizes the projections to w8a8. Ported: --num_beams 1, lockstep
+batching, one device, --kv_dtype compute|int8, --gemm_dtype
+compute|int8, --wire_dtype float32|int16, --text_lang_task and
+--no_fuse. Any other value raises.
 
 Usage:
   python -m kotoba_whisper_tpu_torch.cli.pseudo_label \
       --dataset_dir /data/reazon --output_dir out/ \
-      --model preset:large-v3 --tokenizer byte:51866 --no_fuse \
-      --language ja --task transcribe --batch_size 16 --kv_dtype int8
+      --model preset:large-v3 --tokenizer byte:51866 \
+      --language ja --task transcribe --batch_size 16 --kv_dtype int8 \
+      --gemm_dtype int8
 """
 from __future__ import annotations
 
@@ -62,8 +66,7 @@ def _parser() -> argparse.ArgumentParser:
                     choices=["compute", "int8"])
     ap.add_argument("--limit", type=int, default=None)
     ap.add_argument("--no_fuse", action="store_true",
-                    help="run without the inference projection fusion "
-                    "(required: the fusion is not ported yet)")
+                    help="run without the inference projection fusion")
     ap.add_argument("--streaming", action="store_true")
     ap.add_argument("--num_devices", type=int, default=1)
     ap.add_argument("--mesh_model_axis", type=int, default=1)
@@ -84,8 +87,6 @@ def _check_ported(arg, dev: torch.device) -> None:
         (arg.mesh_model_axis != 1, f"--mesh_model_axis {arg.mesh_model_axis}"),
         (arg.coordinator_address is not None, "--coordinator_address"),
         (arg.kv_dtype == "int4", "--kv_dtype int4"),
-        (arg.gemm_dtype != "compute", f"--gemm_dtype {arg.gemm_dtype}"),
-        (not arg.no_fuse, "inference projection fusion (pass --no_fuse)"),
         (dev.type == "cuda" and arg.dtype != "bfloat16",
          f"--dtype {arg.dtype} on the card (K1 and K2 take bfloat16)"),
     ]
@@ -113,6 +114,7 @@ def main(argv=None) -> None:
 
     tok = common.load_tokenizer(arg.tokenizer)
     model, cfg = common.load_model(arg.model, dev, dtype)
+    model = common.quantize_if(common.fuse_unless(model, arg.no_fuse), arg.gemm_dtype)
     feat = FeatureConfig(n_mels=cfg.num_mel_bins)
     ccfg = CollatorConfig(n_samples=feat.n_samples)
 

@@ -72,7 +72,7 @@ __global__ void __launch_bounds__(kThreads)
                         const float* __restrict__ k_scale,
                         const float* __restrict__ v_scale,
                         const int* __restrict__ valid_rows, int valid_all,
-                        int t_cap, int n_heads, int n_splits,
+                        long q_stride, int t_cap, int n_heads, int n_splits,
                         float* __restrict__ part_o, float* __restrict__ part_m,
                         float* __restrict__ part_l, __nv_bfloat16* __restrict__ out) {
   extern __shared__ float smem[];
@@ -91,7 +91,7 @@ __global__ void __launch_bounds__(kThreads)
   const long row0 = (long)b * t_cap + t0;
 
   for (int i = tid; i < d; i += kThreads)
-    q_s[i] = __bfloat162float(q[(long)b * d + i]) * 0.125f;  // 1/sqrt(64)
+    q_s[i] = __bfloat162float(q[(long)b * q_stride + i]) * 0.125f;  // 1/sqrt(64)
   __syncthreads();
 
   // Scores: a warp walks whole rows; each lane takes 16-byte chunks and
@@ -199,15 +199,15 @@ __global__ void __launch_bounds__(kHD)
 template <typename KV>
 int launch(const void* q, const void* k, const void* v, const void* k_scale,
            const void* v_scale, const void* valid_rows, int valid_all,
-           void* out, void* part_o, void* part_m, void* part_l, int batch,
-           int t_cap, int n_heads, int n_splits, cudaStream_t stream) {
+           long q_stride, void* out, void* part_o, void* part_m, void* part_l,
+           int batch, int t_cap, int n_heads, int n_splits, cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * ((size_t)n_heads * kHD + (size_t)kChunk * n_heads + 2 * n_heads);
   decode_split_kernel<KV><<<dim3(n_splits, batch), kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const KV*>(k),
       static_cast<const KV*>(v), static_cast<const float*>(k_scale),
       static_cast<const float*>(v_scale), static_cast<const int*>(valid_rows),
-      valid_all, t_cap, n_heads, n_splits, static_cast<float*>(part_o),
+      valid_all, q_stride, t_cap, n_heads, n_splits, static_cast<float*>(part_o),
       static_cast<float*>(part_m), static_cast<float*>(part_l),
       static_cast<__nv_bfloat16*>(out));
   cudaError_t err = cudaGetLastError();
@@ -221,7 +221,8 @@ int launch(const void* q, const void* k, const void* v, const void* k_scale,
 
 }  // namespace
 
-// q (B, H*64) bf16; k/v (B, T, H*64) bf16 (kv_int8=0) or int8 (kv_int8=1)
+// q (B, H*64) bf16, rows q_stride elements apart (a row of a fused qkv
+// projection is read in place); k/v (B, T, H*64) bf16 (kv_int8=0) or int8 (kv_int8=1)
 // with fp32 (B, T) scales (nullable); valid_rows (B,) int32 or null, then
 // valid_all applies to every row. Scratch for n_splits > 1 (null for one
 // split): part_o (B, n_splits, H*64), part_m/part_l (B, n_splits, H) fp32.
@@ -229,16 +230,17 @@ int launch(const void* q, const void* k, const void* v, const void* k_scale,
 extern "C" int kwt_decode_attention(const void* q, const void* k,
                                     const void* v, const void* k_scale,
                                     const void* v_scale, const void* valid_rows,
-                                    int valid_all, void* out, void* part_o,
-                                    void* part_m, void* part_l, int batch,
-                                    int t_cap, int n_heads, int n_splits,
-                                    int kv_int8, void* stream) {
+                                    int valid_all, long long q_stride,
+                                    void* out, void* part_o, void* part_m,
+                                    void* part_l, int batch, int t_cap,
+                                    int n_heads, int n_splits, int kv_int8,
+                                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (kv_int8)
     return launch<int8_t>(q, k, v, k_scale, v_scale, valid_rows, valid_all,
-                          out, part_o, part_m, part_l, batch, t_cap, n_heads,
+                          (long)q_stride, out, part_o, part_m, part_l, batch, t_cap, n_heads,
                           n_splits, s);
   return launch<__nv_bfloat16>(q, k, v, k_scale, v_scale, valid_rows,
-                               valid_all, out, part_o, part_m, part_l, batch,
+                               valid_all, (long)q_stride, out, part_o, part_m, part_l, batch,
                                t_cap, n_heads, n_splits, s);
 }

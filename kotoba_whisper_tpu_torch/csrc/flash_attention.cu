@@ -36,7 +36,9 @@
 // diagonal tile when tq == tk). The non-causal instantiation masks every
 // tile by tk only, exactly as K1 did before K4 joined it.
 // Tensors keep the model's (B, T, H, D) layout: a head's row is 128
-// contiguous bytes, so no transpose to (B*H, T, D) is needed.
+// contiguous bytes, so no transpose to (B*H, T, D) is needed. q, k and v
+// take a token stride of their own, so the q/k/v column blocks of a fused
+// (B, T, 3*H*D) qkv projection are read in place, without copies.
 // Later work: wgmma + TMA + warp specialisation, and overlapping the
 // exponentials with the MMAs.
 #include "flash_common.cuh"
@@ -51,7 +53,8 @@ __global__ void __launch_bounds__(kThreads)
                      const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v,
                      __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                     int tq, int tk, int n_heads, float scale_log2) {
+                     int tq, int tk, int n_heads, long q_stride,
+                     long k_stride, long v_stride, float scale_log2) {
   __shared__ __align__(128) __nv_bfloat16 sq[kBQ * kD];
   __shared__ __align__(128) __nv_bfloat16 sk[2][kBK * kD];
   __shared__ __align__(128) __nv_bfloat16 sv[2][kBK * kD];
@@ -60,10 +63,10 @@ __global__ void __launch_bounds__(kThreads)
   const int q0 = blockIdx.x * kBQ;
   const int bh = blockIdx.y;
   const int b = bh / n_heads, h = bh - b * n_heads;
-  const long row_stride = (long)n_heads * kD;
-  const __nv_bfloat16* qb = q + (long)b * tq * row_stride + h * kD;
-  const __nv_bfloat16* kb = k + (long)b * tk * row_stride + h * kD;
-  const __nv_bfloat16* vb = v + (long)b * tk * row_stride + h * kD;
+  const long row_stride = (long)n_heads * kD;  // of O
+  const __nv_bfloat16* qb = q + (long)b * tq * q_stride + h * kD;
+  const __nv_bfloat16* kb = k + (long)b * tk * k_stride + h * kD;
+  const __nv_bfloat16* vb = v + (long)b * tk * v_stride + h * kD;
   // this thread's two query rows, and (causal) the last key each may see
   const int row[2] = {q0 + warp * 16 + (lane >> 2), q0 + warp * 16 + (lane >> 2) + 8};
   const int offset = tk - tq;
@@ -76,10 +79,10 @@ __global__ void __launch_bounds__(kThreads)
     n_free = min(n_tiles, (q0 + offset + 1) / kBK);
   }
 
-  load_tile(sq, qb, q0, tq, row_stride, tid);
+  load_tile(sq, qb, q0, tq, q_stride, tid);
   cp_async_commit();
-  load_tile(sk[0], kb, 0, tk, row_stride, tid);
-  load_tile(sv[0], vb, 0, tk, row_stride, tid);
+  load_tile(sk[0], kb, 0, tk, k_stride, tid);
+  load_tile(sv[0], vb, 0, tk, v_stride, tid);
   cp_async_commit();
   cp_async_wait<1>();
   __syncthreads();
@@ -95,8 +98,8 @@ __global__ void __launch_bounds__(kThreads)
 
   for (int j = 0; j < n_tiles; ++j) {
     if (j + 1 < n_tiles) {
-      load_tile(sk[(j + 1) & 1], kb, (j + 1) * kBK, tk, row_stride, tid);
-      load_tile(sv[(j + 1) & 1], vb, (j + 1) * kBK, tk, row_stride, tid);
+      load_tile(sk[(j + 1) & 1], kb, (j + 1) * kBK, tk, k_stride, tid);
+      load_tile(sv[(j + 1) & 1], vb, (j + 1) * kBK, tk, v_stride, tid);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -184,13 +187,16 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace
 
-// q (B, Tq, H, 64), k/v (B, Tk, H, 64) bf16 contiguous -> o (B, Tq, H, 64)
-// bf16 and lse (B, H, Tq) fp32. causal != 0 selects K4 (end-aligned mask),
-// else K1. Returns the launch's cudaError_t.
+// q (B, Tq, H, 64), k/v (B, Tk, H, 64) bf16, each with a token stride in
+// elements (H*64 when contiguous; each head's 64 values contiguous) -> o
+// (B, Tq, H, 64) bf16 contiguous and lse (B, H, Tq) fp32. causal != 0
+// selects K4 (end-aligned mask), else K1. Returns the launch's cudaError_t.
 extern "C" int kwt_flash_attention_fwd(const void* q, const void* k,
                                        const void* v, void* o, void* lse,
                                        int batch, int tq, int tk, int n_heads,
-                                       int causal, void* stream) {
+                                       int causal, long long q_stride,
+                                       long long k_stride, long long v_stride,
+                                       void* stream) {
   const float scale_log2 = 0.125f * kLog2e;  // 1/sqrt(64)*log2(e)
   dim3 grid((tq + kBQ - 1) / kBQ, batch * n_heads);
   auto kernel = causal ? flash_fwd_kernel<true> : flash_fwd_kernel<false>;
@@ -198,6 +204,7 @@ extern "C" int kwt_flash_attention_fwd(const void* q, const void* k,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      static_cast<float*>(lse), tq, tk, n_heads, scale_log2);
+      static_cast<float*>(lse), tq, tk, n_heads, (long)q_stride, (long)k_stride,
+      (long)v_stride, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }

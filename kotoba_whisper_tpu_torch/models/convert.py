@@ -5,6 +5,10 @@
     tensors, dense (in, out) kernels become (out, in) weights, conv
     (K, C_in, C_out) kernels become (C_out, C_in, K), LayerNorm `scale`
     becomes `weight`; the output projection stays tied to the embedding.
+    Trees that went through the JAX package's `fuse_for_inference` and/or
+    `quantize_for_inference` (`qkv_proj`, `kv_proj`, `kernel_q`,
+    `kernel_scale`) give the port's model in the same state: fused
+    (models/optimized.py) and/or w8a8 (models/quantized.py).
   - `load_checkpoint(dir)`: an HF-layout directory (config.json plus
     model.safetensors or model.npz) -> (model, cfg), fp32 on the CPU.
 """
@@ -18,22 +22,30 @@ import numpy as np
 import torch
 
 from kotoba_whisper_tpu_torch.core.config import WhisperConfig
+from kotoba_whisper_tpu_torch.models.optimized import fuse_for_inference
+from kotoba_whisper_tpu_torch.models.quantized import quantize_for_inference
 from kotoba_whisper_tpu_torch.models.whisper import WhisperForConditionalGeneration
-
-_ATTN = ("q_proj", "k_proj", "v_proj", "out_proj")
 
 
 def model_from_state_dict(
     sd: Mapping[str, Any], cfg: WhisperConfig
 ) -> WhisperForConditionalGeneration:
     """HF-named flat state dict -> fp32 model on the CPU (strict: every
-    parameter present, nothing extra but the tied `proj_out.weight`)."""
+    parameter present, nothing extra but the tied `proj_out.weight`).
+    Fused (`qkv_proj`) and w8a8 (`weight_q`, int8) entries give a model
+    transformed the same way."""
     tensors = {
-        k: torch.from_numpy(np.array(v, dtype=np.float32))
+        k: torch.from_numpy(np.array(v, dtype=np.int8 if k.endswith(".weight_q") else np.float32))
         for k, v in sd.items() if k != "proj_out.weight"
     }
     with torch.device("meta"):
         model = WhisperForConditionalGeneration(cfg)
+    if any(".qkv_proj." in k for k in tensors):
+        fuse_for_inference(model)
+    parts = tuple(part for part in ("encoder", "decoder") if any(
+        k.startswith(f"model.{part}.layers.") and k.endswith(".weight_q") for k in tensors))
+    if parts:
+        quantize_for_inference(model, parts=parts)
     model.load_state_dict(tensors, strict=True, assign=True)
     return model.eval()
 
@@ -41,12 +53,16 @@ def model_from_state_dict(
 def params_from_jax(tree: Mapping[str, Any], cfg: WhisperConfig) -> WhisperForConditionalGeneration:
     sd: dict[str, np.ndarray] = {}
 
-    def leaf(x, i=None):
-        a = np.asarray(x, np.float32)
+    def leaf(x, i=None, dtype=np.float32):
+        a = np.asarray(x, dtype)
         return a if i is None else a[i]
 
     def put_dense(prefix, p, i=None):
-        sd[f"{prefix}.weight"] = leaf(p["kernel"], i).T
+        if "kernel_q" in p:  # w8a8: int8 (in, out) -> (out, in), per-out scales
+            sd[f"{prefix}.weight_q"] = leaf(p["kernel_q"], i, np.int8).T
+            sd[f"{prefix}.weight_scale"] = leaf(p["kernel_scale"], i)
+        else:
+            sd[f"{prefix}.weight"] = leaf(p["kernel"], i).T
         if "bias" in p:
             sd[f"{prefix}.bias"] = leaf(p["bias"], i)
 
@@ -69,8 +85,8 @@ def params_from_jax(tree: Mapping[str, Any], cfg: WhisperConfig) -> WhisperForCo
         for i in range(n_layers):
             p = f"model.{side}.layers.{i}"
             for a in attns:
-                for proj in _ATTN:
-                    put_dense(f"{p}.{a}.{proj}", layers[a][proj], i)
+                for proj, sub in layers[a].items():  # q/k/v/out, or fused qkv/kv
+                    put_dense(f"{p}.{a}.{proj}", sub, i)
                 put_ln(f"{p}.{a}_layer_norm", layers[f"{a}_layer_norm"], i)
             put_dense(f"{p}.fc1", layers["fc1"], i)
             put_dense(f"{p}.fc2", layers["fc2"], i)

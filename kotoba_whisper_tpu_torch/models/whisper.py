@@ -16,11 +16,16 @@ a function is given `compute_dtype`: serving casts the model
 each weight to the compute dtype at its use, as the JAX package's `dense`
 does, so gradients reach the fp32 weights.
 
-On the card the encoder's self-attention runs through kernel K1, the
-full-sequence decoder's causal self-attention through K4 and its
-cross-attention through K1 (with K5 for the backward pass of both), and
-every single-token decode step's self- and cross-attention through K2; on
+On the card the encoder's self-attention runs through kernel K1 (K8
+under KWT_FA_INT8), the full-sequence decoder's causal self-attention
+through K4 and its cross-attention through K1 (with K5 for the backward
+pass of both), every single-token decode step's self- and cross-attention
+through K2, and the opt-in conv stem (`stem_impl="pallas"`) through K7; on
 the CPU the same calls take their plain twins.
+
+The functions take the inference transforms wherever the JAX package
+does: fused qkv/kv projections (models/optimized.py) and w8a8 projections
+(models/quantized.py).
 
 `encoder_forward`, `decoder_forward` and `forward` build autograd graphs
 (training); `encode`, `decode` and `init_cache` run under inference mode.
@@ -38,7 +43,9 @@ from torch.utils.checkpoint import checkpoint
 
 from kotoba_whisper_tpu_torch.core.config import WhisperConfig
 from kotoba_whisper_tpu_torch.core.device import check_model_device, resolve_device
+from kotoba_whisper_tpu_torch.models.quantized import QuantizedLinear, dense_int8
 from kotoba_whisper_tpu_torch.ops.attention import attention
+from kotoba_whisper_tpu_torch.ops.conv_stem import conv_stem
 from kotoba_whisper_tpu_torch.ops.decode_attention import decode_attention
 from kotoba_whisper_tpu_torch.ops.flash_attention import flash_attention
 
@@ -180,7 +187,10 @@ def layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
 
 
 def dense(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-    """Product in x's dtype (the weight cast to it), bias added after."""
+    """Product in x's dtype (the weight cast to it), bias added after; a
+    w8a8 projection takes the int8 product."""
+    if isinstance(lin, QuantizedLinear):
+        return dense_int8(lin, x)
     y = F.linear(x, lin.weight.to(x.dtype))
     if lin.bias is not None:
         y = y + lin.bias.to(x.dtype)
@@ -201,6 +211,20 @@ def split_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
 def merge_heads(x: torch.Tensor) -> torch.Tensor:
     b, t, h, hd = x.shape
     return x.reshape(b, t, h * hd)
+
+
+def qkv_projections(attn: nn.Module, x: torch.Tensor, kv_x: torch.Tensor, n_heads: int):
+    """(q, k, v) head-split projections; takes the fused qkv (self) or kv
+    (cross) entries when present. The fused outputs' column blocks stay
+    views: the attention kernels read them with their token stride."""
+    if hasattr(attn, "qkv_proj"):  # self-attention, x is kv_x
+        q, k, v = dense(attn.qkv_proj, x).chunk(3, dim=-1)
+    elif hasattr(attn, "kv_proj"):
+        q = dense(attn.q_proj, x)
+        k, v = dense(attn.kv_proj, kv_x).chunk(2, dim=-1)
+    else:
+        q, k, v = dense(attn.q_proj, x), dense(attn.k_proj, kv_x), dense(attn.v_proj, kv_x)
+    return split_heads(q, n_heads), split_heads(k, n_heads), split_heads(v, n_heads)
 
 
 def logits_from(emb: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -225,12 +249,30 @@ def _maybe_remat(fn, remat: bool, *args):
 def _encoder_layer(layer: EncoderLayer, n_heads: int, x: torch.Tensor) -> torch.Tensor:
     h = layer_norm(layer.self_attn_layer_norm, x)
     sa = layer.self_attn
-    q = split_heads(dense(sa.q_proj, h), n_heads)
-    k = split_heads(dense(sa.k_proj, h), n_heads)
-    v = split_heads(dense(sa.v_proj, h), n_heads)
-    x = x + dense(sa.out_proj, merge_heads(flash_attention(q, k, v)))
+    x = x + dense(sa.out_proj, merge_heads(flash_attention(*qkv_projections(sa, h, h, n_heads))))
     h = layer_norm(layer.final_layer_norm, x)
     return x + dense(layer.fc2, F.gelu(dense(layer.fc1, h)))
+
+
+def embed_audio(model: WhisperForConditionalGeneration, feats: torch.Tensor,
+                dtype: torch.dtype, stem_impl: str = "xla") -> torch.Tensor:
+    """The encoder's input: conv stem, then the fixed positions.
+    (B, n_mels, 3000) -> (B, 1500, d) in `dtype`. stem_impl: "xla" (the
+    default stem: stock convs, as the JAX package leaves it to XLA) or
+    "pallas" (the JAX package's opt-in fused stem: K7 on the card)."""
+    enc = model.model.encoder
+    x = feats.to(dtype)
+    if stem_impl == "pallas":
+        x = conv_stem(enc.conv1, enc.conv2, x)
+    elif stem_impl == "xla":
+        x = F.gelu(conv1d(enc.conv1, x))
+        # (B, d, T) -> (B, T, d) rows: left as a transposed view, the
+        # residual stream would keep that layout through every layer and
+        # each LayerNorm and projection would copy it
+        x = F.gelu(conv1d(enc.conv2, x)).transpose(1, 2).contiguous()
+    else:
+        raise ValueError(f"stem_impl is 'xla' or 'pallas', got {stem_impl!r}")
+    return x + enc.embed_positions.weight.to(dtype)[None]
 
 
 def encoder_forward(
@@ -239,16 +281,14 @@ def encoder_forward(
     *,
     compute_dtype: torch.dtype | None = None,
     remat: bool = False,
+    stem_impl: str = "xla",
 ) -> torch.Tensor:
     """(B, n_mels, 3000) log-mel on the model's device -> (B, 1500, d)
     encoder states in the compute dtype (default: the weights' dtype).
-    Differentiable; run it under torch.no_grad() for a frozen encoder."""
+    Differentiable with the default stem; run it under torch.no_grad() for
+    a frozen encoder."""
     cfg, enc = model.cfg, model.model.encoder
-    dtype = compute_dtype or model.dtype
-    x = feats.to(dtype)
-    x = F.gelu(conv1d(enc.conv1, x))
-    x = F.gelu(conv1d(enc.conv2, x)).transpose(1, 2)
-    x = x + enc.embed_positions.weight.to(dtype)[None]
+    x = embed_audio(model, feats, compute_dtype or model.dtype, stem_impl)
     for layer in enc.layers:
         x = _maybe_remat(_encoder_layer, remat, layer, cfg.encoder_attention_heads, x)
     return layer_norm(enc.layer_norm, x)
@@ -256,12 +296,13 @@ def encoder_forward(
 
 @torch.inference_mode()
 def encode(
-    model: WhisperForConditionalGeneration, input_features, *, device="cuda"
+    model: WhisperForConditionalGeneration, input_features, *, device="cuda",
+    stem_impl: str = "xla",
 ) -> torch.Tensor:
     """(B, n_mels, 3000) log-mel -> (B, 1500, d) encoder states."""
     dev = resolve_device(device)
     check_model_device(model, dev)
-    return encoder_forward(model, torch.as_tensor(input_features).to(dev))
+    return encoder_forward(model, torch.as_tensor(input_features).to(dev), stem_impl=stem_impl)
 
 
 # ---------------------------------------------------------------------------
@@ -321,8 +362,11 @@ def _init_cache(model, encoder_out, capacity, kv_dtype):
     # one layer at a time: only one layer's full-precision projection is
     # ever live, whatever the depth and batch
     for i, layer in enumerate(dec.layers):
-        k = dense(layer.encoder_attn.k_proj, encoder_out)
-        v = dense(layer.encoder_attn.v_proj, encoder_out)
+        ea = layer.encoder_attn
+        if hasattr(ea, "kv_proj"):
+            k, v = dense(ea.kv_proj, encoder_out).chunk(2, dim=-1)
+        else:
+            k, v = dense(ea.k_proj, encoder_out), dense(ea.v_proj, encoder_out)
         if kv_dtype == "int8":
             cross_k[i], ck_s[i] = quantize_kv_rows(k)
             cross_v[i], cv_s[i] = quantize_kv_rows(v)
@@ -355,20 +399,11 @@ def _decoder_layer(layer: DecoderLayer, n_heads: int, x: torch.Tensor,
                    enc: torch.Tensor) -> torch.Tensor:
     h = layer_norm(layer.self_attn_layer_norm, x)
     sa = layer.self_attn
-    o = flash_attention(
-        split_heads(dense(sa.q_proj, h), n_heads),
-        split_heads(dense(sa.k_proj, h), n_heads),
-        split_heads(dense(sa.v_proj, h), n_heads),
-        causal=True,
-    )
+    o = flash_attention(*qkv_projections(sa, h, h, n_heads), causal=True)
     x = x + dense(sa.out_proj, merge_heads(o))
     h = layer_norm(layer.encoder_attn_layer_norm, x)
     ea = layer.encoder_attn
-    o = flash_attention(
-        split_heads(dense(ea.q_proj, h), n_heads),
-        split_heads(dense(ea.k_proj, enc), n_heads),
-        split_heads(dense(ea.v_proj, enc), n_heads),
-    )
+    o = flash_attention(*qkv_projections(ea, h, enc, n_heads))
     x = x + dense(ea.out_proj, merge_heads(o))
     h = layer_norm(layer.final_layer_norm, x)
     return x + dense(layer.fc2, F.gelu(dense(layer.fc1, h)))
@@ -446,8 +481,7 @@ def _decode_step(model, input_ids, cache: KVCache):
         sv_s = cache.self_v_scale[i] if int8_kv else None
         h = layer_norm(layer.self_attn_layer_norm, x)
         sa = layer.self_attn
-        q_flat = dense(sa.q_proj, h)
-        k_new, v_new = dense(sa.k_proj, h), dense(sa.v_proj, h)
+        q_flat, k_new, v_new = (merge_heads(t) for t in qkv_projections(sa, h, h, n_heads))
         if int8_kv:
             k_new, sk_s[:, pos0 : pos0 + t] = quantize_kv_rows(k_new)
             v_new, sv_s[:, pos0 : pos0 + t] = quantize_kv_rows(v_new)

@@ -22,29 +22,46 @@ import time
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
-SOURCES = ("flash_attention", "flash_attention_bwd", "decode_attention", "mel")
+SOURCES = (
+    "flash_attention", "flash_attention_bwd", "decode_attention", "mel",
+    "layer_norm", "conv_stem", "flash_attention_int8", "vpu_cal",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C signatures of each library's entry points: pointers and the stream as
 # c_void_p (ctypes would otherwise pass 32-bit ints and cut them)
 SIGNATURES = {
     "flash_attention": {
-        "kwt_flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "kwt_flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _P],
     },
     "flash_attention_bwd": {
         "kwt_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     },
     "decode_attention": {
         "kwt_decode_attention": [
-            _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
+            _P, _P, _P, _P, _P, _P, _I, _L, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
         ],
     },
     "mel": {
-        "kwt_log_mel": [_P, _I, _P, _P, _P, _P, _P, _I, ctypes.c_longlong, _I, _I, _P],
+        "kwt_log_mel": [_P, _I, _P, _P, _P, _P, _P, _I, _L, _I, _I, _P],
+    },
+    "layer_norm": {
+        "kwt_layer_norm": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _P],
+    },
+    "conv_stem": {
+        "kwt_conv_stem": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    },
+    "flash_attention_int8": {
+        "kwt_flash_attention_int8": [
+            _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _I, _I, _P,
+        ],
+    },
+    "vpu_cal": {
+        "kwt_vpu_cal": [_P, _P, _I, _I, _I, _I, _P],
     },
 }
 

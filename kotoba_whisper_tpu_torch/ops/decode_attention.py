@@ -65,7 +65,7 @@ def decode_attention(
         raise TypeError(f"K2 takes bfloat16 or int8 K/V, got {k_flat.dtype}")
     if kv_int8 != (k_scale is not None) or (k_scale is None) != (v_scale is None):
         raise ValueError("K2: int8 K/V need both scales; bf16 K/V take none")
-    tensors = [q, k_flat, v_flat]
+    tensors = [k_flat, v_flat]
     if kv_int8:
         for s in (k_scale, v_scale):
             if s.dtype != torch.float32 or s.shape != (b, t, 1):
@@ -74,6 +74,10 @@ def decode_attention(
     for x in tensors:
         if x.device != q.device or not x.is_contiguous():
             raise ValueError("K2 takes contiguous tensors on one device")
+    # q's rows may lie apart (a row of a fused qkv projection); its heads
+    # must be contiguous within a row
+    if q.stride(2) != 1 or q.stride(1) != dh // n_heads:
+        raise ValueError("K2 takes q (B, H, 64) with each row's heads contiguous")
     if k_flat.data_ptr() % 16 or v_flat.data_ptr() % 16:
         raise ValueError("K2 needs 16-byte aligned K/V")
 
@@ -98,7 +102,7 @@ def decode_attention(
     ptr = lambda x: None if x is None else x.data_ptr()
     rc = _build.library("decode_attention").kwt_decode_attention(
         q.data_ptr(), k_flat.data_ptr(), v_flat.data_ptr(), ptr(k_scale),
-        ptr(v_scale), ptr(valid_rows), valid_all, out.data_ptr(), ptr(part_o),
+        ptr(v_scale), ptr(valid_rows), valid_all, q.stride(0), out.data_ptr(), ptr(part_o),
         ptr(part_m), ptr(part_l), b, t, n_heads, n_splits, int(kv_int8),
         _build.stream_handle(dev),
     )

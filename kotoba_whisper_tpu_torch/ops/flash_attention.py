@@ -1,23 +1,42 @@
 """Flash attention: the forward kernels K1 (non-causal) and K4 (causal) in
-csrc/flash_attention.cu, the backward kernel pair K5 in
-csrc/flash_attention_bwd.cu, their plain twins, and the
-`FlashAttention` autograd function that ties them together.
+csrc/flash_attention.cu, the int8 attention core K8 in
+csrc/flash_attention_int8.cu, the backward kernel pair K5 in
+csrc/flash_attention_bwd.cu, their plain twins, and the `FlashAttention`
+autograd function that ties them together.
 
 softmax(q k^T / sqrt(D)) v with O in the input dtype and the fp32
 natural-log logsumexp of each query row (the residual the backward pass
 needs). Causal attention is end-aligned: query row i sees keys
 j <= i + (Tk - Tq); the public `flash_attention` takes it only with
 Tq == Tk, as the JAX package does. Layout is the model's: q (B, Tq, H, D),
-k/v (B, Tk, H, D), O (B, Tq, H, D), LSE (B, H, Tq).
+k/v (B, Tk, H, D), O (B, Tq, H, D), LSE (B, H, Tq). The forward kernels
+read q, k and v with a token stride of their own, so the column blocks of
+a fused qkv (or kv) projection go in without copies.
+
+The int8 core (the JAX package's `KWT_FA_INT8` experiment): "qk" runs QK^T
+as s8 x s8 -> s32 with q quantized per query row and K per key row; "qkpv"
+also quantizes P (against the row's final max) and V per column for an
+int8 P V. `flash_attention_fwd` takes it where the JAX package does:
+non-causal attention over at most SINGLE_STEP_MAX_K keys, with the mode
+given as `int8_mode` or, when that is None, read from KWT_FA_INT8 at each
+call. The backward pass stays K5, on the int8 forward's O and LSE.
 
 Each wrapper launches its kernel for CUDA tensors (bf16, D = 64) and
 takes its plain twin only for CPU tensors.
 """
 from __future__ import annotations
 
+import os
+
 import torch
+import torch.nn.functional as F
 
 from kotoba_whisper_tpu_torch.ops import _build
+
+# non-causal attention over at most this many keys is the JAX package's
+# one-shot kernel, the only place it applies KWT_FA_INT8
+SINGLE_STEP_MAX_K = 4096
+INT8_MODES = ("", "qk", "qkpv")
 
 
 def _scores(q, k, causal):
@@ -45,14 +64,26 @@ def flash_attention_reference(q, k, v, causal=False):
     return o.to(q.dtype), lse
 
 
-def _check_bf16(**tensors):
+def _check_bf16(strided=False, **tensors):
+    """Device, dtype and layout checks. strided: each head's 64 values
+    contiguous and 16-byte aligned, heads adjacent, any token stride that
+    keeps the alignment; else contiguous."""
     for name, t in tensors.items():
         if t.device.type != "cuda":
             raise ValueError(f"flash_attention: {name} is on {t.device}")
         if t.dtype != torch.bfloat16:
             raise TypeError(f"flash attention kernels take bfloat16, {name} is {t.dtype}")
-        if t.ndim != 4 or not t.is_contiguous():
-            raise ValueError(f"flash attention takes contiguous (B, T, H, D) {name}")
+        if t.ndim != 4:
+            raise ValueError(f"flash attention takes (B, T, H, D) {name}")
+        if strided:
+            b, tt, h, d = t.shape
+            ts = _token_stride(t)
+            ok = (t.stride(3) == 1 and (h == 1 or t.stride(2) == d) and ts % 8 == 0
+                  and (b == 1 or t.stride(0) == tt * ts) and t.data_ptr() % 16 == 0)
+        else:
+            ok = t.is_contiguous()
+        if not ok:
+            raise ValueError(f"flash attention cannot read {name} with strides {t.stride()}")
 
 
 def _check_shapes(q, k, v):
@@ -66,19 +97,36 @@ def _check_shapes(q, k, v):
     return b, tq, k.shape[1], h
 
 
-def flash_attention_fwd(q, k, v, *, causal=False):
-    """K1 (causal=False) / K4 (causal=True) wrapper: the kernel for CUDA
-    tensors, the plain twin for CPU tensors.
+def _token_stride(t):
+    """Elements between consecutive tokens of (B, T, H, D) t; the kernels
+    take the batch stride as T times it."""
+    b, tt, h, d = t.shape
+    if tt > 1:
+        return t.stride(1)
+    return t.stride(0) if b > 1 else h * d
+
+
+def flash_attention_fwd(q, k, v, *, causal=False, int8_mode=None):
+    """K1 (causal=False) / K4 (causal=True) wrapper, or K8 where an int8
+    mode applies: the kernel for CUDA tensors, the plain twin for CPU
+    tensors. int8_mode None reads KWT_FA_INT8 ("", "qk" or "qkpv").
     -> (O (B, Tq, H, D) in q.dtype, LSE (B, H, Tq) fp32)."""
+    if int8_mode is None:
+        int8_mode = os.environ.get("KWT_FA_INT8", "")
+    if int8_mode not in INT8_MODES:
+        raise ValueError(f"int8 attention mode {int8_mode!r} is not one of {INT8_MODES}")
+    if int8_mode and not causal and k.shape[1] <= SINGLE_STEP_MAX_K:
+        return flash_attention_int8(q, k, v, mode=int8_mode)
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, causal)
-    _check_bf16(q=q, k=k, v=v)
+    _check_bf16(strided=True, q=q, k=k, v=v)
     b, tq, tk, h = _check_shapes(q, k, v)
-    o = torch.empty_like(q)
+    o = torch.empty((b, tq, h, 64), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
     rc = _build.library("flash_attention").kwt_flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        b, tq, tk, h, int(causal), _build.stream_handle(q.device),
+        b, tq, tk, h, int(causal), _token_stride(q), _token_stride(k), _token_stride(v),
+        _build.stream_handle(q.device),
     )
     name = "K4" if causal else "K1"
     if rc != 0:
@@ -92,6 +140,91 @@ def flash_attention_fwd(q, k, v, *, causal=False):
 
 flash_attention_fwd.launches = 0          # K1
 flash_attention_fwd.causal_launches = 0   # K4
+
+
+# ---------------------------------------------------------------------------
+# K8: int8 attention core
+# ---------------------------------------------------------------------------
+
+def quantize_k_rows(k):
+    """(B, Tk, H, D) -> int8 (B, Tk, H, D) and fp32 per-key-row scales
+    (B, H, Tk), as the JAX wrapper quantizes K once per (b, h)."""
+    kf = k.float()
+    ka = torch.clamp(kf.abs().amax(dim=-1, keepdim=True), min=1e-8)
+    ks = ka * (1.0 / 127.0)
+    return torch.round(kf / ks).to(torch.int8), ks[..., 0].transpose(1, 2)
+
+
+def quantize_v_cols(v):
+    """(B, Tk, H, D) -> int8 (B, Tk, H, D) and fp32 per-column scales over
+    T (B, H, D) (qkpv mode)."""
+    vf = v.float()
+    va = torch.clamp(vf.abs().amax(dim=1, keepdim=True), min=1e-8)
+    vs = va * (1.0 / 127.0)
+    return torch.round(vf / vs).to(torch.int8), vs[:, 0]
+
+
+def flash_attention_int8_reference(q, k8, ks, v, vs, pv8):
+    """Plain twin of K8, step by step as the TPU kernel in one pass:
+    q quantized per row (round half to even), s32 scores (exact in fp32),
+    s = s32 * ((qs / 8) * ks), softmax against the row max; qkpv: p8 =
+    round(p * 127), exact integer P V, times (1/127) * vs; qk: P in q's
+    dtype times V. v is int8 (qkpv) or in q's dtype (qk).
+    -> (O (B, Tq, H, D) in q.dtype, LSE (B, H, Tq) fp32)."""
+    in_dtype = q.dtype
+    qf = q.float()
+    qs = torch.clamp(qf.abs().amax(dim=-1, keepdim=True), min=1e-8) * (1.0 / 127.0)
+    q8 = torch.round(qf / qs)
+    s32 = torch.einsum("bqhd,bkhd->bhqk", q8, k8.float())
+    qsc = qs[..., 0].transpose(1, 2)[..., None] * (1.0 / q.shape[-1] ** 0.5)
+    s = s32 * (qsc * ks[:, :, None, :])
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l_safe = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
+    if pv8:
+        p8 = torch.round(p * 127.0)
+        o32 = torch.einsum("bhqk,bkhd->bhqd", p8.double(), v.double()).float()
+        o = o32 * ((1.0 / 127.0) * vs[:, :, None, :])
+    else:
+        o = torch.einsum("bhqk,bkhd->bhqd", p.to(in_dtype).float(), v.float())
+    o = (o / l_safe).to(in_dtype).transpose(1, 2)
+    return o, (m + torch.log(l_safe))[..., 0]
+
+
+def flash_attention_int8(q, k, v, *, mode):
+    """K8 wrapper: K (and, for qkpv, V) quantized here with torch ops, as
+    the JAX package does it in XLA; then the kernel for CUDA tensors, the
+    plain twin for CPU tensors. -> (O, LSE) as flash_attention_fwd."""
+    if mode not in ("qk", "qkpv"):
+        raise ValueError(f"K8 modes are 'qk' and 'qkpv', got {mode!r}")
+    pv8 = mode == "qkpv"
+    k8, ks = quantize_k_rows(k)
+    v_in, vs = quantize_v_cols(v) if pv8 else (v, None)
+    if q.device.type == "cpu":
+        return flash_attention_int8_reference(q, k8, ks, v_in, vs, pv8)
+    _check_bf16(strided=True, q=q, k=k, v=v)
+    b, tq, tk, h = _check_shapes(q, k, v)
+    k8, ks = k8.contiguous(), ks.contiguous()
+    tk_pad = -(-tk // 16) * 16
+    if pv8:
+        # V^T per head, keys zero-padded to a multiple of 16: (B, H, D, tk_pad)
+        v_in = F.pad(v_in.permute(0, 2, 3, 1), (0, tk_pad - tk)).contiguous()
+        vs = vs.contiguous()
+    o = torch.empty((b, tq, h, 64), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
+    rc = _build.library("flash_attention_int8").kwt_flash_attention_int8(
+        q.data_ptr(), k8.data_ptr(), ks.data_ptr(), v_in.data_ptr(),
+        None if vs is None else vs.data_ptr(), o.data_ptr(), lse.data_ptr(),
+        b, tq, tk, h, _token_stride(q), 0 if pv8 else _token_stride(v), tk_pad, int(pv8),
+        _build.stream_handle(q.device),
+    )
+    if rc != 0:
+        raise RuntimeError(f"K8 int8 attention ({mode}) launch failed: cudaError {rc}")
+    flash_attention_int8.launches += 1
+    return o, lse
+
+
+flash_attention_int8.launches = 0  # K8, both modes
 
 
 def attention_delta(o, do):
@@ -146,8 +279,8 @@ flash_attention_bwd.launches = 0  # K5 (calls; each launches two kernels)
 
 
 class FlashAttention(torch.autograd.Function):
-    """Forward through K1/K4, backward through K5; saves (q, k, v, O, LSE)
-    as the JAX package's custom_vjp does."""
+    """Forward through K1/K4 (or K8 under an int8 mode), backward through
+    K5; saves (q, k, v, O, LSE) as the JAX package's custom_vjp does."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal):
@@ -158,7 +291,7 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
+        q, k, v, o, lse = (t.contiguous() for t in ctx.saved_tensors)
         dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(), causal=ctx.causal)
         return dq, dk, dv, None
 

@@ -51,17 +51,33 @@ def test_sources_keep_to_the_port(path):
         assert "scaled_dot_product_attention" not in text
 
 
+def test_port_tools_are_covered():
+    """The port's experiment tools are modules of the package, so the
+    import check above and the source checks below take them in."""
+    assert {"kotoba_whisper_tpu_torch.tools.enc_exp", "kotoba_whisper_tpu_torch.tools.stem_exp",
+            "kotoba_whisper_tpu_torch.tools.vpu_cal"} <= set(MODULES)
+
+
+# where the TPU kernels live: the JAX package's ops, and the calibration
+# loop of the JAX experiment tools (K9)
+TPU_KERNEL_FILES = re.compile(r"kotoba_whisper_tpu/ops/\w+\.py|tools/vpu_cal\.py")
+
+
 def test_cuda_sources_have_their_notes():
-    """Each kernel source names the TPU kernel it replaces and what bounds
-    it on the card, and every source the build compiles is among them."""
+    """Each kernel source names the TPU kernel it replaces (a file that
+    exists) and what bounds it on the card, and every source the build
+    compiles is among them."""
     from kotoba_whisper_tpu_torch.ops import _build
 
     sources = sorted((PORT / "csrc").glob("*.cu"))
     assert {cu.stem for cu in sources} == set(_build.SOURCES)
-    assert "flash_attention_bwd" in _build.SOURCES
+    assert {"flash_attention_bwd", "layer_norm", "conv_stem", "flash_attention_int8",
+            "vpu_cal"} <= set(_build.SOURCES)
     for cu in sources:
         head = cu.read_text()[:3000]
-        assert "Replaces:" in head and "kotoba_whisper_tpu/ops/" in head, cu.name
+        replaced = head[head.index("Replaces:"):] if "Replaces:" in head else ""
+        m = TPU_KERNEL_FILES.search(replaced[:300])
+        assert m and (REPO / m.group(0)).is_file(), cu.name
         assert "What bounds it on the card" in head, cu.name
         assert "Design:" in head, cu.name
 
@@ -84,8 +100,7 @@ def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         log_mel_spectrogram(torch.zeros(1, 480000))
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        pseudo_label.main(["--dataset_dir", str(tmp_path), "--output_dir",
-                           str(tmp_path), "--no_fuse"])
+        pseudo_label.main(["--dataset_dir", str(tmp_path), "--output_dir", str(tmp_path)])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         forward(model, torch.zeros(1, 80, 3000), torch.zeros(1, 4, dtype=torch.long))
     with pytest.raises(RuntimeError, match="no CUDA device"):

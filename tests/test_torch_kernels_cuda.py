@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1-K5) vs their plain twins, on the card.
+"""The port's CUDA kernels (K1-K9) vs their plain twins, on the card.
 
 Marked `cuda`: skipped where no card is present. Run on a machine with an
 H100:  python -m pytest tests/test_torch_kernels_cuda.py -q
@@ -8,17 +8,27 @@ elementwise (atol set from the card's readings, rtol 1e-2 for bf16 rounding
 of large values) and by relative L2 <= 1e-2, about 10x bf16 rounding, which a
 dropped or mis-weighted key tile exceeds; the fp32 mel kernel to 1e-4. K5's
 gradients, whose scale follows the inputs, are held elementwise to 1e-2 of
-their largest magnitude (rtol 1e-2) and by the same relative L2.
+their largest magnitude (rtol 1e-2) and by the same relative L2. K6's
+LayerNorm is held to one bf16 ulp of its twin (plus 2e-6 near 0) and its
+sum bit for bit; K7
+and K8 like K1 (their outputs are bf16 after fp32 sums taken in another
+order; K8 qkpv may round a p8 the other way); K9's fp32 sums to 1e-4
+relative. The w8a8 product (torch._int_mm) must be exact at the decode
+step's row counts.
 """
 import numpy as np
 import pytest
 import torch
 
 from kotoba_whisper_tpu_torch.core.config import FeatureConfig
+from kotoba_whisper_tpu_torch.models.quantized import dense_int8, int8_matmul, quantize_dense_int8
 from kotoba_whisper_tpu_torch.models.whisper import quantize_kv_rows
+from kotoba_whisper_tpu_torch.ops import conv_stem as cs
 from kotoba_whisper_tpu_torch.ops import decode_attention as da
 from kotoba_whisper_tpu_torch.ops import flash_attention as fa
+from kotoba_whisper_tpu_torch.ops import layer_norm as ln
 from kotoba_whisper_tpu_torch.ops import mel
+from kotoba_whisper_tpu_torch.tools import vpu_cal
 
 pytestmark = pytest.mark.cuda
 
@@ -155,3 +165,140 @@ def test_log_mel_kernel_short_clip():
     torch.testing.assert_close(
         mel.log_mel_frames(x, cfg), mel.log_mel_frames_reference(x, cfg), atol=1e-4, rtol=0
     )
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attention_reads_fused_projections_in_place(causal):
+    """K1/K4 on the q/k/v column blocks of a fused (B, T, 3*H*64) qkv
+    projection (token stride 3*H*64) equal the kernel on copies."""
+    b, t, h = 2, 130, 4
+    qkv = _randn(b, t, 3 * h * 64, seed=20)
+    q, k, v = (x.reshape(b, t, h, 64) for x in qkv.chunk(3, dim=-1))
+    assert not q.is_contiguous()
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+    o2, lse2 = fa.flash_attention_fwd(q.contiguous(), k.contiguous(), v.contiguous(), causal=causal)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+
+
+def test_decode_attention_reads_a_fused_row():
+    b, h, t = 3, 20, 40
+    qkv = _randn(b, 1, 3 * h * 64, seed=21)
+    q = qkv[..., : h * 64].reshape(b, h, 64)
+    k, ks = quantize_kv_rows(_randn(b, t, h * 64, seed=22))
+    v, vs = quantize_kv_rows(_randn(b, t, h * 64, seed=23))
+    got = da.decode_attention(q, k, v, t, n_heads=h, k_scale=ks, v_scale=vs)
+    ref = da.decode_attention(q.contiguous(), k, v, t, n_heads=h, k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+
+
+def _assert_within_bf16_ulp(got, ref):
+    """One bf16 ulp of the twin, plus 2e-6: where x is close to the row's
+    mean the output is near 0 and a last-bit difference of the fp32 mean
+    (sums in another order) is many ulps of that small value."""
+    got, ref = got.float(), ref.float()
+    ulp = torch.exp2(torch.floor(torch.log2(ref.abs().clamp(min=1e-30))) - 7)
+    excess = float(((got - ref).abs() / (ulp + 2e-6)).max())
+    assert excess <= 1.0, f"{excess:.2f} of one bf16 ulp + 2e-6"
+
+
+@pytest.mark.parametrize("shape", [(2, 1500, 1280), (3, 37, 64), (1, 5, 2048)])
+def test_layer_norm_kernel(shape):
+    d = shape[-1]
+    x = _randn(*shape, seed=30) * 3 + 1
+    y = _randn(*shape, seed=31)
+    w, b = _randn(d, seed=32), _randn(d, seed=33)
+    before = (ln.layer_norm.launches, ln.add_layer_norm.launches)
+    got = ln.layer_norm(x, w, b)
+    s, got2 = ln.add_layer_norm(x, y, w, b)
+    torch.cuda.synchronize()
+    assert (ln.layer_norm.launches, ln.add_layer_norm.launches) == (before[0] + 1, before[1] + 1)
+    _assert_within_bf16_ulp(got, ln.layer_norm_reference(x, w, b))
+    ref_s, ref2 = ln.add_layer_norm_reference(x, y, w, b)
+    assert torch.equal(s, x + y) and torch.equal(s, ref_s)
+    _assert_within_bf16_ulp(got2, ref2)
+
+
+@pytest.mark.parametrize("b, t", [(2, 3000), (1, 256), (3, 250)])
+def test_conv_stem_kernel(b, t):
+    """K7 at large-v3 width: the full 3000 frames, T=256, and T=250 (ragged
+    conv1 and conv2 row tiles)."""
+    conv1 = torch.nn.Conv1d(128, 1280, 3, padding=1).cuda()
+    conv2 = torch.nn.Conv1d(1280, 1280, 3, stride=2, padding=1).cuda()
+    with torch.no_grad():
+        for c in (conv1, conv2):
+            c.weight.normal_(0.0, 0.02, generator=torch.Generator(device="cuda").manual_seed(34))
+            c.bias.normal_(0.0, 0.1, generator=torch.Generator(device="cuda").manual_seed(35))
+    conv1, conv2 = conv1.to(torch.bfloat16), conv2.to(torch.bfloat16)
+    x = _randn(b, 128, t, seed=36)
+    before = cs.conv_stem.launches
+    with torch.no_grad():
+        got = cs.conv_stem(conv1, conv2, x)
+        torch.cuda.synchronize()
+        ref = cs.conv_stem_reference(conv1.weight, conv1.bias, conv2.weight, conv2.bias, x)
+    assert cs.conv_stem.launches == before + 1
+    assert got.shape == ref.shape == (b, t // 2, 1280)
+    _assert_near(got, ref, atol=1e-2 * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("mode", ["qk", "qkpv"])
+@pytest.mark.parametrize("b, t, h", [(2, 300, 4), (2, 1500, 20), (1, 70, 3)])
+def test_int8_attention_kernel(mode, b, t, h):
+    q, k, v = (_randn(b, t, h, 64, seed=s) for s in (40, 41, 42))
+    before = fa.flash_attention_int8.launches
+    o, lse = fa.flash_attention_fwd(q, k, v, int8_mode=mode)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_int8.launches == before + 1
+    k8, ks = fa.quantize_k_rows(k)
+    v_in, vs = fa.quantize_v_cols(v) if mode == "qkpv" else (v, None)
+    ro, rlse = fa.flash_attention_int8_reference(q, k8, ks, v_in, vs, mode == "qkpv")
+    _assert_near(o, ro, atol=5e-3)
+    torch.testing.assert_close(lse, rlse, atol=1e-3, rtol=1e-4)
+
+
+def test_int8_attention_reads_fused_projections_in_place():
+    b, t, h = 2, 300, 4
+    qkv = _randn(b, t, 3 * h * 64, seed=43)
+    q, k, v = (x.reshape(b, t, h, 64) for x in qkv.chunk(3, dim=-1))
+    for mode in ("qk", "qkpv"):
+        o, lse = fa.flash_attention_fwd(q, k, v, int8_mode=mode)
+        o2, lse2 = fa.flash_attention_fwd(q.contiguous(), k.contiguous(), v.contiguous(),
+                                          int8_mode=mode)
+        torch.cuda.synchronize()
+        assert torch.equal(o, o2) and torch.equal(lse, lse2), mode
+
+
+@pytest.mark.parametrize("op", ["softmax", "exp"])
+@pytest.mark.parametrize("rows, cols, iters", [(512, 1536, 64), (8, 128, 4), (3, 300, 5)])
+def test_vpu_cal_kernel(op, rows, cols, iters):
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((rows, cols)).astype(
+        np.float32)).cuda()
+    got = vpu_cal.vpu_cal(x, iters, op)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, vpu_cal.vpu_cal_reference(x, iters, op), rtol=1e-4, atol=0)
+
+
+@pytest.mark.parametrize("m", [1, 16, 17, 48])
+def test_int8_matmul_on_card(m):
+    """torch._int_mm through int8_matmul at the decode step's B rows (1,
+    16) and above: exact against an int64 product."""
+    rng = np.random.default_rng(m)
+    a = torch.from_numpy(rng.integers(-127, 128, (m, 1280)).astype(np.int8)).cuda()
+    w = torch.from_numpy(rng.integers(-127, 128, (3840, 1280)).astype(np.int8)).cuda()
+    got = int8_matmul(a, w)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and got.shape == (m, 3840)
+    assert torch.equal(got.cpu().long(), a.cpu().long() @ w.cpu().long().T)
+
+
+def test_dense_int8_on_card_equals_cpu():
+    """The w8a8 projection runs the same fp32 steps on the card as on the
+    CPU (where it equals the JAX package's)."""
+    lin = torch.nn.Linear(1280, 1280)
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal((16, 1, 1280)).astype(
+        np.float32))
+    q = quantize_dense_int8(lin)
+    want = dense_int8(q, x)
+    got = dense_int8(q.cuda(), x.cuda())
+    torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=1e-6)

@@ -3,7 +3,8 @@
 A synthetic WAV-in-tar dataset (the tests/test_cli_pipeline.py fixture
 shape), one tiny random model exported in HF layout, both drivers run on
 the CPU in fp32: per-utterance token ids in the jsonl and the csv text
-must be identical.
+must be identical, in the drivers' default mode (projections fused), with
+--no_fuse, and with w8a8 projections (--gemm_dtype int8).
 """
 import csv
 import json
@@ -74,9 +75,11 @@ def _read(out):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--kv_dtype", "compute"],
-    ["--kv_dtype", "int8", "--wire_dtype", "int16"],
-], ids=["compute", "int8-int16wire"])
+    ["--kv_dtype", "compute", "--no_fuse"],
+    ["--kv_dtype", "int8", "--wire_dtype", "int16", "--no_fuse"],
+    ["--kv_dtype", "int8"],
+    ["--kv_dtype", "int8", "--gemm_dtype", "int8"],
+], ids=["compute", "int8-int16wire", "fused", "fused-w8a8"])
 def test_port_driver_matches_jax_driver(dataset_dir, model_dir, tmp_path, extra):
     from kotoba_whisper_tpu.cli import pseudo_label as jax_driver
     from kotoba_whisper_tpu_torch.cli import pseudo_label as port_driver
@@ -84,7 +87,7 @@ def test_port_driver_matches_jax_driver(dataset_dir, model_dir, tmp_path, extra)
     base = [
         "--dataset_dir", dataset_dir, "--model", model_dir,
         "--tokenizer", "byte", "--batch_size", "3",
-        "--max_label_length", "20", "--dtype", "float32", "--no_fuse", *extra,
+        "--max_label_length", "20", "--dtype", "float32", *extra,
     ]
     jax_driver.main(base + ["--output_dir", str(tmp_path / "jax")])
     port_driver.main(base + ["--output_dir", str(tmp_path / "port"), "--device", "cpu"])
@@ -102,16 +105,12 @@ def test_port_driver_matches_jax_driver(dataset_dir, model_dir, tmp_path, extra)
     (["--num_beams", "4"], "--num_beams 4"),
     (["--streaming"], "--streaming"),
     (["--kv_dtype", "int4"], "--kv_dtype int4"),
-    (["--gemm_dtype", "int8"], "--gemm_dtype int8"),
-    ([], "fusion"),
 ])
 def test_unported_flags_raise(dataset_dir, tmp_path, flags, what):
     from kotoba_whisper_tpu_torch.cli import pseudo_label as port_driver
 
     args = ["--dataset_dir", dataset_dir, "--output_dir", str(tmp_path),
             "--model", "preset:test-byte", "--device", "cpu", *flags]
-    if what != "fusion":
-        args.append("--no_fuse")
     with pytest.raises(SystemExit, match="not ported yet"):
         port_driver.main(args)
 
