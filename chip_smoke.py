@@ -13,7 +13,9 @@ Phases, in order; any failure exits nonzero and prints no result line:
      its plain PyTorch twin on the card at the shapes of the path that runs
      it (large-v3; B=16 pseudo-labelling and encoder, B=8 x 128 labels
      training), with its time, the twin's time, a library call's time and
-     the least time the card could take;
+     the least time the card could take; K1 and K2 also with their device
+     time alone (a CUDA graph of 20 calls, replayed) and K2 with the host's
+     time per call;
   4. main path: large-v3 width and depth with seeded random weights, bf16,
      int8 KV, B=16, 48 new tokens with eot disabled:
      log_mel_spectrogram -> generate_greedy, with launch counters checked;
@@ -106,6 +108,40 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
+    """Device time of one fn() with no host in the way: fn captured `iters`
+    times into a CUDA graph, the graph replayed (CUDA events), per call."""
+    fn()  # warm-up outside the capture: builds, first-use attributes
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (iters * replays)
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """Host time of one fn() call, back to back (the card, never idle-bound
+    here, lags behind): Python, checks, ctypes and the launch."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def bound(flops: float, flop_rate: float, nbytes: float, mem_rate: float,
@@ -222,18 +258,23 @@ def main() -> int:
         got, ref = got.float(), ref.float()
         return float((got - ref).abs().max()), float((got - ref).norm() / ref.norm())
 
-    def record(name, source, replaces, errs, tol, ms, plain_ms, lib_ms, bnd, key=None):
+    def record(name, source, replaces, errs, tol, ms, plain_ms, lib_ms, bnd, key=None,
+               device_ms=None):
         launch_key[name] = key or name[:2]
         err, rel = errs
         ok = err <= tol and rel <= REL_L2_TOL
         rec = dict(name=name, route="cuda", source=source, replaces=replaces,
                    launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                    bound_ms=bnd[0], bound_by=bnd[1], library_ms=lib_ms)
+        if device_ms is not None:
+            rec["device_ms"] = device_ms
         log(f"[kernel] {name}: max_abs_err {err:.3e} (tol {tol:g}) rel_l2 {rel:.3e} "
             f"(tol {REL_L2_TOL:g}) "
             f"ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
             f"{'null' if lib_ms is None else f'{lib_ms:.4f}'} bound_ms {bnd[0]:.4f} "
-            f"({bnd[1]}) [{card}] {'ok' if ok else 'FAIL'}")
+            f"({bnd[1]})"
+            f"{'' if device_ms is None else f' device_ms {device_ms:.4f}'} [{card}] "
+            f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"{name}: kernel disagrees with its plain twin")
         records.append(rec)
@@ -250,13 +291,14 @@ def main() -> int:
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     record(
         "K1 flash_attention_fwd (B=16, T=1500, H=20, D=64, bf16)",
-        "kotoba_whisper_tpu_torch/csrc/flash_attention.cu",
+        "kotoba_whisper_tpu_torch/csrc/flash_attention_sm90.cu",
         "kotoba_whisper_tpu/ops/flash_attention.py:69", errs, 5e-3,
         time_ms(lambda: fa.flash_attention_fwd(q, k, v)),
         time_ms(lambda: fa.flash_attention_reference(q, k, v)),
         time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt)),
         bound(4.0 * B * h * t_enc * t_enc * 64, bf16_rate,
               nbytes(q, k, v, o, lse), mem_rate, exp_s=B * h * t_enc * t_enc / exp_rate),
+        device_ms=graph_ms(lambda: fa.flash_attention_fwd(q, k, v)),
     )
     del q, k, v, o, lse, qt, kt, vt
     torch.cuda.empty_cache()
@@ -278,15 +320,22 @@ def main() -> int:
         kh = kb.view(B, t, h, 64).transpose(1, 2)
         vh = vb.view(B, t, h, 64).transpose(1, 2)
         qh = qd[:, :, None]
+
+        def call():
+            return da.decode_attention(qd, kf, vf, t, n_heads=h, k_scale=ks, v_scale=vs)
+
+        log(f"[kernel] K2 {label}: host {host_us(call):.1f} us per call (wrapper, checks, "
+            f"ctypes, launch) [{card}]")
         record(
             f"K2 decode_attention {label} (B=16, T={t}, D=1280)",
             "kotoba_whisper_tpu_torch/csrc/decode_attention.cu",
             "kotoba_whisper_tpu/ops/decode_attention.py:165", errs, 2e-3,
-            time_ms(lambda: da.decode_attention(qd, kf, vf, t, n_heads=h, k_scale=ks, v_scale=vs)),
+            time_ms(call),
             time_ms(lambda: da.decode_attention_reference(
                 qd, kf, vf, t, n_heads=h, k_scale=ks, v_scale=vs)),
             time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh)),
             bound(4.0 * B * t * d, fp32_rate, nbytes(qd, kf, vf, ks, vs, out), mem_rate),
+            device_ms=graph_ms(call),
         )
         del qd, kf, vf, ks, vs, out, ref, kb, vb, kh, vh, qh
 

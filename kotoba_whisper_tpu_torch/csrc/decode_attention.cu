@@ -11,236 +11,366 @@
 // multiply-add: ~0.5-1 flop per byte, far below the ridge. The cross-
 // attention call (T=1500) is bound by the bytes of K and V (61 MB in int8
 // at B=16, about 18 us at 3.35 TB/s); the self-attention call (T <= 51)
-// is bound by the launch itself.
+// is bound by its launch and the host's call.
 //
-// Design: the TPU kernel recovers heads with a block-diagonal q and an
-// expand matrix only to dodge a TPU relayout; here each head is computed
-// directly. The flat layout puts one head's 64 values of a row at a
-// 1280-element stride, so every block reads WHOLE rows (16 bytes a lane,
-// neighbouring lanes on neighbouring addresses) and reduces each head over
-// the lanes that share it. T is split into 64-row chunks, one block per
-// (chunk, batch row): 24 x 16 = 384 blocks for the cross cache at B=16,
-// enough to fill 132 SMs. Each block writes its per-head running max, sum
-// and weighted V sum; a second small kernel, one block per (head, row),
-// combines the chunks (split-K flash decoding). A cache that fits one
-// chunk (the self-attention cache, T <= 64) skips the combine: the block
-// normalises and writes the output itself. Scores and weights stay in
-// shared memory.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+// Design: one launch per call. T is split over a thread-block cluster of
+// up to 8 CTAs per batch row (ops/decode_attention.py `split_plan`: 8 x 188
+// rows at T=1500, 128 CTAs at B=16; one CTA for the self cache). A CTA's
+// rows of a batch row are contiguous in the (B, T, H*64) cache, so one
+// producer warp streams them with 1-D bulk copies (cp.async.bulk, counted
+// on mbarriers) through a 4-stage ring of 20 KB: its K rows, then its V
+// rows, keeping ~60 KB in flight per CTA. Ten consumer warps each own one
+// 16-byte chunk of a row (a quarter of a head in int8, an eighth in bf16)
+// and a group of rows, so every consumer thread works in both phases and
+// the lanes sharing a head reduce by shuffles. int8 becomes fp32 by a byte
+// permute into the mantissa of 2^23 and one subtraction (prmt + fadd on the
+// integer and FMA pipes; the I2F pipe alone would take ~15 us at B=16), and
+// all arithmetic stays fp32. The scores of a CTA's rows (<= 188 x 20) stay
+// in shared memory, so the CTA's softmax takes its exact max before any
+// exponential (no online rescaling); the weights carry v_scale into the V
+// pass. The CTAs of a cluster then combine through distributed shared
+// memory: each sends its weighted V sums for a slice of the output columns
+// to the CTA that owns the slice, and its per-head max and sum to all, and
+// after one cluster barrier each owner writes its slice: no fp32 partials
+// in device memory and no second launch. The self-attention cache
+// (T <= 64) is one CTA per row.
+#include "sm90_common.cuh"
 
 namespace {
 
-constexpr int kHD = 64;        // head dim
-constexpr int kChunk = 64;     // cache rows per block (ops/decode_attention.py)
-constexpr int kThreads = 256;  // 8 warps
-constexpr int kWarps = kThreads / 32;
+using namespace kwt_sm90;
 
-__device__ __forceinline__ void to_float8(const __nv_bfloat16* p, float* x) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    x[2 * i] = f.x;
-    x[2 * i + 1] = f.y;
-  }
-}
-__device__ __forceinline__ void to_float8(const int8_t* p, float* x) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const int8_t* c = reinterpret_cast<const int8_t*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) x[i] = static_cast<float>(c[i]);
-}
+constexpr int kHD = 64;               // head dim
+constexpr int kConsumerWarps = 10;
+constexpr int kConsumers = 32 * kConsumerWarps;
+constexpr int kThreads = kConsumers + 32;  // + the producer warp
+constexpr int kStages = 4;
+constexpr int kStageBytes = 20480;
+constexpr int kMaxCluster = 8;  // CTAs per batch row (ops/decode_attention.py MAX_CLUSTER)
+constexpr float kLog2e = 1.4426950408889634f;
 
-// A 16-byte chunk of one cache row as floats.
 template <typename KV>
-struct Chunk {
-  static constexpr int kElems = 16 / sizeof(KV);
-  __device__ __forceinline__ static void load(const KV* p, float* x) {
+struct Chunk;
+// 16 int8 values -> floats: each byte, biased by 128, becomes the low byte
+// of 2^23's mantissa; one subtraction leaves the exact integer.
+template <>
+struct Chunk<int8_t> {
+  static constexpr int kElems = 16;
+  __device__ __forceinline__ static void load(const void* p, float* x) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(p);
+    const uint32_t w[4] = {raw.x ^ 0x80808080u, raw.y ^ 0x80808080u, raw.z ^ 0x80808080u,
+                           raw.w ^ 0x80808080u};
 #pragma unroll
-    for (int i = 0; i < kElems; i += 8) to_float8(p + i, x + i);
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        x[4 * i + j] = __int_as_float(__byte_perm(w[i], 0x4B000000u, 0x7540 + j)) - 8388736.f;
+  }
+};
+// 8 bf16 values -> floats: each is the high half of its float.
+template <>
+struct Chunk<__nv_bfloat16> {
+  static constexpr int kElems = 8;
+  __device__ __forceinline__ static void load(const void* p, float* x) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(p);
+    const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      x[2 * i] = __uint_as_float(w[i] << 16);
+      x[2 * i + 1] = __uint_as_float(w[i] & 0xFFFF0000u);
+    }
+  }
+};
+
+// Store v at p's offset in the shared memory of CTA `rank` of the cluster.
+__device__ __forceinline__ void st_cluster(float* p, uint32_t rank, float v) {
+  uint32_t addr;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(addr) : "r"(smem_u32(p)), "r"(rank));
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(addr), "f"(v) : "memory");
+}
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  __syncwarp();
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  __syncwarp();
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_sync() {
+  __syncwarp();
+  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" ::
+                   : "memory");
+}
+
+// Shared memory of one CTA: the copy ring (reused for the row groups' V
+// sums once the ring is drained), the scores/weights of its rows, its K/V
+// scales, its per-head max and sum, what the cluster's CTAs send it for
+// its slice of the output (their weighted V sums, maxes and sums), and the
+// barriers.
+struct Layout {
+  int ring, scores, k_scale, v_scale, m, l, recv_acc, recv_m, recv_l, bars, total;
+  __host__ __device__ Layout(int rows, int n_heads, int d) {
+    ring = 0;
+    scores = ring + kStages * kStageBytes;
+    k_scale = scores + 4 * rows * n_heads;
+    v_scale = k_scale + 4 * rows;
+    m = v_scale + 4 * rows;
+    l = m + 4 * n_heads;
+    recv_acc = l + 4 * n_heads;                    // (ranks, slice), <= d + ranks
+    recv_m = recv_acc + 4 * (d + kMaxCluster);     // (ranks, H)
+    recv_l = recv_m + 4 * kMaxCluster * n_heads;   // (ranks, H)
+    bars = (recv_l + 4 * kMaxCluster * n_heads + 7) & ~7;
+    total = bars + 8 * 2 * kStages;
   }
 };
 
 template <typename KV>
-__global__ void __launch_bounds__(kThreads)
-    decode_split_kernel(const __nv_bfloat16* __restrict__ q,
-                        const KV* __restrict__ k, const KV* __restrict__ v,
-                        const float* __restrict__ k_scale,
-                        const float* __restrict__ v_scale,
-                        const int* __restrict__ valid_rows, int valid_all,
-                        long q_stride, int t_cap, int n_heads, int n_splits,
-                        float* __restrict__ part_o, float* __restrict__ part_m,
-                        float* __restrict__ part_l, __nv_bfloat16* __restrict__ out) {
-  extern __shared__ float smem[];
+__global__ void __launch_bounds__(kThreads, 2)
+    decode_kernel(const __nv_bfloat16* __restrict__ q, long q_stride, const KV* __restrict__ k,
+                  const KV* __restrict__ v, const float* __restrict__ k_scale,
+                  const float* __restrict__ v_scale, const int* __restrict__ valid_rows,
+                  int valid_all, __nv_bfloat16* __restrict__ out, int t_cap, int n_heads,
+                  int rows_per_cta) {
+  constexpr int kElems = Chunk<KV>::kElems;
+  constexpr int kLanesPerHead = kHD / kElems;  // 4 (int8) or 8 (bf16)
+  extern __shared__ __align__(128) uint8_t smem[];
   const int d = n_heads * kHD;
-  float* q_s = smem;                 // (d)     pre-scaled query
-  float* w_s = q_s + d;              // (kChunk, H) scores, then weights
-  float* m_s = w_s + kChunk * n_heads;
-  float* l_s = m_s + n_heads;
+  const Layout lay(rows_per_cta, n_heads, d);
+  uint8_t* ring = smem + lay.ring;
+  float* sc = reinterpret_cast<float*>(smem + lay.scores);  // (rows, H)
+  float* ks_s = reinterpret_cast<float*>(smem + lay.k_scale);
+  float* vs_s = reinterpret_cast<float*>(smem + lay.v_scale);
+  float* m_s = reinterpret_cast<float*>(smem + lay.m);
+  float* l_s = reinterpret_cast<float*>(smem + lay.l);
+  float* recv_acc = reinterpret_cast<float*>(smem + lay.recv_acc);
+  float* recv_m = reinterpret_cast<float*>(smem + lay.recv_m);
+  float* recv_l = reinterpret_cast<float*>(smem + lay.recv_l);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + lay.bars);
+  uint64_t* empty = full + kStages;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int split = blockIdx.x, b = blockIdx.y;
-  int valid = valid_rows ? valid_rows[b] : valid_all;
-  valid = min(valid, t_cap);
-  const int t0 = split * kChunk;
-  const int n_rows = max(min(t0 + kChunk, valid) - t0, 0);
+  const int rank = blockIdx.x, n_ranks = gridDim.x, b = blockIdx.y;
+  const int per_rank = (d + n_ranks - 1) / n_ranks;  // output columns of each CTA
+  const int valid = min(valid_rows ? valid_rows[b] : valid_all, t_cap);
+  const int t0 = rank * rows_per_cta;
+  const int n_rows = max(min(t0 + rows_per_cta, valid) - t0, 0);
   const long row0 = (long)b * t_cap + t0;
+  const int row_bytes = d * (int)sizeof(KV);
+  const int stage_rows = kStageBytes / row_bytes;
+  const int n_chunks = (n_rows + stage_rows - 1) / stage_rows;  // per tensor
 
-  for (int i = tid; i < d; i += kThreads)
-    q_s[i] = __bfloat162float(q[(long)b * q_stride + i]) * 0.125f;  // 1/sqrt(64)
+  if (tid == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], kConsumerWarps);
+    }
+    fence_barrier_init();
+  }
   __syncthreads();
+  // the cluster's CTAs write into each other's shared memory at the end;
+  // this arrival, waited for before the first such write, proves all of
+  // them started
+  cluster_arrive_relaxed();
 
-  // Scores: a warp walks whole rows; each lane takes 16-byte chunks and
-  // the lanes sharing a head reduce their partial dots.
-  constexpr int kElems = Chunk<KV>::kElems;
-  constexpr int kLanesPerHead = kHD / kElems;  // 8 (bf16) or 4 (int8)
-  const int n_chunks = d / kElems;
-  for (int r = warp; r < n_rows; r += kWarps) {
-    const KV* krow = k + (row0 + r) * d;
-    const float ks = k_scale ? k_scale[row0 + r] : 1.f;
-    for (int c0 = 0; c0 < n_chunks; c0 += 32) {
-      const int c = c0 + lane;
-      float part = 0.f;
-      if (c < n_chunks) {
-        float x[kElems];
-        Chunk<KV>::load(krow + c * kElems, x);
+  if (warp == kConsumerWarps) {
+    // ---- producer: K rows, then V rows, through the ring ------------------
+    if (lane == 0) {
+      for (int i = 0; i < 2 * n_chunks; ++i) {
+        const int st = i % kStages, c = i < n_chunks ? i : i - n_chunks;
+        const int r0 = c * stage_rows, n = min(stage_rows, n_rows - r0);
+        mbar_wait(&empty[st], ((i / kStages) & 1) ^ 1);
+        mbar_expect_tx(&full[st], n * row_bytes);
+        bulk_load(ring + st * kStageBytes, (i < n_chunks ? k : v) + (row0 + r0) * d,
+                  n * row_bytes, &full[st]);
+      }
+    }
+    __syncwarp();
+    cluster_wait();
+  } else {
+    // ---- consumers: thread -> (16-byte chunk of a row, group of rows) -----
+    const int n_cols = d / kElems;                 // chunks per row
+    const int n_groups = kConsumers / n_cols;      // row groups (>= 1)
+    const int col = tid % n_cols, grp = tid / n_cols;
+    const bool active = grp < n_groups;
+    const int h = col / kLanesPerHead;
+    float qr[kElems];  // this chunk of q, pre-scaled by 1/sqrt(64) * log2(e)
+    {
+      const __nv_bfloat16* qp = q + (long)b * q_stride + col * kElems;
 #pragma unroll
-        for (int i = 0; i < kElems; ++i) part += x[i] * q_s[c * kElems + i];
+      for (int e = 0; e < kElems; ++e)
+        qr[e] = active ? __bfloat162float(qp[e]) * (0.125f * kLog2e) : 0.f;
+    }
+    for (int r = tid; r < n_rows; r += kConsumers) {
+      ks_s[r] = k_scale ? k_scale[row0 + r] : 1.f;
+      vs_s[r] = v_scale ? v_scale[row0 + r] : 1.f;
+    }
+    named_bar_sync(1, kConsumers);
+
+    // scores (log2 units) of every row of this CTA, per head
+    for (int i = 0; i < n_chunks; ++i) {
+      const int st = i % kStages, r0 = i * stage_rows, n = min(stage_rows, n_rows - r0);
+      mbar_wait(&full[st], (i / kStages) & 1);
+      const uint8_t* tile = ring + st * kStageBytes;
+      // the same trip count in every lane: the shuffles take the whole warp
+      for (int it = 0; it < (n + n_groups - 1) / n_groups; ++it) {
+        const int r = grp + it * n_groups;
+        float part = 0.f;
+        if (active && r < n) {
+          float x[kElems];
+          Chunk<KV>::load(tile + (long)r * row_bytes + col * 16, x);
+#pragma unroll
+          for (int e = 0; e < kElems; ++e) part = fmaf(x[e], qr[e], part);
+        }
+#pragma unroll
+        for (int off = kLanesPerHead / 2; off > 0; off >>= 1)
+          part += __shfl_xor_sync(0xffffffffu, part, off);
+        if (active && r < n && col % kLanesPerHead == 0)
+          sc[(r0 + r) * n_heads + h] = part * ks_s[r0 + r];
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[st]);
+    }
+    named_bar_sync(1, kConsumers);
+
+    // the CTA's exact per-head max, weights p * v_scale, and sums (an empty
+    // CTA, all its rows past valid, keeps m = -inf and l = 0)
+    for (int hh = warp; hh < n_heads; hh += kConsumerWarps) {
+      float mx = -INFINITY;
+      for (int r = lane; r < n_rows; r += 32) mx = fmaxf(mx, sc[r * n_heads + hh]);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      float sum = 0.f;
+      for (int r = lane; r < n_rows; r += 32) {
+        const float p = ex2(sc[r * n_heads + hh] - mx);
+        sum += p;
+        sc[r * n_heads + hh] = p * vs_s[r];
       }
 #pragma unroll
-      for (int off = kLanesPerHead / 2; off > 0; off >>= 1)
-        part += __shfl_xor_sync(0xffffffffu, part, off);
-      if (c < n_chunks && (lane % kLanesPerHead) == 0)
-        w_s[r * n_heads + c / kLanesPerHead] = part * ks;
+      for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      if (lane == 0) {
+        m_s[hh] = mx;
+        l_s[hh] = sum;
+      }
     }
-  }
-  __syncthreads();
+    named_bar_sync(1, kConsumers);
 
-  // Per-head max and sum over this chunk's rows; weights carry v_scale.
-  for (int h = warp; h < n_heads; h += kWarps) {
-    float mx = -INFINITY;
-    for (int r = lane; r < n_rows; r += 32) mx = fmaxf(mx, w_s[r * n_heads + h]);
+    // weighted V sums of this thread's chunk over its row group
+    float acc[kElems];
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-    float sum = 0.f;
-    for (int r = lane; r < n_rows; r += 32) {
-      const float p = expf(w_s[r * n_heads + h] - mx);
-      sum += p;
-      w_s[r * n_heads + h] = p * (v_scale ? v_scale[row0 + r] : 1.f);
+    for (int e = 0; e < kElems; ++e) acc[e] = 0.f;
+    for (int i = 0; i < n_chunks; ++i) {
+      const int j = n_chunks + i, st = j % kStages;
+      const int r0 = i * stage_rows, n = min(stage_rows, n_rows - r0);
+      mbar_wait(&full[st], (j / kStages) & 1);
+      const uint8_t* tile = ring + st * kStageBytes;
+      if (active) {
+        for (int r = grp; r < n; r += n_groups) {
+          const float w = sc[(r0 + r) * n_heads + h];
+          float x[kElems];
+          Chunk<KV>::load(tile + (long)r * row_bytes + col * 16, x);
+#pragma unroll
+          for (int e = 0; e < kElems; ++e) acc[e] = fmaf(w, x[e], acc[e]);
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[st]);
     }
+    // the drained ring holds the row groups' sums
+    named_bar_sync(1, kConsumers);
+    float* red = reinterpret_cast<float*>(ring);  // (n_groups, d)
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // after the bulk copies
+    if (active) {
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      sum += __shfl_xor_sync(0xffffffffu, sum, off);
-    if (lane == 0) {
-      m_s[h] = mx;
-      l_s[h] = sum;
+      for (int e = 0; e < kElems; ++e) red[grp * d + col * kElems + e] = acc[e];
     }
-  }
-  __syncthreads();
-
-  // Weighted V sum: each thread owns 8 consecutive columns of the row.
-  // With a single chunk the block normalises and writes the output itself.
-  const long part_row = (long)b * n_splits + split;
-  for (int cg = tid; cg < d / 8; cg += kThreads) {
-    const int h = (cg * 8) / kHD;
-    float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    for (int r = 0; r < n_rows; ++r) {
-      const float w = w_s[r * n_heads + h];
-      float x[8];
-      to_float8(v + (row0 + r) * d + cg * 8, x);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) acc[i] += w * x[i];
+    named_bar_sync(1, kConsumers);
+    // send each column's sum to the CTA that owns its output slice, and
+    // this CTA's per-head max and sum to every CTA
+    cluster_wait();
+    for (int c = tid; c < d; c += kConsumers) {
+      float s = 0.f;
+      for (int g = 0; g < n_groups; ++g) s += red[g * d + c];
+      const int owner = c / per_rank;
+      st_cluster(recv_acc + rank * per_rank + c - owner * per_rank, owner, s);
     }
-    if (n_splits == 1) {
-      const float inv = 1.f / fmaxf(l_s[h], 1e-30f);
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-        out[(long)b * d + cg * 8 + i] = __float2bfloat16(acc[i] * inv);
-    } else {
-      float* dst = part_o + part_row * d + cg * 8;
-#pragma unroll
-      for (int i = 0; i < 8; ++i) dst[i] = acc[i];
+    for (int i = tid; i < n_ranks * n_heads; i += kConsumers) {
+      const int dst = i / n_heads, hh = i - dst * n_heads;
+      st_cluster(recv_m + rank * n_heads + hh, dst, m_s[hh]);
+      st_cluster(recv_l + rank * n_heads + hh, dst, l_s[hh]);
     }
   }
-  if (n_splits > 1 && tid < n_heads) {
-    part_m[part_row * n_heads + tid] = m_s[tid];
-    part_l[part_row * n_heads + tid] = l_s[tid];
+  // ---- combine: each CTA writes its slice of the output from what it was
+  // sent; after this barrier no CTA touches another's shared memory
+  cluster_sync();
+  if (warp != kConsumerWarps) {
+    const int c0 = rank * per_rank;
+    for (int c = c0 + tid; c < min(d, c0 + per_rank); c += kConsumers) {
+      const int hh = c / kHD;
+      float mx = -INFINITY;
+      for (int r = 0; r < n_ranks; ++r) mx = fmaxf(mx, recv_m[r * n_heads + hh]);
+      float l = 0.f, o = 0.f;
+      if (mx != -INFINITY) {
+        for (int r = 0; r < n_ranks; ++r) {
+          const float f = ex2(recv_m[r * n_heads + hh] - mx);  // 0 for an empty CTA
+          l = fmaf(recv_l[r * n_heads + hh], f, l);
+          o = fmaf(recv_acc[r * per_rank + c - c0], f, o);
+        }
+      }
+      out[(long)b * d + c] = __float2bfloat16(l > 0.f ? o / l : 0.f);
+    }
   }
-}
-
-// One block of 64 threads per (head, batch row): thread i owns column i
-// of the head and folds the chunks' partial sums with their max and sum.
-__global__ void __launch_bounds__(kHD)
-    decode_combine_kernel(const float* __restrict__ part_o,
-                          const float* __restrict__ part_m,
-                          const float* __restrict__ part_l,
-                          __nv_bfloat16* __restrict__ out, int n_heads,
-                          int n_splits) {
-  const int h = blockIdx.x, b = blockIdx.y, d = n_heads * kHD;
-  const int c = h * kHD + threadIdx.x;
-  const long base = (long)b * n_splits;
-  float mx = -INFINITY;
-  for (int s = 0; s < n_splits; ++s)
-    mx = fmaxf(mx, part_m[(base + s) * n_heads + h]);
-  float l = 0.f, o = 0.f;
-  for (int s = 0; s < n_splits; ++s) {
-    const float f = expf(part_m[(base + s) * n_heads + h] - mx);  // 0 if empty
-    l += part_l[(base + s) * n_heads + h] * f;
-    o += part_o[(base + s) * d + c] * f;
-  }
-  out[(long)b * d + c] = __float2bfloat16(o / fmaxf(l, 1e-30f));
 }
 
 template <typename KV>
-int launch(const void* q, const void* k, const void* v, const void* k_scale,
-           const void* v_scale, const void* valid_rows, int valid_all,
-           long q_stride, void* out, void* part_o, void* part_m, void* part_l,
-           int batch, int t_cap, int n_heads, int n_splits, cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * ((size_t)n_heads * kHD + (size_t)kChunk * n_heads + 2 * n_heads);
-  decode_split_kernel<KV><<<dim3(n_splits, batch), kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const KV*>(k),
-      static_cast<const KV*>(v), static_cast<const float*>(k_scale),
-      static_cast<const float*>(v_scale), static_cast<const int*>(valid_rows),
-      valid_all, q_stride, t_cap, n_heads, n_splits, static_cast<float*>(part_o),
-      static_cast<float*>(part_m), static_cast<float*>(part_l),
-      static_cast<__nv_bfloat16*>(out));
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || n_splits == 1) return static_cast<int>(err);
-  decode_combine_kernel<<<dim3(n_heads, batch), kHD, 0, stream>>>(
-      static_cast<const float*>(part_o), static_cast<const float*>(part_m),
-      static_cast<const float*>(part_l), static_cast<__nv_bfloat16*>(out),
-      n_heads, n_splits);
-  return static_cast<int>(cudaGetLastError());
+int launch(const void* q, long q_stride, const void* k, const void* v, const void* k_scale,
+           const void* v_scale, const void* valid_rows, int valid_all, void* out, int batch,
+           int t_cap, int n_heads, int n_ctas, int rows_per_cta, cudaStream_t stream) {
+  const int d = n_heads * kHD;
+  const Layout lay(rows_per_cta, n_heads, d);
+  static int configured = 0;
+  if (configured < lay.total) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        decode_kernel<KV>, cudaFuncAttributeMaxDynamicSharedMemorySize, lay.total);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = lay.total;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_ctas, batch);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = lay.total;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = n_ctas;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return static_cast<int>(cudaLaunchKernelEx(
+      &cfg, decode_kernel<KV>, static_cast<const __nv_bfloat16*>(q), q_stride,
+      static_cast<const KV*>(k), static_cast<const KV*>(v), static_cast<const float*>(k_scale),
+      static_cast<const float*>(v_scale), static_cast<const int*>(valid_rows), valid_all,
+      static_cast<__nv_bfloat16*>(out), t_cap, n_heads, rows_per_cta));
 }
 
 }  // namespace
 
 // q (B, H*64) bf16, rows q_stride elements apart (a row of a fused qkv
-// projection is read in place); k/v (B, T, H*64) bf16 (kv_int8=0) or int8 (kv_int8=1)
-// with fp32 (B, T) scales (nullable); valid_rows (B,) int32 or null, then
-// valid_all applies to every row. Scratch for n_splits > 1 (null for one
-// split): part_o (B, n_splits, H*64), part_m/part_l (B, n_splits, H) fp32.
-// out (B, H*64) bf16.
-extern "C" int kwt_decode_attention(const void* q, const void* k,
-                                    const void* v, const void* k_scale,
-                                    const void* v_scale, const void* valid_rows,
-                                    int valid_all, long long q_stride,
-                                    void* out, void* part_o, void* part_m,
-                                    void* part_l, int batch, int t_cap,
-                                    int n_heads, int n_splits, int kv_int8,
-                                    void* stream) {
+// projection is read in place); k/v (B, T, H*64) bf16 (kv_int8=0) or int8
+// (kv_int8=1) with fp32 (B, T) scales (nullable); valid_rows (B,) int32 or
+// null, then valid_all applies to every row. One cluster of n_ctas CTAs
+// (<= 8) per batch row, each over rows_per_cta cache rows (the split plan
+// of ops/decode_attention.py). out (B, H*64) bf16. Returns the launch's
+// cudaError_t.
+extern "C" int kwt_decode_attention(const void* q, long long q_stride, const void* k,
+                                    const void* v, const void* k_scale, const void* v_scale,
+                                    const void* valid_rows, int valid_all, void* out, int batch,
+                                    int t_cap, int n_heads, int n_ctas, int rows_per_cta,
+                                    int kv_int8, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (kv_int8)
-    return launch<int8_t>(q, k, v, k_scale, v_scale, valid_rows, valid_all,
-                          (long)q_stride, out, part_o, part_m, part_l, batch, t_cap, n_heads,
-                          n_splits, s);
-  return launch<__nv_bfloat16>(q, k, v, k_scale, v_scale, valid_rows,
-                               valid_all, (long)q_stride, out, part_o, part_m, part_l, batch,
-                               t_cap, n_heads, n_splits, s);
+    return launch<int8_t>(q, (long)q_stride, k, v, k_scale, v_scale, valid_rows, valid_all,
+                          out, batch, t_cap, n_heads, n_ctas, rows_per_cta, s);
+  return launch<__nv_bfloat16>(q, (long)q_stride, k, v, k_scale, v_scale, valid_rows,
+                               valid_all, out, batch, t_cap, n_heads, n_ctas, rows_per_cta, s);
 }

@@ -1,55 +1,42 @@
-// Flash-attention forward for Hopper, bf16 in / bf16 out: K1 (non-causal,
-// encoder self-attention and decoder cross-attention) and K4 (causal,
-// decoder self-attention), one kernel with a compile-time causal flag.
+// Causal flash-attention forward for Hopper (K4), bf16 in / bf16 out: the
+// decoder's self-attention in training. (The non-causal forward, K1, is
+// flash_attention_sm90.cu.)
 //
-// Replaces: kotoba_whisper_tpu/ops/flash_attention.py `_fwd_kernel_single`
-// (K1, called through `_flash_fwd`), the TPU's one-shot non-causal softmax
-// attention, and `_fwd_kernel` (K4), its online-softmax forward with the
-// end-aligned causal mask. Both emit O in the input dtype and the fp32
-// natural-log LSE.
+// Replaces: kotoba_whisper_tpu/ops/flash_attention.py `_fwd_kernel`, the
+// TPU's online-softmax forward with the end-aligned causal mask. It emits O
+// in the input dtype and the fp32 natural-log LSE.
 //
-// What bounds it on the card: at the encoder's shape (B*20 heads, T=1500,
-// D=64) one call does 4*B*H*T^2*D flops (184 GFLOP at B=16) over 4*B*T*H*D*2
-// bytes (246 MB), so it sits well above the H100's ~295 flop/byte ridge:
-// tensor-core bound (about 0.19 ms at 989 TFLOP/s), with the B*H*T^2
-// exponentials on the SFUs a close second. K4 at the decoder's training
-// shape (B=8, T=128, 20 heads) needs ~0.34 GFLOP (the causal half of the
-// scores) over ~10.6 MB (q, k, v, O, LSE): bound by its bytes at ~3 us, so
-// launch cost dominates.
+// What bounds it on the card: at the decoder's training shape (B=8, T=128,
+// 20 heads) one call needs ~0.34 GFLOP (the causal half of the scores) over
+// ~10.6 MB (q, k, v, O, LSE): bound by its bytes at ~3 us, so launch cost
+// dominates.
 //
-// Design: the TPU kernel keeps all of K and V resident (1500x64x2x2 B =
-// 384 KB); a Hopper block has 227 KB of shared memory, so this kernel
-// streams 64-key tiles with an online softmax instead (FlashAttention-2
-// order). One block of 4 warps owns 64 query rows of one (batch, head);
-// each warp owns 16 rows and keeps its Q fragment, the running max/sum and
-// the 16x64 fp32 output accumulator in registers. QK^T and PV run on the
-// tensor cores through mma.sync m16n8k16 (bf16 operands, fp32 sums); P is
-// re-packed from the score accumulators into A fragments without touching
-// shared memory. K/V tiles are double-buffered with cp.async, and tiles are
-// XOR-swizzled so ldmatrix reads are free of bank conflicts. The 1/sqrt(64)
-// scale and log2(e) fold into one fp32 multiply of the scores (exact scale,
-// exp2 on the SFU). Keys past T (the ragged last tile of T=1500) are masked
-// to -inf; rows past T are computed on zero-filled Q and never stored.
-// Causal (K4): query row r sees keys <= r + (tk - tq) (end-aligned, as the
-// TPU kernel); the block loops only over key tiles at or below its last
-// row, and only tiles that cross its first row's bound are masked (the
-// diagonal tile when tq == tk). The non-causal instantiation masks every
-// tile by tk only, exactly as K1 did before K4 joined it.
+// Design: 64-key tiles with an online softmax (FlashAttention-2 order). One
+// block of 4 warps owns 64 query rows of one (batch, head); each warp owns
+// 16 rows and keeps its Q fragment, the running max/sum and the 16x64 fp32
+// output accumulator in registers. QK^T and PV run on the tensor cores
+// through mma.sync m16n8k16 (bf16 operands, fp32 sums); P is re-packed from
+// the score accumulators into A fragments without touching shared memory.
+// K/V tiles are double-buffered with cp.async, and tiles are XOR-swizzled
+// so ldmatrix reads are free of bank conflicts. The 1/sqrt(64) scale and
+// log2(e) fold into one fp32 multiply of the scores (exact scale, exp2 on
+// the SFU). Query row r sees keys <= r + (tk - tq) (end-aligned, as the TPU
+// kernel); the block loops only over key tiles at or below its last row,
+// and only tiles that cross its first row's bound are masked (the diagonal
+// tile when tq == tk); keys past T are masked to -inf, and rows past T are
+// computed on zero-filled Q and never stored.
 // Tensors keep the model's (B, T, H, D) layout: a head's row is 128
 // contiguous bytes, so no transpose to (B*H, T, D) is needed. q, k and v
 // take a token stride of their own, so the q/k/v column blocks of a fused
 // (B, T, 3*H*D) qkv projection are read in place, without copies.
-// Later work: wgmma + TMA + warp specialisation, and overlapping the
-// exponentials with the MMAs.
 #include "flash_common.cuh"
 
 namespace {
 
 using namespace kwt_flash;
 
-template <bool kCausal>
 __global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
+    flash_fwd_causal_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v,
                      __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
@@ -67,17 +54,15 @@ __global__ void __launch_bounds__(kThreads)
   const __nv_bfloat16* qb = q + (long)b * tq * q_stride + h * kD;
   const __nv_bfloat16* kb = k + (long)b * tk * k_stride + h * kD;
   const __nv_bfloat16* vb = v + (long)b * tk * v_stride + h * kD;
-  // this thread's two query rows, and (causal) the last key each may see
+  // this thread's two query rows
   const int row[2] = {q0 + warp * 16 + (lane >> 2), q0 + warp * 16 + (lane >> 2) + 8};
   const int offset = tk - tq;
 
-  int n_tiles = (tk + kBK - 1) / kBK;
-  int n_free = 0;  // leading tiles that need no mask (causal only)
-  if (kCausal) {
-    const int last_row = min(q0 + kBQ - 1, tq - 1);
-    n_tiles = min(n_tiles, (last_row + offset) / kBK + 1);
-    n_free = min(n_tiles, (q0 + offset + 1) / kBK);
-  }
+  // key tiles at or below the block's last row; the leading n_free of them
+  // lie below its first row's bound and need no mask
+  const int last_row = min(q0 + kBQ - 1, tq - 1);
+  const int n_tiles = min((tk + kBK - 1) / kBK, (last_row + offset) / kBK + 1);
+  const int n_free = min(n_tiles, (q0 + offset + 1) / kBK);
 
   load_tile(sq, qb, q0, tq, q_stride, tid);
   cp_async_commit();
@@ -116,7 +101,7 @@ __global__ void __launch_bounds__(kThreads)
 
     // Scale into log2 units, mask, update the running max.
     const int key0 = j * kBK + (lane & 3) * 2;
-    const bool masked = !kCausal || j >= n_free;
+    const bool masked = j >= n_free;
     float mx[2] = {m_run[0], m_run[1]};
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {
@@ -125,8 +110,7 @@ __global__ void __launch_bounds__(kThreads)
         const int col = key0 + nt * 8 + (e & 1);
         bool keep = true;
         if (masked) {
-          keep = col < tk;
-          if (kCausal) keep = keep && col <= row[e >> 1] + offset;
+          keep = col < tk && col <= row[e >> 1] + offset;
         }
         const float x = keep ? s[nt][e] * scale_log2 : -INFINITY;
         s[nt][e] = x;
@@ -189,20 +173,17 @@ __global__ void __launch_bounds__(kThreads)
 
 // q (B, Tq, H, 64), k/v (B, Tk, H, 64) bf16, each with a token stride in
 // elements (H*64 when contiguous; each head's 64 values contiguous) -> o
-// (B, Tq, H, 64) bf16 contiguous and lse (B, H, Tq) fp32. causal != 0
-// selects K4 (end-aligned mask), else K1. Returns the launch's cudaError_t.
-extern "C" int kwt_flash_attention_fwd(const void* q, const void* k,
-                                       const void* v, void* o, void* lse,
-                                       int batch, int tq, int tk, int n_heads,
-                                       int causal, long long q_stride,
-                                       long long k_stride, long long v_stride,
-                                       void* stream) {
+// (B, Tq, H, 64) bf16 contiguous and lse (B, H, Tq) fp32, with the
+// end-aligned causal mask. Returns the launch's cudaError_t.
+extern "C" int kwt_flash_attention_causal_fwd(const void* q, const void* k, const void* v,
+                                              void* o, void* lse, int batch, int tq, int tk,
+                                              int n_heads, long long q_stride,
+                                              long long k_stride, long long v_stride,
+                                              void* stream) {
   const float scale_log2 = 0.125f * kLog2e;  // 1/sqrt(64)*log2(e)
   dim3 grid((tq + kBQ - 1) / kBQ, batch * n_heads);
-  auto kernel = causal ? flash_fwd_kernel<true> : flash_fwd_kernel<false>;
-  kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
+  flash_fwd_causal_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
       static_cast<float*>(lse), tq, tk, n_heads, (long)q_stride, (long)k_stride,
       (long)v_stride, scale_log2);

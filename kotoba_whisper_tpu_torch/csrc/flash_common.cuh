@@ -1,5 +1,5 @@
-// Shared building blocks of the flash-attention kernels (K1/K4 forward in
-// flash_attention.cu, K5 backward in flash_attention_bwd.cu): 64-row bf16
+// Shared building blocks of the mma.sync flash-attention kernels (K4
+// forward in flash_attention.cu, K5 backward in flash_attention_bwd.cu): 64-row bf16
 // tiles of the model's (B, T, H, 64) layout staged in shared memory with
 // cp.async, XOR-swizzled so ldmatrix reads are free of bank conflicts, and
 // mma.sync m16n8k16 products with bf16 operands and fp32 sums.

@@ -23,8 +23,8 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
 SOURCES = (
-    "flash_attention", "flash_attention_bwd", "decode_attention", "mel",
-    "layer_norm", "conv_stem", "flash_attention_int8", "vpu_cal",
+    "flash_attention_sm90", "flash_attention", "flash_attention_bwd", "decode_attention",
+    "mel", "layer_norm", "conv_stem", "flash_attention_int8", "vpu_cal",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -35,15 +35,20 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 # C signatures of each library's entry points: pointers and the stream as
 # c_void_p (ctypes would otherwise pass 32-bit ints and cut them)
 SIGNATURES = {
+    "flash_attention_sm90": {
+        "kwt_flash_attention_sm90_fwd": [
+            _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L, _L, _L, _L, _P,
+        ],
+    },
     "flash_attention": {
-        "kwt_flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _P],
+        "kwt_flash_attention_causal_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _P],
     },
     "flash_attention_bwd": {
         "kwt_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     },
     "decode_attention": {
         "kwt_decode_attention": [
-            _P, _P, _P, _P, _P, _P, _I, _L, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
+            _P, _L, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P,
         ],
     },
     "mel": {

@@ -1,5 +1,6 @@
-"""Flash attention: the forward kernels K1 (non-causal) and K4 (causal) in
-csrc/flash_attention.cu, the int8 attention core K8 in
+"""Flash attention: the forward kernels K1 (non-causal, TMA and wgmma, in
+csrc/flash_attention_sm90.cu) and K4 (causal, csrc/flash_attention.cu),
+the int8 attention core K8 in
 csrc/flash_attention_int8.cu, the backward kernel pair K5 in
 csrc/flash_attention_bwd.cu, their plain twins, and the `FlashAttention`
 autograd function that ties them together.
@@ -10,8 +11,10 @@ needs). Causal attention is end-aligned: query row i sees keys
 j <= i + (Tk - Tq); the public `flash_attention` takes it only with
 Tq == Tk, as the JAX package does. Layout is the model's: q (B, Tq, H, D),
 k/v (B, Tk, H, D), O (B, Tq, H, D), LSE (B, H, Tq). The forward kernels
-read q, k and v with a token stride of their own, so the column blocks of
-a fused qkv (or kv) projection go in without copies.
+read q, k and v with strides of their own, so the column blocks of a fused
+qkv (or kv) projection go in without copies: K1 through TMA tensor maps
+whose byte strides `tma_strides` plans (multiples of 16), K4 with a token
+stride.
 
 The int8 core (the JAX package's `KWT_FA_INT8` experiment): "qk" runs QK^T
 as s8 x s8 -> s32 with q quantized per query row and K per key row; "qkpv"
@@ -106,6 +109,50 @@ def _token_stride(t):
     return t.stride(0) if b > 1 else h * d
 
 
+# K1's TMA box: (head dim, heads, tokens, batch) elements, 128 bytes wide
+# (the 128-byte swizzle), 128 tokens tall (csrc/flash_attention_sm90.cu)
+TMA_BOX = (64, 1, 128, 1)
+
+
+def tma_strides(t):
+    """Byte strides (head, token, batch) of a (B, T, H, 64) bf16 tensor for
+    K1's 4-D tensor map. The head dim must be contiguous and the address
+    and every stride a multiple of 16 bytes, as TMA requires; a dimension
+    of size 1 takes the stride of a contiguous layout (it never moves the
+    address). Raises ValueError otherwise."""
+    b, tt, h, d = t.shape
+    if d != TMA_BOX[0] or t.stride(3) != 1:
+        raise ValueError(f"K1 takes a contiguous head dim of {TMA_BOX[0]}, got shape "
+                         f"{tuple(t.shape)} strides {t.stride()}")
+    size = t.element_size()
+    head = size * (t.stride(2) if h > 1 else d)
+    token = size * (t.stride(1) if tt > 1 else h * d)
+    batch = size * (t.stride(0) if b > 1 else tt * token // size)
+    if t.data_ptr() % 16 or head % 16 or token % 16 or batch % 16:
+        raise ValueError(f"K1's tensor maps need 16-byte strides and address; strides "
+                         f"{t.stride()} of {t.dtype} give head {head}, token {token}, "
+                         f"batch {batch} bytes")
+    if not (head * h <= token and token * tt <= batch) or batch * b >= 1 << 40:
+        raise ValueError(f"K1 cannot map overlapping strides {t.stride()}")
+    return head, token, batch
+
+
+def _flash_fwd_sm90(q, k, v):
+    """K1: the non-causal forward on the card."""
+    b, tq, tk, h = _check_shapes(q, k, v)
+    strides = [s for t in (q, k, v) for s in tma_strides(t)]
+    o = torch.empty((b, tq, h, 64), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
+    rc = _build.library("flash_attention_sm90").kwt_flash_attention_sm90_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+        b, tq, tk, h, *strides, _build.stream_handle(q.device),
+    )
+    if rc != 0:
+        raise RuntimeError(f"K1 flash attention launch failed: cudaError {rc}")
+    flash_attention_fwd.launches += 1
+    return o, lse
+
+
 def flash_attention_fwd(q, k, v, *, causal=False, int8_mode=None):
     """K1 (causal=False) / K4 (causal=True) wrapper, or K8 where an int8
     mode applies: the kernel for CUDA tensors, the plain twin for CPU
@@ -120,21 +167,19 @@ def flash_attention_fwd(q, k, v, *, causal=False, int8_mode=None):
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, causal)
     _check_bf16(strided=True, q=q, k=k, v=v)
+    if not causal:
+        return _flash_fwd_sm90(q, k, v)
     b, tq, tk, h = _check_shapes(q, k, v)
     o = torch.empty((b, tq, h, 64), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
-    rc = _build.library("flash_attention").kwt_flash_attention_fwd(
+    rc = _build.library("flash_attention").kwt_flash_attention_causal_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        b, tq, tk, h, int(causal), _token_stride(q), _token_stride(k), _token_stride(v),
+        b, tq, tk, h, _token_stride(q), _token_stride(k), _token_stride(v),
         _build.stream_handle(q.device),
     )
-    name = "K4" if causal else "K1"
     if rc != 0:
-        raise RuntimeError(f"{name} flash attention launch failed: cudaError {rc}")
-    if causal:
-        flash_attention_fwd.causal_launches += 1
-    else:
-        flash_attention_fwd.launches += 1
+        raise RuntimeError(f"K4 flash attention launch failed: cudaError {rc}")
+    flash_attention_fwd.causal_launches += 1
     return o, lse
 
 

@@ -11,7 +11,15 @@ fp32 on the CPU, tiny models with the same weights on both sides
     w8a8, compute and int8 KV;
   - converting a transformed JAX tree equals transforming the converted
     model.
+
+The w8a8 cases hold the port to the JAX functions run op by op
+(`jax.disable_jit()`): jitted on the CPU, XLA fuses the fp32 steps ahead of
+the per-row activation quantization in a way that depends on the host CPU,
+moves a value by about one ulp, and one int8 level flipped that way moves
+the encoder's output by about one activation scale (0.084 jitted against
+5.7e-6 op by op). The unquantized cases keep the jitted reference.
 """
+import contextlib
 import copy
 
 import jax
@@ -63,6 +71,12 @@ def pair():
     params = jax.tree.unflatten(treedef, [jnp.asarray(x) for x in leaves])
     mel = np.random.default_rng(0).standard_normal((3, 80, 128)).astype(np.float32)
     return params, mel
+
+
+def _jax_reference(w8a8):
+    """The context the JAX reference runs in: op by op under w8a8, jitted
+    otherwise (see the module docstring)."""
+    return jax.disable_jit() if w8a8 else contextlib.nullcontext()
 
 
 def _port(params):
@@ -161,9 +175,10 @@ def test_greedy_tokens_match_jax(pair, w8a8, kv_dtype):
         jparams = jq.quantize_for_inference(jparams)
         model = quantize_for_inference(model)
     prompt = tg.transcribe_prompt(ST, ST.lang_begin + 7)
-    ref = np.asarray(jg.generate_greedy(
-        jparams, JCFG, jnp.asarray(mel), jg.GenerateOptions(prompt_ids=prompt, max_length=24),
-        JST, kv_dtype=kv_dtype))
+    with _jax_reference(w8a8):
+        ref = np.asarray(jg.generate_greedy(
+            jparams, JCFG, jnp.asarray(mel), jg.GenerateOptions(prompt_ids=prompt, max_length=24),
+            JST, kv_dtype=kv_dtype))
     got = tg.generate_greedy(
         model, torch.from_numpy(mel), tg.GenerateOptions(prompt_ids=prompt, max_length=24),
         ST, kv_dtype=kv_dtype, device="cpu").numpy()
@@ -192,5 +207,6 @@ def test_converting_a_transformed_tree(pair, transform):
         else:
             torch.testing.assert_close(got[k], want[k], atol=1e-7, rtol=0, msg=k)
     enc = tw.encode(converted, torch.from_numpy(mel), device="cpu").numpy()
-    ref = np.asarray(jw.encode(jtree, JCFG, jnp.asarray(mel)))
+    with _jax_reference("w8a8" in transform):
+        ref = np.asarray(jw.encode(jtree, JCFG, jnp.asarray(mel)))
     np.testing.assert_allclose(enc, ref, atol=1e-4, rtol=1e-4)

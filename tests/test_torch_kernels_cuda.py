@@ -67,6 +67,61 @@ def test_flash_attention_kernel(b, tq, tk, h):
     torch.testing.assert_close(lse, rlse, atol=1e-3, rtol=1e-4)
 
 
+@pytest.mark.parametrize("tk", [1, 63, 64, 65, 128, 1500, 4100])
+@pytest.mark.parametrize("tq", [1, 128, 1500])
+def test_flash_attention_kernel_tiles(tq, tk):
+    """K1 (TMA + wgmma) at key counts around its 128-key tiles (a ragged
+    last tile masked, one exact tile, streamed long K) and query counts of
+    one row, one exact 128-row tile and the encoder's 1500."""
+    q = _randn(2, tq, 3, 64, seed=50)
+    k = _randn(2, tk, 3, 64, seed=51)
+    v = _randn(2, tk, 3, 64, seed=52)
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    torch.cuda.synchronize()
+    ro, rlse = fa.flash_attention_reference(q, k, v)
+    _assert_near(o, ro, atol=5e-3)
+    torch.testing.assert_close(lse, rlse, atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.parametrize("tq, tk", [(1500, 1500), (128, 1500)])
+def test_flash_attention_kernel_reads_fused_strides(tq, tk):
+    """K1 on the column blocks of a fused qkv (self) and of a q + fused kv
+    (cross) projection at large-v3 width: equal to the kernel on copies and
+    near the twin."""
+    b, h = 2, 20
+    if tq == tk:
+        q, k, v = (x.reshape(b, tq, h, 64) for x in _randn(b, tq, 3 * h * 64, seed=53).chunk(3, -1))
+    else:
+        q = _randn(b, tq, h, 64, seed=54)
+        k, v = (x.reshape(b, tk, h, 64) for x in _randn(b, tk, 2 * h * 64, seed=55).chunk(2, -1))
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    o2, lse2 = fa.flash_attention_fwd(q.contiguous(), k.contiguous(), v.contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    _assert_near(o, fa.flash_attention_reference(q, k, v)[0], atol=5e-3)
+
+
+def test_flash_attention_kernel_raises_on_misaligned_strides():
+    x = _randn(2 * 10 * (3 * 64 + 4), seed=56).as_strided((2, 10, 3, 64), (10 * 196, 196, 64, 1))
+    with pytest.raises(ValueError):
+        fa.flash_attention_fwd(x, x, x)
+
+
+def test_flash_attention_autograd_cross_on_card():
+    """FlashAttention's gradients through K1's forward (LSE included) and
+    K5's backward at the training cross-attention shape (128 labels x 1500
+    frames) against autograd of the plain twin, bf16 on the card."""
+    q = _randn(2, 128, 4, 64, seed=57).requires_grad_()
+    k, v = (_randn(2, 1500, 4, 64, seed=s).requires_grad_() for s in (58, 59))
+    do = _randn(2, 128, 4, 64, seed=60)
+    fa.flash_attention(q, k, v).backward(do)
+    got = [t.grad for t in (q, k, v)]
+    q2, k2, v2 = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    fa.flash_attention_reference(q2, k2, v2)[0].backward(do)
+    for name, g, t in zip(("dq", "dk", "dv"), got, (q2, k2, v2)):
+        _assert_grad_near(g, t.grad, name)
+
+
 @pytest.mark.parametrize("b, t, h", [(2, 130, 3), (8, 128, 20), (3, 64, 2), (1, 1, 1)])
 def test_causal_flash_attention_kernel(b, t, h):
     """K4: causal T not a multiple of the 64-row tile, the training shape,
@@ -142,6 +197,63 @@ def test_decode_attention_kernel(int8, t, valid):
     torch.cuda.synchronize()
     ref = da.decode_attention_reference(q, k, v, valid, n_heads=h, k_scale=ks, v_scale=vs)
     _assert_near(got, ref, atol=2e-3)
+
+
+def _decode_inputs(b, t, h, int8, seed):
+    q = _randn(b, h, 64, seed=seed)
+    k = _randn(b, t, h * 64, seed=seed + 1)
+    v = _randn(b, t, h * 64, seed=seed + 2)
+    ks = vs = None
+    if int8:
+        k, ks = quantize_kv_rows(k)
+        v, vs = quantize_kv_rows(v)
+    return q, k, v, ks, vs
+
+
+@pytest.mark.parametrize("int8", [True, False], ids=["int8", "bf16"])
+@pytest.mark.parametrize("t", [1, 51, 64, 65, 1500])
+@pytest.mark.parametrize("per_row", [False, True], ids=["scalar", "rows"])
+def test_decode_attention_kernel_splits(int8, t, per_row):
+    """K2 at cache lengths around its split plan (one CTA up to 64 rows,
+    then clusters of up to 8); per-row valid lengths of 1 and 2 leave whole
+    CTAs of a cluster empty, which the combine must skip."""
+    b, h = 4, 20
+    q, k, v, ks, vs = _decode_inputs(b, t, h, int8, seed=61)
+    valid = (torch.tensor([t, 1, min(t, 2), (t + 1) // 2], dtype=torch.int32, device="cuda")
+             if per_row else t)
+    before = da.decode_attention.launches
+    got = da.decode_attention(q, k, v, valid, n_heads=h, k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    assert da.decode_attention.launches == before + 1
+    ref = da.decode_attention_reference(q, k, v, valid, n_heads=h, k_scale=ks, v_scale=vs)
+    _assert_near(got, ref, atol=2e-3)
+
+
+@pytest.mark.parametrize("int8", [True, False], ids=["int8", "bf16"])
+def test_decode_attention_kernel_replays_in_a_cuda_graph(int8):
+    """K2 allocates only its output and launches once: a CUDA graph of the
+    call replays to the eager result, bit for bit, on new inputs too."""
+    b, t, h = 16, 1500, 20
+    q, k, v, ks, vs = _decode_inputs(b, t, h, int8, seed=64)
+    valid = torch.tensor([t, 700, 1, 188], dtype=torch.int32, device="cuda").repeat(4)
+
+    def call():
+        return da.decode_attention(q, k, v, valid, n_heads=h, k_scale=ks, v_scale=vs)
+
+    want = call()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    q.copy_(_randn(b, h, 64, seed=65))
+    valid.fill_(999)
+    graph.replay()
+    want = call()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
 
 
 @pytest.mark.parametrize("n_mels", [80, 128])
