@@ -13,9 +13,11 @@ Phases, in order; any failure exits nonzero and prints no result line:
      its plain PyTorch twin on the card at the shapes of the path that runs
      it (large-v3; B=16 pseudo-labelling and encoder, B=8 x 128 labels
      training), with its time, the twin's time, a library call's time and
-     the least time the card could take; K1 and K2 also with their device
-     time alone (a CUDA graph of 20 calls, replayed) and K2 with the host's
-     time per call;
+     the least time the card could take; K1-K4 also with their device time
+     alone and the library call's (a CUDA graph of 20 calls, replayed) and
+     the host's time per call of each; K3 also on a wide-dynamic-range
+     input, its raw values read by region against a float64 evaluation;
+     K4's device time also by batch;
   4. main path: large-v3 width and depth with seeded random weights, bf16,
      int8 KV, B=16, 48 new tokens with eot disabled:
      log_mel_spectrogram -> generate_greedy, with launch counters checked;
@@ -177,8 +179,8 @@ def main() -> int:
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--profile", metavar="DIR", default=None,
                     help="trace one main-path run, one fused + w8a8 run and one "
-                    "train step with torch.profiler and write their kernel tables "
-                    "to DIR/profile_{main_path,w8a8_path,train_step}.txt")
+                    "train step with torch.profiler and write their whole kernel "
+                    "tables to DIR/profile_{main_path,w8a8_path,train_step}.txt")
     args = ap.parse_args()
 
     # ---- 1. device -------------------------------------------------------
@@ -259,21 +261,23 @@ def main() -> int:
         return float((got - ref).abs().max()), float((got - ref).norm() / ref.norm())
 
     def record(name, source, replaces, errs, tol, ms, plain_ms, lib_ms, bnd, key=None,
-               device_ms=None):
+               **timings):
+        """One kernel's record; `timings` may add device_ms (the kernel in a
+        replayed CUDA graph), library_device_ms (the library call the same
+        way), host_us and library_host_us (the host's time per call of
+        each)."""
         launch_key[name] = key or name[:2]
         err, rel = errs
         ok = err <= tol and rel <= REL_L2_TOL
         rec = dict(name=name, route="cuda", source=source, replaces=replaces,
                    launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                   bound_ms=bnd[0], bound_by=bnd[1], library_ms=lib_ms)
-        if device_ms is not None:
-            rec["device_ms"] = device_ms
+                   bound_ms=bnd[0], bound_by=bnd[1], library_ms=lib_ms, **timings)
         log(f"[kernel] {name}: max_abs_err {err:.3e} (tol {tol:g}) rel_l2 {rel:.3e} "
             f"(tol {REL_L2_TOL:g}) "
             f"ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
             f"{'null' if lib_ms is None else f'{lib_ms:.4f}'} bound_ms {bnd[0]:.4f} "
             f"({bnd[1]})"
-            f"{'' if device_ms is None else f' device_ms {device_ms:.4f}'} [{card}] "
+            f"{''.join(f' {k} {v:.4f}' for k, v in timings.items())} [{card}] "
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"{name}: kernel disagrees with its plain twin")
@@ -289,16 +293,23 @@ def main() -> int:
     if lse_err > 1e-3:
         raise AssertionError(f"K1 LSE disagrees: {lse_err}")
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+    def k1_call():
+        return fa.flash_attention_fwd(q, k, v)
+
+    def k1_library():
+        return F.scaled_dot_product_attention(qt, kt, vt)
+
     record(
         "K1 flash_attention_fwd (B=16, T=1500, H=20, D=64, bf16)",
         "kotoba_whisper_tpu_torch/csrc/flash_attention_sm90.cu",
         "kotoba_whisper_tpu/ops/flash_attention.py:69", errs, 5e-3,
-        time_ms(lambda: fa.flash_attention_fwd(q, k, v)),
-        time_ms(lambda: fa.flash_attention_reference(q, k, v)),
-        time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt)),
+        time_ms(k1_call), time_ms(lambda: fa.flash_attention_reference(q, k, v)),
+        time_ms(k1_library),
         bound(4.0 * B * h * t_enc * t_enc * 64, bf16_rate,
               nbytes(q, k, v, o, lse), mem_rate, exp_s=B * h * t_enc * t_enc / exp_rate),
-        device_ms=graph_ms(lambda: fa.flash_attention_fwd(q, k, v)),
+        device_ms=graph_ms(k1_call), library_device_ms=graph_ms(k1_library),
+        host_us=host_us(k1_call), library_host_us=host_us(k1_library),
     )
     del q, k, v, o, lse, qt, kt, vt
     torch.cuda.empty_cache()
@@ -324,8 +335,9 @@ def main() -> int:
         def call():
             return da.decode_attention(qd, kf, vf, t, n_heads=h, k_scale=ks, v_scale=vs)
 
-        log(f"[kernel] K2 {label}: host {host_us(call):.1f} us per call (wrapper, checks, "
-            f"ctypes, launch) [{card}]")
+        def library():
+            return F.scaled_dot_product_attention(qh, kh, vh)
+
         record(
             f"K2 decode_attention {label} (B=16, T={t}, D=1280)",
             "kotoba_whisper_tpu_torch/csrc/decode_attention.cu",
@@ -333,9 +345,10 @@ def main() -> int:
             time_ms(call),
             time_ms(lambda: da.decode_attention_reference(
                 qd, kf, vf, t, n_heads=h, k_scale=ks, v_scale=vs)),
-            time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh)),
+            time_ms(library),
             bound(4.0 * B * t * d, fp32_rate, nbytes(qd, kf, vf, ks, vs, out), mem_rate),
-            device_ms=graph_ms(call),
+            device_ms=graph_ms(call), library_device_ms=graph_ms(library),
+            host_us=host_us(call), library_host_us=host_us(library),
         )
         del qd, kf, vf, ks, vs, out, ref, kb, vb, kh, vh, qh
 
@@ -347,37 +360,92 @@ def main() -> int:
     fb_np = mel.mel_filterbank(201, feat.n_mels, 16000, 0.0, 8000.0)
     fb = torch.from_numpy(fb_np).cuda()
     # Operations the function needs per frame: window, a real FFT of n_fft
-    # points (~2.5 N log2 N flops), power, the mel product over the filters'
-    # nonzeros and the log. The kernel's dense Hann-folded DFT does ~30x
-    # more; that is its design's cost, not the function's.
+    # points (~2.5 N log2 N flops; the kernel's 200-point complex FFT and
+    # real split come to about that), power, the mel product over the
+    # filters' nonzeros and the log.
     bins = feat.n_fft // 2 + 1
     frame_flops = (feat.n_fft + 2.5 * feat.n_fft * math.log2(feat.n_fft) + 3 * bins
                    + 2 * int((fb_np != 0).sum()) + feat.n_mels)
 
-    def stft_mel(x):
-        spec = torch.stft(x, feat.n_fft, feat.hop_length, window=window, center=True,
+    def stft_mel(x, w=window, f=fb):
+        """The function in library calls, in the precision of x, w and f."""
+        spec = torch.stft(x, feat.n_fft, feat.hop_length, window=w, center=True,
                           pad_mode="reflect", return_complex=True)[..., :-1]
-        return torch.log10(torch.clamp(spec.abs().square().transpose(1, 2) @ fb, min=1e-10))
+        return torch.log10(torch.clamp(spec.abs().square().transpose(1, 2) @ f, min=1e-10))
 
-    for label, wire in (("fp32", audio_np),
-                        ("int16", np.clip(np.round(audio_np * 32768), -32768, 32767
-                                          ).astype(np.int16))):
+    def int16_wire(a):
+        return np.clip(np.round(a * 32768), -32768, 32767).astype(np.int16)
+
+    for label, wire in (("fp32", audio_np), ("int16", int16_wire(audio_np))):
         x = torch.from_numpy(wire).cuda()
         got = mel.finish_log_mel(mel.log_mel_frames(x, feat))
         ref = mel.finish_log_mel(mel.log_mel_frames_reference(x, feat))
         errs = compare(got, ref)
         xf = mel._audio_f32(x)
         out_bytes = B * feat.n_frames * feat.n_mels * 4
+
+        def call():
+            return mel.log_mel_frames(x, feat)
+
+        def library():
+            return stft_mel(xf)
+
         record(
             f"K3 log_mel {label} (B=16, 480000 samples -> 3000 x 128)",
             "kotoba_whisper_tpu_torch/csrc/mel.cu",
             "kotoba_whisper_tpu/ops/mel_pallas.py:69", errs, 1e-4,
-            time_ms(lambda: mel.log_mel_frames(x, feat)),
-            time_ms(lambda: mel.log_mel_frames_reference(x, feat)),
-            time_ms(lambda: stft_mel(xf)),
+            time_ms(call), time_ms(lambda: mel.log_mel_frames_reference(x, feat)),
+            time_ms(library),
             bound(B * feat.n_frames * frame_flops, fp32_rate, nbytes(x) + out_bytes, mem_rate),
+            device_ms=graph_ms(call), library_device_ms=graph_ms(library),
+            host_us=host_us(call), library_host_us=host_us(library),
         )
         del x, got, ref, xf
+    # a wide dynamic range: a 440 Hz tone at amplitude 0.5 over noise at
+    # 1e-4, with a stretch of exact zeros, puts mel bins near the max-8
+    # clamp and at the 1e-10 floor (white noise at 0.1 puts none there).
+    # After finish_log_mel only the bins above max-8 differ, so the raw
+    # log10 values are also read, in three regions of a float64 evaluation
+    # of the function (stft_mel): kept above max-8, clamped away, and at
+    # the floor. Below max-8 an fp32 result is only as good as the frame's
+    # energy allows, so in each region the kernel is held to the twin's
+    # error against float64: at least as close as the plain fp32 version.
+    # Frames of exact zeros give -10 exactly.
+    t_s = np.arange(feat.n_samples) / feat.sampling_rate
+    wide = (0.5 * np.sin(2 * np.pi * 440.0 * t_s)
+            + 1e-4 * np.random.default_rng(1).standard_normal((B, feat.n_samples)))
+    wide[:, feat.n_samples // 3: feat.n_samples // 2] = 0.0
+    wide = wide.astype(np.float32)
+    for label, wire in (("fp32", wide), ("int16", int16_wire(wide))):
+        x = torch.from_numpy(wire).cuda()
+        raw, twin = mel.log_mel_frames(x, feat), mel.log_mel_frames_reference(x, feat)
+        err, rel = compare(mel.finish_log_mel(raw), mel.finish_log_mel(twin))
+        xf = mel._audio_f32(x)
+        truth = stft_mel(xf.double(), window.double(), fb.double())
+        kept = truth > torch.amax(truth, dim=(1, 2), keepdim=True) - 8.0
+        floor = truth <= -10.0
+        regions = {"kept": kept, "clamped": ~kept & ~floor, "floor": floor}
+        frames = F.pad(xf[:, None], (feat.n_fft // 2,) * 2, mode="reflect")[:, 0]
+        silent = frames.unfold(-1, feat.n_fft, feat.hop_length)[:, :feat.n_frames]
+        silent = silent.abs().amax(-1) == 0  # (B, frames) of exact zeros
+        exact = bool((raw[silent] == -10.0).all()) and bool(silent.any())
+        ok = err <= 1e-4 and rel <= REL_L2_TOL and exact
+        parts = []
+        for region, m in regions.items():
+            e_k = float((raw.double() - truth).abs()[m].max())
+            e_t = float((twin.double() - truth).abs()[m].max())
+            ok = ok and e_k <= e_t
+            parts.append(f"{region} {float(m.float().mean()):.3f} of the bins: "
+                         f"|kernel - f64| {e_k:.3e} (tol: |twin - f64| {e_t:.3e})")
+        log(f"[kernel] K3 log_mel {label}, wide dynamic range: max_abs_err {err:.3e} (tol 1e-4) "
+            f"rel_l2 {rel:.3e} (tol {REL_L2_TOL:g}); raw log10 by region, "
+            f"{'; '.join(parts)}; silent frames at -10 exactly: {exact} [{card}] "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("K3 on the wide-dynamic-range input disagrees with its twin "
+                                 "or with the float64 function")
+        del x, raw, twin, xf, truth, kept, floor, regions, frames, silent
+    del wide
     torch.cuda.empty_cache()
 
     # K4: causal forward at the decoder's training shape (B=8, T=128). The
@@ -393,17 +461,36 @@ def main() -> int:
         raise AssertionError(f"K4 LSE disagrees: {lse_err}")
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     pairs = LABELS * (LABELS + 1) // 2  # (query, key) pairs the mask keeps
+
+    def k4_call():
+        return fa.flash_attention_fwd(q, k, v, causal=True)
+
+    def k4_library():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
     record(
         f"K4 flash_attention_fwd causal (B={TRAIN_B}, T={LABELS}, H=20, D=64, bf16)",
-        "kotoba_whisper_tpu_torch/csrc/flash_attention.cu",
+        "kotoba_whisper_tpu_torch/csrc/flash_attention_sm90.cu",
         "kotoba_whisper_tpu/ops/flash_attention.py:222", compare(o, ro), k4_tol,
-        time_ms(lambda: fa.flash_attention_fwd(q, k, v, causal=True)),
-        time_ms(lambda: fa.flash_attention_reference(q, k, v, causal=True)),
-        time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)),
+        time_ms(k4_call), time_ms(lambda: fa.flash_attention_reference(q, k, v, causal=True)),
+        time_ms(k4_library),
         bound(4.0 * TRAIN_B * h * pairs * 64, bf16_rate, nbytes(q, k, v, o, lse), mem_rate,
               exp_s=TRAIN_B * h * pairs / exp_rate),
+        device_ms=graph_ms(k4_call), library_device_ms=graph_ms(k4_library),
+        host_us=host_us(k4_call), library_host_us=host_us(k4_library),
     )
-    del q, k, v, o, lse, ro, rlse, qt, kt, vt
+    # K4's device time by batch at T=128: each (batch, head) is one
+    # 128-row work item on a persistent grid of one CTA per SM, so a step
+    # shows where the items pass the SM count and a second wave starts
+    by_batch = []
+    for b_sweep in (6, 7, 8, 13):
+        qs_, ks_, vs_ = (randn(b_sweep, LABELS, h, 64, seed=s) for s in (7, 8, 9))
+        by_batch.append(f"B={b_sweep} ({b_sweep * h} items) "
+                        f"{graph_ms(lambda: fa.flash_attention_fwd(qs_, ks_, vs_, causal=True)):.4f}")
+    log(f"[kernel] K4 device_ms by batch (T={LABELS}, {h} heads, "
+        f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs): "
+        f"{', '.join(by_batch)} [{card}]")
+    del q, k, v, o, lse, ro, rlse, qt, kt, vt, qs_, ks_, vs_
 
     # K5: backward of the student decoder's causal self-attention (T=128)
     # and of its cross-attention (128 labels x 1500 encoder frames). Each
@@ -666,7 +753,7 @@ def main() -> int:
             torch.cuda.synchronize()
             prof_wall = time.perf_counter() - t0
         events = prof.key_averages()
-        table = events.table(sort_by="self_device_time_total", row_limit=40)
+        table = events.table(sort_by="self_device_time_total", row_limit=-1)
         with open(os.path.join(args.profile, fname), "w") as f:
             f.write(f"{card}\n{table}\n")
         kernels = [e for e in events if e.device_type == DeviceType.CUDA]

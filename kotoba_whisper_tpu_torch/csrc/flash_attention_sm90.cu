@@ -1,18 +1,22 @@
-// Non-causal flash-attention forward for Hopper (K1), bf16 in / bf16 out:
-// the encoder's self-attention, the decoder's cross-attention in training,
-// and any key count (long K is streamed).
+// Flash-attention forward for Hopper, bf16 in / bf16 out, one kernel in
+// two instantiations: non-causal (K1: the encoder's self-attention, the
+// decoder's cross-attention in training, any key count, long K streamed)
+// and causal (K4: the decoder's self-attention in training).
 //
 // Replaces: kotoba_whisper_tpu/ops/flash_attention.py `_fwd_kernel_single`
-// (called through `_flash_fwd`), the TPU's one-shot non-causal softmax
-// attention: O in the input dtype and the fp32 natural-log LSE that the
-// backward kernels (K5) read.
+// (K1) and `_fwd_kernel` (K4, the online-softmax forward with the
+// end-aligned causal mask), both called through `_flash_fwd`: O in the
+// input dtype and the fp32 natural-log LSE that the backward kernels (K5)
+// read.
 //
 // What bounds it on the card: at the encoder's shape (B*20 heads, T=1500,
 // D=64) one call does 4*B*H*T^2*D flops (184 GFLOP at B=16, 0.186 ms at
 // 989 TFLOP/s) and B*H*T^2 exponentials (0.172 ms at the SFUs' 16 per clock
 // per SM) over ~250 MB: tensor-bound, with the exponentials nearly as
 // large. Run one after the other, the two add up to ~0.36 ms; the design
-// overlaps them.
+// overlaps them. At the decoder's causal training shape (B=8, T=128, 20
+// heads) one call needs ~0.34 GFLOP over ~10.6 MB: bound by its bytes at
+// ~3 us, so launch cost and the latency of one tile's chain dominate.
 //
 // Design: FlashAttention-3 order. A persistent grid of one 384-thread CTA per
 // SM walks 128-query-row tiles of (batch, head). Warpgroup 0 is the producer:
@@ -32,8 +36,15 @@
 // divergent paths). Tensors keep the model's (B, T, H, 64) layout, read by
 // 4-D tensor maps (head dim, heads, tokens, batch) with per-tensor token and
 // batch strides, so a fused qkv projection's column blocks are read in place.
-// TMA zero-fills rows past T: keys past tk are masked to -inf in the last
-// tile, and query rows past tq are never stored.
+// TMA zero-fills rows past T; query rows past tq are never stored.
+// Each work item plans its own key tiles (`plan_item`, mirrored by
+// ops/flash_attention.py `causal_tile_plan`): the causal instantiation
+// (kCausal) visits, in ascending order, only the tiles at or below its last
+// row's bound j <= row + tk - tq, and takes the work items heaviest query
+// tile first so the longest chains start in the first wave. Only the tiles
+// past the first row's bound (and a ragged last tile) are masked, to -inf
+// past each row's bound and past tk. Every row's first tile holds key 0, so
+// its running max is finite before any tile where the row sees no key.
 #include <cuda.h>
 
 #include "sm90_common.cuh"
@@ -83,19 +94,23 @@ __device__ __forceinline__ void fence_acc(float (&acc)[N]) {
   for (int i = 0; i < N; ++i) fence_reg(acc[i]);
 }
 
-// Online softmax of one S tile in place: keys from key0 (this thread's
-// first column) masked to -inf past tk when `mask`, the running max m (log2
-// units) and this thread's partial sums l updated, corr = exp2(m_old -
-// m_new) for O, and S replaced by P = exp2(S * scale_log2 - m).
+// Online softmax of one S tile in place: when `mask`, keys past tk (from
+// key0, this thread's first column) or, causal, the columns of row r
+// (lane/4, lane/4 + 8) past lim[r] keys beyond key0 are masked to -inf;
+// the running max m (log2 units) and this thread's partial sums l updated,
+// corr = exp2(m_old - m_new) for O, and S replaced by P = exp2(S *
+// scale_log2 - m).
+template <bool kCausal>
 __device__ __forceinline__ void softmax_tile(float* sacc, float* m_run, float* l_run,
-                                             float* corr, int key0, bool mask, int tk,
-                                             float scale_log2) {
+                                             float* corr, bool mask, int key0, int tk,
+                                             const int* lim, float scale_log2) {
   if (mask) {
 #pragma unroll
     for (int i = 0; i < kBN / 8; ++i)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        if (key0 + i * 8 + (e & 1) >= tk) sacc[4 * i + e] = -INFINITY;
+        if (kCausal ? i * 8 + (e & 1) > lim[e >> 1] : key0 + i * 8 + (e & 1) >= tk)
+          sacc[4 * i + e] = -INFINITY;
   }
   float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
@@ -134,6 +149,29 @@ __device__ __forceinline__ void pack_p(uint32_t (*pa)[4], const float* sacc) {
   }
 }
 
+// Work item w: its (batch * head) index, first query row, the key tiles it
+// visits and how many of the leading ones need no mask. Non-causal: every
+// tile, items in (batch, head)-major order. Causal: the tiles at or below
+// the last row's bound, items heaviest query tile first.
+template <bool kCausal>
+__device__ __forceinline__ void plan_item(int w, int n_qtiles, int n_bh, int tq, int tk,
+                                          int& bh, int& q0, int& n_tiles, int& n_free) {
+  if constexpr (kCausal) {
+    const int step = w / n_bh;
+    bh = w - step * n_bh;
+    q0 = (n_qtiles - 1 - step) * kBM;
+    const int offset = tk - tq, last_row = min(q0 + kBM - 1, tq - 1);
+    n_tiles = min((tk + kBN - 1) / kBN, (last_row + offset) / kBN + 1);
+    n_free = min(n_tiles, (q0 + offset + 1) / kBN);
+  } else {
+    bh = w / n_qtiles;
+    q0 = (w - bh * n_qtiles) * kBM;
+    n_tiles = (tk + kBN - 1) / kBN;
+    n_free = tk / kBN;
+  }
+}
+
+template <bool kCausal>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                           const __grid_constant__ CUtensorMap tm_k,
@@ -142,7 +180,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                           int tk, int n_heads, int n_qtiles, int n_work, float scale_log2) {
   extern __shared__ uint8_t smem_raw[];
   Smem& s = *reinterpret_cast<Smem*>(smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
-  const int n_tiles = (tk + kBN - 1) / kBN;
+  const int n_bh = n_work / n_qtiles;
   const int wg = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
@@ -169,7 +207,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       prefetch_tmap(&tm_v);
       uint32_t it = 0, qi = 0;  // K/V tiles and Q tiles issued so far
       for (int w = blockIdx.x; w < n_work; w += gridDim.x, ++qi) {
-        const int bh = w / n_qtiles, q0 = (w - bh * n_qtiles) * kBM;
+        int bh, q0, n_tiles, n_free;
+        plan_item<kCausal>(w, n_qtiles, n_bh, tq, tk, bh, q0, n_tiles, n_free);
         const int b = bh / n_heads, h = bh - b * n_heads;
         const int qs = qi % kQBufs;
         mbar_wait(&s.q_empty[qs], ((qi / kQBufs) & 1) ^ 1);
@@ -198,7 +237,17 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int next_turn = 1 + (c + 1) % kWGs;
     uint32_t it = 0, qi = 0;
     for (int w = blockIdx.x; w < n_work; w += gridDim.x, ++qi) {
-      const int bh = w / n_qtiles, q0 = (w - bh * n_qtiles) * kBM;
+      int bh, q0, n_tiles, n_free;
+      plan_item<kCausal>(w, n_qtiles, n_bh, tq, tk, bh, q0, n_tiles, n_free);
+      // this thread's rows are row0 and row0 + 8; causal: the last key each
+      // sees, less the current tile's first column of this thread
+      const int row0 = q0 + c * 64 + warp * 16 + (lane >> 2);
+      int lim[2];
+      if constexpr (kCausal) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          lim[r] = min(row0 + 8 * r + tk - tq, tk - 1) - (lane & 3) * 2;
+      }
       float oacc[32];
 #pragma unroll
       for (int i = 0; i < 32; ++i) oacc[i] = 0.f;
@@ -214,7 +263,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       // previous tile's P V; then the last P V) so that no wgmma is issued
       // under a branch: ptxas serialises wgmmas on divergent paths.
       const uint32_t last = it + n_tiles - 1;  // this work item's last K/V tile
-      const bool ragged = tk % kBN != 0;
+      const bool ragged = tk % kBN != 0;       // non-causal: only the last tile is masked
       mbar_wait(&s.k_full[it % kStages], (it / kStages) & 1);
       named_bar_sync(1 + c, kTurn);  // this warpgroup's turn at the tensor cores
       wgmma_fence();
@@ -226,8 +275,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       mbar_arrive(&s.k_empty[it % kStages]);
       if (n_tiles == 1) mbar_arrive(&s.q_empty[qs]);
       float corr[2];
-      softmax_tile(sacc, m_run, l_run, corr, (lane & 3) * 2, n_tiles == 1 && ragged, tk,
-                   scale_log2);
+      softmax_tile<kCausal>(sacc, m_run, l_run, corr,
+                            kCausal ? n_free == 0 : n_tiles == 1 && ragged, (lane & 3) * 2, tk,
+                            lim, scale_log2);
       pack_p(pa, sacc);
       for (uint32_t cur = it + 1; cur <= last; ++cur) {
         const int st = cur % kStages, pst = (cur - 1) % kStages;
@@ -244,8 +294,13 @@ __global__ void __launch_bounds__(kThreads, 1)
         fence_acc(sacc);
         mbar_arrive(&s.k_empty[st]);
         if (cur == last) mbar_arrive(&s.q_empty[qs]);  // the last read of this Q tile
-        softmax_tile(sacc, m_run, l_run, corr, (int)(cur - it) * kBN + (lane & 3) * 2,
-                     cur == last && ragged, tk, scale_log2);
+        if constexpr (kCausal) {
+          lim[0] -= kBN;
+          lim[1] -= kBN;
+        }
+        softmax_tile<kCausal>(sacc, m_run, l_run, corr,
+                              kCausal ? (int)(cur - it) >= n_free : cur == last && ragged,
+                              (int)(cur - it) * kBN + (lane & 3) * 2, tk, lim, scale_log2);
         wgmma_wait<0>();
         fence_acc(oacc);
         mbar_arrive(&s.v_empty[pst]);
@@ -276,7 +331,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int r = 0; r < 2; ++r) {
         l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
         l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
-        const int row = q0 + c * 64 + warp * 16 + (lane >> 2) + 8 * r;
+        const int row = row0 + 8 * r;
         if (row >= tq) continue;
         const float inv = 1.f / l_run[r];
         uint32_t* dst = reinterpret_cast<uint32_t*>(ob + (long)row * row_stride);
@@ -339,20 +394,22 @@ bool make_map(CUtensorMap* map, const void* base, int batch, int t, int n_heads,
 
 }  // namespace
 
-// q (B, Tq, H, 64), k/v (B, Tk, H, 64) bf16, each with byte strides of its
-// heads, tokens and batch (multiples of 16: ops/flash_attention.py plans
-// and checks them) -> o (B, Tq, H, 64) bf16 contiguous, lse (B, H, Tq)
-// fp32. Returns the launch's cudaError_t, or cudaErrorInvalidValue when a
-// tensor map cannot be encoded.
-extern "C" int kwt_flash_attention_sm90_fwd(
-    const void* q, const void* k, const void* v, void* o, void* lse, int batch, int tq, int tk,
-    int n_heads, long long q_head, long long q_token, long long q_batch, long long k_head,
-    long long k_token, long long k_batch, long long v_head, long long v_token,
-    long long v_batch, void* stream) {
+// q (B, Tq, H, 64), k/v (B, Tk, H, 64) bf16 -> o (B, Tq, H, 64) bf16
+// contiguous, lse (B, H, Tq) fp32. plan (ops/flash_attention.py
+// `_fwd_plan`): batch, tq, tk, heads, causal (!= 0: the end-aligned mask,
+// tq <= tk), then the byte strides of q's, k's and v's heads, tokens and
+// batch (multiples of 16). Returns the launch's cudaError_t, or
+// cudaErrorInvalidValue when a tensor map cannot be encoded.
+extern "C" int kwt_flash_attention_sm90_fwd(const void* q, const void* k, const void* v,
+                                            void* o, void* lse, const long long* plan,
+                                            void* stream) {
+  const int batch = static_cast<int>(plan[0]), tq = static_cast<int>(plan[1]);
+  const int tk = static_cast<int>(plan[2]), n_heads = static_cast<int>(plan[3]);
+  const long long* st = plan + 5;
   CUtensorMap tm_q, tm_k, tm_v;
-  if (!make_map(&tm_q, q, batch, tq, n_heads, q_head, q_token, q_batch, kBM) ||
-      !make_map(&tm_k, k, batch, tk, n_heads, k_head, k_token, k_batch, kBN) ||
-      !make_map(&tm_v, v, batch, tk, n_heads, v_head, v_token, v_batch, kBN))
+  if (!make_map(&tm_q, q, batch, tq, n_heads, st[0], st[1], st[2], kBM) ||
+      !make_map(&tm_k, k, batch, tk, n_heads, st[3], st[4], st[5], kBN) ||
+      !make_map(&tm_v, v, batch, tk, n_heads, st[6], st[7], st[8], kBN))
     return static_cast<int>(cudaErrorInvalidValue);
   static int n_sms = 0;
   const int smem = static_cast<int>(sizeof(Smem)) + 1024;  // + alignment slack
@@ -360,14 +417,16 @@ extern "C" int kwt_flash_attention_sm90_fwd(
     int dev = 0;
     cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&n_sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaFuncSetAttribute(flash_fwd_sm90_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         smem);
+    cudaFuncSetAttribute(flash_fwd_sm90_kernel<false>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    cudaFuncSetAttribute(flash_fwd_sm90_kernel<true>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   }
   const int n_qtiles = (tq + kBM - 1) / kBM;
   const int n_work = n_qtiles * batch * n_heads;
   const float scale_log2 = 0.125f * 1.4426950408889634f;  // 1/sqrt(64) * log2(e)
-  flash_fwd_sm90_kernel<<<n_work < n_sms ? n_work : n_sms, kThreads, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = plan[4] ? flash_fwd_sm90_kernel<true> : flash_fwd_sm90_kernel<false>;
+  kernel<<<n_work < n_sms ? n_work : n_sms, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), tq, tk,
       n_heads, n_qtiles, n_work, scale_log2);
   return static_cast<int>(cudaGetLastError());

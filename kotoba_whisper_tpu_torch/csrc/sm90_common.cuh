@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks shared by the port's TMA/wgmma kernels
-// (K1 in flash_attention_sm90.cu, K2 in decode_attention.cu): mbarriers,
+// (K1 and K4 in flash_attention_sm90.cu, K2 in decode_attention.cu): mbarriers,
 // TMA tensor and 1-D bulk copies, named barriers, register reallocation,
 // and wgmma with its shared-memory descriptors.
 #pragma once

@@ -21,7 +21,7 @@
 // one 256-thread block per row, each thread keeping its cols/256 scores in
 // registers for the whole loop (no memory traffic inside it). The
 // exponential is the one the attention kernels use, exp2f on log2(e)-
-// scaled scores (csrc/flash_attention.cu). The row max and sums are block
+// scaled scores (csrc/flash_attention_bwd.cu). The row max and sums are block
 // reductions (warp shuffles, then eight warp partials through shared
 // memory, combined in the same order by every thread so all hold the same
 // acc). Columns past `cols` hold -inf, which adds nothing to any sum.

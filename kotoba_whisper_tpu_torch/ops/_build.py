@@ -23,7 +23,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
 SOURCES = (
-    "flash_attention_sm90", "flash_attention", "flash_attention_bwd", "decode_attention",
+    "flash_attention_sm90", "flash_attention_bwd", "decode_attention",
     "mel", "layer_norm", "conv_stem", "flash_attention_int8", "vpu_cal",
 )
 NVCC_FLAGS = (
@@ -36,12 +36,7 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 # c_void_p (ctypes would otherwise pass 32-bit ints and cut them)
 SIGNATURES = {
     "flash_attention_sm90": {
-        "kwt_flash_attention_sm90_fwd": [
-            _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L, _L, _L, _L, _P,
-        ],
-    },
-    "flash_attention": {
-        "kwt_flash_attention_causal_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _P],
+        "kwt_flash_attention_sm90_fwd": [_P, _P, _P, _P, _P, _P, _P],
     },
     "flash_attention_bwd": {
         "kwt_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -72,6 +67,7 @@ SIGNATURES = {
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_functions: dict[tuple[str, str], object] = {}
 
 
 def source_path(name: str) -> str:
@@ -145,7 +141,21 @@ def library(name: str) -> ctypes.CDLL:
         return lib
 
 
+def function(name: str, fn: str):
+    """The ctypes entry point `fn` of csrc/<name>.cu, looked up once (the
+    wrappers call it on every launch, so the lookup stays off that path)."""
+    f = _functions.get((name, fn))
+    if f is None:
+        f = _functions[(name, fn)] = getattr(library(name), fn)
+    return f
+
+
 def stream_handle(device) -> int:
+    """The raw handle of PyTorch's current stream on `device` (a
+    torch.device or a card index), read without building a
+    torch.cuda.Stream object."""
     import torch
 
-    return torch.cuda.current_stream(device).cuda_stream
+    index = device if isinstance(device, int) else device.index
+    return torch._C._cuda_getCurrentRawStream(
+        torch.cuda.current_device() if index is None else index)

@@ -64,7 +64,7 @@ def conv_stem(conv1, conv2, x):
     b1b, b2b = b1.to(bf).contiguous(), b2.to(bf).contiguous()
     y1 = torch.empty((b, t, d), dtype=bf, device=x.device)
     out = torch.empty((b, t // 2, d), dtype=bf, device=x.device)
-    rc = _build.library("conv_stem").kwt_conv_stem(
+    rc = _build.function("conv_stem", "kwt_conv_stem")(
         xt.data_ptr(), w1p.data_ptr(), b1b.data_ptr(), w2p.data_ptr(), b2b.data_ptr(),
         y1.data_ptr(), out.data_ptr(), b, t, c_in, d, _build.stream_handle(x.device),
     )

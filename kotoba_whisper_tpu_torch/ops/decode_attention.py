@@ -108,7 +108,7 @@ def decode_attention(
         valid_rows = None
     n_ctas, rows = split_plan(span)
     out = torch.empty((b, n_heads, 64), dtype=torch.bfloat16, device=q.device)
-    rc = _build.library("decode_attention").kwt_decode_attention(
+    rc = _build.function("decode_attention", "kwt_decode_attention")(
         q_ptr, q_stride[0], k_ptr, v_ptr, ks_ptr, vs_ptr, valid_rows, valid_all,
         out.data_ptr(), b, t, n_heads, n_ctas, rows, int(kv_int8),
         _build.stream_handle(card),

@@ -1,6 +1,6 @@
-"""Flash attention: the forward kernels K1 (non-causal, TMA and wgmma, in
-csrc/flash_attention_sm90.cu) and K4 (causal, csrc/flash_attention.cu),
-the int8 attention core K8 in
+"""Flash attention: the forward kernels K1 (non-causal) and K4 (causal),
+two instantiations of one TMA and wgmma kernel in
+csrc/flash_attention_sm90.cu, the int8 attention core K8 in
 csrc/flash_attention_int8.cu, the backward kernel pair K5 in
 csrc/flash_attention_bwd.cu, their plain twins, and the `FlashAttention`
 autograd function that ties them together.
@@ -12,9 +12,9 @@ j <= i + (Tk - Tq); the public `flash_attention` takes it only with
 Tq == Tk, as the JAX package does. Layout is the model's: q (B, Tq, H, D),
 k/v (B, Tk, H, D), O (B, Tq, H, D), LSE (B, H, Tq). The forward kernels
 read q, k and v with strides of their own, so the column blocks of a fused
-qkv (or kv) projection go in without copies: K1 through TMA tensor maps
-whose byte strides `tma_strides` plans (multiples of 16), K4 with a token
-stride.
+qkv (or kv) projection go in without copies, through TMA tensor maps whose
+byte strides `_fwd_plan` plans (multiples of 16). `causal_tile_plan`
+mirrors the key tiles each 128-row work item of K4 visits and masks.
 
 The int8 core (the JAX package's `KWT_FA_INT8` experiment): "qk" runs QK^T
 as s8 x s8 -> s32 with q quantized per query row and K per key row; "qkpv"
@@ -22,14 +22,17 @@ also quantizes P (against the row's final max) and V per column for an
 int8 P V. `flash_attention_fwd` takes it where the JAX package does:
 non-causal attention over at most SINGLE_STEP_MAX_K keys, with the mode
 given as `int8_mode` or, when that is None, read from KWT_FA_INT8 at each
-call. The backward pass stays K5, on the int8 forward's O and LSE.
+non-causal call. The backward pass stays K5, on the int8 forward's O and
+LSE.
 
 Each wrapper launches its kernel for CUDA tensors (bf16, D = 64) and
 takes its plain twin only for CPU tensors.
 """
 from __future__ import annotations
 
+import ctypes
 import os
+from functools import lru_cache
 
 import torch
 import torch.nn.functional as F
@@ -89,15 +92,21 @@ def _check_bf16(strided=False, **tensors):
             raise ValueError(f"flash attention cannot read {name} with strides {t.stride()}")
 
 
-def _check_shapes(q, k, v):
-    b, tq, h, d = q.shape
+def _shapes(q_shape, k_shape, v_shape):
+    """(B, Tq, Tk, H) of (B, Tq, H, 64) q and (B, Tk, H, 64) k and v."""
+    if not len(q_shape) == len(k_shape) == len(v_shape) == 4:
+        raise ValueError(f"flash attention takes (B, T, H, D) tensors, got q {q_shape}, "
+                         f"k {k_shape}, v {v_shape}")
+    b, tq, h, d = q_shape
+    kb, tk, kh, kd = k_shape
     if d != 64:
         raise ValueError(f"the flash attention kernels are built for head dim 64, got {d}")
-    if k.shape != v.shape or k.shape[0] != b or k.shape[2:] != (h, d):
-        raise ValueError(f"flash_attention shapes differ: q {q.shape}, k {k.shape}, v {v.shape}")
-    if tq == 0 or k.shape[1] == 0:
+    if k_shape != v_shape or (kb, kh, kd) != (b, h, d):
+        raise ValueError(f"flash_attention shapes differ: q {q_shape}, k {k_shape}, "
+                         f"v {v_shape}")
+    if tq == 0 or tk == 0:
         raise ValueError("flash_attention needs at least one query and one key")
-    return b, tq, k.shape[1], h
+    return b, tq, tk, h
 
 
 def _token_stride(t):
@@ -109,78 +118,106 @@ def _token_stride(t):
     return t.stride(0) if b > 1 else h * d
 
 
-# K1's TMA box: (head dim, heads, tokens, batch) elements, 128 bytes wide
-# (the 128-byte swizzle), 128 tokens tall (csrc/flash_attention_sm90.cu)
+# K1/K4's TMA box: (head dim, heads, tokens, batch) elements, 128 bytes
+# wide (the 128-byte swizzle), 128 tokens tall (csrc/flash_attention_sm90.cu);
+# a work item is one 128-row query tile and its key tiles are 128 keys
 TMA_BOX = (64, 1, 128, 1)
+TILE = TMA_BOX[2]
 
 
-def tma_strides(t):
-    """Byte strides (head, token, batch) of a (B, T, H, 64) bf16 tensor for
-    K1's 4-D tensor map. The head dim must be contiguous and the address
-    and every stride a multiple of 16 bytes, as TMA requires; a dimension
-    of size 1 takes the stride of a contiguous layout (it never moves the
-    address). Raises ValueError otherwise."""
-    b, tt, h, d = t.shape
-    if d != TMA_BOX[0] or t.stride(3) != 1:
-        raise ValueError(f"K1 takes a contiguous head dim of {TMA_BOX[0]}, got shape "
-                         f"{tuple(t.shape)} strides {t.stride()}")
-    size = t.element_size()
-    head = size * (t.stride(2) if h > 1 else d)
-    token = size * (t.stride(1) if tt > 1 else h * d)
-    batch = size * (t.stride(0) if b > 1 else tt * token // size)
-    if t.data_ptr() % 16 or head % 16 or token % 16 or batch % 16:
-        raise ValueError(f"K1's tensor maps need 16-byte strides and address; strides "
-                         f"{t.stride()} of {t.dtype} give head {head}, token {token}, "
-                         f"batch {batch} bytes")
+@lru_cache(maxsize=256)
+def _map_strides(shape, stride, size):
+    """Byte strides (head, token, batch) of a (B, T, H, 64) layout for
+    K1/K4's 4-D tensor map. The head dim must be contiguous and every
+    stride a multiple of 16 bytes, as TMA requires (the address too, which
+    the wrapper checks per call); a dimension of size 1 takes the stride of
+    a contiguous layout (it never moves the address). Raises ValueError
+    otherwise."""
+    b, tt, h, d = shape
+    sb, st, sh, sd = stride
+    if d != TMA_BOX[0] or sd != 1:
+        raise ValueError(f"K1/K4 take a contiguous head dim of {TMA_BOX[0]}, got shape "
+                         f"{tuple(shape)} strides {stride}")
+    head = size * (sh if h > 1 else d)
+    token = size * (st if tt > 1 else h * d)
+    batch = size * sb if b > 1 else tt * token
+    if head % 16 or token % 16 or batch % 16:
+        raise ValueError(f"K1/K4's tensor maps need 16-byte strides; strides {stride} of "
+                         f"{size}-byte elements give head {head}, token {token}, batch "
+                         f"{batch} bytes")
     if not (head * h <= token and token * tt <= batch) or batch * b >= 1 << 40:
-        raise ValueError(f"K1 cannot map overlapping strides {t.stride()}")
+        raise ValueError(f"K1/K4 cannot map overlapping strides {stride}")
     return head, token, batch
 
 
-def _flash_fwd_sm90(q, k, v):
-    """K1: the non-causal forward on the card."""
-    b, tq, tk, h = _check_shapes(q, k, v)
-    strides = [s for t in (q, k, v) for s in tma_strides(t)]
-    o = torch.empty((b, tq, h, 64), dtype=q.dtype, device=q.device)
-    lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
-    rc = _build.library("flash_attention_sm90").kwt_flash_attention_sm90_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        b, tq, tk, h, *strides, _build.stream_handle(q.device),
-    )
+def causal_tile_plan(tq, tk, q0):
+    """K4's plan for the work item of query rows [q0, q0 + TILE) under the
+    end-aligned mask (row i sees keys j <= i + tk - tq): the number of
+    TILE-key tiles it visits, in ascending order from key 0, and how many
+    leading ones lie wholly below its first row's bound and so need no
+    mask (csrc/flash_attention_sm90.cu `plan_item`). -> (n_tiles, n_free)."""
+    offset, last_row = tk - tq, min(q0 + TILE - 1, tq - 1)
+    n_tiles = min(-(-tk // TILE), (last_row + offset) // TILE + 1)
+    return n_tiles, min(n_tiles, (q0 + offset + 1) // TILE)
+
+
+@lru_cache(maxsize=256)
+def _fwd_plan(q_layout, k_layout, v_layout, causal):
+    """What K1/K4's C entry reads of one call, from each tensor's (shape,
+    strides): (B, Tq, H) and the int64 array (B, Tq, Tk, H, causal, then
+    each of q, k, v's head, token and batch byte strides). Checked once per
+    set of layouts (the address is checked per call)."""
+    b, tq, tk, h = _shapes(q_layout[0], k_layout[0], v_layout[0])
+    if causal and tq > tk:
+        raise ValueError(f"causal flash attention needs Tq <= Tk, got {tq} > {tk}")
+    strides = [s for shape, stride in (q_layout, k_layout, v_layout)
+               for s in _map_strides(shape, stride, 2)]
+    return (b, tq, h), (ctypes.c_longlong * 14)(b, tq, tk, h, int(causal), *strides)
+
+
+def _flash_fwd_sm90(q, k, v, causal):
+    """K1 (non-causal) or K4 (causal) on the card: dtype, shapes, strides,
+    addresses and device checked, the two outputs allocated, one launch."""
+    if not q.dtype == k.dtype == v.dtype == torch.bfloat16:
+        raise TypeError(f"flash attention kernels take bfloat16, got {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
+    (b, tq, h), plan = _fwd_plan((q.shape, q.stride()), (k.shape, k.stride()),
+                                 (v.shape, v.stride()), causal)
+    qp, kp, vp = q.data_ptr(), k.data_ptr(), v.data_ptr()
+    if (qp | kp | vp) % 16:
+        raise ValueError("K1/K4's tensor maps need 16-byte aligned q, k and v")
+    if not (q.is_cuda and k.is_cuda and v.is_cuda):
+        raise ValueError(f"flash attention kernels take tensors on the card, got q on "
+                         f"{q.device}, k on {k.device}, v on {v.device}")
+    o = q.new_empty((b, tq, h, 64))
+    lse = q.new_empty((b, h, tq), dtype=torch.float32)
+    rc = _build.function("flash_attention_sm90", "kwt_flash_attention_sm90_fwd")(
+        qp, kp, vp, o.data_ptr(), lse.data_ptr(), plan, _build.stream_handle(q.device))
     if rc != 0:
-        raise RuntimeError(f"K1 flash attention launch failed: cudaError {rc}")
-    flash_attention_fwd.launches += 1
+        raise RuntimeError(f"{'K4' if causal else 'K1'} flash attention launch failed: "
+                           f"cudaError {rc}")
+    if causal:
+        flash_attention_fwd.causal_launches += 1
+    else:
+        flash_attention_fwd.launches += 1
     return o, lse
 
 
 def flash_attention_fwd(q, k, v, *, causal=False, int8_mode=None):
     """K1 (causal=False) / K4 (causal=True) wrapper, or K8 where an int8
     mode applies: the kernel for CUDA tensors, the plain twin for CPU
-    tensors. int8_mode None reads KWT_FA_INT8 ("", "qk" or "qkpv").
-    -> (O (B, Tq, H, D) in q.dtype, LSE (B, H, Tq) fp32)."""
-    if int8_mode is None:
+    tensors. int8_mode None reads KWT_FA_INT8 ("", "qk" or "qkpv") on
+    non-causal calls. -> (O (B, Tq, H, D) in q.dtype, LSE (B, H, Tq) fp32)."""
+    if int8_mode is None and not causal:
         int8_mode = os.environ.get("KWT_FA_INT8", "")
-    if int8_mode not in INT8_MODES:
-        raise ValueError(f"int8 attention mode {int8_mode!r} is not one of {INT8_MODES}")
-    if int8_mode and not causal and k.shape[1] <= SINGLE_STEP_MAX_K:
-        return flash_attention_int8(q, k, v, mode=int8_mode)
+    if int8_mode:
+        if int8_mode not in INT8_MODES:
+            raise ValueError(f"int8 attention mode {int8_mode!r} is not one of {INT8_MODES}")
+        if not causal and k.shape[1] <= SINGLE_STEP_MAX_K:
+            return flash_attention_int8(q, k, v, mode=int8_mode)
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, causal)
-    _check_bf16(strided=True, q=q, k=k, v=v)
-    if not causal:
-        return _flash_fwd_sm90(q, k, v)
-    b, tq, tk, h = _check_shapes(q, k, v)
-    o = torch.empty((b, tq, h, 64), dtype=q.dtype, device=q.device)
-    lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
-    rc = _build.library("flash_attention").kwt_flash_attention_causal_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        b, tq, tk, h, _token_stride(q), _token_stride(k), _token_stride(v),
-        _build.stream_handle(q.device),
-    )
-    if rc != 0:
-        raise RuntimeError(f"K4 flash attention launch failed: cudaError {rc}")
-    flash_attention_fwd.causal_launches += 1
-    return o, lse
+    return _flash_fwd_sm90(q, k, v, causal)
 
 
 flash_attention_fwd.launches = 0          # K1
@@ -248,7 +285,7 @@ def flash_attention_int8(q, k, v, *, mode):
     if q.device.type == "cpu":
         return flash_attention_int8_reference(q, k8, ks, v_in, vs, pv8)
     _check_bf16(strided=True, q=q, k=k, v=v)
-    b, tq, tk, h = _check_shapes(q, k, v)
+    b, tq, tk, h = _shapes(q.shape, k.shape, v.shape)
     k8, ks = k8.contiguous(), ks.contiguous()
     tk_pad = -(-tk // 16) * 16
     if pv8:
@@ -257,7 +294,7 @@ def flash_attention_int8(q, k, v, *, mode):
         vs = vs.contiguous()
     o = torch.empty((b, tq, h, 64), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
-    rc = _build.library("flash_attention_int8").kwt_flash_attention_int8(
+    rc = _build.function("flash_attention_int8", "kwt_flash_attention_int8")(
         q.data_ptr(), k8.data_ptr(), ks.data_ptr(), v_in.data_ptr(),
         None if vs is None else vs.data_ptr(), o.data_ptr(), lse.data_ptr(),
         b, tq, tk, h, _token_stride(q), 0 if pv8 else _token_stride(v), tk_pad, int(pv8),
@@ -302,14 +339,14 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal):
     if q.device.type == "cpu":
         return flash_attention_bwd_reference(q, k, v, o, lse, do, causal=causal)
     _check_bf16(q=q, k=k, v=v, o=o, do=do)
-    b, tq, tk, h = _check_shapes(q, k, v)
+    b, tq, tk, h = _shapes(q.shape, k.shape, v.shape)
     if o.shape != q.shape or do.shape != q.shape:
         raise ValueError(f"K5: o {o.shape} and do {do.shape} must match q {q.shape}")
     if lse.shape != (b, h, tq) or lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError(f"K5 takes a contiguous fp32 (B, H, Tq) lse, got {lse.dtype} {lse.shape}")
     delta = attention_delta(o, do)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    rc = _build.library("flash_attention_bwd").kwt_flash_attention_bwd(
+    rc = _build.function("flash_attention_bwd", "kwt_flash_attention_bwd")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         b, tq, tk, h, int(causal), _build.stream_handle(q.device),

@@ -62,7 +62,7 @@ def layer_norm(x, weight, bias, eps=1e-5):
         return layer_norm_reference(x, weight, bias, eps)
     rows, d, w, b = _check(x, weight, bias)
     out = torch.empty_like(x)
-    rc = _build.library("layer_norm").kwt_layer_norm(
+    rc = _build.function("layer_norm", "kwt_layer_norm")(
         x.data_ptr(), None, w.data_ptr(), b.data_ptr(), None, out.data_ptr(),
         rows, d, float(eps), _build.stream_handle(x.device),
     )
@@ -78,7 +78,7 @@ def add_layer_norm(x, y, weight, bias, eps=1e-5):
         return add_layer_norm_reference(x, y, weight, bias, eps)
     rows, d, w, b = _check(x, weight, bias, ("y", y))
     summed, out = torch.empty_like(x), torch.empty_like(x)
-    rc = _build.library("layer_norm").kwt_layer_norm(
+    rc = _build.function("layer_norm", "kwt_layer_norm")(
         x.data_ptr(), y.data_ptr(), w.data_ptr(), b.data_ptr(), summed.data_ptr(),
         out.data_ptr(), rows, d, float(eps), _build.stream_handle(x.device),
     )

@@ -6,10 +6,13 @@ log10 with a 1e-10 floor, per-utterance clamp at max-8, then (x+4)/4.
 
 The framing, DFT, power, mel projection and log10 run in one CUDA kernel
 (csrc/mel.cu, K3) for tensors on the card; `log_mel_frames_reference` is
-its plain PyTorch twin, used for CPU tensors and to check the kernel.
-Both take fp32 audio or the int16 PCM wire (scaled by 1/32768 on device).
-All products are fp32 (no TF32): the filterbank tables are built in
-float64 with numpy and cast once.
+its plain PyTorch twin (the dense Hann-folded DFT as one fp32 product),
+used for CPU tensors and to check the kernel. Both take fp32 audio or the
+int16 PCM wire (scaled by 1/32768 on device). All arithmetic is fp32 (no
+TF32). The kernel computes the DFT as an FFT whose plan lives here:
+`fft_plan` builds its window, radix constants and twiddles in float64 with
+numpy, `fft_table` rounds them once to the fp32 table the kernel reads,
+and `fft_index_maps` spells out the index arithmetic of its stages.
 """
 from __future__ import annotations
 
@@ -21,8 +24,6 @@ import torch
 from kotoba_whisper_tpu_torch.core.config import FeatureConfig
 from kotoba_whisper_tpu_torch.core.device import resolve_device
 from kotoba_whisper_tpu_torch.ops import _build
-
-_N_BINS_PAD = 208  # csrc/mel.cu kBinsPad
 
 
 def _hz_to_mel_slaney(freq):
@@ -90,16 +91,68 @@ def _dft_window_matrix(n_fft: int) -> np.ndarray:
     return np.concatenate([w_re, w_im], axis=1).astype(np.float32)
 
 
+# K3's FFT: the real n_fft-point DFT of a frame as an N = n_fft/2-point
+# complex FFT of z[n] = w[2n] x[2n] + i w[2n+1] x[2n+1], in Stockham stages
+# of (radix R, span Ns of the stages before it), then the real split
+#   X[k] = (Z[k] + conj Z[N-k]) / 2 - i e^{-2 pi i k / n_fft} (Z[k] - conj Z[N-k]) / 2
+# for k = 0..N (Z[N] = Z[0]). 200 = 8 * 5 * 5.
+FFT_STAGES = ((8, 1), (5, 8), (5, 40))
+# the fp32 table's parts, in order, and their lengths in floats; complex
+# values are (re, im) pairs (csrc/mel.cu kWin, kRadix, kTw2, kTw3, kSplit)
+FFT_TABLE_LAYOUT = (("window", 400), ("radix", 8), ("tw2", 64), ("tw3", 320), ("split", 402))
+# the most mels and filter nonzeros K3's shared memory holds (csrc/mel.cu
+# kMaxMels, kMaxWeights); slaney filters over 201 bins have at most 2 * 201
+MAX_MELS, MAX_FILTER_WEIGHTS = 128, 512
+
+
 @lru_cache(maxsize=4)
-def _kernel_table(n_fft: int) -> np.ndarray:
-    """The kernel's DFT table: (n_fft, 2, 208) fp32, cos | sin rows with the
-    bin axis zero-padded from 201 to 208 (padded bins give power 0)."""
-    n_bins = n_fft // 2 + 1
-    w = _dft_window_matrix(n_fft)
-    t = np.zeros((n_fft, 2, _N_BINS_PAD), np.float32)
-    t[:, 0, :n_bins] = w[:, :n_bins]
-    t[:, 1, :n_bins] = w[:, n_bins:]
-    return t
+def fft_plan(n_fft: int = 400) -> dict[str, np.ndarray]:
+    """K3's FFT plan in float64: the periodic Hann window (n_fft,); the
+    radix constants [cos(pi/4), cos(2pi/5), sin(2pi/5), cos(4pi/5),
+    sin(4pi/5)]; per stage after the first, the twiddles
+    e^{-2 pi i t r / (Ns R)} as (R-1, Ns) complex for r = 1..R-1, t < Ns
+    (t fastest, so neighbouring butterflies read neighbouring words); the
+    split's e^{-2 pi i k / n_fft} for k = 0..n_fft/2."""
+    n = n_fft // 2
+    if np.prod([r for r, _ in FFT_STAGES]) != n:
+        raise ValueError(f"K3's FFT stages are planned for n_fft=400, got {n_fft}")
+    t = np.arange(n_fft, dtype=np.float64)
+    plan = {
+        "window": 0.5 * (1.0 - np.cos(2.0 * np.pi * t / n_fft)),
+        "radix": np.array([np.cos(np.pi / 4), np.cos(2 * np.pi / 5), np.sin(2 * np.pi / 5),
+                           np.cos(4 * np.pi / 5), np.sin(4 * np.pi / 5)]),
+        "split": np.exp(-2j * np.pi * np.arange(n + 1) / n_fft),
+    }
+    for i, (r, ns) in enumerate(FFT_STAGES[1:], start=2):
+        plan[f"tw{i}"] = np.exp(-2j * np.pi * np.outer(np.arange(1, r), np.arange(ns)) / (ns * r))
+    return plan
+
+
+def fft_index_maps(n: int = 200) -> list[tuple[np.ndarray, np.ndarray]]:
+    """Per Stockham stage, the (N/R, R) indices butterfly j reads and writes:
+    it reads j + r N/R, multiplies input r by the stage's twiddle of
+    t = j mod Ns, takes the R-point DFT and writes output r to
+    (j div Ns) Ns R + t + r Ns. The kernel computes the same indices."""
+    maps = []
+    for r, ns in FFT_STAGES:
+        j = np.arange(n // r)[:, None]
+        rr = np.arange(r)[None, :]
+        maps.append((j + rr * (n // r), (j // ns) * ns * r + j % ns + rr * ns))
+    return maps
+
+
+@lru_cache(maxsize=4)
+def fft_table(n_fft: int = 400) -> np.ndarray:
+    """`fft_plan` rounded once to fp32 and packed as FFT_TABLE_LAYOUT says."""
+    plan = fft_plan(n_fft)
+    parts = []
+    for name, size in FFT_TABLE_LAYOUT:
+        a = plan[name]
+        flat = np.stack([a.real, a.imag], -1).ravel() if np.iscomplexobj(a) else a
+        part = np.zeros(size, np.float32)
+        part[: flat.size] = flat.astype(np.float32)
+        parts.append(part)
+    return np.concatenate(parts)
 
 
 def filter_ranges(fb: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -112,16 +165,31 @@ def filter_ranges(fb: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     return lo.astype(np.int32), hi.astype(np.int32)
 
 
+def filter_weights(fb: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The filterbank as K3 keeps it in shared memory: each mel's weights
+    over its [lo, hi) bin range, mel after mel, zero-padded to
+    MAX_FILTER_WEIGHTS; each mel's first bin lo; and where each mel's run
+    starts, (n_mels + 1,) with the total last."""
+    lo, hi = filter_ranges(fb)
+    runs = [fb[lo[m]:hi[m], m] for m in range(fb.shape[1])]
+    offsets = np.concatenate([[0], np.cumsum([r.size for r in runs])]).astype(np.int32)
+    if fb.shape[1] > MAX_MELS or offsets[-1] > MAX_FILTER_WEIGHTS:
+        raise ValueError(f"K3 holds at most {MAX_MELS} mels and {MAX_FILTER_WEIGHTS} filter "
+                         f"weights, got {fb.shape[1]} and {offsets[-1]}")
+    weights = np.zeros(MAX_FILTER_WEIGHTS, np.float32)
+    weights[: offsets[-1]] = np.concatenate(runs)
+    return weights, lo, offsets
+
+
 @lru_cache(maxsize=8)
 def _device_tables(cfg: FeatureConfig, device: str):
-    """K3's DFT table, filterbank and filter ranges, uploaded once per
-    (config, device)."""
+    """K3's FFT table and compact filterbank (`filter_weights`), uploaded
+    once per (config, device)."""
     n_bins = cfg.n_fft // 2 + 1
     fb = mel_filterbank(n_bins, cfg.n_mels, cfg.sampling_rate, cfg.fmin, cfg.fmax)
-    lo, hi = filter_ranges(fb)
     return tuple(
         torch.from_numpy(a).to(device)
-        for a in (_kernel_table(cfg.n_fft), fb, lo, hi)
+        for a in (fft_table(cfg.n_fft), *filter_weights(fb))
     )
 
 
@@ -170,11 +238,11 @@ def log_mel_frames(audio: torch.Tensor, cfg: FeatureConfig) -> torch.Tensor:
         raise ValueError(f"need at least {cfg.n_fft} samples, got {n_samples}")
     n_frames = n_samples // cfg.hop_length
     dev = audio.device
-    table, fb, fb_lo, fb_hi = _device_tables(cfg, str(dev))
+    table, fb_w, fb_lo, fb_off = _device_tables(cfg, str(dev))
     out = torch.empty((b, n_frames, cfg.n_mels), dtype=torch.float32, device=dev)
-    rc = _build.library("mel").kwt_log_mel(
+    rc = _build.function("mel", "kwt_log_mel")(
         audio.data_ptr(), int(audio.dtype == torch.int16), table.data_ptr(),
-        fb.data_ptr(), fb_lo.data_ptr(), fb_hi.data_ptr(), out.data_ptr(), b,
+        fb_w.data_ptr(), fb_lo.data_ptr(), fb_off.data_ptr(), out.data_ptr(), b,
         n_samples, n_frames, cfg.n_mels, _build.stream_handle(dev),
     )
     if rc != 0:

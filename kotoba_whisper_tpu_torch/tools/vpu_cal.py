@@ -63,7 +63,7 @@ def vpu_cal(x, iters: int, op: str):
     if x.dtype != torch.float32 or not x.is_contiguous() or cols > 2048:
         raise ValueError("K9 takes a contiguous fp32 (rows, cols <= 2048) block")
     out = torch.empty((rows, 1), dtype=torch.float32, device=x.device)
-    rc = _build.library("vpu_cal").kwt_vpu_cal(
+    rc = _build.function("vpu_cal", "kwt_vpu_cal")(
         x.data_ptr(), out.data_ptr(), rows, cols, iters, int(op == "softmax"),
         _build.stream_handle(x.device),
     )

@@ -1,16 +1,28 @@
-"""The pure-Python planning of the K1 and K2 wrappers, on the CPU.
+"""The pure-Python planning of the K1-K4 wrappers, on the CPU.
 
-K1 (ops/flash_attention.py `tma_strides`): the byte strides of its 4-D TMA
-tensor maps (head dim, heads, tokens, batch) for contiguous tensors and
-for the column blocks of fused qkv / kv projections, read in place; TMA
-needs 16-byte strides and addresses, so a misaligned stride or address
-raises, as does a head dim that is not contiguous.
+K1 (ops/flash_attention.py `_map_strides`, `_fwd_plan`): the byte strides
+of its 4-D TMA tensor maps (head dim, heads, tokens, batch) for contiguous
+tensors and for the column blocks of fused qkv / kv projections, read in
+place; TMA needs 16-byte strides and addresses, so the wrapper raises on a
+misaligned stride or address, and on a head dim that is not contiguous,
+before it looks at the device.
 
 K2 (ops/decode_attention.py `split_plan`): the slices of the cache rows a
 call reads, one CTA each, cover every row of [0, valid) exactly once, for
 scalar and per-row valid lengths (rows of a per-row call past its valid
 length fall to CTAs that read nothing), and the cluster (the CTAs of one
 batch row) divides the grid.
+
+K3 (ops/mel.py `fft_plan`, `fft_index_maps`): the kernel's FFT, its
+window, radix constants, twiddles and stage indices applied stage by stage
+in float64 with the kernel's butterflies (8, 5, 5, then the real split),
+equals np.fft.rfft of the windowed frame to 1e-12, bins 0 and 200
+included.
+
+K4 (ops/flash_attention.py `causal_tile_plan`): the key tiles each
+128-row work item visits hold every (row, key) pair the end-aligned mask
+keeps, none of them is masked for all its rows, and only the tiles that
+cross the first row's bound (or tk) are masked.
 """
 import numpy as np
 import pytest
@@ -18,16 +30,21 @@ import torch
 
 from kotoba_whisper_tpu_torch.ops import decode_attention as da
 from kotoba_whisper_tpu_torch.ops import flash_attention as fa
+from kotoba_whisper_tpu_torch.ops import mel
 
 
 def _bf16(*shape):
     return torch.zeros(*shape, dtype=torch.bfloat16)
 
 
+def _strides(x):
+    return fa._map_strides(x.shape, x.stride(), x.element_size())
+
+
 @pytest.mark.parametrize("b, t, h", [(16, 1500, 20), (2, 1, 3), (1, 130, 1), (3, 4100, 2)])
 def test_tma_strides_of_contiguous_tensors(b, t, h):
     x = _bf16(b, t, h, 64)
-    assert fa.tma_strides(x) == (128, h * 128, t * h * 128)
+    assert _strides(x) == (128, h * 128, t * h * 128)
 
 
 @pytest.mark.parametrize("b, t, h", [(2, 1500, 20), (1, 128, 20), (3, 65, 4)])
@@ -36,19 +53,19 @@ def test_tma_strides_read_fused_projections_in_place(b, t, h):
     for x in qkv.chunk(3, dim=-1):
         view = x.reshape(b, t, h, 64)
         assert not view.is_contiguous()
-        assert fa.tma_strides(view) == (128, 3 * h * 128, t * 3 * h * 128)
+        assert _strides(view) == (128, 3 * h * 128, t * 3 * h * 128)
     kv = _bf16(b, t, 2 * h * 64)
     k, v = (x.reshape(b, t, h, 64) for x in kv.chunk(2, dim=-1))
-    assert fa.tma_strides(k) == fa.tma_strides(v) == (128, 2 * h * 128, t * 2 * h * 128)
+    assert _strides(k) == _strides(v) == (128, 2 * h * 128, t * 2 * h * 128)
     # the encoder's token stride, 7680 bytes fused (2560 plain), as the
     # tensor maps of the large-v3 encoder take it
     if h == 20:
-        assert fa.tma_strides(qkv[..., : h * 64].reshape(b, t, h, 64))[1] == 7680
+        assert _strides(qkv[..., : h * 64].reshape(b, t, h, 64))[1] == 7680
 
 
 def test_tma_strides_of_size_one_dims_follow_a_contiguous_layout():
     x = _bf16(64).as_strided((1, 1, 1, 64), (7, 5, 3, 1))  # odd strides, all unused
-    assert fa.tma_strides(x) == (128, 128, 128)
+    assert _strides(x) == (128, 128, 128)
 
 
 @pytest.mark.parametrize("what", ["token stride", "batch stride", "address", "head dim"])
@@ -63,8 +80,9 @@ def test_tma_strides_raise_on_what_tma_cannot_read(what):
         x = flat[4:].as_strided((b, t, h, 64), (t * h * 64, h * 64, 64, 1))
     else:
         x = _bf16(b, t, 64, h).transpose(2, 3)
-    with pytest.raises(ValueError):
-        fa.tma_strides(x)
+    message = {"address": "16-byte aligned", "head dim": "contiguous head dim"}
+    with pytest.raises(ValueError, match=message.get(what, "16-byte strides")):
+        fa._flash_fwd_sm90(x, x, x, False)
 
 
 def test_tma_box_fits_the_128_byte_swizzle():
@@ -116,3 +134,156 @@ def test_split_plan_cluster_divides_the_grid(b, t):
 def test_split_plan_rejects_an_empty_span():
     with pytest.raises(ValueError):
         da.split_plan(0)
+
+
+# ---- K3: the FFT plan ---------------------------------------------------------
+
+
+def _mul_i(z):
+    """-i z"""
+    return z.imag - 1j * z.real
+
+
+def _dft8(v, c):
+    """csrc/mel.cu `dft8`, step by step."""
+    a0, a4, a1, a5 = v[0] + v[4], v[0] - v[4], v[1] + v[5], v[1] - v[5]
+    a2, a6, a3, a7 = v[2] + v[6], v[2] - v[6], v[3] + v[7], v[3] - v[7]
+    a5 = c * (a5.real + a5.imag) + 1j * c * (a5.imag - a5.real)
+    a6 = _mul_i(a6)
+    a7 = c * (a7.imag - a7.real) - 1j * c * (a7.real + a7.imag)
+    b0, b2, b1, b3 = a0 + a2, a0 - a2, a1 + a3, _mul_i(a1 - a3)
+    b4, b6, b5, b7 = a4 + a6, a4 - a6, a5 + a7, _mul_i(a5 - a7)
+    return [b0 + b1, b4 + b5, b2 + b3, b6 + b7, b0 - b1, b4 - b5, b2 - b3, b6 - b7]
+
+
+def _dft5(v, c1, s1, c2, s2):
+    """csrc/mel.cu `dft5`, step by step."""
+    sa, da_, sb, db = v[1] + v[4], v[1] - v[4], v[2] + v[3], v[2] - v[3]
+    r1, r2 = v[0] + c1 * sa + c2 * sb, v[0] + c2 * sa + c1 * sb
+    i1, i2 = _mul_i(s1 * da_ + s2 * db), _mul_i(s2 * da_ - s1 * db)
+    return [v[0] + sa + sb, r1 + i1, r2 + i2, r2 - i2, r1 - i1]
+
+
+def _kernel_rfft(frame, plan):
+    """K3's DFT of one 400-sample frame as the kernel computes it, in the
+    precision of `plan`'s arrays: the windowed even/odd pairs as z, the
+    Stockham stages of FFT_STAGES through fft_index_maps, the real split."""
+    n = frame.size // 2
+    w = plan["window"]
+    z = w[0::2] * frame[0::2] + 1j * (w[1::2] * frame[1::2])
+    radix = plan["radix"]
+    for i, ((r, ns), (src, dst)) in enumerate(zip(mel.FFT_STAGES, mel.fft_index_maps(n)),
+                                              start=1):
+        v = [z[src[:, k]] for k in range(r)]
+        if ns > 1:
+            tw = plan[f"tw{i}"][:, np.arange(n // r) % ns]
+            v = [v[0]] + [v[k] * tw[k - 1] for k in range(1, r)]
+        out = _dft8(v, radix[0]) if r == 8 else _dft5(v, *radix[1:5])
+        z = np.empty_like(z)
+        for k in range(r):
+            z[dst[:, k]] = out[k]
+    k = np.arange(n + 1)
+    zk, zn = z[k % n], np.conj(z[(n - k) % n])
+    return 0.5 * (zk + zn) - 0.5j * plan["split"] * (zk - zn)
+
+
+def _frame(kind):
+    t = np.arange(400)
+    if kind.startswith("noise"):
+        return np.random.default_rng(int(kind[5:])).standard_normal(400)
+    return {"dc": np.ones(400), "nyquist": (-1.0) ** t, "impulse": (t == 0) * 1.0,
+            "tone": np.cos(2 * np.pi * 37.3 * t / 400 + 0.4)}[kind]
+
+
+@pytest.mark.parametrize("kind", ["noise0", "noise1", "noise2", "dc", "nyquist", "impulse",
+                                  "tone"])
+def test_fft_plan_computes_the_windowed_rfft(kind):
+    x = _frame(kind)
+    plan = mel.fft_plan(400)
+    ref = np.fft.rfft(plan["window"] * x)
+    got = _kernel_rfft(x, plan)
+    assert got.shape == ref.shape == (201,)
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-12)
+    if kind in ("dc", "nyquist"):  # the split's two real ends carry the frame
+        end = 0 if kind == "dc" else 200
+        assert abs(ref[end]) > 100 and abs(got[end] - ref[end]) <= 1e-12
+
+
+def test_fft_window_is_the_reference_hann():
+    np.testing.assert_array_equal(mel.fft_table(400)[:400], mel._dft_window_matrix(400)[:, 0])
+
+
+@pytest.mark.parametrize("stage", range(len(mel.FFT_STAGES)))
+def test_fft_stage_reads_and_writes_every_point_once(stage):
+    src, dst = mel.fft_index_maps(200)[stage]
+    r, ns = mel.FFT_STAGES[stage]
+    assert src.shape == dst.shape == (200 // r, r)
+    assert sorted(src.ravel()) == sorted(dst.ravel()) == list(range(200))
+    assert np.prod([r for r, _ in mel.FFT_STAGES[:stage]]) == ns
+
+
+def test_fft_table_is_the_plan_rounded_once():
+    plan, table = mel.fft_plan(400), mel.fft_table(400)
+    rounded = {k: (v.astype(np.complex64) if np.iscomplexobj(v) else v.astype(np.float32))
+               for k, v in plan.items()}
+    frame = _frame("noise3")
+    # the fp32 plan still computes the DFT, to fp32 rounding of its tables
+    got = _kernel_rfft(frame, rounded)
+    ref = np.fft.rfft(plan["window"] * frame)
+    assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()
+    assert table.dtype == np.float32
+    off = 0
+    for name, size in mel.FFT_TABLE_LAYOUT:
+        a = rounded[name]
+        flat = np.stack([a.real, a.imag], -1).ravel() if np.iscomplexobj(a) else a
+        np.testing.assert_array_equal(table[off:off + flat.size], flat)
+        off += size
+    assert off == table.size
+
+
+# ---- K4: the causal tile plan ---------------------------------------------------
+
+
+def _causal_cases():
+    same = [(t, t) for t in (1, 64, 65, 128, 130, 1500)]
+    return same + [(1, 64), (1, 130), (64, 130), (100, 1500), (128, 448), (130, 1500)]
+
+
+@pytest.mark.parametrize("tq, tk", _causal_cases())
+def test_causal_tile_plan(tq, tk):
+    tile = fa.TILE
+    n_key_tiles = -(-tk // tile)
+    for q0 in range(0, tq, tile):
+        rows = np.arange(q0, min(q0 + tile, tq))[:, None]
+        n_tiles, n_free = fa.causal_tile_plan(tq, tk, q0)
+        assert 1 <= n_tiles <= n_key_tiles and 0 <= n_free <= n_tiles
+        for j in range(n_key_tiles):
+            keys = np.arange(j * tile, (j + 1) * tile)[None, :]
+            kept = (keys <= rows + tk - tq) & (keys < tk)
+            if j >= n_tiles:  # every kept pair lies in a visited tile
+                assert not kept.any(), (q0, j)
+                continue
+            assert kept.any(), (q0, j)  # no visited tile is masked for all its rows
+            # the leading n_free tiles keep every pair; only the others are masked
+            assert kept.all() == (j < n_free), (q0, j)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_fwd_plan_packs_shapes_and_strides(causal):
+    """What K1/K4's C entry reads: (B, Tq, Tk, H, causal) and the byte
+    strides of q, k and v's tensor maps, here fused qkv column views."""
+    b, t, h = 2, 130, 4
+    q, k, v = (x.reshape(b, t, h, 64) for x in _bf16(b, t, 3 * h * 64).chunk(3, dim=-1))
+    (bb, tq, hh), plan = fa._fwd_plan((q.shape, q.stride()), (k.shape, k.stride()),
+                                      (v.shape, v.stride()), causal)
+    assert (bb, tq, hh) == (b, t, h)
+    assert list(plan) == [b, t, t, h, int(causal), *_strides(q), *_strides(k),
+                          *_strides(v)]
+
+
+def test_fwd_plan_rejects_causal_with_more_queries_than_keys():
+    q, k = _bf16(1, 8, 2, 64), _bf16(1, 4, 2, 64)
+    layouts = ((q.shape, q.stride()), (k.shape, k.stride()), (k.shape, k.stride()))
+    assert list(fa._fwd_plan(*layouts, False)[1])[:5] == [1, 8, 4, 2, 0]
+    with pytest.raises(ValueError, match="Tq <= Tk"):
+        fa._fwd_plan(*layouts, True)

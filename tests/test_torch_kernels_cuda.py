@@ -6,7 +6,9 @@ Shapes cover the ragged edges (T not a multiple of the tiles, short and
 per-row valid lengths, batch tails). bf16 kernels are held to their twins
 elementwise (atol set from the card's readings, rtol 1e-2 for bf16 rounding
 of large values) and by relative L2 <= 1e-2, about 10x bf16 rounding, which a
-dropped or mis-weighted key tile exceeds; the fp32 mel kernel to 1e-4. K5's
+dropped or mis-weighted key tile exceeds; the fp32 mel kernel to 1e-4
+after the per-utterance clamp (the bound between the JAX package's Pallas
+and XLA frontends) on white noise and on a wide dynamic range. K5's
 gradients, whose scale follows the inputs, are held elementwise to 1e-2 of
 their largest magnitude (rtol 1e-2) and by the same relative L2. K6's
 LayerNorm is held to one bf16 ulp of its twin (plus 2e-6 near 0) and its
@@ -122,10 +124,12 @@ def test_flash_attention_autograd_cross_on_card():
         _assert_grad_near(g, t.grad, name)
 
 
-@pytest.mark.parametrize("b, t, h", [(2, 130, 3), (8, 128, 20), (3, 64, 2), (1, 1, 1)])
+@pytest.mark.parametrize("b, t, h", [(2, 130, 3), (8, 128, 20), (3, 64, 2), (1, 1, 1),
+                                     (2, 65, 3), (2, 448, 4), (2, 1500, 3)])
 def test_causal_flash_attention_kernel(b, t, h):
-    """K4: causal T not a multiple of the 64-row tile, the training shape,
-    one exact tile, and a single row."""
+    """K4: causal T around its 128-row work items and 128-key tiles (one
+    row, part of a tile, one tile, a ragged second tile, several tiles, the
+    encoder's length) and the training shape."""
     q, k, v = (_randn(b, t, h, 64, seed=s) for s in (7, 8, 9))
     before = fa.flash_attention_fwd.causal_launches
     o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
@@ -134,6 +138,42 @@ def test_causal_flash_attention_kernel(b, t, h):
     ro, rlse = fa.flash_attention_reference(q, k, v, causal=True)
     _assert_near(o, ro, atol=5e-3)
     torch.testing.assert_close(lse, rlse, atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.parametrize("tq, tk", [(1, 128), (64, 130), (100, 1500), (128, 448)])
+def test_causal_flash_attention_kernel_end_aligned(tq, tk):
+    """K4 with fewer queries than keys: row i sees keys j <= i + tk - tq."""
+    q = _randn(2, tq, 3, 64, seed=66)
+    k, v = _randn(2, tk, 3, 64, seed=67), _randn(2, tk, 3, 64, seed=68)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    ro, rlse = fa.flash_attention_reference(q, k, v, causal=True)
+    _assert_near(o, ro, atol=5e-3)
+    torch.testing.assert_close(lse, rlse, atol=1e-3, rtol=1e-4)
+
+
+def test_causal_flash_attention_kernel_replays_in_a_cuda_graph():
+    """K4 allocates only its outputs and launches once: a CUDA graph of the
+    call at the training shape replays to the eager result, bit for bit,
+    on new inputs too."""
+    q, k, v = (_randn(8, 128, 20, 64, seed=s) for s in (69, 70, 71))
+
+    def call():
+        return fa.flash_attention_fwd(q, k, v, causal=True)
+
+    want = call()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(out, want))
+    q.copy_(_randn(8, 128, 20, 64, seed=72))
+    graph.replay()
+    want = call()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(out, want))
 
 
 def _assert_grad_near(got, ref, name):
@@ -256,22 +296,42 @@ def test_decode_attention_kernel_replays_in_a_cuda_graph(int8):
     assert torch.equal(out, want)
 
 
+def _wide_range_audio(b, n, seed):
+    """A 440 Hz tone at amplitude 0.5 over noise at 1e-4, with a stretch of
+    exact zeros: mel bins near the max-8 clamp and at the 1e-10 floor."""
+    t = np.arange(n) / 16000.0
+    audio = 0.5 * np.sin(2 * np.pi * 440.0 * t) + 1e-4 * np.random.default_rng(seed).standard_normal((b, n))
+    audio[:, n // 3: n // 2] = 0.0
+    return audio
+
+
+@pytest.mark.parametrize("n_samples", [480000, 400, 401, 16037])
+@pytest.mark.parametrize("signal", ["noise", "wide"])
 @pytest.mark.parametrize("n_mels", [80, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.int16])
-def test_log_mel_kernel(n_mels, dtype):
+def test_log_mel_kernel(n_mels, dtype, signal, n_samples):
+    """K3 against its dense twin: white noise and a wide dynamic range, a
+    30 s window and clips of one and two frames and a ragged frame count."""
     cfg = FeatureConfig(n_mels=n_mels)
-    rng = np.random.default_rng(n_mels)
-    audio = rng.standard_normal((3, cfg.n_samples)) * 0.1
+    if signal == "noise":
+        audio = np.random.default_rng(n_mels).standard_normal((3, n_samples)) * 0.1
+    else:
+        audio = _wide_range_audio(3, n_samples, seed=n_mels)
     if dtype == torch.int16:
         audio = np.clip(np.round(audio * 32768), -32768, 32767).astype(np.int16)
     x = torch.from_numpy(np.asarray(audio, dtype=np.float32 if dtype == torch.float32 else np.int16)).cuda()
+    before = mel.log_mel_frames.launches
     got = mel.finish_log_mel(mel.log_mel_frames(x, cfg))
+    assert mel.log_mel_frames.launches == before + 1
     ref = mel.finish_log_mel(mel.log_mel_frames_reference(x, cfg))
+    assert got.shape == ref.shape == (3, n_mels, n_samples // 160)
     torch.testing.assert_close(got, ref, atol=1e-4, rtol=0)
+    rel = float((got - ref).norm() / ref.norm())
+    assert rel <= 1e-2, f"relative L2 error {rel:.3e}"
 
 
 def test_log_mel_kernel_short_clip():
-    """A clip whose frame count is not a multiple of the block's 32."""
+    """A clip whose frame count is not a multiple of the block's 16."""
     cfg = FeatureConfig(n_mels=128)
     x = torch.from_numpy(np.random.default_rng(0).standard_normal((2, 16000 + 37)).astype(np.float32)).cuda()
     torch.testing.assert_close(

@@ -2,6 +2,9 @@
 and vs the JAX Pallas kernel run in interpret mode. Seeded numpy audio;
 atol 1e-4 on the final features, the bound tests/test_mel.py uses between
 the Pallas and XLA paths (fp32 sums in different orders)."""
+import pathlib
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -71,14 +74,39 @@ def test_filter_ranges_cover_every_nonzero(n_mels):
 
 
 def test_kernel_table_layout():
-    """K3's padded (400, 2, 208) table holds the cos | sin columns and
-    zeros in the 7 padding bins."""
-    t = tmel._kernel_table(400)
-    w = tmel._dft_window_matrix(400)
-    assert t.shape == (400, 2, 208)
-    np.testing.assert_array_equal(t[:, 0, :201], w[:, :201])
-    np.testing.assert_array_equal(t[:, 1, :201], w[:, 201:])
-    assert not t[:, :, 201:].any()
+    """K3's FFT table: the parts of FFT_TABLE_LAYOUT at the offsets
+    csrc/mel.cu reads them from (kWin, kRadix, kTw2, kTw3, kSplit, kTable),
+    complex parts as (re, im) pairs, with no dense DFT table among them."""
+    t = tmel.fft_table(400)
+    plan = tmel.fft_plan(400)
+    src = (pathlib.Path(tmel.__file__).parent.parent / "csrc" / "mel.cu").read_text()
+    consts = {k: int(v) for k, v in re.findall(r"\b(k\w+) = (\d+)", src)}
+    kernel_names = {"window": "kWin", "radix": "kRadix", "tw2": "kTw2", "tw3": "kTw3",
+                    "split": "kSplit"}
+    off = 0
+    for name, size in tmel.FFT_TABLE_LAYOUT:
+        assert consts[kernel_names[name]] == off, name
+        n_values = plan[name].size * (2 if np.iscomplexobj(plan[name]) else 1)
+        assert n_values <= size and not t[off + n_values: off + size].any()
+        off += size
+    assert consts["kTable"] == off == t.size < 2000
+    assert (consts["kMaxMels"], consts["kMaxWeights"]) == (tmel.MAX_MELS,
+                                                          tmel.MAX_FILTER_WEIGHTS)
+
+
+@pytest.mark.parametrize("n_mels", [80, 128])
+def test_filter_weights_hold_the_filterbank(n_mels):
+    """K3's compact filterbank: each mel's run of weights, placed back at
+    its bins from lo, rebuilds the dense filterbank exactly."""
+    fb = tmel.mel_filterbank(201, n_mels, 16000, 0.0, 8000.0)
+    w, lo, off = tmel.filter_weights(fb)
+    assert w.shape == (tmel.MAX_FILTER_WEIGHTS,) and off.shape == (n_mels + 1,)
+    dense = np.zeros_like(fb)
+    for m in range(n_mels):
+        run = w[off[m]:off[m + 1]]
+        dense[lo[m]:lo[m] + run.size, m] = run
+    np.testing.assert_array_equal(dense, fb)
+    assert not w[off[-1]:].any()
 
 
 def test_wrapper_takes_plain_twin_on_cpu():
