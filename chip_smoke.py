@@ -13,9 +13,11 @@ Phases, in order; any failure exits nonzero and prints no result line:
      its plain PyTorch twin on the card at the shapes of the path that runs
      it (large-v3; B=16 pseudo-labelling and encoder, B=8 x 128 labels
      training), with its time, the twin's time, a library call's time and
-     the least time the card could take; K1-K4 also with their device time
-     alone and the library call's (a CUDA graph of 20 calls, replayed) and
-     the host's time per call of each; K3 also on a wide-dynamic-range
+     the least time the card could take; each also with its device time
+     alone and the library call's (a CUDA graph of 20 calls, replayed; K5's
+     library call, autograd through SDPA, from torch.profiler's kernel
+     times where a graph cannot capture it) and the host's time per call
+     of each; K3 also on a wide-dynamic-range
      input, its raw values read by region against a float64 evaluation;
      K4's device time also by batch;
   4. main path: large-v3 width and depth with seeded random weights, bf16,
@@ -146,6 +148,29 @@ def host_us(fn, calls: int = 200) -> float:
     return us
 
 
+def library_device_ms(fn, iters: int = 20):
+    """Device time of one fn() as graph_ms reads it, with "graph"; where fn
+    cannot be captured in a CUDA graph, the summed device time of its
+    kernels per call from torch.profiler over `iters` calls, with
+    "profiler"."""
+    try:
+        return graph_ms(fn, iters), "graph"
+    except RuntimeError as e:
+        log(f"[kernel] a CUDA graph cannot capture the library call ({str(e)[:200]}); "
+            "its device time is read from torch.profiler")
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA)
+    return busy_us / 1e3 / iters, "profiler"
+
+
 def bound(flops: float, flop_rate: float, nbytes: float, mem_rate: float,
           exp_s: float = 0.0, more_s: float = 0.0):
     """Least time (ms) and what sets it: the tensor or CUDA-core work
@@ -260,12 +285,15 @@ def main() -> int:
         got, ref = got.float(), ref.float()
         return float((got - ref).abs().max()), float((got - ref).norm() / ref.norm())
 
+    def fmt(v):
+        return "null" if v is None else v if isinstance(v, str) else f"{v:.4f}"
+
     def record(name, source, replaces, errs, tol, ms, plain_ms, lib_ms, bnd, key=None,
                **timings):
-        """One kernel's record; `timings` may add device_ms (the kernel in a
+        """One kernel's record; `timings` add device_ms (the kernel in a
         replayed CUDA graph), library_device_ms (the library call the same
-        way), host_us and library_host_us (the host's time per call of
-        each)."""
+        way, or null where there is none), host_us and library_host_us (the
+        host's time per call of each)."""
         launch_key[name] = key or name[:2]
         err, rel = errs
         ok = err <= tol and rel <= REL_L2_TOL
@@ -277,7 +305,7 @@ def main() -> int:
             f"ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
             f"{'null' if lib_ms is None else f'{lib_ms:.4f}'} bound_ms {bnd[0]:.4f} "
             f"({bnd[1]})"
-            f"{''.join(f' {k} {v:.4f}' for k, v in timings.items())} [{card}] "
+            f"{''.join(f' {k} {fmt(v)}' for k, v in timings.items())} [{card}] "
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"{name}: kernel disagrees with its plain twin")
@@ -517,20 +545,30 @@ def main() -> int:
         sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
         do_t = do.transpose(1, 2)
         n_pairs = LABELS * (LABELS + 1) // 2 if causal else LABELS * tk
+
+        def k5_call():
+            return fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+
+        def k5_library():
+            return torch.autograd.grad(sdpa_out, (qt, kt, vt), do_t, retain_graph=True)
+
+        lib_dev, lib_by = library_device_ms(k5_library)
         record(
             f"K5 flash_attention_bwd {label} (B={TRAIN_B}, Tq={LABELS}, Tk={tk}, H=20, "
             "D=64, bf16; dQ, dK, dV)",
             "kotoba_whisper_tpu_torch/csrc/flash_attention_bwd.cu",
             "kotoba_whisper_tpu/ops/flash_attention.py:315",
             (max(e for e, _ in errs), max(r for _, r in errs)), tol,
-            time_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)),
+            time_ms(k5_call),
             time_ms(lambda: fa.flash_attention_bwd_reference(q, k, v, o, lse, do,
                                                              causal=causal)),
-            time_ms(lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), do_t,
-                                                retain_graph=True)),
+            time_ms(k5_library),
             # S, dP, dV, dQ, dK: five products over the kept pairs
             bound(10.0 * TRAIN_B * h * n_pairs * 64, bf16_rate,
                   nbytes(q, k, v, o, lse, do, *got), mem_rate),
+            device_ms=graph_ms(k5_call), library_device_ms=lib_dev,
+            library_device_by=lib_by, host_us=host_us(k5_call),
+            library_host_us=host_us(k5_library),
         )
         del q, k, v, do, o, lse, got, ref, qt, kt, vt, sdpa_out, do_t
     torch.cuda.empty_cache()
@@ -548,29 +586,46 @@ def main() -> int:
     bb = 0.1 * randn(d, seed=23)
     got = ln.layer_norm(x, w, bb)
     ref = ln.layer_norm_reference(x, w, bb)
+
+    def k6_call():
+        return ln.layer_norm(x, w, bb)
+
+    def k6_library():
+        return F.layer_norm(x, (d,), w, bb)
+
     record(
         f"K6 layer_norm ({rows}, {d}) bf16",
         "kotoba_whisper_tpu_torch/csrc/layer_norm.cu",
         "kotoba_whisper_tpu/ops/layer_norm.py:45", compare(got, ref),
         ulp_bf16(float(ref.float().abs().max())) + 2e-6,
-        time_ms(lambda: ln.layer_norm(x, w, bb)),
-        time_ms(lambda: ln.layer_norm_reference(x, w, bb)),
-        time_ms(lambda: F.layer_norm(x, (d,), w, bb)),
-        bound(10.0 * rows * d, fp32_rate, nbytes(x, got), mem_rate), key="K6ln",
+        time_ms(k6_call), time_ms(lambda: ln.layer_norm_reference(x, w, bb)),
+        time_ms(k6_library),
+        bound(10.0 * rows * d, fp32_rate, nbytes(x, w, bb, got), mem_rate), key="K6ln",
+        device_ms=graph_ms(k6_call), library_device_ms=graph_ms(k6_library),
+        host_us=host_us(k6_call), library_host_us=host_us(k6_library),
     )
     summed, got = ln.add_layer_norm(x, y, w, bb)
     ref_sum, ref = ln.add_layer_norm_reference(x, y, w, bb)
     if not (torch.equal(summed, x + y) and torch.equal(summed, ref_sum)):
         raise AssertionError("K6 add_layer_norm: the sum differs from x + y")
+
+    def k6_add_call():
+        return ln.add_layer_norm(x, y, w, bb)
+
+    def k6_add_library():
+        return F.layer_norm(x + y, (d,), w, bb)
+
     record(
         f"K6 add_layer_norm ({rows}, {d}) bf16",
         "kotoba_whisper_tpu_torch/csrc/layer_norm.cu",
         "kotoba_whisper_tpu/ops/layer_norm.py:52", compare(got, ref),
         ulp_bf16(float(ref.float().abs().max())) + 2e-6,
-        time_ms(lambda: ln.add_layer_norm(x, y, w, bb)),
-        time_ms(lambda: ln.add_layer_norm_reference(x, y, w, bb)),
-        time_ms(lambda: F.layer_norm(x + y, (d,), w, bb)),
-        bound(11.0 * rows * d, fp32_rate, nbytes(x, y, summed, got), mem_rate), key="K6add",
+        time_ms(k6_add_call), time_ms(lambda: ln.add_layer_norm_reference(x, y, w, bb)),
+        time_ms(k6_add_library),
+        bound(11.0 * rows * d, fp32_rate, nbytes(x, y, w, bb, summed, got), mem_rate),
+        key="K6add", device_ms=graph_ms(k6_add_call),
+        library_device_ms=graph_ms(k6_add_library), host_us=host_us(k6_add_call),
+        library_host_us=host_us(k6_add_library),
     )
     del x, y, w, bb, got, ref, summed, ref_sum
 
@@ -593,18 +648,23 @@ def main() -> int:
             hh = F.gelu(F.conv1d(xs, conv1.weight, conv1.bias, padding=1))
             return F.gelu(F.conv1d(hh, conv2.weight, conv2.bias, stride=2, padding=1))
 
+        def k7_call():
+            return cs.conv_stem(conv1, conv2, xs)
+
         stem_flops = 2.0 * B * 2 * t_enc * 3 * n_mels * d + 2.0 * B * t_enc * 3 * d * d
         record(
             f"K7 conv_stem (B={B}, {n_mels} x {2 * t_enc} -> {t_enc} x {d}, bf16)",
             "kotoba_whisper_tpu_torch/csrc/conv_stem.cu",
             "kotoba_whisper_tpu/ops/conv_stem.py:60", compare(got, ref),
             1e-2 * float(ref.float().abs().max()),
-            time_ms(lambda: cs.conv_stem(conv1, conv2, xs)),
+            time_ms(k7_call),
             time_ms(lambda: cs.conv_stem_reference(conv1.weight, conv1.bias, conv2.weight,
                                                    conv2.bias, xs)),
             time_ms(cudnn_stem),
             bound(stem_flops, bf16_rate, nbytes(xs, conv1.weight, conv1.bias, conv2.weight,
                                                 conv2.bias, got), mem_rate),
+            device_ms=graph_ms(k7_call), library_device_ms=graph_ms(cudnn_stem),
+            host_us=host_us(k7_call), library_host_us=host_us(cudnn_stem),
         )
     del conv1, conv2, xs, got, ref
     torch.cuda.empty_cache()
@@ -621,7 +681,13 @@ def main() -> int:
             v_in, vs = fa.quantize_v_cols(v) if pv8 else (v, None)
             return fa.flash_attention_int8_reference(q, k8, ks, v_in, vs, pv8)
 
-        o, lse = fa.flash_attention_int8(q, k, v, mode=mode)
+        def k8_call():
+            return fa.flash_attention_int8(q, k, v, mode=mode)
+
+        def k8_library():
+            return F.scaled_dot_product_attention(qt, kt, vt)
+
+        o, lse = k8_call()
         ro, rlse = twin()
         lse_err = float((lse - rlse).abs().max())
         if lse_err > 1e-3:
@@ -635,13 +701,13 @@ def main() -> int:
             f"K8 flash_attention_int8 {mode} (B={B}, T={t_enc}, H=20, D=64)",
             "kotoba_whisper_tpu_torch/csrc/flash_attention_int8.cu",
             "kotoba_whisper_tpu/ops/flash_attention.py:145", compare(o, ro), 5e-3,
-            time_ms(lambda: fa.flash_attention_int8(q, k, v, mode=mode)),
-            time_ms(twin),
-            time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt)),
+            time_ms(k8_call), time_ms(twin), time_ms(k8_library),
             bound((4.0 if pv8 else 2.0) * pairs * 64, int8_rate, nbytes(q, o, lse) + kv_bytes,
                   mem_rate,
                   exp_s=pairs / exp_rate, more_s=0 if pv8 else 2.0 * pairs * 64 / bf16_rate),
-            key=f"K8{mode}",
+            key=f"K8{mode}", device_ms=graph_ms(k8_call),
+            library_device_ms=graph_ms(k8_library), host_us=host_us(k8_call),
+            library_host_us=host_us(k8_library),
         )
         del o, lse, ro, rlse
     del q, k, v, qt, kt, vt
@@ -654,17 +720,20 @@ def main() -> int:
         np.float32)).cuda()
     n_exp = 512 * 1536 * 64
     for op in ("softmax", "exp"):
-        got, ref = vpu_cal.vpu_cal(xc, 64, op), vpu_cal.vpu_cal_reference(xc, 64, op)
+        def k9_call():
+            return vpu_cal.vpu_cal(xc, 64, op)
+
+        got, ref = k9_call(), vpu_cal.vpu_cal_reference(xc, 64, op)
         log(f"[kernel] K9 {op}: library_ms null (no single PyTorch call runs the "
             "calibration loop)")
         record(
             f"K9 vpu_cal {op} (512 x 1536 x 64, fp32)",
             "kotoba_whisper_tpu_torch/csrc/vpu_cal.cu", "tools/vpu_cal.py:38",
             compare(got, ref), 1e-4 * float(ref.abs().max()),
-            time_ms(lambda: vpu_cal.vpu_cal(xc, 64, op)),
-            time_ms(lambda: vpu_cal.vpu_cal_reference(xc, 64, op)), None,
+            time_ms(k9_call), time_ms(lambda: vpu_cal.vpu_cal_reference(xc, 64, op)), None,
             bound(0.0, bf16_rate, nbytes(xc, got), mem_rate, exp_s=n_exp / exp_rate),
-            key=f"K9{op}",
+            key=f"K9{op}", device_ms=graph_ms(k9_call), library_device_ms=None,
+            host_us=host_us(k9_call), library_host_us=None,
         )
     del xc
 

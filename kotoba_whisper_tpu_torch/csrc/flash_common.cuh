@@ -1,6 +1,6 @@
 // Shared building blocks of the mma.sync kernels (K5 backward in
-// flash_attention_bwd.cu; K7 conv_stem.cu and K8 flash_attention_int8.cu
-// take some of them): 64-row bf16
+// flash_attention_bwd.cu; K8 flash_attention_int8.cu takes some of them):
+// 64-row bf16
 // tiles of the model's (B, T, H, 64) layout staged in shared memory with
 // cp.async, XOR-swizzled so ldmatrix reads are free of bank conflicts, and
 // mma.sync m16n8k16 products with bf16 operands and fp32 sums.

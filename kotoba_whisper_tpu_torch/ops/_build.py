@@ -50,10 +50,10 @@ SIGNATURES = {
         "kwt_log_mel": [_P, _I, _P, _P, _P, _P, _P, _I, _L, _I, _I, _P],
     },
     "layer_norm": {
-        "kwt_layer_norm": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _P],
+        "kwt_layer_norm": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _F, _P],
     },
     "conv_stem": {
-        "kwt_conv_stem": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "kwt_conv_stem": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     },
     "flash_attention_int8": {
         "kwt_flash_attention_int8": [

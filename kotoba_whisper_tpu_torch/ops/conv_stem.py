@@ -10,9 +10,17 @@ post-GELU conv1 output. The encoder takes it with `stem_impl="pallas"`
 (the JAX package's name for the opt-in stem).
 
 Layout: x (B, n_mels, T) -> (B, T // 2, d), T even. The wrapper launches K7
-for CUDA tensors (bf16) and takes the twin only for CPU tensors.
+for CUDA tensors (bf16) and takes the twin only for CPU tensors. K7 reads
+its weights in a tap-major copy made once per weight version
+(`tap_major_weights`); `stem_plan` packs the shapes, the tile
+counts and each tap's TMA coordinates (`tap_coords`) that the kernel
+reads, and `stem_tile` mirrors the order it walks its output tiles.
 """
 from __future__ import annotations
+
+import ctypes
+import weakref
+from functools import lru_cache
 
 import torch
 import torch.nn.functional as F
@@ -40,6 +48,83 @@ def conv_stem_reference(w1, b1, w2, b2, x):
     return conv_gelu(y1, w2, b2, 2).transpose(1, 2)
 
 
+# K7's tiles (csrc/conv_stem.cu): 128 output rows of one batch element x
+# 256 output channels, K in steps of 64 input channels of one tap
+TILE_M, TILE_N, TILE_K = 128, 256, 64
+
+
+def tap_coords(stride, tap):
+    """Where K7 reads tap `tap` (0, 1, 2) of output row i, as (parity, row
+    offset) TMA coordinates. stride 1: x row i + tap - 1 (parity 0). stride
+    2: y1 row 2i + tap - 1 read through the (B, T/2, 2, d) view as (pair i +
+    offset, parity), so tap 0 = (i - 1, 1), tap 1 = (i, 0), tap 2 = (i, 1).
+    Rows outside [0, T) fall outside the maps and read as zero."""
+    if stride == 1:
+        return 0, tap - 1
+    return (tap - 1) % 2, (tap - 1) // 2
+
+
+def stem_tiles(t_out, d):
+    """(row tiles per batch element, column tiles) of one conv's output."""
+    return -(-t_out // TILE_M), -(-d // TILE_N)
+
+
+def stem_tile(w, n_mtiles, n_ntiles):
+    """K7's work item w -> (batch element, first row, first channel); the
+    column tile runs fastest (csrc/conv_stem.cu `tile_of`)."""
+    rest, nt = divmod(w, n_ntiles)
+    b, mt = divmod(rest, n_mtiles)
+    return b, mt * TILE_M, nt * TILE_N
+
+
+@lru_cache(maxsize=64)
+def stem_plan(batch, t, c_in, d):
+    """The int64 array K7's C entry reads: batch, T, C, d, the row tiles of
+    conv1 and conv2, the column tiles, then conv1's and conv2's tap
+    parities and offsets (`tap_coords`)."""
+    n_m1, n_n = stem_tiles(t, d)
+    n_m2, _ = stem_tiles(t // 2, d)
+    taps = [[tap_coords(stride, tap)[i] for tap in range(3)] for stride in (1, 2)
+            for i in (0, 1)]
+    return (ctypes.c_longlong * 19)(batch, t, c_in, d, n_m1, n_m2, n_n,
+                                    *(v for row in taps for v in row))
+
+
+_tap_major_cache: dict = {}
+
+
+@torch.no_grad()
+def _tap_major(w1, b1, w2, b2):
+    bf = torch.bfloat16
+    return (w1.detach().to(bf).permute(0, 2, 1).contiguous(), b1.detach().to(bf).contiguous(),
+            w2.detach().to(bf).permute(0, 2, 1).contiguous(), b2.detach().to(bf).contiguous())
+
+
+def tap_major_weights(w1, b1, w2, b2):
+    """bf16 (C_out, 3, C_in) tap-major copies of the conv weights and bf16
+    biases, as the TPU wrapper lays the weights out before its pallas_call.
+    Made once and cached by each tensor's identity, storage address and
+    `_version`, so an in-place update of a weight (which bumps its version)
+    rebuilds them. Inference tensors carry no version counter, so an
+    in-place update of one could not be seen: their copies are made on
+    every call."""
+    src = (w1, b1, w2, b2)
+    if any(t.is_inference() for t in src):
+        return _tap_major(*src)
+    key = tuple(id(t) for t in src)
+    state = tuple((t.data_ptr(), t._version) for t in src)
+    hit = _tap_major_cache.get(key)
+    if hit is not None and hit[0] == state and all(r() is t for r, t in zip(hit[1], src)):
+        return hit[2]
+    packed = _tap_major(*src)
+    for dead in [k for k, v in _tap_major_cache.items() if any(r() is None for r in v[1])]:
+        del _tap_major_cache[dead]  # copies of weights that no longer exist
+    if len(_tap_major_cache) >= 8:
+        _tap_major_cache.pop(next(iter(_tap_major_cache)))
+    _tap_major_cache[key] = (state, tuple(weakref.ref(t) for t in src), packed)
+    return packed
+
+
 def conv_stem(conv1, conv2, x):
     """K7 wrapper: conv1/conv2 are the encoder's nn.Conv1d modules (their
     weights are cast to x's dtype); x (B, n_mels, T) -> (B, T // 2, d)."""
@@ -52,21 +137,25 @@ def conv_stem(conv1, conv2, x):
         raise TypeError(f"K7 takes bfloat16 on the card, got {x.dtype} on {x.device}")
     b, c_in, t = x.shape
     d = w1.shape[0]
-    if c_in % 32 or d % 128 or w2.shape != (d, d, 3) or w1.shape != (d, c_in, 3):
-        raise ValueError(f"K7 needs n_mels % 32 == 0 and d % 128 == 0, 3-tap convs; got "
-                         f"x {tuple(x.shape)}, conv1 {tuple(w1.shape)}, conv2 {tuple(w2.shape)}")
-    bf = torch.bfloat16
-    # (B, T, C) rows and (C_out, 3 * C_in) tap-major weights, as the TPU
-    # wrapper lays them out before its pallas_call
-    xt = x.transpose(1, 2).contiguous()
-    w1p = w1.to(bf).permute(0, 2, 1).reshape(d, 3 * c_in).contiguous()
-    w2p = w2.to(bf).permute(0, 2, 1).reshape(d, 3 * d).contiguous()
-    b1b, b2b = b1.to(bf).contiguous(), b2.to(bf).contiguous()
-    y1 = torch.empty((b, t, d), dtype=bf, device=x.device)
-    out = torch.empty((b, t // 2, d), dtype=bf, device=x.device)
+    if c_in % 8 or d % 8 or w2.shape != (d, d, 3) or w1.shape != (d, c_in, 3):
+        raise ValueError(f"K7 needs n_mels % 8 == 0 and d % 8 == 0 (16-byte rows), 3-tap "
+                         f"convs; got x {tuple(x.shape)}, conv1 {tuple(w1.shape)}, "
+                         f"conv2 {tuple(w2.shape)}")
+    if any(wt.device != x.device for wt in (w1, b1, w2, b2)):
+        raise ValueError("K7: the conv weights must be on x's card")
+    x = x.contiguous()
+    if x.data_ptr() % 16:
+        raise ValueError("K7 reads x in 16-byte aligned rows")
+    w1p, b1b, w2p, b2b = tap_major_weights(w1, b1, w2, b2)
+    # scratch: x as (B, T, C) rows (K7 transposes it: TMA cannot shift a box
+    # by one frame along x's own T-contiguous rows) and conv1's output y1
+    xt = x.new_empty((b, t, c_in))
+    y1 = x.new_empty((b, t, d))
+    out = x.new_empty((b, t // 2, d))
     rc = _build.function("conv_stem", "kwt_conv_stem")(
-        xt.data_ptr(), w1p.data_ptr(), b1b.data_ptr(), w2p.data_ptr(), b2b.data_ptr(),
-        y1.data_ptr(), out.data_ptr(), b, t, c_in, d, _build.stream_handle(x.device),
+        x.data_ptr(), w1p.data_ptr(), b1b.data_ptr(), w2p.data_ptr(), b2b.data_ptr(),
+        xt.data_ptr(), y1.data_ptr(), out.data_ptr(), stem_plan(b, t, c_in, d),
+        _build.stream_handle(x.device),
     )
     if rc != 0:
         raise RuntimeError(f"K7 conv stem launch failed: cudaError {rc}")

@@ -25,6 +25,16 @@ given as `int8_mode` or, when that is None, read from KWT_FA_INT8 at each
 non-causal call. The backward pass stays K5, on the int8 forward's O and
 LSE.
 
+The JAX package's other experiment switches of this kernel: KWT_FA_NOMAX
+(a softmax bounded by a shift in place of the row max) and KWT_FA_EXP2
+(exp computed as exp2) change what it computes, and the port implements
+neither: `flash_attention`, `flash_attention_fwd` and
+`flash_attention_int8` raise ValueError when either is set to anything but
+"0", on the CPU and on the card alike, so a port run never differs from a
+JAX run without a word. KWT_FA_BQ only sets the TPU kernel's query block;
+the port's fixed 128-row tiles give the same result whatever it says, so
+it is not read.
+
 Each wrapper launches its kernel for CUDA tensors (bf16, D = 64) and
 takes its plain twin only for CPU tensors.
 """
@@ -43,6 +53,19 @@ from kotoba_whisper_tpu_torch.ops import _build
 # one-shot kernel, the only place it applies KWT_FA_INT8
 SINGLE_STEP_MAX_K = 4096
 INT8_MODES = ("", "qk", "qkpv")
+# the JAX package's switches of other arithmetic, which the port refuses
+UNPORTED_SWITCHES = ("KWT_FA_NOMAX", "KWT_FA_EXP2")
+
+
+def _refuse_unported_switches():
+    """Raise ValueError naming the first of UNPORTED_SWITCHES that is set
+    to anything but "0" (the JAX package reads them as `!= "0"`)."""
+    for name in UNPORTED_SWITCHES:
+        value = os.environ.get(name, "0")
+        if value != "0":
+            raise ValueError(f"{name}={value!r} selects arithmetic of the JAX package's "
+                             "flash attention that the port does not implement; unset it "
+                             "or set it to '0'")
 
 
 def _scores(q, k, causal):
@@ -208,6 +231,7 @@ def flash_attention_fwd(q, k, v, *, causal=False, int8_mode=None):
     mode applies: the kernel for CUDA tensors, the plain twin for CPU
     tensors. int8_mode None reads KWT_FA_INT8 ("", "qk" or "qkpv") on
     non-causal calls. -> (O (B, Tq, H, D) in q.dtype, LSE (B, H, Tq) fp32)."""
+    _refuse_unported_switches()
     if int8_mode is None and not causal:
         int8_mode = os.environ.get("KWT_FA_INT8", "")
     if int8_mode:
@@ -277,6 +301,7 @@ def flash_attention_int8(q, k, v, *, mode):
     """K8 wrapper: K (and, for qkpv, V) quantized here with torch ops, as
     the JAX package does it in XLA; then the kernel for CUDA tensors, the
     plain twin for CPU tensors. -> (O, LSE) as flash_attention_fwd."""
+    _refuse_unported_switches()
     if mode not in ("qk", "qkpv"):
         raise ValueError(f"K8 modes are 'qk' and 'qkpv', got {mode!r}")
     pv8 = mode == "qkpv"
@@ -382,6 +407,7 @@ def flash_attention(q, k, v, *, causal=False):
     """(B, Tq, H, D) x (B, Tk, H, D) -> (B, Tq, H, D); softmax(QK^T/sqrt(D))V,
     differentiable. causal requires Tq == Tk (the model's only causal use,
     decoder self-attention over a full block)."""
+    _refuse_unported_switches()
     if causal and q.shape[1] != k.shape[1]:
         raise ValueError("causal flash attention requires Tq == Tk")
     return FlashAttention.apply(q, k, v, causal)

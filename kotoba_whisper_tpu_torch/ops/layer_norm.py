@@ -19,6 +19,18 @@ import torch
 from kotoba_whisper_tpu_torch.ops import _build
 
 _MAX_WIDTH = 2048  # csrc/layer_norm.cu kMaxChunks x 8 x 32 lanes
+WARPS_PER_BLOCK = 4  # csrc/layer_norm.cu kWarps: one row per warp at a time
+_WEIGHT_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def row_schedule(rows, grid):
+    """The rows each warp of K6's persistent grid normalises, in order:
+    warp j of block i starts at row i * WARPS_PER_BLOCK + j and strides by
+    grid * WARPS_PER_BLOCK (csrc/layer_norm.cu `layer_norm_kernel`). ->
+    {(block, warp): list of rows}."""
+    step = grid * WARPS_PER_BLOCK
+    return {(blk, wp): list(range(blk * WARPS_PER_BLOCK + wp, rows, step))
+            for blk in range(grid) for wp in range(WARPS_PER_BLOCK)}
 
 
 def _ln_rows(x32, weight, bias, eps):
@@ -40,6 +52,8 @@ def add_layer_norm_reference(x, y, weight, bias, eps=1e-5):
 
 
 def _check(x, weight, bias, *others):
+    """Raises on what K6 does not take; -> (rows, d, weight is fp32). The
+    weight and bias go to the kernel as they are stored (bf16 or fp32)."""
     d = x.shape[-1]
     for name, t in (("x", x), *others):
         if t.device.type != "cuda" or t.dtype != torch.bfloat16 or not t.is_contiguous():
@@ -47,12 +61,18 @@ def _check(x, weight, bias, *others):
                              f"{t.dtype} on {t.device}")
         if t.shape != x.shape:
             raise ValueError(f"K6: {name} {tuple(t.shape)} differs from x {tuple(x.shape)}")
-    if d % 8 or d > _MAX_WIDTH:
-        raise ValueError(f"K6 takes a width that is a multiple of 8 up to {_MAX_WIDTH}, got {d}")
-    if weight.shape != (d,) or bias.shape != (d,):
-        raise ValueError(f"K6: weight {tuple(weight.shape)} / bias {tuple(bias.shape)} "
-                         f"must be ({d},)")
-    return x.numel() // d, d, weight.float().contiguous(), bias.float().contiguous()
+        if t.data_ptr() % 16:
+            raise ValueError(f"K6 reads 16-byte chunks: {name} is not 16-byte aligned")
+    if d % 8 or d > _MAX_WIDTH or x.numel() == 0:
+        raise ValueError(f"K6 takes a width that is a multiple of 8 up to {_MAX_WIDTH} and "
+                         f"at least one row, got {tuple(x.shape)}")
+    for name, t in (("weight", weight), ("bias", bias)):
+        if t.shape != (d,) or t.dtype != weight.dtype or t.dtype not in _WEIGHT_DTYPES:
+            raise ValueError(f"K6: weight and bias must be ({d},) of one dtype, bf16 or "
+                             f"fp32; {name} is {tuple(t.shape)} {t.dtype}")
+        if t.device != x.device or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"K6 reads {name} contiguous, 16-byte aligned, on x's card")
+    return x.numel() // d, d, int(weight.dtype == torch.float32)
 
 
 def layer_norm(x, weight, bias, eps=1e-5):
@@ -60,11 +80,11 @@ def layer_norm(x, weight, bias, eps=1e-5):
     plain twin for CPU tensors."""
     if x.device.type == "cpu":
         return layer_norm_reference(x, weight, bias, eps)
-    rows, d, w, b = _check(x, weight, bias)
+    rows, d, w_fp32 = _check(x, weight, bias)
     out = torch.empty_like(x)
     rc = _build.function("layer_norm", "kwt_layer_norm")(
-        x.data_ptr(), None, w.data_ptr(), b.data_ptr(), None, out.data_ptr(),
-        rows, d, float(eps), _build.stream_handle(x.device),
+        x.data_ptr(), None, weight.data_ptr(), bias.data_ptr(), w_fp32, None,
+        out.data_ptr(), rows, d, float(eps), _build.stream_handle(x.device),
     )
     if rc != 0:
         raise RuntimeError(f"K6 layer_norm launch failed: cudaError {rc}")
@@ -76,11 +96,11 @@ def add_layer_norm(x, y, weight, bias, eps=1e-5):
     """K6 fused residual add + LayerNorm -> (x + y, LayerNorm(x + y))."""
     if x.device.type == "cpu":
         return add_layer_norm_reference(x, y, weight, bias, eps)
-    rows, d, w, b = _check(x, weight, bias, ("y", y))
+    rows, d, w_fp32 = _check(x, weight, bias, ("y", y))
     summed, out = torch.empty_like(x), torch.empty_like(x)
     rc = _build.function("layer_norm", "kwt_layer_norm")(
-        x.data_ptr(), y.data_ptr(), w.data_ptr(), b.data_ptr(), summed.data_ptr(),
-        out.data_ptr(), rows, d, float(eps), _build.stream_handle(x.device),
+        x.data_ptr(), y.data_ptr(), weight.data_ptr(), bias.data_ptr(), w_fp32,
+        summed.data_ptr(), out.data_ptr(), rows, d, float(eps), _build.stream_handle(x.device),
     )
     if rc != 0:
         raise RuntimeError(f"K6 add_layer_norm launch failed: cudaError {rc}")

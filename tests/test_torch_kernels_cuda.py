@@ -12,7 +12,7 @@ and XLA frontends) on white noise and on a wide dynamic range. K5's
 gradients, whose scale follows the inputs, are held elementwise to 1e-2 of
 their largest magnitude (rtol 1e-2) and by the same relative L2. K6's
 LayerNorm is held to one bf16 ulp of its twin (plus 2e-6 near 0) and its
-sum bit for bit; K7
+sum bit for bit, with bf16 and fp32 weights; K7
 and K8 like K1 (their outputs are bf16 after fp32 sums taken in another
 order; K8 qkpv may round a p8 the other way); K9's fp32 sums to 1e-4
 relative. The w8a8 product (torch._int_mm) must be exact at the decode
@@ -375,12 +375,17 @@ def _assert_within_bf16_ulp(got, ref):
     assert excess <= 1.0, f"{excess:.2f} of one bf16 ulp + 2e-6"
 
 
-@pytest.mark.parametrize("shape", [(2, 1500, 1280), (3, 37, 64), (1, 5, 2048)])
-def test_layer_norm_kernel(shape):
+@pytest.mark.parametrize("w_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(2, 1500, 1280), (3, 37, 64), (1, 5, 2048), (24001, 384),
+                                   (16, 1500, 1280), (1001, 1280), (4099, 2048)])
+def test_layer_norm_kernel(shape, w_dtype):
+    """K6 with the weight and bias as stored (bf16 or fp32, read by the
+    kernel as they are), widths 64 to 2048, and row counts that do not
+    divide the persistent grid (its warps stride over the rows)."""
     d = shape[-1]
     x = _randn(*shape, seed=30) * 3 + 1
     y = _randn(*shape, seed=31)
-    w, b = _randn(d, seed=32), _randn(d, seed=33)
+    w, b = _randn(d, seed=32, dtype=w_dtype), _randn(d, seed=33, dtype=w_dtype)
     before = (ln.layer_norm.launches, ln.add_layer_norm.launches)
     got = ln.layer_norm(x, w, b)
     s, got2 = ln.add_layer_norm(x, y, w, b)
@@ -392,17 +397,23 @@ def test_layer_norm_kernel(shape):
     _assert_within_bf16_ulp(got2, ref2)
 
 
-@pytest.mark.parametrize("b, t", [(2, 3000), (1, 256), (3, 250)])
-def test_conv_stem_kernel(b, t):
-    """K7 at large-v3 width: the full 3000 frames, T=256, and T=250 (ragged
-    conv1 and conv2 row tiles)."""
+def _stem_convs(seed):
     conv1 = torch.nn.Conv1d(128, 1280, 3, padding=1).cuda()
     conv2 = torch.nn.Conv1d(1280, 1280, 3, stride=2, padding=1).cuda()
     with torch.no_grad():
         for c in (conv1, conv2):
-            c.weight.normal_(0.0, 0.02, generator=torch.Generator(device="cuda").manual_seed(34))
-            c.bias.normal_(0.0, 0.1, generator=torch.Generator(device="cuda").manual_seed(35))
-    conv1, conv2 = conv1.to(torch.bfloat16), conv2.to(torch.bfloat16)
+            c.weight.normal_(0.0, 0.02, generator=torch.Generator(device="cuda").manual_seed(seed))
+            c.bias.normal_(0.0, 0.1, generator=torch.Generator(device="cuda").manual_seed(seed + 1))
+    return conv1.to(torch.bfloat16), conv2.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("b", [1, 16])
+@pytest.mark.parametrize("t", [3000, 256, 250])
+def test_conv_stem_kernel(b, t):
+    """K7 at large-v3 width: the full 3000 frames, T=256, and T=250 (ragged
+    conv1 and conv2 row tiles), one utterance and the pseudo-labelling
+    batch."""
+    conv1, conv2 = _stem_convs(34)
     x = _randn(b, 128, t, seed=36)
     before = cs.conv_stem.launches
     with torch.no_grad():
@@ -411,6 +422,23 @@ def test_conv_stem_kernel(b, t):
         ref = cs.conv_stem_reference(conv1.weight, conv1.bias, conv2.weight, conv2.bias, x)
     assert cs.conv_stem.launches == before + 1
     assert got.shape == ref.shape == (b, t // 2, 1280)
+    _assert_near(got, ref, atol=1e-2 * float(ref.abs().max()))
+
+
+def test_conv_stem_kernel_sees_an_in_place_weight_update():
+    """K7's cached tap-major weights are rebuilt when a weight changes in
+    place: the second call uses the new conv2 weights."""
+    conv1, conv2 = _stem_convs(37)
+    x = _randn(2, 128, 3000, seed=38)
+    with torch.no_grad():
+        first = cs.conv_stem(conv1, conv2, x)
+        conv2.weight.add_(_randn(*conv2.weight.shape, seed=39) * 0.01)
+        before = cs.conv_stem.launches
+        got = cs.conv_stem(conv1, conv2, x)
+        torch.cuda.synchronize()
+        ref = cs.conv_stem_reference(conv1.weight, conv1.bias, conv2.weight, conv2.bias, x)
+    assert cs.conv_stem.launches == before + 1
+    assert not torch.equal(got, first)
     _assert_near(got, ref, atol=1e-2 * float(ref.abs().max()))
 
 
