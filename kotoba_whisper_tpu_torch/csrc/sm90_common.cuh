@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the port's TMA/wgmma kernels
-// (K1 and K4 in flash_attention_sm90.cu, K2 in decode_attention.cu, K7 in
-// conv_stem.cu): mbarriers,
+// (K1 and K4 in flash_attention_sm90.cu, K2 in decode_attention.cu, K5 in
+// flash_attention_bwd.cu, K7 in conv_stem.cu): mbarriers,
 // TMA tensor and 1-D bulk copies, named barriers, register reallocation,
 // and wgmma with its shared-memory descriptors.
 #pragma once
@@ -87,6 +87,17 @@ __device__ __forceinline__ void tma_store_3d(const void* tmap, const void* src, 
       "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
+// Box of shared memory to a 4-D tensor map at (c0 innermost .. c3),
+// counted in the thread's bulk group; elements outside the tensor are not
+// written.
+__device__ __forceinline__ void tma_store_4d(const void* tmap, const void* src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(tmap)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
 __device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
@@ -103,6 +114,14 @@ __device__ __forceinline__ void bulk_wait_all() {
 // (TMA) reads of them.
 __device__ __forceinline__ void fence_proxy_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// Adds `bytes` (a multiple of 16) of fp32 from shared memory into global
+// memory element by element (in L2), counted in the thread's bulk group.
+__device__ __forceinline__ void bulk_reduce_add_f32(float* dst, const void* src, uint32_t bytes) {
+  asm volatile(
+      "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], [%1], %2;\n" ::"l"(dst),
+      "r"(smem_u32(src)), "r"(bytes)
+      : "memory");
 }
 __device__ __forceinline__ void prefetch_tmap(const void* tmap) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(tmap)) : "memory");
@@ -182,6 +201,40 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float* d, uint64_t desc_a, u
         "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
         "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// d (64 x 64, fp32) (+)= A (64 x 16, smem) * B (16 x 64, smem), both
+// K-major; accumulate 0 overwrites d.
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float* d, uint64_t desc_a, uint64_t desc_b,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// d (64 x 32, fp32) (+)= A (64 x 16, smem, MN-major: M contiguous) * B
+// (16 x 32, smem, MN-major: N contiguous); accumulate 0 overwrites d.
+__device__ __forceinline__ void wgmma_m64n32k16_ss_mn(float* d, uint64_t desc_a, uint64_t desc_b,
+                                                      int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
@@ -265,8 +318,16 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, 
                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
 // cuTensorMapEncodeTiled from the driver, found through the runtime (no
-// -lcuda at build time).
+// -lcuda at build time). The encoder wants a current context, and a
+// thread whose first CUDA work this is may have none yet (autograd's
+// backward thread, when a kernel's backward is its first op): cudaSetDevice
+// binds the device's primary context to the thread once.
 inline EncodeTiled encode_tiled() {
+  static thread_local bool bound = false;
+  if (!bound) {
+    int dev = 0;
+    bound = cudaGetDevice(&dev) == cudaSuccess && cudaSetDevice(dev) == cudaSuccess;
+  }
   static EncodeTiled fn = nullptr;
   if (fn == nullptr) {
     void* p = nullptr;

@@ -39,7 +39,7 @@ SIGNATURES = {
         "kwt_flash_attention_sm90_fwd": [_P, _P, _P, _P, _P, _P, _P],
     },
     "flash_attention_bwd": {
-        "kwt_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "kwt_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     },
     "decode_attention": {
         "kwt_decode_attention": [

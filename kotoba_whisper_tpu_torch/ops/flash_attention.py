@@ -1,9 +1,10 @@
 """Flash attention: the forward kernels K1 (non-causal) and K4 (causal),
 two instantiations of one TMA and wgmma kernel in
 csrc/flash_attention_sm90.cu, the int8 attention core K8 in
-csrc/flash_attention_int8.cu, the backward kernel pair K5 in
-csrc/flash_attention_bwd.cu, their plain twins, and the `FlashAttention`
-autograd function that ties them together.
+csrc/flash_attention_int8.cu, the backward K5 in
+csrc/flash_attention_bwd.cu (a D pre-pass, one TMA and wgmma kernel over
+128-key work items, and a dQ conversion), their plain twins, and the
+`FlashAttention` autograd function that ties them together.
 
 softmax(q k^T / sqrt(D)) v with O in the input dtype and the fp32
 natural-log logsumexp of each query row (the residual the backward pass
@@ -14,7 +15,10 @@ k/v (B, Tk, H, D), O (B, Tq, H, D), LSE (B, H, Tq). The forward kernels
 read q, k and v with strides of their own, so the column blocks of a fused
 qkv (or kv) projection go in without copies, through TMA tensor maps whose
 byte strides `_fwd_plan` plans (multiples of 16). `causal_tile_plan`
-mirrors the key tiles each 128-row work item of K4 visits and masks.
+mirrors the key tiles each 128-row work item of K4 visits and masks;
+`bwd_tile_plan` the 64-row query tiles each 128-key work item of K5
+visits and masks, and `_bwd_plan` K5's strides (q, k, v and dO through
+tensor maps as K1's, O read by the pre-pass) and scratch.
 
 The int8 core (the JAX package's `KWT_FA_INT8` experiment): "qk" runs QK^T
 as s8 x s8 -> s32 with q quantized per query row and K per key row; "qkpv"
@@ -184,6 +188,58 @@ def causal_tile_plan(tq, tk, q0):
     return n_tiles, min(n_tiles, (q0 + offset + 1) // TILE)
 
 
+# K5's tiles: a work item is one 128-key tile of one (batch, head); it
+# walks 64-row query tiles (csrc/flash_attention_bwd.cu)
+BWD_KTILE, BWD_QTILE = 128, 64
+
+
+def bwd_tile_plan(tq, tk, k0, causal=True):
+    """K5's plan for the work item of keys [k0, k0 + BWD_KTILE): the first
+    BWD_QTILE-row query tile it visits, how many it visits (every tile from
+    there to the last), and the first of them that needs no mask (every
+    row of it sees every key of the item; the earlier visited tiles are
+    masked). Causal (end-aligned: row i sees keys j <= i + tk - tq): from
+    the first row that sees key k0. Non-causal: every tile, none masked
+    here (the kernel masks keys past tk in a ragged last key tile).
+    (csrc/flash_attention_bwd.cu `plan_item`.) -> (qt0, n_tiles, free_from)."""
+    n_qt = -(-tq // BWD_QTILE)
+    if not causal:
+        return 0, n_qt, 0
+    offset = tk - tq
+    qt0 = max(k0 - offset, 0) // BWD_QTILE
+    free_from = max(qt0, min(n_qt, max(0, k0 + BWD_KTILE - 1 - offset + BWD_QTILE - 1)
+                             // BWD_QTILE))
+    return qt0, n_qt - qt0, free_from
+
+
+@lru_cache(maxsize=256)
+def _bwd_plan(q_layout, k_layout, v_layout, o_layout, do_layout, lse_layout, causal):
+    """What K5's C entry reads of one call, from each tensor's (shape,
+    strides): (B, Tq, Tk, H, the fp32 scratch length) and the int64 array
+    (B, Tq, Tk, H, causal, direct, then the head, token and batch byte
+    strides of q, k, v, dO and O). direct: one key tile per (batch, head),
+    so dQ is written in bf16 by the main kernel with no fp32 accumulator.
+    Scratch: the pre-pass's LSE2 and D rows (B*H, Tq padded to BWD_QTILE
+    each), then the accumulator (B*H*n_qtiles*BWD_QTILE*64) unless direct.
+    Checked once per set of layouts (the addresses are checked per call)."""
+    b, tq, tk, h = _shapes(q_layout[0], k_layout[0], v_layout[0])
+    if o_layout[0] != q_layout[0] or do_layout[0] != q_layout[0]:
+        raise ValueError(f"K5: o {tuple(o_layout[0])} and do {tuple(do_layout[0])} must "
+                         f"match q {tuple(q_layout[0])}")
+    if tuple(lse_layout[0]) != (b, h, tq) or tuple(lse_layout[1]) != (h * tq, tq, 1):
+        raise ValueError(f"K5 takes a contiguous (B, H, Tq) = {(b, h, tq)} lse, got shape "
+                         f"{tuple(lse_layout[0])} strides {lse_layout[1]}")
+    if causal and tq > tk:
+        raise ValueError(f"causal flash attention needs Tq <= Tk, got {tq} > {tk}")
+    strides = [s for shape, stride in (q_layout, k_layout, v_layout, do_layout, o_layout)
+               for s in _map_strides(shape, stride, 2)]
+    n_qt = -(-tq // BWD_QTILE)
+    direct = tk <= BWD_KTILE
+    scratch = 2 * b * h * n_qt * BWD_QTILE + (0 if direct else b * h * n_qt * BWD_QTILE * 64)
+    return (b, tq, tk, h, scratch), (ctypes.c_longlong * 21)(b, tq, tk, h, int(causal),
+                                                             int(direct), *strides)
+
+
 @lru_cache(maxsize=256)
 def _fwd_plan(q_layout, k_layout, v_layout, causal):
     """What K1/K4's C entry reads of one call, from each tensor's (shape,
@@ -335,8 +391,8 @@ flash_attention_int8.launches = 0  # K8, both modes
 
 
 def attention_delta(o, do):
-    """D = rowsum(dO * O) in fp32, (B, H, Tq): computed outside the
-    kernels, as the JAX package computes it in XLA."""
+    """D = rowsum(dO * O) in fp32, (B, H, Tq): the plain twin's D (the
+    JAX package computes it in XLA; on the card K5's pre-pass does)."""
     return (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
 
 
@@ -358,31 +414,45 @@ def flash_attention_bwd_reference(q, k, v, o, lse, do, *, causal):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def flash_attention_bwd(q, k, v, o, lse, do, *, causal):
-    """K5 wrapper (dQ kernel, then dK/dV kernel): the kernels for CUDA
-    tensors, the plain twin for CPU tensors. -> (dQ, dK, dV)."""
-    if q.device.type == "cpu":
-        return flash_attention_bwd_reference(q, k, v, o, lse, do, causal=causal)
-    _check_bf16(q=q, k=k, v=v, o=o, do=do)
-    b, tq, tk, h = _shapes(q.shape, k.shape, v.shape)
-    if o.shape != q.shape or do.shape != q.shape:
-        raise ValueError(f"K5: o {o.shape} and do {do.shape} must match q {q.shape}")
-    if lse.shape != (b, h, tq) or lse.dtype != torch.float32 or not lse.is_contiguous():
-        raise ValueError(f"K5 takes a contiguous fp32 (B, H, Tq) lse, got {lse.dtype} {lse.shape}")
-    delta = attention_delta(o, do)
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+def _flash_bwd_sm90(q, k, v, o, lse, do, causal):
+    """K5 on the card: dtypes, layouts, addresses and device checked,
+    outputs and scratch allocated, one C call (three launches, two where
+    dQ is direct)."""
+    if not (q.dtype == k.dtype == v.dtype == o.dtype == do.dtype == torch.bfloat16
+            and lse.dtype == torch.float32):
+        raise TypeError(f"K5 takes bfloat16 q, k, v, o, do and an fp32 lse, got {q.dtype}, "
+                        f"{k.dtype}, {v.dtype}, {o.dtype}, {do.dtype}, {lse.dtype}")
+    (b, tq, tk, h, n_scratch), plan = _bwd_plan(
+        (q.shape, q.stride()), (k.shape, k.stride()), (v.shape, v.stride()),
+        (o.shape, o.stride()), (do.shape, do.stride()), (lse.shape, lse.stride()), causal)
+    qp, kp, vp, op, dop = q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr()
+    if (qp | kp | vp | op | dop) % 16:
+        raise ValueError("K5's tensor maps and loads need 16-byte aligned q, k, v, o and do")
+    if not (q.is_cuda and k.is_cuda and v.is_cuda and o.is_cuda and do.is_cuda and lse.is_cuda):
+        raise ValueError(f"K5 takes tensors on the card, got q on {q.device}, k on {k.device}, "
+                         f"v on {v.device}, o on {o.device}, do on {do.device}, lse on "
+                         f"{lse.device}")
+    dq = q.new_empty((b, tq, h, 64))
+    dkv = q.new_empty((2, b, tk, h, 64))  # one TMA store map covers dK and dV
+    scratch = lse.new_empty(n_scratch)
     rc = _build.function("flash_attention_bwd", "kwt_flash_attention_bwd")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        b, tq, tk, h, int(causal), _build.stream_handle(q.device),
-    )
+        qp, kp, vp, op, dop, lse.data_ptr(), dq.data_ptr(), dkv.data_ptr(), scratch.data_ptr(),
+        plan, _build.stream_handle(q.device))
     if rc != 0:
         raise RuntimeError(f"K5 flash attention backward launch failed: cudaError {rc}")
     flash_attention_bwd.launches += 1
-    return dq, dk, dv
+    return (dq, *dkv.unbind(0))
 
 
-flash_attention_bwd.launches = 0  # K5 (calls; each launches two kernels)
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal):
+    """K5 wrapper: the kernel for CUDA tensors, the plain twin for CPU
+    tensors. -> (dQ, dK, dV)."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_reference(q, k, v, o, lse, do, causal=causal)
+    return _flash_bwd_sm90(q, k, v, o, lse, do, causal)
+
+
+flash_attention_bwd.launches = 0  # K5 calls
 
 
 class FlashAttention(torch.autograd.Function):
@@ -398,7 +468,10 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o, lse = (t.contiguous() for t in ctx.saved_tensors)
+        # K5 reads q, k, v and o through their strides, as the forward
+        # does, so fused projections' column blocks go in without copies;
+        # autograd may hand over an expanded (stride 0) do
+        q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(), causal=ctx.causal)
         return dq, dk, dv, None
 

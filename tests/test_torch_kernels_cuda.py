@@ -18,6 +18,8 @@ order; K8 qkpv may round a p8 the other way); K9's fp32 sums to 1e-4
 relative. The w8a8 product (torch._int_mm) must be exact at the decode
 step's row counts.
 """
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -190,6 +192,8 @@ def _assert_grad_near(got, ref, name):
     (1, 70, 1500, 3, False),     # cross, ragged Tq and Tk
     (3, 64, 200, 2, False),      # one exact Q tile, B*H tail
     (8, 128, 1500, 20, False),   # training cross-attention shape
+    (2, 300, 300, 3, True),      # several query and key tiles, causal
+    (1, 260, 1500, 2, False),    # several query and key tiles, cross
 ])
 def test_flash_attention_backward_kernel(b, tq, tk, h, causal):
     q = _randn(b, tq, h, 64, seed=10)
@@ -204,6 +208,111 @@ def test_flash_attention_backward_kernel(b, tq, tk, h, causal):
     ref = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, causal=causal)
     for name, g, r in zip(("dq", "dk", "dv"), got, ref):
         assert g.dtype == torch.bfloat16 and g.shape == r.shape
+        _assert_grad_near(g, r, name)
+
+
+def _assert_dq_reordered(got, want):
+    """dQ summed over key tiles by fp32 reduce-adds whose order varies from
+    run to run: within one bf16 rounding step (2^-7 relative) plus 1e-5 of
+    the largest magnitude for sums near zero."""
+    torch.testing.assert_close(got.float(), want.float(), rtol=2**-7,
+                               atol=1e-5 * float(want.float().abs().max()))
+
+
+def _k5_inputs(b, tq, tk, h, seed):
+    q, do = _randn(b, tq, h, 64, seed=seed), _randn(b, tq, h, 64, seed=seed + 1)
+    k, v = _randn(b, tk, h, 64, seed=seed + 2), _randn(b, tk, h, 64, seed=seed + 3)
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("tk, causal", [(128, True), (1500, False)])
+def test_flash_attention_backward_kernel_replays_in_a_cuda_graph(tk, causal):
+    """K5 allocates only its outputs and scratch and launches its passes on
+    the current stream: a CUDA graph of the call at the training shapes
+    replays to the eager result (dK, dV bit for bit; dQ, summed by
+    reduce-adds across key tiles at Tk=1500, within their reordering), on
+    new inputs too."""
+    q, k, v, do = _k5_inputs(8, 128, tk, 20, seed=80)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+
+    def call():
+        return fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+
+    for fresh in (False, True):
+        if fresh:
+            do.copy_(_randn(8, 128, 20, 64, seed=85))
+        else:
+            call()
+            torch.cuda.synchronize()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                out = call()
+        graph.replay()
+        torch.cuda.synchronize()
+        want = call()
+        torch.cuda.synchronize()
+        assert torch.equal(out[1], want[1]) and torch.equal(out[2], want[2])
+        if causal:  # one key tile: dQ written directly, no reduce-add
+            assert torch.equal(out[0], want[0])
+        else:
+            _assert_dq_reordered(out[0], want[0])
+
+
+def test_flash_attention_backward_first_call_in_a_new_thread():
+    """K5 as the first CUDA work of a fresh thread (as in autograd's
+    backward thread, where no context is current yet): it encodes its
+    tensor maps and launches there, and equals the call on this thread."""
+    q, k, v, do = _k5_inputs(2, 130, 300, 3, seed=93)
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    want = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=False)
+    torch.cuda.synchronize()
+    got = []
+    thread = threading.Thread(
+        target=lambda: got.append(fa.flash_attention_bwd(q, k, v, o, lse, do, causal=False)))
+    thread.start()
+    thread.join()
+    assert got, "K5 raised in the new thread"
+    torch.cuda.synchronize()
+    assert torch.equal(got[0][1], want[1]) and torch.equal(got[0][2], want[2])
+    _assert_dq_reordered(got[0][0], want[0])
+
+
+def test_flash_attention_backward_kernel_runs_agree():
+    """Two runs at the cross shape: dK and dV equal, dQ within the
+    reordering of its fp32 reduce-adds."""
+    q, k, v, do = _k5_inputs(8, 128, 1500, 20, seed=90)
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    a = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=False)
+    b = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=False)
+    torch.cuda.synchronize()
+    assert torch.equal(a[1], b[1]) and torch.equal(a[2], b[2])
+    _assert_dq_reordered(a[0], b[0])
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_backward_reads_fused_projections_in_place(causal):
+    """K5 on the column blocks of a fused qkv (causal, T=130) or of a q
+    and a fused kv (cross, 128 x 1500) projection at their strides equals
+    K5 on copies, and the twin."""
+    b, h = 2, 4
+    if causal:
+        tq = tk = 130
+        q, k, v = (x.reshape(b, tq, h, 64) for x in _randn(b, tq, 3 * h * 64, seed=95).chunk(3, -1))
+    else:
+        tq, tk = 128, 1500
+        q = _randn(b, tq, h, 64, seed=96)
+        k, v = (x.reshape(b, tk, h, 64) for x in _randn(b, tk, 2 * h * 64, seed=97).chunk(2, -1))
+    assert not k.is_contiguous()
+    do = _randn(b, tq, h, 64, seed=98)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    copies = fa.flash_attention_bwd(q.contiguous(), k.contiguous(), v.contiguous(), o, lse, do,
+                                    causal=causal)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], copies[1]) and torch.equal(got[2], copies[2])
+    _assert_dq_reordered(got[0], copies[0])
+    ref = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, causal=causal)
+    for name, g, r in zip(("dq", "dk", "dv"), got, ref):
         _assert_grad_near(g, r, name)
 
 
