@@ -19,7 +19,9 @@ Phases, in order; any failure exits nonzero and prints no result line:
      times where a graph cannot capture it) and the host's time per call
      of each; K3 also on a wide-dynamic-range
      input, its raw values read by region against a float64 evaluation;
-     K4's device time also by batch;
+     K4's device time also by batch; K8's quantize pre-pass also bit for
+     bit against the twin quantizers, and its pre-pass and main kernel
+     each timed alone;
   4. main path: large-v3 width and depth with seeded random weights, bf16,
      int8 KV, B=16, 48 new tokens with eot disabled:
      log_mel_spectrogram -> generate_greedy, with launch counters checked;
@@ -673,8 +675,10 @@ def main() -> int:
     del conv1, conv2, xs, got, ref
     torch.cuda.empty_cache()
 
-    # K8: the int8 attention core at the encoder's shape, qk and qkpv; the
-    # wrapper's K (and V) quantization is part of its time and the twin's
+    # K8: the int8 attention core at the encoder's shape, qk and qkpv; its
+    # quantize pre-pass is part of its time (and the twin's quantizers of
+    # the twin's), and is held to the twin quantizers bit for bit; the
+    # pre-pass and the main kernel are also timed alone
     q, k, v = (randn(B, t_enc, h, 64, seed=s) for s in (29, 30, 31))
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     for mode in ("qk", "qkpv"):
@@ -691,29 +695,40 @@ def main() -> int:
         def k8_library():
             return F.scaled_dot_product_attention(qt, kt, vt)
 
+        got = fa.int8_prepass(q, k, v, mode=mode)
+        want = fa.int8_prepass_reference(k, v, pv8)
+        for part, g, w in zip(("k8", "ks", "v8t", "vs"), got, want):
+            if w is not None and not torch.equal(g, w):
+                raise AssertionError(f"K8 {mode} pre-pass: {part} differs from the twin "
+                                     "quantizers")
+        log(f"[kernel] K8 {mode} pre-pass: {'k8, ks, v8t, vs' if pv8 else 'k8, ks'} equal "
+            "the twin quantizers bit for bit")
+        del got, want
         o, lse = k8_call()
         ro, rlse = twin()
         lse_err = float((lse - rlse).abs().max())
         if lse_err > 1e-3:
             raise AssertionError(f"K8 {mode} LSE disagrees: {lse_err}")
+        _, _, scratch = fa._flash_int8_sm90(q, k, v, pv8)
         pairs = B * h * t_enc * t_enc
-        # the kernel's inputs: q, int8 K and its row scales, V (bf16, or
-        # int8 and its column scales), and O and LSE
-        kv_bytes = B * t_enc * d * (1 + (1 if pv8 else 2)) + B * h * t_enc * 4 + (
-            B * h * 64 * 4 if pv8 else 0)
+        # the call's inputs q, k, v (bf16) and outputs O and LSE
         record(
             f"K8 flash_attention_int8 {mode} (B={B}, T={t_enc}, H=20, D=64)",
             "kotoba_whisper_tpu_torch/csrc/flash_attention_int8.cu",
             "kotoba_whisper_tpu/ops/flash_attention.py:145", compare(o, ro), 5e-3,
             time_ms(k8_call), time_ms(twin), time_ms(k8_library),
-            bound((4.0 if pv8 else 2.0) * pairs * 64, int8_rate, nbytes(q, o, lse) + kv_bytes,
+            bound((4.0 if pv8 else 2.0) * pairs * 64, int8_rate, nbytes(q, k, v, o, lse),
                   mem_rate,
                   exp_s=pairs / exp_rate, more_s=0 if pv8 else 2.0 * pairs * 64 / bf16_rate),
             key=f"K8{mode}", device_ms=graph_ms(k8_call),
+            prepass_device_ms=graph_ms(
+                lambda: fa._flash_int8_sm90(q, k, v, pv8, phases=1, scratch=scratch)),
+            main_device_ms=graph_ms(
+                lambda: fa._flash_int8_sm90(q, k, v, pv8, phases=2, scratch=scratch)),
             library_device_ms=graph_ms(k8_library), host_us=host_us(k8_call),
             library_host_us=host_us(k8_library),
         )
-        del o, lse, ro, rlse
+        del o, lse, ro, rlse, scratch
     del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
 

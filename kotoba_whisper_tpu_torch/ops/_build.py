@@ -56,9 +56,7 @@ SIGNATURES = {
         "kwt_conv_stem": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     },
     "flash_attention_int8": {
-        "kwt_flash_attention_int8": [
-            _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _I, _I, _P,
-        ],
+        "kwt_flash_attention_int8": [_P, _P, _P, _P, _P, _P, _P, _I, _P],
     },
     "vpu_cal": {
         "kwt_vpu_cal": [_P, _P, _I, _I, _I, _I, _P],

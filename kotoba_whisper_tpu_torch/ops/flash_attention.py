@@ -23,7 +23,11 @@ tensor maps as K1's, O read by the pre-pass) and scratch.
 The int8 core (the JAX package's `KWT_FA_INT8` experiment): "qk" runs QK^T
 as s8 x s8 -> s32 with q quantized per query row and K per key row; "qkpv"
 also quantizes P (against the row's final max) and V per column for an
-int8 P V. `flash_attention_fwd` takes it where the JAX package does:
+int8 P V. On the card K and V are quantized by K8's own pre-pass
+(`int8_prepass_reference` is its twin; `V8T_KEY_ORDER` the key order of
+its transposed V) and `_int8_plan` caches each set of layouts; on the CPU
+by `quantize_k_rows` and `quantize_v_cols`. `flash_attention_fwd` takes it
+where the JAX package does:
 non-causal attention over at most SINGLE_STEP_MAX_K keys, with the mode
 given as `int8_mode` or, when that is None, read from KWT_FA_INT8 at each
 non-causal call. The backward pass stays K5, on the int8 forward's O and
@@ -45,6 +49,7 @@ takes its plain twin only for CPU tensors.
 from __future__ import annotations
 
 import ctypes
+import math
 import os
 from functools import lru_cache
 
@@ -97,28 +102,6 @@ def flash_attention_reference(q, k, v, causal=False):
     return o.to(q.dtype), lse
 
 
-def _check_bf16(strided=False, **tensors):
-    """Device, dtype and layout checks. strided: each head's 64 values
-    contiguous and 16-byte aligned, heads adjacent, any token stride that
-    keeps the alignment; else contiguous."""
-    for name, t in tensors.items():
-        if t.device.type != "cuda":
-            raise ValueError(f"flash_attention: {name} is on {t.device}")
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"flash attention kernels take bfloat16, {name} is {t.dtype}")
-        if t.ndim != 4:
-            raise ValueError(f"flash attention takes (B, T, H, D) {name}")
-        if strided:
-            b, tt, h, d = t.shape
-            ts = _token_stride(t)
-            ok = (t.stride(3) == 1 and (h == 1 or t.stride(2) == d) and ts % 8 == 0
-                  and (b == 1 or t.stride(0) == tt * ts) and t.data_ptr() % 16 == 0)
-        else:
-            ok = t.is_contiguous()
-        if not ok:
-            raise ValueError(f"flash attention cannot read {name} with strides {t.stride()}")
-
-
 def _shapes(q_shape, k_shape, v_shape):
     """(B, Tq, Tk, H) of (B, Tq, H, 64) q and (B, Tk, H, 64) k and v."""
     if not len(q_shape) == len(k_shape) == len(v_shape) == 4:
@@ -134,15 +117,6 @@ def _shapes(q_shape, k_shape, v_shape):
     if tq == 0 or tk == 0:
         raise ValueError("flash_attention needs at least one query and one key")
     return b, tq, tk, h
-
-
-def _token_stride(t):
-    """Elements between consecutive tokens of (B, T, H, D) t; the kernels
-    take the batch stride as T times it."""
-    b, tt, h, d = t.shape
-    if tt > 1:
-        return t.stride(1)
-    return t.stride(0) if b > 1 else h * d
 
 
 # K1/K4's TMA box: (head dim, heads, tokens, batch) elements, 128 bytes
@@ -353,36 +327,128 @@ def flash_attention_int8_reference(q, k8, ks, v, vs, pv8):
     return o, (m + torch.log(l_safe))[..., 0]
 
 
+# K8's key tiles (csrc/flash_attention_int8.cu): the pre-pass pads ks and
+# V8^T to whole tiles
+INT8_KTILE = 128
+# Position k of each 32-key group of V8^T holds key V8T_KEY_ORDER[k]:
+# k = 16hi + 4t + i holds key 16hi + 8(i >> 1) + 2t + (i & 1), the keys a
+# thread's s32 score accumulators hold where the s8 A fragment of the
+# P V product takes logical k (so P8 leaves the accumulators unshuffled).
+V8T_KEY_ORDER = tuple(16 * (k >> 4) + 8 * ((k & 3) >> 1) + 2 * ((k >> 2) & 3) + (k & 1)
+                      for k in range(32))
+
+
+def int8_prepass_reference(k, v, pv8):
+    """Plain twin of K8's pre-pass: `quantize_k_rows` and, for qkpv,
+    `quantize_v_cols`, laid out as the kernel writes them: k8 (B, Tk, H,
+    64), ks (B, H, tk_pad) with zero scales past Tk, V8^T (B, H, 64,
+    tk_pad) with zero keys past Tk and each 32-key group in V8T_KEY_ORDER,
+    and vs (B, H, 64). -> (k8, ks, V8^T, vs); the last two None for qk."""
+    b, tk, h, d = k.shape
+    tk_pad = -(-tk // INT8_KTILE) * INT8_KTILE
+    k8, ks = quantize_k_rows(k)
+    ks = F.pad(ks, (0, tk_pad - tk))
+    if not pv8:
+        return k8, ks, None, None
+    v8, vs = quantize_v_cols(v)
+    v8t = F.pad(v8.permute(0, 2, 3, 1), (0, tk_pad - tk))
+    order = torch.tensor(V8T_KEY_ORDER, device=k.device)
+    v8t = v8t.reshape(b, h, d, tk_pad // 32, 32)[..., order].reshape(b, h, d, tk_pad)
+    return k8, ks, v8t, vs
+
+
+@lru_cache(maxsize=256)
+def _int8_plan(q_layout, k_layout, v_layout, pv8):
+    """What K8's C entry reads of one call, from each tensor's (shape,
+    strides): (B, Tq, Tk, H, tk_pad, the byte offsets of ks, V8^T and vs in
+    the pre-pass's scratch, which starts with k8, and its size in bytes)
+    and the int64 array (B, Tq, Tk, H, pv8, tk_pad, the head, token and
+    batch byte strides of q, k and v, the three offsets). Checked once per
+    set of layouts (the addresses are checked per call)."""
+    b, tq, tk, h = _shapes(q_layout[0], k_layout[0], v_layout[0])
+    if tk > SINGLE_STEP_MAX_K:
+        raise ValueError(f"K8 takes at most {SINGLE_STEP_MAX_K} keys (the JAX package's "
+                         f"one-shot kernel), got {tk}")
+    strides = [s for shape, stride in (q_layout, k_layout, v_layout)
+               for s in _map_strides(shape, stride, 2)]
+    tk_pad = -(-tk // INT8_KTILE) * INT8_KTILE
+    ks_off = b * tk * h * 64
+    v8t_off = ks_off + b * h * tk_pad * 4
+    vs_off = v8t_off + (b * h * 64 * tk_pad if pv8 else 0)
+    size = vs_off + (b * h * 64 * 4 if pv8 else 0)
+    return ((b, tq, tk, h, tk_pad, ks_off, v8t_off, vs_off, size),
+            (ctypes.c_longlong * 18)(b, tq, tk, h, int(pv8), tk_pad, *strides, ks_off, v8t_off,
+                                     vs_off))
+
+
+def _flash_int8_sm90(q, k, v, pv8, phases=3, scratch=None):
+    """K8 on the card: dtypes, layouts, addresses and device checked, O, LSE
+    and the pre-pass's scratch allocated (or `scratch` reused), then the
+    quantize pre-pass (phases bit 0) and the main kernel (bit 1) launched.
+    -> (O, LSE, scratch)."""
+    if not q.dtype == k.dtype == v.dtype == torch.bfloat16:
+        raise TypeError(f"K8 takes bfloat16 q, k and v, got {q.dtype}, {k.dtype}, {v.dtype}")
+    meta, plan = _int8_plan((q.shape, q.stride()), (k.shape, k.stride()),
+                            (v.shape, v.stride()), pv8)
+    b, tq, _, h = meta[:4]
+    qp, kp, vp = q.data_ptr(), k.data_ptr(), v.data_ptr()
+    if (qp | kp | vp) % 16:
+        raise ValueError("K8's tensor maps and loads need 16-byte aligned q, k and v")
+    if not (q.is_cuda and q.device == k.device == v.device):
+        raise ValueError(f"K8 takes tensors on the card, all on one, got q on {q.device}, "
+                         f"k on {k.device}, v on {v.device}")
+    if scratch is None:
+        scratch = q.new_empty(meta[-1], dtype=torch.uint8)
+    elif scratch.numel() < meta[-1] or scratch.dtype != torch.uint8:
+        raise ValueError(f"K8's scratch needs {meta[-1]} bytes")
+    o = q.new_empty((b, tq, h, 64))
+    lse = q.new_empty((b, h, tq), dtype=torch.float32)
+    with torch.cuda.device(q.device):  # the host entry sets up and launches on the current card
+        rc = _build.function("flash_attention_int8", "kwt_flash_attention_int8")(
+            qp, kp, vp, o.data_ptr(), lse.data_ptr(), scratch.data_ptr(), plan, phases,
+            _build.stream_handle(q.device))
+    if rc != 0:
+        raise RuntimeError(f"K8 int8 attention ({'qkpv' if pv8 else 'qk'}) launch failed: "
+                           f"cudaError {rc}")
+    return o, lse, scratch
+
+
+def int8_prepass(q, k, v, *, mode):
+    """K8's quantize pre-pass alone on the card (not counted in
+    `flash_attention_int8.launches`: it checks and times the pre-pass).
+    -> (k8, ks, V8^T, vs) as `int8_prepass_reference` lays them out, viewed
+    in the scratch; the last two None for qk."""
+    pv8 = mode == "qkpv"
+    _, _, scratch = _flash_int8_sm90(q, k, v, pv8, phases=1)
+    b, _, tk, h, tk_pad, ks_off, v8t_off, vs_off, _ = _int8_plan(
+        (q.shape, q.stride()), (k.shape, k.stride()), (v.shape, v.stride()), pv8)[0]
+
+    def view(off, dtype, shape):
+        n = math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+        return scratch[off:off + n].view(dtype).view(shape)
+
+    k8 = view(0, torch.int8, (b, tk, h, 64))
+    ks = view(ks_off, torch.float32, (b, h, tk_pad))
+    if not pv8:
+        return k8, ks, None, None
+    return (k8, ks, view(v8t_off, torch.int8, (b, h, 64, tk_pad)),
+            view(vs_off, torch.float32, (b, h, 64)))
+
+
 def flash_attention_int8(q, k, v, *, mode):
-    """K8 wrapper: K (and, for qkpv, V) quantized here with torch ops, as
-    the JAX package does it in XLA; then the kernel for CUDA tensors, the
-    plain twin for CPU tensors. -> (O, LSE) as flash_attention_fwd."""
+    """K8 wrapper: for CUDA tensors the quantize pre-pass and the kernel
+    (two launches, one count); for CPU tensors K (and, for qkpv, V)
+    quantized with torch ops, as the JAX package does it in XLA, and the
+    plain twin. -> (O, LSE) as flash_attention_fwd."""
     _refuse_unported_switches()
     if mode not in ("qk", "qkpv"):
         raise ValueError(f"K8 modes are 'qk' and 'qkpv', got {mode!r}")
     pv8 = mode == "qkpv"
-    k8, ks = quantize_k_rows(k)
-    v_in, vs = quantize_v_cols(v) if pv8 else (v, None)
     if q.device.type == "cpu":
+        k8, ks = quantize_k_rows(k)
+        v_in, vs = quantize_v_cols(v) if pv8 else (v, None)
         return flash_attention_int8_reference(q, k8, ks, v_in, vs, pv8)
-    _check_bf16(strided=True, q=q, k=k, v=v)
-    b, tq, tk, h = _shapes(q.shape, k.shape, v.shape)
-    k8, ks = k8.contiguous(), ks.contiguous()
-    tk_pad = -(-tk // 16) * 16
-    if pv8:
-        # V^T per head, keys zero-padded to a multiple of 16: (B, H, D, tk_pad)
-        v_in = F.pad(v_in.permute(0, 2, 3, 1), (0, tk_pad - tk)).contiguous()
-        vs = vs.contiguous()
-    o = torch.empty((b, tq, h, 64), dtype=q.dtype, device=q.device)
-    lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
-    rc = _build.function("flash_attention_int8", "kwt_flash_attention_int8")(
-        q.data_ptr(), k8.data_ptr(), ks.data_ptr(), v_in.data_ptr(),
-        None if vs is None else vs.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        b, tq, tk, h, _token_stride(q), 0 if pv8 else _token_stride(v), tk_pad, int(pv8),
-        _build.stream_handle(q.device),
-    )
-    if rc != 0:
-        raise RuntimeError(f"K8 int8 attention ({mode}) launch failed: cudaError {rc}")
+    o, lse, _ = _flash_int8_sm90(q, k, v, pv8)
     flash_attention_int8.launches += 1
     return o, lse
 

@@ -14,7 +14,8 @@ their largest magnitude (rtol 1e-2) and by the same relative L2. K6's
 LayerNorm is held to one bf16 ulp of its twin (plus 2e-6 near 0) and its
 sum bit for bit, with bf16 and fp32 weights; K7
 and K8 like K1 (their outputs are bf16 after fp32 sums taken in another
-order; K8 qkpv may round a p8 the other way); K9's fp32 sums to 1e-4
+order; K8 qk rounds P to bf16 against a running max, qkpv may round a p8
+the other way), K8's quantize pre-pass bit for bit; K9's fp32 sums to 1e-4
 relative. The w8a8 product (torch._int_mm) must be exact at the decode
 step's row counts.
 """
@@ -551,19 +552,110 @@ def test_conv_stem_kernel_sees_an_in_place_weight_update():
     _assert_near(got, ref, atol=1e-2 * float(ref.abs().max()))
 
 
+def _int8_twin(q, k, v, mode):
+    pv8 = mode == "qkpv"
+    k8, ks = fa.quantize_k_rows(k)
+    v_in, vs = fa.quantize_v_cols(v) if pv8 else (v, None)
+    return fa.flash_attention_int8_reference(q, k8, ks, v_in, vs, pv8)
+
+
 @pytest.mark.parametrize("mode", ["qk", "qkpv"])
-@pytest.mark.parametrize("b, t, h", [(2, 300, 4), (2, 1500, 20), (1, 70, 3)])
-def test_int8_attention_kernel(mode, b, t, h):
-    q, k, v = (_randn(b, t, h, 64, seed=s) for s in (40, 41, 42))
+@pytest.mark.parametrize("b, tq, tk, h", [
+    (2, 300, 300, 4), (2, 1500, 1500, 20), (1, 70, 70, 3),
+    (8, 128, 1500, 20),   # the training cross-attention under KWT_FA_INT8
+    (1, 200, 4096, 2),    # the most keys K8 takes
+    (3, 64, 1, 2),        # a single key
+])
+def test_int8_attention_kernel(mode, b, tq, tk, h):
+    q = _randn(b, tq, h, 64, seed=40)
+    k, v = _randn(b, tk, h, 64, seed=41), _randn(b, tk, h, 64, seed=42)
     before = fa.flash_attention_int8.launches
     o, lse = fa.flash_attention_fwd(q, k, v, int8_mode=mode)
     torch.cuda.synchronize()
     assert fa.flash_attention_int8.launches == before + 1
-    k8, ks = fa.quantize_k_rows(k)
-    v_in, vs = fa.quantize_v_cols(v) if mode == "qkpv" else (v, None)
-    ro, rlse = fa.flash_attention_int8_reference(q, k8, ks, v_in, vs, mode == "qkpv")
+    ro, rlse = _int8_twin(q, k, v, mode)
     _assert_near(o, ro, atol=5e-3)
     torch.testing.assert_close(lse, rlse, atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.parametrize("mode", ["qk", "qkpv"])
+@pytest.mark.parametrize("b, tq, tk, h, fused", [
+    (2, 1500, 1500, 20, False), (1, 70, 70, 3, False), (8, 128, 1500, 20, False),
+    (3, 64, 1, 2, False), (2, 300, 300, 4, True),
+])
+def test_int8_prepass_equals_the_twin_quantizers(mode, b, tq, tk, h, fused):
+    """K8's pre-pass writes k8 and ks equal to `quantize_k_rows` and (qkpv)
+    V8^T and vs equal to `quantize_v_cols` after the key permutation, bit for
+    bit (`int8_prepass_reference` lays them out), also from the column blocks
+    of a fused qkv projection."""
+    if fused:
+        qkv = _randn(b, tk, 3 * h * 64, seed=44)
+        q, k, v = (x.reshape(b, tk, h, 64) for x in qkv.chunk(3, dim=-1))
+    else:
+        q = _randn(b, tq, h, 64, seed=45)
+        k, v = _randn(b, tk, h, 64, seed=46), _randn(b, tk, h, 64, seed=47)
+    got = fa.int8_prepass(q, k, v, mode=mode)
+    torch.cuda.synchronize()
+    want = fa.int8_prepass_reference(k, v, mode == "qkpv")
+    for name, g, w in zip(("k8", "ks", "v8t", "vs"), got, want):
+        if w is None:
+            assert g is None, name
+            continue
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert torch.equal(g, w), name
+
+
+@pytest.mark.parametrize("mode", ["qk", "qkpv"])
+def test_int8_attention_kernel_replays_in_a_cuda_graph(mode):
+    """K8 allocates only its outputs and scratch and launches its two
+    kernels on the current stream: a CUDA graph of the call at the
+    encoder's shape replays to the eager result, bit for bit, on new
+    inputs too."""
+    q, k, v = (_randn(2, 1500, 20, 64, seed=s) for s in (48, 49, 50))
+
+    def call():
+        return fa.flash_attention_int8(q, k, v, mode=mode)
+
+    call()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    for fresh in (False, True):
+        if fresh:
+            k.copy_(_randn(2, 1500, 20, 64, seed=51))
+        graph.replay()
+        torch.cuda.synchronize()
+        want = call()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(out, want)), fresh
+
+
+def test_int8_attention_first_call_in_a_new_thread():
+    """K8 as the first CUDA work of a fresh thread: it encodes its tensor
+    maps and launches there, and equals the call on this thread."""
+    q, k, v = (_randn(2, 130, 3, 64, seed=s) for s in (52, 53, 54))
+    for mode in ("qk", "qkpv"):
+        want = fa.flash_attention_int8(q, k, v, mode=mode)
+        torch.cuda.synchronize()
+        got = []
+        thread = threading.Thread(
+            target=lambda: got.append(fa.flash_attention_int8(q, k, v, mode=mode)))
+        thread.start()
+        thread.join()
+        assert got, f"K8 {mode} raised in the new thread"
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got[0], want)), mode
+
+
+@pytest.mark.parametrize("mode", ["qk", "qkpv"])
+def test_int8_attention_kernel_runs_agree(mode):
+    """Two runs at the encoder's shape are bitwise equal (no atomics)."""
+    q, k, v = (_randn(4, 1500, 20, 64, seed=s) for s in (55, 56, 57))
+    a = fa.flash_attention_int8(q, k, v, mode=mode)
+    b = fa.flash_attention_int8(q, k, v, mode=mode)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
 def test_int8_attention_reads_fused_projections_in_place():

@@ -1,13 +1,14 @@
 """The port's experiment tools (kotoba_whisper_tpu_torch/tools/) on the CPU
 at test-tiny: they run, print the JAX tools' JSON keys, and the fused
 LayerNorm variant computes the baseline encoder (within 1e-6 in fp32).
-On the card they are the timing harnesses; without one they raise."""
+On the card they are the timing harnesses; without one they raise.
+k8_probe builds K8's source with clock stamps on the card only."""
 import json
 
 import pytest
 import torch
 
-from kotoba_whisper_tpu_torch.tools import enc_exp, stem_exp, vpu_cal
+from kotoba_whisper_tpu_torch.tools import enc_exp, k8_probe, stem_exp, vpu_cal
 
 TINY = ["--preset", "test-tiny", "--batch", "2", "--device", "cpu"]
 
@@ -66,3 +67,9 @@ def test_tools_raise_without_a_card(monkeypatch):
                 lambda: vpu_cal.main(["--iters", "1"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             run()
+
+
+def test_k8_probe_raises_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        k8_probe.main([])
