@@ -2,8 +2,10 @@
 
     python3 chip_smoke.py                # the check: one card, no arguments
     python3 chip_smoke.py --profile DIR  # also trace one main-path run, one
-                                         # fused + w8a8 run and one train step
-                                         # with torch.profiler, tables into DIR/
+                                         # fused + w8a8 run, one stream-real
+                                         # run, one beam search and one train
+                                         # step with torch.profiler, tables
+                                         # into DIR/
 
 Phases, in order; any failure exits nonzero and prints no result line:
 
@@ -13,7 +15,9 @@ Phases, in order; any failure exits nonzero and prints no result line:
      its plain PyTorch twin on the card at the shapes of the path that runs
      it (large-v3; B=16 pseudo-labelling and encoder, B=8 x 128 labels
      training), with its time, the twin's time, a library call's time and
-     the least time the card could take; each also with its device time
+     the least time the card could take (K2 also in its ring form, W=48 x
+     T=176 with most rows wrapped and a rolled-prefix control, and its beam
+     form, 12 groups x 5 beams over T=1500); each also with its device time
      alone and the library call's (a CUDA graph of 20 calls, replayed; K5's
      library call, autograd through SDPA, from torch.profiler's kernel
      times where a graph cannot capture it) and the host's time per call
@@ -34,6 +38,18 @@ Phases, in order; any failure exits nonzero and prints no result line:
   4d. encoder variants at B=16 on the fused model: default, the fused stem
      (K7), KWT_FA_INT8=qk and qkpv (K8 in place of K1), enc_exp's fused_ln
      (K6), each with its time, rel-L2 against the default and launches;
+  4e. stream-real (the JAX bench's headline): continuous-batching greedy
+     decode of 192 synthetic 30 s windows, window 48, refills of 16, int8
+     KV, budgets from bench.py's ReazonSpeech length fit, eot disabled, mel
+     on the card inside the timed window, on the fused bf16 model; its
+     KWT_STREAM_TRACE phases and launch counts (K2 64 a step: 32 ring, 32
+     cross; K1 32 and K3 one a refill); every row the prompt, then its
+     budget's tokens, then pads; then lockstep B=16 on the same windows and
+     budgets, and the share of utterances whose tokens agree (reported);
+  4f. lockstep beam search, 12 groups x 5 beams, prompt + 48 tokens, int8
+     KV, fused bf16 model, launches by form (K2 32 self and 32 beam a
+     step); at 2 groups the kernel path against the plain path (first-step
+     logits), scores and tokens reported;
   4b. train path: distillation of a 32+2-layer student initialised from a
      seeded random large-v3 teacher, B=8 x 128 labels, bf16 compute on fp32
      master weights: one warm-up step and 3 timed steps with launch
@@ -42,13 +58,14 @@ Phases, in order; any failure exits nonzero and prints no result line:
      B=16 step in 2 microbatches;
   5. driver: cli/pseudo_label on synthetic WAV utterances in a tar shard,
      with its default fusion, then with --gemm_dtype int8 under
-     KWT_FA_INT8=qk;
+     KWT_FA_INT8=qk, then --streaming, then --num_beams 3;
   5b. training driver: cli/create_student (4-layer encoder at large-v3
      width) -> cli/distill 2 steps, save -> resume to step 3 -> export;
   5c. the experiment tools' main(): enc_exp (fused_ln), stem_exp, vpu_cal
      (softmax and exp), few trials, their JSON lines parsed;
   6. a JSON line of every kernel with the launches of the path that runs
-     it (K1-K3: the pseudo-labelling run; K4, K5: the 3 timed train steps;
+     it (K1-K3: the pseudo-labelling run; K2 ring: the 4e stream; K2 beam:
+     the 4f beam search; K4, K5: the 3 timed train steps;
      K6-K8: the 4d encoder runs; K9: the vpu_cal runs of 5c) and its
      numbers;
   7. the last line: {"ok": true, "device": {...}}.
@@ -95,6 +112,14 @@ TRAIN_STEPS = 3   # timed train steps after one warm-up step
 # relative L2 of the student decoder's gradients, all parameters together.
 TRAIN_LOSS_TOL = 1e-2
 TRAIN_GRAD_TOL = 5e-2
+
+
+def realistic_stops(n: int, prompt_len: int, rng) -> np.ndarray:
+    """Total-token budgets ~ 6 + Gamma(k=3.2, theta=5.9): bench.py's
+    `_realistic_stops`, the JAX bench's fit of the ReazonSpeech
+    pseudo-label lengths (mean ~25 tokens with the prompt, tail to 170)."""
+    text = rng.gamma(3.2, 5.9, size=n)
+    return np.clip(prompt_len + 3 + text, 10, 170).astype(np.int64)
 
 
 def log(msg: str) -> None:
@@ -205,9 +230,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--profile", metavar="DIR", default=None,
-                    help="trace one main-path run, one fused + w8a8 run and one "
-                    "train step with torch.profiler and write their whole kernel "
-                    "tables to DIR/profile_{main_path,w8a8_path,train_step}.txt")
+                    help="trace one main-path run, one fused + w8a8 run, one "
+                    "stream-real run, one beam search and one train step with "
+                    "torch.profiler and write their whole kernel tables to DIR/profile_"
+                    "{main_path,w8a8_path,stream_real,beam,train_step}.txt")
     args = ap.parse_args()
 
     # ---- 1. device -------------------------------------------------------
@@ -219,9 +245,11 @@ def main() -> int:
     from kotoba_whisper_tpu_torch.core.config import PRESETS, FeatureConfig, SpecialTokens
     from kotoba_whisper_tpu_torch.data import reazon
     from kotoba_whisper_tpu_torch.data.shards import ShardWriter
+    from kotoba_whisper_tpu_torch.decode.beam import generate_beam
     from kotoba_whisper_tpu_torch.decode.greedy import (
         GenerateOptions, generate_greedy, transcribe_prompt,
     )
+    from kotoba_whisper_tpu_torch.decode.streaming import StreamConfig, generate_greedy_streaming
     from kotoba_whisper_tpu_torch.models import whisper
     from kotoba_whisper_tpu_torch.models.optimized import fuse_for_inference
     from kotoba_whisper_tpu_torch.models.quantized import quantize_for_inference
@@ -381,6 +409,109 @@ def main() -> int:
             host_us=host_us(call), library_host_us=host_us(library),
         )
         del qd, kf, vf, ks, vs, out, ref, kb, vb, kh, vh, qh
+
+    # K2 ring form: the stream's self-attention (W=48 rows, T=176 ring
+    # slots), per-row valid lengths over [1, 176], a ring slot past which
+    # most rows wrap. Control: each row rolled so that its ring becomes a
+    # prefix gives the prefix twin the ring twin's output (both in fp32).
+    w_s, t_s = 48, 176
+    qd = randn(w_s, h, 64, seed=7)
+    kf, ks = quantize_kv_rows(randn(w_s, t_s, d, seed=8))
+    vf, vs = quantize_kv_rows(randn(w_s, t_s, d, seed=9))
+    valid = torch.linspace(1, t_s, w_s, device="cuda").round().to(torch.int32)
+    ring = torch.tensor(40, dtype=torch.int32, device="cuda")
+    out = da.decode_attention(qd, kf, vf, valid, n_heads=h, k_scale=ks, v_scale=vs, ring_pos=ring)
+    ref = da.decode_attention_reference(qd, kf, vf, valid, n_heads=h, k_scale=ks, v_scale=vs,
+                                        ring_pos=ring)
+    errs = compare(out, ref)
+    slot = torch.remainder(
+        ring + 1 - valid[:, None] + torch.arange(t_s, device="cuda")[None], t_s)  # (W, T)
+
+    def rolled(x):
+        return x.gather(1, slot[..., None].expand(-1, -1, x.shape[-1]))
+
+    ring32 = da.decode_attention_reference(qd.float(), kf, vf, valid, n_heads=h, k_scale=ks,
+                                           v_scale=vs, ring_pos=ring)
+    prefix32 = da.decode_attention_reference(qd.float(), rolled(kf), rolled(vf), valid,
+                                             n_heads=h, k_scale=rolled(ks), v_scale=rolled(vs))
+    roll_err = float((ring32 - prefix32).abs().max())
+    wrapped = int((valid > int(ring) + 1).sum())
+    log(f"[kernel] K2 ring control: ring twin vs the prefix twin on rows rolled to a prefix, "
+        f"fp32, max |diff| {roll_err:.3e} (tol 1e-5); {wrapped} of {w_s} rows wrap")
+    if roll_err > 1e-5 or wrapped < w_s // 2:
+        raise AssertionError("K2 ring twin disagrees with the rolled prefix twin")
+    age = torch.remainder(ring - torch.arange(t_s, device="cuda"), t_s)
+    mask = (age[None] < valid[:, None])[:, None, None, :]  # (W, 1, 1, T)
+    kh = (kf.float() * ks).to(torch.bfloat16).view(w_s, t_s, h, 64).transpose(1, 2)
+    vh = (vf.float() * vs).to(torch.bfloat16).view(w_s, t_s, h, 64).transpose(1, 2)
+    qh = qd[:, :, None]
+
+    def ring_call():
+        return da.decode_attention(qd, kf, vf, valid, n_heads=h, k_scale=ks, v_scale=vs,
+                                   ring_pos=ring)
+
+    def ring_library():
+        return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+
+    n_keys = int(valid.sum())
+    record(
+        f"K2 decode_attention self ring int8 (W={w_s}, T={t_s}, D=1280, ring_pos 40)",
+        "kotoba_whisper_tpu_torch/csrc/decode_attention.cu",
+        "kotoba_whisper_tpu/ops/decode_attention.py:165", errs, 2e-3,
+        time_ms(ring_call),
+        time_ms(lambda: da.decode_attention_reference(
+            qd, kf, vf, valid, n_heads=h, k_scale=ks, v_scale=vs, ring_pos=ring)),
+        time_ms(ring_library),
+        # the bytes of the valid rows: their K and V and scales, q, out
+        bound(4.0 * n_keys * d, fp32_rate,
+              n_keys * 2 * (d + 4) + nbytes(qd, valid, out), mem_rate),
+        key="K2ring",
+        device_ms=graph_ms(ring_call), library_device_ms=graph_ms(ring_library),
+        host_us=host_us(ring_call), library_host_us=host_us(ring_library),
+    )
+    del qd, kf, vf, ks, vs, out, ref, kh, vh, qh, mask, slot, ring32, prefix32
+
+    # K2 beam form: beam search's cross-attention, 12 groups x 5 beams over
+    # each group's one T=1500 row, int8 and bf16
+    g_b, k_b = 12, 5
+    for label, int8 in (("int8", True), ("bf16", False)):
+        qb = randn(g_b, k_b, h, 64, seed=10)
+        kf, vf = randn(g_b, t_enc, d, seed=11), randn(g_b, t_enc, d, seed=12)
+        ks = vs = None
+        if int8:
+            kf, ks = quantize_kv_rows(kf)
+            vf, vs = quantize_kv_rows(vf)
+        out = da.decode_attention_beam(qb, kf, vf, n_heads=h, k_scale=ks, v_scale=vs)
+        ref = da.decode_attention_reference_beam(qb, kf, vf, n_heads=h, k_scale=ks, v_scale=vs)
+        errs = compare(out, ref)
+        kh = (kf.float() * ks if int8 else kf).to(torch.bfloat16).view(
+            g_b, t_enc, h, 64).transpose(1, 2)
+        vh = (vf.float() * vs if int8 else vf).to(torch.bfloat16).view(
+            g_b, t_enc, h, 64).transpose(1, 2)
+        qh = qb.transpose(1, 2)  # (G, H, K, 64): the group's 5 queries a head
+
+        def beam_call():
+            return da.decode_attention_beam(qb, kf, vf, n_heads=h, k_scale=ks, v_scale=vs)
+
+        def beam_library():
+            return F.scaled_dot_product_attention(qh, kh, vh)
+
+        record(
+            f"K2 decode_attention cross beam {label} (G={g_b} x K={k_b}, T={t_enc}, D=1280)",
+            "kotoba_whisper_tpu_torch/csrc/decode_attention.cu",
+            "kotoba_whisper_tpu/ops/decode_attention.py:165", errs, 2e-3,
+            time_ms(beam_call),
+            time_ms(lambda: da.decode_attention_reference_beam(
+                qb, kf, vf, n_heads=h, k_scale=ks, v_scale=vs)),
+            time_ms(beam_library),
+            bound(4.0 * g_b * k_b * t_enc * d, fp32_rate, nbytes(qb, kf, vf, ks, vs, out),
+                  mem_rate),
+            key="K2beam",
+            device_ms=graph_ms(beam_call), library_device_ms=graph_ms(beam_library),
+            host_us=host_us(beam_call), library_host_us=host_us(beam_library),
+        )
+        del qb, kf, vf, ks, vs, out, ref, kh, vh, qh
+    torch.cuda.empty_cache()
 
     # K3: fused log-mel, (B, 480000) fp32 and int16 -> (B, 3000, 128)
     feat = FeatureConfig(n_mels=large.num_mel_bins)
@@ -760,17 +891,19 @@ def main() -> int:
     def every_count():
         """Launches of every kernel's wrapper since the last reset_every()."""
         return {"K1": fa.flash_attention_fwd.launches, "K2": da.decode_attention.launches,
-                "K3": mel.log_mel_frames.launches, "K4": fa.flash_attention_fwd.causal_launches,
+                "K2ring": da.decode_attention.ring_launches,
+                "K2beam": da.decode_attention_beam.launches, "K3": mel.log_mel_frames.launches, "K4": fa.flash_attention_fwd.causal_launches,
                 "K5": fa.flash_attention_bwd.launches, "K6ln": ln.layer_norm.launches,
                 "K6add": ln.add_layer_norm.launches, "K7": cs.conv_stem.launches,
                 "K8": fa.flash_attention_int8.launches, "K9": vpu_cal.vpu_cal.launches}
 
     def reset_every():
-        for fn in (fa.flash_attention_fwd, da.decode_attention, mel.log_mel_frames,
-                   fa.flash_attention_bwd, ln.layer_norm, ln.add_layer_norm, cs.conv_stem,
-                   fa.flash_attention_int8, vpu_cal.vpu_cal):
+        for fn in (fa.flash_attention_fwd, da.decode_attention, da.decode_attention_beam,
+                   mel.log_mel_frames, fa.flash_attention_bwd, ln.layer_norm,
+                   ln.add_layer_norm, cs.conv_stem, fa.flash_attention_int8, vpu_cal.vpu_cal):
             fn.launches = 0
         fa.flash_attention_fwd.causal_launches = 0
+        da.decode_attention.ring_launches = 0
 
     def nonzero(counts):
         return {k: n for k, n in counts.items() if n}
@@ -858,15 +991,18 @@ def main() -> int:
     # the kernel path against the plain path on the card, at B=2
     @contextlib.contextmanager
     def plain_path():
-        saved = (whisper.flash_attention, whisper.decode_attention, mel.log_mel_frames)
+        saved = (whisper.flash_attention, whisper.decode_attention,
+                 whisper.decode_attention_beam, mel.log_mel_frames)
         whisper.flash_attention = (
             lambda q, k, v, causal=False: fa.flash_attention_reference(q, k, v, causal)[0])
         whisper.decode_attention = da.decode_attention_reference
+        whisper.decode_attention_beam = da.decode_attention_reference_beam
         mel.log_mel_frames = mel.log_mel_frames_reference
         try:
             yield
         finally:
-            whisper.flash_attention, whisper.decode_attention, mel.log_mel_frames = saved
+            (whisper.flash_attention, whisper.decode_attention, whisper.decode_attention_beam,
+             mel.log_mel_frames) = saved
 
     def first_steps(m, x, tokens):
         feats = mel.log_mel_spectrogram(x, feat).to(torch.bfloat16)
@@ -1018,15 +1154,161 @@ def main() -> int:
         out = out.float()
         if enc_default is None:
             enc_default = out
-        rel = float((out - enc_default).norm() / enc_default.norm())
-        log(f"[4d] encoder {label}: {ms:.2f} ms, rel-L2 vs default {rel:.3e}, launches "
+        drift = rel(out, enc_default)
+        log(f"[4d] encoder {label}: {ms:.2f} ms, rel-L2 vs default {drift:.3e}, launches "
             f"{counts} [{card}]")
         # int8 attention rounds every score of 32 layers: a looser bound
-        if counts != expect_n or not bool(torch.isfinite(out).all()) or rel > (
+        if counts != expect_n or not bool(torch.isfinite(out).all()) or drift > (
                 0.1 if "INT8" in label else 2e-2):
             raise AssertionError(f"4d {label}: launches {counts} (expected {expect_n}), "
-                                 f"rel-L2 {rel}")
-    del model, audio, feats16, enc_default, out
+                                 f"rel-L2 {drift}")
+    del feats16, enc_default, out
+    torch.cuda.empty_cache()
+
+    # ---- 4e. stream-real: continuous batching on the fused bf16 model -------
+    # The JAX bench's headline: 192 synthetic 30 s windows, a window of 48
+    # rows refilled 16 at a time, int8 KV, budgets from the ReazonSpeech
+    # length fit drawn as bench.py draws them (audio first, then budgets,
+    # from one generator seeded 0), eot disabled so every utterance decodes
+    # exactly its budget; mel on the card in refill-sized batches inside
+    # the timed window. Then the same windows and budgets in lockstep B=16
+    # batches.
+    n_s, max_s = 192, 176
+    rng_s = np.random.default_rng(0)
+    audio_s = torch.from_numpy(
+        rng_s.standard_normal((n_s, feat.n_samples)).astype(np.float32) * 0.1
+    ).cuda().to(torch.bfloat16)
+    prompt_s = transcribe_prompt(st, st.lang_begin + 6)
+    p_s = len(prompt_s)
+    stops_s = realistic_stops(n_s, p_s, rng_s)
+    opts_s = GenerateOptions(prompt_ids=prompt_s, max_length=max_s)
+    scfg = StreamConfig(batch=48, encode_batch=16, steps_per_round=8)
+
+    def mel_all(a):
+        return torch.cat([mel.log_mel_spectrogram(a[i : i + scfg.encode_batch].float(), feat
+                                                  ).to(torch.bfloat16)
+                          for i in range(0, a.shape[0], scfg.encode_batch)])
+
+    def stream_run(n_run):
+        return generate_greedy_streaming(
+            model, mel_all(audio_s[:n_run]), opts_s, st_fixed, kv_dtype="int8", stream=scfg,
+            stop_at=stops_s[:n_run])
+
+    stream_run(2 * scfg.batch)  # warm-up on a prefix of the stream
+    torch.cuda.synchronize()
+    reset_every()
+    buf = io.StringIO()
+    os.environ["KWT_STREAM_TRACE"] = "1"
+    try:
+        with contextlib.redirect_stderr(buf):
+            t0 = time.perf_counter()
+            toks_s = stream_run(n_s)
+            wall_s = time.perf_counter() - t0
+    finally:
+        os.environ.pop("KWT_STREAM_TRACE")
+    stream_counts = nonzero(every_count())
+    trace = json.loads(next(line for line in buf.getvalue().splitlines()
+                            if line.startswith("KWT_STREAM_TRACE ")).split(" ", 1)[1])
+    steps_s = stream_counts.get("K2ring", 0) // large.decoder_layers
+    refills = trace["refills"]
+    log(f"[4e] stream-real: {n_s} windows, W={scfg.batch}, E={scfg.encode_batch}, budgets mean "
+        f"{stops_s.mean():.2f} max {stops_s.max()} tokens: wall {wall_s:.3f} s, "
+        f"{n_s * feat.chunk_length_s / wall_s:.1f} audio-s/s [{card}]; {steps_s} steps, "
+        f"{refills} refills, {trace['steps'] * 1e3 / max(steps_s, 1):.2f} ms a step (steps "
+        f"phase); KWT_STREAM_TRACE {json.dumps(trace)}; launches {stream_counts}")
+    want = {"K1": large.encoder_layers * refills, "K2": large.decoder_layers * steps_s,
+            "K2ring": large.decoder_layers * steps_s, "K3": refills}
+    if stream_counts != want or refills != n_s // scfg.encode_batch:
+        raise AssertionError(f"4e launches {stream_counts}, expected {want}")
+    pad = large.pad_token_id
+    bad = [i for i in range(n_s) if not (
+        (toks_s[i, :p_s] == prompt_s).all() and toks_s[i, p_s] >= st.timestamp_begin
+        and ((toks_s[i, p_s:stops_s[i]] >= 0) & (toks_s[i, p_s:stops_s[i]] < large.vocab_size)
+             ).all() and (toks_s[i, stops_s[i]:] == pad).all())]
+    pads_inside = sum(int((toks_s[i, p_s:stops_s[i]] == pad).any()) for i in range(n_s))
+    if toks_s.shape != (n_s, max_s) or bad:
+        raise AssertionError(f"4e: rows {bad[:10]} are not prompt, then stop - p tokens, "
+                             "then pads")
+    if args.profile:
+        profile_run(lambda: stream_run(n_s), "profile_stream_real.txt", "stream-real")
+
+    def lockstep_run(lo, hi):
+        feats_l = mel.log_mel_spectrogram(audio_s[lo:hi].float(), feat).to(torch.bfloat16)
+        return generate_greedy(model, feats_l, opts_s, st_fixed, kv_dtype="int8",
+                               stop_at=torch.from_numpy(stops_s[lo:hi]).cuda())
+
+    lockstep_run(0, B)  # warm-up at this shape
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks_l = np.concatenate([lockstep_run(i, i + B).cpu().numpy() for i in range(0, n_s, B)])
+    wall_l = time.perf_counter() - t0
+    agree = float(np.mean([(toks_s[i] == toks_l[i]).all() for i in range(n_s)]))
+    log(f"[4e] lockstep on the same windows and budgets, B={B}: wall {wall_l:.3f} s, "
+        f"{n_s * feat.chunk_length_s / wall_l:.1f} audio-s/s [{card}]; stream / lockstep "
+        f"{wall_l / wall_s:.2f}x; utterances whose tokens agree {agree:.3f} (reported, not "
+        f"gated: bf16 drift flips near-ties); rows with a pad id among their sampled tokens "
+        f"{pads_inside}")
+    del audio_s, toks_l
+    torch.cuda.empty_cache()
+
+    # ---- 4f. lockstep beam search on the fused bf16 model -------------------
+    g_f, k_f = 12, 5
+    opts_f = GenerateOptions(prompt_ids=prompt, max_length=len(prompt) + NEW_TOKENS)
+    audio_f = torch.from_numpy(
+        (np.random.default_rng(4).standard_normal((g_f, feat.n_samples)) * 0.1
+         ).astype(np.float32)).cuda()
+
+    def beam_run(m, x, groups=g_f):
+        feats_b = mel.log_mel_spectrogram(x[:groups], feat).to(torch.bfloat16)
+        return generate_beam(m, feats_b, opts_f, st_fixed, num_beams=k_f, kv_dtype="int8")
+
+    beam_run(model, audio_f)  # warm-up
+    torch.cuda.synchronize()
+    reset_every()
+    t0 = time.perf_counter()
+    toks_b, scores_b = beam_run(model, audio_f)
+    toks_b, scores_b = toks_b.cpu().numpy(), scores_b.cpu().numpy()
+    wall_b = time.perf_counter() - t0
+    beam_counts = nonzero(every_count())
+    log(f"[4f] beam search, {g_f} groups x {k_f} beams, prompt + {NEW_TOKENS} tokens, int8 KV: "
+        f"wall {wall_b:.3f} s, {g_f * feat.chunk_length_s / wall_b:.1f} audio-s/s, "
+        f"{wall_b * 1e3 / NEW_TOKENS:.2f} ms a step (encode and init included) [{card}]; "
+        f"launches {beam_counts} (K2 self {beam_counts.get('K2', 0) // NEW_TOKENS} and beam "
+        f"{beam_counts.get('K2beam', 0) // NEW_TOKENS} a step)")
+    want = {"K1": large.encoder_layers, "K2": large.decoder_layers * NEW_TOKENS,
+            "K2beam": large.decoder_layers * NEW_TOKENS, "K3": 1}
+    if beam_counts != want:
+        raise AssertionError(f"4f launches {beam_counts}, expected {want}")
+    if toks_b.shape != (g_f, len(prompt) + NEW_TOKENS) or not (
+            (toks_b[:, : len(prompt)] == prompt).all() and np.isfinite(scores_b).all()
+            and ((toks_b >= 0) & (toks_b < large.vocab_size)).all()):
+        raise AssertionError("4f tokens or scores out of range or shape")
+    if args.profile:
+        profile_run(lambda: beam_run(model, audio_f)[0].cpu(), "profile_beam.txt", "beam search")
+
+    def beam_first_logits(m, x):
+        """The first beam step's logits: encode, a cache with one cross row
+        a group, the prompt prefill fanned over the beams, one step."""
+        feats_b = mel.log_mel_spectrogram(x, feat).to(torch.bfloat16)
+        cache = whisper.init_cache(m, whisper.encode(m, feats_b), opts_f.max_length,
+                                   kv_dtype="int8", beam_size=k_f)
+        ids = torch.tensor([prompt], device="cuda").repeat(x.shape[0] * k_f, 1)
+        _, cache = whisper.decode(m, ids[:, :-1], cache=cache, beam_size=k_f)
+        logits, _ = whisper.decode(m, ids[:, -1:], cache=cache, beam_size=k_f)
+        return logits[:, 0]
+
+    lg_k = beam_first_logits(model, audio_f[:2])
+    tk_k, sc_k = (t.cpu().numpy() for t in beam_run(model, audio_f, groups=2))
+    with plain_path():
+        lg_p = beam_first_logits(model, audio_f[:2])
+        tk_p, sc_p = (t.cpu().numpy() for t in beam_run(model, audio_f, groups=2))
+    lg_rel = rel(lg_k, lg_p)
+    log(f"[4f] 2 groups, kernel vs plain path on the card: first-step logits rel-L2 "
+        f"{lg_rel:.3e} (tol 5e-2); scores {sc_k.tolist()} vs {sc_p.tolist()}; token "
+        f"agreement {float((tk_k == tk_p).mean()):.3f} over {tk_k.size} tokens")
+    if not (bool(torch.isfinite(lg_k).all()) and lg_rel <= 5e-2):
+        raise AssertionError("4f: the beam kernel path disagrees with the plain path")
+    del model, audio, audio_f
     torch.cuda.empty_cache()
 
     # ---- 4b. train path ---------------------------------------------------
@@ -1153,11 +1435,14 @@ def main() -> int:
             for i in range(n_utts)
         ])
         # the driver's default (fused projections), then w8a8 projections
-        # with the int8 attention core in the encoder: two batches of 4
+        # with the int8 attention core in the encoder: two batches of 4;
+        # then continuous batching (two refills of 4) and beam search
         n_batches = -(-n_utts // 4)
         for extra, env, expect_enc in (
                 ([], {}, {"K1": 32 * n_batches}),
-                (["--gemm_dtype", "int8"], {"KWT_FA_INT8": "qk"}, {"K8": 32 * n_batches})):
+                (["--gemm_dtype", "int8"], {"KWT_FA_INT8": "qk"}, {"K8": 32 * n_batches}),
+                (["--streaming"], {}, {"K1": 32 * n_batches}),
+                (["--num_beams", "3"], {}, {"K1": 32 * n_batches})):
             out = os.path.join(tmp, "out" + "".join(extra))
             t0 = time.perf_counter()
             buf = io.StringIO()
@@ -1257,6 +1542,7 @@ def main() -> int:
     # ---- 6. kernels line, 7. result ------------------------------------------
     path_launches = {
         "K1": launches["K1"], "K2": launches["K2"], "K3": launches["K3"],
+        "K2ring": stream_counts["K2ring"], "K2beam": beam_counts["K2beam"],
         "K4": train_launches["K4"], "K5": train_launches["K5"],
         "K6ln": enc_launches["enc_exp fused_ln"]["K6ln"],
         "K6add": enc_launches["enc_exp fused_ln"]["K6add"],

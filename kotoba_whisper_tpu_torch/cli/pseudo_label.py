@@ -1,16 +1,18 @@
 """Stage-2 driver: teacher batch pseudo-labelling on the card.
 
 Streams utterances from tar shards, decodes audio with the native core,
-computes the log-mel features on the device (kernel K3), and greedy-
-decodes token-id pseudo-labels with timestamps in lockstep batches
-(encoder attention through K1, or K8 under KWT_FA_INT8=qk|qkpv;
-decode-step attention through K2). Writes pseudo_labels.jsonl and a CSV
-dump, the files the JAX driver writes.
+computes the log-mel features on the device (kernel K3), and decodes
+token-id pseudo-labels with timestamps (encoder attention through K1, or
+K8 under KWT_FA_INT8=qk|qkpv; decode-step attention through K2): greedy
+or beam search (--num_beams N) in lockstep batches, or greedy with
+continuous batching (--streaming: the decode window is refilled as rows
+finish, in super-batches of 4 x --batch_size utterances). Writes
+pseudo_labels.jsonl and a CSV dump, the files the JAX driver writes.
 
 The flags mirror the JAX driver's. As there, the attention projections
 are fused for inference unless --no_fuse is given, and --gemm_dtype int8
-quantizes the projections to w8a8. Ported: --num_beams 1, lockstep
-batching, one device, --kv_dtype compute|int8, --gemm_dtype
+quantizes the projections to w8a8. Ported: --num_beams N, --streaming
+with --num_beams 1, one device, --kv_dtype compute|int8, --gemm_dtype
 compute|int8, --wire_dtype float32|int16, --text_lang_task and
 --no_fuse. Any other value raises.
 
@@ -81,8 +83,7 @@ def _parser() -> argparse.ArgumentParser:
 
 def _check_ported(arg, dev: torch.device) -> None:
     unported = [
-        (arg.num_beams != 1, f"--num_beams {arg.num_beams}"),
-        (arg.streaming, "--streaming"),
+        (arg.streaming and arg.num_beams > 1, f"--streaming --num_beams {arg.num_beams}"),
         (arg.num_devices != 1, f"--num_devices {arg.num_devices}"),
         (arg.mesh_model_axis != 1, f"--mesh_model_axis {arg.mesh_model_axis}"),
         (arg.coordinator_address is not None, "--coordinator_address"),
@@ -103,7 +104,9 @@ def main(argv=None) -> None:
     from kotoba_whisper_tpu_torch.core.device import resolve_device
     from kotoba_whisper_tpu_torch.data import reazon
     from kotoba_whisper_tpu_torch.data.collator import CollatorConfig, collate_audio
+    from kotoba_whisper_tpu_torch.decode.beam import generate_beam
     from kotoba_whisper_tpu_torch.decode.greedy import GenerateOptions, generate_greedy
+    from kotoba_whisper_tpu_torch.decode.streaming import StreamConfig, generate_greedy_streaming
     from kotoba_whisper_tpu_torch.ops.mel import log_mel_spectrogram
     from kotoba_whisper_tpu_torch.train.logging import Throughput
     from kotoba_whisper_tpu_torch.utils import native
@@ -142,12 +145,16 @@ def main(argv=None) -> None:
 
     def generate(batch_audio: np.ndarray) -> dict[str, np.ndarray]:
         mel = log_mel_spectrogram(wire(batch_audio), feat, device=dev).to(dtype)
-        return {
-            key: generate_greedy(
-                model, mel, opts, tok.special, kv_dtype=arg.kv_dtype, device=dev,
-            ).cpu().numpy()
-            for key, opts in task_opts.items()
-        }
+        out = {}
+        for key, opts in task_opts.items():
+            if arg.num_beams > 1:
+                toks, _ = generate_beam(model, mel, opts, tok.special, num_beams=arg.num_beams,
+                                        kv_dtype=arg.kv_dtype, device=dev)
+            else:
+                toks = generate_greedy(model, mel, opts, tok.special, kv_dtype=arg.kv_dtype,
+                                       device=dev)
+            out[key] = toks.cpu().numpy()
+        return out
 
     chunk_range = (
         (arg.chunk_lo, arg.chunk_hi)
@@ -200,24 +207,66 @@ def main(argv=None) -> None:
         tp.add(len(wav) / feat.sampling_rate)
         return record
 
-    def rows():
+    def rows_lockstep(writer):
         nonlocal n_done
+        for batch, audio, arr in common.prefetch(host_batches()):
+            if arg.limit is not None and n_done >= arg.limit:
+                break
+            if arr.shape[0] < arg.batch_size:
+                # pad ragged batches to the full width: one shape
+                pad_rows = arg.batch_size - arr.shape[0]
+                arr = np.concatenate(
+                    [arr, np.zeros((pad_rows,) + arr.shape[1:], arr.dtype)]
+                )
+            per_task = generate(arr)
+            for bi, (u, wav) in enumerate(zip(batch, audio)):
+                n_done += 1
+                yield make_record(u, wav, per_task, bi, writer)
+
+    def rows_streaming(writer):
+        """Continuous batching: gather a super-batch of utterances, decode
+        it with row refill (the cost follows the mean label length), emit
+        the records in input order."""
+        nonlocal n_done
+        scfg = StreamConfig(batch=arg.batch_size, encode_batch=min(16, arg.batch_size),
+                            steps_per_round=8)
+        super_n = arg.batch_size * 4
+
+        def flush(buf):
+            nonlocal n_done
+            mels = torch.cat([
+                log_mel_spectrogram(wire(np.stack([row for _, _, row in chunk])), feat,
+                                    device=dev)
+                for chunk in common.batched(buf, scfg.encode_batch)
+            ])
+            per_task = {
+                key: generate_greedy_streaming(model, mels, opts, tok.special,
+                                               kv_dtype=arg.kv_dtype, stream=scfg, device=dev)
+                for key, opts in task_opts.items()
+            }
+            for bi, (u, wav, _) in enumerate(buf):
+                n_done += 1
+                yield make_record(u, wav, per_task, bi, writer)
+
+        buf = []
+        for batch, audio, arr in common.prefetch(host_batches()):
+            for bi, (u, wav) in enumerate(zip(batch, audio)):
+                if arg.limit is not None and n_done + len(buf) >= arg.limit:
+                    break
+                buf.append((u, wav, arr[bi]))
+            if len(buf) >= super_n:
+                yield from flush(buf[:super_n])
+                buf = buf[super_n:]
+            if arg.limit is not None and n_done + len(buf) >= arg.limit:
+                break
+        if buf:
+            yield from flush(buf)
+
+    def rows():
         with open(csv_path, "w", newline="") as cf:
             writer = csv.writer(cf)
             writer.writerow(["file_id", "whisper_transcript"])
-            for batch, audio, arr in common.prefetch(host_batches()):
-                if arg.limit is not None and n_done >= arg.limit:
-                    break
-                if arr.shape[0] < arg.batch_size:
-                    # pad ragged batches to the full width: one shape
-                    pad_rows = arg.batch_size - arr.shape[0]
-                    arr = np.concatenate(
-                        [arr, np.zeros((pad_rows,) + arr.shape[1:], arr.dtype)]
-                    )
-                per_task = generate(arr)
-                for bi, (u, wav) in enumerate(zip(batch, audio)):
-                    n_done += 1
-                    yield make_record(u, wav, per_task, bi, writer)
+            yield from (rows_streaming if arg.streaming else rows_lockstep)(writer)
 
     n = common.write_jsonl(jsonl_path, rows())
     print(

@@ -20,8 +20,10 @@ On the card the encoder's self-attention runs through kernel K1 (K8
 under KWT_FA_INT8), the full-sequence decoder's causal self-attention
 through K4 and its cross-attention through K1 (with K5 for the backward
 pass of both), every single-token decode step's self- and cross-attention
-through K2, and the opt-in conv stem (`stem_impl="pallas"`) through K7; on
-the CPU the same calls take their plain twins.
+through K2 (its ring form for continuous batching's shared-slot cache,
+its beam form for beam search's shared cross-K/V), and the opt-in conv
+stem (`stem_impl="pallas"`) through K7; on the CPU the same calls take
+their plain twins.
 
 The functions take the inference transforms wherever the JAX package
 does: fused qkv/kv projections (models/optimized.py) and w8a8 projections
@@ -46,7 +48,10 @@ from kotoba_whisper_tpu_torch.core.device import check_model_device, resolve_dev
 from kotoba_whisper_tpu_torch.models.quantized import QuantizedLinear, dense_int8
 from kotoba_whisper_tpu_torch.ops.attention import attention
 from kotoba_whisper_tpu_torch.ops.conv_stem import conv_stem
-from kotoba_whisper_tpu_torch.ops.decode_attention import decode_attention
+from kotoba_whisper_tpu_torch.ops.decode_attention import (
+    decode_attention,
+    decode_attention_beam,
+)
 from kotoba_whisper_tpu_torch.ops.flash_attention import flash_attention
 
 
@@ -313,7 +318,12 @@ def encode(
 class KVCache:
     """Fixed-capacity decoder cache, layers stacked on axis 0, K/V FLAT:
     self_k/self_v (L, B, capacity, D); cross_k/cross_v (L, B, 1500, D),
-    projected once per utterance. `length` is the lockstep fill.
+    projected once per utterance. `length` is the lockstep fill (an int),
+    or each row's own token count, a (B,) int32 tensor (continuous
+    batching, decode/streaming.py).
+
+    Beam mode (init_cache(beam_size=K)): cross_k/cross_v hold one row per
+    beam group, (L, G, 1500, D), and the self buffers G*K rows.
 
     int8 mode: K/V stored int8 with per-row absmax scales (L, B, T, 1) fp32.
     The buffers are updated in place by `decode`."""
@@ -322,7 +332,7 @@ class KVCache:
     self_v: torch.Tensor
     cross_k: torch.Tensor
     cross_v: torch.Tensor
-    length: int
+    length: int | torch.Tensor
     self_k_scale: torch.Tensor | None = None
     self_v_scale: torch.Tensor | None = None
     cross_k_scale: torch.Tensor | None = None
@@ -342,10 +352,11 @@ def quantize_kv_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return q.to(torch.int8), scale
 
 
-def _init_cache(model, encoder_out, capacity, kv_dtype):
+def _init_cache(model, encoder_out, capacity, kv_dtype, beam_size=1):
     cfg, dec = model.cfg, model.model.decoder
     n_layers, d = cfg.decoder_layers, cfg.d_model
     b, t_enc = encoder_out.shape[:2]
+    rows = b * beam_size  # self-K/V rows: one per hypothesis
     dev = encoder_out.device
     if kv_dtype not in ("compute", "int8"):
         raise NotImplementedError(f"kv_dtype={kv_dtype!r} is not ported yet")
@@ -356,7 +367,7 @@ def _init_cache(model, encoder_out, capacity, kv_dtype):
     if kv_dtype == "int8":
         ck_s = torch.empty((n_layers, b, t_enc, 1), dtype=torch.float32, device=dev)
         cv_s = torch.empty_like(ck_s)
-        ones = torch.ones((n_layers, b, capacity, 1), dtype=torch.float32, device=dev)
+        ones = torch.ones((n_layers, rows, capacity, 1), dtype=torch.float32, device=dev)
         scales = dict(self_k_scale=ones, self_v_scale=ones.clone(),
                       cross_k_scale=ck_s, cross_v_scale=cv_s)
     # one layer at a time: only one layer's full-precision projection is
@@ -372,7 +383,7 @@ def _init_cache(model, encoder_out, capacity, kv_dtype):
             cross_v[i], cv_s[i] = quantize_kv_rows(v)
         else:
             cross_k[i], cross_v[i] = k, v
-    self_k = torch.zeros((n_layers, b, capacity, d), dtype=store, device=dev)
+    self_k = torch.zeros((n_layers, rows, capacity, d), dtype=store, device=dev)
     return KVCache(self_k, torch.zeros_like(self_k), cross_k, cross_v, 0, **scales)
 
 
@@ -383,12 +394,17 @@ def init_cache(
     capacity: int,
     *,
     kv_dtype: str = "compute",
+    beam_size: int = 1,
     device="cuda",
 ) -> KVCache:
-    """kv_dtype: "compute" (the model's dtype) or "int8"."""
+    """kv_dtype: "compute" (the model's dtype) or "int8". beam_size > 1:
+    encoder_out holds one row per beam group; the cross K/V, the same for
+    every hypothesis of a group, is projected and stored once per group,
+    and the self buffers get group * beam_size rows (decode(beam_size=)
+    fans each group's beam queries over its shared cross row)."""
     dev = resolve_device(device)
     check_model_device(model, dev)
-    return _init_cache(model, encoder_out.to(dev), capacity, kv_dtype)
+    return _init_cache(model, encoder_out.to(dev), capacity, kv_dtype, beam_size)
 
 
 # ---------------------------------------------------------------------------
@@ -438,18 +454,38 @@ def _dequant(vals, scale, dtype):
     return (vals.float() * scale).to(dtype)
 
 
-def _decode_step(model, input_ids, cache: KVCache):
-    """Incremental decode of a (B, t) token block against the cache."""
+def _decode_step(model, input_ids, cache: KVCache, ring_pos=None, beam_size=1):
+    """Incremental decode of a (B, t) token block against the cache.
+
+    With per-row lengths (cache.length a (B,) int32 tensor; t == 1 only)
+    each row's position is its own count, every row writes its new K/V at
+    the shared ring slot `ring_pos` (a 0-d int32 tensor), and its keys are
+    its count + 1 most recent slots (K2's ring form). Beam mode (beam_size > 1, a cache from
+    init_cache(beam_size=)): rows are beam-major groups of beam_size, and
+    the cross-attention fans each group's queries over its one cross row."""
     cfg, dec = model.cfg, model.model.decoder
     n_heads = cfg.decoder_attention_heads
     b, t = input_ids.shape
-    pos0 = cache.length
     capacity = cache.self_k.shape[2]
-    if pos0 + t > capacity:
-        raise ValueError(f"cache capacity {capacity} exceeded at {pos0 + t}")
+    per_row = isinstance(cache.length, torch.Tensor)
+    if per_row:
+        if t != 1 or ring_pos is None:
+            raise ValueError(f"per-row lengths take one token a step and a ring slot, got "
+                             f"{t} tokens and ring_pos {ring_pos}")
+        x = (dec.embed_tokens.weight[input_ids]
+             + dec.embed_positions.weight[cache.length][:, None])
+        new_length = cache.length + 1
+        slot = ring_pos.reshape(1).long()
+    else:
+        if ring_pos is not None:
+            raise ValueError("ring_pos needs per-row lengths")
+        pos0 = cache.length
+        if pos0 + t > capacity:
+            raise ValueError(f"cache capacity {capacity} exceeded at {pos0 + t}")
+        x = (dec.embed_tokens.weight[input_ids]
+             + dec.embed_positions.weight[pos0 : pos0 + t][None])
+        new_length = pos0 + t
     int8_kv = cache.is_quantized
-    x = (dec.embed_tokens.weight[input_ids]
-         + dec.embed_positions.weight[pos0 : pos0 + t][None])
     if t > 1:
         # prefill: token i (global pos length+i) attends to slots
         # 0..length+i: causal within the block, full over history
@@ -459,10 +495,18 @@ def _decode_step(model, input_ids, cache: KVCache):
             <= pos0 + torch.arange(t, device=dev)[:, None]
         )[None, None]
 
-    def one_query(q_flat, k_flat, v_flat, valid, k_s, v_s):
+    def write(buf, new):
+        """new (B, t, *) into buf (B, capacity, *): at the lockstep fill, or
+        every row at the shared ring slot."""
+        if per_row:
+            buf.index_copy_(1, slot, new)
+        else:
+            buf[:, pos0 : pos0 + t] = new
+
+    def one_query(q_flat, k_flat, v_flat, valid, k_s, v_s, ring=None):
         o = decode_attention(
             q_flat.reshape(b, n_heads, -1), k_flat, v_flat, valid,
-            n_heads=n_heads, k_scale=k_s, v_scale=v_s,
+            n_heads=n_heads, k_scale=k_s, v_scale=v_s, ring_pos=ring,
         )
         return o.reshape(b, 1, -1)
 
@@ -483,12 +527,14 @@ def _decode_step(model, input_ids, cache: KVCache):
         sa = layer.self_attn
         q_flat, k_new, v_new = (merge_heads(t) for t in qkv_projections(sa, h, h, n_heads))
         if int8_kv:
-            k_new, sk_s[:, pos0 : pos0 + t] = quantize_kv_rows(k_new)
-            v_new, sv_s[:, pos0 : pos0 + t] = quantize_kv_rows(v_new)
-        sk[:, pos0 : pos0 + t] = k_new
-        sv[:, pos0 : pos0 + t] = v_new
+            k_new, k_new_s = quantize_kv_rows(k_new)
+            v_new, v_new_s = quantize_kv_rows(v_new)
+            write(sk_s, k_new_s)
+            write(sv_s, v_new_s)
+        write(sk, k_new)
+        write(sv, v_new)
         if t == 1:
-            o_flat = one_query(q_flat, sk, sv, pos0 + 1, sk_s, sv_s)
+            o_flat = one_query(q_flat, sk, sv, new_length, sk_s, sv_s, ring_pos)
         else:
             o_flat = many_queries(q_flat, sk, sv, sk_s, sv_s, kv_mask)
         x = x + dense(sa.out_proj, o_flat)
@@ -499,7 +545,19 @@ def _decode_step(model, input_ids, cache: KVCache):
         ck, cv = cache.cross_k[i], cache.cross_v[i]
         ck_s = cache.cross_k_scale[i] if int8_kv else None
         cv_s = cache.cross_v_scale[i] if int8_kv else None
-        if t == 1:
+        if beam_size > 1 and t == 1:
+            # the group's beam queries against its one cross row, read once
+            o = decode_attention_beam(
+                q_flat.reshape(b // beam_size, beam_size, n_heads, -1), ck, cv,
+                n_heads=n_heads, k_scale=ck_s, v_scale=cv_s,
+            )
+            o_flat = o.reshape(b, 1, -1)
+        elif beam_size > 1:
+            # prompt prefill: cross-attention has no mask, so the group's
+            # beams and positions fan into one query axis (G, K*t, D)
+            qg = q_flat.reshape(b // beam_size, beam_size * t, -1)
+            o_flat = many_queries(qg, ck, cv, ck_s, cv_s).reshape(b, t, -1)
+        elif t == 1:
             o_flat = one_query(q_flat, ck, cv, ck.shape[1], ck_s, cv_s)
         else:
             o_flat = many_queries(q_flat, ck, cv, ck_s, cv_s)
@@ -508,7 +566,7 @@ def _decode_step(model, input_ids, cache: KVCache):
         h = layer_norm(layer.final_layer_norm, x)
         x = x + dense(layer.fc2, F.gelu(dense(layer.fc1, h)))
     logits = logits_from(dec.embed_tokens.weight, layer_norm(dec.layer_norm, x))
-    return logits, dataclasses.replace(cache, length=pos0 + t)
+    return logits, dataclasses.replace(cache, length=new_length)
 
 
 @torch.inference_mode()
@@ -518,6 +576,8 @@ def decode(
     encoder_out: torch.Tensor | None = None,
     cache: KVCache | None = None,
     *,
+    ring_pos: torch.Tensor | None = None,
+    beam_size: int = 1,
     device="cuda",
 ):
     """Decoder forward.
@@ -530,6 +590,11 @@ def decode(
     written in place; the returned cache shares them. Single-token steps
     run their self- and cross-attention through K2 on the card; a prompt
     prefill (t > 1) dequantizes and uses plain masked attention.
+
+    cache.length may also be a (B,) int32 tensor of per-row counts
+    (continuous batching; single-token steps only), with `ring_pos` the
+    shared ring slot every row writes (see _decode_step). beam_size > 1
+    takes a cache from init_cache(beam_size=) and beam-major input rows.
     """
     dev = resolve_device(device)
     check_model_device(model, dev)
@@ -538,7 +603,7 @@ def decode(
         if encoder_out is None:
             raise ValueError("full-sequence decode needs encoder_out")
         return decoder_forward(model, input_ids, encoder_out.to(dev))
-    return _decode_step(model, input_ids, cache)
+    return _decode_step(model, input_ids, cache, ring_pos=ring_pos, beam_size=beam_size)
 
 
 # ---------------------------------------------------------------------------

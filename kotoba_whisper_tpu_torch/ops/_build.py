@@ -43,7 +43,7 @@ SIGNATURES = {
     },
     "decode_attention": {
         "kwt_decode_attention": [
-            _P, _L, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P,
+            _P, _L, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
         ],
     },
     "mel": {

@@ -1,6 +1,7 @@
-"""K2's plain twin vs the JAX `decode_attention_reference` (compute-dtype
-and int8 K/V with per-row scales; scalar and (B,) valid_len) and vs the
-JAX Pallas `decode_attention_flat` in interpret mode. fp32 on the CPU;
+"""K2's plain twins vs the JAX `decode_attention_reference` (compute-dtype
+and int8 K/V with per-row scales; scalar and (B,) valid_len; the ring mask
+of `ring_pos`) and `decode_attention_reference_beam`, and vs the JAX
+Pallas `decode_attention_flat` in interpret mode. fp32 on the CPU;
 atol 2e-5 / rtol 1e-4."""
 import jax.numpy as jnp
 import numpy as np
@@ -71,3 +72,70 @@ def test_wrapper_takes_plain_twin_on_cpu():
     ref = tda.decode_attention_reference(q, k, v, 9, n_heads=H, k_scale=ks, v_scale=vs)
     torch.testing.assert_close(got, ref)
     assert tda.decode_attention.launches == before
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["compute", "int8"])
+@pytest.mark.parametrize("ring_pos", [0, 9, T - 1])
+def test_ring_reference_matches_jax(int8, ring_pos):
+    """The ring mask: row b's keys are its valid[b] most recent slots ending
+    at ring_pos (valid = T takes every slot; rows longer than ring_pos + 1
+    wrap past slot T - 1)."""
+    q, k, v, ks, vs = _inputs(20 + ring_pos + int(int8), int8)
+    valid = np.array([T, 17, 1], np.int32)
+    ref = jda.decode_attention_reference(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(valid), n_heads=H,
+        k_scale=None if ks is None else jnp.asarray(ks),
+        v_scale=None if vs is None else jnp.asarray(vs), ring_pos=jnp.int32(ring_pos),
+    )
+    got = tda.decode_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), torch.from_numpy(valid),
+        n_heads=H, k_scale=None if ks is None else torch.from_numpy(ks),
+        v_scale=None if vs is None else torch.from_numpy(vs),
+        ring_pos=torch.tensor(ring_pos, dtype=torch.int32),
+    )
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+
+
+def test_ring_equals_the_prefix_of_rolled_rows():
+    """Attention does not depend on key order: each row's ring equals the
+    prefix form on the row rolled so that its keys are slots [0, valid)."""
+    q, k, v, _, _ = map(lambda x: None if x is None else torch.from_numpy(x), _inputs(30, False))
+    valid, ring_pos = torch.tensor([T, 40, 3], dtype=torch.int32), 5
+    got = tda.decode_attention_reference(q, k, v, valid, n_heads=H, ring_pos=ring_pos)
+    for b in range(B):
+        shift = -(ring_pos + 1 - int(valid[b]))
+        kr, vr = (torch.roll(x[b:b + 1], shift, dims=1) for x in (k, v))
+        want = tda.decode_attention_reference(q[b:b + 1], kr, vr, int(valid[b]), n_heads=H)
+        torch.testing.assert_close(got[b:b + 1], want, **TOL)
+
+
+@pytest.mark.parametrize("beams", [1, 3, 5])
+@pytest.mark.parametrize("int8", [False, True], ids=["compute", "int8"])
+def test_beam_reference_matches_jax(beams, int8):
+    rng = np.random.default_rng(40 + beams)
+    q = rng.standard_normal((B, beams, H, HD)).astype(np.float32)
+    _, k, v, ks, vs = _inputs(41 + beams, int8)
+    ref = jda.decode_attention_reference_beam(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), n_heads=H,
+        k_scale=None if ks is None else jnp.asarray(ks),
+        v_scale=None if vs is None else jnp.asarray(vs),
+    )
+    got = tda.decode_attention_beam(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), n_heads=H,
+        k_scale=None if ks is None else torch.from_numpy(ks),
+        v_scale=None if vs is None else torch.from_numpy(vs),
+    )
+    assert got.shape == (B, beams, H, HD)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+
+
+def test_beam_wrapper_takes_plain_twin_on_cpu():
+    rng = np.random.default_rng(50)
+    q = torch.from_numpy(rng.standard_normal((B, 2, H, HD)).astype(np.float32))
+    _, k, v, ks, vs = map(lambda x: None if x is None else torch.from_numpy(x), _inputs(51, True))
+    before = tda.decode_attention_beam.launches
+    got = tda.decode_attention_beam(q, k, v, n_heads=H, k_scale=ks, v_scale=vs)
+    for j in range(2):  # each beam is the one-query form over the group's row
+        want = tda.decode_attention_reference(q[:, j], k, v, T, n_heads=H, k_scale=ks, v_scale=vs)
+        torch.testing.assert_close(got[:, j], want, **TOL)
+    assert tda.decode_attention_beam.launches == before

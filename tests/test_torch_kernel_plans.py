@@ -11,7 +11,9 @@ K2 (ops/decode_attention.py `split_plan`): the slices of the cache rows a
 call reads, one CTA each, cover every row of [0, valid) exactly once, for
 scalar and per-row valid lengths (rows of a per-row call past its valid
 length fall to CTAs that read nothing), and the cluster (the CTAs of one
-batch row) divides the grid.
+batch row) divides the grid. Its ring form's copies (`ring_slot`,
+`ring_copies`) read exactly the slots of the brute-force age mask; its
+beam form's shared memory (`smem_bytes`) fits up to 6 beams at T=1500.
 
 K3 (ops/mel.py `fft_plan`, `fft_index_maps`): the kernel's FFT, its
 window, radix constants, twiddles and stage indices applied stage by stage
@@ -114,6 +116,54 @@ def test_split_plan_covers_each_valid_row_once(t):
         valid = min(valid, t)
         seen = _covered(valid, t, n_ctas, rows)
         assert (seen[:valid] == 1).all() and (seen[valid:] == 0).all()
+
+
+@pytest.mark.parametrize("row_bytes", [1280, 2560])
+@pytest.mark.parametrize("t", [1, 51, 176, 448, 1500])
+def test_ring_copies_read_the_age_mask(t, row_bytes):
+    """K2's ring form: the bulk copies of every CTA's stages (logical rows
+    through `ring_slot`, split in two where a run wraps past T) read each
+    slot whose cyclic age (ring_pos - slot) mod T is below valid exactly
+    once and no other slot; each copy lies in [0, T), is a whole number of
+    16-byte rows, and a stage's copies fill it in logical order."""
+    n_ctas, rows = da.split_plan(t)
+    per_stage = da.stage_rows(row_bytes)
+    rng = np.random.default_rng(t)
+    for ring_pos in sorted({0, t - 1, int(rng.integers(t))}):
+        for valid in sorted({1, t, (t + 1) // 2, ring_pos + 1, min(t, ring_pos + 2)}):
+            seen = np.zeros(t, np.int64)
+            for r in range(n_ctas):
+                lo, hi = r * rows, min((r + 1) * rows, valid)
+                for r0 in range(lo, hi, per_stage):
+                    n = min(per_stage, hi - r0)
+                    copies = da.ring_copies(ring_pos, valid, t, r0, n)
+                    assert 1 <= len(copies) <= 2
+                    slots = []
+                    for slot, cnt, dst in copies:
+                        assert dst == len(slots) and cnt >= 1 and 0 <= slot and slot + cnt <= t
+                        assert cnt * row_bytes % 16 == 0
+                        slots += range(slot, slot + cnt)
+                    assert slots == [da.ring_slot(ring_pos, valid, t, j) for j in range(r0, r0 + n)]
+                    seen[slots] += 1
+            age = (ring_pos - np.arange(t)) % t
+            np.testing.assert_array_equal(seen, (age < valid).astype(np.int64))
+
+
+def test_smem_plan_of_the_beam_form():
+    """K2's shared memory at large-v3's cross cache (T=1500 over 8 CTAs of
+    188 rows, H=20): the prefix form fits two CTAs an SM; the beam form's
+    K*H scores fit one CTA up to 6 beams, and the wrapper refuses 7 before
+    it looks at the device (CPU tensors take the twin, so meta tensors
+    stand in for card tensors)."""
+    n_ctas, rows = da.split_plan(1500)
+    assert (n_ctas, rows) == (8, 188)
+    assert 2 * (da.smem_bytes(rows, 20) + 1024) <= 233472
+    assert da.smem_bytes(rows, 20, 6) <= da.SMEM_LIMIT < da.smem_bytes(rows, 20, 7)
+    assert da.smem_bytes(rows, 20, 5) == 191520
+    q = torch.empty((2, 7, 20, 64), dtype=torch.bfloat16, device="meta")
+    kv = torch.empty((2, 1500, 1280), dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="1 to 6 beams"):
+        da.decode_attention_beam(q, kv, kv, n_heads=20)
 
 
 @pytest.mark.parametrize("b", [1, 2, 16, 64])

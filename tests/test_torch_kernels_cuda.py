@@ -1,5 +1,8 @@
 """The port's CUDA kernels (K1-K9) vs their plain twins, on the card.
 
+K2 also in its ring form (continuous batching's shared-slot cache) and
+its beam form (a group's beam queries over one shared cross row).
+
 Marked `cuda`: skipped where no card is present. Run on a machine with an
 H100:  python -m pytest tests/test_torch_kernels_cuda.py -q
 Shapes cover the ragged edges (T not a multiple of the tiles, short and
@@ -400,6 +403,93 @@ def test_decode_attention_kernel_replays_in_a_cuda_graph(int8):
     assert torch.equal(out, want)
     q.copy_(_randn(b, h, 64, seed=65))
     valid.fill_(999)
+    graph.replay()
+    want = call()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("int8", [True, False], ids=["int8", "bf16"])
+@pytest.mark.parametrize("t", [51, 176, 448])
+def test_decode_attention_ring_kernel(int8, t):
+    """K2's ring form: each row's keys are its valid most recent slots,
+    ending at ring_pos; rows longer than ring_pos + 1 wrap past slot t - 1
+    (two copies for a stage that crosses it), one row ends exactly at
+    slot 0, another takes every slot. One launch a call."""
+    b, h, ring = 6, 20, t // 3
+    q, k, v, ks, vs = _decode_inputs(b, t, h, int8, seed=70)
+    valid = torch.tensor([t, 1, ring + 1, ring + 2, t - 1, (2 * t) // 3], dtype=torch.int32,
+                         device="cuda")
+    ring_pos = torch.tensor(ring, dtype=torch.int32, device="cuda")
+    before = da.decode_attention.ring_launches
+    got = da.decode_attention(q, k, v, valid, n_heads=h, k_scale=ks, v_scale=vs,
+                              ring_pos=ring_pos)
+    torch.cuda.synchronize()
+    assert da.decode_attention.ring_launches == before + 1
+    ref = da.decode_attention_reference(q, k, v, valid, n_heads=h, k_scale=ks, v_scale=vs,
+                                        ring_pos=ring_pos)
+    _assert_near(got, ref, atol=2e-3)
+    # a scalar valid length over the same ring
+    got = da.decode_attention(q, k, v, t - 5, n_heads=h, k_scale=ks, v_scale=vs,
+                              ring_pos=ring_pos)
+    ref = da.decode_attention_reference(q, k, v, t - 5, n_heads=h, k_scale=ks, v_scale=vs,
+                                        ring_pos=ring_pos)
+    _assert_near(got, ref, atol=2e-3)
+
+
+@pytest.mark.parametrize("int8", [True, False], ids=["int8", "bf16"])
+@pytest.mark.parametrize("beams", [1, 3, 5])
+@pytest.mark.parametrize("t", [51, 1500])
+def test_decode_attention_beam_kernel(int8, beams, t):
+    """K2's beam form: a group's beam queries against its one shared row,
+    read once. One launch a call."""
+    g, h = 3, 20
+    q = _randn(g, beams, h, 64, seed=80)
+    _, k, v, ks, vs = _decode_inputs(g, t, h, int8, seed=81)
+    before = da.decode_attention_beam.launches
+    got = da.decode_attention_beam(q, k, v, n_heads=h, k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    assert da.decode_attention_beam.launches == before + 1
+    ref = da.decode_attention_reference_beam(q, k, v, n_heads=h, k_scale=ks, v_scale=vs)
+    _assert_near(got, ref, atol=2e-3)
+
+
+@pytest.mark.parametrize("form", ["ring", "beam"])
+def test_decode_attention_forms_replay_in_a_cuda_graph(form):
+    """Both new forms allocate only their output and launch once: a CUDA
+    graph replays them to the eager result, bit for bit, after new
+    ring_pos and valid values (ring) or new queries (beam) are written
+    into the captured inputs."""
+    h = 20
+    if form == "ring":
+        b, t = 16, 176
+        q, k, v, ks, vs = _decode_inputs(b, t, h, True, seed=90)
+        valid = torch.arange(1, b + 1, dtype=torch.int32, device="cuda") * 11
+        ring_pos = torch.tensor(20, dtype=torch.int32, device="cuda")
+
+        def call():
+            return da.decode_attention(q, k, v, valid, n_heads=h, k_scale=ks, v_scale=vs,
+                                       ring_pos=ring_pos)
+    else:
+        q = _randn(12, 5, h, 64, seed=91)
+        _, k, v, ks, vs = _decode_inputs(12, 1500, h, True, seed=92)
+
+        def call():
+            return da.decode_attention_beam(q, k, v, n_heads=h, k_scale=ks, v_scale=vs)
+
+    want = call()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    if form == "ring":
+        ring_pos.fill_(170)
+        valid.copy_(torch.arange(b, 0, -1, dtype=torch.int32, device="cuda") * 11)
+    else:
+        q.copy_(_randn(12, 5, h, 64, seed=93))
     graph.replay()
     want = call()
     torch.cuda.synchronize()

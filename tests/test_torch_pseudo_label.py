@@ -4,7 +4,8 @@ A synthetic WAV-in-tar dataset (the tests/test_cli_pipeline.py fixture
 shape), one tiny random model exported in HF layout, both drivers run on
 the CPU in fp32: per-utterance token ids in the jsonl and the csv text
 must be identical, in the drivers' default mode (projections fused), with
---no_fuse, and with w8a8 projections (--gemm_dtype int8).
+--no_fuse, with w8a8 projections (--gemm_dtype int8), with continuous
+batching (--streaming) and with beam search (--num_beams 3).
 """
 import csv
 import json
@@ -79,7 +80,9 @@ def _read(out):
     ["--kv_dtype", "int8", "--wire_dtype", "int16", "--no_fuse"],
     ["--kv_dtype", "int8"],
     ["--kv_dtype", "int8", "--gemm_dtype", "int8"],
-], ids=["compute", "int8-int16wire", "fused", "fused-w8a8"])
+    ["--kv_dtype", "int8", "--streaming"],
+    ["--kv_dtype", "int8", "--num_beams", "3"],
+], ids=["compute", "int8-int16wire", "fused", "fused-w8a8", "streaming", "beam3"])
 def test_port_driver_matches_jax_driver(dataset_dir, model_dir, tmp_path, extra):
     from kotoba_whisper_tpu.cli import pseudo_label as jax_driver
     from kotoba_whisper_tpu_torch.cli import pseudo_label as port_driver
@@ -102,8 +105,7 @@ def test_port_driver_matches_jax_driver(dataset_dir, model_dir, tmp_path, extra)
 
 
 @pytest.mark.parametrize("flags, what", [
-    (["--num_beams", "4"], "--num_beams 4"),
-    (["--streaming"], "--streaming"),
+    (["--streaming", "--num_beams", "4"], "--streaming --num_beams 4"),
     (["--kv_dtype", "int4"], "--kv_dtype int4"),
 ])
 def test_unported_flags_raise(dataset_dir, tmp_path, flags, what):

@@ -160,3 +160,63 @@ def test_cpu_entry_points_need_explicit_device(pair, monkeypatch):
         tw.encode(model, torch.zeros(1, 80, 128))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tw.init_params(WhisperConfig(**TINY), torch.Generator())
+
+
+STEP_TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("kv_dtype", ["compute", "int8"])
+def test_ring_decode_matches_jax(pair, kv_dtype):
+    """Single-token steps at per-row lengths (3 rows at counts 0, 2, 1)
+    with a shared ring slot that wraps past the capacity: every row writes
+    slot ring, its keys its count + 1 most recent slots. Logits, counts and
+    the self cache equal JAX's."""
+    jcfg, params, model = pair
+    rng = np.random.default_rng(6)
+    enc = jw.encode(params, jcfg, jnp.asarray(_mel(rng, jcfg, b=3)))
+    ids = rng.integers(0, jcfg.vocab_size, (3, 5)).astype(np.int32)
+    lengths = np.array([0, 2, 1], np.int32)
+    jcache = jw.init_cache(params, jcfg, enc, capacity=8, kv_dtype=kv_dtype)
+    jcache = jcache._replace(length=jnp.asarray(lengths))
+    tcache = tw.init_cache(model, torch.from_numpy(np.array(enc)), 8, kv_dtype=kv_dtype,
+                           device="cpu")
+    tcache.length = torch.from_numpy(lengths)
+    for step in range(ids.shape[1]):
+        pos = (6 + step) % 8
+        j_lg, jcache = jw.decode(params, jcfg, jnp.asarray(ids[:, step:step + 1]), cache=jcache,
+                                 ring_pos=jnp.int32(pos))
+        t_lg, tcache = tw.decode(
+            model, torch.from_numpy(ids[:, step:step + 1]).long(), cache=tcache, device="cpu",
+            ring_pos=torch.tensor(pos, dtype=torch.int32))
+        np.testing.assert_allclose(t_lg.numpy(), np.asarray(j_lg), **STEP_TOL)
+    np.testing.assert_array_equal(tcache.length.numpy(), np.asarray(jcache.length))
+    np.testing.assert_allclose(tcache.self_k.float().numpy(),
+                               np.asarray(jcache.self_k, np.float32), **STEP_TOL)
+    if kv_dtype == "int8":
+        np.testing.assert_allclose(tcache.self_v_scale.numpy(),
+                                   np.asarray(jcache.self_v_scale), **STEP_TOL)
+
+
+@pytest.mark.parametrize("kv_dtype", ["compute", "int8"])
+def test_beam_cache_and_decode_match_jax(pair, kv_dtype):
+    """init_cache(beam_size=3) stores the cross K/V once per group of 2 and
+    the self buffers for 6 hypotheses; a 3-token prefill (beams and
+    positions fanned into one cross query axis) and 3 single-token steps
+    (the beam form of K2's twin) give JAX's logits."""
+    jcfg, params, model = pair
+    rng = np.random.default_rng(7)
+    enc = jw.encode(params, jcfg, jnp.asarray(_mel(rng, jcfg, b=2)))
+    ids = rng.integers(0, jcfg.vocab_size, (6, 6)).astype(np.int32)
+    jcache = jw.init_cache(params, jcfg, enc, capacity=8, kv_dtype=kv_dtype, beam_size=3)
+    tcache = tw.init_cache(model, torch.from_numpy(np.array(enc)), 8, kv_dtype=kv_dtype,
+                           beam_size=3, device="cpu")
+    assert tcache.cross_k.shape[1] == 2 and tcache.self_k.shape[1] == 6
+    np.testing.assert_allclose(tcache.cross_k.float().numpy(),
+                               np.asarray(jcache.cross_k, np.float32), **STEP_TOL)
+    for lo, hi in ((0, 3), (3, 4), (4, 5), (5, 6)):
+        j_lg, jcache = jw.decode(params, jcfg, jnp.asarray(ids[:, lo:hi]), cache=jcache,
+                                 beam_size=3)
+        t_lg, tcache = tw.decode(model, torch.from_numpy(ids[:, lo:hi]).long(), cache=tcache,
+                                 beam_size=3, device="cpu")
+        np.testing.assert_allclose(t_lg.numpy(), np.asarray(j_lg), **STEP_TOL)
+    assert tcache.length == 6
