@@ -17,7 +17,8 @@ Phases, in order; any failure exits nonzero and prints no result line:
      training), with its time, the twin's time, a library call's time and
      the least time the card could take (K2 also in its ring form, W=48 x
      T=176 with most rows wrapped and a rolled-prefix control, and its beam
-     form, 12 groups x 5 beams over T=1500); each also with its device time
+     form, 12 groups x 5 beams over T=1500, then 12 x 8 and 2 x 17 beams
+     against the fp32 twin); each also with its device time
      alone and the library call's (a CUDA graph of 20 calls, replayed; K5's
      library call, autograd through SDPA, from torch.profiler's kernel
      times where a graph cannot capture it) and the host's time per call
@@ -112,14 +113,6 @@ TRAIN_STEPS = 3   # timed train steps after one warm-up step
 # relative L2 of the student decoder's gradients, all parameters together.
 TRAIN_LOSS_TOL = 1e-2
 TRAIN_GRAD_TOL = 5e-2
-
-
-def realistic_stops(n: int, prompt_len: int, rng) -> np.ndarray:
-    """Total-token budgets ~ 6 + Gamma(k=3.2, theta=5.9): bench.py's
-    `_realistic_stops`, the JAX bench's fit of the ReazonSpeech
-    pseudo-label lengths (mean ~25 tokens with the prompt, tail to 170)."""
-    text = rng.gamma(3.2, 5.9, size=n)
-    return np.clip(prompt_len + 3 + text, 10, 170).astype(np.int64)
 
 
 def log(msg: str) -> None:
@@ -249,7 +242,6 @@ def main() -> int:
     from kotoba_whisper_tpu_torch.decode.greedy import (
         GenerateOptions, generate_greedy, transcribe_prompt,
     )
-    from kotoba_whisper_tpu_torch.decode.streaming import StreamConfig, generate_greedy_streaming
     from kotoba_whisper_tpu_torch.models import whisper
     from kotoba_whisper_tpu_torch.models.optimized import fuse_for_inference
     from kotoba_whisper_tpu_torch.models.quantized import quantize_for_inference
@@ -261,7 +253,7 @@ def main() -> int:
     from kotoba_whisper_tpu_torch.ops import flash_attention as fa
     from kotoba_whisper_tpu_torch.ops import layer_norm as ln
     from kotoba_whisper_tpu_torch.ops import mel
-    from kotoba_whisper_tpu_torch.tools import enc_exp, stem_exp, vpu_cal
+    from kotoba_whisper_tpu_torch.tools import enc_exp, stem_exp, step_time, vpu_cal
     from kotoba_whisper_tpu_torch.train import distill, optim
     from kotoba_whisper_tpu_torch.train.checkpoint import get_last_checkpoint, import_hf_model
 
@@ -424,6 +416,11 @@ def main() -> int:
     ref = da.decode_attention_reference(qd, kf, vf, valid, n_heads=h, k_scale=ks, v_scale=vs,
                                         ring_pos=ring)
     errs = compare(out, ref)
+    flips = out != ref
+    top = float(ref.float().abs()[flips].max()) if flips.any() else 0.0
+    log(f"[kernel] K2 ring: {int(flips.sum())} of {out.numel()} bf16 outputs differ from the "
+        f"twin's (fp32 sums in another order), the largest at |twin| {top:.4f} (a bf16 ulp "
+        f"there: {2.0 ** (math.floor(math.log2(top)) - 7) if top else 0.0:.2e})")
     slot = torch.remainder(
         ring + 1 - valid[:, None] + torch.arange(t_s, device="cuda")[None], t_s)  # (W, T)
 
@@ -456,8 +453,8 @@ def main() -> int:
     n_keys = int(valid.sum())
     record(
         f"K2 decode_attention self ring int8 (W={w_s}, T={t_s}, D=1280, ring_pos 40)",
-        "kotoba_whisper_tpu_torch/csrc/decode_attention.cu",
-        "kotoba_whisper_tpu/ops/decode_attention.py:165", errs, 2e-3,
+        "kotoba_whisper_tpu_torch/csrc/decode_attention_ring.cu",
+        "kotoba_whisper_tpu/ops/decode_attention.py:59", errs, 2e-3,
         time_ms(ring_call),
         time_ms(lambda: da.decode_attention_reference(
             qd, kf, vf, valid, n_heads=h, k_scale=ks, v_scale=vs, ring_pos=ring)),
@@ -498,8 +495,8 @@ def main() -> int:
 
         record(
             f"K2 decode_attention cross beam {label} (G={g_b} x K={k_b}, T={t_enc}, D=1280)",
-            "kotoba_whisper_tpu_torch/csrc/decode_attention.cu",
-            "kotoba_whisper_tpu/ops/decode_attention.py:165", errs, 2e-3,
+            "kotoba_whisper_tpu_torch/csrc/decode_attention_beam.cu",
+            "kotoba_whisper_tpu/ops/decode_attention.py:114", errs, 2e-3,
             time_ms(beam_call),
             time_ms(lambda: da.decode_attention_reference_beam(
                 qb, kf, vf, n_heads=h, k_scale=ks, v_scale=vs)),
@@ -511,6 +508,28 @@ def main() -> int:
             host_us=host_us(beam_call), library_host_us=host_us(beam_library),
         )
         del qb, kf, vf, ks, vs, out, ref, kh, vh, qh
+    # beam counts the earlier kernel refused (it took at most 6): 12 x 8 and
+    # 2 x 17 (two 16-beam tiles, keys split over a cluster), int8, held to
+    # the fp32 twin
+    for g_x, k_x in ((12, 8), (2, 17)):
+        qb = randn(g_x, k_x, h, 64, seed=13)
+        kf, ks = quantize_kv_rows(randn(g_x, t_enc, d, seed=14))
+        vf, vs = quantize_kv_rows(randn(g_x, t_enc, d, seed=15))
+
+        def beam_call():
+            return da.decode_attention_beam(qb, kf, vf, n_heads=h, k_scale=ks, v_scale=vs)
+
+        err, rel = compare(beam_call(), da.decode_attention_reference_beam(
+            qb.float(), kf, vf, n_heads=h, k_scale=ks, v_scale=vs))
+        ok = err <= 2e-3 and rel <= REL_L2_TOL
+        plan = da.beam_plan(g_x, t_enc, h, k_x, torch.int8,
+                            torch.cuda.get_device_properties(0).multi_processor_count)
+        log(f"[kernel] K2 beam int8 G={g_x} x K={k_x}, T={t_enc} vs the fp32 twin: max_abs_err "
+            f"{err:.3e} (tol 2e-3) rel_l2 {rel:.3e} (tol {REL_L2_TOL:g}); {plan}; "
+            f"device_ms {graph_ms(beam_call):.4f} [{card}] {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"K2 beam form disagrees with its fp32 twin at {k_x} beams")
+        del qb, kf, vf, ks, vs
     torch.cuda.empty_cache()
 
     # K3: fused log-mel, (B, 480000) fp32 and int16 -> (B, 3000, 128)
@@ -1173,26 +1192,11 @@ def main() -> int:
     # exactly its budget; mel on the card in refill-sized batches inside
     # the timed window. Then the same windows and budgets in lockstep B=16
     # batches.
-    n_s, max_s = 192, 176
-    rng_s = np.random.default_rng(0)
-    audio_s = torch.from_numpy(
-        rng_s.standard_normal((n_s, feat.n_samples)).astype(np.float32) * 0.1
-    ).cuda().to(torch.bfloat16)
-    prompt_s = transcribe_prompt(st, st.lang_begin + 6)
-    p_s = len(prompt_s)
-    stops_s = realistic_stops(n_s, p_s, rng_s)
-    opts_s = GenerateOptions(prompt_ids=prompt_s, max_length=max_s)
-    scfg = StreamConfig(batch=48, encode_batch=16, steps_per_round=8)
-
-    def mel_all(a):
-        return torch.cat([mel.log_mel_spectrogram(a[i : i + scfg.encode_batch].float(), feat
-                                                  ).to(torch.bfloat16)
-                          for i in range(0, a.shape[0], scfg.encode_batch)])
+    audio_s, prompt_s, stops_s, opts_s = step_time.stream_workload(st, feat)
+    n_s, max_s, p_s, scfg = audio_s.shape[0], opts_s.max_length, len(prompt_s), step_time.STREAM
 
     def stream_run(n_run):
-        return generate_greedy_streaming(
-            model, mel_all(audio_s[:n_run]), opts_s, st_fixed, kv_dtype="int8", stream=scfg,
-            stop_at=stops_s[:n_run])
+        return step_time.run_stream(model, audio_s[:n_run], opts_s, st_fixed, stops_s, feat)
 
     stream_run(2 * scfg.batch)  # warm-up on a prefix of the stream
     torch.cuda.synchronize()

@@ -1,15 +1,19 @@
 // Hopper (sm_90a) building blocks shared by the port's TMA/wgmma kernels
-// (K1 and K4 in flash_attention_sm90.cu, K2 in decode_attention.cu, K5 in
-// flash_attention_bwd.cu, K7 in conv_stem.cu, K8 in flash_attention_int8.cu):
-// mbarriers,
-// TMA tensor and 1-D bulk copies, named barriers, register reallocation,
-// and wgmma with its shared-memory descriptors.
+// (K1 and K4 in flash_attention_sm90.cu, K2 in decode_attention.cu and its
+// ring and beam forms, K5 in flash_attention_bwd.cu, K7 in conv_stem.cu, K8
+// in flash_attention_int8.cu): mbarriers, TMA tensor and 1-D bulk copies,
+// 4-byte cp.asyncs counted on mbarriers, named barriers, register
+// reallocation, cluster barriers and distributed shared memory, K2's
+// 16-byte KV chunk loads, wgmma with its shared-memory descriptors, and on
+// the host the tensor-map encoder and a cache of encoded maps.
 #pragma once
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <unordered_map>
 
 namespace kwt_sm90 {
 
@@ -138,6 +142,19 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
       : "memory");
 }
 
+// 4 bytes global -> shared, zero-filled when src_bytes is 0.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes = 4) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+// This thread's arrival on the mbarrier (counted in its init), made when the
+// thread's cp.asyncs so far have completed.
+__device__ __forceinline__ void cp_async_mbar_arrive_noinc(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
 // ---- named barriers and register reallocation --------------------------------
 
 __device__ __forceinline__ void named_bar_sync(int id, int threads) {
@@ -154,6 +171,71 @@ template <int kRegs>
 __device__ __forceinline__ void setmaxnreg_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kRegs));
 }
+
+// ---- thread-block clusters (distributed shared memory) ---------------------
+
+// Store v at p's offset in the shared memory of CTA `rank` of the cluster;
+// load it from there.
+__device__ __forceinline__ void st_cluster(float* p, uint32_t rank, float v) {
+  uint32_t addr;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(addr) : "r"(smem_u32(p)), "r"(rank));
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(addr), "f"(v) : "memory");
+}
+__device__ __forceinline__ float ld_cluster(const float* p, uint32_t rank) {
+  uint32_t addr;
+  float v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(addr) : "r"(smem_u32(p)), "r"(rank));
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  __syncwarp();
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  __syncwarp();
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_sync() {
+  __syncwarp();
+  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" ::
+                   : "memory");
+}
+
+// ---- a 16-byte chunk of a KV cache row as floats (K2's forms) --------------
+
+template <typename KV>
+struct Chunk;
+// 16 int8 values -> floats: each byte, biased by 128, becomes the low byte
+// of 2^23's mantissa; one subtraction leaves the exact integer.
+template <>
+struct Chunk<int8_t> {
+  static constexpr int kElems = 16;
+  __device__ __forceinline__ static void load(const void* p, float* x) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(p);
+    const uint32_t w[4] = {raw.x ^ 0x80808080u, raw.y ^ 0x80808080u, raw.z ^ 0x80808080u,
+                           raw.w ^ 0x80808080u};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        x[4 * i + j] = __int_as_float(__byte_perm(w[i], 0x4B000000u, 0x7540 + j)) - 8388736.f;
+  }
+};
+// 8 bf16 values -> floats: each is the high half of its float.
+template <>
+struct Chunk<__nv_bfloat16> {
+  static constexpr int kElems = 8;
+  __device__ __forceinline__ static void load(const void* p, float* x) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(p);
+    const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      x[2 * i] = __uint_as_float(w[i] << 16);
+      x[2 * i + 1] = __uint_as_float(w[i] & 0xFFFF0000u);
+    }
+  }
+};
 
 // ---- wgmma ---------------------------------------------------------------------
 
@@ -397,6 +479,41 @@ inline EncodeTiled encode_tiled() {
     if (found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
   }
   return fn;
+}
+
+// Encoded tensor maps by the tensor's address and what else shapes the map:
+// a caller whose tensors live across calls (a decode loop's caches) encodes
+// each map once. One cache a host thread and call site, so no lock.
+struct TmapKey {
+  const void* base;
+  int shape[5];
+  bool operator==(const TmapKey& o) const {
+    for (int i = 0; i < 5; ++i)
+      if (shape[i] != o.shape[i]) return false;
+    return base == o.base;
+  }
+};
+struct TmapKeyHash {
+  size_t operator()(const TmapKey& k) const {
+    size_t h = std::hash<const void*>()(k.base);
+    for (int v : k.shape) h = h * 1000003u ^ static_cast<size_t>(v);
+    return h;
+  }
+};
+// The map of `key` into *out, from encode(CUtensorMap*) -> bool on a miss;
+// false when it cannot be encoded.
+template <typename Encode>
+inline bool cached_tmap(CUtensorMap* out, const TmapKey& key, Encode encode) {
+  static thread_local std::unordered_map<TmapKey, CUtensorMap, TmapKeyHash> maps;
+  auto it = maps.find(key);
+  if (it == maps.end()) {
+    if (maps.size() >= 4096) maps.clear();
+    CUtensorMap map;
+    if (!encode(&map)) return false;
+    it = maps.emplace(key, map).first;
+  }
+  *out = it->second;
+  return true;
 }
 
 }  // namespace kwt_sm90

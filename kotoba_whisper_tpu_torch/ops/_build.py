@@ -24,7 +24,8 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
 SOURCES = (
     "flash_attention_sm90", "flash_attention_bwd", "decode_attention",
-    "mel", "layer_norm", "conv_stem", "flash_attention_int8", "vpu_cal",
+    "decode_attention_ring", "decode_attention_beam", "mel", "layer_norm", "conv_stem",
+    "flash_attention_int8", "vpu_cal",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -43,7 +44,17 @@ SIGNATURES = {
     },
     "decode_attention": {
         "kwt_decode_attention": [
-            _P, _L, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
+            _P, _L, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P,
+        ],
+    },
+    "decode_attention_ring": {
+        "kwt_decode_attention_ring": [
+            _P, _L, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P,
+        ],
+    },
+    "decode_attention_beam": {
+        "kwt_decode_attention_beam": [
+            _P, _L, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
         ],
     },
     "mel": {

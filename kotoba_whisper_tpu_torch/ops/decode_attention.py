@@ -1,5 +1,6 @@
-"""Decode-step attention over flat KV caches: kernel K2
-(csrc/decode_attention.cu) and its plain twins.
+"""Decode-step attention over flat KV caches: kernel K2 in three forms
+(csrc/decode_attention.cu, decode_attention_ring.cu,
+decode_attention_beam.cu) and their plain twins.
 
 One query per batch row against a flat (B, T, H*64) K/V block: the cache
 layout of models/whisper.py. Int8 caches carry fp32 per-row scales
@@ -15,63 +16,147 @@ slots, ending at slot ring_pos: slot s is a key when
 against the group's one shared (cross-attention) K/V row, every slot a
 key; the rows are read once for all K queries.
 
-The kernel is one launch per call: `split_plan` cuts the rows a call
-reads into at most MAX_CLUSTER slices, one CTA each, and the CTAs of a
-batch row form a thread-block cluster that combines its slices on chip.
+Each form is one launch a call:
+- prefix: `split_plan` cuts the rows a call reads into at most MAX_CLUSTER
+  slices, one CTA each, and the CTAs of a batch row form a thread-block
+  cluster that combines its slices on chip;
+- ring: `ring_plan` gives each CTA one row and a group of heads, all of
+  whose valid slots it holds in shared memory at once (no cluster);
+- beam: `beam_plan` gives each CTA one (group, head, 16-beam tile) and,
+  where that leaves the card idle, a share of the keys, the shares of a
+  tile combining over a cluster. `beam_walk` and `ring_walk` repeat the two
+  kernels' arithmetic in their order on the CPU.
 """
 from __future__ import annotations
+
+from functools import lru_cache
+from typing import NamedTuple
 
 import torch
 
 from kotoba_whisper_tpu_torch.ops import _build
 
 NEG_INF = -1.0e30
-MAX_CLUSTER = 8     # CTAs per batch row: the portable cluster size
-MIN_CTA_ROWS = 64   # a cache of up to this many rows is one CTA per row
-STAGES, STAGE_BYTES = 4, 20480  # the kernel's copy ring
+MAX_CLUSTER = 8     # CTAs a cluster may hold: the portable cluster size
+MIN_CTA_ROWS = 64   # a cache of up to this many rows is one CTA per row (prefix)
 SMEM_LIMIT = 232448  # bytes of shared memory a CTA may take on the card
-MAX_BEAMS = 6        # beam forms the kernel is built for: the most whose
-# scores fit a CTA's shared memory at large-v3's cross cache (T=1500, H=20)
+SM_SMEM = 233472     # bytes of shared memory of one SM (1 KB of it reserved a CTA)
+N_SMS = 132          # SMs of the card the plans are made for, where none is named
+LOG2E = 1.4426950408889634
+BEAM_KEY_TILE = 64   # keys a tile of the beam kernel
+BEAM_ROWS = 16       # beams a tile: mma.sync's M
+BEAM_WARPS = 4       # consumer warps a CTA, taking the key tiles in turn
+BEAM_STAGES = {torch.int8: 8, torch.bfloat16: 4}  # its copy ring
+RING_HEADS = (4, 2, 1)  # heads a ring CTA may take (each divides the kernel's passes)
+RING_BOX = 32        # slots a TMA box of the ring kernel
+RING_WARPS = 8       # warps a ring CTA
 
 
 def split_plan(span: int) -> tuple[int, int]:
-    """(CTAs per batch row, rows per CTA) for a call over cache rows
+    """(CTAs per batch row, rows per CTA) of the prefix form over cache rows
     [0, span): CTA r reads rows [r * rows, min((r + 1) * rows, valid)).
-    The CTAs of a row are one cluster, so their count is the grid's x.
-    Rows are logical: in the ring form, logical row j is `ring_slot`."""
+    The CTAs of a row are one cluster, so their count is the grid's x."""
     if span < 1:
         raise ValueError(f"K2 needs at least one cache row, got {span}")
     n_ctas = min(MAX_CLUSTER, -(-span // MIN_CTA_ROWS))
     return n_ctas, -(-span // n_ctas)
 
 
-def stage_rows(row_bytes: int) -> int:
-    """Cache rows one stage of the kernel's copy ring holds."""
-    return STAGE_BYTES // row_bytes
-
-
 def ring_slot(ring_pos: int, valid: int, t: int, j: int) -> int:
-    """Physical slot of logical row j in [0, valid) of a ring row whose
-    `valid` most recent keys end at slot ring_pos: the kernel's map."""
+    """Physical slot of logical key j in [0, valid) of a ring row whose
+    `valid` most recent keys end at slot ring_pos: the ring kernel's map."""
     return (ring_pos + 1 - valid + j) % t
 
 
-def ring_copies(ring_pos: int, valid: int, t: int, r0: int, n: int) -> list[tuple[int, int, int]]:
-    """The kernel's bulk copies of logical rows [r0, r0 + n) of a ring row,
-    as (first slot, rows, row offset in the stage): one copy, or two where
-    the run wraps past slot t - 1."""
-    s = ring_slot(ring_pos, valid, t, r0)
-    n1 = min(n, t - s)
-    return [(s, n1, 0)] + ([(0, n - n1, n1)] if n > n1 else [])
+def _elem(kv_dtype) -> int:
+    if kv_dtype not in BEAM_STAGES:
+        raise ValueError(f"K2 takes bfloat16 or int8 K and V, got {kv_dtype}")
+    return 1 if kv_dtype == torch.int8 else 2
 
 
-def smem_bytes(rows: int, n_heads: int, beams: int = 1) -> int:
-    """Dynamic shared memory of one CTA over `rows` cache rows (the
-    kernel's `Layout.total`)."""
-    kh = beams * n_heads
-    end = (STAGES * STAGE_BYTES + 4 * rows * kh + 8 * rows + 8 * kh
-           + 4 * (beams * n_heads * 64 + MAX_CLUSTER) + 8 * MAX_CLUSTER * kh)
-    return ((end + 7) & ~7) + 16 * STAGES
+def ring_smem_bytes(t: int, hpc: int, kv_dtype) -> int:
+    """Dynamic shared memory of a ring CTA over `hpc` heads of T slots (the
+    kernel's `Layout.total`): K and V by slot with a TMA box's overhang (K's
+    space at least the warps' P V sums), the two scales a slot, the scores a
+    (head, key), the warps' maxima and sums of p a head, two mbarriers."""
+    elem = _elem(kv_dtype)
+    kv = (t + RING_BOX) * hpc * 64 * elem
+    end = (-(-max(kv, RING_WARPS * hpc * 64 * 4) // 128) * 128 + kv + 8 * t + 4 * hpc * t
+           + 4 * RING_WARPS * 4)
+    return ((end + 4 * RING_WARPS * 4 + 7) & ~7) + 16
+
+
+class RingPlan(NamedTuple):
+    heads: int        # heads a CTA (CTA (x, y): row y, heads [x * heads, (x + 1) * heads))
+    grid: tuple       # (H / heads, B)
+    smem: int         # dynamic shared memory a CTA
+
+
+@lru_cache(maxsize=256)
+def ring_plan(b: int, t: int, n_heads: int, kv_dtype, n_sms: int = N_SMS) -> RingPlan:
+    """The ring kernel's grid: one CTA per (row, group of heads) holding all
+    the group's K and V slots at once. Of the head counts that divide H and
+    fit, prefer those whose CTAs fit two an SM, and among them the most
+    heads whose grid still makes two CTAs per SM; else the fewest heads
+    (the most CTAs). Raises where even one head's T slots do not fit."""
+    if t < 1 or b < 1:
+        raise ValueError(f"K2's ring form needs rows and slots, got B={b}, T={t}")
+    fits = [h for h in RING_HEADS if n_heads % h == 0
+            and ring_smem_bytes(t, h, kv_dtype) <= SMEM_LIMIT]
+    if not fits:
+        raise ValueError(
+            f"K2's ring form holds a head's K and V of every slot in shared memory: T={t} in "
+            f"{kv_dtype} needs {ring_smem_bytes(t, 1, kv_dtype)} of {SMEM_LIMIT} bytes")
+    two = [h for h in fits if 2 * (ring_smem_bytes(t, h, kv_dtype) + 1024) <= SM_SMEM]
+    pool = two or fits
+    heads = next((h for h in pool if b * (n_heads // h) >= 2 * n_sms), pool[-1])
+    return RingPlan(heads, (n_heads // heads, b), ring_smem_bytes(t, heads, kv_dtype))
+
+
+def beam_smem_bytes(kv_dtype) -> int:
+    """Dynamic shared memory of a beam CTA (the kernel's `sizeof(Smem)`,
+    rounded to its 1024-byte alignment, plus 1024 of alignment slack): the
+    K and V ring, the scales a stage, each consumer warp's O, max and sum,
+    the CTA's merged ones, the barriers."""
+    stages, elem = BEAM_STAGES[kv_dtype], _elem(kv_dtype)
+    rows, keys, hd = BEAM_ROWS, BEAM_KEY_TILE, 64
+    size = (2 * stages * keys * hd * elem + 2 * stages * keys * 4
+            + BEAM_WARPS * rows * hd * 4 + 2 * BEAM_WARPS * rows * 4
+            + rows * hd * 4 + 2 * rows * 4 + 2 * stages * 8)
+    return -(-size // 1024) * 1024 + 1024
+
+
+class BeamPlan(NamedTuple):
+    m_tiles: int         # 16-beam tiles
+    splits: int          # key shares of a (group, head, tile): the cluster's x
+    keys_per_split: int  # a multiple of BEAM_KEY_TILE
+    grid: tuple          # (splits, H * m_tiles, G): CTA (x, y, z) is share x of head
+    #                      y % H, tile y // H, group z
+    smem: int
+
+
+@lru_cache(maxsize=256)
+def beam_plan(g: int, t: int, n_heads: int, beams: int, kv_dtype,
+              n_sms: int = N_SMS) -> BeamPlan:
+    """The beam kernel's grid: one CTA per (group, head, 16-beam tile),
+    split over key shares of whole tiles, up to a cluster of MAX_CLUSTER,
+    while the CTAs would not fill two an SM; no share is empty."""
+    if min(g, t, n_heads, beams) < 1:
+        raise ValueError(f"K2's beam form needs groups, keys, heads and beams, got G={g}, "
+                         f"T={t}, H={n_heads}, K={beams}")
+    m_tiles = -(-beams // BEAM_ROWS)
+    n_tiles = -(-t // BEAM_KEY_TILE)
+    items = g * n_heads * m_tiles
+    splits = max(1, min(MAX_CLUSTER, n_tiles, (2 * n_sms) // items))
+    per = -(-n_tiles // splits)
+    splits = -(-n_tiles // per)
+    return BeamPlan(m_tiles, splits, per * BEAM_KEY_TILE, (splits, n_heads * m_tiles, g),
+                    beam_smem_bytes(kv_dtype))
+
+
+@lru_cache(maxsize=16)
+def _n_sms(card: int) -> int:
+    return torch.cuda.get_device_properties(card).multi_processor_count
 
 
 def decode_attention_reference(
@@ -116,6 +201,108 @@ def decode_attention_reference_beam(q, k_flat, v_flat, *, n_heads, k_scale=None,
     return out.to(q.dtype)
 
 
+def _merge(states):
+    """Combine (max, sum, O) states of one output row set, in log2 units:
+    each is scaled by 2^(m - M) (0 where it saw no key)."""
+    m = torch.stack([s[0] for s in states]).amax(0)
+    l = torch.zeros_like(states[0][1])
+    o = torch.zeros_like(states[0][2])
+    for m_i, l_i, o_i in states:
+        f = torch.where(torch.isinf(m_i), torch.zeros_like(m_i), torch.exp2(m_i - m))
+        l = l + f * l_i
+        o = o + f[..., None] * o_i
+    return m, l, o
+
+
+def beam_walk(q, k_flat, v_flat, *, n_heads, k_scale=None, v_scale=None, p_dtype=torch.bfloat16,
+              out_dtype=torch.bfloat16, n_sms=N_SMS):
+    """The beam kernel's arithmetic in its order (fp32, on any device):
+    `beam_plan`'s 16-beam tiles and key shares, each share's 64-key tiles
+    taken by BEAM_WARPS warps in turn; a tile's scores (q as bf16 times K)
+    times k_scale times log2(e)/8, the running max, 2^(s - m), the running
+    sum and O rescaled by 2^(m_old - m_new), P * v_scale rounded to
+    `p_dtype` (the kernel's bf16; None keeps fp32) before P V; then the
+    warps' and the shares' (max, sum, O) merged and O / l in `out_dtype`.
+    -> (G, K, H, 64)."""
+    g, beams, _, hd = q.shape
+    t = k_flat.shape[1]
+    kv_dtype = torch.int8 if k_flat.dtype == torch.int8 else torch.bfloat16
+    plan = beam_plan(g, t, n_heads, beams, kv_dtype, n_sms)
+    qf = q.to(torch.bfloat16).float()
+    kf = k_flat.float().reshape(g, t, n_heads, hd)
+    vf = v_flat.float().reshape(g, t, n_heads, hd)
+    ks = (k_scale.float().reshape(g, t) if k_scale is not None
+          else torch.ones(g, t, device=q.device))
+    vs = (v_scale.float().reshape(g, t) if v_scale is not None
+          else torch.ones(g, t, device=q.device))
+    qscale = torch.tensor(0.125 * LOG2E, dtype=torch.float32)
+    out = torch.empty(g, beams, n_heads, hd, dtype=out_dtype, device=q.device)
+    for mt in range(plan.m_tiles):
+        qt = qf[:, mt * BEAM_ROWS:(mt + 1) * BEAM_ROWS]  # (G, R, H, 64)
+        shares = []
+        for x in range(plan.splits):
+            k0 = x * plan.keys_per_split
+            k1 = min(t, k0 + plan.keys_per_split)
+            n_tiles = -(-(k1 - k0) // BEAM_KEY_TILE)
+            warps = []
+            for w in range(BEAM_WARPS):
+                m = torch.full(qt.shape[:3], float("-inf"), device=q.device)
+                l = torch.zeros(qt.shape[:3], device=q.device)
+                o = torch.zeros(qt.shape, device=q.device)
+                for i in range(w, n_tiles, BEAM_WARPS):
+                    a = k0 + i * BEAM_KEY_TILE
+                    e = min(k1, a + BEAM_KEY_TILE)
+                    s = torch.einsum("grhd,gnhd->grhn", qt, kf[:, a:e])
+                    s = s * ks[:, None, None, a:e] * qscale
+                    m_new = torch.maximum(m, s.amax(-1))
+                    corr = torch.exp2(m - m_new)
+                    p = torch.exp2(s - m_new[..., None])
+                    l = l * corr + p.sum(-1)
+                    pv = p * vs[:, None, None, a:e]
+                    if p_dtype is not None:
+                        pv = pv.to(p_dtype).float()
+                    o = o * corr[..., None] + torch.einsum("grhn,gnhd->grhd", pv, vf[:, a:e])
+                    m = m_new
+                warps.append((m, l, o))
+            shares.append(_merge(warps))
+        _, l, o = _merge(shares)
+        out[:, mt * BEAM_ROWS:(mt + 1) * BEAM_ROWS] = (o / l[..., None]).to(out_dtype)
+    return out
+
+
+def ring_walk(q, k_flat, v_flat, valid_len, ring_pos, *, n_heads, k_scale=None, v_scale=None,
+              out_dtype=torch.bfloat16, n_sms=N_SMS):
+    """The ring kernel's arithmetic in its order (fp32, on any device): per
+    `ring_plan` CTA (a row and its group of heads) the keys j of [0, valid)
+    at slots `ring_slot`, the scores q / 8 times K times k_scale, the exact
+    max, p = exp(s - m), their sum, the weights p * v_scale, P V and O / l
+    in `out_dtype`. -> (B, H, 64)."""
+    b, t, _ = k_flat.shape
+    kv_dtype = torch.int8 if k_flat.dtype == torch.int8 else torch.bfloat16
+    plan = ring_plan(b, t, n_heads, kv_dtype, n_sms)
+    kf = k_flat.float().reshape(b, t, n_heads, 64)
+    vf = v_flat.float().reshape(b, t, n_heads, 64)
+    qf = q.to(torch.bfloat16).float().reshape(b, n_heads, 64) * 0.125
+    valid = torch.as_tensor(valid_len).reshape(-1).expand(b)
+    out = torch.empty(b, n_heads, 64, dtype=out_dtype, device=q.device)
+    for y in range(plan.grid[1]):
+        n = min(int(valid[y]), t)
+        slots = torch.tensor([ring_slot(int(ring_pos), n, t, j) for j in range(n)],
+                             dtype=torch.long, device=q.device)
+        for x in range(plan.grid[0]):
+            heads = slice(x * plan.heads, (x + 1) * plan.heads)
+            s = torch.einsum("jhd,hd->hj", kf[y, slots, heads], qf[y, heads])
+            if k_scale is not None:
+                s = s * k_scale.float().reshape(b, t)[y, slots]
+            p = torch.exp(s - s.amax(-1, keepdim=True))
+            l = p.sum(-1, keepdim=True)
+            if v_scale is not None:
+                p = p * v_scale.float().reshape(b, t)[y, slots]
+            o = torch.einsum("hj,jhd->hd", p, vf[y, slots, heads])
+            out[y, heads] = (o / l).to(out_dtype)
+    return out
+
+
 def _kv_args(card, k_flat, v_flat, k_scale, v_scale, n_heads):
     """K2's checks of the K/V cache and its scales (kept to few tensor
     calls: the self and cross calls run 64 times a decode step, and the
@@ -145,16 +332,22 @@ def _kv_args(card, k_flat, v_flat, k_scale, v_scale, n_heads):
     return kv_int8, k_ptr, v_ptr, ks_ptr, vs_ptr
 
 
-def _launch(q_ptr, q_stride, kv, valid_rows, valid_all, ring_ptr, out, b, t, n_heads, beams,
-            n_ctas, rows, card):
-    kv_int8, k_ptr, v_ptr, ks_ptr, vs_ptr = kv
-    rc = _build.function("decode_attention", "kwt_decode_attention")(
-        q_ptr, q_stride, k_ptr, v_ptr, ks_ptr, vs_ptr, valid_rows, valid_all, ring_ptr,
-        out.data_ptr(), b, t, n_heads, beams, n_ctas, rows, int(kv_int8),
-        _build.stream_handle(card),
-    )
+def _valid_arg(valid_len, b, t, card):
+    """(valid_rows pointer or None, valid_all) of a scalar or (B,) valid_len."""
+    if isinstance(valid_len, torch.Tensor):
+        if (valid_len.shape != (b,) or valid_len.dtype != torch.int32
+                or valid_len.get_device() != card):
+            raise ValueError("K2's per-row valid_len is a (B,) int32 tensor on q's card")
+        return valid_len.data_ptr(), 0
+    valid_all = int(valid_len)
+    if not 1 <= valid_all <= t:
+        raise ValueError(f"K2 valid_len {valid_all} outside [1, {t}]")
+    return None, valid_all
+
+
+def _check(rc, form):
     if rc != 0:
-        raise RuntimeError(f"K2 decode attention launch failed: cudaError {rc}")
+        raise RuntimeError(f"K2 decode attention ({form} form) launch failed: cudaError {rc}")
 
 
 def decode_attention(
@@ -162,9 +355,10 @@ def decode_attention(
 ):
     """K2 wrapper: the kernel for CUDA tensors, the plain twin for CPU
     tensors. valid_len: int (every row) or a (B,) int32 tensor; ring_pos:
-    None (prefix form) or, on the card, a 0-d int32 tensor on q's card,
-    read by the kernel from device memory. Allocates only the output; safe
-    to capture in a CUDA graph."""
+    None (prefix form, csrc/decode_attention.cu) or, on the card, a 0-d
+    int32 tensor on q's card, read by the ring kernel
+    (csrc/decode_attention_ring.cu) from device memory. Allocates only the
+    output; safe to capture in a CUDA graph."""
     if q.is_cpu:
         return decode_attention_reference(
             q, k_flat, v_flat, valid_len, n_heads=n_heads,
@@ -176,31 +370,27 @@ def decode_attention(
             or q_stride[1:] != (64, 1) or q_stride[0] % 8 or q_ptr % 16):
         raise ValueError(f"K2 takes bfloat16 q (B, H, 64), each row's heads contiguous and "
                          f"16-byte aligned, got {q.dtype} {tuple(q.shape)} {q_stride}")
-    kv = _kv_args(card, k_flat, v_flat, k_scale, v_scale, n_heads)
-    if isinstance(valid_len, torch.Tensor):
-        if (valid_len.shape != (b,) or valid_len.dtype != torch.int32
-                or valid_len.get_device() != card):
-            raise ValueError("K2's per-row valid_len is a (B,) int32 tensor on q's card")
-        valid_rows, valid_all, span = valid_len.data_ptr(), 0, t
-    else:
-        valid_all = span = int(valid_len)
-        if not 1 <= valid_all <= t:
-            raise ValueError(f"K2 valid_len {valid_all} outside [1, {t}]")
-        valid_rows = None
-    ring_ptr = None
-    if ring_pos is not None:
-        if (not isinstance(ring_pos, torch.Tensor) or ring_pos.shape != ()
-                or ring_pos.dtype != torch.int32 or ring_pos.get_device() != card):
-            raise ValueError("K2's ring_pos is a 0-d int32 tensor on q's card")
-        ring_ptr = ring_pos.data_ptr()
-    n_ctas, rows = split_plan(span)
+    kv_int8, k_ptr, v_ptr, ks_ptr, vs_ptr = _kv_args(card, k_flat, v_flat, k_scale, v_scale,
+                                                     n_heads)
+    valid_rows, valid_all = _valid_arg(valid_len, b, t, card)
     out = torch.empty((b, n_heads, 64), dtype=torch.bfloat16, device=q.device)
-    _launch(q_ptr, q_stride[0], kv, valid_rows, valid_all, ring_ptr, out, b, t, n_heads, 1,
-            n_ctas, rows, card)
     if ring_pos is None:
+        n_ctas, rows = split_plan(t if valid_rows is not None else valid_all)
+        _check(_build.function("decode_attention", "kwt_decode_attention")(
+            q_ptr, q_stride[0], k_ptr, v_ptr, ks_ptr, vs_ptr, valid_rows, valid_all,
+            out.data_ptr(), b, t, n_heads, n_ctas, rows, int(kv_int8),
+            _build.stream_handle(card)), "prefix")
         decode_attention.launches += 1
-    else:
-        decode_attention.ring_launches += 1
+        return out
+    if (not isinstance(ring_pos, torch.Tensor) or ring_pos.shape != ()
+            or ring_pos.dtype != torch.int32 or ring_pos.get_device() != card):
+        raise ValueError("K2's ring_pos is a 0-d int32 tensor on q's card")
+    plan = ring_plan(b, t, n_heads, k_flat.dtype, _n_sms(card))
+    _check(_build.function("decode_attention_ring", "kwt_decode_attention_ring")(
+        q_ptr, q_stride[0], k_ptr, v_ptr, ks_ptr, vs_ptr, valid_rows, valid_all,
+        ring_pos.data_ptr(), out.data_ptr(), b, t, n_heads, plan.heads, int(kv_int8),
+        _build.stream_handle(card)), "ring")
+    decode_attention.ring_launches += 1
     return out
 
 
@@ -210,30 +400,31 @@ decode_attention.ring_launches = 0  # K2, ring form
 
 def decode_attention_beam(q, k_flat, v_flat, *, n_heads, k_scale=None, v_scale=None):
     """K2's beam form: q (G, K, H, 64) against one flat K/V row per group
-    (G, T, H*64), every slot a key -> (G, K, H, 64). The kernel for CUDA
-    tensors (K <= MAX_BEAMS, and a CTA's scores within the card's shared
-    memory), the plain twin for CPU tensors. Allocates only the output; safe to capture in a CUDA graph."""
+    (G, T, H*64), every slot a key -> (G, K, H, 64). The kernel
+    (csrc/decode_attention_beam.cu, any beam count) for CUDA tensors, the
+    plain twin for CPU tensors. Allocates only the output; safe to capture
+    in a CUDA graph."""
     if q.is_cpu:
         return decode_attention_reference_beam(
             q, k_flat, v_flat, n_heads=n_heads, k_scale=k_scale, v_scale=v_scale)
     g, t, _ = k_flat.shape
     beams = q.shape[1] if q.ndim == 4 else 0
-    n_ctas, rows = split_plan(t)
-    if not 1 <= beams <= MAX_BEAMS or smem_bytes(rows, n_heads, beams) > SMEM_LIMIT:
-        raise ValueError(f"K2's beam form takes 1 to {MAX_BEAMS} beams whose scores fit in "
-                         f"shared memory: {beams} beams over {rows} rows a CTA need "
-                         f"{smem_bytes(rows, n_heads, beams)} of {SMEM_LIMIT} bytes")
     card, q_stride, q_ptr = q.get_device(), q.stride(), q.data_ptr()
-    if (not q.is_cuda or q.dtype != torch.bfloat16 or q.shape != (g, beams, n_heads, 64)
+    if (not q.is_cuda or q.dtype != torch.bfloat16 or beams < 1
+            or q.shape != (g, beams, n_heads, 64)
             or q_stride[1:] != (q_stride[1], 64, 1) or q_stride[0] != beams * q_stride[1]
             or q_stride[1] % 8 or q_ptr % 16):
-        raise ValueError(f"K2's beam form takes bfloat16 q (G, K, H, 64), its G*K rows evenly "
-                         f"strided, each row's heads contiguous and 16-byte aligned, got "
-                         f"{q.dtype} {tuple(q.shape)} {q_stride}")
-    kv = _kv_args(card, k_flat, v_flat, k_scale, v_scale, n_heads)
+        raise ValueError(f"K2's beam form takes bfloat16 q (G, K, H, 64) with head dim 64 "
+                         f"(the kernel's tile), its G*K rows evenly strided, each row's heads "
+                         f"contiguous and 16-byte aligned, got {q.dtype} {tuple(q.shape)} "
+                         f"{q_stride}")
+    kv_int8, k_ptr, v_ptr, ks_ptr, vs_ptr = _kv_args(card, k_flat, v_flat, k_scale, v_scale,
+                                                     n_heads)
+    plan = beam_plan(g, t, n_heads, beams, k_flat.dtype, _n_sms(card))
     out = torch.empty((g, beams, n_heads, 64), dtype=torch.bfloat16, device=q.device)
-    _launch(q_ptr, q_stride[1], kv, None, t, None, out, g, t, n_heads, beams, n_ctas, rows,
-            card)
+    _check(_build.function("decode_attention_beam", "kwt_decode_attention_beam")(
+        q_ptr, q_stride[1], k_ptr, v_ptr, ks_ptr, vs_ptr, out.data_ptr(), g, t, n_heads, beams,
+        plan.splits, plan.keys_per_split, int(kv_int8), _build.stream_handle(card)), "beam")
     decode_attention_beam.launches += 1
     return out
 

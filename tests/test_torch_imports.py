@@ -73,8 +73,9 @@ def test_cuda_sources_have_their_notes():
     assert {cu.stem for cu in sources} == set(_build.SOURCES)
     # K1 and K4 share flash_attention_sm90.cu
     assert set(_build.SOURCES) == {
-        "flash_attention_sm90", "flash_attention_bwd", "decode_attention", "mel", "layer_norm",
-        "conv_stem", "flash_attention_int8", "vpu_cal"}
+        "flash_attention_sm90", "flash_attention_bwd", "decode_attention",
+        "decode_attention_ring", "decode_attention_beam", "mel", "layer_norm", "conv_stem",
+        "flash_attention_int8", "vpu_cal"}
     for cu in sources:
         head = cu.read_text()[:3000]
         replaced = head[head.index("Replaces:"):] if "Replaces:" in head else ""

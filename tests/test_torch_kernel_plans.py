@@ -11,9 +11,13 @@ K2 (ops/decode_attention.py `split_plan`): the slices of the cache rows a
 call reads, one CTA each, cover every row of [0, valid) exactly once, for
 scalar and per-row valid lengths (rows of a per-row call past its valid
 length fall to CTAs that read nothing), and the cluster (the CTAs of one
-batch row) divides the grid. Its ring form's copies (`ring_slot`,
-`ring_copies`) read exactly the slots of the brute-force age mask; its
-beam form's shared memory (`smem_bytes`) fits up to 6 beams at T=1500.
+batch row) divides the grid. Its ring form's plan (`ring_plan`,
+`ring_slot`) reads every (row, head) in exactly one CTA at exactly the
+slots of the brute-force age mask, and holds a CTA's K and V in shared
+memory for every ring the decoder can fill (T <= 448) and raises where one
+head cannot fit; its beam form's plan (`beam_plan`) covers every (group,
+head, beam, key) once with a cluster that divides the grid, takes any beam
+count, and fits two CTAs an SM at beam search's 12 x 5 over T=1500.
 
 K3 (ops/mel.py `fft_plan`, `fft_index_maps`): the kernel's FFT, its
 window, radix constants, twiddles and stage indices applied stage by stage
@@ -118,52 +122,103 @@ def test_split_plan_covers_each_valid_row_once(t):
         assert (seen[:valid] == 1).all() and (seen[valid:] == 0).all()
 
 
-@pytest.mark.parametrize("row_bytes", [1280, 2560])
+@pytest.mark.parametrize("kv_dtype", [torch.int8, torch.bfloat16], ids=["int8", "bf16"])
 @pytest.mark.parametrize("t", [1, 51, 176, 448, 1500])
-def test_ring_copies_read_the_age_mask(t, row_bytes):
-    """K2's ring form: the bulk copies of every CTA's stages (logical rows
-    through `ring_slot`, split in two where a run wraps past T) read each
-    slot whose cyclic age (ring_pos - slot) mod T is below valid exactly
-    once and no other slot; each copy lies in [0, T), is a whole number of
-    16-byte rows, and a stage's copies fill it in logical order."""
-    n_ctas, rows = da.split_plan(t)
-    per_stage = da.stage_rows(row_bytes)
+def test_ring_plan_reads_the_age_mask(t, kv_dtype):
+    """K2's ring form: CTA (x, y) of `ring_plan`'s grid reads row y's heads
+    [x * heads, (x + 1) * heads) at the slots `ring_slot` gives its keys
+    j < valid; over the grid every (row, head) is read by exactly one CTA,
+    at each slot whose cyclic age (ring_pos - slot) mod T is below valid,
+    once, and at no other. A CTA's K and V fit its shared memory at every
+    T <= 448 (the decoder's max_target_positions) in both dtypes, two CTAs
+    an SM up to the stream's T=176; where one head's slots cannot fit
+    (T=1500 in bf16) the plan raises."""
+    b, n_heads = 5, 20
+    if kv_dtype == torch.bfloat16 and t == 1500:
+        with pytest.raises(ValueError, match="shared memory"):
+            da.ring_plan(b, t, n_heads, kv_dtype)
+        return
+    plan = da.ring_plan(b, t, n_heads, kv_dtype)
+    assert plan.smem <= da.SMEM_LIMIT and n_heads % plan.heads == 0
+    assert plan.grid == (n_heads // plan.heads, b) and 64 % plan.heads == 0
+    if t <= 176:  # the stream's ring and shorter: two CTAs an SM
+        assert 2 * (plan.smem + 1024) <= da.SM_SMEM
     rng = np.random.default_rng(t)
     for ring_pos in sorted({0, t - 1, int(rng.integers(t))}):
-        for valid in sorted({1, t, (t + 1) // 2, ring_pos + 1, min(t, ring_pos + 2)}):
-            seen = np.zeros(t, np.int64)
-            for r in range(n_ctas):
-                lo, hi = r * rows, min((r + 1) * rows, valid)
-                for r0 in range(lo, hi, per_stage):
-                    n = min(per_stage, hi - r0)
-                    copies = da.ring_copies(ring_pos, valid, t, r0, n)
-                    assert 1 <= len(copies) <= 2
-                    slots = []
-                    for slot, cnt, dst in copies:
-                        assert dst == len(slots) and cnt >= 1 and 0 <= slot and slot + cnt <= t
-                        assert cnt * row_bytes % 16 == 0
-                        slots += range(slot, slot + cnt)
-                    assert slots == [da.ring_slot(ring_pos, valid, t, j) for j in range(r0, r0 + n)]
-                    seen[slots] += 1
-            age = (ring_pos - np.arange(t)) % t
-            np.testing.assert_array_equal(seen, (age < valid).astype(np.int64))
+        valid = np.array(sorted({1, t, (t + 1) // 2, ring_pos + 1, min(t, ring_pos + 2)})[:b]
+                         + [1] * b)[:b]
+        seen = np.zeros((b, n_heads, t), np.int64)
+        for x in range(plan.grid[0]):
+            for y in range(plan.grid[1]):
+                slots = [da.ring_slot(ring_pos, int(valid[y]), t, j) for j in range(valid[y])]
+                for slot in slots:
+                    seen[y, x * plan.heads:(x + 1) * plan.heads, slot] += 1
+        age = (ring_pos - np.arange(t)) % t
+        want = (age[None, :] < valid[:, None]).astype(np.int64)
+        np.testing.assert_array_equal(seen, np.broadcast_to(want[:, None], seen.shape))
 
 
-def test_smem_plan_of_the_beam_form():
-    """K2's shared memory at large-v3's cross cache (T=1500 over 8 CTAs of
-    188 rows, H=20): the prefix form fits two CTAs an SM; the beam form's
-    K*H scores fit one CTA up to 6 beams, and the wrapper refuses 7 before
-    it looks at the device (CPU tensors take the twin, so meta tensors
-    stand in for card tensors)."""
-    n_ctas, rows = da.split_plan(1500)
-    assert (n_ctas, rows) == (8, 188)
-    assert 2 * (da.smem_bytes(rows, 20) + 1024) <= 233472
-    assert da.smem_bytes(rows, 20, 6) <= da.SMEM_LIMIT < da.smem_bytes(rows, 20, 7)
-    assert da.smem_bytes(rows, 20, 5) == 191520
-    q = torch.empty((2, 7, 20, 64), dtype=torch.bfloat16, device="meta")
+def test_ring_plan_prefers_a_full_card():
+    """At the stream's shape (48 rows, T=176, 20 heads, int8) the plan takes
+    the most heads a CTA whose grid still makes two CTAs per SM; a grid that
+    cannot reach that takes one head a CTA (the most CTAs)."""
+    plan = da.ring_plan(48, 176, 20, torch.int8, 132)
+    assert plan.heads == 2 and plan.grid == (10, 48)
+    assert da.ring_plan(48, 176, 20, torch.int8, 60).heads == 4
+    assert da.ring_plan(2, 176, 20, torch.int8, 132).heads == 1
+
+
+@pytest.mark.parametrize("t", [1, 51, 1500])
+@pytest.mark.parametrize("beams", [1, 5, 6, 7, 16, 17])
+def test_beam_plan_covers_each_key_once(beams, t):
+    """K2's beam form: over `beam_plan`'s grid, CTA (x, y, z) reads keys
+    [x * keys_per_split, ...) of head y % H of group z for beams
+    [16 (y // H), ...): every (group, head, beam, key) exactly once, whole
+    64-key tiles a share, and what the launch needs of the cluster, which
+    is the grid's x (the key shares of one (group, head, tile)): at most 8
+    CTAs, and no share without keys. Beam counts past 6, which the earlier
+    kernel refused, take more 16-beam tiles."""
+    n_heads = 20
+    for g in (1, 2, 12):
+        plan = da.beam_plan(g, t, n_heads, beams, torch.int8)
+        splits, y_dim, z_dim = plan.grid
+        assert (y_dim, z_dim) == (n_heads * plan.m_tiles, g) and splits == plan.splits
+        assert 1 <= splits <= da.MAX_CLUSTER
+        assert (splits - 1) * plan.keys_per_split < t <= splits * plan.keys_per_split
+        assert plan.keys_per_split % da.BEAM_KEY_TILE == 0
+        assert plan.m_tiles == -(-beams // da.BEAM_ROWS)
+        seen = np.zeros((g, n_heads, beams, t), np.int64)
+        for x in range(splits):
+            k0 = x * plan.keys_per_split
+            k1 = min(t, k0 + plan.keys_per_split)
+            assert k1 > k0
+            for y in range(y_dim):
+                h, mt = y % n_heads, y // n_heads
+                for z in range(z_dim):
+                    seen[z, h, mt * da.BEAM_ROWS:(mt + 1) * da.BEAM_ROWS, k0:k1] += 1
+        assert (seen == 1).all()
+
+
+def test_beam_plan_fits_two_ctas_an_sm():
+    """At beam search's shape (12 groups x 5 beams over T=1500, 20 heads)
+    the plan is one CTA per (group, head), 240 CTAs and no key split, two to
+    an SM in both dtypes; two groups split each row's keys over a cluster."""
+    for kv_dtype in (torch.int8, torch.bfloat16):
+        plan = da.beam_plan(12, 1500, 20, 5, kv_dtype)
+        assert plan.grid == (1, 20, 12) and plan.keys_per_split >= 1500
+        assert 2 * (plan.smem + 1024) <= da.SM_SMEM
+    assert da.beam_plan(2, 1500, 20, 5, torch.int8).grid == (6, 20, 2)
+
+
+def test_beam_wrapper_says_why_it_refuses():
+    """The beam form takes any beam count (no cap, unlike the earlier kernel's
+    six); what it refuses, such as a head dim other than the kernel's 64, it
+    refuses before it looks at the device, saying why (CPU tensors take the
+    twin, so meta tensors stand in for card tensors)."""
     kv = torch.empty((2, 1500, 1280), dtype=torch.bfloat16, device="meta")
-    with pytest.raises(ValueError, match="1 to 6 beams"):
-        da.decode_attention_beam(q, kv, kv, n_heads=20)
+    q = torch.empty((2, 7, 40, 32), dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="head dim 64"):
+        da.decode_attention_beam(q, kv, kv, n_heads=40)
 
 
 @pytest.mark.parametrize("b", [1, 2, 16, 64])

@@ -1,7 +1,8 @@
 """The port's CUDA kernels (K1-K9) vs their plain twins, on the card.
 
-K2 also in its ring form (continuous batching's shared-slot cache) and
-its beam form (a group's beam queries over one shared cross row).
+K2 also in its ring form (continuous batching's shared-slot cache,
+csrc/decode_attention_ring.cu) and its beam form (a group's beam queries
+over one shared cross row, csrc/decode_attention_beam.cu, any beam count).
 
 Marked `cuda`: skipped where no card is present. Run on a machine with an
 H100:  python -m pytest tests/test_torch_kernels_cuda.py -q
@@ -411,15 +412,18 @@ def test_decode_attention_kernel_replays_in_a_cuda_graph(int8):
 
 @pytest.mark.parametrize("int8", [True, False], ids=["int8", "bf16"])
 @pytest.mark.parametrize("t", [51, 176, 448])
-def test_decode_attention_ring_kernel(int8, t):
-    """K2's ring form: each row's keys are its valid most recent slots,
-    ending at ring_pos; rows longer than ring_pos + 1 wrap past slot t - 1
-    (two copies for a stage that crosses it), one row ends exactly at
-    slot 0, another takes every slot. One launch a call."""
-    b, h, ring = 6, 20, t // 3
+@pytest.mark.parametrize("at", ["third", "first", "last"])
+def test_decode_attention_ring_kernel(int8, t, at):
+    """K2's ring form (csrc/decode_attention_ring.cu): each row's keys are
+    its valid most recent slots, ending at ring_pos (a third of the way in,
+    slot 0, or slot t - 1); rows longer than ring_pos + 1 wrap past slot
+    t - 1, one row ends exactly at slot 0, another takes every slot. One
+    launch a call."""
+    b, h = 6, 20
+    ring = {"third": t // 3, "first": 0, "last": t - 1}[at]
     q, k, v, ks, vs = _decode_inputs(b, t, h, int8, seed=70)
-    valid = torch.tensor([t, 1, ring + 1, ring + 2, t - 1, (2 * t) // 3], dtype=torch.int32,
-                         device="cuda")
+    valid = torch.tensor([t, 1, ring + 1, min(t, ring + 2), t - 1, (2 * t) // 3],
+                         dtype=torch.int32, device="cuda")
     ring_pos = torch.tensor(ring, dtype=torch.int32, device="cuda")
     before = da.decode_attention.ring_launches
     got = da.decode_attention(q, k, v, valid, n_heads=h, k_scale=ks, v_scale=vs,
@@ -438,11 +442,13 @@ def test_decode_attention_ring_kernel(int8, t):
 
 
 @pytest.mark.parametrize("int8", [True, False], ids=["int8", "bf16"])
-@pytest.mark.parametrize("beams", [1, 3, 5])
-@pytest.mark.parametrize("t", [51, 1500])
+@pytest.mark.parametrize("beams", [1, 3, 5, 8, 17])
+@pytest.mark.parametrize("t", [1, 51, 1500])
 def test_decode_attention_beam_kernel(int8, beams, t):
-    """K2's beam form: a group's beam queries against its one shared row,
-    read once. One launch a call."""
+    """K2's beam form (csrc/decode_attention_beam.cu): a group's beam
+    queries against its one shared row, read once; beam counts past 6 (the
+    earlier kernel's cap) and past one 16-beam tile; 3 groups split T=1500
+    over a cluster of key shares. One launch a call."""
     g, h = 3, 20
     q = _randn(g, beams, h, 64, seed=80)
     _, k, v, ks, vs = _decode_inputs(g, t, h, int8, seed=81)

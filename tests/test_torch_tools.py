@@ -5,10 +5,11 @@ On the card they are the timing harnesses; without one they raise.
 k8_probe builds K8's source with clock stamps on the card only."""
 import json
 
+import numpy as np
 import pytest
 import torch
 
-from kotoba_whisper_tpu_torch.tools import enc_exp, k8_probe, stem_exp, vpu_cal
+from kotoba_whisper_tpu_torch.tools import enc_exp, k8_probe, stem_exp, step_time, vpu_cal
 
 TINY = ["--preset", "test-tiny", "--batch", "2", "--device", "cpu"]
 
@@ -73,3 +74,21 @@ def test_k8_probe_raises_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         k8_probe.main([])
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_step_time_budgets_are_bench_budgets(seed):
+    """The stream's budgets (step_time.realistic_stops, which phase 4e of
+    chip_smoke.py draws too) are bench.py's, draw for draw."""
+    from bench import _realistic_stops
+
+    for n, prompt_len in ((192, 4), (48, 4), (7, 3)):
+        np.testing.assert_array_equal(
+            step_time.realistic_stops(n, prompt_len, np.random.default_rng(seed)),
+            _realistic_stops(n, prompt_len, np.random.default_rng(seed)))
+
+
+def test_step_time_raises_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        step_time.main([])
