@@ -2,10 +2,10 @@
 
     python3 chip_smoke.py                # the check: one card, no arguments
     python3 chip_smoke.py --profile DIR  # also trace one main-path run, one
-                                         # fused + w8a8 run, one stream-real
-                                         # run, one beam search and one train
-                                         # step with torch.profiler, tables
-                                         # into DIR/
+                                         # fused + w8a8 run, one beam stream,
+                                         # one stream-real run, one beam
+                                         # search and one train step with
+                                         # torch.profiler, tables into DIR/
 
 Phases, in order; any failure exits nonzero and prints no result line:
 
@@ -36,6 +36,16 @@ Phases, in order; any failure exits nonzero and prints no result line:
   4c. the same path with the inference transforms, fused projections and
      w8a8 (bench.py's fixed-*-w8a8 recipe): B=16 with launch counters and
      stage times, one B=64 batch, the B=2 kernel-vs-plain checks;
+  4g. beam-stream-w8a8 (bench.py's run_stream_beam) on that model:
+     continuous-batching beam search of 96 synthetic 30 s windows, 12
+     groups x 5 beams, refills of 6, 8 steps a round, ring layout, int8 KV,
+     capacity 176, bench.py's budgets, eot live, mel inside the timed
+     window; a warm-up on 24 windows, the best of 2 trials, with the time
+     in refills and in steps; launches by form (K2 ring 32 and beam 32 a
+     step, K1 32 a refill, K3 once a mel batch of 16); every utterance the
+     prompt, then at most its budget's tokens, then pads, a finite score;
+     at 2 groups the kernel path against the plain path (first-step
+     logits);
   4d. encoder variants at B=16 on the fused model: default, the fused stem
      (K7), KWT_FA_INT8=qk and qkpv (K8 in place of K1), enc_exp's fused_ln
      (K6), each with its time, rel-L2 against the default and launches;
@@ -57,16 +67,19 @@ Phases, in order; any failure exits nonzero and prints no result line:
      counters checked; frozen encoder unchanged, decoder moved; at B=2 the
      kernel path against the plain path (loss and decoder gradients); one
      B=16 step in 2 microbatches;
-  5. driver: cli/pseudo_label on synthetic WAV utterances in a tar shard,
+  5. drivers: cli/pseudo_label on synthetic WAV utterances in a tar shard,
      with its default fusion, then with --gemm_dtype int8 under
-     KWT_FA_INT8=qk, then --streaming, then --num_beams 3;
-  5b. training driver: cli/create_student (4-layer encoder at large-v3
-     width) -> cli/distill 2 steps, save -> resume to step 3 -> export;
+     KWT_FA_INT8=qk, then --streaming, then --num_beams 3, then
+     --streaming --num_beams 3; then through `python -m
+     kotoba_whisper_tpu_torch`: filter on the labels with --skip_filtering
+     (K3 on the card) and with the WER gate, merge of the two chunks;
+  5b. create-student (4-layer encoder at large-v3 width) -> distill 2
+     steps on the merged split, save -> resume to step 3 -> export;
   5c. the experiment tools' main(): enc_exp (fused_ln), stem_exp, vpu_cal
      (softmax and exp), few trials, their JSON lines parsed;
   6. a JSON line of every kernel with the launches of the path that runs
-     it (K1-K3: the pseudo-labelling run; K2 ring: the 4e stream; K2 beam:
-     the 4f beam search; K4, K5: the 3 timed train steps;
+     it (K1, K2 prefix: the pseudo-labelling run; K2 ring and beam: the 4g
+     beam stream; K3: phase 5's filter; K4, K5: the 3 timed train steps;
      K6-K8: the 4d encoder runs; K9: the vpu_cal runs of 5c) and its
      numbers;
   7. the last line: {"ok": true, "device": {...}}.
@@ -233,15 +246,17 @@ def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device; this script runs on the card only")
         return 2
-    from kotoba_whisper_tpu_torch.cli import create_student, pseudo_label
-    from kotoba_whisper_tpu_torch.cli import distill as distill_cli
+    from kotoba_whisper_tpu_torch.cli import pseudo_label
     from kotoba_whisper_tpu_torch.core.config import PRESETS, FeatureConfig, SpecialTokens
     from kotoba_whisper_tpu_torch.data import reazon
-    from kotoba_whisper_tpu_torch.data.shards import ShardWriter
+    from kotoba_whisper_tpu_torch.decode import streaming_beam as sb
     from kotoba_whisper_tpu_torch.decode.beam import generate_beam
     from kotoba_whisper_tpu_torch.decode.greedy import (
         GenerateOptions, generate_greedy, transcribe_prompt,
     )
+    from kotoba_whisper_tpu_torch.decode.logits_rules import apply_rules
+    from kotoba_whisper_tpu_torch.decode.streaming import _pool as stream_pool
+    from kotoba_whisper_tpu_torch.decode.streaming import _prompt_tokens as stream_prompt_tokens
     from kotoba_whisper_tpu_torch.models import whisper
     from kotoba_whisper_tpu_torch.models.optimized import fuse_for_inference
     from kotoba_whisper_tpu_torch.models.quantized import quantize_for_inference
@@ -402,71 +417,74 @@ def main() -> int:
         )
         del qd, kf, vf, ks, vs, out, ref, kb, vb, kh, vh, qh
 
-    # K2 ring form: the stream's self-attention (W=48 rows, T=176 ring
-    # slots), per-row valid lengths over [1, 176], a ring slot past which
-    # most rows wrap. Control: each row rolled so that its ring becomes a
-    # prefix gives the prefix twin the ring twin's output (both in fp32).
-    w_s, t_s = 48, 176
-    qd = randn(w_s, h, 64, seed=7)
-    kf, ks = quantize_kv_rows(randn(w_s, t_s, d, seed=8))
-    vf, vs = quantize_kv_rows(randn(w_s, t_s, d, seed=9))
-    valid = torch.linspace(1, t_s, w_s, device="cuda").round().to(torch.int32)
-    ring = torch.tensor(40, dtype=torch.int32, device="cuda")
-    out = da.decode_attention(qd, kf, vf, valid, n_heads=h, k_scale=ks, v_scale=vs, ring_pos=ring)
-    ref = da.decode_attention_reference(qd, kf, vf, valid, n_heads=h, k_scale=ks, v_scale=vs,
-                                        ring_pos=ring)
-    errs = compare(out, ref)
-    flips = out != ref
-    top = float(ref.float().abs()[flips].max()) if flips.any() else 0.0
-    log(f"[kernel] K2 ring: {int(flips.sum())} of {out.numel()} bf16 outputs differ from the "
-        f"twin's (fp32 sums in another order), the largest at |twin| {top:.4f} (a bf16 ulp "
-        f"there: {2.0 ** (math.floor(math.log2(top)) - 7) if top else 0.0:.2e})")
-    slot = torch.remainder(
-        ring + 1 - valid[:, None] + torch.arange(t_s, device="cuda")[None], t_s)  # (W, T)
+    # K2 ring form: a stream's self-attention at 4e's window (W=48 rows) and
+    # 4g's (W=60, 12 groups x 5 beams), T=176 ring slots, per-row valid
+    # lengths over [1, 176], a ring slot past which most rows wrap. Control:
+    # each row rolled so that its ring becomes a prefix gives the prefix twin
+    # the ring twin's output (both in fp32).
+    t_s = 176
+    for w_s in (48, 60):
+        qd = randn(w_s, h, 64, seed=7)
+        kf, ks = quantize_kv_rows(randn(w_s, t_s, d, seed=8))
+        vf, vs = quantize_kv_rows(randn(w_s, t_s, d, seed=9))
+        valid = torch.linspace(1, t_s, w_s, device="cuda").round().to(torch.int32)
+        ring = torch.tensor(40, dtype=torch.int32, device="cuda")
+        out = da.decode_attention(qd, kf, vf, valid, n_heads=h, k_scale=ks, v_scale=vs,
+                                  ring_pos=ring)
+        ref = da.decode_attention_reference(qd, kf, vf, valid, n_heads=h, k_scale=ks, v_scale=vs,
+                                            ring_pos=ring)
+        errs = compare(out, ref)
+        flips = out != ref
+        top = float(ref.float().abs()[flips].max()) if flips.any() else 0.0
+        log(f"[kernel] K2 ring: {int(flips.sum())} of {out.numel()} bf16 outputs differ from the "
+            f"twin's (fp32 sums in another order), the largest at |twin| {top:.4f} (a bf16 ulp "
+            f"there: {2.0 ** (math.floor(math.log2(top)) - 7) if top else 0.0:.2e})")
+        slot = torch.remainder(
+            ring + 1 - valid[:, None] + torch.arange(t_s, device="cuda")[None], t_s)  # (W, T)
 
-    def rolled(x):
-        return x.gather(1, slot[..., None].expand(-1, -1, x.shape[-1]))
+        def rolled(x):
+            return x.gather(1, slot[..., None].expand(-1, -1, x.shape[-1]))
 
-    ring32 = da.decode_attention_reference(qd.float(), kf, vf, valid, n_heads=h, k_scale=ks,
-                                           v_scale=vs, ring_pos=ring)
-    prefix32 = da.decode_attention_reference(qd.float(), rolled(kf), rolled(vf), valid,
-                                             n_heads=h, k_scale=rolled(ks), v_scale=rolled(vs))
-    roll_err = float((ring32 - prefix32).abs().max())
-    wrapped = int((valid > int(ring) + 1).sum())
-    log(f"[kernel] K2 ring control: ring twin vs the prefix twin on rows rolled to a prefix, "
-        f"fp32, max |diff| {roll_err:.3e} (tol 1e-5); {wrapped} of {w_s} rows wrap")
-    if roll_err > 1e-5 or wrapped < w_s // 2:
-        raise AssertionError("K2 ring twin disagrees with the rolled prefix twin")
-    age = torch.remainder(ring - torch.arange(t_s, device="cuda"), t_s)
-    mask = (age[None] < valid[:, None])[:, None, None, :]  # (W, 1, 1, T)
-    kh = (kf.float() * ks).to(torch.bfloat16).view(w_s, t_s, h, 64).transpose(1, 2)
-    vh = (vf.float() * vs).to(torch.bfloat16).view(w_s, t_s, h, 64).transpose(1, 2)
-    qh = qd[:, :, None]
+        ring32 = da.decode_attention_reference(qd.float(), kf, vf, valid, n_heads=h, k_scale=ks,
+                                               v_scale=vs, ring_pos=ring)
+        prefix32 = da.decode_attention_reference(qd.float(), rolled(kf), rolled(vf), valid,
+                                                 n_heads=h, k_scale=rolled(ks), v_scale=rolled(vs))
+        roll_err = float((ring32 - prefix32).abs().max())
+        wrapped = int((valid > int(ring) + 1).sum())
+        log(f"[kernel] K2 ring control: ring twin vs the prefix twin on rows rolled to a prefix, "
+            f"fp32, max |diff| {roll_err:.3e} (tol 1e-5); {wrapped} of {w_s} rows wrap")
+        if roll_err > 1e-5 or wrapped < w_s // 2:
+            raise AssertionError("K2 ring twin disagrees with the rolled prefix twin")
+        age = torch.remainder(ring - torch.arange(t_s, device="cuda"), t_s)
+        mask = (age[None] < valid[:, None])[:, None, None, :]  # (W, 1, 1, T)
+        kh = (kf.float() * ks).to(torch.bfloat16).view(w_s, t_s, h, 64).transpose(1, 2)
+        vh = (vf.float() * vs).to(torch.bfloat16).view(w_s, t_s, h, 64).transpose(1, 2)
+        qh = qd[:, :, None]
 
-    def ring_call():
-        return da.decode_attention(qd, kf, vf, valid, n_heads=h, k_scale=ks, v_scale=vs,
-                                   ring_pos=ring)
+        def ring_call():
+            return da.decode_attention(qd, kf, vf, valid, n_heads=h, k_scale=ks, v_scale=vs,
+                                       ring_pos=ring)
 
-    def ring_library():
-        return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+        def ring_library():
+            return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
 
-    n_keys = int(valid.sum())
-    record(
-        f"K2 decode_attention self ring int8 (W={w_s}, T={t_s}, D=1280, ring_pos 40)",
-        "kotoba_whisper_tpu_torch/csrc/decode_attention_ring.cu",
-        "kotoba_whisper_tpu/ops/decode_attention.py:59", errs, 2e-3,
-        time_ms(ring_call),
-        time_ms(lambda: da.decode_attention_reference(
-            qd, kf, vf, valid, n_heads=h, k_scale=ks, v_scale=vs, ring_pos=ring)),
-        time_ms(ring_library),
-        # the bytes of the valid rows: their K and V and scales, q, out
-        bound(4.0 * n_keys * d, fp32_rate,
-              n_keys * 2 * (d + 4) + nbytes(qd, valid, out), mem_rate),
-        key="K2ring",
-        device_ms=graph_ms(ring_call), library_device_ms=graph_ms(ring_library),
-        host_us=host_us(ring_call), library_host_us=host_us(ring_library),
-    )
-    del qd, kf, vf, ks, vs, out, ref, kh, vh, qh, mask, slot, ring32, prefix32
+        n_keys = int(valid.sum())
+        record(
+            f"K2 decode_attention self ring int8 (W={w_s}, T={t_s}, D=1280, ring_pos 40)",
+            "kotoba_whisper_tpu_torch/csrc/decode_attention_ring.cu",
+            "kotoba_whisper_tpu/ops/decode_attention.py:59", errs, 2e-3,
+            time_ms(ring_call),
+            time_ms(lambda: da.decode_attention_reference(
+                qd, kf, vf, valid, n_heads=h, k_scale=ks, v_scale=vs, ring_pos=ring)),
+            time_ms(ring_library),
+            # the bytes of the valid rows: their K and V and scales, q, out
+            bound(4.0 * n_keys * d, fp32_rate,
+                  n_keys * 2 * (d + 4) + nbytes(qd, valid, out), mem_rate),
+            key="K2ring",
+            device_ms=graph_ms(ring_call), library_device_ms=graph_ms(ring_library),
+            host_us=host_us(ring_call), library_host_us=host_us(ring_library),
+        )
+        del qd, kf, vf, ks, vs, out, ref, kh, vh, qh, mask, slot, ring32, prefix32
 
     # K2 beam form: beam search's cross-attention, 12 groups x 5 beams over
     # each group's one T=1500 row, int8 and bf16
@@ -1142,7 +1160,116 @@ def main() -> int:
     # input moves the plain path, so it is held to that witness (with a
     # quarter's room) and the kernel layer by layer
     kernel_vs_plain(qmodel, "4c", enc_tol=None)
-    del qmodel
+
+    # ---- 4g. beam-stream-w8a8: continuous-batching beam search -------------
+    # bench.py's run_stream_beam on the fused + w8a8 model: 96 windows of
+    # seeded noise, 12 groups x 5 beams (W=60), refills of 6, 8 steps a
+    # round, ring layout, int8 KV, capacity 176, bench.py's budgets, eot
+    # live; log-mel in batches of 16 inside the timed window; a warm-up on
+    # 24 windows, then the best of 2 trials. Refills and steps are timed by
+    # wrapping the module's own _refill and _steps (device-synchronised),
+    # the steps counted by its apply_rules calls (one a step).
+    audio_g, prompt_g, stops_g, opts_g = step_time.beam_stream_workload(st, feat)
+    n_g, p_g, bcfg = audio_g.shape[0], len(prompt_g), step_time.BEAM_STREAM
+    phase = {"refill_s": 0.0, "steps_s": 0.0, "refills": 0, "steps": 0}
+
+    def timed_phase(fn, key):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn(*a, **kw)
+            torch.cuda.synchronize()
+            phase[f"{key}_s"] += time.perf_counter() - t
+            if key == "refill":
+                phase["refills"] += 1
+        return run
+
+    def counted_rules(*a, **kw):
+        phase["steps"] += 1
+        return apply_rules(*a, **kw)
+
+    sb_saved = (sb._refill, sb._steps, sb.apply_rules)
+    sb._refill, sb._steps = timed_phase(sb._refill, "refill"), timed_phase(sb._steps, "steps")
+    sb.apply_rules = counted_rules
+    try:
+        def beam_stream_run(n_run):
+            return step_time.run_beam_stream(qmodel, audio_g[:n_run], opts_g, st, stops_g, feat)
+
+        beam_stream_run(2 * bcfg.groups)  # warm-up on a prefix of the stream
+        g_trials = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            reset_every()
+            phase.update(refill_s=0.0, steps_s=0.0, refills=0, steps=0)
+            t0 = time.perf_counter()
+            toks_g, scores_g = beam_stream_run(n_g)
+            g_trials.append((time.perf_counter() - t0, dict(phase), nonzero(every_count())))
+    finally:
+        sb._refill, sb._steps, sb.apply_rules = sb_saved
+    if args.profile:  # the warm-up's prefix, unwrapped: a trace of the whole
+        # stream holds ~1.5 M events, which torch.profiler takes many minutes to table
+        profile_run(lambda: beam_stream_run(2 * bcfg.groups), "profile_beam_stream.txt",
+                    f"beam-stream-w8a8, first {2 * bcfg.groups} windows")
+    wall_g, phase_g, g_counts = min(g_trials, key=lambda tr: tr[0])
+    steps_g, refills_g = phase_g["steps"], phase_g["refills"]
+    log(f"[4g] beam-stream-w8a8: {n_g} windows, {bcfg.groups} groups x {bcfg.num_beams} beams, "
+        f"E={bcfg.encode_batch}, budgets mean {stops_g.mean():.2f} max {stops_g.max()}: best of "
+        f"{len(g_trials)} trials wall {wall_g:.3f} s ({', '.join(f'{t[0]:.3f}' for t in g_trials)}"
+        f"), {n_g * feat.chunk_length_s / wall_g:.1f} audio-s/s [{card}]; refills "
+        f"{refills_g} in {phase_g['refill_s']:.3f} s ({phase_g['refill_s'] * 1e3 / refills_g:.1f}"
+        f" ms each), steps {steps_g} in {phase_g['steps_s']:.3f} s "
+        f"({phase_g['steps_s'] * 1e3 / max(steps_g, 1):.2f} ms a step), mel, harvest and the "
+        f"rest {wall_g - phase_g['refill_s'] - phase_g['steps_s']:.3f} s; launches {g_counts}")
+    want = {"K1": large.encoder_layers * refills_g, "K2ring": large.decoder_layers * steps_g,
+            "K2beam": large.decoder_layers * steps_g,
+            "K3": -(-n_g // step_time.BEAM_STREAM_MEL_BATCH)}
+    if g_counts != want or refills_g != n_g // bcfg.encode_batch or steps_g < 1:
+        raise AssertionError(f"4g launches {g_counts}, expected {want} ({refills_g} refills, "
+                             f"{steps_g} steps)")
+    bad = []
+    for i in range(n_g):
+        row, stop = toks_g[i], int(stops_g[i])
+        sampled = row[p_g:stop].tolist()
+        end = sampled.index(st.eot) + 1 if st.eot in sampled else len(sampled)
+        if not ((row[:p_g] == prompt_g).all() and (row[stop:] == large.pad_token_id).all()
+                and all(0 <= t < large.vocab_size for t in sampled[:end])
+                and all(t == large.pad_token_id for t in sampled[end:])
+                and np.isfinite(scores_g[i])):
+            bad.append(i)
+    ended = sum(int(st.eot in toks_g[i, p_g:int(stops_g[i])].tolist()) for i in range(n_g))
+    if toks_g.shape != (n_g, opts_g.max_length) or bad:
+        raise AssertionError(f"4g: utterances {bad[:10]} are not the prompt, then at most their "
+                             "budget's tokens, then pads, with a finite score")
+    log(f"[4g] every utterance: prompt, then at most its budget's tokens, then pads, finite "
+        f"score; {ended} of {n_g} ended at eot before their budget; scores "
+        f"{float(scores_g.min()):.4f} .. {float(scores_g.max()):.4f}")
+
+    def beam_stream_first_logits(m, x):
+        """The stream's first step at 2 groups: encode, refill (cross rows
+        one a group, the prompt prefix at the slots trailing the ring
+        slot), one step through K2's ring and beam forms."""
+        feats_g = mel.log_mel_spectrogram(x, feat).to(torch.bfloat16)
+        state = sb._empty_state(m, opts_g, 2, bcfg.num_beams, "int8", torch.device("cuda"))
+        pool_tokens = stream_prompt_tokens(opts_g, large.pad_token_id, 2 * bcfg.num_beams,
+                                           torch.device("cuda"))
+        _, *pool = stream_pool(0, 2, 2, stops_g, opts_g.max_length, torch.device("cuda"))
+        sb._refill(m, state, feats_g, pool_tokens, *pool, opts_g, bcfg.num_beams, True)
+        rows = torch.arange(2 * bcfg.num_beams, device="cuda")
+        last = state.tokens[rows, state.cache.length][:, None]
+        logits, _ = whisper.decode(m, last, cache=state.cache, ring_pos=state.ring,
+                                   beam_size=bcfg.num_beams)
+        return logits[:, 0]
+
+    lg_k = beam_stream_first_logits(qmodel, audio_g[:2].float())
+    with plain_path():
+        lg_p = beam_stream_first_logits(qmodel, audio_g[:2].float())
+    lg_rel = rel(lg_k, lg_p)
+    log(f"[4g] 2 groups x {bcfg.num_beams} beams, kernel vs plain path on the card: first-step "
+        f"logits rel-L2 {lg_rel:.3e} (tol 5e-2), max |logit diff| "
+        f"{float((lg_k - lg_p).abs().max()):.3e}")
+    if not (bool(torch.isfinite(lg_k).all()) and lg_rel <= 5e-2):
+        raise AssertionError("4g: the beam stream's kernel path disagrees with the plain path")
+    del qmodel, audio_g
     torch.cuda.empty_cache()
 
     # ---- 4d. encoder variants at B=16 ---------------------------------------
@@ -1428,7 +1555,19 @@ def main() -> int:
     del teacher, student, state, opt, batch, small
     torch.cuda.empty_cache()
 
-    # ---- 5. driver ----------------------------------------------------------
+    # ---- 5. drivers: stage 2, then stage 3, merge, 4 and 5 -------------------
+    # Six synthetic utterances of 2-7 s in a tar shard with transcripts.
+    # Stage 2 (cli/pseudo_label) with its default fusion, then w8a8
+    # projections with the int8 attention core in the encoder (two batches
+    # of 4), continuous batching (two refills of 4), beam search, and beam
+    # search with continuous batching (one group of 3 beams, refills of 1:
+    # an encode an utterance). Then, in process through `python -m
+    # kotoba_whisper_tpu_torch`: the filter on the default run's labels
+    # with --skip_filtering (its log-mel through K3 on the card, int16
+    # wire) and with the WER gate (the random model's labels miss every
+    # transcript), each as one chunk; merge of the two chunks; and 5b.
+    from kotoba_whisper_tpu_torch.__main__ import main as cli
+
     with tempfile.TemporaryDirectory() as tmp:
         rng = np.random.default_rng(1)
         n_utts = 6
@@ -1438,15 +1577,15 @@ def main() -> int:
             (f"000/utt{i}.wav", wav_bytes(rng.standard_normal(16000 * (2 + i)) * 0.1))
             for i in range(n_utts)
         ])
-        # the driver's default (fused projections), then w8a8 projections
-        # with the int8 attention core in the encoder: two batches of 4;
-        # then continuous batching (two refills of 4) and beam search
+        with open(os.path.join(data, "transcript.tsv"), "w", encoding="utf-8") as f:
+            f.write("\n".join(f"000/utt{i}.wav\tutterance number {i}" for i in range(n_utts)))
         n_batches = -(-n_utts // 4)
         for extra, env, expect_enc in (
                 ([], {}, {"K1": 32 * n_batches}),
                 (["--gemm_dtype", "int8"], {"KWT_FA_INT8": "qk"}, {"K8": 32 * n_batches}),
                 (["--streaming"], {}, {"K1": 32 * n_batches}),
-                (["--num_beams", "3"], {}, {"K1": 32 * n_batches})):
+                (["--num_beams", "3"], {}, {"K1": 32 * n_batches}),
+                (["--streaming", "--num_beams", "3"], {}, {"K1": 32 * n_utts})):
             out = os.path.join(tmp, "out" + "".join(extra))
             t0 = time.perf_counter()
             buf = io.StringIO()
@@ -1467,49 +1606,80 @@ def main() -> int:
             rows = [json.loads(line) for line in open(os.path.join(out, "pseudo_labels.jsonl"))]
             log(f"[driver] {' '.join(extra) or 'default (fused)'} "
                 f"{' '.join(f'{k}={v}' for k, v in env.items())}: {buf.getvalue().strip()} in "
-                f"{time.perf_counter() - t0:.1f} s; encoder launches "
-                f"{ {k: counts.get(k, 0) for k in ('K1', 'K8')} }")
+                f"{time.perf_counter() - t0:.1f} s; launches {counts}")
             if len(rows) != n_utts or not all(
                 isinstance(r["whisper_transcript"], list) and r["whisper_transcript"] for r in rows
             ):
                 raise AssertionError(f"driver wrote {len(rows)} records for {n_utts} utterances")
             if {k: counts.get(k, 0) for k in ("K1", "K8") if counts.get(k)} != expect_enc:
                 raise AssertionError(f"driver encoder launches {counts}, expected {expect_enc}")
+            if extra[:1] == ["--streaming"] and "--num_beams" in extra and not (
+                    counts.get("K2ring") and counts.get("K2ring") == counts.get("K2beam")):
+                raise AssertionError(f"--streaming --num_beams: K2 ring and beam launches {counts}")
 
-    # ---- 5b. training driver --------------------------------------------------
-    # A 4-layer encoder at large-v3 width keeps the student's exports and
-    # checkpoints (~0.8 GB each) short; the decoder is the 2-layer student.
-    with tempfile.TemporaryDirectory() as tmp:
-        rng = np.random.default_rng(2)
-        split = os.path.join(tmp, "split")
-        writer = ShardWriter(split, shard_size=4)
-        for i in range(6):
-            toks = rng.integers(10, 5000, int(rng.integers(8, 24))).tolist()
-            feats_i = rng.standard_normal((large.num_mel_bins, feat.n_frames)).astype(np.float32)
-            writer.add({"name": f"utt{i}", "labels": [st.sot, *toks, st.eot]}, feats_i)
-        writer.close()
+        labels = os.path.join(tmp, "out", "pseudo_labels.jsonl")
+        work = os.path.join(tmp, "work")
+        filter_counts = {}
+        for chunk, extra in ((0, ["--skip_filtering"]), (1, [])):
+            buf = io.StringIO()
+            reset_every()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                cli(["filter", "--dataset_dir", data, "--labels", labels, "--output_dir",
+                     os.path.join(work, f"chunk_{chunk}", "filtered"), "--tokenizer", "byte",
+                     "--n_mels", str(large.num_mel_bins), "--wire_dtype", "int16", *extra])
+            filter_counts[chunk] = nonzero(every_count())
+            log(f"[driver] filter {' '.join(extra) or '(WER gate)'}: {buf.getvalue().strip()} in "
+                f"{time.perf_counter() - t0:.1f} s; launches {filter_counts[chunk]}")
+        kept = [json.loads(line) for line in
+                open(os.path.join(work, "chunk_0", "filtered", "filtered.jsonl"))]
+        feats_f = np.load(os.path.join(work, "chunk_0", "filtered", "features.npz"))[
+            "input_features"]
+        gated = open(os.path.join(work, "chunk_1", "filtered", "filtered.jsonl")).read()
+        if not (len(kept) == n_utts and feats_f.shape == (n_utts, large.num_mel_bins,
+                                                          feat.n_frames)
+                and np.isfinite(feats_f).all() and filter_counts[0] == {"K3": 1}
+                and gated == "" and filter_counts[1] == {}):
+            raise AssertionError(f"filter: kept {len(kept)} of {n_utts} with features "
+                                 f"{feats_f.shape}, launches {filter_counts}; the WER gate kept "
+                                 f"{len(gated.splitlines())}")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli(["merge", "--work_dir", work, "--output_dir", os.path.join(tmp, "merged"),
+                 "--n_chunks", "2", "--chunks_per_split", "2", "--shard_size", "4"])
+        merged = json.loads(buf.getvalue())
+        split = os.path.join(tmp, "merged", "split_0")
+        log(f"[driver] merge: {merged}; split_0 holds {sorted(os.listdir(split))}")
+        if merged["splits"] != [split] or len(open(os.path.join(
+                split, "filtered.jsonl")).read().splitlines()) != n_utts:
+            raise AssertionError(f"merge wrote {merged}")
+
+        # ---- 5b. training driver: create-student -> distill on the merged split
+        # A 4-layer encoder at large-v3 width keeps the student's exports and
+        # checkpoints (~0.8 GB each) short; the decoder is the 2-layer student.
         stu, out = os.path.join(tmp, "student"), os.path.join(tmp, "run")
         distill_args = [
-            "--data_dir", split, "--student", stu, "--teacher", "preset:large-v3",
-            "--output_dir", out, "--per_device_train_batch_size", "2",
-            "--max_label_length", "32", "--warmup_steps", "1", "--logging_steps", "1",
-            "--save_steps", "100", "--num_train_epochs", "2",
+            "distill", "--train_splits", os.path.join(tmp, "merged"), "--student", stu,
+            "--teacher", "preset:large-v3", "--output_dir", out,
+            "--per_device_train_batch_size", "2", "--max_label_length", "64",
+            "--warmup_steps", "1", "--logging_steps", "1", "--save_steps", "100",
+            "--num_train_epochs", "2",
         ]
         t0 = time.perf_counter()
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
-            create_student.main(["--teacher", "preset:large-v3", "--save_dir", stu,
-                                 "--encoder_layers", "4", "--decoder_layers", "2"])
+            cli(["create-student", "--teacher", "preset:large-v3", "--save_dir", stu,
+                 "--encoder_layers", "4", "--decoder_layers", "2"])
             t_create = time.perf_counter() - t0
-            distill_cli.main(distill_args + ["--max_steps", "2"])
+            cli(distill_args + ["--max_steps", "2"])
             t_first = time.perf_counter() - t0 - t_create
-            distill_cli.main(distill_args + ["--max_steps", "3"])
+            cli(distill_args + ["--max_steps", "3"])
         t_all = time.perf_counter() - t0
         said = buf.getvalue()
         with open(os.path.join(out, "metrics.run.jsonl")) as f:
             logged = [json.loads(line) for line in f]
         exported, ex_cfg = import_hf_model(os.path.join(out, "final"))
-        log(f"[driver] create_student {t_create:.1f} s, distill 2 steps {t_first:.1f} s, "
+        log(f"[driver] create-student {t_create:.1f} s, distill 2 steps {t_first:.1f} s, "
             f"resume to step 3 + export {t_all - t_create - t_first:.1f} s [{card}]; "
             f"logged losses {[round(r['train/loss'], 4) for r in logged]}")
         if not ([r["step"] for r in logged] == [1, 2, 3]
@@ -1545,8 +1715,8 @@ def main() -> int:
 
     # ---- 6. kernels line, 7. result ------------------------------------------
     path_launches = {
-        "K1": launches["K1"], "K2": launches["K2"], "K3": launches["K3"],
-        "K2ring": stream_counts["K2ring"], "K2beam": beam_counts["K2beam"],
+        "K1": launches["K1"], "K2": launches["K2"], "K3": filter_counts[0]["K3"],
+        "K2ring": g_counts["K2ring"], "K2beam": g_counts["K2beam"],
         "K4": train_launches["K4"], "K5": train_launches["K5"],
         "K6ln": enc_launches["enc_exp fused_ln"]["K6ln"],
         "K6add": enc_launches["enc_exp fused_ln"]["K6add"],

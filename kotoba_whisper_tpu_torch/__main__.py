@@ -1,0 +1,42 @@
+"""Unified CLI: `python -m kotoba_whisper_tpu_torch <stage> [args...]`.
+
+The stages the port runs, each one driver module's main(): pseudo-label
+(stage 2) -> filter (stage 3) -> merge -> create-student (stage 4) ->
+distill (stage 5). The JAX package's other stages are not ported yet and
+raise so.
+"""
+from __future__ import annotations
+
+import importlib
+import sys
+
+STAGES = {
+    "pseudo-label": ("kotoba_whisper_tpu_torch.cli.pseudo_label", "teacher pseudo-labelling"),
+    "filter": ("kotoba_whisper_tpu_torch.cli.data_filter", "WER filtering + vectorize"),
+    "merge": ("kotoba_whisper_tpu_torch.cli.merge_splits",
+              "merge chunk outputs into split_N training groups"),
+    "create-student": ("kotoba_whisper_tpu_torch.cli.create_student", "student init"),
+    "distill": ("kotoba_whisper_tpu_torch.cli.distill", "distillation training"),
+}
+# the JAX package's stages the port does not have yet
+NOT_PORTED = ("distill-bilingual", "eval", "speed", "report", "prepare-eval-set",
+              "parity-check")
+
+
+def main(argv=None) -> None:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if not argv or argv[0] in ("-h", "--help"):
+        print("usage: python -m kotoba_whisper_tpu_torch <stage> [args...]\n\nstages:")
+        for name, (_, desc) in STAGES.items():
+            print(f"  {name:18s} {desc}")
+        raise SystemExit(0 if argv else 2)
+    stage = argv[0]
+    if stage in NOT_PORTED:
+        raise SystemExit(f"stage {stage!r} is not ported yet")
+    if stage not in STAGES:
+        raise SystemExit(f"unknown stage {stage!r}; try --help")
+    importlib.import_module(STAGES[stage][0]).main(argv[1:])
+
+
+if __name__ == "__main__":
+    main()

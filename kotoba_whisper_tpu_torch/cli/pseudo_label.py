@@ -4,15 +4,16 @@ Streams utterances from tar shards, decodes audio with the native core,
 computes the log-mel features on the device (kernel K3), and decodes
 token-id pseudo-labels with timestamps (encoder attention through K1, or
 K8 under KWT_FA_INT8=qk|qkpv; decode-step attention through K2): greedy
-or beam search (--num_beams N) in lockstep batches, or greedy with
-continuous batching (--streaming: the decode window is refilled as rows
-finish, in super-batches of 4 x --batch_size utterances). Writes
-pseudo_labels.jsonl and a CSV dump, the files the JAX driver writes.
+or beam search (--num_beams N) in lockstep batches, or either with
+continuous batching (--streaming: the decode window is refilled as rows,
+or beam groups, finish, in super-batches of 4 x --batch_size utterances,
+or of 4 x the groups with --num_beams N). Writes pseudo_labels.jsonl and
+a CSV dump, the files the JAX driver writes.
 
 The flags mirror the JAX driver's. As there, the attention projections
 are fused for inference unless --no_fuse is given, and --gemm_dtype int8
 quantizes the projections to w8a8. Ported: --num_beams N, --streaming
-with --num_beams 1, one device, --kv_dtype compute|int8, --gemm_dtype
+(with any --num_beams), one device, --kv_dtype compute|int8, --gemm_dtype
 compute|int8, --wire_dtype float32|int16, --text_lang_task and
 --no_fuse. Any other value raises.
 
@@ -83,7 +84,6 @@ def _parser() -> argparse.ArgumentParser:
 
 def _check_ported(arg, dev: torch.device) -> None:
     unported = [
-        (arg.streaming and arg.num_beams > 1, f"--streaming --num_beams {arg.num_beams}"),
         (arg.num_devices != 1, f"--num_devices {arg.num_devices}"),
         (arg.mesh_model_axis != 1, f"--mesh_model_axis {arg.mesh_model_axis}"),
         (arg.coordinator_address is not None, "--coordinator_address"),
@@ -107,6 +107,10 @@ def main(argv=None) -> None:
     from kotoba_whisper_tpu_torch.decode.beam import generate_beam
     from kotoba_whisper_tpu_torch.decode.greedy import GenerateOptions, generate_greedy
     from kotoba_whisper_tpu_torch.decode.streaming import StreamConfig, generate_greedy_streaming
+    from kotoba_whisper_tpu_torch.decode.streaming_beam import (
+        BeamStreamConfig,
+        generate_beam_streaming,
+    )
     from kotoba_whisper_tpu_torch.ops.mel import log_mel_spectrogram
     from kotoba_whisper_tpu_torch.train.logging import Throughput
     from kotoba_whisper_tpu_torch.utils import native
@@ -225,25 +229,35 @@ def main(argv=None) -> None:
 
     def rows_streaming(writer):
         """Continuous batching: gather a super-batch of utterances, decode
-        it with row refill (the cost follows the mean label length), emit
-        the records in input order."""
+        it with row (greedy) or beam-group refill (the cost follows the
+        mean label length), emit the records in input order."""
         nonlocal n_done
-        scfg = StreamConfig(batch=arg.batch_size, encode_batch=min(16, arg.batch_size),
-                            steps_per_round=8)
-        super_n = arg.batch_size * 4
+        if arg.num_beams > 1:
+            groups = max(arg.batch_size // arg.num_beams, 1)
+            bcfg = BeamStreamConfig(groups=groups, num_beams=arg.num_beams,
+                                    encode_batch=max(min(groups // 2, 8), 1), steps_per_round=8)
+            encode_batch, super_n = bcfg.encode_batch, groups * 4
+        else:
+            scfg = StreamConfig(batch=arg.batch_size, encode_batch=min(16, arg.batch_size),
+                                steps_per_round=8)
+            encode_batch, super_n = scfg.encode_batch, arg.batch_size * 4
+
+        def decode_stream(mels, opts):
+            if arg.num_beams > 1:
+                toks, _ = generate_beam_streaming(model, mels, opts, tok.special,
+                                                  kv_dtype=arg.kv_dtype, stream=bcfg, device=dev)
+                return toks
+            return generate_greedy_streaming(model, mels, opts, tok.special,
+                                             kv_dtype=arg.kv_dtype, stream=scfg, device=dev)
 
         def flush(buf):
             nonlocal n_done
             mels = torch.cat([
                 log_mel_spectrogram(wire(np.stack([row for _, _, row in chunk])), feat,
                                     device=dev)
-                for chunk in common.batched(buf, scfg.encode_batch)
+                for chunk in common.batched(buf, encode_batch)
             ])
-            per_task = {
-                key: generate_greedy_streaming(model, mels, opts, tok.special,
-                                               kv_dtype=arg.kv_dtype, stream=scfg, device=dev)
-                for key, opts in task_opts.items()
-            }
+            per_task = {key: decode_stream(mels, opts) for key, opts in task_opts.items()}
             for bi, (u, wav, _) in enumerate(buf):
                 n_done += 1
                 yield make_record(u, wav, per_task, bi, writer)

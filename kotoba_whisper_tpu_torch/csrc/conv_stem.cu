@@ -56,6 +56,7 @@
 // without bank conflicts, and leaves them to TMA stores, which skip rows
 // past T and channels past d and drain while the next tile's products
 // run.
+#include "card.cuh"
 #include "sm90_common.cuh"
 
 namespace {
@@ -313,9 +314,11 @@ ConvArgs conv_args(const long long* plan, int conv) {
 // aligned. Three launches: the transpose, conv1, conv2. Returns the first
 // failing launch's cudaError_t, or cudaErrorInvalidValue when a tensor map
 // cannot be encoded.
-extern "C" int kwt_conv_stem(const void* x, const void* w1, const void* b1, const void* w2,
-                             const void* b2, void* xt, void* y1, void* out,
+extern "C" int kwt_conv_stem(int card, const void* x, const void* w1, const void* b1,
+                             const void* w2, const void* b2, void* xt, void* y1, void* out,
                              const long long* plan, void* stream) {
+  const kwt_card::CardScope scope(card);
+  if (scope.error()) return scope.error();
   const cuuint64_t batch = plan[0], t = plan[1], c_in = plan[2], d = plan[3];
   if (c_in % 8 != 0 || d % 8 != 0 || t % 2 != 0) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap tm_x, tm_w1, tm_y1_out, tm_y1_in, tm_w2, tm_out;
@@ -344,14 +347,22 @@ extern "C" int kwt_conv_stem(const void* x, const void* w1, const void* b1, cons
       !make_map(&tm_out, 3, out, o_dims, o_strides, o_box))
     return static_cast<int>(cudaErrorInvalidValue);
 
-  static int n_sms = 0;
+  // per card: its SM count, set once the kernels' shared-memory limit is
+  // raised there
+  static int n_sms_of[kwt_card::kMaxCards] = {};
+  int& n_sms = n_sms_of[card];
   const int smem = static_cast<int>(sizeof(Smem)) + 1024;  // + alignment slack
   if (n_sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n_sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaFuncSetAttribute(conv_gemm_sm90<1>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    cudaFuncSetAttribute(conv_gemm_sm90<2>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    cudaError_t e =
+        cudaFuncSetAttribute(conv_gemm_sm90<1>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(conv_gemm_sm90<2>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&n_sms, cudaDevAttrMultiProcessorCount, card);
+    if (e != cudaSuccess) {
+      n_sms = 0;  // try again on the next call
+      return static_cast<int>(e);
+    }
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n_c = static_cast<int>(c_in), n_t = static_cast<int>(t);

@@ -34,6 +34,7 @@
 // after one cluster barrier each owner writes its slice: no fp32 partials
 // in device memory and no second launch. The self-attention cache
 // (T <= 64) is one CTA per row.
+#include "card.cuh"
 #include "sm90_common.cuh"
 
 namespace {
@@ -269,12 +270,15 @@ __global__ void __launch_bounds__(kThreads, 2)
 }
 
 template <typename KV>
-int launch(const void* q, long q_stride, const void* k, const void* v, const void* k_scale,
-           const void* v_scale, const void* valid_rows, int valid_all, void* out, int batch,
-           int t_cap, int n_heads, int n_ctas, int rows_per_cta, cudaStream_t stream) {
+int launch(int card, const void* q, long q_stride, const void* k, const void* v,
+           const void* k_scale, const void* v_scale, const void* valid_rows, int valid_all,
+           void* out, int batch, int t_cap, int n_heads, int n_ctas, int rows_per_cta,
+           cudaStream_t stream) {
   const int d = n_heads * kHD;
   const Layout lay(rows_per_cta, n_heads, d);
-  static int configured = 0;
+  // per card: the largest shared-memory size opted into there
+  static int configured_of[kwt_card::kMaxCards] = {};
+  int& configured = configured_of[card];
   if (configured < lay.total) {
     const cudaError_t err = cudaFuncSetAttribute(
         decode_kernel<KV>, cudaFuncAttributeMaxDynamicSharedMemorySize, lay.total);
@@ -309,15 +313,17 @@ int launch(const void* q, long q_stride, const void* k, const void* v, const voi
 // (<= 8) per batch row, each over rows_per_cta cache rows (the split plan
 // of ops/decode_attention.py). out (B, H*64) bf16. Returns the launch's
 // cudaError_t.
-extern "C" int kwt_decode_attention(const void* q, long long q_stride, const void* k,
-                                    const void* v, const void* k_scale, const void* v_scale,
-                                    const void* valid_rows, int valid_all, void* out, int batch,
-                                    int t_cap, int n_heads, int n_ctas, int rows_per_cta,
-                                    int kv_int8, void* stream) {
+extern "C" int kwt_decode_attention(int card, const void* q, long long q_stride,
+                                    const void* k, const void* v, const void* k_scale,
+                                    const void* v_scale, const void* valid_rows, int valid_all,
+                                    void* out, int batch, int t_cap, int n_heads, int n_ctas,
+                                    int rows_per_cta, int kv_int8, void* stream) {
+  const kwt_card::CardScope scope(card);
+  if (scope.error()) return scope.error();
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (kv_int8)
-    return launch<int8_t>(q, (long)q_stride, k, v, k_scale, v_scale, valid_rows, valid_all,
-                          out, batch, t_cap, n_heads, n_ctas, rows_per_cta, s);
-  return launch<__nv_bfloat16>(q, (long)q_stride, k, v, k_scale, v_scale, valid_rows,
+    return launch<int8_t>(card, q, (long)q_stride, k, v, k_scale, v_scale, valid_rows,
+                          valid_all, out, batch, t_cap, n_heads, n_ctas, rows_per_cta, s);
+  return launch<__nv_bfloat16>(card, q, (long)q_stride, k, v, k_scale, v_scale, valid_rows,
                                valid_all, out, batch, t_cap, n_heads, n_ctas, rows_per_cta, s);
 }

@@ -57,6 +57,7 @@
 //   counted on one mbarrier. Four consumer warps take tiles in turn, each
 //   with its own running state, and merge (max, sum, O) in shared memory
 //   at the end.
+#include "card.cuh"
 #include "sm90_common.cuh"
 
 namespace {
@@ -68,7 +69,6 @@ constexpr int kKeys = 64;          // keys a tile (ops/decode_attention.py BEAM_
 constexpr int kRows = 16;          // beams a tile: mma.sync's M (BEAM_ROWS)
 constexpr int kConsumerWarps = 4;  // (BEAM_WARPS)
 constexpr int kThreads = 32 * (kConsumerWarps + 1);
-constexpr int kMaxDevices = 64;    // cards the host entry keeps set-up state for
 constexpr float kLog2e = 1.4426950408889634f;
 
 template <typename KV>
@@ -481,9 +481,9 @@ bool make_map(CUtensorMap* map, const void* base, int groups, int t_len, int n_h
 }
 
 template <typename KV>
-int launch(const void* q, long q_stride, const void* k, const void* v, const void* k_scale,
-           const void* v_scale, void* out, int groups, int t_len, int n_heads, int beams,
-           int splits, int keys_per_split, cudaStream_t stream) {
+int launch(int card, const void* q, long q_stride, const void* k, const void* v,
+           const void* k_scale, const void* v_scale, void* out, int groups, int t_len,
+           int n_heads, int beams, int splits, int keys_per_split, cudaStream_t stream) {
   // a beam search's cross caches (one a layer) are allocated once
   CUtensorMap tk, tv;
   const int i8 = sizeof(KV) == 1;
@@ -493,15 +493,12 @@ int launch(const void* q, long q_stride, const void* k, const void* v, const voi
                    [&](CUtensorMap* m) { return make_map<KV>(m, v, groups, t_len, n_heads); }))
     return static_cast<int>(cudaErrorInvalidValue);
   const int smem = static_cast<int>(sizeof(Smem<KV>)) + 1024;  // + alignment slack
-  static bool configured[kMaxDevices] = {};
-  int dev = 0;
-  cudaGetDevice(&dev);
-  if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
-  if (!configured[dev]) {
+  static bool configured[kwt_card::kMaxCards] = {};
+  if (!configured[card]) {
     const cudaError_t err = cudaFuncSetAttribute(
         beam_kernel<KV>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    configured[dev] = true;
+    configured[card] = true;
   }
   const int m_tiles = (beams + kRows - 1) / kRows;
   cudaLaunchConfig_t cfg = {};
@@ -532,15 +529,17 @@ int launch(const void* q, long q_stride, const void* k, const void* v, const voi
 // multiple of 64; ops/decode_attention.py `beam_plan`). out (G, K, H, 64)
 // bf16. Returns the launch's cudaError_t, or cudaErrorInvalidValue when a
 // tensor map cannot be encoded.
-extern "C" int kwt_decode_attention_beam(const void* q, long long q_stride, const void* k,
-                                         const void* v, const void* k_scale,
+extern "C" int kwt_decode_attention_beam(int card, const void* q, long long q_stride,
+                                         const void* k, const void* v, const void* k_scale,
                                          const void* v_scale, void* out, int groups, int t_len,
                                          int n_heads, int beams, int splits, int keys_per_split,
                                          int kv_int8, void* stream) {
+  const kwt_card::CardScope scope(card);
+  if (scope.error()) return scope.error();
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (kv_int8)
-    return launch<int8_t>(q, (long)q_stride, k, v, k_scale, v_scale, out, groups, t_len,
+    return launch<int8_t>(card, q, (long)q_stride, k, v, k_scale, v_scale, out, groups, t_len,
                           n_heads, beams, splits, keys_per_split, s);
-  return launch<__nv_bfloat16>(q, (long)q_stride, k, v, k_scale, v_scale, out, groups, t_len,
-                               n_heads, beams, splits, keys_per_split, s);
+  return launch<__nv_bfloat16>(card, q, (long)q_stride, k, v, k_scale, v_scale, out, groups,
+                               t_len, n_heads, beams, splits, keys_per_split, s);
 }

@@ -38,6 +38,7 @@
 // reduce by shuffles, and after a second barrier the warps' sums and O / l.
 // ring_pos and valid are read from device memory, so a captured CUDA graph
 // replays with the values of the moment.
+#include "card.cuh"
 #include "sm90_common.cuh"
 
 namespace {
@@ -48,7 +49,6 @@ constexpr int kHD = 64;  // head dim
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kBox = 32;    // slots a TMA box (ops/decode_attention.py RING_BOX)
-constexpr int kMaxDevices = 64;  // cards the host entry keeps set-up state for
 
 // Shared memory of one CTA over `hpc` heads and t_cap slots: K and V by
 // slot (each with a box's overhang past T; K's space, at least the warps'
@@ -256,20 +256,18 @@ bool make_map(CUtensorMap* map, const void* base, int batch, int t_cap, int n_he
 }
 
 template <typename KV>
-int launch(const void* q, long q_stride, const void* k, const void* v, const void* k_scale,
-           const void* v_scale, const void* valid_rows, int valid_all, const void* ring_pos,
-           void* out, int batch, int t_cap, int n_heads, int hpc, cudaStream_t stream) {
-  static bool configured[kMaxDevices] = {};
-  int dev = 0;
-  cudaGetDevice(&dev);
-  if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
-  if (!configured[dev]) {
+int launch(int card, const void* q, long q_stride, const void* k, const void* v,
+           const void* k_scale, const void* v_scale, const void* valid_rows, int valid_all,
+           const void* ring_pos, void* out, int batch, int t_cap, int n_heads, int hpc,
+           cudaStream_t stream) {
+  static bool configured[kwt_card::kMaxCards] = {};
+  if (!configured[card]) {
     int most = 0;
-    cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin, card);
     const cudaError_t err =
         cudaFuncSetAttribute(ring_kernel<KV>, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
     if (err != cudaSuccess) return static_cast<int>(err);
-    configured[dev] = true;
+    configured[card] = true;
   }
   // a stream's self caches (one a layer) are allocated once
   CUtensorMap tk, tv;
@@ -297,16 +295,18 @@ int launch(const void* q, long q_stride, const void* k, const void* v, const voi
 // *ring_pos. One CTA per (row, hpc heads); hpc divides H and 64
 // (ops/decode_attention.py `ring_plan`). out (B, H*64) bf16. Returns the
 // launch's cudaError_t.
-extern "C" int kwt_decode_attention_ring(const void* q, long long q_stride, const void* k,
-                                         const void* v, const void* k_scale,
+extern "C" int kwt_decode_attention_ring(int card, const void* q, long long q_stride,
+                                         const void* k, const void* v, const void* k_scale,
                                          const void* v_scale, const void* valid_rows,
                                          int valid_all, const void* ring_pos, void* out,
                                          int batch, int t_cap, int n_heads, int hpc, int kv_int8,
                                          void* stream) {
+  const kwt_card::CardScope scope(card);
+  if (scope.error()) return scope.error();
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (kv_int8)
-    return launch<int8_t>(q, (long)q_stride, k, v, k_scale, v_scale, valid_rows, valid_all,
-                          ring_pos, out, batch, t_cap, n_heads, hpc, s);
-  return launch<__nv_bfloat16>(q, (long)q_stride, k, v, k_scale, v_scale, valid_rows, valid_all,
-                               ring_pos, out, batch, t_cap, n_heads, hpc, s);
+    return launch<int8_t>(card, q, (long)q_stride, k, v, k_scale, v_scale, valid_rows,
+                          valid_all, ring_pos, out, batch, t_cap, n_heads, hpc, s);
+  return launch<__nv_bfloat16>(card, q, (long)q_stride, k, v, k_scale, v_scale, valid_rows,
+                               valid_all, ring_pos, out, batch, t_cap, n_heads, hpc, s);
 }

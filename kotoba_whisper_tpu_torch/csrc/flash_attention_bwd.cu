@@ -79,6 +79,7 @@
 // the dS barrier.
 #include <cuda.h>
 
+#include "card.cuh"
 #include "sm90_common.cuh"
 
 namespace {
@@ -499,10 +500,12 @@ bool make_map(CUtensorMap* map, const void* base, int batch, int t, int n_heads,
 // direct, the dQ conversion on `stream`. Returns the first launch's
 // cudaError_t, or cudaErrorInvalidValue when a tensor map cannot be
 // encoded.
-extern "C" int kwt_flash_attention_bwd(const void* q, const void* k, const void* v,
+extern "C" int kwt_flash_attention_bwd(int card, const void* q, const void* k, const void* v,
                                        const void* o, const void* dout, const void* lse,
                                        void* dq, void* dkv, void* scratch,
                                        const long long* plan, void* stream) {
+  const kwt_card::CardScope scope(card);
+  if (scope.error()) return scope.error();
   const int batch = static_cast<int>(plan[0]), tq = static_cast<int>(plan[1]);
   const int tk = static_cast<int>(plan[2]), n_heads = static_cast<int>(plan[3]);
   const bool causal = plan[4] != 0;
@@ -517,17 +520,18 @@ extern "C" int kwt_flash_attention_bwd(const void* q, const void* k, const void*
       !make_map(&tm_do, dout, batch, tq, n_heads, st[9], st[10], st[11], kBM) ||
       !make_map(&tm_dkv, dkv, 2 * batch, tk, n_heads, head, token, token * tk, 64))
     return static_cast<int>(cudaErrorInvalidValue);
-  static int n_sms = 0;
+  // per card: its SM count, set once the kernels' shared-memory limit is
+  // raised there
+  static int n_sms_of[kwt_card::kMaxCards] = {};
+  int& n_sms = n_sms_of[card];
   const int smem = static_cast<int>(sizeof(Smem)) + 1024;  // + alignment slack
   if (n_sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n_sms, cudaDevAttrMultiProcessorCount, dev);
     cudaError_t e = cudaFuncSetAttribute(flash_bwd_sm90_kernel<false>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e == cudaSuccess)
       e = cudaFuncSetAttribute(flash_bwd_sm90_kernel<true>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&n_sms, cudaDevAttrMultiProcessorCount, card);
     if (e != cudaSuccess) {
       n_sms = 0;  // try again on the next call
       return static_cast<int>(e);

@@ -80,6 +80,7 @@
 
 #include <type_traits>
 
+#include "card.cuh"
 #include "sm90_common.cuh"
 
 namespace {
@@ -99,7 +100,6 @@ constexpr uint32_t kQBytes = kBM * kD * 2;   // one 128 x 64 bf16 Q box
 constexpr uint32_t kK8Bytes = kBN * kD;      // one 128 x 64 int8 key box
 constexpr uint32_t kKsBytes = kBN * 4;       // its scales
 constexpr int kPreThreads = 256;
-constexpr int kMaxDevices = 64;  // cards the host entry keeps set-up state for
 constexpr float kInv127 = (float)(1.0 / 127.0);
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
@@ -772,9 +772,11 @@ bool make_map(CUtensorMap* map, CUtensorMapDataType type, CUtensorMapSwizzle swi
 // kernel (3: both, in order, on `stream`). Returns the first failing
 // launch's cudaError_t, or cudaErrorInvalidValue when a tensor map cannot
 // be encoded.
-extern "C" int kwt_flash_attention_int8(const void* q, const void* k, const void* v, void* o,
-                                        void* lse, void* scratch, const long long* plan,
-                                        int phases, void* stream) {
+extern "C" int kwt_flash_attention_int8(int card, const void* q, const void* k, const void* v,
+                                        void* o, void* lse, void* scratch,
+                                        const long long* plan, int phases, void* stream) {
+  const kwt_card::CardScope scope(card);
+  if (scope.error()) return scope.error();
   const int batch = static_cast<int>(plan[0]), tq = static_cast<int>(plan[1]);
   const int tk = static_cast<int>(plan[2]), n_heads = static_cast<int>(plan[3]);
   const bool pv8 = plan[4] != 0;
@@ -787,21 +789,18 @@ extern "C" int kwt_flash_attention_int8(const void* q, const void* k, const void
   float* vs = reinterpret_cast<float*>(base + plan[17]);
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
 
-  // per device: its SM count, set once the kernels' shared-memory limit is
+  // per card: its SM count, set once the kernels' shared-memory limit is
   // raised there (a function attribute holds for the current device only)
-  static int n_sms_of[kMaxDevices] = {};
-  int dev = 0;
-  cudaGetDevice(&dev);
-  if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
-  int& n_sms = n_sms_of[dev];
+  static int n_sms_of[kwt_card::kMaxCards] = {};
+  int& n_sms = n_sms_of[card];
   const int smem = static_cast<int>(sizeof(Smem)) + 1024;  // + alignment slack
   if (n_sms == 0) {
-    cudaDeviceGetAttribute(&n_sms, cudaDevAttrMultiProcessorCount, dev);
     cudaError_t e = cudaFuncSetAttribute(flash_int8_kernel<false>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e == cudaSuccess)
       e = cudaFuncSetAttribute(flash_int8_kernel<true>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&n_sms, cudaDevAttrMultiProcessorCount, card);
     if (e != cudaSuccess) {
       n_sms = 0;  // try again on the next call
       return static_cast<int>(e);

@@ -47,6 +47,7 @@
 // its running max is finite before any tile where the row sees no key.
 #include <cuda.h>
 
+#include "card.cuh"
 #include "sm90_common.cuh"
 
 namespace {
@@ -377,9 +378,11 @@ bool make_map(CUtensorMap* map, const void* base, int batch, int t, int n_heads,
 // tq <= tk), then the byte strides of q's, k's and v's heads, tokens and
 // batch (multiples of 16). Returns the launch's cudaError_t, or
 // cudaErrorInvalidValue when a tensor map cannot be encoded.
-extern "C" int kwt_flash_attention_sm90_fwd(const void* q, const void* k, const void* v,
-                                            void* o, void* lse, const long long* plan,
-                                            void* stream) {
+extern "C" int kwt_flash_attention_sm90_fwd(int card, const void* q, const void* k,
+                                            const void* v, void* o, void* lse,
+                                            const long long* plan, void* stream) {
+  const kwt_card::CardScope scope(card);
+  if (scope.error()) return scope.error();
   const int batch = static_cast<int>(plan[0]), tq = static_cast<int>(plan[1]);
   const int tk = static_cast<int>(plan[2]), n_heads = static_cast<int>(plan[3]);
   const long long* st = plan + 5;
@@ -388,16 +391,22 @@ extern "C" int kwt_flash_attention_sm90_fwd(const void* q, const void* k, const 
       !make_map(&tm_k, k, batch, tk, n_heads, st[3], st[4], st[5], kBN) ||
       !make_map(&tm_v, v, batch, tk, n_heads, st[6], st[7], st[8], kBN))
     return static_cast<int>(cudaErrorInvalidValue);
-  static int n_sms = 0;
+  // per card: its SM count, set once the kernels' shared-memory limit is
+  // raised there
+  static int n_sms_of[kwt_card::kMaxCards] = {};
+  int& n_sms = n_sms_of[card];
   const int smem = static_cast<int>(sizeof(Smem)) + 1024;  // + alignment slack
   if (n_sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n_sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaFuncSetAttribute(flash_fwd_sm90_kernel<false>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    cudaFuncSetAttribute(flash_fwd_sm90_kernel<true>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    cudaError_t e = cudaFuncSetAttribute(flash_fwd_sm90_kernel<false>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(flash_fwd_sm90_kernel<true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&n_sms, cudaDevAttrMultiProcessorCount, card);
+    if (e != cudaSuccess) {
+      n_sms = 0;  // try again on the next call
+      return static_cast<int>(e);
+    }
   }
   const int n_qtiles = (tq + kBM - 1) / kBM;
   const int n_work = n_qtiles * batch * n_heads;

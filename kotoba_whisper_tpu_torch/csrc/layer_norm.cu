@@ -38,6 +38,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "card.cuh"
+
 namespace {
 
 constexpr int kMaxChunks = 8;  // 16-byte chunks per lane: rows <= 2048
@@ -201,15 +203,18 @@ __global__ void __launch_bounds__(kThreads)
 // The persistent grid of one instantiation: the blocks that fit on every
 // SM at once (at least one), never more than the rows need.
 template <int kChunks, typename WT, bool kAdd>
-int launch_one(const void* x, const void* y, const void* w, const void* b, void* sum_out,
-               void* out, int rows, int d, float eps, cudaStream_t stream) {
-  static int resident = 0;  // blocks on the whole card, per instantiation
+int launch_one(int card, const void* x, const void* y, const void* w, const void* b,
+               void* sum_out, void* out, int rows, int d, float eps, cudaStream_t stream) {
+  // blocks on the whole card, per instantiation and card
+  static int resident_of[kwt_card::kMaxCards] = {};
+  int& resident = resident_of[card];
   auto kernel = layer_norm_kernel<kChunks, WT, kAdd>;
   if (resident == 0) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
+    int sms = 0, per_sm = 0;
+    cudaError_t e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, card);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
+    if (e != cudaSuccess) return static_cast<int>(e);
     resident = sms * (per_sm > 0 ? per_sm : 1);
   }
   const int needed = (rows + kWarps - 1) / kWarps;
@@ -221,25 +226,26 @@ int launch_one(const void* x, const void* y, const void* w, const void* b, void*
 }
 
 template <int kChunks, typename WT>
-int launch_add(bool add, const void* x, const void* y, const void* w, const void* b,
+int launch_add(int card, bool add, const void* x, const void* y, const void* w, const void* b,
                void* sum_out, void* out, int rows, int d, float eps, cudaStream_t stream) {
-  return add ? launch_one<kChunks, WT, true>(x, y, w, b, sum_out, out, rows, d, eps, stream)
-             : launch_one<kChunks, WT, false>(x, y, w, b, sum_out, out, rows, d, eps, stream);
+  return add
+      ? launch_one<kChunks, WT, true>(card, x, y, w, b, sum_out, out, rows, d, eps, stream)
+      : launch_one<kChunks, WT, false>(card, x, y, w, b, sum_out, out, rows, d, eps, stream);
 }
 
 template <typename WT>
-int launch_width(const void* x, const void* y, const void* w, const void* b, void* sum_out,
-                 void* out, int rows, int d, float eps, cudaStream_t stream) {
+int launch_width(int card, const void* x, const void* y, const void* w, const void* b,
+                 void* sum_out, void* out, int rows, int d, float eps, cudaStream_t stream) {
   const bool add = y != nullptr;
   switch ((d / 8 + 31) / 32) {  // chunks per lane
-    case 1: return launch_add<1, WT>(add, x, y, w, b, sum_out, out, rows, d, eps, stream);
-    case 2: return launch_add<2, WT>(add, x, y, w, b, sum_out, out, rows, d, eps, stream);
-    case 3: return launch_add<3, WT>(add, x, y, w, b, sum_out, out, rows, d, eps, stream);
-    case 4: return launch_add<4, WT>(add, x, y, w, b, sum_out, out, rows, d, eps, stream);
-    case 5: return launch_add<5, WT>(add, x, y, w, b, sum_out, out, rows, d, eps, stream);
-    case 6: return launch_add<6, WT>(add, x, y, w, b, sum_out, out, rows, d, eps, stream);
-    case 7: return launch_add<7, WT>(add, x, y, w, b, sum_out, out, rows, d, eps, stream);
-    case 8: return launch_add<8, WT>(add, x, y, w, b, sum_out, out, rows, d, eps, stream);
+    case 1: return launch_add<1, WT>(card, add, x, y, w, b, sum_out, out, rows, d, eps, stream);
+    case 2: return launch_add<2, WT>(card, add, x, y, w, b, sum_out, out, rows, d, eps, stream);
+    case 3: return launch_add<3, WT>(card, add, x, y, w, b, sum_out, out, rows, d, eps, stream);
+    case 4: return launch_add<4, WT>(card, add, x, y, w, b, sum_out, out, rows, d, eps, stream);
+    case 5: return launch_add<5, WT>(card, add, x, y, w, b, sum_out, out, rows, d, eps, stream);
+    case 6: return launch_add<6, WT>(card, add, x, y, w, b, sum_out, out, rows, d, eps, stream);
+    case 7: return launch_add<7, WT>(card, add, x, y, w, b, sum_out, out, rows, d, eps, stream);
+    case 8: return launch_add<8, WT>(card, add, x, y, w, b, sum_out, out, rows, d, eps, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -250,12 +256,14 @@ int launch_width(const void* x, const void* y, const void* w, const void* b, voi
 // or fp32 (w_fp32 != 0); sum_out (rows, d) bf16 (written only when y is
 // given); out (rows, d) bf16. Every pointer 16-byte aligned, 0 < d <= 2048,
 // d % 8 == 0. Returns the launch's cudaError_t.
-extern "C" int kwt_layer_norm(const void* x, const void* y, const void* w, const void* b,
-                              int w_fp32, void* sum_out, void* out, int rows, int d,
-                              float eps, void* stream) {
+extern "C" int kwt_layer_norm(int card, const void* x, const void* y, const void* w,
+                              const void* b, int w_fp32, void* sum_out, void* out, int rows,
+                              int d, float eps, void* stream) {
   if (d <= 0 || d % 8 != 0 || d > kMaxChunks * 8 * 32 || rows <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  const kwt_card::CardScope scope(card);
+  if (scope.error()) return scope.error();
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return w_fp32 ? launch_width<float>(x, y, w, b, sum_out, out, rows, d, eps, s)
-                : launch_width<__nv_bfloat16>(x, y, w, b, sum_out, out, rows, d, eps, s);
+  return w_fp32 ? launch_width<float>(card, x, y, w, b, sum_out, out, rows, d, eps, s)
+                : launch_width<__nv_bfloat16>(card, x, y, w, b, sum_out, out, rows, d, eps, s);
 }

@@ -46,6 +46,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "card.cuh"
+
 namespace {
 
 constexpr int kNFFT = 400;
@@ -262,14 +264,15 @@ __global__ void __launch_bounds__(kThreads, 3)
 }
 
 template <typename In>
-int launch(const void* audio, const void* table, const void* fb_w, const void* fb_lo,
+int launch(int card, const void* audio, const void* table, const void* fb_w, const void* fb_lo,
            const void* fb_off, void* out, int batch, long long n_samples, int n_frames,
            int n_mels, float in_scale, cudaStream_t stream) {
-  static bool ready = false;
-  if (!ready) {
-    cudaFuncSetAttribute(mel_kernel<In>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(sizeof(Smem)));
-    ready = true;
+  static bool ready[kwt_card::kMaxCards] = {};
+  if (!ready[card]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        mel_kernel<In>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(sizeof(Smem)));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ready[card] = true;
   }
   dim3 grid((n_frames + kFrames - 1) / kFrames, batch);
   mel_kernel<In><<<grid, kThreads, sizeof(Smem), stream>>>(
@@ -288,15 +291,17 @@ int launch(const void* audio, const void* table, const void* fb_w, const void* f
 // (n_mels,) and fb_off (n_mels + 1,) int32, n_mels <= kMaxMels -> out (B,
 // n_frames, n_mels) fp32 log10 mel (unclamped). Returns the launch's
 // cudaError_t.
-extern "C" int kwt_log_mel(const void* audio, int in_int16, const void* table,
+extern "C" int kwt_log_mel(int card, const void* audio, int in_int16, const void* table,
                            const void* fb_w, const void* fb_lo, const void* fb_off,
                            void* out, int batch,
                            long long n_samples, int n_frames, int n_mels,
                            void* stream) {
   if (n_mels > kMaxMels) return static_cast<int>(cudaErrorInvalidValue);
+  const kwt_card::CardScope scope(card);
+  if (scope.error()) return scope.error();
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return in_int16 ? launch<int16_t>(audio, table, fb_w, fb_lo, fb_off, out, batch, n_samples,
-                                    n_frames, n_mels, 1.0f / 32768.0f, s)
-                  : launch<float>(audio, table, fb_w, fb_lo, fb_off, out, batch, n_samples,
+  return in_int16 ? launch<int16_t>(card, audio, table, fb_w, fb_lo, fb_off, out, batch,
+                                    n_samples, n_frames, n_mels, 1.0f / 32768.0f, s)
+                  : launch<float>(card, audio, table, fb_w, fb_lo, fb_off, out, batch, n_samples,
                                   n_frames, n_mels, 1.0f, s);
 }

@@ -28,6 +28,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "card.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -102,8 +104,10 @@ void launch(bool softmax, const float* x, float* out, int rows, int cols,
 // x (rows, cols) fp32 with cols <= 2048; out (rows,) fp32. op_softmax != 0
 // runs the softmax body, else the bare exponential. Returns the launch's
 // cudaError_t.
-extern "C" int kwt_vpu_cal(const void* x, void* out, int rows, int cols,
+extern "C" int kwt_vpu_cal(int card, const void* x, void* out, int rows, int cols,
                            int iters, int op_softmax, void* stream) {
+  const kwt_card::CardScope scope(card);
+  if (scope.error()) return scope.error();
   const float* xf = static_cast<const float*>(x);
   float* of = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -148,6 +148,21 @@ class FeatureStore:
             np.asarray(arr[:: max(1, len(arr) // 64)]).sum()
 
 
+def convert_npz_dir(src_dir: str, writer: ShardWriter) -> int:
+    """Stream one chunk dir of the filter stage (filtered.jsonl and, unless
+    it ran with --skip_logmel, features.npz) into a ShardWriter, one
+    chunk's features in memory at a time. -> rows written."""
+    rows = read_jsonl(os.path.join(src_dir, ROWS_NAME))
+    npz_path = os.path.join(src_dir, LEGACY_NPZ)
+    feats = None
+    if os.path.exists(npz_path):
+        feats = np.load(npz_path)["input_features"]
+        if feats.shape[0] != len(rows):
+            raise ValueError(f"{src_dir}: {feats.shape[0]} features != {len(rows)} rows")
+    writer.add_batch(rows, feats)
+    return len(rows)
+
+
 def resolve_split_dirs(spec: str) -> list[str]:
     """A --train_splits argument: a comma list of dirs, a root dir holding
     split_* subdirs, or one dir."""

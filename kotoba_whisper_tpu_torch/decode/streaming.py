@@ -79,27 +79,96 @@ def _prompt_tokens(opts: GenerateOptions, pad: int, rows: int, dev) -> torch.Ten
     return t
 
 
-def _empty_state(model, opts: GenerateOptions, rows: int, kv_dtype: str, dev) -> StreamState:
-    """All-free window: every row finished and inactive, count 0, caches
-    zeroed (int8 scales 1)."""
+def _empty_cache(model, opts: GenerateOptions, rows: int, cross_rows: int, kv_dtype: str,
+                 dev) -> whisper.KVCache:
+    """A window's cache: `rows` self rows of capacity max_length and
+    `cross_rows` cross rows (one a beam group in a beam stream), zeroed
+    (int8 scales 1), every row's count 0."""
     cfg = model.cfg
     if kv_dtype not in ("compute", "int8"):
         raise NotImplementedError(f"kv_dtype={kv_dtype!r} is not ported yet")
     store = torch.int8 if kv_dtype == "int8" else model.dtype
-    shape = (cfg.decoder_layers, rows)
-    self_k = torch.zeros((*shape, opts.max_length, cfg.d_model), dtype=store, device=dev)
-    cross_k = torch.zeros((*shape, cfg.max_source_positions, cfg.d_model), dtype=store,
+    n = cfg.decoder_layers
+    self_k = torch.zeros((n, rows, opts.max_length, cfg.d_model), dtype=store, device=dev)
+    cross_k = torch.zeros((n, cross_rows, cfg.max_source_positions, cfg.d_model), dtype=store,
                           device=dev)
     scales = {}
     if kv_dtype == "int8":
-        def ones(t):
-            return torch.ones((*shape, t, 1), dtype=torch.float32, device=dev)
+        def ones(r, t):
+            return torch.ones((n, r, t, 1), dtype=torch.float32, device=dev)
 
-        scales = dict(self_k_scale=ones(opts.max_length), self_v_scale=ones(opts.max_length),
-                      cross_k_scale=ones(cfg.max_source_positions),
-                      cross_v_scale=ones(cfg.max_source_positions))
-    cache = whisper.KVCache(self_k, torch.zeros_like(self_k), cross_k, torch.zeros_like(cross_k),
-                            torch.zeros(rows, dtype=torch.int32, device=dev), **scales)
+        scales = dict(self_k_scale=ones(rows, opts.max_length),
+                      self_v_scale=ones(rows, opts.max_length),
+                      cross_k_scale=ones(cross_rows, cfg.max_source_positions),
+                      cross_v_scale=ones(cross_rows, cfg.max_source_positions))
+    return whisper.KVCache(self_k, torch.zeros_like(self_k), cross_k, torch.zeros_like(cross_k),
+                           torch.zeros(rows, dtype=torch.int32, device=dev), **scales)
+
+
+def _first_free(free: torch.Tensor, e: int) -> torch.Tensor:
+    """The indices of the first e free slots (rows, or beam groups)."""
+    return torch.argsort((~free).to(torch.uint8), stable=True)[:e]
+
+
+def _stop_lengths(stop_at, n: int, opts: GenerateOptions) -> np.ndarray:
+    """Each utterance's most total tokens: stop_at capped at max_length."""
+    stop_at = np.minimum(np.full((n,), opts.max_length) if stop_at is None
+                         else np.asarray(stop_at), opts.max_length)
+    if n and stop_at.min() <= len(opts.prompt_ids):
+        raise ValueError("stop_at must allow at least one sampled token")
+    return stop_at
+
+
+def _pool(lo: int, n: int, e: int, stop_at: np.ndarray, max_length: int, dev):
+    """The refill batch of utterances lo .. lo + e, fewer at the stream's
+    end -> (hi, stops, utterance ids, valid), each an (E,) tensor on dev
+    (id -1 and not valid past the end)."""
+    hi = min(lo + e, n)
+    valid = np.zeros((e,), bool)
+    valid[: hi - lo] = True
+    stops = np.full((e,), max_length, np.int64)
+    stops[: hi - lo] = stop_at[lo:hi]
+    utts = np.full((e,), -1, np.int64)
+    utts[: hi - lo] = np.arange(lo, hi)
+    return hi, *(torch.from_numpy(a).to(dev) for a in (stops, utts, valid))
+
+
+class _MelSource:
+    """A stream's (N, n_mels, 3000) mel windows, padded to a multiple of
+    the refill batch e, served e at a time on the card. A tensor source is
+    moved there whole (its caller placed it); a host (numpy) source is
+    uploaded in slabs of `source_windows` windows (rounded down to a
+    multiple of e)."""
+
+    def __init__(self, mels, e: int, source_windows: int, dev):
+        n = mels.shape[0]
+        n_pad = -(-n // e) * e
+        self.e, self.dev, self.lo = e, dev, 0
+        if isinstance(mels, torch.Tensor):
+            slab = mels.to(dev)
+            if n_pad > n:
+                slab = torch.cat([slab, slab.new_zeros((n_pad - n, *slab.shape[1:]))])
+            self.host, self.size, self.slab = None, n_pad, slab
+        else:
+            host = np.asarray(mels)
+            if n_pad > n:
+                host = np.pad(host, ((0, n_pad - n), (0, 0), (0, 0)))
+            self.host, self.size = host, max(source_windows - source_windows % e, e)
+            self.slab = torch.from_numpy(host[: self.size]).to(dev)
+
+    def windows(self, lo: int) -> torch.Tensor:
+        """Windows lo .. lo + e, uploading the next slab of a host source."""
+        if lo - self.lo >= self.size:
+            self.lo = lo - lo % self.size
+            self.slab = torch.from_numpy(self.host[self.lo : self.lo + self.size]).to(self.dev)
+        return self.slab[lo - self.lo : lo - self.lo + self.e]
+
+
+def _empty_state(model, opts: GenerateOptions, rows: int, kv_dtype: str, dev) -> StreamState:
+    """All-free window: every row finished and inactive, count 0, caches
+    zeroed (int8 scales 1)."""
+    cfg = model.cfg
+    cache = _empty_cache(model, opts, rows, rows, kv_dtype, dev)
     return StreamState(
         tokens=_prompt_tokens(opts, cfg.pad_token_id, rows, dev),
         finished=torch.ones(rows, dtype=torch.bool, device=dev),
@@ -128,8 +197,7 @@ def _refill(model, state: StreamState, mel, pool_tokens, pool_stop, pool_utt, po
     int8_kv = cache.is_quantized
     enc = whisper.encoder_forward(model, mel)
 
-    free = state.finished | ~state.active
-    idx = torch.argsort((~free).to(torch.uint8), stable=True)[:e]
+    idx = _first_free(state.finished | ~state.active, e)
     slots = torch.remainder(state.ring - (p - 1) + torch.arange(max(p - 1, 1), device=idx.device),
                             cap)
     if p > 1:
@@ -248,49 +316,19 @@ def generate_greedy_streaming(
     w, e = stream.batch, stream.encode_batch
     if not 1 <= e <= w:
         raise ValueError(f"encode_batch {e} must be in [1, batch {w}]")
-    p = len(opts.prompt_ids)
-    stop_at = np.minimum(np.full((n,), opts.max_length) if stop_at is None
-                         else np.asarray(stop_at), opts.max_length)
-    if n and stop_at.min() <= p:
-        raise ValueError("stop_at must allow at least one sampled token")
+    stop_at = _stop_lengths(stop_at, n, opts)
 
     state = _empty_state(model, opts, w, kv_dtype, dev)
     results: dict[int, np.ndarray] = {}
     next_utt = 0
     pool_tokens = _prompt_tokens(opts, model.cfg.pad_token_id, e, dev)
-
-    n_pad = -(-n // e) * e
-    if isinstance(mels, torch.Tensor):
-        mels_dev = mels.to(dev)
-        if n_pad > n:
-            mels_dev = torch.cat([mels_dev, mels_dev.new_zeros((n_pad - n, *mels_dev.shape[1:]))])
-        mels_host, slab_size, slab_lo = None, n_pad, 0
-    else:
-        mels_host = np.asarray(mels)
-        if n_pad > n:
-            mels_host = np.pad(mels_host, ((0, n_pad - n), (0, 0), (0, 0)))
-        slab_size = max(stream.source_windows - stream.source_windows % e, e)
-        mels_dev, slab_lo = torch.from_numpy(mels_host[:slab_size]).to(dev), 0
-
-    def mel_slice(lo):
-        nonlocal mels_dev, slab_lo
-        if lo - slab_lo >= slab_size:  # the next slab of a host source
-            slab_lo = lo - lo % slab_size
-            mels_dev = torch.from_numpy(mels_host[slab_lo : slab_lo + slab_size]).to(dev)
-        return mels_dev[lo - slab_lo : lo - slab_lo + e]
+    source = _MelSource(mels, e, stream.source_windows, dev)
 
     def refill_once():
         nonlocal next_utt
-        lo, hi = next_utt, min(next_utt + e, n)
-        valid = np.zeros((e,), bool)
-        valid[: hi - lo] = True
-        stops = np.full((e,), opts.max_length, np.int64)
-        stops[: hi - lo] = stop_at[lo:hi]
-        utts = np.full((e,), -1, np.int64)
-        utts[: hi - lo] = np.arange(lo, hi)
-        next_utt = hi
-        _refill(model, state, mel_slice(lo), pool_tokens, torch.from_numpy(stops).to(dev),
-                torch.from_numpy(utts).to(dev), torch.from_numpy(valid).to(dev), opts)
+        lo = next_utt
+        next_utt, *pool = _pool(lo, n, e, stop_at, opts.max_length, dev)
+        _refill(model, state, source.windows(lo), pool_tokens, *pool, opts)
 
     trace = os.environ.get("KWT_STREAM_TRACE", "0") != "0"
     acc = {"steps": 0.0, "sync": 0.0, "harvest": 0.0, "refill": 0.0, "rounds": 0, "refills": 0}

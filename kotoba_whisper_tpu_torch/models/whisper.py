@@ -458,24 +458,32 @@ def _decode_step(model, input_ids, cache: KVCache, ring_pos=None, beam_size=1):
     """Incremental decode of a (B, t) token block against the cache.
 
     With per-row lengths (cache.length a (B,) int32 tensor; t == 1 only)
-    each row's position is its own count, every row writes its new K/V at
-    the shared ring slot `ring_pos` (a 0-d int32 tensor), and its keys are
-    its count + 1 most recent slots (K2's ring form). Beam mode (beam_size > 1, a cache from
-    init_cache(beam_size=)): rows are beam-major groups of beam_size, and
-    the cross-attention fans each group's queries over its one cross row."""
+    each row's position is its own count. With `ring_pos` (a 0-d int32
+    tensor) every row writes its new K/V at that shared ring slot and its
+    keys are its count + 1 most recent slots (K2's ring form); without it
+    each row writes at its own count and its keys are slots 0..count (the
+    lockstep slot order, K2's prefix form with per-row lengths). Beam mode
+    (beam_size > 1, a cache from init_cache(beam_size=)): rows are
+    beam-major groups of beam_size, and the cross-attention fans each
+    group's queries over its one cross row. The two combine: a beam
+    stream's step (decode/streaming_beam.py) has per-row lengths, a ring
+    slot and beam groups."""
     cfg, dec = model.cfg, model.model.decoder
     n_heads = cfg.decoder_attention_heads
     b, t = input_ids.shape
     capacity = cache.self_k.shape[2]
     per_row = isinstance(cache.length, torch.Tensor)
     if per_row:
-        if t != 1 or ring_pos is None:
-            raise ValueError(f"per-row lengths take one token a step and a ring slot, got "
-                             f"{t} tokens and ring_pos {ring_pos}")
+        if t != 1:
+            raise ValueError(f"per-row lengths take one token a step, got {t}")
         x = (dec.embed_tokens.weight[input_ids]
              + dec.embed_positions.weight[cache.length][:, None])
         new_length = cache.length + 1
-        slot = ring_pos.reshape(1).long()
+        if ring_pos is None:
+            own_rows = torch.arange(b, device=input_ids.device)
+            own_slots = cache.length.long()
+        else:
+            slot = ring_pos.reshape(1).long()
     else:
         if ring_pos is not None:
             raise ValueError("ring_pos needs per-row lengths")
@@ -496,9 +504,11 @@ def _decode_step(model, input_ids, cache: KVCache, ring_pos=None, beam_size=1):
         )[None, None]
 
     def write(buf, new):
-        """new (B, t, *) into buf (B, capacity, *): at the lockstep fill, or
-        every row at the shared ring slot."""
-        if per_row:
+        """new (B, t, *) into buf (B, capacity, *): at the lockstep fill,
+        every row at the shared ring slot, or each row at its own count."""
+        if per_row and ring_pos is None:
+            buf[own_rows, own_slots] = new[:, 0]
+        elif per_row:
             buf.index_copy_(1, slot, new)
         else:
             buf[:, pos0 : pos0 + t] = new
@@ -593,8 +603,9 @@ def decode(
 
     cache.length may also be a (B,) int32 tensor of per-row counts
     (continuous batching; single-token steps only), with `ring_pos` the
-    shared ring slot every row writes (see _decode_step). beam_size > 1
-    takes a cache from init_cache(beam_size=) and beam-major input rows.
+    shared ring slot every row writes, or without it each row writing at
+    its own count (see _decode_step). beam_size > 1 takes a cache from
+    init_cache(beam_size=) and beam-major input rows.
     """
     dev = resolve_device(device)
     check_model_device(model, dev)

@@ -33,44 +33,46 @@ NVCC_FLAGS = (
 )
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-# C signatures of each library's entry points: pointers and the stream as
-# c_void_p (ctypes would otherwise pass 32-bit ints and cut them)
+# C signatures of each library's entry points: first the index of the card
+# the tensors are on (the entry launches there and keeps its set-up per card,
+# csrc/card.cuh), pointers and the stream as c_void_p (ctypes would
+# otherwise pass 32-bit ints and cut them)
 SIGNATURES = {
     "flash_attention_sm90": {
-        "kwt_flash_attention_sm90_fwd": [_P, _P, _P, _P, _P, _P, _P],
+        "kwt_flash_attention_sm90_fwd": [_I, _P, _P, _P, _P, _P, _P, _P],
     },
     "flash_attention_bwd": {
-        "kwt_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+        "kwt_flash_attention_bwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     },
     "decode_attention": {
         "kwt_decode_attention": [
-            _P, _L, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P,
+            _I, _P, _L, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P,
         ],
     },
     "decode_attention_ring": {
         "kwt_decode_attention_ring": [
-            _P, _L, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P,
+            _I, _P, _L, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P,
         ],
     },
     "decode_attention_beam": {
         "kwt_decode_attention_beam": [
-            _P, _L, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
+            _I, _P, _L, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
         ],
     },
     "mel": {
-        "kwt_log_mel": [_P, _I, _P, _P, _P, _P, _P, _I, _L, _I, _I, _P],
+        "kwt_log_mel": [_I, _P, _I, _P, _P, _P, _P, _P, _I, _L, _I, _I, _P],
     },
     "layer_norm": {
-        "kwt_layer_norm": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _F, _P],
+        "kwt_layer_norm": [_I, _P, _P, _P, _P, _I, _P, _P, _I, _I, _F, _P],
     },
     "conv_stem": {
-        "kwt_conv_stem": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+        "kwt_conv_stem": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     },
     "flash_attention_int8": {
-        "kwt_flash_attention_int8": [_P, _P, _P, _P, _P, _P, _P, _I, _P],
+        "kwt_flash_attention_int8": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _P],
     },
     "vpu_cal": {
-        "kwt_vpu_cal": [_P, _P, _I, _I, _I, _I, _P],
+        "kwt_vpu_cal": [_I, _P, _P, _I, _I, _I, _I, _P],
     },
 }
 

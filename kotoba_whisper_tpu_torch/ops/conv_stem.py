@@ -152,10 +152,11 @@ def conv_stem(conv1, conv2, x):
     xt = x.new_empty((b, t, c_in))
     y1 = x.new_empty((b, t, d))
     out = x.new_empty((b, t // 2, d))
+    card = x.get_device()
     rc = _build.function("conv_stem", "kwt_conv_stem")(
-        x.data_ptr(), w1p.data_ptr(), b1b.data_ptr(), w2p.data_ptr(), b2b.data_ptr(),
+        card, x.data_ptr(), w1p.data_ptr(), b1b.data_ptr(), w2p.data_ptr(), b2b.data_ptr(),
         xt.data_ptr(), y1.data_ptr(), out.data_ptr(), stem_plan(b, t, c_in, d),
-        _build.stream_handle(x.device),
+        _build.stream_handle(card),
     )
     if rc != 0:
         raise RuntimeError(f"K7 conv stem launch failed: cudaError {rc}")

@@ -377,7 +377,7 @@ def decode_attention(
     if ring_pos is None:
         n_ctas, rows = split_plan(t if valid_rows is not None else valid_all)
         _check(_build.function("decode_attention", "kwt_decode_attention")(
-            q_ptr, q_stride[0], k_ptr, v_ptr, ks_ptr, vs_ptr, valid_rows, valid_all,
+            card, q_ptr, q_stride[0], k_ptr, v_ptr, ks_ptr, vs_ptr, valid_rows, valid_all,
             out.data_ptr(), b, t, n_heads, n_ctas, rows, int(kv_int8),
             _build.stream_handle(card)), "prefix")
         decode_attention.launches += 1
@@ -387,7 +387,7 @@ def decode_attention(
         raise ValueError("K2's ring_pos is a 0-d int32 tensor on q's card")
     plan = ring_plan(b, t, n_heads, k_flat.dtype, _n_sms(card))
     _check(_build.function("decode_attention_ring", "kwt_decode_attention_ring")(
-        q_ptr, q_stride[0], k_ptr, v_ptr, ks_ptr, vs_ptr, valid_rows, valid_all,
+        card, q_ptr, q_stride[0], k_ptr, v_ptr, ks_ptr, vs_ptr, valid_rows, valid_all,
         ring_pos.data_ptr(), out.data_ptr(), b, t, n_heads, plan.heads, int(kv_int8),
         _build.stream_handle(card)), "ring")
     decode_attention.ring_launches += 1
@@ -423,7 +423,7 @@ def decode_attention_beam(q, k_flat, v_flat, *, n_heads, k_scale=None, v_scale=N
     plan = beam_plan(g, t, n_heads, beams, k_flat.dtype, _n_sms(card))
     out = torch.empty((g, beams, n_heads, 64), dtype=torch.bfloat16, device=q.device)
     _check(_build.function("decode_attention_beam", "kwt_decode_attention_beam")(
-        q_ptr, q_stride[1], k_ptr, v_ptr, ks_ptr, vs_ptr, out.data_ptr(), g, t, n_heads, beams,
+        card, q_ptr, q_stride[1], k_ptr, v_ptr, ks_ptr, vs_ptr, out.data_ptr(), g, t, n_heads, beams,
         plan.splits, plan.keys_per_split, int(kv_int8), _build.stream_handle(card)), "beam")
     decode_attention_beam.launches += 1
     return out

@@ -239,13 +239,14 @@ def _flash_fwd_sm90(q, k, v, causal):
     qp, kp, vp = q.data_ptr(), k.data_ptr(), v.data_ptr()
     if (qp | kp | vp) % 16:
         raise ValueError("K1/K4's tensor maps need 16-byte aligned q, k and v")
-    if not (q.is_cuda and k.is_cuda and v.is_cuda):
-        raise ValueError(f"flash attention kernels take tensors on the card, got q on "
-                         f"{q.device}, k on {k.device}, v on {v.device}")
+    if not (q.is_cuda and q.device == k.device == v.device):
+        raise ValueError(f"flash attention kernels take tensors on the card, all on one, got "
+                         f"q on {q.device}, k on {k.device}, v on {v.device}")
     o = q.new_empty((b, tq, h, 64))
     lse = q.new_empty((b, h, tq), dtype=torch.float32)
+    card = q.get_device()
     rc = _build.function("flash_attention_sm90", "kwt_flash_attention_sm90_fwd")(
-        qp, kp, vp, o.data_ptr(), lse.data_ptr(), plan, _build.stream_handle(q.device))
+        card, qp, kp, vp, o.data_ptr(), lse.data_ptr(), plan, _build.stream_handle(card))
     if rc != 0:
         raise RuntimeError(f"{'K4' if causal else 'K1'} flash attention launch failed: "
                            f"cudaError {rc}")
@@ -403,10 +404,10 @@ def _flash_int8_sm90(q, k, v, pv8, phases=3, scratch=None):
         raise ValueError(f"K8's scratch needs {meta[-1]} bytes")
     o = q.new_empty((b, tq, h, 64))
     lse = q.new_empty((b, h, tq), dtype=torch.float32)
-    with torch.cuda.device(q.device):  # the host entry sets up and launches on the current card
-        rc = _build.function("flash_attention_int8", "kwt_flash_attention_int8")(
-            qp, kp, vp, o.data_ptr(), lse.data_ptr(), scratch.data_ptr(), plan, phases,
-            _build.stream_handle(q.device))
+    card = q.get_device()
+    rc = _build.function("flash_attention_int8", "kwt_flash_attention_int8")(
+        card, qp, kp, vp, o.data_ptr(), lse.data_ptr(), scratch.data_ptr(), plan, phases,
+        _build.stream_handle(card))
     if rc != 0:
         raise RuntimeError(f"K8 int8 attention ({'qkpv' if pv8 else 'qk'}) launch failed: "
                            f"cudaError {rc}")
@@ -494,16 +495,18 @@ def _flash_bwd_sm90(q, k, v, o, lse, do, causal):
     qp, kp, vp, op, dop = q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr()
     if (qp | kp | vp | op | dop) % 16:
         raise ValueError("K5's tensor maps and loads need 16-byte aligned q, k, v, o and do")
-    if not (q.is_cuda and k.is_cuda and v.is_cuda and o.is_cuda and do.is_cuda and lse.is_cuda):
-        raise ValueError(f"K5 takes tensors on the card, got q on {q.device}, k on {k.device}, "
-                         f"v on {v.device}, o on {o.device}, do on {do.device}, lse on "
-                         f"{lse.device}")
+    if not (q.is_cuda and q.device == k.device == v.device == o.device == do.device
+            == lse.device):
+        raise ValueError(f"K5 takes tensors on the card, all on one, got q on {q.device}, k on "
+                         f"{k.device}, v on {v.device}, o on {o.device}, do on {do.device}, "
+                         f"lse on {lse.device}")
     dq = q.new_empty((b, tq, h, 64))
     dkv = q.new_empty((2, b, tk, h, 64))  # one TMA store map covers dK and dV
     scratch = lse.new_empty(n_scratch)
+    card = q.get_device()
     rc = _build.function("flash_attention_bwd", "kwt_flash_attention_bwd")(
-        qp, kp, vp, op, dop, lse.data_ptr(), dq.data_ptr(), dkv.data_ptr(), scratch.data_ptr(),
-        plan, _build.stream_handle(q.device))
+        card, qp, kp, vp, op, dop, lse.data_ptr(), dq.data_ptr(), dkv.data_ptr(),
+        scratch.data_ptr(), plan, _build.stream_handle(card))
     if rc != 0:
         raise RuntimeError(f"K5 flash attention backward launch failed: cudaError {rc}")
     flash_attention_bwd.launches += 1

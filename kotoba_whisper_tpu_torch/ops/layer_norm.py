@@ -82,9 +82,10 @@ def layer_norm(x, weight, bias, eps=1e-5):
         return layer_norm_reference(x, weight, bias, eps)
     rows, d, w_fp32 = _check(x, weight, bias)
     out = torch.empty_like(x)
+    card = x.get_device()
     rc = _build.function("layer_norm", "kwt_layer_norm")(
-        x.data_ptr(), None, weight.data_ptr(), bias.data_ptr(), w_fp32, None,
-        out.data_ptr(), rows, d, float(eps), _build.stream_handle(x.device),
+        card, x.data_ptr(), None, weight.data_ptr(), bias.data_ptr(), w_fp32, None,
+        out.data_ptr(), rows, d, float(eps), _build.stream_handle(card),
     )
     if rc != 0:
         raise RuntimeError(f"K6 layer_norm launch failed: cudaError {rc}")
@@ -98,9 +99,10 @@ def add_layer_norm(x, y, weight, bias, eps=1e-5):
         return add_layer_norm_reference(x, y, weight, bias, eps)
     rows, d, w_fp32 = _check(x, weight, bias, ("y", y))
     summed, out = torch.empty_like(x), torch.empty_like(x)
+    card = x.get_device()
     rc = _build.function("layer_norm", "kwt_layer_norm")(
-        x.data_ptr(), y.data_ptr(), weight.data_ptr(), bias.data_ptr(), w_fp32,
-        summed.data_ptr(), out.data_ptr(), rows, d, float(eps), _build.stream_handle(x.device),
+        card, x.data_ptr(), y.data_ptr(), weight.data_ptr(), bias.data_ptr(), w_fp32,
+        summed.data_ptr(), out.data_ptr(), rows, d, float(eps), _build.stream_handle(card),
     )
     if rc != 0:
         raise RuntimeError(f"K6 add_layer_norm launch failed: cudaError {rc}")

@@ -240,10 +240,11 @@ def log_mel_frames(audio: torch.Tensor, cfg: FeatureConfig) -> torch.Tensor:
     dev = audio.device
     table, fb_w, fb_lo, fb_off = _device_tables(cfg, str(dev))
     out = torch.empty((b, n_frames, cfg.n_mels), dtype=torch.float32, device=dev)
+    card = audio.get_device()
     rc = _build.function("mel", "kwt_log_mel")(
-        audio.data_ptr(), int(audio.dtype == torch.int16), table.data_ptr(),
+        card, audio.data_ptr(), int(audio.dtype == torch.int16), table.data_ptr(),
         fb_w.data_ptr(), fb_lo.data_ptr(), fb_off.data_ptr(), out.data_ptr(), b,
-        n_samples, n_frames, cfg.n_mels, _build.stream_handle(dev),
+        n_samples, n_frames, cfg.n_mels, _build.stream_handle(card),
     )
     if rc != 0:
         raise RuntimeError(f"K3 log-mel kernel launch failed: cudaError {rc}")

@@ -138,7 +138,7 @@ def main(argv=None):
 
         def launch(phases):
             rc = lib.kwt_flash_attention_int8(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+                q.get_device(), q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
                 scratch.data_ptr(), plan, phases, torch.cuda.current_stream().cuda_stream)
             if rc:
                 raise RuntimeError(f"k8_probe: launch failed, cudaError {rc}")

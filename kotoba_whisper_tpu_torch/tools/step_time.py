@@ -35,6 +35,9 @@ speed drifts between processes.
 beams over T=1500, 20 heads, int8); the prefix yardstick takes each
 group's first beam over the same keys.
 
+`beam_stream_workload` and `run_beam_stream` hold phase 4g's inputs and
+stream (bench.py's beam-stream-w8a8 geometry), which chip_smoke.py draws.
+
 Usage: python -m kotoba_whisper_tpu_torch.tools.step_time [--stream | --ring | --beam]
        [--trials 3]
 """
@@ -54,6 +57,10 @@ from kotoba_whisper_tpu_torch.decode.greedy import (
     GenerateOptions, generate_greedy, transcribe_prompt,
 )
 from kotoba_whisper_tpu_torch.decode.streaming import StreamConfig, generate_greedy_streaming
+from kotoba_whisper_tpu_torch.decode.streaming_beam import (
+    BeamStreamConfig,
+    generate_beam_streaming,
+)
 from kotoba_whisper_tpu_torch.models import whisper
 from kotoba_whisper_tpu_torch.models.optimized import fuse_for_inference
 from kotoba_whisper_tpu_torch.ops import decode_attention as da
@@ -64,6 +71,11 @@ BATCH, NEW_TOKENS = 16, 48  # phase 4
 STREAM = StreamConfig(batch=48, encode_batch=16, steps_per_round=8)  # phase 4e
 STREAM_WINDOWS, STREAM_CAPACITY = 192, 176
 BEAM_GROUPS, BEAM_WIDTH = 12, 5  # phase 4f
+# phase 4g: bench.py's beam-stream-w8a8 (run_stream_beam): 96 windows, 12
+# groups x 5 beams (W=60), refills of 6, 8 steps a round, ring layout,
+# log-mel in batches of 16
+BEAM_STREAM = BeamStreamConfig(groups=12, num_beams=5, encode_batch=6, steps_per_round=8)
+BEAM_STREAM_WINDOWS, BEAM_STREAM_MEL_BATCH = 96, 16
 K2_STEPS = 4  # decode steps of 32 calls a --ring or --beam trial
 
 
@@ -86,6 +98,31 @@ def stream_workload(st: SpecialTokens, feat: FeatureConfig):
     prompt = transcribe_prompt(st, st.lang_begin + 6)
     stops = realistic_stops(STREAM_WINDOWS, len(prompt), rng)
     return audio, prompt, stops, GenerateOptions(prompt_ids=prompt, max_length=STREAM_CAPACITY)
+
+
+def beam_stream_workload(st: SpecialTokens, feat: FeatureConfig):
+    """Phase 4g's inputs, drawn as bench.py's beam-stream-w8a8 draws them
+    (the audio, then the budgets, from one generator seeded 0) -> (audio
+    (96, n_samples) bf16 on the card, prompt ids, budgets, options with
+    capacity 176)."""
+    rng = np.random.default_rng(0)
+    audio = torch.from_numpy(
+        rng.standard_normal((BEAM_STREAM_WINDOWS, feat.n_samples)).astype(np.float32) * 0.1
+    ).cuda().to(torch.bfloat16)
+    prompt = transcribe_prompt(st, st.lang_begin + 6)
+    stops = realistic_stops(BEAM_STREAM_WINDOWS, len(prompt), rng)
+    return audio, prompt, stops, GenerateOptions(prompt_ids=prompt, max_length=STREAM_CAPACITY)
+
+
+def run_beam_stream(model, audio, opts, st, stops, feat):
+    """generate_beam_streaming over the windows of `audio` (the first
+    len(audio) budgets), int8 KV, log-mel in batches of 16 as bench.py's
+    beam stream computes it -> (tokens, scores)."""
+    b = BEAM_STREAM_MEL_BATCH
+    feats = torch.cat([mel.log_mel_spectrogram(audio[i:i + b].float(), feat).to(torch.bfloat16)
+                       for i in range(0, audio.shape[0], b)])
+    return generate_beam_streaming(model, feats, opts, st, kv_dtype="int8", stream=BEAM_STREAM,
+                                   stop_at=stops[:audio.shape[0]])
 
 
 def run_stream(model, audio, opts, st_fixed, stops, feat):

@@ -63,9 +63,10 @@ def vpu_cal(x, iters: int, op: str):
     if x.dtype != torch.float32 or not x.is_contiguous() or cols > 2048:
         raise ValueError("K9 takes a contiguous fp32 (rows, cols <= 2048) block")
     out = torch.empty((rows, 1), dtype=torch.float32, device=x.device)
+    card = x.get_device()
     rc = _build.function("vpu_cal", "kwt_vpu_cal")(
-        x.data_ptr(), out.data_ptr(), rows, cols, iters, int(op == "softmax"),
-        _build.stream_handle(x.device),
+        card, x.data_ptr(), out.data_ptr(), rows, cols, iters, int(op == "softmax"),
+        _build.stream_handle(card),
     )
     if rc != 0:
         raise RuntimeError(f"K9 calibration launch failed: cudaError {rc}")

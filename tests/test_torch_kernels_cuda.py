@@ -2,7 +2,9 @@
 
 K2 also in its ring form (continuous batching's shared-slot cache,
 csrc/decode_attention_ring.cu) and its beam form (a group's beam queries
-over one shared cross row, csrc/decode_attention_beam.cu, any beam count).
+over one shared cross row, csrc/decode_attention_beam.cu, any beam count),
+and both together in a continuous-batching beam step at large-v3 width
+(decode/streaming_beam.py), its logits against the plain path.
 
 Marked `cuda`: skipped where no card is present. Run on a machine with an
 H100:  python -m pytest tests/test_torch_kernels_cuda.py -q
@@ -799,3 +801,101 @@ def test_dense_int8_on_card_equals_cpu():
     want = dense_int8(q, x)
     got = dense_int8(q.cuda(), x.cuda())
     torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=1e-6)
+
+
+def _wide_model(decoder_layers=2, encoder_layers=1):
+    """large-v3's widths (d=1280, 20 heads, vocab 51866, 128 mels) at a cut
+    depth, seeded random bf16 weights on the card, fused projections."""
+    from kotoba_whisper_tpu_torch.core.config import PRESETS
+    from kotoba_whisper_tpu_torch.models import whisper
+    from kotoba_whisper_tpu_torch.models.optimized import fuse_for_inference
+
+    cfg = PRESETS["large-v3"].replace(decoder_layers=decoder_layers,
+                                      encoder_layers=encoder_layers)
+    model = whisper.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                                device="cuda", dtype=torch.bfloat16)
+    return fuse_for_inference(model), cfg
+
+
+@pytest.mark.parametrize("kv_dtype", ["int8", "compute"])
+@pytest.mark.parametrize("layout", ["ring", "scatter"])
+def test_ring_and_beam_forms_in_one_decode_step(monkeypatch, kv_dtype, layout):
+    """A beam stream's step at large-v3 width: 12 groups of 5 beams at
+    per-group counts, the self rows read through K2's ring form at a ring
+    slot that wraps ("ring") or its prefix form at per-row lengths
+    ("scatter"), the cross rows (one a group) through its beam form, in
+    one step; the logits against the plain path's on the same cache."""
+    from kotoba_whisper_tpu_torch.models import whisper
+
+    model, cfg = _wide_model()
+    g, k, cap = 12, 5, 176
+    enc = _randn(g, 1500, 1280, seed=11) * 0.5
+    counts = torch.from_numpy(np.repeat(np.arange(g, dtype=np.int32) * 13 % 150 + 3, k)).cuda()
+
+    def step():
+        cache = whisper.init_cache(model, enc, cap, kv_dtype=kv_dtype, beam_size=k)
+        if kv_dtype == "int8":
+            cache.self_k, cache.self_k_scale = quantize_kv_rows(
+                _randn(*cache.self_k.shape, seed=12))
+            cache.self_v, cache.self_v_scale = quantize_kv_rows(
+                _randn(*cache.self_v.shape, seed=13))
+        else:
+            cache.self_k = _randn(*cache.self_k.shape, seed=12)
+            cache.self_v = _randn(*cache.self_v.shape, seed=13)
+        cache.length = counts.clone()
+        ids = torch.arange(g * k, device="cuda")[:, None] * 7 + 100
+        ring = torch.tensor(5, dtype=torch.int32, device="cuda") if layout == "ring" else None
+        logits, cache = whisper.decode(model, ids, cache=cache, beam_size=k, ring_pos=ring)
+        return logits[:, 0].float(), cache
+
+    self_count = (lambda: da.decode_attention.ring_launches) if layout == "ring" else (
+        lambda: da.decode_attention.launches)
+    self0, beam0 = self_count(), da.decode_attention_beam.launches
+    got, cache = step()
+    torch.cuda.synchronize()
+    assert self_count() - self0 == cfg.decoder_layers
+    assert da.decode_attention_beam.launches - beam0 == cfg.decoder_layers
+    assert torch.equal(cache.length, counts + 1)
+    monkeypatch.setattr(whisper, "decode_attention", da.decode_attention_reference)
+    monkeypatch.setattr(whisper, "decode_attention_beam", da.decode_attention_reference_beam)
+    ref, _ = step()
+    rel = float((got - ref).norm() / ref.norm())
+    assert torch.isfinite(got).all() and rel <= 5e-2, f"logits rel-L2 {rel:.3e}"
+
+
+def test_beam_stream_at_the_4g_geometry_with_two_groups():
+    """Phase 4g's stream (5 beams, refills of 1 here, 8 steps a round, ring
+    layout, int8 KV, capacity 176, bench.py's budgets) at 2 groups and a
+    cut depth: every utterance is its prompt, then at most its budget's
+    tokens (ending at eot or at the budget), then pads, with a finite
+    score; K2's ring and beam forms launch once a layer a step each."""
+    from kotoba_whisper_tpu_torch.core.config import SpecialTokens
+    from kotoba_whisper_tpu_torch.decode import streaming_beam as sb
+    from kotoba_whisper_tpu_torch.decode.greedy import GenerateOptions, transcribe_prompt
+    from kotoba_whisper_tpu_torch.tools.step_time import realistic_stops
+
+    model, cfg = _wide_model()
+    st = SpecialTokens.for_vocab(cfg.vocab_size)
+    n, k = 5, 5
+    rng = np.random.default_rng(0)
+    audio = torch.from_numpy(rng.standard_normal((n, 480000)).astype(np.float32) * 0.1).cuda()
+    prompt = transcribe_prompt(st, st.lang_begin + 6)
+    stops = realistic_stops(n, len(prompt), rng)
+    feats = mel.log_mel_spectrogram(audio, FeatureConfig(n_mels=128)).to(torch.bfloat16)
+    ring0, beam0 = da.decode_attention.ring_launches, da.decode_attention_beam.launches
+    toks, scores = sb.generate_beam_streaming(
+        model, feats, GenerateOptions(prompt_ids=prompt, max_length=176), st, kv_dtype="int8",
+        stream=sb.BeamStreamConfig(groups=2, num_beams=k, encode_batch=1, steps_per_round=8),
+        stop_at=stops)
+    ring_n = da.decode_attention.ring_launches - ring0
+    assert ring_n > 0 and ring_n % cfg.decoder_layers == 0
+    assert da.decode_attention_beam.launches - beam0 == ring_n
+    assert toks.shape == (n, 176) and np.isfinite(scores).all()
+    p, pad = len(prompt), cfg.pad_token_id
+    for i in range(n):
+        row = toks[i]
+        assert (row[:p] == prompt).all() and (row[stops[i]:] == pad).all(), i
+        sampled = row[p:stops[i]].tolist()
+        end = sampled.index(st.eot) + 1 if st.eot in sampled else len(sampled)
+        assert all(0 <= t < cfg.vocab_size for t in sampled[:end]), i
+        assert all(t == pad for t in sampled[end:]), i

@@ -5,7 +5,9 @@ shape), one tiny random model exported in HF layout, both drivers run on
 the CPU in fp32: per-utterance token ids in the jsonl and the csv text
 must be identical, in the drivers' default mode (projections fused), with
 --no_fuse, with w8a8 projections (--gemm_dtype int8), with continuous
-batching (--streaming) and with beam search (--num_beams 3).
+batching (--streaming), with beam search (--num_beams 3) and with beam
+search under continuous batching (--streaming --num_beams 2, compute and
+int8 KV).
 """
 import csv
 import json
@@ -82,7 +84,10 @@ def _read(out):
     ["--kv_dtype", "int8", "--gemm_dtype", "int8"],
     ["--kv_dtype", "int8", "--streaming"],
     ["--kv_dtype", "int8", "--num_beams", "3"],
-], ids=["compute", "int8-int16wire", "fused", "fused-w8a8", "streaming", "beam3"])
+    ["--kv_dtype", "compute", "--streaming", "--num_beams", "2"],
+    ["--kv_dtype", "int8", "--streaming", "--num_beams", "2"],
+], ids=["compute", "int8-int16wire", "fused", "fused-w8a8", "streaming", "beam3",
+        "streaming-beam2", "streaming-beam2-int8"])
 def test_port_driver_matches_jax_driver(dataset_dir, model_dir, tmp_path, extra):
     from kotoba_whisper_tpu.cli import pseudo_label as jax_driver
     from kotoba_whisper_tpu_torch.cli import pseudo_label as port_driver
@@ -105,8 +110,9 @@ def test_port_driver_matches_jax_driver(dataset_dir, model_dir, tmp_path, extra)
 
 
 @pytest.mark.parametrize("flags, what", [
-    (["--streaming", "--num_beams", "4"], "--streaming --num_beams 4"),
+    (["--num_devices", "2"], "--num_devices 2"),
     (["--kv_dtype", "int4"], "--kv_dtype int4"),
+    (["--streaming", "--num_beams", "2", "--kv_dtype", "int4"], "--kv_dtype int4"),
 ])
 def test_unported_flags_raise(dataset_dir, tmp_path, flags, what):
     from kotoba_whisper_tpu_torch.cli import pseudo_label as port_driver

@@ -198,6 +198,43 @@ def test_ring_decode_matches_jax(pair, kv_dtype):
 
 
 @pytest.mark.parametrize("kv_dtype", ["compute", "int8"])
+@pytest.mark.parametrize("layout", ["ring", "scatter"])
+def test_ring_beam_decode_matches_jax(pair, kv_dtype, layout):
+    """A beam stream's step: 2 groups of 3 beams at per-group counts 2 and
+    0, the cross K/V one row a group (init_cache(beam_size=3)), the self
+    rows written at a shared ring slot that wraps past the capacity
+    ("ring", K2's ring form beside its beam form in one step) or each at
+    its own count ("scatter"). Logits, counts and the self cache equal
+    JAX's decode(ring_pos=, beam_size=)."""
+    jcfg, params, model = pair
+    rng = np.random.default_rng(8)
+    enc = jw.encode(params, jcfg, jnp.asarray(_mel(rng, jcfg, b=2)))
+    ids = rng.integers(0, jcfg.vocab_size, (6, 4)).astype(np.int32)
+    lengths = np.array([2, 2, 2, 0, 0, 0], np.int32)
+    jcache = jw.init_cache(params, jcfg, enc, capacity=8, kv_dtype=kv_dtype, beam_size=3)
+    jcache = jcache._replace(length=jnp.asarray(lengths))
+    tcache = tw.init_cache(model, torch.from_numpy(np.array(enc)), 8, kv_dtype=kv_dtype,
+                           beam_size=3, device="cpu")
+    tcache.length = torch.from_numpy(lengths)
+    for step in range(ids.shape[1]):
+        pos = (6 + step) % 8
+        j_ring = jnp.int32(pos) if layout == "ring" else None
+        t_ring = torch.tensor(pos, dtype=torch.int32) if layout == "ring" else None
+        j_lg, jcache = jw.decode(params, jcfg, jnp.asarray(ids[:, step:step + 1]), cache=jcache,
+                                 ring_pos=j_ring, beam_size=3)
+        t_lg, tcache = tw.decode(
+            model, torch.from_numpy(ids[:, step:step + 1]).long(), cache=tcache, device="cpu",
+            ring_pos=t_ring, beam_size=3)
+        np.testing.assert_allclose(t_lg.numpy(), np.asarray(j_lg), **STEP_TOL)
+    np.testing.assert_array_equal(tcache.length.numpy(), np.asarray(jcache.length))
+    np.testing.assert_allclose(tcache.self_k.float().numpy(),
+                               np.asarray(jcache.self_k, np.float32), **STEP_TOL)
+    if kv_dtype == "int8":
+        np.testing.assert_allclose(tcache.self_k_scale.numpy(),
+                                   np.asarray(jcache.self_k_scale), **STEP_TOL)
+
+
+@pytest.mark.parametrize("kv_dtype", ["compute", "int8"])
 def test_beam_cache_and_decode_match_jax(pair, kv_dtype):
     """init_cache(beam_size=3) stores the cross K/V once per group of 2 and
     the self buffers for 6 hypotheses; a 3-token prefill (beams and
