@@ -3,9 +3,11 @@
     python3 chip_smoke.py                # the check: one card, no arguments
     python3 chip_smoke.py --profile DIR  # also trace one main-path run, one
                                          # fused + w8a8 run, one beam stream,
-                                         # one stream-real run, one beam
-                                         # search and one train step with
-                                         # torch.profiler, tables into DIR/
+                                         # 4h's 10 s and 300 s calls of each
+                                         # model's config (a), one stream-real
+                                         # run, one beam search and one train
+                                         # step with torch.profiler, tables
+                                         # into DIR/
 
 Phases, in order; any failure exits nonzero and prints no result line:
 
@@ -46,6 +48,24 @@ Phases, in order; any failure exits nonzero and prints no result line:
      prompt, then at most its budget's tokens, then pads, a finite score;
      at 2 groups the kernel path against the plain path (first-step
      logits);
+  4h. serving (the JAX package's stage 6 at its runtime table's configs):
+     decode/pipeline.AsrPipeline and eval/speed.evaluate_speed on
+     distil-large-v3 (32 + 2 layers, built here, fused, and a w8a8 copy)
+     and large-v3 (4c's models), max_length 32, 15 s chunks, durations
+     10 / 30 / 60 / 300 s of generate_dummy_audio, configs (a) compute KV
+     and GEMMs, (b) int8 KV + w8a8, (c) (b) over the int16 wire; 1 warm-up
+     and 3 trials a duration, seconds and audio-s/s beside nvidia-smi's name
+     and power limit; one 300 s call a config with its launches (K3 1, K1
+     one an encoder layer, K2 two a decoder layer a step); on PCM-sourced
+     300 s audio the int16 and fp32 wires' log-mel bit for bit and (b) and
+     (c) the same transcript; 5 beams at 30 s (K2 self and beam one a layer
+     a step); at 25 s (2 chunks) and at the 300 s call's batch the
+     first-step logits of (a) and (b) against the plain path; every
+     transcript text, every chunk's timestamps ordered (but for a segment
+     opened past the audio's end and never closed, which the merge ends at
+     the audio's end: a JAX fault the port copies); the records
+     written through the port's writer and its runtime_pivot_table
+     printed, six rows of four durations;
   4d. encoder variants at B=16 on the fused model: default, the fused stem
      (K7), KWT_FA_INT8=qk and qkpv (K8 in place of K1), enc_exp's fused_ln
      (K6), each with its time, rel-L2 against the default and launches;
@@ -74,14 +94,22 @@ Phases, in order; any failure exits nonzero and prints no result line:
      kotoba_whisper_tpu_torch`: filter on the labels with --skip_filtering
      (K3 on the card) and with the WER gate, merge of the two chunks;
   5b. create-student (4-layer encoder at large-v3 width) -> distill 2
-     steps on the merged split, save -> resume to step 3 -> export;
+     steps on the merged split, save -> resume to step 3 -> export; then
+     stage 6 through `python -m kotoba_whisper_tpu_torch`: prepare-eval-set
+     from a manifest of synthetic WAVs to tar+tsv, eval of the exported
+     student on it, again with --stable_ts --punctuator, and a third time
+     from a copy of the first run's output, where every prediction comes
+     from the cache (no launch); cli.eval_diff --strict --tolerance 1e-6 of
+     the third run against the first; speed at 10 s, one trial; report of
+     the metric and the runtime JSONL;
   5c. the experiment tools' main(): enc_exp (fused_ln), stem_exp, vpu_cal
      (softmax and exp), few trials, their JSON lines parsed;
   6. a JSON line of every kernel with the launches of the path that runs
      it (K1, K2 prefix: the pseudo-labelling run; K2 ring and beam: the 4g
      beam stream; K3: phase 5's filter; K4, K5: the 3 timed train steps;
      K6-K8: the 4d encoder runs; K9: the vpu_cal runs of 5c) and its
-     numbers;
+     numbers, K1, K2 and K3 also with their launches in 4h's 300 s call of
+     large-v3 (a), K2's beam form in 4h's beam call (`serving_launches`);
   7. the last line: {"ok": true, "device": {...}}.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -96,7 +124,7 @@ import io
 import json
 import math
 import os
-import struct
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -126,6 +154,10 @@ TRAIN_STEPS = 3   # timed train steps after one warm-up step
 # relative L2 of the student decoder's gradients, all parameters together.
 TRAIN_LOSS_TOL = 1e-2
 TRAIN_GRAD_TOL = 5e-2
+# phase 4h: the serving table's settings (eval_pipeline/runtime_pipeline.tpu-v5e.jsonl)
+SERVE_DURATIONS = (10, 30, 60, 300)
+SERVE_MAX_LENGTH = 32
+SERVE_WARMUP, SERVE_TRIALS = 1, 3   # the JAX harness's 2 and 5, cut for the smoke's time
 
 
 def log(msg: str) -> None:
@@ -224,22 +256,14 @@ def randn(*shape, seed, dtype=torch.bfloat16):
     return torch.randn(*shape, generator=g, device="cuda").to(dtype)
 
 
-def wav_bytes(audio: np.ndarray, sr: int = 16000) -> bytes:
-    pcm = (np.clip(audio, -1, 1) * 32767).astype("<i2").tobytes()
-    return struct.pack(
-        "<4sI4s4sIHHIIHH4sI", b"RIFF", 36 + len(pcm), b"WAVE", b"fmt ", 16, 1, 1,
-        sr, sr * 2, 2, 16, b"data", len(pcm),
-    ) + pcm
-
-
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--profile", metavar="DIR", default=None,
-                    help="trace one main-path run, one fused + w8a8 run, one "
-                    "stream-real run, one beam search and one train step with "
-                    "torch.profiler and write their whole kernel tables to DIR/profile_"
-                    "{main_path,w8a8_path,stream_real,beam,train_step}.txt")
+                    help="trace one main-path run, one fused + w8a8 run, one beam "
+                    "stream, 4h's 10 s and 300 s serving calls, one stream-real run, "
+                    "one beam search and one train step with torch.profiler and write "
+                    "their whole kernel tables to DIR/profile_*.txt")
     args = ap.parse_args()
 
     # ---- 1. device -------------------------------------------------------
@@ -249,12 +273,17 @@ def main() -> int:
     from kotoba_whisper_tpu_torch.cli import pseudo_label
     from kotoba_whisper_tpu_torch.core.config import PRESETS, FeatureConfig, SpecialTokens
     from kotoba_whisper_tpu_torch.data import reazon
+    from kotoba_whisper_tpu_torch.data.collator import CollatorConfig, collate_audio
+    from kotoba_whisper_tpu_torch.decode import beam as beam_loop
+    from kotoba_whisper_tpu_torch.decode import greedy as greedy_loop
     from kotoba_whisper_tpu_torch.decode import streaming_beam as sb
     from kotoba_whisper_tpu_torch.decode.beam import generate_beam
     from kotoba_whisper_tpu_torch.decode.greedy import (
         GenerateOptions, generate_greedy, transcribe_prompt,
     )
     from kotoba_whisper_tpu_torch.decode.logits_rules import apply_rules
+    from kotoba_whisper_tpu_torch.decode.longform import chunk_audio
+    from kotoba_whisper_tpu_torch.decode.pipeline import AsrPipeline
     from kotoba_whisper_tpu_torch.decode.streaming import _pool as stream_pool
     from kotoba_whisper_tpu_torch.decode.streaming import _prompt_tokens as stream_prompt_tokens
     from kotoba_whisper_tpu_torch.models import whisper
@@ -267,7 +296,10 @@ def main() -> int:
     from kotoba_whisper_tpu_torch.ops import decode_attention as da
     from kotoba_whisper_tpu_torch.ops import flash_attention as fa
     from kotoba_whisper_tpu_torch.ops import layer_norm as ln
+    from kotoba_whisper_tpu_torch.eval import report
+    from kotoba_whisper_tpu_torch.eval.speed import evaluate_speed, generate_dummy_audio
     from kotoba_whisper_tpu_torch.ops import mel
+    from kotoba_whisper_tpu_torch.tokenizer.whisper_tokenizer import WhisperTokenizer
     from kotoba_whisper_tpu_torch.tools import enc_exp, stem_exp, step_time, vpu_cal
     from kotoba_whisper_tpu_torch.train import distill, optim
     from kotoba_whisper_tpu_torch.train.checkpoint import get_last_checkpoint, import_hf_model
@@ -1269,7 +1301,186 @@ def main() -> int:
         f"{float((lg_k - lg_p).abs().max()):.3e}")
     if not (bool(torch.isfinite(lg_k).all()) and lg_rel <= 5e-2):
         raise AssertionError("4g: the beam stream's kernel path disagrees with the plain path")
-    del qmodel, audio_g
+    del audio_g
+
+    # ---- 4h. serving: AsrPipeline and evaluate_speed at the runtime table's configs
+    # The JAX package's serving table (eval_pipeline/runtime_pipeline.tpu-v5e.jsonl)
+    # names the configurations, never a target: distil-large-v3 (32 + 2
+    # layers, a new model) and large-v3 (4c's fused bf16 model and its w8a8
+    # copy), max_length 32, 15 s chunks, durations 10 / 30 / 60 / 300 s,
+    # configs (a) compute KV and GEMMs, (b) int8 KV + w8a8, (c) (b) with the
+    # int16 wire; generate_dummy_audio inputs, 1 warm-up + 3 trials (the JAX
+    # harness takes 2 + 5; cut for the smoke's time). The tokenizer is a
+    # byte-level stand-in with whisper's own id layout (50257 text ids, each
+    # a byte; specials and 1501 timestamps where the model's vocab has them).
+    serve_tok = WhisperTokenizer([bytes([i % 256]) for i in range(50257)], [],
+                                 vocab_size=large.vocab_size)
+    distil = PRESETS["distil-large-v3"]
+    t_serve = t0 = time.perf_counter()
+    dmodel = whisper.init_params(distil, torch.Generator(device="cuda").manual_seed(0),
+                                 device="cuda", dtype=torch.bfloat16)
+    fuse_for_inference(dmodel)
+    serve_models = {
+        "preset:distil-large-v3": (distil, dmodel, quantize_for_inference(copy.deepcopy(dmodel))),
+        "preset:large-v3": (large, model, qmodel)}
+    torch.cuda.synchronize()
+    log(f"[4h] distil-large-v3 ({distil.encoder_layers}+{distil.decoder_layers} layers, "
+        f"d={distil.d_model}) built, fused and quantized on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    serve_configs = (("a", "compute", "compute", "float32"), ("b", "int8", "int8", "float32"),
+                     ("c", "int8", "int8", "int16"))
+    serve_steps = []  # one entry a decode step, from the loops' apply_rules calls
+
+    def counted_loop_rules(*a, **kw):
+        serve_steps.append(1)
+        return apply_rules(*a, **kw)
+
+    def serve_call(pipe, audio_in):
+        """One transcription with launches and decode steps counted."""
+        reset_every()
+        serve_steps.clear()
+        out = pipe(audio_in)
+        return out, nonzero(every_count()), len(serve_steps)
+
+    def check_transcript(out, label, duration):
+        """Text, and every chunk's timestamps ordered. One pair may not be:
+        a segment the model opened and never closed ends at its chunk's end
+        (decode/longform.merge_chunk_segments, as in the JAX package), which
+        precedes its start where the model's last timestamp lies past the
+        audio; the merge keeps such a segment only from the last chunk, so
+        it can only be the final pair, ending at the input's duration
+        (tests/test_torch_longform.py holds both packages to that pair)."""
+        pairs = [c["timestamp"] for c in out["chunks"]]
+        tail_open = bool(pairs) and pairs[-1][0] > pairs[-1][1] == round(duration, 2)
+        ordered = pairs[:-1] if tail_open else pairs
+        if not (isinstance(out["text"], str) and all(isinstance(c["text"], str)
+                                                      for c in out["chunks"])
+                and all(a <= b for a, b in ordered)):
+            raise AssertionError(f"4h {label}: transcript {out['text']!r:.200} with chunk "
+                                 f"timestamps {pairs[:20]}")
+        return f"{len(pairs)} segments" + (", the last opened past the audio" if tail_open
+                                           else "")
+
+    def serve_first_logits(pipe, audio_in):
+        """The pipeline's first decode step at its own chunks: collate to
+        30 s, log-mel, encode, cache, prompt prefill, one step."""
+        m = pipe.model
+        chunks = chunk_audio(audio_in, pipe.chunking)
+        batch = collate_audio([c.audio for c in chunks], CollatorConfig(n_samples=feat.n_samples))
+        feats_h = mel.log_mel_spectrogram(batch, pipe.feat).to(torch.bfloat16)
+        cache = whisper.init_cache(m, whisper.encode(m, feats_h), pipe.max_length,
+                                   kv_dtype=pipe.kv_dtype)
+        ids = torch.tensor([pipe.opts.prompt_ids], device="cuda").repeat(len(chunks), 1)
+        _, cache = whisper.decode(m, ids[:, :-1], cache=cache)
+        logits, _ = whisper.decode(m, ids[:, -1:], cache=cache)
+        return logits[:, 0]
+
+    serve_records, serve_launches = [], {}
+    loops_saved = (greedy_loop.apply_rules, beam_loop.apply_rules)
+    greedy_loop.apply_rules = beam_loop.apply_rules = counted_loop_rules
+    with tempfile.TemporaryDirectory() as serve_dir:
+        runtime_path = os.path.join(serve_dir, "runtime_pipeline.jsonl")
+        try:
+            for name, (cfg_h, m_bf16, m_w8a8) in serve_models.items():
+                pipes = {}
+                for label, kv, gemm, wire in serve_configs:
+                    m_h = m_w8a8 if gemm == "int8" else m_bf16
+                    pipes[label] = AsrPipeline(
+                        model=m_h, tok=serve_tok, max_length=SERVE_MAX_LENGTH,
+                        chunk_length_s=15.0, kv_dtype=kv, wire_dtype=wire)
+                    recs = evaluate_speed(
+                        pipes[label].transcribe, model_name=name, durations=SERVE_DURATIONS,
+                        n_trials=SERVE_TRIALS, n_warmup=SERVE_WARMUP, output_path=runtime_path,
+                        extra={"max_length": SERVE_MAX_LENGTH, "kv_dtype": kv, "gemm_dtype": gemm,
+                               "chunk_length_s": 15.0,
+                               **({"wire_dtype": "int16"} if wire == "int16" else {})})
+                    serve_records += recs
+                    for r in recs:
+                        log(f"[4h] {name} ({label}) kv={kv} gemm={gemm} wire={wire}: "
+                            f"{r['duration']:g} s of audio in {r['mean']:.4f} s (std "
+                            f"{r['std']:.4f}, {r['trials']} trials), "
+                            f"{r['duration'] / r['mean']:.1f} audio-s/s [{smi}]")
+                    # one 300 s call with its launches counted
+                    audio_300 = generate_dummy_audio(SERVE_DURATIONS[-1])
+                    out, counts, steps = serve_call(pipes[label], audio_300)
+                    n_chunks = len(chunk_audio(audio_300, pipes[label].chunking))
+                    want = {"K1": cfg_h.encoder_layers, "K2": 2 * cfg_h.decoder_layers * steps,
+                            "K3": 1}
+                    segments = check_transcript(out, f"{name} ({label})", SERVE_DURATIONS[-1])
+                    log(f"[4h] {name} ({label}) 300 s: {n_chunks} chunks in one batch, {steps} "
+                        f"decode steps, launches {counts}, {segments}, text "
+                        f"{out['text'][:60]!r}")
+                    if counts != want or not 1 <= steps < SERVE_MAX_LENGTH:
+                        raise AssertionError(f"4h {name} ({label}) 300 s launches {counts}, "
+                                             f"expected {want}")
+                    if (name, label) == ("preset:large-v3", "a"):
+                        serve_launches.update(counts)
+                    if args.profile and label == "a":
+                        for sec in (SERVE_DURATIONS[0], SERVE_DURATIONS[-1]):
+                            audio_p = generate_dummy_audio(sec)
+                            profile_run(lambda: pipes["a"](audio_p),
+                                        f"profile_serving_{name.split(':')[1]}_{sec}s.txt",
+                                        f"4h {name} (a), {sec} s")
+                # the int16 wire on PCM-sourced audio: the log-mel bit for bit,
+                # (b) and (c) the same transcript
+                pcm_300 = np.clip(np.round(generate_dummy_audio(SERVE_DURATIONS[-1]) * 32768.0),
+                                  -32768, 32767) / 32768.0
+                pcm_300 = pcm_300.astype(np.float32)
+                batch = collate_audio([c.audio for c in chunk_audio(pcm_300, pipes["b"].chunking)],
+                                      CollatorConfig(n_samples=feat.n_samples))
+                wire16 = np.clip(np.round(batch * 32768.0), -32768, 32767).astype(np.int16)
+                mel32, mel16 = (mel.log_mel_spectrogram(x, pipes["b"].feat)
+                                for x in (batch, wire16))
+                out_b, out_c = pipes["b"](pcm_300), pipes["c"](pcm_300)
+                log(f"[4h] {name}: PCM-sourced 300 s, int16 wire vs fp32 wire: log-mel bit for bit "
+                    f"{bool(torch.equal(mel32, mel16))} ({tuple(mel32.shape)}), (b) and (c) "
+                    f"transcripts equal {out_b == out_c}")
+                if not (torch.equal(mel32, mel16) and out_b == out_c):
+                    raise AssertionError(f"4h {name}: the int16 wire parts from the fp32 wire")
+                # beam search, 5 beams, at 30 s
+                beam_pipe = dataclasses.replace(pipes["a"], num_beams=5)
+                out, counts, steps = serve_call(beam_pipe, generate_dummy_audio(30))
+                want = {"K1": cfg_h.encoder_layers, "K2": cfg_h.decoder_layers * steps,
+                        "K2beam": cfg_h.decoder_layers * steps, "K3": 1}
+                segments = check_transcript(out, f"{name} beam", 30)
+                log(f"[4h] {name} (a) 30 s, 5 beams: {steps} steps, launches {counts}, "
+                    f"{segments}, text {out['text'][:60]!r}")
+                if counts != want or steps < 1:
+                    raise AssertionError(f"4h {name} beam launches {counts}, expected {want}")
+                if name == "preset:large-v3":
+                    serve_launches["K2beam"] = counts["K2beam"]
+                # the kernel path against the plain path at 25 s (2 chunks) and at
+                # the timed 300 s call's batch (K1 over every chunk at once)
+                for sec in (25, SERVE_DURATIONS[-1]):
+                    audio_in = generate_dummy_audio(sec)
+                    n_chunks = len(chunk_audio(audio_in, pipes["a"].chunking))
+                    for label in ("a", "b"):
+                        lg_k = serve_first_logits(pipes[label], audio_in)
+                        with plain_path():
+                            lg_p = serve_first_logits(pipes[label], audio_in)
+                        lg_rel = rel(lg_k, lg_p)
+                        log(f"[4h] {name} ({label}) {sec} s, {lg_k.shape[0]} chunks, kernel vs "
+                            f"plain path on the card: first-step logits rel-L2 {lg_rel:.3e} "
+                            f"(tol 5e-2), max |logit diff| "
+                            f"{float((lg_k - lg_p).abs().max()):.3e}")
+                        if not (lg_k.shape[0] == n_chunks and bool(torch.isfinite(lg_k).all())
+                                and lg_rel <= 5e-2):
+                            raise AssertionError(f"4h {name} ({label}) {sec} s: the kernel path "
+                                                 "disagrees with the plain path")
+                        del lg_k, lg_p
+        finally:
+            greedy_loop.apply_rules, beam_loop.apply_rules = loops_saved
+        written = [json.loads(line) for line in open(runtime_path)]
+    table = report.runtime_pivot_table(written)
+    log(f"[4h] {time.perf_counter() - t_serve:.1f} s for the phase; runtime_pivot_table of the "
+        "records written (mean seconds):\n" + table)
+    rows = table.splitlines()[2:]
+    if not (written == serve_records and len(rows) == len(serve_models) * len(serve_configs)
+            and all(" - " not in row and row.count("|") == len(SERVE_DURATIONS) + 2
+                    for row in rows)):
+        raise AssertionError(f"4h: the runtime table holds {len(rows)} rows, expected "
+                             f"{len(serve_models) * len(serve_configs)} with every duration")
+    del qmodel, dmodel, serve_models, pipes, beam_pipe, m_bf16, m_w8a8, m_h
     torch.cuda.empty_cache()
 
     # ---- 4d. encoder variants at B=16 ---------------------------------------
@@ -1567,6 +1778,7 @@ def main() -> int:
     # wire) and with the WER gate (the random model's labels miss every
     # transcript), each as one chunk; merge of the two chunks; and 5b.
     from kotoba_whisper_tpu_torch.__main__ import main as cli
+    from kotoba_whisper_tpu_torch.cli import eval_diff
 
     with tempfile.TemporaryDirectory() as tmp:
         rng = np.random.default_rng(1)
@@ -1574,7 +1786,7 @@ def main() -> int:
         data = os.path.join(tmp, "data")
         os.makedirs(data)
         reazon.write_tar_shard(os.path.join(data, "000.tar"), [
-            (f"000/utt{i}.wav", wav_bytes(rng.standard_normal(16000 * (2 + i)) * 0.1))
+            (f"000/utt{i}.wav", reazon.wav_bytes(rng.standard_normal(16000 * (2 + i)) * 0.1))
             for i in range(n_utts)
         ])
         with open(os.path.join(data, "transcript.tsv"), "w", encoding="utf-8") as f:
@@ -1691,6 +1903,88 @@ def main() -> int:
             raise AssertionError(f"training driver run is incomplete:\n{said[-3000:]}")
         del exported
 
+        # ---- 5 (stage 6): prepare-eval-set -> eval -> eval_diff -> speed -> report
+        # Four synthetic WAVs of 3-18 s (the last in two chunks) in a manifest
+        # made into tar+tsv; 5b's exported student evaluated on them, plain,
+        # with --stable_ts --punctuator, and again from a copy of the plain
+        # run's output, where every prediction comes from the cache (no
+        # kernel launches); eval_diff --strict of that run against the plain
+        # one; its latency at 10 s; the report of both JSONLs.
+        raw, eval_set = os.path.join(tmp, "raw_eval"), os.path.join(tmp, "eval_set")
+        os.makedirs(raw)
+        rng = np.random.default_rng(2)
+        eval_secs = (3, 8, 13, 18)
+        with open(os.path.join(raw, "manifest.jsonl"), "w", encoding="utf-8") as f:
+            for i, sec in enumerate(eval_secs):
+                with open(os.path.join(raw, f"e{i}.wav"), "wb") as w:
+                    w.write(reazon.wav_bytes(rng.standard_normal(16000 * sec) * 0.1))
+                f.write(json.dumps({"audio": f"e{i}.wav", "text": f"評価 発話 {i}"}) + "\n")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli(["prepare-eval-set", "--input", raw, "--output_dir", eval_set,
+                 "--shard_size", "2"])
+        log(f"[driver] prepare-eval-set: {buf.getvalue().strip()}; {sorted(os.listdir(eval_set))}")
+        if sorted(os.listdir(eval_set)) != ["000.tar", "001.tar", "transcript.tsv"]:
+            raise AssertionError("prepare-eval-set did not write 2 shards and a transcript")
+        student_dir = os.path.join(out, "final")
+        eval_dirs, eval_counts = {}, {}
+        for label, extra in (("plain", []),
+                             ("stable_ts-punctuator", ["--stable_ts", "--punctuator"]),
+                             ("cached", [])):
+            eval_dirs[label] = os.path.join(tmp, f"eval_{label}")
+            if label == "cached":
+                shutil.copytree(eval_dirs["plain"], eval_dirs[label])
+            buf = io.StringIO()
+            reset_every()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                cli(["eval", "--model", student_dir, "--tokenizer", "byte", "--dataset_dir",
+                     eval_set, "--dataset_name", "synth", "--output_dir", eval_dirs[label],
+                     *extra])
+            eval_counts[label] = nonzero(every_count())
+            with open(os.path.join(eval_dirs[label], "metric.ja.transcribe.jsonl")) as f:
+                metric = json.loads(f.read().splitlines()[-1])
+            log(f"[driver] eval {label}: cer_norm {metric['cer_norm']:.2f}, wer_norm "
+                f"{metric['wer_norm']:.2f} in {time.perf_counter() - t0:.1f} s; launches "
+                f"{eval_counts[label]}")
+        n_eval = len(eval_secs)
+        if not (eval_counts["plain"] == eval_counts["stable_ts-punctuator"] == {
+                "K1": 4 * n_eval, "K2": eval_counts["plain"].get("K2", 0), "K3": n_eval}
+                and eval_counts["plain"].get("K2") and eval_counts["cached"] == {}):
+            raise AssertionError(f"eval launches {eval_counts}: each utterance one call of "
+                                 "the kernels, none from the cache")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            eval_diff.main(["--ours", eval_dirs["cached"], "--reference", eval_dirs["plain"],
+                            "--strict", "--tolerance", "1e-6"])
+        summary = json.loads(buf.getvalue().splitlines()[-1])
+        log(f"[driver] eval_diff --strict --tolerance 1e-6, cached run vs plain run: {summary}")
+        if summary != {"kind": "summary", "compared": 2, "failures": 0}:
+            raise AssertionError(f"eval_diff: {buf.getvalue()}")
+        runtime_jsonl = os.path.join(tmp, "runtime_pipeline.jsonl")
+        buf = io.StringIO()
+        reset_every()
+        with contextlib.redirect_stdout(buf):
+            cli(["speed", "--model", student_dir, "--tokenizer", "byte", "--durations", "10",
+                 "--n_trials", "1", "--output", runtime_jsonl])
+        speed_counts = nonzero(every_count())
+        with open(runtime_jsonl) as f:
+            speed_rows = [json.loads(line) for line in f]
+        log(f"[driver] speed: {json.dumps(speed_rows)}; launches {speed_counts} [{smi}]")
+        if not (len(speed_rows) == 1 and speed_rows[0]["attention"] == "cuda"
+                and speed_rows[0]["device"].startswith("cuda:") and speed_counts.get("K3") == 3):
+            raise AssertionError(f"speed wrote {speed_rows} with launches {speed_counts}")
+        for argv in (["--metric_jsonl", os.path.join(eval_dirs["cached"],
+                                                      "metric.ja.transcribe.jsonl")],
+                     ["--metric_jsonl", runtime_jsonl, "--runtime"]):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                cli(["report", *argv])
+            lines = buf.getvalue().splitlines()
+            log("[driver] report " + " ".join(argv[2:]) + ":\n" + "\n".join(lines))
+            if len(lines) != 3 or not lines[2].startswith(f"| {student_dir}"):
+                raise AssertionError(f"report printed {lines}")
+
     # ---- 5c. the experiment tools ---------------------------------------------
     tool_launches = {}
     for label, fn, argv in (
@@ -1727,6 +2021,8 @@ def main() -> int:
         "K9exp": tool_launches["vpu_cal exp"].get("K9", 0)}
     for rec in records:
         rec["launches"] = path_launches[launch_key[rec["name"]]]
+        if launch_key[rec["name"]] in serve_launches:  # 4h: large-v3 (a), 300 s; beam at 30 s
+            rec["serving_launches"] = serve_launches[launch_key[rec["name"]]]
         if rec["launches"] < 1:
             raise AssertionError(f"{rec['name']} never launched on the path that runs it")
     log(json.dumps({"kernels": records}))

@@ -1,5 +1,6 @@
 """Shared CLI plumbing: model/tokenizer loading, generation defaults, the
-jsonl interchange format and a background prefetch for host work.
+stage-6 drivers' serving pipeline, the jsonl interchange format and a
+background prefetch for host work.
 
 Pseudo labels are written as `pseudo_labels.jsonl` rows
 {"name", "transcription", "whisper_transcript": [token ids]} plus a CSV
@@ -100,6 +101,29 @@ def load_generation_defaults(model_spec: str) -> dict[str, Any]:
                 "max_initial_timestamp_index"
             ]
     return defaults
+
+
+def serving_pipeline(driver: str, arg, dev: torch.device, **pipe_kw):
+    """The stage-6 drivers' AsrPipeline: tokenizer, model in --dtype on
+    `dev`, fused unless --no_fuse, w8a8 with --gemm_dtype int8, the
+    checkpoint's generation defaults, --chunk_length_s and --kv_dtype.
+    Raises for what is not ported: --kv_dtype int4, and --dtype float32 on
+    the card (K1 and K2 take bfloat16)."""
+    from kotoba_whisper_tpu_torch.decode.pipeline import AsrPipeline
+
+    if arg.kv_dtype == "int4":
+        raise SystemExit(f"{driver}: --kv_dtype int4 is not ported yet")
+    if dev.type == "cuda" and arg.dtype != "bfloat16":
+        raise SystemExit(f"{driver}: --dtype {arg.dtype} on the card is not ported yet "
+                         "(K1 and K2 take bfloat16)")
+    dtype = torch.bfloat16 if arg.dtype == "bfloat16" else torch.float32
+    tok = load_tokenizer(arg.tokenizer)
+    model, _ = load_model(arg.model, dev, dtype)
+    model = quantize_if(fuse_unless(model, arg.no_fuse), arg.gemm_dtype)
+    return AsrPipeline(
+        model=model, tok=tok, **load_generation_defaults(arg.model),
+        chunk_length_s=arg.chunk_length_s, kv_dtype=arg.kv_dtype, device=dev, **pipe_kw,
+    )
 
 
 def read_jsonl(path: str) -> list[dict[str, Any]]:

@@ -11,9 +11,12 @@ from __future__ import annotations
 import csv
 import io
 import os
+import struct
 import tarfile
 from dataclasses import dataclass
 from typing import Iterator
+
+import numpy as np
 
 
 @dataclass
@@ -82,3 +85,12 @@ def write_tar_shard(
             info = tarfile.TarInfo(name)
             info.size = len(payload)
             tf.addfile(info, io.BytesIO(payload))
+
+
+def wav_bytes(audio: np.ndarray, sr: int = 16000) -> bytes:
+    """A 16-bit mono PCM WAV of `audio` (floats in [-1, 1]), as a tar member."""
+    pcm = (np.clip(audio, -1, 1) * 32767).astype("<i2").tobytes()
+    return struct.pack(
+        "<4sI4s4sIHHIIHH4sI", b"RIFF", 36 + len(pcm), b"WAVE", b"fmt ", 16, 1, 1,
+        sr, sr * 2, 2, 16, b"data", len(pcm),
+    ) + pcm

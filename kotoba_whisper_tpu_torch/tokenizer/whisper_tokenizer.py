@@ -3,9 +3,10 @@
 The port's copy of what the pseudo-labelling driver needs: HF-format
 vocab.json/merges.txt loading, a bytes-only vocab with the exact whisper
 id layout (`byte_vocab`), the multilingual special tokens including the
-1501 timestamps, `sot_sequence` (<|sot|><|lang|><|task|>[<|notimestamps|>])
-and `decode` with or without specials and timestamps. Decoding runs in
-native/bpe.cpp through utils/native.py.
+1501 timestamps, `sot_sequence` (<|sot|><|lang|><|task|>[<|notimestamps|>]),
+`decode` with or without specials and timestamps, and for long-form merge
+`segments_from_tokens`. Decoding runs in native/bpe.cpp through
+utils/native.py.
 """
 from __future__ import annotations
 
@@ -233,3 +234,37 @@ class WhisperTokenizer:
             # else: skip the special
         flush()
         return "".join(out)
+
+
+def segments_from_tokens(
+    tok: WhisperTokenizer, ids: Sequence[int]
+) -> list[dict]:
+    """Split a timestamped token stream into [{'start','end','text'}] chunks
+    (the ASR pipeline's chunk output schema, run_short_form_eval.py:184-191)."""
+    st = tok.special
+    segs: list[dict] = []
+    cur_start = None
+    cur_tokens: list[int] = []
+    for i in ids:
+        i = int(i)
+        if i >= st.timestamp_begin:
+            t = (i - st.timestamp_begin) * 0.02
+            if cur_start is None:
+                cur_start = t
+            else:
+                segs.append(
+                    {
+                        "start": cur_start,
+                        "end": t,
+                        "text": tok.decode(cur_tokens),
+                    }
+                )
+                cur_start = None
+                cur_tokens = []
+        elif i == st.eot:
+            break
+        elif cur_start is not None:
+            cur_tokens.append(i)
+    if cur_tokens and cur_start is not None:
+        segs.append({"start": cur_start, "end": None, "text": tok.decode(cur_tokens)})
+    return segs

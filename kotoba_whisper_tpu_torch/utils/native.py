@@ -1,8 +1,8 @@
 """ctypes loader for the repo's native core (native/libkwt_native.so).
 
 The C++ library under native/ belongs to the repo; this is the port's own
-loader for the parts it uses: audio decode, BPE decoding and the
-edit distances of the WER filter and metrics. It builds
+loader for the parts it uses: audio decode and resampling, BPE decoding
+and the edit distances of the WER filter and metrics. It builds
 the library with `make -C native/` when the shared object is missing.
 """
 from __future__ import annotations
@@ -49,6 +49,8 @@ def load() -> ctypes.CDLL:
 
     lib.kwt_audio_decode.restype = _i64
     lib.kwt_audio_decode.argtypes = [_u8p, _i64, _i32, _f32p, _i64, _i32p]
+    lib.kwt_resample.restype = _i64
+    lib.kwt_resample.argtypes = [_f32p, _i64, _i32, _i32, _f32p, _i64]
     return lib
 
 
@@ -118,3 +120,17 @@ def decode_audio(data: bytes, target_rate: int = 16000) -> tuple[np.ndarray, int
             raise ValueError("unsupported or corrupt audio payload")
         return out[:n].copy(), rate.value
     raise ValueError("audio decode buffer overflow")
+
+
+def resample(audio: np.ndarray, sr_in: int, sr_out: int) -> np.ndarray:
+    lib = load()
+    audio = np.ascontiguousarray(audio, np.float32)
+    max_out = int(len(audio) * (sr_out / sr_in)) + 16
+    out = np.zeros(max_out, np.float32)
+    n = lib.kwt_resample(
+        audio.ctypes.data_as(_f32p), len(audio), sr_in, sr_out,
+        out.ctypes.data_as(_f32p), max_out,
+    )
+    if n < 0:
+        raise ValueError("resample buffer overflow")
+    return out[:n].copy()

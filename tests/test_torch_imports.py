@@ -12,6 +12,7 @@ import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -86,11 +87,15 @@ def test_cuda_sources_have_their_notes():
 
 
 def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
-    from kotoba_whisper_tpu_torch.cli import create_student, distill, pseudo_label
+    from kotoba_whisper_tpu_torch.cli import (
+        create_student, distill, eval_short_form, eval_speed, pseudo_label,
+    )
     from kotoba_whisper_tpu_torch.core.config import PRESETS, SpecialTokens
     from kotoba_whisper_tpu_torch.decode.greedy import GenerateOptions, generate_greedy
+    from kotoba_whisper_tpu_torch.decode.pipeline import AsrPipeline
     from kotoba_whisper_tpu_torch.models.whisper import forward, init_params
     from kotoba_whisper_tpu_torch.ops.mel import log_mel_spectrogram
+    from kotoba_whisper_tpu_torch.tokenizer.whisper_tokenizer import WhisperTokenizer
     from kotoba_whisper_tpu_torch.train.distill import DistillConfig, make_train_step
 
     cfg = PRESETS["test-byte"]
@@ -113,3 +118,9 @@ def test_entry_points_raise_without_a_card(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         distill.main(["--data_dir", str(tmp_path), "--student", "preset:test-byte",
                       "--teacher", "preset:test-byte", "--output_dir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        AsrPipeline(model=model, tok=WhisperTokenizer.byte_vocab())(np.zeros(16000, np.float32))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        eval_short_form.main(["--model", "preset:test-byte", "--dataset_dir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        eval_speed.main(["--model", "preset:test-byte", "--durations", "1"])

@@ -899,3 +899,43 @@ def test_beam_stream_at_the_4g_geometry_with_two_groups():
         end = sampled.index(st.eot) + 1 if st.eot in sampled else len(sampled)
         assert all(0 <= t < cfg.vocab_size for t in sampled[:end]), i
         assert all(t == pad for t in sampled[end:]), i
+
+
+@pytest.mark.parametrize("num_beams", [1, 3])
+def test_pipeline_runs_the_kernels_and_matches_the_cpu_twins(monkeypatch, num_beams):
+    """AsrPipeline at test-tiny's depths (2 + 2 layers) with the kernels'
+    head dim (d=128, 2 heads of 64) in bf16 on a 40 s input (4 chunks in one
+    batch): on the card it launches K3 once, K1 once an encoder layer, and
+    K2 once a decoder layer a step for self and for cross attention (its
+    beam form for the cross with 3 beams); its text and chunks equal the
+    same weights' on the CPU, where the wrappers run their plain twins."""
+    import copy
+
+    from kotoba_whisper_tpu_torch.core.config import PRESETS
+    from kotoba_whisper_tpu_torch.decode import beam, greedy
+    from kotoba_whisper_tpu_torch.decode.pipeline import AsrPipeline
+    from kotoba_whisper_tpu_torch.models.whisper import init_params
+    from kotoba_whisper_tpu_torch.tokenizer.whisper_tokenizer import WhisperTokenizer
+
+    cfg = PRESETS["test-tiny"].replace(d_model=128, encoder_attention_heads=2,
+                                       decoder_attention_heads=2)
+    model = init_params(cfg, torch.Generator().manual_seed(0), device="cpu", dtype=torch.bfloat16)
+    tok = WhisperTokenizer.byte_vocab(cfg.vocab_size)
+    pcm = np.random.default_rng(7).integers(-6000, 6000, 40 * 16000).astype(np.int16)
+    audio = pcm.astype(np.float32) / 32768.0
+    kw = dict(tok=tok, max_length=16, num_beams=num_beams)
+    ref = AsrPipeline(model=model, device="cpu", **kw)(audio)
+    steps = []
+    loop = beam if num_beams > 1 else greedy
+    rules = loop.apply_rules
+    monkeypatch.setattr(loop, "apply_rules", lambda *a, **k: steps.append(1) or rules(*a, **k))
+    before = (fa.flash_attention_fwd.launches, da.decode_attention.launches,
+              da.decode_attention_beam.launches, mel.log_mel_frames.launches)
+    got = AsrPipeline(model=copy.deepcopy(model).cuda(), **kw)(audio)
+    k1, k2, k2beam, k3 = (n - b for n, b in zip(
+        (fa.flash_attention_fwd.launches, da.decode_attention.launches,
+         da.decode_attention_beam.launches, mel.log_mel_frames.launches), before))
+    per_step = cfg.decoder_layers * len(steps)
+    assert steps and (k1, k3) == (cfg.encoder_layers, 1)
+    assert (k2, k2beam) == ((per_step, per_step) if num_beams > 1 else (2 * per_step, 0))
+    assert got == ref

@@ -12,9 +12,10 @@ log-mel with its own frontend), with the WER gate on and off and with two
 label columns. The metrics and normalizers equal the JAX package's on the
 cases of tests/test_data_eval.py and tests/test_number_normalizer.py. The
 port's merge_splits writes the JAX driver's splits. `python -m
-kotoba_whisper_tpu_torch` lists the port's five stages, refuses the JAX
-package's others, and chains pseudo-label -> filter -> merge ->
-create-student -> distill.
+kotoba_whisper_tpu_torch` lists the port's nine stages, refuses the JAX
+package's others, chains pseudo-label -> filter -> merge ->
+create-student -> distill, and runs each stage-6 stage (prepare-eval-set,
+eval, speed, report) once at a tiny size.
 """
 import json
 import os
@@ -258,13 +259,13 @@ def test_cli_lists_the_port_stages(capsys):
         main(["--help"])
     assert e.value.code == 0
     said = capsys.readouterr().out
-    assert list(STAGES) == ["pseudo-label", "filter", "merge", "create-student", "distill"]
+    assert list(STAGES) == ["pseudo-label", "filter", "merge", "create-student", "distill",
+                            "eval", "speed", "report", "prepare-eval-set"]
     for stage in STAGES:
         assert f"  {stage} " in said
 
 
-@pytest.mark.parametrize("stage", ["distill-bilingual", "eval", "speed", "report",
-                                   "prepare-eval-set", "parity-check"])
+@pytest.mark.parametrize("stage", ["distill-bilingual", "parity-check"])
 def test_cli_refuses_the_stages_not_ported(stage):
     from kotoba_whisper_tpu_torch.__main__ import main
 
@@ -272,6 +273,44 @@ def test_cli_refuses_the_stages_not_ported(stage):
         main([stage])
     with pytest.raises(SystemExit, match="unknown stage"):
         main(["no-such-stage"])
+
+
+@pytest.mark.parametrize("stage", ["prepare-eval-set", "eval", "speed", "report"])
+def test_cli_runs_the_eval_stages(dataset_dir, tmp_path, capsys, stage):
+    """Each stage-6 stage once through `python -m kotoba_whisper_tpu_torch`,
+    the test-byte preset on the CPU."""
+    from kotoba_whisper_tpu_torch.__main__ import main
+
+    model = ["--model", "preset:test-byte", "--tokenizer", "byte", "--dtype", "float32",
+             "--device", "cpu"]
+    if stage == "prepare-eval-set":
+        main([stage, "--input", dataset_dir, "--output_dir", str(tmp_path / "set"),
+              "--shard_size", "4", "--limit", "5"])
+        assert sorted(os.listdir(tmp_path / "set")) == ["000.tar", "001.tar", "transcript.tsv"]
+        assert "wrote 5 utterances in 2 shard(s)" in capsys.readouterr().out
+    elif stage == "eval":
+        main([stage, *model, "--dataset_dir", dataset_dir, "--output_dir",
+              str(tmp_path / "ev"), "--limit", "3"])
+        record = json.loads((tmp_path / "ev" / "metric.ja.transcribe.jsonl").read_text())
+        assert record["model"] == "preset:test-byte" and record["cer_norm"] >= 0
+        assert len((tmp_path / "ev" / next(f for f in os.listdir(tmp_path / "ev")
+                                           if f.startswith("model-"))).read_text(
+            encoding="utf-8").splitlines()) == 4
+    elif stage == "speed":
+        main([stage, *model, "--durations", "1,2", "--n_trials", "1", "--max_length", "6",
+              "--kv_dtype", "int8", "--wire_dtype", "int16",
+              "--output", str(tmp_path / "runtime.jsonl")])
+        rows = [json.loads(line)
+                for line in (tmp_path / "runtime.jsonl").read_text().splitlines()]
+        assert [r["duration"] for r in rows] == [1.0, 2.0]
+        assert {(r["attention"], r["device"], r["wire_dtype"], r["kv_dtype"]) for r in rows} == {
+            ("plain", "cpu", "int16", "int8")}
+    else:
+        (tmp_path / "m.jsonl").write_text(json.dumps(
+            {"model": "m", "dataset": "d", "cer_norm": 1.25}) + "\n")
+        main([stage, "--metric_jsonl", str(tmp_path / "m.jsonl")])
+        assert capsys.readouterr().out.splitlines() == ["| model | d |", "|---|---|",
+                                                        "| m | 1.2 |"]
 
 
 def test_cli_chains_the_pipeline(dataset_dir, tmp_path, capsys):
