@@ -20,7 +20,9 @@ Phases, in order; any failure exits nonzero and prints no result line:
      the least time the card could take (K2 also in its ring form, W=48 x
      T=176 with most rows wrapped and a rolled-prefix control, and its beam
      form, 12 groups x 5 beams over T=1500, then 12 x 8 and 2 x 17 beams
-     against the fp32 twin); each also with its device time
+     against the fp32 twin); K1, K2's prefix (cross and self int8), ring
+     and beam forms also at a tensor-parallel shard's 10 heads (a K/V
+     width of 640); each also with its device time
      alone and the library call's (a CUDA graph of 20 calls, replayed; K5's
      library call, autograd through SDPA, from torch.profiler's kernel
      times where a graph cannot capture it) and the host's time per call
@@ -86,7 +88,22 @@ Phases, in order; any failure exits nonzero and prints no result line:
      master weights: one warm-up step and 3 timed steps with launch
      counters checked; frozen encoder unchanged, decoder moved; at B=2 the
      kernel path against the plain path (loss and decoder gradients); one
-     B=16 step in 2 microbatches;
+     B=16 step in 2 microbatches; then the bilingual trainer's step (5c's
+     timed step): 2 datasets x B=4 x 128 labels, KL on the first, launches
+     checked, at B=2 the kernel path against the plain path;
+  4i. parallel on one card: (a) a one-rank NCCL group and its mesh: one
+     lockstep stage-2 batch and one data-parallel distillation step,
+     launches as phases 4 and 4b; (b) tensor parallel over two ranks on
+     card 0 (a gloo group the script builds itself, NCCL refusing two
+     ranks on one card): large-v3 fused bf16 and fused + w8a8 at 10 heads
+     a rank, int8 KV, B=16, prompt + 48 tokens, the share of tokens equal
+     to the one-card run, the first-step logits against it (rel-L2 5e-2),
+     each rank's launches and wall, then a beam search and a stream for
+     K2's beam and ring forms at 10 heads; (c), run inside phase 5, data
+     parallel over two ranks on card 0: stage 2 through the driver's rank
+     body with --num_devices 2 (every utterance once, in the one-card
+     order) and one distillation step at 4b's shape, 4 rows a rank (equal
+     loss and grad_norm on both, within 1e-2 of 4b's one-card step);
   5. drivers: cli/pseudo_label on synthetic WAV utterances in a tar shard,
      with its default fusion, then with --gemm_dtype int8 under
      KWT_FA_INT8=qk, then --streaming, then --num_beams 3, then
@@ -102,12 +119,18 @@ Phases, in order; any failure exits nonzero and prints no result line:
      from the cache (no launch); cli.eval_diff --strict --tolerance 1e-6 of
      the third run against the first; speed at 10 s, one trial; report of
      the metric and the runtime JSONL;
-  5c. the experiment tools' main(): enc_exp (fused_ln), stem_exp, vpu_cal
+  5c. bilingual distillation: stage 2 with --text_lang_task
+     ja:transcribe,en:translate, stage 3 keeping both label columns, then
+     `python -m kotoba_whisper_tpu_torch distill-bilingual` on that chunk as
+     two datasets (transcribe.ja+translate.en with KL, transcribe.ja
+     without) from 5b's student, 2 steps and an HF export;
+  5d. the experiment tools' main(): enc_exp (fused_ln), stem_exp, vpu_cal
      (softmax and exp), few trials, their JSON lines parsed;
   6. a JSON line of every kernel with the launches of the path that runs
      it (K1, K2 prefix: the pseudo-labelling run; K2 ring and beam: the 4g
      beam stream; K3: phase 5's filter; K4, K5: the 3 timed train steps;
-     K6-K8: the 4d encoder runs; K9: the vpu_cal runs of 5c) and its
+     K6-K8: the 4d encoder runs; K9: the vpu_cal runs of 5d; the 10-head
+     records: rank 0 of 4i(b)) and its
      numbers, K1, K2 and K3 also with their launches in 4h's 300 s call of
      large-v3 (a), K2's beam form in 4h's beam call (`serving_launches`);
   7. the last line: {"ok": true, "device": {...}}.
@@ -256,6 +279,230 @@ def randn(*shape, seed, dtype=torch.bfloat16):
     return torch.randn(*shape, generator=g, device="cuda").to(dtype)
 
 
+def every_count():
+    """Launches of every kernel's wrapper since the last reset_every()."""
+    from kotoba_whisper_tpu_torch.ops import conv_stem as cs
+    from kotoba_whisper_tpu_torch.ops import decode_attention as da
+    from kotoba_whisper_tpu_torch.ops import flash_attention as fa
+    from kotoba_whisper_tpu_torch.ops import layer_norm as ln
+    from kotoba_whisper_tpu_torch.ops import mel
+    from kotoba_whisper_tpu_torch.tools import vpu_cal
+
+    return {"K1": fa.flash_attention_fwd.launches, "K2": da.decode_attention.launches,
+            "K2ring": da.decode_attention.ring_launches,
+            "K2beam": da.decode_attention_beam.launches, "K3": mel.log_mel_frames.launches,
+            "K4": fa.flash_attention_fwd.causal_launches,
+            "K5": fa.flash_attention_bwd.launches, "K6ln": ln.layer_norm.launches,
+            "K6add": ln.add_layer_norm.launches, "K7": cs.conv_stem.launches,
+            "K8": fa.flash_attention_int8.launches, "K9": vpu_cal.vpu_cal.launches}
+
+
+def reset_every():
+    from kotoba_whisper_tpu_torch.ops import conv_stem as cs
+    from kotoba_whisper_tpu_torch.ops import decode_attention as da
+    from kotoba_whisper_tpu_torch.ops import flash_attention as fa
+    from kotoba_whisper_tpu_torch.ops import layer_norm as ln
+    from kotoba_whisper_tpu_torch.ops import mel
+    from kotoba_whisper_tpu_torch.tools import vpu_cal
+
+    for fn in (fa.flash_attention_fwd, da.decode_attention, da.decode_attention_beam,
+               mel.log_mel_frames, fa.flash_attention_bwd, ln.layer_norm,
+               ln.add_layer_norm, cs.conv_stem, fa.flash_attention_int8, vpu_cal.vpu_cal):
+        fn.launches = 0
+    fa.flash_attention_fwd.causal_launches = 0
+    da.decode_attention.ring_launches = 0
+
+
+def nonzero(counts):
+    return {k: n for k, n in counts.items() if n}
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def main_audio(feat) -> np.ndarray:
+    """Phase 3's and 4's B=16 input: seeded noise at 0.1."""
+    return (np.random.default_rng(0).standard_normal((B, feat.n_samples)) * 0.1
+            ).astype(np.float32)
+
+
+def first_step_logits(model, feats, prompt, capacity):
+    """The first sampled position's fp32 logits: encode, an int8 cache, the
+    prompt prefill, one step."""
+    from kotoba_whisper_tpu_torch.models import whisper
+
+    with torch.inference_mode():
+        cache = whisper._init_cache(model, whisper.encoder_forward(model, feats), capacity,
+                                    "int8")
+        ids = torch.tensor([prompt], device=feats.device).repeat(feats.shape[0], 1)
+        _, cache = whisper._decode_step(model, ids[:, :-1], cache)
+        logits, _ = whisper._decode_step(model, ids[:, -1:], cache)
+    return logits[:, 0].float()
+
+
+def train_rng_batch(large, feat, b: int, rng):
+    """4b's batch: b rows of seeded features and 128 labels, the last 16
+    set to -100."""
+    from kotoba_whisper_tpu_torch.models import whisper
+
+    ids = rng.integers(10, 5000, size=(b, LABELS))
+    labels = torch.from_numpy(ids).cuda()
+    labels[:, -16:] = -100
+    return {
+        "input_features": torch.from_numpy(
+            rng.standard_normal((b, large.num_mel_bins, feat.n_frames)).astype(np.float32)
+        ).cuda().to(torch.bfloat16),
+        "labels": labels,
+        "decoder_input_ids": whisper.shift_labels_right(
+            labels, large.decoder_start_token_id, large.pad_token_id),
+    }
+
+
+def join_card0_group(rank: int, port: int):
+    """One of two ranks sharing card 0: a gloo group that this script
+    builds itself (NCCL refuses two ranks on one card; the drivers' rule,
+    a card a rank over NCCL, is unchanged)."""
+    from kotoba_whisper_tpu_torch.parallel import multihost
+
+    torch.cuda.set_device(0)
+    multihost.initialize(f"tcp://127.0.0.1:{port}", 2, rank, device="cuda:0", backend="gloo",
+                         local_size=2)
+
+
+def tp_rank(rank: int, port: int, out_dir: str) -> None:
+    """Phase 4i(b), one rank of a model group of 2 on card 0: large-v3 at
+    full width (seed 0, fused bf16, then fused + w8a8) split over the
+    group, int8 KV, B=16, prompt + 48 tokens (eot disabled); the first-step
+    logits; then 2 groups x 5 beams and a stream of 8 windows (W=4), 8
+    tokens each, for K2's beam and ring forms at the shard's 10 heads. Each
+    timed run is the model's first (no warm-up): its wall is a record."""
+    from kotoba_whisper_tpu_torch.core.config import PRESETS, FeatureConfig, SpecialTokens
+    from kotoba_whisper_tpu_torch.core.mesh import MeshConfig, build_mesh
+    from kotoba_whisper_tpu_torch.decode.beam import generate_beam
+    from kotoba_whisper_tpu_torch.decode.greedy import (
+        GenerateOptions, generate_greedy, transcribe_prompt,
+    )
+    from kotoba_whisper_tpu_torch.decode.streaming import StreamConfig, generate_greedy_streaming
+    from kotoba_whisper_tpu_torch.models import whisper
+    from kotoba_whisper_tpu_torch.models.optimized import fuse_for_inference
+    from kotoba_whisper_tpu_torch.models.quantized import quantize_for_inference
+    from kotoba_whisper_tpu_torch.ops import mel
+    from kotoba_whisper_tpu_torch.parallel import multihost, sharded
+
+    join_card0_group(rank, port)
+    mesh = build_mesh(MeshConfig(data=1, model=2), "cuda")
+    large = PRESETS["large-v3"]
+    feat = FeatureConfig(n_mels=large.num_mel_bins)
+    st = SpecialTokens.for_vocab(large.vocab_size)
+    st_fixed = dataclasses.replace(st, eot=-1)
+    prompt = transcribe_prompt(st, st.lang_begin + 7)
+    opts = GenerateOptions(prompt_ids=prompt, max_length=len(prompt) + NEW_TOKENS)
+    short = GenerateOptions(prompt_ids=prompt, max_length=len(prompt) + 8)
+    feats = mel.log_mel_spectrogram(torch.from_numpy(main_audio(feat)).cuda(), feat).to(
+        torch.bfloat16)
+    out, info = {}, {}
+
+    def model(quant):
+        m = fuse_for_inference(whisper.init_params(
+            large, torch.Generator(device="cuda").manual_seed(0), device="cuda",
+            dtype=torch.bfloat16))
+        if quant:
+            quantize_for_inference(m)  # the whole model's scales, then its shards
+        return sharded.place_params(mesh, m, model_sharded=True)
+
+    def timed(label, fn):
+        torch.cuda.synchronize()
+        reset_every()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        info[label] = {"wall_s": time.perf_counter() - t0, "launches": nonzero(every_count())}
+        return r
+
+    for label, quant in (("bf16", False), ("w8a8", True)):
+        m = model(quant)
+        out[f"{label}/tokens"] = timed(label, lambda: generate_greedy(
+            m, feats, opts, st_fixed, kv_dtype="int8")).cpu().numpy()
+        out[f"{label}/logits"] = first_step_logits(m, feats, prompt, opts.max_length
+                                                   ).cpu().numpy()
+        info[f"{label}/heads"] = whisper.rank_heads(m, large.decoder_attention_heads)
+        if not quant:
+            timed("beam", lambda: generate_beam(m, feats[:2], short, st_fixed, num_beams=5,
+                                                kv_dtype="int8"))
+            timed("stream", lambda: generate_greedy_streaming(
+                m, feats[:8], short, st_fixed, kv_dtype="int8",
+                stream=StreamConfig(batch=4, encode_batch=4, steps_per_round=8)))
+        del m
+        torch.cuda.empty_cache()
+    np.savez(os.path.join(out_dir, f"tp{rank}.npz"), **out)
+    with open(os.path.join(out_dir, f"tp{rank}.json"), "w") as f:
+        json.dump(info, f)
+    multihost.shutdown()
+
+
+def dp_rank(rank: int, port: int, out_dir: str, pl_args: list) -> None:
+    """Phase 4i(c), one of two data ranks on card 0: stage 2 through the
+    driver's rank body (cli/pseudo_label._run, --num_devices 2: the batch's
+    rows split in two blocks, the first rank gathering and writing), then
+    one distillation step at 4b's shape: 4b's seeded teacher, student and
+    global batch of 8, the rank's 4 rows, the global means and gradients."""
+    from kotoba_whisper_tpu_torch.cli import pseudo_label
+    from kotoba_whisper_tpu_torch.core.config import PRESETS, FeatureConfig
+    from kotoba_whisper_tpu_torch.core.mesh import DATA_AXIS, MeshConfig, build_mesh
+    from kotoba_whisper_tpu_torch.models import whisper
+    from kotoba_whisper_tpu_torch.models.student_init import init_student_from_teacher
+    from kotoba_whisper_tpu_torch.parallel import multihost, sharded
+    from kotoba_whisper_tpu_torch.train import distill, optim
+
+    join_card0_group(rank, port)
+    info = {}
+    reset_every()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as said:
+        pseudo_label._run(pseudo_label._parser().parse_args(pl_args), torch.device("cuda", 0))
+    info["pseudo_label"] = {"wall_s": time.perf_counter() - t0, "said": said.getvalue(),
+                            "launches": nonzero(every_count())}
+    large = PRESETS["large-v3"]
+    feat = FeatureConfig(n_mels=large.num_mel_bins)
+    mesh = build_mesh(MeshConfig(data=2, model=1), "cuda")
+    teacher = whisper.init_params(large, torch.Generator(device="cuda").manual_seed(0),
+                                  device="cuda", dtype=torch.float32)
+    student, _ = init_student_from_teacher(teacher, large, decoder_layers=2)
+    teacher = teacher.to(torch.bfloat16).requires_grad_(False)
+    distill.freeze_encoder_(student)
+    opt, sched = optim.make_optimizer(student, lr=1e-4, warmup_steps=500)
+    state = distill.TrainState(student, opt)
+    step = distill.make_train_step(distill.DistillConfig(), sched,
+                                   data_group=mesh.get_group(DATA_AXIS))
+    batch = train_rng_batch(large, feat, TRAIN_B, np.random.default_rng(0))
+    rows = torch.from_numpy(sharded.rank_rows(TRAIN_B, *sharded.data_coords(mesh))).cuda()
+    mine = {k: v[rows] for k, v in batch.items()}
+    reset_every()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = step(state, teacher, mine)
+    torch.cuda.synchronize()
+    info["step"] = {"wall_s": time.perf_counter() - t0, "rows": rows.tolist(),
+                    "launches": nonzero(every_count()),
+                    "metrics": {k: float(v) for k, v in metrics.items()}}
+    with open(os.path.join(out_dir, f"dp{rank}.json"), "w") as f:
+        json.dump(info, f)
+    multihost.shutdown()
+
+
+def spawn_ranks(fn, *args) -> None:
+    """Two ranks of fn(rank, *args), started together; an error in either
+    fails the phase."""
+    import torch.multiprocessing as mp
+
+    mp.spawn(fn, args=args, nprocs=2, join=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -380,70 +627,85 @@ def main() -> int:
             raise AssertionError(f"{name}: kernel disagrees with its plain twin")
         records.append(rec)
 
+    # Each attention kernel also runs at a tensor-parallel shard's shapes:
+    # a model group of 2 holds 10 of the 20 heads on each card, flat K/V of
+    # 640 (phase 4i(b) launches them); those records count 4i(b)'s launches
+    h_tp = h // 2
+    tp_key = {h: "", h_tp: "tp"}
+
+    def tp_tag(hh):
+        return "" if hh == h else f", TP=2 shard"
+
     # K1: encoder self-attention (B, 1500, 20, 64) bf16, once per layer
-    q, k, v = (randn(B, t_enc, h, 64, seed=s) for s in (1, 2, 3))
-    o, lse = fa.flash_attention_fwd(q, k, v)
-    ro, rlse = fa.flash_attention_reference(q, k, v)
-    errs = compare(o, ro)
-    lse_err = float((lse - rlse).abs().max())
-    del ro, rlse
-    if lse_err > 1e-3:
-        raise AssertionError(f"K1 LSE disagrees: {lse_err}")
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    for hh in (h, h_tp):
+        q, k, v = (randn(B, t_enc, hh, 64, seed=s) for s in (1, 2, 3))
+        o, lse = fa.flash_attention_fwd(q, k, v)
+        ro, rlse = fa.flash_attention_reference(q, k, v)
+        errs = compare(o, ro)
+        lse_err = float((lse - rlse).abs().max())
+        del ro, rlse
+        if lse_err > 1e-3:
+            raise AssertionError(f"K1 LSE disagrees at H={hh}: {lse_err}")
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
 
-    def k1_call():
-        return fa.flash_attention_fwd(q, k, v)
+        def k1_call():
+            return fa.flash_attention_fwd(q, k, v)
 
-    def k1_library():
-        return F.scaled_dot_product_attention(qt, kt, vt)
+        def k1_library():
+            return F.scaled_dot_product_attention(qt, kt, vt)
 
-    record(
-        "K1 flash_attention_fwd (B=16, T=1500, H=20, D=64, bf16)",
-        "kotoba_whisper_tpu_torch/csrc/flash_attention_sm90.cu",
-        "kotoba_whisper_tpu/ops/flash_attention.py:69", errs, 5e-3,
-        time_ms(k1_call), time_ms(lambda: fa.flash_attention_reference(q, k, v)),
-        time_ms(k1_library),
-        bound(4.0 * B * h * t_enc * t_enc * 64, bf16_rate,
-              nbytes(q, k, v, o, lse), mem_rate, exp_s=B * h * t_enc * t_enc / exp_rate),
-        device_ms=graph_ms(k1_call), library_device_ms=graph_ms(k1_library),
-        host_us=host_us(k1_call), library_host_us=host_us(k1_library),
-    )
-    del q, k, v, o, lse, qt, kt, vt
-    torch.cuda.empty_cache()
+        record(
+            f"K1 flash_attention_fwd (B=16, T=1500, H={hh}, D=64, bf16{tp_tag(hh)})",
+            "kotoba_whisper_tpu_torch/csrc/flash_attention_sm90.cu",
+            "kotoba_whisper_tpu/ops/flash_attention.py:69", errs, 5e-3,
+            time_ms(k1_call), time_ms(lambda: fa.flash_attention_reference(q, k, v)),
+            time_ms(k1_library),
+            bound(4.0 * B * hh * t_enc * t_enc * 64, bf16_rate,
+                  nbytes(q, k, v, o, lse), mem_rate, exp_s=B * hh * t_enc * t_enc / exp_rate),
+            key="K1" + tp_key[hh],
+            device_ms=graph_ms(k1_call), library_device_ms=graph_ms(k1_library),
+            host_us=host_us(k1_call), library_host_us=host_us(k1_library),
+        )
+        del q, k, v, o, lse, qt, kt, vt
+        torch.cuda.empty_cache()
 
-    # K2: decode-step attention, cross (T=1500) int8 and bf16, self int8
-    for label, t, int8 in (("cross int8", t_enc, True), ("cross bf16", t_enc, False),
-                           ("self int8", cap, True)):
-        qd = randn(B, h, 64, seed=4)
-        kf, vf = randn(B, t, d, seed=5), randn(B, t, d, seed=6)
+    # K2: decode-step attention, cross (T=1500) int8 and bf16, self int8;
+    # at the shard's heads cross and self int8
+    for hh, label, t, int8 in ((h, "cross int8", t_enc, True), (h, "cross bf16", t_enc, False),
+                               (h, "self int8", cap, True), (h_tp, "cross int8", t_enc, True),
+                               (h_tp, "self int8", cap, True)):
+        dd = hh * 64
+        qd = randn(B, hh, 64, seed=4)
+        kf, vf = randn(B, t, dd, seed=5), randn(B, t, dd, seed=6)
         ks = vs = None
         if int8:
             kf, ks = quantize_kv_rows(kf)
             vf, vs = quantize_kv_rows(vf)
-        out = da.decode_attention(qd, kf, vf, t, n_heads=h, k_scale=ks, v_scale=vs)
-        ref = da.decode_attention_reference(qd, kf, vf, t, n_heads=h, k_scale=ks, v_scale=vs)
+        out = da.decode_attention(qd, kf, vf, t, n_heads=hh, k_scale=ks, v_scale=vs)
+        ref = da.decode_attention_reference(qd, kf, vf, t, n_heads=hh, k_scale=ks, v_scale=vs)
         errs = compare(out, ref)
         kb = (kf.float() * ks if int8 else kf).to(torch.bfloat16)
         vb = (vf.float() * vs if int8 else vf).to(torch.bfloat16)
-        kh = kb.view(B, t, h, 64).transpose(1, 2)
-        vh = vb.view(B, t, h, 64).transpose(1, 2)
+        kh = kb.view(B, t, hh, 64).transpose(1, 2)
+        vh = vb.view(B, t, hh, 64).transpose(1, 2)
         qh = qd[:, :, None]
 
         def call():
-            return da.decode_attention(qd, kf, vf, t, n_heads=h, k_scale=ks, v_scale=vs)
+            return da.decode_attention(qd, kf, vf, t, n_heads=hh, k_scale=ks, v_scale=vs)
 
         def library():
             return F.scaled_dot_product_attention(qh, kh, vh)
 
         record(
-            f"K2 decode_attention {label} (B=16, T={t}, D=1280)",
+            f"K2 decode_attention {label} (B=16, T={t}, D={dd}{tp_tag(hh)})",
             "kotoba_whisper_tpu_torch/csrc/decode_attention.cu",
             "kotoba_whisper_tpu/ops/decode_attention.py:165", errs, 2e-3,
             time_ms(call),
             time_ms(lambda: da.decode_attention_reference(
-                qd, kf, vf, t, n_heads=h, k_scale=ks, v_scale=vs)),
+                qd, kf, vf, t, n_heads=hh, k_scale=ks, v_scale=vs)),
             time_ms(library),
-            bound(4.0 * B * t * d, fp32_rate, nbytes(qd, kf, vf, ks, vs, out), mem_rate),
+            bound(4.0 * B * t * dd, fp32_rate, nbytes(qd, kf, vf, ks, vs, out), mem_rate),
+            key="K2" + tp_key[hh],
             device_ms=graph_ms(call), library_device_ms=graph_ms(library),
             host_us=host_us(call), library_host_us=host_us(library),
         )
@@ -455,21 +717,22 @@ def main() -> int:
     # each row rolled so that its ring becomes a prefix gives the prefix twin
     # the ring twin's output (both in fp32).
     t_s = 176
-    for w_s in (48, 60):
-        qd = randn(w_s, h, 64, seed=7)
-        kf, ks = quantize_kv_rows(randn(w_s, t_s, d, seed=8))
-        vf, vs = quantize_kv_rows(randn(w_s, t_s, d, seed=9))
+    for w_s, hh in ((48, h), (60, h), (48, h_tp)):
+        dd = hh * 64
+        qd = randn(w_s, hh, 64, seed=7)
+        kf, ks = quantize_kv_rows(randn(w_s, t_s, dd, seed=8))
+        vf, vs = quantize_kv_rows(randn(w_s, t_s, dd, seed=9))
         valid = torch.linspace(1, t_s, w_s, device="cuda").round().to(torch.int32)
         ring = torch.tensor(40, dtype=torch.int32, device="cuda")
-        out = da.decode_attention(qd, kf, vf, valid, n_heads=h, k_scale=ks, v_scale=vs,
+        out = da.decode_attention(qd, kf, vf, valid, n_heads=hh, k_scale=ks, v_scale=vs,
                                   ring_pos=ring)
-        ref = da.decode_attention_reference(qd, kf, vf, valid, n_heads=h, k_scale=ks, v_scale=vs,
+        ref = da.decode_attention_reference(qd, kf, vf, valid, n_heads=hh, k_scale=ks, v_scale=vs,
                                             ring_pos=ring)
         errs = compare(out, ref)
         flips = out != ref
         top = float(ref.float().abs()[flips].max()) if flips.any() else 0.0
-        log(f"[kernel] K2 ring: {int(flips.sum())} of {out.numel()} bf16 outputs differ from the "
-            f"twin's (fp32 sums in another order), the largest at |twin| {top:.4f} (a bf16 ulp "
+        log(f"[kernel] K2 ring H={hh}: {int(flips.sum())} of {out.numel()} bf16 outputs differ "
+            f"from the twin's (fp32 sums in another order), the largest at |twin| {top:.4f} (a bf16 ulp "
             f"there: {2.0 ** (math.floor(math.log2(top)) - 7) if top else 0.0:.2e})")
         slot = torch.remainder(
             ring + 1 - valid[:, None] + torch.arange(t_s, device="cuda")[None], t_s)  # (W, T)
@@ -477,10 +740,10 @@ def main() -> int:
         def rolled(x):
             return x.gather(1, slot[..., None].expand(-1, -1, x.shape[-1]))
 
-        ring32 = da.decode_attention_reference(qd.float(), kf, vf, valid, n_heads=h, k_scale=ks,
+        ring32 = da.decode_attention_reference(qd.float(), kf, vf, valid, n_heads=hh, k_scale=ks,
                                                v_scale=vs, ring_pos=ring)
         prefix32 = da.decode_attention_reference(qd.float(), rolled(kf), rolled(vf), valid,
-                                                 n_heads=h, k_scale=rolled(ks), v_scale=rolled(vs))
+                                                 n_heads=hh, k_scale=rolled(ks), v_scale=rolled(vs))
         roll_err = float((ring32 - prefix32).abs().max())
         wrapped = int((valid > int(ring) + 1).sum())
         log(f"[kernel] K2 ring control: ring twin vs the prefix twin on rows rolled to a prefix, "
@@ -489,12 +752,12 @@ def main() -> int:
             raise AssertionError("K2 ring twin disagrees with the rolled prefix twin")
         age = torch.remainder(ring - torch.arange(t_s, device="cuda"), t_s)
         mask = (age[None] < valid[:, None])[:, None, None, :]  # (W, 1, 1, T)
-        kh = (kf.float() * ks).to(torch.bfloat16).view(w_s, t_s, h, 64).transpose(1, 2)
-        vh = (vf.float() * vs).to(torch.bfloat16).view(w_s, t_s, h, 64).transpose(1, 2)
+        kh = (kf.float() * ks).to(torch.bfloat16).view(w_s, t_s, hh, 64).transpose(1, 2)
+        vh = (vf.float() * vs).to(torch.bfloat16).view(w_s, t_s, hh, 64).transpose(1, 2)
         qh = qd[:, :, None]
 
         def ring_call():
-            return da.decode_attention(qd, kf, vf, valid, n_heads=h, k_scale=ks, v_scale=vs,
+            return da.decode_attention(qd, kf, vf, valid, n_heads=hh, k_scale=ks, v_scale=vs,
                                        ring_pos=ring)
 
         def ring_library():
@@ -502,17 +765,18 @@ def main() -> int:
 
         n_keys = int(valid.sum())
         record(
-            f"K2 decode_attention self ring int8 (W={w_s}, T={t_s}, D=1280, ring_pos 40)",
+            f"K2 decode_attention self ring int8 (W={w_s}, T={t_s}, D={dd}, ring_pos 40"
+            f"{tp_tag(hh)})",
             "kotoba_whisper_tpu_torch/csrc/decode_attention_ring.cu",
             "kotoba_whisper_tpu/ops/decode_attention.py:59", errs, 2e-3,
             time_ms(ring_call),
             time_ms(lambda: da.decode_attention_reference(
-                qd, kf, vf, valid, n_heads=h, k_scale=ks, v_scale=vs, ring_pos=ring)),
+                qd, kf, vf, valid, n_heads=hh, k_scale=ks, v_scale=vs, ring_pos=ring)),
             time_ms(ring_library),
             # the bytes of the valid rows: their K and V and scales, q, out
-            bound(4.0 * n_keys * d, fp32_rate,
-                  n_keys * 2 * (d + 4) + nbytes(qd, valid, out), mem_rate),
-            key="K2ring",
+            bound(4.0 * n_keys * dd, fp32_rate,
+                  n_keys * 2 * (dd + 4) + nbytes(qd, valid, out), mem_rate),
+            key="K2ring" + tp_key[hh],
             device_ms=graph_ms(ring_call), library_device_ms=graph_ms(ring_library),
             host_us=host_us(ring_call), library_host_us=host_us(ring_library),
         )
@@ -521,39 +785,41 @@ def main() -> int:
     # K2 beam form: beam search's cross-attention, 12 groups x 5 beams over
     # each group's one T=1500 row, int8 and bf16
     g_b, k_b = 12, 5
-    for label, int8 in (("int8", True), ("bf16", False)):
-        qb = randn(g_b, k_b, h, 64, seed=10)
-        kf, vf = randn(g_b, t_enc, d, seed=11), randn(g_b, t_enc, d, seed=12)
+    for hh, label, int8 in ((h, "int8", True), (h, "bf16", False), (h_tp, "int8", True)):
+        dd = hh * 64
+        qb = randn(g_b, k_b, hh, 64, seed=10)
+        kf, vf = randn(g_b, t_enc, dd, seed=11), randn(g_b, t_enc, dd, seed=12)
         ks = vs = None
         if int8:
             kf, ks = quantize_kv_rows(kf)
             vf, vs = quantize_kv_rows(vf)
-        out = da.decode_attention_beam(qb, kf, vf, n_heads=h, k_scale=ks, v_scale=vs)
-        ref = da.decode_attention_reference_beam(qb, kf, vf, n_heads=h, k_scale=ks, v_scale=vs)
+        out = da.decode_attention_beam(qb, kf, vf, n_heads=hh, k_scale=ks, v_scale=vs)
+        ref = da.decode_attention_reference_beam(qb, kf, vf, n_heads=hh, k_scale=ks, v_scale=vs)
         errs = compare(out, ref)
         kh = (kf.float() * ks if int8 else kf).to(torch.bfloat16).view(
-            g_b, t_enc, h, 64).transpose(1, 2)
+            g_b, t_enc, hh, 64).transpose(1, 2)
         vh = (vf.float() * vs if int8 else vf).to(torch.bfloat16).view(
-            g_b, t_enc, h, 64).transpose(1, 2)
+            g_b, t_enc, hh, 64).transpose(1, 2)
         qh = qb.transpose(1, 2)  # (G, H, K, 64): the group's 5 queries a head
 
         def beam_call():
-            return da.decode_attention_beam(qb, kf, vf, n_heads=h, k_scale=ks, v_scale=vs)
+            return da.decode_attention_beam(qb, kf, vf, n_heads=hh, k_scale=ks, v_scale=vs)
 
         def beam_library():
             return F.scaled_dot_product_attention(qh, kh, vh)
 
         record(
-            f"K2 decode_attention cross beam {label} (G={g_b} x K={k_b}, T={t_enc}, D=1280)",
+            f"K2 decode_attention cross beam {label} (G={g_b} x K={k_b}, T={t_enc}, D={dd}"
+            f"{tp_tag(hh)})",
             "kotoba_whisper_tpu_torch/csrc/decode_attention_beam.cu",
             "kotoba_whisper_tpu/ops/decode_attention.py:114", errs, 2e-3,
             time_ms(beam_call),
             time_ms(lambda: da.decode_attention_reference_beam(
-                qb, kf, vf, n_heads=h, k_scale=ks, v_scale=vs)),
+                qb, kf, vf, n_heads=hh, k_scale=ks, v_scale=vs)),
             time_ms(beam_library),
-            bound(4.0 * g_b * k_b * t_enc * d, fp32_rate, nbytes(qb, kf, vf, ks, vs, out),
+            bound(4.0 * g_b * k_b * t_enc * dd, fp32_rate, nbytes(qb, kf, vf, ks, vs, out),
                   mem_rate),
-            key="K2beam",
+            key="K2beam" + tp_key[hh],
             device_ms=graph_ms(beam_call), library_device_ms=graph_ms(beam_library),
             host_us=host_us(beam_call), library_host_us=host_us(beam_library),
         )
@@ -584,8 +850,7 @@ def main() -> int:
 
     # K3: fused log-mel, (B, 480000) fp32 and int16 -> (B, 3000, 128)
     feat = FeatureConfig(n_mels=large.num_mel_bins)
-    audio_np = (np.random.default_rng(0).standard_normal((B, feat.n_samples)) * 0.1
-                ).astype(np.float32)
+    audio_np = main_audio(feat)
     window = torch.hann_window(feat.n_fft, periodic=True, device="cuda")
     fb_np = mel.mel_filterbank(201, feat.n_mels, 16000, 0.0, 8000.0)
     fb = torch.from_numpy(fb_np).cuda()
@@ -957,26 +1222,6 @@ def main() -> int:
     del xc
 
     # ---- 4. main path -----------------------------------------------------
-    def every_count():
-        """Launches of every kernel's wrapper since the last reset_every()."""
-        return {"K1": fa.flash_attention_fwd.launches, "K2": da.decode_attention.launches,
-                "K2ring": da.decode_attention.ring_launches,
-                "K2beam": da.decode_attention_beam.launches, "K3": mel.log_mel_frames.launches, "K4": fa.flash_attention_fwd.causal_launches,
-                "K5": fa.flash_attention_bwd.launches, "K6ln": ln.layer_norm.launches,
-                "K6add": ln.add_layer_norm.launches, "K7": cs.conv_stem.launches,
-                "K8": fa.flash_attention_int8.launches, "K9": vpu_cal.vpu_cal.launches}
-
-    def reset_every():
-        for fn in (fa.flash_attention_fwd, da.decode_attention, da.decode_attention_beam,
-                   mel.log_mel_frames, fa.flash_attention_bwd, ln.layer_norm,
-                   ln.add_layer_norm, cs.conv_stem, fa.flash_attention_int8, vpu_cal.vpu_cal):
-            fn.launches = 0
-        fa.flash_attention_fwd.causal_launches = 0
-        da.decode_attention.ring_launches = 0
-
-    def nonzero(counts):
-        return {k: n for k, n in counts.items() if n}
-
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(0)
     model = whisper.init_params(large, gen, device="cuda", dtype=torch.bfloat16)
@@ -1650,7 +1895,17 @@ def main() -> int:
         f"agreement {float((tk_k == tk_p).mean()):.3f} over {tk_k.size} tokens")
     if not (bool(torch.isfinite(lg_k).all()) and lg_rel <= 5e-2):
         raise AssertionError("4f: the beam kernel path disagrees with the plain path")
-    del model, audio, audio_f
+
+    # 4i(b)'s one-card reference: the fused bf16 model and its w8a8 copy at
+    # phase 4's B=16 input, tokens and first-step logits through the kernels
+    feats_tp = mel.log_mel_spectrogram(audio, feat).to(torch.bfloat16)
+    tp_ref = {}
+    for label, m in (("bf16", model), ("w8a8", None)):
+        m = m or quantize_for_inference(copy.deepcopy(model))
+        tp_ref[label] = (generate_greedy(m, feats_tp, opts, st_fixed, kv_dtype="int8").cpu(),
+                         first_step_logits(m, feats_tp, prompt, opts.max_length).cpu())
+        del m
+    del model, audio, audio_f, feats_tp
     torch.cuda.empty_cache()
 
     # ---- 4b. train path ---------------------------------------------------
@@ -1673,22 +1928,14 @@ def main() -> int:
     rng = np.random.default_rng(0)
 
     def train_batch(b):
-        ids = rng.integers(10, 5000, size=(b, LABELS))
-        labels = torch.from_numpy(ids).cuda()
-        labels[:, -16:] = -100
-        return {
-            "input_features": torch.from_numpy(
-                rng.standard_normal((b, large.num_mel_bins, feat.n_frames)).astype(np.float32)
-            ).cuda().to(torch.bfloat16),
-            "labels": labels,
-            "decoder_input_ids": whisper.shift_labels_right(
-                labels, large.decoder_start_token_id, large.pad_token_id),
-        }
+        return train_rng_batch(large, feat, b, rng)
 
     batch = train_batch(TRAIN_B)
     enc_before = [p.detach().clone() for p in student.model.encoder.parameters()]
     dec_before = [p.detach().clone() for p in student.model.decoder.parameters()]
-    train_step(state, teacher, batch)  # warm-up: cuBLAS plans, allocator; lr 0
+    # warm-up: cuBLAS plans, allocator; lr 0. Its loss and grad_norm, the
+    # step from the seeded weights, are 4i(c)'s one-card reference.
+    warm = {k: float(v) for k, v in train_step(state, teacher, batch).items()}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_every()
@@ -1763,8 +2010,169 @@ def main() -> int:
         f"launches {mb_launches} [{card}]")
     if mb_launches != {k: 2 * n for k, n in per_step.items()} or not math.isfinite(mb_loss):
         raise AssertionError(f"microbatch step: launches {mb_launches}, loss {mb_loss}")
-    del teacher, student, state, opt, batch, small
+
+    # ---- 5c (its step). the bilingual trainer's step at full width ------------
+    # train/distill_multitask on 4b's teacher and 2-layer student: two
+    # datasets of B=4 x 128 labels, the first with two task keys and KL, the
+    # second with one key and no KL (the v3 recipe's ja / en split); one
+    # warm-up and 2 timed steps, launches checked; at B=2 a dataset the
+    # kernel path against the plain path (loss and decoder gradients, 4b's
+    # tolerances)
+    from kotoba_whisper_tpu_torch.train import distill_multitask as mt
+
+    specs = (mt.DatasetSpec("ja", ("transcribe.ja", "translate.en"), use_kl=True),
+             mt.DatasetSpec("en", ("transcribe.ja",), use_kl=False))
+
+    def bilingual_batches(b):
+        out = []
+        for spec in specs:
+            tasks = {}
+            for key in spec.task_keys:
+                tb = train_batch(b)
+                tasks[key] = {"labels": tb["labels"], "decoder_input_ids": tb["decoder_input_ids"]}
+            out.append({"input_features": tb["input_features"], "tasks": tasks})
+        return out
+
+    bi_opt, bi_sched = optim.make_optimizer(student, lr=1e-4, warmup_steps=500)
+    bi_state = distill.TrainState(student, bi_opt)
+    bi_step = mt.make_multitask_train_step(dc, specs, bi_sched)
+    bi_batch = bilingual_batches(4)
+    bi_step(bi_state, teacher, bi_batch)  # warm-up
+    torch.cuda.synchronize()
+    reset_every()
+    t0 = time.perf_counter()
+    for _ in range(2):
+        bi_metrics = bi_step(bi_state, teacher, bi_batch)
+    torch.cuda.synchronize()
+    bi_ms = (time.perf_counter() - t0) / 2 * 1e3
+    bi_launches = nonzero(every_count())
+    n_keys = sum(len(sp.task_keys) for sp in specs)
+    n_kl = sum(len(sp.task_keys) for sp in specs if sp.use_kl)
+    ls = s_cfg.decoder_layers
+    bi_per_step = {"K1": large.encoder_layers * len(specs) + 2 * ls * n_keys
+                   + large.decoder_layers * n_kl,
+                   "K4": 2 * ls * n_keys + large.decoder_layers * n_kl, "K5": 2 * ls * n_keys}
+    bi_metrics = {k: float(v) for k, v in bi_metrics.items()}
+    log(f"[5c] bilingual step, 2 datasets x B=4 x {LABELS} labels (keys "
+        f"{[sp.task_keys for sp in specs]}, KL on the first): {bi_ms:.1f} ms/step over 2 "
+        f"steps [{card}]; launches {bi_launches}; metrics {bi_metrics}")
+    if bi_launches != {k: 2 * n for k, n in bi_per_step.items()} or not all(
+            math.isfinite(v) for v in bi_metrics.values()):
+        raise AssertionError(f"5c step: launches {bi_launches}, expected 2 x {bi_per_step}")
+    bi_small = [{"input_features": bt["input_features"][:2],
+                 "tasks": {k: {n: v[:2] for n, v in tb.items()} for k, tb in bt["tasks"].items()}}
+                for bt in bi_batch]
+
+    def bi_loss_and_grads():
+        loss, _ = mt.multitask_loss(student, teacher, dc, specs, bi_small)
+        loss.backward()
+        params = [p for p in student.parameters() if p.requires_grad]
+        grads = torch.cat([p.grad.float().flatten() for p in params])
+        for p in params:
+            p.grad = None
+        return float(loss.detach()), grads
+
+    bl_k, bg_k = bi_loss_and_grads()
+    with plain_path():
+        bl_p, bg_p = bi_loss_and_grads()
+    bl_rel = abs(bl_k - bl_p) / abs(bl_p)
+    bg_rel = float((bg_k - bg_p).norm() / bg_p.norm())
+    log(f"[5c] bilingual B=2 a dataset, kernel vs plain path on the card: loss {bl_k:.6f} vs "
+        f"{bl_p:.6f} (rel {bl_rel:.3e}, tol {TRAIN_LOSS_TOL:g}), decoder gradients rel-L2 "
+        f"{bg_rel:.3e} (tol {TRAIN_GRAD_TOL:g})")
+    if not (math.isfinite(bl_k) and bl_rel <= TRAIN_LOSS_TOL and bg_rel <= TRAIN_GRAD_TOL):
+        raise AssertionError("5c: the bilingual kernel path disagrees with the plain path")
+    del bi_opt, bi_state, bi_batch, bi_small, bg_k, bg_p
+
+    # ---- 4i(a). the distributed path on NCCL, one rank ----------------------
+    # A one-rank NCCL group over card 0 and its (1, 1) mesh: one lockstep
+    # stage-2 batch (phase 4's input and settings, 4b's seeded large-v3 as the
+    # model, the rank's rows of the batch, the tokens gathered over the
+    # group) and one distillation step with the global token counts, metrics
+    # and gradients summed over the data group; launches as phases 4 and 4b.
+    from kotoba_whisper_tpu_torch.core.mesh import DATA_AXIS, MeshConfig, build_mesh
+    from kotoba_whisper_tpu_torch.parallel import multihost, sharded
+
+    multihost.initialize(f"tcp://127.0.0.1:{free_port()}", 1, 0, device=torch.device("cuda", 0))
+    try:
+        mesh1 = build_mesh(MeshConfig(data=1, model=1), "cuda")
+        backend = torch.distributed.get_backend()
+        m1 = sharded.place_params(mesh1, teacher, model_sharded=False)
+        rows1 = sharded.place_batch(mesh1, torch.from_numpy(main_audio(feat)).cuda())
+        reset_every()
+        t0 = time.perf_counter()
+        toks1 = generate_greedy(m1, mel.log_mel_spectrogram(rows1, feat).to(torch.bfloat16), opts,
+                                st_fixed, kv_dtype="int8")
+        gathered1 = multihost.all_gather_host(toks1.cpu().numpy())
+        a_wall = time.perf_counter() - t0
+        a_pl = nonzero(every_count())
+        reset_every()
+        t0 = time.perf_counter()
+        a_metrics = distill.make_train_step(dc, sched, data_group=mesh1.get_group(DATA_AXIS))(
+            state, teacher, batch)
+        a_metrics = {k: float(v) for k, v in a_metrics.items()}
+        a_step_ms = (time.perf_counter() - t0) * 1e3
+        a_train = nonzero(every_count())
+    finally:
+        multihost.shutdown()
+    log(f"[4i-a] one-rank {backend} group: stage-2 batch B={B} in {a_wall:.3f} s "
+        f"({B * feat.chunk_length_s / a_wall:.1f} audio-s/s), launches {a_pl}, gathered "
+        f"tokens {gathered1.shape}; DDP step {a_step_ms:.1f} ms, launches {a_train}, metrics "
+        f"{a_metrics} [{card}]")
+    if not (backend == "nccl" and a_pl == expect and a_train == per_step
+            and gathered1.shape == (B, len(prompt) + NEW_TOKENS)
+            and all(math.isfinite(v) for v in a_metrics.values())):
+        raise AssertionError(f"4i(a): backend {backend}, launches {a_pl} / {a_train} "
+                             f"(expected {expect} / {per_step}), tokens {gathered1.shape}")
+    del teacher, student, state, opt, batch, small, m1, toks1
     torch.cuda.empty_cache()
+
+    # ---- 4i(b). tensor parallel over two ranks on card 0 -----------------------
+    # Two spawned ranks share card 0 over a gloo group (tp_rank): large-v3
+    # at full width split over a model group of 2 (10 heads, a K/V width of
+    # 640 and half of each ffn a rank), fused bf16 then fused + w8a8, int8
+    # KV, B=16, prompt + 48 tokens; the share of tokens equal to the
+    # one-card kernel run on the same weights (bf16 drift flips near ties:
+    # a record, not a fault), the first-step logits held to it at rel-L2
+    # 5e-2, each rank's launches and wall (two ranks on one card: a record,
+    # not a claim); then K2's beam and ring forms at 10 heads.
+    tp_dir = tempfile.mkdtemp(prefix="tp2_")
+    t0 = time.perf_counter()
+    spawn_ranks(tp_rank, free_port(), tp_dir)
+    tp_spawn_s = time.perf_counter() - t0
+    tp_out = [dict(np.load(os.path.join(tp_dir, f"tp{r}.npz"))) for r in range(2)]
+    tp_info = [json.load(open(os.path.join(tp_dir, f"tp{r}.json"))) for r in range(2)]
+    shutil.rmtree(tp_dir)
+    for label in ("bf16", "w8a8"):
+        ref_toks, ref_logits = tp_ref[label]
+        same = all(np.array_equal(tp_out[0][f"{label}/tokens"], o[f"{label}/tokens"])
+                   for o in tp_out)
+        share = float((tp_out[0][f"{label}/tokens"] == ref_toks.numpy()).mean())
+        lg = [rel(torch.from_numpy(o[f"{label}/logits"]), ref_logits) for o in tp_out]
+        walls = [i[label]["wall_s"] for i in tp_info]
+        log(f"[4i-b] TP=2 {label}: heads a rank {tp_info[0][f'{label}/heads']}; ranks' tokens "
+            f"equal {same}; share equal to the one-card run {share:.4f}; first-step logits "
+            f"rel-L2 {lg[0]:.3e} / {lg[1]:.3e} (tol 5e-2); wall {walls[0]:.3f} / {walls[1]:.3f} s "
+            f"({B * feat.chunk_length_s / max(walls):.1f} audio-s/s for the group); launches "
+            f"rank 0 {tp_info[0][label]['launches']}, rank 1 {tp_info[1][label]['launches']} "
+            f"[{card}]")
+        want = {"K1": large.encoder_layers, "K2": 2 * large.decoder_layers * NEW_TOKENS}
+        if not (same and max(lg) <= 5e-2 and all(i[label]["launches"] == want
+                                                  for i in tp_info)
+                and tp_info[0][f"{label}/heads"] == h_tp):
+            raise AssertionError(f"4i(b) {label}: ranks equal {same}, logits {lg}, launches "
+                                 f"{[i[label]['launches'] for i in tp_info]} (expected {want})")
+    for label, form in (("beam", "K2beam"), ("stream", "K2ring")):
+        got = [i[label]["launches"] for i in tp_info]
+        log(f"[4i-b] TP=2 {label} at 10 heads: launches {got[0]} / {got[1]}, wall "
+            f"{tp_info[0][label]['wall_s']:.3f} s")
+        if not (got[0] == got[1] and got[0].get(form, 0) > 0):
+            raise AssertionError(f"4i(b) {label}: launches {got}")
+    tp_launches = {"K1tp": tp_info[0]["bf16"]["launches"]["K1"],
+                   "K2tp": tp_info[0]["bf16"]["launches"]["K2"],
+                   "K2beamtp": tp_info[0]["beam"]["launches"]["K2beam"],
+                   "K2ringtp": tp_info[0]["stream"]["launches"]["K2ring"]}
+    log(f"[4i-b] two ranks spawned, built, run and joined in {tp_spawn_s:.1f} s")
 
     # ---- 5. drivers: stage 2, then stage 3, merge, 4 and 5 -------------------
     # Six synthetic utterances of 2-7 s in a tar shard with transcripts.
@@ -1828,6 +2236,62 @@ def main() -> int:
             if extra[:1] == ["--streaming"] and "--num_beams" in extra and not (
                     counts.get("K2ring") and counts.get("K2ring") == counts.get("K2beam")):
                 raise AssertionError(f"--streaming --num_beams: K2 ring and beam launches {counts}")
+
+        # ---- 4i(c). data parallel over two ranks on card 0 ---------------------
+        # Two spawned ranks share card 0 over a gloo group (dp_rank): stage 2
+        # through the driver's rank body with --num_devices 2 on the default
+        # run's dataset and flags (each rank 2 rows of each batch of 4, the
+        # first rank gathering and writing), every utterance once and in the
+        # one-card order; then one distillation step at 4b's shape, each rank
+        # 4 of the 8 rows: equal loss and grad_norm on both ranks, within 1e-2
+        # of 4b's one-card step on the same rows from the same weights.
+        dp_dir, dp_out = os.path.join(tmp, "dp2"), os.path.join(tmp, "out_dp2")
+        os.makedirs(dp_dir)
+        pl_args = ["--dataset_dir", data, "--output_dir", dp_out, "--model", "preset:large-v3",
+                   "--tokenizer", "byte", "--batch_size", "4", "--max_label_length", "24",
+                   "--kv_dtype", "int8", "--wire_dtype", "int16", "--num_devices", "2"]
+        t0 = time.perf_counter()
+        spawn_ranks(dp_rank, free_port(), dp_dir, pl_args)
+        dp_spawn_s = time.perf_counter() - t0
+        dp_info = [json.load(open(os.path.join(dp_dir, f"dp{r}.json"))) for r in range(2)]
+        one = [json.loads(line) for line in open(os.path.join(tmp, "out", "pseudo_labels.jsonl"))]
+        two = [json.loads(line) for line in open(os.path.join(dp_out, "pseudo_labels.jsonl"))]
+        agree = sum(a["whisper_transcript"] == b["whisper_transcript"] for a, b in zip(one, two))
+        audio_s = sum(2 + i for i in range(n_utts))
+        pl_walls = [i["pseudo_label"]["wall_s"] for i in dp_info]
+        log(f"[4i-c] DP=2 stage 2: {dp_info[0]['pseudo_label']['said'].strip()}; names in the "
+            f"one-card order {[r['name'] for r in two] == [r['name'] for r in one]}; "
+            f"{agree} of {n_utts} label sequences equal to the one-card run's; wall "
+            f"{pl_walls[0]:.2f} / {pl_walls[1]:.2f} s ({audio_s / max(pl_walls):.1f} audio-s/s for "
+            f"the pair, model build included); launches {dp_info[0]['pseudo_label']['launches']} "
+            f"/ {dp_info[1]['pseudo_label']['launches']} [{card}]")
+        if not ([r["name"] for r in two] == [r["name"] for r in one]
+                and sorted(os.listdir(dp_out)) == ["pseudo_labels.csv", "pseudo_labels.jsonl"]
+                and all(i["pseudo_label"]["launches"] == {"K1": 32 * n_batches,
+                                                          "K2": i["pseudo_label"]["launches"]
+                                                          .get("K2", 0),
+                                                          "K3": n_batches}
+                        and i["pseudo_label"]["launches"].get("K2") for i in dp_info)):
+            raise AssertionError(f"4i(c) stage 2: wrote {[r['name'] for r in two]}, launches "
+                                 f"{[i['pseudo_label']['launches'] for i in dp_info]}")
+        steps = [i["step"] for i in dp_info]
+        d_rel = {k: abs(steps[0]["metrics"][k] - warm[k]) / abs(warm[k])
+                 for k in ("loss", "grad_norm")}
+        log(f"[4i-c] DP=2 step at 4b's shape (rows {steps[0]['rows']} / {steps[1]['rows']}): "
+            f"loss {steps[0]['metrics']['loss']:.6f} / {steps[1]['metrics']['loss']:.6f}, "
+            f"grad_norm {steps[0]['metrics']['grad_norm']:.6f} / "
+            f"{steps[1]['metrics']['grad_norm']:.6f}; one card {warm['loss']:.6f}, "
+            f"{warm['grad_norm']:.6f} (rel {d_rel['loss']:.3e}, {d_rel['grad_norm']:.3e}, tol "
+            f"1e-2); step wall {steps[0]['wall_s'] * 1e3:.1f} / {steps[1]['wall_s'] * 1e3:.1f} ms "
+            f"({TRAIN_B * feat.chunk_length_s / max(s_['wall_s'] for s_ in steps):.1f} training "
+            f"audio-s/s for the pair); launches {steps[0]['launches']} / {steps[1]['launches']}; "
+            f"two ranks spawned, built, run and joined in {dp_spawn_s:.1f} s [{card}]")
+        if not (all(steps[0]["metrics"][k] == steps[1]["metrics"][k]
+                    for k in ("loss", "ce_loss", "kl_loss", "grad_norm"))
+                and max(d_rel.values()) <= 1e-2
+                and steps[0]["rows"] == list(range(4)) and steps[1]["rows"] == list(range(4, 8))
+                and all(s_["launches"] == per_step for s_ in steps)):
+            raise AssertionError(f"4i(c) step: {steps}, one card {warm}")
 
         labels = os.path.join(tmp, "out", "pseudo_labels.jsonl")
         work = os.path.join(tmp, "work")
@@ -1902,6 +2366,59 @@ def main() -> int:
                 and all(torch.isfinite(p).all() for p in exported.parameters())):
             raise AssertionError(f"training driver run is incomplete:\n{said[-3000:]}")
         del exported
+
+        # ---- 5c. bilingual distillation through the CLI ---------------------------
+        # Stage 2 with two columns (--text_lang_task ja:transcribe,en:translate),
+        # stage 3 keeping both as labels/<key> (--skip_filtering), then
+        # distill-bilingual on that chunk as two datasets: its transcribe.ja +
+        # translate.en labels with KL, and its transcribe.ja labels without,
+        # 5b's student, the large-v3 teacher, 2 steps, an HF export.
+        bi_pl, bi_data, bi_run = (os.path.join(tmp, n) for n in ("pl_bi", "bi_data", "bi_run"))
+        buf = io.StringIO()
+        reset_every()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            pseudo_label.main([
+                "--dataset_dir", data, "--output_dir", bi_pl, "--model", "preset:large-v3",
+                "--tokenizer", "byte", "--batch_size", "4", "--max_label_length", "24",
+                "--kv_dtype", "int8", "--wire_dtype", "int16",
+                "--text_lang_task", "ja:transcribe,en:translate"])
+            cli(["filter", "--dataset_dir", data, "--labels",
+                 os.path.join(bi_pl, "pseudo_labels.jsonl"), "--output_dir", bi_data,
+                 "--tokenizer", "byte", "--n_mels", str(large.num_mel_bins), "--wire_dtype",
+                 "int16", "--skip_filtering", "--label_column",
+                 "whisper_transcript/transcribe.ja,whisper_transcript/translate.en"])
+            t_prep = time.perf_counter() - t0
+            reset_every()
+            cli(["distill-bilingual", "--dataset",
+                 f"ja:{bi_data}:transcribe.ja+translate.en:kl", "--dataset",
+                 f"en:{bi_data}:transcribe.ja:nokl", "--student", stu, "--teacher",
+                 "preset:large-v3", "--output_dir", bi_run, "--per_dataset_batch_size", "2",
+                 "--max_steps", "2", "--max_label_length", "64", "--warmup_steps", "1",
+                 "--logging_steps", "1"])
+        bi_counts = nonzero(every_count())
+        with open(os.path.join(bi_run, "metrics.bilingual.jsonl")) as f:
+            bi_logged = [json.loads(line) for line in f]
+        bi_rows = [json.loads(line) for line in open(os.path.join(bi_data, "filtered.jsonl"))]
+        bi_model, bi_cfg = import_hf_model(os.path.join(bi_run, "final"))
+        bi_keyed = sorted(k for k in bi_rows[0] if k != "name")
+        bi_losses = [{k: round(v, 4) for k, v in r.items() if k.startswith("train/")}
+                     for r in bi_logged]
+        log(f"[5c] distill-bilingual: stages 2 and 3 with two label columns {t_prep:.1f} s, "
+            f"{len(bi_rows)} rows keyed {bi_keyed}; 2 steps + export "
+            f"{time.perf_counter() - t0 - t_prep:.1f} s [{card}]; launches {bi_counts}; logged "
+            f"{bi_losses}")
+        want_keys = {f"train/{m}.{k}" for m in ("ce_loss", "kl_loss")
+                     for k in ("transcribe.ja", "translate.en")}
+        if not ([r["step"] for r in bi_logged] == [1, 2]
+                and all(want_keys <= set(r) and all(math.isfinite(r[k]) for k in want_keys)
+                        for r in bi_logged)
+                and len(bi_rows) == n_utts
+                and (bi_cfg.encoder_layers, bi_cfg.decoder_layers) == (4, 2)
+                and all(torch.isfinite(p).all() for p in bi_model.parameters())
+                and bi_counts.get("K4") and bi_counts.get("K5") and bi_counts.get("K1")):
+            raise AssertionError(f"distill-bilingual run is incomplete:\n{buf.getvalue()[-3000:]}")
+        del bi_model
 
         # ---- 5 (stage 6): prepare-eval-set -> eval -> eval_diff -> speed -> report
         # Four synthetic WAVs of 3-18 s (the last in two chunks) in a manifest
@@ -1985,7 +2502,7 @@ def main() -> int:
             if len(lines) != 3 or not lines[2].startswith(f"| {student_dir}"):
                 raise AssertionError(f"report printed {lines}")
 
-    # ---- 5c. the experiment tools ---------------------------------------------
+    # ---- 5d. the experiment tools ---------------------------------------------
     tool_launches = {}
     for label, fn, argv in (
             ("enc_exp", enc_exp.main, ["--variant", "fused_ln", "--batch", str(B), "--trials", "2"]),
@@ -2018,7 +2535,7 @@ def main() -> int:
         "K8qk": enc_launches["KWT_FA_INT8=qk"]["K8"],
         "K8qkpv": enc_launches["KWT_FA_INT8=qkpv"]["K8"],
         "K9softmax": tool_launches["vpu_cal softmax"].get("K9", 0),
-        "K9exp": tool_launches["vpu_cal exp"].get("K9", 0)}
+        "K9exp": tool_launches["vpu_cal exp"].get("K9", 0), **tp_launches}
     for rec in records:
         rec["launches"] = path_launches[launch_key[rec["name"]]]
         if launch_key[rec["name"]] in serve_launches:  # 4h: large-v3 (a), 300 s; beam at 30 s

@@ -2,8 +2,9 @@
 
 The stages the port runs, each one driver module's main(): pseudo-label
 (stage 2) -> filter (stage 3) -> merge -> create-student (stage 4) ->
-distill (stage 5), then stage 6: prepare-eval-set, eval, speed and report.
-The JAX package's other stages are not ported yet and raise so.
+distill or distill-bilingual (stage 5), then stage 6: prepare-eval-set,
+eval, speed and report. The JAX package's parity-check is not ported yet
+and raises so.
 """
 from __future__ import annotations
 
@@ -17,6 +18,8 @@ STAGES = {
               "merge chunk outputs into split_N training groups"),
     "create-student": ("kotoba_whisper_tpu_torch.cli.create_student", "student init"),
     "distill": ("kotoba_whisper_tpu_torch.cli.distill", "distillation training"),
+    "distill-bilingual": ("kotoba_whisper_tpu_torch.cli.distill_bilingual",
+                          "v3 bilingual multi-task distillation"),
     "eval": ("kotoba_whisper_tpu_torch.cli.eval_short_form", "short-form CER/WER eval"),
     "speed": ("kotoba_whisper_tpu_torch.cli.eval_speed", "latency benchmark"),
     "report": ("kotoba_whisper_tpu_torch.eval.report", "markdown metric pivot"),
@@ -26,7 +29,7 @@ STAGES = {
     ),
 }
 # the JAX package's stages the port does not have yet
-NOT_PORTED = ("distill-bilingual", "parity-check")
+NOT_PORTED = ("parity-check",)
 
 
 def main(argv=None) -> None:

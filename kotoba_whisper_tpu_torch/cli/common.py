@@ -1,6 +1,6 @@
 """Shared CLI plumbing: model/tokenizer loading, generation defaults, the
-stage-6 drivers' serving pipeline, the jsonl interchange format and a
-background prefetch for host work.
+stage-6 drivers' serving pipeline, the jsonl interchange format, a
+background prefetch for host work and the drivers' multi-card launch.
 
 Pseudo labels are written as `pseudo_labels.jsonl` rows
 {"name", "transcription", "whisper_transcript": [token ids]} plus a CSV
@@ -11,8 +11,9 @@ from __future__ import annotations
 import json
 import os
 import queue
+import socket
 import threading
-from typing import Any, Iterable, Iterator, TypeVar
+from typing import Any, Callable, Iterable, Iterator, TypeVar
 
 import torch
 
@@ -177,3 +178,80 @@ def prefetch(it: Iterable[T], depth: int = 2) -> Iterator[T]:
                 raise failure[0]
             return
         yield item
+
+
+def add_distributed_flags(ap) -> None:
+    """Multi-host flags shared by the stage drivers (the `accelerate launch
+    --multi_gpu` equivalent): every host runs the same driver command with
+    its own --process_id."""
+    ap.add_argument("--coordinator_address", default=None,
+                    help="host:port of host 0's first rank (the rendezvous); "
+                    "with --num_processes P and --process_id i this host joins "
+                    "a job of P hosts")
+    ap.add_argument("--num_processes", type=int, default=None,
+                    help="the number of hosts in the job")
+    ap.add_argument("--process_id", type=int, default=None,
+                    help="this host's index in the job")
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def init_distributed(arg, local_rank: int, local: int, address: str) -> torch.device:
+    """Join the job as rank process_id x local + local_rank of
+    num_processes x local, on card `local_rank` (made current before any
+    allocation) or on the CPU with --device cpu; returns the rank's device."""
+    from kotoba_whisper_tpu_torch.core.device import resolve_device
+    from kotoba_whisper_tpu_torch.parallel import multihost
+
+    hosts = arg.num_processes or 1
+    if resolve_device(arg.device).type == "cuda":
+        dev = resolve_device(torch.device("cuda", local_rank))
+        torch.cuda.set_device(dev)
+    else:
+        dev = torch.device("cpu")
+        if "OMP_NUM_THREADS" not in os.environ:  # the host's cores split over its ranks
+            torch.set_num_threads(max(1, (os.cpu_count() or 1) // local))
+    multihost.initialize(f"tcp://{address}", hosts * local, (arg.process_id or 0) * local
+                         + local_rank, device=dev, local_size=local)
+    return dev
+
+
+def _rank_main(local_rank: int, body, arg, local: int, address: str) -> None:
+    from kotoba_whisper_tpu_torch.parallel import multihost
+
+    dev = init_distributed(arg, local_rank, local, address)
+    try:
+        body(arg, dev)
+    finally:
+        multihost.shutdown()
+
+
+def launch(body: Callable[[Any, torch.device], None], arg, local: int) -> None:
+    """Run a driver's body(arg, device) on `local` ranks of this host, one
+    process a card (rank r on cuda:r, or a CPU process with --device cpu),
+    in a job of --num_processes hosts. One rank in all runs in this
+    process without a process group; more than one on this host are
+    spawned (torch.multiprocessing), and an error in any fails the run."""
+    from kotoba_whisper_tpu_torch.core.device import resolve_device
+
+    hosts = arg.num_processes or 1
+    if hosts > 1 and (arg.coordinator_address is None or arg.process_id is None):
+        raise SystemExit("--num_processes > 1 needs --coordinator_address and --process_id")
+    dev = resolve_device(arg.device)
+    if hosts * local == 1:
+        body(arg, dev)
+        return
+    if dev.type == "cuda" and torch.cuda.device_count() < local:
+        raise SystemExit(f"{local} ranks on this host need {local} cards; "
+                         f"{torch.cuda.device_count()} found")
+    address = arg.coordinator_address or f"127.0.0.1:{_free_port()}"
+    if local == 1:
+        _rank_main(0, body, arg, local, address)
+    else:
+        import torch.multiprocessing as mp
+
+        mp.spawn(_rank_main, args=(body, arg, local, address), nprocs=local)

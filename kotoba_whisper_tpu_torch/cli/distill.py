@@ -1,4 +1,4 @@
-"""Stage-5 driver: distillation training on one card.
+"""Stage-5 driver: distillation training, on one card or data parallel.
 
 Streams the sharded feature splits (data/shards.py) through the epochs x
 splits schedule (train/loader.py), runs the CE + KL distillation step
@@ -8,11 +8,20 @@ rotates and resumes checkpoints with the exact data position, logs the
 JAX driver's metric names (train/loss|ce_loss|kl_loss|grad_norm|
 learning_rate|time) and exports the student in HF layout at the end.
 
-The flags mirror the JAX driver's. Not ported (they raise): more than one
-device or process (--num_devices > 1, --mesh_model_axis > 1,
---coordinator_address / --num_processes), wandb, and --dtype float32 on
-the card (K1, K4 and K5 take bfloat16). On the CPU (--device cpu) float32
-runs through the kernels' plain twins.
+The flags mirror the JAX driver's. Not ported (they raise): wandb, and
+--dtype float32 on the card (K1, K4 and K5 take bfloat16). On the CPU
+(--device cpu) float32 runs through the kernels' plain twins.
+
+Parallel runs, one process a card: --num_devices N takes N cards of this
+host (default: every card; one process with --device cpu), a mesh of
+N / M data ranks by --mesh_model_axis M, the teacher's heads over M cards
+and the student replicated; --coordinator_address --num_processes P
+--process_id i joins P hosts into one data-parallel job. Each step trains
+on per_device_train_batch_size x data ranks rows: each host takes its
+slice of every shuffled split, each rank its rows of the host's batch
+(train/loader.py), and the step's means and gradients are the global
+batch's (train/distill.py). The first rank logs, saves, rotates and
+exports; every rank resumes from the same checkpoint and data position.
 
 Usage:
   python -m kotoba_whisper_tpu_torch.cli.distill \
@@ -56,29 +65,26 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--logging_steps", type=int, default=25)
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32"])
-    ap.add_argument("--mesh_model_axis", type=int, default=1)
-    ap.add_argument("--num_devices", type=int, default=None)
+    ap.add_argument("--mesh_model_axis", type=int, default=1,
+                    help="tensor-parallel factor for the teacher")
+    ap.add_argument("--num_devices", type=int, default=None,
+                    help="cards of this host (default: all; 1 with --device cpu)")
     ap.add_argument("--no_prefetch", action="store_true",
                     help="disable the batch-assembly and next-split prefetch threads")
     ap.add_argument("--resume_from_checkpoint", action="store_true", default=True)
     ap.add_argument("--no_resume", dest="resume_from_checkpoint", action="store_false")
     ap.add_argument("--wandb_project", default=None)
-    ap.add_argument("--coordinator_address", default=None)
-    ap.add_argument("--num_processes", type=int, default=None)
-    ap.add_argument("--process_id", type=int, default=None)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; with no card and no --device cpu "
                     "the driver raises")
+    from kotoba_whisper_tpu_torch.cli.common import add_distributed_flags
+
+    add_distributed_flags(ap)
     return ap
 
 
 def _check_ported(arg, dev: torch.device) -> None:
     unported = [
-        (arg.mesh_model_axis > 1, f"--mesh_model_axis {arg.mesh_model_axis}"),
-        (arg.num_devices is not None and arg.num_devices > 1, f"--num_devices {arg.num_devices}"),
-        (arg.coordinator_address is not None, "--coordinator_address"),
-        (arg.num_processes is not None and arg.num_processes > 1,
-         f"--num_processes {arg.num_processes}"),
         (arg.wandb_project is not None, "--wandb_project"),
         (dev.type == "cuda" and arg.dtype != "bfloat16",
          f"--dtype {arg.dtype} on the card (K1, K4 and K5 take bfloat16)"),
@@ -93,16 +99,24 @@ def main(argv=None) -> None:
     arg = ap.parse_args(argv)
     if not (arg.data_dir or arg.train_splits):
         ap.error("one of --data_dir / --train_splits is required")
-
     from kotoba_whisper_tpu_torch.cli import common
-    from kotoba_whisper_tpu_torch.core.device import resolve_device
+
+    local = arg.num_devices or (torch.cuda.device_count() if arg.device.startswith("cuda")
+                                else 1)
+    common.launch(_run, arg, max(local, 1))
+
+
+def _run(arg, dev: torch.device) -> None:
+    """One rank's run (the only one on one card)."""
+    from kotoba_whisper_tpu_torch.cli import common
+    from kotoba_whisper_tpu_torch.core.mesh import DATA_AXIS, MeshConfig, build_mesh
     from kotoba_whisper_tpu_torch.data.collator import CollatorConfig, collate_labels
     from kotoba_whisper_tpu_torch.data.shards import resolve_split_dirs
+    from kotoba_whisper_tpu_torch.parallel import multihost, sharded
     from kotoba_whisper_tpu_torch.train import checkpoint, distill, optim
     from kotoba_whisper_tpu_torch.train.loader import DataPosition, ScheduleLoader
     from kotoba_whisper_tpu_torch.train.logging import MetricLogger
 
-    dev = resolve_device(arg.device)
     _check_ported(arg, dev)
     compute_dtype = torch.bfloat16 if arg.dtype == "bfloat16" else torch.float32
 
@@ -112,13 +126,30 @@ def main(argv=None) -> None:
     teacher, t_cfg = common.load_model(arg.teacher, dev, compute_dtype)
     teacher.requires_grad_(False)
 
-    global_batch = arg.per_device_train_batch_size
+    # the job's mesh: data ranks over every host, the teacher's heads over
+    # --mesh_model_axis cards; the student is replicated
+    hosts, main = multihost.host_count(), multihost.is_main_process()
+    mesh, rank_slice, data_group = None, (0, 1), None
+    if multihost.process_count() > 1:
+        mesh = build_mesh(MeshConfig(data=-1, model=arg.mesh_model_axis), dev.type)
+        teacher = sharded.place_params(mesh, teacher, model_sharded=arg.mesh_model_axis > 1)
+        sharded.replicate(student)
+        rank_slice, data_group = sharded.data_coords(mesh, hosts), mesh.get_group(DATA_AXIS)
+    elif arg.mesh_model_axis > 1:
+        raise SystemExit(f"--mesh_model_axis {arg.mesh_model_axis} needs as many cards")
+    n_data = multihost.process_count() // arg.mesh_model_axis
+    global_batch = arg.per_device_train_batch_size * n_data
     loader = ScheduleLoader(split_dirs, seed=arg.seed, global_batch=global_batch,
-                            num_epochs=arg.num_train_epochs, prefetch=not arg.no_prefetch)
+                            num_epochs=arg.num_train_epochs, process_index=multihost.host_index(),
+                            process_count=hosts, rank_slice=rank_slice,
+                            microbatches=arg.gradient_accumulation_steps,
+                            prefetch=not arg.no_prefetch)
     for s in range(len(split_dirs)):
         if loader.batches_in_split(s) == 0:
             raise SystemExit(f"split {split_dirs[s]} has {loader.split_size(s)} rows < "
-                             f"batch {global_batch}; shrink the batch")
+                             f"global batch {global_batch} ({arg.per_device_train_batch_size}"
+                             f"/device x {n_data} data ranks); shrink the batch or "
+                             f"--num_devices")
     steps_per_epoch = loader.steps_per_epoch()
 
     dc = distill.DistillConfig(
@@ -137,7 +168,7 @@ def main(argv=None) -> None:
         total_steps=arg.max_steps if arg.max_steps > 0 else None,
     )
     state = distill.TrainState(student, opt)
-    step_fn = distill.make_train_step(dc, sched, device=dev)
+    step_fn = distill.make_train_step(dc, sched, device=dev, data_group=data_group)
 
     pos = DataPosition()
     last = checkpoint.get_last_checkpoint(arg.output_dir)
@@ -150,9 +181,10 @@ def main(argv=None) -> None:
         elif steps_per_epoch > 0:
             # a checkpoint without data_state.json: derive from the step
             pos = DataPosition(start_epoch, 0, resumed_step - start_epoch * steps_per_epoch)
-        print(f"resumed from {path} (step {resumed_step}, {pos})")
+        if main:
+            print(f"resumed from {path} (step {resumed_step}, {pos})")
 
-    logger = MetricLogger(arg.output_dir)
+    logger = MetricLogger(arg.output_dir if main else None)
     ccfg = CollatorConfig(
         max_target_length=arg.max_label_length,
         decoder_start_token_id=s_cfg.decoder_start_token_id,
@@ -160,9 +192,11 @@ def main(argv=None) -> None:
     )
 
     def save(pos_next: DataPosition) -> None:
-        ck = checkpoint.save_train_state(arg.output_dir, state, pos_next.epoch,
-                                         arg.save_total_limit)
-        pos_next.save(ck)
+        if main:
+            ck = checkpoint.save_train_state(arg.output_dir, state, pos_next.epoch,
+                                             arg.save_total_limit)
+            pos_next.save(ck)
+        multihost.barrier("ckpt_saved")
 
     t_last = time.time()
     last_pos = pos
@@ -182,15 +216,19 @@ def main(argv=None) -> None:
             metrics["time"] = time.time() - t_last
             t_last = time.time()
             logger.log(metrics, state.step)
-            print(f"step {state.step}: " + ", ".join(f"{k}={v:.4g}" for k, v in metrics.items()))
+            if main:
+                print(f"step {state.step}: "
+                      + ", ".join(f"{k}={v:.4g}" for k, v in metrics.items()))
         if state.step % arg.save_steps == 0:
             save(loader.next_position(bpos))
         if arg.max_steps > 0 and state.step >= arg.max_steps:
             break
 
     save(loader.next_position(last_pos))
-    checkpoint.export_hf_model(f"{arg.output_dir}/final", state.model, s_cfg)
-    print(f"training done at step {state.step}; model exported to {arg.output_dir}/final")
+    if main:
+        checkpoint.export_hf_model(f"{arg.output_dir}/final", state.model, s_cfg)
+        print(f"training done at step {state.step}; model exported to {arg.output_dir}/final")
+    multihost.barrier("export_done")
 
 
 if __name__ == "__main__":

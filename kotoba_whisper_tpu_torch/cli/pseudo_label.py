@@ -12,10 +12,18 @@ a CSV dump, the files the JAX driver writes.
 
 The flags mirror the JAX driver's. As there, the attention projections
 are fused for inference unless --no_fuse is given, and --gemm_dtype int8
-quantizes the projections to w8a8. Ported: --num_beams N, --streaming
-(with any --num_beams), one device, --kv_dtype compute|int8, --gemm_dtype
-compute|int8, --wire_dtype float32|int16, --text_lang_task and
---no_fuse. Any other value raises.
+quantizes the projections to w8a8. Not ported (they raise): --kv_dtype
+int4, and --dtype float32 on the card (K1 and K2 take bfloat16).
+
+Parallel runs, one process a card:
+  - --num_devices N --mesh_model_axis M takes N x M cards of this host:
+    each batch's rows split in N contiguous blocks, the teacher's heads and
+    ffn over M cards (tensor parallel). The host's first rank gathers the
+    tokens and writes the files in the order of a one-card run. --streaming
+    with more than one card runs lockstep, with a warning, as in JAX.
+  - --coordinator_address host:port --num_processes P --process_id i
+    joins P hosts: each host takes its slice of the tar shards, writes
+    rank-{i}/, and the first host merges them by utterance name.
 
 Usage:
   python -m kotoba_whisper_tpu_torch.cli.pseudo_label \
@@ -71,22 +79,22 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--no_fuse", action="store_true",
                     help="run without the inference projection fusion")
     ap.add_argument("--streaming", action="store_true")
-    ap.add_argument("--num_devices", type=int, default=1)
-    ap.add_argument("--mesh_model_axis", type=int, default=1)
-    ap.add_argument("--coordinator_address", default=None)
-    ap.add_argument("--num_processes", type=int, default=None)
-    ap.add_argument("--process_id", type=int, default=None)
+    ap.add_argument("--num_devices", type=int, default=1,
+                    help="data-parallel decode over N cards of this host")
+    ap.add_argument("--mesh_model_axis", type=int, default=1,
+                    help="tensor-parallel factor for the teacher (combine "
+                    "with --num_devices)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; with no card and no "
                     "--device cpu the driver raises")
+    from kotoba_whisper_tpu_torch.cli.common import add_distributed_flags
+
+    add_distributed_flags(ap)
     return ap
 
 
 def _check_ported(arg, dev: torch.device) -> None:
     unported = [
-        (arg.num_devices != 1, f"--num_devices {arg.num_devices}"),
-        (arg.mesh_model_axis != 1, f"--mesh_model_axis {arg.mesh_model_axis}"),
-        (arg.coordinator_address is not None, "--coordinator_address"),
         (arg.kv_dtype == "int4", "--kv_dtype int4"),
         (dev.type == "cuda" and arg.dtype != "bfloat16",
          f"--dtype {arg.dtype} on the card (K1 and K2 take bfloat16)"),
@@ -97,11 +105,17 @@ def _check_ported(arg, dev: torch.device) -> None:
 
 
 def main(argv=None) -> None:
-    arg = _parser().parse_args(argv)
+    from kotoba_whisper_tpu_torch.cli import common
 
+    arg = _parser().parse_args(argv)
+    common.launch(_run, arg, arg.num_devices * arg.mesh_model_axis)
+
+
+def _run(arg, dev: torch.device) -> None:
+    """One rank's run (the only one on one card)."""
     from kotoba_whisper_tpu_torch.cli import common
     from kotoba_whisper_tpu_torch.core.config import FeatureConfig
-    from kotoba_whisper_tpu_torch.core.device import resolve_device
+    from kotoba_whisper_tpu_torch.core.mesh import MeshConfig, build_mesh
     from kotoba_whisper_tpu_torch.data import reazon
     from kotoba_whisper_tpu_torch.data.collator import CollatorConfig, collate_audio
     from kotoba_whisper_tpu_torch.decode.beam import generate_beam
@@ -112,16 +126,29 @@ def main(argv=None) -> None:
         generate_beam_streaming,
     )
     from kotoba_whisper_tpu_torch.ops.mel import log_mel_spectrogram
+    from kotoba_whisper_tpu_torch.parallel import multihost, sharded
     from kotoba_whisper_tpu_torch.train.logging import Throughput
     from kotoba_whisper_tpu_torch.utils import native
 
-    dev = resolve_device(arg.device)
     _check_ported(arg, dev)
     dtype = torch.bfloat16 if arg.dtype == "bfloat16" else torch.float32
 
     tok = common.load_tokenizer(arg.tokenizer)
     model, cfg = common.load_model(arg.model, dev, dtype)
     model = common.quantize_if(common.fuse_unless(model, arg.no_fuse), arg.gemm_dtype)
+
+    # more than one card on a host: a mesh over the job's ranks, each host
+    # decoding its own batches (its rows over "data", the teacher's heads
+    # over "model"); the host's first rank writes the host's files
+    hosts = multihost.host_count()
+    mesh = None
+    if arg.num_devices * arg.mesh_model_axis > 1:
+        if arg.batch_size % arg.num_devices:
+            raise SystemExit("--batch_size must divide across --num_devices")
+        mesh = build_mesh(MeshConfig(data=hosts * arg.num_devices, model=arg.mesh_model_axis),
+                          dev.type)
+        model = sharded.place_params(mesh, model, model_sharded=arg.mesh_model_axis > 1)
+    writes = multihost.local_rank() == 0
     feat = FeatureConfig(n_mels=cfg.num_mel_bins)
     ccfg = CollatorConfig(n_samples=feat.n_samples)
 
@@ -147,7 +174,18 @@ def main(argv=None) -> None:
             return np.clip(np.round(a * 32768.0), -32768, 32767).astype(np.int16)
         return a
 
+    def gather(toks: np.ndarray) -> np.ndarray:
+        """The host's rows from its ranks' (data block, model rank) parts,
+        in batch order (model rank 0's copy of each block)."""
+        group = multihost.host_group()
+        toks = multihost.pad_across_processes(toks, 1, cfg.pad_token_id, group)
+        parts = multihost.all_gather_host(toks, group)
+        parts = parts.reshape(arg.num_devices, arg.mesh_model_axis, *toks.shape)
+        return parts[:, 0].reshape(-1, toks.shape[1])
+
     def generate(batch_audio: np.ndarray) -> dict[str, np.ndarray]:
+        if mesh is not None:
+            batch_audio = sharded.place_batch(mesh, batch_audio, hosts)
         mel = log_mel_spectrogram(wire(batch_audio), feat, device=dev).to(dtype)
         out = {}
         for key, opts in task_opts.items():
@@ -157,7 +195,7 @@ def main(argv=None) -> None:
             else:
                 toks = generate_greedy(model, mel, opts, tok.special, kv_dtype=arg.kv_dtype,
                                        device=dev)
-            out[key] = toks.cpu().numpy()
+            out[key] = toks.cpu().numpy() if mesh is None else gather(toks.cpu().numpy())
         return out
 
     chunk_range = (
@@ -165,11 +203,16 @@ def main(argv=None) -> None:
         if arg.chunk_lo is not None and arg.chunk_hi is not None
         else None
     )
-    utts = reazon.iter_dataset_dir(arg.dataset_dir, chunk_range=chunk_range)
-    os.makedirs(arg.output_dir, exist_ok=True)
-    jsonl_path = os.path.join(arg.output_dir, "pseudo_labels.jsonl")
-    csv_path = os.path.join(arg.output_dir, "pseudo_labels.csv")
-    tp = Throughput(n_cards=1)
+    utts = reazon.iter_dataset_dir(arg.dataset_dir, chunk_range=chunk_range,
+                                   shard_slice=(multihost.host_index(), hosts) if hosts > 1
+                                   else None)
+    out_dir = (os.path.join(arg.output_dir, f"rank-{multihost.host_index()}") if hosts > 1
+               else arg.output_dir)
+    os.makedirs(out_dir, exist_ok=True)
+    jsonl_path = os.path.join(out_dir, "pseudo_labels.jsonl")
+    csv_path = os.path.join(out_dir, "pseudo_labels.csv")
+    # this card's rate: the audio of its rows, shared by its model group
+    tp = Throughput(n_cards=arg.mesh_model_axis)
     tp.start()
     n_done = 0
 
@@ -203,12 +246,11 @@ def main(argv=None) -> None:
                 else f"whisper_transcript/{key}"
             )
             record[col] = ids
-            if key == main_key:
+            if key == main_key and writer is not None:
                 text = tok.decode(
                     ids, skip_special_tokens=False, decode_with_timestamps=True,
                 )
                 writer.writerow([u.name, text])
-        tp.add(len(wav) / feat.sampling_rate)
         return record
 
     def rows_lockstep(writer):
@@ -223,6 +265,9 @@ def main(argv=None) -> None:
                     [arr, np.zeros((pad_rows,) + arr.shape[1:], arr.dtype)]
                 )
             per_task = generate(arr)
+            own = (sharded.place_batch(mesh, np.arange(arr.shape[0]), hosts) if mesh is not None
+                   else range(len(batch)))
+            tp.add(sum(len(audio[bi]) for bi in own if bi < len(batch)) / feat.sampling_rate)
             for bi, (u, wav) in enumerate(zip(batch, audio)):
                 n_done += 1
                 yield make_record(u, wav, per_task, bi, writer)
@@ -258,6 +303,7 @@ def main(argv=None) -> None:
                 for chunk in common.batched(buf, encode_batch)
             ])
             per_task = {key: decode_stream(mels, opts) for key, opts in task_opts.items()}
+            tp.add(sum(len(wav) for _, wav, _ in buf) / feat.sampling_rate)
             for bi, (u, wav, _) in enumerate(buf):
                 n_done += 1
                 yield make_record(u, wav, per_task, bi, writer)
@@ -276,17 +322,59 @@ def main(argv=None) -> None:
         if buf:
             yield from flush(buf)
 
+    streaming = arg.streaming and mesh is None
+    if arg.streaming and not streaming:
+        print("warning: --streaming needs a single device; using lockstep batching",
+              file=sys.stderr)
+
     def rows():
+        if not writes:
+            yield from (rows_streaming if streaming else rows_lockstep)(None)
+            return
         with open(csv_path, "w", newline="") as cf:
             writer = csv.writer(cf)
             writer.writerow(["file_id", "whisper_transcript"])
-            yield from (rows_streaming if arg.streaming else rows_lockstep)(writer)
+            yield from (rows_streaming if streaming else rows_lockstep)(writer)
 
-    n = common.write_jsonl(jsonl_path, rows())
-    print(
-        f"pseudo-labelled {n} utterances -> {jsonl_path} "
-        f"({tp.rate():.1f} audio-s/s/card on {dev})"
-    )
+    if writes:
+        n = common.write_jsonl(jsonl_path, rows())
+    else:
+        n = sum(1 for _ in rows())
+    rate = tp.rate()
+    if hosts > 1:
+        multihost.barrier("pseudo_label_done")
+        if multihost.is_main_process():
+            n = _merge_rank_outputs(arg.output_dir, hosts, common)
+        multihost.barrier("pseudo_label_merged")
+    if writes:
+        print(
+            f"pseudo-labelled {n} utterances -> {jsonl_path} "
+            f"({rate:.1f} audio-s/s/card on {dev})"
+        )
+
+
+def _merge_rank_outputs(output_dir: str, n_hosts: int, common) -> int:
+    """Merge the hosts' rank-K/ files into top-level files, ordered by
+    utterance name (the same order whatever the host count)."""
+    records = []
+    for k in range(n_hosts):
+        records.extend(common.read_jsonl(
+            os.path.join(output_dir, f"rank-{k}", "pseudo_labels.jsonl")))
+    records.sort(key=lambda r: r["name"])
+    n = common.write_jsonl(os.path.join(output_dir, "pseudo_labels.jsonl"), iter(records))
+    csv_rows = []
+    for k in range(n_hosts):
+        with open(os.path.join(output_dir, f"rank-{k}", "pseudo_labels.csv"),
+                  newline="") as f:
+            rd = csv.reader(f)
+            next(rd, None)  # header
+            csv_rows.extend(rd)
+    csv_rows.sort(key=lambda r: r[0])
+    with open(os.path.join(output_dir, "pseudo_labels.csv"), "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["file_id", "whisper_transcript"])
+        w.writerows(csv_rows)
+    return n
 
 
 if __name__ == "__main__":

@@ -61,10 +61,13 @@ def iter_dataset_dir(
     dataset_dir: str,
     tsv_name: str = "transcript.tsv",
     chunk_range: tuple[int, int] | None = None,
+    shard_slice: tuple[int, int] | None = None,
 ) -> Iterator[Utterance]:
     """Stream utterances from a directory of numbered tar shards; the TSV is
     shared (ReazonSpeech v2 layout). chunk_range selects [lo, hi) shard
-    indices (the idempotent-chunk recipe)."""
+    indices (the idempotent-chunk recipe). shard_slice=(index, count)
+    keeps tars[index::count] of those: a host's slice in a multi-host
+    run, each host reading only its own files."""
     tsv_path = os.path.join(dataset_dir, tsv_name)
     transcripts = read_tsv_transcripts(tsv_path) if os.path.exists(tsv_path) else None
     tars = sorted(
@@ -72,6 +75,8 @@ def iter_dataset_dir(
     )
     if chunk_range is not None:
         tars = tars[chunk_range[0] : chunk_range[1]]
+    if shard_slice is not None:
+        tars = tars[shard_slice[0] :: shard_slice[1]]
     for t in tars:
         yield from iter_tar_utterances(os.path.join(dataset_dir, t), transcripts)
 

@@ -89,8 +89,9 @@ def _empty_cache(model, opts: GenerateOptions, rows: int, cross_rows: int, kv_dt
         raise NotImplementedError(f"kv_dtype={kv_dtype!r} is not ported yet")
     store = torch.int8 if kv_dtype == "int8" else model.dtype
     n = cfg.decoder_layers
-    self_k = torch.zeros((n, rows, opts.max_length, cfg.d_model), dtype=store, device=dev)
-    cross_k = torch.zeros((n, cross_rows, cfg.max_source_positions, cfg.d_model), dtype=store,
+    d = whisper.rank_width(model)
+    self_k = torch.zeros((n, rows, opts.max_length, d), dtype=store, device=dev)
+    cross_k = torch.zeros((n, cross_rows, cfg.max_source_positions, d), dtype=store,
                           device=dev)
     scales = {}
     if kv_dtype == "int8":
@@ -189,7 +190,8 @@ def _refill(model, state: StreamState, mel, pool_tokens, pool_stop, pool_utt, po
     current slot (plain causal self- and cross-attention over the prefix,
     as the JAX package's refill runs them outside its kernels)."""
     cfg, dec = model.cfg, model.model.decoder
-    n_heads = cfg.decoder_attention_heads
+    n_heads = whisper.rank_heads(model, cfg.decoder_attention_heads)
+    group = whisper.tp_group(model)
     p = len(opts.prompt_ids)
     e = pool_stop.shape[0]
     cap = state.tokens.shape[1]
@@ -207,7 +209,7 @@ def _refill(model, state: StreamState, mel, pool_tokens, pool_stop, pool_utt, po
     def store(vals, scale_buf, buf, rows, cols=None):
         """vals (E, T, D) into buf's rows (and slots), quantized in int8 mode."""
         if int8_kv:
-            vals, s = whisper.quantize_kv_rows(vals)
+            vals, s = whisper.quantize_kv_rows(vals, group)
             if cols is None:
                 scale_buf.index_copy_(0, rows, s)
             else:

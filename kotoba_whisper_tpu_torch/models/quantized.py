@@ -20,6 +20,7 @@ quantize as one; the transform rewrites the model in place and returns it.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -65,13 +66,24 @@ def int8_matmul(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
 
 
 def dense_int8(q: QuantizedLinear, x: torch.Tensor) -> torch.Tensor:
-    """w8a8 dense: dynamic per-row activation quantization, s32 product."""
+    """w8a8 dense: dynamic per-row activation quantization, s32 product.
+
+    Row-parallel (`reduce_group` set: x holds the rank's columns of each
+    row), in this order, bit-exact with the whole projection: the row
+    absmax is the max over the model group, the rank's columns quantize
+    with it, the s32 partial products sum over the group (exact in int32),
+    then the one dequantize with the whole per-output scale and the bias."""
+    group = getattr(q, "reduce_group", None)
     a = x.abs().amax(dim=-1, keepdim=True).float()
+    if group is not None:
+        dist.all_reduce(a, op=dist.ReduceOp.MAX, group=group)
     s_x = torch.clamp(a, min=1e-8) * (1.0 / 127.0)
     inv = 1.0 / s_x
     xq = torch.clamp(torch.round(x.float() * inv), -127, 127).to(torch.int8)
     lead = x.shape[:-1]
     y = int8_matmul(xq.reshape(-1, x.shape[-1]), q.weight_q).reshape(*lead, -1)
+    if group is not None:
+        dist.all_reduce(y, group=group)
     y = y.float() * s_x * q.weight_scale.float()
     if q.bias is not None:
         y = y + q.bias.float()

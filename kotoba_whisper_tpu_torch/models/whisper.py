@@ -31,6 +31,15 @@ does: fused qkv/kv projections (models/optimized.py) and w8a8 projections
 
 `encoder_forward`, `decoder_forward` and `forward` build autograd graphs
 (training); `encode`, `decode` and `init_cache` run under inference mode.
+
+Tensor parallelism (parallel/sharded.place_params): a sharded model holds
+its rank's H / M heads of every attention and 1 / M of every ffn, and
+records its model group (`tp_size`, `tp_group`). The functions take the
+rank's heads and cache width from the model (`rank_heads`, `rank_width`),
+a row-parallel projection sums its partial products over the group before
+its bias (`dense`), and the int8 KV rows take their absmax over the whole
+row, across the group (`quantize_kv_rows`). The group's ranks then hold
+the same residual stream, LayerNorms and logits.
 """
 from __future__ import annotations
 
@@ -39,6 +48,7 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
@@ -191,12 +201,32 @@ def layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
     ).to(x.dtype)
 
 
+def tp_group(model: nn.Module):
+    """The model group of a tensor-parallel model (None when whole)."""
+    return getattr(model, "tp_group", None)
+
+
+def rank_heads(model: nn.Module, n_heads: int) -> int:
+    """The heads of an attention that this rank holds."""
+    return n_heads // getattr(model, "tp_size", 1)
+
+
+def rank_width(model: nn.Module) -> int:
+    """The K/V cache width this rank holds (its heads x 64)."""
+    return model.cfg.d_model // getattr(model, "tp_size", 1)
+
+
 def dense(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     """Product in x's dtype (the weight cast to it), bias added after; a
-    w8a8 projection takes the int8 product."""
+    w8a8 projection takes the int8 product. A row-parallel projection
+    (`reduce_group` set) sums its rank's partial product over the model
+    group first; every rank gets the same sum."""
     if isinstance(lin, QuantizedLinear):
         return dense_int8(lin, x)
     y = F.linear(x, lin.weight.to(x.dtype))
+    group = getattr(lin, "reduce_group", None)
+    if group is not None:
+        dist.all_reduce(y, group=group)
     if lin.bias is not None:
         y = y + lin.bias.to(x.dtype)
     return y
@@ -294,8 +324,9 @@ def encoder_forward(
     a frozen encoder."""
     cfg, enc = model.cfg, model.model.encoder
     x = embed_audio(model, feats, compute_dtype or model.dtype, stem_impl)
+    n_heads = rank_heads(model, cfg.encoder_attention_heads)
     for layer in enc.layers:
-        x = _maybe_remat(_encoder_layer, remat, layer, cfg.encoder_attention_heads, x)
+        x = _maybe_remat(_encoder_layer, remat, layer, n_heads, x)
     return layer_norm(enc.layer_norm, x)
 
 
@@ -343,10 +374,14 @@ class KVCache:
         return self.cross_k_scale is not None
 
 
-def quantize_kv_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """(..., T, D) -> (int8 values, fp32 per-row scale (..., T, 1))."""
+def quantize_kv_rows(x: torch.Tensor, group=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """(..., T, D) -> (int8 values, fp32 per-row scale (..., T, 1)). With a
+    model group, x is the rank's heads of each row and the absmax is the
+    whole row's, so the codes are the unsharded cache's."""
     x32 = x.float()
     amax = x32.abs().amax(dim=-1, keepdim=True)
+    if group is not None:
+        dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
     scale = torch.clamp(amax, min=1e-8) / 127.0
     q = torch.clamp(torch.round(x32 / scale), -127, 127)
     return q.to(torch.int8), scale
@@ -354,7 +389,8 @@ def quantize_kv_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 def _init_cache(model, encoder_out, capacity, kv_dtype, beam_size=1):
     cfg, dec = model.cfg, model.model.decoder
-    n_layers, d = cfg.decoder_layers, cfg.d_model
+    n_layers, d = cfg.decoder_layers, rank_width(model)
+    group = tp_group(model)
     b, t_enc = encoder_out.shape[:2]
     rows = b * beam_size  # self-K/V rows: one per hypothesis
     dev = encoder_out.device
@@ -379,8 +415,8 @@ def _init_cache(model, encoder_out, capacity, kv_dtype, beam_size=1):
         else:
             k, v = dense(ea.k_proj, encoder_out), dense(ea.v_proj, encoder_out)
         if kv_dtype == "int8":
-            cross_k[i], ck_s[i] = quantize_kv_rows(k)
-            cross_v[i], cv_s[i] = quantize_kv_rows(v)
+            cross_k[i], ck_s[i] = quantize_kv_rows(k, group)
+            cross_v[i], cv_s[i] = quantize_kv_rows(v, group)
         else:
             cross_k[i], cross_v[i] = k, v
     self_k = torch.zeros((n_layers, rows, capacity, d), dtype=store, device=dev)
@@ -443,8 +479,9 @@ def decoder_forward(
     emb = dec.embed_tokens.weight.to(dtype)
     x = emb[input_ids] + dec.embed_positions.weight[:t].to(dtype)[None]
     enc = encoder_out.to(dtype)
+    n_heads = rank_heads(model, cfg.decoder_attention_heads)
     for layer in dec.layers:
-        x = _maybe_remat(_decoder_layer, remat, layer, cfg.decoder_attention_heads, x, enc)
+        x = _maybe_remat(_decoder_layer, remat, layer, n_heads, x, enc)
     return logits_from(emb, layer_norm(dec.layer_norm, x))
 
 
@@ -469,7 +506,8 @@ def _decode_step(model, input_ids, cache: KVCache, ring_pos=None, beam_size=1):
     stream's step (decode/streaming_beam.py) has per-row lengths, a ring
     slot and beam groups."""
     cfg, dec = model.cfg, model.model.decoder
-    n_heads = cfg.decoder_attention_heads
+    n_heads = rank_heads(model, cfg.decoder_attention_heads)
+    group = tp_group(model)
     b, t = input_ids.shape
     capacity = cache.self_k.shape[2]
     per_row = isinstance(cache.length, torch.Tensor)
@@ -537,8 +575,8 @@ def _decode_step(model, input_ids, cache: KVCache, ring_pos=None, beam_size=1):
         sa = layer.self_attn
         q_flat, k_new, v_new = (merge_heads(t) for t in qkv_projections(sa, h, h, n_heads))
         if int8_kv:
-            k_new, k_new_s = quantize_kv_rows(k_new)
-            v_new, v_new_s = quantize_kv_rows(v_new)
+            k_new, k_new_s = quantize_kv_rows(k_new, group)
+            v_new, v_new_s = quantize_kv_rows(v_new, group)
             write(sk_s, k_new_s)
             write(sv_s, v_new_s)
         write(sk, k_new)
@@ -646,13 +684,16 @@ def forward(
     return logits, encoder_out
 
 
-def ce_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Token-mean cross-entropy with the -100 ignore mask (HF semantics)."""
+def ce_loss(logits: torch.Tensor, labels: torch.Tensor,
+            count: torch.Tensor | None = None) -> torch.Tensor:
+    """Token-mean cross-entropy with the -100 ignore mask (HF semantics).
+    `count`, the valid tokens of the whole data-parallel batch, replaces
+    this rank's own count as the divisor: the rank's share of the mean."""
     mask = labels != -100
     safe = torch.where(mask, labels, 0)
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, safe[..., None].long())[..., 0]
-    return (nll * mask).sum() / mask.sum().clamp(min=1)
+    return (nll * mask).sum() / (mask.sum() if count is None else count).clamp(min=1)
 
 
 def shift_labels_right(

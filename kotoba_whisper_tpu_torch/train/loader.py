@@ -6,8 +6,16 @@ checkpoint needs only (epoch, split, batch) to resume exactly. Batches of a
 split are assembled on a background thread (`cli/common.prefetch`), and
 the next split's shards are warmed into the page cache while the current
 one trains. A failure while assembling a batch (a bad shard) is re-raised
-in the training loop; it never ends a split early. One process reads the
-whole order (multi-process sharding is not ported).
+in the training loop; it never ends a split early.
+
+Data parallel, as the JAX package feeds its devices: each host takes the
+`order[host::hosts]` slice of the shuffled order and cuts it into local
+batches of global_batch / hosts rows; of each local batch a rank takes the
+rows its data index holds on its host (`rank_slice=(index, count)`): with
+one microbatch the contiguous block `index`, with several the block
+`index` of each microbatch (parallel/sharded.rank_rows). So an N-card run
+on one host trains on the global batches of the JAX N-device run. Ranks
+of one model group take the same rows.
 """
 from __future__ import annotations
 
@@ -21,6 +29,7 @@ import numpy as np
 
 from kotoba_whisper_tpu_torch.cli.common import prefetch
 from kotoba_whisper_tpu_torch.data.shards import FeatureStore
+from kotoba_whisper_tpu_torch.parallel.sharded import rank_rows
 
 DATA_STATE_NAME = "data_state.json"
 
@@ -46,21 +55,34 @@ class DataPosition:
             return DataPosition(**json.load(f))
 
 
-def split_order(seed: int, epoch: int, split: int, n: int) -> np.ndarray:
-    """Deterministic shuffle for one (epoch, split)."""
-    return np.random.default_rng([seed, epoch, split]).permutation(n)
+def split_order(seed: int, epoch: int, split: int, n: int,
+                process_index: int = 0, process_count: int = 1) -> np.ndarray:
+    """Deterministic shuffle for one (epoch, split), sliced for one host."""
+    order = np.random.default_rng([seed, epoch, split]).permutation(n)
+    if process_count > 1:
+        order = order[process_index::process_count]
+    return order
 
 
 class ScheduleLoader:
     """Iterate epochs x splits from any DataPosition."""
 
     def __init__(self, split_dirs: list[str], *, seed: int, global_batch: int,
-                 num_epochs: int, prefetch: bool = True):
+                 num_epochs: int, process_index: int = 0, process_count: int = 1,
+                 rank_slice: tuple[int, int] = (0, 1), microbatches: int = 1,
+                 prefetch: bool = True):
         if not split_dirs:
             raise ValueError("ScheduleLoader needs at least one split")
+        if global_batch % process_count:
+            raise ValueError(f"global batch {global_batch} does not split over "
+                             f"{process_count} hosts")
         self.split_dirs = split_dirs
         self.seed = seed
         self.global_batch = global_batch
+        self.local_batch = global_batch // process_count
+        self.process_index, self.process_count = process_index, process_count
+        # the rank's rows of every local batch
+        self.rows = rank_rows(self.local_batch, *rank_slice, microbatches)
         self.num_epochs = num_epochs
         self.prefetch = prefetch
         self._stores: dict[int, FeatureStore] = {}
@@ -86,7 +108,9 @@ class ScheduleLoader:
         return n
 
     def batches_in_split(self, split: int) -> int:
-        return self.split_size(split) // self.global_batch
+        n_local = len(split_order(0, 0, 0, self.split_size(split), self.process_index,
+                                  self.process_count))
+        return n_local // self.local_batch
 
     def steps_per_epoch(self) -> int:
         return sum(self.batches_in_split(s) for s in range(len(self.split_dirs)))
@@ -98,11 +122,12 @@ class ScheduleLoader:
     def _split_batches(self, epoch: int, split: int, start_batch: int
                        ) -> Iterator[tuple[DataPosition, list[dict], np.ndarray]]:
         store = self.store(split)
-        order = split_order(self.seed, epoch, split, len(store))
-        n_batches = len(order) // self.global_batch
+        order = split_order(self.seed, epoch, split, len(store), self.process_index,
+                            self.process_count)
+        n_batches = len(order) // self.local_batch
 
         def assemble(b: int):
-            idx = order[b * self.global_batch:(b + 1) * self.global_batch]
+            idx = order[b * self.local_batch:(b + 1) * self.local_batch][self.rows]
             rows = [store.rows[i] for i in idx]
             feats = store.gather(idx) if store.has_features else None
             return DataPosition(epoch, split, b), rows, feats

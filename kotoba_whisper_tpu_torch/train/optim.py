@@ -21,6 +21,7 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 
 Schedule = Callable[[int], float]
 
@@ -76,6 +77,22 @@ def clip_by_global_norm_(params: list[torch.Tensor], max_norm: float) -> torch.T
     for g in grads:
         g.div_(div.to(g.dtype)).mul_(mul.to(g.dtype))
     return norm
+
+
+@torch.no_grad()
+def all_reduce_grads_(params: list[torch.Tensor], group) -> None:
+    """Sum the gradients over a data group in place, in one flat collective
+    (a parameter without a gradient counts as zeros)."""
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    flat = torch.cat([p.grad.reshape(-1) for p in params])
+    dist.all_reduce(flat, group=group)
+    offset = 0
+    for p in params:
+        n = p.grad.numel()
+        p.grad.copy_(flat[offset:offset + n].view_as(p.grad))
+        offset += n
 
 
 class ClippedAdamW:

@@ -200,10 +200,6 @@ def test_distill_resume_equals_uninterrupted(students, teacher_dir, split_dir, t
 
 
 @pytest.mark.parametrize("flags, what", [
-    (["--mesh_model_axis", "2"], "--mesh_model_axis 2"),
-    (["--num_devices", "2"], "--num_devices 2"),
-    (["--coordinator_address", "localhost:1234"], "--coordinator_address"),
-    (["--num_processes", "2"], "--num_processes 2"),
     (["--wandb_project", "p"], "--wandb_project"),
 ])
 def test_distill_unported_flags_raise(students, teacher_dir, split_dir, tmp_path, flags, what):

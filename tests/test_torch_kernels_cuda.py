@@ -939,3 +939,38 @@ def test_pipeline_runs_the_kernels_and_matches_the_cpu_twins(monkeypatch, num_be
     assert steps and (k1, k3) == (cfg.encoder_layers, 1)
     assert (k2, k2beam) == ((per_step, per_step) if num_beams > 1 else (2 * per_step, 0))
     assert got == ref
+
+
+@pytest.mark.parametrize("heads", [10, 5], ids=["tp2", "tp4"])
+@pytest.mark.parametrize("form", ["K1", "K2-cross-int8", "K2-self-int8", "K2-ring", "K2-beam"])
+def test_kernels_at_a_tensor_parallel_shard(form, heads):
+    """Each attention kernel at a tensor-parallel rank's shapes: large-v3's
+    20 heads over a model axis of 2 or 4 (10 or 5 heads a rank, flat K/V of
+    640 or 320): K1 at the encoder's B=2 x 1500, K2's prefix form cross
+    (T=1500) and self (T=51) int8, its ring form (T=176, W=6) and its beam
+    form (3 groups x 5 beams over T=1500), each against its twin."""
+    if form == "K1":
+        q, k, v = (_randn(2, 1500, heads, 64, seed=s) for s in (90, 91, 92))
+        o, lse = fa.flash_attention_fwd(q, k, v)
+        ro, rlse = fa.flash_attention_reference(q, k, v)
+        _assert_near(o, ro, atol=5e-3)
+        torch.testing.assert_close(lse, rlse, atol=1e-3, rtol=1e-4)
+        return
+    if form == "K2-beam":
+        q = _randn(3, 5, heads, 64, seed=93)
+        _, k, v, ks, vs = _decode_inputs(3, 1500, heads, True, seed=94)
+        got = da.decode_attention_beam(q, k, v, n_heads=heads, k_scale=ks, v_scale=vs)
+        ref = da.decode_attention_reference_beam(q, k, v, n_heads=heads, k_scale=ks, v_scale=vs)
+        _assert_near(got, ref, atol=2e-3)
+        return
+    t = {"K2-cross-int8": 1500, "K2-self-int8": 51, "K2-ring": 176}[form]
+    q, k, v, ks, vs = _decode_inputs(6, t, heads, True, seed=95)
+    kw = dict(n_heads=heads, k_scale=ks, v_scale=vs)
+    if form == "K2-ring":
+        valid = torch.tensor([t, 1, 41, 100, t - 1, 7], dtype=torch.int32, device="cuda")
+        kw["ring_pos"] = torch.tensor(40, dtype=torch.int32, device="cuda")
+    else:
+        valid = t
+    got = da.decode_attention(q, k, v, valid, **kw)
+    ref = da.decode_attention_reference(q, k, v, valid, **kw)
+    _assert_near(got, ref, atol=2e-3)

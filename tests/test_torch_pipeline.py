@@ -12,7 +12,7 @@ log-mel with its own frontend), with the WER gate on and off and with two
 label columns. The metrics and normalizers equal the JAX package's on the
 cases of tests/test_data_eval.py and tests/test_number_normalizer.py. The
 port's merge_splits writes the JAX driver's splits. `python -m
-kotoba_whisper_tpu_torch` lists the port's nine stages, refuses the JAX
+kotoba_whisper_tpu_torch` lists the port's ten stages, refuses the JAX
 package's others, chains pseudo-label -> filter -> merge ->
 create-student -> distill, and runs each stage-6 stage (prepare-eval-set,
 eval, speed, report) once at a tiny size.
@@ -260,12 +260,13 @@ def test_cli_lists_the_port_stages(capsys):
     assert e.value.code == 0
     said = capsys.readouterr().out
     assert list(STAGES) == ["pseudo-label", "filter", "merge", "create-student", "distill",
-                            "eval", "speed", "report", "prepare-eval-set"]
+                            "distill-bilingual", "eval", "speed", "report",
+                            "prepare-eval-set"]
     for stage in STAGES:
         assert f"  {stage} " in said
 
 
-@pytest.mark.parametrize("stage", ["distill-bilingual", "parity-check"])
+@pytest.mark.parametrize("stage", ["parity-check"])
 def test_cli_refuses_the_stages_not_ported(stage):
     from kotoba_whisper_tpu_torch.__main__ import main
 

@@ -110,7 +110,6 @@ def test_port_driver_matches_jax_driver(dataset_dir, model_dir, tmp_path, extra)
 
 
 @pytest.mark.parametrize("flags, what", [
-    (["--num_devices", "2"], "--num_devices 2"),
     (["--kv_dtype", "int4"], "--kv_dtype int4"),
     (["--streaming", "--num_beams", "2", "--kv_dtype", "int4"], "--kv_dtype int4"),
 ])
