@@ -22,7 +22,9 @@ Phases, in order; any failure exits nonzero and prints no result line:
      form, 12 groups x 5 beams over T=1500, then 12 x 8 and 2 x 17 beams
      against the fp32 twin); K1, K2's prefix (cross and self int8), ring
      and beam forms also at a tensor-parallel shard's 10 heads (a K/V
-     width of 640); each also with its device time
+     width of 640); K2 in the int4 cache's modes (bf16 per-head scales):
+     prefix cross int4 (also at 10 heads) and self int8, ring self int8,
+     beam cross int4; each also with its device time
      alone and the library call's (a CUDA graph of 20 calls, replayed; K5's
      library call, autograd through SDPA, from torch.profiler's kernel
      times where a graph cannot capture it) and the host's time per call
@@ -91,6 +93,15 @@ Phases, in order; any failure exits nonzero and prints no result line:
      B=16 step in 2 microbatches; then the bilingual trainer's step (5c's
      timed step): 2 datasets x B=4 x 128 labels, KL on the first, launches
      checked, at B=2 the kernel path against the plain path;
+  4j. the int4 KV cache (packed int4 cross K/V, int8 self K/V, bf16
+     per-head scales) on the fused bf16 model: (a) phase 4's B=16 batch
+     (launches K1 32, K3 1, K2 prefix 3072; the share of tokens equal to
+     phase 4's int8 tokens), (b) 4f's beam search, (c) a stream on 4e's
+     settings over 48 windows, (d) a beam stream on 4g's settings over 24
+     windows, (e) AsrPipeline at 30 s, 1 warm-up and 3 trials, (f) at B=2
+     on three seeds the first-step logits of the kernel path against the
+     plain path; launches by form, the cross cache's bytes in int8 and
+     int4, audio-s/s beside phases 4 and 4f;
   4i. parallel on one card: (a) a one-rank NCCL group and its mesh: one
      lockstep stage-2 batch and one data-parallel distillation step,
      launches as phases 4 and 4b; (b) tensor parallel over two ranks on
@@ -99,7 +110,8 @@ Phases, in order; any failure exits nonzero and prints no result line:
      a rank, int8 KV, B=16, prompt + 48 tokens, the share of tokens equal
      to the one-card run, the first-step logits against it (rel-L2 5e-2),
      each rank's launches and wall, then a beam search and a stream for
-     K2's beam and ring forms at 10 heads; (c), run inside phase 5, data
+     K2's beam and ring forms at 10 heads and a short int4-cache batch for
+     its prefix form there; (c), run inside phase 5, data
      parallel over two ranks on card 0: stage 2 through the driver's rank
      body with --num_devices 2 (every utterance once, in the one-card
      order) and one distillation step at 4b's shape, 4 rows a rank (equal
@@ -130,7 +142,8 @@ Phases, in order; any failure exits nonzero and prints no result line:
      it (K1, K2 prefix: the pseudo-labelling run; K2 ring and beam: the 4g
      beam stream; K3: phase 5's filter; K4, K5: the 3 timed train steps;
      K6-K8: the 4d encoder runs; K9: the vpu_cal runs of 5d; the 10-head
-     records: rank 0 of 4i(b)) and its
+     records: rank 0 of 4i(b); the int4 cache's records: 4j (a) prefix, (b)
+     beam, (c) ring) and its
      numbers, K1, K2 and K3 also with their launches in 4h's 300 s call of
      large-v3 (a), K2's beam form in 4h's beam call (`serving_launches`);
   7. the last line: {"ok": true, "device": {...}}.
@@ -181,6 +194,8 @@ TRAIN_GRAD_TOL = 5e-2
 SERVE_DURATIONS = (10, 30, 60, 300)
 SERVE_MAX_LENGTH = 32
 SERVE_WARMUP, SERVE_TRIALS = 1, 3   # the JAX harness's 2 and 5, cut for the smoke's time
+# phase 4j: the int4 streams' windows, fewer than 4e's 192 and 4g's 96
+J_STREAM_WINDOWS, J_BEAM_STREAM_WINDOWS = 48, 24
 
 
 def log(msg: str) -> None:
@@ -331,14 +346,14 @@ def main_audio(feat) -> np.ndarray:
             ).astype(np.float32)
 
 
-def first_step_logits(model, feats, prompt, capacity):
-    """The first sampled position's fp32 logits: encode, an int8 cache, the
-    prompt prefill, one step."""
+def first_step_logits(model, feats, prompt, capacity, kv_dtype="int8"):
+    """The first sampled position's fp32 logits: encode, an int8 (or
+    `kv_dtype`) cache, the prompt prefill, one step."""
     from kotoba_whisper_tpu_torch.models import whisper
 
     with torch.inference_mode():
         cache = whisper._init_cache(model, whisper.encoder_forward(model, feats), capacity,
-                                    "int8")
+                                    kv_dtype)
         ids = torch.tensor([prompt], device=feats.device).repeat(feats.shape[0], 1)
         _, cache = whisper._decode_step(model, ids[:, :-1], cache)
         logits, _ = whisper._decode_step(model, ids[:, -1:], cache)
@@ -379,7 +394,8 @@ def tp_rank(rank: int, port: int, out_dir: str) -> None:
     full width (seed 0, fused bf16, then fused + w8a8) split over the
     group, int8 KV, B=16, prompt + 48 tokens (eot disabled); the first-step
     logits; then 2 groups x 5 beams and a stream of 8 windows (W=4), 8
-    tokens each, for K2's beam and ring forms at the shard's 10 heads. Each
+    tokens each, for K2's beam and ring forms at the shard's 10 heads, and
+    B=16 x 8 tokens over the int4 cache for its prefix form there. Each
     timed run is the model's first (no warm-up): its wall is a record."""
     from kotoba_whisper_tpu_torch.core.config import PRESETS, FeatureConfig, SpecialTokens
     from kotoba_whisper_tpu_torch.core.mesh import MeshConfig, build_mesh
@@ -437,6 +453,7 @@ def tp_rank(rank: int, port: int, out_dir: str) -> None:
             timed("stream", lambda: generate_greedy_streaming(
                 m, feats[:8], short, st_fixed, kv_dtype="int8",
                 stream=StreamConfig(batch=4, encode_batch=4, steps_per_round=8)))
+            timed("int4", lambda: generate_greedy(m, feats, short, st_fixed, kv_dtype="int4"))
         del m
         torch.cuda.empty_cache()
     np.savez(os.path.join(out_dir, f"tp{rank}.npz"), **out)
@@ -669,81 +686,96 @@ def main() -> int:
         del q, k, v, o, lse, qt, kt, vt
         torch.cuda.empty_cache()
 
-    # K2: decode-step attention, cross (T=1500) int8 and bf16, self int8;
-    # at the shard's heads cross and self int8
-    for hh, label, t, int8 in ((h, "cross int8", t_enc, True), (h, "cross bf16", t_enc, False),
-                               (h, "self int8", cap, True), (h_tp, "cross int8", t_enc, True),
-                               (h_tp, "self int8", cap, True)):
+    # K2 in its K/V modes: bf16; int8 with fp32 per-row scales (kv_dtype
+    # "int8"); and the int4 cache's (kv_dtype "int4", phase 4j): the cross
+    # K/V int4 packed two a byte, the self K/V int8, each with bf16 scales
+    # a (row, head). The library call takes the same K/V dequantized to bf16.
+    def quantized(x, hh, mode):
+        """(R, T, D) -> (stored K or V, scales or None) in K/V mode `mode`."""
+        if mode == "bf16":
+            return x, None
+        if mode == "int8":
+            return quantize_kv_rows(x)
+        codes, scale = whisper.quantize_kv_heads(x, hh, 4 if mode == "int4" else 8)
+        return (whisper.pack_int4(codes) if mode == "int4" else codes), scale
+
+    def bf16_heads(x, scale, hh):
+        """(R, T, *) stored K or V -> (R, H, T, 64) bf16."""
+        r, t_x = x.shape[:2]
+        return whisper._dequant(x, scale, torch.bfloat16).view(r, t_x, hh, 64).transpose(1, 2)
+
+    mode_tag = {"bf16": "bf16", "int8": "int8", "int4": "int4, bf16 per-head scales",
+                "int8h": "int8, bf16 per-head scales"}
+    int4_key = {"bf16": "", "int8": "", "int4": "int4", "int8h": "int4"}  # the run of 4j
+
+    # K2 prefix form: cross (T=1500) int8, bf16 and int4, self int8 in both
+    # scale forms; at the shard's heads cross int8 and int4, self int8
+    for hh, label, t, kv in ((h, "cross", t_enc, "int8"), (h, "cross", t_enc, "bf16"),
+                             (h, "self", cap, "int8"), (h, "cross", t_enc, "int4"),
+                             (h, "self", cap, "int8h"), (h_tp, "cross", t_enc, "int8"),
+                             (h_tp, "self", cap, "int8"), (h_tp, "cross", t_enc, "int4")):
         dd = hh * 64
         qd = randn(B, hh, 64, seed=4)
-        kf, vf = randn(B, t, dd, seed=5), randn(B, t, dd, seed=6)
-        ks = vs = None
-        if int8:
-            kf, ks = quantize_kv_rows(kf)
-            vf, vs = quantize_kv_rows(vf)
-        out = da.decode_attention(qd, kf, vf, t, n_heads=hh, k_scale=ks, v_scale=vs)
-        ref = da.decode_attention_reference(qd, kf, vf, t, n_heads=hh, k_scale=ks, v_scale=vs)
-        errs = compare(out, ref)
-        kb = (kf.float() * ks if int8 else kf).to(torch.bfloat16)
-        vb = (vf.float() * vs if int8 else vf).to(torch.bfloat16)
-        kh = kb.view(B, t, hh, 64).transpose(1, 2)
-        vh = vb.view(B, t, hh, 64).transpose(1, 2)
-        qh = qd[:, :, None]
+        kf, ks = quantized(randn(B, t, dd, seed=5), hh, kv)
+        vf, vs = quantized(randn(B, t, dd, seed=6), hh, kv)
+        kw = dict(n_heads=hh, k_scale=ks, v_scale=vs)
+        out = da.decode_attention(qd, kf, vf, t, **kw)
+        errs = compare(out, da.decode_attention_reference(qd, kf, vf, t, **kw))
+        kh, vh, qh = bf16_heads(kf, ks, hh), bf16_heads(vf, vs, hh), qd[:, :, None]
 
         def call():
-            return da.decode_attention(qd, kf, vf, t, n_heads=hh, k_scale=ks, v_scale=vs)
+            return da.decode_attention(qd, kf, vf, t, **kw)
 
         def library():
             return F.scaled_dot_product_attention(qh, kh, vh)
 
         record(
-            f"K2 decode_attention {label} (B=16, T={t}, D={dd}{tp_tag(hh)})",
+            f"K2 decode_attention {label} {mode_tag[kv]} (B=16, T={t}, D={dd}{tp_tag(hh)})",
             "kotoba_whisper_tpu_torch/csrc/decode_attention.cu",
             "kotoba_whisper_tpu/ops/decode_attention.py:165", errs, 2e-3,
-            time_ms(call),
-            time_ms(lambda: da.decode_attention_reference(
-                qd, kf, vf, t, n_heads=hh, k_scale=ks, v_scale=vs)),
+            time_ms(call), time_ms(lambda: da.decode_attention_reference(qd, kf, vf, t, **kw)),
             time_ms(library),
             bound(4.0 * B * t * dd, fp32_rate, nbytes(qd, kf, vf, ks, vs, out), mem_rate),
-            key="K2" + tp_key[hh],
+            key="K2" + int4_key[kv] + tp_key[hh],
             device_ms=graph_ms(call), library_device_ms=graph_ms(library),
             host_us=host_us(call), library_host_us=host_us(library),
         )
-        del qd, kf, vf, ks, vs, out, ref, kb, vb, kh, vh, qh
+        del qd, kf, vf, ks, vs, out, kh, vh, qh
 
     # K2 ring form: a stream's self-attention at 4e's window (W=48 rows) and
     # 4g's (W=60, 12 groups x 5 beams), T=176 ring slots, per-row valid
-    # lengths over [1, 176], a ring slot past which most rows wrap. Control:
-    # each row rolled so that its ring becomes a prefix gives the prefix twin
-    # the ring twin's output (both in fp32).
+    # lengths over [1, 176], a ring slot past which most rows wrap; int8 with
+    # per-row scales, and with the int4 cache's per-head ones. Control: each
+    # row rolled so that its ring becomes a prefix gives the prefix twin the
+    # ring twin's output (both in fp32).
     t_s = 176
-    for w_s, hh in ((48, h), (60, h), (48, h_tp)):
+    for w_s, hh, kv in ((48, h, "int8"), (60, h, "int8"), (48, h_tp, "int8"), (48, h, "int8h")):
         dd = hh * 64
         qd = randn(w_s, hh, 64, seed=7)
-        kf, ks = quantize_kv_rows(randn(w_s, t_s, dd, seed=8))
-        vf, vs = quantize_kv_rows(randn(w_s, t_s, dd, seed=9))
+        kf, ks = quantized(randn(w_s, t_s, dd, seed=8), hh, kv)
+        vf, vs = quantized(randn(w_s, t_s, dd, seed=9), hh, kv)
         valid = torch.linspace(1, t_s, w_s, device="cuda").round().to(torch.int32)
         ring = torch.tensor(40, dtype=torch.int32, device="cuda")
-        out = da.decode_attention(qd, kf, vf, valid, n_heads=hh, k_scale=ks, v_scale=vs,
-                                  ring_pos=ring)
-        ref = da.decode_attention_reference(qd, kf, vf, valid, n_heads=hh, k_scale=ks, v_scale=vs,
-                                            ring_pos=ring)
+        kw = dict(n_heads=hh, k_scale=ks, v_scale=vs)
+        out = da.decode_attention(qd, kf, vf, valid, ring_pos=ring, **kw)
+        ref = da.decode_attention_reference(qd, kf, vf, valid, ring_pos=ring, **kw)
         errs = compare(out, ref)
         flips = out != ref
         top = float(ref.float().abs()[flips].max()) if flips.any() else 0.0
-        log(f"[kernel] K2 ring H={hh}: {int(flips.sum())} of {out.numel()} bf16 outputs differ "
-            f"from the twin's (fp32 sums in another order), the largest at |twin| {top:.4f} (a bf16 ulp "
-            f"there: {2.0 ** (math.floor(math.log2(top)) - 7) if top else 0.0:.2e})")
+        log(f"[kernel] K2 ring H={hh} {mode_tag[kv]}: {int(flips.sum())} of {out.numel()} bf16 "
+            f"outputs differ from the twin's (fp32 sums in another order), the largest at "
+            f"|twin| {top:.4f} (a bf16 ulp there: "
+            f"{2.0 ** (math.floor(math.log2(top)) - 7) if top else 0.0:.2e})")
         slot = torch.remainder(
             ring + 1 - valid[:, None] + torch.arange(t_s, device="cuda")[None], t_s)  # (W, T)
 
         def rolled(x):
             return x.gather(1, slot[..., None].expand(-1, -1, x.shape[-1]))
 
-        ring32 = da.decode_attention_reference(qd.float(), kf, vf, valid, n_heads=hh, k_scale=ks,
-                                               v_scale=vs, ring_pos=ring)
+        ring32 = da.decode_attention_reference(qd.float(), kf, vf, valid, ring_pos=ring, **kw)
         prefix32 = da.decode_attention_reference(qd.float(), rolled(kf), rolled(vf), valid,
-                                                 n_heads=hh, k_scale=rolled(ks), v_scale=rolled(vs))
+                                                 n_heads=hh, k_scale=rolled(ks),
+                                                 v_scale=rolled(vs))
         roll_err = float((ring32 - prefix32).abs().max())
         wrapped = int((valid > int(ring) + 1).sum())
         log(f"[kernel] K2 ring control: ring twin vs the prefix twin on rows rolled to a prefix, "
@@ -752,78 +784,68 @@ def main() -> int:
             raise AssertionError("K2 ring twin disagrees with the rolled prefix twin")
         age = torch.remainder(ring - torch.arange(t_s, device="cuda"), t_s)
         mask = (age[None] < valid[:, None])[:, None, None, :]  # (W, 1, 1, T)
-        kh = (kf.float() * ks).to(torch.bfloat16).view(w_s, t_s, hh, 64).transpose(1, 2)
-        vh = (vf.float() * vs).to(torch.bfloat16).view(w_s, t_s, hh, 64).transpose(1, 2)
-        qh = qd[:, :, None]
+        kh, vh, qh = bf16_heads(kf, ks, hh), bf16_heads(vf, vs, hh), qd[:, :, None]
 
         def ring_call():
-            return da.decode_attention(qd, kf, vf, valid, n_heads=hh, k_scale=ks, v_scale=vs,
-                                       ring_pos=ring)
+            return da.decode_attention(qd, kf, vf, valid, ring_pos=ring, **kw)
 
         def ring_library():
             return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
 
         n_keys = int(valid.sum())
         record(
-            f"K2 decode_attention self ring int8 (W={w_s}, T={t_s}, D={dd}, ring_pos 40"
+            f"K2 decode_attention self ring {mode_tag[kv]} (W={w_s}, T={t_s}, D={dd}, ring_pos 40"
             f"{tp_tag(hh)})",
             "kotoba_whisper_tpu_torch/csrc/decode_attention_ring.cu",
             "kotoba_whisper_tpu/ops/decode_attention.py:59", errs, 2e-3,
             time_ms(ring_call),
-            time_ms(lambda: da.decode_attention_reference(
-                qd, kf, vf, valid, n_heads=hh, k_scale=ks, v_scale=vs, ring_pos=ring)),
+            time_ms(lambda: da.decode_attention_reference(qd, kf, vf, valid, ring_pos=ring, **kw)),
             time_ms(ring_library),
             # the bytes of the valid rows: their K and V and scales, q, out
             bound(4.0 * n_keys * dd, fp32_rate,
-                  n_keys * 2 * (dd + 4) + nbytes(qd, valid, out), mem_rate),
-            key="K2ring" + tp_key[hh],
+                  n_keys * 2 * (dd + ks[0, 0].numel() * ks.element_size())
+                  + nbytes(qd, valid, out), mem_rate),
+            key="K2ring" + int4_key[kv] + tp_key[hh],
             device_ms=graph_ms(ring_call), library_device_ms=graph_ms(ring_library),
             host_us=host_us(ring_call), library_host_us=host_us(ring_library),
         )
         del qd, kf, vf, ks, vs, out, ref, kh, vh, qh, mask, slot, ring32, prefix32
 
     # K2 beam form: beam search's cross-attention, 12 groups x 5 beams over
-    # each group's one T=1500 row, int8 and bf16
+    # each group's one T=1500 row, int8, bf16 and int4
     g_b, k_b = 12, 5
-    for hh, label, int8 in ((h, "int8", True), (h, "bf16", False), (h_tp, "int8", True)):
+    for hh, kv in ((h, "int8"), (h, "bf16"), (h_tp, "int8"), (h, "int4")):
         dd = hh * 64
         qb = randn(g_b, k_b, hh, 64, seed=10)
-        kf, vf = randn(g_b, t_enc, dd, seed=11), randn(g_b, t_enc, dd, seed=12)
-        ks = vs = None
-        if int8:
-            kf, ks = quantize_kv_rows(kf)
-            vf, vs = quantize_kv_rows(vf)
-        out = da.decode_attention_beam(qb, kf, vf, n_heads=hh, k_scale=ks, v_scale=vs)
-        ref = da.decode_attention_reference_beam(qb, kf, vf, n_heads=hh, k_scale=ks, v_scale=vs)
-        errs = compare(out, ref)
-        kh = (kf.float() * ks if int8 else kf).to(torch.bfloat16).view(
-            g_b, t_enc, hh, 64).transpose(1, 2)
-        vh = (vf.float() * vs if int8 else vf).to(torch.bfloat16).view(
-            g_b, t_enc, hh, 64).transpose(1, 2)
-        qh = qb.transpose(1, 2)  # (G, H, K, 64): the group's 5 queries a head
+        kf, ks = quantized(randn(g_b, t_enc, dd, seed=11), hh, kv)
+        vf, vs = quantized(randn(g_b, t_enc, dd, seed=12), hh, kv)
+        kw = dict(n_heads=hh, k_scale=ks, v_scale=vs)
+        out = da.decode_attention_beam(qb, kf, vf, **kw)
+        errs = compare(out, da.decode_attention_reference_beam(qb, kf, vf, **kw))
+        # (G, H, K, 64): the group's 5 queries a head
+        kh, vh, qh = bf16_heads(kf, ks, hh), bf16_heads(vf, vs, hh), qb.transpose(1, 2)
 
         def beam_call():
-            return da.decode_attention_beam(qb, kf, vf, n_heads=hh, k_scale=ks, v_scale=vs)
+            return da.decode_attention_beam(qb, kf, vf, **kw)
 
         def beam_library():
             return F.scaled_dot_product_attention(qh, kh, vh)
 
         record(
-            f"K2 decode_attention cross beam {label} (G={g_b} x K={k_b}, T={t_enc}, D={dd}"
-            f"{tp_tag(hh)})",
+            f"K2 decode_attention cross beam {mode_tag[kv]} (G={g_b} x K={k_b}, T={t_enc}, "
+            f"D={dd}{tp_tag(hh)})",
             "kotoba_whisper_tpu_torch/csrc/decode_attention_beam.cu",
             "kotoba_whisper_tpu/ops/decode_attention.py:114", errs, 2e-3,
             time_ms(beam_call),
-            time_ms(lambda: da.decode_attention_reference_beam(
-                qb, kf, vf, n_heads=hh, k_scale=ks, v_scale=vs)),
+            time_ms(lambda: da.decode_attention_reference_beam(qb, kf, vf, **kw)),
             time_ms(beam_library),
             bound(4.0 * g_b * k_b * t_enc * dd, fp32_rate, nbytes(qb, kf, vf, ks, vs, out),
                   mem_rate),
-            key="K2beam" + tp_key[hh],
+            key="K2beam" + int4_key[kv] + tp_key[hh],
             device_ms=graph_ms(beam_call), library_device_ms=graph_ms(beam_library),
             host_us=host_us(beam_call), library_host_us=host_us(beam_library),
         )
-        del qb, kf, vf, ks, vs, out, ref, kh, vh, qh
+        del qb, kf, vf, ks, vs, out, kh, vh, qh
     # beam counts the earlier kernel refused (it took at most 6): 12 x 8 and
     # 2 x 17 (two 16-beam tiles, keys split over a cluster), int8, held to
     # the fp32 twin
@@ -1546,6 +1568,7 @@ def main() -> int:
         f"{float((lg_k - lg_p).abs().max()):.3e}")
     if not (bool(torch.isfinite(lg_k).all()) and lg_rel <= 5e-2):
         raise AssertionError("4g: the beam stream's kernel path disagrees with the plain path")
+    audio_jg = audio_g[:J_BEAM_STREAM_WINDOWS].clone()  # phase 4j(d)'s windows
     del audio_g
 
     # ---- 4h. serving: AsrPipeline and evaluate_speed at the runtime table's configs
@@ -1835,6 +1858,7 @@ def main() -> int:
         f"{wall_l / wall_s:.2f}x; utterances whose tokens agree {agree:.3f} (reported, not "
         f"gated: bf16 drift flips near-ties); rows with a pad id among their sampled tokens "
         f"{pads_inside}")
+    audio_js = audio_s[:J_STREAM_WINDOWS].clone()  # phase 4j(c)'s windows
     del audio_s, toks_l
     torch.cuda.empty_cache()
 
@@ -1895,6 +1919,157 @@ def main() -> int:
         f"agreement {float((tk_k == tk_p).mean()):.3f} over {tk_k.size} tokens")
     if not (bool(torch.isfinite(lg_k).all()) and lg_rel <= 5e-2):
         raise AssertionError("4f: the beam kernel path disagrees with the plain path")
+
+    # ---- 4j. the int4 KV cache at large-v3 width and depth ---------------------
+    # The fused bf16 model, kv_dtype="int4" (packed int4 cross K/V and int8
+    # self K/V, each with bf16 per-head scales) in every decode mode: (a)
+    # phase 4's B=16 batch, (b) 4f's beam search, (c) a stream on 4e's
+    # settings over its first 48 windows, (d) a beam stream on 4g's settings
+    # over its first 24 windows, (e) AsrPipeline at 30 s (compute GEMMs),
+    # (f) the first-step logits of the kernel path against the plain path
+    # at B=2 on three seeds; launches by form, the cross cache's bytes in
+    # int8 and int4, audio-s/s beside phases 4 and 4f, and the share of
+    # (a)'s tokens equal to phase 4's int8 tokens (records: the decode loops
+    # are host-bound, so int4's halved cross reads show in device time).
+    t_j = time.perf_counter()
+    j_walls, j_counts = {}, {}
+
+    def j_run(label, fn):
+        torch.cuda.synchronize()
+        reset_every()
+        t = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        j_walls[label] = time.perf_counter() - t
+        j_counts[label] = nonzero(every_count())
+        return r
+
+    def pipeline_int4(x):
+        feats = mel.log_mel_spectrogram(x, feat).to(torch.bfloat16)
+        return generate_greedy(model, feats, opts, st_fixed, kv_dtype="int4")
+
+    pipeline_int4(audio)  # warm-up
+    toks_j = j_run("a", lambda: pipeline_int4(audio)).cpu().numpy()
+    share_j = float((toks_j == toks_host).mean())
+    feats_j = mel.log_mel_spectrogram(audio, feat).to(torch.bfloat16)
+    enc_j = whisper.encode(model, feats_j)
+    cache_bytes = {}
+    for kv in ("int8", "int4"):
+        c = whisper.init_cache(model, enc_j, cap, kv_dtype=kv)
+        cache_bytes[kv] = (nbytes(c.cross_k, c.cross_v), nbytes(c.cross_k_scale, c.cross_v_scale))
+        del c
+    del feats_j, enc_j
+    torch.cuda.empty_cache()
+    log(f"[4j-a] B={B} x {NEW_TOKENS} tokens, int4 KV: wall {j_walls['a']:.3f} s, "
+        f"{B * feat.chunk_length_s / j_walls['a']:.1f} audio-s/s (phase 4, int8, unfused: "
+        f"{B * feat.chunk_length_s / wall:.1f}) [{card}]; launches {j_counts['a']}; tokens "
+        f"equal to phase 4's int8 run {share_j:.4f}; cross cache at B={B}: int8 "
+        f"{cache_bytes['int8'][0] / 1e9:.4f} GB + {cache_bytes['int8'][1] / 1e6:.2f} MB of "
+        f"scales, int4 {cache_bytes['int4'][0] / 1e9:.4f} GB + "
+        f"{cache_bytes['int4'][1] / 1e6:.2f} MB")
+    if j_counts["a"] != expect or toks_j.shape != toks_host.shape or not (
+            (toks_j[:, : len(prompt)] == prompt).all()
+            and ((toks_j >= 0) & (toks_j < large.vocab_size)).all()):
+        raise AssertionError(f"4j(a): launches {j_counts['a']} (expected {expect}) or tokens")
+
+    def beam_int4(groups=g_f):
+        feats_b = mel.log_mel_spectrogram(audio_f[:groups], feat).to(torch.bfloat16)
+        return generate_beam(model, feats_b, opts_f, st_fixed, num_beams=k_f, kv_dtype="int4")
+
+    beam_int4()  # warm-up at the run's shapes
+    toks_jb, scores_jb = (t.cpu().numpy() for t in j_run("b", beam_int4))
+    want = {"K1": large.encoder_layers, "K2": large.decoder_layers * NEW_TOKENS,
+            "K2beam": large.decoder_layers * NEW_TOKENS, "K3": 1}
+    log(f"[4j-b] beam search {g_f} x {k_f}, int4 KV: wall {j_walls['b']:.3f} s, "
+        f"{g_f * feat.chunk_length_s / j_walls['b']:.1f} audio-s/s (4f, int8: "
+        f"{g_f * feat.chunk_length_s / wall_b:.1f}) [{card}]; launches {j_counts['b']}")
+    if j_counts["b"] != want or not (np.isfinite(scores_jb).all()
+                                     and (toks_jb[:, : len(prompt)] == prompt).all()):
+        raise AssertionError(f"4j(b): launches {j_counts['b']} (expected {want}) or scores")
+
+    def stream_int4(n_run):
+        return step_time.run_stream(model, audio_js[:n_run], opts_s, st_fixed, stops_s, feat,
+                                    kv_dtype="int4")
+
+    stream_int4(scfg.encode_batch)  # warm-up: the window's shapes are the run's
+    toks_js = j_run("c", lambda: stream_int4(J_STREAM_WINDOWS))
+    steps_j = j_counts["c"].get("K2ring", 0) // large.decoder_layers
+    refills_j = J_STREAM_WINDOWS // scfg.encode_batch
+    want = {"K1": large.encoder_layers * refills_j, "K2": large.decoder_layers * steps_j,
+            "K2ring": large.decoder_layers * steps_j, "K3": refills_j}
+    log(f"[4j-c] stream, int4 KV: {J_STREAM_WINDOWS} windows, W={scfg.batch}, "
+        f"E={scfg.encode_batch}: wall {j_walls['c']:.3f} s, "
+        f"{J_STREAM_WINDOWS * feat.chunk_length_s / j_walls['c']:.1f} audio-s/s (4e, int8, "
+        f"{n_s} windows: {n_s * feat.chunk_length_s / wall_s:.1f}) [{card}]; {steps_j} steps; "
+        f"launches {j_counts['c']}")
+    bad = [i for i in range(J_STREAM_WINDOWS) if not (
+        (toks_js[i, :p_s] == prompt_s).all() and (toks_js[i, stops_s[i]:] == pad).all())]
+    if j_counts["c"] != want or steps_j < 1 or bad:
+        raise AssertionError(f"4j(c): launches {j_counts['c']} (expected {want}), rows {bad[:10]}")
+
+    def beam_stream_int4(n_run):
+        return step_time.run_beam_stream(model, audio_jg[:n_run], opts_g, st, stops_g, feat,
+                                         kv_dtype="int4")
+
+    beam_stream_int4(bcfg.encode_batch)  # warm-up: the window's shapes are the run's
+    toks_jg, scores_jg = j_run("d", lambda: beam_stream_int4(J_BEAM_STREAM_WINDOWS))
+    steps_jg = j_counts["d"].get("K2beam", 0) // large.decoder_layers
+    want = {"K1": large.encoder_layers * (J_BEAM_STREAM_WINDOWS // bcfg.encode_batch),
+            "K2ring": large.decoder_layers * steps_jg, "K2beam": large.decoder_layers * steps_jg,
+            "K3": -(-J_BEAM_STREAM_WINDOWS // step_time.BEAM_STREAM_MEL_BATCH)}
+    log(f"[4j-d] beam stream, int4 KV, bf16 model: {J_BEAM_STREAM_WINDOWS} windows, "
+        f"{bcfg.groups} groups x {bcfg.num_beams} beams, E={bcfg.encode_batch}: wall "
+        f"{j_walls['d']:.3f} s, {J_BEAM_STREAM_WINDOWS * feat.chunk_length_s / j_walls['d']:.1f} "
+        f"audio-s/s (4g, int8 + w8a8, {n_g} windows: {n_g * feat.chunk_length_s / wall_g:.1f}) "
+        f"[{card}]; {steps_jg} steps; launches {j_counts['d']}")
+    if j_counts["d"] != want or steps_jg < 1 or not (
+            np.isfinite(scores_jg).all()
+            and all((toks_jg[i, :p_g] == prompt_g).all() for i in range(J_BEAM_STREAM_WINDOWS))):
+        raise AssertionError(f"4j(d): launches {j_counts['d']} (expected {want}) or scores")
+
+    pipe_j = AsrPipeline(model=model, tok=serve_tok, max_length=SERVE_MAX_LENGTH,
+                         chunk_length_s=15.0, kv_dtype="int4")
+    with tempfile.TemporaryDirectory() as serve_dir:
+        recs_j = evaluate_speed(
+            pipe_j.transcribe, model_name="preset:large-v3", durations=(30,),
+            n_trials=SERVE_TRIALS, n_warmup=SERVE_WARMUP,
+            output_path=os.path.join(serve_dir, "runtime.jsonl"),
+            extra={"max_length": SERVE_MAX_LENGTH, "kv_dtype": "int4", "gemm_dtype": "compute",
+                   "chunk_length_s": 15.0})
+    out_j = j_run("e", lambda: pipe_j(generate_dummy_audio(30.0)))
+    mean_j = recs_j[0]["time (mean)"]
+    log(f"[4j-e] AsrPipeline large-v3, compute GEMMs, int4 KV, 30 s: mean {mean_j:.4f} s of "
+        f"{SERVE_TRIALS} trials ({30 / mean_j:.1f} audio-s/s) [{card}]; one call's launches "
+        f"{j_counts['e']}; {check_transcript(out_j, 'int4 30 s', 30.0)}")
+    if not (j_counts["e"].get("K2", 0) > 0 and j_counts["e"].get("K1") == large.encoder_layers):
+        raise AssertionError(f"4j(e): launches {j_counts['e']}")
+
+    def logits_int4(x):
+        feats_x = mel.log_mel_spectrogram(x, feat).to(torch.bfloat16)
+        return first_step_logits(model, feats_x, prompt, cap, kv_dtype="int4")
+
+    for seed in range(3):
+        small = torch.from_numpy((np.random.default_rng(20 + seed).standard_normal(
+            (2, feat.n_samples)) * 0.1).astype(np.float32)).cuda()
+        lg_k = logits_int4(small)
+        with plain_path():
+            lg_p = logits_int4(small)
+        lg_rel = rel(lg_k, lg_p)
+        log(f"[4j-f] B=2 seed {seed}, int4 KV, kernel vs plain path on the card: first-step "
+            f"logits rel-L2 {lg_rel:.3e} (tol 5e-2), max |logit diff| "
+            f"{float((lg_k - lg_p).abs().max()):.3e}")
+        if not (bool(torch.isfinite(lg_k).all()) and lg_rel <= 5e-2):
+            raise AssertionError("4j(f): the int4 kernel path disagrees with the plain path")
+    log(f"[4j] audio-s/s, int4 KV: (a) lockstep {B * feat.chunk_length_s / j_walls['a']:.1f}, "
+        f"(b) beam {g_f * feat.chunk_length_s / j_walls['b']:.1f}, (c) stream "
+        f"{J_STREAM_WINDOWS * feat.chunk_length_s / j_walls['c']:.1f}, (d) beam stream "
+        f"{J_BEAM_STREAM_WINDOWS * feat.chunk_length_s / j_walls['d']:.1f}, (e) serving 30 s "
+        f"{30 / mean_j:.1f}; int8 in this call: phase 4 {B * feat.chunk_length_s / wall:.1f}, "
+        f"4f {g_f * feat.chunk_length_s / wall_b:.1f}; {time.perf_counter() - t_j:.1f} s for "
+        f"the phase [{card}]")
+    int4_launches = {"K2int4": j_counts["a"]["K2"], "K2beamint4": j_counts["b"]["K2beam"],
+                     "K2ringint4": j_counts["c"]["K2ring"]}
+    del audio_js, audio_jg, pipe_j
 
     # 4i(b)'s one-card reference: the fused bf16 model and its w8a8 copy at
     # phase 4's B=16 input, tokens and first-step logits through the kernels
@@ -2162,7 +2337,7 @@ def main() -> int:
                 and tp_info[0][f"{label}/heads"] == h_tp):
             raise AssertionError(f"4i(b) {label}: ranks equal {same}, logits {lg}, launches "
                                  f"{[i[label]['launches'] for i in tp_info]} (expected {want})")
-    for label, form in (("beam", "K2beam"), ("stream", "K2ring")):
+    for label, form in (("beam", "K2beam"), ("stream", "K2ring"), ("int4", "K2")):
         got = [i[label]["launches"] for i in tp_info]
         log(f"[4i-b] TP=2 {label} at 10 heads: launches {got[0]} / {got[1]}, wall "
             f"{tp_info[0][label]['wall_s']:.3f} s")
@@ -2171,7 +2346,8 @@ def main() -> int:
     tp_launches = {"K1tp": tp_info[0]["bf16"]["launches"]["K1"],
                    "K2tp": tp_info[0]["bf16"]["launches"]["K2"],
                    "K2beamtp": tp_info[0]["beam"]["launches"]["K2beam"],
-                   "K2ringtp": tp_info[0]["stream"]["launches"]["K2ring"]}
+                   "K2ringtp": tp_info[0]["stream"]["launches"]["K2ring"],
+                   "K2int4tp": tp_info[0]["int4"]["launches"]["K2"]}
     log(f"[4i-b] two ranks spawned, built, run and joined in {tp_spawn_s:.1f} s")
 
     # ---- 5. drivers: stage 2, then stage 3, merge, 4 and 5 -------------------
@@ -2535,7 +2711,7 @@ def main() -> int:
         "K8qk": enc_launches["KWT_FA_INT8=qk"]["K8"],
         "K8qkpv": enc_launches["KWT_FA_INT8=qkpv"]["K8"],
         "K9softmax": tool_launches["vpu_cal softmax"].get("K9", 0),
-        "K9exp": tool_launches["vpu_cal exp"].get("K9", 0), **tp_launches}
+        "K9exp": tool_launches["vpu_cal exp"].get("K9", 0), **tp_launches, **int4_launches}
     for rec in records:
         rec["launches"] = path_launches[launch_key[rec["name"]]]
         if launch_key[rec["name"]] in serve_launches:  # 4h: large-v3 (a), 300 s; beam at 30 s

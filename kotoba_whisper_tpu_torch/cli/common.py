@@ -108,12 +108,10 @@ def serving_pipeline(driver: str, arg, dev: torch.device, **pipe_kw):
     """The stage-6 drivers' AsrPipeline: tokenizer, model in --dtype on
     `dev`, fused unless --no_fuse, w8a8 with --gemm_dtype int8, the
     checkpoint's generation defaults, --chunk_length_s and --kv_dtype.
-    Raises for what is not ported: --kv_dtype int4, and --dtype float32 on
-    the card (K1 and K2 take bfloat16)."""
+    Raises for what is not ported: --dtype float32 on the card (K1 and K2
+    take bfloat16)."""
     from kotoba_whisper_tpu_torch.decode.pipeline import AsrPipeline
 
-    if arg.kv_dtype == "int4":
-        raise SystemExit(f"{driver}: --kv_dtype int4 is not ported yet")
     if dev.type == "cuda" and arg.dtype != "bfloat16":
         raise SystemExit(f"{driver}: --dtype {arg.dtype} on the card is not ported yet "
                          "(K1 and K2 take bfloat16)")

@@ -12,8 +12,10 @@ a CSV dump, the files the JAX driver writes.
 
 The flags mirror the JAX driver's. As there, the attention projections
 are fused for inference unless --no_fuse is given, and --gemm_dtype int8
-quantizes the projections to w8a8. Not ported (they raise): --kv_dtype
-int4, and --dtype float32 on the card (K1 and K2 take bfloat16).
+quantizes the projections to w8a8, and --kv_dtype int8 or int4 quantizes
+the KV cache (int4: packed cross K/V with per-head scales, read by K2).
+Not ported (it raises): --dtype float32 on the card (K1 and K2 take
+bfloat16).
 
 Parallel runs, one process a card:
   - --num_devices N --mesh_model_axis M takes N x M cards of this host:
@@ -94,14 +96,9 @@ def _parser() -> argparse.ArgumentParser:
 
 
 def _check_ported(arg, dev: torch.device) -> None:
-    unported = [
-        (arg.kv_dtype == "int4", "--kv_dtype int4"),
-        (dev.type == "cuda" and arg.dtype != "bfloat16",
-         f"--dtype {arg.dtype} on the card (K1 and K2 take bfloat16)"),
-    ]
-    for bad, what in unported:
-        if bad:
-            raise SystemExit(f"pseudo_label: {what} is not ported yet")
+    if dev.type == "cuda" and arg.dtype != "bfloat16":
+        raise SystemExit(f"pseudo_label: --dtype {arg.dtype} on the card (K1 and K2 take "
+                         "bfloat16) is not ported yet")
 
 
 def main(argv=None) -> None:

@@ -2,9 +2,12 @@
 //
 // Replaces: kotoba_whisper_tpu/ops/decode_attention.py `_kernel` (called
 // through `decode_attention_flat`), and covers what the TPU main path
-// actually ran in its place, `decode_attention_reference`: per-row fp32
-// int8 scales folded into the scores (k_scale) and the softmax weights
-// (v_scale), a lockstep scalar or per-row (B,) valid length.
+// actually ran in its place, `decode_attention_reference`: int8 or int4
+// K/V with scales folded into the scores (k_scale) and the softmax weights
+// (v_scale), a lockstep scalar or per-row (B,) valid length. Four K/V
+// modes, each its own instantiation: bf16; int8 with fp32 per-row scales;
+// int8 with bf16 per-head scales (the int4 cache's self K/V); int4 packed
+// two a byte with bf16 per-head scales (its cross K/V).
 //
 // What bounds it on the card: one query row per batch element against a
 // (B, T, H*64) cache, so every K/V byte is read once and used for one
@@ -19,13 +22,16 @@
 // rows of a batch row are contiguous in the (B, T, H*64) cache, so one
 // producer warp streams them with 1-D bulk copies (cp.async.bulk, counted
 // on mbarriers) through a 4-stage ring of 20 KB: its K rows, then its V
-// rows, keeping ~60 KB in flight per CTA. Ten consumer warps each own one
-// 16-byte chunk of a row (a quarter of a head in int8, an eighth in bf16)
-// and a group of rows, so every consumer thread works in both phases and
-// the lanes sharing a head reduce by shuffles. int8 becomes fp32 by a byte
-// permute into the mantissa of 2^23 and one subtraction (prmt + fadd on the
-// integer and FMA pipes; the I2F pipe alone would take ~15 us at B=16), and
-// all arithmetic stays fp32. The scores of a CTA's rows (<= 188 x 20) stay
+// rows, keeping ~60 KB in flight per CTA (3 stages with per-head scales,
+// whose bf16 values a (row, head) then take shared memory). Ten consumer
+// warps each own one chunk of a row (16 bytes: a quarter of a head in
+// int8, an eighth in bf16; 8 bytes in int4, a quarter of a head) and a
+// group of rows, so every consumer thread works in both phases and the
+// lanes sharing a head reduce by shuffles. int8 becomes fp32 by a byte
+// permute into the mantissa of 2^23 and one subtraction, int4 by a nibble
+// OR-ed into that mantissa (prmt or lop3 + fadd on the integer and FMA
+// pipes; the I2F pipe alone would take ~15 us at B=16), and all arithmetic
+// stays fp32. The scores of a CTA's rows (<= 188 x 20) stay
 // in shared memory, so the CTA's softmax takes its exact max before any
 // exponential (no online rescaling); the weights carry v_scale into the V
 // pass. The CTAs of a cluster then combine through distributed shared
@@ -45,49 +51,61 @@ constexpr int kHD = 64;               // head dim
 constexpr int kConsumerWarps = 10;
 constexpr int kConsumers = 32 * kConsumerWarps;
 constexpr int kThreads = kConsumers + 32;  // + the producer warp
-constexpr int kStages = 4;
-constexpr int kStageBytes = 20480;
+constexpr int kStageBytes = 20480;  // (ops/decode_attention.py PREFIX_STAGE_BYTES)
 constexpr int kMaxCluster = 8;  // CTAs per batch row (ops/decode_attention.py MAX_CLUSTER)
 constexpr float kLog2e = 1.4426950408889634f;
 
+// Copy stages of a CTA: 3 with per-head scales, 4 without.
+template <bool kHeads>
+constexpr int kStagesOf = kHeads ? 3 : 4;
+
 // Shared memory of one CTA: the copy ring (reused for the row groups' V
 // sums once the ring is drained), the scores/weights of its rows, its K/V
-// scales, its per-head max and sum, what the cluster's CTAs send it for
-// its slice of the output (their weighted V sums, maxes and sums), and the
-// barriers.
+// scales (an fp32 a row, or a bf16 a (row, head)), its per-head max and
+// sum, what the cluster's CTAs send it for its slice of the output (their
+// weighted V sums, maxes and sums), and the barriers.
+// ops/decode_attention.py `prefix_smem_bytes` mirrors `total`.
 struct Layout {
   int ring, scores, k_scale, v_scale, m, l, recv_acc, recv_m, recv_l, bars, total;
-  __host__ __device__ Layout(int rows, int n_heads, int d) {
+  __host__ __device__ Layout(int rows, int n_heads, int d, int stages, bool heads) {
+    const int scale_row = heads ? 2 * n_heads : 4;  // bytes of a row's scale
     ring = 0;
-    scores = ring + kStages * kStageBytes;
+    scores = ring + stages * kStageBytes;
     k_scale = scores + 4 * rows * n_heads;
-    v_scale = k_scale + 4 * rows;
-    m = v_scale + 4 * rows;
+    v_scale = k_scale + scale_row * rows;
+    m = (v_scale + scale_row * rows + 3) & ~3;
     l = m + 4 * n_heads;
     recv_acc = l + 4 * n_heads;                    // (ranks, slice), <= d + ranks
     recv_m = recv_acc + 4 * (d + kMaxCluster);     // (ranks, H)
     recv_l = recv_m + 4 * kMaxCluster * n_heads;   // (ranks, H)
     bars = (recv_l + 4 * kMaxCluster * n_heads + 7) & ~7;
-    total = bars + 8 * 2 * kStages;
+    total = bars + 8 * 2 * stages;
   }
 };
 
-template <typename KV>
+// KV: int8_t, __nv_bfloat16 or Int4 (the element type of the cache's
+// rows); kHeads: bf16 (B, T, H) scales, else fp32 (B, T) or none (bf16).
+template <typename KV, bool kHeads>
 __global__ void __launch_bounds__(kThreads, 2)
-    decode_kernel(const __nv_bfloat16* __restrict__ q, long q_stride, const KV* __restrict__ k,
-                  const KV* __restrict__ v, const float* __restrict__ k_scale,
-                  const float* __restrict__ v_scale, const int* __restrict__ valid_rows,
-                  int valid_all, __nv_bfloat16* __restrict__ out, int t_cap, int n_heads,
-                  int rows_per_cta) {
-  constexpr int kElems = Chunk<KV>::kElems;
-  constexpr int kLanesPerHead = kHD / kElems;  // 4 (int8) or 8 (bf16)
+    decode_kernel(const __nv_bfloat16* __restrict__ q, long q_stride,
+                  const uint8_t* __restrict__ k, const uint8_t* __restrict__ v,
+                  const void* __restrict__ k_scale, const void* __restrict__ v_scale,
+                  const int* __restrict__ valid_rows, int valid_all,
+                  __nv_bfloat16* __restrict__ out, int t_cap, int n_heads, int rows_per_cta) {
+  using C = Chunk<KV>;
+  constexpr int kElems = C::kElems;
+  constexpr int kLanesPerHead = kHD / kElems;  // 4 (int8, int4) or 8 (bf16)
+  constexpr int kStages = kStagesOf<kHeads>;
   extern __shared__ __align__(128) uint8_t smem[];
   const int d = n_heads * kHD;
-  const Layout lay(rows_per_cta, n_heads, d);
+  const Layout lay(rows_per_cta, n_heads, d, kStages, kHeads);
   uint8_t* ring = smem + lay.ring;
   float* sc = reinterpret_cast<float*>(smem + lay.scores);  // (rows, H)
+  // scales: fp32 a row, or bf16 a (row, head)
   float* ks_s = reinterpret_cast<float*>(smem + lay.k_scale);
   float* vs_s = reinterpret_cast<float*>(smem + lay.v_scale);
+  __nv_bfloat16* ks_h = reinterpret_cast<__nv_bfloat16*>(smem + lay.k_scale);
+  __nv_bfloat16* vs_h = reinterpret_cast<__nv_bfloat16*>(smem + lay.v_scale);
   float* m_s = reinterpret_cast<float*>(smem + lay.m);
   float* l_s = reinterpret_cast<float*>(smem + lay.l);
   float* recv_acc = reinterpret_cast<float*>(smem + lay.recv_acc);
@@ -103,7 +121,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int t0 = rank * rows_per_cta;
   const int n_rows = max(min(t0 + rows_per_cta, valid) - t0, 0);
   const long row0 = (long)b * t_cap + t0;
-  const int row_bytes = d * (int)sizeof(KV);
+  const int row_bytes = d * C::kBits / 8;
   const int stage_rows = kStageBytes / row_bytes;
   const int n_chunks = (n_rows + stage_rows - 1) / stage_rows;  // per tensor
 
@@ -128,14 +146,14 @@ __global__ void __launch_bounds__(kThreads, 2)
         const int r0 = c * stage_rows, n = min(stage_rows, n_rows - r0);
         mbar_wait(&empty[st], ((i / kStages) & 1) ^ 1);
         mbar_expect_tx(&full[st], n * row_bytes);
-        bulk_load(ring + st * kStageBytes, (i < n_chunks ? k : v) + (row0 + r0) * d,
+        bulk_load(ring + st * kStageBytes, (i < n_chunks ? k : v) + (row0 + r0) * row_bytes,
                   n * row_bytes, &full[st]);
       }
     }
     __syncwarp();
     cluster_wait();
   } else {
-    // ---- consumers: thread -> (16-byte chunk of a row, group of rows) -----
+    // ---- consumers: thread -> (chunk of a row, group of rows) ---------------
     const int n_cols = d / kElems;                 // chunks per row
     const int n_groups = kConsumers / n_cols;      // row groups (>= 1)
     const int col = tid % n_cols, grp = tid / n_cols;
@@ -148,9 +166,37 @@ __global__ void __launch_bounds__(kThreads, 2)
       for (int e = 0; e < kElems; ++e)
         qr[e] = active ? __bfloat162float(qp[e]) * (0.125f * kLog2e) : 0.f;
     }
-    for (int r = tid; r < n_rows; r += kConsumers) {
-      ks_s[r] = k_scale ? k_scale[row0 + r] : 1.f;
-      vs_s[r] = v_scale ? v_scale[row0 + r] : 1.f;
+    if (kHeads) {  // the CTA's rows' scales are contiguous: (rows, H)
+      const __nv_bfloat16* ksg = static_cast<const __nv_bfloat16*>(k_scale) + row0 * n_heads;
+      const __nv_bfloat16* vsg = static_cast<const __nv_bfloat16*>(v_scale) + row0 * n_heads;
+      // kBatch loads of each in flight a thread before any store (188 x 20
+      // at T=1500 take one batch), not one round trip a value
+      constexpr int kBatch = 16;
+      const int n = n_rows * n_heads;
+      for (int i0 = tid; i0 < n; i0 += kBatch * kConsumers) {
+        __nv_bfloat16 a[kBatch], c[kBatch];
+#pragma unroll
+        for (int j = 0; j < kBatch; ++j) {
+          const int i = i0 + j * kConsumers;
+          if (i < n) {
+            a[j] = ksg[i];
+            c[j] = vsg[i];
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < kBatch; ++j) {
+          const int i = i0 + j * kConsumers;
+          if (i < n) {
+            ks_h[i] = a[j];
+            vs_h[i] = c[j];
+          }
+        }
+      }
+    } else {
+      for (int r = tid; r < n_rows; r += kConsumers) {
+        ks_s[r] = k_scale ? static_cast<const float*>(k_scale)[row0 + r] : 1.f;
+        vs_s[r] = v_scale ? static_cast<const float*>(v_scale)[row0 + r] : 1.f;
+      }
     }
     named_bar_sync(1, kConsumers);
 
@@ -165,7 +211,7 @@ __global__ void __launch_bounds__(kThreads, 2)
         float part = 0.f;
         if (active && r < n) {
           float x[kElems];
-          Chunk<KV>::load(tile + (long)r * row_bytes + col * 16, x);
+          C::load(tile + (long)r * row_bytes + col * C::kBytes, x);
 #pragma unroll
           for (int e = 0; e < kElems; ++e) part = fmaf(x[e], qr[e], part);
         }
@@ -173,7 +219,8 @@ __global__ void __launch_bounds__(kThreads, 2)
         for (int off = kLanesPerHead / 2; off > 0; off >>= 1)
           part += __shfl_xor_sync(0xffffffffu, part, off);
         if (active && r < n && col % kLanesPerHead == 0)
-          sc[(r0 + r) * n_heads + h] = part * ks_s[r0 + r];
+          sc[(r0 + r) * n_heads + h] =
+              part * (kHeads ? __bfloat162float(ks_h[(r0 + r) * n_heads + h]) : ks_s[r0 + r]);
       }
       __syncwarp();
       if (lane == 0) mbar_arrive(&empty[st]);
@@ -191,7 +238,8 @@ __global__ void __launch_bounds__(kThreads, 2)
       for (int r = lane; r < n_rows; r += 32) {
         const float p = ex2(sc[r * n_heads + hh] - mx);
         sum += p;
-        sc[r * n_heads + hh] = p * vs_s[r];
+        sc[r * n_heads + hh] =
+            p * (kHeads ? __bfloat162float(vs_h[r * n_heads + hh]) : vs_s[r]);
       }
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
@@ -215,7 +263,7 @@ __global__ void __launch_bounds__(kThreads, 2)
         for (int r = grp; r < n; r += n_groups) {
           const float w = sc[(r0 + r) * n_heads + h];
           float x[kElems];
-          Chunk<KV>::load(tile + (long)r * row_bytes + col * 16, x);
+          C::load(tile + (long)r * row_bytes + col * C::kBytes, x);
 #pragma unroll
           for (int e = 0; e < kElems; ++e) acc[e] = fmaf(w, x[e], acc[e]);
         }
@@ -269,19 +317,19 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
-template <typename KV>
+template <typename KV, bool kHeads>
 int launch(int card, const void* q, long q_stride, const void* k, const void* v,
            const void* k_scale, const void* v_scale, const void* valid_rows, int valid_all,
            void* out, int batch, int t_cap, int n_heads, int n_ctas, int rows_per_cta,
            cudaStream_t stream) {
   const int d = n_heads * kHD;
-  const Layout lay(rows_per_cta, n_heads, d);
+  const Layout lay(rows_per_cta, n_heads, d, kStagesOf<kHeads>, kHeads);
   // per card: the largest shared-memory size opted into there
   static int configured_of[kwt_card::kMaxCards] = {};
   int& configured = configured_of[card];
   if (configured < lay.total) {
     const cudaError_t err = cudaFuncSetAttribute(
-        decode_kernel<KV>, cudaFuncAttributeMaxDynamicSharedMemorySize, lay.total);
+        decode_kernel<KV, kHeads>, cudaFuncAttributeMaxDynamicSharedMemorySize, lay.total);
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = lay.total;
   }
@@ -298,32 +346,47 @@ int launch(int card, const void* q, long q_stride, const void* k, const void* v,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   return static_cast<int>(cudaLaunchKernelEx(
-      &cfg, decode_kernel<KV>, static_cast<const __nv_bfloat16*>(q), q_stride,
-      static_cast<const KV*>(k), static_cast<const KV*>(v), static_cast<const float*>(k_scale),
-      static_cast<const float*>(v_scale), static_cast<const int*>(valid_rows), valid_all,
-      static_cast<__nv_bfloat16*>(out), t_cap, n_heads, rows_per_cta));
+      &cfg, decode_kernel<KV, kHeads>, static_cast<const __nv_bfloat16*>(q), q_stride,
+      static_cast<const uint8_t*>(k), static_cast<const uint8_t*>(v), k_scale, v_scale,
+      static_cast<const int*>(valid_rows), valid_all, static_cast<__nv_bfloat16*>(out), t_cap,
+      n_heads, rows_per_cta));
 }
 
 }  // namespace
 
 // q (B, H*64) bf16, rows q_stride elements apart (a row of a fused qkv
-// projection is read in place); k/v (B, T, H*64) bf16 (kv_int8=0) or int8
-// (kv_int8=1) with fp32 (B, T) scales (nullable); valid_rows (B,) int32 or
-// null, then valid_all applies to every row. One cluster of n_ctas CTAs
-// (<= 8) per batch row, each over rows_per_cta cache rows (the split plan
-// of ops/decode_attention.py). out (B, H*64) bf16. Returns the launch's
-// cudaError_t.
+// projection is read in place); k/v (B, T, H*64) by kv_mode
+// (ops/decode_attention.py KV_*): 0 bf16, no scales; 1 int8 with fp32
+// (B, T) scales (nullable); 2 int8 with bf16 (B, T, H) scales; 3 int4
+// packed two a byte, (B, T, H*32) bytes, with bf16 (B, T, H) scales.
+// valid_rows (B,) int32 or null, then valid_all applies to every row. One
+// cluster of n_ctas CTAs (<= 8) per batch row, each over rows_per_cta cache
+// rows (the split plan of ops/decode_attention.py). out (B, H*64) bf16.
+// Returns the launch's cudaError_t (cudaErrorInvalidValue for an unknown
+// mode).
 extern "C" int kwt_decode_attention(int card, const void* q, long long q_stride,
                                     const void* k, const void* v, const void* k_scale,
                                     const void* v_scale, const void* valid_rows, int valid_all,
                                     void* out, int batch, int t_cap, int n_heads, int n_ctas,
-                                    int rows_per_cta, int kv_int8, void* stream) {
+                                    int rows_per_cta, int kv_mode, void* stream) {
   const kwt_card::CardScope scope(card);
   if (scope.error()) return scope.error();
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (kv_int8)
-    return launch<int8_t>(card, q, (long)q_stride, k, v, k_scale, v_scale, valid_rows,
-                          valid_all, out, batch, t_cap, n_heads, n_ctas, rows_per_cta, s);
-  return launch<__nv_bfloat16>(card, q, (long)q_stride, k, v, k_scale, v_scale, valid_rows,
-                               valid_all, out, batch, t_cap, n_heads, n_ctas, rows_per_cta, s);
+  const long qs = (long)q_stride;
+  switch (kv_mode) {
+    case 0:
+      return launch<__nv_bfloat16, false>(card, q, qs, k, v, k_scale, v_scale, valid_rows,
+                                          valid_all, out, batch, t_cap, n_heads, n_ctas,
+                                          rows_per_cta, s);
+    case 1:
+      return launch<int8_t, false>(card, q, qs, k, v, k_scale, v_scale, valid_rows, valid_all,
+                                   out, batch, t_cap, n_heads, n_ctas, rows_per_cta, s);
+    case 2:
+      return launch<int8_t, true>(card, q, qs, k, v, k_scale, v_scale, valid_rows, valid_all,
+                                  out, batch, t_cap, n_heads, n_ctas, rows_per_cta, s);
+    case 3:
+      return launch<Int4, true>(card, q, qs, k, v, k_scale, v_scale, valid_rows, valid_all,
+                                out, batch, t_cap, n_heads, n_ctas, rows_per_cta, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }

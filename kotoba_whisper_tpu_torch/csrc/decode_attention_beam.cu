@@ -4,8 +4,9 @@
 // Replaces: kotoba_whisper_tpu/ops/decode_attention.py
 // `decode_attention_reference_beam` (:114, XLA on the TPU): the K beam
 // queries of a group against the group's one shared cross-K/V row, every
-// slot a key, fp32 softmax, int8 K/V with fp32 per-row scales (k_scale folds
-// into the scores, v_scale into the weights) or bf16 K/V.
+// slot a key, fp32 softmax, int8 K/V with fp32 per-row scales, int4 K/V
+// (packed two a byte) with bf16 per-head scales (k_scale folds into the
+// scores, v_scale into the weights), or bf16 K/V.
 //
 // What bounds it on the card: bytes. Every K/V byte is read once for all K
 // queries of its group: 12 groups x 5 beams over T=1500 keys of 20 heads
@@ -35,12 +36,22 @@
 //   reduces over keys, so a V fragment pairs two keys' bytes of one dim: a
 //   PRMT interleaves two keys' words first. Output dim 8r + n-block is
 //   thread row r's (int8), so a thread reads 8 contiguous bytes of a key.
+// - int4 K and V become bf16 exactly too: a nibble XOR 8 OR-ed into 0x4300
+//   (bf16 128, whose ulp is 1) is 128 + (x + 8), and one bf16x2 FMA
+//   subtracts 136; a LOP3 builds nibble i and i + 4 of a word as one pair.
+//   K's dims pair as (i, i + 4) of the thread's two words, and Q's A
+//   fragment takes that order; V's thread row r reads word r (dims 8r ..
+//   8r + 7) of four keys, a PRMT pairing two keys' nibbles. Its tiles are
+//   32 bytes a key, unswizzled: the key order kappa puts a warp's four V
+//   keys in distinct bank groups, and K's 8-byte loads span 256 bytes.
 // - Key order: column n of an 8-key block is key kappa(n) (bits (n1 ^ n0,
 //   n0, n2)), chosen with the 64-byte TMA swizzle (int8) so that the K
 //   loads (16 B a lane) and the V loads (8 B a lane) of a warp hit 32
 //   distinct banks; bf16 takes the 128-byte swizzle, K by 16-byte loads and
 //   V by ldmatrix.trans in the same key order.
-// - Scales: k_scale multiplies the fp32 score columns of its key, v_scale
+// - Scales: k_scale multiplies the fp32 score columns of its key (int4: its
+//   head's bf16, copied as the aligned 4-byte word that holds it, the half
+//   picked by the element's parity), v_scale
 //   multiplies p before P is rounded to bf16 for the P V product (as the
 //   reference folds it into w). That rounding is the one this kernel adds
 //   to the fp32 twin; bf16 keeps fp32's range, where fp16 would lose p *
@@ -50,13 +61,15 @@
 //   memory holds only the copy ring and the end's merge: two CTAs an SM,
 //   and no cap on beams (16 a tile; more beams take more tiles).
 // - One producer warp keeps the head's K and V tiles in flight through a
-//   ring of stages (8 of 8 KB in int8, 4 of 16 KB in bf16) with 3-D TMA
-//   boxes (64 columns x 64 keys x 1 group of the (G, T, H*64) tensor, rows
-//   past T zero-filled), and copies the tile's scales (cp.async, 4 bytes a
-//   key, zero past the CTA's keys) into the fragments' column order, all
-//   counted on one mbarrier. Four consumer warps take tiles in turn, each
+//   ring of stages (8 of 8 KB in int8, 4 of 16 KB in bf16, 16 of 4 KB in
+//   int4) with 3-D TMA boxes (a head's 64 columns x 64 keys x 1 group of
+//   the (G, T, H*64) tensor, rows past T zero-filled), and copies the
+//   tile's scales (cp.async, 4 bytes a key, zero past the CTA's keys) into
+//   the fragments' column order, all counted on one mbarrier. Four consumer warps take tiles in turn, each
 //   with its own running state, and merge (max, sum, O) in shared memory
 //   at the end.
+#include <type_traits>
+
 #include "card.cuh"
 #include "sm90_common.cuh"
 
@@ -71,24 +84,37 @@ constexpr int kConsumerWarps = 4;  // (BEAM_WARPS)
 constexpr int kThreads = 32 * (kConsumerWarps + 1);
 constexpr float kLog2e = 1.4426950408889634f;
 
+// The K/V modes: stages of the copy ring (ops/decode_attention.py
+// BEAM_STAGES), bytes of a head's 64 columns of a key, and the TMA column
+// of head h (in the map's elements: bytes for int8 and int4).
 template <typename KV>
-struct Stages;
+struct Mode;
 template <>
-struct Stages<int8_t> {
-  static constexpr int n = 8;
+struct Mode<int8_t> {
+  static constexpr int kStages = 8, kRowBytes = 64, kHeadCols = 64;
 };
 template <>
-struct Stages<__nv_bfloat16> {
-  static constexpr int n = 4;
+struct Mode<__nv_bfloat16> {
+  static constexpr int kStages = 4, kRowBytes = 128, kHeadCols = 64;
 };
+template <>
+struct Mode<Int4> {
+  static constexpr int kStages = 16, kRowBytes = 32, kHeadCols = 32;
+};
+template <typename KV>
+constexpr bool kIsInt4 = std::is_same<KV, Int4>::value;
+template <typename KV>
+constexpr bool kIsInt8 = std::is_same<KV, int8_t>::value;
 
 // ops/decode_attention.py `beam_smem_bytes` mirrors its size.
 template <typename KV>
 struct __align__(1024) Smem {
-  static constexpr int kS = Stages<KV>::n;
-  KV k[kS][kKeys * kHD];  // swizzled TMA boxes
-  KV v[kS][kKeys * kHD];
-  float ks[kS][kKeys], vs[kS][kKeys];  // int8 scales, in fragment column order
+  static constexpr int kS = Mode<KV>::kStages;
+  uint8_t k[kS][kKeys * Mode<KV>::kRowBytes];  // TMA boxes (swizzled: int8, bf16)
+  uint8_t v[kS][kKeys * Mode<KV>::kRowBytes];
+  // scales in fragment column order: fp32 (int8), or (int4) the 4-byte
+  // word holding the key's bf16
+  float ks[kS][kKeys], vs[kS][kKeys];
   float o[kConsumerWarps][kRows][kHD];  // each warp's O, then its max and sum
   float m[kConsumerWarps][kRows], l[kConsumerWarps][kRows];
   float fo[kRows][kHD];  // the CTA's merged O, max and sum (read by the cluster)
@@ -96,17 +122,27 @@ struct __align__(1024) Smem {
   uint64_t full[kS], empty[kS];
 };
 
-// Key of column n in an 8-key block, and its inverse.
-__device__ __forceinline__ int kappa(int n) { return ((n >> 1 & 1) | (n >> 2) << 2) ^ (3 * (n & 1)); }
+// Key of column n in an 8-key block, and its inverse. int4 takes keys
+// n / 2 + 4 (n & 1): a warp's V loads of columns 2c (keys c) and 2c + 1
+// (keys c + 4) then fall in four distinct 8-bank groups.
+template <typename KV>
+__device__ __forceinline__ int kappa(int n) {
+  if (kIsInt4<KV>) return (n >> 1) | (n & 1) << 2;
+  return ((n >> 1 & 1) | (n >> 2) << 2) ^ (3 * (n & 1));
+}
+template <typename KV>
 __device__ __forceinline__ int kappa_inv(int key) {
+  if (kIsInt4<KV>) return (key & 3) << 1 | key >> 2;
   return (key >> 1 & 1) | ((key ^ key >> 1) & 1) << 1 | (key >> 2) << 2;
 }
 
 // Byte offset within a 1024-aligned tile under the TMA swizzle: 16-byte
-// chunk bits [4:5] (64-byte rows) or [4:6] (128-byte rows) XOR bits [7:..].
+// chunk bits [4:5] (64-byte rows) or [4:6] (128-byte rows) XOR bits [7:..];
+// int4's 32-byte rows are unswizzled.
 template <typename KV>
 __device__ __forceinline__ uint32_t swz(uint32_t off) {
-  return sizeof(KV) == 1 ? off ^ ((off >> 7 & 3) << 4) : off ^ ((off >> 7 & 7) << 4);
+  if (kIsInt4<KV>) return off;
+  return kIsInt8<KV> ? off ^ ((off >> 7 & 3) << 4) : off ^ ((off >> 7 & 7) << 4);
 }
 
 // Bytes 0 and 2 of w, int8, as bf16x2 (byte 0 low), exactly.
@@ -116,6 +152,21 @@ __device__ __forceinline__ uint32_t i8x2_bf16x2(uint32_t w) {
   uint32_t r;
   asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(r) : "r"(mh), "r"(0xBF80BF80u), "r"(mm));
   return r;
+}
+
+// Nibbles j and j + 4 of w (its nibbles XOR 8), int4, as bf16x2 (nibble j
+// low), exactly: (128 + x + 8) - 136.
+__device__ __forceinline__ uint32_t i4x2_bf16x2(uint32_t w, int j) {
+  const uint32_t x = (w >> (4 * j) & 0x000F000Fu) | 0x43004300u;
+  uint32_t r;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(r) : "r"(x), "r"(0x3F803F80u), "r"(0xC308C308u));
+  return r;
+}
+
+// The bf16 of a scale word's half `hi`, as a float.
+__device__ __forceinline__ float bf16_half(float word, int hi) {
+  const uint32_t w = __float_as_uint(word);
+  return __uint_as_float(hi ? w & 0xFFFF0000u : w << 16);
 }
 
 __device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
@@ -139,28 +190,36 @@ __device__ __forceinline__ uint4 lds128(uint32_t addr) {
                : "r"(addr));
   return v;
 }
+__device__ __forceinline__ uint32_t lds32(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(v) : "r"(addr));
+  return v;
+}
 __device__ __forceinline__ uint2 lds64(uint32_t addr) {
   uint2 v;
   asm volatile("ld.shared.v2.u32 {%0, %1}, [%2];\n" : "=r"(v.x), "=r"(v.y) : "r"(addr));
   return v;
 }
 
-// Output dim of accumulator column n of n-block nb.
+// Output dim of accumulator column n of n-block nb (V's thread row r reads
+// dims 8r .. 8r + 7 in int8 and int4).
 template <typename KV>
 __device__ __forceinline__ int out_dim(int nb, int n) {
-  return sizeof(KV) == 1 ? 8 * n + nb : 8 * nb + n;
+  return std::is_same<KV, __nv_bfloat16>::value ? 8 * nb + n : 8 * n + nb;
 }
 
+// KV: int8_t (fp32 (G, T) scales), Int4 (bf16 (G, T, H) scales) or
+// __nv_bfloat16 (no scales).
 template <typename KV>
 __global__ void __launch_bounds__(kThreads, 2)
     beam_kernel(const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
                 const __nv_bfloat16* __restrict__ q, long q_stride,
-                const float* __restrict__ k_scale, const float* __restrict__ v_scale,
+                const void* __restrict__ k_scale, const void* __restrict__ v_scale,
                 __nv_bfloat16* __restrict__ out, int t_len, int n_heads, int beams,
                 int keys_per_split) {
-  constexpr bool kInt8 = sizeof(KV) == 1;
-  constexpr int kS = Stages<KV>::n;
-  constexpr int kRowBytes = kHD * (int)sizeof(KV);
+  constexpr bool kInt8 = kIsInt8<KV>, kInt4 = kIsInt4<KV>, kScaled = kInt8 || kInt4;
+  constexpr int kS = Mode<KV>::kStages;
+  constexpr int kRowBytes = Mode<KV>::kRowBytes;
   extern __shared__ uint8_t smem_raw[];
   Smem<KV>& s = *reinterpret_cast<Smem<KV>*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -189,24 +248,34 @@ __global__ void __launch_bounds__(kThreads, 2)
       prefetch_tmap(&tm_v);
     }
     const long srow = (long)g * t_len;
+    const long n_scales = (long)gridDim.z * t_len * n_heads;  // int4: (G, T, H) bf16s
     for (int i = 0; i < n_tiles; ++i) {
       const int st = i % kS, key0 = k_begin + i * kKeys;
       mbar_wait(&s.empty[st], ((i / kS) & 1) ^ 1);
-      if (kInt8) {
+      if (kScaled) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const int key = 2 * lane + e, slot = (key & ~7) | kappa_inv(key & 7);
+          const int key = 2 * lane + e, slot = (key & ~7) | kappa_inv<KV>(key & 7);
           const bool in = key0 + key < k_end;
           const long at = srow + (in ? key0 + key : 0);
-          cp_async4(&s.ks[st][slot], k_scale + at, in ? 4 : 0);
-          cp_async4(&s.vs[st][slot], v_scale + at, in ? 4 : 0);
+          if (kInt4) {
+            // the aligned word holding bf16 at * H + h; its second half is
+            // past the tensor only for the last element, at an even index
+            const long el = at * n_heads + h, word = el & ~1L;
+            const int bytes = in ? (el + 1 < n_scales || (el & 1) ? 4 : 2) : 0;
+            cp_async4(&s.ks[st][slot], static_cast<const __nv_bfloat16*>(k_scale) + word, bytes);
+            cp_async4(&s.vs[st][slot], static_cast<const __nv_bfloat16*>(v_scale) + word, bytes);
+          } else {
+            cp_async4(&s.ks[st][slot], static_cast<const float*>(k_scale) + at, in ? 4 : 0);
+            cp_async4(&s.vs[st][slot], static_cast<const float*>(v_scale) + at, in ? 4 : 0);
+          }
         }
       }
       cp_async_mbar_arrive_noinc(&s.full[st]);
       if (lane == 0) {
         mbar_expect_tx(&s.full[st], 2 * kKeys * kRowBytes);
-        tma_load_3d(s.k[st], &tm_k, &s.full[st], h * kHD, key0, g);
-        tma_load_3d(s.v[st], &tm_v, &s.full[st], h * kHD, key0, g);
+        tma_load_3d(s.k[st], &tm_k, &s.full[st], h * Mode<KV>::kHeadCols, key0, g);
+        tma_load_3d(s.v[st], &tm_v, &s.full[st], h * Mode<KV>::kHeadCols, key0, g);
       }
     }
   } else {
@@ -235,11 +304,13 @@ __global__ void __launch_bounds__(kThreads, 2)
       for (int ks = 0; ks < 4; ++ks)
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
-          const uint32_t a = w[half][2 * ks], b = w[half][2 * ks + 1];
           // int8 K pairs dims (4ks, 4ks + 2) and (4ks + 1, 4ks + 3) of the
-          // thread's 16; bf16 K pairs them in order
-          qa[ks][half] = kInt8 ? __byte_perm(a, b, 0x5410) : a;
-          qa[ks][2 + half] = kInt8 ? __byte_perm(a, b, 0x7632) : b;
+          // thread's 16; int4 K pairs (d, d + 4) and (d + 1, d + 5), d =
+          // 8 (ks / 2) + 2 (ks % 2); bf16 K pairs them in order
+          const int wi = kInt4 ? 4 * (ks >> 1) + (ks & 1) : 2 * ks;
+          const uint32_t a = w[half][wi], b = w[half][kInt4 ? wi + 2 : wi + 1];
+          qa[ks][half] = kScaled ? __byte_perm(a, b, 0x5410) : a;
+          qa[ks][2 + half] = kScaled ? __byte_perm(a, b, 0x7632) : b;
         }
     }
     const float qscale = 0.125f * kLog2e;  // 1/sqrt(64), in log2 units
@@ -249,7 +320,11 @@ __global__ void __launch_bounds__(kThreads, 2)
     for (int nb = 0; nb < 8; ++nb)
 #pragma unroll
       for (int e = 0; e < 4; ++e) oacc[nb][e] = 0.f;
-    const int col_a = kappa(2 * c), col_b = kappa(2 * c + 1);  // keys of columns 2c, 2c + 1
+    const int col_a = kappa<KV>(2 * c), col_b = kappa<KV>(2 * c + 1);  // keys of columns 2c, 2c + 1
+    // int4: the half of a scale word that holds the key's bf16 (the
+    // element's parity; a tile's keys start at an even key)
+    const int hi_a = (int)((((long)g * t_len + col_a) * n_heads + h) & 1);
+    const int hi_b = (int)((((long)g * t_len + col_b) * n_heads + h) & 1);
 
     for (int i = warp; i < n_tiles; i += kConsumerWarps) {
       const int st = i % kS, left = k_end - (k_begin + i * kKeys);  // keys of the tile in range
@@ -260,9 +335,17 @@ __global__ void __launch_bounds__(kThreads, 2)
       float sc[8][4];
 #pragma unroll
       for (int nb = 0; nb < 8; ++nb) {
-        const int key = 8 * nb + kappa(r);
+        const int key = 8 * nb + kappa<KV>(r);
         uint32_t b[8];
-        if (kInt8) {
+        if (kInt4) {
+          const uint2 x = lds64(kt + key * kRowBytes + 8 * c);
+          const uint32_t u[2] = {x.x ^ 0x88888888u, x.y ^ 0x88888888u};
+#pragma unroll
+          for (int ks = 0; ks < 4; ++ks) {
+            b[2 * ks] = i4x2_bf16x2(u[ks >> 1], 2 * (ks & 1));
+            b[2 * ks + 1] = i4x2_bf16x2(u[ks >> 1], 2 * (ks & 1) + 1);
+          }
+        } else if (kInt8) {
           const uint4 x = lds128(kt + swz<KV>(key * kRowBytes + 16 * c));
           const uint32_t xs[4] = {x.x, x.y, x.z, x.w};
 #pragma unroll
@@ -287,7 +370,8 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
       for (int nb = 0; nb < 8; ++nb) {
         float2 ksc = make_float2(1.f, 1.f);
-        if (kInt8) ksc = *reinterpret_cast<const float2*>(&s.ks[st][8 * nb + 2 * c]);
+        if (kScaled) ksc = *reinterpret_cast<const float2*>(&s.ks[st][8 * nb + 2 * c]);
+        if (kInt4) ksc = make_float2(bf16_half(ksc.x, hi_a), bf16_half(ksc.y, hi_b));
         const bool in_a = 8 * nb + col_a < left, in_b = 8 * nb + col_b < left;
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
@@ -337,7 +421,8 @@ __global__ void __launch_bounds__(kThreads, 2)
         for (int odd = 0; odd < 2; ++odd) {
           const int nb = 2 * j + odd;
           float2 vsc = make_float2(1.f, 1.f);
-          if (kInt8) vsc = *reinterpret_cast<const float2*>(&s.vs[st][8 * nb + 2 * c]);
+          if (kScaled) vsc = *reinterpret_cast<const float2*>(&s.vs[st][8 * nb + 2 * c]);
+          if (kInt4) vsc = make_float2(bf16_half(vsc.x, hi_a), bf16_half(vsc.y, hi_b));
           pa[j][2 * odd] = pack_bf16x2(sc[nb][0] * vsc.x, sc[nb][1] * vsc.y);
           pa[j][2 * odd + 1] = pack_bf16x2(sc[nb][2] * vsc.x, sc[nb][3] * vsc.y);
         }
@@ -346,7 +431,24 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         uint32_t bv[8][2];
-        if (kInt8) {
+        if (kInt4) {
+          // word r (dims 8r .. 8r + 7) of keys of k-positions 2c, 2c + 1 (A,
+          // B) and 2c + 8, 2c + 9 (C, D); a PRMT pairs A's and B's nibbles
+          const int ka = 16 * j + col_a, kb = 16 * j + col_b;
+          const uint32_t wa = lds32(vt + ka * kRowBytes + 4 * r);
+          const uint32_t wb = lds32(vt + kb * kRowBytes + 4 * r);
+          const uint32_t wc = lds32(vt + (ka + 8) * kRowBytes + 4 * r);
+          const uint32_t wd = lds32(vt + (kb + 8) * kRowBytes + 4 * r);
+          const uint32_t ab[2] = {__byte_perm(wa, wb, 0x5410) ^ 0x88888888u,
+                                  __byte_perm(wa, wb, 0x7632) ^ 0x88888888u};
+          const uint32_t cd[2] = {__byte_perm(wc, wd, 0x5410) ^ 0x88888888u,
+                                  __byte_perm(wc, wd, 0x7632) ^ 0x88888888u};
+#pragma unroll
+          for (int u = 0; u < 8; ++u) {
+            bv[u][0] = i4x2_bf16x2(ab[u >> 2], u & 3);
+            bv[u][1] = i4x2_bf16x2(cd[u >> 2], u & 3);
+          }
+        } else if (kInt8) {
           // keys of k-positions 2c, 2c + 1 (A, B) and 2c + 8, 2c + 9 (C, D)
           const int ka = 16 * j + col_a, kb = 16 * j + col_b;
           const uint2 wa = lds64(vt + swz<KV>(ka * kRowBytes + 8 * r));
@@ -365,7 +467,7 @@ __global__ void __launch_bounds__(kThreads, 2)
             bv[2 * u + 1][1] = i8x2_bf16x2(cd[u] >> 8);
           }
         } else {
-          const int key = 16 * j + 8 * (lane >> 3 & 1) + kappa(lane & 7);
+          const int key = 16 * j + 8 * (lane >> 3 & 1) + kappa<KV>(lane & 7);
 #pragma unroll
           for (int u = 0; u < 4; ++u) {
             uint32_t x[4];
@@ -462,34 +564,37 @@ __global__ void __launch_bounds__(kThreads, 2)
   cluster_sync();  // no CTA leaves while rank 0 reads its shared memory
 }
 
-// 3-D map (H*64 columns, T keys, G groups) of a (G, T, H*64) tensor: boxes
-// of one head's 64 columns x kKeys keys, swizzled, zero-filled past T.
+// 3-D map (H*64 columns, T keys, G groups) of a (G, T, H*64) tensor (int4:
+// H*32 bytes): boxes of one head's columns x kKeys keys, swizzled (int8,
+// bf16), zero-filled past T.
 template <typename KV>
 bool make_map(CUtensorMap* map, const void* base, int groups, int t_len, int n_heads) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
-  const cuuint64_t row = (cuuint64_t)n_heads * kHD * sizeof(KV);
-  const cuuint64_t dims[3] = {(cuuint64_t)n_heads * kHD, (cuuint64_t)t_len, (cuuint64_t)groups};
+  constexpr int kCols = Mode<KV>::kHeadCols;
+  const cuuint64_t row = (cuuint64_t)n_heads * Mode<KV>::kRowBytes;
+  const cuuint64_t dims[3] = {(cuuint64_t)n_heads * kCols, (cuuint64_t)t_len, (cuuint64_t)groups};
   const cuuint64_t strides[2] = {row, row * t_len};
-  const cuuint32_t box[3] = {kHD, kKeys, 1};
+  const cuuint32_t box[3] = {kCols, kKeys, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
-  return encode(map, sizeof(KV) == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+  const bool bf16 = std::is_same<KV, __nv_bfloat16>::value;
+  return encode(map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8,
                 3, const_cast<void*>(base), dims, strides, box, elem,
                 CU_TENSOR_MAP_INTERLEAVE_NONE,
-                sizeof(KV) == 1 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
+                kIsInt4<KV> ? CU_TENSOR_MAP_SWIZZLE_NONE
+                            : kIsInt8<KV> ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <typename KV>
 int launch(int card, const void* q, long q_stride, const void* k, const void* v,
            const void* k_scale, const void* v_scale, void* out, int groups, int t_len,
-           int n_heads, int beams, int splits, int keys_per_split, cudaStream_t stream) {
+           int n_heads, int beams, int splits, int keys_per_split, int mode, cudaStream_t stream) {
   // a beam search's cross caches (one a layer) are allocated once
   CUtensorMap tk, tv;
-  const int i8 = sizeof(KV) == 1;
-  if (!cached_tmap(&tk, {k, {groups, t_len, n_heads, i8, 0}},
+  if (!cached_tmap(&tk, {k, {groups, t_len, n_heads, mode, 0}},
                    [&](CUtensorMap* m) { return make_map<KV>(m, k, groups, t_len, n_heads); }) ||
-      !cached_tmap(&tv, {v, {groups, t_len, n_heads, i8, 0}},
+      !cached_tmap(&tv, {v, {groups, t_len, n_heads, mode, 0}},
                    [&](CUtensorMap* m) { return make_map<KV>(m, v, groups, t_len, n_heads); }))
     return static_cast<int>(cudaErrorInvalidValue);
   const int smem = static_cast<int>(sizeof(Smem<KV>)) + 1024;  // + alignment slack
@@ -514,32 +619,41 @@ int launch(int card, const void* q, long q_stride, const void* k, const void* v,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   return static_cast<int>(cudaLaunchKernelEx(
-      &cfg, beam_kernel<KV>, tk, tv, static_cast<const __nv_bfloat16*>(q), q_stride,
-      static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
-      static_cast<__nv_bfloat16*>(out), t_len, n_heads, beams, keys_per_split));
+      &cfg, beam_kernel<KV>, tk, tv, static_cast<const __nv_bfloat16*>(q), q_stride, k_scale,
+      v_scale, static_cast<__nv_bfloat16*>(out), t_len, n_heads, beams, keys_per_split));
 }
 
 }  // namespace
 
 // q (G, K, H, 64) bf16, its G*K rows q_stride elements apart (a row of a
 // fused projection is read in place), each row's heads contiguous; k/v
-// (G, T, H*64) bf16 (kv_int8=0) or int8 (kv_int8=1) with fp32 (G, T)
-// scales; every slot a key. The keys of each (group, head, 16-beam tile)
-// are split over a cluster of `splits` CTAs of keys_per_split keys (a
-// multiple of 64; ops/decode_attention.py `beam_plan`). out (G, K, H, 64)
-// bf16. Returns the launch's cudaError_t, or cudaErrorInvalidValue when a
-// tensor map cannot be encoded.
+// (G, T, H*64) by kv_mode (ops/decode_attention.py KV_*): 0 bf16; 1 int8
+// with fp32 (G, T) scales; 3 int4 packed two a byte, (G, T, H*32) bytes,
+// with bf16 (G, T, H) scales, 4-byte aligned (mode 2 is refused); every
+// slot a key. The keys of each (group, head, 16-beam tile) are split over
+// a cluster of `splits` CTAs of keys_per_split keys (a multiple of 64;
+// ops/decode_attention.py `beam_plan`). out (G, K, H, 64) bf16. Returns the
+// launch's cudaError_t, or cudaErrorInvalidValue for a mode it lacks or
+// when a tensor map cannot be encoded.
 extern "C" int kwt_decode_attention_beam(int card, const void* q, long long q_stride,
                                          const void* k, const void* v, const void* k_scale,
                                          const void* v_scale, void* out, int groups, int t_len,
                                          int n_heads, int beams, int splits, int keys_per_split,
-                                         int kv_int8, void* stream) {
+                                         int kv_mode, void* stream) {
   const kwt_card::CardScope scope(card);
   if (scope.error()) return scope.error();
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (kv_int8)
-    return launch<int8_t>(card, q, (long)q_stride, k, v, k_scale, v_scale, out, groups, t_len,
-                          n_heads, beams, splits, keys_per_split, s);
-  return launch<__nv_bfloat16>(card, q, (long)q_stride, k, v, k_scale, v_scale, out, groups,
-                               t_len, n_heads, beams, splits, keys_per_split, s);
+  const long qs = (long)q_stride;
+  switch (kv_mode) {
+    case 0:
+      return launch<__nv_bfloat16>(card, q, qs, k, v, k_scale, v_scale, out, groups, t_len,
+                                   n_heads, beams, splits, keys_per_split, kv_mode, s);
+    case 1:
+      return launch<int8_t>(card, q, qs, k, v, k_scale, v_scale, out, groups, t_len, n_heads,
+                            beams, splits, keys_per_split, kv_mode, s);
+    case 3:
+      return launch<Int4>(card, q, qs, k, v, k_scale, v_scale, out, groups, t_len, n_heads,
+                          beams, splits, keys_per_split, kv_mode, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }

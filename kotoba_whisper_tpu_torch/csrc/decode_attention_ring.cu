@@ -4,8 +4,9 @@
 // `decode_attention_reference(..., ring_pos=...)` (:59, mask :96-98; XLA on
 // the TPU), which decode/streaming.py's shared-slot self cache runs: row b's
 // keys are its valid[b] most recent slots, ending at slot ring_pos; one
-// query a (row, head); int8 K/V with fp32 per-row scales (k_scale folds into
-// the scores, v_scale into the weights) or bf16 K/V.
+// query a (row, head); int8 K/V with fp32 per-row scales or bf16 per-head
+// scales (the int4 cache keeps its self K/V in int8 with these; k_scale
+// folds into the scores, v_scale into the weights), or bf16 K/V.
 //
 // What bounds it on the card: bytes, and few of them. At the stream's
 // shape (48 rows, T=176 slots, 20 heads, valid over [1, 176]) the valid
@@ -22,8 +23,10 @@
 // boxes (the heads' columns x 32 slots x the row) over those runs into
 // shared memory indexed by slot, so a box that runs past a run, or two
 // boxes over one slot, write that slot's own bytes, and past T the map
-// zero-fills a box's overhang; the scales by 4-byte cp.asyncs. K with the
-// scales, and V, count on two mbarriers. The heads a CTA takes are as many
+// zero-fills a box's overhang; per-row scales by 4-byte cp.asyncs, per-head
+// ones (the CTA's heads' 2, 4 or 8 contiguous bytes a slot) by plain loads
+// into fp32 a (slot, head). K with the scales, and V, count on two
+// mbarriers. The heads a CTA takes are as many
 // as keep all its K and V slots in shared memory with enough CTAs to fill
 // the card (two a row's 20 heads at the stream's shape: 480 CTAs, four an
 // SM). Then, on the CUDA cores (one query a head gives the tensor cores
@@ -52,18 +55,20 @@ constexpr int kBox = 32;    // slots a TMA box (ops/decode_attention.py RING_BOX
 
 // Shared memory of one CTA over `hpc` heads and t_cap slots: K and V by
 // slot (each with a box's overhang past T; K's space, at least the warps'
-// P V sums), the scales by slot, the scores per head by key, the warps'
-// maxima and sums of p per head, two mbarriers (K and the scales, V).
-// ops/decode_attention.py `ring_smem_bytes` mirrors `total`.
+// P V sums), the scales by slot (one fp32, or one a head), the scores per
+// head by key, the warps' maxima and sums of p per head, two mbarriers (K
+// and the scales, V). ops/decode_attention.py `ring_smem_bytes` mirrors
+// `total`.
 struct Layout {
   int k, v, ks, vs, sc, m, lr, bars, total;
-  __host__ __device__ Layout(int t_cap, int hpc, int elem) {
+  __host__ __device__ Layout(int t_cap, int hpc, int elem, bool heads) {
     const int bytes = (t_cap + kBox) * hpc * kHD * elem;
+    const int sw = heads ? hpc : 1;  // scales a slot
     k = 0;
     v = (k + max(bytes, kWarps * hpc * kHD * 4) + 127) & ~127;
     ks = v + bytes;
-    vs = ks + 4 * t_cap;
-    sc = vs + 4 * t_cap;
+    vs = ks + 4 * sw * t_cap;
+    sc = vs + 4 * sw * t_cap;
     m = sc + 4 * hpc * t_cap;
     lr = m + 4 * kWarps * 4;
     bars = (lr + 4 * kWarps * 4 + 7) & ~7;
@@ -71,11 +76,13 @@ struct Layout {
   }
 };
 
-template <typename KV>
+// kHeads: int8 K/V with bf16 (B, T, H) scales; else fp32 (B, T) scales
+// (int8) or none (bf16).
+template <typename KV, bool kHeads>
 __global__ void __launch_bounds__(kThreads)
     ring_kernel(const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
                 const __nv_bfloat16* __restrict__ q, long q_stride,
-                const float* __restrict__ k_scale, const float* __restrict__ v_scale,
+                const void* __restrict__ k_scale, const void* __restrict__ v_scale,
                 const int* __restrict__ valid_rows, int valid_all,
                 const int* __restrict__ ring_pos, __nv_bfloat16* __restrict__ out, int t_cap,
                 int n_heads, int hpc) {
@@ -83,7 +90,8 @@ __global__ void __launch_bounds__(kThreads)
   constexpr int kElems = Chunk<KV>::kElems;
   constexpr int kLanes = kHD / kElems;  // lanes of a head's row: 4 (int8) or 8 (bf16)
   extern __shared__ __align__(128) uint8_t smem[];
-  const Layout lay(t_cap, hpc, sizeof(KV));
+  const Layout lay(t_cap, hpc, sizeof(KV), kHeads);
+  const int sw = kHeads ? hpc : 0;  // a slot's scales are at slot * sw + head
   uint8_t* kb = smem + lay.k;
   uint8_t* vb = smem + lay.v;
   float* ks_s = reinterpret_cast<float*>(smem + lay.ks);
@@ -113,15 +121,29 @@ __global__ void __launch_bounds__(kThreads)
   // of kBox slots over the keys' one or two runs of slots, each slot's data
   // at its own smem row (a box past a run, or two boxes over one slot, write
   // that slot's own bytes; a box starts on a 128-byte row boundary) -------
-  if (kInt8) {
-    for (int j = tid; j < valid; j += kThreads) {
+  if (kHeads) {
+    const __nv_bfloat16* ksg = static_cast<const __nv_bfloat16*>(k_scale);
+    const __nv_bfloat16* vsg = static_cast<const __nv_bfloat16*>(v_scale);
+    for (int i = tid; i < valid * hpc; i += kThreads) {
+      const int j = i / hpc, e = i - j * hpc;
       int slot = first + j;
       if (slot >= t_cap) slot -= t_cap;
-      cp_async4(ks_s + slot, k_scale + base + slot);
-      cp_async4(vs_s + slot, v_scale + base + slot);
+      const long at = (base + slot) * n_heads + h0 + e;
+      ks_s[slot * hpc + e] = __bfloat162float(ksg[at]);
+      vs_s[slot * hpc + e] = __bfloat162float(vsg[at]);
     }
+    mbar_arrive(&bars[0]);  // release: the stores are seen past the wait
+  } else {
+    if (kInt8) {
+      for (int j = tid; j < valid; j += kThreads) {
+        int slot = first + j;
+        if (slot >= t_cap) slot -= t_cap;
+        cp_async4(ks_s + slot, static_cast<const float*>(k_scale) + base + slot);
+        cp_async4(vs_s + slot, static_cast<const float*>(v_scale) + base + slot);
+      }
+    }
+    cp_async_mbar_arrive_noinc(&bars[0]);
   }
-  cp_async_mbar_arrive_noinc(&bars[0]);
   if (warp == 0) {
     const int n1 = min(valid, t_cap - first);                   // [first, first + n1)
     const int align = row >= 128 ? 1 : 128 / row;              // slots of 128 bytes
@@ -175,7 +197,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int off = kLanes / 2; off > 0; off >>= 1) part += __shfl_xor_sync(0xffffffffu, part, off);
     if (i < n_dots) {
-      const float s = kInt8 ? part * ks_s[slot] : part;
+      const float s = kInt8 ? part * ks_s[kHeads ? slot * sw + hh : slot] : part;
       mx = fmaxf(mx, s);
       if (c == 0) sc[hh * t_cap + j] = s;
     }
@@ -204,7 +226,7 @@ __global__ void __launch_bounds__(kThreads)
     if (slot >= t_cap) slot -= t_cap;
     const float p = expf(s[j] - m);
     l += p;
-    const float w = kInt8 ? p * vs_s[slot] : p;
+    const float w = kInt8 ? p * vs_s[kHeads ? slot * sw + hv : slot] : p;
     float x[kElems];
     Chunk<KV>::load(vb + slot * row + col * 16, x);
 #pragma unroll
@@ -255,7 +277,7 @@ bool make_map(CUtensorMap* map, const void* base, int batch, int t_cap, int n_he
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <typename KV>
+template <typename KV, bool kHeads>
 int launch(int card, const void* q, long q_stride, const void* k, const void* v,
            const void* k_scale, const void* v_scale, const void* valid_rows, int valid_all,
            const void* ring_pos, void* out, int batch, int t_cap, int n_heads, int hpc,
@@ -264,8 +286,8 @@ int launch(int card, const void* q, long q_stride, const void* k, const void* v,
   if (!configured[card]) {
     int most = 0;
     cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin, card);
-    const cudaError_t err =
-        cudaFuncSetAttribute(ring_kernel<KV>, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+    const cudaError_t err = cudaFuncSetAttribute(
+        ring_kernel<KV, kHeads>, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
     if (err != cudaSuccess) return static_cast<int>(err);
     configured[card] = true;
   }
@@ -277,10 +299,9 @@ int launch(int card, const void* q, long q_stride, const void* k, const void* v,
       !cached_tmap(&tv, {v, {batch, t_cap, n_heads, hpc, i8}},
                    [&](CUtensorMap* m) { return make_map<KV>(m, v, batch, t_cap, n_heads, hpc); }))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Layout lay(t_cap, hpc, sizeof(KV));
-  ring_kernel<KV><<<dim3(n_heads / hpc, batch), kThreads, lay.total, stream>>>(
-      tk, tv, static_cast<const __nv_bfloat16*>(q), q_stride,
-      static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
+  const Layout lay(t_cap, hpc, sizeof(KV), kHeads);
+  ring_kernel<KV, kHeads><<<dim3(n_heads / hpc, batch), kThreads, lay.total, stream>>>(
+      tk, tv, static_cast<const __nv_bfloat16*>(q), q_stride, k_scale, v_scale,
       static_cast<const int*>(valid_rows), valid_all, static_cast<const int*>(ring_pos),
       static_cast<__nv_bfloat16*>(out), t_cap, n_heads, hpc);
   return static_cast<int>(cudaGetLastError());
@@ -288,25 +309,35 @@ int launch(int card, const void* q, long q_stride, const void* k, const void* v,
 
 }  // namespace
 
-// q (B, H*64) bf16, rows q_stride elements apart; k/v (B, T, H*64) bf16
-// (kv_int8=0) or int8 (kv_int8=1) with fp32 (B, T) scales; valid_rows (B,)
-// int32 or null, then valid_all applies to every row; ring_pos a device
-// int32: row b's keys are its valid most recent slots, ending at
-// *ring_pos. One CTA per (row, hpc heads); hpc divides H and 64
+// q (B, H*64) bf16, rows q_stride elements apart; k/v (B, T, H*64) by
+// kv_mode (ops/decode_attention.py KV_*): 0 bf16; 1 int8 with fp32 (B, T)
+// scales; 2 int8 with bf16 (B, T, H) scales (int4's mode 3 is refused);
+// valid_rows (B,) int32 or null, then valid_all applies to every row;
+// ring_pos a device int32: row b's keys are its valid most recent slots,
+// ending at *ring_pos. One CTA per (row, hpc heads); hpc divides H and 64
 // (ops/decode_attention.py `ring_plan`). out (B, H*64) bf16. Returns the
-// launch's cudaError_t.
+// launch's cudaError_t (cudaErrorInvalidValue for a mode it lacks).
 extern "C" int kwt_decode_attention_ring(int card, const void* q, long long q_stride,
                                          const void* k, const void* v, const void* k_scale,
                                          const void* v_scale, const void* valid_rows,
                                          int valid_all, const void* ring_pos, void* out,
-                                         int batch, int t_cap, int n_heads, int hpc, int kv_int8,
+                                         int batch, int t_cap, int n_heads, int hpc, int kv_mode,
                                          void* stream) {
   const kwt_card::CardScope scope(card);
   if (scope.error()) return scope.error();
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (kv_int8)
-    return launch<int8_t>(card, q, (long)q_stride, k, v, k_scale, v_scale, valid_rows,
-                          valid_all, ring_pos, out, batch, t_cap, n_heads, hpc, s);
-  return launch<__nv_bfloat16>(card, q, (long)q_stride, k, v, k_scale, v_scale, valid_rows,
-                               valid_all, ring_pos, out, batch, t_cap, n_heads, hpc, s);
+  const long qs = (long)q_stride;
+  switch (kv_mode) {
+    case 0:
+      return launch<__nv_bfloat16, false>(card, q, qs, k, v, k_scale, v_scale, valid_rows,
+                                          valid_all, ring_pos, out, batch, t_cap, n_heads, hpc,
+                                          s);
+    case 1:
+      return launch<int8_t, false>(card, q, qs, k, v, k_scale, v_scale, valid_rows, valid_all,
+                                   ring_pos, out, batch, t_cap, n_heads, hpc, s);
+    case 2:
+      return launch<int8_t, true>(card, q, qs, k, v, k_scale, v_scale, valid_rows, valid_all,
+                                  ring_pos, out, batch, t_cap, n_heads, hpc, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }

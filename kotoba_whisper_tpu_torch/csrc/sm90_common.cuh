@@ -4,7 +4,7 @@
 // in flash_attention_int8.cu): mbarriers, TMA tensor and 1-D bulk copies,
 // 4-byte cp.asyncs counted on mbarriers, named barriers, register
 // reallocation, cluster barriers and distributed shared memory, K2's
-// 16-byte KV chunk loads, wgmma with its shared-memory descriptors, and on
+// KV chunk loads (bf16, int8 and packed int4), wgmma with its shared-memory descriptors, and on
 // the host the tensor-map encoder and a cache of encoded maps.
 #pragma once
 
@@ -202,7 +202,7 @@ __device__ __forceinline__ void cluster_sync() {
                    : "memory");
 }
 
-// ---- a 16-byte chunk of a KV cache row as floats (K2's forms) --------------
+// ---- a chunk of a KV cache row as floats (K2's forms) -----------------------
 
 template <typename KV>
 struct Chunk;
@@ -210,7 +210,7 @@ struct Chunk;
 // of 2^23's mantissa; one subtraction leaves the exact integer.
 template <>
 struct Chunk<int8_t> {
-  static constexpr int kElems = 16;
+  static constexpr int kElems = 16, kBytes = 16, kBits = 8;
   __device__ __forceinline__ static void load(const void* p, float* x) {
     const uint4 raw = *reinterpret_cast<const uint4*>(p);
     const uint32_t w[4] = {raw.x ^ 0x80808080u, raw.y ^ 0x80808080u, raw.z ^ 0x80808080u,
@@ -225,7 +225,7 @@ struct Chunk<int8_t> {
 // 8 bf16 values -> floats: each is the high half of its float.
 template <>
 struct Chunk<__nv_bfloat16> {
-  static constexpr int kElems = 8;
+  static constexpr int kElems = 8, kBytes = 16, kBits = 16;
   __device__ __forceinline__ static void load(const void* p, float* x) {
     const uint4 raw = *reinterpret_cast<const uint4*>(p);
     const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
@@ -234,6 +234,26 @@ struct Chunk<__nv_bfloat16> {
       x[2 * i] = __uint_as_float(w[i] << 16);
       x[2 * i + 1] = __uint_as_float(w[i] & 0xFFFF0000u);
     }
+  }
+};
+// Packed int4 K/V (models/whisper.py `pack_int4`): two columns a byte,
+// column 2j in byte j's low nibble, so nibble i of a 32-bit word is the
+// word's column i. A tag type: the data are bytes.
+struct Int4 {};
+// 16 int4 values (8 bytes) -> floats: each nibble, biased by 8 (XOR 8),
+// becomes the low bits of 2^23's mantissa; one subtraction of 2^23 + 8
+// leaves the exact integer.
+template <>
+struct Chunk<Int4> {
+  static constexpr int kElems = 16, kBytes = 8, kBits = 4;
+  __device__ __forceinline__ static void load(const void* p, float* x) {
+    const uint2 raw = *reinterpret_cast<const uint2*>(p);
+    const uint32_t w[2] = {raw.x ^ 0x88888888u, raw.y ^ 0x88888888u};
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        x[8 * i + j] = __int_as_float(0x4B000000u | (w[i] >> (4 * j) & 0xFu)) - 8388616.f;
   }
 };
 

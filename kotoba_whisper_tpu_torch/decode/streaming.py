@@ -83,20 +83,25 @@ def _empty_cache(model, opts: GenerateOptions, rows: int, cross_rows: int, kv_dt
                  dev) -> whisper.KVCache:
     """A window's cache: `rows` self rows of capacity max_length and
     `cross_rows` cross rows (one a beam group in a beam stream), zeroed
-    (int8 scales 1), every row's count 0."""
+    (scales 1), every row's count 0; the layout of whisper.init_cache's
+    `kv_dtype` ("compute", "int8" or "int4")."""
     cfg = model.cfg
-    if kv_dtype not in ("compute", "int8"):
-        raise NotImplementedError(f"kv_dtype={kv_dtype!r} is not ported yet")
-    store = torch.int8 if kv_dtype == "int8" else model.dtype
+    if kv_dtype not in ("compute", "int8", "int4"):
+        raise ValueError(f"kv_dtype is 'compute', 'int8' or 'int4', got {kv_dtype!r}")
+    store = model.dtype if kv_dtype == "compute" else torch.int8
     n = cfg.decoder_layers
     d = whisper.rank_width(model)
     self_k = torch.zeros((n, rows, opts.max_length, d), dtype=store, device=dev)
-    cross_k = torch.zeros((n, cross_rows, cfg.max_source_positions, d), dtype=store,
-                          device=dev)
+    cross_store, cross_d = (torch.uint8, d // 2) if kv_dtype == "int4" else (store, d)
+    cross_k = torch.zeros((n, cross_rows, cfg.max_source_positions, cross_d),
+                          dtype=cross_store, device=dev)
     scales = {}
-    if kv_dtype == "int8":
+    if kv_dtype != "compute":
+        s_w, s_dt = ((whisper.rank_heads(model, cfg.decoder_attention_heads), torch.bfloat16)
+                     if kv_dtype == "int4" else (1, torch.float32))
+
         def ones(r, t):
-            return torch.ones((n, r, t, 1), dtype=torch.float32, device=dev)
+            return torch.ones((n, r, t, s_w), dtype=s_dt, device=dev)
 
         scales = dict(self_k_scale=ones(rows, opts.max_length),
                       self_v_scale=ones(rows, opts.max_length),
@@ -185,7 +190,7 @@ def _refill(model, state: StreamState, mel, pool_tokens, pool_stop, pool_utt, po
             opts: GenerateOptions) -> None:
     """Encode E mel windows and move them into the first E free rows of the
     window, in place: one decoder layer at a time, that layer's cross K/V
-    (quantized in int8 mode) and, where the prompt is longer than one
+    (quantized in int8 and int4 mode) and, where the prompt is longer than one
     token, its prefix's self K/V at the p - 1 ring slots trailing the
     current slot (plain causal self- and cross-attention over the prefix,
     as the JAX package's refill runs them outside its kernels)."""
@@ -196,7 +201,7 @@ def _refill(model, state: StreamState, mel, pool_tokens, pool_stop, pool_utt, po
     e = pool_stop.shape[0]
     cap = state.tokens.shape[1]
     cache = state.cache
-    int8_kv = cache.is_quantized
+    int8_kv, int4_kv = cache.is_quantized, cache.per_head_scales
     enc = whisper.encoder_forward(model, mel)
 
     idx = _first_free(state.finished | ~state.active, e)
@@ -207,9 +212,16 @@ def _refill(model, state: StreamState, mel, pool_tokens, pool_stop, pool_utt, po
         x = dec.embed_tokens.weight[ids] + dec.embed_positions.weight[: p - 1][None]
 
     def store(vals, scale_buf, buf, rows, cols=None):
-        """vals (E, T, D) into buf's rows (and slots), quantized in int8 mode."""
-        if int8_kv:
+        """vals (E, T, D) into buf's rows (and slots), quantized in int8
+        mode; in int4 mode per head, the cross rows (cols None) to packed
+        int4 and the self rows to int8."""
+        if int4_kv:
+            vals, s = whisper.quantize_kv_heads(vals, n_heads, 8 if cols is not None else 4)
+            if cols is None:
+                vals = whisper.pack_int4(vals)
+        elif int8_kv:
             vals, s = whisper.quantize_kv_rows(vals, group)
+        if int8_kv:  # either mode's scales
             if cols is None:
                 scale_buf.index_copy_(0, rows, s)
             else:

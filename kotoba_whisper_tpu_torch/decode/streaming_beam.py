@@ -15,7 +15,7 @@ does.
   writes at its own count and reads slots 0..count (K2's prefix form with
   per-row lengths), the lockstep slot order.
 - A refill encodes E windows (K1), builds a pool cache of their cross K/V
-  (quantized in int8 mode) and prefills the prompt's first p - 1 tokens
+  (quantized in int8 or int4 mode) and prefills the prompt's first p - 1 tokens
   over it for all K beams (plain attention, as decode/beam.py's prefill),
   then writes the cross rows into the first E free groups and the self
   prefix into their rows: at slots 0..p-2 ("scatter") or at the p - 1
@@ -132,7 +132,7 @@ def _refill(model, state: BeamStreamState, mel, pool_tokens, pool_stop, pool_utt
     p = len(opts.prompt_ids)
     e = pool_stop.shape[0]
     cache = state.cache
-    kv_dtype = "int8" if cache.is_quantized else "compute"
+    kv_dtype = cache.kv_dtype
     dev = state.tokens.device
     enc = whisper.encoder_forward(model, mel)
     pool = whisper._init_cache(model, enc, max(p - 1, 1), kv_dtype, beam_size=k)

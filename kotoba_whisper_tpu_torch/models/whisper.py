@@ -38,8 +38,9 @@ records its model group (`tp_size`, `tp_group`). The functions take the
 rank's heads and cache width from the model (`rank_heads`, `rank_width`),
 a row-parallel projection sums its partial products over the group before
 its bias (`dense`), and the int8 KV rows take their absmax over the whole
-row, across the group (`quantize_kv_rows`). The group's ranks then hold
-the same residual stream, LayerNorms and logits.
+row, across the group (`quantize_kv_rows`); the int4 cache's per-head
+scales are the rank's own heads' and need no collective. The group's ranks
+then hold the same residual stream, LayerNorms and logits.
 """
 from __future__ import annotations
 
@@ -61,6 +62,7 @@ from kotoba_whisper_tpu_torch.ops.conv_stem import conv_stem
 from kotoba_whisper_tpu_torch.ops.decode_attention import (
     decode_attention,
     decode_attention_beam,
+    unpack_int4,
 )
 from kotoba_whisper_tpu_torch.ops.flash_attention import flash_attention
 
@@ -357,6 +359,13 @@ class KVCache:
     beam group, (L, G, 1500, D), and the self buffers G*K rows.
 
     int8 mode: K/V stored int8 with per-row absmax scales (L, B, T, 1) fp32.
+
+    int4 mode: the cross K/V stored as int4 codes packed two a byte
+    (`pack_int4`: (L, B, 1500, D / 2) uint8) with per-(row, head) absmax
+    scales (L, B, 1500, H) bf16; the self K/V int8 with scales of the same
+    per-head form (L, B, capacity, H) bf16. A head's scale folds exactly
+    into the block-diagonal attention (`quantize_kv_heads`).
+
     The buffers are updated in place by `decode`."""
 
     self_k: torch.Tensor
@@ -373,6 +382,20 @@ class KVCache:
     def is_quantized(self) -> bool:
         return self.cross_k_scale is not None
 
+    @property
+    def per_head_scales(self) -> bool:
+        """int4 mode. Per-head scales are bf16 and per-row ones fp32: the
+        dtype tells them apart, where the last dim would take a 1-head
+        decoder's per-head cache for a per-row one."""
+        return self.is_quantized and self.cross_k_scale.dtype == torch.bfloat16
+
+    @property
+    def kv_dtype(self) -> str:
+        """The `kv_dtype` the cache was made with."""
+        if not self.is_quantized:
+            return "compute"
+        return "int4" if self.per_head_scales else "int8"
+
 
 def quantize_kv_rows(x: torch.Tensor, group=None) -> tuple[torch.Tensor, torch.Tensor]:
     """(..., T, D) -> (int8 values, fp32 per-row scale (..., T, 1)). With a
@@ -387,23 +410,54 @@ def quantize_kv_rows(x: torch.Tensor, group=None) -> tuple[torch.Tensor, torch.T
     return q.to(torch.int8), scale
 
 
+def quantize_kv_heads(x: torch.Tensor, n_heads: int,
+                      bits: int = 4) -> tuple[torch.Tensor, torch.Tensor]:
+    """(..., T, D) -> (int8 codes (..., T, D), bf16 scales (..., T, H)).
+
+    Absmax per (row, head): each scale covers one head's 64 columns, which
+    the block-diagonal decode attention folds exactly. The JAX package's
+    op order: fp32 absmax, max(amax, 1e-8) / qmax (7 for 4 bits, 127 for
+    8), the scale rounded through bf16 first so that the stored scale is
+    the one quantized against, then round half to even and clamp. 4-bit
+    codes lie in [-7, 7]; `pack_int4` stores them."""
+    qmax = {4: 7.0, 8: 127.0}[bits]
+    *lead, t, d = x.shape
+    xs = x.float().reshape(*lead, t, n_heads, d // n_heads)
+    amax = xs.abs().amax(dim=-1, keepdim=True)
+    scale = (torch.clamp(amax, min=1e-8) / qmax).to(torch.bfloat16).float()
+    q = torch.clamp(torch.round(xs / scale), -qmax, qmax)
+    return q.to(torch.int8).reshape(*lead, t, d), scale[..., 0].to(torch.bfloat16)
+
+
+def pack_int4(codes: torch.Tensor) -> torch.Tensor:
+    """int8 codes in [-8, 7] (..., D) -> the int4 cache's storage, (...,
+    D / 2) uint8: flat column 2j in the low nibble of byte j, column 2j + 1
+    in its high nibble, each as a 4-bit two's complement. The kernels
+    (csrc/decode_attention*.cu) and `unpack_int4` read this layout."""
+    nib = codes.to(torch.int16) & 0xF
+    return (nib[..., 0::2] | (nib[..., 1::2] << 4)).to(torch.uint8)
+
+
 def _init_cache(model, encoder_out, capacity, kv_dtype, beam_size=1):
     cfg, dec = model.cfg, model.model.decoder
     n_layers, d = cfg.decoder_layers, rank_width(model)
+    n_heads = rank_heads(model, cfg.decoder_attention_heads)
     group = tp_group(model)
     b, t_enc = encoder_out.shape[:2]
     rows = b * beam_size  # self-K/V rows: one per hypothesis
     dev = encoder_out.device
-    if kv_dtype not in ("compute", "int8"):
-        raise NotImplementedError(f"kv_dtype={kv_dtype!r} is not ported yet")
-    store = torch.int8 if kv_dtype == "int8" else model.dtype
-    cross_k = torch.empty((n_layers, b, t_enc, d), dtype=store, device=dev)
+    if kv_dtype not in ("compute", "int8", "int4"):
+        raise ValueError(f"kv_dtype is 'compute', 'int8' or 'int4', got {kv_dtype!r}")
+    store = model.dtype if kv_dtype == "compute" else torch.int8
+    cross_store, cross_d = (torch.uint8, d // 2) if kv_dtype == "int4" else (store, d)
+    cross_k = torch.empty((n_layers, b, t_enc, cross_d), dtype=cross_store, device=dev)
     cross_v = torch.empty_like(cross_k)
     scales = {}
-    if kv_dtype == "int8":
-        ck_s = torch.empty((n_layers, b, t_enc, 1), dtype=torch.float32, device=dev)
+    if kv_dtype != "compute":
+        s_w, s_dt = (n_heads, torch.bfloat16) if kv_dtype == "int4" else (1, torch.float32)
+        ck_s = torch.empty((n_layers, b, t_enc, s_w), dtype=s_dt, device=dev)
         cv_s = torch.empty_like(ck_s)
-        ones = torch.ones((n_layers, rows, capacity, 1), dtype=torch.float32, device=dev)
+        ones = torch.ones((n_layers, rows, capacity, s_w), dtype=s_dt, device=dev)
         scales = dict(self_k_scale=ones, self_v_scale=ones.clone(),
                       cross_k_scale=ck_s, cross_v_scale=cv_s)
     # one layer at a time: only one layer's full-precision projection is
@@ -414,7 +468,11 @@ def _init_cache(model, encoder_out, capacity, kv_dtype, beam_size=1):
             k, v = dense(ea.kv_proj, encoder_out).chunk(2, dim=-1)
         else:
             k, v = dense(ea.k_proj, encoder_out), dense(ea.v_proj, encoder_out)
-        if kv_dtype == "int8":
+        if kv_dtype == "int4":
+            for buf, s_buf, x in ((cross_k, ck_s, k), (cross_v, cv_s, v)):
+                codes, s_buf[i] = quantize_kv_heads(x, n_heads, 4)
+                buf[i] = pack_int4(codes)
+        elif kv_dtype == "int8":
             cross_k[i], ck_s[i] = quantize_kv_rows(k, group)
             cross_v[i], cv_s[i] = quantize_kv_rows(v, group)
         else:
@@ -433,7 +491,8 @@ def init_cache(
     beam_size: int = 1,
     device="cuda",
 ) -> KVCache:
-    """kv_dtype: "compute" (the model's dtype) or "int8". beam_size > 1:
+    """kv_dtype: "compute" (the model's dtype), "int8" or "int4" (see
+    KVCache). beam_size > 1:
     encoder_out holds one row per beam group; the cross K/V, the same for
     every hypothesis of a group, is projected and stored once per group,
     and the self buffers get group * beam_size rows (decode(beam_size=)
@@ -486,9 +545,17 @@ def decoder_forward(
 
 
 def _dequant(vals, scale, dtype):
+    """A quantized K/V block (packed int4 or int8 codes) times its per-row
+    (..., T, 1) or per-head (..., T, H) scales, in `dtype`: the prompt
+    prefill's keys (one pass; the decode steps fold the scales instead)."""
     if scale is None:
         return vals
-    return (vals.float() * scale).to(dtype)
+    v = (unpack_int4(vals) if vals.dtype == torch.uint8 else vals).float()
+    if scale.shape[-1] > 1:
+        *lead, t, d = v.shape
+        v = v.reshape(*lead, t, scale.shape[-1], -1) * scale.float()[..., None]
+        return v.reshape(*lead, t, d).to(dtype)
+    return (v * scale).to(dtype)
 
 
 def _decode_step(model, input_ids, cache: KVCache, ring_pos=None, beam_size=1):
@@ -532,6 +599,7 @@ def _decode_step(model, input_ids, cache: KVCache, ring_pos=None, beam_size=1):
              + dec.embed_positions.weight[pos0 : pos0 + t][None])
         new_length = pos0 + t
     int8_kv = cache.is_quantized
+    per_head = cache.per_head_scales
     if t > 1:
         # prefill: token i (global pos length+i) attends to slots
         # 0..length+i: causal within the block, full over history
@@ -575,8 +643,11 @@ def _decode_step(model, input_ids, cache: KVCache, ring_pos=None, beam_size=1):
         sa = layer.self_attn
         q_flat, k_new, v_new = (merge_heads(t) for t in qkv_projections(sa, h, h, n_heads))
         if int8_kv:
-            k_new, k_new_s = quantize_kv_rows(k_new, group)
-            v_new, v_new_s = quantize_kv_rows(v_new, group)
+            # int4 mode keeps the self K/V in int8, with per-head scales
+            k_new, k_new_s = (quantize_kv_heads(k_new, n_heads, 8) if per_head
+                              else quantize_kv_rows(k_new, group))
+            v_new, v_new_s = (quantize_kv_heads(v_new, n_heads, 8) if per_head
+                              else quantize_kv_rows(v_new, group))
             write(sk_s, k_new_s)
             write(sv_s, v_new_s)
         write(sk, k_new)

@@ -3,10 +3,14 @@
 decode_attention_beam.cu) and their plain twins.
 
 One query per batch row against a flat (B, T, H*64) K/V block: the cache
-layout of models/whisper.py. Int8 caches carry fp32 per-row scales
-(B, T, 1) that fold into the scores (k_scale) and into the softmax weights
-before the V reduction (v_scale): exact algebra, the only loss is the
-quantization itself. `valid_len` is a lockstep scalar or per-row (B,)
+layout of models/whisper.py. K and V come in four modes (`_kv_args`):
+bfloat16 without scales; int8 with fp32 per-row scales (B, T, 1); int8
+with bf16 per-head scales (B, T, H); int4 codes packed two a byte
+(models/whisper.pack_int4: (B, T, H*32) uint8) with bf16 per-head scales
+(B, T, H). The scales fold into the scores (k_scale) and into the softmax
+weights before the V reduction (v_scale): exact algebra, since a head's
+score and weight touch only that head's 64 columns, so the only loss is
+the quantization itself. `valid_len` is a lockstep scalar or per-row (B,)
 counts. Without `ring_pos` a row's keys are its slots [0, valid); with it
 (decode/streaming.py's shared-slot ring) they are its `valid` most recent
 slots, ending at slot ring_pos: slot s is a key when
@@ -46,7 +50,11 @@ LOG2E = 1.4426950408889634
 BEAM_KEY_TILE = 64   # keys a tile of the beam kernel
 BEAM_ROWS = 16       # beams a tile: mma.sync's M
 BEAM_WARPS = 4       # consumer warps a CTA, taking the key tiles in turn
-BEAM_STAGES = {torch.int8: 8, torch.bfloat16: 4}  # its copy ring
+BEAM_STAGES = {torch.int8: 8, torch.bfloat16: 4, torch.uint8: 16}  # its copy ring
+PREFIX_STAGE_BYTES = 20480  # a stage of the prefix kernel's copy ring
+# K/V modes of the C entries: bfloat16; int8 with fp32 per-row scales; int8
+# with bf16 per-head scales; packed int4 with bf16 per-head scales
+KV_BF16, KV_INT8, KV_INT8_HEADS, KV_INT4 = 0, 1, 2, 3
 RING_HEADS = (4, 2, 1)  # heads a ring CTA may take (each divides the kernel's passes)
 RING_BOX = 32        # slots a TMA box of the ring kernel
 RING_WARPS = 8       # warps a ring CTA
@@ -68,21 +76,48 @@ def ring_slot(ring_pos: int, valid: int, t: int, j: int) -> int:
     return (ring_pos + 1 - valid + j) % t
 
 
-def _elem(kv_dtype) -> int:
+def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
+    """The int4 cache's (..., D / 2) uint8 storage (models/whisper.pack_int4)
+    -> int8 codes (..., D)."""
+    p = packed.to(torch.int16)
+    nib = torch.stack([p & 0xF, p >> 4], dim=-1)
+    return ((nib ^ 8) - 8).to(torch.int8).reshape(*packed.shape[:-1], -1)
+
+
+def _head_bytes(kv_dtype) -> int:
+    """Bytes of one head's 64 columns of a K/V row (uint8: packed int4)."""
     if kv_dtype not in BEAM_STAGES:
-        raise ValueError(f"K2 takes bfloat16 or int8 K and V, got {kv_dtype}")
-    return 1 if kv_dtype == torch.int8 else 2
+        raise ValueError(f"K2 takes bfloat16, int8 or packed int4 (uint8) K and V, "
+                         f"got {kv_dtype}")
+    return {torch.bfloat16: 128, torch.int8: 64, torch.uint8: 32}[kv_dtype]
 
 
-def ring_smem_bytes(t: int, hpc: int, kv_dtype) -> int:
+def prefix_smem_bytes(rows: int, n_heads: int, kv_dtype, per_head: bool = False) -> int:
+    """Dynamic shared memory of a prefix CTA over `rows` cache rows (the
+    kernel's `Layout.total`): the copy ring (3 stages with per-head scales,
+    4 without), the scores a (row, head), the two scales a row (fp32, or a
+    bf16 a head), the per-head max and sum, what the cluster's CTAs send
+    (their V sums of a slice of the columns, their maxima and sums), the
+    barriers."""
+    _head_bytes(kv_dtype)
+    stages = 3 if per_head else 4
+    d = n_heads * 64
+    scale = 2 * rows * (2 * n_heads if per_head else 4)
+    recv = (-(-(stages * PREFIX_STAGE_BYTES + 4 * rows * n_heads + scale) // 4) * 4
+            + 8 * n_heads + 4 * (d + MAX_CLUSTER) + 8 * MAX_CLUSTER * n_heads)
+    return ((recv + 7) & ~7) + 16 * stages
+
+
+def ring_smem_bytes(t: int, hpc: int, kv_dtype, per_head: bool = False) -> int:
     """Dynamic shared memory of a ring CTA over `hpc` heads of T slots (the
     kernel's `Layout.total`): K and V by slot with a TMA box's overhang (K's
-    space at least the warps' P V sums), the two scales a slot, the scores a
-    (head, key), the warps' maxima and sums of p a head, two mbarriers."""
-    elem = _elem(kv_dtype)
-    kv = (t + RING_BOX) * hpc * 64 * elem
-    end = (-(-max(kv, RING_WARPS * hpc * 64 * 4) // 128) * 128 + kv + 8 * t + 4 * hpc * t
-           + 4 * RING_WARPS * 4)
+    space at least the warps' P V sums), the two scales a slot (one fp32, or
+    one a head), the scores a (head, key), the warps' maxima and sums of p a
+    head, two mbarriers."""
+    kv = (t + RING_BOX) * hpc * _head_bytes(kv_dtype)
+    sw = hpc if per_head else 1
+    end = (-(-max(kv, RING_WARPS * hpc * 64 * 4) // 128) * 128 + kv + 8 * sw * t
+           + 4 * hpc * t + 4 * RING_WARPS * 4)
     return ((end + 4 * RING_WARPS * 4 + 7) & ~7) + 16
 
 
@@ -93,7 +128,8 @@ class RingPlan(NamedTuple):
 
 
 @lru_cache(maxsize=256)
-def ring_plan(b: int, t: int, n_heads: int, kv_dtype, n_sms: int = N_SMS) -> RingPlan:
+def ring_plan(b: int, t: int, n_heads: int, kv_dtype, n_sms: int = N_SMS, *,
+              per_head: bool = False) -> RingPlan:
     """The ring kernel's grid: one CTA per (row, group of heads) holding all
     the group's K and V slots at once. Of the head counts that divide H and
     fit, prefer those whose CTAs fit two an SM, and among them the most
@@ -101,16 +137,18 @@ def ring_plan(b: int, t: int, n_heads: int, kv_dtype, n_sms: int = N_SMS) -> Rin
     (the most CTAs). Raises where even one head's T slots do not fit."""
     if t < 1 or b < 1:
         raise ValueError(f"K2's ring form needs rows and slots, got B={b}, T={t}")
-    fits = [h for h in RING_HEADS if n_heads % h == 0
-            and ring_smem_bytes(t, h, kv_dtype) <= SMEM_LIMIT]
+    def smem(h):
+        return ring_smem_bytes(t, h, kv_dtype, per_head)
+
+    fits = [h for h in RING_HEADS if n_heads % h == 0 and smem(h) <= SMEM_LIMIT]
     if not fits:
         raise ValueError(
             f"K2's ring form holds a head's K and V of every slot in shared memory: T={t} in "
-            f"{kv_dtype} needs {ring_smem_bytes(t, 1, kv_dtype)} of {SMEM_LIMIT} bytes")
-    two = [h for h in fits if 2 * (ring_smem_bytes(t, h, kv_dtype) + 1024) <= SM_SMEM]
+            f"{kv_dtype} needs {smem(1)} of {SMEM_LIMIT} bytes")
+    two = [h for h in fits if 2 * (smem(h) + 1024) <= SM_SMEM]
     pool = two or fits
     heads = next((h for h in pool if b * (n_heads // h) >= 2 * n_sms), pool[-1])
-    return RingPlan(heads, (n_heads // heads, b), ring_smem_bytes(t, heads, kv_dtype))
+    return RingPlan(heads, (n_heads // heads, b), smem(heads))
 
 
 def beam_smem_bytes(kv_dtype) -> int:
@@ -118,9 +156,9 @@ def beam_smem_bytes(kv_dtype) -> int:
     rounded to its 1024-byte alignment, plus 1024 of alignment slack): the
     K and V ring, the scales a stage, each consumer warp's O, max and sum,
     the CTA's merged ones, the barriers."""
-    stages, elem = BEAM_STAGES[kv_dtype], _elem(kv_dtype)
-    rows, keys, hd = BEAM_ROWS, BEAM_KEY_TILE, 64
-    size = (2 * stages * keys * hd * elem + 2 * stages * keys * 4
+    stages, row = BEAM_STAGES.get(kv_dtype), _head_bytes(kv_dtype)
+    keys, rows, hd = BEAM_KEY_TILE, BEAM_ROWS, 64
+    size = (2 * stages * keys * row + 2 * stages * keys * 4
             + BEAM_WARPS * rows * hd * 4 + 2 * BEAM_WARPS * rows * 4
             + rows * hd * 4 + 2 * rows * 4 + 2 * stages * 8)
     return -(-size // 1024) * 1024 + 1024
@@ -159,10 +197,17 @@ def _n_sms(card: int) -> int:
     return torch.cuda.get_device_properties(card).multi_processor_count
 
 
+def _codes(x):
+    """K or V as numbers: packed int4 unpacked, other dtypes as they are."""
+    return unpack_int4(x) if x.dtype == torch.uint8 else x
+
+
 def decode_attention_reference(
     q, k_flat, v_flat, valid_len, *, n_heads, k_scale=None, v_scale=None, ring_pos=None,
 ):
-    """(B, H, hd) x (B, T, H*hd) -> (B, H, hd) in q.dtype; fp32 inside."""
+    """(B, H, hd) x (B, T, H*hd) -> (B, H, hd) in q.dtype; fp32 inside.
+    Scales (B, T, 1) per row or (B, T, H) per head."""
+    k_flat, v_flat = _codes(k_flat), _codes(v_flat)
     b, t, dh = k_flat.shape
     hd = dh // n_heads
     qf = q.float().reshape(b, n_heads, hd) * (1.0 / hd**0.5)
@@ -187,16 +232,18 @@ def decode_attention_reference(
 def decode_attention_reference_beam(q, k_flat, v_flat, *, n_heads, k_scale=None, v_scale=None):
     """(G, K, H, hd) x (G, T, H*hd) -> (G, K, H, hd) in q.dtype: each
     group's K queries against its one K/V row, every slot a key; fp32
-    inside."""
+    inside. Scales (G, T, 1) per row or (G, T, H) per head, broadcast over
+    the beams."""
+    k_flat, v_flat = _codes(k_flat), _codes(v_flat)
     g, _, _, hd = q.shape
     t = k_flat.shape[1]
     qf = q.float() * (1.0 / hd**0.5)
     scores = torch.einsum("gthd,gkhd->gtkh", k_flat.float().reshape(g, t, n_heads, hd), qf)
     if k_scale is not None:
-        scores = scores * k_scale.float()[:, :, :, None]
+        scores = scores * k_scale.float()[:, :, None, :]
     w = torch.softmax(scores, dim=1)
     if v_scale is not None:
-        w = w * v_scale.float()[:, :, :, None]
+        w = w * v_scale.float()[:, :, None, :]
     out = torch.einsum("gtkh,gthd->gkhd", w, v_flat.float().reshape(g, t, n_heads, hd))
     return out.to(q.dtype)
 
@@ -223,18 +270,19 @@ def beam_walk(q, k_flat, v_flat, *, n_heads, k_scale=None, v_scale=None, p_dtype
     sum and O rescaled by 2^(m_old - m_new), P * v_scale rounded to
     `p_dtype` (the kernel's bf16; None keeps fp32) before P V; then the
     warps' and the shares' (max, sum, O) merged and O / l in `out_dtype`.
-    -> (G, K, H, 64)."""
+    A per-row scale multiplies every head's column of its key, a per-head
+    one its own head's. -> (G, K, H, 64)."""
     g, beams, _, hd = q.shape
     t = k_flat.shape[1]
-    kv_dtype = torch.int8 if k_flat.dtype == torch.int8 else torch.bfloat16
+    kv_dtype = k_flat.dtype if k_flat.dtype in BEAM_STAGES else torch.bfloat16
     plan = beam_plan(g, t, n_heads, beams, kv_dtype, n_sms)
     qf = q.to(torch.bfloat16).float()
-    kf = k_flat.float().reshape(g, t, n_heads, hd)
-    vf = v_flat.float().reshape(g, t, n_heads, hd)
-    ks = (k_scale.float().reshape(g, t) if k_scale is not None
-          else torch.ones(g, t, device=q.device))
-    vs = (v_scale.float().reshape(g, t) if v_scale is not None
-          else torch.ones(g, t, device=q.device))
+    kf = _codes(k_flat).float().reshape(g, t, n_heads, hd)
+    vf = _codes(v_flat).float().reshape(g, t, n_heads, hd)
+    ones = torch.ones(g, 1, t, device=q.device)
+    # (G, H or 1, T): broadcast over the beams
+    ks = k_scale.float().permute(0, 2, 1) if k_scale is not None else ones
+    vs = v_scale.float().permute(0, 2, 1) if v_scale is not None else ones
     qscale = torch.tensor(0.125 * LOG2E, dtype=torch.float32)
     out = torch.empty(g, beams, n_heads, hd, dtype=out_dtype, device=q.device)
     for mt in range(plan.m_tiles):
@@ -253,12 +301,12 @@ def beam_walk(q, k_flat, v_flat, *, n_heads, k_scale=None, v_scale=None, p_dtype
                     a = k0 + i * BEAM_KEY_TILE
                     e = min(k1, a + BEAM_KEY_TILE)
                     s = torch.einsum("grhd,gnhd->grhn", qt, kf[:, a:e])
-                    s = s * ks[:, None, None, a:e] * qscale
+                    s = s * ks[:, None, :, a:e] * qscale
                     m_new = torch.maximum(m, s.amax(-1))
                     corr = torch.exp2(m - m_new)
                     p = torch.exp2(s - m_new[..., None])
                     l = l * corr + p.sum(-1)
-                    pv = p * vs[:, None, None, a:e]
+                    pv = p * vs[:, None, :, a:e]
                     if p_dtype is not None:
                         pv = pv.to(p_dtype).float()
                     o = o * corr[..., None] + torch.einsum("grhn,gnhd->grhd", pv, vf[:, a:e])
@@ -276,12 +324,16 @@ def ring_walk(q, k_flat, v_flat, valid_len, ring_pos, *, n_heads, k_scale=None, 
     `ring_plan` CTA (a row and its group of heads) the keys j of [0, valid)
     at slots `ring_slot`, the scores q / 8 times K times k_scale, the exact
     max, p = exp(s - m), their sum, the weights p * v_scale, P V and O / l
-    in `out_dtype`. -> (B, H, 64)."""
+    in `out_dtype`; scales per row or per head. -> (B, H, 64)."""
     b, t, _ = k_flat.shape
-    kv_dtype = torch.int8 if k_flat.dtype == torch.int8 else torch.bfloat16
-    plan = ring_plan(b, t, n_heads, kv_dtype, n_sms)
-    kf = k_flat.float().reshape(b, t, n_heads, 64)
-    vf = v_flat.float().reshape(b, t, n_heads, 64)
+    kv_dtype = k_flat.dtype if k_flat.dtype in BEAM_STAGES else torch.bfloat16
+    per_head = k_scale is not None and k_scale.dtype == torch.bfloat16
+    plan = ring_plan(b, t, n_heads, kv_dtype, n_sms, per_head=per_head)
+    kf = _codes(k_flat).float().reshape(b, t, n_heads, 64)
+    vf = _codes(v_flat).float().reshape(b, t, n_heads, 64)
+    # (B, T, H): a per-row scale repeated over the heads
+    ks = None if k_scale is None else k_scale.float().expand(b, t, n_heads)
+    vs = None if v_scale is None else v_scale.float().expand(b, t, n_heads)
     qf = q.to(torch.bfloat16).float().reshape(b, n_heads, 64) * 0.125
     valid = torch.as_tensor(valid_len).reshape(-1).expand(b)
     out = torch.empty(b, n_heads, 64, dtype=out_dtype, device=q.device)
@@ -292,12 +344,12 @@ def ring_walk(q, k_flat, v_flat, valid_len, ring_pos, *, n_heads, k_scale=None, 
         for x in range(plan.grid[0]):
             heads = slice(x * plan.heads, (x + 1) * plan.heads)
             s = torch.einsum("jhd,hd->hj", kf[y, slots, heads], qf[y, heads])
-            if k_scale is not None:
-                s = s * k_scale.float().reshape(b, t)[y, slots]
+            if ks is not None:
+                s = s * ks[y, slots, heads].T
             p = torch.exp(s - s.amax(-1, keepdim=True))
             l = p.sum(-1, keepdim=True)
-            if v_scale is not None:
-                p = p * v_scale.float().reshape(b, t)[y, slots]
+            if vs is not None:
+                p = p * vs[y, slots, heads].T
             o = torch.einsum("hj,jhd->hd", p, vf[y, slots, heads])
             out[y, heads] = (o / l).to(out_dtype)
     return out
@@ -306,30 +358,46 @@ def ring_walk(q, k_flat, v_flat, valid_len, ring_pos, *, n_heads, k_scale=None, 
 def _kv_args(card, k_flat, v_flat, k_scale, v_scale, n_heads):
     """K2's checks of the K/V cache and its scales (kept to few tensor
     calls: the self and cross calls run 64 times a decode step, and the
-    step is host-bound) -> (int8?, K, V, k_scale, v_scale pointers)."""
+    step is host-bound) -> (K/V mode, K, V, k_scale, v_scale pointers). The
+    modes: bfloat16 K/V and no scales (KV_BF16); int8 K/V with fp32
+    (B, T, 1) scales (KV_INT8) or bf16 (B, T, H) scales (KV_INT8_HEADS);
+    packed int4 K/V (uint8, H*32 columns) with bf16 (B, T, H) scales
+    (KV_INT4). Any other combination raises ValueError."""
     b, t, dh = k_flat.shape
-    kv_int8 = k_flat.dtype == torch.int8
-    if dh != n_heads * 64 or dh * k_flat.element_size() > 5120:
-        raise ValueError(f"K2 takes H*64 columns of at most 5120 bytes, got {dh} x {n_heads}")
-    if (v_flat.shape != k_flat.shape or v_flat.dtype != k_flat.dtype
-            or not (kv_int8 or k_flat.dtype == torch.bfloat16)):
-        raise ValueError(f"K2 takes bfloat16 or int8 K and V of one shape, got "
-                         f"{k_flat.dtype} {tuple(k_flat.shape)}, {v_flat.dtype} "
-                         f"{tuple(v_flat.shape)}")
+    kv_dtype = k_flat.dtype
+    if kv_dtype not in BEAM_STAGES:
+        raise ValueError(f"K2 takes bfloat16, int8 or packed int4 (uint8) K and V, got "
+                         f"{kv_dtype}")
+    row = n_heads * _head_bytes(kv_dtype)
+    if dh * k_flat.element_size() != row or row > 5120:
+        raise ValueError(f"K2 takes rows of H heads of 64 columns in at most 5120 bytes, got "
+                         f"{dh} {kv_dtype} columns for {n_heads} heads")
+    if v_flat.shape != k_flat.shape or v_flat.dtype != kv_dtype:
+        raise ValueError(f"K2 takes K and V of one dtype and shape, got {kv_dtype} "
+                         f"{tuple(k_flat.shape)}, {v_flat.dtype} {tuple(v_flat.shape)}")
     k_ptr, v_ptr = k_flat.data_ptr(), v_flat.data_ptr()
     if (not (k_flat.is_contiguous() and v_flat.is_contiguous()) or (k_ptr | v_ptr) % 16
             or k_flat.get_device() != card or v_flat.get_device() != card):
         raise ValueError("K2 takes contiguous, 16-byte aligned K/V on q's card")
-    ks_ptr = vs_ptr = None
-    if kv_int8:
-        if k_scale is None or v_scale is None or any(
-                s.dtype != torch.float32 or s.shape != (b, t, 1) or not s.is_contiguous()
-                or s.get_device() != card for s in (k_scale, v_scale)):
-            raise ValueError("K2's int8 K/V take contiguous fp32 (B, T, 1) k_scale and v_scale")
-        ks_ptr, vs_ptr = k_scale.data_ptr(), v_scale.data_ptr()
-    elif k_scale is not None or v_scale is not None:
-        raise ValueError("K2's bfloat16 K/V take no scales")
-    return kv_int8, k_ptr, v_ptr, ks_ptr, vs_ptr
+    if kv_dtype == torch.bfloat16:
+        if k_scale is not None or v_scale is not None:
+            raise ValueError("K2's bfloat16 K/V take no scales")
+        return KV_BF16, k_ptr, v_ptr, None, None
+    if k_scale is None or v_scale is None:
+        raise ValueError("K2's int8 and int4 K/V take k_scale and v_scale")
+    if kv_dtype == torch.uint8:
+        mode, s_dtype, want = KV_INT4, torch.bfloat16, (b, t, n_heads)
+    elif k_scale.dtype == torch.bfloat16:
+        mode, s_dtype, want = KV_INT8_HEADS, torch.bfloat16, (b, t, n_heads)
+    else:
+        mode, s_dtype, want = KV_INT8, torch.float32, (b, t, 1)
+    if any(s.dtype != s_dtype or s.shape != want or not s.is_contiguous()
+           or s.get_device() != card for s in (k_scale, v_scale)):
+        what = "bfloat16 (B, T, H)" if s_dtype == torch.bfloat16 else "fp32 (B, T, 1)"
+        raise ValueError(f"K2's {kv_dtype} K/V take contiguous {what} k_scale and v_scale "
+                         f"on q's card, got {k_scale.dtype} {tuple(k_scale.shape)}, "
+                         f"{v_scale.dtype} {tuple(v_scale.shape)}")
+    return mode, k_ptr, v_ptr, k_scale.data_ptr(), v_scale.data_ptr()
 
 
 def _valid_arg(valid_len, b, t, card):
@@ -370,25 +438,29 @@ def decode_attention(
             or q_stride[1:] != (64, 1) or q_stride[0] % 8 or q_ptr % 16):
         raise ValueError(f"K2 takes bfloat16 q (B, H, 64), each row's heads contiguous and "
                          f"16-byte aligned, got {q.dtype} {tuple(q.shape)} {q_stride}")
-    kv_int8, k_ptr, v_ptr, ks_ptr, vs_ptr = _kv_args(card, k_flat, v_flat, k_scale, v_scale,
-                                                     n_heads)
+    mode, k_ptr, v_ptr, ks_ptr, vs_ptr = _kv_args(card, k_flat, v_flat, k_scale, v_scale,
+                                                  n_heads)
     valid_rows, valid_all = _valid_arg(valid_len, b, t, card)
+    if ring_pos is not None and mode == KV_INT4:
+        raise ValueError("K2's ring form takes bfloat16 or int8 K/V (the self cache), "
+                         "not int4")
     out = torch.empty((b, n_heads, 64), dtype=torch.bfloat16, device=q.device)
     if ring_pos is None:
         n_ctas, rows = split_plan(t if valid_rows is not None else valid_all)
         _check(_build.function("decode_attention", "kwt_decode_attention")(
             card, q_ptr, q_stride[0], k_ptr, v_ptr, ks_ptr, vs_ptr, valid_rows, valid_all,
-            out.data_ptr(), b, t, n_heads, n_ctas, rows, int(kv_int8),
+            out.data_ptr(), b, t, n_heads, n_ctas, rows, mode,
             _build.stream_handle(card)), "prefix")
         decode_attention.launches += 1
         return out
     if (not isinstance(ring_pos, torch.Tensor) or ring_pos.shape != ()
             or ring_pos.dtype != torch.int32 or ring_pos.get_device() != card):
         raise ValueError("K2's ring_pos is a 0-d int32 tensor on q's card")
-    plan = ring_plan(b, t, n_heads, k_flat.dtype, _n_sms(card))
+    plan = ring_plan(b, t, n_heads, k_flat.dtype, _n_sms(card),
+                     per_head=mode == KV_INT8_HEADS)
     _check(_build.function("decode_attention_ring", "kwt_decode_attention_ring")(
         card, q_ptr, q_stride[0], k_ptr, v_ptr, ks_ptr, vs_ptr, valid_rows, valid_all,
-        ring_pos.data_ptr(), out.data_ptr(), b, t, n_heads, plan.heads, int(kv_int8),
+        ring_pos.data_ptr(), out.data_ptr(), b, t, n_heads, plan.heads, mode,
         _build.stream_handle(card)), "ring")
     decode_attention.ring_launches += 1
     return out
@@ -400,7 +472,8 @@ decode_attention.ring_launches = 0  # K2, ring form
 
 def decode_attention_beam(q, k_flat, v_flat, *, n_heads, k_scale=None, v_scale=None):
     """K2's beam form: q (G, K, H, 64) against one flat K/V row per group
-    (G, T, H*64), every slot a key -> (G, K, H, 64). The kernel
+    (G, T, H*64; packed int4 (G, T, H*32)), every slot a key -> (G, K, H,
+    64). The kernel
     (csrc/decode_attention_beam.cu, any beam count) for CUDA tensors, the
     plain twin for CPU tensors. Allocates only the output; safe to capture
     in a CUDA graph."""
@@ -418,13 +491,19 @@ def decode_attention_beam(q, k_flat, v_flat, *, n_heads, k_scale=None, v_scale=N
                          f"(the kernel's tile), its G*K rows evenly strided, each row's heads "
                          f"contiguous and 16-byte aligned, got {q.dtype} {tuple(q.shape)} "
                          f"{q_stride}")
-    kv_int8, k_ptr, v_ptr, ks_ptr, vs_ptr = _kv_args(card, k_flat, v_flat, k_scale, v_scale,
-                                                     n_heads)
+    mode, k_ptr, v_ptr, ks_ptr, vs_ptr = _kv_args(card, k_flat, v_flat, k_scale, v_scale,
+                                                  n_heads)
+    if mode == KV_INT8_HEADS:
+        raise ValueError("K2's beam form takes bfloat16, int8 with fp32 (G, T, 1) scales or "
+                         "int4 K/V (the cross cache), not int8 with per-head scales")
+    if mode == KV_INT4 and (ks_ptr | vs_ptr) % 4:
+        raise ValueError("K2's beam form copies int4 K/V's bf16 scales by 4-byte words: "
+                         "they start 4-byte aligned")
     plan = beam_plan(g, t, n_heads, beams, k_flat.dtype, _n_sms(card))
     out = torch.empty((g, beams, n_heads, 64), dtype=torch.bfloat16, device=q.device)
     _check(_build.function("decode_attention_beam", "kwt_decode_attention_beam")(
         card, q_ptr, q_stride[1], k_ptr, v_ptr, ks_ptr, vs_ptr, out.data_ptr(), g, t, n_heads, beams,
-        plan.splits, plan.keys_per_split, int(kv_int8), _build.stream_handle(card)), "beam")
+        plan.splits, plan.keys_per_split, mode, _build.stream_handle(card)), "beam")
     decode_attention_beam.launches += 1
     return out
 

@@ -114,24 +114,26 @@ def beam_stream_workload(st: SpecialTokens, feat: FeatureConfig):
     return audio, prompt, stops, GenerateOptions(prompt_ids=prompt, max_length=STREAM_CAPACITY)
 
 
-def run_beam_stream(model, audio, opts, st, stops, feat):
+def run_beam_stream(model, audio, opts, st, stops, feat, kv_dtype="int8"):
     """generate_beam_streaming over the windows of `audio` (the first
-    len(audio) budgets), int8 KV, log-mel in batches of 16 as bench.py's
-    beam stream computes it -> (tokens, scores)."""
+    len(audio) budgets), int8 KV (bench.py's; int4 in phase 4j), log-mel in
+    batches of 16 as bench.py's beam stream computes it -> (tokens,
+    scores)."""
     b = BEAM_STREAM_MEL_BATCH
     feats = torch.cat([mel.log_mel_spectrogram(audio[i:i + b].float(), feat).to(torch.bfloat16)
                        for i in range(0, audio.shape[0], b)])
-    return generate_beam_streaming(model, feats, opts, st, kv_dtype="int8", stream=BEAM_STREAM,
+    return generate_beam_streaming(model, feats, opts, st, kv_dtype=kv_dtype, stream=BEAM_STREAM,
                                    stop_at=stops[:audio.shape[0]])
 
 
-def run_stream(model, audio, opts, st_fixed, stops, feat):
+def run_stream(model, audio, opts, st_fixed, stops, feat, kv_dtype="int8"):
     """generate_greedy_streaming over the windows of `audio` (the first
-    len(audio) budgets), log-mel in refill-sized batches."""
+    len(audio) budgets), int8 KV (int4 in phase 4j), log-mel in
+    refill-sized batches."""
     e = STREAM.encode_batch
     feats = torch.cat([mel.log_mel_spectrogram(audio[i:i + e].float(), feat).to(torch.bfloat16)
                        for i in range(0, audio.shape[0], e)])
-    return generate_greedy_streaming(model, feats, opts, st_fixed, kv_dtype="int8",
+    return generate_greedy_streaming(model, feats, opts, st_fixed, kv_dtype=kv_dtype,
                                      stream=STREAM, stop_at=stops[:audio.shape[0]])
 
 

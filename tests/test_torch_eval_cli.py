@@ -190,6 +190,19 @@ def test_speed_record_schema(tmp_path):
     assert len(seen[3]) == 32000
 
 
+def test_speed_runs_with_int4_kv(checkpoint, tmp_path, capsys):
+    """eval_speed --kv_dtype int4 runs and records its KV dtype."""
+    from kotoba_whisper_tpu_torch.cli import eval_speed
+
+    out = tmp_path / "runtime.jsonl"
+    eval_speed.main(["--model", checkpoint, "--kv_dtype", "int4", "--dtype", "float32",
+                     "--durations", "2", "--n_trials", "1", "--max_length", "6",
+                     "--output", str(out), "--device", "cpu"])
+    with open(out) as f:
+        records = [json.loads(line) for line in f]
+    assert [(r["kv_dtype"], r["trials"], r["device"]) for r in records] == [("int4", 1, "cpu")]
+
+
 RECORDS = [
     {"model": "a", "dataset": "jsut", "cer_norm": 9.87, "wer_norm": 12.0},
     {"model": "a", "dataset": "cv8", "cer_norm": 11.1},
@@ -281,7 +294,7 @@ def test_prepare_eval_set_round_trip_matches_jax(tmp_path):
 
 
 def test_what_is_not_ported_raises(checkpoint, eval_set, tmp_path):
-    from kotoba_whisper_tpu_torch.cli import eval_short_form, eval_speed, prepare_eval_set
+    from kotoba_whisper_tpu_torch.cli import eval_short_form, prepare_eval_set
 
     with pytest.raises(SystemExit, match="not ported yet"):
         prepare_eval_set.main(["--input", str(tmp_path), "--output_dir", str(tmp_path),
@@ -292,5 +305,3 @@ def test_what_is_not_ported_raises(checkpoint, eval_set, tmp_path):
     with pytest.raises(SystemExit, match="not ported yet"):
         eval_short_form.main(_eval_args(checkpoint, eval_set, str(tmp_path),
                                         "--cascaded_mt", str(tmp_path), "--device", "cpu"))
-    with pytest.raises(SystemExit, match="--kv_dtype int4 is not ported yet"):
-        eval_speed.main(["--model", checkpoint, "--kv_dtype", "int4", "--device", "cpu"])

@@ -4,7 +4,10 @@ K2 also in its ring form (continuous batching's shared-slot cache,
 csrc/decode_attention_ring.cu) and its beam form (a group's beam queries
 over one shared cross row, csrc/decode_attention_beam.cu, any beam count),
 and both together in a continuous-batching beam step at large-v3 width
-(decode/streaming_beam.py), its logits against the plain path.
+(decode/streaming_beam.py), its logits against the plain path; and in the
+int4 cache's modes (packed int4 cross K/V and int8 self K/V, each with
+bf16 per-head scales) at 20 and 10 heads, every int4 code through each
+kernel's unpack, in CUDA graphs, and the wrappers' refusals.
 
 Marked `cuda`: skipped where no card is present. Run on a machine with an
 H100:  python -m pytest tests/test_torch_kernels_cuda.py -q
@@ -33,7 +36,7 @@ import torch
 
 from kotoba_whisper_tpu_torch.core.config import FeatureConfig
 from kotoba_whisper_tpu_torch.models.quantized import dense_int8, int8_matmul, quantize_dense_int8
-from kotoba_whisper_tpu_torch.models.whisper import quantize_kv_rows
+from kotoba_whisper_tpu_torch.models.whisper import pack_int4, quantize_kv_heads, quantize_kv_rows
 from kotoba_whisper_tpu_torch.ops import conv_stem as cs
 from kotoba_whisper_tpu_torch.ops import decode_attention as da
 from kotoba_whisper_tpu_torch.ops import flash_attention as fa
@@ -502,6 +505,193 @@ def test_decode_attention_forms_replay_in_a_cuda_graph(form):
     want = call()
     torch.cuda.synchronize()
     assert torch.equal(out, want)
+
+
+def _heads_inputs(b, t, h, bits, seed):
+    """q, and K/V quantized per head (bf16 scales): packed int4 (4 bits, the
+    int4 cache's cross K/V) or int8 (8 bits, its self K/V)."""
+    q = _randn(b, h, 64, seed=seed)
+    out = [q]
+    for s in (seed + 1, seed + 2):
+        codes, scale = quantize_kv_heads(_randn(b, t, h * 64, seed=s), h, bits)
+        out += [pack_int4(codes) if bits == 4 else codes, scale]
+    q, k, ks, v, vs = out
+    return q, k, v, ks, vs
+
+
+@pytest.mark.parametrize("heads", [20, 10])
+@pytest.mark.parametrize("form", ["prefix-int4-cross", "prefix-int4-rows", "prefix-int8-self",
+                                  "ring-int8", "beam-int4"])
+def test_decode_attention_per_head_forms(form, heads):
+    """K2's three forms in the int4 cache's modes, at large-v3's 20 heads
+    and a tensor-parallel rank's 10: the prefix form over packed int4 cross
+    K/V (T=1500, scalar and per-row valid lengths) and over int8 self K/V
+    (T=51), the ring form over int8 self K/V (T=176, rows wrapping), the
+    beam form over packed int4 cross K/V (3 groups x 5 beams and 12 x 5);
+    per-head bf16 scales; one launch a call, held to the twin."""
+    if form == "beam-int4":
+        for g in (3, 12):
+            q = _randn(g, 5, heads, 64, seed=100)
+            _, k, v, ks, vs = _heads_inputs(g, 1500, heads, 4, seed=101)
+            before = da.decode_attention_beam.launches
+            got = da.decode_attention_beam(q, k, v, n_heads=heads, k_scale=ks, v_scale=vs)
+            torch.cuda.synchronize()
+            assert da.decode_attention_beam.launches == before + 1
+            ref = da.decode_attention_reference_beam(q, k, v, n_heads=heads, k_scale=ks,
+                                                     v_scale=vs)
+            _assert_near(got, ref, atol=2e-3)
+        return
+    t = {"prefix-int8-self": 51, "ring-int8": 176}.get(form, 1500)
+    bits = 4 if "int4" in form else 8
+    q, k, v, ks, vs = _heads_inputs(6, t, heads, bits, seed=102)
+    kw = dict(n_heads=heads, k_scale=ks, v_scale=vs)
+    valid = t
+    counter = "launches"
+    if form == "ring-int8":
+        valid = torch.tensor([t, 1, 41, 100, t - 1, 7], dtype=torch.int32, device="cuda")
+        kw["ring_pos"] = torch.tensor(40, dtype=torch.int32, device="cuda")
+        counter = "ring_launches"
+    elif form == "prefix-int4-rows":
+        valid = torch.tensor([t, 1, 2, 700, 188, 189], dtype=torch.int32, device="cuda")
+    before = getattr(da.decode_attention, counter)
+    got = da.decode_attention(q, k, v, valid, **kw)
+    torch.cuda.synchronize()
+    assert getattr(da.decode_attention, counter) == before + 1
+    ref = da.decode_attention_reference(q, k, v, valid, **kw)
+    _assert_near(got, ref, atol=2e-3)
+
+
+def _every_code(rows, cols):
+    """(rows, cols) bytes whose low and high nibbles each take all 16 int4
+    codes down every column (rows a multiple of 16)."""
+    r = torch.arange(rows)[:, None]
+    c = torch.arange(cols)[None, :]
+    return (((r + c) % 16) | (((r + 3 * c + 5) % 16) << 4)).to(torch.uint8).cuda()
+
+
+@pytest.mark.parametrize("form", ["prefix", "beam"])
+def test_int4_unpack_takes_every_code(form):
+    """Every int4 code (-8 .. 7, at every nibble position) through the
+    kernels' unpack: with one key the output is that key's V row times its
+    scale, exact in bf16, so it must equal the twin's bit for bit; over 64
+    keys whose K takes every code the output is held to the twin."""
+    h, rows = 20, 16
+    ones = torch.ones(rows, 1, h, dtype=torch.bfloat16, device="cuda")
+    kv = _every_code(rows, h * 32)[:, None]  # (16, 1, H*32): T=1
+    if form == "prefix":
+        q = _randn(rows, h, 64, seed=103)
+        got = da.decode_attention(q, kv, kv.clone(), 1, n_heads=h, k_scale=ones, v_scale=ones)
+        ref = da.decode_attention_reference(q, kv, kv, 1, n_heads=h, k_scale=ones,
+                                            v_scale=ones)
+    else:
+        q = _randn(rows, 3, h, 64, seed=103)
+        got = da.decode_attention_beam(q, kv, kv.clone(), n_heads=h, k_scale=ones, v_scale=ones)
+        ref = da.decode_attention_reference_beam(q, kv, kv, n_heads=h, k_scale=ones,
+                                                 v_scale=ones)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.to(torch.bfloat16))
+    assert set(da.unpack_int4(kv).unique().tolist()) == set(range(-8, 8))
+    # 64 keys: every code in K's scores
+    k = _every_code(64, h * 32).view(1, 64, h * 32).repeat(rows // 16 * 2, 1, 1)
+    scale = torch.full((k.shape[0], 64, h), 0.25, dtype=torch.bfloat16, device="cuda")
+    v = k.roll(7, dims=1).contiguous()
+    if form == "prefix":
+        q = _randn(k.shape[0], h, 64, seed=104)
+        got = da.decode_attention(q, k, v, 64, n_heads=h, k_scale=scale, v_scale=scale)
+        ref = da.decode_attention_reference(q, k, v, 64, n_heads=h, k_scale=scale,
+                                            v_scale=scale)
+    else:
+        q = _randn(k.shape[0], 5, h, 64, seed=104)
+        got = da.decode_attention_beam(q, k, v, n_heads=h, k_scale=scale, v_scale=scale)
+        ref = da.decode_attention_reference_beam(q, k, v, n_heads=h, k_scale=scale,
+                                                 v_scale=scale)
+    _assert_near(got, ref, atol=2e-3)
+
+
+@pytest.mark.parametrize("form", ["prefix-int4", "prefix-int8-self", "ring-int8", "beam-int4"])
+def test_decode_attention_per_head_forms_replay_in_a_cuda_graph(form):
+    """The int4 cache's forms allocate only their output and launch once: a
+    CUDA graph replays each to the eager result, bit for bit, after new
+    queries (and ring values) are written into the captured inputs."""
+    h = 20
+    if form == "beam-int4":
+        q = _randn(12, 5, h, 64, seed=105)
+        _, k, v, ks, vs = _heads_inputs(12, 1500, h, 4, seed=106)
+
+        def call():
+            return da.decode_attention_beam(q, k, v, n_heads=h, k_scale=ks, v_scale=vs)
+    else:
+        b, t = 16, {"prefix-int4": 1500, "prefix-int8-self": 51, "ring-int8": 176}[form]
+        q, k, v, ks, vs = _heads_inputs(b, t, h, 4 if "int4" in form else 8, seed=107)
+        valid = torch.arange(1, b + 1, dtype=torch.int32, device="cuda") * (t // b)
+        ring_pos = torch.tensor(20, dtype=torch.int32, device="cuda") if form == "ring-int8" \
+            else None
+
+        def call():
+            return da.decode_attention(q, k, v, valid, n_heads=h, k_scale=ks, v_scale=vs,
+                                       ring_pos=ring_pos)
+
+    want = call()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    q.copy_(_randn(*q.shape, seed=108))
+    if form == "ring-int8":
+        ring_pos.fill_(170)
+    graph.replay()
+    want = call()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("bad", ["int4-fp32-scales", "int4-row-scales", "int8-head-shape",
+                                 "int8-fp16-scales", "ring-int4", "beam-int8-heads",
+                                 "beam-int4-misaligned-scales", "int4-no-scales"])
+def test_decode_attention_refuses_mismatched_scales(bad):
+    """On the card each K/V mode takes only its own scales, and a form
+    refuses a mode its kernel lacks, with a ValueError and no launch."""
+    h, t = 4, 64
+    q = _randn(2, h, 64, seed=109)
+    _, k4, v4, ks4, vs4 = _heads_inputs(2, t, h, 4, seed=110)
+    _, k8, v8, ks8, vs8 = _heads_inputs(2, t, h, 8, seed=111)
+    kw = {}
+    if bad == "int4-fp32-scales":
+        k, v, ks, vs = k4, v4, ks4.float(), vs4.float()
+    elif bad == "int4-row-scales":
+        k, v, ks, vs = k4, v4, ks4[..., :1].contiguous(), vs4[..., :1].contiguous()
+    elif bad == "int8-head-shape":
+        k, v, ks, vs = k8, v8, ks8[..., :3].contiguous(), vs8[..., :3].contiguous()
+    elif bad == "int8-fp16-scales":
+        k, v, ks, vs = k8, v8, ks8[..., :1].half().contiguous(), vs8[..., :1].half().contiguous()
+    elif bad == "ring-int4":
+        k, v, ks, vs = k4, v4, ks4, vs4
+        kw["ring_pos"] = torch.tensor(3, dtype=torch.int32, device="cuda")
+    elif bad == "int4-no-scales":
+        k, v, ks, vs = k4, v4, None, None
+    else:
+        qb = _randn(2, 3, h, 64, seed=112)
+        if bad == "beam-int8-heads":
+            k, v, ks, vs = k8, v8, ks8, vs8
+        else:  # scales one bf16 into a buffer: 2-byte aligned
+            buf_k = torch.empty(ks4.numel() + 1, dtype=torch.bfloat16, device="cuda")
+            buf_v = torch.empty_like(buf_k)
+            ks, vs = buf_k[1:].view(ks4.shape), buf_v[1:].view(vs4.shape)
+            ks.copy_(ks4)
+            vs.copy_(vs4)
+            k, v = k4, v4
+        before = da.decode_attention_beam.launches
+        with pytest.raises(ValueError, match="K2"):
+            da.decode_attention_beam(qb, k, v, n_heads=h, k_scale=ks, v_scale=vs)
+        assert da.decode_attention_beam.launches == before
+        return
+    before = (da.decode_attention.launches, da.decode_attention.ring_launches)
+    with pytest.raises(ValueError, match="K2"):
+        da.decode_attention(q, k, v, t, n_heads=h, k_scale=ks, v_scale=vs, **kw)
+    assert (da.decode_attention.launches, da.decode_attention.ring_launches) == before
 
 
 def _wide_range_audio(b, n, seed):

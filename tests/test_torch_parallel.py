@@ -64,6 +64,10 @@ CASES = {
     "stream-int8": ("stream", "int8", "plain"),
     "beam_stream-compute": ("beam_stream", "compute", "plain"),
     "beam_stream-int8": ("beam_stream", "int8", "plain"),
+    "greedy-int4": ("greedy", "int4", "plain"),
+    "beam-int4": ("beam", "int4", "plain"),
+    "stream-int4": ("stream", "int4", "plain"),
+    "beam_stream-int4": ("beam_stream", "int4", "plain"),
     "greedy-fused-int8": ("greedy", "int8", "fused"),
     "beam-fused-int8": ("beam", "int8", "fused"),
     "greedy-w8a8-compute": ("greedy", "compute", "w8a8"),

@@ -7,7 +7,8 @@ must be identical, in the drivers' default mode (projections fused), with
 --no_fuse, with w8a8 projections (--gemm_dtype int8), with continuous
 batching (--streaming), with beam search (--num_beams 3) and with beam
 search under continuous batching (--streaming --num_beams 2, compute and
-int8 KV).
+int8 KV), and with the int4 KV cache (lockstep, and --streaming
+--num_beams 2).
 """
 import csv
 import json
@@ -86,8 +87,10 @@ def _read(out):
     ["--kv_dtype", "int8", "--num_beams", "3"],
     ["--kv_dtype", "compute", "--streaming", "--num_beams", "2"],
     ["--kv_dtype", "int8", "--streaming", "--num_beams", "2"],
+    ["--kv_dtype", "int4"],
+    ["--kv_dtype", "int4", "--streaming", "--num_beams", "2"],
 ], ids=["compute", "int8-int16wire", "fused", "fused-w8a8", "streaming", "beam3",
-        "streaming-beam2", "streaming-beam2-int8"])
+        "streaming-beam2", "streaming-beam2-int8", "int4", "streaming-beam2-int4"])
 def test_port_driver_matches_jax_driver(dataset_dir, model_dir, tmp_path, extra):
     from kotoba_whisper_tpu.cli import pseudo_label as jax_driver
     from kotoba_whisper_tpu_torch.cli import pseudo_label as port_driver
@@ -107,19 +110,6 @@ def test_port_driver_matches_jax_driver(dataset_dir, model_dir, tmp_path, extra)
         assert g["transcription"] == r["transcription"]
         assert g["whisper_transcript"] == r["whisper_transcript"], g["name"]
     assert got_csv == ref_csv
-
-
-@pytest.mark.parametrize("flags, what", [
-    (["--kv_dtype", "int4"], "--kv_dtype int4"),
-    (["--streaming", "--num_beams", "2", "--kv_dtype", "int4"], "--kv_dtype int4"),
-])
-def test_unported_flags_raise(dataset_dir, tmp_path, flags, what):
-    from kotoba_whisper_tpu_torch.cli import pseudo_label as port_driver
-
-    args = ["--dataset_dir", dataset_dir, "--output_dir", str(tmp_path),
-            "--model", "preset:test-byte", "--device", "cpu", *flags]
-    with pytest.raises(SystemExit, match="not ported yet"):
-        port_driver.main(args)
 
 
 def test_tokenizer_matches_jax():

@@ -6,7 +6,8 @@ long-form merge reads; JAX params carried across by
 models/convert.params_from_jax) and one seeded 40 s PCM-sourced input
 rising in loudness, which the long-form chunker cuts into 4 chunks of 15 s
 at a 10 s step: the text and the timestamped chunks must be identical for
-greedy decode, beam search (3 beams), the int8 KV cache and the int16 wire
+greedy decode, beam search (3 beams), the int8 KV cache, the int4 KV cache
+(greedy and 3 beams) and the int16 wire
 (where on PCM-sourced audio the fp32 and int16 wires also agree with each
 other in both packages), on the weights scaled x4 so that the tokens
 follow the audio; and for w8a8 projections (fused + quantized on both
@@ -21,7 +22,6 @@ x4: the fp32 encoders agree, and the first int8 codes that differ are ties.
 """
 import contextlib
 import copy
-import dataclasses
 
 import jax
 import numpy as np
@@ -82,11 +82,13 @@ def _pipelines(params, model, **kw):
     return jax_pipe, port_pipe
 
 
-@pytest.mark.parametrize("case", ["greedy", "beam3", "int8-kv", "w8a8", "int16-wire"])
+@pytest.mark.parametrize("case", ["greedy", "beam3", "int8-kv", "w8a8", "int16-wire", "int4-kv",
+                                  "beam3-int4-kv"])
 def test_pipeline_matches_jax(tiny, case):
     models, audio = tiny
     params, model = models["w8a8" if case == "w8a8" else "scaled"]
     kw = {"beam3": dict(num_beams=3), "int8-kv": dict(kv_dtype="int8"),
+          "int4-kv": dict(kv_dtype="int4"), "beam3-int4-kv": dict(num_beams=3, kv_dtype="int4"),
           "w8a8": dict(kv_dtype="int8"), "int16-wire": dict(wire_dtype="int16")}.get(case, {})
     reference = contextlib.nullcontext()
     if case == "w8a8":
@@ -177,13 +179,3 @@ def test_pipeline_refuses_an_unknown_wire(tiny):
     with pytest.raises(ValueError, match="wire_dtype"):
         AsrPipeline(model=model, tok=WhisperTokenizer.byte_vocab(), wire_dtype="int8",
                     device="cpu")
-
-
-def test_int4_kv_is_not_ported(tiny):
-    models, audio = tiny
-    model = models["scaled"][1]
-    pipe = dataclasses.replace(
-        AsrPipeline(model=model, tok=WhisperTokenizer.byte_vocab(), device="cpu"),
-        kv_dtype="int4")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        pipe(audio[:16000])

@@ -151,11 +151,6 @@ def test_unported_options_raise(setup):
     with pytest.raises(ValueError, match="prefetch is not ported"):
         tsb.generate_beam_streaming(model, mels[:2], opts, ST,
                                     stream=tsb.BeamStreamConfig(prefetch=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tsb.generate_beam_streaming(model, mels[:2], opts, ST, kv_dtype="int4",
-                                    stream=tsb.BeamStreamConfig(groups=2, num_beams=2,
-                                                                encode_batch=2),
-                                    device="cpu")
     with pytest.raises(ValueError, match="layout"):
         tsb.generate_beam_streaming(model, mels[:2], opts, ST,
                                     stream=tsb.BeamStreamConfig(layout="rows"), device="cpu")
