@@ -32,7 +32,13 @@ Phases, in order; any failure exits nonzero and prints no result line:
      input, its raw values read by region against a float64 evaluation;
      K4's device time also by batch; K8's quantize pre-pass also bit for
      bit against the twin quantizers, and its pre-pass and main kernel
-     each timed alone;
+     each timed alone; then the fp32 forms at phase 4k's shapes: K1 (B=16,
+     T=1500), K4 (B=8 x 128), K2's prefix form (cross T=1500 with fp32 and
+     int8 K/V, self T=51), ring form (W=48 at T=176 and T=448, the latter
+     in boxes) and beam form (12 x 5 over T=1500, fp32 and int4 K/V), each
+     held to its fp32 twin by relative L2 <= 1e-5 above a dropped-key-tile
+     control >= 1e-2, SDPA on fp32 tensors beside it with its backend
+     named;
   4. main path: large-v3 width and depth with seeded random weights, bf16,
      int8 KV, B=16, 48 new tokens with eot disabled:
      log_mel_spectrogram -> generate_greedy, with launch counters checked;
@@ -102,6 +108,15 @@ Phases, in order; any failure exits nonzero and prints no result line:
      on three seeds the first-step logits of the kernel path against the
      plain path; launches by form, the cross cache's bytes in int8 and
      int4, audio-s/s beside phases 4 and 4f;
+  4k. fp32 (the JAX package's --dtype float32): large-v3 with seeded
+     random fp32 weights through the kernels' fp32 forms: (a) phase 4's
+     B=16 batch with int8 and compute KV (launches K1 32, K3 1, K2 prefix
+     3072), (b) 4f's beam search with compute and int4 KV, (c) a stream on
+     4e's settings over 48 windows, (d) AsrPipeline at 30 s, (e) at B=2 on
+     three seeds the kernel path, under torch's default TF32 flags, against
+     the plain path: encoder and first-step logits within 1e-4, the 48
+     greedy tokens equal (beside a witness: the encoder with the model's
+     TF32 guard bypassed); audio-s/s and the fp32 cross cache's bytes;
   4i. parallel on one card: (a) a one-rank NCCL group and its mesh: one
      lockstep stage-2 batch and one data-parallel distillation step,
      launches as phases 4 and 4b; (b) tensor parallel over two ranks on
@@ -119,18 +134,21 @@ Phases, in order; any failure exits nonzero and prints no result line:
   5. drivers: cli/pseudo_label on synthetic WAV utterances in a tar shard,
      with its default fusion, then with --gemm_dtype int8 under
      KWT_FA_INT8=qk, then --streaming, then --num_beams 3, then
-     --streaming --num_beams 3; then through `python -m
+     --streaming --num_beams 3, then --dtype float32 in lockstep, with
+     --streaming and with --num_beams 3; then through `python -m
      kotoba_whisper_tpu_torch`: filter on the labels with --skip_filtering
      (K3 on the card) and with the WER gate, merge of the two chunks;
   5b. create-student (4-layer encoder at large-v3 width) -> distill 2
-     steps on the merged split, save -> resume to step 3 -> export; then
+     steps on the merged split, save -> resume to step 3 -> export, and
+     create-student --dtype float32 (K1 6 and K4 2 launches); then
      stage 6 through `python -m kotoba_whisper_tpu_torch`: prepare-eval-set
      from a manifest of synthetic WAVs to tar+tsv, eval of the exported
      student on it, again with --stable_ts --punctuator, and a third time
      from a copy of the first run's output, where every prediction comes
      from the cache (no launch); cli.eval_diff --strict --tolerance 1e-6 of
-     the third run against the first; speed at 10 s, one trial; report of
-     the metric and the runtime JSONL;
+     the third run against the first; speed at 10 s, one trial; eval and
+     speed at 10 s with --dtype float32; report of the metric and the
+     runtime JSONL;
   5c. bilingual distillation: stage 2 with --text_lang_task
      ja:transcribe,en:translate, stage 3 keeping both label columns, then
      `python -m kotoba_whisper_tpu_torch distill-bilingual` on that chunk as
@@ -143,7 +161,8 @@ Phases, in order; any failure exits nonzero and prints no result line:
      beam stream; K3: phase 5's filter; K4, K5: the 3 timed train steps;
      K6-K8: the 4d encoder runs; K9: the vpu_cal runs of 5d; the 10-head
      records: rank 0 of 4i(b); the int4 cache's records: 4j (a) prefix, (b)
-     beam, (c) ring) and its
+     beam, (c) ring; the fp32 records: 4k (a) K1 and prefix, (b) beam, (c)
+     ring, and 5b's create-student --dtype float32 for K4) and its
      numbers, K1, K2 and K3 also with their launches in 4h's 300 s call of
      large-v3 (a), K2's beam form in 4h's beam call (`serving_launches`);
   7. the last line: {"ok": true, "device": {...}}.
@@ -156,6 +175,7 @@ import argparse
 import contextlib
 import copy
 import dataclasses
+import gc
 import io
 import json
 import math
@@ -166,9 +186,17 @@ import sys
 import tempfile
 import time
 
-import numpy as np
-import torch
-import torch.nn.functional as F
+# Expandable segments: freed, the fp32 paths' multi-GB caches would
+# otherwise be split for later small tensors and stay reserved past
+# empty_cache (80 GB reserved for 0.3 GB allocated), and the ranks spawned
+# onto card 0 (4i) would find it full; with them empty_cache unmaps every
+# free page. CUDA graphs' private pools keep plain segments. Set before
+# torch touches the card; the spawned ranks inherit it.
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 
 # Published dense peaks of the card the port targets (NVIDIA H100 SXM data
 # sheet): bf16 tensor FLOP/s, fp32 CUDA-core FLOP/s, memory bytes/s, int8
@@ -180,6 +208,15 @@ PEAKS = {"H100 80GB HBM3": (989e12, 67e12, 3.35e12, 1979e12)}
 # it by ~1e-1 on random inputs and by ~1.9e-2 on the encoder's own
 # activations, whose softmax is nearly flat (phases 4 and 4c read that).
 REL_L2_TOL = 1e-2
+# The fp32 forms (fp32 arithmetic end to end) are held to their fp32 twins
+# by relative L2 <= F32_REL_TOL, ~100x fp32 rounding of sums in another
+# order; each record's control, the twin with one 64-key tile of keys
+# dropped, must read at least F32_CONTROL_MIN, so the bar can see such a
+# fault.
+F32_REL_TOL, F32_CONTROL_MIN = 1e-5, 1e-2
+# phase 4k: fp32 large-v3, its encoder and first-step logits against the
+# plain path (relative L2), the kernel path under torch's default TF32 flags
+F32_PATH_TOL = 1e-4
 B = 16            # main-path batch (lockstep)
 NEW_TOKENS = 48   # decode steps, eot disabled
 TRAIN_B = 8       # train-path batch (the JAX package's train-b8)
@@ -326,6 +363,15 @@ def reset_every():
         fn.launches = 0
     fa.flash_attention_fwd.causal_launches = 0
     da.decode_attention.ring_launches = 0
+
+
+def card_memory() -> str:
+    """The card memory this process holds, after freeing what nothing
+    references (cycles included) back to the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    return (f"card memory of this process: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+            f"allocated, {torch.cuda.memory_reserved() / 1e9:.2f} GB reserved")
 
 
 def nonzero(counts):
@@ -622,19 +668,23 @@ def main() -> int:
         return "null" if v is None else v if isinstance(v, str) else f"{v:.4f}"
 
     def record(name, source, replaces, errs, tol, ms, plain_ms, lib_ms, bnd, key=None,
-               **timings):
+               rel_tol=REL_L2_TOL, control=None, **timings):
         """One kernel's record; `timings` add device_ms (the kernel in a
         replayed CUDA graph), library_device_ms (the library call the same
         way, or null where there is none), host_us and library_host_us (the
-        host's time per call of each)."""
+        host's time per call of each). `control`, where given, is the
+        relative L2 of a twin with a key tile dropped, which must read at
+        least F32_CONTROL_MIN."""
         launch_key[name] = key or name[:2]
         err, rel = errs
-        ok = err <= tol and rel <= REL_L2_TOL
+        ok = err <= tol and rel <= rel_tol and (control is None or control >= F32_CONTROL_MIN)
+        if control is not None:
+            timings = {"control_rel_l2": control, **timings}
         rec = dict(name=name, route="cuda", source=source, replaces=replaces,
-                   launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                   launches=None, max_abs_err=err, rel_l2=rel, ms=ms, plain_ms=plain_ms,
                    bound_ms=bnd[0], bound_by=bnd[1], library_ms=lib_ms, **timings)
         log(f"[kernel] {name}: max_abs_err {err:.3e} (tol {tol:g}) rel_l2 {rel:.3e} "
-            f"(tol {REL_L2_TOL:g}) "
+            f"(tol {rel_tol:g}) "
             f"ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
             f"{'null' if lib_ms is None else f'{lib_ms:.4f}'} bound_ms {bnd[0]:.4f} "
             f"({bnd[1]})"
@@ -1242,6 +1292,174 @@ def main() -> int:
             host_us=host_us(k9_call), library_host_us=None,
         )
     del xc
+
+    # ---- 3 (fp32). the fp32 forms at the shapes of phase 4k's paths ----------
+    # K1 and K4 (csrc/flash_attention_f32.cu) and K2's prefix, ring and beam
+    # kernels on fp32 q (and fp32, int8 or int4 K/V), each held to its fp32
+    # twin by relative L2 <= F32_REL_TOL and above its control (the twin
+    # with the first 64-key tile dropped; in the ring each row's 64 oldest
+    # keys); bounds: K1/K4 their FFMAs at the fp32 CUDA-core rate (and the
+    # exponentials), K2 its bytes; the library call SDPA on the same fp32
+    # tensors (K2's quantized K/V dequantized to fp32), the backend that ran
+    # named by the kernel it launched.
+    def sdpa_kernel_name(fn):
+        """The CUDA kernel that takes most of the device time of 5 fn() calls."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        return max(kernels, key=lambda e: e.self_device_time_total).key[:96] if kernels else "?"
+
+    def f32_heads(x, scale, hh):
+        """(R, T, *) stored K or V -> (R, H, T, 64) fp32."""
+        r, t_x = x.shape[:2]
+        return whisper._dequant(x, scale, torch.float32).float().view(r, t_x, hh, 64).transpose(1, 2)
+
+    def f32_record(name, source, replaces, got, ref, control_ref, call, plain, library, bnd,
+                   key):
+        err, rel_err = compare(got, ref)
+        control = compare(control_ref, ref)[1]
+        backend = sdpa_kernel_name(library)
+        log(f"[kernel] {name}: library call SDPA ran {backend}")
+        record(name, source, replaces, (err, rel_err), 1e-4 * float(ref.abs().max()),
+               time_ms(call), time_ms(plain), time_ms(library), bnd, key=key,
+               rel_tol=F32_REL_TOL, control=control, library_backend=backend,
+               device_ms=graph_ms(call), library_device_ms=graph_ms(library),
+               host_us=host_us(call), library_host_us=host_us(library))
+
+    f32 = torch.float32
+    # K1 fp32: the encoder's self-attention (B=16, T=1500, 20 heads)
+    q, k, v = (randn(B, t_enc, h, 64, seed=s, dtype=f32) for s in (40, 41, 42))
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    ro, rlse = fa.flash_attention_reference(q, k, v)
+    lse_err = float((lse - rlse).abs().max())
+    if lse_err > 1e-5:
+        raise AssertionError(f"K1 fp32 LSE disagrees: {lse_err}")
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    f32_record(
+        f"K1 flash_attention_fwd fp32 (B={B}, T={t_enc}, H={h}, D=64)",
+        "kotoba_whisper_tpu_torch/csrc/flash_attention_f32.cu",
+        "kotoba_whisper_tpu/ops/flash_attention.py:69", o, ro,
+        fa.flash_attention_reference(q, k[:, 64:], v[:, 64:])[0],
+        lambda: fa.flash_attention_fwd(q, k, v), lambda: fa.flash_attention_reference(q, k, v),
+        lambda: F.scaled_dot_product_attention(qt, kt, vt),
+        bound(4.0 * B * h * t_enc * t_enc * 64, fp32_rate, nbytes(q, k, v, o, lse), mem_rate,
+              exp_s=B * h * t_enc * t_enc / exp_rate), "K1f32")
+    del q, k, v, o, lse, ro, rlse, qt, kt, vt
+    torch.cuda.empty_cache()
+    # K4 fp32: the decoder's causal self-attention (B=8 x 128 labels)
+    q, k, v = (randn(TRAIN_B, LABELS, h, 64, seed=s, dtype=f32) for s in (43, 44, 45))
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    ro, rlse = fa.flash_attention_reference(q, k, v, causal=True)
+    if float((lse - rlse).abs().max()) > 1e-5:
+        raise AssertionError("K4 fp32 LSE disagrees")
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    pairs = LABELS * (LABELS + 1) // 2
+    # control: rows 64.. without the first key tile (rows 0..63 see only it)
+    cut = torch.cat([ro[:, :64], fa.flash_attention_reference(
+        q[:, 64:], k[:, 64:], v[:, 64:], causal=True)[0]], 1)
+    f32_record(
+        f"K4 flash_attention_fwd causal fp32 (B={TRAIN_B}, T={LABELS}, H={h}, D=64)",
+        "kotoba_whisper_tpu_torch/csrc/flash_attention_f32.cu",
+        "kotoba_whisper_tpu/ops/flash_attention.py:222", o, ro, cut,
+        lambda: fa.flash_attention_fwd(q, k, v, causal=True),
+        lambda: fa.flash_attention_reference(q, k, v, causal=True),
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
+        bound(4.0 * TRAIN_B * h * pairs * 64, fp32_rate, nbytes(q, k, v, o, lse), mem_rate,
+              exp_s=TRAIN_B * h * pairs / exp_rate), "K4f32")
+    del q, k, v, o, lse, ro, rlse, qt, kt, vt, cut
+
+    def f32_kv(x, hh, mode):
+        """(R, T, D) fp32 -> (stored K or V, scales or None) in K/V mode `mode`."""
+        return (x, None) if mode == "fp32" else quantized(x, hh, mode)
+
+    # K2 prefix form, fp32 q: cross (T=1500) with fp32 K/V (compute KV) and
+    # with int8 K/V; self (T=51) fp32
+    for label, t, kv, key in (("cross", t_enc, "fp32", "K2f32"), ("cross", t_enc, "int8",
+                                                                   "K2f32int8"),
+                              ("self", cap, "fp32", "K2f32")):
+        qd = randn(B, h, 64, seed=46, dtype=f32)
+        kf, ks = f32_kv(randn(B, t, d, seed=47, dtype=f32), h, kv)
+        vf, vs = f32_kv(randn(B, t, d, seed=48, dtype=f32), h, kv)
+        kw = dict(n_heads=h, k_scale=ks, v_scale=vs)
+        out = da.decode_attention(qd, kf, vf, t, **kw)
+        ref = da.decode_attention_reference(qd, kf, vf, t, **kw)
+        cut = da.decode_attention_reference(
+            qd, kf[:, 64:], vf[:, 64:], t - 64, n_heads=h,
+            k_scale=None if ks is None else ks[:, 64:], v_scale=None if vs is None else vs[:, 64:])
+        kh, vh, qh = f32_heads(kf, ks, h), f32_heads(vf, vs, h), qd[:, :, None]
+        f32_record(
+            f"K2 decode_attention {label} fp32 q, {kv} K/V (B={B}, T={t}, D={d})",
+            "kotoba_whisper_tpu_torch/csrc/decode_attention.cu",
+            "kotoba_whisper_tpu/ops/decode_attention.py:165", out, ref, cut,
+            lambda: da.decode_attention(qd, kf, vf, t, **kw),
+            lambda: da.decode_attention_reference(qd, kf, vf, t, **kw),
+            lambda: F.scaled_dot_product_attention(qh, kh, vh),
+            bound(4.0 * B * t * d, fp32_rate, nbytes(qd, kf, vf, ks, vs, out), mem_rate), key)
+        del qd, kf, vf, ks, vs, out, ref, cut, kh, vh, qh
+
+    # K2 ring form, fp32: the stream's window (W=48, T=176, one box a row)
+    # and the decoder's most positions (T=448, boxes of 192 slots), fp32 K/V,
+    # per-row valid lengths over [1, T], most rows wrapped past slot T - 1
+    for t_r, ring_at in ((176, 40), (448, 300)):
+        w_r = 48
+        qd = randn(w_r, h, 64, seed=49, dtype=f32)
+        kf, vf = randn(w_r, t_r, d, seed=50, dtype=f32), randn(w_r, t_r, d, seed=51, dtype=f32)
+        valid = torch.linspace(1, t_r, w_r, device="cuda").round().to(torch.int32)
+        ring = torch.tensor(ring_at, dtype=torch.int32, device="cuda")
+        kw = dict(n_heads=h, ring_pos=ring)
+        out = da.decode_attention(qd, kf, vf, valid, **kw)
+        ref = da.decode_attention_reference(qd, kf, vf, valid, **kw)
+        cut = da.decode_attention_reference(qd, kf, vf, torch.clamp(valid - 64, min=1), **kw)
+        age = torch.remainder(ring - torch.arange(t_r, device="cuda"), t_r)
+        mask = (age[None] < valid[:, None])[:, None, None, :]
+        kh, vh, qh = f32_heads(kf, None, h), f32_heads(vf, None, h), qd[:, :, None]
+        n_keys = int(valid.sum())
+        plan = da.ring_plan(w_r, t_r, h, f32)
+        log(f"[kernel] K2 ring fp32 T={t_r}: {plan}")
+        f32_record(
+            f"K2 decode_attention self ring fp32 (W={w_r}, T={t_r}, D={d}, ring_pos {ring_at}, "
+            f"boxes of {plan.chunk})",
+            "kotoba_whisper_tpu_torch/csrc/decode_attention_ring.cu",
+            "kotoba_whisper_tpu/ops/decode_attention.py:59", out, ref, cut,
+            lambda: da.decode_attention(qd, kf, vf, valid, **kw),
+            lambda: da.decode_attention_reference(qd, kf, vf, valid, **kw),
+            lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask),
+            bound(4.0 * n_keys * d, fp32_rate, n_keys * 2 * d * 4 + nbytes(qd, valid, out),
+                  mem_rate), "K2ringf32")
+        del qd, kf, vf, out, ref, cut, kh, vh, qh, mask
+
+    # K2 beam form, fp32 (FFMA): 12 groups x 5 beams over T=1500, fp32 K/V
+    # (compute KV) and packed int4 with bf16 per-head scales
+    for kv, key in (("fp32", "K2beamf32"), ("int4", "K2beamf32int4")):
+        qb = randn(g_b, k_b, h, 64, seed=52, dtype=f32)
+        kf, ks = f32_kv(randn(g_b, t_enc, d, seed=53, dtype=f32), h, kv)
+        vf, vs = f32_kv(randn(g_b, t_enc, d, seed=54, dtype=f32), h, kv)
+        kw = dict(n_heads=h, k_scale=ks, v_scale=vs)
+        out = da.decode_attention_beam(qb, kf, vf, **kw)
+        ref = da.decode_attention_reference_beam(qb, kf, vf, **kw)
+        cut = da.decode_attention_reference_beam(
+            qb, kf[:, 64:], vf[:, 64:], n_heads=h,
+            k_scale=None if ks is None else ks[:, 64:], v_scale=None if vs is None else vs[:, 64:])
+        kh, vh, qh = f32_heads(kf, ks, h), f32_heads(vf, vs, h), qb.transpose(1, 2)
+        f32_record(
+            f"K2 decode_attention cross beam fp32 q, {mode_tag.get(kv, kv)} K/V (G={g_b} x "
+            f"K={k_b}, T={t_enc}, D={d})",
+            "kotoba_whisper_tpu_torch/csrc/decode_attention_beam.cu",
+            "kotoba_whisper_tpu/ops/decode_attention.py:114", out, ref, cut,
+            lambda: da.decode_attention_beam(qb, kf, vf, **kw),
+            lambda: da.decode_attention_reference_beam(qb, kf, vf, **kw),
+            lambda: F.scaled_dot_product_attention(qh, kh, vh),
+            bound(4.0 * g_b * k_b * t_enc * d, fp32_rate, nbytes(qb, kf, vf, ks, vs, out),
+                  mem_rate), key)
+        del qb, kf, vf, ks, vs, out, ref, cut, kh, vh, qh
+    del kw
+    log(f"[kernel] after the fp32 records: {card_memory()}")
 
     # ---- 4. main path -----------------------------------------------------
     t0 = time.perf_counter()
@@ -2071,6 +2289,183 @@ def main() -> int:
                      "K2ringint4": j_counts["c"]["K2ring"]}
     del audio_js, audio_jg, pipe_j
 
+    # ---- 4k. fp32 at large-v3 width and depth --------------------------------
+    # The JAX package's --dtype float32: large-v3 with seeded random fp32
+    # weights (unfused), fp32 log-mel in, through the kernels' fp32 forms:
+    # (a) phase 4's B=16 batch, prompt + 48 tokens, eot off, int8 KV and
+    # compute (fp32) KV, launches exact; (b) 4f's beam search (12 x 5) with
+    # compute and int4 KV; (c) a stream on 4e's settings over its first 48
+    # windows, compute KV (K2's fp32 ring form); (d) AsrPipeline at 30 s, 1
+    # warm-up and 3 trials; (e) at B=2 on three seeds the kernel path, run
+    # under torch's default TF32 flags (cuDNN's allow_tf32 on) so that the
+    # model code alone keeps TF32 out, against the plain path: the encoder
+    # and the first-step logits within F32_PATH_TOL and the 48 greedy tokens
+    # equal. Audio-s/s beside phases 4 and 4f, the fp32 cross cache's bytes.
+    t_k = time.perf_counter()
+    model32 = whisper.init_params(large, torch.Generator(device="cuda").manual_seed(0),
+                                  device="cuda", dtype=torch.float32)
+    audio32 = torch.from_numpy(audio_np).cuda()
+    k_walls, k_counts = {}, {}
+
+    def k_run(label, fn):
+        torch.cuda.synchronize()
+        reset_every()
+        t = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        k_walls[label] = time.perf_counter() - t
+        k_counts[label] = nonzero(every_count())
+        return r
+
+    def greedy32(x, kv):
+        return generate_greedy(model32, mel.log_mel_spectrogram(x, feat), opts, st_fixed,
+                               kv_dtype=kv)
+
+    for kv in ("int8", "compute"):
+        greedy32(audio32, kv)  # warm-up
+        toks_k = k_run(f"a-{kv}", lambda: greedy32(audio32, kv)).cpu().numpy()
+        log(f"[4k-a] fp32 B={B} x {NEW_TOKENS} tokens, {kv} KV: wall {k_walls[f'a-{kv}']:.3f} s, "
+            f"{B * feat.chunk_length_s / k_walls[f'a-{kv}']:.1f} audio-s/s (phase 4, bf16, int8: "
+            f"{B * feat.chunk_length_s / wall:.1f}) [{card}]; launches {k_counts[f'a-{kv}']}")
+        if k_counts[f"a-{kv}"] != expect or toks_k.shape != toks_host.shape or not (
+                (toks_k[:, : len(prompt)] == prompt).all()
+                and ((toks_k >= 0) & (toks_k < large.vocab_size)).all()):
+            raise AssertionError(f"4k(a) {kv}: launches {k_counts[f'a-{kv}']} (expected "
+                                 f"{expect}) or tokens")
+    feats_k = mel.log_mel_spectrogram(audio32, feat)
+    enc_k = whisper.encode(model32, feats_k)
+    cross32 = {}
+    for kv in ("compute", "int8"):
+        c = whisper.init_cache(model32, enc_k, cap, kv_dtype=kv)
+        cross32[kv] = nbytes(c.cross_k, c.cross_v, c.cross_k_scale, c.cross_v_scale)
+        del c
+    del feats_k, enc_k
+    torch.cuda.empty_cache()
+    log(f"[4k-a] cross cache at B={B}: fp32 {cross32['compute'] / 1e9:.4f} GB, int8 with its "
+        f"scales {cross32['int8'] / 1e9:.4f} GB")
+
+    def beam32(kv):
+        return generate_beam(model32, mel.log_mel_spectrogram(audio_f[:g_f], feat), opts_f,
+                             st_fixed, num_beams=k_f, kv_dtype=kv)
+
+    want = {"K1": large.encoder_layers, "K2": large.decoder_layers * NEW_TOKENS,
+            "K2beam": large.decoder_layers * NEW_TOKENS, "K3": 1}
+    for kv in ("compute", "int4"):
+        beam32(kv)  # warm-up
+        toks_kb, scores_kb = (t.cpu().numpy() for t in k_run(f"b-{kv}", lambda: beam32(kv)))
+        log(f"[4k-b] fp32 beam search {g_f} x {k_f}, {kv} KV: wall {k_walls[f'b-{kv}']:.3f} s, "
+            f"{g_f * feat.chunk_length_s / k_walls[f'b-{kv}']:.1f} audio-s/s (4f, bf16, int8: "
+            f"{g_f * feat.chunk_length_s / wall_b:.1f}) [{card}]; launches {k_counts[f'b-{kv}']}")
+        if k_counts[f"b-{kv}"] != want or not (np.isfinite(scores_kb).all()
+                                               and (toks_kb[:, : len(prompt)] == prompt).all()):
+            raise AssertionError(f"4k(b) {kv}: launches {k_counts[f'b-{kv}']} (expected {want}) "
+                                 "or scores")
+
+    audio_ks = step_time.stream_workload(st, feat)[0][:J_STREAM_WINDOWS].clone()
+    torch.cuda.empty_cache()
+
+    def stream32(n_run):
+        return step_time.run_stream(model32, audio_ks[:n_run], opts_s, st_fixed, stops_s, feat,
+                                    kv_dtype="compute")
+
+    stream32(scfg.encode_batch)  # warm-up: the window's shapes are the run's
+    toks_ks = k_run("c", lambda: stream32(J_STREAM_WINDOWS))
+    steps_k = k_counts["c"].get("K2ring", 0) // large.decoder_layers
+    refills_k = J_STREAM_WINDOWS // scfg.encode_batch
+    want = {"K1": large.encoder_layers * refills_k, "K2": large.decoder_layers * steps_k,
+            "K2ring": large.decoder_layers * steps_k, "K3": refills_k}
+    log(f"[4k-c] fp32 stream, compute KV: {J_STREAM_WINDOWS} windows, W={scfg.batch}, "
+        f"E={scfg.encode_batch}: wall {k_walls['c']:.3f} s, "
+        f"{J_STREAM_WINDOWS * feat.chunk_length_s / k_walls['c']:.1f} audio-s/s (4e, bf16, "
+        f"int8, {n_s} windows: {n_s * feat.chunk_length_s / wall_s:.1f}) [{card}]; {steps_k} "
+        f"steps; launches {k_counts['c']}")
+    bad = [i for i in range(J_STREAM_WINDOWS) if not (
+        (toks_ks[i, :p_s] == prompt_s).all() and (toks_ks[i, stops_s[i]:] == pad).all())]
+    if k_counts["c"] != want or steps_k < 1 or bad:
+        raise AssertionError(f"4k(c): launches {k_counts['c']} (expected {want}), rows {bad[:10]}")
+    del audio_ks
+
+    pipe_k = AsrPipeline(model=model32, tok=serve_tok, max_length=SERVE_MAX_LENGTH,
+                         chunk_length_s=15.0)
+    with tempfile.TemporaryDirectory() as serve_dir:
+        recs_k = evaluate_speed(
+            pipe_k.transcribe, model_name="preset:large-v3", durations=(30,),
+            n_trials=SERVE_TRIALS, n_warmup=SERVE_WARMUP,
+            output_path=os.path.join(serve_dir, "runtime.jsonl"),
+            extra={"max_length": SERVE_MAX_LENGTH, "kv_dtype": "compute", "dtype": "float32",
+                   "chunk_length_s": 15.0})
+    out_k = k_run("d", lambda: pipe_k(generate_dummy_audio(30.0)))
+    mean_k = recs_k[0]["time (mean)"]
+    log(f"[4k-d] AsrPipeline large-v3 fp32, compute KV, 30 s: mean {mean_k:.4f} s of "
+        f"{SERVE_TRIALS} trials ({30 / mean_k:.1f} audio-s/s) [{card}]; one call's launches "
+        f"{k_counts['d']}; {check_transcript(out_k, 'fp32 30 s', 30.0)}")
+    if not (k_counts["d"].get("K2", 0) > 0 and k_counts["d"].get("K1") == large.encoder_layers):
+        raise AssertionError(f"4k(d): launches {k_counts['d']}")
+    del pipe_k
+
+    def path32(x):
+        """fp32 log-mel, the encoder, the first step's logits (compute KV)
+        and the 48 greedy tokens."""
+        feats_x = mel.log_mel_spectrogram(x, feat)
+        return (whisper.encode(model32, feats_x).float(),
+                first_step_logits(model32, feats_x, prompt, cap, kv_dtype="compute"),
+                generate_greedy(model32, feats_x, opts, st_fixed, kv_dtype="compute").cpu())
+
+    for seed in range(3):
+        small = audio32[:2] if seed == 0 else torch.from_numpy(
+            (np.random.default_rng(30 + seed).standard_normal((2, feat.n_samples)) * 0.1
+             ).astype(np.float32)).cuda()
+        # torch's own defaults for the kernel path: cuDNN may take TF32,
+        # cuBLAS may not (the model code turns both off for fp32)
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+        try:
+            enc_k, lg_k, tok_k = path32(small)
+            if seed == 0:
+                # a witness of what TF32 does here: the encoder with the
+                # model code's guard bypassed and both flags on
+                saved_guard = whisper.exact_fp32
+                whisper.exact_fp32 = lambda dtype: contextlib.nullcontext()
+                torch.backends.cuda.matmul.allow_tf32 = True
+                try:
+                    enc_tf32 = whisper.encode(model32, mel.log_mel_spectrogram(small, feat))
+                finally:
+                    whisper.exact_fp32 = saved_guard
+        finally:
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        with plain_path():
+            enc_p, lg_p, tok_p = path32(small)
+        if seed == 0:
+            tf32_rel = rel(enc_tf32, enc_p)
+            del enc_tf32
+        enc_rel, lg_rel = rel(enc_k, enc_p), rel(lg_k, lg_p)
+        same = bool(torch.equal(tok_k, tok_p))
+        log(f"[4k-e] B=2 seed {seed}, fp32 kernel path (torch's default TF32 flags) vs plain "
+            f"path on the card: encoder rel-L2 {enc_rel:.3e}, first-step logits rel-L2 "
+            f"{lg_rel:.3e} (tol {F32_PATH_TOL:g} each; the encoder under TF32 reads "
+            f"{tf32_rel:.3e}), max |logit diff| {float((lg_k - lg_p).abs().max()):.3e}, "
+            f"{NEW_TOKENS} greedy tokens equal: {same}")
+        if not (bool(torch.isfinite(enc_k).all() and torch.isfinite(lg_k).all())
+                and enc_rel <= F32_PATH_TOL and lg_rel <= F32_PATH_TOL and same):
+            raise AssertionError("4k(e): the fp32 kernel path disagrees with the plain path")
+    log(f"[4k] audio-s/s, fp32: (a) lockstep int8 KV "
+        f"{B * feat.chunk_length_s / k_walls['a-int8']:.1f}, compute KV "
+        f"{B * feat.chunk_length_s / k_walls['a-compute']:.1f}, (b) beam compute KV "
+        f"{g_f * feat.chunk_length_s / k_walls['b-compute']:.1f}, int4 KV "
+        f"{g_f * feat.chunk_length_s / k_walls['b-int4']:.1f}, (c) stream "
+        f"{J_STREAM_WINDOWS * feat.chunk_length_s / k_walls['c']:.1f}, (d) serving 30 s "
+        f"{30 / mean_k:.1f}; bf16 in this call: phase 4 {B * feat.chunk_length_s / wall:.1f}, "
+        f"4f {g_f * feat.chunk_length_s / wall_b:.1f}; {time.perf_counter() - t_k:.1f} s for "
+        f"the phase [{card}]")
+    fp32_launches = {"K1f32": k_counts["a-compute"]["K1"], "K2f32": k_counts["a-compute"]["K2"],
+                     "K2f32int8": k_counts["a-int8"]["K2"],
+                     "K2beamf32": k_counts["b-compute"]["K2beam"],
+                     "K2beamf32int4": k_counts["b-int4"]["K2beam"],
+                     "K2ringf32": k_counts["c"]["K2ring"]}
+    # nothing of the phase stays on the card: a small tensor left in a split
+    # block of one of its large segments would keep the whole segment
+    del model32, audio32, small, enc_k, lg_k, enc_p, lg_p
+    log(f"[4k] after the phase: {card_memory()}")
+
     # 4i(b)'s one-card reference: the fused bf16 model and its w8a8 copy at
     # phase 4's B=16 input, tokens and first-step logits through the kernels
     feats_tp = mel.log_mel_spectrogram(audio, feat).to(torch.bfloat16)
@@ -2312,6 +2707,7 @@ def main() -> int:
     # 5e-2, each rank's launches and wall (two ranks on one card: a record,
     # not a claim); then K2's beam and ring forms at 10 heads.
     tp_dir = tempfile.mkdtemp(prefix="tp2_")
+    log(f"[4i-b] before the ranks start: {card_memory()}")
     t0 = time.perf_counter()
     spawn_ranks(tp_rank, free_port(), tp_dir)
     tp_spawn_s = time.perf_counter() - t0
@@ -2381,7 +2777,12 @@ def main() -> int:
                 (["--gemm_dtype", "int8"], {"KWT_FA_INT8": "qk"}, {"K8": 32 * n_batches}),
                 (["--streaming"], {}, {"K1": 32 * n_batches}),
                 (["--num_beams", "3"], {}, {"K1": 32 * n_batches}),
-                (["--streaming", "--num_beams", "3"], {}, {"K1": 32 * n_utts})):
+                (["--streaming", "--num_beams", "3"], {}, {"K1": 32 * n_utts}),
+                # --dtype float32 (the kernels' fp32 forms) in lockstep,
+                # continuous batching and beam search
+                (["--dtype", "float32"], {}, {"K1": 32 * n_batches}),
+                (["--dtype", "float32", "--streaming"], {}, {"K1": 32 * n_batches}),
+                (["--dtype", "float32", "--num_beams", "3"], {}, {"K1": 32 * n_batches})):
             out = os.path.join(tmp, "out" + "".join(extra))
             t0 = time.perf_counter()
             buf = io.StringIO()
@@ -2409,6 +2810,10 @@ def main() -> int:
                 raise AssertionError(f"driver wrote {len(rows)} records for {n_utts} utterances")
             if {k: counts.get(k, 0) for k in ("K1", "K8") if counts.get(k)} != expect_enc:
                 raise AssertionError(f"driver encoder launches {counts}, expected {expect_enc}")
+            if "--streaming" in extra and not counts.get("K2ring"):
+                raise AssertionError(f"--streaming: no K2 ring launch in {counts}")
+            if "--num_beams" in extra and not counts.get("K2beam"):
+                raise AssertionError(f"--num_beams: no K2 beam launch in {counts}")
             if extra[:1] == ["--streaming"] and "--num_beams" in extra and not (
                     counts.get("K2ring") and counts.get("K2ring") == counts.get("K2beam")):
                 raise AssertionError(f"--streaming --num_beams: K2 ring and beam launches {counts}")
@@ -2542,6 +2947,20 @@ def main() -> int:
                 and all(torch.isfinite(p).all() for p in exported.parameters())):
             raise AssertionError(f"training driver run is incomplete:\n{said[-3000:]}")
         del exported
+        # create-student --dtype float32: its dummy forward (4 encoder layers,
+        # 2 decoder layers) through the fp32 K1 (self and cross) and K4
+        buf = io.StringIO()
+        reset_every()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            cli(["create-student", "--teacher", "preset:large-v3", "--save_dir",
+                 os.path.join(tmp, "student32"), "--encoder_layers", "4", "--decoder_layers", "2",
+                 "--dtype", "float32"])
+        create32_counts = nonzero(every_count())
+        log(f"[driver] create-student --dtype float32: {buf.getvalue().strip()[-200:]} in "
+            f"{time.perf_counter() - t0:.1f} s; launches {create32_counts}")
+        if create32_counts != {"K1": 4 + 2, "K4": 2}:
+            raise AssertionError(f"create-student --dtype float32 launches {create32_counts}")
 
         # ---- 5c. bilingual distillation through the CLI ---------------------------
         # Stage 2 with two columns (--text_lang_task ja:transcribe,en:translate),
@@ -2667,6 +3086,36 @@ def main() -> int:
         if not (len(speed_rows) == 1 and speed_rows[0]["attention"] == "cuda"
                 and speed_rows[0]["device"].startswith("cuda:") and speed_counts.get("K3") == 3):
             raise AssertionError(f"speed wrote {speed_rows} with launches {speed_counts}")
+        # stage 6 in fp32: eval and speed --dtype float32 on the same student
+        eval32 = os.path.join(tmp, "eval_fp32")
+        buf = io.StringIO()
+        reset_every()
+        with contextlib.redirect_stdout(buf):
+            cli(["eval", "--model", student_dir, "--tokenizer", "byte", "--dataset_dir", eval_set,
+                 "--dataset_name", "synth", "--output_dir", eval32, "--dtype", "float32"])
+        eval32_counts = nonzero(every_count())
+        with open(os.path.join(eval32, "metric.ja.transcribe.jsonl")) as f:
+            metric32 = json.loads(f.read().splitlines()[-1])
+        log(f"[driver] eval --dtype float32: cer_norm {metric32['cer_norm']:.2f}, wer_norm "
+            f"{metric32['wer_norm']:.2f}; launches {eval32_counts}")
+        if not (eval32_counts.get("K1") == 4 * n_eval and eval32_counts.get("K3") == n_eval
+                and eval32_counts.get("K2")):
+            raise AssertionError(f"eval --dtype float32 launches {eval32_counts}")
+        runtime32 = os.path.join(tmp, "runtime_fp32.jsonl")
+        buf = io.StringIO()
+        reset_every()
+        with contextlib.redirect_stdout(buf):
+            cli(["speed", "--model", student_dir, "--tokenizer", "byte", "--durations", "10",
+                 "--n_trials", "1", "--output", runtime32, "--dtype", "float32"])
+        speed32_counts = nonzero(every_count())
+        with open(runtime32) as f:
+            speed32_rows = [json.loads(line) for line in f]
+        log(f"[driver] speed --dtype float32: {json.dumps(speed32_rows)}; launches "
+            f"{speed32_counts} [{smi}]")
+        if not (len(speed32_rows) == 1 and speed32_counts.get("K3") == 3
+                and speed32_counts.get("K1") and speed32_counts.get("K2")):
+            raise AssertionError(f"speed --dtype float32 wrote {speed32_rows} with launches "
+                                 f"{speed32_counts}")
         for argv in (["--metric_jsonl", os.path.join(eval_dirs["cached"],
                                                       "metric.ja.transcribe.jsonl")],
                      ["--metric_jsonl", runtime_jsonl, "--runtime"]):
@@ -2711,7 +3160,8 @@ def main() -> int:
         "K8qk": enc_launches["KWT_FA_INT8=qk"]["K8"],
         "K8qkpv": enc_launches["KWT_FA_INT8=qkpv"]["K8"],
         "K9softmax": tool_launches["vpu_cal softmax"].get("K9", 0),
-        "K9exp": tool_launches["vpu_cal exp"].get("K9", 0), **tp_launches, **int4_launches}
+        "K9exp": tool_launches["vpu_cal exp"].get("K9", 0), **tp_launches, **int4_launches,
+        **fp32_launches, "K4f32": create32_counts["K4"]}
     for rec in records:
         rec["launches"] = path_launches[launch_key[rec["name"]]]
         if launch_key[rec["name"]] in serve_launches:  # 4h: large-v3 (a), 300 s; beam at 30 s

@@ -3,8 +3,8 @@
 Maximally spaced layer selection (models/student_init.py), export in HF
 layout, then reload the export and run a dummy forward pass (30 s of ones)
 as a sanity check, as the JAX driver does. The flags mirror the JAX
-driver's; --device and --dtype (the check's compute dtype; the kernels on
-the card take bfloat16) are the port's.
+driver's; --device and --dtype (the check's compute dtype: bfloat16, or
+float32 through the kernels' fp32 forms on the card) are the port's.
 
 Usage:
   python -m kotoba_whisper_tpu_torch.cli.create_student \
@@ -39,9 +39,7 @@ def main(argv=None) -> None:
     from kotoba_whisper_tpu_torch.train.checkpoint import export_hf_model, import_hf_model
 
     dev = resolve_device(arg.device)
-    if dev.type == "cuda" and arg.dtype != "bfloat16":
-        raise SystemExit(f"create_student: --dtype {arg.dtype} on the card is not ported "
-                         "yet (K1 and K4 take bfloat16)")
+    common.refuse_unported_fp32("create_student", arg.dtype, dev)
     dtype = torch.bfloat16 if arg.dtype == "bfloat16" else torch.float32
 
     teacher, t_cfg = common.load_model(arg.teacher, dev, torch.float32, seed=arg.seed)

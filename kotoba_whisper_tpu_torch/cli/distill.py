@@ -9,8 +9,9 @@ JAX driver's metric names (train/loss|ce_loss|kl_loss|grad_norm|
 learning_rate|time) and exports the student in HF layout at the end.
 
 The flags mirror the JAX driver's. Not ported (they raise): wandb, and
---dtype float32 on the card (K1, K4 and K5 take bfloat16). On the CPU
-(--device cpu) float32 runs through the kernels' plain twins.
+--dtype float32 on the card (K5, the attention backward, takes bfloat16;
+its fp32 form is not ported yet). On the CPU (--device cpu) float32 runs
+through the kernels' plain twins.
 
 Parallel runs, one process a card: --num_devices N takes N cards of this
 host (default: every card; one process with --device cpu), a mesh of
@@ -87,7 +88,7 @@ def _check_ported(arg, dev: torch.device) -> None:
     unported = [
         (arg.wandb_project is not None, "--wandb_project"),
         (dev.type == "cuda" and arg.dtype != "bfloat16",
-         f"--dtype {arg.dtype} on the card (K1, K4 and K5 take bfloat16)"),
+         f"--dtype {arg.dtype} on the card (K5's fp32 form)"),
     ]
     for bad, what in unported:
         if bad:

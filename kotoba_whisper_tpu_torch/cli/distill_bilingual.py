@@ -4,8 +4,8 @@ N datasets zipped a step, each at its own sub-batch, per-(task, language)
 CE, KL only where a dataset asks for it, one student encoder pass per
 dataset's audio (train/distill_multitask.py owns the loss). The flags
 mirror the JAX driver's; --device cpu runs the plain twins on the CPU in
-either --dtype, and --dtype float32 on the card raises (K1, K4 and K5
-take bfloat16).
+either --dtype, and --dtype float32 on the card raises (K5, the attention
+backward, takes bfloat16; its fp32 form is not ported yet).
 
 Dataset spec syntax (repeatable):
   --dataset name:dir:key1+key2:kl     e.g. ja:/work/ja:transcribe.ja+translate.en:kl
@@ -92,8 +92,8 @@ def main(argv=None) -> None:
 
     dev = resolve_device(arg.device)
     if dev.type == "cuda" and arg.dtype != "bfloat16":
-        raise SystemExit(f"distill_bilingual: --dtype {arg.dtype} on the card is not "
-                         "ported yet (K1, K4 and K5 take bfloat16)")
+        raise SystemExit(f"distill_bilingual: --dtype {arg.dtype} on the card (K5's fp32 "
+                         "form) is not ported yet")
     compute_dtype = torch.bfloat16 if arg.dtype == "bfloat16" else torch.float32
     specs, data = load_datasets(arg.dataset, common)
     common.load_tokenizer(arg.tokenizer)  # validates the spec, as the JAX driver does

@@ -14,8 +14,9 @@ The flags mirror the JAX driver's. As there, the attention projections
 are fused for inference unless --no_fuse is given, and --gemm_dtype int8
 quantizes the projections to w8a8, and --kv_dtype int8 or int4 quantizes
 the KV cache (int4: packed cross K/V with per-head scales, read by K2).
-Not ported (it raises): --dtype float32 on the card (K1 and K2 take
-bfloat16).
+--dtype float32 runs on the card through the fp32 forms of K1 and K2, in
+every decode mode and KV dtype. Not ported (it raises): KWT_FA_INT8 with
+--dtype float32 on the card (K8's fp32-q form).
 
 Parallel runs, one process a card:
   - --num_devices N --mesh_model_axis M takes N x M cards of this host:
@@ -96,9 +97,9 @@ def _parser() -> argparse.ArgumentParser:
 
 
 def _check_ported(arg, dev: torch.device) -> None:
-    if dev.type == "cuda" and arg.dtype != "bfloat16":
-        raise SystemExit(f"pseudo_label: --dtype {arg.dtype} on the card (K1 and K2 take "
-                         "bfloat16) is not ported yet")
+    from kotoba_whisper_tpu_torch.cli.common import refuse_unported_fp32
+
+    refuse_unported_fp32("pseudo_label", arg.dtype, dev)
 
 
 def main(argv=None) -> None:

@@ -4,10 +4,13 @@
 // through `decode_attention_flat`), and covers what the TPU main path
 // actually ran in its place, `decode_attention_reference`: int8 or int4
 // K/V with scales folded into the scores (k_scale) and the softmax weights
-// (v_scale), a lockstep scalar or per-row (B,) valid length. Four K/V
+// (v_scale), a lockstep scalar or per-row (B,) valid length. Five K/V
 // modes, each its own instantiation: bf16; int8 with fp32 per-row scales;
 // int8 with bf16 per-head scales (the int4 cache's self K/V); int4 packed
-// two a byte with bf16 per-head scales (its cross K/V).
+// two a byte with bf16 per-head scales (its cross K/V); fp32 (an fp32
+// model's compute cache). q and the output are bf16 with the first four,
+// and fp32 (the fp32 form: an fp32 model's step, every sum fp32 as before)
+// with the last three and fp32 K/V.
 //
 // What bounds it on the card: one query row per batch element against a
 // (B, T, H*64) cache, so every K/V byte is read once and used for one
@@ -39,7 +42,9 @@
 // to the CTA that owns the slice, and its per-head max and sum to all, and
 // after one cluster barrier each owner writes its slice: no fp32 partials
 // in device memory and no second launch. The self-attention cache
-// (T <= 64) is one CTA per row.
+// (T <= 64) is one CTA per row. An fp32 row of 20 heads is 5120 bytes: a
+// stage holds 4 rows, and a thread's chunk is 32 bytes (an eighth of a
+// head), so the fp32 form keeps the bf16 form's lanes and groups.
 #include "card.cuh"
 #include "sm90_common.cuh"
 
@@ -83,18 +88,19 @@ struct Layout {
   }
 };
 
-// KV: int8_t, __nv_bfloat16 or Int4 (the element type of the cache's
-// rows); kHeads: bf16 (B, T, H) scales, else fp32 (B, T) or none (bf16).
-template <typename KV, bool kHeads>
+// KV: int8_t, __nv_bfloat16, Int4 or float (the element type of the
+// cache's rows); kHeads: bf16 (B, T, H) scales, else fp32 (B, T) or none
+// (bf16, fp32); QT: q's and the output's type, bf16 or float.
+template <typename KV, bool kHeads, typename QT>
 __global__ void __launch_bounds__(kThreads, 2)
-    decode_kernel(const __nv_bfloat16* __restrict__ q, long q_stride,
+    decode_kernel(const QT* __restrict__ q, long q_stride,
                   const uint8_t* __restrict__ k, const uint8_t* __restrict__ v,
                   const void* __restrict__ k_scale, const void* __restrict__ v_scale,
                   const int* __restrict__ valid_rows, int valid_all,
-                  __nv_bfloat16* __restrict__ out, int t_cap, int n_heads, int rows_per_cta) {
+                  QT* __restrict__ out, int t_cap, int n_heads, int rows_per_cta) {
   using C = Chunk<KV>;
   constexpr int kElems = C::kElems;
-  constexpr int kLanesPerHead = kHD / kElems;  // 4 (int8, int4) or 8 (bf16)
+  constexpr int kLanesPerHead = kHD / kElems;  // 4 (int8, int4) or 8 (bf16, fp32)
   constexpr int kStages = kStagesOf<kHeads>;
   extern __shared__ __align__(128) uint8_t smem[];
   const int d = n_heads * kHD;
@@ -161,10 +167,9 @@ __global__ void __launch_bounds__(kThreads, 2)
     const int h = col / kLanesPerHead;
     float qr[kElems];  // this chunk of q, pre-scaled by 1/sqrt(64) * log2(e)
     {
-      const __nv_bfloat16* qp = q + (long)b * q_stride + col * kElems;
+      const QT* qp = q + (long)b * q_stride + col * kElems;
 #pragma unroll
-      for (int e = 0; e < kElems; ++e)
-        qr[e] = active ? __bfloat162float(qp[e]) * (0.125f * kLog2e) : 0.f;
+      for (int e = 0; e < kElems; ++e) qr[e] = active ? to_f32(qp[e]) * (0.125f * kLog2e) : 0.f;
     }
     if (kHeads) {  // the CTA's rows' scales are contiguous: (rows, H)
       const __nv_bfloat16* ksg = static_cast<const __nv_bfloat16*>(k_scale) + row0 * n_heads;
@@ -312,12 +317,12 @@ __global__ void __launch_bounds__(kThreads, 2)
           o = fmaf(recv_acc[r * per_rank + c - c0], f, o);
         }
       }
-      out[(long)b * d + c] = __float2bfloat16(l > 0.f ? o / l : 0.f);
+      out[(long)b * d + c] = from_f32<QT>(l > 0.f ? o / l : 0.f);
     }
   }
 }
 
-template <typename KV, bool kHeads>
+template <typename KV, bool kHeads, typename QT>
 int launch(int card, const void* q, long q_stride, const void* k, const void* v,
            const void* k_scale, const void* v_scale, const void* valid_rows, int valid_all,
            void* out, int batch, int t_cap, int n_heads, int n_ctas, int rows_per_cta,
@@ -329,7 +334,7 @@ int launch(int card, const void* q, long q_stride, const void* k, const void* v,
   int& configured = configured_of[card];
   if (configured < lay.total) {
     const cudaError_t err = cudaFuncSetAttribute(
-        decode_kernel<KV, kHeads>, cudaFuncAttributeMaxDynamicSharedMemorySize, lay.total);
+        decode_kernel<KV, kHeads, QT>, cudaFuncAttributeMaxDynamicSharedMemorySize, lay.total);
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = lay.total;
   }
@@ -346,47 +351,52 @@ int launch(int card, const void* q, long q_stride, const void* k, const void* v,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   return static_cast<int>(cudaLaunchKernelEx(
-      &cfg, decode_kernel<KV, kHeads>, static_cast<const __nv_bfloat16*>(q), q_stride,
+      &cfg, decode_kernel<KV, kHeads, QT>, static_cast<const QT*>(q), q_stride,
       static_cast<const uint8_t*>(k), static_cast<const uint8_t*>(v), k_scale, v_scale,
-      static_cast<const int*>(valid_rows), valid_all, static_cast<__nv_bfloat16*>(out), t_cap,
+      static_cast<const int*>(valid_rows), valid_all, static_cast<QT*>(out), t_cap,
       n_heads, rows_per_cta));
 }
 
 }  // namespace
 
-// q (B, H*64) bf16, rows q_stride elements apart (a row of a fused qkv
-// projection is read in place); k/v (B, T, H*64) by kv_mode
-// (ops/decode_attention.py KV_*): 0 bf16, no scales; 1 int8 with fp32
-// (B, T) scales (nullable); 2 int8 with bf16 (B, T, H) scales; 3 int4
-// packed two a byte, (B, T, H*32) bytes, with bf16 (B, T, H) scales.
+// q (B, H*64) bf16, or fp32 where q_f32 is set, rows q_stride elements
+// apart (a row of a fused qkv projection is read in place); k/v (B, T,
+// H*64) by kv_mode (ops/decode_attention.py KV_*): 0 bf16, no scales; 1
+// int8 with fp32 (B, T) scales (nullable); 2 int8 with bf16 (B, T, H)
+// scales; 3 int4 packed two a byte, (B, T, H*32) bytes, with bf16 (B, T, H)
+// scales; 4 fp32, no scales. bf16 q takes modes 0-3, fp32 q modes 1-4.
 // valid_rows (B,) int32 or null, then valid_all applies to every row. One
 // cluster of n_ctas CTAs (<= 8) per batch row, each over rows_per_cta cache
-// rows (the split plan of ops/decode_attention.py). out (B, H*64) bf16.
-// Returns the launch's cudaError_t (cudaErrorInvalidValue for an unknown
-// mode).
+// rows (the split plan of ops/decode_attention.py). out (B, H*64) in q's
+// type. Returns the launch's cudaError_t (cudaErrorInvalidValue for a mode
+// it lacks).
 extern "C" int kwt_decode_attention(int card, const void* q, long long q_stride,
                                     const void* k, const void* v, const void* k_scale,
                                     const void* v_scale, const void* valid_rows, int valid_all,
                                     void* out, int batch, int t_cap, int n_heads, int n_ctas,
-                                    int rows_per_cta, int kv_mode, void* stream) {
+                                    int rows_per_cta, int kv_mode, int q_f32, void* stream) {
   const kwt_card::CardScope scope(card);
   if (scope.error()) return scope.error();
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long qs = (long)q_stride;
-  switch (kv_mode) {
-    case 0:
-      return launch<__nv_bfloat16, false>(card, q, qs, k, v, k_scale, v_scale, valid_rows,
-                                          valid_all, out, batch, t_cap, n_heads, n_ctas,
-                                          rows_per_cta, s);
-    case 1:
-      return launch<int8_t, false>(card, q, qs, k, v, k_scale, v_scale, valid_rows, valid_all,
-                                   out, batch, t_cap, n_heads, n_ctas, rows_per_cta, s);
-    case 2:
-      return launch<int8_t, true>(card, q, qs, k, v, k_scale, v_scale, valid_rows, valid_all,
-                                  out, batch, t_cap, n_heads, n_ctas, rows_per_cta, s);
-    case 3:
-      return launch<Int4, true>(card, q, qs, k, v, k_scale, v_scale, valid_rows, valid_all,
-                                out, batch, t_cap, n_heads, n_ctas, rows_per_cta, s);
+#define KWT_LAUNCH(KV, HEADS, QT)                                                              \
+  return launch<KV, HEADS, QT>(card, q, qs, k, v, k_scale, v_scale, valid_rows, valid_all, out, \
+                               batch, t_cap, n_heads, n_ctas, rows_per_cta, s)
+  if (q_f32) {
+    switch (kv_mode) {
+      case 1: KWT_LAUNCH(int8_t, false, float);
+      case 2: KWT_LAUNCH(int8_t, true, float);
+      case 3: KWT_LAUNCH(Int4, true, float);
+      case 4: KWT_LAUNCH(float, false, float);
+    }
+  } else {
+    switch (kv_mode) {
+      case 0: KWT_LAUNCH(__nv_bfloat16, false, __nv_bfloat16);
+      case 1: KWT_LAUNCH(int8_t, false, __nv_bfloat16);
+      case 2: KWT_LAUNCH(int8_t, true, __nv_bfloat16);
+      case 3: KWT_LAUNCH(Int4, true, __nv_bfloat16);
+    }
   }
+#undef KWT_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -68,6 +68,23 @@
 //   the fragments' column order, all counted on one mbarrier. Four consumer warps take tiles in turn, each
 //   with its own running state, and merge (max, sum, O) in shared memory
 //   at the end.
+//
+// The fp32 form (`beam_f32_kernel`: an fp32 model's beam step; fp32 q and
+// output; fp32 K/V, int8 with fp32 row scales, or int4 with bf16 per-head
+// scales) computes the same function with fp32 FFMAs only: mma.sync takes
+// no fp32 operands (TF32 would round q and P to 10 bits), and no product is
+// rounded. The grid and its key shares are the bf16 form's (`beam_plan`). A
+// CTA of four warps walks its share's 64-key tiles through a ring of stages
+// filled by 16-byte cp.asyncs of every thread (the keys' rows of the head,
+// zero past the share) and 4-byte ones of their scales; the tile is read
+// once for all its beams. Warp w takes keys 16w .. 16w + 15 of each tile:
+// a lane pair a key, each lane half the head dims against every beam's q
+// (broadcast from shared memory), the halves summed by one shuffle; then
+// each warp's own online softmax in log2 units over the keys it saw (its
+// running max and sum a beam), P * v_scale through the warp's slice of
+// shared memory, and O += P V with a lane owning two output dims of every
+// beam. The warps' states, and a cluster's key shares, merge as in the
+// bf16 form.
 #include <type_traits>
 
 #include "card.cuh"
@@ -623,6 +640,312 @@ int launch(int card, const void* q, long q_stride, const void* k, const void* v,
       v_scale, static_cast<__nv_bfloat16*>(out), t_len, n_heads, beams, keys_per_split));
 }
 
+
+// ---- the fp32 form ---------------------------------------------------------
+
+// The fp32 form's K/V modes: bytes of a head's row of a key, and the copy
+// ring's stages (ops/decode_attention.py BEAM_F32_STAGES).
+template <typename KV>
+struct F32Mode;
+template <>
+struct F32Mode<float> {
+  static constexpr int kRowBytes = 256, kStages = 3;
+};
+template <>
+struct F32Mode<int8_t> {
+  static constexpr int kRowBytes = 64, kStages = 6;
+};
+template <>
+struct F32Mode<Int4> {
+  static constexpr int kRowBytes = 32, kStages = 8;
+};
+
+// ops/decode_attention.py `beam_f32_smem_bytes` mirrors its size. K rows
+// are padded by 16 bytes so a warp's lanes, a key each, read distinct
+// banks; the warps' O and the CTA's merged state reuse K's ring after it
+// drains.
+template <typename KV>
+struct __align__(16) F32Smem {
+  static constexpr int kS = F32Mode<KV>::kStages, kRow = F32Mode<KV>::kRowBytes;
+  struct Fin {
+    float o[kConsumerWarps][kRows][kHD];
+    float fo[kRows][kHD];
+    float fm[kRows], fl[kRows];
+  };
+  union {
+    uint8_t k[kS][kKeys][kRow + 16];
+    Fin fin;
+  };
+  uint8_t v[kS][kKeys][kRow];
+  float ks[kS][kKeys], vs[kS][kKeys];  // int4: the 4-byte words holding the bf16s
+  float q[kRows][kHD];
+  float p[kConsumerWarps][kRows][16];
+  float m[kConsumerWarps][kRows], l[kConsumerWarps][kRows];
+};
+
+// Dims 2i and 2i + 1 of a key's head row, as floats.
+__device__ __forceinline__ float2 load2(const float* row, int i) {
+  return reinterpret_cast<const float2*>(row)[i];
+}
+__device__ __forceinline__ float2 load2(const int8_t* row, int i) {
+  const char2 x = reinterpret_cast<const char2*>(row)[i];
+  return make_float2(x.x, x.y);
+}
+__device__ __forceinline__ float2 load2(const Int4* row, int i) {
+  const uint32_t x = reinterpret_cast<const uint8_t*>(row)[i];
+  return make_float2((int)((x & 0xF) ^ 8) - 8, (int)((x >> 4) ^ 8) - 8);
+}
+
+// KV: float (no scales), int8_t (fp32 (G, T) scales) or Int4 (bf16 (G, T,
+// H) scales). q and out fp32.
+template <typename KV>
+__global__ void __launch_bounds__(128, 2)
+    beam_f32_kernel(const float* __restrict__ q, long q_stride, const uint8_t* __restrict__ k,
+                    const uint8_t* __restrict__ v, const void* __restrict__ k_scale,
+                    const void* __restrict__ v_scale, float* __restrict__ out, int t_len,
+                    int n_heads, int beams, int keys_per_split) {
+  constexpr bool kInt4 = kIsInt4<KV>, kScaled = !std::is_same<KV, float>::value;
+  constexpr int kS = F32Mode<KV>::kStages, kRow = F32Mode<KV>::kRowBytes;
+  constexpr int kElems = Chunk<KV>::kElems, kBytes = Chunk<KV>::kBytes;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  F32Smem<KV>& s = *reinterpret_cast<F32Smem<KV>*>(smem_raw);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int rank = blockIdx.x, n_ranks = gridDim.x;
+  const int h = blockIdx.y % n_heads, mt = blockIdx.y / n_heads, g = blockIdx.z;
+  const int k_begin = rank * keys_per_split;
+  const int k_end = min(t_len, k_begin + keys_per_split);
+  const int n_tiles = (k_end - k_begin + kKeys - 1) / kKeys;
+  const int rows = min(kRows, beams - mt * kRows);  // beams of this tile
+  const long row_bytes = (long)n_heads * kRow;
+  const uint8_t* kg = k + (long)g * t_len * row_bytes + (long)h * kRow;
+  const uint8_t* vg = v + (long)g * t_len * row_bytes + (long)h * kRow;
+
+  // tile i's K and V rows (zero past the share) and scales into stage st
+  auto load_tile = [&](int i, int st) {
+    const int key0 = k_begin + i * kKeys;
+    for (int x = tid; x < kKeys * (kRow / 16); x += 128) {
+      const int key = x / (kRow / 16), off = (x % (kRow / 16)) * 16;
+      const bool in = key0 + key < k_end;
+      const long at = (long)(in ? key0 + key : k_begin) * row_bytes + off;
+      cp_async16(&s.k[st][key][off], kg + at, in ? 16 : 0);
+      cp_async16(&s.v[st][key][off], vg + at, in ? 16 : 0);
+    }
+    if (kScaled && tid < kKeys) {
+      const bool in = key0 + tid < k_end;
+      const long at = (long)g * t_len + (in ? key0 + tid : k_begin);
+      if (kInt4) {
+        // the aligned word holding bf16 at * H + h; its second half is past
+        // the tensor only for the last element, at an even index
+        const long el = at * n_heads + h, word = el & ~1L;
+        const long n_scales = (long)gridDim.z * t_len * n_heads;
+        const int bytes = in ? (el + 1 < n_scales || (el & 1) ? 4 : 2) : 0;
+        cp_async4(&s.ks[st][tid], static_cast<const __nv_bfloat16*>(k_scale) + word, bytes);
+        cp_async4(&s.vs[st][tid], static_cast<const __nv_bfloat16*>(v_scale) + word, bytes);
+      } else {
+        cp_async4(&s.ks[st][tid], static_cast<const float*>(k_scale) + at, in ? 4 : 0);
+        cp_async4(&s.vs[st][tid], static_cast<const float*>(v_scale) + at, in ? 4 : 0);
+      }
+    }
+  };
+#pragma unroll
+  for (int i = 0; i < kS - 1; ++i) {
+    if (i < n_tiles) load_tile(i, i);
+    cp_async_commit();
+  }
+  // the tile's beams' q, times 1/sqrt(64) * log2(e); zero rows past the beams
+  const float qscale = 0.125f * kLog2e;
+  for (int x = tid; x < kRows * kHD; x += 128) {
+    const int r = x / kHD, dd = x % kHD;
+    s.q[r][dd] = r < rows ? q[((long)g * beams + mt * kRows + r) * q_stride + h * kHD + dd] * qscale
+                          : 0.f;
+  }
+
+  const int kk = lane & 15, half = lane >> 4;  // this lane's key of the warp's 16, and dims half
+  const int key_w = 16 * warp + kk;             // its key in the tile
+  float m_run[kRows], l_run[kRows], o[kRows][2];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    m_run[r] = -INFINITY;
+    l_run[r] = 0.f;
+    o[r][0] = o[r][1] = 0.f;
+  }
+  for (int i = 0; i < n_tiles; ++i) {
+    const int st = i % kS;
+    cp_async_wait<kS - 2>();
+    __syncthreads();  // tile i landed for every thread; tile i - 1's stage is free
+    if (i + kS - 1 < n_tiles) load_tile(i + kS - 1, (i + kS - 1) % kS);
+    cp_async_commit();
+    const int left = k_end - (k_begin + i * kKeys);  // keys of the tile in range
+    const bool in = key_w < left;
+
+    // scores of this lane's key against every beam, over its half of the dims
+    float sc[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) sc[r] = 0.f;
+    const uint8_t* krow = &s.k[st][key_w][0];
+#pragma unroll
+    for (int ch = 0; ch < kHD / 2 / kElems; ++ch) {
+      const int d0 = half * (kHD / 2) + ch * kElems;
+      float x[kElems];
+      Chunk<KV>::load(krow + d0 / kElems * kBytes, x);
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        if (r < rows) {
+#pragma unroll
+          for (int e = 0; e < kElems; e += 4) {
+            const float4 qv = *reinterpret_cast<const float4*>(&s.q[r][d0 + e]);
+            sc[r] = fmaf(qv.x, x[e], sc[r]);
+            sc[r] = fmaf(qv.y, x[e + 1], sc[r]);
+            sc[r] = fmaf(qv.z, x[e + 2], sc[r]);
+            sc[r] = fmaf(qv.w, x[e + 3], sc[r]);
+          }
+        }
+      }
+    }
+    float ksc = 1.f, vsc = 1.f;
+    if (kScaled) {
+      ksc = s.ks[st][key_w];
+      vsc = s.vs[st][key_w];
+      if (kInt4) {
+        const int hi = (int)((((long)g * t_len + k_begin + i * kKeys + key_w) * n_heads + h) & 1);
+        ksc = bf16_half(ksc, hi);
+        vsc = bf16_half(vsc, hi);
+      }
+    }
+    // the warp's online softmax over its 16 keys, a running state a beam
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      if (r >= rows) continue;
+      float x = sc[r] + __shfl_xor_sync(0xffffffffu, sc[r], 16);
+      x = in ? x * ksc : -INFINITY;
+      float mx = x;
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m_run[r], mx);
+      const float base = m_new == -INFINITY ? 0.f : m_new;  // no key seen yet
+      const float corr = ex2(m_run[r] - base);
+      const float p = ex2(x - base);
+      m_run[r] = m_new;
+      l_run[r] = l_run[r] * corr + (half == 0 ? p : 0.f);
+      o[r][0] *= corr;
+      o[r][1] *= corr;
+      if (half == 0) s.p[warp][r][kk] = p * vsc;
+    }
+    __syncwarp();
+    // O += P V over the warp's 16 keys: this lane's dims 2 lane, 2 lane + 1
+#pragma unroll 4
+    for (int j = 0; j < 16; ++j) {
+      const float2 vv = load2(reinterpret_cast<const KV*>(&s.v[st][16 * warp + j][0]), lane);
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        if (r < rows) {
+          const float p = s.p[warp][r][j];
+          o[r][0] = fmaf(p, vv.x, o[r][0]);
+          o[r][1] = fmaf(p, vv.y, o[r][1]);
+        }
+      }
+    }
+    __syncwarp();
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // K's ring is drained: the warps' O take its place
+
+  // ---- this warp's state into shared memory, then the warps merged --------
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    float l = l_run[r];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) l += __shfl_xor_sync(0xffffffffu, l, off);
+    if (lane == 0) {
+      s.m[warp][r] = m_run[r];
+      s.l[warp][r] = l;
+    }
+    *reinterpret_cast<float2*>(&s.fin.o[warp][r][2 * lane]) = make_float2(o[r][0], o[r][1]);
+  }
+  __syncthreads();
+  const int row = tid >> 3, d0 = (tid & 7) * 8;
+  float mm = -INFINITY;
+#pragma unroll
+  for (int w = 0; w < kConsumerWarps; ++w) mm = fmaxf(mm, s.m[w][row]);
+  float ll = 0.f, acc[8] = {};
+#pragma unroll
+  for (int w = 0; w < kConsumerWarps; ++w) {
+    const float f = s.m[w][row] == -INFINITY ? 0.f : ex2(s.m[w][row] - mm);
+    ll = fmaf(f, s.l[w][row], ll);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc[e] = fmaf(f, s.fin.o[w][row][d0 + e], acc[e]);
+  }
+  float* dst = out + (((long)g * beams + mt * kRows + row) * n_heads + h) * kHD + d0;
+  if (n_ranks == 1) {
+    if (row < rows) {
+      const float inv = ll > 0.f ? 1.f / ll : 0.f;
+#pragma unroll
+      for (int e = 0; e < 8; e += 4)
+        *reinterpret_cast<float4*>(dst + e) =
+            make_float4(acc[e] * inv, acc[e + 1] * inv, acc[e + 2] * inv, acc[e + 3] * inv);
+    }
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < 8; ++e) s.fin.fo[row][d0 + e] = acc[e];
+  if ((tid & 7) == 0) {
+    s.fin.fm[row] = mm;
+    s.fin.fl[row] = ll;
+  }
+  // ---- key splits: rank 0 combines the cluster's (max, sum, O) ------------
+  cluster_sync();
+  if (rank == 0 && row < rows) {
+    float mx = -INFINITY;
+    for (int rk = 0; rk < n_ranks; ++rk) mx = fmaxf(mx, ld_cluster(&s.fin.fm[row], rk));
+    float lt = 0.f, ot[8] = {};
+    for (int rk = 0; rk < n_ranks; ++rk) {
+      const float m_r = ld_cluster(&s.fin.fm[row], rk);
+      const float f = m_r == -INFINITY ? 0.f : ex2(m_r - mx);
+      lt = fmaf(f, ld_cluster(&s.fin.fl[row], rk), lt);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) ot[e] = fmaf(f, ld_cluster(&s.fin.fo[row][d0 + e], rk), ot[e]);
+    }
+    const float inv = lt > 0.f ? 1.f / lt : 0.f;
+#pragma unroll
+    for (int e = 0; e < 8; e += 4)
+      *reinterpret_cast<float4*>(dst + e) =
+          make_float4(ot[e] * inv, ot[e + 1] * inv, ot[e + 2] * inv, ot[e + 3] * inv);
+  }
+  cluster_sync();  // no CTA leaves while rank 0 reads its shared memory
+}
+
+template <typename KV>
+int launch_f32(int card, const void* q, long q_stride, const void* k, const void* v,
+               const void* k_scale, const void* v_scale, void* out, int groups, int t_len,
+               int n_heads, int beams, int splits, int keys_per_split, cudaStream_t stream) {
+  constexpr int smem = static_cast<int>(sizeof(F32Smem<KV>));
+  static bool configured[kwt_card::kMaxCards] = {};
+  if (!configured[card]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        beam_f32_kernel<KV>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured[card] = true;
+  }
+  const int m_tiles = (beams + kRows - 1) / kRows;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(splits, n_heads * m_tiles, groups);
+  cfg.blockDim = dim3(128);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return static_cast<int>(cudaLaunchKernelEx(
+      &cfg, beam_f32_kernel<KV>, static_cast<const float*>(q), q_stride,
+      static_cast<const uint8_t*>(k), static_cast<const uint8_t*>(v), k_scale, v_scale,
+      static_cast<float*>(out), t_len, n_heads, beams, keys_per_split));
+}
+
 }  // namespace
 
 // q (G, K, H, 64) bf16, its G*K rows q_stride elements apart (a row of a
@@ -654,6 +977,34 @@ extern "C" int kwt_decode_attention_beam(int card, const void* q, long long q_st
     case 3:
       return launch<Int4>(card, q, qs, k, v, k_scale, v_scale, out, groups, t_len, n_heads,
                           beams, splits, keys_per_split, kv_mode, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The fp32 form: q (G, K, H, 64) fp32, rows q_stride elements apart; k/v
+// (G, T, H*64) by kv_mode: 4 fp32; 1 int8 with fp32 (G, T) scales; 3 int4
+// packed two a byte with bf16 (G, T, H) scales, 4-byte aligned; the grid
+// of `beam_plan` (splits, keys_per_split). out (G, K, H, 64) fp32. Returns
+// the launch's cudaError_t (cudaErrorInvalidValue for a mode it lacks).
+extern "C" int kwt_decode_attention_beam_f32(int card, const void* q, long long q_stride,
+                                             const void* k, const void* v, const void* k_scale,
+                                             const void* v_scale, void* out, int groups,
+                                             int t_len, int n_heads, int beams, int splits,
+                                             int keys_per_split, int kv_mode, void* stream) {
+  const kwt_card::CardScope scope(card);
+  if (scope.error()) return scope.error();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long qs = (long)q_stride;
+  switch (kv_mode) {
+    case 1:
+      return launch_f32<int8_t>(card, q, qs, k, v, k_scale, v_scale, out, groups, t_len, n_heads,
+                                beams, splits, keys_per_split, s);
+    case 3:
+      return launch_f32<Int4>(card, q, qs, k, v, k_scale, v_scale, out, groups, t_len, n_heads,
+                              beams, splits, keys_per_split, s);
+    case 4:
+      return launch_f32<float>(card, q, qs, k, v, k_scale, v_scale, out, groups, t_len, n_heads,
+                               beams, splits, keys_per_split, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -41,6 +41,19 @@
 // reduce by shuffles, and after a second barrier the warps' sums and O / l.
 // ring_pos and valid are read from device memory, so a captured CUDA graph
 // replays with the values of the moment.
+//
+// The fp32 form (`ring_f32_kernel`: an fp32 model's step; fp32 q and output,
+// fp32 K/V or int8 with either scale form, every sum fp32): one fp32 head's
+// slots take 512 bytes, so the decoder's most positions (T=448) need 229 KB
+// of K and V a head, more than a CTA's shared memory. So one CTA per (row,
+// head) walks its valid keys in boxes of `chunk` slots
+// (ops/decode_attention.py `ring_plan`: all of them where they fit two CTAs
+// an SM, 176 at the stream's T, else 192): 16-byte cp.asyncs of each key's
+// 64 columns at its ring slot, the box's scores (q / 8 times K times
+// k_scale, lanes of a head's row reduced by shuffles), the box's max over
+// the CTA, and P V with an online softmax across boxes: the running max m,
+// p = exp(s - m), and each thread's sum of p and its P V sums rescaled by
+// exp(m_old - m_new) when a box raises m.
 #include "card.cuh"
 #include "sm90_common.cuh"
 
@@ -307,6 +320,197 @@ int launch(int card, const void* q, long q_stride, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// ---- the fp32 form ---------------------------------------------------------
+
+// Shared memory of an fp32-form CTA over boxes of `chunk` slots of one head
+// (`row` bytes a slot): K (at least the warps' P V sums) and V of a box, its
+// two scales and scores a key, the warps' maxima and sums.
+// ops/decode_attention.py `ring_f32_smem_bytes` mirrors `total`.
+struct F32Layout {
+  int k, v, ks, vs, sc, m, lr, total;
+  __host__ __device__ F32Layout(int chunk, int row) {
+    k = 0;
+    v = (max(chunk * row, kWarps * kHD * 4) + 15) & ~15;
+    ks = v + ((chunk * row + 15) & ~15);
+    vs = ks + 4 * chunk;
+    sc = vs + 4 * chunk;
+    m = sc + 4 * chunk;
+    lr = m + 4 * kWarps;
+    total = lr + 4 * kWarps;
+  }
+};
+
+// KV: float (no scales) or int8_t (kHeads: bf16 (B, T, H) scales, else fp32
+// (B, T) ones). q and out fp32.
+template <typename KV, bool kHeads>
+__global__ void __launch_bounds__(kThreads)
+    ring_f32_kernel(const float* __restrict__ q, long q_stride, const uint8_t* __restrict__ k,
+                    const uint8_t* __restrict__ v, const void* __restrict__ k_scale,
+                    const void* __restrict__ v_scale, const int* __restrict__ valid_rows,
+                    int valid_all, const int* __restrict__ ring_pos, float* __restrict__ out,
+                    int t_cap, int n_heads, int chunk) {
+  constexpr bool kScaled = sizeof(KV) == 1;
+  constexpr int kRow = kHD * (int)sizeof(KV);  // a slot's bytes of one head
+  constexpr int kElems = Chunk<KV>::kElems, kBytes = Chunk<KV>::kBytes;
+  constexpr int kLanes = kHD / kElems;  // lanes of a key's dot: 8 (fp32) or 4 (int8)
+  constexpr int kCols = kRow / kBytes;  // column chunks of a slot in P V
+  constexpr int kGroups = kThreads / kCols;
+  extern __shared__ __align__(128) uint8_t smem[];
+  const F32Layout lay(chunk, kRow);
+  uint8_t* kb = smem + lay.k;
+  uint8_t* vb = smem + lay.v;
+  float* ks_s = reinterpret_cast<float*>(smem + lay.ks);
+  float* vs_s = reinterpret_cast<float*>(smem + lay.vs);
+  float* sc = reinterpret_cast<float*>(smem + lay.sc);
+  float* wm = reinterpret_cast<float*>(smem + lay.m);
+  float* lr = reinterpret_cast<float*>(smem + lay.lr);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int b = blockIdx.y, h = blockIdx.x;
+  const int valid = max(min(valid_rows ? valid_rows[b] : valid_all, t_cap), 0);
+  const int first = ((*ring_pos + 1 - valid) % t_cap + t_cap) % t_cap;  // slot of key 0
+  const long row_bytes = (long)n_heads * kRow;
+  const uint8_t* kh = k + (long)b * t_cap * row_bytes + (long)h * kRow;
+  const uint8_t* vh = v + (long)b * t_cap * row_bytes + (long)h * kRow;
+
+  const int c = tid % kLanes, dot0 = tid / kLanes;
+  constexpr int kPerPass = kThreads / kLanes;
+  float qr[kElems];  // this lane's chunk of q, times 1/sqrt(64) (exact)
+#pragma unroll
+  for (int e = 0; e < kElems; ++e)
+    qr[e] = q[(long)b * q_stride + h * kHD + c * kElems + e] * 0.125f;
+  const int col = tid % kCols, grp = tid / kCols;
+  float acc[kElems], l = 0.f, m_run = -INFINITY;
+#pragma unroll
+  for (int e = 0; e < kElems; ++e) acc[e] = 0.f;
+
+  for (int j0 = 0; j0 < valid; j0 += chunk) {
+    const int n = min(chunk, valid - j0);
+    // ---- the box's K and V by 16-byte cp.asyncs, its scales by plain loads
+    for (int i = tid; i < n * (kRow / 16); i += kThreads) {
+      const int key = i / (kRow / 16), off = (i % (kRow / 16)) * 16;
+      int slot = first + j0 + key;
+      if (slot >= t_cap) slot -= t_cap;
+      cp_async16(kb + key * kRow + off, kh + slot * row_bytes + off);
+      cp_async16(vb + key * kRow + off, vh + slot * row_bytes + off);
+    }
+    cp_async_commit();
+    if (kScaled) {
+      for (int key = tid; key < n; key += kThreads) {
+        int slot = first + j0 + key;
+        if (slot >= t_cap) slot -= t_cap;
+        const long at = (long)b * t_cap + slot;
+        if (kHeads) {
+          ks_s[key] = __bfloat162float(static_cast<const __nv_bfloat16*>(k_scale)[at * n_heads + h]);
+          vs_s[key] = __bfloat162float(static_cast<const __nv_bfloat16*>(v_scale)[at * n_heads + h]);
+        } else {
+          ks_s[key] = static_cast<const float*>(k_scale)[at];
+          vs_s[key] = static_cast<const float*>(v_scale)[at];
+        }
+      }
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+
+    // ---- the box's scores and the max of each warp's ---------------------
+    float mx = -INFINITY;
+    for (int it = 0; it < (n + kPerPass - 1) / kPerPass; ++it) {  // the same in every lane
+      const int key = dot0 + it * kPerPass;
+      float part = 0.f, part2 = 0.f;  // two chains
+      if (key < n) {
+        float x[kElems];
+        Chunk<KV>::load(kb + key * kRow + c * kBytes, x);
+#pragma unroll
+        for (int e = 0; e < kElems; e += 2) {
+          part = fmaf(x[e], qr[e], part);
+          part2 = fmaf(x[e + 1], qr[e + 1], part2);
+        }
+        part += part2;
+      }
+#pragma unroll
+      for (int off = kLanes / 2; off > 0; off >>= 1) part += __shfl_xor_sync(0xffffffffu, part, off);
+      if (key < n) {
+        const float s_ = kScaled ? part * ks_s[key] : part;
+        mx = fmaxf(mx, s_);
+        if (c == 0) sc[key] = s_;
+      }
+    }
+#pragma unroll
+    for (int off = kLanes; off < 32; off <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    if (lane == 0) wm[warp] = mx;
+    __syncthreads();
+
+    // ---- the running max, and P V of this thread's column chunk and keys
+    float m_new = m_run;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) m_new = fmaxf(m_new, wm[w]);
+    const float corr = expf(m_run - m_new);  // 0 on the first box
+    l *= corr;
+#pragma unroll
+    for (int e = 0; e < kElems; ++e) acc[e] *= corr;
+    for (int j = grp; j < n; j += kGroups) {
+      const float p = expf(sc[j] - m_new);
+      l += p;
+      const float w = kScaled ? p * vs_s[j] : p;
+      float x[kElems];
+      Chunk<KV>::load(vb + j * kRow + col * kBytes, x);
+#pragma unroll
+      for (int e = 0; e < kElems; ++e) acc[e] = fmaf(w, x[e], acc[e]);
+    }
+    m_run = m_new;
+    __syncthreads();  // the next box's copies overwrite K, V, the scales and scores
+  }
+
+  // the key groups of a warp (lanes kCols apart) by shuffles, then the
+  // warps' sums in K's place
+#pragma unroll
+  for (int off = kCols; off < 32; off <<= 1) {
+#pragma unroll
+    for (int e = 0; e < kElems; ++e) acc[e] += __shfl_xor_sync(0xffffffffu, acc[e], off);
+    l += __shfl_xor_sync(0xffffffffu, l, off);
+  }
+  float* red = reinterpret_cast<float*>(kb);  // (warps, 64)
+  if (lane < kCols) {
+#pragma unroll
+    for (int e = 0; e < kElems; ++e) red[warp * kHD + col * kElems + e] = acc[e];
+    if (col == 0) lr[warp] = l;
+  }
+  __syncthreads();
+  for (int i = tid; i < kHD; i += kThreads) {
+    float o = 0.f, ls = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      o += red[w * kHD + i];
+      ls += lr[w];
+    }
+    out[((long)b * n_heads + h) * kHD + i] = ls > 0.f ? o / ls : 0.f;
+  }
+}
+
+template <typename KV, bool kHeads>
+int launch_f32(int card, const void* q, long q_stride, const void* k, const void* v,
+               const void* k_scale, const void* v_scale, const void* valid_rows, int valid_all,
+               const void* ring_pos, void* out, int batch, int t_cap, int n_heads, int chunk,
+               cudaStream_t stream) {
+  const F32Layout lay(chunk, kHD * (int)sizeof(KV));
+  // per card: the largest shared-memory size opted into there
+  static int configured_of[kwt_card::kMaxCards] = {};
+  int& configured = configured_of[card];
+  if (configured < lay.total) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        ring_f32_kernel<KV, kHeads>, cudaFuncAttributeMaxDynamicSharedMemorySize, lay.total);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = lay.total;
+  }
+  ring_f32_kernel<KV, kHeads><<<dim3(n_heads, batch), kThreads, lay.total, stream>>>(
+      static_cast<const float*>(q), q_stride, static_cast<const uint8_t*>(k),
+      static_cast<const uint8_t*>(v), k_scale, v_scale, static_cast<const int*>(valid_rows),
+      valid_all, static_cast<const int*>(ring_pos), static_cast<float*>(out), t_cap, n_heads,
+      chunk);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // q (B, H*64) bf16, rows q_stride elements apart; k/v (B, T, H*64) by
@@ -338,6 +542,36 @@ extern "C" int kwt_decode_attention_ring(int card, const void* q, long long q_st
     case 2:
       return launch<int8_t, true>(card, q, qs, k, v, k_scale, v_scale, valid_rows, valid_all,
                                   ring_pos, out, batch, t_cap, n_heads, hpc, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The fp32 form: q (B, H*64) fp32, rows q_stride elements apart; k/v (B,
+// T, H*64) by kv_mode: 4 fp32; 1 int8 with fp32 (B, T) scales; 2 int8 with
+// bf16 (B, T, H) scales; valid_rows, valid_all and ring_pos as above. One
+// CTA per (row, head), walking its keys in boxes of `chunk` slots
+// (ops/decode_attention.py `ring_plan`). out (B, H*64) fp32. Returns the
+// launch's cudaError_t (cudaErrorInvalidValue for a mode it lacks).
+extern "C" int kwt_decode_attention_ring_f32(int card, const void* q, long long q_stride,
+                                             const void* k, const void* v, const void* k_scale,
+                                             const void* v_scale, const void* valid_rows,
+                                             int valid_all, const void* ring_pos, void* out,
+                                             int batch, int t_cap, int n_heads, int chunk,
+                                             int kv_mode, void* stream) {
+  const kwt_card::CardScope scope(card);
+  if (scope.error()) return scope.error();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long qs = (long)q_stride;
+  switch (kv_mode) {
+    case 1:
+      return launch_f32<int8_t, false>(card, q, qs, k, v, k_scale, v_scale, valid_rows,
+                                       valid_all, ring_pos, out, batch, t_cap, n_heads, chunk, s);
+    case 2:
+      return launch_f32<int8_t, true>(card, q, qs, k, v, k_scale, v_scale, valid_rows, valid_all,
+                                      ring_pos, out, batch, t_cap, n_heads, chunk, s);
+    case 4:
+      return launch_f32<float, false>(card, q, qs, k, v, k_scale, v_scale, valid_rows, valid_all,
+                                      ring_pos, out, batch, t_cap, n_heads, chunk, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -2,9 +2,10 @@
 // (K1 and K4 in flash_attention_sm90.cu, K2 in decode_attention.cu and its
 // ring and beam forms, K5 in flash_attention_bwd.cu, K7 in conv_stem.cu, K8
 // in flash_attention_int8.cu): mbarriers, TMA tensor and 1-D bulk copies,
-// 4-byte cp.asyncs counted on mbarriers, named barriers, register
+// 4-byte cp.asyncs counted on mbarriers, 16-byte cp.asyncs counted in
+// groups, named barriers, register
 // reallocation, cluster barriers and distributed shared memory, K2's
-// KV chunk loads (bf16, int8 and packed int4), wgmma with its shared-memory descriptors, and on
+// KV chunk loads (fp32, bf16, int8 and packed int4), wgmma with its shared-memory descriptors, and on
 // the host the tensor-map encoder and a cache of encoded maps.
 #pragma once
 
@@ -148,6 +149,21 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_by
                "r"(src_bytes)
                : "memory");
 }
+// 16 bytes global -> shared (16-byte aligned at both ends), zero-filled
+// past src_bytes; counted in the thread's cp.async groups.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes = 16) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of this thread's cp.async groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 // This thread's arrival on the mbarrier (counted in its init), made when the
 // thread's cp.asyncs so far have completed.
 __device__ __forceinline__ void cp_async_mbar_arrive_noinc(uint64_t* bar) {
@@ -236,6 +252,30 @@ struct Chunk<__nv_bfloat16> {
     }
   }
 };
+// 8 fp32 values (32 bytes) as they are.
+template <>
+struct Chunk<float> {
+  static constexpr int kElems = 8, kBytes = 32, kBits = 32;
+  __device__ __forceinline__ static void load(const void* p, float* x) {
+    const float4 a = reinterpret_cast<const float4*>(p)[0];
+    const float4 b = reinterpret_cast<const float4*>(p)[1];
+    x[0] = a.x, x[1] = a.y, x[2] = a.z, x[3] = a.w;
+    x[4] = b.x, x[5] = b.y, x[6] = b.z, x[7] = b.w;
+  }
+};
+// K2's query and output element types: bf16, or fp32 in its fp32 forms.
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(float x) { return x; }
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) {
+  return x;
+}
 // Packed int4 K/V (models/whisper.py `pack_int4`): two columns a byte,
 // column 2j in byte j's low nibble, so nibble i of a 32-bit word is the
 // word's column i. A tag type: the data are bytes.

@@ -29,6 +29,11 @@ The functions take the inference transforms wherever the JAX package
 does: fused qkv/kv projections (models/optimized.py) and w8a8 projections
 (models/quantized.py).
 
+An fp32 model computes in fp32 on the card too: its attention runs through
+the kernels' fp32 forms, and its convolutions and projections run with
+TF32 off for the call (`exact_fp32`), whatever torch's flags say outside
+it (cuDNN takes fp32 convolutions in TF32 by default).
+
 `encoder_forward`, `decoder_forward` and `forward` build autograd graphs
 (training); `encode`, `decode` and `init_cache` run under inference mode.
 
@@ -44,6 +49,7 @@ then hold the same residual stream, LayerNorms and logits.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from dataclasses import dataclass
 
@@ -240,6 +246,28 @@ def conv1d(conv: nn.Conv1d, x: torch.Tensor) -> torch.Tensor:
     return y + conv.bias.to(x.dtype)[None, :, None]
 
 
+@contextlib.contextmanager
+def exact_fp32(dtype: torch.dtype):
+    """For fp32 compute, the block's convolutions and matmuls stay fp32 on
+    the card: cuDNN (torch.backends.cudnn.allow_tf32, True by default) and
+    cuBLAS (torch.backends.cuda.matmul.allow_tf32, where a caller set it)
+    would otherwise round their operands to TF32's 10-bit mantissa. Both
+    flags are off inside the block and the caller's are back after it.
+    Other dtypes leave the flags alone."""
+    if dtype != torch.float32:
+        yield
+        return
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = matmul.allow_tf32
+    matmul.allow_tf32 = False
+    try:
+        with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                         deterministic=cudnn.deterministic, allow_tf32=False):
+            yield
+    finally:
+        matmul.allow_tf32 = saved
+
+
 def split_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
     b, t, d = x.shape
     return x.reshape(b, t, n_heads, d // n_heads)
@@ -302,11 +330,12 @@ def embed_audio(model: WhisperForConditionalGeneration, feats: torch.Tensor,
     if stem_impl == "pallas":
         x = conv_stem(enc.conv1, enc.conv2, x)
     elif stem_impl == "xla":
-        x = F.gelu(conv1d(enc.conv1, x))
-        # (B, d, T) -> (B, T, d) rows: left as a transposed view, the
-        # residual stream would keep that layout through every layer and
-        # each LayerNorm and projection would copy it
-        x = F.gelu(conv1d(enc.conv2, x)).transpose(1, 2).contiguous()
+        with exact_fp32(dtype):
+            x = F.gelu(conv1d(enc.conv1, x))
+            # (B, d, T) -> (B, T, d) rows: left as a transposed view, the
+            # residual stream would keep that layout through every layer and
+            # each LayerNorm and projection would copy it
+            x = F.gelu(conv1d(enc.conv2, x)).transpose(1, 2).contiguous()
     else:
         raise ValueError(f"stem_impl is 'xla' or 'pallas', got {stem_impl!r}")
     return x + enc.embed_positions.weight.to(dtype)[None]
@@ -325,11 +354,13 @@ def encoder_forward(
     Differentiable with the default stem; run it under torch.no_grad() for
     a frozen encoder."""
     cfg, enc = model.cfg, model.model.encoder
-    x = embed_audio(model, feats, compute_dtype or model.dtype, stem_impl)
-    n_heads = rank_heads(model, cfg.encoder_attention_heads)
-    for layer in enc.layers:
-        x = _maybe_remat(_encoder_layer, remat, layer, n_heads, x)
-    return layer_norm(enc.layer_norm, x)
+    dtype = compute_dtype or model.dtype
+    with exact_fp32(dtype):
+        x = embed_audio(model, feats, dtype, stem_impl)
+        n_heads = rank_heads(model, cfg.encoder_attention_heads)
+        for layer in enc.layers:
+            x = _maybe_remat(_encoder_layer, remat, layer, n_heads, x)
+        return layer_norm(enc.layer_norm, x)
 
 
 @torch.inference_mode()
@@ -464,10 +495,11 @@ def _init_cache(model, encoder_out, capacity, kv_dtype, beam_size=1):
     # ever live, whatever the depth and batch
     for i, layer in enumerate(dec.layers):
         ea = layer.encoder_attn
-        if hasattr(ea, "kv_proj"):
-            k, v = dense(ea.kv_proj, encoder_out).chunk(2, dim=-1)
-        else:
-            k, v = dense(ea.k_proj, encoder_out), dense(ea.v_proj, encoder_out)
+        with exact_fp32(model.dtype):
+            if hasattr(ea, "kv_proj"):
+                k, v = dense(ea.kv_proj, encoder_out).chunk(2, dim=-1)
+            else:
+                k, v = dense(ea.k_proj, encoder_out), dense(ea.v_proj, encoder_out)
         if kv_dtype == "int4":
             for buf, s_buf, x in ((cross_k, ck_s, k), (cross_v, cv_s, v)):
                 codes, s_buf[i] = quantize_kv_heads(x, n_heads, 4)
@@ -539,9 +571,10 @@ def decoder_forward(
     x = emb[input_ids] + dec.embed_positions.weight[:t].to(dtype)[None]
     enc = encoder_out.to(dtype)
     n_heads = rank_heads(model, cfg.decoder_attention_heads)
-    for layer in dec.layers:
-        x = _maybe_remat(_decoder_layer, remat, layer, n_heads, x, enc)
-    return logits_from(emb, layer_norm(dec.layer_norm, x))
+    with exact_fp32(dtype):
+        for layer in dec.layers:
+            x = _maybe_remat(_decoder_layer, remat, layer, n_heads, x, enc)
+        return logits_from(emb, layer_norm(dec.layer_norm, x))
 
 
 def _dequant(vals, scale, dtype):
@@ -559,6 +592,13 @@ def _dequant(vals, scale, dtype):
 
 
 def _decode_step(model, input_ids, cache: KVCache, ring_pos=None, beam_size=1):
+    """Incremental decode of a (B, t) token block against the cache (see
+    `_decode_step_body`), its products in fp32 for an fp32 model."""
+    with exact_fp32(model.dtype):
+        return _decode_step_body(model, input_ids, cache, ring_pos, beam_size)
+
+
+def _decode_step_body(model, input_ids, cache: KVCache, ring_pos, beam_size):
     """Incremental decode of a (B, t) token block against the cache.
 
     With per-row lengths (cache.length a (B,) int32 tensor; t == 1 only)

@@ -23,7 +23,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
 SOURCES = (
-    "flash_attention_sm90", "flash_attention_bwd", "decode_attention",
+    "flash_attention_sm90", "flash_attention_f32", "flash_attention_bwd", "decode_attention",
     "decode_attention_ring", "decode_attention_beam", "mel", "layer_norm", "conv_stem",
     "flash_attention_int8", "vpu_cal",
 )
@@ -41,21 +41,30 @@ SIGNATURES = {
     "flash_attention_sm90": {
         "kwt_flash_attention_sm90_fwd": [_I, _P, _P, _P, _P, _P, _P, _P],
     },
+    "flash_attention_f32": {
+        "kwt_flash_attention_f32": [_I, _P, _P, _P, _P, _P, _P, _P],
+    },
     "flash_attention_bwd": {
         "kwt_flash_attention_bwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     },
     "decode_attention": {
         "kwt_decode_attention": [
-            _I, _P, _L, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P,
+            _I, _P, _L, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P,
         ],
     },
     "decode_attention_ring": {
         "kwt_decode_attention_ring": [
             _I, _P, _L, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P,
         ],
+        "kwt_decode_attention_ring_f32": [
+            _I, _P, _L, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P,
+        ],
     },
     "decode_attention_beam": {
         "kwt_decode_attention_beam": [
+            _I, _P, _L, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
+        ],
+        "kwt_decode_attention_beam_f32": [
             _I, _P, _L, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
         ],
     },

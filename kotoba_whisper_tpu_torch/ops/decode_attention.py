@@ -3,14 +3,16 @@
 decode_attention_beam.cu) and their plain twins.
 
 One query per batch row against a flat (B, T, H*64) K/V block: the cache
-layout of models/whisper.py. K and V come in four modes (`_kv_args`):
+layout of models/whisper.py. K and V come in five modes (`_kv_args`):
 bfloat16 without scales; int8 with fp32 per-row scales (B, T, 1); int8
 with bf16 per-head scales (B, T, H); int4 codes packed two a byte
 (models/whisper.pack_int4: (B, T, H*32) uint8) with bf16 per-head scales
-(B, T, H). The scales fold into the scores (k_scale) and into the softmax
-weights before the V reduction (v_scale): exact algebra, since a head's
-score and weight touch only that head's 64 columns, so the only loss is
-the quantization itself. `valid_len` is a lockstep scalar or per-row (B,)
+(B, T, H); fp32 without scales. q and the output are bfloat16 with the
+first four, or fp32 (an fp32 model's step: each form's fp32 kernel) with
+the last four; a call that mixes bfloat16 and fp32 raises. The scales
+fold into the scores (k_scale) and into the softmax weights before the V
+reduction (v_scale): exact algebra, since a head's score and weight touch
+only that head's 64 columns, so the only loss is the quantization itself. `valid_len` is a lockstep scalar or per-row (B,)
 counts. Without `ring_pos` a row's keys are its slots [0, valid); with it
 (decode/streaming.py's shared-slot ring) they are its `valid` most recent
 slots, ending at slot ring_pos: slot s is a key when
@@ -25,11 +27,14 @@ Each form is one launch a call:
   slices, one CTA each, and the CTAs of a batch row form a thread-block
   cluster that combines its slices on chip;
 - ring: `ring_plan` gives each CTA one row and a group of heads, all of
-  whose valid slots it holds in shared memory at once (no cluster);
+  whose valid slots it holds in shared memory at once (no cluster); the
+  fp32 form one row and one head, walking its slots in boxes of
+  `RingPlan.chunk` with an online softmax;
 - beam: `beam_plan` gives each CTA one (group, head, 16-beam tile) and,
   where that leaves the card idle, a share of the keys, the shares of a
-  tile combining over a cluster. `beam_walk` and `ring_walk` repeat the two
-  kernels' arithmetic in their order on the CPU.
+  tile combining over a cluster (the fp32 form on FFMAs, the same grid).
+  `beam_walk` and `ring_walk` repeat the kernels' arithmetic in their order
+  on the CPU, each form's (`q_dtype`).
 """
 from __future__ import annotations
 
@@ -50,14 +55,22 @@ LOG2E = 1.4426950408889634
 BEAM_KEY_TILE = 64   # keys a tile of the beam kernel
 BEAM_ROWS = 16       # beams a tile: mma.sync's M
 BEAM_WARPS = 4       # consumer warps a CTA, taking the key tiles in turn
+# bytes of one head's 64 columns of a K/V row, by the K/V dtypes K2 takes
+# (uint8: packed int4)
+KV_HEAD_BYTES = {torch.float32: 256, torch.bfloat16: 128, torch.int8: 64, torch.uint8: 32}
 BEAM_STAGES = {torch.int8: 8, torch.bfloat16: 4, torch.uint8: 16}  # its copy ring
+# the fp32 form's copy ring by K/V dtype (csrc/decode_attention_beam.cu F32Mode)
+BEAM_F32_STAGES = {torch.float32: 3, torch.int8: 6, torch.uint8: 8}
 PREFIX_STAGE_BYTES = 20480  # a stage of the prefix kernel's copy ring
 # K/V modes of the C entries: bfloat16; int8 with fp32 per-row scales; int8
-# with bf16 per-head scales; packed int4 with bf16 per-head scales
-KV_BF16, KV_INT8, KV_INT8_HEADS, KV_INT4 = 0, 1, 2, 3
+# with bf16 per-head scales; packed int4 with bf16 per-head scales; fp32
+KV_BF16, KV_INT8, KV_INT8_HEADS, KV_INT4, KV_F32 = 0, 1, 2, 3, 4
+Q_DTYPES = (torch.bfloat16, torch.float32)  # q's and the output's
 RING_HEADS = (4, 2, 1)  # heads a ring CTA may take (each divides the kernel's passes)
 RING_BOX = 32        # slots a TMA box of the ring kernel
 RING_WARPS = 8       # warps a ring CTA
+# the fp32 ring form's budget a CTA: two an SM
+RING_F32_BUDGET = SM_SMEM // 2 - 1024
 
 
 def split_plan(span: int) -> tuple[int, int]:
@@ -86,10 +99,15 @@ def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
 
 def _head_bytes(kv_dtype) -> int:
     """Bytes of one head's 64 columns of a K/V row (uint8: packed int4)."""
-    if kv_dtype not in BEAM_STAGES:
-        raise ValueError(f"K2 takes bfloat16, int8 or packed int4 (uint8) K and V, "
+    if kv_dtype not in KV_HEAD_BYTES:
+        raise ValueError(f"K2 takes fp32, bfloat16, int8 or packed int4 (uint8) K and V, "
                          f"got {kv_dtype}")
-    return {torch.bfloat16: 128, torch.int8: 64, torch.uint8: 32}[kv_dtype]
+    return KV_HEAD_BYTES[kv_dtype]
+
+
+def _fp32_form(kv_dtype, q_dtype) -> bool:
+    """Whether K2's fp32 forms run: fp32 q, or fp32 K/V (which only they take)."""
+    return q_dtype == torch.float32 or kv_dtype == torch.float32
 
 
 def prefix_smem_bytes(rows: int, n_heads: int, kv_dtype, per_head: bool = False) -> int:
@@ -121,22 +139,45 @@ def ring_smem_bytes(t: int, hpc: int, kv_dtype, per_head: bool = False) -> int:
     return ((end + 4 * RING_WARPS * 4 + 7) & ~7) + 16
 
 
+def ring_f32_smem_bytes(chunk: int, kv_dtype) -> int:
+    """Dynamic shared memory of an fp32-form ring CTA over boxes of `chunk`
+    slots of one head (the kernel's `F32Layout.total`): K (at least the
+    warps' P V sums) and V of a box, its two scales and scores a key, the
+    warps' maxima and sums."""
+    row = _head_bytes(kv_dtype)
+    kv = -(-chunk * row // 16) * 16
+    return max(kv, -(-RING_WARPS * 64 * 4 // 16) * 16) + kv + 12 * chunk + 8 * RING_WARPS
+
+
 class RingPlan(NamedTuple):
     heads: int        # heads a CTA (CTA (x, y): row y, heads [x * heads, (x + 1) * heads))
     grid: tuple       # (H / heads, B)
     smem: int         # dynamic shared memory a CTA
+    chunk: int        # slots a box: the fp32 form walks a row's keys in boxes; T otherwise
 
 
 @lru_cache(maxsize=256)
 def ring_plan(b: int, t: int, n_heads: int, kv_dtype, n_sms: int = N_SMS, *,
-              per_head: bool = False) -> RingPlan:
+              per_head: bool = False, q_dtype=torch.bfloat16) -> RingPlan:
     """The ring kernel's grid: one CTA per (row, group of heads) holding all
     the group's K and V slots at once. Of the head counts that divide H and
     fit, prefer those whose CTAs fit two an SM, and among them the most
     heads whose grid still makes two CTAs per SM; else the fewest heads
-    (the most CTAs). Raises where even one head's T slots do not fit."""
+    (the most CTAs). Raises where even one head's T slots do not fit.
+
+    The fp32 form (fp32 q or K/V): one CTA per (row, head), its keys in
+    boxes of all T slots where they fit two CTAs an SM, else of the most
+    whole 32-slot boxes that do (192 fp32 slots)."""
     if t < 1 or b < 1:
         raise ValueError(f"K2's ring form needs rows and slots, got B={b}, T={t}")
+    if _fp32_form(kv_dtype, q_dtype):
+        chunk = t
+        if ring_f32_smem_bytes(t, kv_dtype) > RING_F32_BUDGET:
+            chunk = RING_BOX
+            while ring_f32_smem_bytes(chunk + RING_BOX, kv_dtype) <= RING_F32_BUDGET:
+                chunk += RING_BOX
+        return RingPlan(1, (n_heads, b), ring_f32_smem_bytes(chunk, kv_dtype), chunk)
+
     def smem(h):
         return ring_smem_bytes(t, h, kv_dtype, per_head)
 
@@ -148,16 +189,26 @@ def ring_plan(b: int, t: int, n_heads: int, kv_dtype, n_sms: int = N_SMS, *,
     two = [h for h in fits if 2 * (smem(h) + 1024) <= SM_SMEM]
     pool = two or fits
     heads = next((h for h in pool if b * (n_heads // h) >= 2 * n_sms), pool[-1])
-    return RingPlan(heads, (n_heads // heads, b), smem(heads))
+    return RingPlan(heads, (n_heads // heads, b), smem(heads), t)
 
 
-def beam_smem_bytes(kv_dtype) -> int:
+def beam_smem_bytes(kv_dtype, q_dtype=torch.bfloat16) -> int:
     """Dynamic shared memory of a beam CTA (the kernel's `sizeof(Smem)`,
     rounded to its 1024-byte alignment, plus 1024 of alignment slack): the
     K and V ring, the scales a stage, each consumer warp's O, max and sum,
-    the CTA's merged ones, the barriers."""
-    stages, row = BEAM_STAGES.get(kv_dtype), _head_bytes(kv_dtype)
+    the CTA's merged ones, the barriers. The fp32 form's (`sizeof(F32Smem)`):
+    its ring of K rows padded by 16 bytes (the warps' O and the merged state
+    in their place once drained), V and the scales, q, the warps' P, maxima
+    and sums."""
     keys, rows, hd = BEAM_KEY_TILE, BEAM_ROWS, 64
+    row = _head_bytes(kv_dtype)
+    if _fp32_form(kv_dtype, q_dtype):
+        stages = BEAM_F32_STAGES[kv_dtype]
+        fin = BEAM_WARPS * rows * hd * 4 + rows * hd * 4 + 2 * rows * 4
+        return (max(stages * keys * (row + 16), fin) + stages * keys * row
+                + 2 * stages * keys * 4 + rows * hd * 4 + BEAM_WARPS * rows * 16 * 4
+                + 2 * BEAM_WARPS * rows * 4)
+    stages = BEAM_STAGES[kv_dtype]
     size = (2 * stages * keys * row + 2 * stages * keys * 4
             + BEAM_WARPS * rows * hd * 4 + 2 * BEAM_WARPS * rows * 4
             + rows * hd * 4 + 2 * rows * 4 + 2 * stages * 8)
@@ -175,10 +226,11 @@ class BeamPlan(NamedTuple):
 
 @lru_cache(maxsize=256)
 def beam_plan(g: int, t: int, n_heads: int, beams: int, kv_dtype,
-              n_sms: int = N_SMS) -> BeamPlan:
+              n_sms: int = N_SMS, *, q_dtype=torch.bfloat16) -> BeamPlan:
     """The beam kernel's grid: one CTA per (group, head, 16-beam tile),
     split over key shares of whole tiles, up to a cluster of MAX_CLUSTER,
-    while the CTAs would not fill two an SM; no share is empty."""
+    while the CTAs would not fill two an SM; no share is empty. The fp32
+    form (fp32 q or K/V) takes the same grid and its own shared memory."""
     if min(g, t, n_heads, beams) < 1:
         raise ValueError(f"K2's beam form needs groups, keys, heads and beams, got G={g}, "
                          f"T={t}, H={n_heads}, K={beams}")
@@ -189,7 +241,7 @@ def beam_plan(g: int, t: int, n_heads: int, beams: int, kv_dtype,
     per = -(-n_tiles // splits)
     splits = -(-n_tiles // per)
     return BeamPlan(m_tiles, splits, per * BEAM_KEY_TILE, (splits, n_heads * m_tiles, g),
-                    beam_smem_bytes(kv_dtype))
+                    beam_smem_bytes(kv_dtype, q_dtype))
 
 
 @lru_cache(maxsize=16)
@@ -262,7 +314,7 @@ def _merge(states):
 
 
 def beam_walk(q, k_flat, v_flat, *, n_heads, k_scale=None, v_scale=None, p_dtype=torch.bfloat16,
-              out_dtype=torch.bfloat16, n_sms=N_SMS):
+              out_dtype=torch.bfloat16, n_sms=N_SMS, q_dtype=torch.bfloat16):
     """The beam kernel's arithmetic in its order (fp32, on any device):
     `beam_plan`'s 16-beam tiles and key shares, each share's 64-key tiles
     taken by BEAM_WARPS warps in turn; a tile's scores (q as bf16 times K)
@@ -271,10 +323,19 @@ def beam_walk(q, k_flat, v_flat, *, n_heads, k_scale=None, v_scale=None, p_dtype
     `p_dtype` (the kernel's bf16; None keeps fp32) before P V; then the
     warps' and the shares' (max, sum, O) merged and O / l in `out_dtype`.
     A per-row scale multiplies every head's column of its key, a per-head
-    one its own head's. -> (G, K, H, 64)."""
+    one its own head's. -> (G, K, H, 64).
+
+    q_dtype float32: the fp32 form's order instead (p_dtype and out_dtype
+    are then fp32): q kept in fp32 and scaled by log2(e)/8 before the
+    product, each share's tiles taken by all BEAM_WARPS warps, warp w its
+    keys [16w, 16w + 16) of every tile with a running state of its own
+    (the scores times k_scale, max, 2^(s - m), sum, O rescaled, P * v_scale
+    in fp32 before P V), then the warps' and shares' states merged."""
+    if q_dtype == torch.float32:
+        return _beam_walk_f32(q, k_flat, v_flat, n_heads, k_scale, v_scale, n_sms)
     g, beams, _, hd = q.shape
     t = k_flat.shape[1]
-    kv_dtype = k_flat.dtype if k_flat.dtype in BEAM_STAGES else torch.bfloat16
+    kv_dtype = k_flat.dtype if k_flat.dtype in KV_HEAD_BYTES else torch.bfloat16
     plan = beam_plan(g, t, n_heads, beams, kv_dtype, n_sms)
     qf = q.to(torch.bfloat16).float()
     kf = _codes(k_flat).float().reshape(g, t, n_heads, hd)
@@ -318,23 +379,72 @@ def beam_walk(q, k_flat, v_flat, *, n_heads, k_scale=None, v_scale=None, p_dtype
     return out
 
 
+def _beam_walk_f32(q, k_flat, v_flat, n_heads, k_scale, v_scale, n_sms):
+    """`beam_walk` in the fp32 form's order (csrc/decode_attention_beam.cu
+    `beam_f32_kernel`). -> (G, K, H, 64) fp32."""
+    g, beams, _, hd = q.shape
+    t = k_flat.shape[1]
+    plan = beam_plan(g, t, n_heads, beams, k_flat.dtype, n_sms, q_dtype=torch.float32)
+    qf = q.float() * torch.tensor(0.125 * LOG2E, dtype=torch.float32)
+    kf = _codes(k_flat).float().reshape(g, t, n_heads, hd)
+    vf = _codes(v_flat).float().reshape(g, t, n_heads, hd)
+    ones = torch.ones(g, 1, t, device=q.device)
+    ks = k_scale.float().permute(0, 2, 1) if k_scale is not None else ones
+    vs = v_scale.float().permute(0, 2, 1) if v_scale is not None else ones
+    per_warp = BEAM_KEY_TILE // BEAM_WARPS
+    out = torch.empty(g, beams, n_heads, hd, dtype=torch.float32, device=q.device)
+    for mt in range(plan.m_tiles):
+        qt = qf[:, mt * BEAM_ROWS:(mt + 1) * BEAM_ROWS]  # (G, R, H, 64)
+        shares = []
+        for x in range(plan.splits):
+            k0 = x * plan.keys_per_split
+            k1 = min(t, k0 + plan.keys_per_split)
+            warps = []
+            for w in range(BEAM_WARPS):
+                m = torch.full(qt.shape[:3], float("-inf"), device=q.device)
+                l = torch.zeros(qt.shape[:3], device=q.device)
+                o = torch.zeros(qt.shape, device=q.device)
+                for a0 in range(k0, k1, BEAM_KEY_TILE):
+                    a, e = a0 + w * per_warp, min(k1, a0 + (w + 1) * per_warp)
+                    if a >= e:
+                        continue
+                    s = torch.einsum("grhd,gnhd->grhn", qt, kf[:, a:e]) * ks[:, None, :, a:e]
+                    m_new = torch.maximum(m, s.amax(-1))
+                    corr = torch.exp2(m - m_new)
+                    p = torch.exp2(s - m_new[..., None])
+                    l = l * corr + p.sum(-1)
+                    o = o * corr[..., None] + torch.einsum(
+                        "grhn,gnhd->grhd", p * vs[:, None, :, a:e], vf[:, a:e])
+                    m = m_new
+                warps.append((m, l, o))
+            shares.append(_merge(warps))
+        _, l, o = _merge(shares)
+        out[:, mt * BEAM_ROWS:(mt + 1) * BEAM_ROWS] = o / l[..., None]
+    return out
+
+
 def ring_walk(q, k_flat, v_flat, valid_len, ring_pos, *, n_heads, k_scale=None, v_scale=None,
-              out_dtype=torch.bfloat16, n_sms=N_SMS):
+              out_dtype=torch.bfloat16, n_sms=N_SMS, q_dtype=torch.bfloat16):
     """The ring kernel's arithmetic in its order (fp32, on any device): per
     `ring_plan` CTA (a row and its group of heads) the keys j of [0, valid)
     at slots `ring_slot`, the scores q / 8 times K times k_scale, the exact
     max, p = exp(s - m), their sum, the weights p * v_scale, P V and O / l
-    in `out_dtype`; scales per row or per head. -> (B, H, 64)."""
+    in `out_dtype`; scales per row or per head. q is read as `q_dtype`:
+    bfloat16 for the bf16 forms; float32 for the fp32 form, whose CTA (a row
+    and one head) takes the keys in boxes of `ring_plan`'s chunk: each box's
+    max raises the running max m, the running sum and P V are rescaled by
+    exp(m_old - m_new) and the box's p = exp(s - m) added (out_dtype fp32).
+    -> (B, H, 64)."""
     b, t, _ = k_flat.shape
-    kv_dtype = k_flat.dtype if k_flat.dtype in BEAM_STAGES else torch.bfloat16
+    kv_dtype = k_flat.dtype if k_flat.dtype in KV_HEAD_BYTES else torch.bfloat16
     per_head = k_scale is not None and k_scale.dtype == torch.bfloat16
-    plan = ring_plan(b, t, n_heads, kv_dtype, n_sms, per_head=per_head)
+    plan = ring_plan(b, t, n_heads, kv_dtype, n_sms, per_head=per_head, q_dtype=q_dtype)
     kf = _codes(k_flat).float().reshape(b, t, n_heads, 64)
     vf = _codes(v_flat).float().reshape(b, t, n_heads, 64)
     # (B, T, H): a per-row scale repeated over the heads
     ks = None if k_scale is None else k_scale.float().expand(b, t, n_heads)
     vs = None if v_scale is None else v_scale.float().expand(b, t, n_heads)
-    qf = q.to(torch.bfloat16).float().reshape(b, n_heads, 64) * 0.125
+    qf = q.to(q_dtype).float().reshape(b, n_heads, 64) * 0.125
     valid = torch.as_tensor(valid_len).reshape(-1).expand(b)
     out = torch.empty(b, n_heads, 64, dtype=out_dtype, device=q.device)
     for y in range(plan.grid[1]):
@@ -343,31 +453,45 @@ def ring_walk(q, k_flat, v_flat, valid_len, ring_pos, *, n_heads, k_scale=None, 
                              dtype=torch.long, device=q.device)
         for x in range(plan.grid[0]):
             heads = slice(x * plan.heads, (x + 1) * plan.heads)
-            s = torch.einsum("jhd,hd->hj", kf[y, slots, heads], qf[y, heads])
-            if ks is not None:
-                s = s * ks[y, slots, heads].T
-            p = torch.exp(s - s.amax(-1, keepdim=True))
-            l = p.sum(-1, keepdim=True)
-            if vs is not None:
-                p = p * vs[y, slots, heads].T
-            o = torch.einsum("hj,jhd->hd", p, vf[y, slots, heads])
+            m = torch.full((plan.heads, 1), float("-inf"), device=q.device)
+            l = torch.zeros((plan.heads, 1), device=q.device)
+            o = torch.zeros((plan.heads, 64), device=q.device)
+            for j0 in range(0, n, plan.chunk):  # one box a pass: all n keys but in the fp32 form
+                box = slots[j0:j0 + plan.chunk]
+                s = torch.einsum("jhd,hd->hj", kf[y, box, heads], qf[y, heads])
+                if ks is not None:
+                    s = s * ks[y, box, heads].T
+                m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+                corr = torch.exp(m - m_new)
+                p = torch.exp(s - m_new)
+                l = l * corr + p.sum(-1, keepdim=True)
+                if vs is not None:
+                    p = p * vs[y, box, heads].T
+                o = o * corr + torch.einsum("hj,jhd->hd", p, vf[y, box, heads])
+                m = m_new
             out[y, heads] = (o / l).to(out_dtype)
     return out
 
 
-def _kv_args(card, k_flat, v_flat, k_scale, v_scale, n_heads):
+def _kv_args(card, k_flat, v_flat, k_scale, v_scale, n_heads, q_dtype=torch.bfloat16):
     """K2's checks of the K/V cache and its scales (kept to few tensor
     calls: the self and cross calls run 64 times a decode step, and the
     step is host-bound) -> (K/V mode, K, V, k_scale, v_scale pointers). The
     modes: bfloat16 K/V and no scales (KV_BF16); int8 K/V with fp32
     (B, T, 1) scales (KV_INT8) or bf16 (B, T, H) scales (KV_INT8_HEADS);
     packed int4 K/V (uint8, H*32 columns) with bf16 (B, T, H) scales
-    (KV_INT4). Any other combination raises ValueError."""
+    (KV_INT4); fp32 K/V and no scales (KV_F32). Any other combination, or
+    a mix of bfloat16 and fp32 between q and K/V, raises ValueError."""
     b, t, dh = k_flat.shape
     kv_dtype = k_flat.dtype
-    if kv_dtype not in BEAM_STAGES:
-        raise ValueError(f"K2 takes bfloat16, int8 or packed int4 (uint8) K and V, got "
+    if kv_dtype not in KV_HEAD_BYTES:
+        raise ValueError(f"K2 takes fp32, bfloat16, int8 or packed int4 (uint8) K and V, got "
                          f"{kv_dtype}")
+    if q_dtype not in Q_DTYPES:
+        raise ValueError(f"K2 takes bfloat16 or fp32 q, got {q_dtype}")
+    if kv_dtype in (torch.bfloat16, torch.float32) and kv_dtype != q_dtype:
+        raise ValueError(f"K2 does not mix {q_dtype} q with {kv_dtype} K/V: an fp32 model's "
+                         "cache is fp32 (or int8 / int4), a bfloat16 model's bfloat16")
     row = n_heads * _head_bytes(kv_dtype)
     if dh * k_flat.element_size() != row or row > 5120:
         raise ValueError(f"K2 takes rows of H heads of 64 columns in at most 5120 bytes, got "
@@ -379,10 +503,10 @@ def _kv_args(card, k_flat, v_flat, k_scale, v_scale, n_heads):
     if (not (k_flat.is_contiguous() and v_flat.is_contiguous()) or (k_ptr | v_ptr) % 16
             or k_flat.get_device() != card or v_flat.get_device() != card):
         raise ValueError("K2 takes contiguous, 16-byte aligned K/V on q's card")
-    if kv_dtype == torch.bfloat16:
+    if kv_dtype in (torch.bfloat16, torch.float32):
         if k_scale is not None or v_scale is not None:
-            raise ValueError("K2's bfloat16 K/V take no scales")
-        return KV_BF16, k_ptr, v_ptr, None, None
+            raise ValueError(f"K2's {kv_dtype} K/V take no scales")
+        return KV_BF16 if kv_dtype == torch.bfloat16 else KV_F32, k_ptr, v_ptr, None, None
     if k_scale is None or v_scale is None:
         raise ValueError("K2's int8 and int4 K/V take k_scale and v_scale")
     if kv_dtype == torch.uint8:
@@ -422,7 +546,8 @@ def decode_attention(
     q, k_flat, v_flat, valid_len, *, n_heads, k_scale=None, v_scale=None, ring_pos=None,
 ):
     """K2 wrapper: the kernel for CUDA tensors, the plain twin for CPU
-    tensors. valid_len: int (every row) or a (B,) int32 tensor; ring_pos:
+    tensors. q bfloat16 or fp32 (each form's fp32 kernel; the output in q's
+    dtype). valid_len: int (every row) or a (B,) int32 tensor; ring_pos:
     None (prefix form, csrc/decode_attention.cu) or, on the card, a 0-d
     int32 tensor on q's card, read by the ring kernel
     (csrc/decode_attention_ring.cu) from device memory. Allocates only the
@@ -434,22 +559,23 @@ def decode_attention(
         )
     b, t, _ = k_flat.shape
     card, q_stride, q_ptr = q.get_device(), q.stride(), q.data_ptr()
-    if (not q.is_cuda or q.dtype != torch.bfloat16 or q.shape != (b, n_heads, 64)
-            or q_stride[1:] != (64, 1) or q_stride[0] % 8 or q_ptr % 16):
-        raise ValueError(f"K2 takes bfloat16 q (B, H, 64), each row's heads contiguous and "
-                         f"16-byte aligned, got {q.dtype} {tuple(q.shape)} {q_stride}")
+    if (not q.is_cuda or q.dtype not in Q_DTYPES or q.shape != (b, n_heads, 64)
+            or q_stride[1:] != (64, 1) or q_stride[0] * q.element_size() % 16 or q_ptr % 16):
+        raise ValueError(f"K2 takes bfloat16 or fp32 q (B, H, 64), each row's heads contiguous "
+                         f"and 16-byte aligned, got {q.dtype} {tuple(q.shape)} {q_stride}")
+    q_f32 = q.dtype == torch.float32
     mode, k_ptr, v_ptr, ks_ptr, vs_ptr = _kv_args(card, k_flat, v_flat, k_scale, v_scale,
-                                                  n_heads)
+                                                  n_heads, q.dtype)
     valid_rows, valid_all = _valid_arg(valid_len, b, t, card)
     if ring_pos is not None and mode == KV_INT4:
-        raise ValueError("K2's ring form takes bfloat16 or int8 K/V (the self cache), "
+        raise ValueError("K2's ring form takes fp32, bfloat16 or int8 K/V (the self cache), "
                          "not int4")
-    out = torch.empty((b, n_heads, 64), dtype=torch.bfloat16, device=q.device)
+    out = torch.empty((b, n_heads, 64), dtype=q.dtype, device=q.device)
     if ring_pos is None:
         n_ctas, rows = split_plan(t if valid_rows is not None else valid_all)
         _check(_build.function("decode_attention", "kwt_decode_attention")(
             card, q_ptr, q_stride[0], k_ptr, v_ptr, ks_ptr, vs_ptr, valid_rows, valid_all,
-            out.data_ptr(), b, t, n_heads, n_ctas, rows, mode,
+            out.data_ptr(), b, t, n_heads, n_ctas, rows, mode, int(q_f32),
             _build.stream_handle(card)), "prefix")
         decode_attention.launches += 1
         return out
@@ -457,11 +583,12 @@ def decode_attention(
             or ring_pos.dtype != torch.int32 or ring_pos.get_device() != card):
         raise ValueError("K2's ring_pos is a 0-d int32 tensor on q's card")
     plan = ring_plan(b, t, n_heads, k_flat.dtype, _n_sms(card),
-                     per_head=mode == KV_INT8_HEADS)
-    _check(_build.function("decode_attention_ring", "kwt_decode_attention_ring")(
+                     per_head=mode == KV_INT8_HEADS, q_dtype=q.dtype)
+    entry = "kwt_decode_attention_ring_f32" if q_f32 else "kwt_decode_attention_ring"
+    _check(_build.function("decode_attention_ring", entry)(
         card, q_ptr, q_stride[0], k_ptr, v_ptr, ks_ptr, vs_ptr, valid_rows, valid_all,
-        ring_pos.data_ptr(), out.data_ptr(), b, t, n_heads, plan.heads, mode,
-        _build.stream_handle(card)), "ring")
+        ring_pos.data_ptr(), out.data_ptr(), b, t, n_heads, plan.chunk if q_f32 else plan.heads,
+        mode, _build.stream_handle(card)), "ring")
     decode_attention.ring_launches += 1
     return out
 
@@ -473,35 +600,36 @@ decode_attention.ring_launches = 0  # K2, ring form
 def decode_attention_beam(q, k_flat, v_flat, *, n_heads, k_scale=None, v_scale=None):
     """K2's beam form: q (G, K, H, 64) against one flat K/V row per group
     (G, T, H*64; packed int4 (G, T, H*32)), every slot a key -> (G, K, H,
-    64). The kernel
-    (csrc/decode_attention_beam.cu, any beam count) for CUDA tensors, the
-    plain twin for CPU tensors. Allocates only the output; safe to capture
-    in a CUDA graph."""
+    64) in q's dtype. The kernel (csrc/decode_attention_beam.cu, any beam
+    count; fp32 q its fp32 form) for CUDA tensors, the plain twin for CPU
+    tensors. Allocates only the output; safe to capture in a CUDA graph."""
     if q.is_cpu:
         return decode_attention_reference_beam(
             q, k_flat, v_flat, n_heads=n_heads, k_scale=k_scale, v_scale=v_scale)
     g, t, _ = k_flat.shape
     beams = q.shape[1] if q.ndim == 4 else 0
     card, q_stride, q_ptr = q.get_device(), q.stride(), q.data_ptr()
-    if (not q.is_cuda or q.dtype != torch.bfloat16 or beams < 1
+    if (not q.is_cuda or q.dtype not in Q_DTYPES or beams < 1
             or q.shape != (g, beams, n_heads, 64)
             or q_stride[1:] != (q_stride[1], 64, 1) or q_stride[0] != beams * q_stride[1]
-            or q_stride[1] % 8 or q_ptr % 16):
-        raise ValueError(f"K2's beam form takes bfloat16 q (G, K, H, 64) with head dim 64 "
-                         f"(the kernel's tile), its G*K rows evenly strided, each row's heads "
+            or q_stride[1] * q.element_size() % 16 or q_ptr % 16):
+        raise ValueError(f"K2's beam form takes bfloat16 or fp32 q (G, K, H, 64) with head dim "
+                         f"64 (the kernel's tile), its G*K rows evenly strided, each row's heads "
                          f"contiguous and 16-byte aligned, got {q.dtype} {tuple(q.shape)} "
                          f"{q_stride}")
+    q_f32 = q.dtype == torch.float32
     mode, k_ptr, v_ptr, ks_ptr, vs_ptr = _kv_args(card, k_flat, v_flat, k_scale, v_scale,
-                                                  n_heads)
+                                                  n_heads, q.dtype)
     if mode == KV_INT8_HEADS:
-        raise ValueError("K2's beam form takes bfloat16, int8 with fp32 (G, T, 1) scales or "
-                         "int4 K/V (the cross cache), not int8 with per-head scales")
+        raise ValueError("K2's beam form takes fp32, bfloat16, int8 with fp32 (G, T, 1) scales "
+                         "or int4 K/V (the cross cache), not int8 with per-head scales")
     if mode == KV_INT4 and (ks_ptr | vs_ptr) % 4:
         raise ValueError("K2's beam form copies int4 K/V's bf16 scales by 4-byte words: "
                          "they start 4-byte aligned")
-    plan = beam_plan(g, t, n_heads, beams, k_flat.dtype, _n_sms(card))
-    out = torch.empty((g, beams, n_heads, 64), dtype=torch.bfloat16, device=q.device)
-    _check(_build.function("decode_attention_beam", "kwt_decode_attention_beam")(
+    plan = beam_plan(g, t, n_heads, beams, k_flat.dtype, _n_sms(card), q_dtype=q.dtype)
+    out = torch.empty((g, beams, n_heads, 64), dtype=q.dtype, device=q.device)
+    entry = "kwt_decode_attention_beam_f32" if q_f32 else "kwt_decode_attention_beam"
+    _check(_build.function("decode_attention_beam", entry)(
         card, q_ptr, q_stride[1], k_ptr, v_ptr, ks_ptr, vs_ptr, out.data_ptr(), g, t, n_heads, beams,
         plan.splits, plan.keys_per_split, mode, _build.stream_handle(card)), "beam")
     decode_attention_beam.launches += 1

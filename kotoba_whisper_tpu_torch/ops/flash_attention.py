@@ -1,6 +1,7 @@
 """Flash attention: the forward kernels K1 (non-causal) and K4 (causal),
 two instantiations of one TMA and wgmma kernel in
-csrc/flash_attention_sm90.cu, the int8 attention core K8 in
+csrc/flash_attention_sm90.cu (bf16) and two of one CUDA-core kernel in
+csrc/flash_attention_f32.cu (fp32), the int8 attention core K8 in
 csrc/flash_attention_int8.cu, the backward K5 in
 csrc/flash_attention_bwd.cu (a D pre-pass, one TMA and wgmma kernel over
 128-key work items, and a dQ conversion), their plain twins, and the
@@ -43,8 +44,9 @@ JAX run without a word. KWT_FA_BQ only sets the TPU kernel's query block;
 the port's fixed 128-row tiles give the same result whatever it says, so
 it is not read.
 
-Each wrapper launches its kernel for CUDA tensors (bf16, D = 64) and
-takes its plain twin only for CPU tensors.
+Each wrapper launches its kernel for CUDA tensors (D = 64; K1 and K4 in
+bf16 or fp32, K5 and K8 in bf16: their fp32 forms raise) and takes its
+plain twin only for CPU tensors.
 """
 from __future__ import annotations
 
@@ -228,24 +230,49 @@ def _fwd_plan(q_layout, k_layout, v_layout, causal):
     return (b, tq, h), (ctypes.c_longlong * 14)(b, tq, tk, h, int(causal), *strides)
 
 
+@lru_cache(maxsize=256)
+def _f32_plan(q_layout, k_layout, v_layout, causal):
+    """What the fp32 K1/K4's C entry reads of one call, from each tensor's
+    (shape, strides): (B, Tq, H) and the int64 array (B, Tq, Tk, H, causal,
+    then each of q, k, v's batch, token and head element strides). The head
+    dim is contiguous and every stride a multiple of 4 elements (the
+    kernel's float4 loads; the addresses are checked per call). A dimension
+    of size 1 never moves the address, so any stride there will do."""
+    b, tq, tk, h = _shapes(q_layout[0], k_layout[0], v_layout[0])
+    if causal and tq > tk:
+        raise ValueError(f"causal flash attention needs Tq <= Tk, got {tq} > {tk}")
+    strides = []
+    for shape, stride in (q_layout, k_layout, v_layout):
+        sb, st, sh, sd = (s if n > 1 else 0 for n, s in zip(shape, stride))
+        if stride[3] != 1 or sb % 4 or st % 4 or sh % 4:
+            raise ValueError(f"the fp32 K1/K4 take a contiguous head dim and strides of 4-element "
+                             f"multiples, got shape {tuple(shape)} strides {stride}")
+        strides += [sb, st, sh]
+    return (b, tq, h), (ctypes.c_longlong * 14)(b, tq, tk, h, int(causal), *strides)
+
+
 def _flash_fwd_sm90(q, k, v, causal):
     """K1 (non-causal) or K4 (causal) on the card: dtype, shapes, strides,
-    addresses and device checked, the two outputs allocated, one launch."""
-    if not q.dtype == k.dtype == v.dtype == torch.bfloat16:
-        raise TypeError(f"flash attention kernels take bfloat16, got {q.dtype}, {k.dtype}, "
-                        f"{v.dtype}")
-    (b, tq, h), plan = _fwd_plan((q.shape, q.stride()), (k.shape, k.stride()),
-                                 (v.shape, v.stride()), causal)
+    addresses and device checked, the two outputs allocated, one launch of
+    the bf16 kernel, or of the fp32 one for fp32 q, k and v."""
+    f32 = q.dtype == k.dtype == v.dtype == torch.float32
+    if not (f32 or q.dtype == k.dtype == v.dtype == torch.bfloat16):
+        raise TypeError(f"flash attention kernels take bfloat16 or fp32 q, k and v of one dtype, "
+                        f"got {q.dtype}, {k.dtype}, {v.dtype}")
+    layouts = ((q.shape, q.stride()), (k.shape, k.stride()), (v.shape, v.stride()), causal)
+    (b, tq, h), plan = _f32_plan(*layouts) if f32 else _fwd_plan(*layouts)
     qp, kp, vp = q.data_ptr(), k.data_ptr(), v.data_ptr()
     if (qp | kp | vp) % 16:
-        raise ValueError("K1/K4's tensor maps need 16-byte aligned q, k and v")
+        raise ValueError("K1/K4 need 16-byte aligned q, k and v")
     if not (q.is_cuda and q.device == k.device == v.device):
         raise ValueError(f"flash attention kernels take tensors on the card, all on one, got "
                          f"q on {q.device}, k on {k.device}, v on {v.device}")
     o = q.new_empty((b, tq, h, 64))
     lse = q.new_empty((b, h, tq), dtype=torch.float32)
     card = q.get_device()
-    rc = _build.function("flash_attention_sm90", "kwt_flash_attention_sm90_fwd")(
+    entry = (("flash_attention_f32", "kwt_flash_attention_f32") if f32
+             else ("flash_attention_sm90", "kwt_flash_attention_sm90_fwd"))
+    rc = _build.function(*entry)(
         card, qp, kp, vp, o.data_ptr(), lse.data_ptr(), plan, _build.stream_handle(card))
     if rc != 0:
         raise RuntimeError(f"{'K4' if causal else 'K1'} flash attention launch failed: "
@@ -388,7 +415,8 @@ def _flash_int8_sm90(q, k, v, pv8, phases=3, scratch=None):
     quantize pre-pass (phases bit 0) and the main kernel (bit 1) launched.
     -> (O, LSE, scratch)."""
     if not q.dtype == k.dtype == v.dtype == torch.bfloat16:
-        raise TypeError(f"K8 takes bfloat16 q, k and v, got {q.dtype}, {k.dtype}, {v.dtype}")
+        raise TypeError(f"K8 takes bfloat16 q, k and v (K8's fp32-q form is not ported yet), "
+                        f"got {q.dtype}, {k.dtype}, {v.dtype}")
     meta, plan = _int8_plan((q.shape, q.stride()), (k.shape, k.stride()),
                             (v.shape, v.stride()), pv8)
     b, tq, _, h = meta[:4]
@@ -487,8 +515,9 @@ def _flash_bwd_sm90(q, k, v, o, lse, do, causal):
     dQ is direct)."""
     if not (q.dtype == k.dtype == v.dtype == o.dtype == do.dtype == torch.bfloat16
             and lse.dtype == torch.float32):
-        raise TypeError(f"K5 takes bfloat16 q, k, v, o, do and an fp32 lse, got {q.dtype}, "
-                        f"{k.dtype}, {v.dtype}, {o.dtype}, {do.dtype}, {lse.dtype}")
+        raise TypeError(f"K5 takes bfloat16 q, k, v, o, do and an fp32 lse (K5's fp32 form is "
+                        f"not ported yet), got {q.dtype}, {k.dtype}, {v.dtype}, {o.dtype}, "
+                        f"{do.dtype}, {lse.dtype}")
     (b, tq, tk, h, n_scratch), plan = _bwd_plan(
         (q.shape, q.stride()), (k.shape, k.stride()), (v.shape, v.stride()),
         (o.shape, o.stride()), (do.shape, do.stride()), (lse.shape, lse.stride()), causal)

@@ -152,6 +152,33 @@ def _k2_beam(c):
     da.decode_attention_beam(_bf16(2, 3, 2, 64), kv, kv, n_heads=2)
 
 
+def _k1_f32(c):
+    x = _bf16(1, 64, 2, 64, dtype=torch.float32)
+    fa.flash_attention_fwd(x, x, x)
+
+
+def _k4_f32(c):
+    x = _bf16(1, 64, 2, 64, dtype=torch.float32)
+    fa.flash_attention_fwd(x, x, x, causal=True)
+
+
+def _k2_f32(c):
+    kv = _bf16(2, 16, 128, dtype=torch.float32)
+    da.decode_attention(_bf16(2, 2, 64, dtype=torch.float32), kv, kv, 5, n_heads=2)
+
+
+def _k2_ring_f32(c):
+    kv = _bf16(2, 16, 128, dtype=torch.float32)
+    da.decode_attention(_bf16(2, 2, 64, dtype=torch.float32), kv, kv,
+                        on_card(torch.tensor([3, 4], dtype=torch.int32)), n_heads=2,
+                        ring_pos=on_card(torch.tensor(7, dtype=torch.int32)))
+
+
+def _k2_beam_f32(c):
+    kv = _bf16(2, 64, 128, dtype=torch.float32)
+    da.decode_attention_beam(_bf16(2, 3, 2, 64, dtype=torch.float32), kv, kv, n_heads=2)
+
+
 def _k3(c):
     mel.log_mel_frames(on_card(torch.zeros(1, 480000)), FeatureConfig())
 
@@ -184,6 +211,11 @@ WRAPPERS = {
     "K2 prefix": (_k2, "kwt_decode_attention"),
     "K2 ring": (_k2_ring, "kwt_decode_attention_ring"),
     "K2 beam": (_k2_beam, "kwt_decode_attention_beam"),
+    "K1 fp32": (_k1_f32, "kwt_flash_attention_f32"),
+    "K4 fp32": (_k4_f32, "kwt_flash_attention_f32"),
+    "K2 prefix fp32": (_k2_f32, "kwt_decode_attention"),
+    "K2 ring fp32": (_k2_ring_f32, "kwt_decode_attention_ring_f32"),
+    "K2 beam fp32": (_k2_beam_f32, "kwt_decode_attention_beam_f32"),
     "K3": (_k3, "kwt_log_mel"),
     "K6": (_k6, "kwt_layer_norm"),
     "K6 add": (_k6_add, "kwt_layer_norm"),

@@ -210,8 +210,8 @@ def test_distill_unported_flags_raise(students, teacher_dir, split_dir, tmp_path
 
 
 def test_float32_on_the_card_is_not_ported(students, teacher_dir, split_dir, tmp_path):
-    """The kernels take bfloat16: --dtype float32 raises for the card and
-    runs on the CPU (the CLI tests above)."""
+    """The backward kernel (K5) takes bfloat16: --dtype float32 raises for
+    the card and runs on the CPU (the CLI tests above)."""
     _, port_dir = students
     args = port_distill._parser().parse_args(
         _distill_args(split_dir, port_dir, teacher_dir, str(tmp_path), 1))

@@ -72,9 +72,9 @@ def test_cuda_sources_have_their_notes():
 
     sources = sorted((PORT / "csrc").glob("*.cu"))
     assert {cu.stem for cu in sources} == set(_build.SOURCES)
-    # K1 and K4 share flash_attention_sm90.cu
+    # K1 and K4 share flash_attention_sm90.cu (bf16) and flash_attention_f32.cu (fp32)
     assert set(_build.SOURCES) == {
-        "flash_attention_sm90", "flash_attention_bwd", "decode_attention",
+        "flash_attention_sm90", "flash_attention_f32", "flash_attention_bwd", "decode_attention",
         "decode_attention_ring", "decode_attention_beam", "mel", "layer_norm", "conv_stem",
         "flash_attention_int8", "vpu_cal"}
     for cu in sources:

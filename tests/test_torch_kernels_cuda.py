@@ -1164,3 +1164,238 @@ def test_kernels_at_a_tensor_parallel_shard(form, heads):
     got = da.decode_attention(q, k, v, valid, **kw)
     ref = da.decode_attention_reference(q, k, v, valid, **kw)
     _assert_near(got, ref, atol=2e-3)
+
+
+# ---------------------------------------------------------------------------
+# The fp32 forms of K1/K4 (csrc/flash_attention_f32.cu) and of K2's prefix,
+# ring and beam kernels: fp32 arithmetic end to end, held to their fp32
+# twins by relative L2 <= 1e-5 and elementwise to 1e-5 + 1e-4 relative
+# (sums in another order, exp2 of log2-scaled scores, the approximate ex2)
+# ---------------------------------------------------------------------------
+
+def _assert_fp32(got, ref):
+    assert got.dtype == torch.float32 and ref.dtype == torch.float32
+    torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-4)
+    rel = float((got - ref).norm() / ref.norm())
+    assert rel <= 1e-5, f"relative L2 error {rel:.3e}"
+
+
+@pytest.mark.parametrize("b, tq, tk, h, causal", [
+    (2, 1500, 1500, 20, False), (2, 1500, 1500, 10, False), (1, 70, 130, 3, False),
+    (3, 64, 1, 2, False), (2, 128, 1500, 20, False), (8, 128, 128, 20, True),
+    (2, 130, 130, 3, True), (1, 1, 1, 1, True), (2, 65, 65, 2, True)])
+def test_flash_attention_f32_kernel(b, tq, tk, h, causal):
+    """K1 and K4 in fp32: non-causal with Tq != Tk (the decoder's cross
+    attention), causal end-aligned, ragged tiles; O and the LSE."""
+    q = _randn(b, tq, h, 64, seed=200, dtype=torch.float32)
+    k = _randn(b, tk, h, 64, seed=201, dtype=torch.float32)
+    v = _randn(b, tk, h, 64, seed=202, dtype=torch.float32)
+    name = "causal_launches" if causal else "launches"
+    before = getattr(fa.flash_attention_fwd, name)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert getattr(fa.flash_attention_fwd, name) == before + 1
+    ro, rlse = fa.flash_attention_reference(q, k, v, causal)
+    _assert_fp32(o, ro)
+    torch.testing.assert_close(lse, rlse, atol=1e-5, rtol=1e-6)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attention_f32_kernel_reads_fused_strides(causal):
+    """fp32 q, k and v as column blocks of one fused projection (token
+    stride 3 * H * 64) go in without copies."""
+    b, t, h = 2, 200, 4
+    qkv = _randn(b, t, 3 * h * 64, seed=203, dtype=torch.float32)
+    q, k, v = (x.reshape(b, t, h, 64) for x in qkv.chunk(3, dim=-1))
+    o, _ = fa.flash_attention_fwd(q, k, v, causal=causal)
+    _assert_fp32(o, fa.flash_attention_reference(q, k, v, causal)[0])
+
+
+def _f32_kv(b, t, h, kv, seed):
+    """fp32 K/V in mode `kv`: fp32, int8 with fp32 row scales, int8 or
+    packed int4 with bf16 per-head scales -> (k, v, k_scale, v_scale)."""
+    out = []
+    for s in (seed, seed + 1):
+        x = _randn(b, t, h * 64, seed=s, dtype=torch.float32)
+        if kv == "fp32":
+            out += [x, None]
+        elif kv == "int8":
+            out += list(quantize_kv_rows(x))
+        else:
+            codes, scale = quantize_kv_heads(x, h, 4 if kv == "int4" else 8)
+            out += [pack_int4(codes) if kv == "int4" else codes, scale]
+    k, ks, v, vs = out
+    return k, v, ks, vs
+
+
+@pytest.mark.parametrize("heads", [20, 10])
+@pytest.mark.parametrize("kv", ["fp32", "int8", "int8h", "int4"])
+@pytest.mark.parametrize("t, valid", [(1500, 1500), (51, 7), (200, "rows"), (1, 1)])
+def test_decode_attention_f32_prefix(t, valid, kv, heads):
+    """K2's prefix form with fp32 q and output over fp32, int8 and int4
+    K/V (an fp32 model's cross and self caches), scalar and per-row valid
+    lengths, at 20 heads and a TP=2 shard's 10."""
+    b = 4
+    q = _randn(b, heads, 64, seed=204, dtype=torch.float32)
+    k, v, ks, vs = _f32_kv(b, t, heads, kv, seed=205)
+    if valid == "rows":
+        valid = torch.tensor([t, 1, 64, 65], dtype=torch.int32, device="cuda")
+    before = da.decode_attention.launches
+    got = da.decode_attention(q, k, v, valid, n_heads=heads, k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    assert da.decode_attention.launches == before + 1
+    _assert_fp32(got, da.decode_attention_reference(q, k, v, valid, n_heads=heads, k_scale=ks,
+                                                    v_scale=vs))
+
+
+@pytest.mark.parametrize("heads", [20, 10])
+@pytest.mark.parametrize("kv", ["fp32", "int8", "int8h"])
+@pytest.mark.parametrize("t", [51, 176, 448])
+@pytest.mark.parametrize("at", ["third", "last"])
+def test_decode_attention_f32_ring(at, t, kv, heads):
+    """K2's ring form in fp32: rows that wrap, one slot, every slot; at
+    T=448 (the decoder's most positions) one head's slots exceed a CTA's
+    shared memory and the kernel walks them in boxes."""
+    b = 6
+    ring = {"third": t // 3, "last": t - 1}[at]
+    q = _randn(b, heads, 64, seed=206, dtype=torch.float32)
+    k, v, ks, vs = _f32_kv(b, t, heads, kv, seed=207)
+    valid = torch.tensor([t, 1, ring + 1, min(t, ring + 2), t - 1, (2 * t) // 3],
+                         dtype=torch.int32, device="cuda")
+    ring_pos = torch.tensor(ring, dtype=torch.int32, device="cuda")
+    kw = dict(n_heads=heads, k_scale=ks, v_scale=vs, ring_pos=ring_pos)
+    before = da.decode_attention.ring_launches
+    got = da.decode_attention(q, k, v, valid, **kw)
+    torch.cuda.synchronize()
+    assert da.decode_attention.ring_launches == before + 1
+    _assert_fp32(got, da.decode_attention_reference(q, k, v, valid, **kw))
+    if t == 448:
+        assert da.ring_plan(b, t, heads, k.dtype, q_dtype=torch.float32).chunk < t or kv != "fp32"
+
+
+@pytest.mark.parametrize("heads", [20, 10])
+@pytest.mark.parametrize("kv", ["fp32", "int8", "int4"])
+@pytest.mark.parametrize("g, beams, t", [(12, 5, 1500), (3, 17, 1500), (2, 5, 1500), (3, 1, 51),
+                                         (2, 8, 1)])
+def test_decode_attention_f32_beam(g, beams, t, kv, heads):
+    """K2's beam form in fp32 (FFMA): 12 x 5 (one CTA a group and head), 17
+    beams (two 16-beam tiles), 2 groups (keys split over a cluster), short
+    rows."""
+    q = _randn(g, beams, heads, 64, seed=208, dtype=torch.float32)
+    k, v, ks, vs = _f32_kv(g, t, heads, kv, seed=209)
+    before = da.decode_attention_beam.launches
+    got = da.decode_attention_beam(q, k, v, n_heads=heads, k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    assert da.decode_attention_beam.launches == before + 1
+    _assert_fp32(got, da.decode_attention_reference_beam(q, k, v, n_heads=heads, k_scale=ks,
+                                                         v_scale=vs))
+
+
+@pytest.mark.parametrize("form", ["K1", "K4", "prefix", "ring", "beam"])
+def test_f32_forms_replay_in_a_cuda_graph(form):
+    """Each fp32 form allocates only its outputs and launches once: a CUDA
+    graph of it replays to the eager result, also after its inputs (and
+    the ring's valid lengths and slot) change in place."""
+    h = 20
+    if form in ("K1", "K4"):
+        t = 128 if form == "K4" else 300
+        q, k, v = (_randn(2, t, h, 64, seed=s, dtype=torch.float32) for s in (210, 211, 212))
+
+        def call():
+            return fa.flash_attention_fwd(q, k, v, causal=form == "K4")[0]
+    elif form == "beam":
+        q = _randn(3, 5, h, 64, seed=213, dtype=torch.float32)
+        k, v, ks, vs = _f32_kv(3, 1500, h, "int4", seed=214)
+
+        def call():
+            return da.decode_attention_beam(q, k, v, n_heads=h, k_scale=ks, v_scale=vs)
+    else:
+        t = 448 if form == "ring" else 1500
+        q = _randn(6, h, 64, seed=215, dtype=torch.float32)
+        k, v, ks, vs = _f32_kv(6, t, h, "fp32", seed=216)
+        valid = torch.tensor([t, 1, 200, 300, 7, t - 1], dtype=torch.int32, device="cuda")
+        ring_pos = torch.tensor(40, dtype=torch.int32, device="cuda")
+        kw = dict(ring_pos=ring_pos) if form == "ring" else {}
+
+        def call():
+            return da.decode_attention(q, k, v, valid, n_heads=h, **kw)
+    call()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    graph.replay()
+    want = call()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    q.copy_(_randn(*q.shape, seed=217, dtype=torch.float32))
+    if form in ("prefix", "ring"):
+        valid.copy_(torch.tensor([3, 448 if form == "ring" else 1500, 1, 9, 100, 41],
+                                 dtype=torch.int32, device="cuda"))
+        ring_pos.fill_(447)
+    graph.replay()
+    want = call()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("bad", ["prefix-f32q-bf16kv", "prefix-bf16q-f32kv", "ring-f32q-bf16kv",
+                                 "beam-f32q-bf16kv", "beam-bf16q-f32kv", "f32kv-scales",
+                                 "flash-mixed"])
+def test_f32_forms_refuse_mixed_dtypes(bad):
+    """A call that mixes bf16 and fp32 raises on the card, with no launch."""
+    h, t = 4, 64
+    f32, bf = torch.float32, torch.bfloat16
+    if bad == "flash-mixed":
+        q = _randn(1, 64, h, 64, seed=218, dtype=f32)
+        before = fa.flash_attention_fwd.launches
+        with pytest.raises(TypeError, match="one dtype"):
+            fa.flash_attention_fwd(q, q.to(bf), q.to(bf))
+        assert fa.flash_attention_fwd.launches == before
+        return
+    q_dtype = f32 if "-f32q" in bad or bad == "f32kv-scales" else bf
+    kv_dtype = f32 if "f32kv" in bad else bf
+    kv = _randn(2, t, h * 64, seed=219, dtype=kv_dtype)
+    scale = torch.ones(2, t, 1, device="cuda") if bad == "f32kv-scales" else None
+    if bad.startswith("beam"):
+        before = da.decode_attention_beam.launches
+        with pytest.raises(ValueError, match="K2"):
+            da.decode_attention_beam(_randn(2, 3, h, 64, seed=220, dtype=q_dtype), kv, kv,
+                                     n_heads=h)
+        assert da.decode_attention_beam.launches == before
+        return
+    kw = {"ring_pos": torch.tensor(3, dtype=torch.int32, device="cuda")} if "ring" in bad else {}
+    before = (da.decode_attention.launches, da.decode_attention.ring_launches)
+    with pytest.raises(ValueError, match="K2"):
+        da.decode_attention(_randn(2, h, 64, seed=221, dtype=q_dtype), kv, kv, t, n_heads=h,
+                            k_scale=scale, v_scale=scale, **kw)
+    assert (da.decode_attention.launches, da.decode_attention.ring_launches) == before
+
+
+@pytest.mark.parametrize("kernel", ["K5", "K6", "K7", "K8"])
+def test_unported_f32_forms_raise(kernel):
+    """The fp32 forms still to port raise on CUDA tensors, naming their
+    kernel, and launch nothing: K5 (the backward), K6 (LayerNorm), K7 (the
+    conv stem) and K8 (the int8 core's fp32 q)."""
+    f32 = torch.float32
+    q = _randn(1, 64, 2, 64, seed=222, dtype=f32)
+    counters = (fa.flash_attention_bwd.launches, ln.layer_norm.launches, cs.conv_stem.launches,
+                fa.flash_attention_int8.launches)
+    if kernel == "K5":
+        with pytest.raises(TypeError, match="K5"):
+            fa.flash_attention_bwd(q, q, q, q, torch.zeros(1, 2, 64, device="cuda"), q,
+                                   causal=True)
+    elif kernel == "K6":
+        w = torch.ones(64, device="cuda")
+        with pytest.raises(ValueError, match="K6"):
+            ln.layer_norm(_randn(4, 64, seed=223, dtype=f32), w, w)
+    elif kernel == "K7":
+        conv1 = torch.nn.Conv1d(80, 64, 3, padding=1, device="cuda")
+        conv2 = torch.nn.Conv1d(64, 64, 3, stride=2, padding=1, device="cuda")
+        with pytest.raises(TypeError, match="K7"):
+            cs.conv_stem(conv1, conv2, _randn(1, 80, 256, seed=224, dtype=f32))
+    else:
+        with pytest.raises(TypeError, match="K8"):
+            fa.flash_attention_int8(q, q, q, mode="qk")
+    assert counters == (fa.flash_attention_bwd.launches, ln.layer_norm.launches,
+                        cs.conv_stem.launches, fa.flash_attention_int8.launches)
