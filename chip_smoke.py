@@ -35,10 +35,15 @@ Phases, in order; any failure exits nonzero and prints no result line:
      each timed alone; then the fp32 forms at phase 4k's shapes: K1 (B=16,
      T=1500), K4 (B=8 x 128), K2's prefix form (cross T=1500 with fp32 and
      int8 K/V, self T=51), ring form (W=48 at T=176 and T=448, the latter
-     in boxes) and beam form (12 x 5 over T=1500, fp32 and int4 K/V), each
-     held to its fp32 twin by relative L2 <= 1e-5 above a dropped-key-tile
-     control >= 1e-2, SDPA on fp32 tensors beside it with its backend
-     named;
+     in boxes) and beam form (12 x 5 over T=1500, fp32 and int4 K/V), K5
+     (causal B=8 x 128 and cross 128 x 1500: dQ, dK, dV; autograd through
+     SDPA beside it), K8 with fp32 q (qk and qkpv at B=16, T=1500, its
+     pre-pass bit for bit), K6 on fp32 rows (24000 x 1280, LayerNorm and
+     the fused add) and K7 (16, 128, 3000; cuDNN conv + GELU twice with
+     TF32 off beside it), each held to its fp32 twin by relative L2 <= 1e-5
+     above a control >= 1e-2 (a dropped key tile; K6: a 64-column chunk
+     not written; K7: conv1's first tap skipped), the library call on the
+     same fp32 tensors beside it with its kernel named;
   4. main path: large-v3 width and depth with seeded random weights, bf16,
      int8 KV, B=16, 48 new tokens with eot disabled:
      log_mel_spectrogram -> generate_greedy, with launch counters checked;
@@ -116,7 +121,18 @@ Phases, in order; any failure exits nonzero and prints no result line:
      three seeds the kernel path, under torch's default TF32 flags, against
      the plain path: encoder and first-step logits within 1e-4, the 48
      greedy tokens equal (beside a witness: the encoder with the model's
-     TF32 guard bypassed); audio-s/s and the fp32 cross cache's bytes;
+     TF32 guard bypassed); (f) 4d's encoder variants on this model (the
+     K7 stem, K8 under KWT_FA_INT8=qk and qkpv, enc_exp's fused_ln through
+     K6), each with its time, launches and rel-L2 against the default;
+     audio-s/s and the fp32 cross cache's bytes;
+  4b-f32. (after 4i(a)) 4b's step in fp32: a seeded fp32 large-v3 teacher
+     and its 32+2-layer student, B=8 x 128 labels, one warm-up step (its
+     launches by C entry: the fp32 forms only) and 3 timed steps, launches
+     as 4b's, the frozen encoder unchanged and the decoder moved; at B=2
+     the kernel path under torch's default TF32 flags against the plain
+     path (loss within 1e-5, decoder gradients within 1e-4), beside a
+     witness (4b's bf16 step on the same rows reads above that bar); then
+     the bilingual step in fp32 (5c's datasets, launches as 5c's);
   4i. parallel on one card: (a) a one-rank NCCL group and its mesh: one
      lockstep stage-2 batch and one data-parallel distillation step,
      launches as phases 4 and 4b; (b) tensor parallel over two ranks on
@@ -135,13 +151,15 @@ Phases, in order; any failure exits nonzero and prints no result line:
      with its default fusion, then with --gemm_dtype int8 under
      KWT_FA_INT8=qk, then --streaming, then --num_beams 3, then
      --streaming --num_beams 3, then --dtype float32 in lockstep, with
-     --streaming and with --num_beams 3; then through `python -m
+     --streaming, with --num_beams 3 and under KWT_FA_INT8=qk (K8's fp32-q
+     form); then through `python -m
      kotoba_whisper_tpu_torch`: filter on the labels with --skip_filtering
      (K3 on the card) and with the WER gate, merge of the two chunks;
   5b. create-student (4-layer encoder at large-v3 width) -> distill 2
      steps on the merged split, save -> resume to step 3 -> export, and
-     create-student --dtype float32 (K1 6 and K4 2 launches); then
-     stage 6 through `python -m kotoba_whisper_tpu_torch`: prepare-eval-set
+     create-student --dtype float32 (K1 6 and K4 2 launches), distill
+     --dtype float32 for 2 steps (K1, K4 and K5 in fp32); then stage 6
+     through `python -m kotoba_whisper_tpu_torch`: prepare-eval-set
      from a manifest of synthetic WAVs to tar+tsv, eval of the exported
      student on it, again with --stable_ts --punctuator, and a third time
      from a copy of the first run's output, where every prediction comes
@@ -153,16 +171,19 @@ Phases, in order; any failure exits nonzero and prints no result line:
      ja:transcribe,en:translate, stage 3 keeping both label columns, then
      `python -m kotoba_whisper_tpu_torch distill-bilingual` on that chunk as
      two datasets (transcribe.ja+translate.en with KL, transcribe.ja
-     without) from 5b's student, 2 steps and an HF export;
-  5d. the experiment tools' main(): enc_exp (fused_ln), stem_exp, vpu_cal
-     (softmax and exp), few trials, their JSON lines parsed;
+     without) from 5b's student, 2 steps and an HF export, then one step
+     with --dtype float32;
+  5d. the experiment tools' main(): enc_exp (fused_ln, and fused_ln
+     --dtype float32 at B=4), stem_exp, vpu_cal (softmax and exp), few
+     trials, their JSON lines parsed;
   6. a JSON line of every kernel with the launches of the path that runs
      it (K1, K2 prefix: the pseudo-labelling run; K2 ring and beam: the 4g
      beam stream; K3: phase 5's filter; K4, K5: the 3 timed train steps;
      K6-K8: the 4d encoder runs; K9: the vpu_cal runs of 5d; the 10-head
      records: rank 0 of 4i(b); the int4 cache's records: 4j (a) prefix, (b)
      beam, (c) ring; the fp32 records: 4k (a) K1 and prefix, (b) beam, (c)
-     ring, and 5b's create-student --dtype float32 for K4) and its
+     ring, (f) K6-K8, 5b's create-student --dtype float32 for K4, and the
+     3 timed steps of 4b-f32 for K5) and its
      numbers, K1, K2 and K3 also with their launches in 4h's 300 s call of
      large-v3 (a), K2's beam form in 4h's beam call (`serving_launches`);
   7. the last line: {"ok": true, "device": {...}}.
@@ -227,6 +248,12 @@ TRAIN_STEPS = 3   # timed train steps after one warm-up step
 # relative L2 of the student decoder's gradients, all parameters together.
 TRAIN_LOSS_TOL = 1e-2
 TRAIN_GRAD_TOL = 5e-2
+# the same in fp32 (phase 4b-f32): the kernel path, under torch's default
+# TF32 flags, against the plain path; 4b's bf16 gradients must read above
+# F32_TRAIN_GRAD_TOL against the fp32 plain path, so the bar can see an
+# error of bf16's size
+F32_TRAIN_LOSS_TOL = 1e-5
+F32_TRAIN_GRAD_TOL = 1e-4
 # phase 4h: the serving table's settings (eval_pipeline/runtime_pipeline.tpu-v5e.jsonl)
 SERVE_DURATIONS = (10, 30, 60, 300)
 SERVE_MAX_LENGTH = 32
@@ -1325,11 +1352,12 @@ def main() -> int:
         err, rel_err = compare(got, ref)
         control = compare(control_ref, ref)[1]
         backend = sdpa_kernel_name(library)
-        log(f"[kernel] {name}: library call SDPA ran {backend}")
+        log(f"[kernel] {name}: library call ran {backend}")
+        lib_dev, lib_by = library_device_ms(library)
         record(name, source, replaces, (err, rel_err), 1e-4 * float(ref.abs().max()),
                time_ms(call), time_ms(plain), time_ms(library), bnd, key=key,
                rel_tol=F32_REL_TOL, control=control, library_backend=backend,
-               device_ms=graph_ms(call), library_device_ms=graph_ms(library),
+               device_ms=graph_ms(call), library_device_ms=lib_dev, library_device_by=lib_by,
                host_us=host_us(call), library_host_us=host_us(library))
 
     f32 = torch.float32
@@ -1459,6 +1487,154 @@ def main() -> int:
                   mem_rate), key)
         del qb, kf, vf, ks, vs, out, ref, cut, kh, vh, qh
     del kw
+
+    def flat(*ts):
+        return torch.cat([t.flatten() for t in ts])
+
+    # K5 fp32 (csrc/flash_attention_bwd_f32.cu): the student decoder's causal
+    # self-attention (B=8 x 128) and its cross-attention (128 x 1500) on the
+    # fp32 K4 / K1 forward's O and LSE; dQ, dK and dV together against the
+    # twin; control: the twin with the first 64 keys dropped (their dK and
+    # dV rows zero); the library call autograd through SDPA on fp32 tensors
+    for label, tk, causal in (("causal", LABELS, True), ("cross", t_enc, False)):
+        q = randn(TRAIN_B, LABELS, h, 64, seed=55, dtype=f32)
+        k, v = (randn(TRAIN_B, tk, h, 64, seed=s, dtype=f32) for s in (56, 57))
+        do = randn(TRAIN_B, LABELS, h, 64, seed=58, dtype=f32)
+        o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+        got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+        ref = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, causal=causal)
+        cut_q, cut_k, cut_v = fa.flash_attention_bwd_reference(q, k[:, 64:], v[:, 64:], o, lse,
+                                                               do, causal=causal)
+        pad = torch.zeros_like(k[:, :64])
+        for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+            log(f"[kernel] K5 fp32 {label} {name}: rel_l2 {compare(g, r)[1]:.3e}")
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+        sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+        do_t = do.transpose(1, 2)
+        n_pairs = LABELS * (LABELS + 1) // 2 if causal else LABELS * tk
+        f32_record(
+            f"K5 flash_attention_bwd {label} fp32 (B={TRAIN_B}, Tq={LABELS}, Tk={tk}, H={h}, "
+            "D=64; dQ, dK, dV)",
+            "kotoba_whisper_tpu_torch/csrc/flash_attention_bwd_f32.cu",
+            "kotoba_whisper_tpu/ops/flash_attention.py:315", flat(*got), flat(*ref),
+            flat(cut_q, torch.cat([pad, cut_k], 1), torch.cat([pad, cut_v], 1)),
+            lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal),
+            lambda: fa.flash_attention_bwd_reference(q, k, v, o, lse, do, causal=causal),
+            lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), do_t, retain_graph=True),
+            # S, dP, dV, dQ, dK: five products over the kept pairs, one exp each
+            bound(10.0 * TRAIN_B * h * n_pairs * 64, fp32_rate,
+                  nbytes(q, k, v, o, lse, do, *got), mem_rate,
+                  exp_s=TRAIN_B * h * n_pairs / exp_rate), "K5f32")
+        del q, k, v, do, o, lse, got, ref, cut_q, cut_k, cut_v, pad, qt, kt, vt, sdpa_out, do_t
+
+    # K8 fp32 q (the fp32-q kernel of csrc/flash_attention_int8.cu) at the
+    # encoder's shape, qk and qkpv: its pre-pass bit for bit against the twin
+    # quantizers, O against the twin on their codes; control: the twin with
+    # the first 64 keys dropped
+    q, k, v = (randn(B, t_enc, h, 64, seed=s, dtype=f32) for s in (59, 60, 61))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    pairs = B * h * t_enc * t_enc
+    for mode in ("qk", "qkpv"):
+        pv8 = mode == "qkpv"
+
+        def twin(kk=k, vv=v):
+            k8, ks = fa.quantize_k_rows(kk)
+            v_in, vs = fa.quantize_v_cols(vv) if pv8 else (vv, None)
+            return fa.flash_attention_int8_reference(q, k8, ks, v_in, vs, pv8)
+
+        got = fa.int8_prepass(q, k, v, mode=mode)
+        want = fa.int8_prepass_reference(k, v, pv8)
+        for part, g, w in zip(("k8", "ks", "v8t", "vs"), got, want):
+            if w is not None and not torch.equal(g, w):
+                raise AssertionError(f"K8 fp32 {mode} pre-pass: {part} differs from the twin "
+                                     "quantizers")
+        log(f"[kernel] K8 fp32 {mode} pre-pass: {'k8, ks, v8t, vs' if pv8 else 'k8, ks'} equal "
+            "the twin quantizers bit for bit")
+        del got, want
+        o, lse = fa.flash_attention_int8(q, k, v, mode=mode)
+        ro, rlse = twin()
+        if float((lse - rlse).abs().max()) > 1e-5:
+            raise AssertionError(f"K8 fp32 {mode} LSE disagrees")
+        f32_record(
+            f"K8 flash_attention_int8 {mode} fp32 q (B={B}, T={t_enc}, H={h}, D=64)",
+            "kotoba_whisper_tpu_torch/csrc/flash_attention_int8.cu",
+            "kotoba_whisper_tpu/ops/flash_attention.py:145", o, ro,
+            twin(k[:, 64:], v[:, 64:])[0],
+            lambda: fa.flash_attention_int8(q, k, v, mode=mode), twin,
+            lambda: F.scaled_dot_product_attention(qt, kt, vt),
+            # s8 QK^T (and P V) at the int8 rate; qk's P V in fp32 on FFMAs
+            bound((4.0 if pv8 else 2.0) * pairs * 64, int8_rate, nbytes(q, k, v, o, lse),
+                  mem_rate, exp_s=pairs / exp_rate,
+                  more_s=0 if pv8 else 2.0 * pairs * 64 / fp32_rate), f"K8{mode}f32")
+        del o, lse, ro, rlse
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+
+    # K6 fp32 rows (csrc/layer_norm.cu) over the encoder's (B*1500, 1280),
+    # fp32 weights: LayerNorm and the fused add (its sum bit for bit);
+    # control: the twin with one 64-column chunk of each row not written
+    rows = B * t_enc
+    x = randn(rows, d, seed=62, dtype=f32) * 3 + 1
+    y = randn(rows, d, seed=63, dtype=f32)
+    w = 1 + 0.1 * randn(d, seed=64, dtype=f32)
+    bb = 0.1 * randn(d, seed=65, dtype=f32)
+
+    def unwritten(t):
+        return torch.cat([torch.zeros_like(t[:, :64]), t[:, 64:]], 1)
+
+    ref = ln.layer_norm_reference(x, w, bb)
+    f32_record(
+        f"K6 layer_norm ({rows}, {d}) fp32", "kotoba_whisper_tpu_torch/csrc/layer_norm.cu",
+        "kotoba_whisper_tpu/ops/layer_norm.py:45", ln.layer_norm(x, w, bb), ref, unwritten(ref),
+        lambda: ln.layer_norm(x, w, bb), lambda: ln.layer_norm_reference(x, w, bb),
+        lambda: F.layer_norm(x, (d,), w, bb),
+        bound(10.0 * rows * d, fp32_rate, nbytes(x, w, bb, ref), mem_rate), "K6lnf32")
+    summed, got = ln.add_layer_norm(x, y, w, bb)
+    ref_sum, ref = ln.add_layer_norm_reference(x, y, w, bb)
+    if not (torch.equal(summed, x + y) and torch.equal(summed, ref_sum)):
+        raise AssertionError("K6 add_layer_norm fp32: the sum differs from x + y")
+    f32_record(
+        f"K6 add_layer_norm ({rows}, {d}) fp32", "kotoba_whisper_tpu_torch/csrc/layer_norm.cu",
+        "kotoba_whisper_tpu/ops/layer_norm.py:52", got, ref, unwritten(ref),
+        lambda: ln.add_layer_norm(x, y, w, bb), lambda: ln.add_layer_norm_reference(x, y, w, bb),
+        lambda: F.layer_norm(x + y, (d,), w, bb),
+        bound(11.0 * rows * d, fp32_rate, nbytes(x, y, w, bb, summed, got), mem_rate),
+        "K6addf32")
+    del x, y, w, bb, got, ref, summed, ref_sum
+
+    # K7 fp32 (csrc/conv_stem_f32.cu), (16, 128, 3000) -> (16, 1500, 1280);
+    # control: the twin with conv1's first tap skipped; the library call
+    # cuDNN conv + GELU twice, TF32 off (phase 1 turned it off)
+    n_mels = large.num_mel_bins
+    conv1 = torch.nn.Conv1d(n_mels, d, 3, padding=1, device="cuda")
+    conv2 = torch.nn.Conv1d(d, d, 3, stride=2, padding=1, device="cuda")
+    with torch.no_grad():
+        for i, c in enumerate((conv1, conv2)):
+            c.weight.copy_(randn(*c.weight.shape, seed=66 + i, dtype=f32) * 0.02)
+            c.bias.copy_(randn(d, seed=68 + i, dtype=f32) * 0.1)
+        xs = randn(B, n_mels, 2 * t_enc, seed=70, dtype=f32)
+        w1_cut = conv1.weight.clone()
+        w1_cut[:, :, 0] = 0
+
+        def cudnn_stem32():
+            hh = F.gelu(F.conv1d(xs, conv1.weight, conv1.bias, padding=1))
+            return F.gelu(F.conv1d(hh, conv2.weight, conv2.bias, stride=2, padding=1))
+
+        stem_flops = 2.0 * B * 2 * t_enc * 3 * n_mels * d + 2.0 * B * t_enc * 3 * d * d
+        f32_record(
+            f"K7 conv_stem (B={B}, {n_mels} x {2 * t_enc} -> {t_enc} x {d}, fp32)",
+            "kotoba_whisper_tpu_torch/csrc/conv_stem_f32.cu",
+            "kotoba_whisper_tpu/ops/conv_stem.py:60", cs.conv_stem(conv1, conv2, xs),
+            cs.conv_stem_reference(conv1.weight, conv1.bias, conv2.weight, conv2.bias, xs),
+            cs.conv_stem_reference(w1_cut, conv1.bias, conv2.weight, conv2.bias, xs),
+            lambda: cs.conv_stem(conv1, conv2, xs),
+            lambda: cs.conv_stem_reference(conv1.weight, conv1.bias, conv2.weight, conv2.bias,
+                                           xs),
+            cudnn_stem32,
+            bound(stem_flops, fp32_rate, nbytes(xs, conv1.weight, conv1.bias, conv2.weight,
+                                                conv2.bias) + B * t_enc * d * 4, mem_rate),
+            "K7f32")
+    del conv1, conv2, xs, w1_cut
     log(f"[kernel] after the fp32 records: {card_memory()}")
 
     # ---- 4. main path -----------------------------------------------------
@@ -2456,11 +2632,56 @@ def main() -> int:
         f"{30 / mean_k:.1f}; bf16 in this call: phase 4 {B * feat.chunk_length_s / wall:.1f}, "
         f"4f {g_f * feat.chunk_length_s / wall_b:.1f}; {time.perf_counter() - t_k:.1f} s for "
         f"the phase [{card}]")
+    # (f) the encoder variants in fp32, 4d's line on this model: default,
+    # stem_impl="pallas" (K7's fp32 form), KWT_FA_INT8=qk and qkpv (K8's
+    # fp32-q form) and enc_exp's fused_ln (K6's fp32 rows), each with its
+    # time, launches and rel-L2 against the default (the int8 forms round
+    # every score: 4d's looser bound; the others F32_PATH_TOL)
+    feats_k = mel.log_mel_spectrogram(audio32, feat)
+    k_enc_variants = (
+        ("default", {}, lambda: whisper.encode(model32, feats_k), {"K1": 32}),
+        ("stem_impl=pallas", {}, lambda: whisper.encode(model32, feats_k, stem_impl="pallas"),
+         {"K1": 32, "K7": 1}),
+        ("KWT_FA_INT8=qk", {"KWT_FA_INT8": "qk"}, lambda: whisper.encode(model32, feats_k),
+         {"K8": 32}),
+        ("KWT_FA_INT8=qkpv", {"KWT_FA_INT8": "qkpv"}, lambda: whisper.encode(model32, feats_k),
+         {"K8": 32}),
+        ("enc_exp fused_ln", {}, lambda: enc_exp.encode_fused_ln(model32, feats_k),
+         {"K1": 32, "K6ln": 33, "K6add": 32}),
+    )
+    k_enc_launches, k_enc_default = {}, None
+    for label, env, fn, expect_n in k_enc_variants:
+        os.environ.update(env)
+        try:
+            fn()  # warm-up
+            reset_every()
+            out, ms = timed(fn)
+            counts = nonzero(every_count())
+        finally:
+            for key in env:
+                os.environ.pop(key)
+        k_enc_launches[label] = counts
+        out = out.float()
+        if k_enc_default is None:
+            k_enc_default = out
+        drift = rel(out, k_enc_default)
+        log(f"[4k-f] fp32 encoder {label}: {ms:.2f} ms, rel-L2 vs default {drift:.3e}, "
+            f"launches {counts} [{card}]")
+        if counts != expect_n or not bool(torch.isfinite(out).all()) or drift > (
+                0.1 if "INT8" in label else F32_PATH_TOL):
+            raise AssertionError(f"4k(f) {label}: launches {counts} (expected {expect_n}), "
+                                 f"rel-L2 {drift}")
+    del feats_k, k_enc_default, out
     fp32_launches = {"K1f32": k_counts["a-compute"]["K1"], "K2f32": k_counts["a-compute"]["K2"],
                      "K2f32int8": k_counts["a-int8"]["K2"],
                      "K2beamf32": k_counts["b-compute"]["K2beam"],
                      "K2beamf32int4": k_counts["b-int4"]["K2beam"],
-                     "K2ringf32": k_counts["c"]["K2ring"]}
+                     "K2ringf32": k_counts["c"]["K2ring"],
+                     "K7f32": k_enc_launches["stem_impl=pallas"]["K7"],
+                     "K8qkf32": k_enc_launches["KWT_FA_INT8=qk"]["K8"],
+                     "K8qkpvf32": k_enc_launches["KWT_FA_INT8=qkpv"]["K8"],
+                     "K6lnf32": k_enc_launches["enc_exp fused_ln"]["K6ln"],
+                     "K6addf32": k_enc_launches["enc_exp fused_ln"]["K6add"]}
     # nothing of the phase stays on the card: a small tensor left in a split
     # block of one of its large segments would keep the whole segment
     del model32, audio32, small, enc_k, lg_k, enc_p, lg_p
@@ -2697,6 +2918,142 @@ def main() -> int:
     del teacher, student, state, opt, batch, small, m1, toks1
     torch.cuda.empty_cache()
 
+    # ---- 4b-f32. the train path in fp32 ---------------------------------------
+    # 4b's step at compute_dtype=float32 (the JAX package's --dtype float32:
+    # fp32 compute, fp32 master weights): a seeded fp32 large-v3 teacher and
+    # its 32+2-layer student, B=8 x 128 labels, remat; one warm-up step (its
+    # launches by C entry: every attention through the fp32 forms), 3 timed
+    # steps, launches as 4b's (K1 68, K4 36, K5 4 a step), the frozen encoder
+    # unchanged and the decoder moved. At B=2 the kernel path, under torch's
+    # default TF32 flags (the backward runs outside the model's TF32 guard:
+    # its GEMMs follow torch's matmul flag, off by default), against the
+    # plain path: loss within F32_TRAIN_LOSS_TOL, the student decoder's
+    # gradients within F32_TRAIN_GRAD_TOL; witness: 4b's bf16 step (bf16
+    # teacher, bf16 compute) on the same student and rows, whose gradients
+    # must read above that bar. Then the bilingual step in fp32.
+    t_32 = time.perf_counter()
+    teacher32 = whisper.init_params(large, torch.Generator(device="cuda").manual_seed(0),
+                                    device="cuda", dtype=torch.float32)
+    student32, _ = init_student_from_teacher(teacher32, large, decoder_layers=2)
+    teacher32.requires_grad_(False)
+    distill.freeze_encoder_(student32)
+    opt32, sched32 = optim.make_optimizer(student32, lr=1e-4, warmup_steps=500)
+    state32 = distill.TrainState(student32, opt32)
+    dc32 = dataclasses.replace(dc, compute_dtype=torch.float32)
+    step32 = distill.make_train_step(dc32, sched32)
+
+    def as_f32(bt):
+        return {**bt, "input_features": bt["input_features"].float()}
+
+    batch32 = as_f32(train_batch(TRAIN_B))
+    enc_before = [p.detach().clone() for p in student32.model.encoder.parameters()]
+    dec_before = [p.detach().clone() for p in student32.model.decoder.parameters()]
+    entries, real_function = {}, _build.function
+
+    def counted_function(name, fn):
+        entries[fn] = entries.get(fn, 0) + 1
+        return real_function(name, fn)
+
+    _build.function = counted_function
+    try:
+        step32(state32, teacher32, batch32)  # warm-up, its launches by C entry
+    finally:
+        _build.function = real_function
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_every()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        metrics32 = step32(state32, teacher32, batch32)
+    torch.cuda.synchronize()
+    step32_s = (time.perf_counter() - t0) / TRAIN_STEPS
+    f32_train_launches = nonzero(every_count())
+    metrics32 = {k: float(v) for k, v in metrics32.items()}
+    want_entries = {"kwt_flash_attention_f32": per_step["K1"] + per_step["K4"],
+                    "kwt_flash_attention_bwd_f32": per_step["K5"]}
+    log(f"[4b-f32] B={TRAIN_B} x {LABELS} labels, fp32: {step32_s * 1e3:.1f} ms/step over "
+        f"{TRAIN_STEPS} steps (4b, bf16: {step_s * 1e3:.1f}), "
+        f"{TRAIN_B * feat.chunk_length_s / step32_s:.1f} training audio-s/s/card, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB [{card}]; launches over the "
+        f"{TRAIN_STEPS} steps {f32_train_launches}; the warm-up step's C entries {entries}; "
+        f"metrics {metrics32}")
+    if f32_train_launches != {k: TRAIN_STEPS * n for k, n in per_step.items()} or (
+            entries != want_entries):
+        raise AssertionError(f"4b-f32 launches {f32_train_launches} (expected {TRAIN_STEPS} x "
+                             f"{per_step}), entries {entries} (expected {want_entries})")
+    if not all(math.isfinite(v) for v in metrics32.values()) or state32.step != TRAIN_STEPS + 1:
+        raise AssertionError(f"4b-f32 metrics {metrics32} at step {state32.step}")
+    if not all(torch.equal(a, p) for a, p in zip(enc_before,
+                                                 student32.model.encoder.parameters())):
+        raise AssertionError("4b-f32: the frozen encoder changed")
+    moved = sum(not torch.equal(a, p)
+                for a, p in zip(dec_before, student32.model.decoder.parameters()))
+    if moved != len(dec_before):
+        raise AssertionError(f"4b-f32: {len(dec_before) - moved} decoder parameters did not move")
+    del enc_before, dec_before
+
+    small32 = {k: v[:2] for k, v in batch32.items()}
+
+    def loss_and_grads32(teacher_m, dc_m, rows):
+        loss, _ = distill.distill_loss(student32, teacher_m, dc_m, rows)
+        loss.backward()
+        params = [p for p in student32.parameters() if p.requires_grad]
+        grads = torch.cat([p.grad.float().flatten() for p in params])
+        for p in params:
+            p.grad = None
+        return float(loss.detach()), grads
+
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+    try:  # torch's own defaults for the kernel path
+        loss_k32, grads_k32 = loss_and_grads32(teacher32, dc32, small32)
+    finally:
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    with plain_path():
+        loss_p32, grads_p32 = loss_and_grads32(teacher32, dc32, small32)
+    teacher_bf = copy.deepcopy(teacher32).to(torch.bfloat16)
+    loss_w, grads_w = loss_and_grads32(
+        teacher_bf, dc, {**small32, "input_features": small32["input_features"].to(torch.bfloat16)})
+    del teacher_bf
+    loss_rel32 = abs(loss_k32 - loss_p32) / abs(loss_p32)
+    grad_rel32 = float((grads_k32 - grads_p32).norm() / grads_p32.norm())
+    witness = float((grads_w - grads_p32).norm() / grads_p32.norm())
+    log(f"[4b-f32] B=2 kernel path (torch's default TF32 flags) vs plain path on the card: loss "
+        f"{loss_k32:.8f} vs {loss_p32:.8f} (rel {loss_rel32:.3e}, tol {F32_TRAIN_LOSS_TOL:g}), "
+        f"student decoder gradients rel-L2 {grad_rel32:.3e} (tol {F32_TRAIN_GRAD_TOL:g}); "
+        f"witness: 4b's bf16 step's gradients read {witness:.3e} (loss {loss_w:.6f}) against the "
+        "fp32 plain path")
+    if not (math.isfinite(loss_k32) and loss_rel32 <= F32_TRAIN_LOSS_TOL
+            and grad_rel32 <= F32_TRAIN_GRAD_TOL and witness > F32_TRAIN_GRAD_TOL):
+        raise AssertionError("4b-f32: the fp32 kernel path disagrees with the plain path, or the "
+                             "bar cannot see bf16's error")
+    del grads_k32, grads_p32, grads_w, small32
+
+    # the bilingual step in fp32: 5c's datasets and keys, one warm-up and 2
+    # timed steps, launches as 5c's
+    bi32_opt, bi32_sched = optim.make_optimizer(student32, lr=1e-4, warmup_steps=500)
+    bi32_state = distill.TrainState(student32, bi32_opt)
+    bi32_step = mt.make_multitask_train_step(dc32, specs, bi32_sched)
+    bi32_batch = [as_f32(bt) for bt in bilingual_batches(4)]
+    bi32_step(bi32_state, teacher32, bi32_batch)  # warm-up
+    torch.cuda.synchronize()
+    reset_every()
+    t0 = time.perf_counter()
+    for _ in range(2):
+        bi32_metrics = bi32_step(bi32_state, teacher32, bi32_batch)
+    torch.cuda.synchronize()
+    bi32_ms = (time.perf_counter() - t0) / 2 * 1e3
+    bi32_launches = nonzero(every_count())
+    bi32_metrics = {k: float(v) for k, v in bi32_metrics.items()}
+    log(f"[4b-f32] bilingual step in fp32, 2 datasets x B=4 x {LABELS} labels: {bi32_ms:.1f} "
+        f"ms/step over 2 steps (bf16: {bi_ms:.1f}) [{card}]; launches {bi32_launches}; metrics "
+        f"{bi32_metrics}; {time.perf_counter() - t_32:.1f} s for the phase")
+    if bi32_launches != {k: 2 * n for k, n in bi_per_step.items()} or not all(
+            math.isfinite(v) for v in bi32_metrics.values()):
+        raise AssertionError(f"4b-f32 bilingual: launches {bi32_launches}, expected 2 x "
+                             f"{bi_per_step}")
+    del teacher32, student32, state32, opt32, batch32, bi32_opt, bi32_state, bi32_batch
+    log(f"[4b-f32] after the phase: {card_memory()}")
+
     # ---- 4i(b). tensor parallel over two ranks on card 0 -----------------------
     # Two spawned ranks share card 0 over a gloo group (tp_rank): large-v3
     # at full width split over a model group of 2 (10 heads, a K/V width of
@@ -2782,8 +3139,10 @@ def main() -> int:
                 # continuous batching and beam search
                 (["--dtype", "float32"], {}, {"K1": 32 * n_batches}),
                 (["--dtype", "float32", "--streaming"], {}, {"K1": 32 * n_batches}),
-                (["--dtype", "float32", "--num_beams", "3"], {}, {"K1": 32 * n_batches})):
-            out = os.path.join(tmp, "out" + "".join(extra))
+                (["--dtype", "float32", "--num_beams", "3"], {}, {"K1": 32 * n_batches}),
+                # and under KWT_FA_INT8=qk (K8's fp32-q form in the encoder)
+                (["--dtype", "float32"], {"KWT_FA_INT8": "qk"}, {"K8": 32 * n_batches})):
+            out = os.path.join(tmp, "out" + "".join(extra) + "".join(env.values()))
             t0 = time.perf_counter()
             buf = io.StringIO()
             os.environ.update(env)
@@ -2961,6 +3320,25 @@ def main() -> int:
             f"{time.perf_counter() - t0:.1f} s; launches {create32_counts}")
         if create32_counts != {"K1": 4 + 2, "K4": 2}:
             raise AssertionError(f"create-student --dtype float32 launches {create32_counts}")
+        # distill --dtype float32 (fp32 compute, the fp32 large-v3 teacher),
+        # 2 steps from the same student: K1, K4 and K5 through their fp32 forms
+        out32 = os.path.join(tmp, "run32")
+        buf = io.StringIO()
+        reset_every()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            cli([out32 if a == out else a for a in distill_args]
+                + ["--max_steps", "2", "--dtype", "float32"])
+        d32_counts = nonzero(every_count())
+        with open(os.path.join(out32, "metrics.run.jsonl")) as f:
+            logged32 = [json.loads(line) for line in f]
+        log(f"[driver] distill --dtype float32, 2 steps: {time.perf_counter() - t0:.1f} s "
+            f"[{card}]; launches {d32_counts}; logged losses "
+            f"{[round(r['train/loss'], 4) for r in logged32]}")
+        if not ([r["step"] for r in logged32] == [1, 2]
+                and all(math.isfinite(r["train/loss"]) for r in logged32)
+                and all(d32_counts.get(k) for k in ("K1", "K4", "K5"))):
+            raise AssertionError(f"distill --dtype float32 is incomplete:\n{buf.getvalue()[-3000:]}")
 
         # ---- 5c. bilingual distillation through the CLI ---------------------------
         # Stage 2 with two columns (--text_lang_task ja:transcribe,en:translate),
@@ -3014,6 +3392,29 @@ def main() -> int:
                 and bi_counts.get("K4") and bi_counts.get("K5") and bi_counts.get("K1")):
             raise AssertionError(f"distill-bilingual run is incomplete:\n{buf.getvalue()[-3000:]}")
         del bi_model
+        # distill-bilingual --dtype float32 on the same datasets, one step
+        buf = io.StringIO()
+        reset_every()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            cli(["distill-bilingual", "--dataset",
+                 f"ja:{bi_data}:transcribe.ja+translate.en:kl", "--dataset",
+                 f"en:{bi_data}:transcribe.ja:nokl", "--student", stu, "--teacher",
+                 "preset:large-v3", "--output_dir", os.path.join(tmp, "bi_run32"),
+                 "--per_dataset_batch_size", "2", "--max_steps", "1", "--max_label_length", "64",
+                 "--warmup_steps", "1", "--logging_steps", "1", "--dtype", "float32"])
+        bi32_counts = nonzero(every_count())
+        with open(os.path.join(tmp, "bi_run32", "metrics.bilingual.jsonl")) as f:
+            bi32_logged = [json.loads(line) for line in f]
+        log(f"[5c] distill-bilingual --dtype float32, 1 step + export: "
+            f"{time.perf_counter() - t0:.1f} s [{card}]; launches {bi32_counts}; logged "
+            f"{[{k: round(v, 4) for k, v in r.items() if k.startswith('train/')} for r in bi32_logged]}")
+        if not ([r["step"] for r in bi32_logged] == [1]
+                and all(want_keys <= set(r) and all(math.isfinite(r[k]) for k in want_keys)
+                        for r in bi32_logged)
+                and all(bi32_counts.get(k) for k in ("K1", "K4", "K5"))):
+            raise AssertionError(f"distill-bilingual --dtype float32 is incomplete:\n"
+                                 f"{buf.getvalue()[-3000:]}")
 
         # ---- 5 (stage 6): prepare-eval-set -> eval -> eval_diff -> speed -> report
         # Four synthetic WAVs of 3-18 s (the last in two chunks) in a manifest
@@ -3131,6 +3532,8 @@ def main() -> int:
     tool_launches = {}
     for label, fn, argv in (
             ("enc_exp", enc_exp.main, ["--variant", "fused_ln", "--batch", str(B), "--trials", "2"]),
+            ("enc_exp fp32", enc_exp.main, ["--variant", "fused_ln", "--batch", "4", "--trials",
+                                            "1", "--dtype", "float32"]),
             ("stem_exp", stem_exp.main, ["--batch", str(B), "--trials", "2"]),
             ("vpu_cal softmax", vpu_cal.main, ["--op", "softmax", "--trials", "2"]),
             ("vpu_cal exp", vpu_cal.main, ["--op", "exp", "--trials", "2"])):
@@ -3149,6 +3552,9 @@ def main() -> int:
             f"{tool_launches[label]} [{card}]")
         torch.cuda.empty_cache()
 
+    if not all(tool_launches["enc_exp fp32"].get(k) for k in ("K1", "K6ln", "K6add")):
+        raise AssertionError(f"enc_exp --dtype float32 launches {tool_launches['enc_exp fp32']}")
+
     # ---- 6. kernels line, 7. result ------------------------------------------
     path_launches = {
         "K1": launches["K1"], "K2": launches["K2"], "K3": filter_counts[0]["K3"],
@@ -3161,7 +3567,7 @@ def main() -> int:
         "K8qkpv": enc_launches["KWT_FA_INT8=qkpv"]["K8"],
         "K9softmax": tool_launches["vpu_cal softmax"].get("K9", 0),
         "K9exp": tool_launches["vpu_cal exp"].get("K9", 0), **tp_launches, **int4_launches,
-        **fp32_launches, "K4f32": create32_counts["K4"]}
+        **fp32_launches, "K4f32": create32_counts["K4"], "K5f32": f32_train_launches["K5"]}
     for rec in records:
         rec["launches"] = path_launches[launch_key[rec["name"]]]
         if launch_key[rec["name"]] in serve_launches:  # 4h: large-v3 (a), 300 s; beam at 30 s

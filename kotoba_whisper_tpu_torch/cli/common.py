@@ -104,25 +104,13 @@ def load_generation_defaults(model_spec: str) -> dict[str, Any]:
     return defaults
 
 
-def refuse_unported_fp32(driver: str, dtype: str, dev: torch.device) -> None:
-    """--dtype float32 runs on the card through K1/K4's and K2's fp32 forms;
-    KWT_FA_INT8 would move the encoder's attention to K8, whose fp32-q form
-    is not ported yet: that combination raises before any card work."""
-    mode = os.environ.get("KWT_FA_INT8", "")
-    if dev.type == "cuda" and dtype == "float32" and mode:
-        raise SystemExit(f"{driver}: KWT_FA_INT8={mode} with --dtype float32 on the card (K8's "
-                         "fp32-q form) is not ported yet")
-
-
-def serving_pipeline(driver: str, arg, dev: torch.device, **pipe_kw):
+def serving_pipeline(arg, dev: torch.device, **pipe_kw):
     """The stage-6 drivers' AsrPipeline: tokenizer, model in --dtype on
     `dev` (fp32 on the card through the kernels' fp32 forms), fused unless
     --no_fuse, w8a8 with --gemm_dtype int8, the checkpoint's generation
-    defaults, --chunk_length_s and --kv_dtype. Raises for what is not
-    ported (`refuse_unported_fp32`)."""
+    defaults, --chunk_length_s and --kv_dtype."""
     from kotoba_whisper_tpu_torch.decode.pipeline import AsrPipeline
 
-    refuse_unported_fp32(driver, arg.dtype, dev)
     dtype = torch.bfloat16 if arg.dtype == "bfloat16" else torch.float32
     tok = load_tokenizer(arg.tokenizer)
     model, _ = load_model(arg.model, dev, dtype)

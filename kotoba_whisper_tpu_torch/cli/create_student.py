@@ -39,7 +39,6 @@ def main(argv=None) -> None:
     from kotoba_whisper_tpu_torch.train.checkpoint import export_hf_model, import_hf_model
 
     dev = resolve_device(arg.device)
-    common.refuse_unported_fp32("create_student", arg.dtype, dev)
     dtype = torch.bfloat16 if arg.dtype == "bfloat16" else torch.float32
 
     teacher, t_cfg = common.load_model(arg.teacher, dev, torch.float32, seed=arg.seed)

@@ -8,9 +8,9 @@ rotates and resumes checkpoints with the exact data position, logs the
 JAX driver's metric names (train/loss|ce_loss|kl_loss|grad_norm|
 learning_rate|time) and exports the student in HF layout at the end.
 
-The flags mirror the JAX driver's. Not ported (they raise): wandb, and
---dtype float32 on the card (K5, the attention backward, takes bfloat16;
-its fp32 form is not ported yet). On the CPU (--device cpu) float32 runs
+The flags mirror the JAX driver's. Not ported (it raises): wandb.
+--dtype float32 trains on the card through the fp32 forms of K1, K4 and
+K5 (fp32 compute and fp32 master weights); on the CPU (--device cpu)
 through the kernels' plain twins.
 
 Parallel runs, one process a card: --num_devices N takes N cards of this
@@ -85,14 +85,10 @@ def _parser() -> argparse.ArgumentParser:
 
 
 def _check_ported(arg, dev: torch.device) -> None:
-    unported = [
-        (arg.wandb_project is not None, "--wandb_project"),
-        (dev.type == "cuda" and arg.dtype != "bfloat16",
-         f"--dtype {arg.dtype} on the card (K5's fp32 form)"),
-    ]
-    for bad, what in unported:
-        if bad:
-            raise SystemExit(f"distill: {what} is not ported yet")
+    """--dtype float32 trains on the card through the fp32 forms of K1, K4
+    and K5, as on the CPU; --wandb_project is not ported."""
+    if arg.wandb_project is not None:
+        raise SystemExit("distill: --wandb_project is not ported yet")
 
 
 def main(argv=None) -> None:

@@ -65,7 +65,7 @@ def main(argv=None) -> None:
     from kotoba_whisper_tpu_torch.core.device import resolve_device
 
     dev = resolve_device(arg.device)
-    pipe = common.serving_pipeline("eval_short_form", arg, dev, language=arg.language,
+    pipe = common.serving_pipeline(arg, dev, language=arg.language,
                                    task=arg.task, num_beams=arg.num_beams)
 
     transcribe = pipe.transcribe

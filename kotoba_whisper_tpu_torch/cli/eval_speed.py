@@ -53,7 +53,7 @@ def main(argv=None) -> None:
     from kotoba_whisper_tpu_torch.eval.speed import evaluate_speed
 
     dev = resolve_device(arg.device)
-    pipe = common.serving_pipeline("eval_speed", arg, dev, max_length=arg.max_length,
+    pipe = common.serving_pipeline(arg, dev, max_length=arg.max_length,
                                    wire_dtype=arg.wire_dtype)
     records = evaluate_speed(
         pipe.transcribe,

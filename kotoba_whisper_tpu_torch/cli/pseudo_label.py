@@ -15,8 +15,7 @@ are fused for inference unless --no_fuse is given, and --gemm_dtype int8
 quantizes the projections to w8a8, and --kv_dtype int8 or int4 quantizes
 the KV cache (int4: packed cross K/V with per-head scales, read by K2).
 --dtype float32 runs on the card through the fp32 forms of K1 and K2, in
-every decode mode and KV dtype. Not ported (it raises): KWT_FA_INT8 with
---dtype float32 on the card (K8's fp32-q form).
+every decode mode and KV dtype, and of K8 under KWT_FA_INT8.
 
 Parallel runs, one process a card:
   - --num_devices N --mesh_model_axis M takes N x M cards of this host:
@@ -96,12 +95,6 @@ def _parser() -> argparse.ArgumentParser:
     return ap
 
 
-def _check_ported(arg, dev: torch.device) -> None:
-    from kotoba_whisper_tpu_torch.cli.common import refuse_unported_fp32
-
-    refuse_unported_fp32("pseudo_label", arg.dtype, dev)
-
-
 def main(argv=None) -> None:
     from kotoba_whisper_tpu_torch.cli import common
 
@@ -128,7 +121,6 @@ def _run(arg, dev: torch.device) -> None:
     from kotoba_whisper_tpu_torch.train.logging import Throughput
     from kotoba_whisper_tpu_torch.utils import native
 
-    _check_ported(arg, dev)
     dtype = torch.bfloat16 if arg.dtype == "bfloat16" else torch.float32
 
     tok = common.load_tokenizer(arg.tokenizer)

@@ -76,6 +76,20 @@
 //   bits, where true quotients throughout measured 8-13 % slower (PERF.md).
 //   Rows past Tq are never stored; keys past Tk (TMA zero-fills k8 and V
 //   there) are masked to -inf in the last, ragged key tile.
+// The fp32-q form (fp32 q, k and v, as an fp32 model runs under
+// KWT_FA_INT8): the pre-pass quantizes fp32 K (and V) the same way, and
+// `flash_int8_f32_kernel` runs on the CUDA cores, since the TPU kernel's
+// qk mode takes P V in fp32 there (`p.astype(in_dtype)` with an fp32 V),
+// which the tensor cores take only as TF32. A 256-thread CTA takes 64 query
+// rows and walks 64-key tiles, as the fp32 K1 does: q quantized per row in
+// the kernel, S from __dp4a over four-dim words of Q8 and K8 (exact int32),
+// dequantized as above; qk: K1's online softmax and O += P V on FFMAs; qkpv:
+// a first pass for the exact row max, p = expf(s - m) (the twin's exp of
+// the same difference, so p8 = round(p * 127) takes the twin's codes), and
+// O += p8 V8 in int32 (V8^T's key order undone in shared memory). O is
+// fp32, divided by l_safe (true division). Its bound at the encoder's
+// shape: qk, the fp32 P V, 92 GFLOP (1.37 ms at 67 TFLOP/s); qkpv, its
+// 7.2e8 exponentials (0.17 ms at the SFUs' rate).
 #include <cuda.h>
 
 #include <type_traits>
@@ -582,9 +596,265 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// The quantize pre-pass. Blocks [0, n_vblocks) (qkpv: one a (batch, head))
-// quantize V per column and write V8^T; the others stride over the (batch,
-// key, head) rows of K (padded to tk_pad keys), eight threads a row.
+// ---- the fp32-q form: CUDA cores ----------------------------------------------
+
+constexpr int kFT = 64;         // fp32 form: query rows a CTA, keys a tile
+constexpr int kFPad = kFT + 4;  // a transposed row's words (keeps the 16-byte alignment)
+constexpr int kFThreads = 256;  // a 16 x 16 grid of 4 x 4 blocks
+
+struct F32Smem {
+  int q8t[kD / 4][kFPad];  // Q8 of the CTA's rows, 4 dims a word, by row
+  int k8t[kD / 4][kFPad];  // K8 of the tile, 4 dims a word, by key
+  float qsc[kFT];          // qs / 8 of each row
+  float ks[kFT];           // the tile's key scales
+  union {
+    float v[kFT][kD];  // qk: V of the tile, fp32, by key
+    int v8[kFT][kD];   // qkpv: V8 of the tile by key (V8^T's order undone)
+  };
+  union {
+    float pt[kFT][kFPad];  // qk: P^T of the tile
+    int p8t[kFT][kFPad];   // qkpv: p8^T
+  };
+};
+
+// The fp32 form's S tile: s = s32 * ((qs / 8) * ks), rows 4ty.., keys
+// 4tx..; s32 from __dp4a over the 16 words of Q8 and K8 (exact integers in
+// any order); keys past tk are -inf.
+__device__ __forceinline__ void f32_scores(float (*sc)[4], const F32Smem& s, int ty, int tx,
+                                           int k0, int tk) {
+  int s32[4][4] = {};
+#pragma unroll
+  for (int w = 0; w < kD / 4; ++w) {
+    const int4 a = *reinterpret_cast<const int4*>(&s.q8t[w][4 * ty]);
+    const int4 c = *reinterpret_cast<const int4*>(&s.k8t[w][4 * tx]);
+    const int av[4] = {a.x, a.y, a.z, a.w}, cv[4] = {c.x, c.y, c.z, c.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s32[i][j] = __dp4a(av[i], cv[j], s32[i][j]);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      sc[i][j] = k0 + 4 * tx + j < tk
+                     ? __fmul_rn(__int2float_rn(s32[i][j]),
+                                 __fmul_rn(s.qsc[4 * ty + i], s.ks[4 * tx + j]))
+                     : -INFINITY;
+}
+
+// K8 of keys [k0, k0 + 64) (zeros past tk) and their scales into shared
+// memory: thread i takes 16 dims (four words) of key i / 4.
+__device__ __forceinline__ void f32_load_k8(F32Smem& s, const int8_t* k8, const float* ks_bh,
+                                            long long k8_row, int k0, int tk) {
+  const int key = threadIdx.x >> 2, part = threadIdx.x & 3;
+  int4 x = make_int4(0, 0, 0, 0);
+  if (k0 + key < tk)
+    x = *reinterpret_cast<const int4*>(k8 + (long long)(k0 + key) * k8_row + 16 * part);
+  s.k8t[4 * part][key] = x.x;
+  s.k8t[4 * part + 1][key] = x.y;
+  s.k8t[4 * part + 2][key] = x.z;
+  s.k8t[4 * part + 3][key] = x.w;
+  if (threadIdx.x < kFT) s.ks[threadIdx.x] = ks_bh[k0 + threadIdx.x];  // zero past tk
+}
+
+// K8's fp32-q form: q (fp32) quantized per row here, K8 (and V8^T) from the
+// pre-pass. A CTA of 256 threads takes 64 query rows of one (batch, head)
+// and walks 64-key tiles. qk: one pass, K1's online softmax in log2 units,
+// P kept in fp32 and O += P V on FFMAs with fp32 V (the TPU kernel's
+// `p.astype(in_dtype)` is no rounding in fp32). qkpv: a first pass for the
+// exact row max, then p = expf(s - m), p8 = round(p * 127) and O += p8 V8
+// as exact int32 products. O = o / l_safe (true division),
+// fp32; the LSE in natural-log units.
+template <bool kPV8>
+__global__ void __launch_bounds__(kFThreads)
+    flash_int8_f32_kernel(const uint8_t* __restrict__ q, const int8_t* __restrict__ k8,
+                          const float* __restrict__ ks, const uint8_t* __restrict__ v,
+                          const int8_t* __restrict__ v8t, const float* __restrict__ vs,
+                          float* __restrict__ o, float* __restrict__ lse, int tq, int tk,
+                          int tk_pad, int n_heads, long long q_head, long long q_tok,
+                          long long q_bat, long long v_head, long long v_tok, long long v_bat) {
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  F32Smem& s = *reinterpret_cast<F32Smem*>(smem_raw);
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int q0 = blockIdx.x * kFT, h = blockIdx.y, b = blockIdx.z;
+  const long long bh = (long long)b * n_heads + h;
+  const unsigned half = 0xffffu << (tid & 16);  // the 16 threads of rows 4ty..
+  const long long k8_row = (long long)n_heads * kD;
+  const int8_t* k8_bh = k8 + (long long)b * tk * k8_row + h * kD;
+  const float* ks_bh = ks + bh * tk_pad;
+  const int n_tiles = (tk + kFT - 1) / kFT;
+
+  {  // Q8: four threads a row, 16 dims each; the row's absmax over the four
+    const int r = tid >> 2, part = tid & 3;
+    float x[16] = {};
+    if (q0 + r < tq) {
+      const uint8_t* row = q + b * q_bat + (long long)(q0 + r) * q_tok + h * q_head + 64 * part;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float4 f = reinterpret_cast<const float4*>(row)[c];
+        x[4 * c] = f.x, x[4 * c + 1] = f.y, x[4 * c + 2] = f.z, x[4 * c + 3] = f.w;
+      }
+    }
+    float amax = 0.f;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) amax = fmaxf(amax, fabsf(x[i]));
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, 1));
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, 2));
+    const float qs = fmaxf(amax, 1e-8f) * kInv127, rq = __frcp_rn(qs);
+    uint32_t w[16];
+    quant_words<16>(w, x, &qs, &rq, 0);
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      s.q8t[4 * part + c][r] = (int)pack_low_bytes(w[4 * c], w[4 * c + 1], w[4 * c + 2], w[4 * c + 3]);
+    if (part == 0) s.qsc[r] = qs * 0.125f;
+  }
+
+  float m_row[4];  // qkpv: the exact row max; qk: the running max in log2 units
+#pragma unroll
+  for (int i = 0; i < 4; ++i) m_row[i] = -INFINITY;
+  if constexpr (kPV8) {
+    for (int jt = 0; jt < n_tiles; ++jt) {
+      __syncthreads();
+      f32_load_k8(s, k8_bh, ks_bh, k8_row, jt * kFT, tk);
+      __syncthreads();
+      float sc[4][4];
+      f32_scores(sc, s, ty, tx, jt * kFT, tk);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) m_row[i] = fmaxf(m_row[i], sc[i][j]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        m_row[i] = fmaxf(m_row[i], __shfl_xor_sync(half, m_row[i], off));
+  }
+
+  using Acc = typename std::conditional<kPV8, int, float>::type;
+  Acc acc[4][4] = {};
+  float l_run[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int jt = 0; jt < n_tiles; ++jt) {
+    const int k0 = jt * kFT;
+    __syncthreads();  // the previous tile's K8, V and P are read
+    f32_load_k8(s, k8_bh, ks_bh, k8_row, k0, tk);
+    if constexpr (kPV8) {
+      // V8^T rows (one a head dim) at positions [k0, k0 + 64): thread i
+      // takes 16 positions of dim i / 4; position 16hi + 4t + e of each
+      // 32-key group holds key 16hi + 8(e >> 1) + 2t + (e & 1)
+      const int d = tid >> 2, part = tid & 3;
+      const int4 raw =
+          *reinterpret_cast<const int4*>(v8t + (bh * kD + d) * tk_pad + k0 + 16 * part);
+      const int8_t* bytes = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+      for (int e = 0; e < 16; ++e) {
+        const int pos = 16 * part + e, k32 = pos & 31;
+        const int key = (pos & ~31) + 16 * (k32 >> 4) + 8 * ((k32 & 3) >> 1) +
+                        2 * ((k32 >> 2) & 3) + (k32 & 1);
+        s.v8[key][d] = bytes[e];
+      }
+    } else {
+#pragma unroll
+      for (int it = 0; it < kFT * kD / 4 / kFThreads; ++it) {
+        const int i = tid + it * kFThreads;
+        const int r = i / (kD / 4), d4 = (i % (kD / 4)) * 4;
+        float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (k0 + r < tk)
+          x = *reinterpret_cast<const float4*>(v + b * v_bat + (long long)(k0 + r) * v_tok +
+                                               h * v_head + 4 * d4);
+        *reinterpret_cast<float4*>(&s.v[r][d4]) = x;
+      }
+    }
+    __syncthreads();
+
+    float sc[4][4];
+    f32_scores(sc, s, ty, tx, k0, tk);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if constexpr (kPV8) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          // expf of the same fp32 difference as the twin's exp: p, and so
+          // its rounding to p8, is the twin's bit for bit on the card
+          const float p = expf(sc[i][j] - m_row[i]);
+          l_run[i] += p;
+          s.p8t[4 * tx + j][4 * ty + i] = (int)(p8_word(p) & 0xffu);
+        }
+      } else {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mx = fmaxf(mx, sc[i][j]);
+#pragma unroll
+        for (int off = 8; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(half, mx, off));
+        const float m_new = fmaxf(m_row[i], mx * kLog2e);
+        const float corr = ex2(m_row[i] - m_new);  // 0 on the first tile
+        m_row[i] = m_new;
+        l_run[i] *= corr;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float p = ex2(fmaf(sc[i][j], kLog2e, -m_new));
+          l_run[i] += p;
+          s.pt[4 * tx + j][4 * ty + i] = p;
+          acc[i][j] *= corr;
+        }
+      }
+    }
+    __syncthreads();
+
+    // O += P V (qk, FFMA) or p8 V8 (qkpv, int32) for rows 4ty.., dims 4tx..
+#pragma unroll 8
+    for (int kk = 0; kk < kFT; ++kk) {
+      if constexpr (kPV8) {
+        const int4 a = *reinterpret_cast<const int4*>(&s.p8t[kk][4 * ty]);
+        const int4 c = *reinterpret_cast<const int4*>(&s.v8[kk][4 * tx]);
+        const int av[4] = {a.x, a.y, a.z, a.w}, cv[4] = {c.x, c.y, c.z, c.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] += av[i] * cv[j];
+      } else {
+        const float4 a = *reinterpret_cast<const float4*>(&s.pt[kk][4 * ty]);
+        const float4 c = *reinterpret_cast<const float4*>(&s.v[kk][4 * tx]);
+        const float av[4] = {a.x, a.y, a.z, a.w}, cv[4] = {c.x, c.y, c.z, c.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], cv[j], acc[i][j]);
+      }
+    }
+  }
+
+  // each thread's sums cover its own keys: the row's sum over the half-warp
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float l = l_run[i];
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1) l += __shfl_xor_sync(half, l, off);
+    const int row = q0 + 4 * ty + i;
+    if (row >= tq) continue;
+    const float l_safe = fmaxf(l, 1e-30f);
+    float y[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float x;
+      if constexpr (kPV8)
+        x = __int2float_rn(acc[i][j]) * (kInv127 * vs[bh * kD + 4 * tx + j]);
+      else
+        x = acc[i][j];
+      y[j] = __fdiv_rn(x, l_safe);
+    }
+    *reinterpret_cast<float4*>(o + (((long long)b * tq + row) * n_heads + h) * kD + 4 * tx) =
+        make_float4(y[0], y[1], y[2], y[3]);
+    if (tx == 0) lse[bh * tq + row] = (kPV8 ? m_row[i] : m_row[i] * kLn2) + logf(l_safe);
+  }
+}
+
+// The quantize pre-pass, from bf16 or fp32 (T) K and V. Blocks [0,
+// n_vblocks) (qkpv: one a (batch, head)) quantize V per column and write
+// V8^T; the others stride over the (batch, key, head) rows of K (padded to
+// tk_pad keys), eight threads a row, eight values (Chunk<T>) a thread.
+template <typename T>
 __global__ void __launch_bounds__(kPreThreads)
     int8_prepass(const uint8_t* __restrict__ k, const uint8_t* __restrict__ v,
                  int8_t* __restrict__ k8, float* __restrict__ ks, int8_t* __restrict__ v8t,
@@ -600,20 +870,16 @@ __global__ void __launch_bounds__(kPreThreads)
     const int bh = blockIdx.x, b = bh / n_heads, h = bh - b * n_heads;
     const uint8_t* vb = v + b * v_bat + h * v_head;
     {
-      // each column's absmax over T: 8 dims (16 bytes) of keys kl, kl + 32, ...
+      // each column's absmax over T: 8 dims of keys kl, kl + 32, ...
       const int sub = tid & 7, kl = tid >> 3;
       float amax[8];
 #pragma unroll
       for (int i = 0; i < 8; ++i) amax[i] = 0.f;
       for (int t = kl; t < tk; t += 32) {
-        const uint4 raw = __ldg(reinterpret_cast<const uint4*>(vb + t * v_tok + sub * 16));
-        const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+        float f[8];
+        Chunk<T>::load(vb + t * v_tok + sub * Chunk<T>::kBytes, f);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float2 f = __bfloat1622float2(h2[i]);
-          amax[2 * i] = fmaxf(amax[2 * i], fabsf(f.x));
-          amax[2 * i + 1] = fmaxf(amax[2 * i + 1], fabsf(f.y));
-        }
+        for (int i = 0; i < 8; ++i) amax[i] = fmaxf(amax[i], fabsf(f[i]));
       }
 #pragma unroll
       for (int i = 0; i < 8; ++i) s_red[kl][sub * 8 + i] = amax[i];
@@ -648,16 +914,9 @@ __global__ void __launch_bounds__(kPreThreads)
       for (int i = 0; i < 4; ++i) {
         const int key = c0 + kbase + 8 * (i >> 1) + (i & 1);
         if (key < tk) {
-          const uint4 raw = __ldg(reinterpret_cast<const uint4*>(vb + key * v_tok + sub * 16));
-          const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
           float x[8];
           uint32_t w[8];
-#pragma unroll
-          for (int jj = 0; jj < 4; ++jj) {
-            const float2 f = __bfloat1622float2(h2[jj]);
-            x[2 * jj] = f.x;
-            x[2 * jj + 1] = f.y;
-          }
+          Chunk<T>::load(vb + key * v_tok + sub * Chunk<T>::kBytes, x);
           quant_words<8>(w, x, sc, rs, 1);
 #pragma unroll
           for (int j = 0; j < 8; ++j) word[j] |= (w[j] & 0xffu) << (8 * i);
@@ -676,14 +935,14 @@ __global__ void __launch_bounds__(kPreThreads)
     }
     return;
   }
-  // ---- K rows: each warp takes eight rows at a time, 16 bytes a thread ----
+  // ---- K rows: each warp takes eight rows at a time, 8 values a thread ----
   const long n_rows = (long)batch * tk_pad * n_heads;
   const int lane = tid & 31, sub = lane & 7;
   const long n_warps = (long)(gridDim.x - n_vblocks) * (kPreThreads / 32);
   const long warp_id = (long)(blockIdx.x - n_vblocks) * (kPreThreads / 32) + (tid >> 5);
   for (long u00 = warp_id * 8; u00 < n_rows; u00 += n_warps * 8) {
     // two rows a thread (u and u + 4), both loads in flight before either is used
-    uint4 raw[2];
+    float xr[2][8];
     long us[2];
     bool real[2];
 #pragma unroll
@@ -695,8 +954,7 @@ __global__ void __launch_bounds__(kPreThreads)
       us[g] = u;
       real[g] = u < n_rows && t < tk;
       if (real[g])
-        raw[g] = __ldg(
-            reinterpret_cast<const uint4*>(k + b * k_bat + t * k_tok + h * k_head + sub * 16));
+        Chunk<T>::load(k + b * k_bat + t * k_tok + h * k_head + sub * Chunk<T>::kBytes, xr[g]);
     }
 #pragma unroll
     for (int g = 0; g < 2; ++g) {
@@ -704,16 +962,9 @@ __global__ void __launch_bounds__(kPreThreads)
       const int h = (int)(u % n_heads);
       const long rest = u / n_heads;
       const int t = (int)(rest % tk_pad), b = (int)(rest / tk_pad);
-      float x[8];
+      const float* x = xr[g];
       float amax = 0.f;
       if (real[g]) {
-        const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw[g]);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float2 f = __bfloat1622float2(h2[i]);
-          x[2 * i] = f.x;
-          x[2 * i + 1] = f.y;
-        }
 #pragma unroll
         for (int i = 0; i < 8; ++i) amax = fmaxf(amax, fabsf(x[i]));
       }
@@ -761,14 +1012,15 @@ bool make_map(CUtensorMap* map, CUtensorMapDataType type, CUtensorMapSwizzle swi
 
 }  // namespace
 
-// q (B, Tq, H, 64), k and v (B, Tk, H, 64) bf16 at the plan's strides ->
-// o (B, Tq, H, 64) bf16 contiguous, lse (B, H, Tq) fp32. scratch holds the
+// q (B, Tq, H, 64), k and v (B, Tk, H, 64) bf16 (or fp32: plan[18] != 0)
+// at the plan's strides -> o (B, Tq, H, 64) in their dtype, contiguous, lse
+// (B, H, Tq) fp32. scratch holds the
 // pre-pass's outputs: k8 (B, Tk, H, 64) int8 at byte 0, ks (B, H, tk_pad)
 // fp32 at plan[15]; qkpv: V8^T (B, H, 64, tk_pad) int8 at plan[16] and vs
 // (B, H, 64) fp32 at plan[17]. plan (ops/flash_attention.py `_int8_plan`):
 // batch, tq, tk, heads, pv8 (!= 0: qkpv), tk_pad (a multiple of 128), the
-// head, token and batch byte strides of q, k and v (multiples of 16), and
-// the three offsets. phases: bit 0 launches the pre-pass, bit 1 the main
+// head, token and batch byte strides of q, k and v (multiples of 16), the
+// three offsets, and fp32 (!= 0: the fp32-q form). phases: bit 0 launches the pre-pass, bit 1 the main
 // kernel (3: both, in order, on `stream`). Returns the first failing
 // launch's cudaError_t, or cudaErrorInvalidValue when a tensor map cannot
 // be encoded.
@@ -779,7 +1031,7 @@ extern "C" int kwt_flash_attention_int8(int card, const void* q, const void* k, 
   if (scope.error()) return scope.error();
   const int batch = static_cast<int>(plan[0]), tq = static_cast<int>(plan[1]);
   const int tk = static_cast<int>(plan[2]), n_heads = static_cast<int>(plan[3]);
-  const bool pv8 = plan[4] != 0;
+  const bool pv8 = plan[4] != 0, f32 = plan[18] != 0;
   const int tk_pad = static_cast<int>(plan[5]);
   const long long* st = plan + 6;
   uint8_t* base = static_cast<uint8_t*>(scratch);
@@ -812,13 +1064,24 @@ extern "C" int kwt_flash_attention_int8(int card, const void* q, const void* k, 
     long k_blocks = (n_rows + 31) / 32;
     if (k_blocks > 16L * n_sms) k_blocks = 16L * n_sms;
     const int n_vblocks = pv8 ? batch * n_heads : 0;
-    int8_prepass<<<n_vblocks + static_cast<int>(k_blocks), kPreThreads, 0, cs>>>(
+    auto prepass = f32 ? int8_prepass<float> : int8_prepass<__nv_bfloat16>;
+    prepass<<<n_vblocks + static_cast<int>(k_blocks), kPreThreads, 0, cs>>>(
         static_cast<const uint8_t*>(k), static_cast<const uint8_t*>(v), k8, ks, v8t, vs, batch,
         tk, tk_pad, n_heads, st[3], st[4], st[5], st[6], st[7], st[8], n_vblocks);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   if (!(phases & 2)) return static_cast<int>(cudaSuccess);
+
+  if (f32) {
+    const dim3 grid((tq + kFT - 1) / kFT, n_heads, batch);
+    auto kernel = pv8 ? flash_int8_f32_kernel<true> : flash_int8_f32_kernel<false>;
+    kernel<<<grid, kFThreads, sizeof(F32Smem), cs>>>(
+        static_cast<const uint8_t*>(q), k8, ks, static_cast<const uint8_t*>(v), v8t, vs,
+        static_cast<float*>(o), static_cast<float*>(lse), tq, tk, tk_pad, n_heads, st[0], st[1],
+        st[2], st[6], st[7], st[8]);
+    return static_cast<int>(cudaGetLastError());
+  }
 
   CUtensorMap tm_q, tm_k8, tm_v;
   const long long k8_token = (long long)n_heads * kD;

@@ -1,17 +1,20 @@
-// Fused LayerNorm (K6) for Hopper, bf16 rows in / bf16 out, with an
-// optional fused residual add.
+// Fused LayerNorm (K6) for Hopper, bf16 rows in / bf16 out (or fp32 rows
+// in / fp32 out), with an optional fused residual add.
 //
 // Replaces: kotoba_whisper_tpu/ops/layer_norm.py `_ln_kernel` (called
 // through `layer_norm`) and `_add_ln_kernel` (through `add_layer_norm`):
 // fp32 row LayerNorm in one read and one write of the rows; the fused form
-// also emits the bf16 residual sum, and normalises that ROUNDED sum, so its
-// outputs equal the unfused `x = x + y; layer_norm(x)` sequence.
+// also emits the residual sum in the rows' dtype, and normalises that
+// ROUNDED sum, so its outputs equal the unfused `x = x + y; layer_norm(x)`
+// sequence. In fp32 (an fp32 model's rows) nothing is rounded but the
+// arithmetic itself.
 //
 // What bounds it on the card: bytes. At the encoder's (B*1500, 1280) bf16
 // rows (24000 rows at B=16) LayerNorm reads x and writes y (123 MB, about
 // 37 us at 3.35 TB/s); the fused add reads x and y and writes the sum and
-// y (246 MB, about 73 us). Its ~10 flops an element are far below the
-// ridge, so the design is about keeping bytes in flight.
+// y (246 MB, about 73 us); fp32 rows move twice the bytes (73 and 147 us).
+// Its ~10 flops an element are far below the ridge, so the design is about
+// keeping bytes in flight.
 //
 // Design: a persistent grid, as many 128-thread blocks as fit on the SMs
 // (the occupancy of the instantiation, times the SM count), one warp per
@@ -25,7 +28,8 @@
 // body; the wrapper makes no cast or copy per call. The next row's 16-byte
 // loads are issued before the current row's reductions, so one row's
 // memory latency hides under the previous row's arithmetic. Rows stay
-// packed bf16 in registers and are widened per pass.
+// packed bf16 in registers and are widened per pass; fp32 rows (a template
+// parameter) are held as they are, 8 floats a chunk.
 // Statistics match the TPU kernel's `_ln_rows` step by step: the mean as
 // sum / d, then the variance of the centred values (not E[x^2] - mean^2,
 // not Welford), each sum a tree within a chunk and a chain over the lane's
@@ -76,8 +80,9 @@ __device__ __forceinline__ float tree8(const float* v) {
                    __fadd_rn(__fadd_rn(v[4], v[5]), __fadd_rn(v[6], v[7])));
 }
 
-// One lane's weight or bias chunk, kept as stored: 8 bf16 or 8 fp32.
-template <typename WT>
+// One lane's chunk of a row, a weight or a bias, kept as stored: 8 bf16 or
+// 8 fp32. `set` rounds 8 floats to the chunk's type.
+template <typename T>
 struct Chunk;
 template <>
 struct Chunk<__nv_bfloat16> {
@@ -86,6 +91,10 @@ struct Chunk<__nv_bfloat16> {
     raw = *reinterpret_cast<const uint4*>(p);
   }
   __device__ __forceinline__ void widen(float* x) const { widen8(raw, x); }
+  __device__ __forceinline__ void set(const float* x) { raw = narrow8(x); }
+  __device__ __forceinline__ void store(__nv_bfloat16* p) const {
+    *reinterpret_cast<uint4*>(p) = raw;
+  }
 };
 template <>
 struct Chunk<float> {
@@ -98,16 +107,24 @@ struct Chunk<float> {
     x[0] = lo.x, x[1] = lo.y, x[2] = lo.z, x[3] = lo.w;
     x[4] = hi.x, x[5] = hi.y, x[6] = hi.z, x[7] = hi.w;
   }
+  __device__ __forceinline__ void set(const float* x) {
+    lo = make_float4(x[0], x[1], x[2], x[3]);
+    hi = make_float4(x[4], x[5], x[6], x[7]);
+  }
+  __device__ __forceinline__ void store(float* p) const {
+    reinterpret_cast<float4*>(p)[0] = lo;
+    reinterpret_cast<float4*>(p)[1] = hi;
+  }
 };
 
 // Rows of width d = 8 * n_chunks, (kChunks - 1) * 32 < n_chunks <=
-// kChunks * 32. kAdd: y and sum_out are given.
-template <int kChunks, typename WT, bool kAdd>
+// kChunks * 32, stored as XT (bf16 or fp32). kAdd: y and sum_out are given.
+template <int kChunks, typename XT, typename WT, bool kAdd>
 __global__ void __launch_bounds__(kThreads)
-    layer_norm_kernel(const __nv_bfloat16* __restrict__ x,
-                      const __nv_bfloat16* __restrict__ y, const WT* __restrict__ w,
-                      const WT* __restrict__ b, __nv_bfloat16* __restrict__ sum_out,
-                      __nv_bfloat16* __restrict__ out, int rows, int d, float eps) {
+    layer_norm_kernel(const XT* __restrict__ x, const XT* __restrict__ y,
+                      const WT* __restrict__ w, const WT* __restrict__ b,
+                      XT* __restrict__ sum_out, XT* __restrict__ out, int rows, int d,
+                      float eps) {
   const int lane = threadIdx.x & 31;
   const int n_chunks = d >> 3;
   const int stride = gridDim.x * kWarps;
@@ -126,21 +143,21 @@ __global__ void __launch_bounds__(kThreads)
       bc[i].load(b + (lane + 32 * i) * 8);
     }
 
-  uint4 cx[kChunks], cy[kChunks];
-  auto load_row = [&](int r, uint4* px, uint4* py) {
+  Chunk<XT> cx[kChunks], cy[kChunks];
+  auto load_row = [&](int r, Chunk<XT>* px, Chunk<XT>* py) {
     const long base = (long)r * d;
 #pragma unroll
     for (int i = 0; i < kChunks; ++i)
       if (ok(i)) {
-        px[i] = *reinterpret_cast<const uint4*>(x + base + (lane + 32 * i) * 8);
-        if constexpr (kAdd) py[i] = *reinterpret_cast<const uint4*>(y + base + (lane + 32 * i) * 8);
+        px[i].load(x + base + (lane + 32 * i) * 8);
+        if constexpr (kAdd) py[i].load(y + base + (lane + 32 * i) * 8);
       }
   };
   load_row(row, cx, cy);
 
   for (; row < rows; row += stride) {
     // the next row's loads go out before this row's reductions
-    uint4 nx[kChunks], ny[kChunks];
+    Chunk<XT> nx[kChunks], ny[kChunks];
     const int next = row + stride;
     if (next < rows) load_row(next, nx, ny);
     const long base = (long)row * d;
@@ -150,15 +167,15 @@ __global__ void __launch_bounds__(kThreads)
     for (int i = 0; i < kChunks; ++i) {
       if (!ok(i)) continue;
       float v[8];
-      widen8(cx[i], v);
-      if constexpr (kAdd) {  // the sum rounded to bf16, as stored, is the row
+      cx[i].widen(v);
+      if constexpr (kAdd) {  // the sum rounded to XT, as stored, is the row
         float yv[8];
-        widen8(cy[i], yv);
+        cy[i].widen(yv);
 #pragma unroll
         for (int e = 0; e < 8; ++e) v[e] = __fadd_rn(v[e], yv[e]);
-        cx[i] = narrow8(v);
-        *reinterpret_cast<uint4*>(sum_out + base + (lane + 32 * i) * 8) = cx[i];
-        widen8(cx[i], v);
+        cx[i].set(v);
+        cx[i].store(sum_out + base + (lane + 32 * i) * 8);
+        cx[i].widen(v);
       }
       s = __fadd_rn(s, tree8(v));
     }
@@ -169,7 +186,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int i = 0; i < kChunks; ++i) {
       if (!ok(i)) continue;
       float v[8];
-      widen8(cx[i], v);
+      cx[i].widen(v);
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
         const float c = __fsub_rn(v[e], mean);
@@ -183,13 +200,15 @@ __global__ void __launch_bounds__(kThreads)
     for (int i = 0; i < kChunks; ++i) {
       if (!ok(i)) continue;
       float v[8], wv[8], bv[8];
-      widen8(cx[i], v);
+      cx[i].widen(v);
       wc[i].widen(wv);
       bc[i].widen(bv);
 #pragma unroll
       for (int e = 0; e < 8; ++e)
         v[e] = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v[e], mean), rstd), wv[e]), bv[e]);
-      *reinterpret_cast<uint4*>(out + base + (lane + 32 * i) * 8) = narrow8(v);
+      Chunk<XT> o;
+      o.set(v);
+      o.store(out + base + (lane + 32 * i) * 8);
     }
 
 #pragma unroll
@@ -202,13 +221,13 @@ __global__ void __launch_bounds__(kThreads)
 
 // The persistent grid of one instantiation: the blocks that fit on every
 // SM at once (at least one), never more than the rows need.
-template <int kChunks, typename WT, bool kAdd>
+template <int kChunks, typename XT, typename WT, bool kAdd>
 int launch_one(int card, const void* x, const void* y, const void* w, const void* b,
                void* sum_out, void* out, int rows, int d, float eps, cudaStream_t stream) {
   // blocks on the whole card, per instantiation and card
   static int resident_of[kwt_card::kMaxCards] = {};
   int& resident = resident_of[card];
-  auto kernel = layer_norm_kernel<kChunks, WT, kAdd>;
+  auto kernel = layer_norm_kernel<kChunks, XT, WT, kAdd>;
   if (resident == 0) {
     int sms = 0, per_sm = 0;
     cudaError_t e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, card);
@@ -219,51 +238,57 @@ int launch_one(int card, const void* x, const void* y, const void* w, const void
   }
   const int needed = (rows + kWarps - 1) / kWarps;
   kernel<<<needed < resident ? needed : resident, kThreads, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(y),
-      static_cast<const WT*>(w), static_cast<const WT*>(b),
-      static_cast<__nv_bfloat16*>(sum_out), static_cast<__nv_bfloat16*>(out), rows, d, eps);
+      static_cast<const XT*>(x), static_cast<const XT*>(y), static_cast<const WT*>(w),
+      static_cast<const WT*>(b), static_cast<XT*>(sum_out), static_cast<XT*>(out), rows, d, eps);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int kChunks, typename WT>
+template <int kChunks, typename XT, typename WT>
 int launch_add(int card, bool add, const void* x, const void* y, const void* w, const void* b,
                void* sum_out, void* out, int rows, int d, float eps, cudaStream_t stream) {
   return add
-      ? launch_one<kChunks, WT, true>(card, x, y, w, b, sum_out, out, rows, d, eps, stream)
-      : launch_one<kChunks, WT, false>(card, x, y, w, b, sum_out, out, rows, d, eps, stream);
+      ? launch_one<kChunks, XT, WT, true>(card, x, y, w, b, sum_out, out, rows, d, eps, stream)
+      : launch_one<kChunks, XT, WT, false>(card, x, y, w, b, sum_out, out, rows, d, eps, stream);
 }
 
-template <typename WT>
+template <typename XT, typename WT>
 int launch_width(int card, const void* x, const void* y, const void* w, const void* b,
                  void* sum_out, void* out, int rows, int d, float eps, cudaStream_t stream) {
   const bool add = y != nullptr;
   switch ((d / 8 + 31) / 32) {  // chunks per lane
-    case 1: return launch_add<1, WT>(card, add, x, y, w, b, sum_out, out, rows, d, eps, stream);
-    case 2: return launch_add<2, WT>(card, add, x, y, w, b, sum_out, out, rows, d, eps, stream);
-    case 3: return launch_add<3, WT>(card, add, x, y, w, b, sum_out, out, rows, d, eps, stream);
-    case 4: return launch_add<4, WT>(card, add, x, y, w, b, sum_out, out, rows, d, eps, stream);
-    case 5: return launch_add<5, WT>(card, add, x, y, w, b, sum_out, out, rows, d, eps, stream);
-    case 6: return launch_add<6, WT>(card, add, x, y, w, b, sum_out, out, rows, d, eps, stream);
-    case 7: return launch_add<7, WT>(card, add, x, y, w, b, sum_out, out, rows, d, eps, stream);
-    case 8: return launch_add<8, WT>(card, add, x, y, w, b, sum_out, out, rows, d, eps, stream);
+    case 1: return launch_add<1, XT, WT>(card, add, x, y, w, b, sum_out, out, rows, d, eps, stream);
+    case 2: return launch_add<2, XT, WT>(card, add, x, y, w, b, sum_out, out, rows, d, eps, stream);
+    case 3: return launch_add<3, XT, WT>(card, add, x, y, w, b, sum_out, out, rows, d, eps, stream);
+    case 4: return launch_add<4, XT, WT>(card, add, x, y, w, b, sum_out, out, rows, d, eps, stream);
+    case 5: return launch_add<5, XT, WT>(card, add, x, y, w, b, sum_out, out, rows, d, eps, stream);
+    case 6: return launch_add<6, XT, WT>(card, add, x, y, w, b, sum_out, out, rows, d, eps, stream);
+    case 7: return launch_add<7, XT, WT>(card, add, x, y, w, b, sum_out, out, rows, d, eps, stream);
+    case 8: return launch_add<8, XT, WT>(card, add, x, y, w, b, sum_out, out, rows, d, eps, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace
 
-// x (rows, d) bf16; y (rows, d) bf16 or null; w, b (d,) bf16 (w_fp32 == 0)
-// or fp32 (w_fp32 != 0); sum_out (rows, d) bf16 (written only when y is
-// given); out (rows, d) bf16. Every pointer 16-byte aligned, 0 < d <= 2048,
-// d % 8 == 0. Returns the launch's cudaError_t.
+// x (rows, d) bf16 (x_fp32 == 0) or fp32 (x_fp32 != 0); y (rows, d) in x's
+// dtype or null; w, b (d,) bf16 (w_fp32 == 0) or fp32 (w_fp32 != 0);
+// sum_out (rows, d) (written only when y is given) and out (rows, d) in x's
+// dtype. Every pointer 16-byte aligned, 0 < d <= 2048, d % 8 == 0. Returns
+// the launch's cudaError_t.
 extern "C" int kwt_layer_norm(int card, const void* x, const void* y, const void* w,
-                              const void* b, int w_fp32, void* sum_out, void* out, int rows,
-                              int d, float eps, void* stream) {
+                              const void* b, int w_fp32, int x_fp32, void* sum_out, void* out,
+                              int rows, int d, float eps, void* stream) {
   if (d <= 0 || d % 8 != 0 || d > kMaxChunks * 8 * 32 || rows <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const kwt_card::CardScope scope(card);
   if (scope.error()) return scope.error();
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return w_fp32 ? launch_width<float>(card, x, y, w, b, sum_out, out, rows, d, eps, s)
-                : launch_width<__nv_bfloat16>(card, x, y, w, b, sum_out, out, rows, d, eps, s);
+  if (x_fp32)
+    return w_fp32 ? launch_width<float, float>(card, x, y, w, b, sum_out, out, rows, d, eps, s)
+                  : launch_width<float, __nv_bfloat16>(card, x, y, w, b, sum_out, out, rows, d,
+                                                       eps, s);
+  return w_fp32
+             ? launch_width<__nv_bfloat16, float>(card, x, y, w, b, sum_out, out, rows, d, eps, s)
+             : launch_width<__nv_bfloat16, __nv_bfloat16>(card, x, y, w, b, sum_out, out, rows,
+                                                          d, eps, s);
 }

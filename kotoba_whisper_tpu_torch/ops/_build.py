@@ -23,8 +23,9 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
 SOURCES = (
-    "flash_attention_sm90", "flash_attention_f32", "flash_attention_bwd", "decode_attention",
-    "decode_attention_ring", "decode_attention_beam", "mel", "layer_norm", "conv_stem",
+    "flash_attention_sm90", "flash_attention_f32", "flash_attention_bwd",
+    "flash_attention_bwd_f32", "decode_attention", "decode_attention_ring",
+    "decode_attention_beam", "mel", "layer_norm", "conv_stem", "conv_stem_f32",
     "flash_attention_int8", "vpu_cal",
 )
 NVCC_FLAGS = (
@@ -46,6 +47,9 @@ SIGNATURES = {
     },
     "flash_attention_bwd": {
         "kwt_flash_attention_bwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    },
+    "flash_attention_bwd_f32": {
+        "kwt_flash_attention_bwd_f32": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     },
     "decode_attention": {
         "kwt_decode_attention": [
@@ -72,10 +76,13 @@ SIGNATURES = {
         "kwt_log_mel": [_I, _P, _I, _P, _P, _P, _P, _P, _I, _L, _I, _I, _P],
     },
     "layer_norm": {
-        "kwt_layer_norm": [_I, _P, _P, _P, _P, _I, _P, _P, _I, _I, _F, _P],
+        "kwt_layer_norm": [_I, _P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _F, _P],
     },
     "conv_stem": {
         "kwt_conv_stem": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    },
+    "conv_stem_f32": {
+        "kwt_conv_stem_f32": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     },
     "flash_attention_int8": {
         "kwt_flash_attention_int8": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _P],

@@ -4,8 +4,10 @@ csrc/flash_attention_sm90.cu (bf16) and two of one CUDA-core kernel in
 csrc/flash_attention_f32.cu (fp32), the int8 attention core K8 in
 csrc/flash_attention_int8.cu, the backward K5 in
 csrc/flash_attention_bwd.cu (a D pre-pass, one TMA and wgmma kernel over
-128-key work items, and a dQ conversion), their plain twins, and the
-`FlashAttention` autograd function that ties them together.
+128-key work items, and a dQ conversion) and its fp32 form in
+csrc/flash_attention_bwd_f32.cu (a pre-pass, then a dQ kernel and a dK/dV
+kernel on the CUDA cores), their plain twins, and the `FlashAttention`
+autograd function that ties them together.
 
 softmax(q k^T / sqrt(D)) v with O in the input dtype and the fp32
 natural-log logsumexp of each query row (the residual the backward pass
@@ -44,9 +46,11 @@ JAX run without a word. KWT_FA_BQ only sets the TPU kernel's query block;
 the port's fixed 128-row tiles give the same result whatever it says, so
 it is not read.
 
-Each wrapper launches its kernel for CUDA tensors (D = 64; K1 and K4 in
-bf16 or fp32, K5 and K8 in bf16: their fp32 forms raise) and takes its
-plain twin only for CPU tensors.
+Each wrapper launches its kernel for CUDA tensors (D = 64; bf16, or fp32
+through the CUDA-core forms: csrc/flash_attention_f32.cu for K1 and K4,
+csrc/flash_attention_bwd_f32.cu for K5, and the fp32-q kernel of
+csrc/flash_attention_int8.cu for K8) and takes its plain twin only for CPU
+tensors.
 """
 from __future__ import annotations
 
@@ -230,25 +234,85 @@ def _fwd_plan(q_layout, k_layout, v_layout, causal):
     return (b, tq, h), (ctypes.c_longlong * 14)(b, tq, tk, h, int(causal), *strides)
 
 
+def _f32_strides(shape, stride, what):
+    """Element strides (batch, token, head) of a (B, T, H, 64) fp32 layout
+    for the fp32 CUDA-core kernels: the head dim contiguous and every
+    stride a multiple of 4 elements (their float4 loads; the addresses are
+    checked per call). A dimension of size 1 never moves the address, so
+    any stride there will do."""
+    sb, st, sh, _ = (s if n > 1 else 0 for n, s in zip(shape, stride))
+    if stride[3] != 1 or sb % 4 or st % 4 or sh % 4:
+        raise ValueError(f"{what} take a contiguous head dim and strides of 4-element "
+                         f"multiples, got shape {tuple(shape)} strides {stride}")
+    return [sb, st, sh]
+
+
 @lru_cache(maxsize=256)
 def _f32_plan(q_layout, k_layout, v_layout, causal):
     """What the fp32 K1/K4's C entry reads of one call, from each tensor's
     (shape, strides): (B, Tq, H) and the int64 array (B, Tq, Tk, H, causal,
-    then each of q, k, v's batch, token and head element strides). The head
-    dim is contiguous and every stride a multiple of 4 elements (the
-    kernel's float4 loads; the addresses are checked per call). A dimension
-    of size 1 never moves the address, so any stride there will do."""
+    then each of q, k, v's batch, token and head element strides,
+    `_f32_strides`)."""
     b, tq, tk, h = _shapes(q_layout[0], k_layout[0], v_layout[0])
     if causal and tq > tk:
         raise ValueError(f"causal flash attention needs Tq <= Tk, got {tq} > {tk}")
-    strides = []
-    for shape, stride in (q_layout, k_layout, v_layout):
-        sb, st, sh, sd = (s if n > 1 else 0 for n, s in zip(shape, stride))
-        if stride[3] != 1 or sb % 4 or st % 4 or sh % 4:
-            raise ValueError(f"the fp32 K1/K4 take a contiguous head dim and strides of 4-element "
-                             f"multiples, got shape {tuple(shape)} strides {stride}")
-        strides += [sb, st, sh]
+    strides = [s for shape, stride in (q_layout, k_layout, v_layout)
+               for s in _f32_strides(shape, stride, "the fp32 K1/K4")]
     return (b, tq, h), (ctypes.c_longlong * 14)(b, tq, tk, h, int(causal), *strides)
+
+
+# K5's fp32 form (csrc/flash_attention_bwd_f32.cu): 64-row query tiles and
+# 64-key tiles, a 256-thread CTA each, and the shared memory its dQ and dKV
+# kernels take (each within the 227 KB a block may use)
+BWD_F32_TILE = 64
+BWD_F32_DQ_SMEM = 4 * (5 * 64 * 68 + 64 * 64)
+BWD_F32_DKV_SMEM = 4 * (6 * 64 * 68 + 2 * 64 * 64 + 2 * 64)
+
+
+def bwd_f32_grids(b, tq, tk, h):
+    """The grids of K5's fp32 dQ and dKV kernels: (query tiles, heads,
+    batch) and (key tiles, heads, batch)."""
+    return ((-(-tq // BWD_F32_TILE), h, b), (-(-tk // BWD_F32_TILE), h, b))
+
+
+def bwd_f32_key_tiles(tq, tk, q0, causal):
+    """The 64-key tiles K5's fp32 dQ kernel walks, from key 0, for query
+    rows [q0, q0 + 64): all of them, or (causal, end-aligned) those at or
+    below its last row's bound (csrc/flash_attention_bwd_f32.cu)."""
+    n = -(-tk // BWD_F32_TILE)
+    if causal:
+        n = min(n, (min(q0 + BWD_F32_TILE, tq) - 1 + tk - tq) // BWD_F32_TILE + 1)
+    return n
+
+
+def bwd_f32_first_qtile(tq, tk, k0, causal):
+    """The first 64-row query tile K5's fp32 dK/dV kernel walks (to the last)
+    for keys [k0, k0 + 64): 0, or (causal) the tile of the first row that
+    sees key k0."""
+    return max(k0 - (tk - tq), 0) // BWD_F32_TILE if causal else 0
+
+
+@lru_cache(maxsize=256)
+def _bwd_f32_plan(q_layout, k_layout, v_layout, o_layout, do_layout, lse_layout, causal):
+    """What K5's fp32 C entry reads of one call, from each tensor's (shape,
+    strides): (B, Tq, Tk, H, the fp32 scratch length) and the int64 array
+    (B, Tq, Tk, H, causal, then the batch, token and head element strides
+    of q, k, v, dO and O, `_f32_strides`). Scratch: the pre-pass's padded
+    LSE and D rows (B*H, Tq padded to BWD_F32_TILE each). Checked once per
+    set of layouts (the addresses are checked per call)."""
+    b, tq, tk, h = _shapes(q_layout[0], k_layout[0], v_layout[0])
+    if o_layout[0] != q_layout[0] or do_layout[0] != q_layout[0]:
+        raise ValueError(f"K5: o {tuple(o_layout[0])} and do {tuple(do_layout[0])} must "
+                         f"match q {tuple(q_layout[0])}")
+    if tuple(lse_layout[0]) != (b, h, tq) or tuple(lse_layout[1]) != (h * tq, tq, 1):
+        raise ValueError(f"K5 takes a contiguous (B, H, Tq) = {(b, h, tq)} lse, got shape "
+                         f"{tuple(lse_layout[0])} strides {lse_layout[1]}")
+    if causal and tq > tk:
+        raise ValueError(f"causal flash attention needs Tq <= Tk, got {tq} > {tk}")
+    strides = [s for shape, stride in (q_layout, k_layout, v_layout, do_layout, o_layout)
+               for s in _f32_strides(shape, stride, "K5's fp32 form")]
+    scratch = 2 * b * h * -(-tq // BWD_F32_TILE) * BWD_F32_TILE
+    return (b, tq, tk, h, scratch), (ctypes.c_longlong * 20)(b, tq, tk, h, int(causal), *strides)
 
 
 def _flash_fwd_sm90(q, k, v, causal):
@@ -386,39 +450,42 @@ def int8_prepass_reference(k, v, pv8):
 
 
 @lru_cache(maxsize=256)
-def _int8_plan(q_layout, k_layout, v_layout, pv8):
+def _int8_plan(q_layout, k_layout, v_layout, pv8, f32=False):
     """What K8's C entry reads of one call, from each tensor's (shape,
     strides): (B, Tq, Tk, H, tk_pad, the byte offsets of ks, V8^T and vs in
     the pre-pass's scratch, which starts with k8, and its size in bytes)
     and the int64 array (B, Tq, Tk, H, pv8, tk_pad, the head, token and
-    batch byte strides of q, k and v, the three offsets). Checked once per
-    set of layouts (the addresses are checked per call)."""
+    batch byte strides of q, k and v, the three offsets, f32: the fp32-q
+    form, whose float4 loads take the same 16-byte strides). Checked once
+    per set of layouts (the addresses are checked per call)."""
     b, tq, tk, h = _shapes(q_layout[0], k_layout[0], v_layout[0])
     if tk > SINGLE_STEP_MAX_K:
         raise ValueError(f"K8 takes at most {SINGLE_STEP_MAX_K} keys (the JAX package's "
                          f"one-shot kernel), got {tk}")
     strides = [s for shape, stride in (q_layout, k_layout, v_layout)
-               for s in _map_strides(shape, stride, 2)]
+               for s in _map_strides(shape, stride, 4 if f32 else 2)]
     tk_pad = -(-tk // INT8_KTILE) * INT8_KTILE
     ks_off = b * tk * h * 64
     v8t_off = ks_off + b * h * tk_pad * 4
     vs_off = v8t_off + (b * h * 64 * tk_pad if pv8 else 0)
     size = vs_off + (b * h * 64 * 4 if pv8 else 0)
     return ((b, tq, tk, h, tk_pad, ks_off, v8t_off, vs_off, size),
-            (ctypes.c_longlong * 18)(b, tq, tk, h, int(pv8), tk_pad, *strides, ks_off, v8t_off,
-                                     vs_off))
+            (ctypes.c_longlong * 19)(b, tq, tk, h, int(pv8), tk_pad, *strides, ks_off, v8t_off,
+                                     vs_off, int(f32)))
 
 
 def _flash_int8_sm90(q, k, v, pv8, phases=3, scratch=None):
     """K8 on the card: dtypes, layouts, addresses and device checked, O, LSE
     and the pre-pass's scratch allocated (or `scratch` reused), then the
-    quantize pre-pass (phases bit 0) and the main kernel (bit 1) launched.
+    quantize pre-pass (phases bit 0) and the main kernel (bit 1) launched:
+    the bf16 form, or the fp32-q form for fp32 q, k and v.
     -> (O, LSE, scratch)."""
-    if not q.dtype == k.dtype == v.dtype == torch.bfloat16:
-        raise TypeError(f"K8 takes bfloat16 q, k and v (K8's fp32-q form is not ported yet), "
-                        f"got {q.dtype}, {k.dtype}, {v.dtype}")
+    f32 = q.dtype == k.dtype == v.dtype == torch.float32
+    if not (f32 or q.dtype == k.dtype == v.dtype == torch.bfloat16):
+        raise TypeError(f"K8 takes bfloat16 or fp32 q, k and v of one dtype, got {q.dtype}, "
+                        f"{k.dtype}, {v.dtype}")
     meta, plan = _int8_plan((q.shape, q.stride()), (k.shape, k.stride()),
-                            (v.shape, v.stride()), pv8)
+                            (v.shape, v.stride()), pv8, f32)
     b, tq, _, h = meta[:4]
     qp, kp, vp = q.data_ptr(), k.data_ptr(), v.data_ptr()
     if (qp | kp | vp) % 16:
@@ -450,7 +517,8 @@ def int8_prepass(q, k, v, *, mode):
     pv8 = mode == "qkpv"
     _, _, scratch = _flash_int8_sm90(q, k, v, pv8, phases=1)
     b, _, tk, h, tk_pad, ks_off, v8t_off, vs_off, _ = _int8_plan(
-        (q.shape, q.stride()), (k.shape, k.stride()), (v.shape, v.stride()), pv8)[0]
+        (q.shape, q.stride()), (k.shape, k.stride()), (v.shape, v.stride()), pv8,
+        q.dtype == torch.float32)[0]
 
     def view(off, dtype, shape):
         n = math.prod(shape) * torch.empty((), dtype=dtype).element_size()
@@ -511,14 +579,16 @@ def flash_attention_bwd_reference(q, k, v, o, lse, do, *, causal):
 
 def _flash_bwd_sm90(q, k, v, o, lse, do, causal):
     """K5 on the card: dtypes, layouts, addresses and device checked,
-    outputs and scratch allocated, one C call (three launches, two where
-    dQ is direct)."""
-    if not (q.dtype == k.dtype == v.dtype == o.dtype == do.dtype == torch.bfloat16
+    outputs and scratch allocated, one C call: the bf16 form (three
+    launches, two where dQ is direct) or, for fp32 q, k, v, o and do, the
+    fp32 one (three launches)."""
+    f32 = q.dtype == k.dtype == v.dtype == o.dtype == do.dtype == torch.float32
+    if not ((f32 or q.dtype == k.dtype == v.dtype == o.dtype == do.dtype == torch.bfloat16)
             and lse.dtype == torch.float32):
-        raise TypeError(f"K5 takes bfloat16 q, k, v, o, do and an fp32 lse (K5's fp32 form is "
-                        f"not ported yet), got {q.dtype}, {k.dtype}, {v.dtype}, {o.dtype}, "
-                        f"{do.dtype}, {lse.dtype}")
-    (b, tq, tk, h, n_scratch), plan = _bwd_plan(
+        raise TypeError(f"K5 takes bfloat16 or fp32 q, k, v, o and do of one dtype and an fp32 "
+                        f"lse, got {q.dtype}, {k.dtype}, {v.dtype}, {o.dtype}, {do.dtype}, "
+                        f"{lse.dtype}")
+    (b, tq, tk, h, n_scratch), plan = (_bwd_f32_plan if f32 else _bwd_plan)(
         (q.shape, q.stride()), (k.shape, k.stride()), (v.shape, v.stride()),
         (o.shape, o.stride()), (do.shape, do.stride()), (lse.shape, lse.stride()), causal)
     qp, kp, vp, op, dop = q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr()
@@ -530,14 +600,17 @@ def _flash_bwd_sm90(q, k, v, o, lse, do, causal):
                          f"{k.device}, v on {v.device}, o on {o.device}, do on {do.device}, "
                          f"lse on {lse.device}")
     dq = q.new_empty((b, tq, h, 64))
-    dkv = q.new_empty((2, b, tk, h, 64))  # one TMA store map covers dK and dV
+    dkv = q.new_empty((2, b, tk, h, 64))  # one TMA store map covers dK and dV (bf16)
     scratch = lse.new_empty(n_scratch)
     card = q.get_device()
-    rc = _build.function("flash_attention_bwd", "kwt_flash_attention_bwd")(
+    entry = (("flash_attention_bwd_f32", "kwt_flash_attention_bwd_f32") if f32
+             else ("flash_attention_bwd", "kwt_flash_attention_bwd"))
+    rc = _build.function(*entry)(
         card, qp, kp, vp, op, dop, lse.data_ptr(), dq.data_ptr(), dkv.data_ptr(),
         scratch.data_ptr(), plan, _build.stream_handle(card))
     if rc != 0:
-        raise RuntimeError(f"K5 flash attention backward launch failed: cudaError {rc}")
+        raise RuntimeError(f"K5 flash attention backward{' (fp32)' if f32 else ''} launch "
+                           f"failed: cudaError {rc}")
     flash_attention_bwd.launches += 1
     return (dq, *dkv.unbind(0))
 

@@ -9,8 +9,9 @@ and LayerNorm the unfused `x = x + y; layer_norm(x)` sequence gives.
 
 As in the JAX package, the model does not call these: they run in the
 `fused_ln` variant of tools/enc_exp.py. Each wrapper launches K6 for CUDA
-tensors (bf16 rows of a width that is a multiple of 8, at most 2048) and
-takes its plain twin only for CPU tensors.
+tensors (bf16 or fp32 rows of a width that is a multiple of 8, at most
+2048; fp32 rows come back fp32) and takes its plain twin only for CPU
+tensors.
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ from kotoba_whisper_tpu_torch.ops import _build
 
 _MAX_WIDTH = 2048  # csrc/layer_norm.cu kMaxChunks x 8 x 32 lanes
 WARPS_PER_BLOCK = 4  # csrc/layer_norm.cu kWarps: one row per warp at a time
-_WEIGHT_DTYPES = (torch.bfloat16, torch.float32)
+_WEIGHT_DTYPES = _ROW_DTYPES = (torch.bfloat16, torch.float32)
 
 
 def row_schedule(rows, grid):
@@ -52,13 +53,15 @@ def add_layer_norm_reference(x, y, weight, bias, eps=1e-5):
 
 
 def _check(x, weight, bias, *others):
-    """Raises on what K6 does not take; -> (rows, d, weight is fp32). The
-    weight and bias go to the kernel as they are stored (bf16 or fp32)."""
+    """Raises on what K6 does not take; -> (rows, d, weight is fp32, x is
+    fp32). The rows are bf16 or fp32, all of x's dtype; the weight and bias
+    go to the kernel as they are stored (bf16 or fp32)."""
     d = x.shape[-1]
     for name, t in (("x", x), *others):
-        if t.device.type != "cuda" or t.dtype != torch.bfloat16 or not t.is_contiguous():
-            raise ValueError(f"K6 takes contiguous bfloat16 tensors on the card, {name} is "
-                             f"{t.dtype} on {t.device}")
+        if (t.device.type != "cuda" or t.dtype not in _ROW_DTYPES or t.dtype != x.dtype
+                or not t.is_contiguous()):
+            raise ValueError(f"K6 takes contiguous bfloat16 or fp32 rows on the card, all of "
+                             f"one dtype; {name} is {t.dtype} on {t.device}")
         if t.shape != x.shape:
             raise ValueError(f"K6: {name} {tuple(t.shape)} differs from x {tuple(x.shape)}")
         if t.data_ptr() % 16:
@@ -72,7 +75,7 @@ def _check(x, weight, bias, *others):
                              f"fp32; {name} is {tuple(t.shape)} {t.dtype}")
         if t.device != x.device or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"K6 reads {name} contiguous, 16-byte aligned, on x's card")
-    return x.numel() // d, d, int(weight.dtype == torch.float32)
+    return x.numel() // d, d, int(weight.dtype == torch.float32), int(x.dtype == torch.float32)
 
 
 def layer_norm(x, weight, bias, eps=1e-5):
@@ -80,11 +83,11 @@ def layer_norm(x, weight, bias, eps=1e-5):
     plain twin for CPU tensors."""
     if x.device.type == "cpu":
         return layer_norm_reference(x, weight, bias, eps)
-    rows, d, w_fp32 = _check(x, weight, bias)
+    rows, d, w_fp32, x_fp32 = _check(x, weight, bias)
     out = torch.empty_like(x)
     card = x.get_device()
     rc = _build.function("layer_norm", "kwt_layer_norm")(
-        card, x.data_ptr(), None, weight.data_ptr(), bias.data_ptr(), w_fp32, None,
+        card, x.data_ptr(), None, weight.data_ptr(), bias.data_ptr(), w_fp32, x_fp32, None,
         out.data_ptr(), rows, d, float(eps), _build.stream_handle(card),
     )
     if rc != 0:
@@ -97,11 +100,11 @@ def add_layer_norm(x, y, weight, bias, eps=1e-5):
     """K6 fused residual add + LayerNorm -> (x + y, LayerNorm(x + y))."""
     if x.device.type == "cpu":
         return add_layer_norm_reference(x, y, weight, bias, eps)
-    rows, d, w_fp32 = _check(x, weight, bias, ("y", y))
+    rows, d, w_fp32, x_fp32 = _check(x, weight, bias, ("y", y))
     summed, out = torch.empty_like(x), torch.empty_like(x)
     card = x.get_device()
     rc = _build.function("layer_norm", "kwt_layer_norm")(
-        card, x.data_ptr(), y.data_ptr(), weight.data_ptr(), bias.data_ptr(), w_fp32,
+        card, x.data_ptr(), y.data_ptr(), weight.data_ptr(), bias.data_ptr(), w_fp32, x_fp32,
         summed.data_ptr(), out.data_ptr(), rows, d, float(eps), _build.stream_handle(card),
     )
     if rc != 0:

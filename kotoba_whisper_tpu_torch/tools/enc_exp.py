@@ -11,9 +11,9 @@ inference transform:
 
 The JAX names `pallas`, `fused_ln_pallas` and `int8_pallas` map to the same
 runs, because the port's encoder always takes K1 on the card. As in the
-JAX tool the model is seeded random large-v3 (or --preset) in bf16 with
-fused projections; KWT_FA_INT8=qk|qkpv moves every variant's attention to
-K8. Prints one JSON line: {variant, batch, ms_mean, ms_min, compile_s}
+JAX tool the model is seeded random large-v3 (or --preset) in bf16 (or
+--dtype float32: K1's, K6's and K8's fp32 forms) with fused projections;
+KWT_FA_INT8=qk|qkpv moves every variant's attention to K8. Prints one JSON line: {variant, batch, ms_mean, ms_min, compile_s}
 (compile_s: the first call, kernel builds and library plans included), or
 with --check {variant, max_abs_diff, rel_l2} against baseline.
 
@@ -47,15 +47,16 @@ def encode_fused_ln(model, feats):
     the LayerNorm that follows it."""
     cfg, enc = model.cfg, model.model.encoder
     eps, n_heads = cfg.layer_norm_eps, cfg.encoder_attention_heads
-    x = whisper.embed_audio(model, feats, model.dtype)  # contiguous rows, as K6 takes them
-    for layer in enc.layers:
-        ln1, ln2, sa = layer.self_attn_layer_norm, layer.final_layer_norm, layer.self_attn
-        h = ln_ops.layer_norm(x, ln1.weight, ln1.bias, eps)
-        o = flash_attention(*whisper.qkv_projections(sa, h, h, n_heads))
-        attn_out = whisper.dense(sa.out_proj, whisper.merge_heads(o))
-        x, h = ln_ops.add_layer_norm(x, attn_out, ln2.weight, ln2.bias, eps)
-        x = x + whisper.dense(layer.fc2, F.gelu(whisper.dense(layer.fc1, h)))
-    return ln_ops.layer_norm(x, enc.layer_norm.weight, enc.layer_norm.bias, eps)
+    with whisper.exact_fp32(model.dtype):  # an fp32 model's projections stay fp32 (no TF32)
+        x = whisper.embed_audio(model, feats, model.dtype)  # contiguous rows, as K6 takes them
+        for layer in enc.layers:
+            ln1, ln2, sa = layer.self_attn_layer_norm, layer.final_layer_norm, layer.self_attn
+            h = ln_ops.layer_norm(x, ln1.weight, ln1.bias, eps)
+            o = flash_attention(*whisper.qkv_projections(sa, h, h, n_heads))
+            attn_out = whisper.dense(sa.out_proj, whisper.merge_heads(o))
+            x, h = ln_ops.add_layer_norm(x, attn_out, ln2.weight, ln2.bias, eps)
+            x = x + whisper.dense(layer.fc2, F.gelu(whisper.dense(layer.fc1, h)))
+        return ln_ops.layer_norm(x, enc.layer_norm.weight, enc.layer_norm.bias, eps)
 
 
 def make_variants(model):

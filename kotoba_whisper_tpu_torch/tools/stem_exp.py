@@ -22,8 +22,11 @@ Checks stem_mm against stem_conv (max |diff| < 0.05) first. Prints one
 JSON line per variant {name, ms, tflops (stem variants)} and a share line
 {stem_share_of_encoder_pct, stem_mm_vs_conv, mismatch_max, batch}.
 
+--dtype float32 runs every variant on an fp32 model with TF32 off
+(models/whisper.exact_fp32), stem_pallas through K7's fp32 form.
+
 Usage: python -m kotoba_whisper_tpu_torch.tools.stem_exp [--batch 48]
-       [--trials 5] [--preset large-v3] [--device cuda]
+       [--trials 5] [--preset large-v3] [--device cuda] [--dtype bfloat16]
 """
 from __future__ import annotations
 
@@ -91,11 +94,16 @@ def main(argv=None) -> list[dict]:
     ap.add_argument("--trials", type=int, default=5)
     ap.add_argument("--preset", default="large-v3")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32"])
     args = ap.parse_args(argv)
+    dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
+    with whisper.exact_fp32(dtype):
+        return _run(args, dtype)
 
+
+def _run(args, dtype) -> list[dict]:
     dev = resolve_device(args.device)
     cfg = PRESETS[args.preset]
-    dtype = torch.bfloat16
     model = whisper.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                                 device=dev, dtype=dtype)
     enc = model.model.encoder
@@ -147,6 +155,7 @@ def main(argv=None) -> list[dict]:
         "stem_mm_vs_conv": results["stem_conv"]["ms"] / results["stem_mm"]["ms"],
         "mismatch_max": err,
         "batch": b,
+        "dtype": args.dtype,
         "device": str(dev) if dev.type == "cpu" else torch.cuda.get_device_name(dev),
     }
     lines.append(share)

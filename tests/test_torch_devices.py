@@ -179,6 +179,16 @@ def _k2_beam_f32(c):
     da.decode_attention_beam(_bf16(2, 3, 2, 64, dtype=torch.float32), kv, kv, n_heads=2)
 
 
+def _k5_f32(c):
+    q = _bf16(1, 64, 2, 64, dtype=torch.float32)
+    fa.flash_attention_bwd(q, q, q, q, on_card(torch.zeros(1, 2, 64)), q, causal=True)
+
+
+def _k8_f32(c):
+    q = _bf16(1, 64, 2, 64, dtype=torch.float32)
+    fa.flash_attention_int8(q, q, q, mode="qkpv")
+
+
 def _k3(c):
     mel.log_mel_frames(on_card(torch.zeros(1, 480000)), FeatureConfig())
 
@@ -191,6 +201,21 @@ def _k6(c):
 def _k6_add(c):
     w = _bf16(64, dtype=torch.float32)
     ln.add_layer_norm(_bf16(4, 64), _bf16(4, 64), w, w)
+
+
+def _k6_f32(c):
+    ln.layer_norm(_bf16(4, 64, dtype=torch.float32), _bf16(64), _bf16(64))
+
+
+def _k6_add_f32(c):
+    w = _bf16(64, dtype=torch.float32)
+    ln.add_layer_norm(_bf16(4, 64, dtype=torch.float32), _bf16(4, 64, dtype=torch.float32), w, w)
+
+
+def _k7_f32(c):
+    conv = [types.SimpleNamespace(weight=_bf16(64, c_in, 3, dtype=torch.float32),
+                                  bias=_bf16(64, dtype=torch.float32)) for c_in in (80, 64)]
+    cs.conv_stem(conv[0], conv[1], _bf16(1, 80, 256, dtype=torch.float32))
 
 
 def _k7(c):
@@ -220,6 +245,11 @@ WRAPPERS = {
     "K6": (_k6, "kwt_layer_norm"),
     "K6 add": (_k6_add, "kwt_layer_norm"),
     "K7": (_k7, "kwt_conv_stem"),
+    "K5 fp32": (_k5_f32, "kwt_flash_attention_bwd_f32"),
+    "K8 fp32": (_k8_f32, "kwt_flash_attention_int8"),
+    "K6 fp32": (_k6_f32, "kwt_layer_norm"),
+    "K6 add fp32": (_k6_add_f32, "kwt_layer_norm"),
+    "K7 fp32": (_k7_f32, "kwt_conv_stem_f32"),
     "K9": (_k9, "kwt_vpu_cal"),
 }
 

@@ -209,16 +209,31 @@ def test_distill_unported_flags_raise(students, teacher_dir, split_dir, tmp_path
         port_distill.main(args + ["--device", "cpu", *flags])
 
 
-def test_float32_on_the_card_is_not_ported(students, teacher_dir, split_dir, tmp_path):
-    """The backward kernel (K5) takes bfloat16: --dtype float32 raises for
-    the card and runs on the CPU (the CLI tests above)."""
+def test_float32_on_the_card_is_not_ported(students, teacher_dir, split_dir, tmp_path,
+                                           monkeypatch):
+    """--dtype float32 trains on the card through K5's fp32 form (the CLI
+    tests above run it on the CPU): on a CUDA device the driver gets past
+    its checks and reads the split, and stops at loading the models (a
+    stub; no card needed)."""
+    from kotoba_whisper_tpu_torch.cli import common
+
     _, port_dir = students
     args = port_distill._parser().parse_args(
         _distill_args(split_dir, port_dir, teacher_dir, str(tmp_path), 1))
     assert args.dtype == "float32"
-    with pytest.raises(SystemExit, match="--dtype float32 on the card"):
-        port_distill._check_ported(args, torch.device("cuda"))
-    port_distill._check_ported(args, torch.device("cpu"))
+    for dev in (torch.device("cuda"), torch.device("cpu")):
+        port_distill._check_ported(args, dev)
+
+    class Reached(Exception):
+        pass
+
+    def load_model(spec, dev, dtype, **kw):
+        assert (dev.type, dtype) == ("cuda", torch.float32)
+        raise Reached
+
+    monkeypatch.setattr(common, "load_model", load_model)
+    with pytest.raises(Reached):
+        port_distill._run(args, torch.device("cuda"))
 
 
 def test_drivers_raise_without_a_card(students, teacher_dir, split_dir, tmp_path, monkeypatch):

@@ -229,3 +229,167 @@ def test_bwd_wrapper_raises_on_misaligned_address_before_the_device():
         fa._flash_bwd_sm90(q, k, v, o, torch.zeros(b, h, t), do, False)
     with pytest.raises(TypeError):
         fa._flash_bwd_sm90(q.float(), k, v, o, torch.zeros(b, h, t), do, False)
+
+
+# ---- the fp32 form (csrc/flash_attention_bwd_f32.cu) ---------------------------------
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("tq, tk", [(1, 1), (64, 64), (65, 65), (128, 128), (130, 130),
+                                    (70, 300), (128, 1500), (1, 130)])
+def test_bwd_f32_tiles_cover_each_kept_pair_once(tq, tk, causal):
+    """The dQ kernel's key tiles (per 64-row query tile) and the dK/dV
+    kernel's query tiles (per 64-key tile) each visit every (query, key)
+    pair the end-aligned mask keeps exactly once, and no visited tile holds
+    no kept pair; the grids cover every tile."""
+    t = fa.BWD_F32_TILE
+    rows, keys = np.arange(tq)[:, None], np.arange(tk)[None, :]
+    kept = keys <= rows + tk - tq if causal else np.ones((tq, tk), bool)
+    by_dq, by_dkv = np.zeros((tq, tk), int), np.zeros((tq, tk), int)
+    (n_qt, _, _), (n_kt, _, _) = fa.bwd_f32_grids(1, tq, tk, 1)
+    assert (n_qt - 1) * t < tq <= n_qt * t and (n_kt - 1) * t < tk <= n_kt * t
+    for q0 in range(0, n_qt * t, t):
+        for jt in range(fa.bwd_f32_key_tiles(tq, tk, q0, causal)):
+            tile = kept[q0:q0 + t, jt * t:jt * t + t]
+            assert tile.any(), (q0, jt)
+            by_dq[q0:q0 + t, jt * t:jt * t + t] += tile
+    for k0 in range(0, n_kt * t, t):
+        for r0 in range(fa.bwd_f32_first_qtile(tq, tk, k0, causal) * t, n_qt * t, t):
+            tile = kept[r0:r0 + t, k0:k0 + t]
+            assert tile.any(), (k0, r0)
+            by_dkv[r0:r0 + t, k0:k0 + t] += tile
+    np.testing.assert_array_equal(by_dq, kept.astype(int))
+    np.testing.assert_array_equal(by_dkv, kept.astype(int))
+
+
+def k5_f32_walk(q, k, v, o, lse, do, causal):
+    """The backward in K5's fp32 order (fp32 throughout): D from the
+    pre-pass's products; the dQ kernel's 64-row query tiles over their key
+    tiles (P = exp(S - LSE) of S = (Q / 8) K^T, masked past the end-aligned
+    bound, dS = P (dP - D), dQ += dS K, times 1/8 at the end); the dK/dV
+    kernel's 64-key tiles over their query tiles (dV += P^T dO, dK += dS^T
+    (Q / 8)). (B, T, H, 64) fp32 tensors; every (batch, head) at once."""
+    t = fa.BWD_F32_TILE
+    qf, kf, vf, of, dof = (x.float().transpose(1, 2) for x in (q, k, v, o, do))
+    tq, tk = qf.shape[2], kf.shape[2]
+    qs, delta = qf * 0.125, (dof * of).sum(-1)
+
+    def p_ds(rs, ks):
+        s = qs[:, :, rs] @ kf[:, :, ks].transpose(-1, -2)
+        keep = torch.ones(s.shape[-2:], dtype=torch.bool)
+        if causal:
+            keep = (torch.arange(ks.start, ks.stop)[None, :]
+                    <= torch.arange(rs.start, rs.stop)[:, None] + tk - tq)
+        p = torch.where(keep, torch.exp(s - lse[:, :, rs, None]), 0.0)
+        dp = dof[:, :, rs] @ vf[:, :, ks].transpose(-1, -2)
+        return p, p * (dp - delta[:, :, rs, None])
+
+    dq, dk, dv = torch.zeros_like(qf), torch.zeros_like(kf), torch.zeros_like(vf)
+    for q0 in range(0, tq, t):
+        rs = slice(q0, min(q0 + t, tq))
+        for jt in range(fa.bwd_f32_key_tiles(tq, tk, q0, causal)):
+            ks = slice(jt * t, min(jt * t + t, tk))
+            dq[:, :, rs] += p_ds(rs, ks)[1] @ kf[:, :, ks]
+    for k0 in range(0, tk, t):
+        ks = slice(k0, min(k0 + t, tk))
+        for r0 in range(fa.bwd_f32_first_qtile(tq, tk, k0, causal) * t, tq, t):
+            rs = slice(r0, min(r0 + t, tq))
+            p, ds = p_ds(rs, ks)
+            dv[:, :, ks] += p.transpose(-1, -2) @ dof[:, :, rs]
+            dk[:, :, ks] += ds.transpose(-1, -2) @ qs[:, :, rs]
+    return tuple(x.transpose(1, 2) for x in (dq * 0.125, dk, dv))
+
+
+@pytest.mark.parametrize("tq, tk, causal", [(130, 130, True), (70, 300, False), (65, 200, True)])
+def test_f32_walk_matches_jax_kernels(tq, tk, causal):
+    """K5's fp32 walk against the JAX package's `_flash_bwd` in Pallas
+    interpret mode on fp32 inputs (P and dS kept in fp32 there too), 1e-5."""
+    b, h = 2, 2
+    q, k, v, g = _inputs(tq * 7 + tk, b, tq, tk, h)
+    qt, kt, vt, gt = map(torch.from_numpy, (q, k, v, g))
+    o, lse = fa.flash_attention_fwd(qt, kt, vt, causal=causal)
+    got = k5_f32_walk(qt, kt, vt, o, lse, gt, causal)
+    bq, bk = jfa._blocks(tq, tk)
+    ref = jfa._flash_bwd(
+        _to_bh(q), _to_bh(k), _to_bh(v), _to_bh(o.numpy()),
+        jnp.asarray(lse.numpy()).reshape(b * h, tq, 1), _to_bh(g),
+        causal=causal, block_q=bq, block_k=bk, interpret=True,
+    )
+    for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+        np.testing.assert_allclose(a.numpy(), _from_bh(r, b, h), atol=1e-5, rtol=1e-5,
+                                   err_msg=name)
+    for name, a, r in zip(("dq", "dk", "dv"), got,
+                          fa.flash_attention_bwd_reference(qt, kt, vt, o, lse, gt, causal=causal)):
+        torch.testing.assert_close(a, r, atol=1e-5, rtol=1e-5, msg=name)
+
+
+def test_bwd_f32_smem_fits_a_block():
+    """Each of the fp32 form's kernels fits the 227 KB (232,448 bytes) of
+    shared memory a block may use; the dQ kernel's two a SM."""
+    assert fa.BWD_F32_DKV_SMEM <= 232448 and 2 * fa.BWD_F32_DQ_SMEM <= 232448
+
+
+def _f32(*shape):
+    return torch.zeros(*shape)
+
+
+@pytest.mark.parametrize("causal, tk", [(True, 130), (False, 300)])
+def test_bwd_f32_plan_packs_shapes_strides_and_scratch(causal, tk):
+    """Fused qkv column views (causal) or a q and fused kv views (cross),
+    contiguous o and do: element strides (batch, token, head) of q, k, v,
+    do and o, and the padded LSE and D rows of scratch."""
+    b, h = 2, 4
+    tq = tk if causal else 70
+    if causal:
+        q, k, v = (x.reshape(b, tq, h, 64) for x in _f32(b, tq, 3 * h * 64).chunk(3, dim=-1))
+    else:
+        q = _f32(b, tq, h, 64)
+        k, v = (x.reshape(b, tk, h, 64) for x in _f32(b, tk, 2 * h * 64).chunk(2, dim=-1))
+    o, do, lse = _f32(b, tq, h, 64), _f32(b, tq, h, 64), torch.zeros(b, h, tq)
+    (bb, tq_, tk_, hh, n_scratch), plan = fa._bwd_f32_plan(*_layouts(q, k, v, o, do, lse), causal)
+    assert (bb, tq_, tk_, hh) == (b, tq, tk, h)
+    strides = [s for t in (q, k, v, do, o) for s in (t.stride(0), t.stride(1), t.stride(2))]
+    assert list(plan) == [b, tq, tk, h, int(causal), *strides]
+    if causal:
+        assert strides[1] == 3 * h * 64  # q's token stride: the fused row
+    assert n_scratch == 2 * b * h * math.ceil(tq / 64) * 64
+    assert fa._bwd_f32_plan(*_layouts(q, k, v, o, do, lse), causal)[1] is plan
+
+
+@pytest.mark.parametrize("what", ["token stride", "head dim stride", "o shape", "lse layout",
+                                  "causal tq > tk", "head dim"])
+def test_bwd_f32_plan_rejects_what_the_kernel_cannot_read(what):
+    b, t, h = 2, 10, 3
+    q, k, v, o, do = (_f32(b, t, h, 64) for _ in range(5))
+    lse = torch.zeros(b, h, t)
+    causal = False
+    if what == "token stride":  # 2 extra elements a token: not a float4 multiple
+        q = _f32(b * t * (h * 64 + 2)).as_strided((b, t, h, 64), (t * (h * 64 + 2), h * 64 + 2, 64, 1))
+    elif what == "head dim stride":
+        q = _f32(b, t, h, 64).transpose(2, 3).contiguous().transpose(2, 3)
+    elif what == "o shape":
+        o = _f32(b, t + 1, h, 64)
+    elif what == "lse layout":
+        lse = torch.zeros(b, t, h).transpose(1, 2)
+    elif what == "causal tq > tk":
+        k, v, causal = _f32(b, t - 1, h, 64), _f32(b, t - 1, h, 64), True
+    else:
+        q, k, v, o, do = (_f32(b, t, h, 32) for _ in range(5))
+    with pytest.raises(ValueError):
+        fa._bwd_f32_plan(*_layouts(q, k, v, o, do, lse), causal)
+
+
+def test_bwd_f32_wrapper_checks_before_the_device():
+    """fp32 q, k, v, o and do take the fp32 form's checks before the
+    device is looked at: an address 8 bytes off raises ValueError, a
+    well-formed CPU call ValueError (not on the card), a bf16 lse
+    TypeError."""
+    b, t, h = 1, 8, 2
+    q, k, v, o, do = (_f32(b, t, h, 64) for _ in range(5))
+    off = _f32(b * t * h * 64 + 2)[2:].view(b, t, h, 64)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa._flash_bwd_sm90(off, k, v, o, torch.zeros(b, h, t), do, False)
+    with pytest.raises(ValueError, match="on the card"):
+        fa._flash_bwd_sm90(q, k, v, o, torch.zeros(b, h, t), do, True)
+    with pytest.raises(TypeError):
+        fa._flash_bwd_sm90(q, k, v, o, torch.zeros(b, h, t, dtype=torch.bfloat16), do, True)

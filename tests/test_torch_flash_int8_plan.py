@@ -293,6 +293,109 @@ def test_walk_matches_plain_twin_bf16(mode):
     assert float((got_lse - ref_lse).abs().max()) <= 1e-3
 
 
+def k8_f32_walk(q, k, v, pv8):
+    """K8's fp32-q kernel in its order, from the pre-pass's outputs (its
+    twin's layout): 64-row query tiles, q quantized per row, 64-key tiles
+    of s32 = Q8 K8^T dequantized as s32 * ((qs / 8) * ks), keys past tk
+    masked; qk: the online softmax in log2 units with P and V in fp32;
+    qkpv: the row max over every tile, then p = exp(s - m), p8 by adding
+    1.5 * 2^23, V8 of each key read from V8^T at the kernel's position
+    formula, integer P V, times (1/127) * vs; O / l_safe.
+    -> (O (B, Tq, H, 64) fp32, LSE (B, H, Tq))."""
+    b, tq, h, d = q.shape
+    tk = k.shape[1]
+    t = 64
+    k8, ks, v8t, vs = fa.int8_prepass_reference(k, v, pv8)
+    qf = q.transpose(1, 2)
+    k8f = k8.double().transpose(1, 2)
+    if pv8:  # V8 by key, read from V8^T: position p of a tile holds key
+        pos = torch.arange(v8t.shape[-1])
+        k32 = pos & 31
+        key = (pos & ~31) + 16 * (k32 >> 4) + 8 * ((k32 & 3) >> 1) + 2 * ((k32 >> 2) & 3) + (k32 & 1)
+        v8 = torch.empty_like(v8t)
+        v8[..., key] = v8t
+        vt = v8.transpose(-1, -2).double()               # (B, H, tk_pad, 64)
+    else:
+        vt = v.transpose(1, 2)
+    o, lse = torch.empty(b, h, tq, d), torch.empty(b, h, tq)
+    for q0 in range(0, tq, t):
+        rows = qf[:, :, q0:q0 + t]
+        qs = torch.clamp(rows.abs().amax(-1, keepdim=True), min=1e-8) * INV127
+        q8 = torch.round(rows / qs).double()
+
+        def scores(k0):
+            s32 = (q8 @ k8f[:, :, k0:k0 + t].transpose(-1, -2)).round()
+            s = s32.float() * ((qs * 0.125) * ks[:, :, None, k0:k0 + s32.shape[-1]])
+            return s
+
+        n = rows.shape[2]
+        l_run = torch.zeros(b, h, n, 1)
+        if pv8:
+            m = torch.full((b, h, n, 1), float("-inf"))
+            for k0 in range(0, tk, t):
+                m = torch.maximum(m, scores(k0).amax(-1, keepdim=True))
+            acc = torch.zeros(b, h, n, d, dtype=torch.float64)
+            for k0 in range(0, tk, t):
+                p = torch.exp(scores(k0) - m)
+                l_run += p.sum(-1, keepdim=True)
+                p8 = (p * 127.0 + MAGIC) - MAGIC
+                acc += p8.double() @ vt[:, :, k0:k0 + p.shape[-1]]
+            out, lse_t = acc.float() * (INV127 * vs[:, :, None, :]), m
+        else:
+            m_run = torch.full((b, h, n, 1), float("-inf"))
+            acc = torch.zeros(b, h, n, d)
+            for k0 in range(0, tk, t):
+                sc = scores(k0)
+                m_new = torch.maximum(m_run, sc.amax(-1, keepdim=True) * LOG2E)
+                corr = torch.exp2(m_run - m_new)
+                p = torch.exp2(_fma(sc, LOG2E, -m_new))
+                l_run = l_run * corr + p.sum(-1, keepdim=True)
+                acc = acc * corr + p @ vt[:, :, k0:k0 + p.shape[-1]]
+                m_run = m_new
+            out, lse_t = acc, m_run * torch.log(torch.tensor(2.0))
+        l_safe = torch.clamp(l_run, min=1e-30)
+        o[:, :, q0:q0 + t] = out / l_safe
+        lse[:, :, q0:q0 + t] = (lse_t + torch.log(l_safe))[..., 0]
+    return o.transpose(1, 2), lse
+
+
+@pytest.mark.parametrize("mode", ["qk", "qkpv"])
+@pytest.mark.parametrize("tq, tk", [(200, 300), (130, 1), (70, 260), (64, 128)])
+def test_f32_walk_matches_twin_and_pallas_int8_kernel(mode, tq, tk):
+    """The fp32-q form's walk against the plain twin on the twin
+    quantizers' codes (1e-5: qkpv's p = exp(s - m) takes the twin's p8
+    codes) and against the JAX package's `_fwd_kernel_single_int8` in
+    Pallas interpret mode on fp32 inputs (1e-4, as the bf16 walk)."""
+    b, h = 2, 2
+    pv8 = mode == "qkpv"
+    q, k, v = _qkv(tq * 11 + tk, b, tq, tk, h)
+    qt, kt, vt = map(torch.from_numpy, (q, k, v))
+    got_o, got_lse = k8_f32_walk(qt, kt, vt, pv8)
+    ref_o, ref_lse = fa.flash_attention_int8_reference(qt, *_twin_inputs(kt, vt, pv8), pv8)
+    torch.testing.assert_close(got_o, ref_o, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(got_lse, ref_lse, atol=1e-5, rtol=1e-5)
+    bq, bk = jfa._blocks(tq, tk)
+    jo, jlse = jfa._flash_fwd(_to_bh(q), _to_bh(k), _to_bh(v), causal=False, block_q=bq,
+                              block_k=bk, interpret=True, int8_mode=mode)
+    np.testing.assert_allclose(got_o.numpy(), np.asarray(jo).reshape(b, h, tq, 64).transpose(
+        0, 2, 1, 3), atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(got_lse.numpy(), np.asarray(jlse)[..., 0].reshape(b, h, tq),
+                               atol=1e-4, rtol=1e-4)
+
+
+def test_f32_form_grid_and_smem():
+    """The fp32-q kernel's grid, (64-row query tiles, heads, batch), covers
+    every row, and its shared memory (Q8 and K8 words with padded rows, the
+    scales, a V or V8 tile and a P or p8 tile) stays under the 48 KB a
+    launch may take without raising its limit."""
+    words = 2 * 16 * 68 * 4
+    smem = words + 2 * 64 * 4 + 64 * 64 * 4 + 64 * 68 * 4
+    assert smem <= 48 * 1024
+    for tq in (1, 64, 65, 1500):
+        n = -(-tq // 64)
+        assert (n - 1) * 64 < tq <= n * 64
+
+
 # ---- the pre-pass's layout and the cached plan -------------------------------------------
 
 
@@ -323,28 +426,34 @@ def _layouts(*ts):
     return tuple((t.shape, t.stride()) for t in ts)
 
 
+@pytest.mark.parametrize("f32", [False, True])
 @pytest.mark.parametrize("pv8", [False, True])
 @pytest.mark.parametrize("fused", [False, True])
-def test_int8_plan_packs_shapes_strides_and_offsets(fused, pv8):
+def test_int8_plan_packs_shapes_strides_and_offsets(fused, pv8, f32):
+    """bf16, or fp32 (the fp32-q form: the same scratch, 4-byte strides,
+    the flag last)."""
     b, tq, tk, h = 2, 70, 300, 4
+    dtype, elem = (torch.float32, 4) if f32 else (torch.bfloat16, 2)
     if fused:
         tq = tk
-        q, k, v = (x.reshape(b, tk, h, 64) for x in _bf16(b, tk, 3 * h * 64).chunk(3, dim=-1))
+        q, k, v = (x.reshape(b, tk, h, 64)
+                   for x in torch.zeros(b, tk, 3 * h * 64, dtype=dtype).chunk(3, dim=-1))
     else:
-        q, k, v = _bf16(b, tq, h, 64), _bf16(b, tk, h, 64), _bf16(b, tk, h, 64)
-    meta, plan = fa._int8_plan(*_layouts(q, k, v), pv8)
+        q, k, v = (torch.zeros(b, t, h, 64, dtype=dtype) for t in (tq, tk, tk))
+    meta, plan = fa._int8_plan(*_layouts(q, k, v), pv8, f32)
     tk_pad = 384
     ks_off = b * tk * h * 64
     v8t_off = ks_off + b * h * tk_pad * 4
     vs_off = v8t_off + (b * h * 64 * tk_pad if pv8 else 0)
     size = vs_off + (b * h * 64 * 4 if pv8 else 0)
     assert meta == (b, tq, tk, h, tk_pad, ks_off, v8t_off, vs_off, size)
-    strides = [s for t in (q, k, v) for s in fa._map_strides(t.shape, t.stride(), 2)]
+    strides = [s for t in (q, k, v) for s in fa._map_strides(t.shape, t.stride(), elem)]
     if fused:
-        assert strides[1] == 3 * h * 64 * 2  # q's token stride: the fused row
-    assert list(plan) == [b, tq, tk, h, int(pv8), tk_pad, *strides, ks_off, v8t_off, vs_off]
+        assert strides[1] == 3 * h * 64 * elem  # q's token stride: the fused row
+    assert list(plan) == [b, tq, tk, h, int(pv8), tk_pad, *strides, ks_off, v8t_off, vs_off,
+                          int(f32)]
     assert all(off % 16 == 0 for off in (ks_off, v8t_off, vs_off))
-    assert fa._int8_plan(*_layouts(q, k, v), pv8)[1] is plan  # cached per set of layouts
+    assert fa._int8_plan(*_layouts(q, k, v), pv8, f32)[1] is plan  # cached per set of layouts
 
 
 @pytest.mark.parametrize("what", ["token stride", "too many keys", "head dim", "kv shapes"])

@@ -9,9 +9,9 @@ K1/K4's and K2's fp32 kernels run only on the card; here:
 - the plans for fp32 K/V and fp32 q: within a CTA's shared memory, two
   CTAs an SM where the kernels ask for it, and the ring form at T=448 (the
   decoder's most positions) walking its keys in boxes instead of raising;
-- the drivers: stage 2, stage 6 and create-student take --dtype float32 on
-  a CUDA device (only KWT_FA_INT8 with fp32 still raises, for K8), while
-  distill and distill-bilingual refuse it, naming K5;
+- the drivers: stage 2 (also under KWT_FA_INT8), stage 6, create-student,
+  distill and distill-bilingual take --dtype float32 on a CUDA device and
+  get past their checks (stubs stop them before any card work);
 - `embed_audio` and the encoder turning TF32 off for fp32 inside the call
   only, and a mixed-dtype call of K2's wrappers raising before any launch.
 The whole fp32 path against JAX is held by tests/test_torch_pipeline.py,
@@ -213,25 +213,21 @@ def _reach(*args, **kwargs):
     raise _Reached
 
 
-def test_serving_and_stage2_take_fp32_on_the_card(monkeypatch):
-    """eval / speed's pipeline and stage 2's check take --dtype float32 for
-    a CUDA device (no card needed: the pipeline stops at a stub past its
-    checks); only KWT_FA_INT8 with fp32 still raises, naming K8."""
-    monkeypatch.delenv("KWT_FA_INT8", raising=False)
+@pytest.mark.parametrize("int8_mode", ["", "qk", "qkpv"])
+def test_serving_and_stage2_take_fp32_on_the_card(monkeypatch, int8_mode):
+    """eval / speed's pipeline and stage 2's rank body take --dtype float32
+    for a CUDA device, also under KWT_FA_INT8 (K8's fp32-q form): both get
+    past their checks to loading the tokenizer (a stub; no card needed)."""
+    monkeypatch.setenv("KWT_FA_INT8", int8_mode)
+    monkeypatch.setattr(common, "load_tokenizer", _reach)
     args = pseudo_label._parser().parse_args(
         ["--dataset_dir", "d", "--output_dir", "o", "--dtype", "float32"])
-    pseudo_label._check_ported(args, CUDA)
-    monkeypatch.setattr(common, "load_tokenizer", _reach)
+    with pytest.raises(_Reached):
+        pseudo_label._run(args, CUDA)
     eval_args = type("Args", (), {"dtype": "float32", "tokenizer": "byte"})()
     with pytest.raises(_Reached):
-        common.serving_pipeline("eval", eval_args, CUDA)
-    monkeypatch.setenv("KWT_FA_INT8", "qk")
-    with pytest.raises(SystemExit, match="K8's fp32-q form"):
-        pseudo_label._check_ported(args, CUDA)
-    with pytest.raises(SystemExit, match="K8's fp32-q form"):
-        common.serving_pipeline("speed", eval_args, CUDA)
-    common.refuse_unported_fp32("speed", "bfloat16", CUDA)
-    common.refuse_unported_fp32("speed", "float32", torch.device("cpu"))
+        common.serving_pipeline(eval_args, CUDA)
+    assert not hasattr(common, "refuse_unported_fp32")
 
 
 def test_create_student_takes_fp32_on_the_card(monkeypatch, tmp_path):
@@ -246,14 +242,27 @@ def test_create_student_takes_fp32_on_the_card(monkeypatch, tmp_path):
 
 
 def test_distill_still_refuses_fp32_naming_k5(monkeypatch):
-    """Training in fp32 needs K5's fp32 form, still to port: both trainers
-    refuse --dtype float32 on the card and name K5 alone."""
-    args = type("Args", (), {"dtype": "float32", "wandb_project": None})()
-    with pytest.raises(SystemExit, match=r"--dtype float32 on the card \(K5's fp32 form\)"):
+    """Training in fp32 on the card runs through K5's fp32 form now: both
+    trainers take --dtype float32 for a CUDA device and get past their
+    checks (distill to loading the student, distill-bilingual to loading
+    its datasets: stubs, no card needed); only --wandb_project refuses."""
+    from kotoba_whisper_tpu_torch.data import shards
+
+    args = distill._parser().parse_args(
+        ["--data_dir", "d", "--student", "s", "--teacher", "t", "--output_dir", "o",
+         "--dtype", "float32"])
+    distill._check_ported(args, CUDA)
+    monkeypatch.setattr(shards, "resolve_split_dirs", lambda spec: [spec])
+    monkeypatch.setattr(common, "load_tokenizer", lambda spec: None)
+    monkeypatch.setattr(common, "load_model", _reach)
+    with pytest.raises(_Reached):
+        distill._run(args, CUDA)
+    args.wandb_project = "p"
+    with pytest.raises(SystemExit, match="--wandb_project is not ported yet"):
         distill._check_ported(args, CUDA)
-    distill._check_ported(args, torch.device("cpu"))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    with pytest.raises(SystemExit, match=r"--dtype float32 on the card \(K5's fp32 form\)"):
+    monkeypatch.setattr(distill_bilingual, "load_datasets", _reach)
+    with pytest.raises(_Reached):
         distill_bilingual.main(["--dataset", "ja:d:transcribe.ja:kl", "--student", "s",
                                 "--teacher", "t", "--output_dir", "o", "--dtype", "float32"])
 

@@ -1374,28 +1374,252 @@ def test_f32_forms_refuse_mixed_dtypes(bad):
 
 @pytest.mark.parametrize("kernel", ["K5", "K6", "K7", "K8"])
 def test_unported_f32_forms_raise(kernel):
-    """The fp32 forms still to port raise on CUDA tensors, naming their
-    kernel, and launch nothing: K5 (the backward), K6 (LayerNorm), K7 (the
-    conv stem) and K8 (the int8 core's fp32 q)."""
-    f32 = torch.float32
+    """The fp32 forms of K5 (the backward), K6 (LayerNorm), K7 (the conv
+    stem) and K8 (the int8 core's fp32 q), once refused, now launch on CUDA
+    tensors: one count each, fp32 out; a call that mixes bf16 and fp32
+    still raises, with no launch."""
+    f32, bf = torch.float32, torch.bfloat16
     q = _randn(1, 64, 2, 64, seed=222, dtype=f32)
-    counters = (fa.flash_attention_bwd.launches, ln.layer_norm.launches, cs.conv_stem.launches,
-                fa.flash_attention_int8.launches)
     if kernel == "K5":
+        o, lse = fa.flash_attention_fwd(q, q, q, causal=True)
+        call, counter = (lambda: fa.flash_attention_bwd(q, q, q, o, lse, q, causal=True)[0],
+                         fa.flash_attention_bwd)
         with pytest.raises(TypeError, match="K5"):
-            fa.flash_attention_bwd(q, q, q, q, torch.zeros(1, 2, 64, device="cuda"), q,
-                                   causal=True)
+            fa.flash_attention_bwd(q, q, q, o, lse, q.to(bf), causal=True)
     elif kernel == "K6":
         w = torch.ones(64, device="cuda")
+        x = _randn(4, 64, seed=223, dtype=f32)
+        call, counter = (lambda: ln.layer_norm(x, w, w)), ln.layer_norm
         with pytest.raises(ValueError, match="K6"):
-            ln.layer_norm(_randn(4, 64, seed=223, dtype=f32), w, w)
+            ln.add_layer_norm(x, x.to(bf), w, w)
     elif kernel == "K7":
         conv1 = torch.nn.Conv1d(80, 64, 3, padding=1, device="cuda")
         conv2 = torch.nn.Conv1d(64, 64, 3, stride=2, padding=1, device="cuda")
+        x = _randn(1, 80, 256, seed=224, dtype=f32)
+        call, counter = (lambda: cs.conv_stem(conv1, conv2, x)), cs.conv_stem
         with pytest.raises(TypeError, match="K7"):
-            cs.conv_stem(conv1, conv2, _randn(1, 80, 256, seed=224, dtype=f32))
+            cs.conv_stem(conv1, conv2, x.half())
     else:
+        call, counter = (lambda: fa.flash_attention_int8(q, q, q, mode="qk")[0],
+                         fa.flash_attention_int8)
         with pytest.raises(TypeError, match="K8"):
-            fa.flash_attention_int8(q, q, q, mode="qk")
-    assert counters == (fa.flash_attention_bwd.launches, ln.layer_norm.launches,
-                        cs.conv_stem.launches, fa.flash_attention_int8.launches)
+            fa.flash_attention_int8(q, q, q.to(bf), mode="qk")
+    before = counter.launches
+    out = call()
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1 and out.dtype == f32
+
+
+# ---------------------------------------------------------------------------
+# The fp32 forms of K5 (csrc/flash_attention_bwd_f32.cu), K6 (fp32 rows of
+# csrc/layer_norm.cu), K7 (csrc/conv_stem_f32.cu) and K8 (the fp32-q kernel
+# of csrc/flash_attention_int8.cu): held to their fp32 twins by relative L2
+# <= 1e-5 and elementwise as above (K5's gradients to 1e-5 of their largest
+# magnitude); K8's quantize pre-pass bit for bit; each replays in a CUDA
+# graph and runs as the first CUDA work of a new thread
+# ---------------------------------------------------------------------------
+
+def _assert_fp32_grad(got, ref, name):
+    assert got.dtype == torch.float32 and got.shape == ref.shape, name
+    torch.testing.assert_close(got, ref, atol=1e-5 * float(ref.abs().max()), rtol=1e-4, msg=name)
+    rel = float((got - ref).norm() / ref.norm())
+    assert rel <= 1e-5, f"{name}: relative L2 error {rel:.3e}"
+
+
+def _k5_f32_inputs(b, tq, tk, h, seed):
+    q, do = (_randn(b, tq, h, 64, seed=seed + i, dtype=torch.float32) for i in (0, 1))
+    k, v = (_randn(b, tk, h, 64, seed=seed + i, dtype=torch.float32) for i in (2, 3))
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("b, tq, tk, h, causal", [
+    (8, 128, 128, 20, True),     # training self-attention shape
+    (8, 128, 1500, 20, False),   # training cross-attention shape
+    (2, 130, 130, 3, True),      # causal, ragged T
+    (1, 70, 1500, 3, False),     # cross, ragged Tq and Tk
+    (2, 65, 300, 2, True),       # causal, Tq < Tk (end-aligned)
+    (1, 3, 3, 1, True),          # tiny (one key alone gives dQ = dK = 0 exactly)
+])
+def test_flash_attention_backward_f32_kernel(b, tq, tk, h, causal):
+    q, k, v, do = _k5_f32_inputs(b, tq, tk, h, seed=230)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+    before = fa.flash_attention_bwd.launches
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bwd.launches == before + 1
+    ref = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, causal=causal)
+    for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+        _assert_fp32_grad(g, r, name)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_backward_f32_reads_fused_projections_in_place(causal):
+    """fp32 q, k and v as column blocks of a fused qkv (causal) or of a q
+    and a fused kv (cross) projection, at their strides: equal to K5 on
+    copies (no atomics: bit for bit) and to the twin."""
+    b, h = 2, 4
+    f32 = torch.float32
+    if causal:
+        tq = tk = 130
+        q, k, v = (x.reshape(b, tq, h, 64)
+                   for x in _randn(b, tq, 3 * h * 64, seed=240, dtype=f32).chunk(3, -1))
+    else:
+        tq, tk = 128, 1500
+        q = _randn(b, tq, h, 64, seed=241, dtype=f32)
+        k, v = (x.reshape(b, tk, h, 64)
+                for x in _randn(b, tk, 2 * h * 64, seed=242, dtype=f32).chunk(2, -1))
+    do = _randn(b, tq, h, 64, seed=243, dtype=f32)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    copies = fa.flash_attention_bwd(q.contiguous(), k.contiguous(), v.contiguous(), o, lse, do,
+                                    causal=causal)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, c) for g, c in zip(got, copies))
+    ref = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, causal=causal)
+    for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+        _assert_fp32_grad(g, r, name)
+
+
+def test_flash_attention_f32_autograd_on_card():
+    """FlashAttention in fp32 (K4's and K1's fp32 forms forward, K5's fp32
+    form backward) against autograd of the plain twin."""
+    for causal, tk in ((True, 96), (False, 300)):
+        q = _randn(2, 96, 4, 64, seed=244, dtype=torch.float32).requires_grad_()
+        k, v = (_randn(2, tk, 4, 64, seed=s, dtype=torch.float32).requires_grad_()
+                for s in (245, 246))
+        do = _randn(2, 96, 4, 64, seed=247, dtype=torch.float32)
+        if causal:
+            fa.flash_attention(q, k, v, causal=True).backward(do)
+        else:
+            fa.FlashAttention.apply(q, k, v, False).backward(do)
+        got = [t.grad for t in (q, k, v)]
+        q2, k2, v2 = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        fa.flash_attention_reference(q2, k2, v2, causal=causal)[0].backward(do)
+        for name, g, t in zip(("dq", "dk", "dv"), got, (q2, k2, v2)):
+            _assert_fp32_grad(g, t.grad, name)
+
+
+@pytest.mark.parametrize("mode", ["qk", "qkpv"])
+@pytest.mark.parametrize("b, tq, tk, h", [(2, 1500, 1500, 20), (1, 70, 130, 3), (3, 64, 1, 2),
+                                          (2, 128, 1500, 4)])
+def test_int8_attention_f32_kernel(mode, b, tq, tk, h):
+    """K8's fp32-q form: O and the LSE against the twin on the twin
+    quantizers' codes (qkpv: p = expf of the twin's difference, so p8 takes
+    the twin's codes), and its pre-pass codes bit for bit."""
+    f32 = torch.float32
+    q = _randn(b, tq, h, 64, seed=250, dtype=f32)
+    k, v = (_randn(b, tk, h, 64, seed=s, dtype=f32) for s in (251, 252))
+    pv8 = mode == "qkpv"
+    before = fa.flash_attention_int8.launches
+    o, lse = fa.flash_attention_int8(q, k, v, mode=mode)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_int8.launches == before + 1
+    k8, ks = fa.quantize_k_rows(k)
+    v_in, vs = fa.quantize_v_cols(v) if pv8 else (v, None)
+    ro, rlse = fa.flash_attention_int8_reference(q, k8, ks, v_in, vs, pv8)
+    _assert_fp32(o, ro)
+    torch.testing.assert_close(lse, rlse, atol=1e-5, rtol=1e-6)
+    for part, g, w in zip(("k8", "ks", "v8t", "vs"), fa.int8_prepass(q, k, v, mode=mode),
+                          fa.int8_prepass_reference(k, v, pv8)):
+        assert (g is None) == (w is None), part
+        assert w is None or torch.equal(g, w), part
+
+
+@pytest.mark.parametrize("shape", [(16 * 1500, 1280), (7, 512), (3, 2048), (5, 8)])
+@pytest.mark.parametrize("w_dtype", [torch.bfloat16, torch.float32])
+def test_layer_norm_f32_kernel(shape, w_dtype):
+    """K6 on fp32 rows with bf16 or fp32 weights: the LayerNorm against the
+    twin, the fused add's sum equal to x + y bit for bit."""
+    f32 = torch.float32
+    x = _randn(*shape, seed=253, dtype=f32) * 3 + 1
+    y = _randn(*shape, seed=254, dtype=f32)
+    w = (1 + 0.1 * _randn(shape[1], seed=255, dtype=f32)).to(w_dtype)
+    bias = (0.1 * _randn(shape[1], seed=256, dtype=f32)).to(w_dtype)
+    out = ln.layer_norm(x, w, bias)
+    _assert_fp32(out, ln.layer_norm_reference(x, w, bias))
+    summed, out = ln.add_layer_norm(x, y, w, bias)
+    torch.cuda.synchronize()
+    assert torch.equal(summed, x + y)
+    _assert_fp32(out, ln.add_layer_norm_reference(x, y, w, bias)[1])
+
+
+@pytest.mark.parametrize("b, t, n_mels, d", [(2, 3000, 128, 1280), (1, 256, 80, 64),
+                                             (3, 130, 20, 36)])
+def test_conv_stem_f32_kernel(b, t, n_mels, d):
+    """K7's fp32 form against the twin (fp32 sums in another order, erff
+    against torch.erf), ragged row and column tiles, tiles across batch
+    elements."""
+    conv1 = torch.nn.Conv1d(n_mels, d, 3, padding=1, device="cuda")
+    conv2 = torch.nn.Conv1d(d, d, 3, stride=2, padding=1, device="cuda")
+    x = _randn(b, n_mels, t, seed=257, dtype=torch.float32)
+    before = cs.conv_stem.launches
+    with torch.no_grad():
+        got = cs.conv_stem(conv1, conv2, x)
+        torch.cuda.synchronize()
+        assert cs.conv_stem.launches == before + 1 and got.shape == (b, t // 2, d)
+        _assert_fp32(got, cs.conv_stem_reference(conv1.weight, conv1.bias, conv2.weight,
+                                                 conv2.bias, x))
+
+
+def _f32_form_call(form):
+    """A call of one new fp32 form at a small shape, and the tensor whose
+    in-place change a replay must see."""
+    f32 = torch.float32
+    if form == "K5":
+        q, k, v, do = _k5_f32_inputs(2, 128, 300, 4, seed=260)
+        o, lse = fa.flash_attention_fwd(q, k, v)
+        return (lambda: torch.cat([g.flatten() for g in
+                                   fa.flash_attention_bwd(q, k, v, o, lse, do, causal=False)])), do
+    if form in ("K8qk", "K8qkpv"):
+        q = _randn(2, 300, 4, 64, seed=261, dtype=f32)
+        k, v = (_randn(2, 300, 4, 64, seed=s, dtype=f32) for s in (262, 263))
+        return (lambda: fa.flash_attention_int8(q, k, v, mode=form[2:])[0]), q
+    if form == "K6":
+        x = _randn(300, 1280, seed=264, dtype=f32)
+        w = torch.ones(1280, device="cuda")
+        return (lambda: ln.add_layer_norm(x, x, w, w)[1]), x
+    conv1 = torch.nn.Conv1d(80, 64, 3, padding=1, device="cuda")
+    conv2 = torch.nn.Conv1d(64, 64, 3, stride=2, padding=1, device="cuda")
+    x = _randn(2, 80, 300, seed=265, dtype=f32)
+    return (lambda: cs.conv_stem(conv1, conv2, x)), x
+
+
+@pytest.mark.parametrize("form", ["K5", "K6", "K7", "K8qk", "K8qkpv"])
+def test_new_f32_forms_replay_in_a_cuda_graph(form):
+    """Each new fp32 form allocates only its outputs and scratch and
+    launches on the current stream: a CUDA graph of it replays to the eager
+    result bit for bit, also after its input changes in place."""
+    with torch.no_grad():
+        call, x = _f32_form_call(form)
+        call()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = call()
+        graph.replay()
+        want = call()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+        x.copy_(_randn(*x.shape, seed=266, dtype=torch.float32))
+        graph.replay()
+        want = call()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("form", ["K5", "K6", "K7", "K8qk", "K8qkpv"])
+def test_new_f32_forms_first_call_in_a_new_thread(form):
+    """Each new fp32 form as the first CUDA work of a fresh thread (as in
+    autograd's backward thread): it launches there and equals the call on
+    this thread."""
+    with torch.no_grad():
+        call, _ = _f32_form_call(form)
+        want = call()
+        torch.cuda.synchronize()
+        got = []
+        thread = threading.Thread(target=lambda: got.append(call()))
+        thread.start()
+        thread.join()
+        assert got, f"{form} raised in the new thread"
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want)

@@ -266,9 +266,10 @@ def test_bilingual_driver_matches_jax(bilingual_data, tmp_path, capsys):
 
 
 def test_bilingual_driver_rejects_bad_specs(bilingual_data, tmp_path, monkeypatch):
-    """A spec whose last field is not kl/nokl, a batch larger than a
-    dataset, and --dtype float32 on the card (checked before any card
-    work) each raise."""
+    """A spec whose last field is not kl/nokl and a batch larger than a
+    dataset each raise; --dtype float32 on the card (K5's fp32 form) does
+    not: the driver reads its datasets and stops at loading the student (a
+    stub; no card needed)."""
     from kotoba_whisper_tpu_torch.cli import distill_bilingual as port_driver
 
     root, specs = bilingual_data
@@ -278,6 +279,16 @@ def test_bilingual_driver_rejects_bad_specs(bilingual_data, tmp_path, monkeypatc
                          + ["--device", "cpu"])
     with pytest.raises(SystemExit, match="smaller than the per-dataset batch"):
         port_driver.main(args + ["--device", "cpu", "--per_dataset_batch_size", "7"])
+    from kotoba_whisper_tpu_torch.cli import common
+
+    class Reached(Exception):
+        pass
+
+    def load_model(spec, dev, dtype, **kw):
+        assert (dev.type, dtype) == ("cuda", torch.float32)
+        raise Reached
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    with pytest.raises(SystemExit, match="--dtype float32 on the card"):
+    monkeypatch.setattr(common, "load_model", load_model)
+    with pytest.raises(Reached):
         port_driver.main(args)

@@ -156,6 +156,90 @@ def test_kernel_walk_matches_the_pallas_stem(b, t, c_in, d):
     np.testing.assert_allclose(got, ref, atol=1e-5, rtol=1e-5)
 
 
+def _stem_f32_as_the_kernel_walks_it(x, conv1, conv2):
+    """fp64 emulation of K7's fp32 form: per conv, the 128 x 128 output
+    tiles of `stem_f32_grids` over the flattened (batch, frame) rows, K
+    steps of 16 channels of one tap (taps outer, channels past C_in zero),
+    each A element at the kernel's own index arithmetic (row m is frame
+    m % t_out of batch element m // t_out, read at input frame stride * i
+    + tap - 1, zero outside [0, T)), the fp32 tap-major weights of
+    `tap_major_weights`, bias and exact-erf GELU."""
+    b, c_in, t = x.shape
+    w1p, b1, w2p, b2 = (p.double().numpy() for p in cs.tap_major_weights(
+        conv1.weight, conv1.bias, conv2.weight, conv2.bias, torch.float32))
+    d = w1p.shape[0]
+    src = x.double().numpy()                                     # (B, C, T): element (b, c, t)
+    grids = cs.stem_f32_grids(b, t, d)
+    for stride, w, bias, (n_nt, n_mt), read in (
+            (1, w1p, b1, grids[0], lambda a, bb, tt, cc: a[bb, cc, tt]),
+            (2, w2p, b2, grids[1], lambda a, bb, tt, cc: a[bb, tt, cc])):
+        c = src.shape[1] if stride == 1 else src.shape[2]
+        t_out = t // stride
+        out = np.full((b * t_out, d), np.nan)
+        for mt in range(n_mt):
+            m = np.arange(mt * cs.F32_TILE_M, (mt + 1) * cs.F32_TILE_M)[:, None]
+            bb, i = m // t_out, m % t_out
+            for nt in range(n_nt):
+                n = np.arange(nt * cs.F32_TILE_N, (nt + 1) * cs.F32_TILE_N)
+                acc = np.zeros((cs.F32_TILE_M, cs.F32_TILE_N))
+                for tap in range(3):
+                    tt = stride * i + tap - 1
+                    for c0 in range(0, c, 16):
+                        cc = np.arange(c0, c0 + 16)[None, :]
+                        ok = (m < b * t_out) & (cc < c) & (tt >= 0) & (tt < t)
+                        a = np.where(ok, read(src, np.where(ok, bb, 0), np.where(ok, tt, 0),
+                                              np.where(ok, cc, 0)), 0.0)
+                        wok = (n[None, :] < d) & (cc.T < c)
+                        wt = np.where(wok, w[np.minimum(n, d - 1)][:, tap][:, np.minimum(
+                            cc[0], c - 1)].T, 0.0)
+                        acc += a @ wt
+                rows, cols = m[m < b * t_out], n[n < d]
+                out[rows[:, None], cols[None, :]] = _gelu(
+                    acc[:len(rows), :len(cols)] + bias[cols])
+        assert not np.isnan(out).any()
+        src = out.reshape(b, t_out, d)
+    return src
+
+
+@pytest.mark.parametrize("b, t, c_in, d", [(2, 256, 80, 64), (3, 130, 20, 36), (1, 262, 72, 132)])
+def test_f32_walk_matches_the_twin_and_the_pallas_stem(b, t, c_in, d):
+    """K7's fp32 form in its order, fp64, against the plain twin in fp32
+    (1e-5) and the JAX package's Pallas stem in interpret mode on fp32
+    inputs (1e-5: its rational erf is within 1.5e-7), with row tiles across
+    batch elements, ragged row and column tiles and K steps past C."""
+    conv1, conv2, (j1, j2) = _convs(b * t + d, c_in, d)
+    x = (np.random.default_rng(t).standard_normal((b, c_in, t)) * 0.3).astype(np.float32)
+    with torch.no_grad():
+        got = _stem_f32_as_the_kernel_walks_it(torch.from_numpy(x), conv1, conv2)
+        twin = cs.conv_stem_reference(conv1.weight, conv1.bias, conv2.weight, conv2.bias,
+                                      torch.from_numpy(x))
+    assert got.shape == twin.shape == (b, t // 2, d)
+    np.testing.assert_allclose(got, twin.numpy(), atol=1e-5, rtol=1e-5)
+    ref = np.asarray(conv_stem_pallas(j1, j2, jnp.asarray(x), interpret=True))
+    np.testing.assert_allclose(got, ref, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("b, t, d", [(16, 3000, 1280), (1, 2, 8), (3, 130, 36)])
+def test_f32_grids_cover_every_tile(b, t, d):
+    """conv1's and conv2's grids cover every flattened (batch, frame) row
+    and every channel, with no tile wholly past either."""
+    for (n_nt, n_mt), rows in zip(cs.stem_f32_grids(b, t, d), (b * t, b * (t // 2))):
+        assert (n_mt - 1) * cs.F32_TILE_M < rows <= n_mt * cs.F32_TILE_M
+        assert (n_nt - 1) * cs.F32_TILE_N < d <= n_nt * cs.F32_TILE_N
+
+
+def test_tap_major_weights_in_fp32_are_cached_apart():
+    """The fp32 form's tap-major copies are fp32 (the weights as they are,
+    no bf16 rounding), cached apart from the bf16 ones."""
+    conv1, conv2, _ = _convs(3, 16, 24)
+    ws = (conv1.weight, conv1.bias, conv2.weight, conv2.bias)
+    f32 = cs.tap_major_weights(*ws, torch.float32)
+    bf = cs.tap_major_weights(*ws)
+    assert f32[0].dtype == torch.float32 and bf[0].dtype == torch.bfloat16
+    assert torch.equal(f32[0], conv1.weight.detach().permute(0, 2, 1))
+    assert cs.tap_major_weights(*ws, torch.float32)[0] is f32[0]
+
+
 def test_tap_major_weights_are_the_jax_wrapper_layout():
     """conv2's taps 0 and 1 stacked are the JAX wrapper's vv01 = [v0; v1]
     and tap 2 its v[2], transposed to K7's (C_out, tap, C_in) rows; conv1's

@@ -61,6 +61,16 @@ def test_stem_exp_runs(capsys):
     assert share["mismatch_max"] < 0.05
 
 
+def test_stem_exp_runs_in_fp32(capsys):
+    """--dtype float32: every variant on an fp32 model (stem_pallas through
+    K7's fp32 form on the card, its twin here), the two formulations as
+    close as fp32 keeps them."""
+    lines = stem_exp.main(["--trials", "1", "--dtype", "float32", *TINY])
+    assert _lines(capsys) == lines
+    share = lines[-1]
+    assert share["dtype"] == "float32" and share["mismatch_max"] < 1e-4
+
+
 def test_tools_raise_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for run in (lambda: enc_exp.main(["--variant", "baseline", "--preset", "test-tiny"]),
