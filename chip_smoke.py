@@ -43,7 +43,13 @@ Phases, in order; any failure exits nonzero and prints no result line:
      TF32 off beside it), each held to its fp32 twin by relative L2 <= 1e-5
      above a control >= 1e-2 (a dropped key tile; K6: a 64-column chunk
      not written; K7: conv1's first tap skipped), the library call on the
-     same fp32 tensors beside it with its kernel named;
+     same fp32 tensors beside it with its kernel named; the JAX package's
+     switches at the encoder's shape: K1's no-max form (KWT_FA_NOMAX) and
+     K1 under KWT_FA_EXP2 (its own kernel, held to the exp2 twin), bf16
+     and fp32, and K8's no-max forms, qk and qkpv, bf16 and fp32 q (their
+     pre-pass's key bounds bit for bit), each no-max form also on
+     fa.no_max_witness: rows past their max by >= 110 read 0 in kernel and
+     twin alike, and the max-based twin reads >= 0.5 away from both;
   4. main path: large-v3 width and depth with seeded random weights, bf16,
      int8 KV, B=16, 48 new tokens with eot disabled:
      log_mel_spectrogram -> generate_greedy, with launch counters checked;
@@ -83,7 +89,10 @@ Phases, in order; any failure exits nonzero and prints no result line:
      printed, six rows of four durations;
   4d. encoder variants at B=16 on the fused model: default, the fused stem
      (K7), KWT_FA_INT8=qk and qkpv (K8 in place of K1), enc_exp's fused_ln
-     (K6), each with its time, rel-L2 against the default and launches;
+     (K6), KWT_FA_NOMAX=1, KWT_FA_EXP2=1 and KWT_FA_NOMAX=1 with
+     KWT_FA_INT8=qk and qkpv, each with its time, rel-L2 against the
+     default (for the switches a reading), launches and C entries; the
+     switches' kernel path also against their plain path at B=2;
   4e. stream-real (the JAX bench's headline): continuous-batching greedy
      decode of 192 synthetic 30 s windows, window 48, refills of 16, int8
      KV, budgets from bench.py's ReazonSpeech length fit, eot disabled, mel
@@ -100,8 +109,9 @@ Phases, in order; any failure exits nonzero and prints no result line:
      seeded random large-v3 teacher, B=8 x 128 labels, bf16 compute on fp32
      master weights: one warm-up step and 3 timed steps with launch
      counters checked; frozen encoder unchanged, decoder moved; at B=2 the
-     kernel path against the plain path (loss and decoder gradients); one
-     B=16 step in 2 microbatches; then the bilingual trainer's step (5c's
+     kernel path against the plain path (loss and decoder gradients), and
+     again under KWT_FA_NOMAX=1 (every K1 call through its no-max form,
+     K5 on its LSE); one B=16 step in 2 microbatches; then the bilingual trainer's step (5c's
      timed step): 2 datasets x B=4 x 128 labels, KL on the first, launches
      checked, at B=2 the kernel path against the plain path;
   4j. the int4 KV cache (packed int4 cross K/V, int8 self K/V, bf16
@@ -123,7 +133,8 @@ Phases, in order; any failure exits nonzero and prints no result line:
      greedy tokens equal (beside a witness: the encoder with the model's
      TF32 guard bypassed); (f) 4d's encoder variants on this model (the
      K7 stem, K8 under KWT_FA_INT8=qk and qkpv, enc_exp's fused_ln through
-     K6), each with its time, launches and rel-L2 against the default;
+     K6, the switches), each with its time, launches and rel-L2 against
+     the default;
      audio-s/s and the fp32 cross cache's bytes;
   4b-f32. (after 4i(a)) 4b's step in fp32: a seeded fp32 large-v3 teacher
      and its 32+2-layer student, B=8 x 128 labels, one warm-up step (its
@@ -152,7 +163,7 @@ Phases, in order; any failure exits nonzero and prints no result line:
      KWT_FA_INT8=qk, then --streaming, then --num_beams 3, then
      --streaming --num_beams 3, then --dtype float32 in lockstep, with
      --streaming, with --num_beams 3 and under KWT_FA_INT8=qk (K8's fp32-q
-     form); then through `python -m
+     form), then lockstep under KWT_FA_NOMAX=1; then through `python -m
      kotoba_whisper_tpu_torch`: filter on the labels with --skip_filtering
      (K3 on the card) and with the WER gate, merge of the two chunks;
   5b. create-student (4-layer encoder at large-v3 width) -> distill 2
@@ -183,7 +194,8 @@ Phases, in order; any failure exits nonzero and prints no result line:
      records: rank 0 of 4i(b); the int4 cache's records: 4j (a) prefix, (b)
      beam, (c) ring; the fp32 records: 4k (a) K1 and prefix, (b) beam, (c)
      ring, (f) K6-K8, 5b's create-student --dtype float32 for K4, and the
-     3 timed steps of 4b-f32 for K5) and its
+     3 timed steps of 4b-f32 for K5; the switches' records: 4d's and
+     4k(f)'s switch variants) and its
      numbers, K1, K2 and K3 also with their launches in 4h's 300 s call of
      large-v3 (a), K2's beam form in 4h's beam call (`serving_launches`);
   7. the last line: {"ok": true, "device": {...}}.
@@ -373,7 +385,9 @@ def every_count():
             "K4": fa.flash_attention_fwd.causal_launches,
             "K5": fa.flash_attention_bwd.launches, "K6ln": ln.layer_norm.launches,
             "K6add": ln.add_layer_norm.launches, "K7": cs.conv_stem.launches,
-            "K8": fa.flash_attention_int8.launches, "K9": vpu_cal.vpu_cal.launches}
+            "K8": fa.flash_attention_int8.launches, "K9": vpu_cal.vpu_cal.launches,
+            "K1nomax": fa.flash_attention_fwd.nomax_launches,
+            "K8nomax": fa.flash_attention_int8.nomax_launches}
 
 
 def reset_every():
@@ -390,6 +404,27 @@ def reset_every():
         fn.launches = 0
     fa.flash_attention_fwd.causal_launches = 0
     da.decode_attention.ring_launches = 0
+    fa.flash_attention_fwd.nomax_launches = fa.flash_attention_int8.nomax_launches = 0
+
+
+@contextlib.contextmanager
+def counting_entries():
+    """Counts, by name, the C entries the wrappers look up inside the
+    block: one a launch (the no-max and fp32 forms have entries of their
+    own). -> the dict of counts."""
+    from kotoba_whisper_tpu_torch.ops import _build
+
+    entries, real = {}, _build.function
+
+    def counted(name, fn):
+        entries[fn] = entries.get(fn, 0) + 1
+        return real(name, fn)
+
+    _build.function = counted
+    try:
+        yield entries
+    finally:
+        _build.function = real
 
 
 def card_memory() -> str:
@@ -1296,6 +1331,124 @@ def main() -> int:
     del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
 
+    # The no-max forms (KWT_FA_NOMAX) and K1 under KWT_FA_EXP2. On random
+    # inputs a no-max form and its max-based one agree to rounding, so each
+    # no-max form is also held on fa.no_max_witness (B=2, T=1500, 20 heads):
+    # odd rows >= 110 past their max (every p underflows: O = 0 in the twin
+    # and, through the card's flush-to-zero ex2, in the kernel), even rows
+    # at it, none in the 69-103 band where the card's ex2 and the twin's exp
+    # part; the kernel within the record's bar of the no-max twin, the zero
+    # rows equal, and the max-based twin >= 0.5 away from both, which a
+    # kernel that ignored the switch would not be.
+    witness_inputs = {}
+
+    def witness_check(label, dtype, mode, rel_tol):
+        if dtype not in witness_inputs:
+            wq, wk, wv = (x.to("cuda", dtype) for x in fa.no_max_witness(2, t_enc, h, seed=7))
+            slack = fa.no_max_slack(wq, wk)
+            if not (float(slack[..., 1::2].min()) >= 110 and float(slack[..., 0::2].max()) <= 60):
+                raise AssertionError(f"the no-max witness's rows are not in their classes: "
+                                     f"odd min {float(slack[..., 1::2].min())}, even max "
+                                     f"{float(slack[..., 0::2].max())}")
+            witness_inputs[dtype] = (wq, wk, wv)
+        wq, wk, wv = witness_inputs[dtype]
+        got = fa.flash_attention_fwd(wq, wk, wv, int8_mode=mode, no_max=True)[0]
+        twin = fa.flash_attention_fwd_reference(wq, wk, wv, int8_mode=mode, no_max=True)[0]
+        max_twin = fa.flash_attention_fwd_reference(wq, wk, wv, int8_mode=mode, no_max=False)[0]
+        zeros = (int((got[:, 1::2] == 0).all(-1).sum()), int((twin[:, 1::2] == 0).all(-1).sum()))
+        n_odd = got[:, 1::2, :, 0].numel()
+        rel_k = compare(got, twin)[1]
+        apart = min(compare(max_twin, got)[1], compare(max_twin, twin)[1])
+        ok = zeros == (n_odd, n_odd) and rel_k <= rel_tol and apart >= 0.5
+        log(f"[kernel] {label} on the no-max witness: rel_l2 {rel_k:.3e} (tol {rel_tol:g}), zero "
+            f"rows kernel {zeros[0]} / twin {zeros[1]} of {n_odd}, max-based twin {apart:.3f} "
+            f"away (min 0.5) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{label}: the no-max witness fails")
+        return {"witness_rel_l2": rel_k, "witness_max_based_rel_l2": apart}
+
+    # K1 no-max and K1 under exp2 at the encoder's shape, bf16; exp2 is K1's
+    # own kernel (its ex2 after one FFMA is the exp2 branch's arithmetic),
+    # held to the exp2 twin
+    q, k, v = (randn(B, t_enc, h, 64, seed=s) for s in (75, 76, 77))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    for form, kw, key, line in (("no-max", dict(no_max=True), "K1nomax", 115),
+                                ("exp2", dict(exp2=True), "K1exp2", 99)):
+        o, lse = fa.flash_attention_fwd(q, k, v, **kw)
+        ro, rlse = fa.flash_attention_reference(q, k, v, **kw)
+        lse_err = float((lse - rlse).abs().max())
+        if lse_err > 1e-3:
+            raise AssertionError(f"K1 {form} LSE disagrees: {lse_err}")
+
+        def call():
+            return fa.flash_attention_fwd(q, k, v, **kw)
+
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt)
+
+        record(
+            f"K1 flash_attention_fwd {form} (B={B}, T={t_enc}, H={h}, D=64, bf16)",
+            "kotoba_whisper_tpu_torch/csrc/flash_attention_sm90.cu",
+            f"kotoba_whisper_tpu/ops/flash_attention.py:{line}", compare(o, ro), 5e-3,
+            time_ms(call), time_ms(lambda: fa.flash_attention_reference(q, k, v, **kw)),
+            time_ms(library),
+            bound(4.0 * B * h * t_enc * t_enc * 64, bf16_rate, nbytes(q, k, v, o, lse), mem_rate,
+                  exp_s=B * h * t_enc * t_enc / exp_rate),
+            key=key, device_ms=graph_ms(call), library_device_ms=graph_ms(library),
+            host_us=host_us(call), library_host_us=host_us(library),
+            **(witness_check(f"K1 {form}", torch.bfloat16, "", REL_L2_TOL)
+               if form == "no-max" else {}))
+        del o, lse, ro, rlse
+    del q, k, v, qt, kt, vt
+
+    # K8 no-max, qk and qkpv, bf16: its pre-pass also writes each key's ks
+    # ||k8|| and their max (held bit for bit to the twin), qkpv in one pass
+    q, k, v = (randn(B, t_enc, h, 64, seed=s) for s in (78, 79, 80))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    for mode in ("qk", "qkpv"):
+        pv8 = mode == "qkpv"
+        got = fa.int8_prepass(q, k, v, mode=mode, no_max=True)
+        want = fa.int8_prepass_reference(k, v, pv8, no_max=True)
+        for part, g, w in zip(("k8", "ks", "v8t", "vs", "kn", "kmax"), got, want):
+            if w is not None and not torch.equal(g, w):
+                raise AssertionError(f"K8 {mode} no-max pre-pass: {part} differs from the twin")
+        del got, want
+        o, lse = fa.flash_attention_int8(q, k, v, mode=mode, no_max=True)
+        ro, rlse = fa.flash_attention_fwd_reference(q, k, v, int8_mode=mode, no_max=True)
+        if float((lse - rlse).abs().max()) > 1e-3:
+            raise AssertionError(f"K8 {mode} no-max LSE disagrees")
+        _, _, scratch = fa._flash_int8_sm90(q, k, v, pv8, no_max=True)
+        pairs = B * h * t_enc * t_enc
+
+        def call():
+            return fa.flash_attention_int8(q, k, v, mode=mode, no_max=True)
+
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt)
+
+        record(
+            f"K8 flash_attention_int8 {mode} no-max (B={B}, T={t_enc}, H={h}, D=64)",
+            "kotoba_whisper_tpu_torch/csrc/flash_attention_int8.cu",
+            "kotoba_whisper_tpu/ops/flash_attention.py:187", compare(o, ro), 5e-3,
+            time_ms(call),
+            time_ms(lambda: fa.flash_attention_fwd_reference(q, k, v, int8_mode=mode,
+                                                             no_max=True)),
+            time_ms(library),
+            bound((4.0 if pv8 else 2.0) * pairs * 64, int8_rate, nbytes(q, k, v, o, lse),
+                  mem_rate, exp_s=pairs / exp_rate,
+                  more_s=0 if pv8 else 2.0 * pairs * 64 / bf16_rate),
+            key=f"K8{mode}nomax", device_ms=graph_ms(call),
+            prepass_device_ms=graph_ms(lambda: fa._flash_int8_sm90(
+                q, k, v, pv8, phases=1, scratch=scratch, no_max=True)),
+            main_device_ms=graph_ms(lambda: fa._flash_int8_sm90(
+                q, k, v, pv8, phases=2, scratch=scratch, no_max=True)),
+            library_device_ms=graph_ms(library), host_us=host_us(call),
+            library_host_us=host_us(library),
+            **witness_check(f"K8 {mode} no-max", torch.bfloat16, mode, REL_L2_TOL))
+        del o, lse, ro, rlse, scratch
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+
     # K9: the calibration loop at the JAX tool's block (512 x 1536 x 64),
     # held to its twin by 1e-4 of the largest sum; no single library call
     # runs this loop
@@ -1348,7 +1501,7 @@ def main() -> int:
         return whisper._dequant(x, scale, torch.float32).float().view(r, t_x, hh, 64).transpose(1, 2)
 
     def f32_record(name, source, replaces, got, ref, control_ref, call, plain, library, bnd,
-                   key):
+                   key, **extra):
         err, rel_err = compare(got, ref)
         control = compare(control_ref, ref)[1]
         backend = sdpa_kernel_name(library)
@@ -1358,7 +1511,7 @@ def main() -> int:
                time_ms(call), time_ms(plain), time_ms(library), bnd, key=key,
                rel_tol=F32_REL_TOL, control=control, library_backend=backend,
                device_ms=graph_ms(call), library_device_ms=lib_dev, library_device_by=lib_by,
-               host_us=host_us(call), library_host_us=host_us(library))
+               host_us=host_us(call), library_host_us=host_us(library), **extra)
 
     f32 = torch.float32
     # K1 fp32: the encoder's self-attention (B=16, T=1500, 20 heads)
@@ -1570,6 +1723,51 @@ def main() -> int:
     del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
 
+    # The fp32 no-max forms (K1, K8 qk and qkpv) and K1 fp32 under exp2 (its
+    # own kernel, held to the exp2 twin), at the encoder's shape, each held
+    # to its fp32 twin above the dropped-tile control, the no-max forms also
+    # on the witness
+    q, k, v = (randn(B, t_enc, h, 64, seed=s, dtype=f32) for s in (81, 82, 83))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    pairs = B * h * t_enc * t_enc
+    for form, mode, kw, key, line in (
+            ("no-max", "", dict(no_max=True), "K1f32nomax", 115),
+            ("exp2", "", dict(exp2=True), "K1f32exp2", 99),
+            ("qk no-max", "qk", dict(no_max=True), "K8qkf32nomax", 187),
+            ("qkpv no-max", "qkpv", dict(no_max=True), "K8qkpvf32nomax", 187)):
+
+        def twin(kk=k, vv=v, mode=mode, kw=kw):
+            return fa.flash_attention_fwd_reference(q, kk, vv, int8_mode=mode, **kw)
+
+        def call(mode=mode, kw=kw):
+            return fa.flash_attention_fwd(q, k, v, int8_mode=mode, **kw)
+
+        o, lse = call()
+        ro, rlse = twin()
+        if float((lse - rlse).abs().max()) > 1e-5 * max(1.0, float(rlse.abs().max())):
+            raise AssertionError(f"fp32 {form} LSE disagrees")
+        if mode:
+            name = f"K8 flash_attention_int8 {form} fp32 q (B={B}, T={t_enc}, H={h}, D=64)"
+            source = "kotoba_whisper_tpu_torch/csrc/flash_attention_int8.cu"
+            bnd = bound((4.0 if mode == "qkpv" else 2.0) * pairs * 64, int8_rate,
+                        nbytes(q, k, v, o, lse), mem_rate, exp_s=pairs / exp_rate,
+                        more_s=0 if mode == "qkpv" else 2.0 * pairs * 64 / fp32_rate)
+        else:
+            name = f"K1 flash_attention_fwd {form} fp32 (B={B}, T={t_enc}, H={h}, D=64)"
+            source = "kotoba_whisper_tpu_torch/csrc/flash_attention_f32.cu"
+            bnd = bound(4.0 * pairs * 64, fp32_rate, nbytes(q, k, v, o, lse), mem_rate,
+                        exp_s=pairs / exp_rate)
+        f32_record(
+            name, source, f"kotoba_whisper_tpu/ops/flash_attention.py:{line}", o, ro,
+            twin(k[:, 64:], v[:, 64:])[0], call, twin,
+            lambda: F.scaled_dot_product_attention(qt, kt, vt), bnd, key,
+            **(witness_check(f"{name.split(' (')[0]}", f32, mode, F32_REL_TOL)
+               if "no-max" in form else {}))
+        del o, lse, ro, rlse
+    del q, k, v, qt, kt, vt
+    witness_inputs.clear()
+    torch.cuda.empty_cache()
+
     # K6 fp32 rows (csrc/layer_norm.cu) over the encoder's (B*1500, 1280),
     # fp32 weights: LayerNorm and the fused add (its sum bit for bit);
     # control: the twin with one 64-column chunk of each row not written
@@ -1723,8 +1921,9 @@ def main() -> int:
     def plain_path():
         saved = (whisper.flash_attention, whisper.decode_attention,
                  whisper.decode_attention_beam, mel.log_mel_frames)
-        whisper.flash_attention = (
-            lambda q, k, v, causal=False: fa.flash_attention_reference(q, k, v, causal)[0])
+        whisper.flash_attention = (  # the twin of the form the switches select
+            lambda q, k, v, causal=False: fa.flash_attention_fwd_reference(
+                q, k, v, causal=causal)[0])
         whisper.decode_attention = da.decode_attention_reference
         whisper.decode_attention_beam = da.decode_attention_reference_beam
         mel.log_mel_frames = mel.log_mel_frames_reference
@@ -1801,6 +2000,67 @@ def main() -> int:
                 raise AssertionError(f"{label}: kernel path disagrees with the plain path")
 
     kernel_vs_plain(model, "main", enc_tol=2e-2)
+
+    def switch_variants(encode, feats):
+        """The encoder under the JAX package's switches: KWT_FA_NOMAX (K1's
+        no-max form), KWT_FA_EXP2 (K1 as it is), and KWT_FA_NOMAX with
+        KWT_FA_INT8=qk and qkpv (K8's no-max forms); their launches and C
+        entries (a layer's attention one each)."""
+        n = large.encoder_layers
+        return (("KWT_FA_NOMAX=1", {"KWT_FA_NOMAX": "1"}, lambda: encode(feats),
+                 {"K1": n, "K1nomax": n}),
+                ("KWT_FA_EXP2=1", {"KWT_FA_EXP2": "1"}, lambda: encode(feats), {"K1": n}),
+                ("KWT_FA_NOMAX=1 KWT_FA_INT8=qk", {"KWT_FA_NOMAX": "1", "KWT_FA_INT8": "qk"},
+                 lambda: encode(feats), {"K8": n, "K8nomax": n}),
+                ("KWT_FA_NOMAX=1 KWT_FA_INT8=qkpv", {"KWT_FA_NOMAX": "1", "KWT_FA_INT8": "qkpv"},
+                 lambda: encode(feats), {"K8": n, "K8nomax": n}))
+
+    def encoder_variants(phase, m, feats, variants, tol):
+        """Each variant: a warm-up, one timed run (its launches and C
+        entries), its rel-L2 against the first (default) variant, held to
+        `tol` (the int8 forms, which round every score of 32 layers, to 0.1);
+        the switch variants' rel-L2 is a reading (the no-max forms may zero
+        rows the default keeps, JAX's fault), and at B=2 their kernel path
+        is held to their plain path (the switches' twins) by the same bars.
+        -> launches by variant."""
+        found, default = {}, None
+        for label, env, fn, expect_n in variants:
+            os.environ.update(env)
+            try:
+                fn()  # warm-up
+                reset_every()
+                with counting_entries() as entries:
+                    out, ms = timed(fn)
+                counts = nonzero(every_count())
+                switch = "KWT_FA_NOMAX" in env or "KWT_FA_EXP2" in env
+                if switch:
+                    with torch.inference_mode():
+                        enc_k = whisper.encode(m, feats[:2])
+                        with plain_path():
+                            enc_p = whisper.encode(m, feats[:2])
+                    vs_plain = rel(enc_k, enc_p)
+            finally:
+                for key in env:
+                    os.environ.pop(key)
+            found[label] = counts
+            out = out.float()
+            if default is None:
+                default = out
+            drift = rel(out, default)
+            bar = 0.1 if "INT8" in label else tol
+            log(f"[{phase}] encoder {label}: {ms:.2f} ms, rel-L2 vs default {drift:.3e}"
+                f"{' (a reading)' if switch else ''}, launches {counts}, C entries {entries}"
+                + (f"; B=2 kernel vs plain path rel-L2 {vs_plain:.3e} (tol {bar:g})"
+                   if switch else "") + f" [{card}]")
+            # the no-max forms through their own C entries only
+            entries_ok = not env.get("KWT_FA_NOMAX") or (
+                all(e.endswith("_nomax") for e in entries)
+                and sum(entries.values()) == large.encoder_layers)
+            if counts != expect_n or not entries_ok or not bool(torch.isfinite(out).all()) or (
+                    vs_plain > bar if switch else drift > bar):
+                raise AssertionError(f"{phase} {label}: launches {counts} (expected {expect_n}), "
+                                     f"rel-L2 {vs_plain if switch else drift}")
+        return found
 
     # ---- 4c. fused + w8a8 main path ----------------------------------------
     fuse_for_inference(model)  # lossless; phase 4d runs on this model
@@ -2157,31 +2417,10 @@ def main() -> int:
          {"K8": 32}),
         ("enc_exp fused_ln", {}, lambda: enc_exp.encode_fused_ln(model, feats16),
          {"K1": 32, "K6ln": 33, "K6add": 32}),
+        *switch_variants(lambda x: whisper.encode(model, x), feats16),
     )
-    enc_launches, enc_default = {}, None
-    for label, env, fn, expect_n in enc_variants:
-        os.environ.update(env)
-        try:
-            fn()  # warm-up
-            reset_every()
-            out, ms = timed(fn)
-            counts = nonzero(every_count())
-        finally:
-            for key in env:
-                os.environ.pop(key)
-        enc_launches[label] = counts
-        out = out.float()
-        if enc_default is None:
-            enc_default = out
-        drift = rel(out, enc_default)
-        log(f"[4d] encoder {label}: {ms:.2f} ms, rel-L2 vs default {drift:.3e}, launches "
-            f"{counts} [{card}]")
-        # int8 attention rounds every score of 32 layers: a looser bound
-        if counts != expect_n or not bool(torch.isfinite(out).all()) or drift > (
-                0.1 if "INT8" in label else 2e-2):
-            raise AssertionError(f"4d {label}: launches {counts} (expected {expect_n}), "
-                                 f"rel-L2 {drift}")
-    del feats16, enc_default, out
+    enc_launches = encoder_variants("4d", model, feats16, enc_variants, 2e-2)
+    del feats16
     torch.cuda.empty_cache()
 
     # ---- 4e. stream-real: continuous batching on the fused bf16 model -------
@@ -2648,30 +2887,10 @@ def main() -> int:
          {"K8": 32}),
         ("enc_exp fused_ln", {}, lambda: enc_exp.encode_fused_ln(model32, feats_k),
          {"K1": 32, "K6ln": 33, "K6add": 32}),
+        *switch_variants(lambda x: whisper.encode(model32, x), feats_k),
     )
-    k_enc_launches, k_enc_default = {}, None
-    for label, env, fn, expect_n in k_enc_variants:
-        os.environ.update(env)
-        try:
-            fn()  # warm-up
-            reset_every()
-            out, ms = timed(fn)
-            counts = nonzero(every_count())
-        finally:
-            for key in env:
-                os.environ.pop(key)
-        k_enc_launches[label] = counts
-        out = out.float()
-        if k_enc_default is None:
-            k_enc_default = out
-        drift = rel(out, k_enc_default)
-        log(f"[4k-f] fp32 encoder {label}: {ms:.2f} ms, rel-L2 vs default {drift:.3e}, "
-            f"launches {counts} [{card}]")
-        if counts != expect_n or not bool(torch.isfinite(out).all()) or drift > (
-                0.1 if "INT8" in label else F32_PATH_TOL):
-            raise AssertionError(f"4k(f) {label}: launches {counts} (expected {expect_n}), "
-                                 f"rel-L2 {drift}")
-    del feats_k, k_enc_default, out
+    k_enc_launches = encoder_variants("4k-f", model32, feats_k, k_enc_variants, F32_PATH_TOL)
+    del feats_k
     fp32_launches = {"K1f32": k_counts["a-compute"]["K1"], "K2f32": k_counts["a-compute"]["K2"],
                      "K2f32int8": k_counts["a-int8"]["K2"],
                      "K2beamf32": k_counts["b-compute"]["K2beam"],
@@ -2681,7 +2900,12 @@ def main() -> int:
                      "K8qkf32": k_enc_launches["KWT_FA_INT8=qk"]["K8"],
                      "K8qkpvf32": k_enc_launches["KWT_FA_INT8=qkpv"]["K8"],
                      "K6lnf32": k_enc_launches["enc_exp fused_ln"]["K6ln"],
-                     "K6addf32": k_enc_launches["enc_exp fused_ln"]["K6add"]}
+                     "K6addf32": k_enc_launches["enc_exp fused_ln"]["K6add"],
+                     "K1f32nomax": k_enc_launches["KWT_FA_NOMAX=1"]["K1nomax"],
+                     "K1f32exp2": k_enc_launches["KWT_FA_EXP2=1"]["K1"],
+                     "K8qkf32nomax": k_enc_launches["KWT_FA_NOMAX=1 KWT_FA_INT8=qk"]["K8nomax"],
+                     "K8qkpvf32nomax":
+                         k_enc_launches["KWT_FA_NOMAX=1 KWT_FA_INT8=qkpv"]["K8nomax"]}
     # nothing of the phase stays on the card: a small tensor left in a split
     # block of one of its large segments would keep the whole segment
     del model32, audio32, small, enc_k, lg_k, enc_p, lg_p
@@ -2787,6 +3011,33 @@ def main() -> int:
         f"rel-L2 {grad_rel:.3e} (tol {TRAIN_GRAD_TOL:g})")
     if not (math.isfinite(loss_k) and loss_rel <= TRAIN_LOSS_TOL and grad_rel <= TRAIN_GRAD_TOL):
         raise AssertionError("train kernel path disagrees with the plain path")
+    del grads_k, grads_p
+
+    # the same under KWT_FA_NOMAX: every K1 call of the step (the frozen
+    # encoder, the student's and the teacher's cross-attention) through its
+    # no-max form, K5 on the no-max LSE; the plain path the no-max twin
+    # under autograd; 4b's bounds
+    os.environ["KWT_FA_NOMAX"] = "1"
+    try:
+        reset_every()
+        with counting_entries() as nm_entries:
+            loss_k, grads_k = loss_and_grads()
+        nm_counts = nonzero(every_count())
+        with plain_path():
+            loss_p, grads_p = loss_and_grads()
+    finally:
+        os.environ.pop("KWT_FA_NOMAX")
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    grad_rel = float((grads_k - grads_p).norm() / grads_p.norm())
+    want_nm = {**per_step, "K1nomax": per_step["K1"]}
+    log(f"[train] KWT_FA_NOMAX=1, B=2 kernel vs plain path on the card: loss {loss_k:.6f} vs "
+        f"{loss_p:.6f} (rel {loss_rel:.3e}, tol {TRAIN_LOSS_TOL:g}), student decoder gradients "
+        f"rel-L2 {grad_rel:.3e} (tol {TRAIN_GRAD_TOL:g}); launches {nm_counts}, C entries "
+        f"{nm_entries}")
+    if nm_counts != want_nm or not (math.isfinite(loss_k) and loss_rel <= TRAIN_LOSS_TOL
+                                    and grad_rel <= TRAIN_GRAD_TOL):
+        raise AssertionError(f"train under KWT_FA_NOMAX: launches {nm_counts} (expected "
+                             f"{want_nm}), or the kernel path disagrees with the plain path")
     del grads_k, grads_p
 
     # one B=16 step in two microbatches of 8
@@ -2948,17 +3199,8 @@ def main() -> int:
     batch32 = as_f32(train_batch(TRAIN_B))
     enc_before = [p.detach().clone() for p in student32.model.encoder.parameters()]
     dec_before = [p.detach().clone() for p in student32.model.decoder.parameters()]
-    entries, real_function = {}, _build.function
-
-    def counted_function(name, fn):
-        entries[fn] = entries.get(fn, 0) + 1
-        return real_function(name, fn)
-
-    _build.function = counted_function
-    try:
+    with counting_entries() as entries:
         step32(state32, teacher32, batch32)  # warm-up, its launches by C entry
-    finally:
-        _build.function = real_function
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_every()
@@ -3141,7 +3383,9 @@ def main() -> int:
                 (["--dtype", "float32", "--streaming"], {}, {"K1": 32 * n_batches}),
                 (["--dtype", "float32", "--num_beams", "3"], {}, {"K1": 32 * n_batches}),
                 # and under KWT_FA_INT8=qk (K8's fp32-q form in the encoder)
-                (["--dtype", "float32"], {"KWT_FA_INT8": "qk"}, {"K8": 32 * n_batches})):
+                (["--dtype", "float32"], {"KWT_FA_INT8": "qk"}, {"K8": 32 * n_batches}),
+                # lockstep under KWT_FA_NOMAX (K1's no-max form in the encoder)
+                ([], {"KWT_FA_NOMAX": "1"}, {"K1": 32 * n_batches, "K1nomax": 32 * n_batches})):
             out = os.path.join(tmp, "out" + "".join(extra) + "".join(env.values()))
             t0 = time.perf_counter()
             buf = io.StringIO()
@@ -3167,7 +3411,8 @@ def main() -> int:
                 isinstance(r["whisper_transcript"], list) and r["whisper_transcript"] for r in rows
             ):
                 raise AssertionError(f"driver wrote {len(rows)} records for {n_utts} utterances")
-            if {k: counts.get(k, 0) for k in ("K1", "K8") if counts.get(k)} != expect_enc:
+            if {k: n for k, n in counts.items() if k in ("K1", "K8", "K1nomax", "K8nomax")
+                    } != expect_enc:
                 raise AssertionError(f"driver encoder launches {counts}, expected {expect_enc}")
             if "--streaming" in extra and not counts.get("K2ring"):
                 raise AssertionError(f"--streaming: no K2 ring launch in {counts}")
@@ -3565,6 +3810,10 @@ def main() -> int:
         "K7": enc_launches["stem_impl=pallas"]["K7"],
         "K8qk": enc_launches["KWT_FA_INT8=qk"]["K8"],
         "K8qkpv": enc_launches["KWT_FA_INT8=qkpv"]["K8"],
+        "K1nomax": enc_launches["KWT_FA_NOMAX=1"]["K1nomax"],
+        "K1exp2": enc_launches["KWT_FA_EXP2=1"]["K1"],
+        "K8qknomax": enc_launches["KWT_FA_NOMAX=1 KWT_FA_INT8=qk"]["K8nomax"],
+        "K8qkpvnomax": enc_launches["KWT_FA_NOMAX=1 KWT_FA_INT8=qkpv"]["K8nomax"],
         "K9softmax": tool_launches["vpu_cal softmax"].get("K9", 0),
         "K9exp": tool_launches["vpu_cal exp"].get("K9", 0), **tp_launches, **int4_launches,
         **fp32_launches, "K4f32": create32_counts["K4"], "K5f32": f32_train_launches["K5"]}

@@ -32,12 +32,19 @@
 // bound. Tensors keep the model's (B, T, H, 64) layout, read through
 // per-tensor element strides (16-byte multiples), so a fused qkv
 // projection's column blocks go in without copies; O is written contiguous
-// (B, Tq, H, 64), the LSE (B, H, Tq).
+// (B, Tq, H, 64), the LSE (B, H, Tq). The no-max form (kNoMax; the JAX
+// package's KWT_FA_NOMAX, non-causal): a pre-pass (key_bound.cuh
+// `key_norm_max`) writes max_j ||k_j|| of each (batch, head); each row's
+// norm comes from Q^T in shared memory, and its fixed shift m = ||q / 8|| *
+// kmax replaces the running max: p = 2^(s log2(e) - m log2(e)) in one FFMA
+// and ex2, no rescale, O = o / max(l, 1e-30) and the LSE m + ln max(l,
+// 1e-30), as the TPU kernel divides.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "card.cuh"
+#include "key_bound.cuh"
 
 namespace {
 
@@ -81,11 +88,12 @@ __device__ __forceinline__ void load_transposed(float (*dst)[kPad], const float*
   }
 }
 
-template <bool kCausal>
+template <bool kCausal, bool kNoMax>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                          const float* __restrict__ v, float* __restrict__ o,
-                         float* __restrict__ lse, int tq, int tk, int n_heads, long qs_b,
+                         float* __restrict__ lse, const float* __restrict__ kmax, int tq,
+                         int tk, int n_heads, long qs_b,
                          long qs_t, long qs_h, long ks_b, long ks_t, long ks_h, long vs_b,
                          long vs_t, long vs_h) {
   extern __shared__ __align__(16) uint8_t smem_raw[];
@@ -106,6 +114,19 @@ __global__ void __launch_bounds__(kThreads)
     l_run[i] = 0.f;
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  }
+  if constexpr (kNoMax) {  // rows 4ty.. of Q^T, dims 4tx.., summed over the half-warp
+    __syncthreads();
+    const float bound = kmax[(long)b * n_heads + h] * kLog2e;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float n2 = 0.f;
+#pragma unroll
+      for (int d = 0; d < 4; ++d) n2 = fmaf(s.qt[4 * tx + d][4 * ty + i], s.qt[4 * tx + d][4 * ty + i], n2);
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1) n2 += __shfl_xor_sync(0xffffffffu, n2, off);
+      m_run[i] = sqrtf(n2) * bound;
+    }
   }
   int n_tiles = (tk + kBN - 1) / kBN;
   if (kCausal) n_tiles = min(n_tiles, (min(q0 + kBM, tq) - 1 + offset) / kBN + 1);
@@ -140,11 +161,21 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int j = 0; j < 4; ++j) sc[i][j] = fmaf(av[i], cv[j], sc[i][j]);
     }
-    // log2 units, masks, the rows' running max over the half-warp
+    // log2 units, masks, the rows' running max over the half-warp (kNoMax:
+    // the fixed shift, p in one FFMA and ex2, no rescale)
     float corr[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int row = q0 + 4 * ty + i;
+      if constexpr (kNoMax) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float p = k0 + 4 * tx + j < tk ? ex2(fmaf(sc[i][j], kLog2e, -m_run[i])) : 0.f;
+          l_run[i] += p;
+          s.pt[4 * tx + j][4 * ty + i] = p;
+        }
+        continue;
+      }
       float mx = -INFINITY;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -193,6 +224,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int off = 8; off > 0; off >>= 1) l += __shfl_xor_sync(0xffffffffu, l, off);
     const int row = q0 + 4 * ty + i;
     if (row >= tq) continue;
+    if constexpr (kNoMax) l = fmaxf(l, 1e-30f);
     const float inv = l > 0.f ? 1.f / l : 0.f;
     *reinterpret_cast<float4*>(o + (((long)b * tq + row) * n_heads + h) * kD + 4 * tx) =
         make_float4(acc[i][0] * inv, acc[i][1] * inv, acc[i][2] * inv, acc[i][3] * inv);
@@ -200,37 +232,70 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The launches of either C entry, on the card it entered: kmax non-null
+// takes the no-max form (plan[14] != 0) after the key-bound pre-pass.
+int launch(int card, const void* q, const void* k, const void* v, void* o, void* lse,
+           float* kmax, const long long* plan, void* stream) {
+  const int batch = static_cast<int>(plan[0]), tq = static_cast<int>(plan[1]);
+  const int tk = static_cast<int>(plan[2]), n_heads = static_cast<int>(plan[3]);
+  const bool causal = plan[4] != 0, no_max = plan[14] != 0;
+  if (no_max != (kmax != nullptr) || (no_max && causal))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long* st = plan + 5;
+  constexpr int smem = static_cast<int>(sizeof(Smem));
+  static bool configured[kwt_card::kMaxCards] = {};
+  if (!configured[card]) {
+    cudaError_t e = cudaFuncSetAttribute(flash_fwd_f32_kernel<false, false>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(flash_fwd_f32_kernel<true, false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(flash_fwd_f32_kernel<false, true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    configured[card] = true;
+  }
+  cudaStream_t cs = static_cast<cudaStream_t>(stream);
+  if (no_max) {
+    kwt_key_bound::key_norm_max<float><<<batch * n_heads, kwt_key_bound::kThreads, 0, cs>>>(
+        static_cast<const float*>(k), kmax, tk, n_heads, st[3], st[4], st[5]);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const dim3 grid((tq + kBM - 1) / kBM, n_heads, batch);
+  auto kernel = no_max  ? flash_fwd_f32_kernel<false, true>
+                : causal ? flash_fwd_f32_kernel<true, false>
+                         : flash_fwd_f32_kernel<false, false>;
+  kernel<<<grid, kThreads, smem, cs>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), static_cast<float*>(lse), kmax, tq, tk, n_heads, st[0], st[1],
+      st[2], st[3], st[4], st[5], st[6], st[7], st[8]);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // q (B, Tq, H, 64), k and v (B, Tk, H, 64) fp32, each read through its own
 // element strides; plan: B, Tq, Tk, H, causal, then the batch, token and
 // head element strides of q, k and v (multiples of 4, the head dim
-// contiguous; ops/flash_attention.py `_f32_plan`). o (B, Tq, H, 64) and lse
-// (B, H, Tq) fp32, contiguous. Returns the launch's cudaError_t.
+// contiguous; ops/flash_attention.py `_f32_plan`), then no_max (0 here).
+// o (B, Tq, H, 64) and lse (B, H, Tq) fp32, contiguous. Returns the
+// launch's cudaError_t.
 extern "C" int kwt_flash_attention_f32(int card, const void* q, const void* k, const void* v,
                                        void* o, void* lse, const long long* plan, void* stream) {
   const kwt_card::CardScope scope(card);
   if (scope.error()) return scope.error();
-  const int batch = static_cast<int>(plan[0]), tq = static_cast<int>(plan[1]);
-  const int tk = static_cast<int>(plan[2]), n_heads = static_cast<int>(plan[3]);
-  const bool causal = plan[4] != 0;
-  const long long* st = plan + 5;
-  constexpr int smem = static_cast<int>(sizeof(Smem));
-  static bool configured[kwt_card::kMaxCards] = {};
-  if (!configured[card]) {
-    cudaError_t e = cudaFuncSetAttribute(flash_fwd_f32_kernel<false>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(flash_fwd_f32_kernel<true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    configured[card] = true;
-  }
-  const dim3 grid((tq + kBM - 1) / kBM, n_heads, batch);
-  auto kernel = causal ? flash_fwd_f32_kernel<true> : flash_fwd_f32_kernel<false>;
-  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), static_cast<float*>(lse), tq, tk, n_heads, st[0], st[1], st[2],
-      st[3], st[4], st[5], st[6], st[7], st[8]);
-  return static_cast<int>(cudaGetLastError());
+  return launch(card, q, k, v, o, lse, nullptr, plan, stream);
+}
+
+// The no-max form: as kwt_flash_attention_f32 with plan[14] != 0 and no
+// causal mask; kmax (B, H) fp32 takes the key-bound pre-pass's output.
+extern "C" int kwt_flash_attention_f32_nomax(int card, const void* q, const void* k,
+                                             const void* v, void* o, void* lse, void* kmax,
+                                             const long long* plan, void* stream) {
+  const kwt_card::CardScope scope(card);
+  if (scope.error()) return scope.error();
+  if (kmax == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch(card, q, k, v, o, lse, static_cast<float*>(kmax), plan, stream);
 }

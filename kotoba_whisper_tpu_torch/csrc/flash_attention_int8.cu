@@ -90,11 +90,21 @@
 // fp32, divided by l_safe (true division). Its bound at the encoder's
 // shape: qk, the fp32 P V, 92 GFLOP (1.37 ms at 67 TFLOP/s); qkpv, its
 // 7.2e8 exponentials (0.17 ms at the SFUs' rate).
+// The no-max forms (kNoMax; the JAX package's KWT_FA_NOMAX, both modes,
+// both forms): the pre-pass also writes each key's ks ||k8|| (its codes
+// squared and summed, exact in fp32) and key_bound.cuh's `row_max` their
+// max per (batch, head); each row's ||q8|| comes from its codes in the
+// kernel, and m = (qs ||q8||) * (kmax / 8), the TPU kernel's product, bit
+// for bit, replaces the max: qk takes qkpv's fixed-shift softmax with no
+// rescale, qkpv drops its first pass (p8 is rounded against the bound),
+// and the fp32-q form takes p = expf(s - m) in both modes, the twin's exp
+// of the same difference. The LSE is m + ln max(l, 1e-30).
 #include <cuda.h>
 
 #include <type_traits>
 
 #include "card.cuh"
+#include "key_bound.cuh"
 #include "sm90_common.cuh"
 
 namespace {
@@ -189,12 +199,27 @@ __device__ __forceinline__ void div_for_bf16(float* y, const float* x, float l, 
   }
 }
 
+// The L2 norm of a row's int8 codes, sixteen of them held in this thread
+// as the bits of code + 1.5 * 2^23 (quant_words), the rest in the other
+// threads of its quad: the squares' sum is an exact integer in fp32.
+__device__ __forceinline__ float code_norm(const uint32_t* w) {
+  float n2 = 0.f;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const float c = __uint_as_float(w[i]) - kMagic;
+    n2 = fmaf(c, c, n2);
+  }
+  n2 += __shfl_xor_sync(0xffffffffu, n2, 1);
+  n2 += __shfl_xor_sync(0xffffffffu, n2, 2);
+  return sqrtf(n2);
+}
+
 // This thread's rows r and r + 8 of the 128-row bf16 Q tile (128-byte
 // rows, 128-byte swizzle), quantized as the TPU kernel does into the s8 A
 // fragments of the two k-steps of 32 head dims (row r in registers 0 and 2,
 // row r + 8 in 1 and 3; columns 32kk + 16hi + 4(lane & 3) + 0..3); qsc gets
-// qs / 8 of each row.
-__device__ __forceinline__ void quantize_q(uint32_t (*qa)[4], float* qsc,
+// qs / 8 of each row and qn the norm of its codes (the no-max forms').
+__device__ __forceinline__ void quantize_q(uint32_t (*qa)[4], float* qsc, float* qn,
                                            const __nv_bfloat16* q_tile, int r, int lane) {
   const int t = lane & 3, sw = r & 7;  // (r + 8) & 7 == r & 7
   float x[2][16];                      // [row][8kk + 4hi + j]
@@ -228,6 +253,7 @@ __device__ __forceinline__ void quantize_q(uint32_t (*qa)[4], float* qsc,
     qsc[rr] = qs * 0.125f;
     uint32_t w[16];
     quant_words<16>(w, x[rr], &qs, &rq, 0);
+    qn[rr] = code_norm(w);
 #pragma unroll
     for (int kk = 0; kk < 2; ++kk)
 #pragma unroll
@@ -355,14 +381,14 @@ __device__ __forceinline__ void pack_p8(uint32_t (*pa)[4], const float* s) {
   }
 }
 
-template <bool kPV8>
+template <bool kPV8, bool kNoMax>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_int8_kernel(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_k8,
                       const __grid_constant__ CUtensorMap tm_v, const float* __restrict__ ks,
-                      const float* __restrict__ vs, __nv_bfloat16* __restrict__ o,
-                      float* __restrict__ lse, int tq, int tk, int tk_pad, int n_heads,
-                      int n_qtiles, int n_work) {
+                      const float* __restrict__ vs, const float* __restrict__ kmax,
+                      __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int tq, int tk,
+                      int tk_pad, int n_heads, int n_qtiles, int n_work) {
   extern __shared__ uint8_t smem_raw[];
   Smem& s = *reinterpret_cast<Smem*>(smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
   const int wg = threadIdx.x / 128;
@@ -402,9 +428,11 @@ __global__ void __launch_bounds__(kThreads, 1)
         mbar_expect_tx(&s.q_full[qs], kQBytes);
         tma_load_4d(s.q[qs], &tm_q, &s.q_full[qs], 0, h, q0, b);
         const float* ks_bh = ks + (long)bh * tk_pad;
-        // qkpv: pass 1 streams the k8 tiles alone, pass 2 k8 and V8^T
-        for (int pass = 0; pass < (kPV8 ? 2 : 1); ++pass) {
-          const bool with_v = !kPV8 || pass == 1;
+        // qkpv: pass 1 streams the k8 tiles alone, pass 2 k8 and V8^T (no-max:
+        // the second pass alone)
+        constexpr int kPasses = kPV8 && !kNoMax ? 2 : 1;
+        for (int pass = 0; pass < kPasses; ++pass) {
+          const bool with_v = pass == kPasses - 1;
           for (int j = 0; j < n_tiles; ++j) {
             const int st = kc % kKStages;
             mbar_wait(&s.k_empty[st], ((kc / kKStages) & 1) ^ 1);
@@ -445,17 +473,24 @@ __global__ void __launch_bounds__(kThreads, 1)
 
       // Q8 in registers; the Q tile is free at once
       uint32_t qa[2][4];
-      float qsc[2];
+      float qsc[2], qn[2];
       const int qs = qi & 1;
       mbar_wait(&s.q_full[qs], (qi >> 1) & 1);
-      quantize_q(qa, qsc, s.q[qs], r_tile, lane);
+      quantize_q(qa, qsc, qn, s.q[qs], r_tile, lane);
       mbar_arrive(&s.q_empty[qs]);
 
       int si[kBN / 2];    // S of the current tile, s32
       float sf[kBN / 2];  // its scores, then P
-      float m_row[2] = {-INFINITY, -INFINITY};  // qkpv: the exact row max
+      float m_row[2] = {-INFINITY, -INFINITY};  // qkpv: the exact row max; no-max: the bound
       float m_log2[2];
-      if constexpr (kPV8) {
+      if constexpr (kNoMax) {
+        const float bound = __fmul_rn(0.125f, kmax[bh]);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {  // (qs ||q8||) (kmax / 8); qs = 8 qsc exactly
+          m_row[r] = __fmul_rn(__fmul_rn(8.f * qsc[r], qn[r]), bound);
+          m_log2[r] = kLog2e * m_row[r];
+        }
+      } else if constexpr (kPV8) {
         // ---- pass 1: S and the row max only ----
         for (int j = 0; j < n_tiles; ++j, ++kc) {
           const int st = kc % kKStages;
@@ -504,13 +539,14 @@ __global__ void __launch_bounds__(kThreads, 1)
         dequant(sf, si, s.ks[st], qsc, ragged && n_tiles == 1, col0, tk, col0);
         mbar_arrive(&s.k_empty[st]);
         ++kc;
-        if constexpr (kPV8) {
+        if constexpr (kPV8 || kNoMax)
           softmax_fixed(sf, m_log2, l_run);
-          pack_p8(pa, sf);
-        } else {
+        else
           softmax_online(sf, m_run, l_run, corr);
+        if constexpr (kPV8)
+          pack_p8(pa, sf);
+        else
           pack_p(pa, sf);
-        }
       }
       for (int j = 1; j < n_tiles; ++j, ++kc, ++vc) {
         const int st = kc % kKStages, vst = vc % kVStages;
@@ -527,7 +563,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         fence_acc(si);
         dequant(sf, si, s.ks[st], qsc, ragged && j == n_tiles - 1, j * kBN + col0, tk, col0);
         mbar_arrive(&s.k_empty[st]);
-        if constexpr (kPV8)
+        if constexpr (kPV8 || kNoMax)
           softmax_fixed(sf, m_log2, l_run);
         else
           softmax_online(sf, m_run, l_run, corr);
@@ -536,6 +572,8 @@ __global__ void __launch_bounds__(kThreads, 1)
         mbar_arrive(&s.v_empty[vst]);
         if constexpr (kPV8) {
           pack_p8(pa, sf);
+        } else if constexpr (kNoMax) {
+          pack_p(pa, sf);
         } else {
 #pragma unroll
           for (int i = 0; i < 8; ++i) {
@@ -587,7 +625,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int i = 0; i < 8; ++i) dst[(8 * i + col0) >> 1] = pack_bf16x2(y[2 * i], y[2 * i + 1]);
         if ((lane & 3) == 0)
           lse[(long)bh * tq + row] =
-              (kPV8 ? m_row[r] : m_run[r] * kLn2) + logf(l_safe);
+              (kPV8 || kNoMax ? m_row[r] : m_run[r] * kLn2) + logf(l_safe);
       }
     }
     // the last consumer hands its last turn over too; consumer 0 takes it
@@ -606,6 +644,7 @@ struct F32Smem {
   int q8t[kD / 4][kFPad];  // Q8 of the CTA's rows, 4 dims a word, by row
   int k8t[kD / 4][kFPad];  // K8 of the tile, 4 dims a word, by key
   float qsc[kFT];          // qs / 8 of each row
+  float mb[kFT];           // no-max: each row's bound
   float ks[kFT];           // the tile's key scales
   union {
     float v[kFT][kD];  // qk: V of the tile, fp32, by key
@@ -665,12 +704,14 @@ __device__ __forceinline__ void f32_load_k8(F32Smem& s, const int8_t* k8, const 
 // `p.astype(in_dtype)` is no rounding in fp32). qkpv: a first pass for the
 // exact row max, then p = expf(s - m), p8 = round(p * 127) and O += p8 V8
 // as exact int32 products. O = o / l_safe (true division),
-// fp32; the LSE in natural-log units.
-template <bool kPV8>
+// fp32; the LSE in natural-log units. kNoMax: each row's bound in place of
+// its max, one pass, p = expf(s - m) in both modes.
+template <bool kPV8, bool kNoMax>
 __global__ void __launch_bounds__(kFThreads)
     flash_int8_f32_kernel(const uint8_t* __restrict__ q, const int8_t* __restrict__ k8,
                           const float* __restrict__ ks, const uint8_t* __restrict__ v,
                           const int8_t* __restrict__ v8t, const float* __restrict__ vs,
+                          const float* __restrict__ kmax,
                           float* __restrict__ o, float* __restrict__ lse, int tq, int tk,
                           int tk_pad, int n_heads, long long q_head, long long q_tok,
                           long long q_bat, long long v_head, long long v_tok, long long v_bat) {
@@ -708,12 +749,20 @@ __global__ void __launch_bounds__(kFThreads)
     for (int c = 0; c < 4; ++c)
       s.q8t[4 * part + c][r] = (int)pack_low_bytes(w[4 * c], w[4 * c + 1], w[4 * c + 2], w[4 * c + 3]);
     if (part == 0) s.qsc[r] = qs * 0.125f;
+    if constexpr (kNoMax) {  // (qs ||q8||) (kmax / 8), the TPU kernel's product
+      const float qn = code_norm(w);
+      if (part == 0) s.mb[r] = __fmul_rn(__fmul_rn(qs, qn), __fmul_rn(0.125f, kmax[bh]));
+    }
   }
 
-  float m_row[4];  // qkpv: the exact row max; qk: the running max in log2 units
+  float m_row[4];  // qkpv: the exact row max; qk: the running max in log2 units; no-max: the bound
 #pragma unroll
   for (int i = 0; i < 4; ++i) m_row[i] = -INFINITY;
-  if constexpr (kPV8) {
+  if constexpr (kNoMax) {
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 4; ++i) m_row[i] = s.mb[4 * ty + i];
+  } else if constexpr (kPV8) {
     for (int jt = 0; jt < n_tiles; ++jt) {
       __syncthreads();
       f32_load_k8(s, k8_bh, ks_bh, k8_row, jt * kFT, tk);
@@ -772,14 +821,17 @@ __global__ void __launch_bounds__(kFThreads)
     f32_scores(sc, s, ty, tx, k0, tk);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      if constexpr (kPV8) {
+      if constexpr (kPV8 || kNoMax) {
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           // expf of the same fp32 difference as the twin's exp: p, and so
           // its rounding to p8, is the twin's bit for bit on the card
           const float p = expf(sc[i][j] - m_row[i]);
           l_run[i] += p;
-          s.p8t[4 * tx + j][4 * ty + i] = (int)(p8_word(p) & 0xffu);
+          if constexpr (kPV8)
+            s.p8t[4 * tx + j][4 * ty + i] = (int)(p8_word(p) & 0xffu);
+          else
+            s.pt[4 * tx + j][4 * ty + i] = p;
         }
       } else {
         float mx = -INFINITY;
@@ -846,7 +898,8 @@ __global__ void __launch_bounds__(kFThreads)
     }
     *reinterpret_cast<float4*>(o + (((long long)b * tq + row) * n_heads + h) * kD + 4 * tx) =
         make_float4(y[0], y[1], y[2], y[3]);
-    if (tx == 0) lse[bh * tq + row] = (kPV8 ? m_row[i] : m_row[i] * kLn2) + logf(l_safe);
+    if (tx == 0)
+      lse[bh * tq + row] = (kPV8 || kNoMax ? m_row[i] : m_row[i] * kLn2) + logf(l_safe);
   }
 }
 
@@ -858,7 +911,8 @@ template <typename T>
 __global__ void __launch_bounds__(kPreThreads)
     int8_prepass(const uint8_t* __restrict__ k, const uint8_t* __restrict__ v,
                  int8_t* __restrict__ k8, float* __restrict__ ks, int8_t* __restrict__ v8t,
-                 float* __restrict__ vs, int batch, int tk, int tk_pad, int n_heads,
+                 float* __restrict__ vs, float* __restrict__ kn, int batch, int tk, int tk_pad,
+                 int n_heads,
                  long long k_head, long long k_tok, long long k_bat, long long v_head,
                  long long v_tok, long long v_bat, int n_vblocks) {
   __shared__ float s_red[32][kD];
@@ -972,6 +1026,7 @@ __global__ void __launch_bounds__(kPreThreads)
       amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, 2));
       amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, 4));
       const float sc = fmaxf(amax, 1e-8f) * kInv127, rs = __frcp_rn(sc);
+      float n2 = 0.f;  // no-max: the codes' squares, exact in fp32
       if (real[g]) {
         uint32_t w[8];
         quant_words<8>(w, x, &sc, &rs, 0);
@@ -979,8 +1034,24 @@ __global__ void __launch_bounds__(kPreThreads)
         q8.x = pack_low_bytes(w[0], w[1], w[2], w[3]);
         q8.y = pack_low_bytes(w[4], w[5], w[6], w[7]);
         *reinterpret_cast<uint2*>(k8 + (((long)b * tk + t) * n_heads + h) * kD + sub * 8) = q8;
+        if (kn != nullptr) {
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const float c = __uint_as_float(w[i]) - kMagic;
+            n2 = fmaf(c, c, n2);
+          }
+        }
       }
-      if (u < n_rows && sub == 0) ks[((long)b * n_heads + h) * tk_pad + t] = real[g] ? sc : 0.f;
+      if (kn != nullptr) {
+        n2 += __shfl_xor_sync(0xffffffffu, n2, 1);
+        n2 += __shfl_xor_sync(0xffffffffu, n2, 2);
+        n2 += __shfl_xor_sync(0xffffffffu, n2, 4);
+      }
+      if (u < n_rows && sub == 0) {
+        const long at = ((long)b * n_heads + h) * tk_pad + t;
+        ks[at] = real[g] ? sc : 0.f;
+        if (kn != nullptr) kn[at] = real[g] ? __fmul_rn(sc, sqrtf(n2)) : 0.f;  // ks ||k8||
+      }
     }
   }
 }
@@ -1010,28 +1081,14 @@ bool make_map(CUtensorMap* map, CUtensorMapDataType type, CUtensorMapSwizzle swi
   return encode(map, type, 4, base, dims, strides, box, swizzle);
 }
 
-}  // namespace
-
-// q (B, Tq, H, 64), k and v (B, Tk, H, 64) bf16 (or fp32: plan[18] != 0)
-// at the plan's strides -> o (B, Tq, H, 64) in their dtype, contiguous, lse
-// (B, H, Tq) fp32. scratch holds the
-// pre-pass's outputs: k8 (B, Tk, H, 64) int8 at byte 0, ks (B, H, tk_pad)
-// fp32 at plan[15]; qkpv: V8^T (B, H, 64, tk_pad) int8 at plan[16] and vs
-// (B, H, 64) fp32 at plan[17]. plan (ops/flash_attention.py `_int8_plan`):
-// batch, tq, tk, heads, pv8 (!= 0: qkpv), tk_pad (a multiple of 128), the
-// head, token and batch byte strides of q, k and v (multiples of 16), the
-// three offsets, and fp32 (!= 0: the fp32-q form). phases: bit 0 launches the pre-pass, bit 1 the main
-// kernel (3: both, in order, on `stream`). Returns the first failing
-// launch's cudaError_t, or cudaErrorInvalidValue when a tensor map cannot
-// be encoded.
-extern "C" int kwt_flash_attention_int8(int card, const void* q, const void* k, const void* v,
-                                        void* o, void* lse, void* scratch,
-                                        const long long* plan, int phases, void* stream) {
-  const kwt_card::CardScope scope(card);
-  if (scope.error()) return scope.error();
+// The launches of either C entry, on the card it entered (phases as the
+// entries say); no_max must match plan[19].
+int launch(int card, const void* q, const void* k, const void* v, void* o, void* lse,
+           void* scratch, const long long* plan, int phases, void* stream, bool no_max) {
   const int batch = static_cast<int>(plan[0]), tq = static_cast<int>(plan[1]);
   const int tk = static_cast<int>(plan[2]), n_heads = static_cast<int>(plan[3]);
   const bool pv8 = plan[4] != 0, f32 = plan[18] != 0;
+  if (no_max != (plan[19] != 0)) return static_cast<int>(cudaErrorInvalidValue);
   const int tk_pad = static_cast<int>(plan[5]);
   const long long* st = plan + 6;
   uint8_t* base = static_cast<uint8_t*>(scratch);
@@ -1039,6 +1096,8 @@ extern "C" int kwt_flash_attention_int8(int card, const void* q, const void* k, 
   float* ks = reinterpret_cast<float*>(base + plan[15]);
   int8_t* v8t = reinterpret_cast<int8_t*>(base + plan[16]);
   float* vs = reinterpret_cast<float*>(base + plan[17]);
+  float* kn = no_max ? reinterpret_cast<float*>(base + plan[20]) : nullptr;
+  float* kmax = no_max ? reinterpret_cast<float*>(base + plan[21]) : nullptr;
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
 
   // per card: its SM count, set once the kernels' shared-memory limit is
@@ -1047,10 +1106,16 @@ extern "C" int kwt_flash_attention_int8(int card, const void* q, const void* k, 
   int& n_sms = n_sms_of[card];
   const int smem = static_cast<int>(sizeof(Smem)) + 1024;  // + alignment slack
   if (n_sms == 0) {
-    cudaError_t e = cudaFuncSetAttribute(flash_int8_kernel<false>,
+    cudaError_t e = cudaFuncSetAttribute(flash_int8_kernel<false, false>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(flash_int8_kernel<true>,
+      e = cudaFuncSetAttribute(flash_int8_kernel<true, false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(flash_int8_kernel<false, true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(flash_int8_kernel<true, true>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e == cudaSuccess) e = cudaDeviceGetAttribute(&n_sms, cudaDevAttrMultiProcessorCount, card);
     if (e != cudaSuccess) {
@@ -1066,18 +1131,27 @@ extern "C" int kwt_flash_attention_int8(int card, const void* q, const void* k, 
     const int n_vblocks = pv8 ? batch * n_heads : 0;
     auto prepass = f32 ? int8_prepass<float> : int8_prepass<__nv_bfloat16>;
     prepass<<<n_vblocks + static_cast<int>(k_blocks), kPreThreads, 0, cs>>>(
-        static_cast<const uint8_t*>(k), static_cast<const uint8_t*>(v), k8, ks, v8t, vs, batch,
-        tk, tk_pad, n_heads, st[3], st[4], st[5], st[6], st[7], st[8], n_vblocks);
-    const cudaError_t err = cudaGetLastError();
+        static_cast<const uint8_t*>(k), static_cast<const uint8_t*>(v), k8, ks, v8t, vs, kn,
+        batch, tk, tk_pad, n_heads, st[3], st[4], st[5], st[6], st[7], st[8], n_vblocks);
+    cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
+    if (no_max) {
+      kwt_key_bound::row_max<<<batch * n_heads, kwt_key_bound::kThreads, 0, cs>>>(kn, kmax,
+                                                                                 tk_pad);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
   }
   if (!(phases & 2)) return static_cast<int>(cudaSuccess);
 
   if (f32) {
     const dim3 grid((tq + kFT - 1) / kFT, n_heads, batch);
-    auto kernel = pv8 ? flash_int8_f32_kernel<true> : flash_int8_f32_kernel<false>;
+    auto kernel = pv8 ? (no_max ? flash_int8_f32_kernel<true, true>
+                                : flash_int8_f32_kernel<true, false>)
+                      : (no_max ? flash_int8_f32_kernel<false, true>
+                                : flash_int8_f32_kernel<false, false>);
     kernel<<<grid, kFThreads, sizeof(F32Smem), cs>>>(
-        static_cast<const uint8_t*>(q), k8, ks, static_cast<const uint8_t*>(v), v8t, vs,
+        static_cast<const uint8_t*>(q), k8, ks, static_cast<const uint8_t*>(v), v8t, vs, kmax,
         static_cast<float*>(o), static_cast<float*>(lse), tq, tk, tk_pad, n_heads, st[0], st[1],
         st[2], st[6], st[7], st[8]);
     return static_cast<int>(cudaGetLastError());
@@ -1105,9 +1179,45 @@ extern "C" int kwt_flash_attention_int8(int card, const void* q, const void* k, 
 
   const int n_qtiles = (tq + kBM - 1) / kBM;
   const int n_work = n_qtiles * batch * n_heads;
-  auto kernel = pv8 ? flash_int8_kernel<true> : flash_int8_kernel<false>;
+  auto kernel = pv8 ? (no_max ? flash_int8_kernel<true, true> : flash_int8_kernel<true, false>)
+                    : (no_max ? flash_int8_kernel<false, true> : flash_int8_kernel<false, false>);
   kernel<<<n_work < n_sms ? n_work : n_sms, kThreads, smem, cs>>>(
-      tm_q, tm_k8, tm_v, ks, vs, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), tq,
-      tk, tk_pad, n_heads, n_qtiles, n_work);
+      tm_q, tm_k8, tm_v, ks, vs, kmax, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse),
+      tq, tk, tk_pad, n_heads, n_qtiles, n_work);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// q (B, Tq, H, 64), k and v (B, Tk, H, 64) bf16 (or fp32: plan[18] != 0)
+// at the plan's strides -> o (B, Tq, H, 64) in their dtype, contiguous, lse
+// (B, H, Tq) fp32. scratch holds the
+// pre-pass's outputs: k8 (B, Tk, H, 64) int8 at byte 0, ks (B, H, tk_pad)
+// fp32 at plan[15]; qkpv: V8^T (B, H, 64, tk_pad) int8 at plan[16] and vs
+// (B, H, 64) fp32 at plan[17]. plan (ops/flash_attention.py `_int8_plan`):
+// batch, tq, tk, heads, pv8 (!= 0: qkpv), tk_pad (a multiple of 128), the
+// head, token and batch byte strides of q, k and v (multiples of 16), the
+// three offsets, fp32 (!= 0: the fp32-q form), no_max (0 here), and the
+// no-max form's two offsets. phases: bit 0 launches the pre-pass, bit 1 the main
+// kernel (3: both, in order, on `stream`). Returns the first failing
+// launch's cudaError_t, or cudaErrorInvalidValue when a tensor map cannot
+// be encoded or the plan asks for the no-max form.
+extern "C" int kwt_flash_attention_int8(int card, const void* q, const void* k, const void* v,
+                                        void* o, void* lse, void* scratch,
+                                        const long long* plan, int phases, void* stream) {
+  const kwt_card::CardScope scope(card);
+  if (scope.error()) return scope.error();
+  return launch(card, q, k, v, o, lse, scratch, plan, phases, stream, false);
+}
+
+// The no-max forms: as kwt_flash_attention_int8 with plan[19] != 0; the
+// scratch also holds kn (B, H, tk_pad) fp32 at plan[20], each key's ks
+// ||k8|| (zero past Tk), and kmax (B, H) fp32 at plan[21], their max, both
+// written in phase bit 0 (the pre-pass, then key_bound.cuh's `row_max`).
+extern "C" int kwt_flash_attention_int8_nomax(int card, const void* q, const void* k,
+                                              const void* v, void* o, void* lse, void* scratch,
+                                              const long long* plan, int phases, void* stream) {
+  const kwt_card::CardScope scope(card);
+  if (scope.error()) return scope.error();
+  return launch(card, q, k, v, o, lse, scratch, plan, phases, stream, true);
 }

@@ -45,9 +45,19 @@
 // past the first row's bound (and a ragged last tile) are masked, to -inf
 // past each row's bound and past tk. Every row's first tile holds key 0, so
 // its running max is finite before any tile where the row sees no key.
+//
+// The no-max form (kNoMax; the JAX package's KWT_FA_NOMAX, non-causal
+// only): a pre-pass (key_bound.cuh `key_norm_max`) writes max_j ||k_j|| of
+// each (batch, head), and each consumer thread takes the norms of its two
+// rows from the Q tile in shared memory (no second read of q), so every
+// row's shift is fixed before its first tile: m = ||q|| * kmax * scale *
+// log2(e), no running max, no rescale of O and l. Rows whose every p
+// underflows keep l = 0 and, as in the TPU kernel, divide by max(l, 1e-30):
+// O is 0 and the LSE m + ln 1e-30.
 #include <cuda.h>
 
 #include "card.cuh"
+#include "key_bound.cuh"
 #include "sm90_common.cuh"
 
 namespace {
@@ -100,8 +110,9 @@ __device__ __forceinline__ void fence_acc(float (&acc)[N]) {
 // (lane/4, lane/4 + 8) past lim[r] keys beyond key0 are masked to -inf;
 // the running max m (log2 units) and this thread's partial sums l updated,
 // corr = exp2(m_old - m_new) for O, and S replaced by P = exp2(S *
-// scale_log2 - m).
-template <bool kCausal>
+// scale_log2 - m). kNoMax: m is the rows' fixed bound, and only P and l
+// are updated.
+template <bool kCausal, bool kNoMax>
 __device__ __forceinline__ void softmax_tile(float* sacc, float* m_run, float* l_run,
                                              float* corr, bool mask, int key0, int tk,
                                              const int* lim, float scale_log2) {
@@ -113,20 +124,22 @@ __device__ __forceinline__ void softmax_tile(float* sacc, float* m_run, float* l
         if (kCausal ? i * 8 + (e & 1) > lim[e >> 1] : key0 + i * 8 + (e & 1) >= tk)
           sacc[4 * i + e] = -INFINITY;
   }
-  float mx[2] = {-INFINITY, -INFINITY};
+  if constexpr (!kNoMax) {
+    float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-  for (int i = 0; i < kBN / 8; ++i) {
-    mx[0] = fmaxf(mx[0], fmaxf(sacc[4 * i], sacc[4 * i + 1]));
-    mx[1] = fmaxf(mx[1], fmaxf(sacc[4 * i + 2], sacc[4 * i + 3]));
-  }
+    for (int i = 0; i < kBN / 8; ++i) {
+      mx[0] = fmaxf(mx[0], fmaxf(sacc[4 * i], sacc[4 * i + 1]));
+      mx[1] = fmaxf(mx[1], fmaxf(sacc[4 * i + 2], sacc[4 * i + 3]));
+    }
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-    const float m_new = fmaxf(m_run[r], mx[r] * scale_log2);
-    corr[r] = ex2(m_run[r] - m_new);  // 0 on the first tile
-    m_run[r] = m_new;
-    l_run[r] *= corr[r];
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m_run[r], mx[r] * scale_log2);
+      corr[r] = ex2(m_run[r] - m_new);  // 0 on the first tile
+      m_run[r] = m_new;
+      l_run[r] *= corr[r];
+    }
   }
 #pragma unroll
   for (int i = 0; i < kBN / 8; ++i)
@@ -136,6 +149,31 @@ __device__ __forceinline__ void softmax_tile(float* sacc, float* m_run, float* l
       sacc[4 * i + e] = p;
       l_run[e >> 1] += p;
     }
+}
+
+// kNoMax: the fp32 squared norms of this thread's rows r and r + 8 of the
+// 128-row bf16 Q tile (128-byte rows, 128-byte swizzle), each thread of the
+// quad summing two of a row's eight 16-byte chunks.
+__device__ __forceinline__ void q_norms2(float* n2, const __nv_bfloat16* tile, int r, int lane) {
+  const int t = lane & 3, sw = r & 7;  // (r + 8) & 7 == r & 7
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const uint8_t* row = reinterpret_cast<const uint8_t*>(tile) + (r + 8 * rr) * 128;
+    float acc = 0.f;
+#pragma unroll
+    for (int cc = 0; cc < 2; ++cc) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(row + (((2 * t + cc) ^ sw) << 4));
+      const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float a = __uint_as_float(w[i] << 16), b = __uint_as_float(w[i] & 0xFFFF0000u);
+        acc = fmaf(a, a, fmaf(b, b, acc));
+      }
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+    n2[rr] = acc;
+  }
 }
 
 // P (fp32, the S accumulator layout) -> bf16 A fragments of the P V wgmma:
@@ -172,13 +210,14 @@ __device__ __forceinline__ void plan_item(int w, int n_qtiles, int n_bh, int tq,
   }
 }
 
-template <bool kCausal>
+template <bool kCausal, bool kNoMax>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                           const __grid_constant__ CUtensorMap tm_k,
                           const __grid_constant__ CUtensorMap tm_v,
-                          __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int tq,
-                          int tk, int n_heads, int n_qtiles, int n_work, float scale_log2) {
+                          __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                          const float* __restrict__ kmax, int tq, int tk, int n_heads,
+                          int n_qtiles, int n_work, float scale_log2) {
   extern __shared__ uint8_t smem_raw[];
   Smem& s = *reinterpret_cast<Smem*>(smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
   const int n_bh = n_work / n_qtiles;
@@ -259,6 +298,13 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int qs = qi % kQBufs;
       const uint32_t q_addr = smem_u32(s.q[qs]) + c * 64 * 128;
       mbar_wait(&s.q_full[qs], (qi / kQBufs) & 1);
+      if constexpr (kNoMax) {  // the rows' fixed shifts, log2 units
+        float n2[2];
+        q_norms2(n2, s.q[qs], c * 64 + warp * 16 + (lane >> 2), lane);
+        const float bound = kmax[bh] * scale_log2;
+        m_run[0] = sqrtf(n2[0]) * bound;
+        m_run[1] = sqrtf(n2[1]) * bound;
+      }
 
       // The loop is peeled (tile 0: S only; tiles 1..n-1: S and the
       // previous tile's P V; then the last P V) so that no wgmma is issued
@@ -276,9 +322,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       mbar_arrive(&s.k_empty[it % kStages]);
       if (n_tiles == 1) mbar_arrive(&s.q_empty[qs]);
       float corr[2];
-      softmax_tile<kCausal>(sacc, m_run, l_run, corr,
-                            kCausal ? n_free == 0 : n_tiles == 1 && ragged, (lane & 3) * 2, tk,
-                            lim, scale_log2);
+      softmax_tile<kCausal, kNoMax>(sacc, m_run, l_run, corr,
+                                    kCausal ? n_free == 0 : n_tiles == 1 && ragged,
+                                    (lane & 3) * 2, tk, lim, scale_log2);
       pack_p(pa, sacc);
       for (uint32_t cur = it + 1; cur <= last; ++cur) {
         const int st = cur % kStages, pst = (cur - 1) % kStages;
@@ -299,18 +345,21 @@ __global__ void __launch_bounds__(kThreads, 1)
           lim[0] -= kBN;
           lim[1] -= kBN;
         }
-        softmax_tile<kCausal>(sacc, m_run, l_run, corr,
-                              kCausal ? (int)(cur - it) >= n_free : cur == last && ragged,
-                              (int)(cur - it) * kBN + (lane & 3) * 2, tk, lim, scale_log2);
+        softmax_tile<kCausal, kNoMax>(sacc, m_run, l_run, corr,
+                                      kCausal ? (int)(cur - it) >= n_free : cur == last && ragged,
+                                      (int)(cur - it) * kBN + (lane & 3) * 2, tk, lim,
+                                      scale_log2);
         wgmma_wait<0>();
         fence_acc(oacc);
         mbar_arrive(&s.v_empty[pst]);
+        if constexpr (!kNoMax) {
 #pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          oacc[4 * i] *= corr[0];
-          oacc[4 * i + 1] *= corr[0];
-          oacc[4 * i + 2] *= corr[1];
-          oacc[4 * i + 3] *= corr[1];
+          for (int i = 0; i < 8; ++i) {
+            oacc[4 * i] *= corr[0];
+            oacc[4 * i + 1] *= corr[0];
+            oacc[4 * i + 2] *= corr[1];
+            oacc[4 * i + 3] *= corr[1];
+          }
         }
         pack_p(pa, sacc);
       }
@@ -334,14 +383,14 @@ __global__ void __launch_bounds__(kThreads, 1)
         l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
         const int row = row0 + 8 * r;
         if (row >= tq) continue;
-        const float inv = 1.f / l_run[r];
+        const float l_safe = fmaxf(l_run[r], 1e-30f), inv = 1.f / l_safe;
         uint32_t* dst = reinterpret_cast<uint32_t*>(ob + (long)row * row_stride);
 #pragma unroll
         for (int i = 0; i < 8; ++i)
           dst[i * 4 + (lane & 3)] =
               pack_bf16x2(oacc[4 * i + 2 * r] * inv, oacc[4 * i + 2 * r + 1] * inv);
         if ((lane & 3) == 0)
-          lse[(long)bh * tq + row] = m_run[r] * 0.6931471805599453f + logf(l_run[r]);
+          lse[(long)bh * tq + row] = m_run[r] * 0.6931471805599453f + logf(l_safe);
       }
     }
     // the last consumer hands its last turn over too; consumer 0 takes it
@@ -372,19 +421,17 @@ bool make_map(CUtensorMap* map, const void* base, int batch, int t, int n_heads,
 
 }  // namespace
 
-// q (B, Tq, H, 64), k/v (B, Tk, H, 64) bf16 -> o (B, Tq, H, 64) bf16
-// contiguous, lse (B, H, Tq) fp32. plan (ops/flash_attention.py
-// `_fwd_plan`): batch, tq, tk, heads, causal (!= 0: the end-aligned mask,
-// tq <= tk), then the byte strides of q's, k's and v's heads, tokens and
-// batch (multiples of 16). Returns the launch's cudaError_t, or
-// cudaErrorInvalidValue when a tensor map cannot be encoded.
-extern "C" int kwt_flash_attention_sm90_fwd(int card, const void* q, const void* k,
-                                            const void* v, void* o, void* lse,
-                                            const long long* plan, void* stream) {
-  const kwt_card::CardScope scope(card);
-  if (scope.error()) return scope.error();
+namespace {
+
+// The launches of either C entry, on the card it entered: kmax non-null
+// takes the no-max form (plan[14] != 0) after the key-bound pre-pass.
+int launch(int card, const void* q, const void* k, const void* v, void* o, void* lse,
+           float* kmax, const long long* plan, void* stream) {
   const int batch = static_cast<int>(plan[0]), tq = static_cast<int>(plan[1]);
   const int tk = static_cast<int>(plan[2]), n_heads = static_cast<int>(plan[3]);
+  const bool causal = plan[4] != 0, no_max = plan[14] != 0;
+  if (no_max != (kmax != nullptr) || (no_max && causal))
+    return static_cast<int>(cudaErrorInvalidValue);
   const long long* st = plan + 5;
   CUtensorMap tm_q, tm_k, tm_v;
   if (!make_map(&tm_q, q, batch, tq, n_heads, st[0], st[1], st[2], kBM) ||
@@ -397,10 +444,13 @@ extern "C" int kwt_flash_attention_sm90_fwd(int card, const void* q, const void*
   int& n_sms = n_sms_of[card];
   const int smem = static_cast<int>(sizeof(Smem)) + 1024;  // + alignment slack
   if (n_sms == 0) {
-    cudaError_t e = cudaFuncSetAttribute(flash_fwd_sm90_kernel<false>,
+    cudaError_t e = cudaFuncSetAttribute(flash_fwd_sm90_kernel<false, false>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(flash_fwd_sm90_kernel<true>,
+      e = cudaFuncSetAttribute(flash_fwd_sm90_kernel<true, false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(flash_fwd_sm90_kernel<false, true>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e == cudaSuccess) e = cudaDeviceGetAttribute(&n_sms, cudaDevAttrMultiProcessorCount, card);
     if (e != cudaSuccess) {
@@ -408,12 +458,49 @@ extern "C" int kwt_flash_attention_sm90_fwd(int card, const void* q, const void*
       return static_cast<int>(e);
     }
   }
+  cudaStream_t cs = static_cast<cudaStream_t>(stream);
+  if (no_max) {  // byte strides of k's heads, tokens and batch, in bf16 elements
+    kwt_key_bound::key_norm_max<__nv_bfloat16><<<batch * n_heads, kwt_key_bound::kThreads, 0, cs>>>(
+        static_cast<const __nv_bfloat16*>(k), kmax, tk, n_heads, st[5] / 2, st[4] / 2, st[3] / 2);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
   const int n_qtiles = (tq + kBM - 1) / kBM;
   const int n_work = n_qtiles * batch * n_heads;
   const float scale_log2 = 0.125f * 1.4426950408889634f;  // 1/sqrt(64) * log2(e)
-  auto kernel = plan[4] ? flash_fwd_sm90_kernel<true> : flash_fwd_sm90_kernel<false>;
-  kernel<<<n_work < n_sms ? n_work : n_sms, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), tq, tk,
+  auto kernel = no_max  ? flash_fwd_sm90_kernel<false, true>
+                : causal ? flash_fwd_sm90_kernel<true, false>
+                         : flash_fwd_sm90_kernel<false, false>;
+  kernel<<<n_work < n_sms ? n_work : n_sms, kThreads, smem, cs>>>(
+      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), kmax, tq, tk,
       n_heads, n_qtiles, n_work, scale_log2);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// q (B, Tq, H, 64), k/v (B, Tk, H, 64) bf16 -> o (B, Tq, H, 64) bf16
+// contiguous, lse (B, H, Tq) fp32. plan (ops/flash_attention.py
+// `_fwd_plan`): batch, tq, tk, heads, causal (!= 0: the end-aligned mask,
+// tq <= tk), then the byte strides of q's, k's and v's heads, tokens and
+// batch (multiples of 16), then no_max (0 here). Returns the launch's
+// cudaError_t, or cudaErrorInvalidValue when a tensor map cannot be
+// encoded or the plan asks for the no-max form.
+extern "C" int kwt_flash_attention_sm90_fwd(int card, const void* q, const void* k,
+                                            const void* v, void* o, void* lse,
+                                            const long long* plan, void* stream) {
+  const kwt_card::CardScope scope(card);
+  if (scope.error()) return scope.error();
+  return launch(card, q, k, v, o, lse, nullptr, plan, stream);
+}
+
+// K1's no-max form: as kwt_flash_attention_sm90_fwd with plan[14] != 0 and
+// no causal mask; kmax (B, H) fp32 takes the key-bound pre-pass's output.
+extern "C" int kwt_flash_attention_sm90_fwd_nomax(int card, const void* q, const void* k,
+                                                  const void* v, void* o, void* lse, void* kmax,
+                                                  const long long* plan, void* stream) {
+  const kwt_card::CardScope scope(card);
+  if (scope.error()) return scope.error();
+  if (kmax == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch(card, q, k, v, o, lse, static_cast<float*>(kmax), plan, stream);
 }

@@ -41,9 +41,11 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 SIGNATURES = {
     "flash_attention_sm90": {
         "kwt_flash_attention_sm90_fwd": [_I, _P, _P, _P, _P, _P, _P, _P],
+        "kwt_flash_attention_sm90_fwd_nomax": [_I, _P, _P, _P, _P, _P, _P, _P, _P],
     },
     "flash_attention_f32": {
         "kwt_flash_attention_f32": [_I, _P, _P, _P, _P, _P, _P, _P],
+        "kwt_flash_attention_f32_nomax": [_I, _P, _P, _P, _P, _P, _P, _P, _P],
     },
     "flash_attention_bwd": {
         "kwt_flash_attention_bwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
@@ -86,6 +88,7 @@ SIGNATURES = {
     },
     "flash_attention_int8": {
         "kwt_flash_attention_int8": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _P],
+        "kwt_flash_attention_int8_nomax": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _P],
     },
     "vpu_cal": {
         "kwt_vpu_cal": [_I, _P, _P, _I, _I, _I, _I, _P],

@@ -36,15 +36,30 @@ given as `int8_mode` or, when that is None, read from KWT_FA_INT8 at each
 non-causal call. The backward pass stays K5, on the int8 forward's O and
 LSE.
 
-The JAX package's other experiment switches of this kernel: KWT_FA_NOMAX
-(a softmax bounded by a shift in place of the row max) and KWT_FA_EXP2
-(exp computed as exp2) change what it computes, and the port implements
-neither: `flash_attention`, `flash_attention_fwd` and
-`flash_attention_int8` raise ValueError when either is set to anything but
-"0", on the CPU and on the card alike, so a port run never differs from a
-JAX run without a word. KWT_FA_BQ only sets the TPU kernel's query block;
-the port's fixed 128-row tiles give the same result whatever it says, so
-it is not read.
+The JAX package's other experiment switches of this kernel, read at every
+call by `read_switches` (on when set to anything but "0", as the JAX
+package reads them; `flash_attention_fwd` and `flash_attention_int8` also
+take them as arguments): both act only where the JAX package's one-shot
+kernel runs, non-causal attention over at most SINGLE_STEP_MAX_K keys;
+causal calls (K4), longer calls and the backward (K5) run unchanged.
+KWT_FA_NOMAX shifts each row's softmax by a Cauchy-Schwarz bound in place
+of its max: m_i = ||q_i|| * max_j ||k_j|| * scale for K1 (the norms in
+fp32, q's after the exact scale fold), and m_i = (qs_i ||q8_i||) * (scale
+* max_j ks_j ||k8_j||) over the int8 codes for K8, whose qkpv then rounds
+p8 against that bound in one pass. Shift-exact while the bound exceeds the
+row max by less than ~69 (-ln 1e-30); past it every p underflows, l is
+clamped to 1e-30 and the row's O reads 0, a fault of the JAX package that
+the port copies. On the card a pre-pass writes max_j ||k_j|| (K1) or max_j
+ks_j ||k8_j|| (K8) per (batch, head), and the kernels' no-max forms (their
+own C entries, counted also on `nomax_launches`) take each row's norm from
+its Q tile. KWT_FA_EXP2 computes K1's exponentials as exp2(s * scale *
+log2e - m) and its LSE as m ln2 + log l; it does not apply under an int8
+mode (the JAX package's int8 kernel takes no exp2). The card's K1 kernels
+compute exp2 in that form already (ex2 after one FFMA), so on the card it
+runs K1 as it is; the twin computes the JAX package's exp2 branch. K5
+runs on the forward's LSE, whichever form made it. KWT_FA_BQ only sets
+the TPU kernel's query block; the port's fixed 128-row tiles give the same
+result whatever it says, so it is not read.
 
 Each wrapper launches its kernel for CUDA tensors (D = 64; bf16, or fp32
 through the CUDA-core forms: csrc/flash_attention_f32.cu for K1 and K4,
@@ -68,19 +83,21 @@ from kotoba_whisper_tpu_torch.ops import _build
 # one-shot kernel, the only place it applies KWT_FA_INT8
 SINGLE_STEP_MAX_K = 4096
 INT8_MODES = ("", "qk", "qkpv")
-# the JAX package's switches of other arithmetic, which the port refuses
-UNPORTED_SWITCHES = ("KWT_FA_NOMAX", "KWT_FA_EXP2")
+LOG2E, LN2 = 1.4426950408889634, 0.6931471805599453
+L_MIN = 1e-30  # the floor of a row's sum, as the TPU kernels clamp it
 
 
-def _refuse_unported_switches():
-    """Raise ValueError naming the first of UNPORTED_SWITCHES that is set
-    to anything but "0" (the JAX package reads them as `!= "0"`)."""
-    for name in UNPORTED_SWITCHES:
-        value = os.environ.get(name, "0")
-        if value != "0":
-            raise ValueError(f"{name}={value!r} selects arithmetic of the JAX package's "
-                             "flash attention that the port does not implement; unset it "
-                             "or set it to '0'")
+def read_switches():
+    """(no_max, exp2): KWT_FA_NOMAX and KWT_FA_EXP2 as the JAX package reads
+    them, each on when set to anything but "0"."""
+    return (os.environ.get("KWT_FA_NOMAX", "0") != "0",
+            os.environ.get("KWT_FA_EXP2", "0") != "0")
+
+
+def _scale_exact(c, dtype):
+    """True when c is exact in dtype (the JAX package's `_scale_exact`):
+    then it folds into q in q's dtype without rounding."""
+    return float(torch.tensor(c, dtype=dtype)) == c
 
 
 def _scores(q, k, causal):
@@ -98,14 +115,78 @@ def _scores(q, k, causal):
     return qs, s
 
 
-def flash_attention_reference(q, k, v, causal=False):
+def flash_attention_reference(q, k, v, causal=False, *, no_max=False, exp2=False):
     """Plain twin of K1/K4: fp32 scores and softmax, LSE from
-    torch.logsumexp. -> (O in q.dtype, LSE (B, H, Tq) fp32)."""
+    torch.logsumexp. Under no_max or exp2 (non-causal only), the JAX
+    package's one-shot kernel step by step: c = scale (times log2e for
+    exp2) folded into q in q's dtype where exact, else applied to the fp32
+    scores; m the norm bound (no_max) or the row max; p = exp(s - m) or
+    exp2; P in q's dtype for P V; O = o / max(l, 1e-30); LSE = m (times ln2
+    for exp2) + log max(l, 1e-30). -> (O in q.dtype, LSE (B, H, Tq) fp32)."""
+    if no_max or exp2:
+        if causal:
+            raise ValueError("KWT_FA_NOMAX and KWT_FA_EXP2 apply to non-causal attention only")
+        return _one_shot_reference(q, k, v, no_max, exp2)
     _, s = _scores(q, k, causal)
     lse = torch.logsumexp(s, dim=-1)
     p = torch.exp(s - lse[..., None])
     o = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
     return o.to(q.dtype), lse
+
+
+def _one_shot_reference(q, k, v, no_max, exp2):
+    """`flash_attention_reference` under its switches, in the order of the
+    JAX package's `_fwd_kernel_single`."""
+    in_dtype = q.dtype
+    c = 1.0 / q.shape[-1] ** 0.5 * (LOG2E if exp2 else 1.0)
+    exact = _scale_exact(c, in_dtype)
+    qc = q * torch.tensor(c, dtype=in_dtype) if exact else q
+    s = torch.einsum("bqhd,bkhd->bhqk", qc.float(), k.float())
+    if not exact:
+        s = s * c
+    if no_max:
+        qn = qc.float().square().sum(-1).sqrt().transpose(1, 2)[..., None]  # (B, H, Tq, 1)
+        kn = k.float().square().sum(-1).amax(1).clamp(min=0.0).sqrt()       # (B, H)
+        m = qn * (kn * (1.0 if exact else c))[..., None, None]
+    else:
+        m = s.amax(-1, keepdim=True)
+    p = torch.exp2(s - m) if exp2 else torch.exp(s - m)
+    l_safe = p.sum(-1, keepdim=True).clamp(min=L_MIN)
+    o = torch.einsum("bhqk,bkhd->bqhd", p.to(in_dtype).float(), v.float())
+    lse = (m * LN2 if exp2 else m) + torch.log(l_safe)
+    return (o / l_safe.transpose(1, 2)).to(in_dtype), lse[..., 0]
+
+
+def no_max_witness(b, t, h, *, seed=0, big=480.0, q_norm=2.5):
+    """fp32 CPU (q, k, v), each (B, T, H, 64), on which the no-max forms
+    part from the max-based ones: in each (batch, head) key 17 has norm
+    `big` (~60x the others) along a unit u; even query rows lie along u
+    (the bound is tight) and odd rows orthogonal to it with norm q_norm,
+    where the bound 0.125 * q_norm * big = 150 exceeds every score by more
+    than 110, so every p underflows in fp32 and such rows read O = 0 (the
+    JAX package's fault); V = 1 + N(0, 1/4), so a row that sees any key
+    has |O| near 8. `no_max_slack` reads each row's margin."""
+    g = torch.Generator().manual_seed(seed)
+    q, k = (torch.randn(b, t, h, 64, generator=g, dtype=torch.float64) for _ in range(2))
+    v = 1.0 + 0.5 * torch.randn(b, t, h, 64, generator=g, dtype=torch.float64)
+    u = torch.randn(b, 1, h, 64, generator=g, dtype=torch.float64)
+    u = u / u.norm(dim=-1, keepdim=True)
+    k[:, 17:18] = big * u
+    q = q - (q * u).sum(-1, keepdim=True) * u
+    q = q * (q_norm / q.norm(dim=-1, keepdim=True))
+    q[:, 0::2] = q_norm * u
+    return tuple(x.float() for x in (q, k, v))
+
+
+def no_max_slack(q, k):
+    """The no-max bound less the row max of the scores, (B, H, Tq) fp32,
+    as K1's twin computes both: rows past ~69 lose their sum to the 1e-30
+    floor, and past ~103 (fp32's least subnormal) or ~87 (the card's
+    flush-to-zero exp2) every p is 0."""
+    qc, s = _scores(q, k, False)
+    bound = (qc.float().square().sum(-1).sqrt().transpose(1, 2)
+             * k.float().square().sum(-1).amax(1).sqrt()[..., None])
+    return bound - s.amax(-1)
 
 
 def _shapes(q_shape, k_shape, v_shape):
@@ -220,18 +301,27 @@ def _bwd_plan(q_layout, k_layout, v_layout, o_layout, do_layout, lse_layout, cau
                                                              int(direct), *strides)
 
 
-@lru_cache(maxsize=256)
-def _fwd_plan(q_layout, k_layout, v_layout, causal):
-    """What K1/K4's C entry reads of one call, from each tensor's (shape,
-    strides): (B, Tq, H) and the int64 array (B, Tq, Tk, H, causal, then
-    each of q, k, v's head, token and batch byte strides). Checked once per
-    set of layouts (the address is checked per call)."""
-    b, tq, tk, h = _shapes(q_layout[0], k_layout[0], v_layout[0])
+def _check_form(tq, tk, causal, no_max):
     if causal and tq > tk:
         raise ValueError(f"causal flash attention needs Tq <= Tk, got {tq} > {tk}")
+    if no_max and (causal or tk > SINGLE_STEP_MAX_K):
+        raise ValueError("the no-max forms take non-causal attention over at most "
+                         f"{SINGLE_STEP_MAX_K} keys (the JAX package's one-shot kernel)")
+
+
+@lru_cache(maxsize=256)
+def _fwd_plan(q_layout, k_layout, v_layout, causal, no_max=False):
+    """What K1/K4's C entry reads of one call, from each tensor's (shape,
+    strides): (B, Tq, H) and the int64 array (B, Tq, Tk, H, causal, then
+    each of q, k, v's head, token and batch byte strides, then no_max: K1's
+    no-max form). Checked once per set of layouts (the address is checked
+    per call)."""
+    b, tq, tk, h = _shapes(q_layout[0], k_layout[0], v_layout[0])
+    _check_form(tq, tk, causal, no_max)
     strides = [s for shape, stride in (q_layout, k_layout, v_layout)
                for s in _map_strides(shape, stride, 2)]
-    return (b, tq, h), (ctypes.c_longlong * 14)(b, tq, tk, h, int(causal), *strides)
+    return (b, tq, h), (ctypes.c_longlong * 15)(b, tq, tk, h, int(causal), *strides,
+                                                int(no_max))
 
 
 def _f32_strides(shape, stride, what):
@@ -248,17 +338,17 @@ def _f32_strides(shape, stride, what):
 
 
 @lru_cache(maxsize=256)
-def _f32_plan(q_layout, k_layout, v_layout, causal):
+def _f32_plan(q_layout, k_layout, v_layout, causal, no_max=False):
     """What the fp32 K1/K4's C entry reads of one call, from each tensor's
     (shape, strides): (B, Tq, H) and the int64 array (B, Tq, Tk, H, causal,
     then each of q, k, v's batch, token and head element strides,
-    `_f32_strides`)."""
+    `_f32_strides`, then no_max)."""
     b, tq, tk, h = _shapes(q_layout[0], k_layout[0], v_layout[0])
-    if causal and tq > tk:
-        raise ValueError(f"causal flash attention needs Tq <= Tk, got {tq} > {tk}")
+    _check_form(tq, tk, causal, no_max)
     strides = [s for shape, stride in (q_layout, k_layout, v_layout)
                for s in _f32_strides(shape, stride, "the fp32 K1/K4")]
-    return (b, tq, h), (ctypes.c_longlong * 14)(b, tq, tk, h, int(causal), *strides)
+    return (b, tq, h), (ctypes.c_longlong * 15)(b, tq, tk, h, int(causal), *strides,
+                                                int(no_max))
 
 
 # K5's fp32 form (csrc/flash_attention_bwd_f32.cu): 64-row query tiles and
@@ -315,15 +405,17 @@ def _bwd_f32_plan(q_layout, k_layout, v_layout, o_layout, do_layout, lse_layout,
     return (b, tq, tk, h, scratch), (ctypes.c_longlong * 20)(b, tq, tk, h, int(causal), *strides)
 
 
-def _flash_fwd_sm90(q, k, v, causal):
+def _flash_fwd_sm90(q, k, v, causal, no_max=False):
     """K1 (non-causal) or K4 (causal) on the card: dtype, shapes, strides,
     addresses and device checked, the two outputs allocated, one launch of
-    the bf16 kernel, or of the fp32 one for fp32 q, k and v."""
+    the bf16 kernel, or of the fp32 one for fp32 q, k and v; no_max: K1's
+    no-max form (a pre-pass for the key bound, then the kernel)."""
     f32 = q.dtype == k.dtype == v.dtype == torch.float32
     if not (f32 or q.dtype == k.dtype == v.dtype == torch.bfloat16):
         raise TypeError(f"flash attention kernels take bfloat16 or fp32 q, k and v of one dtype, "
                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
-    layouts = ((q.shape, q.stride()), (k.shape, k.stride()), (v.shape, v.stride()), causal)
+    layouts = ((q.shape, q.stride()), (k.shape, k.stride()), (v.shape, v.stride()), causal,
+               no_max)
     (b, tq, h), plan = _f32_plan(*layouts) if f32 else _fwd_plan(*layouts)
     qp, kp, vp = q.data_ptr(), k.data_ptr(), v.data_ptr()
     if (qp | kp | vp) % 16:
@@ -334,40 +426,71 @@ def _flash_fwd_sm90(q, k, v, causal):
     o = q.new_empty((b, tq, h, 64))
     lse = q.new_empty((b, h, tq), dtype=torch.float32)
     card = q.get_device()
-    entry = (("flash_attention_f32", "kwt_flash_attention_f32") if f32
-             else ("flash_attention_sm90", "kwt_flash_attention_sm90_fwd"))
-    rc = _build.function(*entry)(
-        card, qp, kp, vp, o.data_ptr(), lse.data_ptr(), plan, _build.stream_handle(card))
+    lib, fn = (("flash_attention_f32", "kwt_flash_attention_f32") if f32
+               else ("flash_attention_sm90", "kwt_flash_attention_sm90_fwd"))
+    if no_max:  # the pre-pass's max_j ||k_j|| of each (batch, head)
+        kmax = q.new_empty((b, h), dtype=torch.float32)
+        rc = _build.function(lib, fn + "_nomax")(
+            card, qp, kp, vp, o.data_ptr(), lse.data_ptr(), kmax.data_ptr(), plan,
+            _build.stream_handle(card))
+    else:
+        rc = _build.function(lib, fn)(
+            card, qp, kp, vp, o.data_ptr(), lse.data_ptr(), plan, _build.stream_handle(card))
     if rc != 0:
-        raise RuntimeError(f"{'K4' if causal else 'K1'} flash attention launch failed: "
-                           f"cudaError {rc}")
+        raise RuntimeError(f"{'K4' if causal else 'K1'} flash attention"
+                           f"{' (no-max)' if no_max else ''} launch failed: cudaError {rc}")
     if causal:
         flash_attention_fwd.causal_launches += 1
     else:
         flash_attention_fwd.launches += 1
+        flash_attention_fwd.nomax_launches += int(no_max)
     return o, lse
 
 
-def flash_attention_fwd(q, k, v, *, causal=False, int8_mode=None):
-    """K1 (causal=False) / K4 (causal=True) wrapper, or K8 where an int8
-    mode applies: the kernel for CUDA tensors, the plain twin for CPU
-    tensors. int8_mode None reads KWT_FA_INT8 ("", "qk" or "qkpv") on
-    non-causal calls. -> (O (B, Tq, H, D) in q.dtype, LSE (B, H, Tq) fp32)."""
-    _refuse_unported_switches()
+def _resolve(k, causal, int8_mode, no_max, exp2):
+    """The form a forward call takes, as the JAX package picks it: the int8
+    mode (None reads KWT_FA_INT8 on non-causal calls), no_max and exp2 (None
+    reads `read_switches`), all three only for non-causal calls over at most
+    SINGLE_STEP_MAX_K keys, and exp2 only without an int8 mode.
+    -> (int8_mode, no_max, exp2)."""
+    single = not causal and k.shape[1] <= SINGLE_STEP_MAX_K
+    env_no_max, env_exp2 = read_switches()
     if int8_mode is None and not causal:
         int8_mode = os.environ.get("KWT_FA_INT8", "")
+    if int8_mode and int8_mode not in INT8_MODES:
+        raise ValueError(f"int8 attention mode {int8_mode!r} is not one of {INT8_MODES}")
+    int8_mode = int8_mode if single else ""
+    no_max = single and (env_no_max if no_max is None else no_max)
+    exp2 = single and not int8_mode and (env_exp2 if exp2 is None else exp2)
+    return int8_mode, no_max, exp2
+
+
+def flash_attention_fwd(q, k, v, *, causal=False, int8_mode=None, no_max=None, exp2=None):
+    """K1 (causal=False) / K4 (causal=True) wrapper, or K8 where an int8
+    mode applies: the kernel for CUDA tensors, the plain twin for CPU
+    tensors. int8_mode, no_max and exp2 as `_resolve` takes them. ->
+    (O (B, Tq, H, D) in q.dtype, LSE (B, H, Tq) fp32)."""
+    int8_mode, no_max, exp2 = _resolve(k, causal, int8_mode, no_max, exp2)
     if int8_mode:
-        if int8_mode not in INT8_MODES:
-            raise ValueError(f"int8 attention mode {int8_mode!r} is not one of {INT8_MODES}")
-        if not causal and k.shape[1] <= SINGLE_STEP_MAX_K:
-            return flash_attention_int8(q, k, v, mode=int8_mode)
+        return flash_attention_int8(q, k, v, mode=int8_mode, no_max=no_max)
     if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, causal)
-    return _flash_fwd_sm90(q, k, v, causal)
+        return flash_attention_reference(q, k, v, causal, no_max=no_max, exp2=exp2)
+    return _flash_fwd_sm90(q, k, v, causal, no_max)
+
+
+def flash_attention_fwd_reference(q, k, v, *, causal=False, int8_mode=None, no_max=None,
+                                  exp2=None):
+    """The plain twin of what `flash_attention_fwd` runs for these
+    arguments and switches, on any device (the plain path on the card)."""
+    int8_mode, no_max, exp2 = _resolve(k, causal, int8_mode, no_max, exp2)
+    if int8_mode:
+        return _int8_twin(q, k, v, int8_mode == "qkpv", no_max)
+    return flash_attention_reference(q, k, v, causal, no_max=no_max, exp2=exp2)
 
 
 flash_attention_fwd.launches = 0          # K1
 flash_attention_fwd.causal_launches = 0   # K4
+flash_attention_fwd.nomax_launches = 0    # K1's no-max form (also counted in launches)
 
 
 # ---------------------------------------------------------------------------
@@ -392,23 +515,30 @@ def quantize_v_cols(v):
     return torch.round(vf / vs).to(torch.int8), vs[:, 0]
 
 
-def flash_attention_int8_reference(q, k8, ks, v, vs, pv8):
+def flash_attention_int8_reference(q, k8, ks, v, vs, pv8, no_max=False):
     """Plain twin of K8, step by step as the TPU kernel in one pass:
     q quantized per row (round half to even), s32 scores (exact in fp32),
-    s = s32 * ((qs / 8) * ks), softmax against the row max; qkpv: p8 =
-    round(p * 127), exact integer P V, times (1/127) * vs; qk: P in q's
-    dtype times V. v is int8 (qkpv) or in q's dtype (qk).
-    -> (O (B, Tq, H, D) in q.dtype, LSE (B, H, Tq) fp32)."""
+    s = s32 * ((qs / 8) * ks), softmax against the row max or, no_max, the
+    bound m = (qs * ||q8||) * (1/8 * max_j ks_j ||k8_j||) (integer codes
+    squared in fp32); qkpv: p8 = round(p * 127), exact integer P V, times
+    (1/127) * vs; qk: P in q's dtype times V. v is int8 (qkpv) or in q's
+    dtype (qk). -> (O (B, Tq, H, D) in q.dtype, LSE (B, H, Tq) fp32)."""
     in_dtype = q.dtype
+    scale = 1.0 / q.shape[-1] ** 0.5
     qf = q.float()
     qs = torch.clamp(qf.abs().amax(dim=-1, keepdim=True), min=1e-8) * (1.0 / 127.0)
     q8 = torch.round(qf / qs)
     s32 = torch.einsum("bqhd,bkhd->bhqk", q8, k8.float())
-    qsc = qs[..., 0].transpose(1, 2)[..., None] * (1.0 / q.shape[-1] ** 0.5)
+    qsc = qs[..., 0].transpose(1, 2)[..., None] * scale
     s = s32 * (qsc * ks[:, :, None, :])
-    m = s.amax(dim=-1, keepdim=True)
+    if no_max:
+        qn = q8.square().sum(-1).sqrt()                                   # (B, Tq, H)
+        kmax = (ks * k8.float().square().sum(-1).sqrt().transpose(1, 2)).amax(-1)  # (B, H)
+        m = (qs[..., 0] * qn).transpose(1, 2)[..., None] * (scale * kmax)[..., None, None]
+    else:
+        m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
-    l_safe = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
+    l_safe = torch.clamp(p.sum(dim=-1, keepdim=True), min=L_MIN)
     if pv8:
         p8 = torch.round(p * 127.0)
         o32 = torch.einsum("bhqk,bkhd->bhqd", p8.double(), v.double()).float()
@@ -430,34 +560,43 @@ V8T_KEY_ORDER = tuple(16 * (k >> 4) + 8 * ((k & 3) >> 1) + 2 * ((k >> 2) & 3) + 
                       for k in range(32))
 
 
-def int8_prepass_reference(k, v, pv8):
+def int8_prepass_reference(k, v, pv8, no_max=False):
     """Plain twin of K8's pre-pass: `quantize_k_rows` and, for qkpv,
     `quantize_v_cols`, laid out as the kernel writes them: k8 (B, Tk, H,
     64), ks (B, H, tk_pad) with zero scales past Tk, V8^T (B, H, 64,
     tk_pad) with zero keys past Tk and each 32-key group in V8T_KEY_ORDER,
-    and vs (B, H, 64). -> (k8, ks, V8^T, vs); the last two None for qk."""
+    and vs (B, H, 64); no_max: also kn (B, H, tk_pad), each key's ks
+    ||k8|| (zero past Tk), and kmax (B, H), their max. -> (k8, ks, V8^T,
+    vs), the last two None for qk, then (kn, kmax) for no_max."""
     b, tk, h, d = k.shape
     tk_pad = -(-tk // INT8_KTILE) * INT8_KTILE
     k8, ks = quantize_k_rows(k)
+    bound = ()
+    if no_max:
+        kn = ks * k8.float().square().sum(-1).sqrt().transpose(1, 2)
+        bound = (F.pad(kn, (0, tk_pad - tk)), kn.amax(-1))
     ks = F.pad(ks, (0, tk_pad - tk))
     if not pv8:
-        return k8, ks, None, None
+        return (k8, ks, None, None, *bound)
     v8, vs = quantize_v_cols(v)
     v8t = F.pad(v8.permute(0, 2, 3, 1), (0, tk_pad - tk))
     order = torch.tensor(V8T_KEY_ORDER, device=k.device)
     v8t = v8t.reshape(b, h, d, tk_pad // 32, 32)[..., order].reshape(b, h, d, tk_pad)
-    return k8, ks, v8t, vs
+    return (k8, ks, v8t, vs, *bound)
 
 
 @lru_cache(maxsize=256)
-def _int8_plan(q_layout, k_layout, v_layout, pv8, f32=False):
+def _int8_plan(q_layout, k_layout, v_layout, pv8, f32=False, no_max=False):
     """What K8's C entry reads of one call, from each tensor's (shape,
-    strides): (B, Tq, Tk, H, tk_pad, the byte offsets of ks, V8^T and vs in
-    the pre-pass's scratch, which starts with k8, and its size in bytes)
-    and the int64 array (B, Tq, Tk, H, pv8, tk_pad, the head, token and
-    batch byte strides of q, k and v, the three offsets, f32: the fp32-q
-    form, whose float4 loads take the same 16-byte strides). Checked once
-    per set of layouts (the addresses are checked per call)."""
+    strides): (B, Tq, Tk, H, tk_pad, the byte offsets of ks, V8^T, vs, kn
+    and kmax in the pre-pass's scratch, which starts with k8, and its size
+    in bytes) and the int64 array (B, Tq, Tk, H, pv8, tk_pad, the head,
+    token and batch byte strides of q, k and v, the offsets of ks, V8^T and
+    vs, f32: the fp32-q form, whose float4 loads take the same 16-byte
+    strides, no_max: the no-max form, then the offsets of kn and kmax).
+    no_max's scratch adds kn (B, H, tk_pad) fp32, each key's ks ||k8||
+    (zero past Tk), and kmax (B, H) fp32, their max. Checked once per set
+    of layouts (the addresses are checked per call)."""
     b, tq, tk, h = _shapes(q_layout[0], k_layout[0], v_layout[0])
     if tk > SINGLE_STEP_MAX_K:
         raise ValueError(f"K8 takes at most {SINGLE_STEP_MAX_K} keys (the JAX package's "
@@ -468,24 +607,26 @@ def _int8_plan(q_layout, k_layout, v_layout, pv8, f32=False):
     ks_off = b * tk * h * 64
     v8t_off = ks_off + b * h * tk_pad * 4
     vs_off = v8t_off + (b * h * 64 * tk_pad if pv8 else 0)
-    size = vs_off + (b * h * 64 * 4 if pv8 else 0)
-    return ((b, tq, tk, h, tk_pad, ks_off, v8t_off, vs_off, size),
-            (ctypes.c_longlong * 19)(b, tq, tk, h, int(pv8), tk_pad, *strides, ks_off, v8t_off,
-                                     vs_off, int(f32)))
+    kn_off = vs_off + (b * h * 64 * 4 if pv8 else 0)
+    kmax_off = kn_off + (b * h * tk_pad * 4 if no_max else 0)
+    size = kmax_off + (-(-b * h // 4) * 16 if no_max else 0)
+    return ((b, tq, tk, h, tk_pad, ks_off, v8t_off, vs_off, kn_off, kmax_off, size),
+            (ctypes.c_longlong * 22)(b, tq, tk, h, int(pv8), tk_pad, *strides, ks_off, v8t_off,
+                                     vs_off, int(f32), int(no_max), kn_off, kmax_off))
 
 
-def _flash_int8_sm90(q, k, v, pv8, phases=3, scratch=None):
+def _flash_int8_sm90(q, k, v, pv8, phases=3, scratch=None, no_max=False):
     """K8 on the card: dtypes, layouts, addresses and device checked, O, LSE
     and the pre-pass's scratch allocated (or `scratch` reused), then the
-    quantize pre-pass (phases bit 0) and the main kernel (bit 1) launched:
-    the bf16 form, or the fp32-q form for fp32 q, k and v.
-    -> (O, LSE, scratch)."""
+    quantize pre-pass (phases bit 0; no_max: also the key bound's max) and
+    the main kernel (bit 1) launched: the bf16 form, or the fp32-q form for
+    fp32 q, k and v; no_max through its own C entry. -> (O, LSE, scratch)."""
     f32 = q.dtype == k.dtype == v.dtype == torch.float32
     if not (f32 or q.dtype == k.dtype == v.dtype == torch.bfloat16):
         raise TypeError(f"K8 takes bfloat16 or fp32 q, k and v of one dtype, got {q.dtype}, "
                         f"{k.dtype}, {v.dtype}")
     meta, plan = _int8_plan((q.shape, q.stride()), (k.shape, k.stride()),
-                            (v.shape, v.stride()), pv8, f32)
+                            (v.shape, v.stride()), pv8, f32, no_max)
     b, tq, _, h = meta[:4]
     qp, kp, vp = q.data_ptr(), k.data_ptr(), v.data_ptr()
     if (qp | kp | vp) % 16:
@@ -500,57 +641,68 @@ def _flash_int8_sm90(q, k, v, pv8, phases=3, scratch=None):
     o = q.new_empty((b, tq, h, 64))
     lse = q.new_empty((b, h, tq), dtype=torch.float32)
     card = q.get_device()
-    rc = _build.function("flash_attention_int8", "kwt_flash_attention_int8")(
+    fn = "kwt_flash_attention_int8_nomax" if no_max else "kwt_flash_attention_int8"
+    rc = _build.function("flash_attention_int8", fn)(
         card, qp, kp, vp, o.data_ptr(), lse.data_ptr(), scratch.data_ptr(), plan, phases,
         _build.stream_handle(card))
     if rc != 0:
-        raise RuntimeError(f"K8 int8 attention ({'qkpv' if pv8 else 'qk'}) launch failed: "
-                           f"cudaError {rc}")
+        raise RuntimeError(f"K8 int8 attention ({'qkpv' if pv8 else 'qk'}"
+                           f"{', no-max' if no_max else ''}) launch failed: cudaError {rc}")
     return o, lse, scratch
 
 
-def int8_prepass(q, k, v, *, mode):
+def int8_prepass(q, k, v, *, mode, no_max=False):
     """K8's quantize pre-pass alone on the card (not counted in
-    `flash_attention_int8.launches`: it checks and times the pre-pass).
-    -> (k8, ks, V8^T, vs) as `int8_prepass_reference` lays them out, viewed
-    in the scratch; the last two None for qk."""
+    `flash_attention_int8.launches`: it checks and times the pre-pass);
+    no_max: with the key bound's max. -> its outputs as
+    `int8_prepass_reference` lays them out, viewed in the scratch."""
     pv8 = mode == "qkpv"
-    _, _, scratch = _flash_int8_sm90(q, k, v, pv8, phases=1)
-    b, _, tk, h, tk_pad, ks_off, v8t_off, vs_off, _ = _int8_plan(
+    _, _, scratch = _flash_int8_sm90(q, k, v, pv8, phases=1, no_max=no_max)
+    b, _, tk, h, tk_pad, ks_off, v8t_off, vs_off, kn_off, kmax_off, _ = _int8_plan(
         (q.shape, q.stride()), (k.shape, k.stride()), (v.shape, v.stride()), pv8,
-        q.dtype == torch.float32)[0]
+        q.dtype == torch.float32, no_max)[0]
 
     def view(off, dtype, shape):
         n = math.prod(shape) * torch.empty((), dtype=dtype).element_size()
         return scratch[off:off + n].view(dtype).view(shape)
 
-    k8 = view(0, torch.int8, (b, tk, h, 64))
-    ks = view(ks_off, torch.float32, (b, h, tk_pad))
-    if not pv8:
-        return k8, ks, None, None
-    return (k8, ks, view(v8t_off, torch.int8, (b, h, 64, tk_pad)),
-            view(vs_off, torch.float32, (b, h, 64)))
+    out = (view(0, torch.int8, (b, tk, h, 64)), view(ks_off, torch.float32, (b, h, tk_pad)))
+    out += ((view(v8t_off, torch.int8, (b, h, 64, tk_pad)),
+             view(vs_off, torch.float32, (b, h, 64))) if pv8 else (None, None))
+    if no_max:
+        out += (view(kn_off, torch.float32, (b, h, tk_pad)), view(kmax_off, torch.float32, (b, h)))
+    return out
 
 
-def flash_attention_int8(q, k, v, *, mode):
+def _int8_twin(q, k, v, pv8, no_max):
+    """K8's plain twin from q, k and v: K (and, for qkpv, V) quantized by
+    torch ops, as the JAX package quantizes them in XLA."""
+    k8, ks = quantize_k_rows(k)
+    v_in, vs = quantize_v_cols(v) if pv8 else (v, None)
+    return flash_attention_int8_reference(q, k8, ks, v_in, vs, pv8, no_max)
+
+
+def flash_attention_int8(q, k, v, *, mode, no_max=None):
     """K8 wrapper: for CUDA tensors the quantize pre-pass and the kernel
-    (two launches, one count); for CPU tensors K (and, for qkpv, V)
-    quantized with torch ops, as the JAX package does it in XLA, and the
-    plain twin. -> (O, LSE) as flash_attention_fwd."""
-    _refuse_unported_switches()
+    (two launches, three with no_max's key bound, one count); for CPU
+    tensors K (and, for qkpv, V) quantized with torch ops, as the JAX
+    package does it in XLA, and the plain twin. no_max None reads
+    KWT_FA_NOMAX. -> (O, LSE) as flash_attention_fwd."""
     if mode not in ("qk", "qkpv"):
         raise ValueError(f"K8 modes are 'qk' and 'qkpv', got {mode!r}")
+    if no_max is None:
+        no_max = read_switches()[0]
     pv8 = mode == "qkpv"
     if q.device.type == "cpu":
-        k8, ks = quantize_k_rows(k)
-        v_in, vs = quantize_v_cols(v) if pv8 else (v, None)
-        return flash_attention_int8_reference(q, k8, ks, v_in, vs, pv8)
-    o, lse, _ = _flash_int8_sm90(q, k, v, pv8)
+        return _int8_twin(q, k, v, pv8, no_max)
+    o, lse, _ = _flash_int8_sm90(q, k, v, pv8, no_max=no_max)
     flash_attention_int8.launches += 1
+    flash_attention_int8.nomax_launches += int(no_max)
     return o, lse
 
 
-flash_attention_int8.launches = 0  # K8, both modes
+flash_attention_int8.launches = 0        # K8, both modes
+flash_attention_int8.nomax_launches = 0  # its no-max forms (also counted in launches)
 
 
 def attention_delta(o, do):
@@ -651,7 +803,6 @@ def flash_attention(q, k, v, *, causal=False):
     """(B, Tq, H, D) x (B, Tk, H, D) -> (B, Tq, H, D); softmax(QK^T/sqrt(D))V,
     differentiable. causal requires Tq == Tk (the model's only causal use,
     decoder self-attention over a full block)."""
-    _refuse_unported_switches()
     if causal and q.shape[1] != k.shape[1]:
         raise ValueError("causal flash attention requires Tq == Tk")
     return FlashAttention.apply(q, k, v, causal)

@@ -189,6 +189,26 @@ def _k8_f32(c):
     fa.flash_attention_int8(q, q, q, mode="qkpv")
 
 
+def _k1_nomax(c):
+    x = _bf16(1, 64, 2, 64)
+    fa.flash_attention_fwd(x, x, x, no_max=True)
+
+
+def _k1_f32_nomax(c):
+    x = _bf16(1, 64, 2, 64, dtype=torch.float32)
+    fa.flash_attention_fwd(x, x, x, no_max=True)
+
+
+def _k8_nomax(c):
+    x = _bf16(1, 64, 2, 64)
+    fa.flash_attention_int8(x, x, x, mode="qkpv", no_max=True)
+
+
+def _k8_f32_nomax(c):
+    x = _bf16(1, 64, 2, 64, dtype=torch.float32)
+    fa.flash_attention_int8(x, x, x, mode="qk", no_max=True)
+
+
 def _k3(c):
     mel.log_mel_frames(on_card(torch.zeros(1, 480000)), FeatureConfig())
 
@@ -251,6 +271,10 @@ WRAPPERS = {
     "K6 add fp32": (_k6_add_f32, "kwt_layer_norm"),
     "K7 fp32": (_k7_f32, "kwt_conv_stem_f32"),
     "K9": (_k9, "kwt_vpu_cal"),
+    "K1 no-max": (_k1_nomax, "kwt_flash_attention_sm90_fwd_nomax"),
+    "K1 fp32 no-max": (_k1_f32_nomax, "kwt_flash_attention_f32_nomax"),
+    "K8 no-max": (_k8_nomax, "kwt_flash_attention_int8_nomax"),
+    "K8 fp32 no-max": (_k8_f32_nomax, "kwt_flash_attention_int8_nomax"),
 }
 
 

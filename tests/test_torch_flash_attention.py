@@ -57,20 +57,3 @@ def test_wrapper_takes_plain_twin_on_cpu():
     torch.testing.assert_close(o, ro)
     torch.testing.assert_close(lse, rlse)
     assert tfa.flash_attention_fwd.launches == before
-
-
-@pytest.mark.parametrize("entry", ["flash_attention", "flash_attention_fwd", "flash_attention_int8"])
-@pytest.mark.parametrize("name", ["KWT_FA_NOMAX", "KWT_FA_EXP2"])
-def test_unported_jax_switches_raise(monkeypatch, name, entry):
-    """The JAX package's no-max softmax and exp2 switches change its
-    arithmetic; the port does not implement them, so its wrappers refuse
-    to run while one is set, on the CPU as on the card."""
-    q, k, v = (torch.from_numpy(x) for x in _qkv(5, 1, 8, 8))
-    call = {"flash_attention": lambda: tfa.flash_attention(q, k, v),
-            "flash_attention_fwd": lambda: tfa.flash_attention_fwd(q, k, v),
-            "flash_attention_int8": lambda: tfa.flash_attention_int8(q, k, v, mode="qk")}[entry]
-    monkeypatch.setenv(name, "1")
-    with pytest.raises(ValueError, match=name):
-        call()
-    monkeypatch.setenv(name, "0")  # "0" is the JAX package's off
-    call()

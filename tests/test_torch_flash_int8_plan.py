@@ -426,34 +426,58 @@ def _layouts(*ts):
     return tuple((t.shape, t.stride()) for t in ts)
 
 
+def _int8_case(fused, f32):
+    b, tq, tk, h = 2, 70, 300, 4
+    dtype = torch.float32 if f32 else torch.bfloat16
+    if fused:
+        return tuple(x.reshape(b, tk, h, 64)
+                     for x in torch.zeros(b, tk, 3 * h * 64, dtype=dtype).chunk(3, dim=-1))
+    return tuple(torch.zeros(b, t, h, 64, dtype=dtype) for t in (tq, tk, tk))
+
+
 @pytest.mark.parametrize("f32", [False, True])
 @pytest.mark.parametrize("pv8", [False, True])
 @pytest.mark.parametrize("fused", [False, True])
 def test_int8_plan_packs_shapes_strides_and_offsets(fused, pv8, f32):
     """bf16, or fp32 (the fp32-q form: the same scratch, 4-byte strides,
-    the flag last)."""
-    b, tq, tk, h = 2, 70, 300, 4
-    dtype, elem = (torch.float32, 4) if f32 else (torch.bfloat16, 2)
-    if fused:
-        tq = tk
-        q, k, v = (x.reshape(b, tk, h, 64)
-                   for x in torch.zeros(b, tk, 3 * h * 64, dtype=dtype).chunk(3, dim=-1))
-    else:
-        q, k, v = (torch.zeros(b, t, h, 64, dtype=dtype) for t in (tq, tk, tk))
+    its flag after the offsets); the no-max flag 0 and its two offsets at
+    the scratch's end."""
+    q, k, v = _int8_case(fused, f32)
+    (b, tq, h), tk, elem = q.shape[:1] + q.shape[1:3], k.shape[1], 4 if f32 else 2
     meta, plan = fa._int8_plan(*_layouts(q, k, v), pv8, f32)
     tk_pad = 384
     ks_off = b * tk * h * 64
     v8t_off = ks_off + b * h * tk_pad * 4
     vs_off = v8t_off + (b * h * 64 * tk_pad if pv8 else 0)
     size = vs_off + (b * h * 64 * 4 if pv8 else 0)
-    assert meta == (b, tq, tk, h, tk_pad, ks_off, v8t_off, vs_off, size)
+    assert meta == (b, tq, tk, h, tk_pad, ks_off, v8t_off, vs_off, size, size, size)
     strides = [s for t in (q, k, v) for s in fa._map_strides(t.shape, t.stride(), elem)]
     if fused:
         assert strides[1] == 3 * h * 64 * elem  # q's token stride: the fused row
     assert list(plan) == [b, tq, tk, h, int(pv8), tk_pad, *strides, ks_off, v8t_off, vs_off,
-                          int(f32)]
+                          int(f32), 0, size, size]
     assert all(off % 16 == 0 for off in (ks_off, v8t_off, vs_off))
     assert fa._int8_plan(*_layouts(q, k, v), pv8, f32)[1] is plan  # cached per set of layouts
+
+
+@pytest.mark.parametrize("f32", [False, True])
+@pytest.mark.parametrize("pv8", [False, True])
+@pytest.mark.parametrize("fused", [False, True])
+def test_int8_plan_of_the_no_max_forms(fused, pv8, f32):
+    """no_max: its flag, and the scratch extended by each key's bound kn
+    (B, H, tk_pad) fp32 and their max per (batch, head), 16-byte aligned;
+    a plan of its own in the cache."""
+    q, k, v = _int8_case(fused, f32)
+    layouts = _layouts(q, k, v)
+    base_meta, base = fa._int8_plan(*layouts, pv8, f32)
+    meta, plan = fa._int8_plan(*layouts, pv8, f32, True)
+    b, tq, tk, h, tk_pad = base_meta[:5]
+    kn_off = base_meta[-1]
+    kmax_off = kn_off + b * h * tk_pad * 4
+    assert meta == (*base_meta[:8], kn_off, kmax_off, kmax_off + 16 * -(-b * h // 4))
+    assert list(plan) == [*list(base)[:19], 1, kn_off, kmax_off]
+    assert kn_off % 16 == 0 and kmax_off % 16 == 0
+    assert plan is not base and fa._int8_plan(*layouts, pv8, f32, True)[1] is plan
 
 
 @pytest.mark.parametrize("what", ["token stride", "too many keys", "head dim", "kv shapes"])

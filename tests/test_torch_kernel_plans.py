@@ -383,7 +383,29 @@ def test_fwd_plan_packs_shapes_and_strides(causal):
                                       (v.shape, v.stride()), causal)
     assert (bb, tq, hh) == (b, t, h)
     assert list(plan) == [b, t, t, h, int(causal), *_strides(q), *_strides(k),
-                          *_strides(v)]
+                          *_strides(v), 0]
+
+
+@pytest.mark.parametrize("f32", [False, True])
+def test_fwd_plan_carries_the_no_max_form(f32):
+    """K1's no-max form: the same plan with its flag last, a plan of its own
+    in the cache; causal calls and more than SINGLE_STEP_MAX_K keys are
+    refused (the JAX package's no-max branch is its one-shot kernel's)."""
+    b, t, h = 2, 130, 4
+    dtype = torch.float32 if f32 else torch.bfloat16
+    q, k, v = (x.reshape(b, t, h, 64)
+               for x in torch.zeros(b, t, 3 * h * 64, dtype=dtype).chunk(3, dim=-1))
+    plan_of = fa._f32_plan if f32 else fa._fwd_plan
+    layouts = ((q.shape, q.stride()), (k.shape, k.stride()), (v.shape, v.stride()))
+    _, base = plan_of(*layouts, False)
+    meta, plan = plan_of(*layouts, False, True)
+    assert meta == (b, t, h) and list(plan) == [*list(base)[:14], 1] and plan is not base
+    with pytest.raises(ValueError, match="non-causal"):
+        plan_of(*layouts, True, True)
+    long_k = torch.zeros(1, fa.SINGLE_STEP_MAX_K + 1, 1, 64, dtype=dtype)
+    q1 = torch.zeros(1, 8, 1, 64, dtype=dtype)
+    with pytest.raises(ValueError, match="non-causal"):
+        plan_of((q1.shape, q1.stride()), *[(long_k.shape, long_k.stride())] * 2, False, True)
 
 
 def test_fwd_plan_rejects_causal_with_more_queries_than_keys():

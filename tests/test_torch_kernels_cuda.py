@@ -1623,3 +1623,167 @@ def test_new_f32_forms_first_call_in_a_new_thread(form):
         assert got, f"{form} raised in the new thread"
         torch.cuda.synchronize()
         assert torch.equal(got[0], want)
+
+
+# ---------------------------------------------------------------------------
+# The no-max forms (KWT_FA_NOMAX) of K1 (bf16 and fp32) and K8 (qk and
+# qkpv, bf16 and fp32 q), and KWT_FA_EXP2 on the card: each held to its
+# no-max twin as its max-based form is held to its twin (bf16 by
+# `_assert_near`, fp32 by `_assert_fp32`), also on `no_max_witness`, where
+# rows underflow to 0 in the twin and in the kernel alike and the
+# max-based twin reads relative L2 >= 0.5 away
+# ---------------------------------------------------------------------------
+
+def _no_max_twin(q, k, v, mode):
+    return fa.flash_attention_fwd_reference(q, k, v, int8_mode=mode, no_max=True)
+
+
+def _assert_form(o, lse, ro, rlse):
+    if o.dtype == torch.float32:
+        _assert_fp32(o, ro)
+        torch.testing.assert_close(lse, rlse, atol=1e-5, rtol=1e-6)
+    else:
+        _assert_near(o, ro, atol=5e-3)
+        torch.testing.assert_close(lse, rlse, atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("mode", ["", "qk", "qkpv"], ids=["K1", "K8qk", "K8qkpv"])
+@pytest.mark.parametrize("b, tq, tk, h", [
+    (2, 1500, 1500, 20),  # the encoder
+    (8, 128, 1500, 20),   # the training cross-attention
+    (1, 70, 130, 3), (3, 64, 1, 2), (1, 200, 4096, 2),
+])
+def test_no_max_forms(dtype, mode, b, tq, tk, h):
+    """Each no-max form launches once through its own C entry (counted in
+    its kernel's launches and in nomax_launches) and equals its twin."""
+    q = _randn(b, tq, h, 64, seed=300, dtype=dtype)
+    k, v = (_randn(b, tk, h, 64, seed=s, dtype=dtype) for s in (301, 302))
+    counter = fa.flash_attention_int8 if mode else fa.flash_attention_fwd
+    before = (counter.launches, counter.nomax_launches)
+    o, lse = fa.flash_attention_fwd(q, k, v, int8_mode=mode, no_max=True)
+    torch.cuda.synchronize()
+    assert (counter.launches, counter.nomax_launches) == (before[0] + 1, before[1] + 1)
+    _assert_form(o, lse, *_no_max_twin(q, k, v, mode))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("mode", ["", "qk", "qkpv"], ids=["K1", "K8qk", "K8qkpv"])
+def test_no_max_forms_on_the_underflow_witness(dtype, mode):
+    """On `no_max_witness` (odd rows >= 110 past their max, even rows at
+    it): the odd rows are exactly 0 in the kernel and the twin, every row
+    within the bar of the twin, the LSE within 1e-5 relative (bf16 1e-4),
+    and the max-based twin >= 0.5 away from both."""
+    q, k, v = (x.to("cuda", dtype) for x in fa.no_max_witness(2, 1500, 4, seed=5))
+    slack = fa.no_max_slack(q, k)
+    assert float(slack[..., 1::2].min()) >= 110 and float(slack[..., 0::2].max()) <= 60
+    o, lse = fa.flash_attention_fwd(q, k, v, int8_mode=mode, no_max=True)
+    ro, rlse = _no_max_twin(q, k, v, mode)
+    mo = fa.flash_attention_fwd(q, k, v, int8_mode=mode, no_max=False)[0]
+    torch.cuda.synchronize()
+    assert torch.all(o[:, 1::2] == 0) and torch.all(ro[:, 1::2] == 0)
+    if dtype == torch.float32:
+        _assert_fp32(o, ro)
+    else:
+        _assert_near(o, ro, atol=5e-3)
+    torch.testing.assert_close(lse, rlse, atol=0, rtol=1e-5 if dtype == torch.float32 else 1e-4)
+    for x in (o, ro):
+        assert float((mo.float() - x.float()).norm() / x.float().norm()) >= 0.5
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+def test_no_max_prepass_of_k8(dtype):
+    """K8's pre-pass with no_max also writes each key's ks ||k8|| and their
+    max per (batch, head), bit for bit as the twin (codes squared and summed
+    exactly, one correctly rounded sqrt and product), from fused strides."""
+    b, t, h = 2, 300, 4
+    q, k, v = (x.reshape(b, t, h, 64)
+               for x in _randn(b, t, 3 * h * 64, seed=303, dtype=dtype).chunk(3, -1))
+    for mode in ("qk", "qkpv"):
+        got = fa.int8_prepass(q, k, v, mode=mode, no_max=True)
+        torch.cuda.synchronize()
+        want = fa.int8_prepass_reference(k, v, mode == "qkpv", no_max=True)
+        assert len(got) == len(want) == 6
+        for name, g, w in zip(("k8", "ks", "v8t", "vs", "kn", "kmax"), got, want):
+            assert (g is None) == (w is None), name
+            assert w is None or torch.equal(g, w), (mode, name)
+
+
+@pytest.mark.parametrize("form", ["K1", "K1fp32", "K8qk", "K8qkpv", "K8qkfp32", "K8qkpvfp32"])
+def test_no_max_forms_replay_in_a_cuda_graph(form):
+    """Each no-max form allocates only its outputs and scratch and launches
+    its pre-pass and kernel on the current stream: a CUDA graph of the call
+    at the encoder's shape replays to the eager result, bit for bit, on new
+    keys too (the key bound is recomputed)."""
+    dtype = torch.float32 if form.endswith("fp32") else torch.bfloat16
+    mode = form[2:].replace("fp32", "")
+    q, k, v = (_randn(2, 1500, 20, 64, seed=s, dtype=dtype) for s in (304, 305, 306))
+
+    def call():
+        return fa.flash_attention_fwd(q, k, v, int8_mode=mode, no_max=True)
+
+    call()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    for fresh in (False, True):
+        if fresh:
+            k.copy_(_randn(2, 1500, 20, 64, seed=307, dtype=dtype) * 3)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = call()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(out, want)), fresh
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+def test_exp2_runs_k1_as_it_is(dtype):
+    """KWT_FA_EXP2: the card's K1 already takes its exponentials as ex2
+    after one FFMA, the arithmetic of the JAX package's exp2 branch, so
+    exp2 launches K1's own entry: the same bits as without it, within the
+    bar of the exp2 twin; under no_max the no-max form's."""
+    q, k, v = (_randn(2, 1500, 20, 64, seed=s, dtype=dtype) for s in (308, 309, 310))
+    for no_max in (False, True):
+        base = fa.flash_attention_fwd(q, k, v, no_max=no_max, exp2=False)
+        got = fa.flash_attention_fwd(q, k, v, no_max=no_max, exp2=True)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], base[0]) and torch.equal(got[1], base[1])
+        _assert_form(*got, *fa.flash_attention_reference(q, k, v, no_max=no_max, exp2=True))
+
+
+def test_switches_leave_k4_and_long_calls():
+    """Causal (K4) and longer-than-4096-key calls take the default forms
+    under no_max and exp2, as the JAX package's online-softmax kernel."""
+    q, k, v = (_randn(8, 128, 20, 64, seed=s) for s in (311, 312, 313))
+    before = fa.flash_attention_fwd.nomax_launches
+    a = fa.flash_attention_fwd(q, k, v, causal=True, no_max=True, exp2=True)
+    b_ = fa.flash_attention_fwd(q, k, v, causal=True)
+    ql, kl, vl = (_randn(1, t, 2, 64, seed=314) for t in (64, 4100, 4100))
+    c = fa.flash_attention_fwd(ql, kl, vl, no_max=True, exp2=True)
+    d = fa.flash_attention_fwd(ql, kl, vl)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_fwd.nomax_launches == before
+    assert all(torch.equal(x, y) for x, y in zip((*a, *c), (*b_, *d)))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+def test_no_max_autograd_cross_on_card(monkeypatch, dtype):
+    """Under KWT_FA_NOMAX, FlashAttention's gradients through K1's no-max
+    forward (its LSE) and K5 at the training cross-attention shape against
+    autograd of the plain path."""
+    monkeypatch.setenv("KWT_FA_NOMAX", "1")
+    q = _randn(2, 128, 4, 64, seed=315, dtype=dtype).requires_grad_()
+    k, v = (_randn(2, 1500, 4, 64, seed=s, dtype=dtype).requires_grad_() for s in (316, 317))
+    do = _randn(2, 128, 4, 64, seed=318, dtype=dtype)
+    before = fa.flash_attention_fwd.nomax_launches
+    fa.flash_attention(q, k, v).backward(do)
+    assert fa.flash_attention_fwd.nomax_launches == before + 1
+    got = [t.grad for t in (q, k, v)]
+    q2, k2, v2 = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    fa.flash_attention_reference(q2, k2, v2)[0].backward(do)
+    for name, g, t in zip(("dq", "dk", "dv"), got, (q2, k2, v2)):
+        if dtype == torch.float32:
+            _assert_fp32_grad(g, t.grad, name)
+        else:
+            _assert_grad_near(g, t.grad, name)
