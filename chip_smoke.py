@@ -20,11 +20,13 @@ Phases, in order; any failure exits nonzero and prints no result line:
      the least time the card could take (K2 also in its ring form, W=48 x
      T=176 with most rows wrapped and a rolled-prefix control, and its beam
      form, 12 groups x 5 beams over T=1500, then 12 x 8 and 2 x 17 beams
-     against the fp32 twin); K1, K2's prefix (cross and self int8), ring
-     and beam forms also at a tensor-parallel shard's 10 heads (a K/V
-     width of 640); K2 in the int4 cache's modes (bf16 per-head scales):
-     prefix cross int4 (also at 10 heads) and self int8, ring self int8,
-     beam cross int4; each also with its device time
+     against the fp32 twin); K2's self form (the ring kernel without a
+     ring slot) on phase 4's self call, int8, B=16 x T=51; K1, K2's prefix
+     (cross int8), self (int8), ring and beam forms also at a
+     tensor-parallel shard's 10 heads (a K/V width of 640); K2 in the int4
+     cache's modes (bf16 per-head scales): prefix cross int4 (also at 10
+     heads), self int8, ring self int8, beam cross int4; each also with
+     its device time
      alone and the library call's (a CUDA graph of 20 calls, replayed; K5's
      library call, autograd through SDPA, from torch.profiler's kernel
      times where a graph cannot capture it) and the host's time per call
@@ -34,11 +36,11 @@ Phases, in order; any failure exits nonzero and prints no result line:
      bit against the twin quantizers, and its pre-pass and main kernel
      each timed alone; then the fp32 forms at phase 4k's shapes: K1 (B=16,
      T=1500), K4 (B=8 x 128), K2's prefix form (cross T=1500 with fp32 and
-     int8 K/V, self T=51), ring form (W=48 at T=176 and T=448, the latter
-     in boxes) and beam form (12 x 5 over T=1500, fp32 and int4 K/V), K5
-     (causal B=8 x 128 and cross 128 x 1500: dQ, dK, dV; autograd through
-     SDPA beside it), K8 with fp32 q (qk and qkpv at B=16, T=1500, its
-     pre-pass bit for bit), K6 on fp32 rows (24000 x 1280, LayerNorm and
+     int8 K/V), self form (T=51), ring form (W=48 at T=176 and T=448, the
+     latter in boxes) and beam form (12 x 5 over T=1500, fp32 and int4
+     K/V), K5 (causal B=8 x 128, its one-launch cluster form, and cross 128
+     x 1500: dQ, dK, dV; autograd through SDPA beside it), K8 with fp32 q
+     (qk and qkpv at B=16, T=1500, its pre-pass bit for bit), K6 on fp32 rows (24000 x 1280, LayerNorm and
      the fused add) and K7 (16, 128, 3000; cuDNN conv + GELU twice with
      TF32 off beside it), each held to its fp32 twin by relative L2 <= 1e-5
      above a control >= 1e-2 (a dropped key tile; K6: a 64-column chunk
@@ -77,7 +79,7 @@ Phases, in order; any failure exits nonzero and prints no result line:
      and GEMMs, (b) int8 KV + w8a8, (c) (b) over the int16 wire; 1 warm-up
      and 3 trials a duration, seconds and audio-s/s beside nvidia-smi's name
      and power limit; one 300 s call a config with its launches (K3 1, K1
-     one an encoder layer, K2 two a decoder layer a step); on PCM-sourced
+     one an encoder layer, K2 prefix and self one a decoder layer a step); on PCM-sourced
      300 s audio the int16 and fp32 wires' log-mel bit for bit and (b) and
      (c) the same transcript; 5 beams at 30 s (K2 self and beam one a layer
      a step); at 25 s (2 chunks) and at the 300 s call's batch the
@@ -116,7 +118,7 @@ Phases, in order; any failure exits nonzero and prints no result line:
      checked, at B=2 the kernel path against the plain path;
   4j. the int4 KV cache (packed int4 cross K/V, int8 self K/V, bf16
      per-head scales) on the fused bf16 model: (a) phase 4's B=16 batch
-     (launches K1 32, K3 1, K2 prefix 3072; the share of tokens equal to
+     (launches K1 32, K3 1, K2 prefix 1536 and self 1536; the share of tokens equal to
      phase 4's int8 tokens), (b) 4f's beam search, (c) a stream on 4e's
      settings over 48 windows, (d) a beam stream on 4g's settings over 24
      windows, (e) AsrPipeline at 30 s, 1 warm-up and 3 trials, (f) at B=2
@@ -188,11 +190,11 @@ Phases, in order; any failure exits nonzero and prints no result line:
      --dtype float32 at B=4), stem_exp, vpu_cal (softmax and exp), few
      trials, their JSON lines parsed;
   6. a JSON line of every kernel with the launches of the path that runs
-     it (K1, K2 prefix: the pseudo-labelling run; K2 ring and beam: the 4g
+     it (K1, K2 prefix and self: the pseudo-labelling run; K2 ring and beam: the 4g
      beam stream; K3: phase 5's filter; K4, K5: the 3 timed train steps;
      K6-K8: the 4d encoder runs; K9: the vpu_cal runs of 5d; the 10-head
-     records: rank 0 of 4i(b); the int4 cache's records: 4j (a) prefix, (b)
-     beam, (c) ring; the fp32 records: 4k (a) K1 and prefix, (b) beam, (c)
+     records: rank 0 of 4i(b); the int4 cache's records: 4j (a) prefix and
+     self, (b) beam, (c) ring; the fp32 records: 4k (a) K1, prefix and self, (b) beam, (c)
      ring, (f) K6-K8, 5b's create-student --dtype float32 for K4, and the
      3 timed steps of 4b-f32 for K5; the switches' records: 4d's and
      4k(f)'s switch variants) and its
@@ -380,6 +382,7 @@ def every_count():
     from kotoba_whisper_tpu_torch.tools import vpu_cal
 
     return {"K1": fa.flash_attention_fwd.launches, "K2": da.decode_attention.launches,
+            "K2self": da.decode_attention.self_launches,
             "K2ring": da.decode_attention.ring_launches,
             "K2beam": da.decode_attention_beam.launches, "K3": mel.log_mel_frames.launches,
             "K4": fa.flash_attention_fwd.causal_launches,
@@ -403,7 +406,7 @@ def reset_every():
                ln.add_layer_norm, cs.conv_stem, fa.flash_attention_int8, vpu_cal.vpu_cal):
         fn.launches = 0
     fa.flash_attention_fwd.causal_launches = 0
-    da.decode_attention.ring_launches = 0
+    da.decode_attention.ring_launches = da.decode_attention.self_launches = 0
     fa.flash_attention_fwd.nomax_launches = fa.flash_attention_int8.nomax_launches = 0
 
 
@@ -820,8 +823,9 @@ def main() -> int:
                 "int8h": "int8, bf16 per-head scales"}
     int4_key = {"bf16": "", "int8": "", "int4": "int4", "int8h": "int4"}  # the run of 4j
 
-    # K2 prefix form: cross (T=1500) int8, bf16 and int4, self int8 in both
-    # scale forms; at the shard's heads cross int8 and int4, self int8
+    # K2 prefix form: cross (T=1500) int8, bf16 and int4; K2's self form
+    # (the ring kernel without ring_pos: phase 4's self cache, T=51): int8 in
+    # both scale forms; at the shard's heads cross int8 and int4, self int8
     for hh, label, t, kv in ((h, "cross", t_enc, "int8"), (h, "cross", t_enc, "bf16"),
                              (h, "self", cap, "int8"), (h, "cross", t_enc, "int4"),
                              (h, "self", cap, "int8h"), (h_tp, "cross", t_enc, "int8"),
@@ -841,14 +845,18 @@ def main() -> int:
         def library():
             return F.scaled_dot_product_attention(qh, kh, vh)
 
+        is_self = label == "self"
+        if da.self_form(t, kf.dtype) != is_self:
+            raise AssertionError(f"K2 {label} call at T={t} would take the other form")
         record(
             f"K2 decode_attention {label} {mode_tag[kv]} (B=16, T={t}, D={dd}{tp_tag(hh)})",
-            "kotoba_whisper_tpu_torch/csrc/decode_attention.cu",
+            "kotoba_whisper_tpu_torch/csrc/decode_attention"
+            f"{'_ring' if is_self else ''}.cu",
             "kotoba_whisper_tpu/ops/decode_attention.py:165", errs, 2e-3,
             time_ms(call), time_ms(lambda: da.decode_attention_reference(qd, kf, vf, t, **kw)),
             time_ms(library),
             bound(4.0 * B * t * dd, fp32_rate, nbytes(qd, kf, vf, ks, vs, out), mem_rate),
-            key="K2" + int4_key[kv] + tp_key[hh],
+            key="K2" + ("self" if is_self else "") + int4_key[kv] + tp_key[hh],
             device_ms=graph_ms(call), library_device_ms=graph_ms(library),
             host_us=host_us(call), library_host_us=host_us(library),
         )
@@ -1560,10 +1568,11 @@ def main() -> int:
         return (x, None) if mode == "fp32" else quantized(x, hh, mode)
 
     # K2 prefix form, fp32 q: cross (T=1500) with fp32 K/V (compute KV) and
-    # with int8 K/V; self (T=51) fp32
+    # with int8 K/V; K2's self form (its ring kernel's fp32 form without
+    # ring_pos): self (T=51) fp32
     for label, t, kv, key in (("cross", t_enc, "fp32", "K2f32"), ("cross", t_enc, "int8",
                                                                    "K2f32int8"),
-                              ("self", cap, "fp32", "K2f32")):
+                              ("self", cap, "fp32", "K2selff32")):
         qd = randn(B, h, 64, seed=46, dtype=f32)
         kf, ks = f32_kv(randn(B, t, d, seed=47, dtype=f32), h, kv)
         vf, vs = f32_kv(randn(B, t, d, seed=48, dtype=f32), h, kv)
@@ -1576,7 +1585,8 @@ def main() -> int:
         kh, vh, qh = f32_heads(kf, ks, h), f32_heads(vf, vs, h), qd[:, :, None]
         f32_record(
             f"K2 decode_attention {label} fp32 q, {kv} K/V (B={B}, T={t}, D={d})",
-            "kotoba_whisper_tpu_torch/csrc/decode_attention.cu",
+            "kotoba_whisper_tpu_torch/csrc/decode_attention"
+            f"{'_ring' if label == 'self' else ''}.cu",
             "kotoba_whisper_tpu/ops/decode_attention.py:165", out, ref, cut,
             lambda: da.decode_attention(qd, kf, vf, t, **kw),
             lambda: da.decode_attention_reference(qd, kf, vf, t, **kw),
@@ -1861,7 +1871,9 @@ def main() -> int:
     toks_host = toks.cpu().numpy()
     wall = time.perf_counter() - t0
     launches = nonzero(every_count())
-    expect = {"K1": large.encoder_layers, "K2": 2 * large.decoder_layers * NEW_TOKENS, "K3": 1}
+    # K2: the cross call on the prefix form's clusters, the self call on the self form
+    expect = {"K1": large.encoder_layers, "K2": large.decoder_layers * NEW_TOKENS,
+              "K2self": large.decoder_layers * NEW_TOKENS, "K3": 1}
     log(f"[main] B={B} x {NEW_TOKENS} tokens: wall {wall:.3f} s, "
         f"{B * feat.chunk_length_s / wall:.1f} audio-s/s [{card}]; launches {launches}")
     if launches != expect:
@@ -2326,8 +2338,8 @@ def main() -> int:
                     audio_300 = generate_dummy_audio(SERVE_DURATIONS[-1])
                     out, counts, steps = serve_call(pipes[label], audio_300)
                     n_chunks = len(chunk_audio(audio_300, pipes[label].chunking))
-                    want = {"K1": cfg_h.encoder_layers, "K2": 2 * cfg_h.decoder_layers * steps,
-                            "K3": 1}
+                    want = {"K1": cfg_h.encoder_layers, "K2": cfg_h.decoder_layers * steps,
+                            "K2self": cfg_h.decoder_layers * steps, "K3": 1}
                     segments = check_transcript(out, f"{name} ({label})", SERVE_DURATIONS[-1])
                     log(f"[4h] {name} ({label}) 300 s: {n_chunks} chunks in one batch, {steps} "
                         f"decode steps, launches {counts}, {segments}, text "
@@ -2362,7 +2374,7 @@ def main() -> int:
                 # beam search, 5 beams, at 30 s
                 beam_pipe = dataclasses.replace(pipes["a"], num_beams=5)
                 out, counts, steps = serve_call(beam_pipe, generate_dummy_audio(30))
-                want = {"K1": cfg_h.encoder_layers, "K2": cfg_h.decoder_layers * steps,
+                want = {"K1": cfg_h.encoder_layers, "K2self": cfg_h.decoder_layers * steps,
                         "K2beam": cfg_h.decoder_layers * steps, "K3": 1}
                 segments = check_transcript(out, f"{name} beam", 30)
                 log(f"[4h] {name} (a) 30 s, 5 beams: {steps} steps, launches {counts}, "
@@ -2517,9 +2529,9 @@ def main() -> int:
     log(f"[4f] beam search, {g_f} groups x {k_f} beams, prompt + {NEW_TOKENS} tokens, int8 KV: "
         f"wall {wall_b:.3f} s, {g_f * feat.chunk_length_s / wall_b:.1f} audio-s/s, "
         f"{wall_b * 1e3 / NEW_TOKENS:.2f} ms a step (encode and init included) [{card}]; "
-        f"launches {beam_counts} (K2 self {beam_counts.get('K2', 0) // NEW_TOKENS} and beam "
+        f"launches {beam_counts} (K2 self {beam_counts.get('K2self', 0) // NEW_TOKENS} and beam "
         f"{beam_counts.get('K2beam', 0) // NEW_TOKENS} a step)")
-    want = {"K1": large.encoder_layers, "K2": large.decoder_layers * NEW_TOKENS,
+    want = {"K1": large.encoder_layers, "K2self": large.decoder_layers * NEW_TOKENS,
             "K2beam": large.decoder_layers * NEW_TOKENS, "K3": 1}
     if beam_counts != want:
         raise AssertionError(f"4f launches {beam_counts}, expected {want}")
@@ -2611,7 +2623,7 @@ def main() -> int:
 
     beam_int4()  # warm-up at the run's shapes
     toks_jb, scores_jb = (t.cpu().numpy() for t in j_run("b", beam_int4))
-    want = {"K1": large.encoder_layers, "K2": large.decoder_layers * NEW_TOKENS,
+    want = {"K1": large.encoder_layers, "K2self": large.decoder_layers * NEW_TOKENS,
             "K2beam": large.decoder_layers * NEW_TOKENS, "K3": 1}
     log(f"[4j-b] beam search {g_f} x {k_f}, int4 KV: wall {j_walls['b']:.3f} s, "
         f"{g_f * feat.chunk_length_s / j_walls['b']:.1f} audio-s/s (4f, int8: "
@@ -2700,7 +2712,8 @@ def main() -> int:
         f"{30 / mean_j:.1f}; int8 in this call: phase 4 {B * feat.chunk_length_s / wall:.1f}, "
         f"4f {g_f * feat.chunk_length_s / wall_b:.1f}; {time.perf_counter() - t_j:.1f} s for "
         f"the phase [{card}]")
-    int4_launches = {"K2int4": j_counts["a"]["K2"], "K2beamint4": j_counts["b"]["K2beam"],
+    int4_launches = {"K2int4": j_counts["a"]["K2"], "K2selfint4": j_counts["a"]["K2self"],
+                     "K2beamint4": j_counts["b"]["K2beam"],
                      "K2ringint4": j_counts["c"]["K2ring"]}
     del audio_js, audio_jg, pipe_j
 
@@ -2763,7 +2776,7 @@ def main() -> int:
         return generate_beam(model32, mel.log_mel_spectrogram(audio_f[:g_f], feat), opts_f,
                              st_fixed, num_beams=k_f, kv_dtype=kv)
 
-    want = {"K1": large.encoder_layers, "K2": large.decoder_layers * NEW_TOKENS,
+    want = {"K1": large.encoder_layers, "K2self": large.decoder_layers * NEW_TOKENS,
             "K2beam": large.decoder_layers * NEW_TOKENS, "K3": 1}
     for kv in ("compute", "int4"):
         beam32(kv)  # warm-up
@@ -2892,6 +2905,7 @@ def main() -> int:
     k_enc_launches = encoder_variants("4k-f", model32, feats_k, k_enc_variants, F32_PATH_TOL)
     del feats_k
     fp32_launches = {"K1f32": k_counts["a-compute"]["K1"], "K2f32": k_counts["a-compute"]["K2"],
+                     "K2selff32": k_counts["a-compute"]["K2self"],
                      "K2f32int8": k_counts["a-int8"]["K2"],
                      "K2beamf32": k_counts["b-compute"]["K2beam"],
                      "K2beamf32int4": k_counts["b-int4"]["K2beam"],
@@ -3326,7 +3340,8 @@ def main() -> int:
             f"({B * feat.chunk_length_s / max(walls):.1f} audio-s/s for the group); launches "
             f"rank 0 {tp_info[0][label]['launches']}, rank 1 {tp_info[1][label]['launches']} "
             f"[{card}]")
-        want = {"K1": large.encoder_layers, "K2": 2 * large.decoder_layers * NEW_TOKENS}
+        want = {"K1": large.encoder_layers, "K2": large.decoder_layers * NEW_TOKENS,
+                "K2self": large.decoder_layers * NEW_TOKENS}
         if not (same and max(lg) <= 5e-2 and all(i[label]["launches"] == want
                                                   for i in tp_info)
                 and tp_info[0][f"{label}/heads"] == h_tp):
@@ -3340,6 +3355,7 @@ def main() -> int:
             raise AssertionError(f"4i(b) {label}: launches {got}")
     tp_launches = {"K1tp": tp_info[0]["bf16"]["launches"]["K1"],
                    "K2tp": tp_info[0]["bf16"]["launches"]["K2"],
+                   "K2selftp": tp_info[0]["bf16"]["launches"]["K2self"],
                    "K2beamtp": tp_info[0]["beam"]["launches"]["K2beam"],
                    "K2ringtp": tp_info[0]["stream"]["launches"]["K2ring"],
                    "K2int4tp": tp_info[0]["int4"]["launches"]["K2"]}
@@ -3455,8 +3471,12 @@ def main() -> int:
                 and all(i["pseudo_label"]["launches"] == {"K1": 32 * n_batches,
                                                           "K2": i["pseudo_label"]["launches"]
                                                           .get("K2", 0),
+                                                          "K2self": i["pseudo_label"]["launches"]
+                                                          .get("K2self", 0),
                                                           "K3": n_batches}
-                        and i["pseudo_label"]["launches"].get("K2") for i in dp_info)):
+                        and i["pseudo_label"]["launches"].get("K2")
+                        and i["pseudo_label"]["launches"]["K2self"]
+                        == i["pseudo_label"]["launches"]["K2"] for i in dp_info)):
             raise AssertionError(f"4i(c) stage 2: wrote {[r['name'] for r in two]}, launches "
                                  f"{[i['pseudo_label']['launches'] for i in dp_info]}")
         steps = [i["step"] for i in dp_info]
@@ -3707,7 +3727,8 @@ def main() -> int:
                 f"{eval_counts[label]}")
         n_eval = len(eval_secs)
         if not (eval_counts["plain"] == eval_counts["stable_ts-punctuator"] == {
-                "K1": 4 * n_eval, "K2": eval_counts["plain"].get("K2", 0), "K3": n_eval}
+                "K1": 4 * n_eval, "K2": eval_counts["plain"].get("K2", 0),
+                "K2self": eval_counts["plain"].get("K2", 0), "K3": n_eval}
                 and eval_counts["plain"].get("K2") and eval_counts["cached"] == {}):
             raise AssertionError(f"eval launches {eval_counts}: each utterance one call of "
                                  "the kernels, none from the cache")
@@ -3802,7 +3823,8 @@ def main() -> int:
 
     # ---- 6. kernels line, 7. result ------------------------------------------
     path_launches = {
-        "K1": launches["K1"], "K2": launches["K2"], "K3": filter_counts[0]["K3"],
+        "K1": launches["K1"], "K2": launches["K2"], "K2self": launches["K2self"],
+        "K3": filter_counts[0]["K3"],
         "K2ring": g_counts["K2ring"], "K2beam": g_counts["K2beam"],
         "K4": train_launches["K4"], "K5": train_launches["K5"],
         "K6ln": enc_launches["enc_exp fused_ln"]["K6ln"],

@@ -16,12 +16,17 @@
 // (B, T, H*64) cache, so every K/V byte is read once and used for one
 // multiply-add: ~0.5-1 flop per byte, far below the ridge. The cross-
 // attention call (T=1500) is bound by the bytes of K and V (61 MB in int8
-// at B=16, about 18 us at 3.35 TB/s); the self-attention call (T <= 51)
-// is bound by its launch and the host's call.
+// at B=16, about 18 us at 3.35 TB/s). The self-attention call does not
+// come here: its caches (at most 448 slots) take K2's self form, the ring
+// kernel of decode_attention_ring.cu with key j at slot j
+// (ops/decode_attention.py `self_form`). This kernel gave such a cache one
+// CTA per batch row, which read 0.0118 ms on the card at B=16, T=51, 20
+// times its byte bound and 2.5x one scaled_dot_product_attention call: 16
+// CTAs on 132 SMs, each over all 20 heads, and not the launch, held it.
 //
 // Design: one launch per call. T is split over a thread-block cluster of
 // up to 8 CTAs per batch row (ops/decode_attention.py `split_plan`: 8 x 188
-// rows at T=1500, 128 CTAs at B=16; one CTA for the self cache). A CTA's
+// rows at T=1500, 128 CTAs at B=16). A CTA's
 // rows of a batch row are contiguous in the (B, T, H*64) cache, so one
 // producer warp streams them with 1-D bulk copies (cp.async.bulk, counted
 // on mbarriers) through a 4-stage ring of 20 KB: its K rows, then its V
@@ -41,8 +46,7 @@
 // memory: each sends its weighted V sums for a slice of the output columns
 // to the CTA that owns the slice, and its per-head max and sum to all, and
 // after one cluster barrier each owner writes its slice: no fp32 partials
-// in device memory and no second launch. The self-attention cache
-// (T <= 64) is one CTA per row. An fp32 row of 20 heads is 5120 bytes: a
+// in device memory and no second launch. An fp32 row of 20 heads is 5120 bytes: a
 // stage holds 4 rows, and a thread's chunk is 32 bytes (an eighth of a
 // head), so the fp32 form keeps the bf16 form's lanes and groups.
 #include "card.cuh"

@@ -1,4 +1,5 @@
-// Decode-step self-attention over a ring cache (K2's ring form) for Hopper.
+// Decode-step self-attention over a ring cache (K2's ring form), and over
+// a prefix self cache (K2's self form), for Hopper.
 //
 // Replaces: the ring mask of kotoba_whisper_tpu/ops/decode_attention.py
 // `decode_attention_reference(..., ring_pos=...)` (:59, mask :96-98; XLA on
@@ -41,6 +42,17 @@
 // reduce by shuffles, and after a second barrier the warps' sums and O / l.
 // ring_pos and valid are read from device memory, so a captured CUDA graph
 // replays with the values of the moment.
+//
+// The self form: the same kernels with a null ring_pos, key j at slot j
+// (the ring's map with ring_pos = valid - 1, but no device read before the
+// copies start). Every single-query self-attention call of the decoder
+// (models/whisper.py `_decode_step_body`: lockstep, per-row, beam rows,
+// serving; caches of at most 448 slots) takes it: ops/decode_attention.py
+// `self_form` picks it for caches of at most 512 slots in every K/V mode
+// but packed int4. The prefix kernel (decode_attention.cu) gave such a
+// cache one CTA per batch row (16 CTAs of 352 threads at B=16, each over
+// all 20 heads through the cluster machinery), 2.5x the device time of
+// one scaled_dot_product_attention call; this grid is B x H / heads CTAs.
 //
 // The fp32 form (`ring_f32_kernel`: an fp32 model's step; fp32 q and output,
 // fp32 K/V or int8 with either scale form, every sum fp32): one fp32 head's
@@ -117,7 +129,8 @@ __global__ void __launch_bounds__(kThreads)
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int b = blockIdx.y, h0 = blockIdx.x * hpc;
   const int valid = max(min(valid_rows ? valid_rows[b] : valid_all, t_cap), 0);
-  const int first = ((*ring_pos + 1 - valid) % t_cap + t_cap) % t_cap;  // slot of key 0
+  // slot of key 0: the ring's, or 0 without ring_pos (the self form: key j at slot j)
+  const int first = ring_pos ? ((*ring_pos + 1 - valid) % t_cap + t_cap) % t_cap : 0;
   const int row = hpc * kHD * (int)sizeof(KV);  // a slot's bytes of this CTA's heads
   const long base = (long)b * t_cap;
 
@@ -130,33 +143,12 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();
 
-  // ---- every copy in flight: the scales by cp.async, K and V by TMA boxes
-  // of kBox slots over the keys' one or two runs of slots, each slot's data
-  // at its own smem row (a box past a run, or two boxes over one slot, write
-  // that slot's own bytes; a box starts on a 128-byte row boundary) -------
-  if (kHeads) {
-    const __nv_bfloat16* ksg = static_cast<const __nv_bfloat16*>(k_scale);
-    const __nv_bfloat16* vsg = static_cast<const __nv_bfloat16*>(v_scale);
-    for (int i = tid; i < valid * hpc; i += kThreads) {
-      const int j = i / hpc, e = i - j * hpc;
-      int slot = first + j;
-      if (slot >= t_cap) slot -= t_cap;
-      const long at = (base + slot) * n_heads + h0 + e;
-      ks_s[slot * hpc + e] = __bfloat162float(ksg[at]);
-      vs_s[slot * hpc + e] = __bfloat162float(vsg[at]);
-    }
-    mbar_arrive(&bars[0]);  // release: the stores are seen past the wait
-  } else {
-    if (kInt8) {
-      for (int j = tid; j < valid; j += kThreads) {
-        int slot = first + j;
-        if (slot >= t_cap) slot -= t_cap;
-        cp_async4(ks_s + slot, static_cast<const float*>(k_scale) + base + slot);
-        cp_async4(vs_s + slot, static_cast<const float*>(v_scale) + base + slot);
-      }
-    }
-    cp_async_mbar_arrive_noinc(&bars[0]);
-  }
+  // ---- every copy in flight: K and V by TMA boxes of kBox slots over the
+  // keys' one or two runs of slots, each slot's data at its own smem row (a
+  // box past a run, or two boxes over one slot, write that slot's own
+  // bytes; a box starts on a 128-byte row boundary), then the scales by
+  // cp.async, or per head by plain loads, issued after the boxes so that
+  // their round trip does not hold the boxes back --------------------------
   if (warp == 0) {
     const int n1 = min(valid, t_cap - first);                   // [first, first + n1)
     const int align = row >= 128 ? 1 : 128 / row;              // slots of 128 bytes
@@ -183,6 +175,29 @@ __global__ void __launch_bounds__(kThreads)
     const __nv_bfloat16* qp = q + (long)b * q_stride + (h0 + hh) * kHD + c * kElems;
 #pragma unroll
     for (int e = 0; e < kElems; ++e) qr[e] = __bfloat162float(qp[e]) * 0.125f;
+  }
+  if (kHeads) {
+    const __nv_bfloat16* ksg = static_cast<const __nv_bfloat16*>(k_scale);
+    const __nv_bfloat16* vsg = static_cast<const __nv_bfloat16*>(v_scale);
+    for (int i = tid; i < valid * hpc; i += kThreads) {
+      const int j = i / hpc, e = i - j * hpc;
+      int slot = first + j;
+      if (slot >= t_cap) slot -= t_cap;
+      const long at = (base + slot) * n_heads + h0 + e;
+      ks_s[slot * hpc + e] = __bfloat162float(ksg[at]);
+      vs_s[slot * hpc + e] = __bfloat162float(vsg[at]);
+    }
+    mbar_arrive(&bars[0]);  // release: the stores are seen past the wait
+  } else {
+    if (kInt8) {
+      for (int j = tid; j < valid; j += kThreads) {
+        int slot = first + j;
+        if (slot >= t_cap) slot -= t_cap;
+        cp_async4(ks_s + slot, static_cast<const float*>(k_scale) + base + slot);
+        cp_async4(vs_s + slot, static_cast<const float*>(v_scale) + base + slot);
+      }
+    }
+    cp_async_mbar_arrive_noinc(&bars[0]);
   }
   mbar_wait(&bars[0], 0);
 
@@ -369,7 +384,8 @@ __global__ void __launch_bounds__(kThreads)
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int b = blockIdx.y, h = blockIdx.x;
   const int valid = max(min(valid_rows ? valid_rows[b] : valid_all, t_cap), 0);
-  const int first = ((*ring_pos + 1 - valid) % t_cap + t_cap) % t_cap;  // slot of key 0
+  // slot of key 0: the ring's, or 0 without ring_pos (the self form)
+  const int first = ring_pos ? ((*ring_pos + 1 - valid) % t_cap + t_cap) % t_cap : 0;
   const long row_bytes = (long)n_heads * kRow;
   const uint8_t* kh = k + (long)b * t_cap * row_bytes + (long)h * kRow;
   const uint8_t* vh = v + (long)b * t_cap * row_bytes + (long)h * kRow;
@@ -518,7 +534,8 @@ int launch_f32(int card, const void* q, long q_stride, const void* k, const void
 // scales; 2 int8 with bf16 (B, T, H) scales (int4's mode 3 is refused);
 // valid_rows (B,) int32 or null, then valid_all applies to every row;
 // ring_pos a device int32: row b's keys are its valid most recent slots,
-// ending at *ring_pos. One CTA per (row, hpc heads); hpc divides H and 64
+// ending at *ring_pos; or null (the self form): its slots [0, valid). One
+// CTA per (row, hpc heads); hpc divides H and 64
 // (ops/decode_attention.py `ring_plan`). out (B, H*64) bf16. Returns the
 // launch's cudaError_t (cudaErrorInvalidValue for a mode it lacks).
 extern "C" int kwt_decode_attention_ring(int card, const void* q, long long q_stride,
@@ -548,7 +565,7 @@ extern "C" int kwt_decode_attention_ring(int card, const void* q, long long q_st
 
 // The fp32 form: q (B, H*64) fp32, rows q_stride elements apart; k/v (B,
 // T, H*64) by kv_mode: 4 fp32; 1 int8 with fp32 (B, T) scales; 2 int8 with
-// bf16 (B, T, H) scales; valid_rows, valid_all and ring_pos as above. One
+// bf16 (B, T, H) scales; valid_rows, valid_all and ring_pos (or null) as above. One
 // CTA per (row, head), walking its keys in boxes of `chunk` slots
 // (ops/decode_attention.py `ring_plan`). out (B, H*64) fp32. Returns the
 // launch's cudaError_t (cudaErrorInvalidValue for a mode it lacks).

@@ -23,9 +23,17 @@ against the group's one shared (cross-attention) K/V row, every slot a
 key; the rows are read once for all K queries.
 
 Each form is one launch a call:
-- prefix: `split_plan` cuts the rows a call reads into at most MAX_CLUSTER
-  slices, one CTA each, and the CTAs of a batch row form a thread-block
-  cluster that combines its slices on chip;
+- prefix (the cross-attention call: T=1500): `split_plan` cuts the rows a
+  call reads into at most MAX_CLUSTER slices, one CTA each, and the CTAs
+  of a batch row form a thread-block cluster that combines its slices on
+  chip;
+- self (a call without ring_pos on a cache of at most SELF_MAX_SLOTS
+  slots, `self_form`: every single-query self-attention call of the
+  decoder, whose caches hold at most 448 positions): the ring kernel with
+  key j at slot j, on `ring_plan`'s grid. The prefix kernel gave such a
+  cache one CTA per batch row over all its heads (16 CTAs at B=16), 2.5x
+  the device time of PyTorch's fused attention call (chip_smoke.py's
+  library yardstick);
 - ring: `ring_plan` gives each CTA one row and a group of heads, all of
   whose valid slots it holds in shared memory at once (no cluster); the
   fp32 form one row and one head, walking its slots in boxes of
@@ -47,7 +55,10 @@ from kotoba_whisper_tpu_torch.ops import _build
 
 NEG_INF = -1.0e30
 MAX_CLUSTER = 8     # CTAs a cluster may hold: the portable cluster size
-MIN_CTA_ROWS = 64   # a cache of up to this many rows is one CTA per row (prefix)
+MIN_CTA_ROWS = 64   # the fewest rows a prefix CTA streams where T allows
+# the most slots a cache may have for the self form (`self_form`): where
+# `split_plan` would give each CTA at most MIN_CTA_ROWS rows
+SELF_MAX_SLOTS = MAX_CLUSTER * MIN_CTA_ROWS
 SMEM_LIMIT = 232448  # bytes of shared memory a CTA may take on the card
 SM_SMEM = 233472     # bytes of shared memory of one SM (1 KB of it reserved a CTA)
 N_SMS = 132          # SMs of the card the plans are made for, where none is named
@@ -83,10 +94,22 @@ def split_plan(span: int) -> tuple[int, int]:
     return n_ctas, -(-span // n_ctas)
 
 
-def ring_slot(ring_pos: int, valid: int, t: int, j: int) -> int:
+def self_form(t: int, kv_dtype) -> bool:
+    """Whether a call without ring_pos over a cache of T slots takes the
+    self form (the ring kernel with key j at slot j, on `ring_plan`'s
+    grid) rather than `split_plan`'s clusters: caches of at most
+    SELF_MAX_SLOTS slots, where the cluster plan's CTAs would each stream
+    at most MIN_CTA_ROWS rows, in every K/V mode the ring kernel takes (all
+    but packed int4, which only the cross cache holds). The decoder's self
+    caches (at most 448 slots) take it; its cross caches (1500) do not."""
+    return t <= SELF_MAX_SLOTS and kv_dtype != torch.uint8
+
+
+def ring_slot(ring_pos: int | None, valid: int, t: int, j: int) -> int:
     """Physical slot of logical key j in [0, valid) of a ring row whose
-    `valid` most recent keys end at slot ring_pos: the ring kernel's map."""
-    return (ring_pos + 1 - valid + j) % t
+    `valid` most recent keys end at slot ring_pos: the ring kernel's map;
+    without ring_pos (the self form) slot j."""
+    return j if ring_pos is None else (ring_pos + 1 - valid + j) % t
 
 
 def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
@@ -247,6 +270,15 @@ def beam_plan(g: int, t: int, n_heads: int, beams: int, kv_dtype,
 @lru_cache(maxsize=16)
 def _n_sms(card: int) -> int:
     return torch.cuda.get_device_properties(card).multi_processor_count
+
+
+@lru_cache(maxsize=256)
+def _ring_arg(b, t, n_heads, kv_dtype, card, per_head, q_dtype) -> int:
+    """What the ring kernel's C entries take of `ring_plan` on `card`: the
+    heads a CTA, or the fp32 form's box of slots; one positional cache
+    lookup a call (the self and ring calls run 32 times a decode step)."""
+    plan = ring_plan(b, t, n_heads, kv_dtype, _n_sms(card), per_head=per_head, q_dtype=q_dtype)
+    return plan.chunk if q_dtype == torch.float32 else plan.heads
 
 
 def _codes(x):
@@ -427,7 +459,8 @@ def ring_walk(q, k_flat, v_flat, valid_len, ring_pos, *, n_heads, k_scale=None, 
               out_dtype=torch.bfloat16, n_sms=N_SMS, q_dtype=torch.bfloat16):
     """The ring kernel's arithmetic in its order (fp32, on any device): per
     `ring_plan` CTA (a row and its group of heads) the keys j of [0, valid)
-    at slots `ring_slot`, the scores q / 8 times K times k_scale, the exact
+    at slots `ring_slot` (slot j where ring_pos is None: the self form),
+    the scores q / 8 times K times k_scale, the exact
     max, p = exp(s - m), their sum, the weights p * v_scale, P V and O / l
     in `out_dtype`; scales per row or per head. q is read as `q_dtype`:
     bfloat16 for the bf16 forms; float32 for the fp32 form, whose CTA (a row
@@ -447,9 +480,10 @@ def ring_walk(q, k_flat, v_flat, valid_len, ring_pos, *, n_heads, k_scale=None, 
     qf = q.to(q_dtype).float().reshape(b, n_heads, 64) * 0.125
     valid = torch.as_tensor(valid_len).reshape(-1).expand(b)
     out = torch.empty(b, n_heads, 64, dtype=out_dtype, device=q.device)
+    ring = None if ring_pos is None else int(ring_pos)
     for y in range(plan.grid[1]):
         n = min(int(valid[y]), t)
-        slots = torch.tensor([ring_slot(int(ring_pos), n, t, j) for j in range(n)],
+        slots = torch.tensor([ring_slot(ring, n, t, j) for j in range(n)],
                              dtype=torch.long, device=q.device)
         for x in range(plan.grid[0]):
             heads = slice(x * plan.heads, (x + 1) * plan.heads)
@@ -548,10 +582,12 @@ def decode_attention(
     """K2 wrapper: the kernel for CUDA tensors, the plain twin for CPU
     tensors. q bfloat16 or fp32 (each form's fp32 kernel; the output in q's
     dtype). valid_len: int (every row) or a (B,) int32 tensor; ring_pos:
-    None (prefix form, csrc/decode_attention.cu) or, on the card, a 0-d
-    int32 tensor on q's card, read by the ring kernel
-    (csrc/decode_attention_ring.cu) from device memory. Allocates only the
-    output; safe to capture in a CUDA graph."""
+    None (keys [0, valid): the self form where `self_form` says so, else
+    the prefix form, csrc/decode_attention.cu) or, on the card, a 0-d int32
+    tensor on q's card, read by the ring kernel
+    (csrc/decode_attention_ring.cu) from device memory. The self form is
+    the ring kernel without ring_pos. Allocates only the output; safe to
+    capture in a CUDA graph."""
     if q.is_cpu:
         return decode_attention_reference(
             q, k_flat, v_flat, valid_len, n_heads=n_heads,
@@ -571,7 +607,7 @@ def decode_attention(
         raise ValueError("K2's ring form takes fp32, bfloat16 or int8 K/V (the self cache), "
                          "not int4")
     out = torch.empty((b, n_heads, 64), dtype=q.dtype, device=q.device)
-    if ring_pos is None:
+    if ring_pos is None and not self_form(t, k_flat.dtype):
         n_ctas, rows = split_plan(t if valid_rows is not None else valid_all)
         _check(_build.function("decode_attention", "kwt_decode_attention")(
             card, q_ptr, q_stride[0], k_ptr, v_ptr, ks_ptr, vs_ptr, valid_rows, valid_all,
@@ -579,21 +615,25 @@ def decode_attention(
             _build.stream_handle(card)), "prefix")
         decode_attention.launches += 1
         return out
-    if (not isinstance(ring_pos, torch.Tensor) or ring_pos.shape != ()
+    if ring_pos is not None and (
+            not isinstance(ring_pos, torch.Tensor) or ring_pos.shape != ()
             or ring_pos.dtype != torch.int32 or ring_pos.get_device() != card):
         raise ValueError("K2's ring_pos is a 0-d int32 tensor on q's card")
-    plan = ring_plan(b, t, n_heads, k_flat.dtype, _n_sms(card),
-                     per_head=mode == KV_INT8_HEADS, q_dtype=q.dtype)
+    arg = _ring_arg(b, t, n_heads, k_flat.dtype, card, mode == KV_INT8_HEADS, q.dtype)
     entry = "kwt_decode_attention_ring_f32" if q_f32 else "kwt_decode_attention_ring"
     _check(_build.function("decode_attention_ring", entry)(
         card, q_ptr, q_stride[0], k_ptr, v_ptr, ks_ptr, vs_ptr, valid_rows, valid_all,
-        ring_pos.data_ptr(), out.data_ptr(), b, t, n_heads, plan.chunk if q_f32 else plan.heads,
-        mode, _build.stream_handle(card)), "ring")
-    decode_attention.ring_launches += 1
+        None if ring_pos is None else ring_pos.data_ptr(), out.data_ptr(), b, t, n_heads, arg,
+        mode, _build.stream_handle(card)), "ring" if ring_pos is not None else "self")
+    if ring_pos is None:
+        decode_attention.self_launches += 1
+    else:
+        decode_attention.ring_launches += 1
     return out
 
 
-decode_attention.launches = 0       # K2, prefix form
+decode_attention.launches = 0       # K2, prefix form (the cluster kernel)
+decode_attention.self_launches = 0  # K2, self form (the ring kernel without ring_pos)
 decode_attention.ring_launches = 0  # K2, ring form
 
 

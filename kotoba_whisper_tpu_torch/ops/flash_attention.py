@@ -5,9 +5,10 @@ csrc/flash_attention_f32.cu (fp32), the int8 attention core K8 in
 csrc/flash_attention_int8.cu, the backward K5 in
 csrc/flash_attention_bwd.cu (a D pre-pass, one TMA and wgmma kernel over
 128-key work items, and a dQ conversion) and its fp32 form in
-csrc/flash_attention_bwd_f32.cu (a pre-pass, then a dQ kernel and a dK/dV
-kernel on the CUDA cores), their plain twins, and the `FlashAttention`
-autograd function that ties them together.
+csrc/flash_attention_bwd_f32.cu (causal calls: one launch of a cluster of
+key tiles a (batch, head) on 3xTF32 mma.sync; the cross call: a pre-pass,
+then a dQ kernel and a dK/dV kernel on the CUDA cores), their plain twins,
+and the `FlashAttention` autograd function that ties them together.
 
 softmax(q k^T / sqrt(D)) v with O in the input dtype and the fp32
 natural-log logsumexp of each query row (the residual the backward pass
@@ -62,7 +63,7 @@ the TPU kernel's query block; the port's fixed 128-row tiles give the same
 result whatever it says, so it is not read.
 
 Each wrapper launches its kernel for CUDA tensors (D = 64; bf16, or fp32
-through the CUDA-core forms: csrc/flash_attention_f32.cu for K1 and K4,
+through the fp32 forms: csrc/flash_attention_f32.cu for K1 and K4,
 csrc/flash_attention_bwd_f32.cu for K5, and the fp32-q kernel of
 csrc/flash_attention_int8.cu for K8) and takes its plain twin only for CPU
 tensors.
@@ -352,11 +353,28 @@ def _f32_plan(q_layout, k_layout, v_layout, causal, no_max=False):
 
 
 # K5's fp32 form (csrc/flash_attention_bwd_f32.cu): 64-row query tiles and
-# 64-key tiles, a 256-thread CTA each, and the shared memory its dQ and dKV
-# kernels take (each within the 227 KB a block may use)
+# 64-key tiles, a 256-thread CTA each, and the shared memory its kernels
+# take (each within the 227 KB a block may use): the split form's dQ and
+# dKV kernels; the causal form's CTA (six swizzled 64 x 64 tiles, the
+# round's LSE and D), two an SM
 BWD_F32_TILE = 64
 BWD_F32_DQ_SMEM = 4 * (5 * 64 * 68 + 64 * 64)
 BWD_F32_DKV_SMEM = 4 * (6 * 64 * 68 + 2 * 64 * 64 + 2 * 64)
+BWD_F32_CAUSAL_SMEM = 4 * (6 * 64 * 64 + 2 * 64)
+BWD_F32_MAX_CLUSTER = 8  # key tiles of a causal call on the cluster form (Tk <= 512)
+
+
+def bwd_f32_cluster(tq, tk, causal):
+    """CTAs of K5's fp32 causal form a (batch, head): one a 64-key tile,
+    the cluster of one launch, for causal calls of at most
+    BWD_F32_MAX_CLUSTER key tiles (the decoder's self-attention: at most
+    448 positions); 0 where the call takes the split form's three launches
+    (the cross-attention call, a causal call past 512 keys). CTA c takes
+    the query tiles from `bwd_f32_first_qtile` (keys [64c, 64c + 64)) to
+    the last, one a round; tile r's dQ is the sum of the shares of the CTAs
+    that took round r, in rank order, made by CTA r."""
+    n = -(-tk // BWD_F32_TILE)
+    return n if causal and n <= BWD_F32_MAX_CLUSTER else 0
 
 
 def bwd_f32_grids(b, tq, tk, h):
@@ -387,9 +405,11 @@ def _bwd_f32_plan(q_layout, k_layout, v_layout, o_layout, do_layout, lse_layout,
     """What K5's fp32 C entry reads of one call, from each tensor's (shape,
     strides): (B, Tq, Tk, H, the fp32 scratch length) and the int64 array
     (B, Tq, Tk, H, causal, then the batch, token and head element strides
-    of q, k, v, dO and O, `_f32_strides`). Scratch: the pre-pass's padded
-    LSE and D rows (B*H, Tq padded to BWD_F32_TILE each). Checked once per
-    set of layouts (the addresses are checked per call)."""
+    of q, k, v, dO and O, `_f32_strides`, then 1 for the causal cluster
+    form, `bwd_f32_cluster`). Scratch, the split form's only: the
+    pre-pass's padded LSE and D rows (B*H, Tq padded to BWD_F32_TILE
+    each). Checked once per set of layouts (the addresses are checked per
+    call)."""
     b, tq, tk, h = _shapes(q_layout[0], k_layout[0], v_layout[0])
     if o_layout[0] != q_layout[0] or do_layout[0] != q_layout[0]:
         raise ValueError(f"K5: o {tuple(o_layout[0])} and do {tuple(do_layout[0])} must "
@@ -401,8 +421,10 @@ def _bwd_f32_plan(q_layout, k_layout, v_layout, o_layout, do_layout, lse_layout,
         raise ValueError(f"causal flash attention needs Tq <= Tk, got {tq} > {tk}")
     strides = [s for shape, stride in (q_layout, k_layout, v_layout, do_layout, o_layout)
                for s in _f32_strides(shape, stride, "K5's fp32 form")]
-    scratch = 2 * b * h * -(-tq // BWD_F32_TILE) * BWD_F32_TILE
-    return (b, tq, tk, h, scratch), (ctypes.c_longlong * 20)(b, tq, tk, h, int(causal), *strides)
+    cluster = bwd_f32_cluster(tq, tk, causal) > 0
+    scratch = 0 if cluster else 2 * b * h * -(-tq // BWD_F32_TILE) * BWD_F32_TILE
+    return (b, tq, tk, h, scratch), (ctypes.c_longlong * 21)(b, tq, tk, h, int(causal), *strides,
+                                                             int(cluster))
 
 
 def _flash_fwd_sm90(q, k, v, causal, no_max=False):
@@ -733,7 +755,8 @@ def _flash_bwd_sm90(q, k, v, o, lse, do, causal):
     """K5 on the card: dtypes, layouts, addresses and device checked,
     outputs and scratch allocated, one C call: the bf16 form (three
     launches, two where dQ is direct) or, for fp32 q, k, v, o and do, the
-    fp32 one (three launches)."""
+    fp32 one (one launch for a causal call of at most 8 key tiles, else
+    three)."""
     f32 = q.dtype == k.dtype == v.dtype == o.dtype == do.dtype == torch.float32
     if not ((f32 or q.dtype == k.dtype == v.dtype == o.dtype == do.dtype == torch.bfloat16)
             and lse.dtype == torch.float32):

@@ -35,11 +35,16 @@ speed drifts between processes.
 beams over T=1500, 20 heads, int8); the prefix yardstick takes each
 group's first beam over the same keys.
 
+--self: the same for K2's self calls at phase 4's shape (16 rows, T=51
+slots, 20 heads, int8, valid 25: the self form); the prefix yardstick is
+phase 4's cross call (the same rows over T=1500, every slot valid), which
+keeps the prefix form's clusters.
+
 `beam_stream_workload` and `run_beam_stream` hold phase 4g's inputs and
 stream (bench.py's beam-stream-w8a8 geometry), which chip_smoke.py draws.
 
-Usage: python -m kotoba_whisper_tpu_torch.tools.step_time [--stream | --ring | --beam]
-       [--trials 3]
+Usage: python -m kotoba_whisper_tpu_torch.tools.step_time [--stream | --ring | --beam |
+       --self] [--trials 3]
 """
 from __future__ import annotations
 
@@ -192,8 +197,9 @@ def _stream(model, cfg, trials):
 
 
 def _k2(cfg, trials, form):
-    """K2's ring (or beam) wrapper at its path's shape, one cache a decoder
-    layer, with the prefix wrapper on the same caches as the yardstick."""
+    """K2's ring (or beam, or self) wrapper at its path's shape, one cache a
+    decoder layer, with the prefix wrapper as the yardstick: on the same
+    caches, or (self) on phase 4's cross caches."""
     h = cfg.decoder_attention_heads
     g = torch.Generator(device="cuda").manual_seed(7)
 
@@ -203,6 +209,9 @@ def _k2(cfg, trials, form):
     if form == "ring":
         rows, t = STREAM.batch, STREAM_CAPACITY
         q = randn(rows, h, 64)
+    elif form == "self":
+        rows, t = BATCH, 3 + NEW_TOKENS  # phase 4: a 3-token prompt and 48 tokens
+        q = randn(rows, h, 64)
     else:
         rows, t = BEAM_GROUPS, cfg.max_source_positions
         q = randn(rows, BEAM_WIDTH, h, 64)
@@ -210,7 +219,17 @@ def _k2(cfg, trials, form):
               + whisper.quantize_kv_rows(randn(rows, t, h * 64))
               for _ in range(cfg.decoder_layers)]  # (k, k_scale, v, v_scale) a layer
     extra = {}
-    if form == "ring":
+    prefix_caches = caches
+    if form == "self":
+        prefix_valid, q_prefix = cfg.max_source_positions, q
+        prefix_caches = [whisper.quantize_kv_rows(randn(rows, prefix_valid, h * 64))
+                         + whisper.quantize_kv_rows(randn(rows, prefix_valid, h * 64))
+                         for _ in range(cfg.decoder_layers)]
+
+        def step():
+            for k, ks, v, vs in caches:
+                da.decode_attention(q, k, v, t // 2, n_heads=h, k_scale=ks, v_scale=vs)
+    elif form == "ring":
         budgets = realistic_stops(rows, 4, np.random.default_rng(0))
         valid = torch.from_numpy(budgets.astype(np.int32)).cuda()
         prefix_valid = int(round(float(budgets.mean())))
@@ -230,7 +249,7 @@ def _k2(cfg, trials, form):
                 da.decode_attention_beam(q, k, v, n_heads=h, k_scale=ks, v_scale=vs)
 
     def prefix_step():
-        for k, ks, v, vs in caches:
+        for k, ks, v, vs in prefix_caches:
             da.decode_attention(q_prefix, k, v, prefix_valid, n_heads=h, k_scale=ks,
                                 v_scale=vs)
 
@@ -275,13 +294,15 @@ def main(argv=None) -> dict:
                       help="time K2's ring wrapper at phase 4e's shape")
     mode.add_argument("--beam", action="store_true",
                       help="time K2's beam wrapper at phase 4f's groups and beams")
+    mode.add_argument("--self", action="store_true", dest="self_form",
+                      help="time K2's self calls at phase 4's shape")
     ap.add_argument("--trials", type=int, default=3)
     args = ap.parse_args(argv)
 
     resolve_device("cuda")
     cfg = PRESETS[PRESET]
-    if args.ring or args.beam:
-        rec = _k2(cfg, args.trials, "ring" if args.ring else "beam")
+    if args.ring or args.beam or args.self_form:
+        rec = _k2(cfg, args.trials, "ring" if args.ring else "beam" if args.beam else "self")
     else:
         model = whisper.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                                     device="cuda", dtype=torch.bfloat16)

@@ -208,3 +208,53 @@ def test_ring_walk_matches_jax(int8, ring_pos):
         v_scale=None if vs is None else torch.from_numpy(vs), out_dtype=torch.float32,
     )
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+
+
+def _self_kv(rng, b, t, mode):
+    """K/V of a self cache in mode `mode`: bf16 (as fp32 values), int8 with
+    fp32 row scales (JAX's quantize_kv_rows), int8 with bf16 per-head scales
+    (JAX's quantize_kv_heads: the int4 cache's self K/V), fp32. -> ((port k,
+    k_scale), (port v, v_scale), (jax k, k_scale), (jax v, v_scale))."""
+    port, jax_side = [], []
+    for _ in range(2):
+        x = rng.standard_normal((b, t, H * HD)).astype(np.float32)
+        if mode in ("bf16", "fp32"):
+            x = _bf16_values(x) if mode == "bf16" else x
+            kv = torch.from_numpy(x)
+            port.append((kv.to(torch.bfloat16) if mode == "bf16" else kv, None))
+            jax_side.append((jnp.asarray(x), None))
+        elif mode == "int8":
+            codes, s = (np.array(a) for a in jw.quantize_kv_rows(jnp.asarray(x)))
+            port.append((torch.from_numpy(codes), torch.from_numpy(s)))
+            jax_side.append((jnp.asarray(codes), jnp.asarray(s)))
+        else:
+            codes, s = jw.quantize_kv_heads(jnp.asarray(x), H, jnp.int8)
+            port.append((torch.from_numpy(np.array(codes)),
+                         torch.from_numpy(np.asarray(s, np.float32)).bfloat16()))
+            jax_side.append((codes, s))
+    return port[0], port[1], jax_side[0], jax_side[1]
+
+
+@pytest.mark.parametrize("per_row", [False, True], ids=["scalar", "rows"])
+@pytest.mark.parametrize("t", [1, 51, 448])
+@pytest.mark.parametrize("mode", ["bf16", "int8", "int8h", "fp32"])
+def test_ring_walk_self_form_matches_jax(mode, t, per_row):
+    """K2's self form (the ring kernel without ring_pos: key j at slot j)
+    in its order (`ring_walk` with ring_pos None, `ring_plan`'s CTAs; the
+    fp32 form's boxes with an online softmax) equals the JAX
+    `decode_attention_reference` over keys [0, valid) to 2e-5, in the four
+    modes a self cache takes, at T = 1 (a first step), 51 (the lockstep
+    cache) and 448 (the decoder's most positions), with a scalar valid
+    length and per-row ones (every slot, one slot, ragged)."""
+    rng = np.random.default_rng(t + len(mode) + 7 * per_row)
+    q = _bf16_values(rng.standard_normal((B, H, HD)).astype(np.float32))
+    (k, ks), (v, vs), (jk, jks), (jv, jvs) = _self_kv(rng, B, t, mode)
+    valid = (np.array([t, 1, max(1, (2 * t) // 3)], np.int32) if per_row
+             else max(1, t - 5))
+    ref = jda.decode_attention_reference(
+        jnp.asarray(q), jk, jv, jnp.asarray(valid), n_heads=H, k_scale=jks, v_scale=jvs)
+    q_dtype = torch.float32 if mode == "fp32" else torch.bfloat16
+    got = tda.ring_walk(
+        torch.from_numpy(q), k, v, torch.from_numpy(valid) if per_row else valid, None,
+        n_heads=H, k_scale=ks, v_scale=vs, out_dtype=torch.float32, q_dtype=q_dtype)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)

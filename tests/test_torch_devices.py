@@ -136,7 +136,12 @@ def _k8(c):
     fa.flash_attention_int8(q, q, q, mode="qk")
 
 
-def _k2(c):
+def _k2(c):  # a cache past SELF_MAX_SLOTS: the prefix form's clusters (the cross call)
+    kv = _bf16(2, da.SELF_MAX_SLOTS + 1, 128)
+    da.decode_attention(_bf16(2, 2, 64), kv, kv, 5, n_heads=2)
+
+
+def _k2_self(c):  # a self cache: the self form, the ring kernel without ring_pos
     kv = _bf16(2, 16, 128)
     da.decode_attention(_bf16(2, 2, 64), kv, kv, 5, n_heads=2)
 
@@ -163,6 +168,11 @@ def _k4_f32(c):
 
 
 def _k2_f32(c):
+    kv = _bf16(2, da.SELF_MAX_SLOTS + 1, 128, dtype=torch.float32)
+    da.decode_attention(_bf16(2, 2, 64, dtype=torch.float32), kv, kv, 5, n_heads=2)
+
+
+def _k2_self_f32(c):
     kv = _bf16(2, 16, 128, dtype=torch.float32)
     da.decode_attention(_bf16(2, 2, 64, dtype=torch.float32), kv, kv, 5, n_heads=2)
 
@@ -255,11 +265,13 @@ WRAPPERS = {
     "K8": (_k8, "kwt_flash_attention_int8"),
     "K2 prefix": (_k2, "kwt_decode_attention"),
     "K2 ring": (_k2_ring, "kwt_decode_attention_ring"),
+    "K2 self": (_k2_self, "kwt_decode_attention_ring"),
     "K2 beam": (_k2_beam, "kwt_decode_attention_beam"),
     "K1 fp32": (_k1_f32, "kwt_flash_attention_f32"),
     "K4 fp32": (_k4_f32, "kwt_flash_attention_f32"),
     "K2 prefix fp32": (_k2_f32, "kwt_decode_attention"),
     "K2 ring fp32": (_k2_ring_f32, "kwt_decode_attention_ring_f32"),
+    "K2 self fp32": (_k2_self_f32, "kwt_decode_attention_ring_f32"),
     "K2 beam fp32": (_k2_beam_f32, "kwt_decode_attention_beam_f32"),
     "K3": (_k3, "kwt_log_mel"),
     "K6": (_k6, "kwt_layer_norm"),

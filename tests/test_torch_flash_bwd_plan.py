@@ -15,6 +15,12 @@
 - `_bwd_plan` packs shapes and byte strides into the array the C entry
   reads, sizes the scratch (direct dQ for one key tile), and rejects what
   the kernel cannot read, before the device is looked at.
+- The fp32 form (csrc/flash_attention_bwd_f32.cu): the split form's tiles
+  and the causal form's cluster rounds each visit every kept pair once;
+  their walk (the causal form's products in 3xTF32, emulated bit for bit
+  in the operands) equals `_flash_bwd` in interpret mode to 1e-5, where
+  one TF32 product alone reads ~5e-4 away; shared memory, plan and
+  wrapper checks.
 """
 import math
 
@@ -262,29 +268,67 @@ def test_bwd_f32_tiles_cover_each_kept_pair_once(tq, tk, causal):
     np.testing.assert_array_equal(by_dkv, kept.astype(int))
 
 
-def k5_f32_walk(q, k, v, o, lse, do, causal):
-    """The backward in K5's fp32 order (fp32 throughout): D from the
-    pre-pass's products; the dQ kernel's 64-row query tiles over their key
-    tiles (P = exp(S - LSE) of S = (Q / 8) K^T, masked past the end-aligned
-    bound, dS = P (dP - D), dQ += dS K, times 1/8 at the end); the dK/dV
-    kernel's 64-key tiles over their query tiles (dV += P^T dO, dK += dS^T
-    (Q / 8)). (B, T, H, 64) fp32 tensors; every (batch, head) at once."""
+def _tf32(x, nearest=True):
+    """fp32 as TF32 (10 mantissa bits): rounded to nearest, ties away from
+    zero (the kernel's high part), or truncated (what the tensor core
+    reads of a residual's bits)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000 if nearest else bits) & -8192).view(torch.float32)
+
+
+def _mm3(a, b):
+    """a @ b in 3xTF32, as the causal form's mma.sync products take it:
+    each operand a TF32 high part and its residual as TF32, a_lo b_hi +
+    a_hi b_lo + a_hi b_hi (a_lo b_lo dropped), fp32 sums."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah, False), _tf32(b - bh, False)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def k5_f32_walk(q, k, v, o, lse, do, causal, product=_mm3):
+    """The backward in K5's fp32 order (fp32 throughout). The causal form
+    (`bwd_f32_cluster`): CTA c of a (batch, head) over keys [64c, 64c + 64)
+    takes the query tiles from `bwd_f32_first_qtile` on, one a round: S =
+    (Q / 8) K^T and dP = dO V^T, P = exp(S - LSE) masked past the
+    end-aligned bound, dS = P (dP - D) with D = rowsum(dO * O), dV += P^T
+    dO, dK += dS^T (Q / 8), and its share dS K of the tile's dQ; tile r's
+    dQ is the shares of the round summed in rank order, times 1/8; every
+    product in 3xTF32 (`product`). The split form (the cross call): D from
+    the pre-pass's products; the dQ kernel's 64-row query tiles over their
+    key tiles (dQ += dS K, times 1/8 at the end); the dK/dV kernel's 64-key
+    tiles over their query tiles; every product in fp32. (B, T, H, 64) fp32
+    tensors; every (batch, head) at once."""
     t = fa.BWD_F32_TILE
     qf, kf, vf, of, dof = (x.float().transpose(1, 2) for x in (q, k, v, o, do))
     tq, tk = qf.shape[2], kf.shape[2]
     qs, delta = qf * 0.125, (dof * of).sum(-1)
+    n_ctas = fa.bwd_f32_cluster(tq, tk, causal)
+    mm = product if n_ctas else torch.matmul
 
     def p_ds(rs, ks):
-        s = qs[:, :, rs] @ kf[:, :, ks].transpose(-1, -2)
+        s = mm(qs[:, :, rs], kf[:, :, ks].transpose(-1, -2))
         keep = torch.ones(s.shape[-2:], dtype=torch.bool)
         if causal:
             keep = (torch.arange(ks.start, ks.stop)[None, :]
                     <= torch.arange(rs.start, rs.stop)[:, None] + tk - tq)
         p = torch.where(keep, torch.exp(s - lse[:, :, rs, None]), 0.0)
-        dp = dof[:, :, rs] @ vf[:, :, ks].transpose(-1, -2)
+        dp = mm(dof[:, :, rs], vf[:, :, ks].transpose(-1, -2))
         return p, p * (dp - delta[:, :, rs, None])
 
     dq, dk, dv = torch.zeros_like(qf), torch.zeros_like(kf), torch.zeros_like(vf)
+    if n_ctas:
+        shares = {}  # (round, rank) -> the CTA's share of the tile's dQ
+        for c in range(n_ctas):
+            ks = slice(c * t, min(c * t + t, tk))
+            for r in range(fa.bwd_f32_first_qtile(tq, tk, c * t, causal), -(-tq // t)):
+                rs = slice(r * t, min(r * t + t, tq))
+                p, ds = p_ds(rs, ks)
+                dv[:, :, ks] += mm(p.transpose(-1, -2), dof[:, :, rs])
+                dk[:, :, ks] += mm(ds.transpose(-1, -2), qs[:, :, rs])
+                shares[r, c] = mm(ds, kf[:, :, ks])
+        for (r, c) in sorted(shares):
+            dq[:, :, r * t:min(r * t + t, tq)] += shares[r, c]
+        return tuple(x.transpose(1, 2) for x in (dq * 0.125, dk, dv))
     for q0 in range(0, tq, t):
         rs = slice(q0, min(q0 + t, tq))
         for jt in range(fa.bwd_f32_key_tiles(tq, tk, q0, causal)):
@@ -323,10 +367,64 @@ def test_f32_walk_matches_jax_kernels(tq, tk, causal):
         torch.testing.assert_close(a, r, atol=1e-5, rtol=1e-5, msg=name)
 
 
+def test_f32_causal_walk_needs_the_residual_products():
+    """The causal form's 3xTF32 products hold the fp32 twin to relative L2
+    1e-5 (the card's bar); TF32 products alone, a 10-bit mantissa, read
+    more than 1e-4 away: the residual terms are what keep fp32 parity."""
+    tq = tk = 130
+    q, k, v, g = _inputs(31, 2, tq, tk, 2)
+    qt, kt, vt, gt = map(torch.from_numpy, (q, k, v, g))
+    o, lse = fa.flash_attention_fwd(qt, kt, vt, causal=True)
+    ref = fa.flash_attention_bwd_reference(qt, kt, vt, o, lse, gt, causal=True)
+    split = k5_f32_walk(qt, kt, vt, o, lse, gt, True)
+    one = k5_f32_walk(qt, kt, vt, o, lse, gt, True, product=lambda a, b: _tf32(a) @ _tf32(b))
+    for name, a, b, r in zip(("dq", "dk", "dv"), split, one, ref):
+        assert float((a - r).norm() / r.norm()) <= 1e-5, name
+        assert float((b - r).norm() / r.norm()) > 1e-4, name
+
+
 def test_bwd_f32_smem_fits_a_block():
     """Each of the fp32 form's kernels fits the 227 KB (232,448 bytes) of
-    shared memory a block may use; the dQ kernel's two a SM."""
+    shared memory a block may use; the split form's dQ kernel two a SM,
+    and the causal form's CTA two an SM (233,472 bytes, 1 KB of them
+    reserved a CTA): 320 CTAs at B=8, H=20, T=128 in one wave and a
+    fifth."""
     assert fa.BWD_F32_DKV_SMEM <= 232448 and 2 * fa.BWD_F32_DQ_SMEM <= 232448
+    assert 2 * (fa.BWD_F32_CAUSAL_SMEM + 1024) <= 233472
+
+
+@pytest.mark.parametrize("tq, tk", [(1, 1), (3, 3), (63, 63), (64, 64), (65, 65), (127, 127),
+                                    (128, 128), (130, 130), (448, 448), (512, 512), (1, 128),
+                                    (65, 300), (100, 512), (513, 513), (128, 1500)])
+def test_bwd_f32_cluster_rounds_cover_each_kept_pair_once(tq, tk):
+    """The causal form: a cluster of one CTA a 64-key tile (at most 8, Tk
+    <= 512; past that, and for the cross call, the split form); CTA c's
+    rounds, from `bwd_f32_first_qtile` to the last query tile, visit every
+    kept (query, key) pair once, each visited tile holds a kept pair, the
+    owner of every round is a CTA of the cluster (Tq <= Tk), and the CTAs
+    whose shares make tile r's dQ are the key tiles the split form's dQ
+    kernel walks for it."""
+    t = fa.BWD_F32_TILE
+    n_ctas = fa.bwd_f32_cluster(tq, tk, True)
+    assert fa.bwd_f32_cluster(tq, tk, False) == 0
+    n_kt, n_qt = -(-tk // t), -(-tq // t)
+    if n_kt > fa.BWD_F32_MAX_CLUSTER:
+        assert n_ctas == 0
+        return
+    assert n_ctas == n_kt and n_qt <= n_ctas
+    rows, keys = np.arange(tq)[:, None], np.arange(tk)[None, :]
+    kept = keys <= rows + tk - tq
+    seen = np.zeros((tq, tk), int)
+    takers = {r: [] for r in range(n_qt)}
+    for c in range(n_ctas):
+        for r in range(fa.bwd_f32_first_qtile(tq, tk, c * t, True), n_qt):
+            tile = kept[r * t:r * t + t, c * t:c * t + t]
+            assert tile.any(), (r, c)
+            seen[r * t:r * t + t, c * t:c * t + t] += tile
+            takers[r].append(c)
+    np.testing.assert_array_equal(seen, kept.astype(int))
+    for r in range(n_qt):
+        assert takers[r] == list(range(fa.bwd_f32_key_tiles(tq, tk, r * t, True))), r
 
 
 def _f32(*shape):
@@ -349,10 +447,11 @@ def test_bwd_f32_plan_packs_shapes_strides_and_scratch(causal, tk):
     (bb, tq_, tk_, hh, n_scratch), plan = fa._bwd_f32_plan(*_layouts(q, k, v, o, do, lse), causal)
     assert (bb, tq_, tk_, hh) == (b, tq, tk, h)
     strides = [s for t in (q, k, v, do, o) for s in (t.stride(0), t.stride(1), t.stride(2))]
-    assert list(plan) == [b, tq, tk, h, int(causal), *strides]
+    # the causal call (3 key tiles) takes the cluster form, which needs no scratch
+    assert list(plan) == [b, tq, tk, h, int(causal), *strides, int(causal)]
     if causal:
         assert strides[1] == 3 * h * 64  # q's token stride: the fused row
-    assert n_scratch == 2 * b * h * math.ceil(tq / 64) * 64
+    assert n_scratch == (0 if causal else 2 * b * h * math.ceil(tq / 64) * 64)
     assert fa._bwd_f32_plan(*_layouts(q, k, v, o, do, lse), causal)[1] is plan
 
 

@@ -236,6 +236,34 @@ def test_split_plan_cluster_divides_the_grid(b, t):
         assert (n_ctas, rows) == (8, 188)
 
 
+@pytest.mark.parametrize("b", [1, 16, 60])
+@pytest.mark.parametrize("t, kv_dtype, self_form", [
+    (1, torch.int8, True), (51, torch.int8, True), (51, torch.bfloat16, True),
+    (51, torch.float32, True), (176, torch.int8, True), (448, torch.bfloat16, True),
+    (448, torch.float32, True), (512, torch.int8, True), (513, torch.int8, False),
+    (1500, torch.int8, False), (1500, torch.bfloat16, False), (1500, torch.float32, False),
+    (1500, torch.uint8, False), (51, torch.uint8, False)])
+def test_self_form_takes_the_self_caches(b, t, kv_dtype, self_form):
+    """K2's form by the call's shape: a cache of at most 512 slots (every
+    self cache the decoder fills: phase 4's T=51, a stream's 176, the
+    decoder's most positions 448), in any mode but packed int4, takes the
+    self form on `ring_plan`'s grid, which holds it in shared memory and
+    gives the row one CTA a group of heads; the cross caches of phases 4,
+    4j and 4i (T=1500 in int8, bf16, fp32 and int4, at 20 and a TP rank's 10
+    heads) keep `split_plan`'s clusters of 8 CTAs of 188 rows."""
+    assert da.self_form(t, kv_dtype) == self_form
+    for n_heads in (20, 10):
+        if self_form:
+            plan = da.ring_plan(b, t, n_heads, kv_dtype, q_dtype=kv_dtype if kv_dtype
+                                == torch.float32 else torch.bfloat16)
+            # no CTA over a row's every head, no cluster (the grid is the launch's)
+            assert plan.smem <= da.SMEM_LIMIT and plan.heads < n_heads
+            assert plan.grid == (n_heads // plan.heads, b)
+            assert da.split_plan(t)[1] <= da.MIN_CTA_ROWS
+        elif t == 1500:
+            assert da.split_plan(t) == (8, 188)
+
+
 def test_split_plan_rejects_an_empty_span():
     with pytest.raises(ValueError):
         da.split_plan(0)

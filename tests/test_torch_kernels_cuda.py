@@ -1,7 +1,8 @@
 """The port's CUDA kernels (K1-K9) vs their plain twins, on the card.
 
 K2 also in its ring form (continuous batching's shared-slot cache,
-csrc/decode_attention_ring.cu) and its beam form (a group's beam queries
+csrc/decode_attention_ring.cu), its self form (the same kernel without a
+ring slot: every self-attention call's cache) and its beam form (a group's beam queries
 over one shared cross row, csrc/decode_attention_beam.cu, any beam count),
 and both together in a continuous-batching beam step at large-v3 width
 (decode/streaming_beam.py), its logits against the plain path; and in the
@@ -358,6 +359,20 @@ def test_decode_attention_kernel(int8, t, valid):
     _assert_near(got, ref, atol=2e-3)
 
 
+def _k2_counter(t, kv_dtype, ring=False):
+    """The launch counter of the K2 form a call takes: the ring form with
+    ring_pos, else the self form on the caches `self_form` names (at most
+    512 slots, not packed int4), else the prefix form's clusters."""
+    if ring:
+        return "ring_launches"
+    return "self_launches" if da.self_form(t, kv_dtype) else "launches"
+
+
+def _k2_launches():
+    return (da.decode_attention.launches, da.decode_attention.self_launches,
+            da.decode_attention.ring_launches)
+
+
 def _decode_inputs(b, t, h, int8, seed):
     q = _randn(b, h, 64, seed=seed)
     k = _randn(b, t, h * 64, seed=seed + 1)
@@ -373,17 +388,19 @@ def _decode_inputs(b, t, h, int8, seed):
 @pytest.mark.parametrize("t", [1, 51, 64, 65, 1500])
 @pytest.mark.parametrize("per_row", [False, True], ids=["scalar", "rows"])
 def test_decode_attention_kernel_splits(int8, t, per_row):
-    """K2 at cache lengths around its split plan (one CTA up to 64 rows,
-    then clusters of up to 8); per-row valid lengths of 1 and 2 leave whole
-    CTAs of a cluster empty, which the combine must skip."""
+    """K2 at cache lengths around its plans (the self form up to 512
+    slots, then clusters of up to 8 CTAs); per-row valid lengths of 1 and 2
+    leave whole CTAs of a cluster empty, which the combine must skip. One
+    launch a call, on the form `self_form` names."""
     b, h = 4, 20
     q, k, v, ks, vs = _decode_inputs(b, t, h, int8, seed=61)
     valid = (torch.tensor([t, 1, min(t, 2), (t + 1) // 2], dtype=torch.int32, device="cuda")
              if per_row else t)
-    before = da.decode_attention.launches
+    counter = _k2_counter(t, k.dtype)
+    before = getattr(da.decode_attention, counter)
     got = da.decode_attention(q, k, v, valid, n_heads=h, k_scale=ks, v_scale=vs)
     torch.cuda.synchronize()
-    assert da.decode_attention.launches == before + 1
+    assert getattr(da.decode_attention, counter) == before + 1
     ref = da.decode_attention_reference(q, k, v, valid, n_heads=h, k_scale=ks, v_scale=vs)
     _assert_near(got, ref, atol=2e-3)
 
@@ -444,6 +461,92 @@ def test_decode_attention_ring_kernel(int8, t, at):
     ref = da.decode_attention_reference(q, k, v, t - 5, n_heads=h, k_scale=ks, v_scale=vs,
                                         ring_pos=ring_pos)
     _assert_near(got, ref, atol=2e-3)
+
+
+def _self_inputs(b, t, h, mode, seed):
+    """q and a self cache in mode `mode`: bf16; int8 with fp32 row scales;
+    int8 with bf16 per-head scales (the int4 cache's self K/V); fp32 (q
+    fp32 too). -> (q, k, v, k_scale, v_scale)."""
+    f32 = mode == "fp32"
+    q = _randn(b, h, 64, seed=seed, dtype=torch.float32 if f32 else torch.bfloat16)
+    out = []
+    for s in (seed + 1, seed + 2):
+        x = _randn(b, t, h * 64, seed=s, dtype=torch.float32 if f32 else torch.bfloat16)
+        if mode == "int8":
+            out += list(quantize_kv_rows(x))
+        elif mode == "int8h":
+            out += list(quantize_kv_heads(x, h, 8))
+        else:
+            out += [x, None]
+    k, ks, v, vs = out
+    return q, k, v, ks, vs
+
+
+@pytest.mark.parametrize("heads", [20, 10])
+@pytest.mark.parametrize("valid", ["scalar", "rows"])
+@pytest.mark.parametrize("t", [1, 51, 448])
+@pytest.mark.parametrize("mode", ["bf16", "int8", "int8h", "fp32"])
+def test_decode_attention_self_form(mode, t, valid, heads):
+    """K2's self form (the ring kernel without ring_pos: key j at slot j)
+    in the four modes of a self cache, at T=1 (a first step), 51 (phase 4's
+    cache) and 448 (the decoder's most positions), a scalar valid length
+    and ragged per-row ones, at 20 heads and a TP rank's 10. One launch of
+    the self form a call; bf16 outputs within K2's bounds (atol 2e-3,
+    relative L2 <= 1e-2), fp32 within 1e-5, each above a control: the twin
+    without the last half of each row's keys reads >= 1e-2 away."""
+    b = 6
+    q, k, v, ks, vs = _self_inputs(b, t, heads, mode, seed=300 + t)
+    if valid == "rows":
+        valid = torch.tensor([t, 1, max(1, t // 2), max(1, t - 1), max(1, (2 * t) // 3),
+                              min(t, 2)], dtype=torch.int32, device="cuda")
+    else:
+        valid = max(1, t - 3)
+    kw = dict(n_heads=heads, k_scale=ks, v_scale=vs)
+    before = _k2_launches()
+    got = da.decode_attention(q, k, v, valid, **kw)
+    torch.cuda.synchronize()
+    assert _k2_launches() == (before[0], before[1] + 1, before[2])
+    ref = da.decode_attention_reference(q, k, v, valid, **kw)
+    if mode == "fp32":
+        _assert_fp32(got, ref)
+    else:
+        _assert_near(got, ref, atol=2e-3)
+    n = torch.as_tensor(valid, device="cuda").expand(b)
+    if int(n.max()) >= 2:  # the control: keys [0, ceil(n / 2)) only, on rows of >= 2 keys
+        half = da.decode_attention_reference(q, k, v, ((n + 1) // 2).to(torch.int32), **kw)
+        rows = n >= 2
+        control = float((half[rows] - ref[rows]).float().norm() / ref[rows].float().norm())
+        assert control >= 1e-2, f"control relative L2 {control:.3e}"
+
+
+@pytest.mark.parametrize("mode", ["bf16", "int8", "int8h", "fp32"])
+def test_decode_attention_self_form_replays_in_a_cuda_graph(mode):
+    """The self form allocates only its output and launches once: a CUDA
+    graph of a call at phase 4's shape (B=16, T=51, 20 heads) with per-row
+    valid lengths replays to the eager result bit for bit, also after new
+    queries and valid lengths are written into the captured inputs."""
+    b, t, h = 16, 51, 20
+    q, k, v, ks, vs = _self_inputs(b, t, h, mode, seed=320)
+    valid = torch.arange(1, b + 1, dtype=torch.int32, device="cuda") * 3
+
+    def call():
+        return da.decode_attention(q, k, v, valid, n_heads=h, k_scale=ks, v_scale=vs)
+
+    want = call()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    before = _k2_launches()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want) and _k2_launches() == before
+    q.copy_(_randn(*q.shape, seed=321, dtype=q.dtype))
+    valid.copy_(torch.arange(b, 0, -1, dtype=torch.int32, device="cuda") * 3)
+    graph.replay()
+    want = call()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
 
 
 @pytest.mark.parametrize("int8", [True, False], ids=["int8", "bf16"])
@@ -525,8 +628,8 @@ def _heads_inputs(b, t, h, bits, seed):
 def test_decode_attention_per_head_forms(form, heads):
     """K2's three forms in the int4 cache's modes, at large-v3's 20 heads
     and a tensor-parallel rank's 10: the prefix form over packed int4 cross
-    K/V (T=1500, scalar and per-row valid lengths) and over int8 self K/V
-    (T=51), the ring form over int8 self K/V (T=176, rows wrapping), the
+    K/V (T=1500, scalar and per-row valid lengths), the self form over int8
+    self K/V (T=51), the ring form over int8 self K/V (T=176, rows wrapping), the
     beam form over packed int4 cross K/V (3 groups x 5 beams and 12 x 5);
     per-head bf16 scales; one launch a call, held to the twin."""
     if form == "beam-int4":
@@ -546,7 +649,7 @@ def test_decode_attention_per_head_forms(form, heads):
     q, k, v, ks, vs = _heads_inputs(6, t, heads, bits, seed=102)
     kw = dict(n_heads=heads, k_scale=ks, v_scale=vs)
     valid = t
-    counter = "launches"
+    counter = _k2_counter(t, k.dtype)
     if form == "ring-int8":
         valid = torch.tensor([t, 1, 41, 100, t - 1, 7], dtype=torch.int32, device="cuda")
         kw["ring_pos"] = torch.tensor(40, dtype=torch.int32, device="cuda")
@@ -688,10 +791,10 @@ def test_decode_attention_refuses_mismatched_scales(bad):
             da.decode_attention_beam(qb, k, v, n_heads=h, k_scale=ks, v_scale=vs)
         assert da.decode_attention_beam.launches == before
         return
-    before = (da.decode_attention.launches, da.decode_attention.ring_launches)
+    before = _k2_launches()
     with pytest.raises(ValueError, match="K2"):
         da.decode_attention(q, k, v, t, n_heads=h, k_scale=ks, v_scale=vs, **kw)
-    assert (da.decode_attention.launches, da.decode_attention.ring_launches) == before
+    assert _k2_launches() == before
 
 
 def _wide_range_audio(b, n, seed):
@@ -1039,7 +1142,7 @@ def test_ring_and_beam_forms_in_one_decode_step(monkeypatch, kv_dtype, layout):
         return logits[:, 0].float(), cache
 
     self_count = (lambda: da.decode_attention.ring_launches) if layout == "ring" else (
-        lambda: da.decode_attention.launches)
+        lambda: da.decode_attention.self_launches)
     self0, beam0 = self_count(), da.decode_attention_beam.launches
     got, cache = step()
     torch.cuda.synchronize()
@@ -1119,12 +1222,14 @@ def test_pipeline_runs_the_kernels_and_matches_the_cpu_twins(monkeypatch, num_be
     loop = beam if num_beams > 1 else greedy
     rules = loop.apply_rules
     monkeypatch.setattr(loop, "apply_rules", lambda *a, **k: steps.append(1) or rules(*a, **k))
-    before = (fa.flash_attention_fwd.launches, da.decode_attention.launches,
-              da.decode_attention_beam.launches, mel.log_mel_frames.launches)
+    def counts():  # K2's prefix and self forms together: test-tiny's caches are short
+        return (fa.flash_attention_fwd.launches,
+                da.decode_attention.launches + da.decode_attention.self_launches,
+                da.decode_attention_beam.launches, mel.log_mel_frames.launches)
+
+    before = counts()
     got = AsrPipeline(model=copy.deepcopy(model).cuda(), **kw)(audio)
-    k1, k2, k2beam, k3 = (n - b for n, b in zip(
-        (fa.flash_attention_fwd.launches, da.decode_attention.launches,
-         da.decode_attention_beam.launches, mel.log_mel_frames.launches), before))
+    k1, k2, k2beam, k3 = (n - b for n, b in zip(counts(), before))
     per_step = cfg.decoder_layers * len(steps)
     assert steps and (k1, k3) == (cfg.encoder_layers, 1)
     assert (k2, k2beam) == ((per_step, per_step) if num_beams > 1 else (2 * per_step, 0))
@@ -1240,10 +1345,11 @@ def test_decode_attention_f32_prefix(t, valid, kv, heads):
     k, v, ks, vs = _f32_kv(b, t, heads, kv, seed=205)
     if valid == "rows":
         valid = torch.tensor([t, 1, 64, 65], dtype=torch.int32, device="cuda")
-    before = da.decode_attention.launches
+    counter = _k2_counter(t, k.dtype)
+    before = getattr(da.decode_attention, counter)
     got = da.decode_attention(q, k, v, valid, n_heads=heads, k_scale=ks, v_scale=vs)
     torch.cuda.synchronize()
-    assert da.decode_attention.launches == before + 1
+    assert getattr(da.decode_attention, counter) == before + 1
     _assert_fp32(got, da.decode_attention_reference(q, k, v, valid, n_heads=heads, k_scale=ks,
                                                     v_scale=vs))
 
@@ -1365,11 +1471,11 @@ def test_f32_forms_refuse_mixed_dtypes(bad):
         assert da.decode_attention_beam.launches == before
         return
     kw = {"ring_pos": torch.tensor(3, dtype=torch.int32, device="cuda")} if "ring" in bad else {}
-    before = (da.decode_attention.launches, da.decode_attention.ring_launches)
+    before = _k2_launches()
     with pytest.raises(ValueError, match="K2"):
         da.decode_attention(_randn(2, h, 64, seed=221, dtype=q_dtype), kv, kv, t, n_heads=h,
                             k_scale=scale, v_scale=scale, **kw)
-    assert (da.decode_attention.launches, da.decode_attention.ring_launches) == before
+    assert _k2_launches() == before
 
 
 @pytest.mark.parametrize("kernel", ["K5", "K6", "K7", "K8"])
@@ -1450,6 +1556,47 @@ def test_flash_attention_backward_f32_kernel(b, tq, tk, h, causal):
     ref = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, causal=causal)
     for name, g, r in zip(("dq", "dk", "dv"), got, ref):
         _assert_fp32_grad(g, r, name)
+
+
+@pytest.mark.parametrize("b, tq, tk, h", [
+    (2, 1, 1, 3), (2, 63, 63, 3), (2, 65, 65, 3), (2, 127, 127, 3), (8, 128, 128, 20),
+    (2, 1, 128, 3), (2, 65, 300, 2), (1, 100, 448, 4), (1, 448, 448, 2)])
+def test_flash_attention_backward_f32_causal_form(b, tq, tk, h):
+    """K5's fp32 causal form (one launch, a cluster of key tiles a (batch,
+    head), 3xTF32 mma.sync): ragged query tiles, end-aligned Tq < Tk, up to
+    the decoder's 448 positions (7 key tiles). dQ, dK and dV within
+    relative L2 1e-5 of the twin, above a control (the twin without the
+    first min(64, Tk / 2) keys reads >= 1e-2 away), and two calls equal bit
+    for bit (no atomics). With one key (Tq = Tk = 1) dQ and dK are 0 in
+    exact arithmetic (dP = D), and what kernel and twin read is the
+    rounding of dP - D, each its own: an output whose twin is below 1e-5
+    of the call's largest gradient is held to that bound instead."""
+    assert fa.bwd_f32_cluster(tq, tk, True) == -(-tk // 64)
+    q, k, v, do = _k5_f32_inputs(b, tq, tk, h, seed=250)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    before = fa.flash_attention_bwd.launches
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bwd.launches == before + 2
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+    ref = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, causal=True)
+    scale = max(float(r.abs().max()) for r in ref)
+    for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+        if float(r.abs().max()) <= 1e-5 * scale:
+            assert float((g - r).abs().max()) <= 1e-5 * scale, name
+        else:
+            _assert_fp32_grad(g, r, name)
+    if tk >= 2:
+        d = min(64, tk // 2)
+        cq, ck, cv = fa.flash_attention_bwd_reference(q, k[:, d:], v[:, d:], o, lse, do,
+                                                      causal=True)
+        pad = torch.zeros_like(k[:, :d])
+        full = torch.cat([t.flatten() for t in ref])
+        cut = torch.cat([t.flatten() for t in (cq, torch.cat([pad, ck], 1),
+                                               torch.cat([pad, cv], 1))])
+        control = float((cut - full).norm() / full.norm())
+        assert control >= 1e-2, f"control relative L2 {control:.3e}"
 
 
 @pytest.mark.parametrize("causal", [True, False])

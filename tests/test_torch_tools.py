@@ -9,7 +9,9 @@ import numpy as np
 import pytest
 import torch
 
-from kotoba_whisper_tpu_torch.tools import enc_exp, k8_probe, stem_exp, step_time, vpu_cal
+from kotoba_whisper_tpu_torch.tools import (
+    enc_exp, k8_probe, kernel_time, stem_exp, step_time, vpu_cal,
+)
 
 TINY = ["--preset", "test-tiny", "--batch", "2", "--device", "cpu"]
 
@@ -102,3 +104,13 @@ def test_step_time_raises_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         step_time.main([])
+
+
+@pytest.mark.parametrize("tool, argv", [(step_time, ["--self"]), (kernel_time, [])],
+                         ids=["step_time-self", "kernel_time"])
+def test_timing_tools_raise_without_a_card(monkeypatch, tool, argv):
+    """K2's self-call timing and the kernel timing tool measure the card
+    only: without one they raise before any work."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tool.main(argv)
