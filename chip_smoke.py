@@ -35,9 +35,10 @@ Phases, in order; any failure exits nonzero and prints no result line:
      K4's device time also by batch; K8's quantize pre-pass also bit for
      bit against the twin quantizers, and its pre-pass and main kernel
      each timed alone; then the fp32 forms at phase 4k's shapes: K1 (B=16,
-     T=1500), K4 (B=8 x 128), K2's prefix form (cross T=1500 with fp32 and
-     int8 K/V), self form (T=51), ring form (W=48 at T=176 and T=448, the
-     latter in boxes) and beam form (12 x 5 over T=1500, fp32 and int4
+     T=1500; its bound the three TF32 products, the FFMA bound and SDPA's
+     distance from the twin beside), K4 (B=8 x 128), K2's prefix form
+     (cross T=1500 with fp32, int8 and int4 K/V), self form (T=51), ring
+     form (W=48 at T=176 and T=448, the latter in boxes) and beam form (12 x 5 over T=1500, fp32 and int4
      K/V), K5 (causal B=8 x 128, its one-launch cluster form, and cross 128
      x 1500: dQ, dK, dV; autograd through SDPA beside it), K8 with fp32 q
      (qk and qkpv at B=16, T=1500, its pre-pass bit for bit), K6 on fp32 rows (24000 x 1280, LayerNorm and
@@ -127,8 +128,8 @@ Phases, in order; any failure exits nonzero and prints no result line:
      int4, audio-s/s beside phases 4 and 4f;
   4k. fp32 (the JAX package's --dtype float32): large-v3 with seeded
      random fp32 weights through the kernels' fp32 forms: (a) phase 4's
-     B=16 batch with int8 and compute KV (launches K1 32, K3 1, K2 prefix
-     3072), (b) 4f's beam search with compute and int4 KV, (c) a stream on
+     B=16 batch with int8, int4 and compute KV (launches K1 32, K3 1, K2
+     prefix 1536 and self 1536 each), (b) 4f's beam search with compute and int4 KV, (c) a stream on
      4e's settings over 48 windows, (d) AsrPipeline at 30 s, (e) at B=2 on
      three seeds the kernel path, under torch's default TF32 flags, against
      the plain path: encoder and first-step logits within 1e-4, the 48
@@ -235,9 +236,9 @@ import torch.nn.functional as F  # noqa: E402
 
 # Published dense peaks of the card the port targets (NVIDIA H100 SXM data
 # sheet): bf16 tensor FLOP/s, fp32 CUDA-core FLOP/s, memory bytes/s, int8
-# tensor OP/s. Another card needs its own entry; the bounds are not guessed
-# for it.
-PEAKS = {"H100 80GB HBM3": (989e12, 67e12, 3.35e12, 1979e12)}
+# tensor OP/s, TF32 tensor FLOP/s. Another card needs its own entry; the
+# bounds are not guessed for it.
+PEAKS = {"H100 80GB HBM3": (989e12, 67e12, 3.35e12, 1979e12, 495e12)}
 # Relative L2 error allowed of every kernel against its twin: ~10x the bf16
 # rounding of K1's and K2's outputs; a dropped or mis-weighted key tile moves
 # it by ~1e-1 on random inputs and by ~1.9e-2 on the encoder's own
@@ -689,7 +690,7 @@ def main() -> int:
     peak_name = next((k for k in PEAKS if k in kind), None)
     if peak_name is None:
         raise RuntimeError(f"no peak rates for card {kind!r}: add its data sheet to PEAKS")
-    bf16_rate, fp32_rate, mem_rate, int8_rate = PEAKS[peak_name]
+    bf16_rate, fp32_rate, mem_rate, int8_rate, tf32_rate = PEAKS[peak_name]
     card = f"{kind} @ {smi.split(',')[-1].strip()}"
     log(f"[device] torch: {kind}; count {torch.cuda.device_count()}; "
         f"torch {torch.__version__} cuda {torch.version.cuda}; "
@@ -1486,8 +1487,9 @@ def main() -> int:
     # kernels on fp32 q (and fp32, int8 or int4 K/V), each held to its fp32
     # twin by relative L2 <= F32_REL_TOL and above its control (the twin
     # with the first 64-key tile dropped; in the ring each row's 64 oldest
-    # keys); bounds: K1/K4 their FFMAs at the fp32 CUDA-core rate (and the
-    # exponentials), K2 its bytes; the library call SDPA on the same fp32
+    # keys); bounds: K1 its three TF32 products at the dense TF32 rate (and
+    # the exponentials), K4 its FFMAs at the fp32 CUDA-core rate, K2 its
+    # bytes; the library call SDPA on the same fp32
     # tensors (K2's quantized K/V dequantized to fp32), the backend that ran
     # named by the kernel it launched.
     def sdpa_kernel_name(fn):
@@ -1530,6 +1532,15 @@ def main() -> int:
     if lse_err > 1e-5:
         raise AssertionError(f"K1 fp32 LSE disagrees: {lse_err}")
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+    def k1_f32_bound(pairs, *ts):
+        """K1 fp32's bound: three TF32 products (3xTF32) of 4 * 64 flops a
+        (query, key) pair at the dense TF32 rate, the exponentials beside."""
+        return bound(3 * 4.0 * pairs * 64, tf32_rate, nbytes(*ts), mem_rate,
+                     exp_s=pairs / exp_rate)
+
+    # the library call's own distance from the fp32 twin, beside its time
+    lib_rel = compare(F.scaled_dot_product_attention(qt, kt, vt).transpose(1, 2), ro)[1]
     f32_record(
         f"K1 flash_attention_fwd fp32 (B={B}, T={t_enc}, H={h}, D=64)",
         "kotoba_whisper_tpu_torch/csrc/flash_attention_f32.cu",
@@ -1537,8 +1548,7 @@ def main() -> int:
         fa.flash_attention_reference(q, k[:, 64:], v[:, 64:])[0],
         lambda: fa.flash_attention_fwd(q, k, v), lambda: fa.flash_attention_reference(q, k, v),
         lambda: F.scaled_dot_product_attention(qt, kt, vt),
-        bound(4.0 * B * h * t_enc * t_enc * 64, fp32_rate, nbytes(q, k, v, o, lse), mem_rate,
-              exp_s=B * h * t_enc * t_enc / exp_rate), "K1f32")
+        k1_f32_bound(B * h * t_enc * t_enc, q, k, v, o, lse), "K1f32", library_rel_l2=lib_rel)
     del q, k, v, o, lse, ro, rlse, qt, kt, vt
     torch.cuda.empty_cache()
     # K4 fp32: the decoder's causal self-attention (B=8 x 128 labels)
@@ -1567,11 +1577,13 @@ def main() -> int:
         """(R, T, D) fp32 -> (stored K or V, scales or None) in K/V mode `mode`."""
         return (x, None) if mode == "fp32" else quantized(x, hh, mode)
 
-    # K2 prefix form, fp32 q: cross (T=1500) with fp32 K/V (compute KV) and
-    # with int8 K/V; K2's self form (its ring kernel's fp32 form without
-    # ring_pos): self (T=51) fp32
+    # K2 prefix form, fp32 q: cross (T=1500) with fp32 K/V (compute KV), with
+    # int8 K/V (the row kernel) and with packed int4 K/V (the head kernel);
+    # K2's self form (its ring kernel's fp32 form without ring_pos): self
+    # (T=51) fp32
     for label, t, kv, key in (("cross", t_enc, "fp32", "K2f32"), ("cross", t_enc, "int8",
                                                                    "K2f32int8"),
+                              ("cross", t_enc, "int4", "K2f32int4"),
                               ("self", cap, "fp32", "K2selff32")):
         qd = randn(B, h, 64, seed=46, dtype=f32)
         kf, ks = f32_kv(randn(B, t, d, seed=47, dtype=f32), h, kv)
@@ -1765,8 +1777,7 @@ def main() -> int:
         else:
             name = f"K1 flash_attention_fwd {form} fp32 (B={B}, T={t_enc}, H={h}, D=64)"
             source = "kotoba_whisper_tpu_torch/csrc/flash_attention_f32.cu"
-            bnd = bound(4.0 * pairs * 64, fp32_rate, nbytes(q, k, v, o, lse), mem_rate,
-                        exp_s=pairs / exp_rate)
+            bnd = k1_f32_bound(pairs, q, k, v, o, lse)
         f32_record(
             name, source, f"kotoba_whisper_tpu/ops/flash_attention.py:{line}", o, ro,
             twin(k[:, 64:], v[:, 64:])[0], call, twin,
@@ -2720,7 +2731,7 @@ def main() -> int:
     # ---- 4k. fp32 at large-v3 width and depth --------------------------------
     # The JAX package's --dtype float32: large-v3 with seeded random fp32
     # weights (unfused), fp32 log-mel in, through the kernels' fp32 forms:
-    # (a) phase 4's B=16 batch, prompt + 48 tokens, eot off, int8 KV and
+    # (a) phase 4's B=16 batch, prompt + 48 tokens, eot off, int8, int4 and
     # compute (fp32) KV, launches exact; (b) 4f's beam search (12 x 5) with
     # compute and int4 KV; (c) a stream on 4e's settings over its first 48
     # windows, compute KV (K2's fp32 ring form); (d) AsrPipeline at 30 s, 1
@@ -2749,8 +2760,9 @@ def main() -> int:
         return generate_greedy(model32, mel.log_mel_spectrogram(x, feat), opts, st_fixed,
                                kv_dtype=kv)
 
-    for kv in ("int8", "compute"):
-        greedy32(audio32, kv)  # warm-up
+    for kv in ("int8", "int4", "compute"):
+        if kv != "int4":  # int4 runs at int8's shapes, right after it
+            greedy32(audio32, kv)  # warm-up
         toks_k = k_run(f"a-{kv}", lambda: greedy32(audio32, kv)).cpu().numpy()
         log(f"[4k-a] fp32 B={B} x {NEW_TOKENS} tokens, {kv} KV: wall {k_walls[f'a-{kv}']:.3f} s, "
             f"{B * feat.chunk_length_s / k_walls[f'a-{kv}']:.1f} audio-s/s (phase 4, bf16, int8: "
@@ -2907,6 +2919,7 @@ def main() -> int:
     fp32_launches = {"K1f32": k_counts["a-compute"]["K1"], "K2f32": k_counts["a-compute"]["K2"],
                      "K2selff32": k_counts["a-compute"]["K2self"],
                      "K2f32int8": k_counts["a-int8"]["K2"],
+                     "K2f32int4": k_counts["a-int4"]["K2"],
                      "K2beamf32": k_counts["b-compute"]["K2beam"],
                      "K2beamf32int4": k_counts["b-int4"]["K2beam"],
                      "K2ringf32": k_counts["c"]["K2ring"],

@@ -5,50 +5,74 @@
 // actually ran in its place, `decode_attention_reference`: int8 or int4
 // K/V with scales folded into the scores (k_scale) and the softmax weights
 // (v_scale), a lockstep scalar or per-row (B,) valid length. Five K/V
-// modes, each its own instantiation: bf16; int8 with fp32 per-row scales;
-// int8 with bf16 per-head scales (the int4 cache's self K/V); int4 packed
-// two a byte with bf16 per-head scales (its cross K/V); fp32 (an fp32
-// model's compute cache). q and the output are bf16 with the first four,
-// and fp32 (the fp32 form: an fp32 model's step, every sum fp32 as before)
-// with the last three and fp32 K/V.
+// modes: bf16; int8 with fp32 per-row scales; int8 with bf16 per-head
+// scales (the int4 cache's self K/V); int4 packed two a byte with bf16
+// per-head scales (its cross K/V); fp32 (an fp32 model's compute cache).
+// q and the output are bf16 with the first four, and fp32 (the fp32 form:
+// an fp32 model's step, every sum fp32 as before) with the last three and
+// fp32 K/V. Two kernels: the row kernel (`decode_kernel`, every mode but
+// int4) and the head kernel (`int4_kernel`, packed int4).
 //
 // What bounds it on the card: one query row per batch element against a
 // (B, T, H*64) cache, so every K/V byte is read once and used for one
 // multiply-add: ~0.5-1 flop per byte, far below the ridge. The cross-
 // attention call (T=1500) is bound by the bytes of K and V (61 MB in int8
-// at B=16, about 18 us at 3.35 TB/s). The self-attention call does not
-// come here: its caches (at most 448 slots) take K2's self form, the ring
-// kernel of decode_attention_ring.cu with key j at slot j
-// (ops/decode_attention.py `self_form`). This kernel gave such a cache one
-// CTA per batch row, which read 0.0118 ms on the card at B=16, T=51, 20
-// times its byte bound and 2.5x one scaled_dot_product_attention call: 16
-// CTAs on 132 SMs, each over all 20 heads, and not the launch, held it.
+// at B=16, about 18 us at 3.35 TB/s; 31 MB of int4 codes and 1.9 MB of
+// scales, about 10 us). The self-attention call does not come here: its
+// caches (at most 448 slots) take K2's self form, the ring kernel of
+// decode_attention_ring.cu with key j at slot j (ops/decode_attention.py
+// `self_form`).
 //
-// Design: one launch per call. T is split over a thread-block cluster of
-// up to 8 CTAs per batch row (ops/decode_attention.py `split_plan`: 8 x 188
-// rows at T=1500, 128 CTAs at B=16). A CTA's
-// rows of a batch row are contiguous in the (B, T, H*64) cache, so one
-// producer warp streams them with 1-D bulk copies (cp.async.bulk, counted
-// on mbarriers) through a 4-stage ring of 20 KB: its K rows, then its V
-// rows, keeping ~60 KB in flight per CTA (3 stages with per-head scales,
-// whose bf16 values a (row, head) then take shared memory). Ten consumer
-// warps each own one chunk of a row (16 bytes: a quarter of a head in
-// int8, an eighth in bf16; 8 bytes in int4, a quarter of a head) and a
-// group of rows, so every consumer thread works in both phases and the
-// lanes sharing a head reduce by shuffles. int8 becomes fp32 by a byte
-// permute into the mantissa of 2^23 and one subtraction, int4 by a nibble
-// OR-ed into that mantissa (prmt or lop3 + fadd on the integer and FMA
-// pipes; the I2F pipe alone would take ~15 us at B=16), and all arithmetic
-// stays fp32. The scores of a CTA's rows (<= 188 x 20) stay
-// in shared memory, so the CTA's softmax takes its exact max before any
+// Design: two kernels, each one launch a call.
+//
+// The row kernel: T is split over a thread-block
+// cluster of up to 8 CTAs per batch row (ops/decode_attention.py
+// `split_plan`: 8 x 188 rows at T=1500, 128 CTAs at B=16). A CTA's rows of
+// a batch row are contiguous in the (B, T, H*64) cache, so one producer
+// warp streams them with 1-D bulk copies (cp.async.bulk, counted on
+// mbarriers) through a 4-stage ring of 20 KB: its K rows, then its V rows,
+// keeping ~60 KB in flight per CTA (3 stages with per-head scales, whose
+// bf16 values a (row, head) then take shared memory). Ten consumer warps
+// each own one 16-byte chunk of a row (a quarter of a head in int8, an
+// eighth in bf16) and a group of rows, so every consumer thread works in
+// both phases and the lanes sharing a head reduce by shuffles. int8
+// becomes fp32 by a byte permute into the mantissa of 2^23 and one
+// subtraction (the I2F pipe alone would take ~15 us at B=16), and all
+// arithmetic stays fp32. The scores of a CTA's rows (<= 188 x 20) stay in
+// shared memory, so the CTA's softmax takes its exact max before any
 // exponential (no online rescaling); the weights carry v_scale into the V
 // pass. The CTAs of a cluster then combine through distributed shared
 // memory: each sends its weighted V sums for a slice of the output columns
 // to the CTA that owns the slice, and its per-head max and sum to all, and
 // after one cluster barrier each owner writes its slice: no fp32 partials
-// in device memory and no second launch. An fp32 row of 20 heads is 5120 bytes: a
-// stage holds 4 rows, and a thread's chunk is 32 bytes (an eighth of a
-// head), so the fp32 form keeps the bf16 form's lanes and groups.
+// in device memory and no second launch. An fp32 row of 20 heads is 5120
+// bytes: a stage holds 4 rows, and a thread's chunk is 32 bytes (an eighth
+// of a head), so the fp32 form keeps the bf16 form's lanes and groups.
+//
+// The head kernel (packed int4; ops/decode_attention.py `int4_plan`): the
+// row kernel gave int4 128 CTAs of 11 warps at B=16, one an SM, each in
+// strict phases behind a prologue of plain scale loads, and read 0.0468 ms
+// (int8: 0.0389) though int4 moves half the bytes. Here a CTA takes one
+// (key share, group of up to 4 heads, batch row), and the plan gives the
+// card about three CTAs an SM (4 shares of 375 rows x 5 groups x 16 rows
+// = 320 CTAs at the cross call, ~49 KB of shared memory each): on the
+// card 320-400 CTAs read 0.0233-0.0235 ms there, 640 0.0259 and 160
+// 0.0345. A producer warp streams the group's 32-byte head columns of its
+// rows with 3-D TMA boxes (up to 128 bytes x 64 rows, zero-filled past T;
+// no swizzle) through a 32 KB ring, K's boxes then V's, and its lanes copy
+// the rows' bf16 scales of the group (the aligned 4-byte words that hold
+// them: a (rows, H) bf16 tensor's 40-byte rows admit no TMA box) with
+// cp.asyncs counted on their own mbarrier, off the scores' path: the K
+// pass keeps raw dot products and the softmax pass applies k_scale. Four
+// consumer warps give each thread an 8-byte chunk (16 codes, a quarter of
+// a head) of a row and a group of rows, as the row kernel does. A word's
+// nibbles i and i + 4, XOR 8, become bf16x2 (128 + code + 8) by one LOP3
+// into 0x4308 and one bf16x2 FMA subtracts 136 (exact), each half is an
+// fp32 by a shift or a mask, and the products are fp32 FMAs against q
+// (fp32, pre-scaled by 1/8 log2(e), in the pairs' order): scores and
+// weights stay fp32, the row kernel's arithmetic. The shares of a (row,
+// group) combine over a cluster's distributed shared memory as the row
+// kernel's do.
 #include "card.cuh"
 #include "sm90_common.cuh"
 
@@ -92,8 +116,8 @@ struct Layout {
   }
 };
 
-// KV: int8_t, __nv_bfloat16, Int4 or float (the element type of the
-// cache's rows); kHeads: bf16 (B, T, H) scales, else fp32 (B, T) or none
+// KV: int8_t, __nv_bfloat16 or float (the element type of the cache's
+// rows); kHeads: bf16 (B, T, H) scales, else fp32 (B, T) or none
 // (bf16, fp32); QT: q's and the output's type, bf16 or float.
 template <typename KV, bool kHeads, typename QT>
 __global__ void __launch_bounds__(kThreads, 2)
@@ -104,7 +128,7 @@ __global__ void __launch_bounds__(kThreads, 2)
                   QT* __restrict__ out, int t_cap, int n_heads, int rows_per_cta) {
   using C = Chunk<KV>;
   constexpr int kElems = C::kElems;
-  constexpr int kLanesPerHead = kHD / kElems;  // 4 (int8, int4) or 8 (bf16, fp32)
+  constexpr int kLanesPerHead = kHD / kElems;  // 4 (int8) or 8 (bf16, fp32)
   constexpr int kStages = kStagesOf<kHeads>;
   extern __shared__ __align__(128) uint8_t smem[];
   const int d = n_heads * kHD;
@@ -361,14 +385,344 @@ int launch(int card, const void* q, long q_stride, const void* k, const void* v,
       n_heads, rows_per_cta));
 }
 
+// ---- the head kernel (packed int4) --------------------------------------------
+
+constexpr int kI4Consumers = 128;              // four consumer warps
+constexpr int kI4Threads = kI4Consumers + 32;  // + the producer warp
+constexpr int kI4Box = 64;      // rows a TMA box (ops/decode_attention.py INT4_BOX)
+constexpr int kI4Ring = 32768;  // bytes of the copy ring (INT4_RING)
+
+// Shared memory of a head CTA over `rows` cache rows of `hg` heads: the copy
+// ring (reused for the row groups' V sums once drained), the raw scores of
+// (row, head), each row's scale words (hg / 2 + 1 4-byte words a row and
+// tensor: the aligned words that hold its hg bf16s), the per-head max and
+// sum, what the cluster's CTAs send it, the barriers (full and empty a
+// stage, then the scales'). ops/decode_attention.py `int4_smem_bytes`
+// mirrors `total`.
+struct I4Layout {
+  int ring, scores, k_scale, v_scale, m, l, recv_acc, recv_m, recv_l, bars, total;
+  __host__ __device__ I4Layout(int rows, int hg) {
+    const int words = hg / 2 + 1, stages = kI4Ring / (kI4Box * hg * 32);
+    ring = 0;
+    scores = ring + kI4Ring;
+    k_scale = scores + 4 * rows * hg;
+    v_scale = k_scale + 4 * words * rows;
+    m = v_scale + 4 * words * rows;
+    l = m + 4 * hg;
+    recv_acc = l + 4 * hg;                         // (ranks, slice), <= hg * 64 + ranks
+    recv_m = recv_acc + 4 * (hg * kHD + kMaxCluster);
+    recv_l = recv_m + 4 * kMaxCluster * hg;        // (ranks, hg)
+    bars = (recv_l + 4 * kMaxCluster * hg + 7) & ~7;
+    total = bars + 8 * (2 * stages + 1);
+  }
+};
+
+// Nibbles j and j + 4 of w as bf16x2 codes (nibble j low), exactly: each
+// nibble XOR 8 in the mantissa of bf16 128 (ulp 1) is 128 + code + 8, and
+// one bf16x2 FMA subtracts 136.
+__device__ __forceinline__ uint32_t int4_pair(uint32_t w, int j) {
+  const uint32_t x = ((w >> (4 * j)) & 0x000F000Fu) ^ 0x43084308u;
+  uint32_t r;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(r) : "r"(x), "r"(0x3F803F80u), "r"(0xC308C308u));
+  return r;
+}
+
+// Codes of an 8-byte chunk (columns 0..15) as fp32 in the pairs' order:
+// x[8 wd + 2 j] is column 8 wd + j, x[8 wd + 2 j + 1] column 8 wd + j + 4.
+__device__ __forceinline__ void int4_chunk(uint2 raw, float* x) {
+  const uint32_t w[2] = {raw.x, raw.y};
+#pragma unroll
+  for (int wd = 0; wd < 2; ++wd)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const uint32_t p = int4_pair(w[wd], j);
+      x[8 * wd + 2 * j] = __uint_as_float(p << 16);
+      x[8 * wd + 2 * j + 1] = __uint_as_float(p & 0xFFFF0000u);
+    }
+}
+// Column (of a head's 16-column quarter) that element e of a chunk holds.
+__device__ __forceinline__ int int4_col(int e) { return (e & 8) | ((e & 7) >> 1) | ((e & 1) << 2); }
+
+// kHG: heads a CTA (4, 2 or 1); QT: q's and the output's type.
+template <typename QT, int kHG>
+__global__ void __launch_bounds__(kI4Threads)
+    int4_kernel(const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
+                const QT* __restrict__ q, long q_stride, const __nv_bfloat16* __restrict__ k_scale,
+                const __nv_bfloat16* __restrict__ v_scale, const int* __restrict__ valid_rows,
+                int valid_all, QT* __restrict__ out, int t_cap, int n_heads, int rows_per_cta) {
+  constexpr int kCols = kHG * 4;                 // 8-byte chunks of a row
+  constexpr int kGroups = kI4Consumers / kCols;  // row groups
+  constexpr int kRowBytes = kHG * 32;
+  constexpr int kStages = kI4Ring / (kI4Box * kRowBytes);
+  constexpr int kWords = kHG / 2 + 1;            // scale words a row and tensor
+  constexpr int kOut = kHG * kHD;                // output columns of the group
+  extern __shared__ __align__(128) uint8_t smem[];
+  const I4Layout lay(rows_per_cta, kHG);
+  uint8_t* ring = smem + lay.ring;
+  float* sc = reinterpret_cast<float*>(smem + lay.scores);  // (rows, kHG)
+  uint32_t* ks_w = reinterpret_cast<uint32_t*>(smem + lay.k_scale);  // (rows, kWords)
+  uint32_t* vs_w = reinterpret_cast<uint32_t*>(smem + lay.v_scale);
+  float* m_s = reinterpret_cast<float*>(smem + lay.m);
+  float* l_s = reinterpret_cast<float*>(smem + lay.l);
+  float* recv_acc = reinterpret_cast<float*>(smem + lay.recv_acc);
+  float* recv_m = reinterpret_cast<float*>(smem + lay.recv_m);
+  float* recv_l = reinterpret_cast<float*>(smem + lay.recv_l);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + lay.bars);
+  uint64_t* empty = full + kStages;
+  uint64_t* scale_bar = empty + kStages;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int rank = blockIdx.x, n_ranks = gridDim.x, h0 = blockIdx.y * kHG, b = blockIdx.z;
+  const int per_rank = (kOut + n_ranks - 1) / n_ranks;  // output columns of each CTA
+  const int valid = min(valid_rows ? valid_rows[b] : valid_all, t_cap);
+  const int t0 = rank * rows_per_cta;
+  const int n_rows = max(min(t0 + rows_per_cta, valid) - t0, 0);
+  const int n_boxes = (n_rows + kI4Box - 1) / kI4Box;  // per tensor
+
+  if (tid == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], kI4Consumers / 32);
+    }
+    mbar_init(scale_bar, 32);
+    fence_barrier_init();
+  }
+  __syncthreads();
+  // the cluster's CTAs write into each other's shared memory at the end;
+  // this arrival, waited for before the first such write, proves all of
+  // them started
+  cluster_arrive_relaxed();
+
+  if (warp == kI4Consumers / 32) {
+    // ---- producer: the first boxes, the scales, then the rest of the boxes
+    auto issue = [&](int i) {
+      const int st = i % kStages, c = i < n_boxes ? i : i - n_boxes;
+      mbar_wait(&empty[st], ((i / kStages) & 1) ^ 1);
+      mbar_expect_tx(&full[st], kI4Box * kRowBytes);
+      tma_load_3d(ring + st * kI4Box * kRowBytes, i < n_boxes ? &tm_k : &tm_v, &full[st],
+                  h0 * 32, t0 + c * kI4Box, b);
+    };
+    const int first = min(kStages, 2 * n_boxes);
+    if (lane == 0)
+      for (int i = 0; i < first; ++i) issue(i);
+    __syncwarp();
+    // the aligned words holding bf16s f0 .. f0 + kHG - 1 of a row, f0 = (b T +
+    // t) H + h0; a word's second half is past the tensor only for the last
+    // element, at an even index
+    const long n_scales = (long)gridDim.z * t_cap * n_heads;
+    for (int i = lane; i < n_rows * kWords; i += 32) {
+      const int r = i / kWords, wd = i - r * kWords;
+      const long f0 = ((long)b * t_cap + t0 + r) * n_heads + h0;
+      const long el = (f0 & ~1L) + 2 * wd;
+      const int bytes = el > f0 + kHG - 1 ? 0 : el + 1 < n_scales ? 4 : 2;
+      cp_async4(&ks_w[i], k_scale + el, bytes);
+      cp_async4(&vs_w[i], v_scale + el, bytes);
+    }
+    cp_async_mbar_arrive_noinc(scale_bar);
+    if (lane == 0)
+      for (int i = first; i < 2 * n_boxes; ++i) issue(i);
+    __syncwarp();
+    cluster_wait();
+  } else {
+    // ---- consumers: thread -> (8-byte chunk of a row, group of rows) ----------
+    const int col = tid % kCols, grp = tid / kCols, hh = col / 4;
+    float qr[16];  // this quarter of head h0 + hh in the chunk's order, times 1/8 log2(e)
+    {
+      const QT* qp = q + (long)b * q_stride + (h0 + hh) * kHD + (col % 4) * 16;
+#pragma unroll
+      for (int e = 0; e < 16; ++e) qr[e] = to_f32(qp[int4_col(e)]) * (0.125f * kLog2e);
+    }
+    // raw dot products (log2 units) of every row of this CTA, per head
+    for (int i = 0; i < n_boxes; ++i) {
+      const int st = i % kStages, r0 = i * kI4Box, n = min(kI4Box, n_rows - r0);
+      mbar_wait(&full[st], (i / kStages) & 1);
+      const uint8_t* tile = ring + st * kI4Box * kRowBytes;
+      // the same trip count in every lane: the shuffles take the whole warp
+      for (int it = 0; it < (n + kGroups - 1) / kGroups; ++it) {
+        const int r = grp + it * kGroups;
+        float part = 0.f;
+        if (r < n) {
+          float x[16];
+          int4_chunk(*reinterpret_cast<const uint2*>(tile + r * kRowBytes + col * 8), x);
+#pragma unroll
+          for (int e = 0; e < 16; ++e) part = fmaf(x[e], qr[e], part);
+        }
+        part += __shfl_xor_sync(0xffffffffu, part, 1);
+        part += __shfl_xor_sync(0xffffffffu, part, 2);
+        if (r < n && col % 4 == 0) sc[(r0 + r) * kHG + hh] = part;
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[st]);
+    }
+    mbar_wait(scale_bar, 0);
+    named_bar_sync(1, kI4Consumers);
+
+    // the CTA's exact per-head max, weights p * v_scale, and sums (an empty
+    // CTA, all its rows past valid, keeps m = -inf and l = 0)
+    for (int g = warp; g < kHG; g += kI4Consumers / 32) {
+      // head h0 + g of row r is bf16 (f0 & 1) + g of the row's scale words
+      auto slot = [&](int r) {
+        return (int)((((long)b * t_cap + t0 + r) * n_heads + h0) & 1) + g;
+      };
+      float mx = -INFINITY;
+      for (int r = lane; r < n_rows; r += 32) {
+        const float s = sc[r * kHG + g] * __bfloat162float(
+            reinterpret_cast<const __nv_bfloat16*>(ks_w + r * kWords)[slot(r)]);
+        sc[r * kHG + g] = s;
+        mx = fmaxf(mx, s);
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      float sum = 0.f;
+      for (int r = lane; r < n_rows; r += 32) {
+        const float p = ex2(sc[r * kHG + g] - mx);
+        sum += p;
+        sc[r * kHG + g] = p * __bfloat162float(
+            reinterpret_cast<const __nv_bfloat16*>(vs_w + r * kWords)[slot(r)]);
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      if (lane == 0) {
+        m_s[g] = mx;
+        l_s[g] = sum;
+      }
+    }
+    named_bar_sync(1, kI4Consumers);
+
+    // weighted V sums of this thread's chunk over its row group
+    float acc[16];
+#pragma unroll
+    for (int e = 0; e < 16; ++e) acc[e] = 0.f;
+    for (int i = 0; i < n_boxes; ++i) {
+      const int j = n_boxes + i, st = j % kStages;
+      const int r0 = i * kI4Box, n = min(kI4Box, n_rows - r0);
+      mbar_wait(&full[st], (j / kStages) & 1);
+      const uint8_t* tile = ring + st * kI4Box * kRowBytes;
+      for (int r = grp; r < n; r += kGroups) {
+        const float w = sc[(r0 + r) * kHG + hh];
+        float x[16];
+        int4_chunk(*reinterpret_cast<const uint2*>(tile + r * kRowBytes + col * 8), x);
+#pragma unroll
+        for (int e = 0; e < 16; ++e) acc[e] = fmaf(w, x[e], acc[e]);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[st]);
+    }
+    // the drained ring holds the row groups' sums, (kGroups, kOut) in the
+    // chunks' order
+    named_bar_sync(1, kI4Consumers);
+    float* red = reinterpret_cast<float*>(ring);
+    fence_proxy_async_smem();  // after the TMA copies
+#pragma unroll
+    for (int e = 0; e < 16; e += 4)
+      *reinterpret_cast<float4*>(&red[grp * kOut + col * 16 + e]) =
+          make_float4(acc[e], acc[e + 1], acc[e + 2], acc[e + 3]);
+    named_bar_sync(1, kI4Consumers);
+    // send each column's sum to the CTA that owns its output slice, and
+    // this CTA's per-head max and sum to every CTA
+    cluster_wait();
+    for (int c = tid; c < kOut; c += kI4Consumers) {
+      float s = 0.f;
+      for (int g = 0; g < kGroups; ++g) s += red[g * kOut + c];
+      const int owner = c / per_rank;
+      st_cluster(recv_acc + rank * per_rank + c - owner * per_rank, owner, s);
+    }
+    for (int i = tid; i < n_ranks * kHG; i += kI4Consumers) {
+      const int dst = i / kHG, g = i - dst * kHG;
+      st_cluster(recv_m + rank * kHG + g, dst, m_s[g]);
+      st_cluster(recv_l + rank * kHG + g, dst, l_s[g]);
+    }
+  }
+  // ---- combine: each CTA writes its slice of the output from what it was
+  // sent; after this barrier no CTA touches another's shared memory
+  cluster_sync();
+  if (warp != kI4Consumers / 32) {
+    const int c0 = rank * per_rank;
+    for (int c = c0 + tid; c < min(kOut, c0 + per_rank); c += kI4Consumers) {
+      const int g = c / kHD;  // column c is chunk c / 16's element c % 16
+      float mx = -INFINITY;
+      for (int r = 0; r < n_ranks; ++r) mx = fmaxf(mx, recv_m[r * kHG + g]);
+      float l = 0.f, o = 0.f;
+      if (mx != -INFINITY) {
+        for (int r = 0; r < n_ranks; ++r) {
+          const float f = ex2(recv_m[r * kHG + g] - mx);  // 0 for an empty CTA
+          l = fmaf(recv_l[r * kHG + g], f, l);
+          o = fmaf(recv_acc[r * per_rank + c - c0], f, o);
+        }
+      }
+      const int dim = (c & ~15) + int4_col(c & 15);
+      out[(long)b * n_heads * kHD + h0 * kHD + dim] = from_f32<QT>(l > 0.f ? o / l : 0.f);
+    }
+  }
+}
+
+// 3-D map (H*32 bytes, T, B) of a packed int4 (B, T, H*32) cache: boxes of
+// kHG heads' 32-byte columns x kI4Box rows, unswizzled, zero-filled past T.
+bool make_int4_map(CUtensorMap* map, const void* base, int batch, int t_cap, int n_heads,
+                   int hg) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t row = (cuuint64_t)n_heads * 32;
+  const cuuint64_t dims[3] = {row, (cuuint64_t)t_cap, (cuuint64_t)batch};
+  const cuuint64_t strides[2] = {row, row * t_cap};
+  const cuuint32_t box[3] = {(cuuint32_t)hg * 32, kI4Box, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<void*>(base), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <typename QT, int kHG>
+int launch_int4(int card, const void* q, long q_stride, const void* k, const void* v,
+                const void* k_scale, const void* v_scale, const void* valid_rows, int valid_all,
+                void* out, int batch, int t_cap, int n_heads, int shares, int rows_per_cta,
+                cudaStream_t stream) {
+  // a decode loop's cross caches (one a layer) live across its steps
+  CUtensorMap tk, tv;
+  auto map_of = [&](const void* base) {
+    return [=](CUtensorMap* m) { return make_int4_map(m, base, batch, t_cap, n_heads, kHG); };
+  };
+  if (!cached_tmap(&tk, {k, {batch, t_cap, n_heads, kHG, 3}}, map_of(k)) ||
+      !cached_tmap(&tv, {v, {batch, t_cap, n_heads, kHG, 3}}, map_of(v)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const I4Layout lay(rows_per_cta, kHG);
+  // per card: the largest shared-memory size opted into there
+  static int configured_of[kwt_card::kMaxCards] = {};
+  int& configured = configured_of[card];
+  if (configured < lay.total) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        int4_kernel<QT, kHG>, cudaFuncAttributeMaxDynamicSharedMemorySize, lay.total);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = lay.total;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(shares, n_heads / kHG, batch);
+  cfg.blockDim = dim3(kI4Threads);
+  cfg.dynamicSmemBytes = lay.total;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = shares;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return static_cast<int>(cudaLaunchKernelEx(
+      &cfg, int4_kernel<QT, kHG>, tk, tv, static_cast<const QT*>(q), q_stride,
+      static_cast<const __nv_bfloat16*>(k_scale), static_cast<const __nv_bfloat16*>(v_scale),
+      static_cast<const int*>(valid_rows), valid_all, static_cast<QT*>(out), t_cap, n_heads,
+      rows_per_cta));
+}
+
 }  // namespace
 
 // q (B, H*64) bf16, or fp32 where q_f32 is set, rows q_stride elements
 // apart (a row of a fused qkv projection is read in place); k/v (B, T,
 // H*64) by kv_mode (ops/decode_attention.py KV_*): 0 bf16, no scales; 1
 // int8 with fp32 (B, T) scales (nullable); 2 int8 with bf16 (B, T, H)
-// scales; 3 int4 packed two a byte, (B, T, H*32) bytes, with bf16 (B, T, H)
-// scales; 4 fp32, no scales. bf16 q takes modes 0-3, fp32 q modes 1-4.
+// scales; 4 fp32, no scales (packed int4, mode 3, takes
+// kwt_decode_attention_int4). bf16 q takes modes 0-2, fp32 q modes 1, 2, 4.
 // valid_rows (B,) int32 or null, then valid_all applies to every row. One
 // cluster of n_ctas CTAs (<= 8) per batch row, each over rows_per_cta cache
 // rows (the split plan of ops/decode_attention.py). out (B, H*64) in q's
@@ -390,7 +744,6 @@ extern "C" int kwt_decode_attention(int card, const void* q, long long q_stride,
     switch (kv_mode) {
       case 1: KWT_LAUNCH(int8_t, false, float);
       case 2: KWT_LAUNCH(int8_t, true, float);
-      case 3: KWT_LAUNCH(Int4, true, float);
       case 4: KWT_LAUNCH(float, false, float);
     }
   } else {
@@ -398,7 +751,48 @@ extern "C" int kwt_decode_attention(int card, const void* q, long long q_stride,
       case 0: KWT_LAUNCH(__nv_bfloat16, false, __nv_bfloat16);
       case 1: KWT_LAUNCH(int8_t, false, __nv_bfloat16);
       case 2: KWT_LAUNCH(int8_t, true, __nv_bfloat16);
-      case 3: KWT_LAUNCH(Int4, true, __nv_bfloat16);
+    }
+  }
+#undef KWT_LAUNCH
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Packed int4 K/V (kv_mode 3): q (B, H*64) bf16, or fp32 where q_f32 is
+// set, rows q_stride elements apart; k/v (B, T, H*32) bytes, two columns a
+// byte (models/whisper.py `pack_int4`), 16-byte aligned; k_scale/v_scale
+// (B, T, H) bf16, 4-byte aligned; valid_rows (B,) int32 or null, then
+// valid_all applies to every row. The head kernel's grid
+// (ops/decode_attention.py `int4_plan`): a cluster of `shares` CTAs (<= 8)
+// per (batch row, group of heads_per_cta heads: 4, 2 or 1, dividing H),
+// each over rows_per_cta cache rows. out (B, H*64) in q's type. Returns the
+// launch's cudaError_t (cudaErrorInvalidValue for a head group it lacks or
+// a map it cannot encode).
+extern "C" int kwt_decode_attention_int4(int card, const void* q, long long q_stride,
+                                         const void* k, const void* v, const void* k_scale,
+                                         const void* v_scale, const void* valid_rows,
+                                         int valid_all, void* out, int batch, int t_cap,
+                                         int n_heads, int heads_per_cta, int shares,
+                                         int rows_per_cta, int q_f32, void* stream) {
+  const kwt_card::CardScope scope(card);
+  if (scope.error()) return scope.error();
+  if (n_heads % heads_per_cta || shares < 1 || shares > kMaxCluster)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long qs = (long)q_stride;
+#define KWT_LAUNCH(QT, HG)                                                                     \
+  return launch_int4<QT, HG>(card, q, qs, k, v, k_scale, v_scale, valid_rows, valid_all, out, \
+                             batch, t_cap, n_heads, shares, rows_per_cta, s)
+  if (q_f32) {
+    switch (heads_per_cta) {
+      case 4: KWT_LAUNCH(float, 4);
+      case 2: KWT_LAUNCH(float, 2);
+      case 1: KWT_LAUNCH(float, 1);
+    }
+  } else {
+    switch (heads_per_cta) {
+      case 4: KWT_LAUNCH(__nv_bfloat16, 4);
+      case 2: KWT_LAUNCH(__nv_bfloat16, 2);
+      case 1: KWT_LAUNCH(__nv_bfloat16, 1);
     }
   }
 #undef KWT_LAUNCH

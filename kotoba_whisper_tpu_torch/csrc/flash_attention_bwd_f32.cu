@@ -77,6 +77,7 @@
 #include <stdint.h>
 
 #include "card.cuh"
+#include "sm90_common.cuh"
 
 namespace {
 
@@ -361,14 +362,7 @@ struct CausalSmem {
   float lse[kT], delta[kT];
 };
 
-// An fp32 value as a TF32 high part, rounded to nearest with ties away from
-// zero (cvt.rna.tf32.f32's result, by an integer add and mask: the
-// conversion instruction would run on the slower conversion pipe), and
-// its residual, exact in fp32, whose low 13 bits the tensor core drops.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
+using kwt_sm90::split_tf32;  // TF32 high part and exact residual
 
 // c (16 x 8) += a (16 x 8) b (8 x 8) on the tensor cores in TF32.
 __device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a, const uint32_t* b) {

@@ -1,7 +1,8 @@
-// Flash-attention forward in fp32 for Hopper's CUDA cores, one kernel in two
-// instantiations: non-causal (K1's fp32 form: the encoder's self-attention,
-// the decoder's cross-attention with Tq != Tk) and end-aligned causal (K4's
-// fp32 form: the decoder's self-attention over a full block, Tq == Tk).
+// Flash-attention forward in fp32 for Hopper, two kernels: non-causal (K1's
+// fp32 form: the encoder's self-attention, the decoder's cross-attention
+// with Tq != Tk, and the no-max form) on the tensor cores in 3xTF32, and
+// end-aligned causal (K4's fp32 form: the decoder's self-attention over a
+// full block, Tq == Tk) on the CUDA cores.
 //
 // Replaces: kotoba_whisper_tpu/ops/flash_attention.py `_fwd_kernel_single`
 // (K1) and `_fwd_kernel` (K4) run on fp32 inputs (`_flash_fwd`), where the
@@ -10,51 +11,88 @@
 // fp32 and the LSE the natural-log fp32 logsumexp of each query row.
 //
 // What bounds it on the card: operations. One non-causal call does
-// 4*B*H*Tq*Tk*64 flops (184 GFLOP at the encoder's B=16, T=1500, 20 heads:
-// 2.75 ms at the 67 TFLOP/s of fp32 FMA) over ~0.5 GB of fp32 q, k, v and
-// O (0.15 ms at 3.35 TB/s). The tensor cores take fp32 only as TF32 (a
-// 10-bit mantissa), which would lose the fp32 parity this form exists for,
-// so every product here is an fp32 FFMA.
+// 4*B*H*Tq*Tk*64 flops (184 GFLOP at the encoder's B=16, T=1500, 20 heads)
+// over ~0.5 GB of fp32 q, k, v and O (0.15 ms at 3.35 TB/s). On fp32 FMAs
+// that is 2.75 ms at 67 TFLOP/s (the first design ran every product as an
+// FFMA, 6.98 ms on an H100 80GB HBM3 at 700 W). The tensor cores take fp32
+// only as TF32 (a 10-bit mantissa: ~5.8e-4 relative error alone), so each
+// product here is three TF32 products, a_hi b_hi + a_hi b_lo + a_lo b_hi,
+// with a_hi the TF32 of a (rounded to nearest by an integer add and mask)
+// and a_lo its exact fp32 residual, whose low 13 bits the tensor core
+// drops: 3 x 184 GFLOP at the 495 TFLOP/s of dense TF32 is 1.12 ms, with
+// the 0.17 ms of exponentials (16 a clock an SM) beside it.
 //
-// Design: a plain CUDA-core flash attention. A CTA of 256 threads takes 64
-// query rows of one (batch, head) and walks 64-key tiles of K and V with an
-// online softmax in log2 units. Q (pre-scaled by 1/8, exact) and each K
-// tile are held transposed in shared memory (dims x rows, rows padded by 4
-// floats), so thread (ty, tx) of a 16 x 16 grid computes its 4 x 4 block of
-// S (rows 4ty.., keys 4tx..) from one float4 of Q^T and one of K^T a head
-// dim: 16 FFMAs for two shared loads, Q's a broadcast. A row's max is
-// reduced over the 16 threads holding it by shuffles (a half-warp), the
-// tile's P (2^(s - m)) goes to shared memory transposed, and the same
-// thread then owns O's rows 4ty.. and dims 4tx..: O += P V from a float4 of
-// P^T and one of V a key. Rows past Tq are computed on zeros and not stored,
-// keys past Tk and (causal) past a row's bound j <= i + Tk - Tq are -inf;
-// the causal form visits only the key tiles at or below its last row's
-// bound. Tensors keep the model's (B, T, H, 64) layout, read through
-// per-tensor element strides (16-byte multiples), so a fused qkv
-// projection's column blocks go in without copies; O is written contiguous
-// (B, Tq, H, 64), the LSE (B, H, Tq). The no-max form (kNoMax; the JAX
-// package's KWT_FA_NOMAX, non-causal): a pre-pass (key_bound.cuh
-// `key_norm_max`) writes max_j ||k_j|| of each (batch, head); each row's
-// norm comes from Q^T in shared memory, and its fixed shift m = ||q / 8|| *
-// kmax replaces the running max: p = 2^(s log2(e) - m log2(e)) in one FFMA
-// and ex2, no rescale, O = o / max(l, 1e-30) and the LSE m + ln max(l,
-// 1e-30), as the TPU kernel divides.
+// Design: the non-causal kernel is a persistent grid of one 384-thread CTA
+// an SM that walks 128-query-row work items of (batch, head), (batch,
+// head)-major so the CTAs in flight share K and V in L2. Warpgroup 0 is
+// the producer: its 128 threads load each 64-key tile of K and V from
+// device memory with float4 loads through the tensors' element strides (a
+// fused qkv projection's column blocks go in without copies; zeros past
+// Tk), split every value into its TF32 high part and residual, and store
+// both into a 2-stage ring in the wgmma operand layouts (128-byte
+// swizzled, K-major): K as 128 rows (the 64 high parts, then the 64
+// residuals) of 64 dims, and V transposed, 64 dims by 64 keys, high parts
+// and residuals apart (TF32 wgmma takes K-major operands only, so V^T is
+// made here, not by a copy engine). Warpgroups 1 and 2 each own 64 query
+// rows: each splits its Q rows once per work item into the same layout,
+// then per key tile runs
+//   S  = Q_hi [K_hi; K_lo]^T (one m64n128k8 chain: hi.hi | hi.lo)
+//      + Q_lo K_hi^T (an m64n64k8 chain into the hi.hi half), halves added,
+//   P  = the online softmax of S in log2 units (fp32, ex2 after one FFMA),
+//   O  = O corr + (P_lo V_hi + P_hi V_lo + P_hi V_hi) (m64n64k8, P from
+//        registers), the tile's P V in an accumulator of its own: the
+//        tensor core drops bits at each add of its accumulator, and O
+//        carried across the tiles there read up to 2.9e-5 from the twin
+//        (rel-L2, Tk=4096; a tile's 24 adds keep it near 1e-6).
+// The S accumulator holds keys 2t and 2t + 1 of each 8-key block where the
+// TF32 A fragment wants keys t and t + 4, so the producer stores V^T's keys
+// of each 8-key block in the order (0, 2, 4, 6, 1, 3, 5, 7): P V sums over
+// keys, so the permuted product is the same sum. The two consumer
+// warpgroups' products take turns at the tensor cores, so one's softmax
+// runs under the other's wgmmas. No atomics: the output is bit-repeatable.
+// Rows past Tq are computed on zeros and not stored; keys past Tk are -inf
+// in the last tile.
+//
+// The no-max form (kNoMax; the JAX package's KWT_FA_NOMAX): a pre-pass
+// (key_bound.cuh `key_norm_max`) writes max_j ||k_j|| of each (batch,
+// head); each consumer takes its rows' norms from its Q loads, and each
+// row's fixed shift m = ||q / 8|| * kmax replaces the running max: p = 2^(s
+// log2(e) / 8 - m log2(e)) in one FFMA and ex2, no rescale, O = o / max(l,
+// 1e-30) and the LSE m + ln max(l, 1e-30), as the TPU kernel divides.
+//
+// The causal kernel (K4's fp32 form) keeps the first design, a plain CUDA-
+// core flash attention. At the training decoder's B=8, T=128 a call is two
+// key tiles a (batch, head); that its time there is latency rather than
+// FFMAs, so that the tensor-core kernel with a causal mask would be no
+// faster, is an assumption: that kernel was not tried causal. A CTA of
+// 256 threads takes 64 query rows of one (batch, head) and walks the 64-key
+// tiles at or below its last row's bound j <= i + Tk - Tq with an online
+// softmax in log2 units; Q (pre-scaled by 1/8, exact) and each K tile are
+// held transposed in shared memory, thread (ty, tx) of a 16 x 16 grid
+// computes its 4 x 4 block of S from one float4 of Q^T and one of K^T a
+// head dim, and the tile's P goes through shared memory for O += P V.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "card.cuh"
 #include "key_bound.cuh"
+#include "sm90_common.cuh"
 
 namespace {
 
-constexpr int kD = 64;        // head dim
-constexpr int kBM = 64;       // query rows a CTA
-constexpr int kBN = 64;       // keys a tile
-constexpr int kPad = kBM + 4;  // a transposed row's floats (keeps the 16-byte alignment)
-constexpr int kThreads = 256;
+using namespace kwt_sm90;
+
+constexpr int kD = 64;  // head dim
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
+
+// ---- the causal kernel (CUDA cores) ------------------------------------------
+
+constexpr int kBM = 64;        // query rows a CTA
+constexpr int kBN = 64;        // keys a tile
+constexpr int kPad = kBM + 4;  // a transposed row's floats (keeps the 16-byte alignment)
+constexpr int kThreads = 256;
 
 struct Smem {
   float qt[kD][kPad];   // Q^T, times 1/8
@@ -62,12 +100,6 @@ struct Smem {
   float v[kBN][kD];     // V of the tile
   float pt[kBN][kPad];  // P^T of the tile
 };
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // Rows [r0, r0 + 64) of a (B, T, H, 64) tensor at (b, h), transposed into
 // dst[64 dims][kPad] (times `scale`), zeros past t. Thread i reads float4s of
@@ -88,19 +120,17 @@ __device__ __forceinline__ void load_transposed(float (*dst)[kPad], const float*
   }
 }
 
-template <bool kCausal, bool kNoMax>
 __global__ void __launch_bounds__(kThreads)
-    flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                         const float* __restrict__ v, float* __restrict__ o,
-                         float* __restrict__ lse, const float* __restrict__ kmax, int tq,
-                         int tk, int n_heads, long qs_b,
-                         long qs_t, long qs_h, long ks_b, long ks_t, long ks_h, long vs_b,
-                         long vs_t, long vs_h) {
+    flash_fwd_f32_causal_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                const float* __restrict__ v, float* __restrict__ o,
+                                float* __restrict__ lse, int tq, int tk, int n_heads, long qs_b,
+                                long qs_t, long qs_h, long ks_b, long ks_t, long ks_h, long vs_b,
+                                long vs_t, long vs_h) {
   extern __shared__ __align__(16) uint8_t smem_raw[];
   Smem& s = *reinterpret_cast<Smem*>(smem_raw);
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
   const int q0 = blockIdx.x * kBM, h = blockIdx.y, b = blockIdx.z;
-  const int offset = tk - tq;  // causal: row i sees keys j <= i + offset
+  const int offset = tk - tq;  // row i sees keys j <= i + offset
   const float* qb = q + b * qs_b + h * qs_h;
   const float* kb = k + b * ks_b + h * ks_h;
   const float* vb = v + b * vs_b + h * vs_h;
@@ -115,21 +145,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
   }
-  if constexpr (kNoMax) {  // rows 4ty.. of Q^T, dims 4tx.., summed over the half-warp
-    __syncthreads();
-    const float bound = kmax[(long)b * n_heads + h] * kLog2e;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float n2 = 0.f;
-#pragma unroll
-      for (int d = 0; d < 4; ++d) n2 = fmaf(s.qt[4 * tx + d][4 * ty + i], s.qt[4 * tx + d][4 * ty + i], n2);
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) n2 += __shfl_xor_sync(0xffffffffu, n2, off);
-      m_run[i] = sqrtf(n2) * bound;
-    }
-  }
-  int n_tiles = (tk + kBN - 1) / kBN;
-  if (kCausal) n_tiles = min(n_tiles, (min(q0 + kBM, tq) - 1 + offset) / kBN + 1);
+  const int n_tiles =
+      min((tk + kBN - 1) / kBN, (min(q0 + kBM, tq) - 1 + offset) / kBN + 1);
 
   for (int jt = 0; jt < n_tiles; ++jt) {
     const int k0 = jt * kBN;
@@ -161,34 +178,23 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int j = 0; j < 4; ++j) sc[i][j] = fmaf(av[i], cv[j], sc[i][j]);
     }
-    // log2 units, masks, the rows' running max over the half-warp (kNoMax:
-    // the fixed shift, p in one FFMA and ex2, no rescale)
-    float corr[4];
+    // log2 units, the causal and Tk masks, the rows' running max over the
+    // half-warp
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int row = q0 + 4 * ty + i;
-      if constexpr (kNoMax) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float p = k0 + 4 * tx + j < tk ? ex2(fmaf(sc[i][j], kLog2e, -m_run[i])) : 0.f;
-          l_run[i] += p;
-          s.pt[4 * tx + j][4 * ty + i] = p;
-        }
-        continue;
-      }
       float mx = -INFINITY;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int key = k0 + 4 * tx + j;
-        const bool in = key < tk && (!kCausal || key <= row + offset);
-        sc[i][j] = in ? sc[i][j] * kLog2e : -INFINITY;
+        sc[i][j] = key < tk && key <= row + offset ? sc[i][j] * kLog2e : -INFINITY;
         mx = fmaxf(mx, sc[i][j]);
       }
 #pragma unroll
       for (int off = 8; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
       const float m_new = fmaxf(m_run[i], mx);
       const float base = m_new == -INFINITY ? 0.f : m_new;  // a row that saw no key yet
-      corr[i] = ex2(m_run[i] - base);
+      const float corr = ex2(m_run[i] - base);
       m_run[i] = m_new;
       float sum = 0.f;
 #pragma unroll
@@ -197,9 +203,9 @@ __global__ void __launch_bounds__(kThreads)
         sum += p;
         s.pt[4 * tx + j][4 * ty + i] = p;
       }
-      l_run[i] = l_run[i] * corr[i] + sum;
+      l_run[i] = l_run[i] * corr + sum;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] *= corr[i];
+      for (int j = 0; j < 4; ++j) acc[i][j] *= corr;
     }
     __syncthreads();
 
@@ -224,11 +230,355 @@ __global__ void __launch_bounds__(kThreads)
     for (int off = 8; off > 0; off >>= 1) l += __shfl_xor_sync(0xffffffffu, l, off);
     const int row = q0 + 4 * ty + i;
     if (row >= tq) continue;
-    if constexpr (kNoMax) l = fmaxf(l, 1e-30f);
     const float inv = l > 0.f ? 1.f / l : 0.f;
     *reinterpret_cast<float4*>(o + (((long)b * tq + row) * n_heads + h) * kD + 4 * tx) =
         make_float4(acc[i][0] * inv, acc[i][1] * inv, acc[i][2] * inv, acc[i][3] * inv);
     if (tx == 0) lse[((long)b * n_heads + h) * tq + row] = (m_run[i] + log2f(l)) * kLn2;
+  }
+}
+
+// ---- the non-causal kernel (3xTF32 wgmma) ----------------------------------------
+
+constexpr int kTcRows = 64;                 // query rows a consumer warpgroup
+constexpr int kTcWGs = 2;                   // consumer warpgroups
+constexpr int kTcBM = kTcRows * kTcWGs;     // query rows a work item
+constexpr int kTcBN = 64;                   // keys a tile (ops/flash_attention.py F32_TC_KEYS)
+constexpr int kTcStages = 2;                // K/V ring depth
+constexpr int kTcThreads = 128 * (kTcWGs + 1);
+constexpr int kTcConsumers = 128 * kTcWGs;
+constexpr int kBlk = 64 * 32;               // floats of a 64-row block of 32 columns (8 KB)
+
+// Shared memory of the non-causal CTA, every operand tile 128-byte swizzled,
+// K-major, in blocks of 32 columns (128-byte rows): each consumer's Q rows
+// (high parts, residuals), and per stage K (a block: 64 rows of high parts,
+// then 64 of residuals) and V^T (64 dim rows of 64 keys, high parts and
+// residuals apart).
+struct __align__(1024) TcSmem {
+  float q[kTcWGs][2][2][kBlk];        // [warpgroup][hi, lo][dim block]
+  float k[kTcStages][2][2 * kBlk];    // [stage][dim block][hi rows, lo rows]
+  float vt[kTcStages][2][2][kBlk];    // [stage][hi, lo][key block]
+  float n2[kTcBM];                    // the no-max form's squared row norms
+  uint64_t full[kTcStages], empty[kTcStages];
+};
+
+// Float offset of (row, col) in a block of 128-byte rows, col < 32: the
+// 16-byte chunk XOR row % 8 (the 128-byte swizzle wgmma reads).
+__device__ __forceinline__ int swz(int row, int col) {
+  return row * 32 + ((((col >> 2) ^ row) & 7) << 2) + (col & 3);
+}
+// Descriptor of k-step ks (8 TF32 columns) of a swizzled operand at shared
+// address `base` whose 32-column blocks lie `block_floats` apart.
+__device__ __forceinline__ uint64_t tc_desc(uint32_t base, int ks, int block_floats) {
+  return sw128_desc(base + (ks >> 2) * block_floats * 4 + (ks & 3) * 32, 16, 1024);
+}
+
+// d (64 x 128, fp32) (+)= A (64 x 8, smem) * B (8 x 128, smem), TF32, both
+// K-major; accumulate 0 overwrites d.
+__device__ __forceinline__ void wgmma_m64n128k8_tf32_ss(float* d, uint64_t desc_a,
+                                                        uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, "
+      "%37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, "
+      "%55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// d (64 x 64, fp32) += A (64 x 8, smem) * B (8 x 64, smem), TF32, K-major.
+__device__ __forceinline__ void wgmma_m64n64k8_tf32_ss(float* d, uint64_t desc_a,
+                                                       uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// d (64 x 64, fp32) (+)= A (64 x 8, TF32 in registers: rows g, g + 8 of
+// each warp's 16, columns t, t + 4) * B (8 x 64, smem, K-major);
+// accumulate 0 overwrites d.
+__device__ __forceinline__ void wgmma_m64n64k8_tf32_rs(float* d, const uint32_t* a,
+                                                       uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&acc)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) fence_reg(acc[i]);
+}
+
+// The place of key j of a tile in V^T's rows: within each 8-key block the
+// keys go (0, 2, 4, 6, 1, 3, 5, 7), the order in which the S accumulator's
+// columns (2t, 2t + 1) fill the TF32 A fragment's (t, t + 4).
+__device__ __forceinline__ int vt_pos(int j) {
+  return (j & ~7) | ((j & 7) >> 1) | ((j & 1) << 2);
+}
+
+template <bool kNoMax>
+__global__ void __launch_bounds__(kTcThreads, 1)
+    flash_fwd_f32_tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                            const float* __restrict__ v, float* __restrict__ o,
+                            float* __restrict__ lse, const float* __restrict__ kmax, int tq,
+                            int tk, int n_heads, int n_qtiles, int n_work, long qs_b, long qs_t,
+                            long qs_h, long ks_b, long ks_t, long ks_h, long vs_b, long vs_t,
+                            long vs_h) {
+  extern __shared__ uint8_t smem_raw[];
+  TcSmem& s =
+      *reinterpret_cast<TcSmem*>(smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128, warp = tid >> 5, lane = tid & 31;
+  const int n_kt = (tk + kTcBN - 1) / kTcBN;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kTcStages; ++i) {
+      mbar_init(&s.full[i], 128);
+      mbar_init(&s.empty[i], kTcConsumers);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ---- producer: K and V tiles, split, into the ring ----------------------
+    uint32_t it = 0;
+    for (int w = blockIdx.x; w < n_work; w += gridDim.x) {
+      const int bh = w / n_qtiles, b = bh / n_heads, h = bh - b * n_heads;
+      const float* kb = k + b * ks_b + h * ks_h;
+      const float* vb = v + b * vs_b + h * vs_h;
+      for (int j = 0; j < n_kt; ++j, ++it) {
+        const int st = it % kTcStages, k0 = j * kTcBN;
+        // K: float4 f of the tile is key f / 16, dims 4 (f % 16) ..; V: warp
+        // w's 16 keys, two float4s of a key a lane pair
+        float4 kx[8], vx[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int f = tid + 128 * i, key = k0 + (f >> 4);
+          kx[i] = key < tk ? *reinterpret_cast<const float4*>(kb + key * ks_t + 4 * (f & 15))
+                           : make_float4(0.f, 0.f, 0.f, 0.f);
+          const int vkey = k0 + 16 * warp + (lane >> 1), vd = 4 * (2 * i + (lane & 1));
+          vx[i] = vkey < tk ? *reinterpret_cast<const float4*>(vb + vkey * vs_t + vd)
+                            : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+        mbar_wait(&s.empty[st], ((it / kTcStages) & 1) ^ 1);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int f = tid + 128 * i, key = f >> 4, d4 = f & 15;
+          float* blk = s.k[st][d4 >> 3];
+          const int at = swz(key, (d4 & 7) * 4);
+          float4 hi, lo;
+          split_tf32(kx[i].x, hi.x, lo.x);
+          split_tf32(kx[i].y, hi.y, lo.y);
+          split_tf32(kx[i].z, hi.z, lo.z);
+          split_tf32(kx[i].w, hi.w, lo.w);
+          *reinterpret_cast<float4*>(blk + at) = hi;
+          *reinterpret_cast<float4*>(blk + kBlk + at) = lo;  // the residual rows 64 below
+        }
+        const int pos = vt_pos(16 * warp + (lane >> 1)), kblk = pos >> 5, col = pos & 31;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int d0 = 4 * (2 * i + (lane & 1));
+          const float x[4] = {vx[i].x, vx[i].y, vx[i].z, vx[i].w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float hi, lo;
+            split_tf32(x[e], hi, lo);
+            const int at = swz(d0 + e, col);
+            s.vt[st][0][kblk][at] = hi;
+            s.vt[st][1][kblk][at] = lo;
+          }
+        }
+        fence_proxy_async_smem();
+        mbar_arrive(&s.full[st]);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: 64 query rows each -----------------------------------------
+  const int c = wg - 1;
+  const int g = lane >> 2, t4 = lane & 3;
+  const float scale_log2 = 0.125f * kLog2e;  // 1/sqrt(64) * log2(e)
+  uint32_t it = 0;
+  for (int w = blockIdx.x; w < n_work; w += gridDim.x) {
+    const int bh = w / n_qtiles, b = bh / n_heads, h = bh - b * n_heads;
+    const int qrow0 = (w - bh * n_qtiles) * kTcBM + c * kTcRows;
+    const float* qb = q + b * qs_b + h * qs_h;
+    // this warpgroup's Q rows: float4 f is row f / 16, dims 4 (f % 16) ..
+    float4 qx[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int f = tid + 128 * i, row = qrow0 + (f >> 4);
+      qx[i] = row < tq ? *reinterpret_cast<const float4*>(qb + row * qs_t + 4 * (f & 15))
+                       : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    named_bar_sync(1 + c, 128);  // the previous work item's products have read Q
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int f = tid + 128 * i, row = f >> 4, d4 = f & 15;
+      const int at = swz(row, (d4 & 7) * 4);
+      float4 hi, lo;
+      split_tf32(qx[i].x, hi.x, lo.x);
+      split_tf32(qx[i].y, hi.y, lo.y);
+      split_tf32(qx[i].z, hi.z, lo.z);
+      split_tf32(qx[i].w, hi.w, lo.w);
+      *reinterpret_cast<float4*>(s.q[c][0][d4 >> 3] + at) = hi;
+      *reinterpret_cast<float4*>(s.q[c][1][d4 >> 3] + at) = lo;
+      if constexpr (kNoMax) {  // the row's squared norm over its 16 lanes
+        float n2 = qx[i].x * qx[i].x + qx[i].y * qx[i].y + qx[i].z * qx[i].z + qx[i].w * qx[i].w;
+#pragma unroll
+        for (int off = 8; off > 0; off >>= 1) n2 += __shfl_xor_sync(0xffffffffu, n2, off);
+        if ((lane & 15) == 0) s.n2[c * kTcRows + row] = n2;
+      }
+    }
+    fence_proxy_async_smem();
+    named_bar_sync(1 + c, 128);
+
+    // this thread's rows: r0 = 16 warp + g and r0 + 8 of the warpgroup's 64
+    const int r0 = 16 * warp + g;
+    float m_run[2] = {-INFINITY, -INFINITY};  // log2 units
+    float l_run[2] = {0.f, 0.f};              // this thread's partial row sums
+    if constexpr (kNoMax) {
+      const float bound = kmax[bh] * scale_log2;
+      m_run[0] = sqrtf(s.n2[c * kTcRows + r0]) * bound;
+      m_run[1] = sqrtf(s.n2[c * kTcRows + r0 + 8]) * bound;
+    }
+    // O in fp32 registers; each tile's P V in its own accumulator (a
+    // tile's 24 adds on the tensor core, not the call's), added with the
+    // rescale in one FFMA
+    float oacc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) oacc[i] = 0.f;
+
+    for (int j = 0; j < n_kt; ++j, ++it) {
+      const int st = it % kTcStages;
+      // the operands' shared addresses, opaque to the compiler so that it
+      // builds each descriptor where it issues it, not all of them ahead
+      uint32_t qa = smem_u32(s.q[c][0][0]), ka = smem_u32(s.k[st][0]),
+               va = smem_u32(s.vt[st][0][0]);
+      asm volatile("" : "+r"(qa), "+r"(ka), "+r"(va));
+      mbar_wait(&s.full[st], (it / kTcStages) & 1);
+      // S: d[0..31] keys hi.hi (+ lo.hi), d[32..63] the same keys hi.lo
+      float d[64];
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < kD / 8; ++ks)
+        wgmma_m64n128k8_tf32_ss(d, tc_desc(qa, ks, kBlk), tc_desc(ka, ks, 2 * kBlk), ks);
+#pragma unroll
+      for (int ks = 0; ks < kD / 8; ++ks)
+        wgmma_m64n64k8_tf32_ss(d, tc_desc(qa + 4 * 2 * kBlk, ks, kBlk), tc_desc(ka, ks, 2 * kBlk));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(d);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) d[i] += d[32 + i];
+
+      // keys of the tile's last, ragged block past tk are -inf
+      if (j == n_kt - 1 && tk % kTcBN != 0) {
+        const int lim = tk - j * kTcBN - 2 * t4;  // this thread's first column's keys left
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (8 * i + (e & 1) >= lim) d[4 * i + e] = -INFINITY;
+      }
+      // online softmax in log2 units: rows r0 (e = 0, 1) and r0 + 8 (e = 2, 3)
+      float corr[2] = {1.f, 1.f};
+      if constexpr (!kNoMax) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float mx = -INFINITY;
+#pragma unroll
+          for (int i = 0; i < 8; ++i) mx = fmaxf(mx, fmaxf(d[4 * i + 2 * r], d[4 * i + 2 * r + 1]));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+          const float m_new = fmaxf(m_run[r], mx * scale_log2);
+          corr[r] = ex2(m_run[r] - m_new);  // 0 on the first tile
+          m_run[r] = m_new;
+          l_run[r] *= corr[r];
+        }
+      }
+      // P, split: high parts in d[0..31], residuals in d[32..63]
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const float p = ex2(fmaf(d[i], scale_log2, -m_run[(i >> 1) & 1]));
+        l_run[(i >> 1) & 1] += p;
+        split_tf32(p, d[i], d[32 + i]);
+      }
+      // the tile's P V = P_lo V_hi + P_hi V_lo + P_hi V_hi, k-step ks over
+      // keys 8ks ..: A fragment (t, t + 4) of rows g, g + 8 = accumulator
+      // (2t, 2t + 1)
+      float otile[32];
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < kTcBN / 8; ++ks) {
+        const uint32_t a_hi[4] = {__float_as_uint(d[4 * ks]), __float_as_uint(d[4 * ks + 2]),
+                                  __float_as_uint(d[4 * ks + 1]), __float_as_uint(d[4 * ks + 3])};
+        const uint32_t a_lo[4] = {__float_as_uint(d[32 + 4 * ks]),
+                                  __float_as_uint(d[32 + 4 * ks + 2]),
+                                  __float_as_uint(d[32 + 4 * ks + 1]),
+                                  __float_as_uint(d[32 + 4 * ks + 3])};
+        wgmma_m64n64k8_tf32_rs(otile, a_lo, tc_desc(va, ks, kBlk), ks);
+        wgmma_m64n64k8_tf32_rs(otile, a_hi, tc_desc(va + 4 * 2 * kBlk, ks, kBlk), 1);
+        wgmma_m64n64k8_tf32_rs(otile, a_hi, tc_desc(va, ks, kBlk), 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(otile);
+      fence_acc(d);
+      mbar_arrive(&s.empty[st]);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) oacc[i] = fmaf(oacc[i], corr[(i >> 1) & 1], otile[i]);
+    }
+
+    // ---- epilogue: full row sums over the quad, normalise, store ------------
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float l = l_run[r];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      const int row = qrow0 + r0 + 8 * r;
+      if (row >= tq) continue;
+      if constexpr (kNoMax) l = fmaxf(l, 1e-30f);
+      const float inv = l > 0.f ? 1.f / l : 0.f;
+      float* dst = o + (((long)b * tq + row) * n_heads + h) * kD + 2 * t4;
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        *reinterpret_cast<float2*>(dst + 8 * i) =
+            make_float2(oacc[4 * i + 2 * r] * inv, oacc[4 * i + 2 * r + 1] * inv);
+      if (t4 == 0) lse[(long)bh * tq + row] = (m_run[r] + log2f(l)) * kLn2;
+    }
   }
 }
 
@@ -243,34 +593,48 @@ int launch(int card, const void* q, const void* k, const void* v, void* o, void*
     return static_cast<int>(cudaErrorInvalidValue);
   const long long* st = plan + 5;
   constexpr int smem = static_cast<int>(sizeof(Smem));
-  static bool configured[kwt_card::kMaxCards] = {};
-  if (!configured[card]) {
-    cudaError_t e = cudaFuncSetAttribute(flash_fwd_f32_kernel<false, false>,
+  constexpr int tc_smem = static_cast<int>(sizeof(TcSmem)) + 1024;  // + alignment slack
+  // per card: its SM count, set once the kernels' shared-memory limits are
+  // raised there
+  static int n_sms_of[kwt_card::kMaxCards] = {};
+  int& n_sms = n_sms_of[card];
+  if (n_sms == 0) {
+    cudaError_t e = cudaFuncSetAttribute(flash_fwd_f32_causal_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(flash_fwd_f32_kernel<true, false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      e = cudaFuncSetAttribute(flash_fwd_f32_tc_kernel<false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, tc_smem);
     if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(flash_fwd_f32_kernel<false, true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    configured[card] = true;
+      e = cudaFuncSetAttribute(flash_fwd_f32_tc_kernel<true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, tc_smem);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&n_sms, cudaDevAttrMultiProcessorCount, card);
+    if (e != cudaSuccess) {
+      n_sms = 0;  // try again on the next call
+      return static_cast<int>(e);
+    }
   }
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
+  if (causal) {
+    const dim3 grid((tq + kBM - 1) / kBM, n_heads, batch);
+    flash_fwd_f32_causal_kernel<<<grid, kThreads, smem, cs>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+        static_cast<float*>(o), static_cast<float*>(lse), tq, tk, n_heads, st[0], st[1], st[2],
+        st[3], st[4], st[5], st[6], st[7], st[8]);
+    return static_cast<int>(cudaGetLastError());
+  }
   if (no_max) {
     kwt_key_bound::key_norm_max<float><<<batch * n_heads, kwt_key_bound::kThreads, 0, cs>>>(
         static_cast<const float*>(k), kmax, tk, n_heads, st[3], st[4], st[5]);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  const dim3 grid((tq + kBM - 1) / kBM, n_heads, batch);
-  auto kernel = no_max  ? flash_fwd_f32_kernel<false, true>
-                : causal ? flash_fwd_f32_kernel<true, false>
-                         : flash_fwd_f32_kernel<false, false>;
-  kernel<<<grid, kThreads, smem, cs>>>(
+  const int n_qtiles = (tq + kTcBM - 1) / kTcBM;
+  const int n_work = n_qtiles * batch * n_heads;
+  auto kernel = no_max ? flash_fwd_f32_tc_kernel<true> : flash_fwd_f32_tc_kernel<false>;
+  kernel<<<n_work < n_sms ? n_work : n_sms, kTcThreads, tc_smem, cs>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), static_cast<float*>(lse), kmax, tq, tk, n_heads, st[0], st[1],
-      st[2], st[3], st[4], st[5], st[6], st[7], st[8]);
+      static_cast<float*>(o), static_cast<float*>(lse), kmax, tq, tk, n_heads, n_qtiles, n_work,
+      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8]);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,10 +1,12 @@
 // Hopper (sm_90a) building blocks shared by the port's TMA/wgmma kernels
-// (K1 and K4 in flash_attention_sm90.cu, K2 in decode_attention.cu and its
-// ring and beam forms, K5 in flash_attention_bwd.cu, K7 in conv_stem.cu, K8
+// (K1 and K4 in flash_attention_sm90.cu, K1's fp32 form in
+// flash_attention_f32.cu, K2 in decode_attention.cu and its ring and beam
+// forms, K5 in flash_attention_bwd.cu, K7 in conv_stem.cu, K8
 // in flash_attention_int8.cu): mbarriers, TMA tensor and 1-D bulk copies,
 // 4-byte cp.asyncs counted on mbarriers, 16-byte cp.asyncs counted in
 // groups, named barriers, register
-// reallocation, cluster barriers and distributed shared memory, K2's
+// reallocation, cluster barriers and distributed shared memory, the TF32
+// split of 3xTF32 products (also in K5's fp32 form), K2's
 // KV chunk loads (fp32, bf16, int8 and packed int4), wgmma with its shared-memory descriptors, and on
 // the host the tensor-map encoder and a cache of encoded maps.
 #pragma once
@@ -216,6 +218,24 @@ __device__ __forceinline__ void cluster_sync() {
   __syncwarp();
   asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" ::
                    : "memory");
+}
+
+// ---- 3xTF32 operands (K1's and K5's fp32 forms) -------------------------------
+
+// An fp32 value as a TF32 high part, rounded to nearest with ties away from
+// zero (cvt.rna.tf32.f32's result, by an integer add and mask: the
+// conversion instruction would run on the slower conversion pipe), and
+// its residual, exact in fp32, whose low 13 bits the tensor core drops.
+__device__ __forceinline__ void split_tf32(float x, float& hi, float& lo) {
+  hi = __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xffffe000u);
+  lo = x - hi;
+}
+// The same split as the bits of mma.sync's operand registers.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  float h, l;
+  split_tf32(x, h, l);
+  hi = __float_as_uint(h);
+  lo = __float_as_uint(l);
 }
 
 // ---- a chunk of a KV cache row as floats (K2's forms) -----------------------

@@ -26,7 +26,9 @@ Each form is one launch a call:
 - prefix (the cross-attention call: T=1500): `split_plan` cuts the rows a
   call reads into at most MAX_CLUSTER slices, one CTA each, and the CTAs
   of a batch row form a thread-block cluster that combines its slices on
-  chip;
+  chip; packed int4 K/V take the head kernel instead, whose CTA is one
+  (slice, group of heads, batch row) of `int4_plan`'s grid, the slices of
+  a (row, group) one cluster;
 - self (a call without ring_pos on a cache of at most SELF_MAX_SLOTS
   slots, `self_form`: every single-query self-attention call of the
   decoder, whose caches hold at most 448 positions): the ring kernel with
@@ -41,8 +43,8 @@ Each form is one launch a call:
 - beam: `beam_plan` gives each CTA one (group, head, 16-beam tile) and,
   where that leaves the card idle, a share of the keys, the shares of a
   tile combining over a cluster (the fp32 form on FFMAs, the same grid).
-  `beam_walk` and `ring_walk` repeat the kernels' arithmetic in their order
-  on the CPU, each form's (`q_dtype`).
+  `beam_walk`, `ring_walk` and `int4_walk` repeat the kernels' arithmetic
+  in their order on the CPU, each form's (`q_dtype`).
 """
 from __future__ import annotations
 
@@ -73,6 +75,10 @@ BEAM_STAGES = {torch.int8: 8, torch.bfloat16: 4, torch.uint8: 16}  # its copy ri
 # the fp32 form's copy ring by K/V dtype (csrc/decode_attention_beam.cu F32Mode)
 BEAM_F32_STAGES = {torch.float32: 3, torch.int8: 6, torch.uint8: 8}
 PREFIX_STAGE_BYTES = 20480  # a stage of the prefix kernel's copy ring
+INT4_BOX = 64       # cache rows a TMA box of the int4 head kernel
+INT4_RING = 32768   # bytes of its copy ring
+INT4_HEADS = (4, 2, 1)  # heads an int4 CTA may take, the most that divide H first
+INT4_CTAS_PER_SM = 3    # the int4 grid's cap: CTAs an SM
 # K/V modes of the C entries: bfloat16; int8 with fp32 per-row scales; int8
 # with bf16 per-head scales; packed int4 with bf16 per-head scales; fp32
 KV_BF16, KV_INT8, KV_INT8_HEADS, KV_INT4, KV_F32 = 0, 1, 2, 3, 4
@@ -139,14 +145,72 @@ def prefix_smem_bytes(rows: int, n_heads: int, kv_dtype, per_head: bool = False)
     4 without), the scores a (row, head), the two scales a row (fp32, or a
     bf16 a head), the per-head max and sum, what the cluster's CTAs send
     (their V sums of a slice of the columns, their maxima and sums), the
-    barriers."""
+    barriers. Packed int4 takes the head kernel (`int4_smem_bytes`)."""
     _head_bytes(kv_dtype)
+    if kv_dtype == torch.uint8:
+        raise ValueError("K2's packed int4 K/V take the head kernel: int4_smem_bytes")
     stages = 3 if per_head else 4
     d = n_heads * 64
     scale = 2 * rows * (2 * n_heads if per_head else 4)
     recv = (-(-(stages * PREFIX_STAGE_BYTES + 4 * rows * n_heads + scale) // 4) * 4
             + 8 * n_heads + 4 * (d + MAX_CLUSTER) + 8 * MAX_CLUSTER * n_heads)
     return ((recv + 7) & ~7) + 16 * stages
+
+
+def int4_smem_bytes(rows: int, heads: int) -> int:
+    """Dynamic shared memory of an int4 head CTA over `rows` cache rows of
+    `heads` heads (the kernel's `I4Layout.total`): the copy ring
+    (INT4_RING: INT4_BOX-row boxes of the group's 32-byte head columns),
+    the raw scores a (row, head), the aligned 4-byte words holding each
+    row's bf16 scales of the group (heads // 2 + 1 a row and tensor), the
+    per-head max and sum, what the cluster's CTAs send (V sums of a slice
+    of the group's columns, maxima and sums), the barriers (two a stage and
+    the scales')."""
+    words, stages = heads // 2 + 1, INT4_RING // (INT4_BOX * heads * 32)
+    end = INT4_RING + 4 * rows * heads + 8 * words * rows + 8 * heads
+    end += 4 * (heads * 64 + MAX_CLUSTER) + 8 * MAX_CLUSTER * heads
+    return ((end + 7) & ~7) + 8 * (2 * stages + 1)
+
+
+class Int4Plan(NamedTuple):
+    heads: int   # heads a CTA: CTA (x, y, z) is share x of heads [y * heads, ..) of row z
+    shares: int  # CTAs of a (row, head group): the cluster's x
+    rows: int    # cache rows a share: share x reads [x * rows, min((x + 1) * rows, valid))
+    grid: tuple  # (shares, H / heads, B)
+    smem: int
+
+
+@lru_cache(maxsize=256)
+def int4_plan(b: int, span: int, n_heads: int, n_sms: int = N_SMS) -> Int4Plan:
+    """The int4 head kernel's grid over cache rows [0, span): of the head
+    counts of INT4_HEADS that divide H, and for each the most key shares
+    (at most MAX_CLUSTER, at least MIN_CTA_ROWS rows each where the span
+    allows) whose grid stays within INT4_CTAS_PER_SM CTAs an SM, the grid
+    with the most CTAs, the most heads a CTA among equals (where no grid
+    stays within the cap, the fewest CTAs: one share). An H100 80GB HBM3
+    at 700 W read ~3 CTAs an SM fastest (B=16, T=1500: 320-400 CTAs
+    0.0233-0.0235 ms, 160 0.0345, 640 0.0259; below the cap, more CTAs
+    faster). At the cross call (B=16, T=1500, 20 heads): 4 heads, 4 shares
+    of 375 rows, 320 CTAs. Raises where a share's rows do not fit a CTA's
+    shared memory."""
+    if b < 1 or n_heads < 1 or span < 1:
+        raise ValueError(f"K2's int4 form needs rows, heads and cache rows, got B={b}, "
+                         f"H={n_heads}, span {span}")
+    cap = INT4_CTAS_PER_SM * n_sms
+    grids = []  # (CTAs, heads, shares)
+    for heads in (h for h in INT4_HEADS if n_heads % h == 0):
+        groups = b * (n_heads // heads)
+        shares = max(1, min(MAX_CLUSTER, -(-span // MIN_CTA_ROWS), cap // groups))
+        grids.append((groups * shares, heads, shares))
+    fit = [g for g in grids if g[0] <= cap]
+    _, heads, shares = (max(fit, key=lambda g: (g[0], g[1])) if fit
+                        else min(grids, key=lambda g: (g[0], -g[1])))
+    rows = -(-span // shares)
+    smem = int4_smem_bytes(rows, heads)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"K2's int4 form holds a share's scores in shared memory: {rows} rows "
+                         f"need {smem} of {SMEM_LIMIT} bytes")
+    return Int4Plan(heads, shares, rows, (shares, n_heads // heads, b), smem)
 
 
 def ring_smem_bytes(t: int, hpc: int, kv_dtype, per_head: bool = False) -> int:
@@ -507,6 +571,43 @@ def ring_walk(q, k_flat, v_flat, valid_len, ring_pos, *, n_heads, k_scale=None, 
     return out
 
 
+def int4_walk(q, k_flat, v_flat, valid_len, *, n_heads, k_scale, v_scale, n_sms=N_SMS,
+              out_dtype=None):
+    """The int4 head kernel's arithmetic in its order (fp32, on any device):
+    per `int4_plan` CTA (a row, a group of heads, a share of the rows) the
+    scores q / 8 log2(e) times the codes, times k_scale, the share's exact
+    max m, p = 2^(s - m), their sum l, the weights p * v_scale and their V
+    sums; the shares of a (row, group) combined as the cluster combines
+    them (each state scaled by 2^(m - M), M their max), O = o / l in
+    `out_dtype` (q's by default). Packed int4 K/V with bf16 (B, T, H)
+    scales; valid_len an int or (B,) counts. -> (B, H, 64)."""
+    b, t, _ = k_flat.shape
+    per_row = isinstance(valid_len, torch.Tensor) and valid_len.ndim == 1
+    plan = int4_plan(b, t if per_row else int(valid_len), n_heads, n_sms)
+    kf = _codes(k_flat).float().reshape(b, t, n_heads, 64)
+    vf = _codes(v_flat).float().reshape(b, t, n_heads, 64)
+    ks, vs = k_scale.float(), v_scale.float()
+    qf = q.float().reshape(b, n_heads, 64) * (0.125 * LOG2E)
+    valid = torch.as_tensor(valid_len).reshape(-1).expand(b)
+    out = torch.empty(b, n_heads, 64, dtype=out_dtype or q.dtype, device=q.device)
+    for y in range(b):
+        n_valid = min(int(valid[y]), t)
+        for g in range(plan.grid[1]):
+            heads = slice(g * plan.heads, (g + 1) * plan.heads)
+            states = []
+            for x in range(plan.shares):
+                rows = slice(x * plan.rows, max(min((x + 1) * plan.rows, n_valid), x * plan.rows))
+                s = torch.einsum("jhd,hd->hj", kf[y, rows, heads], qf[y, heads])
+                s = s * ks[y, rows, heads].T
+                m = s.amax(-1) if s.shape[1] else torch.full((plan.heads,), float("-inf"))
+                p = torch.exp2(s - m[:, None])
+                o = torch.einsum("hj,jhd->hd", p * vs[y, rows, heads].T, vf[y, rows, heads])
+                states.append((m, p.sum(-1), o))
+            _, l, o = _merge(states)
+            out[y, heads] = (o / l[:, None]).to(out.dtype)
+    return out
+
+
 def _kv_args(card, k_flat, v_flat, k_scale, v_scale, n_heads, q_dtype=torch.bfloat16):
     """K2's checks of the K/V cache and its scales (kept to few tensor
     calls: the self and cross calls run 64 times a decode step, and the
@@ -583,7 +684,9 @@ def decode_attention(
     tensors. q bfloat16 or fp32 (each form's fp32 kernel; the output in q's
     dtype). valid_len: int (every row) or a (B,) int32 tensor; ring_pos:
     None (keys [0, valid): the self form where `self_form` says so, else
-    the prefix form, csrc/decode_attention.cu) or, on the card, a 0-d int32
+    the prefix form, csrc/decode_attention.cu: its head kernel on
+    `int4_plan`'s grid for packed int4, its row kernel on `split_plan`'s
+    for the other modes) or, on the card, a 0-d int32
     tensor on q's card, read by the ring kernel
     (csrc/decode_attention_ring.cu) from device memory. The self form is
     the ring kernel without ring_pos. Allocates only the output; safe to
@@ -607,6 +710,17 @@ def decode_attention(
         raise ValueError("K2's ring form takes fp32, bfloat16 or int8 K/V (the self cache), "
                          "not int4")
     out = torch.empty((b, n_heads, 64), dtype=q.dtype, device=q.device)
+    if mode == KV_INT4:
+        if (ks_ptr | vs_ptr) % 4:
+            raise ValueError("K2's int4 form copies the bf16 scales by 4-byte words: they start "
+                             "4-byte aligned")
+        plan = int4_plan(b, t if valid_rows is not None else valid_all, n_heads, _n_sms(card))
+        _check(_build.function("decode_attention", "kwt_decode_attention_int4")(
+            card, q_ptr, q_stride[0], k_ptr, v_ptr, ks_ptr, vs_ptr, valid_rows, valid_all,
+            out.data_ptr(), b, t, n_heads, plan.heads, plan.shares, plan.rows, int(q_f32),
+            _build.stream_handle(card)), "int4")
+        decode_attention.launches += 1
+        return out
     if ring_pos is None and not self_form(t, k_flat.dtype):
         n_ctas, rows = split_plan(t if valid_rows is not None else valid_all)
         _check(_build.function("decode_attention", "kwt_decode_attention")(
@@ -632,7 +746,7 @@ def decode_attention(
     return out
 
 
-decode_attention.launches = 0       # K2, prefix form (the cluster kernel)
+decode_attention.launches = 0       # K2, prefix form (the cluster kernels: rows; int4 heads)
 decode_attention.self_launches = 0  # K2, self form (the ring kernel without ring_pos)
 decode_attention.ring_launches = 0  # K2, ring form
 

@@ -352,6 +352,12 @@ def _f32_plan(q_layout, k_layout, v_layout, causal, no_max=False):
                                                 int(no_max))
 
 
+# K1's fp32 form (csrc/flash_attention_f32.cu, the non-causal kernel, kTcBN):
+# the keys of a tile, over which each tile's P V is summed apart before it
+# is added to O
+F32_TC_KEYS = 64
+
+
 # K5's fp32 form (csrc/flash_attention_bwd_f32.cu): 64-row query tiles and
 # 64-key tiles, a 256-thread CTA each, and the shared memory its kernels
 # take (each within the 227 KB a block may use): the split form's dQ and

@@ -1,5 +1,6 @@
-"""Device time of K2's self-attention calls and K5's fp32 backward at the
-shapes of the path that runs them, alone on the card, so two trees of the
+"""Device time of K2's self-attention and cross calls, K1/K4's fp32 forms
+and K5's fp32 backward at the shapes of the path that runs them, alone on
+the card, so two trees of the
 repository can be timed in turns (one process each, alternating which
 runs first) on one card: run it from two `git archive` checkouts, copying
 this file into one that lacks it. It calls only the wrappers' public entry
@@ -14,6 +15,15 @@ Rows (chip_smoke.py's phase 3 shapes; large-v3's 20 heads of 64):
 - K5 fp32: the training decoder's causal self-attention (B=8, T=128) and
   cross-attention (Tq=128, Tk=1500) backward on the fp32 forward's O and
   LSE: dQ, dK and dV.
+- K1 fp32: K1's fp32 form, the fp32 encoder's self-attention (B=16,
+  T=1500), its no-max form (KWT_FA_NOMAX), the fp32 training decoder's
+  cross-attention (Tq=128, Tk=1500, B=8), and K4's fp32 form (causal, B=8,
+  T=128).
+- K2 cross: K2's cross call (B=16 rows over T=1500, every slot valid)
+  on the int4 cache (packed int4, bf16 per-head scales) at 20 heads and a
+  TP=2 rank's 10, with fp32 q (an fp32 model's int4 cache), and beside
+  them the int8 (fp32 row scales) and bf16 caches, which take the row
+  kernel.
 
 Each time is the device ms of one call: the call captured 20 times in a
 CUDA graph, the graph replayed 5 times (CUDA events). host_us is the
@@ -43,6 +53,7 @@ from kotoba_whisper_tpu_torch.ops import flash_attention as fa
 
 HEADS, SELF_ROWS, SELF_T = 20, 16, 51  # phase 4: B=16, prompt 3 + 48 tokens
 TRAIN_B, LABELS, T_ENC = 8, 128, 1500   # phase 4b
+ENC_B = 16                              # phase 4k(a)'s fp32 encoder batch
 
 
 def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
@@ -124,6 +135,55 @@ def _k5_rows():
     return rows
 
 
+def _k1_f32_rows():
+    """K1/K4's fp32 forward at the fp32 paths' shapes -> {name: call}."""
+    rows = {}
+    f32 = torch.float32
+    for name, b, tq, tk, causal, no_max in (
+            ("k1_f32", ENC_B, T_ENC, T_ENC, False, False),
+            ("k1_f32_nomax", ENC_B, T_ENC, T_ENC, False, True),
+            ("k1_f32_cross", TRAIN_B, LABELS, T_ENC, False, False),
+            ("k4_f32", TRAIN_B, LABELS, LABELS, True, False)):
+        q = _randn(b, tq, HEADS, 64, seed=70, dtype=f32)
+        k, v = (_randn(b, tk, HEADS, 64, seed=s, dtype=f32) for s in (71, 72))
+
+        def call(q=q, k=k, v=v, causal=causal, no_max=no_max):
+            return fa.flash_attention_fwd(q, k, v, causal=causal, int8_mode="", no_max=no_max,
+                                          exp2=False)
+
+        rows[name] = call
+    return rows
+
+
+def _k2_cross_rows():
+    """K2's cross call on each cache -> {name: call}."""
+    rows = {}
+    for name, mode, heads, q_dtype in (
+            ("k2_int4", "int4", HEADS, torch.bfloat16),
+            ("k2_int4_d640", "int4", HEADS // 2, torch.bfloat16),
+            ("k2_int4_f32q", "int4", HEADS, torch.float32),
+            ("k2_int8", "int8", HEADS, torch.bfloat16),
+            ("k2_bf16", "bf16", HEADS, torch.bfloat16)):
+        q = _randn(ENC_B, heads, 64, seed=80, dtype=q_dtype)
+        kv = []
+        for seed in (81, 82):
+            x = _randn(ENC_B, T_ENC, heads * 64, seed=seed)
+            if mode == "int4":
+                codes, scale = whisper.quantize_kv_heads(x, heads, 4)
+                kv.append((whisper.pack_int4(codes), scale))
+            elif mode == "int8":
+                kv.append(whisper.quantize_kv_rows(x))
+            else:
+                kv.append((x, None))
+        (k, ks), (v, vs) = kv
+
+        def call(q=q, k=k, v=v, ks=ks, vs=vs, heads=heads):
+            return da.decode_attention(q, k, v, T_ENC, n_heads=heads, k_scale=ks, v_scale=vs)
+
+        rows[name] = call
+    return rows
+
+
 def k5_sweep() -> dict:
     """Device ms of K5's fp32 causal call at (B, H, T) -> {"BxHxT": ms}."""
     f32 = torch.float32
@@ -138,7 +198,7 @@ def k5_sweep() -> dict:
 
 
 def measure(reps: int) -> dict:
-    rows = {**_self_rows(), **_k5_rows()}
+    rows = {**_self_rows(), **_k2_cross_rows(), **_k1_f32_rows(), **_k5_rows()}
     return {name: {"device_ms": [graph_ms(call) for _ in range(reps)], "host_us": host_us(call)}
             for name, call in rows.items()}
 

@@ -157,6 +157,17 @@ def _k2_beam(c):
     da.decode_attention_beam(_bf16(2, 3, 2, 64), kv, kv, n_heads=2)
 
 
+def _k2_int4(c, dtype=torch.bfloat16):  # packed int4: the prefix form's head kernel
+    kv = on_card(torch.zeros(2, 64, 2 * 32, dtype=torch.uint8))
+    scale = _bf16(2, 64, 2)
+    da.decode_attention(_bf16(2, 2, 64, dtype=dtype), kv, kv, 5, n_heads=2, k_scale=scale,
+                        v_scale=scale)
+
+
+def _k2_int4_f32(c):
+    _k2_int4(c, torch.float32)
+
+
 def _k1_f32(c):
     x = _bf16(1, 64, 2, 64, dtype=torch.float32)
     fa.flash_attention_fwd(x, x, x)
@@ -264,6 +275,8 @@ WRAPPERS = {
     "K5": (_k5, "kwt_flash_attention_bwd"),
     "K8": (_k8, "kwt_flash_attention_int8"),
     "K2 prefix": (_k2, "kwt_decode_attention"),
+    "K2 prefix int4": (_k2_int4, "kwt_decode_attention_int4"),
+    "K2 prefix int4 fp32": (_k2_int4_f32, "kwt_decode_attention_int4"),
     "K2 ring": (_k2_ring, "kwt_decode_attention_ring"),
     "K2 self": (_k2_self, "kwt_decode_attention_ring"),
     "K2 beam": (_k2_beam, "kwt_decode_attention_beam"),

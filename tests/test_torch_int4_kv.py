@@ -282,12 +282,15 @@ def test_kv_args_rejects_mismatched_scales(bad):
 
 def test_plans_count_each_modes_bytes():
     """The prefix CTA's shared memory at the cross call (T=1500, 8 CTAs of
-    188 rows): int8 per row as before, int4 with per-head bf16 scales in 3
-    stages still two CTAs an SM; ring per-head scales take a float a head
+    188 rows): int8 per row as before; int4 takes the head kernel, whose
+    CTA (4 heads, 375 rows, per-head bf16 scales) fits three an SM, and the
+    row kernel's plan refuses it; ring per-head scales take a float a head
     a slot; the beam ring of int4 tiles 16 stages of 2 KB."""
     assert tda.prefix_smem_bytes(188, 20, torch.int8) == 105120
-    int4 = tda.prefix_smem_bytes(188, 20, torch.uint8, per_head=True)
-    assert int4 == 98160 and 2 * (int4 + 1024) <= tda.SM_SMEM
+    with pytest.raises(ValueError, match="head kernel"):
+        tda.prefix_smem_bytes(188, 20, torch.uint8, per_head=True)
+    int4 = tda.int4_smem_bytes(375, 4)
+    assert int4 == 49184 and 3 * (int4 + 1024) <= tda.SM_SMEM
     assert (tda.ring_smem_bytes(176, 2, torch.int8, per_head=True)
             - tda.ring_smem_bytes(176, 2, torch.int8) == 8 * 176)
     assert tda.ring_plan(48, 176, 20, torch.int8, 132, per_head=True).heads == 2

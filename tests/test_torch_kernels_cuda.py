@@ -1934,3 +1934,118 @@ def test_no_max_autograd_cross_on_card(monkeypatch, dtype):
             _assert_fp32_grad(g, t.grad, name)
         else:
             _assert_grad_near(g, t.grad, name)
+
+
+# ---- K1's fp32 form on the tensor cores and K2's int4 head kernel ---------------
+
+
+@pytest.mark.parametrize("b, tq, tk, h", [(16, 1500, 1500, 20), (1, 129, 1500, 2),
+                                          (2, 1500, 65, 20), (1, 128, 4096, 1),
+                                          (1, 1, 64, 1)])
+@pytest.mark.parametrize("no_max", [False, True], ids=["max", "no-max"])
+def test_flash_attention_f32_tc_form(b, tq, tk, h, no_max):
+    """K1's fp32 form (3xTF32 wgmma) at the encoder's shape (B=16, T=1500,
+    20 heads), past one 128-row work item, one key past a tile, long keys
+    and one row: O within rel-L2 1e-5 of the fp32 twin, the LSE within
+    1e-5, above the twin with its first key tile dropped, and the same bits
+    from two launches (no atomics)."""
+    q = _randn(b, tq, h, 64, seed=230, dtype=torch.float32)
+    k = _randn(b, tk, h, 64, seed=231, dtype=torch.float32)
+    v = _randn(b, tk, h, 64, seed=232, dtype=torch.float32)
+    o, lse = fa.flash_attention_fwd(q, k, v, no_max=no_max, exp2=False)
+    o2, lse2 = fa.flash_attention_fwd(q, k, v, no_max=no_max, exp2=False)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    ro, rlse = fa.flash_attention_reference(q, k, v, no_max=no_max)
+    _assert_fp32(o, ro)
+    torch.testing.assert_close(lse, rlse, atol=1e-5, rtol=1e-6)
+    if 64 < tk <= 1500:
+        cut = fa.flash_attention_reference(q, k[:, 64:], v[:, 64:], no_max=no_max)[0]
+        assert float((cut - ro).norm() / ro.norm()) > 1e-2
+
+
+def test_flash_attention_f32_tc_form_replays_in_a_cuda_graph():
+    """K1's fp32 form at the encoder's shape and its no-max form replay in
+    one CUDA graph to the eager outputs, also after q changes in place."""
+    q, k, v = (_randn(16, 1500, 20, 64, seed=s, dtype=torch.float32) for s in (233, 234, 235))
+
+    def call():
+        return (fa.flash_attention_fwd(q, k, v, no_max=False, exp2=False)[0],
+                fa.flash_attention_fwd(q, k, v, no_max=True, exp2=False)[0])
+
+    call()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    for seed in (None, 236):
+        if seed is not None:
+            q.copy_(_randn(*q.shape, seed=seed, dtype=torch.float32))
+        graph.replay()
+        want = call()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(out, want))
+
+
+def _int4_edges(b, t, h):
+    """Per-row valid lengths on and beside each share boundary of the plan a
+    (b, t) int4 cache takes on this card, a row of one slot, a full row."""
+    plan = da.int4_plan(b, t, h, torch.cuda.get_device_properties(0).multi_processor_count)
+    lengths = [t, 1] + [plan.rows * x + d for x in range(1, plan.shares) for d in (-1, 0, 1)]
+    return torch.tensor([lengths[i % len(lengths)] for i in range(b)], dtype=torch.int32,
+                        device="cuda"), plan
+
+
+@pytest.mark.parametrize("q_dtype", [torch.bfloat16, torch.float32], ids=["bf16-q", "fp32-q"])
+@pytest.mark.parametrize("valid", ["all", "rows"])
+@pytest.mark.parametrize("heads", [20, 10])
+def test_decode_attention_int4_heads_at_the_cross_call(heads, valid, q_dtype):
+    """K2's int4 head kernel at the cross call (B=16, T=1500) at 20 heads
+    and a TP=2 rank's 10, every row valid and per-row lengths on and beside
+    each share boundary of its plan with a row of one slot: max |err| <=
+    2e-3 against the twin (bf16 q), rel-L2 <= 1e-5 (fp32 q); one launch, the
+    same bits from two launches."""
+    b, t = 16, 1500
+    q = _randn(b, heads, 64, seed=240, dtype=q_dtype)
+    k, v, ks, vs = _f32_kv(b, t, heads, "int4", seed=241)
+    lengths, plan = _int4_edges(b, t, heads)
+    assert plan.shares > 1
+    lengths = t if valid == "all" else lengths
+    kw = dict(n_heads=heads, k_scale=ks, v_scale=vs)
+    before = da.decode_attention.launches
+    got = da.decode_attention(q, k, v, lengths, **kw)
+    again = da.decode_attention(q, k, v, lengths, **kw)
+    torch.cuda.synchronize()
+    assert da.decode_attention.launches == before + 2 and torch.equal(got, again)
+    ref = da.decode_attention_reference(q, k, v, lengths, **kw)
+    if q_dtype == torch.float32:
+        _assert_fp32(got, ref)
+    else:
+        _assert_near(got, ref, atol=2e-3)
+
+
+@pytest.mark.parametrize("q_dtype", [torch.bfloat16, torch.float32], ids=["bf16-q", "fp32-q"])
+def test_decode_attention_int4_heads_replay_in_a_cuda_graph(q_dtype):
+    """K2's int4 head kernel with per-row lengths replays in a CUDA graph to
+    the eager output, also after q and the lengths change in place."""
+    b, t, h = 16, 1500, 20
+    q = _randn(b, h, 64, seed=242, dtype=q_dtype)
+    k, v, ks, vs = _f32_kv(b, t, h, "int4", seed=243)
+    lengths, _ = _int4_edges(b, t, h)
+
+    def call():
+        return da.decode_attention(q, k, v, lengths, n_heads=h, k_scale=ks, v_scale=vs)
+
+    call()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    for step in range(2):
+        if step:
+            q.copy_(_randn(*q.shape, seed=244, dtype=q_dtype))
+            lengths.copy_(lengths.flip(0))
+        graph.replay()
+        want = call()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)

@@ -114,3 +114,21 @@ def test_timing_tools_raise_without_a_card(monkeypatch, tool, argv):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tool.main(argv)
+
+
+def test_kernel_time_times_every_row(monkeypatch):
+    """One run times every row group (K2's self and cross calls, K1/K4
+    fp32, K5 fp32), each `reps` times; the rows' names are the ones two
+    trees' records are compared by."""
+    groups = {"_self_rows": ["self_int8"],
+              "_k2_cross_rows": ["k2_int4", "k2_int4_d640", "k2_int4_f32q", "k2_int8",
+                                 "k2_bf16"],
+              "_k1_f32_rows": ["k1_f32", "k1_f32_nomax", "k1_f32_cross", "k4_f32"],
+              "_k5_rows": ["k5_f32_causal"]}
+    for fn, names in groups.items():
+        monkeypatch.setattr(kernel_time, fn, lambda names=names: {n: None for n in names})
+    monkeypatch.setattr(kernel_time, "graph_ms", lambda call: 0.0)
+    monkeypatch.setattr(kernel_time, "host_us", lambda call: 0.0)
+    rec = kernel_time.measure(2)
+    assert list(rec) == [n for names in groups.values() for n in names]
+    assert all(len(r["device_ms"]) == 2 for r in rec.values())
