@@ -40,10 +40,12 @@ Phases, in order; any failure exits nonzero and prints no result line:
      (cross T=1500 with fp32, int8 and int4 K/V), self form (T=51), ring
      form (W=48 at T=176 and T=448, the latter in boxes) and beam form (12 x 5 over T=1500, fp32 and int4
      K/V), K5 (causal B=8 x 128, its one-launch cluster form, and cross 128
-     x 1500: dQ, dK, dV; autograd through SDPA beside it), K8 with fp32 q
+     x 1500, its split form on 3xTF32 wgmma: dQ, dK, dV; autograd through
+     SDPA beside it; both bounds the three TF32 products), K8 with fp32 q
      (qk and qkpv at B=16, T=1500, its pre-pass bit for bit), K6 on fp32 rows (24000 x 1280, LayerNorm and
-     the fused add) and K7 (16, 128, 3000; cuDNN conv + GELU twice with
-     TF32 off beside it), each held to its fp32 twin by relative L2 <= 1e-5
+     the fused add) and K7 (16, 128, 3000, on 3xTF32 wgmma, its bound the
+     three TF32 products; cuDNN conv + GELU twice with TF32 off beside
+     it), each held to its fp32 twin by relative L2 <= 1e-5
      above a control >= 1e-2 (a dropped key tile; K6: a 64-column chunk
      not written; K7: conv1's first tap skipped), the library call on the
      same fp32 tensors beside it with its kernel named; the JAX package's
@@ -1667,7 +1669,8 @@ def main() -> int:
         return torch.cat([t.flatten() for t in ts])
 
     # K5 fp32 (csrc/flash_attention_bwd_f32.cu): the student decoder's causal
-    # self-attention (B=8 x 128) and its cross-attention (128 x 1500) on the
+    # self-attention (B=8 x 128, the cluster form) and its cross-attention
+    # (128 x 1500, the split form's 3xTF32 wgmma kernels) on the
     # fp32 K4 / K1 forward's O and LSE; dQ, dK and dV together against the
     # twin; control: the twin with the first 64 keys dropped (their dK and
     # dV rows zero); the library call autograd through SDPA on fp32 tensors
@@ -1696,8 +1699,9 @@ def main() -> int:
             lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal),
             lambda: fa.flash_attention_bwd_reference(q, k, v, o, lse, do, causal=causal),
             lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), do_t, retain_graph=True),
-            # S, dP, dV, dQ, dK: five products over the kept pairs, one exp each
-            bound(10.0 * TRAIN_B * h * n_pairs * 64, fp32_rate,
+            # S, dP, dV, dQ, dK: five products over the kept pairs, each three
+            # TF32 products (3xTF32) at the dense TF32 rate, one exp each
+            bound(3 * 10.0 * TRAIN_B * h * n_pairs * 64, tf32_rate,
                   nbytes(q, k, v, o, lse, do, *got), mem_rate,
                   exp_s=TRAIN_B * h * n_pairs / exp_rate), "K5f32")
         del q, k, v, do, o, lse, got, ref, cut_q, cut_k, cut_v, pad, qt, kt, vt, sdpa_out, do_t
@@ -1821,7 +1825,7 @@ def main() -> int:
         "K6addf32")
     del x, y, w, bb, got, ref, summed, ref_sum
 
-    # K7 fp32 (csrc/conv_stem_f32.cu), (16, 128, 3000) -> (16, 1500, 1280);
+    # K7 fp32 (csrc/conv_stem_f32.cu, 3xTF32 wgmma), (16, 128, 3000) -> (16, 1500, 1280);
     # control: the twin with conv1's first tap skipped; the library call
     # cuDNN conv + GELU twice, TF32 off (phase 1 turned it off)
     n_mels = large.num_mel_bins
@@ -1850,8 +1854,9 @@ def main() -> int:
             lambda: cs.conv_stem_reference(conv1.weight, conv1.bias, conv2.weight, conv2.bias,
                                            xs),
             cudnn_stem32,
-            bound(stem_flops, fp32_rate, nbytes(xs, conv1.weight, conv1.bias, conv2.weight,
-                                                conv2.bias) + B * t_enc * d * 4, mem_rate),
+            # each product three TF32 products (3xTF32) at the dense TF32 rate
+            bound(3 * stem_flops, tf32_rate, nbytes(xs, conv1.weight, conv1.bias, conv2.weight,
+                                                    conv2.bias) + B * t_enc * d * 4, mem_rate),
             "K7f32")
     del conv1, conv2, xs, w1_cut
     log(f"[kernel] after the fp32 records: {card_memory()}")

@@ -87,7 +87,7 @@ SIGNATURES = {
         "kwt_conv_stem": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     },
     "conv_stem_f32": {
-        "kwt_conv_stem_f32": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+        "kwt_conv_stem_f32": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     },
     "flash_attention_int8": {
         "kwt_flash_attention_int8": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _P],

@@ -10,13 +10,14 @@ post-GELU conv1 output. The encoder takes it with `stem_impl="pallas"`
 (the JAX package's name for the opt-in stem).
 
 Layout: x (B, n_mels, T) -> (B, T // 2, d), T even. The wrapper launches K7
-for CUDA tensors (bf16: csrc/conv_stem.cu; fp32: the CUDA-core form in
-csrc/conv_stem_f32.cu) and takes the twin only for CPU tensors. K7 reads
-its weights in a tap-major copy, in x's dtype, made once per weight
-version (`tap_major_weights`); `stem_plan` packs the shapes, the tile
-counts and each tap's TMA coordinates (`tap_coords`) that the bf16 kernel
-reads, and `stem_tile` mirrors the order it walks its output tiles;
-`stem_f32_grids` gives the fp32 form's grids.
+for CUDA tensors (bf16: csrc/conv_stem.cu; fp32: the 3xTF32 tensor-core
+form in csrc/conv_stem_f32.cu) and takes the twin only for CPU tensors. K7
+reads its weights in a tap-major copy, in x's dtype, made once per weight
+version (`tap_major_weights`; the fp32 form's split into TF32 high parts
+and residuals by `split_tf32`); `stem_plan` packs the shapes, the tile
+counts and each tap's TMA coordinates (`tap_coords`) that both forms read
+(the fp32 form with F32_TILE_N-column tiles), and `stem_tile` mirrors the
+order they walk their output tiles.
 """
 from __future__ import annotations
 
@@ -66,43 +67,48 @@ def tap_coords(stride, tap):
     return (tap - 1) % 2, (tap - 1) // 2
 
 
-def stem_tiles(t_out, d):
+def stem_tiles(t_out, d, tile_n=TILE_N):
     """(row tiles per batch element, column tiles) of one conv's output."""
-    return -(-t_out // TILE_M), -(-d // TILE_N)
+    return -(-t_out // TILE_M), -(-d // tile_n)
 
 
-def stem_tile(w, n_mtiles, n_ntiles):
+def stem_tile(w, n_mtiles, n_ntiles, tile_n=TILE_N):
     """K7's work item w -> (batch element, first row, first channel); the
-    column tile runs fastest (csrc/conv_stem.cu `tile_of`)."""
+    column tile runs fastest (csrc/conv_stem.cu and conv_stem_f32.cu
+    `tile_of`)."""
     rest, nt = divmod(w, n_ntiles)
     b, mt = divmod(rest, n_mtiles)
-    return b, mt * TILE_M, nt * TILE_N
+    return b, mt * TILE_M, nt * tile_n
 
 
 @lru_cache(maxsize=64)
-def stem_plan(batch, t, c_in, d):
-    """The int64 array K7's C entry reads: batch, T, C, d, the row tiles of
-    conv1 and conv2, the column tiles, then conv1's and conv2's tap
+def stem_plan(batch, t, c_in, d, tile_n=TILE_N):
+    """The int64 array K7's C entries read: batch, T, C, d, the row tiles of
+    conv1 and conv2, the column tiles (of `tile_n` channels: TILE_N for the
+    bf16 form, F32_TILE_N for the fp32 one), then conv1's and conv2's tap
     parities and offsets (`tap_coords`)."""
-    n_m1, n_n = stem_tiles(t, d)
-    n_m2, _ = stem_tiles(t // 2, d)
+    n_m1, n_n = stem_tiles(t, d, tile_n)
+    n_m2, _ = stem_tiles(t // 2, d, tile_n)
     taps = [[tap_coords(stride, tap)[i] for tap in range(3)] for stride in (1, 2)
             for i in (0, 1)]
     return (ctypes.c_longlong * 19)(batch, t, c_in, d, n_m1, n_m2, n_n,
                                     *(v for row in taps for v in row))
 
 
-# the fp32 form's output tiles (csrc/conv_stem_f32.cu): 128 rows of the
-# flattened (batch, frame) rows x 128 channels
-F32_TILE_M, F32_TILE_N = 128, 128
+# the fp32 form's tiles (csrc/conv_stem_f32.cu): 128 output rows of one
+# batch element (TILE_M) x 128 channels, K steps of 32 channels of one tap,
+# each step's 3xTF32 products summed in an accumulator of their own and
+# added to the tile's fp32 sum
+F32_TILE_N, F32_TILE_K = 128, 32
 
 
-def stem_f32_grids(batch, t, d):
-    """The grids of the fp32 form's two launches, (column tiles, row tiles)
-    over the flattened (batch, frame) rows of conv1 (T frames) and conv2
-    (T / 2)."""
-    return tuple((-(-d // F32_TILE_N), -(-batch * frames // F32_TILE_M))
-                 for frames in (t, t // 2))
+def split_tf32(x):
+    """fp32 x as its TF32 high part, rounded to nearest with ties away from
+    zero (csrc/sm90_common.cuh `split_tf32`: an integer add and mask), and
+    its residual x - hi, exact in fp32: hi + lo == x."""
+    bits = x.contiguous().view(torch.int32)
+    hi = ((bits + 0x1000) & -8192).view(torch.float32)
+    return hi, x - hi
 
 
 _tap_major_cache: dict = {}
@@ -110,21 +116,24 @@ _tap_major_cache: dict = {}
 
 @torch.no_grad()
 def _tap_major(w1, b1, w2, b2, dtype):
-    return (w1.detach().to(dtype).permute(0, 2, 1).contiguous(),
-            b1.detach().to(dtype).contiguous(),
-            w2.detach().to(dtype).permute(0, 2, 1).contiguous(),
-            b2.detach().to(dtype).contiguous())
+    w1p, w2p = (w.detach().to(dtype).permute(0, 2, 1).contiguous() for w in (w1, w2))
+    b1p, b2p = (b.detach().to(dtype).contiguous() for b in (b1, b2))
+    if dtype == torch.float32:
+        return (*split_tf32(w1p), b1p, *split_tf32(w2p), b2p)
+    return w1p, b1p, w2p, b2p
 
 
 def tap_major_weights(w1, b1, w2, b2, dtype=torch.bfloat16):
     """(C_out, 3, C_in) tap-major copies of the conv weights and the biases
-    in `dtype` (bf16 for the bf16 kernel, fp32 for the fp32 form), as the
-    TPU wrapper lays the weights out before its pallas_call. Made once and
-    cached by each tensor's identity, storage address and `_version` (and
-    the dtype), so an in-place update of a weight (which bumps its version)
-    rebuilds them. Inference tensors carry no version counter, so an
-    in-place update of one could not be seen: their copies are made on
-    every call."""
+    in `dtype`, as the TPU wrapper lays the weights out before its
+    pallas_call: bf16 (w1, b1, w2, b2) for the bf16 kernel; for the fp32
+    form each weight as its TF32 high part and residual (`split_tf32`),
+    (w1_hi, w1_lo, b1, w2_hi, w2_lo, b2), what its tensor cores read. Made
+    once and cached by each tensor's identity, storage address and
+    `_version` (and the dtype), so an in-place update of a weight (which
+    bumps its version) rebuilds them. Inference tensors carry no version
+    counter, so an in-place update of one could not be seen: their copies
+    are made on every call."""
     src = (w1, b1, w2, b2)
     if any(t.is_inference() for t in src):
         return _tap_major(*src, dtype)
@@ -143,24 +152,30 @@ def tap_major_weights(w1, b1, w2, b2, dtype=torch.bfloat16):
 
 
 def _conv_stem_f32(w1, b1, w2, b2, x):
-    """K7's fp32 form on the card: two launches through an fp32 y1."""
+    """K7's fp32 form on the card: a split transpose of x, then conv1 and
+    conv2 on 3xTF32 wgmma through y1's high parts and residuals."""
     b, c_in, t = x.shape
     d = w1.shape[0]
-    if d % 4 or w2.shape != (d, d, 3) or w1.shape != (d, c_in, 3):
-        raise ValueError(f"K7's fp32 form needs d % 4 == 0 (float4 stores) and 3-tap convs; "
-                         f"got x {tuple(x.shape)}, conv1 {tuple(w1.shape)}, conv2 "
-                         f"{tuple(w2.shape)}")
+    if c_in % 4 or d % 4 or w2.shape != (d, d, 3) or w1.shape != (d, c_in, 3):
+        raise ValueError(f"K7's fp32 form needs n_mels % 4 == 0 and d % 4 == 0 (16-byte "
+                         f"rows for its tensor maps) and 3-tap convs; got x {tuple(x.shape)}, "
+                         f"conv1 {tuple(w1.shape)}, conv2 {tuple(w2.shape)}")
     if any(wt.device != x.device for wt in (w1, b1, w2, b2)):
         raise ValueError("K7: the conv weights must be on x's card")
     x = x.contiguous()
-    w1p, b1p, w2p, b2p = tap_major_weights(w1, b1, w2, b2, torch.float32)
-    y1 = x.new_empty((b, t, d))
+    if x.data_ptr() % 16:
+        raise ValueError("K7 reads x in 16-byte aligned rows")
+    w1h, w1l, b1p, w2h, w2l, b2p = tap_major_weights(w1, b1, w2, b2, torch.float32)
+    # scratch: x as (B, T, C) rows and conv1's output y1, each as TF32 high
+    # parts, then residuals
+    xt = x.new_empty((2, b, t, c_in))
+    y1 = x.new_empty((2, b, t, d))
     out = x.new_empty((b, t // 2, d))
     card = x.get_device()
     rc = _build.function("conv_stem_f32", "kwt_conv_stem_f32")(
-        card, x.data_ptr(), w1p.data_ptr(), b1p.data_ptr(), w2p.data_ptr(), b2p.data_ptr(),
-        y1.data_ptr(), out.data_ptr(), (ctypes.c_longlong * 4)(b, t, c_in, d),
-        _build.stream_handle(card),
+        card, x.data_ptr(), w1h.data_ptr(), w1l.data_ptr(), b1p.data_ptr(), w2h.data_ptr(),
+        w2l.data_ptr(), b2p.data_ptr(), xt.data_ptr(), y1.data_ptr(), out.data_ptr(),
+        stem_plan(b, t, c_in, d, F32_TILE_N), _build.stream_handle(card),
     )
     if rc != 0:
         raise RuntimeError(f"K7 conv stem (fp32) launch failed: cudaError {rc}")

@@ -7,7 +7,8 @@ csrc/flash_attention_bwd.cu (a D pre-pass, one TMA and wgmma kernel over
 128-key work items, and a dQ conversion) and its fp32 form in
 csrc/flash_attention_bwd_f32.cu (causal calls: one launch of a cluster of
 key tiles a (batch, head) on 3xTF32 mma.sync; the cross call: a pre-pass,
-then a dQ kernel and a dK/dV kernel on the CUDA cores), their plain twins,
+a dQ kernel and a dK/dV kernel on 3xTF32 wgmma, and the sum of dQ's key
+parts), their plain twins,
 and the `FlashAttention` autograd function that ties them together.
 
 softmax(q k^T / sqrt(D)) v with O in the input dtype and the fp32
@@ -79,6 +80,7 @@ import torch
 import torch.nn.functional as F
 
 from kotoba_whisper_tpu_torch.ops import _build
+from kotoba_whisper_tpu_torch.ops.decode_attention import N_SMS
 
 # non-causal attention over at most this many keys is the JAX package's
 # one-shot kernel, the only place it applies KWT_FA_INT8
@@ -327,8 +329,8 @@ def _fwd_plan(q_layout, k_layout, v_layout, causal, no_max=False):
 
 def _f32_strides(shape, stride, what):
     """Element strides (batch, token, head) of a (B, T, H, 64) fp32 layout
-    for the fp32 CUDA-core kernels: the head dim contiguous and every
-    stride a multiple of 4 elements (their float4 loads; the addresses are
+    for the fp32 kernels: the head dim contiguous and every stride a
+    multiple of 4 elements (their float4 loads; the addresses are
     checked per call). A dimension of size 1 never moves the address, so
     any stride there will do."""
     sb, st, sh, _ = (s if n > 1 else 0 for n, s in zip(shape, stride))
@@ -358,41 +360,38 @@ def _f32_plan(q_layout, k_layout, v_layout, causal, no_max=False):
 F32_TC_KEYS = 64
 
 
-# K5's fp32 form (csrc/flash_attention_bwd_f32.cu): 64-row query tiles and
-# 64-key tiles, a 256-thread CTA each, and the shared memory its kernels
-# take (each within the 227 KB a block may use): the split form's dQ and
-# dKV kernels; the causal form's CTA (six swizzled 64 x 64 tiles, the
-# round's LSE and D), two an SM
+# K5's fp32 form (csrc/flash_attention_bwd_f32.cu). The causal cluster form:
+# 64-row query tiles and 64-key tiles, a 256-thread CTA a key tile (six
+# swizzled 64 x 64 tiles, the round's LSE and D), two an SM. The split form:
+# dQ items of 128 query rows (64 a consumer warpgroup) over 32-key tiles,
+# dK/dV items of 128 keys over 32-row chunks, a 384-thread CTA an SM each
+# (the C source asserts that their shared memory fits a block)
 BWD_F32_TILE = 64
-BWD_F32_DQ_SMEM = 4 * (5 * 64 * 68 + 64 * 64)
-BWD_F32_DKV_SMEM = 4 * (6 * 64 * 68 + 2 * 64 * 64 + 2 * 64)
 BWD_F32_CAUSAL_SMEM = 4 * (6 * 64 * 64 + 2 * 64)
 BWD_F32_MAX_CLUSTER = 8  # key tiles of a causal call on the cluster form (Tk <= 512)
+BWD_F32_DQ_ROWS, BWD_F32_DQ_KEYS = 128, 32
+BWD_F32_DKV_KEYS, BWD_F32_DKV_ROWS = 128, 32
+BWD_F32_MAX_PARTS = 8
 
 
 def bwd_f32_cluster(tq, tk, causal):
     """CTAs of K5's fp32 causal form a (batch, head): one a 64-key tile,
     the cluster of one launch, for causal calls of at most
     BWD_F32_MAX_CLUSTER key tiles (the decoder's self-attention: at most
-    448 positions); 0 where the call takes the split form's three launches
-    (the cross-attention call, a causal call past 512 keys). CTA c takes
-    the query tiles from `bwd_f32_first_qtile` (keys [64c, 64c + 64)) to
-    the last, one a round; tile r's dQ is the sum of the shares of the CTAs
-    that took round r, in rank order, made by CTA r."""
+    448 positions); 0 where the call takes the split form (the
+    cross-attention call, a causal call past 512 keys). CTA c takes the
+    query tiles from `bwd_f32_first_qtile` (keys [64c, 64c + 64)) to the
+    last, one a round; tile r's dQ is the sum of the shares of the CTAs
+    that took round r (`bwd_f32_key_tiles`), in rank order, made by CTA r."""
     n = -(-tk // BWD_F32_TILE)
     return n if causal and n <= BWD_F32_MAX_CLUSTER else 0
 
 
-def bwd_f32_grids(b, tq, tk, h):
-    """The grids of K5's fp32 dQ and dKV kernels: (query tiles, heads,
-    batch) and (key tiles, heads, batch)."""
-    return ((-(-tq // BWD_F32_TILE), h, b), (-(-tk // BWD_F32_TILE), h, b))
-
-
 def bwd_f32_key_tiles(tq, tk, q0, causal):
-    """The 64-key tiles K5's fp32 dQ kernel walks, from key 0, for query
-    rows [q0, q0 + 64): all of them, or (causal, end-aligned) those at or
-    below its last row's bound (csrc/flash_attention_bwd_f32.cu)."""
+    """The 64-key tiles (from key 0) that hold a key some row of the 64-row
+    query tile [q0, q0 + 64) sees: all of them, or (causal, end-aligned)
+    those at or below its last row's bound; in the causal form, the CTAs
+    whose shares make the tile's dQ."""
     n = -(-tk // BWD_F32_TILE)
     if causal:
         n = min(n, (min(q0 + BWD_F32_TILE, tq) - 1 + tk - tq) // BWD_F32_TILE + 1)
@@ -400,10 +399,46 @@ def bwd_f32_key_tiles(tq, tk, q0, causal):
 
 
 def bwd_f32_first_qtile(tq, tk, k0, causal):
-    """The first 64-row query tile K5's fp32 dK/dV kernel walks (to the last)
-    for keys [k0, k0 + 64): 0, or (causal) the tile of the first row that
+    """The first 64-row query tile the causal form's CTA of keys [k0, k0 +
+    64) takes (to the last): 0, or (causal) the tile of the first row that
     sees key k0."""
     return max(k0 - (tk - tq), 0) // BWD_F32_TILE if causal else 0
+
+
+def bwd_f32_dq_parts(b, tq, tk, h):
+    """Key parts of the split form's dQ items (batch-head, 128 rows, part):
+    the fewest, up to the 32-key tiles and BWD_F32_MAX_PARTS, that make at
+    least three items an SM, so the persistent grid's rounds are short (at
+    the training cross shape, 160 row tiles of 47 key tiles: 3 parts, 480
+    items), then as many as parts of ceil(tiles / parts) tiles take, so
+    none is empty; the parts' dQ is summed in part order."""
+    items = b * h * -(-tq // BWD_F32_DQ_ROWS)
+    n_kt = -(-tk // BWD_F32_DQ_KEYS)
+    parts = 1
+    while parts < min(n_kt, BWD_F32_MAX_PARTS) and items * parts < 3 * N_SMS:
+        parts += 1
+    return -(-n_kt // -(-n_kt // parts))
+
+
+def bwd_f32_dq_tiles(tq, tk, qt, part, n_parts, causal):
+    """The 32-key tiles [j0, j1) the split form's dQ item of 128-row tile
+    qt and key part `part` walks: the part's ceil(n / n_parts) of the
+    call's n key tiles, causal only those at or below the tile's last row's
+    bound (an empty range writes zeros)."""
+    n_kt = -(-tk // BWD_F32_DQ_KEYS)
+    per = -(-n_kt // n_parts)
+    n = n_kt
+    if causal:
+        n = min(n, (min((qt + 1) * BWD_F32_DQ_ROWS, tq) - 1 + tk - tq) // BWD_F32_DQ_KEYS + 1)
+    j0 = part * per
+    return j0, min(j0 + per, n)
+
+
+def bwd_f32_dkv_first_chunk(tq, tk, k0, causal):
+    """The first 32-row chunk the split form's dK/dV item of keys [k0, k0 +
+    128) walks (to the last): 0, or (causal) the chunk of the first row
+    that sees key k0."""
+    return max(k0 - (tk - tq), 0) // BWD_F32_DKV_ROWS if causal else 0
 
 
 @lru_cache(maxsize=256)
@@ -412,10 +447,11 @@ def _bwd_f32_plan(q_layout, k_layout, v_layout, o_layout, do_layout, lse_layout,
     strides): (B, Tq, Tk, H, the fp32 scratch length) and the int64 array
     (B, Tq, Tk, H, causal, then the batch, token and head element strides
     of q, k, v, dO and O, `_f32_strides`, then 1 for the causal cluster
-    form, `bwd_f32_cluster`). Scratch, the split form's only: the
-    pre-pass's padded LSE and D rows (B*H, Tq padded to BWD_F32_TILE
-    each). Checked once per set of layouts (the addresses are checked per
-    call)."""
+    form, `bwd_f32_cluster`, then the split form's dQ key parts,
+    `bwd_f32_dq_parts`). Scratch, the split form's only: the pre-pass's
+    padded LSE and D rows (B*H, Tq padded to BWD_F32_DQ_ROWS each), then,
+    with more than one part, each part's dQ. Checked once per set of
+    layouts (the addresses are checked per call)."""
     b, tq, tk, h = _shapes(q_layout[0], k_layout[0], v_layout[0])
     if o_layout[0] != q_layout[0] or do_layout[0] != q_layout[0]:
         raise ValueError(f"K5: o {tuple(o_layout[0])} and do {tuple(do_layout[0])} must "
@@ -428,9 +464,13 @@ def _bwd_f32_plan(q_layout, k_layout, v_layout, o_layout, do_layout, lse_layout,
     strides = [s for shape, stride in (q_layout, k_layout, v_layout, do_layout, o_layout)
                for s in _f32_strides(shape, stride, "K5's fp32 form")]
     cluster = bwd_f32_cluster(tq, tk, causal) > 0
-    scratch = 0 if cluster else 2 * b * h * -(-tq // BWD_F32_TILE) * BWD_F32_TILE
-    return (b, tq, tk, h, scratch), (ctypes.c_longlong * 21)(b, tq, tk, h, int(causal), *strides,
-                                                             int(cluster))
+    parts = 0 if cluster else bwd_f32_dq_parts(b, tq, tk, h)
+    scratch = 0
+    if not cluster:
+        scratch = 2 * b * h * -(-tq // BWD_F32_DQ_ROWS) * BWD_F32_DQ_ROWS
+        scratch += b * tq * h * 64 * parts if parts > 1 else 0
+    return (b, tq, tk, h, scratch), (ctypes.c_longlong * 22)(b, tq, tk, h, int(causal), *strides,
+                                                             int(cluster), parts)
 
 
 def _flash_fwd_sm90(q, k, v, causal, no_max=False):
@@ -762,7 +802,7 @@ def _flash_bwd_sm90(q, k, v, o, lse, do, causal):
     outputs and scratch allocated, one C call: the bf16 form (three
     launches, two where dQ is direct) or, for fp32 q, k, v, o and do, the
     fp32 one (one launch for a causal call of at most 8 key tiles, else
-    three)."""
+    three, or four with dQ key parts)."""
     f32 = q.dtype == k.dtype == v.dtype == o.dtype == do.dtype == torch.float32
     if not ((f32 or q.dtype == k.dtype == v.dtype == o.dtype == do.dtype == torch.bfloat16)
             and lse.dtype == torch.float32):

@@ -1,5 +1,6 @@
-"""Device time of K2's self-attention and cross calls, K1/K4's fp32 forms
-and K5's fp32 backward at the shapes of the path that runs them, alone on
+"""Device time of K2's self-attention and cross calls, K1/K4's fp32 forms,
+K5's fp32 backward and K7's fp32 form at the shapes of the path that runs
+them, alone on
 the card, so two trees of the
 repository can be timed in turns (one process each, alternating which
 runs first) on one card: run it from two `git archive` checkouts, copying
@@ -19,6 +20,8 @@ Rows (chip_smoke.py's phase 3 shapes; large-v3's 20 heads of 64):
   T=1500), its no-max form (KWT_FA_NOMAX), the fp32 training decoder's
   cross-attention (Tq=128, Tk=1500, B=8), and K4's fp32 form (causal, B=8,
   T=128).
+- K7 fp32: the fp32 conv stem at phase 4k(f)'s shape, (16, 128, 3000) ->
+  (16, 1500, 1280), large-v3's convs.
 - K2 cross: K2's cross call (B=16 rows over T=1500, every slot valid)
   on the int4 cache (packed int4, bf16 per-head scales) at 20 heads and a
   TP=2 rank's 10, with fp32 q (an fp32 model's int4 cache), and beside
@@ -35,6 +38,11 @@ card's name and power limit.
 at T=64 (one key tile, no cluster partner) and 256, 8 x 20: how its time
 splits between one cluster's latency and the card's throughput.
 
+A row whose call launches more than one kernel (K5 fp32 cross and K7
+fp32, for instance) also records kernels_ms: the device ms a call spends
+in each of its kernels (torch.profiler's CUDA kernel times over 20 calls;
+a CUDA graph hides them).
+
 Usage: python -m kotoba_whisper_tpu_torch.tools.kernel_time [--reps 3] [--k5-sweep]
 """
 from __future__ import annotations
@@ -48,12 +56,14 @@ import torch
 
 from kotoba_whisper_tpu_torch.core.device import resolve_device
 from kotoba_whisper_tpu_torch.models import whisper
+from kotoba_whisper_tpu_torch.ops import conv_stem as cs
 from kotoba_whisper_tpu_torch.ops import decode_attention as da
 from kotoba_whisper_tpu_torch.ops import flash_attention as fa
 
 HEADS, SELF_ROWS, SELF_T = 20, 16, 51  # phase 4: B=16, prompt 3 + 48 tokens
 TRAIN_B, LABELS, T_ENC = 8, 128, 1500   # phase 4b
 ENC_B = 16                              # phase 4k(a)'s fp32 encoder batch
+N_MELS, D_MODEL = 128, 1280             # large-v3's stem
 
 
 def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
@@ -85,6 +95,48 @@ def host_us(fn, calls: int = 200) -> float:
     us = (time.perf_counter() - t0) / calls * 1e6
     torch.cuda.synchronize()
     return us
+
+
+def short_kernel_name(name: str) -> str:
+    """A profiler's kernel name without its return type, namespaces and
+    parameter list: "void (anonymous namespace)::f<true>(float*, int)" ->
+    "f<true>"."""
+    s = name.replace("(anonymous namespace)::", "")
+    depth, head = 0, s
+    for i, ch in enumerate(s):
+        depth += (ch == "<") - (ch == ">")
+        if ch == "(" and depth == 0:
+            head = s[:i]
+            break
+    head = head.strip()
+    depth, start = 0, 0
+    for i, ch in enumerate(head):
+        depth += (ch == "<") - (ch == ">")
+        if depth == 0 and ch in " :":
+            start = i + 1
+    return head[start:]
+
+
+def kernel_split(fn, iters: int = 20) -> dict:
+    """Device ms of one fn() in each kernel it launches, from
+    torch.profiler's CUDA kernel times over `iters` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if us > 0:
+            key = short_kernel_name(e.key)
+            out[key] = out.get(key, 0.0) + us / iters / 1e3
+    return out
 
 
 def _randn(*shape, seed, dtype=torch.bfloat16):
@@ -155,6 +207,20 @@ def _k1_f32_rows():
     return rows
 
 
+def _k7_f32_rows():
+    """K7's fp32 form at phase 4k(f)'s shape -> {name: call}."""
+    f32 = torch.float32
+    conv1 = torch.nn.Conv1d(N_MELS, D_MODEL, 3, padding=1, device="cuda")
+    conv2 = torch.nn.Conv1d(D_MODEL, D_MODEL, 3, stride=2, padding=1, device="cuda")
+    x = _randn(ENC_B, N_MELS, 2 * T_ENC, seed=90, dtype=f32)
+
+    def call():
+        with torch.no_grad():
+            return cs.conv_stem(conv1, conv2, x)
+
+    return {"k7_f32": call}
+
+
 def _k2_cross_rows():
     """K2's cross call on each cache -> {name: call}."""
     rows = {}
@@ -198,9 +264,17 @@ def k5_sweep() -> dict:
 
 
 def measure(reps: int) -> dict:
-    rows = {**_self_rows(), **_k2_cross_rows(), **_k1_f32_rows(), **_k5_rows()}
-    return {name: {"device_ms": [graph_ms(call) for _ in range(reps)], "host_us": host_us(call)}
-            for name, call in rows.items()}
+    makers = (_self_rows, _k2_cross_rows, _k1_f32_rows, _k5_rows, _k7_f32_rows)
+    rows = {}
+    for make in makers:
+        rows.update(make())
+    rec = {name: {"device_ms": [graph_ms(call) for _ in range(reps)], "host_us": host_us(call)}
+           for name, call in rows.items()}
+    for name, call in rows.items():
+        kernels = kernel_split(call)
+        if len(kernels) > 1:
+            rec[name]["kernels_ms"] = kernels
+    return rec
 
 
 def main(argv=None) -> dict:
@@ -211,7 +285,8 @@ def main(argv=None) -> dict:
                     help="also time K5's fp32 causal form over batch, heads and T")
     args = ap.parse_args(argv)
     resolve_device("cuda")
-    rec = {"rows": measure(args.reps), "device": torch.cuda.get_device_name(0)}
+    rec = {"rows": measure(args.reps),
+           "device": torch.cuda.get_device_name(0)}
     if args.k5_sweep:
         rec["k5_f32_causal_sweep"] = k5_sweep()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -205,6 +205,12 @@ def _k5_f32(c):
     fa.flash_attention_bwd(q, q, q, q, on_card(torch.zeros(1, 2, 64)), q, causal=True)
 
 
+def _k5_f32_split(c):
+    q = _bf16(1, 70, 2, 64, dtype=torch.float32)
+    kv = _bf16(1, 300, 2, 64, dtype=torch.float32)
+    fa.flash_attention_bwd(q, kv, kv, q, on_card(torch.zeros(1, 2, 70)), q, causal=False)
+
+
 def _k8_f32(c):
     q = _bf16(1, 64, 2, 64, dtype=torch.float32)
     fa.flash_attention_int8(q, q, q, mode="qkpv")
@@ -291,6 +297,7 @@ WRAPPERS = {
     "K6 add": (_k6_add, "kwt_layer_norm"),
     "K7": (_k7, "kwt_conv_stem"),
     "K5 fp32": (_k5_f32, "kwt_flash_attention_bwd_f32"),
+    "K5 fp32 split": (_k5_f32_split, "kwt_flash_attention_bwd_f32"),
     "K8 fp32": (_k8_f32, "kwt_flash_attention_int8"),
     "K6 fp32": (_k6_f32, "kwt_layer_norm"),
     "K6 add fp32": (_k6_add_f32, "kwt_layer_norm"),

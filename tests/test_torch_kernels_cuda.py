@@ -1540,19 +1540,32 @@ def _k5_f32_inputs(b, tq, tk, h, seed):
 
 @pytest.mark.parametrize("b, tq, tk, h, causal", [
     (8, 128, 128, 20, True),     # training self-attention shape
-    (8, 128, 1500, 20, False),   # training cross-attention shape
+    (8, 128, 1500, 20, False),   # training cross-attention shape (the split form, 3 dQ parts)
     (2, 130, 130, 3, True),      # causal, ragged T
     (1, 70, 1500, 3, False),     # cross, ragged Tq and Tk
     (2, 65, 300, 2, True),       # causal, Tq < Tk (end-aligned)
     (1, 3, 3, 1, True),          # tiny (one key alone gives dQ = dK = 0 exactly)
+    (1, 1, 1501, 2, False),      # one query row, Tk past a 32-key tile
+    (1, 600, 600, 2, True),      # causal past 8 key tiles: the split form
+    (2, 513, 513, 3, True),      # the same, ragged
+    (16, 130, 1500, 20, False),  # two 128-row tiles, one key part
+    (1, 1500, 1500, 2, False),   # encoder self-attention trained in fp32: 47 dK/dV chunks
+    (8, 448, 1500, 20, False),   # the cross call at the decoder's 448 positions: 14 chunks
+    (1, 1500, 1500, 2, True),    # causal at the encoder's length: the split form
 ])
 def test_flash_attention_backward_f32_kernel(b, tq, tk, h, causal):
+    """K5's fp32 form (the split form's 3xTF32 wgmma kernels for the cross
+    call and causal calls past 8 key tiles, the cluster form for the rest)
+    within relative L2 1e-5 of the twin; two calls equal bit for bit (no
+    atomics)."""
     q, k, v, do = _k5_f32_inputs(b, tq, tk, h, seed=230)
     o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
     before = fa.flash_attention_bwd.launches
     got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
     torch.cuda.synchronize()
-    assert fa.flash_attention_bwd.launches == before + 1
+    assert fa.flash_attention_bwd.launches == before + 2
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
     ref = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, causal=causal)
     for name, g, r in zip(("dq", "dk", "dv"), got, ref):
         _assert_fp32_grad(g, r, name)
@@ -1599,15 +1612,16 @@ def test_flash_attention_backward_f32_causal_form(b, tq, tk, h):
         assert control >= 1e-2, f"control relative L2 {control:.3e}"
 
 
-@pytest.mark.parametrize("causal", [True, False])
-def test_flash_attention_backward_f32_reads_fused_projections_in_place(causal):
-    """fp32 q, k and v as column blocks of a fused qkv (causal) or of a q
-    and a fused kv (cross) projection, at their strides: equal to K5 on
-    copies (no atomics: bit for bit) and to the twin."""
+@pytest.mark.parametrize("causal, t", [(True, 130), (False, 128), (True, 600)])
+def test_flash_attention_backward_f32_reads_fused_projections_in_place(causal, t):
+    """fp32 q, k and v as column blocks of a fused qkv (causal: T=130 on
+    the cluster form, T=600 on the split form) or of a q and a fused kv
+    (cross, 128 x 1500: the split form) projection, at their strides: equal
+    to K5 on copies (no atomics: bit for bit) and to the twin."""
     b, h = 2, 4
     f32 = torch.float32
     if causal:
-        tq = tk = 130
+        tq = tk = t
         q, k, v = (x.reshape(b, tq, h, 64)
                    for x in _randn(b, tq, 3 * h * 64, seed=240, dtype=f32).chunk(3, -1))
     else:
@@ -1690,20 +1704,24 @@ def test_layer_norm_f32_kernel(shape, w_dtype):
     _assert_fp32(out, ln.add_layer_norm_reference(x, y, w, bias)[1])
 
 
-@pytest.mark.parametrize("b, t, n_mels, d", [(2, 3000, 128, 1280), (1, 256, 80, 64),
-                                             (3, 130, 20, 36)])
+@pytest.mark.parametrize("b, t, n_mels, d", [(16, 3000, 128, 1280), (2, 3000, 128, 1280),
+                                             (1, 256, 80, 64), (3, 130, 20, 36),
+                                             (1, 262, 72, 132)])
 def test_conv_stem_f32_kernel(b, t, n_mels, d):
-    """K7's fp32 form against the twin (fp32 sums in another order, erff
-    against torch.erf), ragged row and column tiles, tiles across batch
-    elements."""
+    """K7's fp32 form (3xTF32 wgmma) against the twin at the path's full
+    shape (16 x 3000 -> 1500 x 1280) and at ragged row and column tiles and
+    K steps past C (fp32 sums in another order, erff against torch.erf);
+    two calls equal bit for bit (no atomics)."""
     conv1 = torch.nn.Conv1d(n_mels, d, 3, padding=1, device="cuda")
     conv2 = torch.nn.Conv1d(d, d, 3, stride=2, padding=1, device="cuda")
     x = _randn(b, n_mels, t, seed=257, dtype=torch.float32)
     before = cs.conv_stem.launches
     with torch.no_grad():
         got = cs.conv_stem(conv1, conv2, x)
+        again = cs.conv_stem(conv1, conv2, x)
         torch.cuda.synchronize()
-        assert cs.conv_stem.launches == before + 1 and got.shape == (b, t // 2, d)
+        assert cs.conv_stem.launches == before + 2 and got.shape == (b, t // 2, d)
+        assert torch.equal(got, again)
         _assert_fp32(got, cs.conv_stem_reference(conv1.weight, conv1.bias, conv2.weight,
                                                  conv2.bias, x))
 

@@ -11,6 +11,11 @@ against the kernel's rational erf); the tap-major weights are the JAX
 wrapper's `vv01` and `v[2]` layouts; the tile order covers every (batch
 element, row tile, column tile) once and no tile crosses a batch element;
 the cached tap-major copy is rebuilt after an in-place weight update.
+K7's fp32 form (csrc/conv_stem_f32.cu): its walk (3xTF32 products of the
+`split_tf32` operands, each 32-channel K step summed apart and added in
+fp32) equals the Pallas stem in interpret mode to relative L2 1e-6 where
+TF32 products alone read more than 1e-5 away; its tiles cover every output
+once; the split weights are exact (hi + lo == w) and cached.
 
 K6 (ops/layer_norm.py `row_schedule`): the persistent grid's warps,
 striding over rows, normalise every row exactly once for ragged row counts
@@ -123,12 +128,16 @@ def _bf16_values(a):
     return torch.from_numpy(a).to(torch.bfloat16).float().numpy()
 
 
-def _convs(seed, c_in, d):
+def _convs(seed, c_in, d, f32=False):
+    """The two convs from a seed, and the JAX package's params of them:
+    bf16 values (what the bf16 K7 takes), or with f32 fp32 values as drawn
+    (whose TF32 splits leave residuals)."""
     rng = np.random.default_rng(seed)
+    rnd = (lambda a: a) if f32 else _bf16_values
     # JAX layout: (3, C_in, C_out)
-    k1 = _bf16_values(rng.standard_normal((3, c_in, d)).astype(np.float32) * 0.1)
-    k2 = _bf16_values(rng.standard_normal((3, d, d)).astype(np.float32) * 0.1)
-    b1, b2 = _bf16_values(rng.standard_normal((2, d)).astype(np.float32) * 0.1)
+    k1 = rnd(rng.standard_normal((3, c_in, d)).astype(np.float32) * 0.1)
+    k2 = rnd(rng.standard_normal((3, d, d)).astype(np.float32) * 0.1)
+    b1, b2 = rnd(rng.standard_normal((2, d)).astype(np.float32) * 0.1)
     conv1 = torch.nn.Conv1d(c_in, d, 3, padding=1)
     conv2 = torch.nn.Conv1d(d, d, 3, stride=2, padding=1)
     with torch.no_grad():
@@ -156,87 +165,167 @@ def test_kernel_walk_matches_the_pallas_stem(b, t, c_in, d):
     np.testing.assert_allclose(got, ref, atol=1e-5, rtol=1e-5)
 
 
-def _stem_f32_as_the_kernel_walks_it(x, conv1, conv2):
-    """fp64 emulation of K7's fp32 form: per conv, the 128 x 128 output
-    tiles of `stem_f32_grids` over the flattened (batch, frame) rows, K
-    steps of 16 channels of one tap (taps outer, channels past C_in zero),
-    each A element at the kernel's own index arithmetic (row m is frame
-    m % t_out of batch element m // t_out, read at input frame stride * i
-    + tap - 1, zero outside [0, T)), the fp32 tap-major weights of
-    `tap_major_weights`, bias and exact-erf GELU."""
+def _tf32_np(a, nearest=True):
+    """fp32 as TF32 (10 mantissa bits): rounded to nearest, ties away from
+    zero (the kernel's high part), or truncated (what the tensor core reads
+    of a residual's bits)."""
+    bits = np.ascontiguousarray(a, np.float32).view(np.int32)
+    return ((bits + 0x1000 if nearest else bits) & -8192).view(np.float32).astype(np.float64)
+
+
+def _mm3(a, w):
+    """a @ w.T as the fp32 form's tensor cores take it: each fp32 operand a
+    TF32 high part and its residual (`split_tf32`, the residual's low 13
+    bits dropped), a_lo w_hi + a_hi w_lo + a_hi w_hi (a_lo w_lo dropped),
+    exact products summed in fp64."""
+    ah, wh = (_tf32_np(v) for v in (a, w))
+    al = _tf32_np((a.astype(np.float32) - ah).astype(np.float32), False)
+    wl = _tf32_np((w.astype(np.float32) - wh).astype(np.float32), False)
+    return al @ wh.T + ah @ wl.T + ah @ wh.T
+
+
+def _stem_f32_as_the_kernel_walks_it(x, conv1, conv2, product=_mm3):
+    """K7's fp32 form in its order: per conv the work items of `stem_tile`
+    with F32_TILE_N-column tiles (128 rows of one batch element), K steps of
+    F32_TILE_K channels of one tap over rows read through `tap_coords` (zero
+    outside [0, T) and past C), the fp32 tap-major weights of
+    `tap_major_weights`, each step's products (`product`: 3xTF32) in a sum of
+    its own rounded to fp32 and added to the tile's fp32 sum, then bias and
+    exact-erf GELU in fp32; y1 kept in fp32 between the convs (the kernel
+    stores its high parts and residuals, whose sum it is); rows past T and
+    channels past d never stored."""
     b, c_in, t = x.shape
-    w1p, b1, w2p, b2 = (p.double().numpy() for p in cs.tap_major_weights(
+    w1h, w1l, b1, w2h, w2l, b2 = (p.numpy() for p in cs.tap_major_weights(
         conv1.weight, conv1.bias, conv2.weight, conv2.bias, torch.float32))
+    w1p, w2p = w1h + w1l, w2h + w2l  # the weights, exactly: `_mm3` splits them again
     d = w1p.shape[0]
-    src = x.double().numpy()                                     # (B, C, T): element (b, c, t)
-    grids = cs.stem_f32_grids(b, t, d)
-    for stride, w, bias, (n_nt, n_mt), read in (
-            (1, w1p, b1, grids[0], lambda a, bb, tt, cc: a[bb, cc, tt]),
-            (2, w2p, b2, grids[1], lambda a, bb, tt, cc: a[bb, tt, cc])):
-        c = src.shape[1] if stride == 1 else src.shape[2]
-        t_out = t // stride
-        out = np.full((b * t_out, d), np.nan)
-        for mt in range(n_mt):
-            m = np.arange(mt * cs.F32_TILE_M, (mt + 1) * cs.F32_TILE_M)[:, None]
-            bb, i = m // t_out, m % t_out
-            for nt in range(n_nt):
-                n = np.arange(nt * cs.F32_TILE_N, (nt + 1) * cs.F32_TILE_N)
-                acc = np.zeros((cs.F32_TILE_M, cs.F32_TILE_N))
-                for tap in range(3):
-                    tt = stride * i + tap - 1
-                    for c0 in range(0, c, 16):
-                        cc = np.arange(c0, c0 + 16)[None, :]
-                        ok = (m < b * t_out) & (cc < c) & (tt >= 0) & (tt < t)
-                        a = np.where(ok, read(src, np.where(ok, bb, 0), np.where(ok, tt, 0),
-                                              np.where(ok, cc, 0)), 0.0)
-                        wok = (n[None, :] < d) & (cc.T < c)
-                        wt = np.where(wok, w[np.minimum(n, d - 1)][:, tap][:, np.minimum(
-                            cc[0], c - 1)].T, 0.0)
-                        acc += a @ wt
-                rows, cols = m[m < b * t_out], n[n < d]
-                out[rows[:, None], cols[None, :]] = _gelu(
-                    acc[:len(rows), :len(cols)] + bias[cols])
+    plan = list(cs.stem_plan(b, t, c_in, d, cs.F32_TILE_N))
+    assert plan[:4] == [b, t, c_in, d]
+    tm, tn, tk = cs.TILE_M, cs.F32_TILE_N, cs.F32_TILE_K
+    a = x.numpy().transpose(0, 2, 1)
+    for stride, w, bias, n_mt in ((1, w1p, b1, plan[4]), (2, w2p, b2, plan[5])):
+        t_out, c = t // stride, a.shape[2]
+        out = np.full((b, t_out, d), np.nan, np.float32)
+        n_nt = plan[6]
+        for wi in range(b * n_mt * n_nt):
+            bb, m0, n0 = cs.stem_tile(wi, n_mt, n_nt, tn)
+            rows = np.arange(m0, m0 + tm)
+            acc = np.zeros((tm, tn), np.float32)
+            for tap in range(3):
+                tile_a = _read_rows(a[bb], stride, tap, rows)
+                for c0 in range(0, c, tk):
+                    wt = np.zeros((tn, tk), np.float32)
+                    blk = w[n0:n0 + tn, tap, c0:c0 + tk]
+                    wt[:blk.shape[0], :blk.shape[1]] = blk
+                    at = np.zeros((tm, tk), np.float32)
+                    part = tile_a[:, c0:c0 + tk]
+                    at[:, :part.shape[1]] = part
+                    acc += product(at, wt).astype(np.float32)
+            keep_r, keep_c = min(tm, t_out - m0), min(tn, d - n0)
+            pre = acc[:keep_r, :keep_c] + bias[n0:n0 + keep_c]
+            out[bb, m0:m0 + keep_r, n0:n0 + keep_c] = _gelu(pre.astype(np.float64))
         assert not np.isnan(out).any()
-        src = out.reshape(b, t_out, d)
-    return src
+        a = out
+    return a
+
+
+def _rel_l2(a, r):
+    return float(np.linalg.norm(np.asarray(a, np.float64) - r) / np.linalg.norm(r))
 
 
 @pytest.mark.parametrize("b, t, c_in, d", [(2, 256, 80, 64), (3, 130, 20, 36), (1, 262, 72, 132)])
 def test_f32_walk_matches_the_twin_and_the_pallas_stem(b, t, c_in, d):
-    """K7's fp32 form in its order, fp64, against the plain twin in fp32
-    (1e-5) and the JAX package's Pallas stem in interpret mode on fp32
-    inputs (1e-5: its rational erf is within 1.5e-7), with row tiles across
-    batch elements, ragged row and column tiles and K steps past C."""
-    conv1, conv2, (j1, j2) = _convs(b * t + d, c_in, d)
+    """K7's fp32 form in its order (3xTF32 step sums added in fp32) against
+    the JAX package's Pallas stem in interpret mode on fp32 inputs and the
+    plain twin: relative L2 <= 1e-6 and elementwise 1e-5 (the Pallas
+    stem's rational erf is within 1.5e-7), with ragged row tiles, ragged
+    column tiles (d < 128, d = 132) and K steps past C; the TF32 products
+    alone (no residual terms) read more than 1e-5 away."""
+    conv1, conv2, (j1, j2) = _convs(b * t + d, c_in, d, f32=True)
     x = (np.random.default_rng(t).standard_normal((b, c_in, t)) * 0.3).astype(np.float32)
     with torch.no_grad():
         got = _stem_f32_as_the_kernel_walks_it(torch.from_numpy(x), conv1, conv2)
+        one = _stem_f32_as_the_kernel_walks_it(
+            torch.from_numpy(x), conv1, conv2, product=lambda a, w: _tf32_np(a) @ _tf32_np(w).T)
         twin = cs.conv_stem_reference(conv1.weight, conv1.bias, conv2.weight, conv2.bias,
-                                      torch.from_numpy(x))
-    assert got.shape == twin.shape == (b, t // 2, d)
-    np.testing.assert_allclose(got, twin.numpy(), atol=1e-5, rtol=1e-5)
+                                      torch.from_numpy(x)).numpy()
     ref = np.asarray(conv_stem_pallas(j1, j2, jnp.asarray(x), interpret=True))
+    assert got.shape == twin.shape == ref.shape == (b, t // 2, d)
+    np.testing.assert_allclose(got, twin, atol=1e-5, rtol=1e-5)
     np.testing.assert_allclose(got, ref, atol=1e-5, rtol=1e-5)
+    assert _rel_l2(got, ref) <= 1e-6 and _rel_l2(got, twin) <= 1e-6
+    assert _rel_l2(one, ref) > 1e-5
 
 
 @pytest.mark.parametrize("b, t, d", [(16, 3000, 1280), (1, 2, 8), (3, 130, 36)])
 def test_f32_grids_cover_every_tile(b, t, d):
-    """conv1's and conv2's grids cover every flattened (batch, frame) row
-    and every channel, with no tile wholly past either."""
-    for (n_nt, n_mt), rows in zip(cs.stem_f32_grids(b, t, d), (b * t, b * (t // 2))):
-        assert (n_mt - 1) * cs.F32_TILE_M < rows <= n_mt * cs.F32_TILE_M
-        assert (n_nt - 1) * cs.F32_TILE_N < d <= n_nt * cs.F32_TILE_N
+    """The fp32 form's work items (`stem_plan` with F32_TILE_N columns,
+    `stem_tile`) cover every (batch element, row, channel) of conv1 and
+    conv2 once, no tile crosses a batch element or lies wholly past T or d,
+    and the column tiles of one row tile are consecutive items."""
+    plan = list(cs.stem_plan(b, t, 128, d, cs.F32_TILE_N))
+    tn = cs.F32_TILE_N
+    for t_out, n_mt in ((t, plan[4]), (t // 2, plan[5])):
+        n_nt = plan[6]
+        assert (n_mt, n_nt) == cs.stem_tiles(t_out, d, tn)
+        tiles = [cs.stem_tile(w, n_mt, n_nt, tn) for w in range(b * n_mt * n_nt)]
+        covered = np.zeros((b, t_out, d), np.int64)
+        for bb, m0, n0 in tiles:
+            assert 0 <= m0 < t_out and 0 <= n0 < d
+            covered[bb, m0:m0 + cs.TILE_M, n0:n0 + tn] += 1
+        assert (covered == 1).all()
+        assert all(tiles[w][:2] == tiles[w - w % n_nt][:2] for w in range(len(tiles)))
+
+
+def test_split_tf32_is_exact_and_cached_with_the_weights():
+    """`split_tf32`: hi + lo == w exactly, hi's low 13 bits are 0 and hi is
+    w rounded to nearest (|lo| <= half a TF32 ulp of hi); the fp32 form's
+    split tap-major copies are cached and rebuilt after an in-place update
+    of a weight."""
+    conv1, conv2, _ = _convs(12, 16, 24, f32=True)
+    ws = (conv1.weight, conv1.bias, conv2.weight, conv2.bias)
+    w1h, w1l, b1, w2h, w2l, b2 = cs.tap_major_weights(*ws, torch.float32)
+    for hi, lo, conv in ((w1h, w1l, conv1), (w2h, w2l, conv2)):
+        assert hi.dtype == lo.dtype == torch.float32
+        assert torch.equal(hi + lo, conv.weight.detach().permute(0, 2, 1))
+        assert not (hi.view(torch.int32) & 0x1FFF).any()
+        assert bool((lo.abs() <= hi.abs() * 2.0**-11).all())
+        assert bool((lo != 0).any())
+    assert torch.equal(b1, conv1.bias.detach()) and torch.equal(b2, conv2.bias.detach())
+    again = cs.tap_major_weights(*ws, torch.float32)
+    assert again[0] is w1h and again[4] is w2l
+    with torch.no_grad():
+        conv2.weight.mul_(3.0)
+    rebuilt = cs.tap_major_weights(*ws, torch.float32)
+    assert rebuilt[3] is not w2h
+    assert torch.equal(rebuilt[3] + rebuilt[4], conv2.weight.detach().permute(0, 2, 1))
+    x = torch.tensor([1.0, 1.0 + 2.0**-11, -(1.0 + 3 * 2.0**-12), 3.0e-5])
+    hi, lo = cs.split_tf32(x)
+    assert hi.tolist() == [1.0, 1.0 + 2.0**-10, -(1.0 + 2.0**-10), float(_tf32_np(x[3:].numpy())[0])]
+    assert torch.equal(hi + lo, x)
+
+
+@pytest.mark.parametrize("c_in, d", [(22, 64), (80, 62)])
+def test_f32_form_refuses_rows_its_tensor_maps_cannot_read(c_in, d):
+    """The fp32 form's TMA maps take 16-byte rows: n_mels and d multiples
+    of 4, checked before the device is looked at."""
+    conv1, conv2, _ = _convs(5, c_in, d, f32=True)
+    x = torch.zeros(1, c_in, 16)
+    with pytest.raises(ValueError, match="% 4 == 0"):
+        cs._conv_stem_f32(conv1.weight, conv1.bias, conv2.weight, conv2.bias, x)
 
 
 def test_tap_major_weights_in_fp32_are_cached_apart():
-    """The fp32 form's tap-major copies are fp32 (the weights as they are,
-    no bf16 rounding), cached apart from the bf16 ones."""
+    """The fp32 form's tap-major copies are fp32 and split (high parts and
+    residuals of the weights as they are, no bf16 rounding), cached apart
+    from the bf16 ones."""
     conv1, conv2, _ = _convs(3, 16, 24)
     ws = (conv1.weight, conv1.bias, conv2.weight, conv2.bias)
     f32 = cs.tap_major_weights(*ws, torch.float32)
     bf = cs.tap_major_weights(*ws)
+    assert len(f32) == 6 and len(bf) == 4
     assert f32[0].dtype == torch.float32 and bf[0].dtype == torch.bfloat16
-    assert torch.equal(f32[0], conv1.weight.detach().permute(0, 2, 1))
+    assert torch.equal(f32[0] + f32[1], conv1.weight.detach().permute(0, 2, 1))
     assert cs.tap_major_weights(*ws, torch.float32)[0] is f32[0]
 
 

@@ -116,19 +116,54 @@ def test_timing_tools_raise_without_a_card(monkeypatch, tool, argv):
         tool.main(argv)
 
 
-def test_kernel_time_times_every_row(monkeypatch):
-    """One run times every row group (K2's self and cross calls, K1/K4
-    fp32, K5 fp32), each `reps` times; the rows' names are the ones two
-    trees' records are compared by."""
-    groups = {"_self_rows": ["self_int8"],
-              "_k2_cross_rows": ["k2_int4", "k2_int4_d640", "k2_int4_f32q", "k2_int8",
-                                 "k2_bf16"],
-              "_k1_f32_rows": ["k1_f32", "k1_f32_nomax", "k1_f32_cross", "k4_f32"],
-              "_k5_rows": ["k5_f32_causal"]}
-    for fn, names in groups.items():
+_KERNEL_TIME_GROUPS = {
+    "_self_rows": ["self_int8"],
+    "_k2_cross_rows": ["k2_int4", "k2_int4_d640", "k2_int4_f32q", "k2_int8", "k2_bf16"],
+    "_k1_f32_rows": ["k1_f32", "k1_f32_nomax", "k1_f32_cross", "k4_f32"],
+    "_k5_rows": ["k5_f32_causal", "k5_f32_cross"],
+    "_k7_f32_rows": ["k7_f32"]}
+
+
+def _stub_kernel_time(monkeypatch):
+    for fn, names in _KERNEL_TIME_GROUPS.items():
         monkeypatch.setattr(kernel_time, fn, lambda names=names: {n: None for n in names})
     monkeypatch.setattr(kernel_time, "graph_ms", lambda call: 0.0)
     monkeypatch.setattr(kernel_time, "host_us", lambda call: 0.0)
+    monkeypatch.setattr(kernel_time, "kernel_split", lambda call: {})
+
+
+def test_kernel_time_times_every_row(monkeypatch):
+    """One run times every row group (K2's self and cross calls, K1/K4
+    fp32, K5 fp32, K7 fp32), each `reps` times; the rows' names are the
+    ones two trees' records are compared by."""
+    _stub_kernel_time(monkeypatch)
     rec = kernel_time.measure(2)
-    assert list(rec) == [n for names in groups.values() for n in names]
+    assert list(rec) == [n for names in _KERNEL_TIME_GROUPS.values() for n in names]
     assert all(len(r["device_ms"]) == 2 for r in rec.values())
+
+
+@pytest.mark.parametrize("name, short", [
+    ("void (anonymous namespace)::bwd_tc_dq_kernel<false>(float const*, int, Layout)",
+     "bwd_tc_dq_kernel<false>"),
+    ("fmha_cutlassB_f32_aligned_64x64_k64_sm80(PyTorchMemEffAttention::AttentionBackwardKernel"
+     "<cutlass::arch::Sm80, float, true>::Params)", "fmha_cutlassB_f32_aligned_64x64_k64_sm80"),
+    ("void at::native::vectorized_elementwise_kernel<4, at::native::FillFunctor<float> >(int)",
+     "vectorized_elementwise_kernel<4, at::native::FillFunctor<float> >"),
+    ("Memset (Device)", "Memset"),
+])
+def test_kernel_time_short_kernel_names(name, short):
+    """kernels_ms's kernel names: no return type, namespace or parameters."""
+    assert kernel_time.short_kernel_name(name) == short
+
+
+def test_kernel_time_split_keeps_rows_of_several_kernels(monkeypatch):
+    """Every run adds each row's device ms by kernel where a call launches
+    more than one, and nothing where it launches one."""
+    _stub_kernel_time(monkeypatch)
+    names = [n for group in _KERNEL_TIME_GROUPS.values() for n in group]
+    splits = {"k5_f32_cross": {"a": 0.1, "b": 0.2}, "k7_f32": {"c": 1.0}}
+    calls = iter(names)
+    monkeypatch.setattr(kernel_time, "kernel_split", lambda call: splits.get(next(calls), {}))
+    rec = kernel_time.measure(1)
+    assert rec["k5_f32_cross"]["kernels_ms"] == {"a": 0.1, "b": 0.2}
+    assert [n for n in names if "kernels_ms" in rec[n]] == ["k5_f32_cross"]
