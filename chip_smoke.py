@@ -1706,13 +1706,34 @@ def main() -> int:
                   exp_s=TRAIN_B * h * n_pairs / exp_rate), "K5f32")
         del q, k, v, do, o, lse, got, ref, cut_q, cut_k, cut_v, pad, qt, kt, vt, sdpa_out, do_t
 
-    # K8 fp32 q (the fp32-q kernel of csrc/flash_attention_int8.cu) at the
-    # encoder's shape, qk and qkpv: its pre-pass bit for bit against the twin
-    # quantizers, O against the twin on their codes; control: the twin with
-    # the first 64 keys dropped
+    # K8 fp32 q (the fp32-q kernel of csrc/flash_attention_int8.cu: s8 wgmma
+    # scores; qk's P V in 3xTF32 wgmma, qkpv's on s8) at the encoder's shape,
+    # qk and qkpv: its pre-pass bit for bit against the twin quantizers, O
+    # against the twin on their codes; control: the twin with the first 64
+    # keys dropped. The bound: qk's S at the int8 rate and its P V as three
+    # TF32 products; qkpv's exponentials. The first design's FFMA bound for
+    # qk's P V is logged beside it, not used.
     q, k, v = (randn(B, t_enc, h, 64, seed=s, dtype=f32) for s in (59, 60, 61))
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     pairs = B * h * t_enc * t_enc
+
+    def k8_f32_bound(pv8, *ts):
+        return bound((4.0 if pv8 else 2.0) * pairs * 64, int8_rate, nbytes(*ts), mem_rate,
+                     exp_s=pairs / exp_rate,
+                     more_s=0 if pv8 else 3 * 2.0 * pairs * 64 / tf32_rate)
+
+    def k8_f32_phases(mode, **kw):
+        """K8 fp32's pre-pass and main kernel apart, device ms each."""
+        pv8 = mode == "qkpv"
+        _, _, scratch = fa._flash_int8_sm90(q, k, v, pv8, **kw)
+        return dict(prepass_device_ms=graph_ms(
+                        lambda: fa._flash_int8_sm90(q, k, v, pv8, phases=1, scratch=scratch, **kw)),
+                    main_device_ms=graph_ms(
+                        lambda: fa._flash_int8_sm90(q, k, v, pv8, phases=2, scratch=scratch, **kw)))
+
+    log(f"[kernel] K8 fp32 qk: the first design's FFMA bound for its P V was "
+        f"{2.0 * pairs * 64 / fp32_rate * 1e3:.4f} ms (S at the int8 rate beside it); the "
+        f"3xTF32 bound is {3 * 2.0 * pairs * 64 / tf32_rate * 1e3:.4f} ms [{card}]")
     for mode in ("qk", "qkpv"):
         pv8 = mode == "qkpv"
 
@@ -1741,10 +1762,7 @@ def main() -> int:
             twin(k[:, 64:], v[:, 64:])[0],
             lambda: fa.flash_attention_int8(q, k, v, mode=mode), twin,
             lambda: F.scaled_dot_product_attention(qt, kt, vt),
-            # s8 QK^T (and P V) at the int8 rate; qk's P V in fp32 on FFMAs
-            bound((4.0 if pv8 else 2.0) * pairs * 64, int8_rate, nbytes(q, k, v, o, lse),
-                  mem_rate, exp_s=pairs / exp_rate,
-                  more_s=0 if pv8 else 2.0 * pairs * 64 / fp32_rate), f"K8{mode}f32")
+            k8_f32_bound(pv8, q, k, v, o, lse), f"K8{mode}f32", **k8_f32_phases(mode))
         del o, lse, ro, rlse
     del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
@@ -1772,12 +1790,12 @@ def main() -> int:
         ro, rlse = twin()
         if float((lse - rlse).abs().max()) > 1e-5 * max(1.0, float(rlse.abs().max())):
             raise AssertionError(f"fp32 {form} LSE disagrees")
+        phases = {}
         if mode:
             name = f"K8 flash_attention_int8 {form} fp32 q (B={B}, T={t_enc}, H={h}, D=64)"
             source = "kotoba_whisper_tpu_torch/csrc/flash_attention_int8.cu"
-            bnd = bound((4.0 if mode == "qkpv" else 2.0) * pairs * 64, int8_rate,
-                        nbytes(q, k, v, o, lse), mem_rate, exp_s=pairs / exp_rate,
-                        more_s=0 if mode == "qkpv" else 2.0 * pairs * 64 / fp32_rate)
+            bnd = k8_f32_bound(mode == "qkpv", q, k, v, o, lse)
+            phases = k8_f32_phases(mode, no_max=True)
         else:
             name = f"K1 flash_attention_fwd {form} fp32 (B={B}, T={t_enc}, H={h}, D=64)"
             source = "kotoba_whisper_tpu_torch/csrc/flash_attention_f32.cu"
@@ -1785,7 +1803,7 @@ def main() -> int:
         f32_record(
             name, source, f"kotoba_whisper_tpu/ops/flash_attention.py:{line}", o, ro,
             twin(k[:, 64:], v[:, 64:])[0], call, twin,
-            lambda: F.scaled_dot_product_attention(qt, kt, vt), bnd, key,
+            lambda: F.scaled_dot_product_attention(qt, kt, vt), bnd, key, **phases,
             **(witness_check(f"{name.split(' (')[0]}", f32, mode, F32_REL_TOL)
                if "no-max" in form else {}))
         del o, lse, ro, rlse

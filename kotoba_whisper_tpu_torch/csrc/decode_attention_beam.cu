@@ -73,18 +73,10 @@
 // output; fp32 K/V, int8 with fp32 row scales, or int4 with bf16 per-head
 // scales) computes the same function with fp32 FFMAs only: mma.sync takes
 // no fp32 operands (TF32 would round q and P to 10 bits), and no product is
-// rounded. The grid and its key shares are the bf16 form's (`beam_plan`). A
-// CTA of four warps walks its share's 64-key tiles through a ring of stages
-// filled by 16-byte cp.asyncs of every thread (the keys' rows of the head,
-// zero past the share) and 4-byte ones of their scales; the tile is read
-// once for all its beams. Warp w takes keys 16w .. 16w + 15 of each tile:
-// a lane pair a key, each lane half the head dims against every beam's q
-// (broadcast from shared memory), the halves summed by one shuffle; then
-// each warp's own online softmax in log2 units over the keys it saw (its
-// running max and sum a beam), P * v_scale through the warp's slice of
-// shared memory, and O += P V with a lane owning two output dims of every
-// beam. The warps' states, and a cluster's key shares, merge as in the
-// bf16 form.
+// rounded. Its grid is its own (`beam_plan` with fp32 q): tiles of at most
+// 8 beams and key shares of 32-key chunks over a cluster, four warps a CTA,
+// each warp reading its chunks' K and V into registers, only the live
+// beams computed (the kernel's comment has the layout).
 #include <type_traits>
 
 #include "card.cuh"
@@ -643,295 +635,352 @@ int launch(int card, const void* q, long q_stride, const void* k, const void* v,
 
 // ---- the fp32 form ---------------------------------------------------------
 
-// The fp32 form's K/V modes: bytes of a head's row of a key, and the copy
-// ring's stages (ops/decode_attention.py BEAM_F32_STAGES).
+constexpr int kF32MaxRows = 8;  // most beams a tile (ops/decode_attention.py BEAM_F32_ROWS)
+constexpr int kF32Chunk = 32;   // keys a warp takes at a time, one a lane (BEAM_F32_CHUNK)
+constexpr int kF32Warps = 4;    // warps a CTA, taking the chunks in turn (BEAM_F32_WARPS)
+constexpr int kF32Threads = 32 * kF32Warps;
+
+// The fp32 form's K/V modes: bytes of a head's row of a key, and the CTAs
+// an SM its registers allow, `__launch_bounds__`'s minimum (168 registers a
+// thread over fp32 K/V, 128 else; ops/decode_attention.py
+// BEAM_F32_CTAS_PER_SM, which sizes the grid's one wave).
 template <typename KV>
 struct F32Mode;
 template <>
 struct F32Mode<float> {
-  static constexpr int kRowBytes = 256, kStages = 3;
+  static constexpr int kRowBytes = 256, kCtasPerSm = 3;
 };
 template <>
 struct F32Mode<int8_t> {
-  static constexpr int kRowBytes = 64, kStages = 6;
+  static constexpr int kRowBytes = 64, kCtasPerSm = 4;
 };
 template <>
 struct F32Mode<Int4> {
-  static constexpr int kRowBytes = 32, kStages = 8;
+  static constexpr int kRowBytes = 32, kCtasPerSm = 4;
 };
 
-// ops/decode_attention.py `beam_f32_smem_bytes` mirrors its size. K rows
-// are padded by 16 bytes so a warp's lanes, a key each, read distinct
-// banks; the warps' O and the CTA's merged state reuse K's ring after it
-// drains.
-template <typename KV>
+// ops/decode_attention.py `beam_smem_bytes` mirrors its size (q_dtype fp32).
 struct __align__(16) F32Smem {
-  static constexpr int kS = F32Mode<KV>::kStages, kRow = F32Mode<KV>::kRowBytes;
-  struct Fin {
-    float o[kConsumerWarps][kRows][kHD];
-    float fo[kRows][kHD];
-    float fm[kRows], fl[kRows];
-  };
-  union {
-    uint8_t k[kS][kKeys][kRow + 16];
-    Fin fin;
-  };
-  uint8_t v[kS][kKeys][kRow];
-  float ks[kS][kKeys], vs[kS][kKeys];  // int4: the 4-byte words holding the bf16s
-  float q[kRows][kHD];
-  float p[kConsumerWarps][kRows][16];
-  float m[kConsumerWarps][kRows], l[kConsumerWarps][kRows];
+  float q[kF32MaxRows][kHD];                   // the tile's beams' q, times log2(e) / 8
+  float p[kF32Warps][kF32MaxRows][kF32Chunk];  // each warp's P * v_scale of its chunk
+  float o[kF32Warps][kF32MaxRows][kHD];        // each warp's O, max and sum
+  float m[kF32Warps][kF32MaxRows], l[kF32Warps][kF32MaxRows];
+  float fo[kF32MaxRows][kHD];  // the CTA's merged O, max and sum (read by the cluster)
+  float fm[kF32MaxRows], fl[kF32MaxRows];
 };
 
-// Dims 2i and 2i + 1 of a key's head row, as floats.
-__device__ __forceinline__ float2 load2(const float* row, int i) {
-  return reinterpret_cast<const float2*>(row)[i];
+// Four dims as floats, exactly (as Chunk widens them): the four bytes of
+// an int8 word, or the low four nibbles of an int4 one.
+__device__ __forceinline__ float4 floats4(uint32_t w, int8_t) {
+  w ^= 0x80808080u;
+  float x[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    x[j] = __int_as_float(__byte_perm(w, 0x4B000000u, 0x7540 + j)) - 8388736.f;
+  return make_float4(x[0], x[1], x[2], x[3]);
 }
-__device__ __forceinline__ float2 load2(const int8_t* row, int i) {
-  const char2 x = reinterpret_cast<const char2*>(row)[i];
-  return make_float2(x.x, x.y);
+__device__ __forceinline__ float4 floats4(uint32_t w, Int4) {
+  w ^= 0x8888u;
+  float x[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) x[j] = __int_as_float(0x4B000000u | (w >> (4 * j) & 0xFu)) - 8388616.f;
+  return make_float4(x[0], x[1], x[2], x[3]);
 }
-__device__ __forceinline__ float2 load2(const Int4* row, int i) {
-  const uint32_t x = reinterpret_cast<const uint8_t*>(row)[i];
-  return make_float2((int)((x & 0xF) ^ 8) - 8, (int)((x >> 4) ^ 8) - 8);
+
+// Dims 4i .. 4i + 3 of a K row held as 32-bit words, as floats.
+__device__ __forceinline__ float4 k_floats(const uint32_t* w, int i, float) {
+  return make_float4(__uint_as_float(w[4 * i]), __uint_as_float(w[4 * i + 1]),
+                     __uint_as_float(w[4 * i + 2]), __uint_as_float(w[4 * i + 3]));
+}
+__device__ __forceinline__ float4 k_floats(const uint32_t* w, int i, int8_t) {
+  return floats4(w[i], int8_t());
+}
+__device__ __forceinline__ float4 k_floats(const uint32_t* w, int i, Int4) {
+  return floats4(w[i >> 1] >> (16 * (i & 1)), Int4());
+}
+
+// Dims 4d .. 4d + 3 of a key's head row as the raw word that holds them
+// (int8: 4 bytes; int4: 2 bytes).
+__device__ __forceinline__ uint32_t v_word(const uint8_t* row, int d, int8_t) {
+  return __ldg(reinterpret_cast<const unsigned int*>(row) + d);
+}
+__device__ __forceinline__ uint32_t v_word(const uint8_t* row, int d, Int4) {
+  return __ldg(reinterpret_cast<const unsigned short*>(row) + d);
+}
+
+// The scale of key `at` (its (G, T) index): fp32 (G, T) per row (int8), or
+// its head's bf16 of (G, T, H) (int4).
+template <typename KV>
+__device__ __forceinline__ float key_scale(const void* scale, long at, int n_heads, int h) {
+  if (kIsInt4<KV>) {
+    const unsigned short x = __ldg(static_cast<const unsigned short*>(scale) + at * n_heads + h);
+    return __uint_as_float(static_cast<uint32_t>(x) << 16);
+  }
+  return __ldg(static_cast<const float*>(scale) + at);
 }
 
 // KV: float (no scales), int8_t (fp32 (G, T) scales) or Int4 (bf16 (G, T,
-// H) scales). q and out fp32.
-template <typename KV>
-__global__ void __launch_bounds__(128, 2)
+// H) scales); R beams a tile. q and out fp32. Every product an fp32 FFMA.
+//
+// A CTA takes one (group, head, tile of R beams, key share):
+// ops/decode_attention.py `beam_plan` gives the fp32 form tiles of R =
+// ceil(K / ceil(K / 8)) beams (only those computed: 5 at beam search's K),
+// key shares of whole 32-key chunks over a cluster of up to MAX_CLUSTER
+// CTAs, and four warps a CTA, as many CTAs as one wave of four an SM holds.
+// Warp w takes chunks w, w + 4, ... of its share with a running state (max
+// and sum a beam, O) of its own, and reads K and V from device memory into
+// registers, each chunk's loads issued while the chunk before is computed
+// (int8 and int4: K and V; fp32: K, its V read where it is used):
+// - scores: lane i takes key i of the chunk, its head row widened exactly
+//   four dims at a time against each beam's q (broadcast from shared
+//   memory), four partial sums a beam; times k_scale; keys past the share
+//   are -inf;
+// - the warp's online softmax a beam in log2 units (a warp max, ex2), each
+//   lane's sum of its own keys, P * v_scale into the warp's slice of shared
+//   memory;
+// - O += P V: lane (d, half) takes dims 4d .. 4d + 3 of the chunk's keys
+//   16 half .. 16 half + 15 against every beam's p.
+// Then the two key halves of each warp's O are summed over a shuffle, the
+// warps' states merged in shared memory and the shares' over the cluster,
+// as the bf16 form merges them.
+template <typename KV, int R>
+__global__ void __launch_bounds__(kF32Threads, F32Mode<KV>::kCtasPerSm)
     beam_f32_kernel(const float* __restrict__ q, long q_stride, const uint8_t* __restrict__ k,
                     const uint8_t* __restrict__ v, const void* __restrict__ k_scale,
                     const void* __restrict__ v_scale, float* __restrict__ out, int t_len,
                     int n_heads, int beams, int keys_per_split) {
-  constexpr bool kInt4 = kIsInt4<KV>, kScaled = !std::is_same<KV, float>::value;
-  constexpr int kS = F32Mode<KV>::kStages, kRow = F32Mode<KV>::kRowBytes;
-  constexpr int kElems = Chunk<KV>::kElems, kBytes = Chunk<KV>::kBytes;
+  constexpr bool kF32 = std::is_same<KV, float>::value, kScaled = !kF32;
+  constexpr int kRow = F32Mode<KV>::kRowBytes;
   extern __shared__ __align__(16) uint8_t smem_raw[];
-  F32Smem<KV>& s = *reinterpret_cast<F32Smem<KV>*>(smem_raw);
+  F32Smem& s = *reinterpret_cast<F32Smem*>(smem_raw);
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int rank = blockIdx.x, n_ranks = gridDim.x;
   const int h = blockIdx.y % n_heads, mt = blockIdx.y / n_heads, g = blockIdx.z;
   const int k_begin = rank * keys_per_split;
   const int k_end = min(t_len, k_begin + keys_per_split);
-  const int n_tiles = (k_end - k_begin + kKeys - 1) / kKeys;
-  const int rows = min(kRows, beams - mt * kRows);  // beams of this tile
+  const int n_chunks = (k_end - k_begin + kF32Chunk - 1) / kF32Chunk;
+  const int rows = min(R, beams - mt * R);  // beams of this tile
   const long row_bytes = (long)n_heads * kRow;
   const uint8_t* kg = k + (long)g * t_len * row_bytes + (long)h * kRow;
   const uint8_t* vg = v + (long)g * t_len * row_bytes + (long)h * kRow;
+  const long srow = (long)g * t_len;  // the group's first scale
+  const int dq = lane & 15, half = lane >> 4;  // P V: dims 4dq .., keys 16 half ..
 
-  // tile i's K and V rows (zero past the share) and scales into stage st
-  auto load_tile = [&](int i, int st) {
-    const int key0 = k_begin + i * kKeys;
-    for (int x = tid; x < kKeys * (kRow / 16); x += 128) {
-      const int key = x / (kRow / 16), off = (x % (kRow / 16)) * 16;
-      const bool in = key0 + key < k_end;
-      const long at = (long)(in ? key0 + key : k_begin) * row_bytes + off;
-      cp_async16(&s.k[st][key][off], kg + at, in ? 16 : 0);
-      cp_async16(&s.v[st][key][off], vg + at, in ? 16 : 0);
+  // chunk c's K row of this lane's key (an out-of-share lane reads the
+  // chunk's first key) and its scales, and (int8, int4) its V words: each
+  // in flight while the chunk before is computed (K from the end of that
+  // chunk's scores, V from the end of its P V)
+  uint32_t kw[kRow / 4];
+  uint32_t vw[16];
+  float ksc = 1.f, vsc = 1.f;
+  auto fetch_k = [&](int c) {
+    const int key0 = k_begin + c * kF32Chunk, left = k_end - key0;
+    const long at = lane < left ? key0 + lane : key0;
+    const uint4* krow = reinterpret_cast<const uint4*>(kg + at * row_bytes);
+#pragma unroll
+    for (int u = 0; u < kRow / 16; ++u) {
+      const uint4 w = __ldg(krow + u);
+      kw[4 * u] = w.x, kw[4 * u + 1] = w.y, kw[4 * u + 2] = w.z, kw[4 * u + 3] = w.w;
     }
-    if (kScaled && tid < kKeys) {
-      const bool in = key0 + tid < k_end;
-      const long at = (long)g * t_len + (in ? key0 + tid : k_begin);
-      if (kInt4) {
-        // the aligned word holding bf16 at * H + h; its second half is past
-        // the tensor only for the last element, at an even index
-        const long el = at * n_heads + h, word = el & ~1L;
-        const long n_scales = (long)gridDim.z * t_len * n_heads;
-        const int bytes = in ? (el + 1 < n_scales || (el & 1) ? 4 : 2) : 0;
-        cp_async4(&s.ks[st][tid], static_cast<const __nv_bfloat16*>(k_scale) + word, bytes);
-        cp_async4(&s.vs[st][tid], static_cast<const __nv_bfloat16*>(v_scale) + word, bytes);
-      } else {
-        cp_async4(&s.ks[st][tid], static_cast<const float*>(k_scale) + at, in ? 4 : 0);
-        cp_async4(&s.vs[st][tid], static_cast<const float*>(v_scale) + at, in ? 4 : 0);
+    if constexpr (kScaled) {
+      ksc = key_scale<KV>(k_scale, srow + at, n_heads, h);
+      vsc = key_scale<KV>(v_scale, srow + at, n_heads, h);
+    }
+  };
+  auto fetch_v = [&](int c) {
+    if constexpr (kScaled) {
+      const int key0 = k_begin + c * kF32Chunk, left = k_end - key0;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int jj = 16 * half + j;
+        vw[j] = v_word(vg + (jj < left ? key0 + jj : key0) * row_bytes, dq, KV());
       }
     }
   };
-#pragma unroll
-  for (int i = 0; i < kS - 1; ++i) {
-    if (i < n_tiles) load_tile(i, i);
-    cp_async_commit();
+  if (warp < n_chunks) {
+    fetch_k(warp);
+    fetch_v(warp);
   }
+
   // the tile's beams' q, times 1/sqrt(64) * log2(e); zero rows past the beams
   const float qscale = 0.125f * kLog2e;
-  for (int x = tid; x < kRows * kHD; x += 128) {
+  for (int x = tid; x < R * kHD; x += kF32Threads) {
     const int r = x / kHD, dd = x % kHD;
-    s.q[r][dd] = r < rows ? q[((long)g * beams + mt * kRows + r) * q_stride + h * kHD + dd] * qscale
+    s.q[r][dd] = r < rows ? q[((long)g * beams + mt * R + r) * q_stride + h * kHD + dd] * qscale
                           : 0.f;
   }
+  __syncthreads();
 
-  const int kk = lane & 15, half = lane >> 4;  // this lane's key of the warp's 16, and dims half
-  const int key_w = 16 * warp + kk;             // its key in the tile
-  float m_run[kRows], l_run[kRows], o[kRows][2];
+  float m_run[R], l_run[R], o[R][4];
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
+  for (int r = 0; r < R; ++r) {
     m_run[r] = -INFINITY;
     l_run[r] = 0.f;
-    o[r][0] = o[r][1] = 0.f;
+    o[r][0] = o[r][1] = o[r][2] = o[r][3] = 0.f;
   }
-  for (int i = 0; i < n_tiles; ++i) {
-    const int st = i % kS;
-    cp_async_wait<kS - 2>();
-    __syncthreads();  // tile i landed for every thread; tile i - 1's stage is free
-    if (i + kS - 1 < n_tiles) load_tile(i + kS - 1, (i + kS - 1) % kS);
-    cp_async_commit();
-    const int left = k_end - (k_begin + i * kKeys);  // keys of the tile in range
-    const bool in = key_w < left;
+  for (int c = warp; c < n_chunks; c += kF32Warps) {
+    const int key0 = k_begin + c * kF32Chunk;
+    const int left = k_end - key0;  // keys of the chunk in the share
+    const bool in = lane < left;
+    const float ksc_c = ksc, vsc_c = vsc;
 
-    // scores of this lane's key against every beam, over its half of the dims
-    float sc[kRows];
+    // ---- scores of this lane's key against each beam ----
+    float4 acc[R];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) sc[r] = 0.f;
-    const uint8_t* krow = &s.k[st][key_w][0];
+    for (int r = 0; r < R; ++r) acc[r] = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
-    for (int ch = 0; ch < kHD / 2 / kElems; ++ch) {
-      const int d0 = half * (kHD / 2) + ch * kElems;
-      float x[kElems];
-      Chunk<KV>::load(krow + d0 / kElems * kBytes, x);
+    for (int d4 = 0; d4 < kHD / 4; ++d4) {
+      const float4 x = k_floats(kw, d4, KV());
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        if (r < rows) {
-#pragma unroll
-          for (int e = 0; e < kElems; e += 4) {
-            const float4 qv = *reinterpret_cast<const float4*>(&s.q[r][d0 + e]);
-            sc[r] = fmaf(qv.x, x[e], sc[r]);
-            sc[r] = fmaf(qv.y, x[e + 1], sc[r]);
-            sc[r] = fmaf(qv.z, x[e + 2], sc[r]);
-            sc[r] = fmaf(qv.w, x[e + 3], sc[r]);
-          }
-        }
+      for (int r = 0; r < R; ++r) {
+        const float4 qv = *reinterpret_cast<const float4*>(&s.q[r][4 * d4]);
+        acc[r].x = fmaf(qv.x, x.x, acc[r].x);
+        acc[r].y = fmaf(qv.y, x.y, acc[r].y);
+        acc[r].z = fmaf(qv.z, x.z, acc[r].z);
+        acc[r].w = fmaf(qv.w, x.w, acc[r].w);
       }
     }
-    float ksc = 1.f, vsc = 1.f;
-    if (kScaled) {
-      ksc = s.ks[st][key_w];
-      vsc = s.vs[st][key_w];
-      if (kInt4) {
-        const int hi = (int)((((long)g * t_len + k_begin + i * kKeys + key_w) * n_heads + h) & 1);
-        ksc = bf16_half(ksc, hi);
-        vsc = bf16_half(vsc, hi);
-      }
-    }
-    // the warp's online softmax over its 16 keys, a running state a beam
+    // the warp's next chunk's K in flight from here
+    const bool more = c + kF32Warps < n_chunks;
+    if (more) fetch_k(c + kF32Warps);
+
+    // ---- the warp's online softmax a beam ----
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      if (r >= rows) continue;
-      float x = sc[r] + __shfl_xor_sync(0xffffffffu, sc[r], 16);
-      x = in ? x * ksc : -INFINITY;
-      float mx = x;
+    for (int r = 0; r < R; ++r) {
+      const float sc = in ? ((acc[r].x + acc[r].y) + (acc[r].z + acc[r].w)) * ksc_c : -INFINITY;
+      float mx = sc;
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
       const float m_new = fmaxf(m_run[r], mx);
       const float base = m_new == -INFINITY ? 0.f : m_new;  // no key seen yet
       const float corr = ex2(m_run[r] - base);
-      const float p = ex2(x - base);
+      const float p = ex2(sc - base);
       m_run[r] = m_new;
-      l_run[r] = l_run[r] * corr + (half == 0 ? p : 0.f);
-      o[r][0] *= corr;
-      o[r][1] *= corr;
-      if (half == 0) s.p[warp][r][kk] = p * vsc;
+      l_run[r] = fmaf(l_run[r], corr, p);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[r][e] *= corr;
+      s.p[warp][r][lane] = p * vsc_c;
     }
     __syncwarp();
-    // O += P V over the warp's 16 keys: this lane's dims 2 lane, 2 lane + 1
-#pragma unroll 4
-    for (int j = 0; j < 16; ++j) {
-      const float2 vv = load2(reinterpret_cast<const KV*>(&s.v[st][16 * warp + j][0]), lane);
+
+    // ---- O += P V: keys 16 half .. 16 half + 15, four at a time ----
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        if (r < rows) {
-          const float p = s.p[warp][r][j];
-          o[r][0] = fmaf(p, vv.x, o[r][0]);
-          o[r][1] = fmaf(p, vv.y, o[r][1]);
+    for (int j4 = 0; j4 < 4; ++j4) {
+      const int j0 = 16 * half + 4 * j4;
+      float4 vv[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if constexpr (kF32) {
+          const long key = j0 + j < left ? key0 + j0 + j : key0;  // p is 0 past the share
+          vv[j] = __ldg(reinterpret_cast<const float4*>(vg + key * row_bytes) + dq);
+        } else {
+          vv[j] = floats4(vw[4 * j4 + j], KV());
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float4 pr = *reinterpret_cast<const float4*>(&s.p[warp][r][j0]);
+        const float pj[4] = {pr.x, pr.y, pr.z, pr.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          o[r][0] = fmaf(pj[j], vv[j].x, o[r][0]);
+          o[r][1] = fmaf(pj[j], vv[j].y, o[r][1]);
+          o[r][2] = fmaf(pj[j], vv[j].z, o[r][2]);
+          o[r][3] = fmaf(pj[j], vv[j].w, o[r][3]);
         }
       }
     }
-    __syncwarp();
+    if (more) fetch_v(c + kF32Warps);
+    __syncwarp();  // the warp's P is read before the next chunk's
   }
-  cp_async_wait<0>();
-  __syncthreads();  // K's ring is drained: the warps' O take its place
 
   // ---- this warp's state into shared memory, then the warps merged --------
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
+  for (int r = 0; r < R; ++r) {
     float l = l_run[r];
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) l += __shfl_xor_sync(0xffffffffu, l, off);
+    float4 x = make_float4(o[r][0], o[r][1], o[r][2], o[r][3]);
+    x.x += __shfl_xor_sync(0xffffffffu, x.x, 16);
+    x.y += __shfl_xor_sync(0xffffffffu, x.y, 16);
+    x.z += __shfl_xor_sync(0xffffffffu, x.z, 16);
+    x.w += __shfl_xor_sync(0xffffffffu, x.w, 16);
     if (lane == 0) {
       s.m[warp][r] = m_run[r];
       s.l[warp][r] = l;
     }
-    *reinterpret_cast<float2*>(&s.fin.o[warp][r][2 * lane]) = make_float2(o[r][0], o[r][1]);
+    if (half == 0) *reinterpret_cast<float4*>(&s.o[warp][r][4 * dq]) = x;
   }
   __syncthreads();
-  const int row = tid >> 3, d0 = (tid & 7) * 8;
-  float mm = -INFINITY;
+  // thread -> (beam, 4 dims); threads past the tile's R rows only keep the
+  // cluster barriers company (they are warp-aligned)
+  const int row = tid >> 4, d0 = (tid & 15) * 4;
+  const bool active = row < R;
+  float mm = -INFINITY, ll = 0.f, acc[4] = {};
+  if (active) {
 #pragma unroll
-  for (int w = 0; w < kConsumerWarps; ++w) mm = fmaxf(mm, s.m[w][row]);
-  float ll = 0.f, acc[8] = {};
+    for (int w = 0; w < kF32Warps; ++w) mm = fmaxf(mm, s.m[w][row]);
 #pragma unroll
-  for (int w = 0; w < kConsumerWarps; ++w) {
-    const float f = s.m[w][row] == -INFINITY ? 0.f : ex2(s.m[w][row] - mm);
-    ll = fmaf(f, s.l[w][row], ll);
+    for (int w = 0; w < kF32Warps; ++w) {
+      const float f = s.m[w][row] == -INFINITY ? 0.f : ex2(s.m[w][row] - mm);
+      ll = fmaf(f, s.l[w][row], ll);
 #pragma unroll
-    for (int e = 0; e < 8; ++e) acc[e] = fmaf(f, s.fin.o[w][row][d0 + e], acc[e]);
+      for (int e = 0; e < 4; ++e) acc[e] = fmaf(f, s.o[w][row][d0 + e], acc[e]);
+    }
   }
-  float* dst = out + (((long)g * beams + mt * kRows + row) * n_heads + h) * kHD + d0;
+  float* dst = out + (((long)g * beams + mt * R + row) * n_heads + h) * kHD + d0;
   if (n_ranks == 1) {
     if (row < rows) {
       const float inv = ll > 0.f ? 1.f / ll : 0.f;
-#pragma unroll
-      for (int e = 0; e < 8; e += 4)
-        *reinterpret_cast<float4*>(dst + e) =
-            make_float4(acc[e] * inv, acc[e + 1] * inv, acc[e + 2] * inv, acc[e + 3] * inv);
+      *reinterpret_cast<float4*>(dst) =
+          make_float4(acc[0] * inv, acc[1] * inv, acc[2] * inv, acc[3] * inv);
     }
     return;
   }
+  if (active) {
 #pragma unroll
-  for (int e = 0; e < 8; ++e) s.fin.fo[row][d0 + e] = acc[e];
-  if ((tid & 7) == 0) {
-    s.fin.fm[row] = mm;
-    s.fin.fl[row] = ll;
+    for (int e = 0; e < 4; ++e) s.fo[row][d0 + e] = acc[e];
+    if ((tid & 15) == 0) {
+      s.fm[row] = mm;
+      s.fl[row] = ll;
+    }
   }
   // ---- key splits: rank 0 combines the cluster's (max, sum, O) ------------
   cluster_sync();
   if (rank == 0 && row < rows) {
     float mx = -INFINITY;
-    for (int rk = 0; rk < n_ranks; ++rk) mx = fmaxf(mx, ld_cluster(&s.fin.fm[row], rk));
-    float lt = 0.f, ot[8] = {};
+    for (int rk = 0; rk < n_ranks; ++rk) mx = fmaxf(mx, ld_cluster(&s.fm[row], rk));
+    float lt = 0.f, ot[4] = {};
     for (int rk = 0; rk < n_ranks; ++rk) {
-      const float m_r = ld_cluster(&s.fin.fm[row], rk);
+      const float m_r = ld_cluster(&s.fm[row], rk);
       const float f = m_r == -INFINITY ? 0.f : ex2(m_r - mx);
-      lt = fmaf(f, ld_cluster(&s.fin.fl[row], rk), lt);
+      lt = fmaf(f, ld_cluster(&s.fl[row], rk), lt);
 #pragma unroll
-      for (int e = 0; e < 8; ++e) ot[e] = fmaf(f, ld_cluster(&s.fin.fo[row][d0 + e], rk), ot[e]);
+      for (int e = 0; e < 4; ++e) ot[e] = fmaf(f, ld_cluster(&s.fo[row][d0 + e], rk), ot[e]);
     }
     const float inv = lt > 0.f ? 1.f / lt : 0.f;
-#pragma unroll
-    for (int e = 0; e < 8; e += 4)
-      *reinterpret_cast<float4*>(dst + e) =
-          make_float4(ot[e] * inv, ot[e + 1] * inv, ot[e + 2] * inv, ot[e + 3] * inv);
+    *reinterpret_cast<float4*>(dst) = make_float4(ot[0] * inv, ot[1] * inv, ot[2] * inv, ot[3] * inv);
   }
   cluster_sync();  // no CTA leaves while rank 0 reads its shared memory
 }
 
-template <typename KV>
-int launch_f32(int card, const void* q, long q_stride, const void* k, const void* v,
-               const void* k_scale, const void* v_scale, void* out, int groups, int t_len,
-               int n_heads, int beams, int splits, int keys_per_split, cudaStream_t stream) {
-  constexpr int smem = static_cast<int>(sizeof(F32Smem<KV>));
-  static bool configured[kwt_card::kMaxCards] = {};
-  if (!configured[card]) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        beam_f32_kernel<KV>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    configured[card] = true;
-  }
-  const int m_tiles = (beams + kRows - 1) / kRows;
+// Beams a tile of the fp32 form (ops/decode_attention.py `beam_f32_rows`):
+// ceil(K / ceil(K / 8)), so that the tiles are as even as they can be.
+inline int f32_rows(int beams) {
+  const int m_tiles = (beams + kF32MaxRows - 1) / kF32MaxRows;
+  return (beams + m_tiles - 1) / m_tiles;
+}
+
+template <typename KV, int R>
+int launch_f32_rows(const void* q, long q_stride, const void* k, const void* v,
+                    const void* k_scale, const void* v_scale, void* out, int groups, int t_len,
+                    int n_heads, int beams, int splits, int keys_per_split, cudaStream_t stream) {
+  const int m_tiles = (beams + R - 1) / R;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(splits, n_heads * m_tiles, groups);
-  cfg.blockDim = dim3(128);
-  cfg.dynamicSmemBytes = smem;
+  cfg.blockDim = dim3(kF32Threads);
+  cfg.dynamicSmemBytes = sizeof(F32Smem);
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -941,9 +990,31 @@ int launch_f32(int card, const void* q, long q_stride, const void* k, const void
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   return static_cast<int>(cudaLaunchKernelEx(
-      &cfg, beam_f32_kernel<KV>, static_cast<const float*>(q), q_stride,
+      &cfg, beam_f32_kernel<KV, R>, static_cast<const float*>(q), q_stride,
       static_cast<const uint8_t*>(k), static_cast<const uint8_t*>(v), k_scale, v_scale,
       static_cast<float*>(out), t_len, n_heads, beams, keys_per_split));
+}
+
+template <typename KV>
+int launch_f32(const void* q, long q_stride, const void* k, const void* v, const void* k_scale,
+               const void* v_scale, void* out, int groups, int t_len, int n_heads, int beams,
+               int splits, int keys_per_split, cudaStream_t stream) {
+#define KWT_BEAM_F32_ROWS(R)                                                                   \
+  case R:                                                                                      \
+    return launch_f32_rows<KV, R>(q, q_stride, k, v, k_scale, v_scale, out, groups, t_len,    \
+                                  n_heads, beams, splits, keys_per_split, stream);
+  switch (f32_rows(beams)) {
+    KWT_BEAM_F32_ROWS(1)
+    KWT_BEAM_F32_ROWS(2)
+    KWT_BEAM_F32_ROWS(3)
+    KWT_BEAM_F32_ROWS(4)
+    KWT_BEAM_F32_ROWS(5)
+    KWT_BEAM_F32_ROWS(6)
+    KWT_BEAM_F32_ROWS(7)
+    KWT_BEAM_F32_ROWS(8)
+  }
+#undef KWT_BEAM_F32_ROWS
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -997,13 +1068,13 @@ extern "C" int kwt_decode_attention_beam_f32(int card, const void* q, long long 
   const long qs = (long)q_stride;
   switch (kv_mode) {
     case 1:
-      return launch_f32<int8_t>(card, q, qs, k, v, k_scale, v_scale, out, groups, t_len, n_heads,
+      return launch_f32<int8_t>(q, qs, k, v, k_scale, v_scale, out, groups, t_len, n_heads,
                                 beams, splits, keys_per_split, s);
     case 3:
-      return launch_f32<Int4>(card, q, qs, k, v, k_scale, v_scale, out, groups, t_len, n_heads,
+      return launch_f32<Int4>(q, qs, k, v, k_scale, v_scale, out, groups, t_len, n_heads,
                               beams, splits, keys_per_split, s);
     case 4:
-      return launch_f32<float>(card, q, qs, k, v, k_scale, v_scale, out, groups, t_len, n_heads,
+      return launch_f32<float>(q, qs, k, v, k_scale, v_scale, out, groups, t_len, n_heads,
                                beams, splits, keys_per_split, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);

@@ -78,18 +78,22 @@
 //   there) are masked to -inf in the last, ragged key tile.
 // The fp32-q form (fp32 q, k and v, as an fp32 model runs under
 // KWT_FA_INT8): the pre-pass quantizes fp32 K (and V) the same way, and
-// `flash_int8_f32_kernel` runs on the CUDA cores, since the TPU kernel's
-// qk mode takes P V in fp32 there (`p.astype(in_dtype)` with an fp32 V),
-// which the tensor cores take only as TF32. A 256-thread CTA takes 64 query
-// rows and walks 64-key tiles, as the fp32 K1 does: q quantized per row in
-// the kernel, S from __dp4a over four-dim words of Q8 and K8 (exact int32),
-// dequantized as above; qk: K1's online softmax and O += P V on FFMAs; qkpv:
-// a first pass for the exact row max, p = expf(s - m) (the twin's exp of
-// the same difference, so p8 = round(p * 127) takes the twin's codes), and
-// O += p8 V8 in int32 (V8^T's key order undone in shared memory). O is
+// `flash_int8_f32_kernel` takes the bf16 form's skeleton on 64-key tiles
+// (a producer warpgroup, two consumer warpgroups of 64 rows, a persistent
+// grid): q loaded from device memory and quantized per row in registers, S
+// on s8 wgmma (the same s32 as any order of integer products, dequantized
+// as above). The TPU kernel's qk mode takes P V in fp32 there
+// (`p.astype(in_dtype)` with an fp32 V), which the tensor cores take only
+// as TF32: qk runs it in 3xTF32 (P_lo V_hi + P_hi V_lo + P_hi V_hi, as K1's
+// fp32 form, csrc/flash_attention_f32.cu), the producer splitting V^T into
+// high parts and residuals, each tile's product in an accumulator of its
+// own; qkpv keeps a first pass for the exact row max, p = expf(s - m) (the
+// twin's exp of the same difference, so p8 = round(p * 127) takes the
+// twin's codes) and O += P8 V8 on s8 wgmma over V8^T in 64-key boxes. O is
 // fp32, divided by l_safe (true division). Its bound at the encoder's
-// shape: qk, the fp32 P V, 92 GFLOP (1.37 ms at 67 TFLOP/s); qkpv, its
-// 7.2e8 exponentials (0.17 ms at the SFUs' rate).
+// shape: qk, the three TF32 products of P V, 3 x 92 GFLOP (0.56 ms at 495
+// TFLOP/s) beside the s8 S (0.05 ms); qkpv, its 7.2e8 exponentials (0.17
+// ms at the SFUs' rate).
 // The no-max forms (kNoMax; the JAX package's KWT_FA_NOMAX, both modes,
 // both forms): the pre-pass also writes each key's ks ||k8|| (its codes
 // squared and summed, exact in fp32) and key_bound.cuh's `row_max` their
@@ -214,11 +218,37 @@ __device__ __forceinline__ float code_norm(const uint32_t* w) {
   return sqrtf(n2);
 }
 
+// Rows r and r + 8 of a Q tile (x[rr], this thread's 16 columns of row r +
+// 8rr: column 32kk + 16hi + 4(lane & 3) + j at 8kk + 4hi + j) quantized as
+// the TPU kernel does into the s8 A fragments of the two k-steps of 32 head
+// dims (row r in registers 0 and 2, row r + 8 in 1 and 3); qsc gets qs / 8
+// of each row and qn the norm of its codes (the no-max forms').
+__device__ __forceinline__ void quantize_rows(uint32_t (*qa)[4], float* qsc, float* qn,
+                                              const float (*x)[16]) {
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    float amax = 0.f;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) amax = fmaxf(amax, fabsf(x[rr][i]));
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, 1));
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, 2));
+    const float qs = fmaxf(amax, 1e-8f) * kInv127, rq = __frcp_rn(qs);
+    qsc[rr] = qs * 0.125f;
+    uint32_t w[16];
+    quant_words<16>(w, x[rr], &qs, &rq, 0);
+    qn[rr] = code_norm(w);
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+      for (int hi = 0; hi < 2; ++hi) {
+        const uint32_t* src = &w[8 * kk + 4 * hi];
+        qa[kk][rr + 2 * hi] = pack_low_bytes(src[0], src[1], src[2], src[3]);
+      }
+  }
+}
+
 // This thread's rows r and r + 8 of the 128-row bf16 Q tile (128-byte
-// rows, 128-byte swizzle), quantized as the TPU kernel does into the s8 A
-// fragments of the two k-steps of 32 head dims (row r in registers 0 and 2,
-// row r + 8 in 1 and 3; columns 32kk + 16hi + 4(lane & 3) + 0..3); qsc gets
-// qs / 8 of each row and qn the norm of its codes (the no-max forms').
+// rows, 128-byte swizzle), quantized by quantize_rows.
 __device__ __forceinline__ void quantize_q(uint32_t (*qa)[4], float* qsc, float* qn,
                                            const __nv_bfloat16* q_tile, int r, int lane) {
   const int t = lane & 3, sw = r & 7;  // (r + 8) & 7 == r & 7
@@ -242,26 +272,7 @@ __device__ __forceinline__ void quantize_q(uint32_t (*qa)[4], float* qsc, float*
         dst[3] = b.y;
       }
   }
-#pragma unroll
-  for (int rr = 0; rr < 2; ++rr) {
-    float amax = 0.f;
-#pragma unroll
-    for (int i = 0; i < 16; ++i) amax = fmaxf(amax, fabsf(x[rr][i]));
-    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, 1));
-    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, 2));
-    const float qs = fmaxf(amax, 1e-8f) * kInv127, rq = __frcp_rn(qs);
-    qsc[rr] = qs * 0.125f;
-    uint32_t w[16];
-    quant_words<16>(w, x[rr], &qs, &rq, 0);
-    qn[rr] = code_norm(w);
-#pragma unroll
-    for (int kk = 0; kk < 2; ++kk)
-#pragma unroll
-      for (int hi = 0; hi < 2; ++hi) {
-        const uint32_t* src = &w[8 * kk + 4 * hi];
-        qa[kk][rr + 2 * hi] = pack_low_bytes(src[0], src[1], src[2], src[3]);
-      }
-  }
+  quantize_rows(qa, qsc, qn, x);
 }
 
 // S (64 x 128, s32) = Q8 (this warpgroup's 64 rows, registers) K8^T: two
@@ -287,15 +298,16 @@ __device__ __forceinline__ void issue_pv(int* oacc, const uint32_t (*pa)[4], uin
     wgmma_m64n64k32_s8_rs(oacc, pa[kk], sw128_desc(v_addr + kk * 32, 16, 1024), 1);
 }
 
-// Scores of one tile from its s32 sums: s = s32 * ((qs / 8) * ks), columns
-// 8i + 2(lane & 3) + {0, 1}; when `mask` (the ragged last tile), keys past
-// tk (key0 is this thread's first column's key) are -inf, in a loop of its
-// own so that the other tiles pay nothing for it.
+// Scores of one tile of kN keys from its s32 sums: s = s32 * ((qs / 8) *
+// ks), columns 8i + 2(lane & 3) + {0, 1}; when `mask` (the ragged last
+// tile), keys past tk (key0 is this thread's first column's key) are -inf,
+// in a loop of its own so that the other tiles pay nothing for it.
+template <int kN = kBN>
 __device__ __forceinline__ void dequant(float* s, const int* s32, const float* ks_tile,
                                         const float* qsc, bool mask, int key0, int tk,
                                         int col0) {
 #pragma unroll
-  for (int i = 0; i < kBN / 8; ++i) {
+  for (int i = 0; i < kN / 8; ++i) {
     const float2 kv = *reinterpret_cast<const float2*>(ks_tile + 8 * i + col0);
 #pragma unroll
     for (int e = 0; e < 4; ++e)
@@ -304,7 +316,7 @@ __device__ __forceinline__ void dequant(float* s, const int* s32, const float* k
   }
   if (mask) {
 #pragma unroll
-    for (int i = 0; i < kBN / 8; ++i)
+    for (int i = 0; i < kN / 8; ++i)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         if (key0 + 8 * i + (e & 1) >= tk) s[4 * i + e] = -INFINITY;
@@ -366,13 +378,15 @@ __device__ __forceinline__ void pack_p(uint32_t (*pa)[4], const float* s) {
   }
 }
 
-// P -> p8 = round(p * 127) as s8 A fragments of the four k-steps of 32
-// keys. Step kk takes the accumulator's n8 blocks 4kk..4kk+3 (b[4j + e]);
-// its logical k = 16hi + 4(lane & 3) + i is key 16hi + 8(i >> 1) + 2(lane
-// & 3) + (i & 1) of the step, the order V8^T's keys are stored in.
+// P -> p8 = round(p * 127) as s8 A fragments of the k-steps of 32 keys
+// (of a tile of kN). Step kk takes the accumulator's n8 blocks 4kk..4kk+3
+// (b[4j + e]); its logical k = 16hi + 4(lane & 3) + i is key 16hi + 8(i >>
+// 1) + 2(lane & 3) + (i & 1) of the step, the order V8^T's keys are stored
+// in.
+template <int kN = kBN>
 __device__ __forceinline__ void pack_p8(uint32_t (*pa)[4], const float* s) {
 #pragma unroll
-  for (int kk = 0; kk < kBN / 32; ++kk) {
+  for (int kk = 0; kk < kN / 32; ++kk) {
     const float* b = s + 16 * kk;
     pa[kk][0] = pack_low_bytes(p8_word(b[0]), p8_word(b[1]), p8_word(b[4]), p8_word(b[5]));
     pa[kk][1] = pack_low_bytes(p8_word(b[2]), p8_word(b[3]), p8_word(b[6]), p8_word(b[7]));
@@ -634,272 +648,417 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// ---- the fp32-q form: CUDA cores ----------------------------------------------
+// ---- the fp32-q form: s8 and 3xTF32 wgmma -----------------------------------
 
-constexpr int kFT = 64;         // fp32 form: query rows a CTA, keys a tile
-constexpr int kFPad = kFT + 4;  // a transposed row's words (keeps the 16-byte alignment)
-constexpr int kFThreads = 256;  // a 16 x 16 grid of 4 x 4 blocks
+constexpr int kFBN = 64;                // keys a tile (ops/flash_attention.py INT8_F32_KEYS)
+constexpr int kFKStages = 6;            // k8 ring depth
+constexpr int kFVStages = 2;            // qk: V^T ring depth (high parts and residuals)
+constexpr int kFV8Stages = 4;           // qkpv: V8^T ring depth
+constexpr int kFVBars = kFV8Stages;     // barriers of the V ring, the deeper of the two
+constexpr int kBlk = 64 * 32;           // floats of a 64-row block of 32 TF32 columns (8 KB)
+constexpr uint32_t kFK8Bytes = kFBN * kD;  // one 64 x 64 int8 key box
+constexpr uint32_t kFKsBytes = kFBN * 4;   // its scales
+constexpr uint32_t kFV8Bytes = kD * kFBN;  // one V8^T box: 64 dims x 64 keys
 
-struct F32Smem {
-  int q8t[kD / 4][kFPad];  // Q8 of the CTA's rows, 4 dims a word, by row
-  int k8t[kD / 4][kFPad];  // K8 of the tile, 4 dims a word, by key
-  float qsc[kFT];          // qs / 8 of each row
-  float mb[kFT];           // no-max: each row's bound
-  float ks[kFT];           // the tile's key scales
+struct __align__(1024) F32Smem {
+  int8_t k[kFKStages][kFBN * kD];  // k8 tiles: 64 keys of 64-byte rows, 64-byte swizzle
   union {
-    float v[kFT][kD];  // qk: V of the tile, fp32, by key
-    int v8[kFT][kD];   // qkpv: V8 of the tile by key (V8^T's order undone)
+    float vt[kFVStages][2][2][kBlk];  // qk: V^T [hi, lo][key block], 128-byte swizzle, K-major
+    int8_t v8[kFV8Stages][kD * kFBN];  // qkpv: V8^T tiles, 64 dims of 64-byte key rows
   };
-  union {
-    float pt[kFT][kFPad];  // qk: P^T of the tile
-    int p8t[kFT][kFPad];   // qkpv: p8^T
-  };
+  float ks[kFKStages][kFBN];
+  uint64_t k_full[kFKStages], k_empty[kFKStages], v_full[kFVBars], v_empty[kFVBars];
 };
+static_assert(sizeof(F32Smem) + 1024 <= 232448, "the fp32-q CTA's shared memory fits a block");
 
-// The fp32 form's S tile: s = s32 * ((qs / 8) * ks), rows 4ty.., keys
-// 4tx..; s32 from __dp4a over the 16 words of Q8 and K8 (exact integers in
-// any order); keys past tk are -inf.
-__device__ __forceinline__ void f32_scores(float (*sc)[4], const F32Smem& s, int ty, int tx,
-                                           int k0, int tk) {
-  int s32[4][4] = {};
-#pragma unroll
-  for (int w = 0; w < kD / 4; ++w) {
-    const int4 a = *reinterpret_cast<const int4*>(&s.q8t[w][4 * ty]);
-    const int4 c = *reinterpret_cast<const int4*>(&s.k8t[w][4 * tx]);
-    const int av[4] = {a.x, a.y, a.z, a.w}, cv[4] = {c.x, c.y, c.z, c.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s32[i][j] = __dp4a(av[i], cv[j], s32[i][j]);
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      sc[i][j] = k0 + 4 * tx + j < tk
-                     ? __fmul_rn(__int2float_rn(s32[i][j]),
-                                 __fmul_rn(s.qsc[4 * ty + i], s.ks[4 * tx + j]))
-                     : -INFINITY;
+// Descriptor of k-step ks (8 TF32 keys) of a V^T tile at shared address
+// `base` whose 32-key blocks lie kBlk floats apart.
+__device__ __forceinline__ uint64_t tc_desc(uint32_t base, int ks) {
+  return sw128_desc(base + (ks >> 2) * kBlk * 4 + (ks & 3) * 32, 16, 1024);
 }
 
-// K8 of keys [k0, k0 + 64) (zeros past tk) and their scales into shared
-// memory: thread i takes 16 dims (four words) of key i / 4.
-__device__ __forceinline__ void f32_load_k8(F32Smem& s, const int8_t* k8, const float* ks_bh,
-                                            long long k8_row, int k0, int tk) {
-  const int key = threadIdx.x >> 2, part = threadIdx.x & 3;
-  int4 x = make_int4(0, 0, 0, 0);
-  if (k0 + key < tk)
-    x = *reinterpret_cast<const int4*>(k8 + (long long)(k0 + key) * k8_row + 16 * part);
-  s.k8t[4 * part][key] = x.x;
-  s.k8t[4 * part + 1][key] = x.y;
-  s.k8t[4 * part + 2][key] = x.z;
-  s.k8t[4 * part + 3][key] = x.w;
-  if (threadIdx.x < kFT) s.ks[threadIdx.x] = ks_bh[k0 + threadIdx.x];  // zero past tk
+// S (64 x 64, s32) = Q8 (registers) K8^T of one 64-key tile: two k-steps of
+// 32 head dims, 32 bytes apart in the 64-byte swizzled key rows.
+__device__ __forceinline__ void issue_s64(int* sacc, const uint32_t (*qa)[4], uint32_t k_addr) {
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk)
+    wgmma_m64n64k32_s8_rs(sacc, qa[kk], sw64_desc(k_addr + kk * 32, 16, 512), kk);
 }
 
-// K8's fp32-q form: q (fp32) quantized per row here, K8 (and V8^T) from the
-// pre-pass. A CTA of 256 threads takes 64 query rows of one (batch, head)
-// and walks 64-key tiles. qk: one pass, K1's online softmax in log2 units,
-// P kept in fp32 and O += P V on FFMAs with fp32 V (the TPU kernel's
-// `p.astype(in_dtype)` is no rounding in fp32). qkpv: a first pass for the
-// exact row max, then p = expf(s - m), p8 = round(p * 127) and O += p8 V8
-// as exact int32 products. O = o / l_safe (true division),
-// fp32; the LSE in natural-log units. kNoMax: each row's bound in place of
-// its max, one pass, p = expf(s - m) in both modes.
+// K8's fp32-q form (fp32 q, k and v; the TPU kernel's qk mode takes P V in
+// fp32 there): the bf16 form's skeleton on 64-key tiles with fp32 ends. A
+// persistent grid of one 384-thread CTA an SM walks 128-row query tiles,
+// (batch, head)-major. Warpgroup 0 is the producer: its first thread keeps
+// TMA loads of the k8 tiles (and their scales) in flight, and for qkpv of
+// the V8^T tiles; for qk its 128 threads load each V tile from device
+// memory through v's strides (zeros past Tk), split it into TF32 high parts
+// and residuals and store V^T in the wgmma operand layout (K1 fp32's
+// producer). Warpgroups 1 and 2 each own 64 rows: they load them from q
+// through its strides, quantize them into s8 A fragments (quantize_rows),
+// and run S = Q8 K8^T on s8 wgmma, dequantized as the bf16 form does.
+//   qk: K1's online softmax in log2 units, P split into high parts and
+// residuals in registers, and each tile's P V = P_lo V_hi + P_hi V_lo +
+// P_hi V_hi on TF32 wgmma in an accumulator of its own, added to O after
+// its rescale (one FFMA).
+//   qkpv: pass 1 S and the exact row max, pass 2 the same S again, p =
+// expf(s - m) (the twin's exp of the same difference, so p8 = round(p *
+// 127) takes the twin's codes), and O += P8 V8 on s8 wgmma over V8^T, each
+// tile's P8 V8 in flight under the next tile's S and exponentials (the
+// bf16 form's peeled loop; issued after each tile's own S and waited, the
+// no-max form's SASS gave P8 and the scores' temporaries the registers of
+// the loop's Q8 fragments, and every S after the first read P8 as Q8).
+//   kNoMax: each row's bound m = (qs ||q8||) (kmax / 8) replaces the max,
+// one pass, p = expf(s - m) in both modes, no rescale.
+// O = o / l_safe (true division), fp32; the LSE in natural-log units.
+// No wgmma is issued under a branch.
 template <bool kPV8, bool kNoMax>
-__global__ void __launch_bounds__(kFThreads)
-    flash_int8_f32_kernel(const uint8_t* __restrict__ q, const int8_t* __restrict__ k8,
-                          const float* __restrict__ ks, const uint8_t* __restrict__ v,
-                          const int8_t* __restrict__ v8t, const float* __restrict__ vs,
-                          const float* __restrict__ kmax,
-                          float* __restrict__ o, float* __restrict__ lse, int tq, int tk,
-                          int tk_pad, int n_heads, long long q_head, long long q_tok,
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_int8_f32_kernel(const __grid_constant__ CUtensorMap tm_k8,
+                          const __grid_constant__ CUtensorMap tm_v8,
+                          const uint8_t* __restrict__ q, const uint8_t* __restrict__ v,
+                          const float* __restrict__ ks, const float* __restrict__ vs,
+                          const float* __restrict__ kmax, float* __restrict__ o,
+                          float* __restrict__ lse, int tq, int tk, int tk_pad, int n_heads,
+                          int n_qtiles, int n_work, long long q_head, long long q_tok,
                           long long q_bat, long long v_head, long long v_tok, long long v_bat) {
-  extern __shared__ __align__(16) uint8_t smem_raw[];
-  F32Smem& s = *reinterpret_cast<F32Smem*>(smem_raw);
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int q0 = blockIdx.x * kFT, h = blockIdx.y, b = blockIdx.z;
-  const long long bh = (long long)b * n_heads + h;
-  const unsigned half = 0xffffu << (tid & 16);  // the 16 threads of rows 4ty..
-  const long long k8_row = (long long)n_heads * kD;
-  const int8_t* k8_bh = k8 + (long long)b * tk * k8_row + h * kD;
-  const float* ks_bh = ks + bh * tk_pad;
-  const int n_tiles = (tk + kFT - 1) / kFT;
+  extern __shared__ uint8_t smem_raw[];
+  F32Smem& s =
+      *reinterpret_cast<F32Smem*>(smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
+  const int wg = threadIdx.x / 128;
+  const int n_tiles = (tk + kFBN - 1) / kFBN;
+  constexpr int kVStages = kPV8 ? kFV8Stages : kFVStages;
+  // qkpv: pass 1 streams the k8 tiles alone, pass 2 k8 and V8^T (no-max:
+  // the second pass alone)
+  constexpr int kPasses = kPV8 && !kNoMax ? 2 : 1;
 
-  {  // Q8: four threads a row, 16 dims each; the row's absmax over the four
-    const int r = tid >> 2, part = tid & 3;
-    float x[16] = {};
-    if (q0 + r < tq) {
-      const uint8_t* row = q + b * q_bat + (long long)(q0 + r) * q_tok + h * q_head + 64 * part;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kFKStages; ++i) {
+      mbar_init(&s.k_full[i], 1);
+      mbar_init(&s.k_empty[i], kConsumers);
+    }
+    for (int i = 0; i < kVStages; ++i) {
+      mbar_init(&s.v_full[i], kPV8 ? 1 : 128);
+      mbar_init(&s.v_empty[i], kConsumers);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ---- producer ----------------------------------------------------------
+    setmaxnreg_dec<kPV8 ? 24 : 56>();
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    if (kPV8 && tid != 0) return;
+    if (tid == 0) {
+      prefetch_tmap(&tm_k8);
+      if (kPV8) prefetch_tmap(&tm_v8);
+    }
+    uint32_t kc = 0, vc = 0;  // k8 tiles and V tiles issued so far
+    for (int w = blockIdx.x; w < n_work; w += gridDim.x) {
+      const int bh = w / n_qtiles, b = bh / n_heads, h = bh - b * n_heads;
+      const float* ks_bh = ks + (long)bh * tk_pad;
+      const uint8_t* vb = v + b * v_bat + h * v_head;
+      for (int pass = 0; pass < kPasses; ++pass) {
+        const bool with_v = pass == kPasses - 1;
+        for (int j = 0; j < n_tiles; ++j, ++kc) {
+          if (tid == 0) {
+            const int st = kc % kFKStages;
+            mbar_wait(&s.k_empty[st], ((kc / kFKStages) & 1) ^ 1);
+            mbar_expect_tx(&s.k_full[st], kFK8Bytes + kFKsBytes);
+            tma_load_4d(s.k[st], &tm_k8, &s.k_full[st], 0, h, j * kFBN, b);
+            bulk_load(s.ks[st], ks_bh + j * kFBN, kFKsBytes, &s.k_full[st]);
+          }
+          if (!with_v) continue;
+          const int vst = vc % kVStages;
+          const uint32_t vpar = ((vc / kVStages) & 1) ^ 1;
+          ++vc;
+          if constexpr (kPV8) {
+            mbar_wait(&s.v_empty[vst], vpar);
+            mbar_expect_tx(&s.v_full[vst], kFV8Bytes);
+            tma_load_3d(s.v8[vst], &tm_v8, &s.v_full[vst], j * kFBN, 0, bh);
+          } else {
+            // V: warp w's 16 keys, two float4s of a key a lane pair, split
+            // and stored transposed, keys at vt_pos within their 8-key block
+            const int k0 = j * kFBN;
+            const int vkey = k0 + 16 * warp + (lane >> 1);
+            float4 vx[8];
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float4 f = reinterpret_cast<const float4*>(row)[c];
-        x[4 * c] = f.x, x[4 * c + 1] = f.y, x[4 * c + 2] = f.z, x[4 * c + 3] = f.w;
+            for (int i = 0; i < 8; ++i) {
+              const int vd = 4 * (2 * i + (lane & 1));
+              vx[i] = vkey < tk ? *reinterpret_cast<const float4*>(vb + vkey * v_tok + 4 * vd)
+                                : make_float4(0.f, 0.f, 0.f, 0.f);
+            }
+            mbar_wait(&s.v_empty[vst], vpar);
+            const int pos = vt_pos(16 * warp + (lane >> 1)), kblk = pos >> 5, col = pos & 31;
+#pragma unroll
+            for (int i = 0; i < 8; ++i) {
+              const int d0 = 4 * (2 * i + (lane & 1));
+              const float x[4] = {vx[i].x, vx[i].y, vx[i].z, vx[i].w};
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                float hi, lo;
+                split_tf32(x[e], hi, lo);
+                const int at = swz(d0 + e, col);
+                s.vt[vst][0][kblk][at] = hi;
+                s.vt[vst][1][kblk][at] = lo;
+              }
+            }
+            fence_proxy_async_smem();
+            mbar_arrive(&s.v_full[vst]);
+          }
+        }
       }
     }
-    float amax = 0.f;
-#pragma unroll
-    for (int i = 0; i < 16; ++i) amax = fmaxf(amax, fabsf(x[i]));
-    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, 1));
-    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, 2));
-    const float qs = fmaxf(amax, 1e-8f) * kInv127, rq = __frcp_rn(qs);
-    uint32_t w[16];
-    quant_words<16>(w, x, &qs, &rq, 0);
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-      s.q8t[4 * part + c][r] = (int)pack_low_bytes(w[4 * c], w[4 * c + 1], w[4 * c + 2], w[4 * c + 3]);
-    if (part == 0) s.qsc[r] = qs * 0.125f;
-    if constexpr (kNoMax) {  // (qs ||q8||) (kmax / 8), the TPU kernel's product
-      const float qn = code_norm(w);
-      if (part == 0) s.mb[r] = __fmul_rn(__fmul_rn(qs, qn), __fmul_rn(0.125f, kmax[bh]));
-    }
+    return;
   }
 
-  float m_row[4];  // qkpv: the exact row max; qk: the running max in log2 units; no-max: the bound
-#pragma unroll
-  for (int i = 0; i < 4; ++i) m_row[i] = -INFINITY;
-  if constexpr (kNoMax) {
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < 4; ++i) m_row[i] = s.mb[4 * ty + i];
-  } else if constexpr (kPV8) {
-    for (int jt = 0; jt < n_tiles; ++jt) {
-      __syncthreads();
-      f32_load_k8(s, k8_bh, ks_bh, k8_row, jt * kFT, tk);
-      __syncthreads();
-      float sc[4][4];
-      f32_scores(sc, s, ty, tx, jt * kFT, tk);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) m_row[i] = fmaxf(m_row[i], sc[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        m_row[i] = fmaxf(m_row[i], __shfl_xor_sync(half, m_row[i], off));
-  }
+  // ---- consumers: 64 query rows each -------------------------------------------
+  setmaxnreg_inc<kPV8 ? 240 : 224>();
+  const int c = wg - 1;
+  const int tid = threadIdx.x - 128 * wg, warp = tid >> 5, lane = tid & 31;
+  const int r0 = 16 * warp + (lane >> 2);  // this thread's rows r0 and r0 + 8 of the 64
+  const int t4 = lane & 3, col0 = 2 * t4;  // and first column in each n8 block
+  const bool ragged = tk % kFBN != 0;      // only the last key tile is masked
+  uint32_t kc = 0, vc = 0;
+  for (int w = blockIdx.x; w < n_work; w += gridDim.x) {
+    const int bh = w / n_qtiles, b = bh / n_heads, h = bh - b * n_heads;
+    const int row0 = (w - bh * n_qtiles) * kBM + c * 64 + r0;  // q row of r0
 
-  using Acc = typename std::conditional<kPV8, int, float>::type;
-  Acc acc[4][4] = {};
-  float l_run[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int jt = 0; jt < n_tiles; ++jt) {
-    const int k0 = jt * kFT;
-    __syncthreads();  // the previous tile's K8, V and P are read
-    f32_load_k8(s, k8_bh, ks_bh, k8_row, k0, tk);
+    // Q8 in registers, from this thread's 16 columns of each of its rows
+    uint32_t qa[2][4];
+    float qsc[2], qn[2];
+    {
+      float x[2][16];
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int row = row0 + 8 * rr;
+        const uint8_t* qrow = q + b * q_bat + (long long)row * q_tok + h * q_head;
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+          for (int hi = 0; hi < 2; ++hi) {
+            const float4 f = row < tq ? *reinterpret_cast<const float4*>(
+                                            qrow + 4 * (32 * kk + 16 * hi + 4 * t4))
+                                      : make_float4(0.f, 0.f, 0.f, 0.f);
+            float* dst = &x[rr][8 * kk + 4 * hi];
+            dst[0] = f.x;
+            dst[1] = f.y;
+            dst[2] = f.z;
+            dst[3] = f.w;
+          }
+      }
+      quantize_rows(qa, qsc, qn, x);
+    }
+
+    int si[kFBN / 2];    // S of the current tile, s32
+    float sf[kFBN / 2];  // its scores, then P
+    float m_row[2] = {-INFINITY, -INFINITY};  // qkpv: the exact row max; no-max: the bound
+    if constexpr (kNoMax) {
+      const float bound = __fmul_rn(0.125f, kmax[bh]);
+#pragma unroll
+      for (int r = 0; r < 2; ++r)  // (qs ||q8||) (kmax / 8); qs = 8 qsc exactly
+        m_row[r] = __fmul_rn(__fmul_rn(8.f * qsc[r], qn[r]), bound);
+    } else if constexpr (kPV8) {
+      // ---- pass 1: S and the row max only ----
+      for (int j = 0; j < n_tiles; ++j, ++kc) {
+        const int st = kc % kFKStages;
+        mbar_wait(&s.k_full[st], (kc / kFKStages) & 1);
+        wgmma_fence();
+        issue_s64(si, qa, smem_u32(s.k[st]));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_acc(si);
+        dequant<kFBN>(sf, si, s.ks[st], qsc, ragged && j == n_tiles - 1, j * kFBN + col0, tk,
+                      col0);
+        mbar_arrive(&s.k_empty[st]);
+#pragma unroll
+        for (int i = 0; i < kFBN / 8; ++i) {
+          m_row[0] = fmaxf(m_row[0], fmaxf(sf[4 * i], sf[4 * i + 1]));
+          m_row[1] = fmaxf(m_row[1], fmaxf(sf[4 * i + 2], sf[4 * i + 3]));
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        m_row[r] = fmaxf(m_row[r], __shfl_xor_sync(0xffffffffu, m_row[r], 1));
+        m_row[r] = fmaxf(m_row[r], __shfl_xor_sync(0xffffffffu, m_row[r], 2));
+      }
+    }
+
+    // ---- the P V pass (qk: the only one) ----
+    using Acc = typename std::conditional<kPV8, int, float>::type;
+    Acc oacc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) oacc[i] = 0;
+    float m_run[2] = {-INFINITY, -INFINITY};  // qk: running max, log2 units
+    float l_run[2] = {0.f, 0.f};              // this thread's partial row sums
     if constexpr (kPV8) {
-      // V8^T rows (one a head dim) at positions [k0, k0 + 64): thread i
-      // takes 16 positions of dim i / 4; position 16hi + 4t + e of each
-      // 32-key group holds key 16hi + 8(e >> 1) + 2t + (e & 1)
-      const int d = tid >> 2, part = tid & 3;
-      const int4 raw =
-          *reinterpret_cast<const int4*>(v8t + (bh * kD + d) * tk_pad + k0 + 16 * part);
-      const int8_t* bytes = reinterpret_cast<const int8_t*>(&raw);
+      // p = expf(s - m), the twin's, and p8 against the final max (or the
+      // bound); the bf16 form's peeled loop (tile 0: S only; tiles 1..n-1:
+      // S and the previous tile's P8 V8; then the last P8 V8), so that the
+      // s8 P V of one tile runs under the next tile's exponentials
+      auto softmax_p8 = [&](uint32_t (*pa)[4]) {
 #pragma unroll
-      for (int e = 0; e < 16; ++e) {
-        const int pos = 16 * part + e, k32 = pos & 31;
-        const int key = (pos & ~31) + 16 * (k32 >> 4) + 8 * ((k32 & 3) >> 1) +
-                        2 * ((k32 >> 2) & 3) + (k32 & 1);
-        s.v8[key][d] = bytes[e];
+        for (int i = 0; i < kFBN / 2; ++i) {
+          const float p = expf(sf[i] - m_row[(i >> 1) & 1]);
+          sf[i] = p;
+          l_run[(i >> 1) & 1] += p;
+        }
+        pack_p8<kFBN>(pa, sf);
+      };
+      uint32_t pa[kFBN / 32][4];
+      {
+        const int st = kc % kFKStages;
+        mbar_wait(&s.k_full[st], (kc / kFKStages) & 1);
+        wgmma_fence();
+        issue_s64(si, qa, smem_u32(s.k[st]));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_acc(si);
+        dequant<kFBN>(sf, si, s.ks[st], qsc, ragged && n_tiles == 1, col0, tk, col0);
+        mbar_arrive(&s.k_empty[st]);
+        ++kc;
+        softmax_p8(pa);
+      }
+      for (int j = 1; j < n_tiles; ++j, ++kc, ++vc) {
+        const int st = kc % kFKStages, vst = vc % kVStages;
+        mbar_wait(&s.k_full[st], (kc / kFKStages) & 1);
+        mbar_wait(&s.v_full[vst], (vc / kVStages) & 1);
+        wgmma_fence();
+        issue_s64(si, qa, smem_u32(s.k[st]));
+        wgmma_commit();
+        const uint32_t va = smem_u32(s.v8[vst]);
+#pragma unroll
+        for (int kk = 0; kk < kFBN / 32; ++kk)
+          wgmma_m64n64k32_s8_rs(oacc, pa[kk], sw64_desc(va + kk * 32, 16, 512), 1);
+        wgmma_commit();
+        wgmma_wait<1>();  // S done, P8 V8 still in flight
+        fence_acc(si);
+        dequant<kFBN>(sf, si, s.ks[st], qsc, ragged && j == n_tiles - 1, j * kFBN + col0, tk,
+                      col0);
+        mbar_arrive(&s.k_empty[st]);
+        wgmma_wait<0>();
+        fence_acc(oacc);
+        mbar_arrive(&s.v_empty[vst]);
+        softmax_p8(pa);
+      }
+      {
+        const int vst = vc % kVStages;
+        mbar_wait(&s.v_full[vst], (vc / kVStages) & 1);
+        wgmma_fence();
+        const uint32_t va = smem_u32(s.v8[vst]);
+#pragma unroll
+        for (int kk = 0; kk < kFBN / 32; ++kk)
+          wgmma_m64n64k32_s8_rs(oacc, pa[kk], sw64_desc(va + kk * 32, 16, 512), 1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_acc(oacc);
+        mbar_arrive(&s.v_empty[vst]);
+        ++vc;
       }
     } else {
+      for (int j = 0; j < n_tiles; ++j, ++kc, ++vc) {
+        const int st = kc % kFKStages, vst = vc % kVStages;
+        mbar_wait(&s.k_full[st], (kc / kFKStages) & 1);
+        wgmma_fence();
+        issue_s64(si, qa, smem_u32(s.k[st]));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_acc(si);
+        dequant<kFBN>(sf, si, s.ks[st], qsc, ragged && j == n_tiles - 1, j * kFBN + col0, tk,
+                      col0);
+        mbar_arrive(&s.k_empty[st]);
+        float corr[2] = {1.f, 1.f};
+        if constexpr (kNoMax) {
 #pragma unroll
-      for (int it = 0; it < kFT * kD / 4 / kFThreads; ++it) {
-        const int i = tid + it * kFThreads;
-        const int r = i / (kD / 4), d4 = (i % (kD / 4)) * 4;
-        float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (k0 + r < tk)
-          x = *reinterpret_cast<const float4*>(v + b * v_bat + (long long)(k0 + r) * v_tok +
-                                               h * v_head + 4 * d4);
-        *reinterpret_cast<float4*>(&s.v[r][d4]) = x;
+          for (int i = 0; i < kFBN / 2; ++i) {
+            const float p = expf(sf[i] - m_row[(i >> 1) & 1]);
+            sf[i] = p;
+            l_run[(i >> 1) & 1] += p;
+          }
+        } else {
+          // K1's online softmax in log2 units: rows r0 (e = 0, 1), r0 + 8 (2, 3)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            float mx = -INFINITY;
+#pragma unroll
+            for (int i = 0; i < kFBN / 8; ++i)
+              mx = fmaxf(mx, fmaxf(sf[4 * i + 2 * r], sf[4 * i + 2 * r + 1]));
+            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+            const float m_new = fmaxf(m_run[r], mx * kLog2e);
+            corr[r] = ex2(m_run[r] - m_new);  // 0 on the first tile
+            m_run[r] = m_new;
+            l_run[r] *= corr[r];
+          }
+#pragma unroll
+          for (int i = 0; i < kFBN / 2; ++i) {
+            const float p = ex2(fmaf(sf[i], kLog2e, -m_run[(i >> 1) & 1]));
+            sf[i] = p;
+            l_run[(i >> 1) & 1] += p;
+          }
+        }
+        // P split: high parts in d[0..31], residuals in d[32..63]
+        float d[kFBN];
+#pragma unroll
+        for (int i = 0; i < kFBN / 2; ++i) split_tf32(sf[i], d[i], d[kFBN / 2 + i]);
+        // the tile's P V = P_lo V_hi + P_hi V_lo + P_hi V_hi in an
+        // accumulator of its own, k-step ks over keys 8ks ..: A fragment (t,
+        // t + 4) of rows g, g + 8 = accumulator columns (2t, 2t + 1)
+        uint32_t va = smem_u32(s.vt[vst][0][0]);
+        asm volatile("" : "+r"(va));
+        float otile[32];
+        mbar_wait(&s.v_full[vst], (vc / kVStages) & 1);
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < kFBN / 8; ++ks) {
+          const uint32_t a_hi[4] = {__float_as_uint(d[4 * ks]), __float_as_uint(d[4 * ks + 2]),
+                                    __float_as_uint(d[4 * ks + 1]),
+                                    __float_as_uint(d[4 * ks + 3])};
+          const uint32_t a_lo[4] = {
+              __float_as_uint(d[kFBN / 2 + 4 * ks]), __float_as_uint(d[kFBN / 2 + 4 * ks + 2]),
+              __float_as_uint(d[kFBN / 2 + 4 * ks + 1]),
+              __float_as_uint(d[kFBN / 2 + 4 * ks + 3])};
+          wgmma_m64n64k8_tf32_rs(otile, a_lo, tc_desc(va, ks), ks);
+          wgmma_m64n64k8_tf32_rs(otile, a_hi, tc_desc(va + 4 * 2 * kBlk, ks), 1);
+          wgmma_m64n64k8_tf32_rs(otile, a_hi, tc_desc(va, ks), 1);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_acc(otile);
+        fence_acc(d);
+        mbar_arrive(&s.v_empty[vst]);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) oacc[i] = fmaf(oacc[i], corr[(i >> 1) & 1], otile[i]);
       }
     }
-    __syncthreads();
 
-    float sc[4][4];
-    f32_scores(sc, s, ty, tx, k0, tk);
+    // ---- epilogue: full row sums over the quad, normalise, store ------------
+    const float* vsb = vs + (long)bh * kD;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      if constexpr (kPV8 || kNoMax) {
+    for (int r = 0; r < 2; ++r) {
+      l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+      l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+      const int row = row0 + 8 * r;
+      if (row >= tq) continue;
+      const float l_safe = fmaxf(l_run[r], 1e-30f);
+      float* dst = o + (((long long)b * tq + row) * n_heads + h) * kD + col0;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          // expf of the same fp32 difference as the twin's exp: p, and so
-          // its rounding to p8, is the twin's bit for bit on the card
-          const float p = expf(sc[i][j] - m_row[i]);
-          l_run[i] += p;
+      for (int i = 0; i < 8; ++i) {
+        float x[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
           if constexpr (kPV8)
-            s.p8t[4 * tx + j][4 * ty + i] = (int)(p8_word(p) & 0xffu);
+            x[e] = __int2float_rn(oacc[4 * i + 2 * r + e]) * (kInv127 * vsb[8 * i + col0 + e]);
           else
-            s.pt[4 * tx + j][4 * ty + i] = p;
+            x[e] = oacc[4 * i + 2 * r + e];
         }
-      } else {
-        float mx = -INFINITY;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mx = fmaxf(mx, sc[i][j]);
-#pragma unroll
-        for (int off = 8; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(half, mx, off));
-        const float m_new = fmaxf(m_row[i], mx * kLog2e);
-        const float corr = ex2(m_row[i] - m_new);  // 0 on the first tile
-        m_row[i] = m_new;
-        l_run[i] *= corr;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float p = ex2(fmaf(sc[i][j], kLog2e, -m_new));
-          l_run[i] += p;
-          s.pt[4 * tx + j][4 * ty + i] = p;
-          acc[i][j] *= corr;
-        }
+        *reinterpret_cast<float2*>(dst + 8 * i) =
+            make_float2(__fdiv_rn(x[0], l_safe), __fdiv_rn(x[1], l_safe));
       }
+      if (t4 == 0)
+        lse[(long)bh * tq + row] =
+            (kPV8 || kNoMax ? m_row[r] : m_run[r] * kLn2) + logf(l_safe);
     }
-    __syncthreads();
-
-    // O += P V (qk, FFMA) or p8 V8 (qkpv, int32) for rows 4ty.., dims 4tx..
-#pragma unroll 8
-    for (int kk = 0; kk < kFT; ++kk) {
-      if constexpr (kPV8) {
-        const int4 a = *reinterpret_cast<const int4*>(&s.p8t[kk][4 * ty]);
-        const int4 c = *reinterpret_cast<const int4*>(&s.v8[kk][4 * tx]);
-        const int av[4] = {a.x, a.y, a.z, a.w}, cv[4] = {c.x, c.y, c.z, c.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] += av[i] * cv[j];
-      } else {
-        const float4 a = *reinterpret_cast<const float4*>(&s.pt[kk][4 * ty]);
-        const float4 c = *reinterpret_cast<const float4*>(&s.v[kk][4 * tx]);
-        const float av[4] = {a.x, a.y, a.z, a.w}, cv[4] = {c.x, c.y, c.z, c.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], cv[j], acc[i][j]);
-      }
-    }
-  }
-
-  // each thread's sums cover its own keys: the row's sum over the half-warp
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float l = l_run[i];
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1) l += __shfl_xor_sync(half, l, off);
-    const int row = q0 + 4 * ty + i;
-    if (row >= tq) continue;
-    const float l_safe = fmaxf(l, 1e-30f);
-    float y[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      float x;
-      if constexpr (kPV8)
-        x = __int2float_rn(acc[i][j]) * (kInv127 * vs[bh * kD + 4 * tx + j]);
-      else
-        x = acc[i][j];
-      y[j] = __fdiv_rn(x, l_safe);
-    }
-    *reinterpret_cast<float4*>(o + (((long long)b * tq + row) * n_heads + h) * kD + 4 * tx) =
-        make_float4(y[0], y[1], y[2], y[3]);
-    if (tx == 0)
-      lse[bh * tq + row] = (kPV8 || kNoMax ? m_row[i] : m_row[i] * kLn2) + logf(l_safe);
   }
 }
 
@@ -1068,17 +1227,28 @@ bool encode(CUtensorMap* map, CUtensorMapDataType type, cuuint32_t rank, const v
 }
 
 // 4-D map (head dim 64, heads, tokens, batch) of a (B, T, H, 64) tensor
-// with the given byte strides; 128-token boxes of one head, zero-filled
-// past T.
+// with the given byte strides; boxes of `rows` tokens of one head,
+// zero-filled past T.
 bool make_map(CUtensorMap* map, CUtensorMapDataType type, CUtensorMapSwizzle swizzle,
               const void* base, int batch, int t, int n_heads, long long head_bytes,
-              long long token_bytes, long long batch_bytes) {
+              long long token_bytes, long long batch_bytes, int rows = kBN) {
   const cuuint64_t dims[4] = {(cuuint64_t)kD, (cuuint64_t)n_heads, (cuuint64_t)t,
                               (cuuint64_t)batch};
   const cuuint64_t strides[3] = {(cuuint64_t)head_bytes, (cuuint64_t)token_bytes,
                                  (cuuint64_t)batch_bytes};
-  const cuuint32_t box[4] = {kD, 1, kBN, 1};
+  const cuuint32_t box[4] = {kD, 1, (cuuint32_t)rows, 1};
   return encode(map, type, 4, base, dims, strides, box, swizzle);
+}
+
+// 3-D map (keys, head dims, batch * heads) of V8^T (B, H, 64, tk_pad):
+// boxes of `keys` keys x 64 dims, swizzled to the box's row bytes.
+bool make_v8t_map(CUtensorMap* map, const void* v8t, int batch, int n_heads, int tk_pad,
+                  int keys, CUtensorMapSwizzle swizzle) {
+  const cuuint64_t dims[3] = {(cuuint64_t)tk_pad, (cuuint64_t)kD,
+                              (cuuint64_t)batch * n_heads};
+  const cuuint64_t strides[2] = {(cuuint64_t)tk_pad, (cuuint64_t)tk_pad * kD};
+  const cuuint32_t box[3] = {(cuuint32_t)keys, kD, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, v8t, dims, strides, box, swizzle);
 }
 
 // The launches of either C entry, on the card it entered (phases as the
@@ -1105,18 +1275,19 @@ int launch(int card, const void* q, const void* k, const void* v, void* o, void*
   static int n_sms_of[kwt_card::kMaxCards] = {};
   int& n_sms = n_sms_of[card];
   const int smem = static_cast<int>(sizeof(Smem)) + 1024;  // + alignment slack
+  const int f32_smem = static_cast<int>(sizeof(F32Smem)) + 1024;
   if (n_sms == 0) {
-    cudaError_t e = cudaFuncSetAttribute(flash_int8_kernel<false, false>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(flash_int8_kernel<true, false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(flash_int8_kernel<false, true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(flash_int8_kernel<true, true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    const void* kernels[8] = {
+        (const void*)flash_int8_kernel<false, false>, (const void*)flash_int8_kernel<true, false>,
+        (const void*)flash_int8_kernel<false, true>, (const void*)flash_int8_kernel<true, true>,
+        (const void*)flash_int8_f32_kernel<false, false>,
+        (const void*)flash_int8_f32_kernel<true, false>,
+        (const void*)flash_int8_f32_kernel<false, true>,
+        (const void*)flash_int8_f32_kernel<true, true>};
+    cudaError_t e = cudaSuccess;
+    for (int i = 0; i < 8 && e == cudaSuccess; ++i)
+      e = cudaFuncSetAttribute(kernels[i], cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               i < 4 ? smem : f32_smem);
     if (e == cudaSuccess) e = cudaDeviceGetAttribute(&n_sms, cudaDevAttrMultiProcessorCount, card);
     if (e != cudaSuccess) {
       n_sms = 0;  // try again on the next call
@@ -1144,41 +1315,44 @@ int launch(int card, const void* q, const void* k, const void* v, void* o, void*
   }
   if (!(phases & 2)) return static_cast<int>(cudaSuccess);
 
+  const long long k8_token = (long long)n_heads * kD;
+  const int n_qtiles = (tq + kBM - 1) / kBM;
+  const int n_work = n_qtiles * batch * n_heads;
   if (f32) {
-    const dim3 grid((tq + kFT - 1) / kFT, n_heads, batch);
+    // k8 in 64-key boxes; qkpv: V8^T in 64-key boxes (qk reads v itself)
+    CUtensorMap tm_k8, tm_v8;
+    bool ok = make_map(&tm_k8, CU_TENSOR_MAP_DATA_TYPE_UINT8, CU_TENSOR_MAP_SWIZZLE_64B, k8,
+                       batch, tk, n_heads, kD, k8_token, k8_token * tk, kFBN);
+    if (pv8)
+      ok = ok && make_v8t_map(&tm_v8, v8t, batch, n_heads, tk_pad, kFBN,
+                              CU_TENSOR_MAP_SWIZZLE_64B);
+    else
+      tm_v8 = tm_k8;  // not read
+    if (!ok) return static_cast<int>(cudaErrorInvalidValue);
     auto kernel = pv8 ? (no_max ? flash_int8_f32_kernel<true, true>
                                 : flash_int8_f32_kernel<true, false>)
                       : (no_max ? flash_int8_f32_kernel<false, true>
                                 : flash_int8_f32_kernel<false, false>);
-    kernel<<<grid, kFThreads, sizeof(F32Smem), cs>>>(
-        static_cast<const uint8_t*>(q), k8, ks, static_cast<const uint8_t*>(v), v8t, vs, kmax,
-        static_cast<float*>(o), static_cast<float*>(lse), tq, tk, tk_pad, n_heads, st[0], st[1],
-        st[2], st[6], st[7], st[8]);
+    kernel<<<n_work < n_sms ? n_work : n_sms, kThreads, f32_smem, cs>>>(
+        tm_k8, tm_v8, static_cast<const uint8_t*>(q), static_cast<const uint8_t*>(v), ks, vs,
+        kmax, static_cast<float*>(o), static_cast<float*>(lse), tq, tk, tk_pad, n_heads,
+        n_qtiles, n_work, st[0], st[1], st[2], st[6], st[7], st[8]);
     return static_cast<int>(cudaGetLastError());
   }
 
   CUtensorMap tm_q, tm_k8, tm_v;
-  const long long k8_token = (long long)n_heads * kD;
   bool ok = make_map(&tm_q, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, CU_TENSOR_MAP_SWIZZLE_128B, q,
                      batch, tq, n_heads, st[0], st[1], st[2]) &&
             make_map(&tm_k8, CU_TENSOR_MAP_DATA_TYPE_UINT8, CU_TENSOR_MAP_SWIZZLE_64B, k8, batch,
                      tk, n_heads, kD, k8_token, k8_token * tk);
   if (pv8) {
-    // (keys, head dims, batch * heads): boxes of 128 keys x 64 dims
-    const cuuint64_t dims[3] = {(cuuint64_t)tk_pad, (cuuint64_t)kD,
-                                (cuuint64_t)batch * n_heads};
-    const cuuint64_t strides[2] = {(cuuint64_t)tk_pad, (cuuint64_t)tk_pad * kD};
-    const cuuint32_t box[3] = {kBN, kD, 1};
-    ok = ok && encode(&tm_v, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, v8t, dims, strides, box,
-                      CU_TENSOR_MAP_SWIZZLE_128B);
+    ok = ok && make_v8t_map(&tm_v, v8t, batch, n_heads, tk_pad, kBN, CU_TENSOR_MAP_SWIZZLE_128B);
   } else {
     ok = ok && make_map(&tm_v, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, CU_TENSOR_MAP_SWIZZLE_128B, v,
                         batch, tk, n_heads, st[6], st[7], st[8]);
   }
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
 
-  const int n_qtiles = (tq + kBM - 1) / kBM;
-  const int n_work = n_qtiles * batch * n_heads;
   auto kernel = pv8 ? (no_max ? flash_int8_kernel<true, true> : flash_int8_kernel<true, false>)
                     : (no_max ? flash_int8_kernel<false, true> : flash_int8_kernel<false, false>);
   kernel<<<n_work < n_sms ? n_work : n_sms, kThreads, smem, cs>>>(

@@ -42,7 +42,9 @@ Each form is one launch a call:
   `RingPlan.chunk` with an online softmax;
 - beam: `beam_plan` gives each CTA one (group, head, 16-beam tile) and,
   where that leaves the card idle, a share of the keys, the shares of a
-  tile combining over a cluster (the fp32 form on FFMAs, the same grid).
+  tile combining over a cluster; the fp32 form (FFMAs) its own grid of
+  tiles of at most 8 beams (`beam_f32_rows`) and shares of 32-key chunks,
+  as many as one wave of BEAM_F32_CTAS_PER_SM CTAs an SM holds.
   `beam_walk`, `ring_walk` and `int4_walk` repeat the kernels' arithmetic
   in their order on the CPU, each form's (`q_dtype`).
 """
@@ -72,8 +74,12 @@ BEAM_WARPS = 4       # consumer warps a CTA, taking the key tiles in turn
 # (uint8: packed int4)
 KV_HEAD_BYTES = {torch.float32: 256, torch.bfloat16: 128, torch.int8: 64, torch.uint8: 32}
 BEAM_STAGES = {torch.int8: 8, torch.bfloat16: 4, torch.uint8: 16}  # its copy ring
-# the fp32 form's copy ring by K/V dtype (csrc/decode_attention_beam.cu F32Mode)
-BEAM_F32_STAGES = {torch.float32: 3, torch.int8: 6, torch.uint8: 8}
+BEAM_F32_ROWS = 8    # most beams a tile of the fp32 beam form
+BEAM_F32_CHUNK = 32  # keys a warp of the fp32 beam form takes at a time, one a lane
+BEAM_F32_WARPS = 4   # warps an fp32 beam CTA, taking the chunks in turn
+# the fp32 beam grid: one wave of CTAs, as many an SM as registers allow
+# (csrc/decode_attention_beam.cu F32Mode::kCtasPerSm, its launch bounds)
+BEAM_F32_CTAS_PER_SM = {torch.float32: 3, torch.int8: 4, torch.uint8: 4}
 PREFIX_STAGE_BYTES = 20480  # a stage of the prefix kernel's copy ring
 INT4_BOX = 64       # cache rows a TMA box of the int4 head kernel
 INT4_RING = 32768   # bytes of its copy ring
@@ -283,18 +289,14 @@ def beam_smem_bytes(kv_dtype, q_dtype=torch.bfloat16) -> int:
     """Dynamic shared memory of a beam CTA (the kernel's `sizeof(Smem)`,
     rounded to its 1024-byte alignment, plus 1024 of alignment slack): the
     K and V ring, the scales a stage, each consumer warp's O, max and sum,
-    the CTA's merged ones, the barriers. The fp32 form's (`sizeof(F32Smem)`):
-    its ring of K rows padded by 16 bytes (the warps' O and the merged state
-    in their place once drained), V and the scales, q, the warps' P, maxima
-    and sums."""
+    the CTA's merged ones, the barriers. The fp32 form's (`sizeof(F32Smem)`,
+    the same for every K/V dtype: it reads K and V into registers): q, each
+    warp's P of a chunk, O, max and sum, the CTA's merged ones."""
     keys, rows, hd = BEAM_KEY_TILE, BEAM_ROWS, 64
     row = _head_bytes(kv_dtype)
     if _fp32_form(kv_dtype, q_dtype):
-        stages = BEAM_F32_STAGES[kv_dtype]
-        fin = BEAM_WARPS * rows * hd * 4 + rows * hd * 4 + 2 * rows * 4
-        return (max(stages * keys * (row + 16), fin) + stages * keys * row
-                + 2 * stages * keys * 4 + rows * hd * 4 + BEAM_WARPS * rows * 16 * 4
-                + 2 * BEAM_WARPS * rows * 4)
+        r, w = BEAM_F32_ROWS, BEAM_F32_WARPS
+        return 4 * (r * hd + w * r * BEAM_F32_CHUNK + w * r * hd + 2 * w * r + r * hd + 2 * r)
     stages = BEAM_STAGES[kv_dtype]
     size = (2 * stages * keys * row + 2 * stages * keys * 4
             + BEAM_WARPS * rows * hd * 4 + 2 * BEAM_WARPS * rows * 4
@@ -302,8 +304,15 @@ def beam_smem_bytes(kv_dtype, q_dtype=torch.bfloat16) -> int:
     return -(-size // 1024) * 1024 + 1024
 
 
+def beam_f32_rows(beams: int) -> int:
+    """Beams a tile of the fp32 beam form (csrc `f32_rows`, the kernel's
+    template argument): ceil(K / ceil(K / BEAM_F32_ROWS)), the tiles as
+    even as they can be; only these rows are computed."""
+    return -(-beams // -(-beams // BEAM_F32_ROWS))
+
+
 class BeamPlan(NamedTuple):
-    m_tiles: int         # 16-beam tiles
+    m_tiles: int         # beam tiles: 16 beams (fp32 form: `beam_f32_rows`)
     splits: int          # key shares of a (group, head, tile): the cluster's x
     keys_per_split: int  # a multiple of BEAM_KEY_TILE
     grid: tuple          # (splits, H * m_tiles, G): CTA (x, y, z) is share x of head
@@ -317,10 +326,25 @@ def beam_plan(g: int, t: int, n_heads: int, beams: int, kv_dtype,
     """The beam kernel's grid: one CTA per (group, head, 16-beam tile),
     split over key shares of whole tiles, up to a cluster of MAX_CLUSTER,
     while the CTAs would not fill two an SM; no share is empty. The fp32
-    form (fp32 q or K/V) takes the same grid and its own shared memory."""
+    form (fp32 q or K/V): one CTA per (group, head, tile of
+    `beam_f32_rows` beams), split over key shares of whole rounds of
+    BEAM_F32_WARPS 32-key chunks, up to a cluster of MAX_CLUSTER, while the
+    CTAs fit one wave of BEAM_F32_CTAS_PER_SM[K/V dtype] an SM (a second,
+    partial wave measured slower than fewer, longer CTAs)."""
     if min(g, t, n_heads, beams) < 1:
         raise ValueError(f"K2's beam form needs groups, keys, heads and beams, got G={g}, "
                          f"T={t}, H={n_heads}, K={beams}")
+    if _fp32_form(kv_dtype, q_dtype):
+        m_tiles = -(-beams // beam_f32_rows(beams))
+        n_chunks = -(-t // BEAM_F32_CHUNK)
+        rounds = -(-n_chunks // BEAM_F32_WARPS)  # chunks a round of the CTA's warps
+        items = g * n_heads * m_tiles
+        slots = BEAM_F32_CTAS_PER_SM.get(kv_dtype, 4) * n_sms
+        splits = max(1, min(MAX_CLUSTER, rounds, slots // items))
+        per = -(-rounds // splits) * BEAM_F32_WARPS  # chunks a share
+        splits = -(-n_chunks // per)
+        return BeamPlan(m_tiles, splits, per * BEAM_F32_CHUNK, (splits, n_heads * m_tiles, g),
+                        beam_smem_bytes(kv_dtype, q_dtype))
     m_tiles = -(-beams // BEAM_ROWS)
     n_tiles = -(-t // BEAM_KEY_TILE)
     items = g * n_heads * m_tiles
@@ -422,11 +446,12 @@ def beam_walk(q, k_flat, v_flat, *, n_heads, k_scale=None, v_scale=None, p_dtype
     one its own head's. -> (G, K, H, 64).
 
     q_dtype float32: the fp32 form's order instead (p_dtype and out_dtype
-    are then fp32): q kept in fp32 and scaled by log2(e)/8 before the
-    product, each share's tiles taken by all BEAM_WARPS warps, warp w its
-    keys [16w, 16w + 16) of every tile with a running state of its own
-    (the scores times k_scale, max, 2^(s - m), sum, O rescaled, P * v_scale
-    in fp32 before P V), then the warps' and shares' states merged."""
+    are then fp32): `beam_plan`'s tiles of `beam_f32_rows` beams and key
+    shares, q kept in fp32 and scaled by log2(e)/8 before the product, each
+    share's 32-key chunks taken by BEAM_F32_WARPS warps in turn, each with
+    a running state of its own (the scores times k_scale, max, 2^(s - m),
+    sum, O rescaled, P * v_scale in fp32 before P V), then the warps' and
+    shares' states merged."""
     if q_dtype == torch.float32:
         return _beam_walk_f32(q, k_flat, v_flat, n_heads, k_scale, v_scale, n_sms)
     g, beams, _, hd = q.shape
@@ -487,23 +512,23 @@ def _beam_walk_f32(q, k_flat, v_flat, n_heads, k_scale, v_scale, n_sms):
     ones = torch.ones(g, 1, t, device=q.device)
     ks = k_scale.float().permute(0, 2, 1) if k_scale is not None else ones
     vs = v_scale.float().permute(0, 2, 1) if v_scale is not None else ones
-    per_warp = BEAM_KEY_TILE // BEAM_WARPS
+    chunk, rows = BEAM_F32_CHUNK, beam_f32_rows(beams)
     out = torch.empty(g, beams, n_heads, hd, dtype=torch.float32, device=q.device)
     for mt in range(plan.m_tiles):
-        qt = qf[:, mt * BEAM_ROWS:(mt + 1) * BEAM_ROWS]  # (G, R, H, 64)
+        qt = qf[:, mt * rows:(mt + 1) * rows]  # (G, R, H, 64)
         shares = []
         for x in range(plan.splits):
             k0 = x * plan.keys_per_split
             k1 = min(t, k0 + plan.keys_per_split)
+            n_chunks = -(-(k1 - k0) // chunk)
             warps = []
-            for w in range(BEAM_WARPS):
+            for w in range(BEAM_F32_WARPS):
                 m = torch.full(qt.shape[:3], float("-inf"), device=q.device)
                 l = torch.zeros(qt.shape[:3], device=q.device)
                 o = torch.zeros(qt.shape, device=q.device)
-                for a0 in range(k0, k1, BEAM_KEY_TILE):
-                    a, e = a0 + w * per_warp, min(k1, a0 + (w + 1) * per_warp)
-                    if a >= e:
-                        continue
+                for c in range(w, n_chunks, BEAM_F32_WARPS):
+                    a = k0 + c * chunk
+                    e = min(k1, a + chunk)
                     s = torch.einsum("grhd,gnhd->grhn", qt, kf[:, a:e]) * ks[:, None, :, a:e]
                     m_new = torch.maximum(m, s.amax(-1))
                     corr = torch.exp2(m - m_new)
@@ -515,7 +540,7 @@ def _beam_walk_f32(q, k_flat, v_flat, n_heads, k_scale, v_scale, n_sms):
                 warps.append((m, l, o))
             shares.append(_merge(warps))
         _, l, o = _merge(shares)
-        out[:, mt * BEAM_ROWS:(mt + 1) * BEAM_ROWS] = o / l[..., None]
+        out[:, mt * rows:(mt + 1) * rows] = o / l[..., None]
     return out
 
 

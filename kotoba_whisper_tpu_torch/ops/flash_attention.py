@@ -620,6 +620,9 @@ def flash_attention_int8_reference(q, k8, ks, v, vs, pv8, no_max=False):
 # K8's key tiles (csrc/flash_attention_int8.cu): the pre-pass pads ks and
 # V8^T to whole tiles
 INT8_KTILE = 128
+# K8's fp32-q kernel: keys a tile and query rows a work item (two consumer
+# warpgroups of 64), the order its CPU walk takes
+INT8_F32_KEYS, INT8_F32_ROWS = 64, 128
 # Position k of each 32-key group of V8^T holds key V8T_KEY_ORDER[k]:
 # k = 16hi + 4t + i holds key 16hi + 8(i >> 1) + 2t + (i & 1), the keys a
 # thread's s32 score accumulators hold where the s8 A fragment of the

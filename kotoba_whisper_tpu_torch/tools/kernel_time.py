@@ -1,8 +1,7 @@
-"""Device time of K2's self-attention and cross calls, K1/K4's fp32 forms,
-K5's fp32 backward and K7's fp32 form at the shapes of the path that runs
-them, alone on
-the card, so two trees of the
-repository can be timed in turns (one process each, alternating which
+"""Device time of K2's self-attention, cross and beam calls, K1/K4's fp32
+forms, K5's fp32 backward, K7's fp32 form and K8 at the shapes of the path
+that runs them, alone on the card, so two trees of the repository can be
+timed in turns (one process each, alternating which
 runs first) on one card: run it from two `git archive` checkouts, copying
 this file into one that lacks it. It calls only the wrappers' public entry
 points, whichever form they pick; the library call beside each (PyTorch's
@@ -37,6 +36,13 @@ card's name and power limit.
 1 (one cluster: its latency), 1 x 20, 4 x 20 and 8 x 20 (the path's), and
 at T=64 (one key tile, no cluster partner) and 256, 8 x 20: how its time
 splits between one cluster's latency and the card's throughput.
+
+- K8: the int8 attention core at the encoder's shape (B=16, T=1500), its
+  fp32-q form (phase 4k(f): qk, qkpv and both no-max forms) and the bf16
+  form's qk and qkpv (phase 4d).
+- K2 beam: the beam form at beam search's shape (12 groups x 5 beams over
+  T=1500): fp32 q over fp32, int8 (fp32 row scales) and packed int4 K/V
+  (phase 4k(b)), and bf16 q over bf16, int8 and int4 K/V.
 
 A row whose call launches more than one kernel (K5 fp32 cross and K7
 fp32, for instance) also records kernels_ms: the device ms a call spends
@@ -250,6 +256,50 @@ def _k2_cross_rows():
     return rows
 
 
+def _k8_rows():
+    """K8 at the encoder's shape, fp32-q and bf16 forms -> {name: call}."""
+    rows = {}
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        q, k, v = (_randn(ENC_B, T_ENC, HEADS, 64, seed=s, dtype=dtype) for s in (59, 60, 61))
+        for mode in ("qk", "qkpv"):
+            for no_max in ((False, True) if dtype == torch.float32 else (False,)):
+                def call(q=q, k=k, v=v, mode=mode, no_max=no_max):
+                    return fa.flash_attention_int8(q, k, v, mode=mode, no_max=no_max)
+
+                rows[f"k8_{tag}_{mode}{'_nomax' if no_max else ''}"] = call
+    return rows
+
+
+def _beam_rows():
+    """K2's beam form at beam search's shape -> {name: call}."""
+    rows = {}
+    g, beams = 12, 5
+    for name, mode, q_dtype in (("beam_f32", "fp32", torch.float32),
+                                ("beam_f32_int8", "int8", torch.float32),
+                                ("beam_f32_int4", "int4", torch.float32),
+                                ("beam_bf16", "bf16", torch.bfloat16),
+                                ("beam_bf16_int8", "int8", torch.bfloat16),
+                                ("beam_bf16_int4", "int4", torch.bfloat16)):
+        q = _randn(g, beams, HEADS, 64, seed=52, dtype=q_dtype)
+        kv = []
+        for seed in (53, 54):
+            x = _randn(g, T_ENC, HEADS * 64, seed=seed, dtype=torch.float32)
+            if mode == "int4":
+                codes, scale = whisper.quantize_kv_heads(x, HEADS, 4)
+                kv.append((whisper.pack_int4(codes), scale))
+            elif mode == "int8":
+                kv.append(whisper.quantize_kv_rows(x))
+            else:
+                kv.append((x.to(q_dtype), None))
+        (k, ks), (v, vs) = kv
+
+        def call(q=q, k=k, v=v, ks=ks, vs=vs):
+            return da.decode_attention_beam(q, k, v, n_heads=HEADS, k_scale=ks, v_scale=vs)
+
+        rows[name] = call
+    return rows
+
+
 def k5_sweep() -> dict:
     """Device ms of K5's fp32 causal call at (B, H, T) -> {"BxHxT": ms}."""
     f32 = torch.float32
@@ -264,7 +314,8 @@ def k5_sweep() -> dict:
 
 
 def measure(reps: int) -> dict:
-    makers = (_self_rows, _k2_cross_rows, _k1_f32_rows, _k5_rows, _k7_f32_rows)
+    makers = (_self_rows, _k2_cross_rows, _k1_f32_rows, _k5_rows, _k7_f32_rows, _k8_rows,
+              _beam_rows)
     rows = {}
     for make in makers:
         rows.update(make())

@@ -20,6 +20,12 @@
   with ragged query and key tiles; in bf16 it stays within the card
   test's bounds of the plain twin (the online softmax rounds P to bf16
   against a running max).
+- The fp32-q kernel's walk (`k8_f32_walk`: 64-key tiles, S exact in
+  integers, qk's P V in 3xTF32 a tile, qkpv's p = exp(s - m)) equals the
+  plain twin to 1e-5 and JAX's kernel in interpret mode to 1e-4; its
+  persistent grid covers every query row once and its shared memory fits
+  (tests/test_torch_k8_f32_tc.py holds the no-max forms, the witness and
+  the TF32-only control).
 - The pre-pass's twin lays out the twin quantizers' outputs as the kernel
   writes them, and `_int8_plan` packs shapes, strides and scratch offsets,
   rejects what the kernel cannot read, and the wrapper checks addresses
@@ -32,6 +38,7 @@ import torch
 
 from kotoba_whisper_tpu.ops import flash_attention as jfa
 from kotoba_whisper_tpu_torch.ops import flash_attention as fa
+from tests.test_torch_flash_bwd_plan import _tf32
 
 LOG2E = torch.tensor(1.4426950408889634, dtype=torch.float32)
 MAGIC = 12582912.0  # 1.5 * 2^23
@@ -293,19 +300,34 @@ def test_walk_matches_plain_twin_bf16(mode):
     assert float((got_lse - ref_lse).abs().max()) <= 1e-3
 
 
-def k8_f32_walk(q, k, v, pv8):
+def _pv3(p, v, three=True):
+    """P V of one tile in 3xTF32, as the fp32-q kernel's qk mode takes it:
+    P and V each a TF32 high part and its residual read as TF32, (P_lo V_hi
+    + P_hi V_lo) + P_hi V_hi in fp32 sums; three=False takes P_hi V_hi alone
+    (the control)."""
+    p_hi, v_hi = _tf32(p), _tf32(v)
+    tile = p_hi @ v_hi
+    if three:
+        tile = (_tf32(p - p_hi, False) @ v_hi + p_hi @ _tf32(v - v_hi, False)) + tile
+    return tile
+
+
+def k8_f32_walk(q, k, v, pv8, no_max=False, three=True):
     """K8's fp32-q kernel in its order, from the pre-pass's outputs (its
-    twin's layout): 64-row query tiles, q quantized per row, 64-key tiles
-    of s32 = Q8 K8^T dequantized as s32 * ((qs / 8) * ks), keys past tk
-    masked; qk: the online softmax in log2 units with P and V in fp32;
-    qkpv: the row max over every tile, then p = exp(s - m), p8 by adding
-    1.5 * 2^23, V8 of each key read from V8^T at the kernel's position
-    formula, integer P V, times (1/127) * vs; O / l_safe.
-    -> (O (B, Tq, H, 64) fp32, LSE (B, H, Tq))."""
+    twin's layout): 128-row work items (two consumer halves of 64), q
+    quantized per row, 64-key tiles of s32 = Q8 K8^T (s8 wgmma: exact)
+    dequantized as s32 * ((qs / 8) * ks), keys past tk masked; qk: the
+    online softmax in log2 units and each tile's P V in 3xTF32 (`_pv3`)
+    from a fresh sum, added to O after its rescale in one FMA; qkpv: the
+    row max over every tile, then p = exp(s - m), p8 by adding 1.5 * 2^23,
+    V8 of each key read from V8^T at the kernel's position formula, integer
+    P V, times (1/127) * vs; no_max: each row's bound (qs ||q8||) (kmax / 8)
+    in place of its max, one pass, p = exp(s - m) in both modes; O /
+    l_safe. -> (O (B, Tq, H, 64) fp32, LSE (B, H, Tq))."""
     b, tq, h, d = q.shape
     tk = k.shape[1]
-    t = 64
-    k8, ks, v8t, vs = fa.int8_prepass_reference(k, v, pv8)
+    t = fa.INT8_F32_KEYS
+    k8, ks, v8t, vs, *bound = fa.int8_prepass_reference(k, v, pv8, no_max)
     qf = q.transpose(1, 2)
     k8f = k8.double().transpose(1, 2)
     if pv8:  # V8 by key, read from V8^T: position p of a tile holds key
@@ -318,22 +340,25 @@ def k8_f32_walk(q, k, v, pv8):
     else:
         vt = v.transpose(1, 2)
     o, lse = torch.empty(b, h, tq, d), torch.empty(b, h, tq)
-    for q0 in range(0, tq, t):
-        rows = qf[:, :, q0:q0 + t]
+    for q0 in range(0, tq, fa.INT8_F32_ROWS):
+        rows = qf[:, :, q0:q0 + fa.INT8_F32_ROWS]
         qs = torch.clamp(rows.abs().amax(-1, keepdim=True), min=1e-8) * INV127
         q8 = torch.round(rows / qs).double()
 
         def scores(k0):
             s32 = (q8 @ k8f[:, :, k0:k0 + t].transpose(-1, -2)).round()
-            s = s32.float() * ((qs * 0.125) * ks[:, :, None, k0:k0 + s32.shape[-1]])
-            return s
+            return s32.float() * ((qs * 0.125) * ks[:, :, None, k0:k0 + s32.shape[-1]])
 
         n = rows.shape[2]
         l_run = torch.zeros(b, h, n, 1)
-        if pv8:
-            m = torch.full((b, h, n, 1), float("-inf"))
+        m = torch.full((b, h, n, 1), float("-inf"))
+        if no_max:  # (qs ||q8||) (kmax / 8): the codes' norm exact, three fp32 products
+            qn = q8.square().sum(-1, keepdim=True).sqrt().float()
+            m = (qs * qn) * (0.125 * bound[1])[:, :, None, None]
+        elif pv8:
             for k0 in range(0, tk, t):
                 m = torch.maximum(m, scores(k0).amax(-1, keepdim=True))
+        if pv8:
             acc = torch.zeros(b, h, n, d, dtype=torch.float64)
             for k0 in range(0, tk, t):
                 p = torch.exp(scores(k0) - m)
@@ -342,20 +367,24 @@ def k8_f32_walk(q, k, v, pv8):
                 acc += p8.double() @ vt[:, :, k0:k0 + p.shape[-1]]
             out, lse_t = acc.float() * (INV127 * vs[:, :, None, :]), m
         else:
-            m_run = torch.full((b, h, n, 1), float("-inf"))
             acc = torch.zeros(b, h, n, d)
             for k0 in range(0, tk, t):
                 sc = scores(k0)
-                m_new = torch.maximum(m_run, sc.amax(-1, keepdim=True) * LOG2E)
-                corr = torch.exp2(m_run - m_new)
-                p = torch.exp2(_fma(sc, LOG2E, -m_new))
-                l_run = l_run * corr + p.sum(-1, keepdim=True)
-                acc = acc * corr + p @ vt[:, :, k0:k0 + p.shape[-1]]
-                m_run = m_new
-            out, lse_t = acc, m_run * torch.log(torch.tensor(2.0))
+                if no_max:
+                    p, corr = torch.exp(sc - m), torch.ones_like(m)
+                    l_run = l_run + p.sum(-1, keepdim=True)
+                else:
+                    m_new = torch.maximum(m, sc.amax(-1, keepdim=True) * LOG2E)
+                    corr = torch.exp2(m - m_new)
+                    p = torch.exp2(_fma(sc, LOG2E, -m_new))
+                    l_run = l_run * corr + p.sum(-1, keepdim=True)
+                    m = m_new
+                acc = _fma(acc, corr, _pv3(p, vt[:, :, k0:k0 + p.shape[-1]], three))
+            out = acc
+            lse_t = m if no_max else m * torch.log(torch.tensor(2.0))
         l_safe = torch.clamp(l_run, min=1e-30)
-        o[:, :, q0:q0 + t] = out / l_safe
-        lse[:, :, q0:q0 + t] = (lse_t + torch.log(l_safe))[..., 0]
+        o[:, :, q0:q0 + n] = out / l_safe
+        lse[:, :, q0:q0 + n] = (lse_t + torch.log(l_safe))[..., 0]
     return o.transpose(1, 2), lse
 
 
@@ -384,16 +413,24 @@ def test_f32_walk_matches_twin_and_pallas_int8_kernel(mode, tq, tk):
 
 
 def test_f32_form_grid_and_smem():
-    """The fp32-q kernel's grid, (64-row query tiles, heads, batch), covers
-    every row, and its shared memory (Q8 and K8 words with padded rows, the
-    scales, a V or V8 tile and a P or p8 tile) stays under the 48 KB a
-    launch may take without raising its limit."""
-    words = 2 * 16 * 68 * 4
-    smem = words + 2 * 64 * 4 + 64 * 64 * 4 + 64 * 68 * 4
-    assert smem <= 48 * 1024
-    for tq in (1, 64, 65, 1500):
-        n = -(-tq // 64)
-        assert (n - 1) * 64 < tq <= n * 64
+    """The fp32-q kernel's 64-key tiles fit the scratch that `_int8_plan`
+    lays out for it: ks (and no_max's kn) padded to whole 128-key tiles, so
+    each tile's 256-byte bulk copy of its scales stays inside its (batch,
+    head) row, and V8^T's 64-key boxes inside tk_pad; every array 16-byte
+    aligned, as the bulk copies need; the fp32-q plan the bf16 one's but for
+    its flag. Its shared memory is a static_assert in the source, and the
+    card tests hold every query row of its persistent grid to the twin."""
+    for b, tq, tk, h in ((1, 1, 1, 1), (2, 64, 65, 3), (1, 129, 300, 2), (16, 1500, 1500, 20)):
+        layouts = [((b, t, h, 64), (t * h * 64, h * 64, 64, 1)) for t in (tq, tk, tk)]
+        for pv8 in (False, True):
+            for no_max in (False, True):
+                meta, plan = fa._int8_plan(*layouts, pv8, True, no_max)
+                tk_pad, offs, size = meta[4], meta[5:10], meta[10]
+                n_tiles = -(-tk // fa.INT8_F32_KEYS)
+                assert tk_pad % fa.INT8_F32_KEYS == 0 and n_tiles * fa.INT8_F32_KEYS <= tk_pad
+                assert all(o % 16 == 0 for o in offs) and offs[-1] <= size
+                assert plan[18] == 1 and plan[19] == int(no_max)
+                assert fa._int8_plan(*layouts, pv8, False, no_max)[0] == meta
 
 
 # ---- the pre-pass's layout and the cached plan -------------------------------------------

@@ -3,7 +3,7 @@
 K1/K4's and K2's fp32 kernels run only on the card; here:
 - `ring_walk` and `beam_walk` in their fp32 mode (`q_dtype=torch.float32`:
   the fp32 ring kernel's boxes with an online softmax, the fp32 beam
-  kernel's warps over 16 keys of each tile) against the JAX package's
+  kernel's warps over 32-key chunks) against the JAX package's
   `decode_attention_reference` and `decode_attention_reference_beam` in
   fp32 to 1e-6, with fp32, int8 and int4 K/V;
 - the plans for fp32 K/V and fp32 q: within a CTA's shared memory, two
@@ -17,6 +17,8 @@ K1/K4's and K2's fp32 kernels run only on the card; here:
 The whole fp32 path against JAX is held by tests/test_torch_pipeline.py,
 test_torch_greedy.py, test_torch_beam.py and test_torch_streaming.py.
 """
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -93,13 +95,13 @@ def test_ring_walk_f32_matches_jax(kv, t, ring_pos):
 
 
 @pytest.mark.parametrize("n_sms", [1, 132], ids=["one-share", "key-shares"])
-@pytest.mark.parametrize("beams", [1, 5, 17])
+@pytest.mark.parametrize("beams", [1, 5, 8, 17])
 @pytest.mark.parametrize("kv", ["fp32", "int8", "int4"])
 def test_beam_walk_f32_matches_jax(kv, beams, n_sms):
-    """The fp32 beam kernel's order: `beam_plan`'s tiles and key shares,
-    warp w keys [16w, 16w + 16) of each 64-key tile with a running state
-    of its own in log2 units, P * v_scale in fp32, the warps' and shares'
-    states merged; T=600 (10 tiles) and a ragged last tile."""
+    """The fp32 beam kernel's order: `beam_plan`'s tiles of up to 8 beams
+    and key shares, warp w chunks w, w + 4, ... of 32 keys with a running
+    state of its own in log2 units, P * v_scale in fp32, the warps' and
+    shares' states merged; T=583 (19 chunks) and a ragged last chunk."""
     rng = np.random.default_rng(beams + n_sms + len(kv))
     g, t = 3, 600 - 17
     q = rng.standard_normal((g, beams, H, HD)).astype(np.float32)
@@ -117,7 +119,11 @@ def test_f32_plans_fit_the_card():
     rows of 5120-byte fp32 rows (4 rows a stage) within a CTA's shared
     memory, two an SM; the ring at the stream's T=176 in one box, two CTAs
     an SM; the beam CTA two an SM in its three K/V modes; int8 K/V under
-    fp32 q take the fp32 forms' plans too."""
+    fp32 q take the fp32 forms' plans too; the fp32 beam grid is its own
+    (tiles of up to 8 beams, as even as they can be, key shares over a
+    cluster: one wave at the CTAs an SM its registers allow, 1 x 20 x 12
+    CTAs over fp32 K/V, 2 x 20 x 12 over int8 and int4, 6 x 20 x 1 for one
+    group over int4)."""
     prefix = tda.prefix_smem_bytes(188, 20, torch.float32)
     assert 2 * (prefix + 1024) <= tda.SM_SMEM
     assert tda.PREFIX_STAGE_BYTES // (20 * tda._head_bytes(torch.float32)) == 4
@@ -127,7 +133,13 @@ def test_f32_plans_fit_the_card():
         assert 2 * (plan.smem + 1024) <= tda.SM_SMEM
     for kv in (torch.float32, torch.int8, torch.uint8):
         plan = tda.beam_plan(12, 1500, 20, 5, kv, q_dtype=torch.float32)
-        assert plan.grid == (1, 20, 12) and 2 * (plan.smem + 1024) <= tda.SM_SMEM
+        assert plan.grid == ((1 if kv == torch.float32 else 2), 20, 12)
+        per_sm = tda.BEAM_F32_CTAS_PER_SM[kv]
+        assert per_sm * (plan.smem + 1024) <= tda.SM_SMEM
+        assert math.prod(plan.grid) <= per_sm * tda.N_SMS < 2 * math.prod(plan.grid)  # one wave
+    assert tda.beam_plan(1, 1500, 20, 5, torch.uint8, q_dtype=torch.float32).grid == (6, 20, 1)
+    assert [tda.beam_f32_rows(k) for k in (1, 5, 8, 9, 16, 17, 24, 25)] == [1, 5, 8, 5, 8, 6, 8,
+                                                                            7]
     # fp32 K/V always take the fp32 forms
     assert (tda.beam_plan(12, 1500, 20, 5, torch.float32)
             == tda.beam_plan(12, 1500, 20, 5, torch.float32, q_dtype=torch.float32))

@@ -2067,3 +2067,148 @@ def test_decode_attention_int4_heads_replay_in_a_cuda_graph(q_dtype):
         want = call()
         torch.cuda.synchronize()
         assert torch.equal(out, want)
+
+
+def _int8_f32_twin(q, k, v, pv8, no_max):
+    k8, ks = fa.quantize_k_rows(k)
+    v_in, vs = fa.quantize_v_cols(v) if pv8 else (v, None)
+    return fa.flash_attention_int8_reference(q, k8, ks, v_in, vs, pv8, no_max)
+
+
+@pytest.mark.parametrize("no_max", [False, True], ids=["max", "no-max"])
+@pytest.mark.parametrize("mode", ["qk", "qkpv"])
+@pytest.mark.parametrize("b, tq, tk, h", [(1, 64, 128, 1), (1, 64, 384, 1), (1, 1500, 1500, 2),
+                                           (8, 448, 1500, 20)])
+def test_int8_attention_f32_wgmma_form(b, tq, tk, h, mode, no_max):
+    """K8's fp32-q form on s8 and 3xTF32 wgmma, each of its four forms, at
+    one work item over two and six key tiles (1 x 64 x 128 / 384 x 1: a
+    wrong S from the second tile on shows there; q and k about one
+    direction, so that qkpv no-max's p8 are not all 0), one head pair's long
+    sums (1 x 1500 x 1500 x 2) and the training decoder's cross shape
+    (8 x 448 x 1500 x 20): O within rel-L2 1e-5 of
+    the twin on the twin quantizers' codes and above the twin with its
+    first 64 keys dropped, the LSE within 1e-5, one launch counted a call,
+    the same bits from two launches (no atomics), and the pre-pass's
+    outputs (no-max: with each key's ks ||k8|| and their max) equal to the
+    twin quantizers' bit for bit."""
+    f32 = torch.float32
+    q = _randn(b, tq, h, 64, seed=260, dtype=f32)
+    k, v = (_randn(b, tk, h, 64, seed=s, dtype=f32) for s in (261, 262))
+    if tq == 64:
+        # q and k about one direction: no-max's bound sits 1.4-3.5 above
+        # the scores, where on independent normals every p8 of qkpv rounds
+        # to 0 at these shapes
+        u = _randn(1, 1, h, 64, seed=263, dtype=f32)
+        q, k = u + 0.5 * q, u + 0.5 * k
+    pv8 = mode == "qkpv"
+    before = fa.flash_attention_int8.launches
+    o, lse = fa.flash_attention_int8(q, k, v, mode=mode, no_max=no_max)
+    o2, lse2 = fa.flash_attention_int8(q, k, v, mode=mode, no_max=no_max)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_int8.launches == before + 2
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    ro, rlse = _int8_f32_twin(q, k, v, pv8, no_max)
+    _assert_fp32(o, ro)
+    torch.testing.assert_close(lse, rlse, atol=1e-5, rtol=1e-6)
+    cut = _int8_f32_twin(q, k[:, 64:], v[:, 64:], pv8, no_max)[0]
+    assert float((cut - ro).norm() / ro.norm()) > 1e-2
+    got = fa.int8_prepass(q, k, v, mode=mode, no_max=no_max)
+    want = fa.int8_prepass_reference(k, v, pv8, no_max)
+    for part, g, w in zip(("k8", "ks", "v8t", "vs", "kn", "kmax"), got, want):
+        assert (g is None) == (w is None), part
+        assert w is None or torch.equal(g, w), part
+
+
+def test_int8_attention_f32_wgmma_form_replays_in_a_cuda_graph():
+    """The four fp32-q forms at the encoder's shape replay in one CUDA graph
+    to the eager outputs, also after q changes in place."""
+    f32 = torch.float32
+    q, k, v = (_randn(16, 1500, 20, 64, seed=s, dtype=f32) for s in (263, 264, 265))
+
+    def call():
+        return [fa.flash_attention_int8(q, k, v, mode=mode, no_max=no_max)[0]
+                for mode in ("qk", "qkpv") for no_max in (False, True)]
+
+    call()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    for seed in (None, 266):
+        if seed is not None:
+            q.copy_(_randn(*q.shape, seed=seed, dtype=f32))
+        graph.replay()
+        want = call()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(out, want))
+
+
+@pytest.mark.parametrize("kv", ["fp32", "int8", "int4"])
+@pytest.mark.parametrize("beams", [1, 5, 16, 17])
+@pytest.mark.parametrize("t", [1, 63, 1500])
+def test_decode_attention_beam_f32_form(t, beams, kv):
+    """K2's fp32 beam form at one group (G=1: the most key shares), 1, 63
+    and 1500 keys, 1 to 17 beams (up to three 8-beam tiles): within rel-L2
+    1e-5 of the twin, above the twin with its first 64 keys dropped (T=1500),
+    one launch counted, the same bits from two launches."""
+    g, h, f32 = 1, 20, torch.float32
+    q = _randn(g, beams, h, 64, seed=270, dtype=f32)
+    k, v, ks, vs = _f32_kv(g, t, h, kv, seed=271)
+    plan = da.beam_plan(g, t, h, beams, k.dtype,
+                        torch.cuda.get_device_properties(0).multi_processor_count, q_dtype=f32)
+    assert plan.splits == -(-t // plan.keys_per_split) and (plan.splits > 1) == (t == 1500)
+    kw = dict(n_heads=h, k_scale=ks, v_scale=vs)
+    before = da.decode_attention_beam.launches
+    got = da.decode_attention_beam(q, k, v, **kw)
+    again = da.decode_attention_beam(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert da.decode_attention_beam.launches == before + 2 and torch.equal(got, again)
+    ref = da.decode_attention_reference_beam(q, k, v, **kw)
+    _assert_fp32(got, ref)
+    if t == 1500:
+        cut = da.decode_attention_reference_beam(
+            q, k[:, 64:], v[:, 64:], n_heads=h, k_scale=None if ks is None else ks[:, 64:],
+            v_scale=None if vs is None else vs[:, 64:])
+        assert float((cut - ref).norm() / ref.norm()) > 1e-2
+
+
+def test_decode_attention_beam_f32_reads_the_last_int4_scale():
+    """int4 K/V under fp32 q with an odd number of bf16 scales (G=1, T=63,
+    H=3): the last key's scales, the last element of their tensors, are
+    read as the twin reads them (the first design copied 4-byte words)."""
+    g, t, h, f32 = 1, 63, 3, torch.float32
+    q = _randn(g, 5, h, 64, seed=272, dtype=f32)
+    k, v, ks, vs = _f32_kv(g, t, h, "int4", seed=273)
+    ks, vs = ks.clone(), vs.clone()
+    assert ks.numel() % 2 == 1
+    ks[:, -1] *= 4  # the last key's scores and weights count
+    got = da.decode_attention_beam(q, k, v, n_heads=h, k_scale=ks, v_scale=vs)
+    _assert_fp32(got, da.decode_attention_reference_beam(q, k, v, n_heads=h, k_scale=ks,
+                                                         v_scale=vs))
+
+
+def test_decode_attention_beam_f32_form_replays_in_a_cuda_graph():
+    """The fp32 beam form over fp32, int8 and int4 K/V at beam search's
+    shape (12 groups x 5 beams over T=1500) replays in one CUDA graph to
+    the eager outputs, also after q changes in place."""
+    h, f32 = 20, torch.float32
+    q = _randn(12, 5, h, 64, seed=274, dtype=f32)
+    caches = [_f32_kv(12, 1500, h, kv, seed=275 + 2 * i)
+              for i, kv in enumerate(("fp32", "int8", "int4"))]
+
+    def call():
+        return [da.decode_attention_beam(q, k, v, n_heads=h, k_scale=ks, v_scale=vs)
+                for k, v, ks, vs in caches]
+
+    call()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    for seed in (None, 281):
+        if seed is not None:
+            q.copy_(_randn(*q.shape, seed=seed, dtype=f32))
+        graph.replay()
+        want = call()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(out, want))

@@ -121,7 +121,11 @@ _KERNEL_TIME_GROUPS = {
     "_k2_cross_rows": ["k2_int4", "k2_int4_d640", "k2_int4_f32q", "k2_int8", "k2_bf16"],
     "_k1_f32_rows": ["k1_f32", "k1_f32_nomax", "k1_f32_cross", "k4_f32"],
     "_k5_rows": ["k5_f32_causal", "k5_f32_cross"],
-    "_k7_f32_rows": ["k7_f32"]}
+    "_k7_f32_rows": ["k7_f32"],
+    "_k8_rows": ["k8_f32_qk", "k8_f32_qk_nomax", "k8_f32_qkpv", "k8_f32_qkpv_nomax",
+                 "k8_bf16_qk", "k8_bf16_qkpv"],
+    "_beam_rows": ["beam_f32", "beam_f32_int8", "beam_f32_int4", "beam_bf16", "beam_bf16_int8",
+                   "beam_bf16_int4"]}
 
 
 def _stub_kernel_time(monkeypatch):
@@ -133,9 +137,9 @@ def _stub_kernel_time(monkeypatch):
 
 
 def test_kernel_time_times_every_row(monkeypatch):
-    """One run times every row group (K2's self and cross calls, K1/K4
-    fp32, K5 fp32, K7 fp32), each `reps` times; the rows' names are the
-    ones two trees' records are compared by."""
+    """One run times every row group (K2's self, cross and beam calls,
+    K1/K4 fp32, K5 fp32, K7 fp32, K8), each `reps` times; the rows' names
+    are the ones two trees' records are compared by."""
     _stub_kernel_time(monkeypatch)
     rec = kernel_time.measure(2)
     assert list(rec) == [n for names in _KERNEL_TIME_GROUPS.values() for n in names]
