@@ -945,6 +945,11 @@ def main() -> int:
         kw = dict(n_heads=hh, k_scale=ks, v_scale=vs)
         out = da.decode_attention_beam(qb, kf, vf, **kw)
         errs = compare(out, da.decode_attention_reference_beam(qb, kf, vf, **kw))
+        # the kernel and grid int4 runs on
+        plan = da.beam_plan(g_b, t_enc, hh, k_b, kf.dtype,
+                            torch.cuda.get_device_properties(0).multi_processor_count)
+        grid_tag = (f", beam kernel (mma.sync), {plan.splits} key share(s), "
+                    f"{plan.grid[0] * plan.grid[1] * g_b} CTAs" if kv == "int4" else "")
         # (G, H, K, 64): the group's 5 queries a head
         kh, vh, qh = bf16_heads(kf, ks, hh), bf16_heads(vf, vs, hh), qb.transpose(1, 2)
 
@@ -956,7 +961,7 @@ def main() -> int:
 
         record(
             f"K2 decode_attention cross beam {mode_tag[kv]} (G={g_b} x K={k_b}, T={t_enc}, "
-            f"D={dd}{tp_tag(hh)})",
+            f"D={dd}{tp_tag(hh)}{grid_tag})",
             "kotoba_whisper_tpu_torch/csrc/decode_attention_beam.cu",
             "kotoba_whisper_tpu/ops/decode_attention.py:114", errs, 2e-3,
             time_ms(beam_call),
@@ -1579,8 +1584,8 @@ def main() -> int:
         """(R, T, D) fp32 -> (stored K or V, scales or None) in K/V mode `mode`."""
         return (x, None) if mode == "fp32" else quantized(x, hh, mode)
 
-    # K2 prefix form, fp32 q: cross (T=1500) with fp32 K/V (compute KV), with
-    # int8 K/V (the row kernel) and with packed int4 K/V (the head kernel);
+    # K2 prefix form, fp32 q: cross (T=1500) with fp32 K/V (compute KV: the
+    # row kernel), with int8 K/V and with packed int4 K/V (the head kernel);
     # K2's self form (its ring kernel's fp32 form without ring_pos): self
     # (T=51) fp32
     for label, t, kv, key in (("cross", t_enc, "fp32", "K2f32"), ("cross", t_enc, "int8",
@@ -1597,8 +1602,10 @@ def main() -> int:
             qd, kf[:, 64:], vf[:, 64:], t - 64, n_heads=h,
             k_scale=None if ks is None else ks[:, 64:], v_scale=None if vs is None else vs[:, 64:])
         kh, vh, qh = f32_heads(kf, ks, h), f32_heads(vf, vs, h), qd[:, :, None]
+        kernel = ("ring kernel, self form" if label == "self" else
+                  "row kernel" if kv == "fp32" else "head kernel")
         f32_record(
-            f"K2 decode_attention {label} fp32 q, {kv} K/V (B={B}, T={t}, D={d})",
+            f"K2 decode_attention {label} fp32 q, {kv} K/V, {kernel} (B={B}, T={t}, D={d})",
             "kotoba_whisper_tpu_torch/csrc/decode_attention"
             f"{'_ring' if label == 'self' else ''}.cu",
             "kotoba_whisper_tpu/ops/decode_attention.py:165", out, ref, cut,

@@ -57,8 +57,8 @@ SIGNATURES = {
         "kwt_decode_attention": [
             _I, _P, _L, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P,
         ],
-        "kwt_decode_attention_int4": [
-            _I, _P, _L, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P,
+        "kwt_decode_attention_heads": [
+            _I, _P, _L, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P,
         ],
     },
     "decode_attention_ring": {

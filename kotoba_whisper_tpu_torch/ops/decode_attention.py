@@ -26,9 +26,10 @@ Each form is one launch a call:
 - prefix (the cross-attention call: T=1500): `split_plan` cuts the rows a
   call reads into at most MAX_CLUSTER slices, one CTA each, and the CTAs
   of a batch row form a thread-block cluster that combines its slices on
-  chip; packed int4 K/V take the head kernel instead, whose CTA is one
-  (slice, group of heads, batch row) of `int4_plan`'s grid, the slices of
-  a (row, group) one cluster;
+  chip; packed int4 K/V, and int8 K/V with fp32 row scales under fp32 q,
+  take the head kernel instead, whose CTA is one (slice, group of heads,
+  batch row) of `head_plan`'s grid, the slices of a (row, group) one
+  cluster;
 - self (a call without ring_pos on a cache of at most SELF_MAX_SLOTS
   slots, `self_form`: every single-query self-attention call of the
   decoder, whose caches hold at most 448 positions): the ring kernel with
@@ -45,7 +46,7 @@ Each form is one launch a call:
   tile combining over a cluster; the fp32 form (FFMAs) its own grid of
   tiles of at most 8 beams (`beam_f32_rows`) and shares of 32-key chunks,
   as many as one wave of BEAM_F32_CTAS_PER_SM CTAs an SM holds.
-  `beam_walk`, `ring_walk` and `int4_walk` repeat the kernels' arithmetic
+  `beam_walk`, `ring_walk` and `head_walk` repeat the kernels' arithmetic
   in their order on the CPU, each form's (`q_dtype`).
 """
 from __future__ import annotations
@@ -81,10 +82,11 @@ BEAM_F32_WARPS = 4   # warps an fp32 beam CTA, taking the chunks in turn
 # (csrc/decode_attention_beam.cu F32Mode::kCtasPerSm, its launch bounds)
 BEAM_F32_CTAS_PER_SM = {torch.float32: 3, torch.int8: 4, torch.uint8: 4}
 PREFIX_STAGE_BYTES = 20480  # a stage of the prefix kernel's copy ring
-INT4_BOX = 64       # cache rows a TMA box of the int4 head kernel
-INT4_RING = 32768   # bytes of its copy ring
-INT4_HEADS = (4, 2, 1)  # heads an int4 CTA may take, the most that divide H first
-INT4_CTAS_PER_SM = 3    # the int4 grid's cap: CTAs an SM
+HEAD_BOX = 64       # cache rows a TMA box of the head kernel
+HEAD_INT4_RING = 32768  # bytes of its copy ring over packed int4
+HEAD_INT8_STAGES = 4    # boxes of its copy ring over int8
+HEAD_HEADS = (4, 2, 1)  # heads a head CTA may take, the most that divide H first
+HEAD_CTAS_PER_SM = 3    # the head grid's cap: CTAs an SM
 # K/V modes of the C entries: bfloat16; int8 with fp32 per-row scales; int8
 # with bf16 per-head scales; packed int4 with bf16 per-head scales; fp32
 KV_BF16, KV_INT8, KV_INT8_HEADS, KV_INT4, KV_F32 = 0, 1, 2, 3, 4
@@ -151,10 +153,10 @@ def prefix_smem_bytes(rows: int, n_heads: int, kv_dtype, per_head: bool = False)
     4 without), the scores a (row, head), the two scales a row (fp32, or a
     bf16 a head), the per-head max and sum, what the cluster's CTAs send
     (their V sums of a slice of the columns, their maxima and sums), the
-    barriers. Packed int4 takes the head kernel (`int4_smem_bytes`)."""
+    barriers. Packed int4 takes the head kernel (`head_smem_bytes`)."""
     _head_bytes(kv_dtype)
     if kv_dtype == torch.uint8:
-        raise ValueError("K2's packed int4 K/V take the head kernel: int4_smem_bytes")
+        raise ValueError("K2's packed int4 K/V take the head kernel: head_smem_bytes")
     stages = 3 if per_head else 4
     d = n_heads * 64
     scale = 2 * rows * (2 * n_heads if per_head else 4)
@@ -163,22 +165,28 @@ def prefix_smem_bytes(rows: int, n_heads: int, kv_dtype, per_head: bool = False)
     return ((recv + 7) & ~7) + 16 * stages
 
 
-def int4_smem_bytes(rows: int, heads: int) -> int:
-    """Dynamic shared memory of an int4 head CTA over `rows` cache rows of
-    `heads` heads (the kernel's `I4Layout.total`): the copy ring
-    (INT4_RING: INT4_BOX-row boxes of the group's 32-byte head columns),
-    the raw scores a (row, head), the aligned 4-byte words holding each
-    row's bf16 scales of the group (heads // 2 + 1 a row and tensor), the
-    per-head max and sum, what the cluster's CTAs send (V sums of a slice
-    of the group's columns, maxima and sums), the barriers (two a stage and
-    the scales')."""
-    words, stages = heads // 2 + 1, INT4_RING // (INT4_BOX * heads * 32)
-    end = INT4_RING + 4 * rows * heads + 8 * words * rows + 8 * heads
+def head_smem_bytes(rows: int, heads: int, kv_dtype=torch.uint8) -> int:
+    """Dynamic shared memory of a head CTA over `rows` cache rows of `heads`
+    heads (the kernel's `HeadLayout.total`): the copy ring (packed int4:
+    HEAD_INT4_RING bytes of HEAD_BOX-row boxes of the group's head columns;
+    int8: HEAD_INT8_STAGES boxes), the raw scores a (row, head), each row's
+    4-byte scale words a tensor (int4: the aligned words holding its bf16s
+    of the group, heads // 2 + 1; int8: its one fp32), the per-head max and
+    sum, what the cluster's CTAs send (V sums of a slice of the group's
+    columns, maxima and sums), the barriers (two a stage and the scales')."""
+    box = HEAD_BOX * heads * _head_bytes(kv_dtype)
+    if kv_dtype == torch.uint8:
+        stages, words = HEAD_INT4_RING // box, heads // 2 + 1
+    elif kv_dtype == torch.int8:
+        stages, words = HEAD_INT8_STAGES, 1
+    else:
+        raise ValueError(f"K2's head kernel takes packed int4 (uint8) or int8 K/V, got {kv_dtype}")
+    end = stages * box + 4 * rows * heads + 8 * words * rows + 8 * heads
     end += 4 * (heads * 64 + MAX_CLUSTER) + 8 * MAX_CLUSTER * heads
     return ((end + 7) & ~7) + 8 * (2 * stages + 1)
 
 
-class Int4Plan(NamedTuple):
+class HeadPlan(NamedTuple):
     heads: int   # heads a CTA: CTA (x, y, z) is share x of heads [y * heads, ..) of row z
     shares: int  # CTAs of a (row, head group): the cluster's x
     rows: int    # cache rows a share: share x reads [x * rows, min((x + 1) * rows, valid))
@@ -187,24 +195,30 @@ class Int4Plan(NamedTuple):
 
 
 @lru_cache(maxsize=256)
-def int4_plan(b: int, span: int, n_heads: int, n_sms: int = N_SMS) -> Int4Plan:
-    """The int4 head kernel's grid over cache rows [0, span): of the head
-    counts of INT4_HEADS that divide H, and for each the most key shares
-    (at most MAX_CLUSTER, at least MIN_CTA_ROWS rows each where the span
-    allows) whose grid stays within INT4_CTAS_PER_SM CTAs an SM, the grid
-    with the most CTAs, the most heads a CTA among equals (where no grid
-    stays within the cap, the fewest CTAs: one share). An H100 80GB HBM3
-    at 700 W read ~3 CTAs an SM fastest (B=16, T=1500: 320-400 CTAs
-    0.0233-0.0235 ms, 160 0.0345, 640 0.0259; below the cap, more CTAs
-    faster). At the cross call (B=16, T=1500, 20 heads): 4 heads, 4 shares
-    of 375 rows, 320 CTAs. Raises where a share's rows do not fit a CTA's
+def head_plan(b: int, span: int, n_heads: int, n_sms: int = N_SMS, *,
+              kv_dtype=torch.uint8) -> HeadPlan:
+    """The head kernel's grid over cache rows [0, span): of the head counts
+    of HEAD_HEADS that divide H, and for each the most key shares (at most
+    MAX_CLUSTER, at least MIN_CTA_ROWS rows each where the span allows)
+    whose grid stays within HEAD_CTAS_PER_SM CTAs an SM, the grid with the
+    most CTAs, the most heads a CTA among equals (where no grid stays within
+    the cap, the fewest CTAs: one share). Packed int4 (uint8) or int8 K/V.
+    An H100 80GB HBM3 at 700 W read ~3 int4 CTAs an SM fastest (B=16,
+    T=1500: 320-400 CTAs 0.0233-0.0235 ms, 160 0.0345, 640 0.0259; below
+    the cap, more CTAs faster). At the cross call (B=16, T=1500, 20 heads):
+    4 heads, 4 shares of 375 rows, 320 CTAs. int8 under fp32 q, swept by
+    heads x shares on the same card (tools/kernel_time.py --sweep, B=16,
+    T=1500): at 20 heads this plan's 4 x 4 read 0.0265 ms, the fastest
+    0.0259 (2 x 3, 480 CTAs), the other grids 0.0267-0.0420; at 10 heads
+    this plan's 2 x 4 0.0142, the fastest 0.0134 (2 x 8, 640 CTAs), the
+    others up to 0.0198. Raises where a share's rows do not fit a CTA's
     shared memory."""
     if b < 1 or n_heads < 1 or span < 1:
-        raise ValueError(f"K2's int4 form needs rows, heads and cache rows, got B={b}, "
+        raise ValueError(f"K2's head kernel needs rows, heads and cache rows, got B={b}, "
                          f"H={n_heads}, span {span}")
-    cap = INT4_CTAS_PER_SM * n_sms
+    cap = HEAD_CTAS_PER_SM * n_sms
     grids = []  # (CTAs, heads, shares)
-    for heads in (h for h in INT4_HEADS if n_heads % h == 0):
+    for heads in (h for h in HEAD_HEADS if n_heads % h == 0):
         groups = b * (n_heads // heads)
         shares = max(1, min(MAX_CLUSTER, -(-span // MIN_CTA_ROWS), cap // groups))
         grids.append((groups * shares, heads, shares))
@@ -212,11 +226,11 @@ def int4_plan(b: int, span: int, n_heads: int, n_sms: int = N_SMS) -> Int4Plan:
     _, heads, shares = (max(fit, key=lambda g: (g[0], g[1])) if fit
                         else min(grids, key=lambda g: (g[0], -g[1])))
     rows = -(-span // shares)
-    smem = int4_smem_bytes(rows, heads)
+    smem = head_smem_bytes(rows, heads, kv_dtype)
     if smem > SMEM_LIMIT:
-        raise ValueError(f"K2's int4 form holds a share's scores in shared memory: {rows} rows "
+        raise ValueError(f"K2's head kernel holds a share's scores in shared memory: {rows} rows "
                          f"need {smem} of {SMEM_LIMIT} bytes")
-    return Int4Plan(heads, shares, rows, (shares, n_heads // heads, b), smem)
+    return HeadPlan(heads, shares, rows, (shares, n_heads // heads, b), smem)
 
 
 def ring_smem_bytes(t: int, hpc: int, kv_dtype, per_head: bool = False) -> int:
@@ -325,7 +339,13 @@ def beam_plan(g: int, t: int, n_heads: int, beams: int, kv_dtype,
               n_sms: int = N_SMS, *, q_dtype=torch.bfloat16) -> BeamPlan:
     """The beam kernel's grid: one CTA per (group, head, 16-beam tile),
     split over key shares of whole tiles, up to a cluster of MAX_CLUSTER,
-    while the CTAs would not fill two an SM; no share is empty. The fp32
+    while the CTAs would not fill two an SM; no share is empty. Packed int4
+    at beam search's 12 x 5 x 20 heads, swept by key shares on an H100 80GB
+    HBM3 at 700 W (tools/beam_probe.py, one process): 1 share (this plan,
+    240 CTAs) 0.0189 ms, 2 shares 0.0245, 3-8 0.036-0.069; the probe's
+    half form (rings of 4-8 stages) 0.0182-0.0197, 0.0261-0.0286 and
+    0.026-0.056; asking registers for four CTAs an SM (96, spilling) at 2
+    shares 0.0215-0.0286 half, 0.0312 full. The fp32
     form (fp32 q or K/V): one CTA per (group, head, tile of
     `beam_f32_rows` beams), split over key shares of whole rounds of
     BEAM_F32_WARPS 32-key chunks, up to a cluster of MAX_CLUSTER, while the
@@ -596,22 +616,23 @@ def ring_walk(q, k_flat, v_flat, valid_len, ring_pos, *, n_heads, k_scale=None, 
     return out
 
 
-def int4_walk(q, k_flat, v_flat, valid_len, *, n_heads, k_scale, v_scale, n_sms=N_SMS,
+def head_walk(q, k_flat, v_flat, valid_len, *, n_heads, k_scale, v_scale, n_sms=N_SMS,
               out_dtype=None):
-    """The int4 head kernel's arithmetic in its order (fp32, on any device):
-    per `int4_plan` CTA (a row, a group of heads, a share of the rows) the
+    """The head kernel's arithmetic in its order (fp32, on any device):
+    per `head_plan` CTA (a row, a group of heads, a share of the rows) the
     scores q / 8 log2(e) times the codes, times k_scale, the share's exact
     max m, p = 2^(s - m), their sum l, the weights p * v_scale and their V
     sums; the shares of a (row, group) combined as the cluster combines
     them (each state scaled by 2^(m - M), M their max), O = o / l in
     `out_dtype` (q's by default). Packed int4 K/V with bf16 (B, T, H)
-    scales; valid_len an int or (B,) counts. -> (B, H, 64)."""
+    scales, or int8 K/V with fp32 (B, T, 1) scales, one a row for all its
+    heads; valid_len an int or (B,) counts. -> (B, H, 64)."""
     b, t, _ = k_flat.shape
     per_row = isinstance(valid_len, torch.Tensor) and valid_len.ndim == 1
-    plan = int4_plan(b, t if per_row else int(valid_len), n_heads, n_sms)
+    plan = head_plan(b, t if per_row else int(valid_len), n_heads, n_sms, kv_dtype=k_flat.dtype)
     kf = _codes(k_flat).float().reshape(b, t, n_heads, 64)
     vf = _codes(v_flat).float().reshape(b, t, n_heads, 64)
-    ks, vs = k_scale.float(), v_scale.float()
+    ks, vs = (x.float().expand(b, t, n_heads) for x in (k_scale, v_scale))
     qf = q.float().reshape(b, n_heads, 64) * (0.125 * LOG2E)
     valid = torch.as_tensor(valid_len).reshape(-1).expand(b)
     out = torch.empty(b, n_heads, 64, dtype=out_dtype or q.dtype, device=q.device)
@@ -710,9 +731,9 @@ def decode_attention(
     dtype). valid_len: int (every row) or a (B,) int32 tensor; ring_pos:
     None (keys [0, valid): the self form where `self_form` says so, else
     the prefix form, csrc/decode_attention.cu: its head kernel on
-    `int4_plan`'s grid for packed int4, its row kernel on `split_plan`'s
-    for the other modes) or, on the card, a 0-d int32
-    tensor on q's card, read by the ring kernel
+    `head_plan`'s grid for packed int4 and, under fp32 q, int8 with fp32
+    row scales; its row kernel on `split_plan`'s for the other modes) or,
+    on the card, a 0-d int32 tensor on q's card, read by the ring kernel
     (csrc/decode_attention_ring.cu) from device memory. The self form is
     the ring kernel without ring_pos. Allocates only the output; safe to
     capture in a CUDA graph."""
@@ -735,15 +756,17 @@ def decode_attention(
         raise ValueError("K2's ring form takes fp32, bfloat16 or int8 K/V (the self cache), "
                          "not int4")
     out = torch.empty((b, n_heads, 64), dtype=q.dtype, device=q.device)
-    if mode == KV_INT4:
+    if mode == KV_INT4 or (mode == KV_INT8 and q_f32 and ring_pos is None
+                           and not self_form(t, k_flat.dtype)):
         if (ks_ptr | vs_ptr) % 4:
-            raise ValueError("K2's int4 form copies the bf16 scales by 4-byte words: they start "
+            raise ValueError("K2's head kernel copies the scales by 4-byte words: they start "
                              "4-byte aligned")
-        plan = int4_plan(b, t if valid_rows is not None else valid_all, n_heads, _n_sms(card))
-        _check(_build.function("decode_attention", "kwt_decode_attention_int4")(
+        plan = head_plan(b, t if valid_rows is not None else valid_all, n_heads, _n_sms(card),
+                         kv_dtype=k_flat.dtype)
+        _check(_build.function("decode_attention", "kwt_decode_attention_heads")(
             card, q_ptr, q_stride[0], k_ptr, v_ptr, ks_ptr, vs_ptr, valid_rows, valid_all,
-            out.data_ptr(), b, t, n_heads, plan.heads, plan.shares, plan.rows, int(q_f32),
-            _build.stream_handle(card)), "int4")
+            out.data_ptr(), b, t, n_heads, plan.heads, plan.shares, plan.rows, mode, int(q_f32),
+            _build.stream_handle(card)), "head")
         decode_attention.launches += 1
         return out
     if ring_pos is None and not self_form(t, k_flat.dtype):
@@ -771,7 +794,7 @@ def decode_attention(
     return out
 
 
-decode_attention.launches = 0       # K2, prefix form (the cluster kernels: rows; int4 heads)
+decode_attention.launches = 0       # K2, prefix form (the cluster kernels: rows; heads)
 decode_attention.self_launches = 0  # K2, self form (the ring kernel without ring_pos)
 decode_attention.ring_launches = 0  # K2, ring form
 

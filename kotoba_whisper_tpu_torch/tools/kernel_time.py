@@ -23,14 +23,22 @@ Rows (chip_smoke.py's phase 3 shapes; large-v3's 20 heads of 64):
   (16, 1500, 1280), large-v3's convs.
 - K2 cross: K2's cross call (B=16 rows over T=1500, every slot valid)
   on the int4 cache (packed int4, bf16 per-head scales) at 20 heads and a
-  TP=2 rank's 10, with fp32 q (an fp32 model's int4 cache), and beside
-  them the int8 (fp32 row scales) and bf16 caches, which take the row
-  kernel.
+  TP=2 rank's 10, with fp32 q (an fp32 model's int4 cache); the int8 cache
+  (fp32 row scales) under fp32 q (an fp32 model's int8 cache: the head
+  kernel), and under bf16 q at B=16 and at the stream's 48 rows (phase
+  4e), and the bf16 cache, which take the row kernel; and the head kernel
+  over int8 under bf16 q at B=16 and 48 through its C entry (a probe: no
+  path routes bf16 q there).
 
 Each time is the device ms of one call: the call captured 20 times in a
 CUDA graph, the graph replayed 5 times (CUDA events). host_us is the
 host's time per call, 200 calls back to back. One JSON line with the
 card's name and power limit.
+
+--sweep adds the grids of the head kernel over int8 K/V under fp32 q
+(B=16, T=1500, 20 and 10 heads) by heads a CTA x key shares, through its
+C entry (`head_plan` sizes them on the card; tools/beam_probe.py sweeps
+the int4 beam form's shares and rings).
 
 --k5-sweep adds K5's fp32 causal form at T=128 over batch x heads of 1 x
 1 (one cluster: its latency), 1 x 20, 4 x 20 and 8 x 20 (the path's), and
@@ -49,7 +57,7 @@ fp32, for instance) also records kernels_ms: the device ms a call spends
 in each of its kernels (torch.profiler's CUDA kernel times over 20 calls;
 a CUDA graph hides them).
 
-Usage: python -m kotoba_whisper_tpu_torch.tools.kernel_time [--reps 3] [--k5-sweep]
+Usage: python -m kotoba_whisper_tpu_torch.tools.kernel_time [--reps 3] [--sweep] [--k5-sweep]
 """
 from __future__ import annotations
 
@@ -62,6 +70,7 @@ import torch
 
 from kotoba_whisper_tpu_torch.core.device import resolve_device
 from kotoba_whisper_tpu_torch.models import whisper
+from kotoba_whisper_tpu_torch.ops import _build
 from kotoba_whisper_tpu_torch.ops import conv_stem as cs
 from kotoba_whisper_tpu_torch.ops import decode_attention as da
 from kotoba_whisper_tpu_torch.ops import flash_attention as fa
@@ -69,6 +78,7 @@ from kotoba_whisper_tpu_torch.ops import flash_attention as fa
 HEADS, SELF_ROWS, SELF_T = 20, 16, 51  # phase 4: B=16, prompt 3 + 48 tokens
 TRAIN_B, LABELS, T_ENC = 8, 128, 1500   # phase 4b
 ENC_B = 16                              # phase 4k(a)'s fp32 encoder batch
+STREAM_B = 48                           # phase 4e's window: the stream's cross call
 N_MELS, D_MODEL = 128, 1280             # large-v3's stem
 
 
@@ -230,16 +240,18 @@ def _k7_f32_rows():
 def _k2_cross_rows():
     """K2's cross call on each cache -> {name: call}."""
     rows = {}
-    for name, mode, heads, q_dtype in (
-            ("k2_int4", "int4", HEADS, torch.bfloat16),
-            ("k2_int4_d640", "int4", HEADS // 2, torch.bfloat16),
-            ("k2_int4_f32q", "int4", HEADS, torch.float32),
-            ("k2_int8", "int8", HEADS, torch.bfloat16),
-            ("k2_bf16", "bf16", HEADS, torch.bfloat16)):
-        q = _randn(ENC_B, heads, 64, seed=80, dtype=q_dtype)
+    for name, mode, heads, q_dtype, b in (
+            ("k2_int4", "int4", HEADS, torch.bfloat16, ENC_B),
+            ("k2_int4_d640", "int4", HEADS // 2, torch.bfloat16, ENC_B),
+            ("k2_int4_f32q", "int4", HEADS, torch.float32, ENC_B),
+            ("k2_int8", "int8", HEADS, torch.bfloat16, ENC_B),
+            ("k2_int8_f32q", "int8", HEADS, torch.float32, ENC_B),
+            ("k2_int8_b48", "int8", HEADS, torch.bfloat16, STREAM_B),
+            ("k2_bf16", "bf16", HEADS, torch.bfloat16, ENC_B)):
+        q = _randn(b, heads, 64, seed=80, dtype=q_dtype)
         kv = []
         for seed in (81, 82):
-            x = _randn(ENC_B, T_ENC, heads * 64, seed=seed)
+            x = _randn(b, T_ENC, heads * 64, seed=seed)
             if mode == "int4":
                 codes, scale = whisper.quantize_kv_heads(x, heads, 4)
                 kv.append((whisper.pack_int4(codes), scale))
@@ -253,6 +265,47 @@ def _k2_cross_rows():
             return da.decode_attention(q, k, v, T_ENC, n_heads=heads, k_scale=ks, v_scale=vs)
 
         rows[name] = call
+    return rows
+
+
+def _int8_cache(b, heads, seed):
+    """(k, v, k_scale, v_scale): an int8 cross cache with fp32 row scales."""
+    (k, ks), (v, vs) = (whisper.quantize_kv_rows(_randn(b, T_ENC, heads * 64, seed=s))
+                        for s in (seed, seed + 1))
+    return k, v, ks, vs
+
+
+def _head_entry(q, k, v, ks, vs, heads, shares):
+    """A call of the head kernel's C entry over an int8 cache, every row
+    valid, at a chosen grid (heads a CTA, key shares)."""
+    b, t, _ = k.shape
+    n_heads = q.shape[1]
+    out = torch.empty_like(q)
+    fn = _build.function("decode_attention", "kwt_decode_attention_heads")
+
+    def call():
+        rc = fn(0, q.data_ptr(), q.stride(0), k.data_ptr(), v.data_ptr(), ks.data_ptr(),
+                vs.data_ptr(), None, t, out.data_ptr(), b, t, n_heads, heads, shares,
+                -(-t // shares), da.KV_INT8, int(q.dtype == torch.float32),
+                _build.stream_handle(0))
+        if rc != 0:
+            raise RuntimeError(f"head kernel launch failed: cudaError {rc}")
+        return out
+
+    return call
+
+
+def _head_probe_rows():
+    """The head kernel over int8 under bf16 q at B=16 and 48, on the plan
+    fp32 q takes -> {name: call}; none in a tree whose head kernel takes
+    no int8."""
+    if not hasattr(da, "head_plan"):
+        return {}
+    rows = {}
+    for name, b in (("k2_int8_heads_bf16q", ENC_B), ("k2_int8_heads_bf16q_b48", STREAM_B)):
+        q = _randn(b, HEADS, 64, seed=80)
+        plan = da.head_plan(b, T_ENC, HEADS, da._n_sms(0), kv_dtype=torch.int8)
+        rows[name] = _head_entry(q, *_int8_cache(b, HEADS, 81), plan.heads, plan.shares)
     return rows
 
 
@@ -300,6 +353,23 @@ def _beam_rows():
     return rows
 
 
+def head_sweep() -> dict:
+    """Device ms of the int8 head kernel under fp32 q at the cross call
+    (B=16, T=1500) by heads a CTA x key shares, at 20 and 10 heads ->
+    {"H20 h4 s4": ms}."""
+    out = {}
+    for n_heads in (HEADS, HEADS // 2):
+        q = _randn(ENC_B, n_heads, 64, seed=83, dtype=torch.float32)
+        cache = _int8_cache(ENC_B, n_heads, 84)
+        for heads in (h for h in da.HEAD_HEADS if n_heads % h == 0):
+            for shares in (2, 3, 4, 5, 6, 8):
+                if da.head_smem_bytes(-(-T_ENC // shares), heads, torch.int8) > da.SMEM_LIMIT:
+                    continue
+                out[f"H{n_heads} h{heads} s{shares}"] = graph_ms(
+                    _head_entry(q, *cache, heads, shares))
+    return out
+
+
 def k5_sweep() -> dict:
     """Device ms of K5's fp32 causal call at (B, H, T) -> {"BxHxT": ms}."""
     f32 = torch.float32
@@ -314,8 +384,13 @@ def k5_sweep() -> dict:
 
 
 def measure(reps: int) -> dict:
+    # the probe's rows last: a tree without them (the parent in turns) then
+    # allocates every other row's tensors as this one does, at the same
+    # addresses (on an H100 80GB HBM3 at 700 W the K2 beam int4 row's
+    # identical kernel read 5-6 % apart in one run where only one tree
+    # allocated the probe's tensors first, and alike with them last)
     makers = (_self_rows, _k2_cross_rows, _k1_f32_rows, _k5_rows, _k7_f32_rows, _k8_rows,
-              _beam_rows)
+              _beam_rows, _head_probe_rows)
     rows = {}
     for make in makers:
         rows.update(make())
@@ -332,12 +407,16 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--reps", type=int, default=3, help="timings of each row")
+    ap.add_argument("--sweep", action="store_true",
+                    help="also time the int8 head kernel's grids")
     ap.add_argument("--k5-sweep", action="store_true",
                     help="also time K5's fp32 causal form over batch, heads and T")
     args = ap.parse_args(argv)
     resolve_device("cuda")
     rec = {"rows": measure(args.reps),
            "device": torch.cuda.get_device_name(0)}
+    if args.sweep:
+        rec["head_int8_sweep"] = head_sweep()
     if args.k5_sweep:
         rec["k5_f32_causal_sweep"] = k5_sweep()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

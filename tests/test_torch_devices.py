@@ -168,6 +168,13 @@ def _k2_int4_f32(c):
     _k2_int4(c, torch.float32)
 
 
+def _k2_int8_f32(c):  # int8 with row scales under fp32 q, a cross cache: the head kernel
+    kv = on_card(torch.zeros(2, da.SELF_MAX_SLOTS + 1, 128, dtype=torch.int8))
+    scale = on_card(torch.ones(2, da.SELF_MAX_SLOTS + 1, 1))
+    da.decode_attention(_bf16(2, 2, 64, dtype=torch.float32), kv, kv, 5, n_heads=2,
+                        k_scale=scale, v_scale=scale)
+
+
 def _k1_f32(c):
     x = _bf16(1, 64, 2, 64, dtype=torch.float32)
     fa.flash_attention_fwd(x, x, x)
@@ -281,8 +288,9 @@ WRAPPERS = {
     "K5": (_k5, "kwt_flash_attention_bwd"),
     "K8": (_k8, "kwt_flash_attention_int8"),
     "K2 prefix": (_k2, "kwt_decode_attention"),
-    "K2 prefix int4": (_k2_int4, "kwt_decode_attention_int4"),
-    "K2 prefix int4 fp32": (_k2_int4_f32, "kwt_decode_attention_int4"),
+    "K2 prefix int4": (_k2_int4, "kwt_decode_attention_heads"),
+    "K2 prefix int4 fp32": (_k2_int4_f32, "kwt_decode_attention_heads"),
+    "K2 prefix int8 fp32": (_k2_int8_f32, "kwt_decode_attention_heads"),
     "K2 ring": (_k2_ring, "kwt_decode_attention_ring"),
     "K2 self": (_k2_self, "kwt_decode_attention_ring"),
     "K2 beam": (_k2_beam, "kwt_decode_attention_beam"),

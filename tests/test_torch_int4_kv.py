@@ -211,10 +211,15 @@ def test_beam_twin_takes_per_head_scales_on_the_head_axis():
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
 
 
-@pytest.mark.parametrize("form", ["ring-int8-heads", "beam-int4"])
+@pytest.mark.parametrize("form", ["ring-int8-heads", "beam-int4", "beam-int4-8-shares",
+                                  "beam-int4-one-share"])
 def test_kernel_walks_match_jax(form):
     """The ring and beam kernels' arithmetic in their order with per-head
-    scales (fp32 P and output) against JAX's reference."""
+    scales (fp32 P and output) against JAX's reference; the beam walk on
+    `beam_plan`'s key shares of packed int4: 3 (2 groups over T=150), a
+    full cluster of 8 (one group over T=1500) and one (a card of one SM),
+    also with P * v_scale rounded to bf16 as the kernel does, within the
+    card's max |err| 2e-3."""
     if form == "ring-int8-heads":
         q, (k, ks, jk, jks), (v, vs, jv, jvs) = _kv(8, 8)
         q = torch.from_numpy(q).bfloat16().float().numpy()  # the walks take q as bf16
@@ -224,13 +229,20 @@ def test_kernel_walks_match_jax(form):
         got = tda.ring_walk(torch.from_numpy(q), k, v, torch.from_numpy(valid), 12, n_heads=H,
                             k_scale=ks, v_scale=vs, out_dtype=torch.float32)
     else:
-        _, (k, ks, jk, jks), (v, vs, jv, jvs) = _kv(9, 4, t=150, b=2)
-        q = torch.from_numpy(np.random.default_rng(10).standard_normal((2, 5, H, HD))
+        g, t, n_sms, splits = {"beam-int4": (2, 150, tda.N_SMS, 3),
+                               "beam-int4-8-shares": (1, 1500, tda.N_SMS, 8),
+                               "beam-int4-one-share": (2, 150, 1, 1)}[form]
+        _, (k, ks, jk, jks), (v, vs, jv, jvs) = _kv(9, 4, t=t, b=g)
+        q = torch.from_numpy(np.random.default_rng(10).standard_normal((g, 5, H, HD))
                              ).bfloat16().float()
+        assert tda.beam_plan(g, t, H, 5, torch.uint8, n_sms).splits == splits
         ref = jda.decode_attention_reference_beam(jnp.asarray(q.numpy()), jk, jv, n_heads=H,
                                                   k_scale=jks, v_scale=jvs)
         got = tda.beam_walk(q, k, v, n_heads=H, k_scale=ks, v_scale=vs, p_dtype=None,
-                            out_dtype=torch.float32)
+                            out_dtype=torch.float32, n_sms=n_sms)
+        rounded = tda.beam_walk(q, k, v, n_heads=H, k_scale=ks, v_scale=vs,
+                                out_dtype=torch.float32, n_sms=n_sms)
+        np.testing.assert_allclose(rounded.numpy(), np.asarray(ref), atol=2e-3, rtol=0)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5, rtol=1e-4)
 
 
@@ -289,7 +301,7 @@ def test_plans_count_each_modes_bytes():
     assert tda.prefix_smem_bytes(188, 20, torch.int8) == 105120
     with pytest.raises(ValueError, match="head kernel"):
         tda.prefix_smem_bytes(188, 20, torch.uint8, per_head=True)
-    int4 = tda.int4_smem_bytes(375, 4)
+    int4 = tda.head_smem_bytes(375, 4)
     assert int4 == 49184 and 3 * (int4 + 1024) <= tda.SM_SMEM
     assert (tda.ring_smem_bytes(176, 2, torch.int8, per_head=True)
             - tda.ring_smem_bytes(176, 2, torch.int8) == 8 * 176)

@@ -1,18 +1,18 @@
-"""K2's int4 head kernel, on the CPU (csrc/decode_attention.cu `int4_kernel`).
+"""K2's int4 head kernel, on the CPU (csrc/decode_attention.cu `head_kernel`).
 
 Packed int4 K/V take their own kernel: one CTA per (share of the cache
-rows, group of heads, batch row) of `int4_plan`'s grid, the shares of a
+rows, group of heads, batch row) of `head_plan`'s grid, the shares of a
 (row, group) one thread-block cluster that combines them. Held here:
-- `int4_walk`, the kernel's arithmetic in its order (the share's exact
+- `head_walk`, the kernel's arithmetic in its order (the share's exact
   max, p = 2^(s - m), the weights p * v_scale, the cluster's combine), on
   packed int4 with per-head bf16 scales against the JAX package's
   `decode_attention_reference`, at 20 heads (D=1280) and 10 (D=640), a
   scalar valid length and per-row ones on and beside every share
   boundary, a row with one valid slot, bf16 and fp32 q;
-- `int4_plan`: the heads of a CTA divide H, the shares cover each row's
+- `head_plan`: the heads of a CTA divide H, the shares cover each row's
   valid span once and form a portable cluster (at most 8), the grid holds
-  at most INT4_CTAS_PER_SM CTAs an SM where the span allows, and a CTA's
-  shared memory (`int4_smem_bytes`) fits the 227 KB a block may use, three
+  at most HEAD_CTAS_PER_SM CTAs an SM where the span allows, and a CTA's
+  shared memory (`head_smem_bytes`) fits the 227 KB a block may use, three
   CTAs an SM at the cross call.
 """
 import jax.numpy as jnp
@@ -57,7 +57,7 @@ def _kv(seed, b, h):
 def _boundary_lengths(b, h):
     """Per-row valid lengths on and beside the shares' boundaries of the
     plan a (b, T) cache takes, and one valid slot."""
-    plan = tda.int4_plan(b, T, h)
+    plan = tda.head_plan(b, T, h)
     edges = [plan.rows * x + d for x in range(1, plan.shares) for d in (-1, 0, 1)]
     lengths = [T, 1, *edges]
     return np.array([lengths[i % len(lengths)] for i in range(b)], np.int32)
@@ -74,7 +74,7 @@ def test_walk_matches_jax(h, valid, q_dtype):
     ref = jda.decode_attention_reference(
         jnp.asarray(q.float().numpy()), jk, jv, jnp.asarray(lengths), n_heads=h, k_scale=jks,
         v_scale=jvs)
-    got = tda.int4_walk(q, k, v, lengths if valid == "scalar" else torch.from_numpy(lengths),
+    got = tda.head_walk(q, k, v, lengths if valid == "scalar" else torch.from_numpy(lengths),
                         n_heads=h, k_scale=ks, v_scale=vs, out_dtype=torch.float32)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5, rtol=1e-4)
     if q_dtype == torch.bfloat16:  # the wrapper's CPU twin, in q's dtype, within a bf16 ulp
@@ -89,7 +89,7 @@ def test_boundary_lengths_fall_on_every_share_edge():
     before and after each share boundary of its plan, and one row at one
     slot."""
     for h in (20, 10):
-        plan = tda.int4_plan(16, T, h)
+        plan = tda.head_plan(16, T, h)
         lengths = set(_boundary_lengths(16, h).tolist())
         assert {1, T} <= lengths and plan.shares > 1
         for x in range(1, plan.shares):
@@ -100,15 +100,15 @@ def test_boundary_lengths_fall_on_every_share_edge():
                                      (1, 1500, 20), (6, 1500, 20), (2, 1500, 10),
                                      (4, 51, 20), (3, 1, 3), (16, 3000, 20), (64, 1500, 20)])
 def test_int4_plan_grid(b, t, h):
-    plan = tda.int4_plan(b, t, h)
+    plan = tda.head_plan(b, t, h)
     n_ctas = plan.shares * (h // plan.heads) * b
-    assert h % plan.heads == 0 and plan.heads in tda.INT4_HEADS
+    assert h % plan.heads == 0 and plan.heads in tda.HEAD_HEADS
     assert plan.grid == (plan.shares, h // plan.heads, b)
     assert 1 <= plan.shares <= tda.MAX_CLUSTER  # a portable cluster
     assert plan.shares * plan.rows >= t > (plan.shares - 1) * plan.rows  # no empty share
     assert plan.rows >= min(t, tda.MIN_CTA_ROWS)
-    assert n_ctas <= tda.INT4_CTAS_PER_SM * tda.N_SMS or plan.shares == 1
-    assert plan.smem == tda.int4_smem_bytes(plan.rows, plan.heads) <= tda.SMEM_LIMIT
+    assert n_ctas <= tda.HEAD_CTAS_PER_SM * tda.N_SMS or plan.shares == 1
+    assert plan.smem == tda.head_smem_bytes(plan.rows, plan.heads) <= tda.SMEM_LIMIT
 
 
 def test_int4_plan_at_the_cross_call():
@@ -116,11 +116,11 @@ def test_int4_plan_at_the_cross_call():
     shares of 375 rows, 320 CTAs, three an SM fitting its shared memory;
     a TP=2 rank's 10 heads: 2 heads a CTA, the same grid; one row (serving)
     spreads over its heads one a CTA."""
-    p = tda.int4_plan(16, T, 20)
+    p = tda.head_plan(16, T, 20)
     assert (p.heads, p.shares, p.rows, p.grid) == (4, 4, 375, (4, 5, 16))
     assert p.smem == 49184 and 3 * (p.smem + 1024) <= tda.SM_SMEM
-    assert tda.int4_plan(16, T, 10)[:4] == (2, 4, 375, (4, 5, 16))
-    assert tda.int4_plan(1, T, 20)[:4] == (1, 8, 188, (8, 20, 1))
+    assert tda.head_plan(16, T, 10)[:4] == (2, 4, 375, (4, 5, 16))
+    assert tda.head_plan(1, T, 20)[:4] == (1, 8, 188, (8, 20, 1))
 
 
 @pytest.mark.parametrize("span", [1, 63, 64, 65, 188, 375, 376, 1499, 1500])
@@ -128,7 +128,7 @@ def test_int4_shares_cover_each_valid_row_once(span):
     """Share x reads rows [x * rows, min((x + 1) * rows, valid)): over the
     shares every valid row once, nothing past valid."""
     for valid in sorted({1, span // 2 + 1, span}):
-        plan = tda.int4_plan(16, span, 20)
+        plan = tda.head_plan(16, span, 20)
         seen = np.zeros(span, int)
         for x in range(plan.shares):
             seen[x * plan.rows:max(min((x + 1) * plan.rows, valid), x * plan.rows)] += 1
@@ -140,7 +140,7 @@ def test_int4_smem_counts_its_parts():
     words a row and tensor, the per-head max and sum, the cluster's
     slices, maxima and sums, two barriers a stage and the scales'."""
     for rows, heads in ((375, 4), (188, 2), (1, 1)):
-        words, stages = heads // 2 + 1, tda.INT4_RING // (tda.INT4_BOX * heads * 32)
-        parts = (tda.INT4_RING + 4 * rows * heads + 8 * words * rows + 8 * heads
+        words, stages = heads // 2 + 1, tda.HEAD_INT4_RING // (tda.HEAD_BOX * heads * 32)
+        parts = (tda.HEAD_INT4_RING + 4 * rows * heads + 8 * words * rows + 8 * heads
                  + 4 * (heads * 64 + tda.MAX_CLUSTER) + 8 * tda.MAX_CLUSTER * heads)
-        assert tda.int4_smem_bytes(rows, heads) == ((parts + 7) & ~7) + 8 * (2 * stages + 1)
+        assert tda.head_smem_bytes(rows, heads) == ((parts + 7) & ~7) + 8 * (2 * stages + 1)

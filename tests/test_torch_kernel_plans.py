@@ -30,6 +30,8 @@ K4 (ops/flash_attention.py `causal_tile_plan`): the key tiles each
 keeps, none of them is masked for all its rows, and only the tiles that
 cross the first row's bound (or tk) are masked.
 """
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -179,14 +181,16 @@ def test_beam_plan_covers_each_key_once(beams, t):
     CTAs, and no share without keys. Beam counts past 6, which the earlier
     kernel refused, take more 16-beam tiles."""
     n_heads = 20
-    for g in (1, 2, 12):
-        plan = da.beam_plan(g, t, n_heads, beams, torch.int8)
+    for g, kv_dtype in itertools.product((1, 2, 12), (torch.int8, torch.uint8)):
+        plan = da.beam_plan(g, t, n_heads, beams, kv_dtype)
         splits, y_dim, z_dim = plan.grid
         assert (y_dim, z_dim) == (n_heads * plan.m_tiles, g) and splits == plan.splits
         assert 1 <= splits <= da.MAX_CLUSTER
         assert (splits - 1) * plan.keys_per_split < t <= splits * plan.keys_per_split
         assert plan.keys_per_split % da.BEAM_KEY_TILE == 0
         assert plan.m_tiles == -(-beams // da.BEAM_ROWS)
+        if splits > 1:  # key shares only while the CTAs would not fill two an SM
+            assert splits * y_dim * z_dim <= 2 * da.N_SMS
         seen = np.zeros((g, n_heads, beams, t), np.int64)
         for x in range(splits):
             k0 = x * plan.keys_per_split
@@ -202,12 +206,14 @@ def test_beam_plan_covers_each_key_once(beams, t):
 def test_beam_plan_fits_two_ctas_an_sm():
     """At beam search's shape (12 groups x 5 beams over T=1500, 20 heads)
     the plan is one CTA per (group, head), 240 CTAs and no key split, two to
-    an SM in both dtypes; two groups split each row's keys over a cluster."""
-    for kv_dtype in (torch.int8, torch.bfloat16):
+    an SM in every bf16-q dtype (int8, bf16, packed int4); two groups split
+    each row's keys over a cluster, one group over a full one."""
+    for kv_dtype in (torch.int8, torch.bfloat16, torch.uint8):
         plan = da.beam_plan(12, 1500, 20, 5, kv_dtype)
         assert plan.grid == (1, 20, 12) and plan.keys_per_split >= 1500
         assert 2 * (plan.smem + 1024) <= da.SM_SMEM
     assert da.beam_plan(2, 1500, 20, 5, torch.int8).grid == (6, 20, 2)
+    assert da.beam_plan(1, 1500, 20, 5, torch.uint8).grid == (8, 20, 1)
 
 
 def test_beam_wrapper_says_why_it_refuses():

@@ -2008,7 +2008,7 @@ def test_flash_attention_f32_tc_form_replays_in_a_cuda_graph():
 def _int4_edges(b, t, h):
     """Per-row valid lengths on and beside each share boundary of the plan a
     (b, t) int4 cache takes on this card, a row of one slot, a full row."""
-    plan = da.int4_plan(b, t, h, torch.cuda.get_device_properties(0).multi_processor_count)
+    plan = da.head_plan(b, t, h, torch.cuda.get_device_properties(0).multi_processor_count)
     lengths = [t, 1] + [plan.rows * x + d for x in range(1, plan.shares) for d in (-1, 0, 1)]
     return torch.tensor([lengths[i % len(lengths)] for i in range(b)], dtype=torch.int32,
                         device="cuda"), plan
@@ -2212,3 +2212,160 @@ def test_decode_attention_beam_f32_form_replays_in_a_cuda_graph():
         want = call()
         torch.cuda.synchronize()
         assert all(torch.equal(a, b) for a, b in zip(out, want))
+
+
+def _int8_edges(b, t, h):
+    """Per-row valid lengths on and beside each share boundary of the plan
+    an int8 (b, t) cache takes on this card, a row of one slot, a full row."""
+    plan = da.head_plan(b, t, h, torch.cuda.get_device_properties(0).multi_processor_count,
+                        kv_dtype=torch.int8)
+    lengths = [t, 1] + [plan.rows * x + d for x in range(1, plan.shares) for d in (-1, 0, 1)]
+    return torch.tensor([lengths[i % len(lengths)] for i in range(b)], dtype=torch.int32,
+                        device="cuda"), plan
+
+
+@pytest.mark.parametrize("q_layout", ["contiguous", "fused"])
+@pytest.mark.parametrize("valid", ["all", "rows"])
+@pytest.mark.parametrize("heads", [20, 10])
+def test_decode_attention_int8_heads_at_the_cross_call(heads, valid, q_layout):
+    """K2's cross call over int8 K/V with fp32 row scales under fp32 q runs
+    the head kernel (B=16, T=1500) at 20 heads and a TP=2 rank's 10, every
+    row valid and per-row lengths on and beside each share boundary of its
+    plan with a row of one slot, q contiguous or read in place from a fused
+    q|k|v projection row (a 16-byte aligned stride): within 1e-5 of the
+    twin, one launch, the same bits from two launches."""
+    b, t, f32 = 16, 1500, torch.float32
+    if q_layout == "fused":
+        q = _randn(b, 3 * heads * 64, seed=290, dtype=f32)[:, :heads * 64].view(b, heads, 64)
+        assert q.stride() == (3 * heads * 64, 64, 1)
+    else:
+        q = _randn(b, heads, 64, seed=290, dtype=f32)
+    k, v, ks, vs = _f32_kv(b, t, heads, "int8", seed=291)
+    lengths, plan = _int8_edges(b, t, heads)
+    assert plan.shares > 1
+    lengths = t if valid == "all" else lengths
+    kw = dict(n_heads=heads, k_scale=ks, v_scale=vs)
+    before = da.decode_attention.launches
+    got = da.decode_attention(q, k, v, lengths, **kw)
+    again = da.decode_attention(q, k, v, lengths, **kw)
+    torch.cuda.synchronize()
+    assert da.decode_attention.launches == before + 2 and torch.equal(got, again)
+    ref = da.decode_attention_reference(q, k, v, lengths, **kw)
+    _assert_fp32(got, ref)
+    cut = da.decode_attention_reference(q, k[:, 64:], v[:, 64:], t - 64, n_heads=heads,
+                                        k_scale=ks[:, 64:], v_scale=vs[:, 64:])
+    if valid == "all":
+        assert float((cut - ref).norm() / ref.norm()) > 1e-2
+
+
+def _heads_entry(q, k, v, ks, vs, valid, heads, shares):
+    """The head kernel's C entry over int8 K/V at a chosen grid (the plan's
+    choice or another the sweep times) -> out."""
+    from kotoba_whisper_tpu_torch.ops import _build
+
+    b, t, _ = k.shape
+    n_heads = q.shape[1]
+    out = torch.empty_like(q)
+    rc = _build.function("decode_attention", "kwt_decode_attention_heads")(
+        0, q.data_ptr(), q.stride(0), k.data_ptr(), v.data_ptr(), ks.data_ptr(), vs.data_ptr(),
+        None, valid, out.data_ptr(), b, t, n_heads, heads, shares, -(-valid // shares),
+        da.KV_INT8, int(q.dtype == torch.float32), _build.stream_handle(0))
+    assert rc == 0, rc
+    return out
+
+
+@pytest.mark.parametrize("q_dtype", [torch.bfloat16, torch.float32], ids=["bf16-q", "fp32-q"])
+@pytest.mark.parametrize("heads", [4, 2, 1])
+def test_int8_head_kernel_in_every_instantiation(heads, q_dtype):
+    """Every head count a CTA the int8 head kernel compiles, through its
+    C entry at 3 shares over T=1500 at 20 heads (B=4): fp32 q within 1e-5
+    of the twin, bf16 q (the probe that no path routes) within 2e-3."""
+    b, t, h = 4, 1500, 20
+    q = _randn(b, h, 64, seed=292, dtype=q_dtype)
+    k, v, ks, vs = _f32_kv(b, t, h, "int8", seed=293)
+    got = _heads_entry(q, k, v, ks, vs, t, heads, 3)
+    torch.cuda.synchronize()
+    ref = da.decode_attention_reference(q, k, v, t, n_heads=h, k_scale=ks, v_scale=vs)
+    if q_dtype == torch.float32:
+        _assert_fp32(got, ref)
+    else:
+        _assert_near(got, ref, atol=2e-3)
+
+
+def test_int8_head_kernel_refuses_what_it_lacks():
+    """The head entry refuses int8 per-head scales (mode 2), bf16 K/V (mode
+    0), a head count that does not divide H and more shares than a
+    cluster holds."""
+    from kotoba_whisper_tpu_torch.ops import _build
+
+    b, t, h = 2, 128, 4
+    q = _randn(b, h, 64, seed=294, dtype=torch.float32)
+    k, v, ks, vs = _f32_kv(b, t, h, "int8", seed=295)
+    out = torch.empty_like(q)
+    fn = _build.function("decode_attention", "kwt_decode_attention_heads")
+    for heads, shares, mode in ((4, 2, da.KV_INT8_HEADS), (4, 2, da.KV_BF16),
+                                (3, 2, da.KV_INT8), (4, 9, da.KV_INT8)):
+        rc = fn(0, q.data_ptr(), q.stride(0), k.data_ptr(), v.data_ptr(), ks.data_ptr(),
+                vs.data_ptr(), None, t, out.data_ptr(), b, t, h, heads, shares, -(-t // shares),
+                mode, 1, _build.stream_handle(0))
+        assert rc != 0, (heads, shares, mode)
+
+
+def test_decode_attention_int8_heads_replay_in_a_cuda_graph():
+    """The int8 head kernel under fp32 q with per-row lengths replays in a
+    CUDA graph to the eager output, also after q and the lengths change in
+    place."""
+    b, t, h, f32 = 16, 1500, 20, torch.float32
+    q = _randn(b, h, 64, seed=296, dtype=f32)
+    k, v, ks, vs = _f32_kv(b, t, h, "int8", seed=297)
+    lengths, _ = _int8_edges(b, t, h)
+
+    def call():
+        return da.decode_attention(q, k, v, lengths, n_heads=h, k_scale=ks, v_scale=vs)
+
+    call()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    for step in range(2):
+        if step:
+            q.copy_(_randn(*q.shape, seed=298, dtype=f32))
+            lengths.copy_(lengths.flip(0))
+        graph.replay()
+        want = call()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("g", [1, 12])
+@pytest.mark.parametrize("beams", [1, 5, 16, 17])
+@pytest.mark.parametrize("t", [1, 63, 1500])
+def test_decode_attention_beam_int4_grid(t, beams, g):
+    """K2's int4 beam form (bf16 q, packed int4 K/V with bf16 per-head
+    scales) at one group (the most key shares) and at beam search's 12
+    groups, T = 1, 63, 1500, 1 to 17 beams (two
+    16-beam tiles): max |err| <= 2e-3 against the twin, one launch, the same
+    bits from two launches, and the same bits again from a replayed CUDA
+    graph."""
+    h = 20
+    q = _randn(g, beams, h, 64, seed=300)
+    k, v, ks, vs = _f32_kv(g, t, h, "int4", seed=301)
+    plan = da.beam_plan(g, t, h, beams, torch.uint8,
+                        torch.cuda.get_device_properties(0).multi_processor_count)
+    assert plan.splits == -(-t // plan.keys_per_split)
+    if t == 1500 and g == 1:
+        assert plan.splits > 1
+    kw = dict(n_heads=h, k_scale=ks, v_scale=vs)
+    before = da.decode_attention_beam.launches
+    got = da.decode_attention_beam(q, k, v, **kw)
+    again = da.decode_attention_beam(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert da.decode_attention_beam.launches == before + 2 and torch.equal(got, again)
+    _assert_near(got, da.decode_attention_reference_beam(q, k, v, **kw), atol=2e-3)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = da.decode_attention_beam(q, k, v, **kw)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, got)

@@ -9,8 +9,10 @@ import numpy as np
 import pytest
 import torch
 
+from kotoba_whisper_tpu_torch.ops import _build
+from kotoba_whisper_tpu_torch.ops import decode_attention as da
 from kotoba_whisper_tpu_torch.tools import (
-    enc_exp, k8_probe, kernel_time, stem_exp, step_time, vpu_cal,
+    beam_probe, enc_exp, k8_probe, kernel_time, stem_exp, step_time, vpu_cal,
 )
 
 TINY = ["--preset", "test-tiny", "--batch", "2", "--device", "cpu"]
@@ -82,6 +84,33 @@ def test_tools_raise_without_a_card(monkeypatch):
             run()
 
 
+def test_beam_probe_patches_fit_the_beam_source():
+    """Each of beam_probe's variants applies TWO_FORMS (the kernel templated
+    on its ring and the half form, a C entry with a `stages` argument) and
+    then its own patches once to the beam source without its fp32 form
+    (the launch bound, the knockouts); the shipped source has neither the
+    half form nor the argument; a patch whose text is gone raises."""
+    src = open(_build.source_path("decode_attention_beam")).read()
+    assert "kHalf" not in src and "int stages, int kv_mode" not in src
+    base = beam_probe.patched_source(src, "as_is")
+    assert "struct __align__(16) F32Smem" not in base and "kwt_decode_attention_beam(" in base
+    assert "template <typename KV, int kS, bool kHalf>" in base
+    assert "int stages, int kv_mode, void* stream" in base and "KWT_BEAM(6, true)" in base
+    assert len(beam_probe.ENTRY_ARGTYPES) == len(
+        _build.SIGNATURES["decode_attention_beam"]["kwt_decode_attention_beam"]) + 1
+    for variant in beam_probe.PATCHES:
+        assert (beam_probe.patched_source(src, variant) == base) == (variant == "as_is"), variant
+    with pytest.raises(ValueError, match="exactly once"):
+        beam_probe.patched_source(
+            src.replace("mma_bf16(oacc[nb], pa[j], bv[nb][0], bv[nb][1]);", ""), "as_is")
+
+
+def test_beam_probe_raises_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        beam_probe.main([])
+
+
 def test_k8_probe_raises_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -118,14 +147,16 @@ def test_timing_tools_raise_without_a_card(monkeypatch, tool, argv):
 
 _KERNEL_TIME_GROUPS = {
     "_self_rows": ["self_int8"],
-    "_k2_cross_rows": ["k2_int4", "k2_int4_d640", "k2_int4_f32q", "k2_int8", "k2_bf16"],
+    "_k2_cross_rows": ["k2_int4", "k2_int4_d640", "k2_int4_f32q", "k2_int8", "k2_int8_f32q",
+                       "k2_int8_b48", "k2_bf16"],
     "_k1_f32_rows": ["k1_f32", "k1_f32_nomax", "k1_f32_cross", "k4_f32"],
     "_k5_rows": ["k5_f32_causal", "k5_f32_cross"],
     "_k7_f32_rows": ["k7_f32"],
     "_k8_rows": ["k8_f32_qk", "k8_f32_qk_nomax", "k8_f32_qkpv", "k8_f32_qkpv_nomax",
                  "k8_bf16_qk", "k8_bf16_qkpv"],
     "_beam_rows": ["beam_f32", "beam_f32_int8", "beam_f32_int4", "beam_bf16", "beam_bf16_int8",
-                   "beam_bf16_int4"]}
+                   "beam_bf16_int4"],
+    "_head_probe_rows": ["k2_int8_heads_bf16q", "k2_int8_heads_bf16q_b48"]}
 
 
 def _stub_kernel_time(monkeypatch):
@@ -158,6 +189,53 @@ def test_kernel_time_times_every_row(monkeypatch):
 def test_kernel_time_short_kernel_names(name, short):
     """kernels_ms's kernel names: no return type, namespace or parameters."""
     assert kernel_time.short_kernel_name(name) == short
+
+
+def _stub_head_entries(monkeypatch):
+    """CPU tensors for the tool's inputs, a recording stub for the C
+    entries and a graph_ms that calls once -> the list of entry calls."""
+    calls = []
+
+    def function(name, fn):
+        def entry(*args):
+            calls.append((fn, args))
+            return 0
+        return entry
+
+    monkeypatch.setattr(kernel_time, "_randn",
+                        lambda *shape, seed, dtype=torch.bfloat16: torch.randn(*shape).to(dtype))
+    monkeypatch.setattr(kernel_time._build, "function", function)
+    monkeypatch.setattr(kernel_time._build, "stream_handle", lambda card: 0)
+    monkeypatch.setattr(kernel_time.da, "_n_sms", lambda card: 132)
+    monkeypatch.setattr(kernel_time, "graph_ms", lambda call: call() is None or 0.0)
+    return calls
+
+
+def test_kernel_time_head_probe_takes_the_fp32_plan(monkeypatch):
+    """The bf16-q probe rows call the head kernel's entry at B=16 and 48
+    with the grid the plan gives fp32 q's int8 calls, bf16 q."""
+    calls = _stub_head_entries(monkeypatch)
+    rows = kernel_time._head_probe_rows()
+    assert list(rows) == ["k2_int8_heads_bf16q", "k2_int8_heads_bf16q_b48"]
+    for call in rows.values():
+        call()
+    for (fn, args), b in zip(calls, (16, 48)):
+        plan = da.head_plan(b, 1500, 20, kv_dtype=torch.int8)
+        assert fn == "kwt_decode_attention_heads"
+        assert args[10:19] == (b, 1500, 20, plan.heads, plan.shares, plan.rows, da.KV_INT8, 0, 0)
+
+
+def test_kernel_time_sweeps_name_every_grid(monkeypatch):
+    """--sweep times the int8 head kernel by heads x shares at 20 and 10
+    heads (every head count dividing H), each launch with the grid its name
+    says, fp32 q, the shares covering T=1500."""
+    calls = _stub_head_entries(monkeypatch)
+    heads = kernel_time.head_sweep()
+    assert len(heads) == 3 * 6 + 2 * 6
+    for (fn, args), name in zip(calls, heads):
+        n_heads, hg, shares, rows, mode, q_f32 = args[12:18]
+        assert fn == "kwt_decode_attention_heads" and name == f"H{n_heads} h{hg} s{shares}"
+        assert shares * rows >= 1500 > (shares - 1) * rows and (mode, q_f32) == (da.KV_INT8, 1)
 
 
 def test_kernel_time_split_keeps_rows_of_several_kernels(monkeypatch):
