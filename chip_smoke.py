@@ -865,6 +865,37 @@ def main() -> int:
         )
         del qd, kf, vf, ks, vs, out, kh, vh, qh
 
+    # K2's cross call at 4e's window (48 rows over T=1500, int8): the row
+    # kernel beside its plain twin and the library yardstick (SDPA over K/V
+    # dequantized to bf16), which also stands beside the head kernel's bf16-q
+    # probe (tools/kernel_time.py) at 16 and 48 rows; the launches are phase
+    # 3's cross int8 record's (the same kernel)
+    b_s = 48
+    qd = randn(b_s, h, 64, seed=4)
+    kf, ks = quantized(randn(b_s, t_enc, d, seed=5), h, "int8")
+    vf, vs = quantized(randn(b_s, t_enc, d, seed=6), h, "int8")
+    kw = dict(n_heads=h, k_scale=ks, v_scale=vs)
+    errs = compare(da.decode_attention(qd, kf, vf, t_enc, **kw),
+                   da.decode_attention_reference(qd, kf, vf, t_enc, **kw))
+    kh, vh, qh = bf16_heads(kf, ks, h), bf16_heads(vf, vs, h), qd[:, :, None]
+
+    def b48_call():
+        return da.decode_attention(qd, kf, vf, t_enc, **kw)
+
+    def b48_library():
+        return F.scaled_dot_product_attention(qh, kh, vh)
+
+    log(f"[kernel] K2 decode_attention cross int8 (B={b_s}, T={t_enc}, D={d}), 4e's window, "
+        f"the row kernel: max_abs_err {errs[0]:.3e} rel_l2 {errs[1]:.3e} (tol 2e-3, "
+        f"{REL_L2_TOL:g}) ms {time_ms(b48_call):.4f} plain_ms "
+        f"{time_ms(lambda: da.decode_attention_reference(qd, kf, vf, t_enc, **kw)):.4f} "
+        f"library_ms {time_ms(b48_library):.4f} device_ms {graph_ms(b48_call):.4f} "
+        f"library_device_ms {graph_ms(b48_library):.4f} host_us {host_us(b48_call):.1f} "
+        f"library_host_us {host_us(b48_library):.1f} [{card}]")
+    if errs[0] > 2e-3 or errs[1] > REL_L2_TOL:
+        raise AssertionError(f"K2 cross int8 at B={b_s} disagrees with its plain twin")
+    del qd, kf, vf, ks, vs, kh, vh, qh
+
     # K2 ring form: a stream's self-attention at 4e's window (W=48 rows) and
     # 4g's (W=60, 12 groups x 5 beams), T=176 ring slots, per-row valid
     # lengths over [1, 176], a ring slot past which most rows wrap; int8 with
@@ -916,9 +947,16 @@ def main() -> int:
             return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
 
         n_keys = int(valid.sum())
+        # the grid the per-head form runs on
+        plan = da.ring_plan(w_s, t_s, hh, kf.dtype,
+                            torch.cuda.get_device_properties(0).multi_processor_count,
+                            per_head=kv == "int8h")
+        grid_tag = (f", ring kernel, {plan.heads} head(s) a CTA of {32 * da.RING_WARPS} threads, "
+                    f"{plan.grid[0] * plan.grid[1]} CTAs, scale words by cp.async"
+                    if kv == "int8h" else "")
         record(
             f"K2 decode_attention self ring {mode_tag[kv]} (W={w_s}, T={t_s}, D={dd}, ring_pos 40"
-            f"{tp_tag(hh)})",
+            f"{tp_tag(hh)}{grid_tag})",
             "kotoba_whisper_tpu_torch/csrc/decode_attention_ring.cu",
             "kotoba_whisper_tpu/ops/decode_attention.py:59", errs, 2e-3,
             time_ms(ring_call),
@@ -948,8 +986,10 @@ def main() -> int:
         # the kernel and grid int4 runs on
         plan = da.beam_plan(g_b, t_enc, hh, k_b, kf.dtype,
                             torch.cuda.get_device_properties(0).multi_processor_count)
-        grid_tag = (f", beam kernel (mma.sync), {plan.splits} key share(s), "
-                    f"{plan.grid[0] * plan.grid[1] * g_b} CTAs" if kv == "int4" else "")
+        grid_tag = (f", beam_int4_kernel (mma.sync, keys as M, {da.BEAM_INT4_BEAMS}-beam tiles, "
+                    f"{da.BEAM_INT4_WARPS} consumer warps, {da.BEAM_INT4_CTAS_PER_SM} CTAs an SM), "
+                    f"{plan.splits} key share(s), {plan.grid[0] * plan.grid[1] * g_b} CTAs"
+                    if kv == "int4" else "")
         # (G, H, K, 64): the group's 5 queries a head
         kh, vh, qh = bf16_heads(kf, ks, hh), bf16_heads(vf, vs, hh), qb.transpose(1, 2)
 

@@ -36,22 +36,12 @@
 //   reduces over keys, so a V fragment pairs two keys' bytes of one dim: a
 //   PRMT interleaves two keys' words first. Output dim 8r + n-block is
 //   thread row r's (int8), so a thread reads 8 contiguous bytes of a key.
-// - int4 K and V become bf16 exactly too: a nibble XOR 8 OR-ed into 0x4300
-//   (bf16 128, whose ulp is 1) is 128 + (x + 8), and one bf16x2 FMA
-//   subtracts 136; a LOP3 builds nibble i and i + 4 of a word as one pair.
-//   K's dims pair as (i, i + 4) of the thread's two words, and Q's A
-//   fragment takes that order; V's thread row r reads word r (dims 8r ..
-//   8r + 7) of four keys, a PRMT pairing two keys' nibbles. Its tiles are
-//   32 bytes a key, unswizzled: the key order kappa puts a warp's four V
-//   keys in distinct bank groups, and K's 8-byte loads span 256 bytes.
 // - Key order: column n of an 8-key block is key kappa(n) (bits (n1 ^ n0,
 //   n0, n2)), chosen with the 64-byte TMA swizzle (int8) so that the K
 //   loads (16 B a lane) and the V loads (8 B a lane) of a warp hit 32
 //   distinct banks; bf16 takes the 128-byte swizzle, K by 16-byte loads and
 //   V by ldmatrix.trans in the same key order.
-// - Scales: k_scale multiplies the fp32 score columns of its key (int4: its
-//   head's bf16, copied as the aligned 4-byte word that holds it, the half
-//   picked by the element's parity), v_scale
+// - Scales: k_scale multiplies the fp32 score columns of its key, v_scale
 //   multiplies p before P is rounded to bf16 for the P V product (as the
 //   reference folds it into w). That rounding is the one this kernel adds
 //   to the fp32 twin; bf16 keeps fp32's range, where fp16 would lose p *
@@ -61,13 +51,37 @@
 //   memory holds only the copy ring and the end's merge: two CTAs an SM,
 //   and no cap on beams (16 a tile; more beams take more tiles).
 // - One producer warp keeps the head's K and V tiles in flight through a
-//   ring of stages (8 of 8 KB in int8, 4 of 16 KB in bf16, 16 of 4 KB in
-//   int4) with 3-D TMA boxes (a head's 64 columns x 64 keys x 1 group of
-//   the (G, T, H*64) tensor, rows past T zero-filled), and copies the
-//   tile's scales (cp.async, 4 bytes a key, zero past the CTA's keys) into
-//   the fragments' column order, all counted on one mbarrier. Four consumer warps take tiles in turn, each
-//   with its own running state, and merge (max, sum, O) in shared memory
-//   at the end.
+//   ring of stages (8 of 8 KB in int8, 4 of 16 KB in bf16) with 3-D TMA
+//   boxes (a head's 64 columns x 64 keys x 1 group of the (G, T, H*64)
+//   tensor, rows past T zero-filled), and copies the tile's scales
+//   (cp.async, 4 bytes a key, zero past the CTA's keys) into the fragments'
+//   column order, all counted on one mbarrier. Four consumer warps take
+//   tiles in turn, each with its own running state, and merge (max, sum, O)
+//   in shared memory at the end.
+//
+// The int4 form (`beam_int4_kernel`: bf16 q over packed int4 K/V with bf16
+// per-head scales) turns the products around: keys are mma.sync's M and
+// the beams its N of 8, so 5 beams fill 5 of 8 columns where they filled 5
+// of 16 rows, S^T and O^T take 16 fp32 accumulators a thread each (32
+// before), and the registers freed hold more consumer warps an SM
+// (`kInt4Warps`, `kInt4CtasPerSm`). Per 64-key tile and warp:
+// - S^T = K Q^T: four 16-key m-blocks; K's A fragment is converted from the
+//   nibbles in registers (a nibble XOR 8 OR-ed into 0x4300, bf16 128 whose
+//   ulp is 1, is 128 + (x + 8), and one bf16x2 FMA subtracts 136; a LOP3
+//   builds nibbles i and i + 4 of a word as one pair), so K's dims pair as
+//   (i, i + 4) and Q^T's B fragment, loaded once, takes that order;
+// - k_scale multiplies each key's row, the online softmax runs per beam (a
+//   column: the 8 lanes of a lane & 3 reduce by shuffles), v_scale
+//   multiplies p before p is rounded to bf16;
+// - O^T = V^T P^T: P^T's B fragment is S^T's accumulator packed to bf16
+//   and transposed 8 x 8 at a time by movmatrix; V^T's A fragment pairs two
+//   keys' nibbles of one dim by a PRMT, a thread's rows the dims of one
+//   32-bit word of each key.
+// Row p of an 8-key block is key p ^ (p >> 2), so that a warp's K loads (8
+// bytes a lane) and V loads (a word of four keys) hit distinct banks. The
+// scales come as the aligned 4-byte words that hold the keys' bf16s, the
+// half picked by the element's parity. Beam counts above 8 take more
+// tiles. The ring, the producer and the merge are the other forms'.
 //
 // The fp32 form (`beam_f32_kernel`: an fp32 model's beam step; fp32 q and
 // output; fp32 K/V, int8 with fp32 row scales, or int4 with bf16 per-head
@@ -95,7 +109,7 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 // The K/V modes: stages of the copy ring (ops/decode_attention.py
 // BEAM_STAGES), bytes of a head's 64 columns of a key, and the TMA column
-// of head h (in the map's elements: bytes for int8 and int4).
+// of head h (in the map's elements: bytes for int8).
 template <typename KV>
 struct Mode;
 template <>
@@ -105,10 +119,6 @@ struct Mode<int8_t> {
 template <>
 struct Mode<__nv_bfloat16> {
   static constexpr int kStages = 4, kRowBytes = 128, kHeadCols = 64;
-};
-template <>
-struct Mode<Int4> {
-  static constexpr int kStages = 16, kRowBytes = 32, kHeadCols = 32;
 };
 template <typename KV>
 constexpr bool kIsInt4 = std::is_same<KV, Int4>::value;
@@ -121,9 +131,7 @@ struct __align__(1024) Smem {
   static constexpr int kS = Mode<KV>::kStages;
   uint8_t k[kS][kKeys * Mode<KV>::kRowBytes];  // TMA boxes (swizzled: int8, bf16)
   uint8_t v[kS][kKeys * Mode<KV>::kRowBytes];
-  // scales in fragment column order: fp32 (int8), or (int4) the 4-byte
-  // word holding the key's bf16
-  float ks[kS][kKeys], vs[kS][kKeys];
+  float ks[kS][kKeys], vs[kS][kKeys];  // scales (int8) in fragment column order
   float o[kConsumerWarps][kRows][kHD];  // each warp's O, then its max and sum
   float m[kConsumerWarps][kRows], l[kConsumerWarps][kRows];
   float fo[kRows][kHD];  // the CTA's merged O, max and sum (read by the cluster)
@@ -131,26 +139,20 @@ struct __align__(1024) Smem {
   uint64_t full[kS], empty[kS];
 };
 
-// Key of column n in an 8-key block, and its inverse. int4 takes keys
-// n / 2 + 4 (n & 1): a warp's V loads of columns 2c (keys c) and 2c + 1
-// (keys c + 4) then fall in four distinct 8-bank groups.
+// Key of column n in an 8-key block, and its inverse.
 template <typename KV>
 __device__ __forceinline__ int kappa(int n) {
-  if (kIsInt4<KV>) return (n >> 1) | (n & 1) << 2;
   return ((n >> 1 & 1) | (n >> 2) << 2) ^ (3 * (n & 1));
 }
 template <typename KV>
 __device__ __forceinline__ int kappa_inv(int key) {
-  if (kIsInt4<KV>) return (key & 3) << 1 | key >> 2;
   return (key >> 1 & 1) | ((key ^ key >> 1) & 1) << 1 | (key >> 2) << 2;
 }
 
 // Byte offset within a 1024-aligned tile under the TMA swizzle: 16-byte
-// chunk bits [4:5] (64-byte rows) or [4:6] (128-byte rows) XOR bits [7:..];
-// int4's 32-byte rows are unswizzled.
+// chunk bits [4:5] (64-byte rows) or [4:6] (128-byte rows) XOR bits [7:..].
 template <typename KV>
 __device__ __forceinline__ uint32_t swz(uint32_t off) {
-  if (kIsInt4<KV>) return off;
   return kIsInt8<KV> ? off ^ ((off >> 7 & 3) << 4) : off ^ ((off >> 7 & 7) << 4);
 }
 
@@ -161,21 +163,6 @@ __device__ __forceinline__ uint32_t i8x2_bf16x2(uint32_t w) {
   uint32_t r;
   asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(r) : "r"(mh), "r"(0xBF80BF80u), "r"(mm));
   return r;
-}
-
-// Nibbles j and j + 4 of w (its nibbles XOR 8), int4, as bf16x2 (nibble j
-// low), exactly: (128 + x + 8) - 136.
-__device__ __forceinline__ uint32_t i4x2_bf16x2(uint32_t w, int j) {
-  const uint32_t x = (w >> (4 * j) & 0x000F000Fu) | 0x43004300u;
-  uint32_t r;
-  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(r) : "r"(x), "r"(0x3F803F80u), "r"(0xC308C308u));
-  return r;
-}
-
-// The bf16 of a scale word's half `hi`, as a float.
-__device__ __forceinline__ float bf16_half(float word, int hi) {
-  const uint32_t w = __float_as_uint(word);
-  return __uint_as_float(hi ? w & 0xFFFF0000u : w << 16);
 }
 
 __device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
@@ -211,14 +198,13 @@ __device__ __forceinline__ uint2 lds64(uint32_t addr) {
 }
 
 // Output dim of accumulator column n of n-block nb (V's thread row r reads
-// dims 8r .. 8r + 7 in int8 and int4).
+// dims 8r .. 8r + 7 in int8).
 template <typename KV>
 __device__ __forceinline__ int out_dim(int nb, int n) {
   return std::is_same<KV, __nv_bfloat16>::value ? 8 * nb + n : 8 * n + nb;
 }
 
-// KV: int8_t (fp32 (G, T) scales), Int4 (bf16 (G, T, H) scales) or
-// __nv_bfloat16 (no scales).
+// KV: int8_t (fp32 (G, T) scales) or __nv_bfloat16 (no scales).
 template <typename KV>
 __global__ void __launch_bounds__(kThreads, 2)
     beam_kernel(const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
@@ -226,7 +212,7 @@ __global__ void __launch_bounds__(kThreads, 2)
                 const void* __restrict__ k_scale, const void* __restrict__ v_scale,
                 __nv_bfloat16* __restrict__ out, int t_len, int n_heads, int beams,
                 int keys_per_split) {
-  constexpr bool kInt8 = kIsInt8<KV>, kInt4 = kIsInt4<KV>, kScaled = kInt8 || kInt4;
+  constexpr bool kInt8 = kIsInt8<KV>, kScaled = kInt8;
   constexpr int kS = Mode<KV>::kStages;
   constexpr int kRowBytes = Mode<KV>::kRowBytes;
   extern __shared__ uint8_t smem_raw[];
@@ -257,7 +243,6 @@ __global__ void __launch_bounds__(kThreads, 2)
       prefetch_tmap(&tm_v);
     }
     const long srow = (long)g * t_len;
-    const long n_scales = (long)gridDim.z * t_len * n_heads;  // int4: (G, T, H) bf16s
     for (int i = 0; i < n_tiles; ++i) {
       const int st = i % kS, key0 = k_begin + i * kKeys;
       mbar_wait(&s.empty[st], ((i / kS) & 1) ^ 1);
@@ -267,17 +252,8 @@ __global__ void __launch_bounds__(kThreads, 2)
           const int key = 2 * lane + e, slot = (key & ~7) | kappa_inv<KV>(key & 7);
           const bool in = key0 + key < k_end;
           const long at = srow + (in ? key0 + key : 0);
-          if (kInt4) {
-            // the aligned word holding bf16 at * H + h; its second half is
-            // past the tensor only for the last element, at an even index
-            const long el = at * n_heads + h, word = el & ~1L;
-            const int bytes = in ? (el + 1 < n_scales || (el & 1) ? 4 : 2) : 0;
-            cp_async4(&s.ks[st][slot], static_cast<const __nv_bfloat16*>(k_scale) + word, bytes);
-            cp_async4(&s.vs[st][slot], static_cast<const __nv_bfloat16*>(v_scale) + word, bytes);
-          } else {
-            cp_async4(&s.ks[st][slot], static_cast<const float*>(k_scale) + at, in ? 4 : 0);
-            cp_async4(&s.vs[st][slot], static_cast<const float*>(v_scale) + at, in ? 4 : 0);
-          }
+          cp_async4(&s.ks[st][slot], static_cast<const float*>(k_scale) + at, in ? 4 : 0);
+          cp_async4(&s.vs[st][slot], static_cast<const float*>(v_scale) + at, in ? 4 : 0);
         }
       }
       cp_async_mbar_arrive_noinc(&s.full[st]);
@@ -314,10 +290,9 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
           // int8 K pairs dims (4ks, 4ks + 2) and (4ks + 1, 4ks + 3) of the
-          // thread's 16; int4 K pairs (d, d + 4) and (d + 1, d + 5), d =
-          // 8 (ks / 2) + 2 (ks % 2); bf16 K pairs them in order
-          const int wi = kInt4 ? 4 * (ks >> 1) + (ks & 1) : 2 * ks;
-          const uint32_t a = w[half][wi], b = w[half][kInt4 ? wi + 2 : wi + 1];
+          // thread's 16; bf16 K pairs them in order
+          const int wi = 2 * ks;
+          const uint32_t a = w[half][wi], b = w[half][wi + 1];
           qa[ks][half] = kScaled ? __byte_perm(a, b, 0x5410) : a;
           qa[ks][2 + half] = kScaled ? __byte_perm(a, b, 0x7632) : b;
         }
@@ -330,10 +305,6 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
       for (int e = 0; e < 4; ++e) oacc[nb][e] = 0.f;
     const int col_a = kappa<KV>(2 * c), col_b = kappa<KV>(2 * c + 1);  // keys of columns 2c, 2c + 1
-    // int4: the half of a scale word that holds the key's bf16 (the
-    // element's parity; a tile's keys start at an even key)
-    const int hi_a = (int)((((long)g * t_len + col_a) * n_heads + h) & 1);
-    const int hi_b = (int)((((long)g * t_len + col_b) * n_heads + h) & 1);
 
     for (int i = warp; i < n_tiles; i += kConsumerWarps) {
       const int st = i % kS, left = k_end - (k_begin + i * kKeys);  // keys of the tile in range
@@ -346,15 +317,7 @@ __global__ void __launch_bounds__(kThreads, 2)
       for (int nb = 0; nb < 8; ++nb) {
         const int key = 8 * nb + kappa<KV>(r);
         uint32_t b[8];
-        if (kInt4) {
-          const uint2 x = lds64(kt + key * kRowBytes + 8 * c);
-          const uint32_t u[2] = {x.x ^ 0x88888888u, x.y ^ 0x88888888u};
-#pragma unroll
-          for (int ks = 0; ks < 4; ++ks) {
-            b[2 * ks] = i4x2_bf16x2(u[ks >> 1], 2 * (ks & 1));
-            b[2 * ks + 1] = i4x2_bf16x2(u[ks >> 1], 2 * (ks & 1) + 1);
-          }
-        } else if (kInt8) {
+        if (kInt8) {
           const uint4 x = lds128(kt + swz<KV>(key * kRowBytes + 16 * c));
           const uint32_t xs[4] = {x.x, x.y, x.z, x.w};
 #pragma unroll
@@ -380,7 +343,6 @@ __global__ void __launch_bounds__(kThreads, 2)
       for (int nb = 0; nb < 8; ++nb) {
         float2 ksc = make_float2(1.f, 1.f);
         if (kScaled) ksc = *reinterpret_cast<const float2*>(&s.ks[st][8 * nb + 2 * c]);
-        if (kInt4) ksc = make_float2(bf16_half(ksc.x, hi_a), bf16_half(ksc.y, hi_b));
         const bool in_a = 8 * nb + col_a < left, in_b = 8 * nb + col_b < left;
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
@@ -431,7 +393,6 @@ __global__ void __launch_bounds__(kThreads, 2)
           const int nb = 2 * j + odd;
           float2 vsc = make_float2(1.f, 1.f);
           if (kScaled) vsc = *reinterpret_cast<const float2*>(&s.vs[st][8 * nb + 2 * c]);
-          if (kInt4) vsc = make_float2(bf16_half(vsc.x, hi_a), bf16_half(vsc.y, hi_b));
           pa[j][2 * odd] = pack_bf16x2(sc[nb][0] * vsc.x, sc[nb][1] * vsc.y);
           pa[j][2 * odd + 1] = pack_bf16x2(sc[nb][2] * vsc.x, sc[nb][3] * vsc.y);
         }
@@ -440,24 +401,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         uint32_t bv[8][2];
-        if (kInt4) {
-          // word r (dims 8r .. 8r + 7) of keys of k-positions 2c, 2c + 1 (A,
-          // B) and 2c + 8, 2c + 9 (C, D); a PRMT pairs A's and B's nibbles
-          const int ka = 16 * j + col_a, kb = 16 * j + col_b;
-          const uint32_t wa = lds32(vt + ka * kRowBytes + 4 * r);
-          const uint32_t wb = lds32(vt + kb * kRowBytes + 4 * r);
-          const uint32_t wc = lds32(vt + (ka + 8) * kRowBytes + 4 * r);
-          const uint32_t wd = lds32(vt + (kb + 8) * kRowBytes + 4 * r);
-          const uint32_t ab[2] = {__byte_perm(wa, wb, 0x5410) ^ 0x88888888u,
-                                  __byte_perm(wa, wb, 0x7632) ^ 0x88888888u};
-          const uint32_t cd[2] = {__byte_perm(wc, wd, 0x5410) ^ 0x88888888u,
-                                  __byte_perm(wc, wd, 0x7632) ^ 0x88888888u};
-#pragma unroll
-          for (int u = 0; u < 8; ++u) {
-            bv[u][0] = i4x2_bf16x2(ab[u >> 2], u & 3);
-            bv[u][1] = i4x2_bf16x2(cd[u >> 2], u & 3);
-          }
-        } else if (kInt8) {
+        if (kInt8) {
           // keys of k-positions 2c, 2c + 1 (A, B) and 2c + 8, 2c + 9 (C, D)
           const int ka = 16 * j + col_a, kb = 16 * j + col_b;
           const uint2 wa = lds64(vt + swz<KV>(ka * kRowBytes + 8 * r));
@@ -573,51 +517,42 @@ __global__ void __launch_bounds__(kThreads, 2)
   cluster_sync();  // no CTA leaves while rank 0 reads its shared memory
 }
 
-// 3-D map (H*64 columns, T keys, G groups) of a (G, T, H*64) tensor (int4:
-// H*32 bytes): boxes of one head's columns x kKeys keys, swizzled (int8,
-// bf16), zero-filled past T.
-template <typename KV>
-bool make_map(CUtensorMap* map, const void* base, int groups, int t_len, int n_heads) {
+// 3-D map (H*cols columns, T keys, G groups) of a (G, T, H*cols) tensor of
+// `row_bytes` a head: boxes of one head's columns x kKeys keys, zero-filled
+// past T.
+bool encode_map(CUtensorMap* map, const void* base, int groups, int t_len, int n_heads, int cols,
+                int row_bytes, CUtensorMapDataType dtype, CUtensorMapSwizzle swizzle) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
-  constexpr int kCols = Mode<KV>::kHeadCols;
-  const cuuint64_t row = (cuuint64_t)n_heads * Mode<KV>::kRowBytes;
-  const cuuint64_t dims[3] = {(cuuint64_t)n_heads * kCols, (cuuint64_t)t_len, (cuuint64_t)groups};
+  const cuuint64_t row = (cuuint64_t)n_heads * row_bytes;
+  const cuuint64_t dims[3] = {(cuuint64_t)n_heads * cols, (cuuint64_t)t_len, (cuuint64_t)groups};
   const cuuint64_t strides[2] = {row, row * t_len};
-  const cuuint32_t box[3] = {kCols, kKeys, 1};
+  const cuuint32_t box[3] = {(cuuint32_t)cols, kKeys, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
-  const bool bf16 = std::is_same<KV, __nv_bfloat16>::value;
-  return encode(map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8,
-                3, const_cast<void*>(base), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE,
-                kIsInt4<KV> ? CU_TENSOR_MAP_SWIZZLE_NONE
-                            : kIsInt8<KV> ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return encode(map, dtype, 3, const_cast<void*>(base), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <typename KV>
-int launch(int card, const void* q, long q_stride, const void* k, const void* v,
-           const void* k_scale, const void* v_scale, void* out, int groups, int t_len,
-           int n_heads, int beams, int splits, int keys_per_split, int mode, cudaStream_t stream) {
-  // a beam search's cross caches (one a layer) are allocated once
-  CUtensorMap tk, tv;
-  if (!cached_tmap(&tk, {k, {groups, t_len, n_heads, mode, 0}},
-                   [&](CUtensorMap* m) { return make_map<KV>(m, k, groups, t_len, n_heads); }) ||
-      !cached_tmap(&tv, {v, {groups, t_len, n_heads, mode, 0}},
-                   [&](CUtensorMap* m) { return make_map<KV>(m, v, groups, t_len, n_heads); }))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = static_cast<int>(sizeof(Smem<KV>)) + 1024;  // + alignment slack
-  static bool configured[kwt_card::kMaxCards] = {};
-  if (!configured[card]) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        beam_kernel<KV>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    configured[card] = true;
-  }
-  const int m_tiles = (beams + kRows - 1) / kRows;
+// The K and V maps of a beam call, cached by address (a beam search's cross
+// caches, one a layer, are allocated once).
+template <typename Encode>
+bool kv_maps(CUtensorMap* tk, CUtensorMap* tv, const void* k, const void* v, int groups,
+             int t_len, int n_heads, int mode, Encode encode) {
+  return cached_tmap(tk, {k, {groups, t_len, n_heads, mode, 0}},
+                     [&](CUtensorMap* m) { return encode(m, k); }) &&
+         cached_tmap(tv, {v, {groups, t_len, n_heads, mode, 0}},
+                     [&](CUtensorMap* m) { return encode(m, v); });
+}
+
+// Launch `kernel` on (splits, H * m_tiles, G), the key shares of a (group,
+// head, beam tile) one cluster.
+template <typename... Params, typename... Args>
+int launch_shares(void (*kernel)(Params...), int splits, int y, int groups, int threads, int smem,
+                  cudaStream_t stream, Args... args) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(splits, n_heads * m_tiles, groups);
-  cfg.blockDim = dim3(kThreads);
+  cfg.gridDim = dim3(splits, y, groups);
+  cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
@@ -627,9 +562,398 @@ int launch(int card, const void* q, long q_stride, const void* k, const void* v,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return static_cast<int>(cudaLaunchKernelEx(
-      &cfg, beam_kernel<KV>, tk, tv, static_cast<const __nv_bfloat16*>(q), q_stride, k_scale,
-      v_scale, static_cast<__nv_bfloat16*>(out), t_len, n_heads, beams, keys_per_split));
+  return static_cast<int>(cudaLaunchKernelEx(&cfg, kernel, args...));
+}
+
+template <typename KV>
+int launch(int card, const void* q, long q_stride, const void* k, const void* v,
+           const void* k_scale, const void* v_scale, void* out, int groups, int t_len,
+           int n_heads, int beams, int splits, int keys_per_split, int mode, cudaStream_t stream) {
+  constexpr bool kBf16 = std::is_same<KV, __nv_bfloat16>::value;
+  CUtensorMap tk, tv;
+  if (!kv_maps(&tk, &tv, k, v, groups, t_len, n_heads, mode, [&](CUtensorMap* m, const void* x) {
+        return encode_map(m, x, groups, t_len, n_heads, Mode<KV>::kHeadCols, Mode<KV>::kRowBytes,
+                          kBf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+                          kBf16 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B);
+      }))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = static_cast<int>(sizeof(Smem<KV>)) + 1024;  // + alignment slack
+  static bool configured[kwt_card::kMaxCards] = {};
+  if (!configured[card]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        beam_kernel<KV>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured[card] = true;
+  }
+  return launch_shares(beam_kernel<KV>, splits, n_heads * ((beams + kRows - 1) / kRows), groups,
+                       kThreads, smem, stream, tk, tv, static_cast<const __nv_bfloat16*>(q),
+                       q_stride, k_scale, v_scale, static_cast<__nv_bfloat16*>(out), t_len,
+                       n_heads, beams, keys_per_split);
+}
+
+
+// ---- the int4 form: keys as M ------------------------------------------------
+
+// Consumer warps a CTA, the CTAs an SM that `__launch_bounds__` asks
+// registers for (the plan's one wave), stages of the copy ring
+// (ops/decode_attention.py BEAM_INT4_WARPS, BEAM_INT4_CTAS_PER_SM,
+// BEAM_INT4_STAGES).
+constexpr int kInt4Warps = 8, kInt4CtasPerSm = 2, kInt4Stages = 16;
+constexpr int kInt4Beams = 8;      // beams a tile: mma.sync's N (BEAM_INT4_BEAMS)
+constexpr int kInt4RowBytes = 32;  // a head's 64 int4 columns of a key
+
+// ops/decode_attention.py `beam_smem_bytes` mirrors its size.
+struct __align__(1024) Int4Smem {
+  uint8_t k[kInt4Stages][kKeys * kInt4RowBytes];  // TMA boxes, unswizzled
+  uint8_t v[kInt4Stages][kKeys * kInt4RowBytes];
+  uint32_t ks[kInt4Stages][kKeys], vs[kInt4Stages][kKeys];  // the words holding each key's bf16
+  float o[kInt4Warps][kInt4Beams][kHD];  // each warp's O by beam, then its max and sum
+  float m[kInt4Warps][kInt4Beams], l[kInt4Warps][kInt4Beams];
+  float fo[kInt4Beams][kHD];  // the CTA's merged O, max and sum (read by the cluster)
+  float fm[kInt4Beams], fl[kInt4Beams];
+  uint64_t full[kInt4Stages], empty[kInt4Stages];
+};
+
+// Key of row p of an 8-key block: p ^ (p >> 2), an involution. A warp's K
+// loads (lanes of rows r = 0..7 read 8 bytes of key(r) each) then cover 8
+// whole 32-byte rows, and its V loads (word r of the keys of rows 2c, 2c
+// + 1) put keys 0, 2, 5, 7 and 1, 3, 4, 6 in four distinct 8-bank groups.
+__device__ __forceinline__ int int4_key(int p) { return p ^ (p >> 2); }
+
+// Nibbles j and j + 4 of w (its nibbles XOR 8), int4, as bf16x2 (nibble j
+// low), exactly: (128 + x + 8) - 136.
+__device__ __forceinline__ uint32_t i4x2_bf16x2(uint32_t w, int j) {
+  const uint32_t x = (w >> (4 * j) & 0x000F000Fu) | 0x43004300u;
+  uint32_t r;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(r) : "r"(x), "r"(0x3F803F80u), "r"(0xC308C308u));
+  return r;
+}
+
+// The bf16 of a scale word's half `hi`, as a float.
+__device__ __forceinline__ float bf16_half(uint32_t w, int hi) {
+  return __uint_as_float(hi ? w & 0xFFFF0000u : w << 16);
+}
+
+// An 8 x 8 bf16 block in an accumulator's layout (lane (r, c) holds row r,
+// columns 2c, 2c + 1), transposed.
+__device__ __forceinline__ uint32_t movmatrix_trans(uint32_t x) {
+  uint32_t y;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(y) : "r"(x));
+  return y;
+}
+
+// bf16 q over packed int4 K/V, (G, T, H*32) bytes, with bf16 (G, T, H)
+// scales. A CTA takes one (group, head, tile of 8 beams, key share), as
+// beam_kernel does; its warps take 64-key tiles in turn.
+__global__ void __launch_bounds__(32 * (kInt4Warps + 1), kInt4CtasPerSm)
+    beam_int4_kernel(const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v,
+                     const __nv_bfloat16* __restrict__ q, long q_stride,
+                     const __nv_bfloat16* __restrict__ k_scale,
+                     const __nv_bfloat16* __restrict__ v_scale, __nv_bfloat16* __restrict__ out,
+                     int t_len, int n_heads, int beams, int keys_per_split) {
+  constexpr int kWarps = kInt4Warps, kStages = kInt4Stages;
+  extern __shared__ uint8_t smem_raw[];
+  Int4Smem& s = *reinterpret_cast<Int4Smem*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
+                                              ~uintptr_t(1023));
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int rank = blockIdx.x, n_ranks = gridDim.x;
+  const int h = blockIdx.y % n_heads, mt = blockIdx.y / n_heads, g = blockIdx.z;
+  const int k_begin = rank * keys_per_split;
+  const int k_end = min(t_len, k_begin + keys_per_split);
+  const int n_tiles = (k_end - k_begin + kKeys - 1) / kKeys;
+  const int rows = min(kInt4Beams, beams - mt * kInt4Beams);  // beams of this tile
+
+  if (tid == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(&s.full[i], 33);  // the producer lanes' scale copies, and the boxes' bytes
+      mbar_init(&s.empty[i], 1);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == kWarps) {
+    // ---- producer: each tile's scale words (all lanes), then its K and V boxes
+    if (lane == 0) {
+      prefetch_tmap(&tm_k);
+      prefetch_tmap(&tm_v);
+    }
+    const long srow = (long)g * t_len;
+    const long n_scales = (long)gridDim.z * t_len * n_heads;  // (G, T, H) bf16s
+    for (int i = 0; i < n_tiles; ++i) {
+      const int st = i % kStages, key0 = k_begin + i * kKeys;
+      mbar_wait(&s.empty[st], ((i / kStages) & 1) ^ 1);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int key = 2 * lane + e;
+        const bool in = key0 + key < k_end;
+        // the aligned word holding bf16 (srow + key0 + key) * H + h; its
+        // second half is past the tensor only for the last element, at an
+        // even index
+        const long el = (srow + (in ? key0 + key : 0)) * n_heads + h, word = el & ~1L;
+        const int bytes = in ? (el + 1 < n_scales || (el & 1) ? 4 : 2) : 0;
+        cp_async4(&s.ks[st][key], k_scale + word, bytes);
+        cp_async4(&s.vs[st][key], v_scale + word, bytes);
+      }
+      cp_async_mbar_arrive_noinc(&s.full[st]);
+      if (lane == 0) {
+        mbar_expect_tx(&s.full[st], 2 * kKeys * kInt4RowBytes);
+        tma_load_3d(s.k[st], &tm_k, &s.full[st], h * kInt4RowBytes, key0, g);
+        tma_load_3d(s.v[st], &tm_v, &s.full[st], h * kInt4RowBytes, key0, g);
+      }
+    }
+  } else {
+    // ---- consumers: warp w takes tiles w, w + kWarps, ... ---------------------
+    const int r = lane >> 2, c = lane & 3;
+    // Q^T's B fragments, 4 k-steps over the head dim: beam r's dims in K's
+    // pairing, (d, d + 4) and (d + 1, d + 5), d = 16c + 8 (ks / 2) + 2 (ks % 2)
+    uint32_t qb[4][2];
+    {
+      uint4 lo = make_uint4(0, 0, 0, 0), hi = lo;
+      if (r < rows) {
+        const uint4* p = reinterpret_cast<const uint4*>(
+            q + ((long)g * beams + mt * kInt4Beams + r) * q_stride + h * kHD + 16 * c);
+        lo = p[0];
+        hi = p[1];
+      }
+      const uint32_t w[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+        const int wi = 4 * (ks >> 1) + (ks & 1);
+        qb[ks][0] = __byte_perm(w[wi], w[wi + 2], 0x5410);
+        qb[ks][1] = __byte_perm(w[wi], w[wi + 2], 0x7632);
+      }
+    }
+    const float qscale = 0.125f * kLog2e;  // 1/sqrt(64), in log2 units
+    // beams 2c, 2c + 1 (columns of S^T and O^T): running max and this lane's sum
+    float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+    // O^T: m-block mb, rows r / r + 8 are dims 8r + 2mb / 8r + 2mb + 1
+    float oacc[4][4];
+#pragma unroll
+    for (int mb = 0; mb < 4; ++mb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) oacc[mb][e] = 0.f;
+    // S^T's rows r and r + 8 of m-block mb are keys 16 mb + kr and + 8; P^T's
+    // k-positions 2c, 2c + 1 are keys ka, kb of its m-block (and + 8)
+    const int kr = int4_key(r), ka = int4_key(2 * c), kb = int4_key(2 * c + 1);
+    // the half of a scale word that holds the key's bf16 (the element's
+    // parity: kr's, as a tile starts at an even key)
+    const int hi_k = (int)((((long)g * t_len + kr) * n_heads + h) & 1);
+
+    for (int i = warp; i < n_tiles; i += kWarps) {
+      // keys of the tile in range
+      const int st = i % kStages, left = k_end - (k_begin + i * kKeys);
+      mbar_wait(&s.full[st], (i / kStages) & 1);
+      const uint32_t kt = smem_u32(s.k[st]), vt = smem_u32(s.v[st]);
+
+      // S^T = K Q^T over four 16-key m-blocks
+      float sc[4][4];
+#pragma unroll
+      for (int mb = 0; mb < 4; ++mb) {
+        uint32_t kp[2][8];  // rows r, r + 8: dims paired as Q^T's
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const uint2 x = lds64(kt + (16 * mb + 8 * hf + kr) * kInt4RowBytes + 8 * c);
+          const uint32_t u[2] = {x.x ^ 0x88888888u, x.y ^ 0x88888888u};
+#pragma unroll
+          for (int ks = 0; ks < 4; ++ks) {
+            kp[hf][2 * ks] = i4x2_bf16x2(u[ks >> 1], 2 * (ks & 1));
+            kp[hf][2 * ks + 1] = i4x2_bf16x2(u[ks >> 1], 2 * (ks & 1) + 1);
+          }
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[mb][e] = 0.f;
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) {
+          const uint32_t a[4] = {kp[0][2 * ks], kp[1][2 * ks], kp[0][2 * ks + 1],
+                                 kp[1][2 * ks + 1]};
+          mma_bf16(sc[mb], a, qb[ks][0], qb[ks][1]);
+        }
+      }
+
+      // scale, mask keys past the CTA's range, each beam's max over the
+      // 8 lanes of its column
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int mb = 0; mb < 4; ++mb)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int key = 16 * mb + 8 * hf + kr;
+          const float ksc = bf16_half(s.ks[st][key], hi_k);
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float& x = sc[mb][2 * hf + e];
+            x = key < left ? x * ksc * qscale : -INFINITY;
+            mx[e] = fmaxf(mx[e], x);
+          }
+        }
+      float corr[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1)
+          mx[e] = fmaxf(mx[e], __shfl_xor_sync(0xffffffffu, mx[e], off));
+        const float m_new = fmaxf(m_run[e], mx[e]);
+        corr[e] = ex2(m_run[e] - m_new);
+        m_run[e] = m_new;
+      }
+      // p = 2^(s - m), the sums, P^T * v_scale as bf16 B fragments
+      float sum[2] = {0.f, 0.f};
+      uint32_t pb[4][2];
+#pragma unroll
+      for (int mb = 0; mb < 4; ++mb)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const float vsc = bf16_half(s.vs[st][16 * mb + 8 * hf + kr], hi_k);
+          const float p0 = ex2(sc[mb][2 * hf] - m_run[0]);
+          const float p1 = ex2(sc[mb][2 * hf + 1] - m_run[1]);
+          sum[0] += p0;
+          sum[1] += p1;
+          pb[mb][hf] = movmatrix_trans(pack_bf16x2(p0 * vsc, p1 * vsc));
+        }
+#pragma unroll
+      for (int e = 0; e < 2; ++e) l_run[e] = l_run[e] * corr[e] + sum[e];
+#pragma unroll
+      for (int mb = 0; mb < 4; ++mb) {
+        oacc[mb][0] *= corr[0];
+        oacc[mb][1] *= corr[1];
+        oacc[mb][2] *= corr[0];
+        oacc[mb][3] *= corr[1];
+      }
+
+      // O^T += V^T P^T: k-step j reduces the keys of m-block j; word r (dims
+      // 8r .. 8r + 7) of keys ka, kb (A, B) and ka + 8, kb + 8 (C, D), a
+      // PRMT pairing A's and B's nibbles
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const uint32_t va = vt + (16 * j + ka) * kInt4RowBytes + 4 * r;
+        const uint32_t vb = vt + (16 * j + kb) * kInt4RowBytes + 4 * r;
+        const uint32_t wa = lds32(va), wb = lds32(vb);
+        const uint32_t wc = lds32(va + 8 * kInt4RowBytes), wd = lds32(vb + 8 * kInt4RowBytes);
+        const uint32_t ab[2] = {__byte_perm(wa, wb, 0x5410) ^ 0x88888888u,
+                                __byte_perm(wa, wb, 0x7632) ^ 0x88888888u};
+        const uint32_t cd[2] = {__byte_perm(wc, wd, 0x5410) ^ 0x88888888u,
+                                __byte_perm(wc, wd, 0x7632) ^ 0x88888888u};
+#pragma unroll
+        for (int mb = 0; mb < 4; ++mb) {
+          const int u0 = 2 * mb, u1 = 2 * mb + 1;  // dims 8r + u0 (row r), 8r + u1 (row r + 8)
+          const uint32_t a[4] = {i4x2_bf16x2(ab[u0 >> 2], u0 & 3), i4x2_bf16x2(ab[u1 >> 2], u1 & 3),
+                                 i4x2_bf16x2(cd[u0 >> 2], u0 & 3), i4x2_bf16x2(cd[u1 >> 2], u1 & 3)};
+          mma_bf16(oacc[mb], a, pb[j][0], pb[j][1]);
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&s.empty[st]);
+    }
+
+    // ---- this warp's state into shared memory: beams 2c + e, dims 8r .. 8r + 7
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1)
+        l_run[e] += __shfl_xor_sync(0xffffffffu, l_run[e], off);
+      if (r == 0) {
+        s.m[warp][2 * c + e] = m_run[e];
+        s.l[warp][2 * c + e] = l_run[e];
+      }
+      float* o = &s.o[warp][2 * c + e][8 * r];
+      *reinterpret_cast<float4*>(o) =
+          make_float4(oacc[0][e], oacc[0][2 + e], oacc[1][e], oacc[1][2 + e]);
+      *reinterpret_cast<float4*>(o + 4) =
+          make_float4(oacc[2][e], oacc[2][2 + e], oacc[3][e], oacc[3][2 + e]);
+    }
+    named_bar_sync(1, 32 * kWarps);
+    // ---- merge the warps: threads 0..63 -> (beam, 8 dims) ----------------------
+    const int row = tid >> 3, d0 = (tid & 7) * 8;
+    if (tid < 8 * kInt4Beams) {
+      float mm = -INFINITY;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) mm = fmaxf(mm, s.m[w][row]);
+      float ll = 0.f, o[8] = {};
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        const float f = s.m[w][row] == -INFINITY ? 0.f : ex2(s.m[w][row] - mm);
+        ll = fmaf(f, s.l[w][row], ll);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) o[e] = fmaf(f, s.o[w][row][d0 + e], o[e]);
+      }
+      if (n_ranks == 1) {
+        if (row < rows) {
+          const float inv = ll > 0.f ? 1.f / ll : 0.f;
+          uint4 pk;
+          pk.x = pack_bf16x2(o[0] * inv, o[1] * inv);
+          pk.y = pack_bf16x2(o[2] * inv, o[3] * inv);
+          pk.z = pack_bf16x2(o[4] * inv, o[5] * inv);
+          pk.w = pack_bf16x2(o[6] * inv, o[7] * inv);
+          *reinterpret_cast<uint4*>(
+              out + (((long)g * beams + mt * kInt4Beams + row) * n_heads + h) * kHD + d0) = pk;
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) s.fo[row][d0 + e] = o[e];
+        if ((tid & 7) == 0) {
+          s.fm[row] = mm;
+          s.fl[row] = ll;
+        }
+      }
+    }
+  }
+  if (n_ranks == 1) return;
+
+  // ---- key splits: rank 0 combines the cluster's (max, sum, O) ------------
+  cluster_sync();
+  const int row = tid >> 3, d0 = (tid & 7) * 8;
+  if (rank == 0 && tid < 8 * kInt4Beams && row < rows) {
+    float mm = -INFINITY;
+    for (int rk = 0; rk < n_ranks; ++rk) mm = fmaxf(mm, ld_cluster(&s.fm[row], rk));
+    float ll = 0.f, o[8] = {};
+    for (int rk = 0; rk < n_ranks; ++rk) {
+      const float m_r = ld_cluster(&s.fm[row], rk);
+      const float f = m_r == -INFINITY ? 0.f : ex2(m_r - mm);
+      ll = fmaf(f, ld_cluster(&s.fl[row], rk), ll);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) o[e] = fmaf(f, ld_cluster(&s.fo[row][d0 + e], rk), o[e]);
+    }
+    const float inv = ll > 0.f ? 1.f / ll : 0.f;
+    uint4 pk;
+    pk.x = pack_bf16x2(o[0] * inv, o[1] * inv);
+    pk.y = pack_bf16x2(o[2] * inv, o[3] * inv);
+    pk.z = pack_bf16x2(o[4] * inv, o[5] * inv);
+    pk.w = pack_bf16x2(o[6] * inv, o[7] * inv);
+    *reinterpret_cast<uint4*>(
+        out + (((long)g * beams + mt * kInt4Beams + row) * n_heads + h) * kHD + d0) = pk;
+  }
+  cluster_sync();  // no CTA leaves while rank 0 reads its shared memory
+}
+
+int launch_int4(int card, const void* q, long q_stride, const void* k, const void* v,
+                const void* k_scale, const void* v_scale, void* out, int groups, int t_len,
+                int n_heads, int beams, int splits, int keys_per_split, int mode,
+                cudaStream_t stream) {
+  const auto kernel = &beam_int4_kernel;
+  CUtensorMap tk, tv;
+  if (!kv_maps(&tk, &tv, k, v, groups, t_len, n_heads, mode, [&](CUtensorMap* m, const void* x) {
+        return encode_map(m, x, groups, t_len, n_heads, kInt4RowBytes, kInt4RowBytes,
+                          CU_TENSOR_MAP_DATA_TYPE_UINT8, CU_TENSOR_MAP_SWIZZLE_NONE);
+      }))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // + alignment slack
+  const int smem = static_cast<int>(sizeof(Int4Smem)) + 1024;
+  static bool configured[kwt_card::kMaxCards] = {};
+  if (!configured[card]) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured[card] = true;
+  }
+  return launch_shares(kernel, splits, n_heads * ((beams + kInt4Beams - 1) / kInt4Beams), groups,
+                       32 * (kInt4Warps + 1), smem, stream, tk, tv,
+                       static_cast<const __nv_bfloat16*>(q), q_stride,
+                       static_cast<const __nv_bfloat16*>(k_scale),
+                       static_cast<const __nv_bfloat16*>(v_scale),
+                       static_cast<__nv_bfloat16*>(out), t_len, n_heads, beams, keys_per_split);
 }
 
 
@@ -976,23 +1300,11 @@ template <typename KV, int R>
 int launch_f32_rows(const void* q, long q_stride, const void* k, const void* v,
                     const void* k_scale, const void* v_scale, void* out, int groups, int t_len,
                     int n_heads, int beams, int splits, int keys_per_split, cudaStream_t stream) {
-  const int m_tiles = (beams + R - 1) / R;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(splits, n_heads * m_tiles, groups);
-  cfg.blockDim = dim3(kF32Threads);
-  cfg.dynamicSmemBytes = sizeof(F32Smem);
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = splits;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return static_cast<int>(cudaLaunchKernelEx(
-      &cfg, beam_f32_kernel<KV, R>, static_cast<const float*>(q), q_stride,
-      static_cast<const uint8_t*>(k), static_cast<const uint8_t*>(v), k_scale, v_scale,
-      static_cast<float*>(out), t_len, n_heads, beams, keys_per_split));
+  return launch_shares(beam_f32_kernel<KV, R>, splits, n_heads * ((beams + R - 1) / R), groups,
+                       kF32Threads, static_cast<int>(sizeof(F32Smem)), stream,
+                       static_cast<const float*>(q), q_stride, static_cast<const uint8_t*>(k),
+                       static_cast<const uint8_t*>(v), k_scale, v_scale, static_cast<float*>(out),
+                       t_len, n_heads, beams, keys_per_split);
 }
 
 template <typename KV>
@@ -1024,9 +1336,9 @@ int launch_f32(const void* q, long q_stride, const void* k, const void* v, const
 // (G, T, H*64) by kv_mode (ops/decode_attention.py KV_*): 0 bf16; 1 int8
 // with fp32 (G, T) scales; 3 int4 packed two a byte, (G, T, H*32) bytes,
 // with bf16 (G, T, H) scales, 4-byte aligned (mode 2 is refused); every
-// slot a key. The keys of each (group, head, 16-beam tile) are split over
-// a cluster of `splits` CTAs of keys_per_split keys (a multiple of 64;
-// ops/decode_attention.py `beam_plan`). out (G, K, H, 64) bf16. Returns the
+// slot a key. The keys of each (group, head, beam tile: 16 beams, int4's
+// 8) are split over a cluster of `splits` CTAs of keys_per_split keys (a
+// multiple of 64; ops/decode_attention.py `beam_plan`). out (G, K, H, 64) bf16. Returns the
 // launch's cudaError_t, or cudaErrorInvalidValue for a mode it lacks or
 // when a tensor map cannot be encoded.
 extern "C" int kwt_decode_attention_beam(int card, const void* q, long long q_stride,
@@ -1046,8 +1358,8 @@ extern "C" int kwt_decode_attention_beam(int card, const void* q, long long q_st
       return launch<int8_t>(card, q, qs, k, v, k_scale, v_scale, out, groups, t_len, n_heads,
                             beams, splits, keys_per_split, kv_mode, s);
     case 3:
-      return launch<Int4>(card, q, qs, k, v, k_scale, v_scale, out, groups, t_len, n_heads,
-                          beams, splits, keys_per_split, kv_mode, s);
+      return launch_int4(card, q, qs, k, v, k_scale, v_scale, out, groups, t_len, n_heads, beams,
+                         splits, keys_per_split, kv_mode, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

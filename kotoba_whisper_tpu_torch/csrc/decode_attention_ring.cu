@@ -24,13 +24,15 @@
 // boxes (the heads' columns x 32 slots x the row) over those runs into
 // shared memory indexed by slot, so a box that runs past a run, or two
 // boxes over one slot, write that slot's own bytes, and past T the map
-// zero-fills a box's overhang; per-row scales by 4-byte cp.asyncs, per-head
-// ones (the CTA's heads' 2, 4 or 8 contiguous bytes a slot) by plain loads
-// into fp32 a (slot, head). K with the scales, and V, count on two
-// mbarriers. The heads a CTA takes are as many
-// as keep all its K and V slots in shared memory with enough CTAs to fill
-// the card (two a row's 20 heads at the stream's shape: 480 CTAs, four an
-// SM). Then, on the CUDA cores (one query a head gives the tensor cores
+// zero-fills a box's overhang; the scales by 4-byte cp.asyncs: one fp32 a
+// slot per row, or per head the aligned words that hold the CTA's heads'
+// bf16s of the slot (hpc / 2 words where H and hpc are even, else hpc / 2 +
+// 1, the half picked at use by the element's parity). K with the scales,
+// and V, count on two mbarriers. The heads a CTA takes are as many as keep
+// all its K and V slots in shared memory with enough CTAs to fill the card
+// (two a row's 20 heads at the stream's shape: 480 CTAs, four an SM, one
+// wave, in both scale forms; a CTA a (row, head), 960 CTAs, measured
+// slower). Then, on the CUDA cores (one query a head gives the tensor cores
 // nothing to do): the scores in fp32 in the reference's own units, q / 8
 // (exact) times K times k_scale (the lanes of a head's 64 columns reduce by
 // shuffles; int8 becomes fp32 by a byte permute into the mantissa of 2^23
@@ -74,21 +76,29 @@ namespace {
 using namespace kwt_sm90;
 
 constexpr int kHD = 64;  // head dim
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;  // a ring CTA (tools/ring_probe.py builds it at 128)
 constexpr int kWarps = kThreads / 32;
+constexpr int kF32Threads = 256;  // an fp32-form CTA
+constexpr int kF32Warps = kF32Threads / 32;
 constexpr int kBox = 32;    // slots a TMA box (ops/decode_attention.py RING_BOX)
 
-// Shared memory of one CTA over `hpc` heads and t_cap slots: K and V by
-// slot (each with a box's overhang past T; K's space, at least the warps'
-// P V sums), the scales by slot (one fp32, or one a head), the scores per
-// head by key, the warps' maxima and sums of p per head, two mbarriers (K
-// and the scales, V). ops/decode_attention.py `ring_smem_bytes` mirrors
-// `total`.
+// 4-byte scale words a slot: one fp32 (per row), or the aligned words that
+// hold `hpc` contiguous bf16s (per head): hpc / 2 where every slot's first
+// head's bf16 starts a word (H and hpc even), else hpc / 2 + 1.
+__host__ __device__ constexpr int scale_words(int hpc, bool heads, bool odd_heads) {
+  return !heads ? 1 : hpc / 2 + ((hpc & 1) || odd_heads ? 1 : 0);
+}
+
+// Shared memory of one CTA over `hpc` of H heads and t_cap slots: K and V
+// by slot (each with a box's overhang past T; K's space, at least the
+// warps' P V sums), the scale words by slot, the scores per head by key,
+// the warps' maxima and sums of p per head, two mbarriers (K and the
+// scales, V). ops/decode_attention.py `ring_smem_bytes` mirrors `total`.
 struct Layout {
   int k, v, ks, vs, sc, m, lr, bars, total;
-  __host__ __device__ Layout(int t_cap, int hpc, int elem, bool heads) {
+  __host__ __device__ Layout(int t_cap, int hpc, int elem, bool heads, int n_heads) {
     const int bytes = (t_cap + kBox) * hpc * kHD * elem;
-    const int sw = heads ? hpc : 1;  // scales a slot
+    const int sw = scale_words(hpc, heads, n_heads & 1);
     k = 0;
     v = (k + max(bytes, kWarps * hpc * kHD * 4) + 127) & ~127;
     ks = v + bytes;
@@ -101,10 +111,17 @@ struct Layout {
   }
 };
 
+// The bf16 of a scale word's half `hi`, as a float.
+__device__ __forceinline__ float bf16_half(uint32_t w, int hi) {
+  return __uint_as_float(hi ? w & 0xFFFF0000u : w << 16);
+}
+
 // kHeads: int8 K/V with bf16 (B, T, H) scales; else fp32 (B, T) scales
-// (int8) or none (bf16).
+// (int8) or none (bf16). 1024 threads an SM, 64 registers a thread, which
+// the per-row form's code takes of itself: so the per-head form's CTAs fit
+// an SM as the per-row form's do (four at the stream's shape).
 template <typename KV, bool kHeads>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1024 / kThreads)
     ring_kernel(const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
                 const __nv_bfloat16* __restrict__ q, long q_stride,
                 const void* __restrict__ k_scale, const void* __restrict__ v_scale,
@@ -115,12 +132,14 @@ __global__ void __launch_bounds__(kThreads)
   constexpr int kElems = Chunk<KV>::kElems;
   constexpr int kLanes = kHD / kElems;  // lanes of a head's row: 4 (int8) or 8 (bf16)
   extern __shared__ __align__(128) uint8_t smem[];
-  const Layout lay(t_cap, hpc, sizeof(KV), kHeads);
-  const int sw = kHeads ? hpc : 0;  // a slot's scales are at slot * sw + head
+  const Layout lay(t_cap, hpc, sizeof(KV), kHeads, n_heads);
+  const int sw = scale_words(hpc, kHeads, n_heads & 1);  // a slot's scale words are at slot * sw
   uint8_t* kb = smem + lay.k;
   uint8_t* vb = smem + lay.v;
   float* ks_s = reinterpret_cast<float*>(smem + lay.ks);
   float* vs_s = reinterpret_cast<float*>(smem + lay.vs);
+  const uint32_t* ks_w = reinterpret_cast<const uint32_t*>(ks_s);
+  const uint32_t* vs_w = reinterpret_cast<const uint32_t*>(vs_s);
   float* sc = reinterpret_cast<float*>(smem + lay.sc);  // (hpc, t_cap) by key
   float* wm = reinterpret_cast<float*>(smem + lay.m);  // (warps, hpc) maxima
   float* lr = reinterpret_cast<float*>(smem + lay.lr);  // (warps, hpc)
@@ -146,9 +165,8 @@ __global__ void __launch_bounds__(kThreads)
   // ---- every copy in flight: K and V by TMA boxes of kBox slots over the
   // keys' one or two runs of slots, each slot's data at its own smem row (a
   // box past a run, or two boxes over one slot, write that slot's own
-  // bytes; a box starts on a 128-byte row boundary), then the scales by
-  // cp.async, or per head by plain loads, issued after the boxes so that
-  // their round trip does not hold the boxes back --------------------------
+  // bytes; a box starts on a 128-byte row boundary), then the scale words
+  // by cp.async, counted on K's barrier ---------------------------------------
   if (warp == 0) {
     const int n1 = min(valid, t_cap - first);                   // [first, first + n1)
     const int align = row >= 128 ? 1 : 128 / row;              // slots of 128 bytes
@@ -177,29 +195,36 @@ __global__ void __launch_bounds__(kThreads)
     for (int e = 0; e < kElems; ++e) qr[e] = __bfloat162float(qp[e]) * 0.125f;
   }
   if (kHeads) {
-    const __nv_bfloat16* ksg = static_cast<const __nv_bfloat16*>(k_scale);
-    const __nv_bfloat16* vsg = static_cast<const __nv_bfloat16*>(v_scale);
-    for (int i = tid; i < valid * hpc; i += kThreads) {
-      const int j = i / hpc, e = i - j * hpc;
+    // word e of a slot is word (el0 >> 1) + e of the (B, T, H) bf16s, el0
+    // the slot's first head's; a word past the slot's heads is not read, and
+    // one whose second half is past the tensor copies 2 bytes
+    const uint32_t* ksg = static_cast<const uint32_t*>(k_scale);
+    const uint32_t* vsg = static_cast<const uint32_t*>(v_scale);
+    const long n_scales = (long)gridDim.y * t_cap * n_heads;
+    for (int i = tid; i < valid * sw; i += kThreads) {
+      const int j = i / sw, e = i - j * sw;
       int slot = first + j;
       if (slot >= t_cap) slot -= t_cap;
-      const long at = (base + slot) * n_heads + h0 + e;
-      ks_s[slot * hpc + e] = __bfloat162float(ksg[at]);
-      vs_s[slot * hpc + e] = __bfloat162float(vsg[at]);
+      const long el0 = (base + slot) * n_heads + h0, word = (el0 >> 1) + e;
+      const int bytes = 2 * word < el0 + hpc ? (2 * word + 1 < n_scales ? 4 : 2) : 0;
+      const long src = bytes ? word : el0 >> 1;
+      cp_async4(ks_s + slot * sw + e, ksg + src, bytes);
+      cp_async4(vs_s + slot * sw + e, vsg + src, bytes);
     }
-    mbar_arrive(&bars[0]);  // release: the stores are seen past the wait
-  } else {
-    if (kInt8) {
-      for (int j = tid; j < valid; j += kThreads) {
-        int slot = first + j;
-        if (slot >= t_cap) slot -= t_cap;
-        cp_async4(ks_s + slot, static_cast<const float*>(k_scale) + base + slot);
-        cp_async4(vs_s + slot, static_cast<const float*>(v_scale) + base + slot);
-      }
+  } else if (kInt8) {
+    for (int j = tid; j < valid; j += kThreads) {
+      int slot = first + j;
+      if (slot >= t_cap) slot -= t_cap;
+      cp_async4(ks_s + slot, static_cast<const float*>(k_scale) + base + slot);
+      cp_async4(vs_s + slot, static_cast<const float*>(v_scale) + base + slot);
     }
-    cp_async_mbar_arrive_noinc(&bars[0]);
   }
+  cp_async_mbar_arrive_noinc(&bars[0]);
   mbar_wait(&bars[0], 0);
+  // per head: the parity of a slot's first head's bf16 is par0 ^ (slot &
+  // odd) (the word's half of head e is that plus e; it varies by slot only
+  // when H is odd)
+  const int odd = n_heads & 1, par0 = (h0 ^ (b & t_cap & odd)) & 1;
 
   // ---- scores of every (key, head), and the max per head ------------------
   const int n_dots = valid * hpc;
@@ -225,7 +250,14 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int off = kLanes / 2; off > 0; off >>= 1) part += __shfl_xor_sync(0xffffffffu, part, off);
     if (i < n_dots) {
-      const float s = kInt8 ? part * ks_s[kHeads ? slot * sw + hh : slot] : part;
+      float ksc = 1.f;
+      if (kHeads) {
+        const int par = par0 ^ (slot & odd);
+        ksc = bf16_half(ks_w[slot * sw + ((par + hh) >> 1)], (par + hh) & 1);
+      } else if (kInt8) {
+        ksc = ks_s[slot];
+      }
+      const float s = kInt8 ? part * ksc : part;
       mx = fmaxf(mx, s);
       if (c == 0) sc[hh * t_cap + j] = s;
     }
@@ -254,7 +286,14 @@ __global__ void __launch_bounds__(kThreads)
     if (slot >= t_cap) slot -= t_cap;
     const float p = expf(s[j] - m);
     l += p;
-    const float w = kInt8 ? p * vs_s[kHeads ? slot * sw + hv : slot] : p;
+    float vsc = 1.f;
+    if (kHeads) {
+      const int par = par0 ^ (slot & odd);
+      vsc = bf16_half(vs_w[slot * sw + ((par + hv) >> 1)], (par + hv) & 1);
+    } else if (kInt8) {
+      vsc = vs_s[slot];
+    }
+    const float w = kInt8 ? p * vsc : p;
     float x[kElems];
     Chunk<KV>::load(vb + slot * row + col * 16, x);
 #pragma unroll
@@ -327,7 +366,7 @@ int launch(int card, const void* q, long q_stride, const void* k, const void* v,
       !cached_tmap(&tv, {v, {batch, t_cap, n_heads, hpc, i8}},
                    [&](CUtensorMap* m) { return make_map<KV>(m, v, batch, t_cap, n_heads, hpc); }))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Layout lay(t_cap, hpc, sizeof(KV), kHeads);
+  const Layout lay(t_cap, hpc, sizeof(KV), kHeads, n_heads);
   ring_kernel<KV, kHeads><<<dim3(n_heads / hpc, batch), kThreads, lay.total, stream>>>(
       tk, tv, static_cast<const __nv_bfloat16*>(q), q_stride, k_scale, v_scale,
       static_cast<const int*>(valid_rows), valid_all, static_cast<const int*>(ring_pos),
@@ -346,20 +385,20 @@ struct F32Layout {
   int k, v, ks, vs, sc, m, lr, total;
   __host__ __device__ F32Layout(int chunk, int row) {
     k = 0;
-    v = (max(chunk * row, kWarps * kHD * 4) + 15) & ~15;
+    v = (max(chunk * row, kF32Warps * kHD * 4) + 15) & ~15;
     ks = v + ((chunk * row + 15) & ~15);
     vs = ks + 4 * chunk;
     sc = vs + 4 * chunk;
     m = sc + 4 * chunk;
-    lr = m + 4 * kWarps;
-    total = lr + 4 * kWarps;
+    lr = m + 4 * kF32Warps;
+    total = lr + 4 * kF32Warps;
   }
 };
 
 // KV: float (no scales) or int8_t (kHeads: bf16 (B, T, H) scales, else fp32
 // (B, T) ones). q and out fp32.
 template <typename KV, bool kHeads>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kF32Threads)
     ring_f32_kernel(const float* __restrict__ q, long q_stride, const uint8_t* __restrict__ k,
                     const uint8_t* __restrict__ v, const void* __restrict__ k_scale,
                     const void* __restrict__ v_scale, const int* __restrict__ valid_rows,
@@ -370,7 +409,7 @@ __global__ void __launch_bounds__(kThreads)
   constexpr int kElems = Chunk<KV>::kElems, kBytes = Chunk<KV>::kBytes;
   constexpr int kLanes = kHD / kElems;  // lanes of a key's dot: 8 (fp32) or 4 (int8)
   constexpr int kCols = kRow / kBytes;  // column chunks of a slot in P V
-  constexpr int kGroups = kThreads / kCols;
+  constexpr int kGroups = kF32Threads / kCols;
   extern __shared__ __align__(128) uint8_t smem[];
   const F32Layout lay(chunk, kRow);
   uint8_t* kb = smem + lay.k;
@@ -391,7 +430,7 @@ __global__ void __launch_bounds__(kThreads)
   const uint8_t* vh = v + (long)b * t_cap * row_bytes + (long)h * kRow;
 
   const int c = tid % kLanes, dot0 = tid / kLanes;
-  constexpr int kPerPass = kThreads / kLanes;
+  constexpr int kPerPass = kF32Threads / kLanes;
   float qr[kElems];  // this lane's chunk of q, times 1/sqrt(64) (exact)
 #pragma unroll
   for (int e = 0; e < kElems; ++e)
@@ -404,7 +443,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int j0 = 0; j0 < valid; j0 += chunk) {
     const int n = min(chunk, valid - j0);
     // ---- the box's K and V by 16-byte cp.asyncs, its scales by plain loads
-    for (int i = tid; i < n * (kRow / 16); i += kThreads) {
+    for (int i = tid; i < n * (kRow / 16); i += kF32Threads) {
       const int key = i / (kRow / 16), off = (i % (kRow / 16)) * 16;
       int slot = first + j0 + key;
       if (slot >= t_cap) slot -= t_cap;
@@ -413,7 +452,7 @@ __global__ void __launch_bounds__(kThreads)
     }
     cp_async_commit();
     if (kScaled) {
-      for (int key = tid; key < n; key += kThreads) {
+      for (int key = tid; key < n; key += kF32Threads) {
         int slot = first + j0 + key;
         if (slot >= t_cap) slot -= t_cap;
         const long at = (long)b * t_cap + slot;
@@ -460,7 +499,7 @@ __global__ void __launch_bounds__(kThreads)
     // ---- the running max, and P V of this thread's column chunk and keys
     float m_new = m_run;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) m_new = fmaxf(m_new, wm[w]);
+    for (int w = 0; w < kF32Warps; ++w) m_new = fmaxf(m_new, wm[w]);
     const float corr = expf(m_run - m_new);  // 0 on the first box
     l *= corr;
 #pragma unroll
@@ -493,10 +532,10 @@ __global__ void __launch_bounds__(kThreads)
     if (col == 0) lr[warp] = l;
   }
   __syncthreads();
-  for (int i = tid; i < kHD; i += kThreads) {
+  for (int i = tid; i < kHD; i += kF32Threads) {
     float o = 0.f, ls = 0.f;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
+    for (int w = 0; w < kF32Warps; ++w) {
       o += red[w * kHD + i];
       ls += lr[w];
     }
@@ -519,7 +558,7 @@ int launch_f32(int card, const void* q, long q_stride, const void* k, const void
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = lay.total;
   }
-  ring_f32_kernel<KV, kHeads><<<dim3(n_heads, batch), kThreads, lay.total, stream>>>(
+  ring_f32_kernel<KV, kHeads><<<dim3(n_heads, batch), kF32Threads, lay.total, stream>>>(
       static_cast<const float*>(q), q_stride, static_cast<const uint8_t*>(k),
       static_cast<const uint8_t*>(v), k_scale, v_scale, static_cast<const int*>(valid_rows),
       valid_all, static_cast<const int*>(ring_pos), static_cast<float*>(out), t_cap, n_heads,
@@ -535,9 +574,10 @@ int launch_f32(int card, const void* q, long q_stride, const void* k, const void
 // valid_rows (B,) int32 or null, then valid_all applies to every row;
 // ring_pos a device int32: row b's keys are its valid most recent slots,
 // ending at *ring_pos; or null (the self form): its slots [0, valid). One
-// CTA per (row, hpc heads); hpc divides H and 64
-// (ops/decode_attention.py `ring_plan`). out (B, H*64) bf16. Returns the
-// launch's cudaError_t (cudaErrorInvalidValue for a mode it lacks).
+// CTA per (row, hpc heads); hpc divides H and 64 (ops/decode_attention.py
+// `ring_plan`); per-head scales 4-byte aligned. out (B, H*64) bf16.
+// Returns the launch's cudaError_t (cudaErrorInvalidValue for a mode it
+// lacks).
 extern "C" int kwt_decode_attention_ring(int card, const void* q, long long q_stride,
                                          const void* k, const void* v, const void* k_scale,
                                          const void* v_scale, const void* valid_rows,

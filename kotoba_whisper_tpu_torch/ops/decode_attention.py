@@ -43,9 +43,11 @@ Each form is one launch a call:
   `RingPlan.chunk` with an online softmax;
 - beam: `beam_plan` gives each CTA one (group, head, 16-beam tile) and,
   where that leaves the card idle, a share of the keys, the shares of a
-  tile combining over a cluster; the fp32 form (FFMAs) its own grid of
-  tiles of at most 8 beams (`beam_f32_rows`) and shares of 32-key chunks,
-  as many as one wave of BEAM_F32_CTAS_PER_SM CTAs an SM holds.
+  tile combining over a cluster; packed int4 its own kernel with the keys
+  as mma.sync's M, tiles of 8 beams and BEAM_INT4_WARPS warps; the fp32
+  form (FFMAs) its own grid of tiles of at most 8 beams (`beam_f32_rows`)
+  and shares of 32-key chunks, as many as one wave of
+  BEAM_F32_CTAS_PER_SM CTAs an SM holds.
   `beam_walk`, `ring_walk` and `head_walk` repeat the kernels' arithmetic
   in their order on the CPU, each form's (`q_dtype`).
 """
@@ -74,7 +76,14 @@ BEAM_WARPS = 4       # consumer warps a CTA, taking the key tiles in turn
 # bytes of one head's 64 columns of a K/V row, by the K/V dtypes K2 takes
 # (uint8: packed int4)
 KV_HEAD_BYTES = {torch.float32: 256, torch.bfloat16: 128, torch.int8: 64, torch.uint8: 32}
-BEAM_STAGES = {torch.int8: 8, torch.bfloat16: 4, torch.uint8: 16}  # its copy ring
+BEAM_STAGES = {torch.int8: 8, torch.bfloat16: 4}  # its copy ring
+# the int4 beam kernel (keys as mma.sync's M): beams a tile (its N), consumer
+# warps a CTA, the CTAs an SM its launch bounds ask registers for (the grid's
+# one wave), stages of its copy ring (csrc/decode_attention_beam.cu kInt4*)
+BEAM_INT4_BEAMS = 8
+BEAM_INT4_WARPS = 8
+BEAM_INT4_CTAS_PER_SM = 2
+BEAM_INT4_STAGES = 16
 BEAM_F32_ROWS = 8    # most beams a tile of the fp32 beam form
 BEAM_F32_CHUNK = 32  # keys a warp of the fp32 beam form takes at a time, one a lane
 BEAM_F32_WARPS = 4   # warps an fp32 beam CTA, taking the chunks in turn
@@ -233,14 +242,39 @@ def head_plan(b: int, span: int, n_heads: int, n_sms: int = N_SMS, *,
     return HeadPlan(heads, shares, rows, (shares, n_heads // heads, b), smem)
 
 
-def ring_smem_bytes(t: int, hpc: int, kv_dtype, per_head: bool = False) -> int:
-    """Dynamic shared memory of a ring CTA over `hpc` heads of T slots (the
-    kernel's `Layout.total`): K and V by slot with a TMA box's overhang (K's
-    space at least the warps' P V sums), the two scales a slot (one fp32, or
-    one a head), the scores a (head, key), the warps' maxima and sums of p a
-    head, two mbarriers."""
+def ring_scale_words(hpc: int, per_head: bool, n_heads: int = 1) -> int:
+    """4-byte scale words a slot of a ring CTA over `hpc` of H heads (csrc
+    `scale_words`): one fp32 per row; per head the aligned words that hold
+    the heads' contiguous bf16s, hpc // 2 where every slot's first head
+    starts a word (H and hpc even), else hpc // 2 + 1."""
+    if not per_head:
+        return 1
+    return hpc // 2 + (1 if hpc % 2 or n_heads % 2 else 0)
+
+
+def ring_scale_copies(el0: int, hpc: int, n_scales: int, n_heads: int) -> list[tuple[int, int]]:
+    """The ring kernel's copies of one slot's per-head scales, whose first
+    head's bf16 is element el0 of the (B, T, H) tensor's n_scales: (word,
+    bytes) for each of its `ring_scale_words` words, word (el0 >> 1) + e;
+    bytes 0 for a word past the CTA's heads, 2 for one whose second half is
+    past the tensor. Head e's bf16 is then half (el0 + e) & 1 of word
+    ((el0 & 1) + e) >> 1 of the slot's."""
+    out = []
+    for e in range(ring_scale_words(hpc, True, n_heads)):
+        word = (el0 >> 1) + e
+        out.append((word, 0 if 2 * word >= el0 + hpc else 4 if 2 * word + 1 < n_scales else 2))
+    return out
+
+
+def ring_smem_bytes(t: int, hpc: int, kv_dtype, per_head: bool = False,
+                    n_heads: int = 1) -> int:
+    """Dynamic shared memory of a ring CTA over `hpc` of H heads of T slots
+    (the kernel's `Layout.total`): K and V by slot with a TMA box's
+    overhang (K's space at least the warps' P V sums), the two scales' words
+    a slot (`ring_scale_words`), the scores a (head, key), the warps' maxima
+    and sums of p a head, two mbarriers."""
     kv = (t + RING_BOX) * hpc * _head_bytes(kv_dtype)
-    sw = hpc if per_head else 1
+    sw = ring_scale_words(hpc, per_head, n_heads)
     end = (-(-max(kv, RING_WARPS * hpc * 64 * 4) // 128) * 128 + kv + 8 * sw * t
            + 4 * hpc * t + 4 * RING_WARPS * 4)
     return ((end + 4 * RING_WARPS * 4 + 7) & ~7) + 16
@@ -266,11 +300,18 @@ class RingPlan(NamedTuple):
 @lru_cache(maxsize=256)
 def ring_plan(b: int, t: int, n_heads: int, kv_dtype, n_sms: int = N_SMS, *,
               per_head: bool = False, q_dtype=torch.bfloat16) -> RingPlan:
-    """The ring kernel's grid: one CTA per (row, group of heads) holding all
-    the group's K and V slots at once. Of the head counts that divide H and
-    fit, prefer those whose CTAs fit two an SM, and among them the most
-    heads whose grid still makes two CTAs per SM; else the fewest heads
-    (the most CTAs). Raises where even one head's T slots do not fit.
+    """The ring kernel's grid: one CTA of 32 * RING_WARPS threads per (row,
+    group of heads) holding all the group's K and V slots at once. Of the
+    head counts that divide H and fit, prefer those whose CTAs fit two an
+    SM, and among them the most heads whose grid still makes two CTAs per
+    SM; else the fewest heads (the most CTAs). Raises where even one head's
+    T slots do not fit. Per-head scales take the same rule: at even H their
+    words add nothing to the per-row form's shared memory. At the stream's
+    shape (48 rows, T=176, 20 heads) int8 with per-head scales, swept on an
+    H100 80GB HBM3 at 700 W (tools/ring_probe.py, device ms, three
+    processes): heads x threads 2 x 256 (this plan) 0.01050-0.01081, 2 x
+    128 0.01054-0.01075, 4 x 256 0.01076-0.01106, 1 x 128 0.01169-0.01182,
+    1 x 256 0.01252-0.01260, 4 x 128 0.01257-0.01315.
 
     The fp32 form (fp32 q or K/V): one CTA per (row, head), its keys in
     boxes of all T slots where they fit two CTAs an SM, else of the most
@@ -286,7 +327,7 @@ def ring_plan(b: int, t: int, n_heads: int, kv_dtype, n_sms: int = N_SMS, *,
         return RingPlan(1, (n_heads, b), ring_f32_smem_bytes(chunk, kv_dtype), chunk)
 
     def smem(h):
-        return ring_smem_bytes(t, h, kv_dtype, per_head)
+        return ring_smem_bytes(t, h, kv_dtype, per_head, n_heads=n_heads)
 
     fits = [h for h in RING_HEADS if n_heads % h == 0 and smem(h) <= SMEM_LIMIT]
     if not fits:
@@ -302,18 +343,23 @@ def ring_plan(b: int, t: int, n_heads: int, kv_dtype, n_sms: int = N_SMS, *,
 def beam_smem_bytes(kv_dtype, q_dtype=torch.bfloat16) -> int:
     """Dynamic shared memory of a beam CTA (the kernel's `sizeof(Smem)`,
     rounded to its 1024-byte alignment, plus 1024 of alignment slack): the
-    K and V ring, the scales a stage, each consumer warp's O, max and sum,
-    the CTA's merged ones, the barriers. The fp32 form's (`sizeof(F32Smem)`,
-    the same for every K/V dtype: it reads K and V into registers): q, each
-    warp's P of a chunk, O, max and sum, the CTA's merged ones."""
+    K and V ring, the scales a stage (int4: the 4-byte words holding them),
+    each consumer warp's O, max and sum, the CTA's merged ones, the
+    barriers; packed int4 (`sizeof(Int4Smem)`) at its tile of
+    BEAM_INT4_BEAMS beams, BEAM_INT4_WARPS warps and BEAM_INT4_STAGES
+    stages. The fp32 form's (`sizeof(F32Smem)`, the same for every K/V
+    dtype: it reads K and V into registers): q, each warp's P of a chunk,
+    O, max and sum, the CTA's merged ones."""
     keys, rows, hd = BEAM_KEY_TILE, BEAM_ROWS, 64
     row = _head_bytes(kv_dtype)
     if _fp32_form(kv_dtype, q_dtype):
         r, w = BEAM_F32_ROWS, BEAM_F32_WARPS
         return 4 * (r * hd + w * r * BEAM_F32_CHUNK + w * r * hd + 2 * w * r + r * hd + 2 * r)
-    stages = BEAM_STAGES[kv_dtype]
+    stages, warps = BEAM_STAGES.get(kv_dtype), BEAM_WARPS
+    if kv_dtype == torch.uint8:
+        stages, warps, rows = BEAM_INT4_STAGES, BEAM_INT4_WARPS, BEAM_INT4_BEAMS
     size = (2 * stages * keys * row + 2 * stages * keys * 4
-            + BEAM_WARPS * rows * hd * 4 + 2 * BEAM_WARPS * rows * 4
+            + warps * rows * hd * 4 + 2 * warps * rows * 4
             + rows * hd * 4 + 2 * rows * 4 + 2 * stages * 8)
     return -(-size // 1024) * 1024 + 1024
 
@@ -325,8 +371,20 @@ def beam_f32_rows(beams: int) -> int:
     return -(-beams // -(-beams // BEAM_F32_ROWS))
 
 
+def beam_rows(kv_dtype) -> int:
+    """Beams a tile of the beam kernel over bf16 q: mma.sync's M (16), or
+    its N (BEAM_INT4_BEAMS) in packed int4's kernel."""
+    return BEAM_INT4_BEAMS if kv_dtype == torch.uint8 else BEAM_ROWS
+
+
+def beam_ctas_per_sm(kv_dtype) -> int:
+    """CTAs an SM the beam kernel over bf16 q fits (its launch bounds): the
+    grid that `beam_plan` keeps to one wave."""
+    return BEAM_INT4_CTAS_PER_SM if kv_dtype == torch.uint8 else 2
+
+
 class BeamPlan(NamedTuple):
-    m_tiles: int         # beam tiles: 16 beams (fp32 form: `beam_f32_rows`)
+    m_tiles: int         # beam tiles: 16 beams (int4: 8; fp32 form: `beam_f32_rows`)
     splits: int          # key shares of a (group, head, tile): the cluster's x
     keys_per_split: int  # a multiple of BEAM_KEY_TILE
     grid: tuple          # (splits, H * m_tiles, G): CTA (x, y, z) is share x of head
@@ -337,15 +395,15 @@ class BeamPlan(NamedTuple):
 @lru_cache(maxsize=256)
 def beam_plan(g: int, t: int, n_heads: int, beams: int, kv_dtype,
               n_sms: int = N_SMS, *, q_dtype=torch.bfloat16) -> BeamPlan:
-    """The beam kernel's grid: one CTA per (group, head, 16-beam tile),
-    split over key shares of whole tiles, up to a cluster of MAX_CLUSTER,
-    while the CTAs would not fill two an SM; no share is empty. Packed int4
-    at beam search's 12 x 5 x 20 heads, swept by key shares on an H100 80GB
-    HBM3 at 700 W (tools/beam_probe.py, one process): 1 share (this plan,
-    240 CTAs) 0.0189 ms, 2 shares 0.0245, 3-8 0.036-0.069; the probe's
-    half form (rings of 4-8 stages) 0.0182-0.0197, 0.0261-0.0286 and
-    0.026-0.056; asking registers for four CTAs an SM (96, spilling) at 2
-    shares 0.0215-0.0286 half, 0.0312 full. The fp32
+    """The beam kernel's grid: one CTA per (group, head, tile of
+    `beam_rows` beams), split over key shares of whole tiles, up to a
+    cluster of MAX_CLUSTER, while the CTAs would not fill
+    `beam_ctas_per_sm` an SM; no share is empty. Packed int4 at beam
+    search's 12 x 5 x 20 heads, swept on an H100 80GB HBM3 at 700 W
+    (tools/beam_probe.py, one process, ms at 1 / 2 key shares): the
+    BEAM_INT4_* shape (8 warps, 2 CTAs an SM, 16 stages; this plan's one
+    share) 0.01632 / 0.02267, 4 warps 0.01714 / 0.02235, 4 warps at 4 CTAs
+    an SM 0.01665 / 0.01918, 8 warps at 3 (spilling) 0.01789. The fp32
     form (fp32 q or K/V): one CTA per (group, head, tile of
     `beam_f32_rows` beams), split over key shares of whole rounds of
     BEAM_F32_WARPS 32-key chunks, up to a cluster of MAX_CLUSTER, while the
@@ -365,10 +423,10 @@ def beam_plan(g: int, t: int, n_heads: int, beams: int, kv_dtype,
         splits = -(-n_chunks // per)
         return BeamPlan(m_tiles, splits, per * BEAM_F32_CHUNK, (splits, n_heads * m_tiles, g),
                         beam_smem_bytes(kv_dtype, q_dtype))
-    m_tiles = -(-beams // BEAM_ROWS)
+    m_tiles = -(-beams // beam_rows(kv_dtype))
     n_tiles = -(-t // BEAM_KEY_TILE)
     items = g * n_heads * m_tiles
-    splits = max(1, min(MAX_CLUSTER, n_tiles, (2 * n_sms) // items))
+    splits = max(1, min(MAX_CLUSTER, n_tiles, (beam_ctas_per_sm(kv_dtype) * n_sms) // items))
     per = -(-n_tiles // splits)
     splits = -(-n_tiles // per)
     return BeamPlan(m_tiles, splits, per * BEAM_KEY_TILE, (splits, n_heads * m_tiles, g),
@@ -456,8 +514,9 @@ def _merge(states):
 def beam_walk(q, k_flat, v_flat, *, n_heads, k_scale=None, v_scale=None, p_dtype=torch.bfloat16,
               out_dtype=torch.bfloat16, n_sms=N_SMS, q_dtype=torch.bfloat16):
     """The beam kernel's arithmetic in its order (fp32, on any device):
-    `beam_plan`'s 16-beam tiles and key shares, each share's 64-key tiles
-    taken by BEAM_WARPS warps in turn; a tile's scores (q as bf16 times K)
+    `beam_plan`'s tiles of `beam_rows` beams (packed int4: 8) and key
+    shares, each share's 64-key tiles taken by BEAM_WARPS warps in turn
+    (int4: BEAM_INT4_WARPS); a tile's scores (q as bf16 times K)
     times k_scale times log2(e)/8, the running max, 2^(s - m), the running
     sum and O rescaled by 2^(m_old - m_new), P * v_scale rounded to
     `p_dtype` (the kernel's bf16; None keeps fp32) before P V; then the
@@ -478,6 +537,8 @@ def beam_walk(q, k_flat, v_flat, *, n_heads, k_scale=None, v_scale=None, p_dtype
     t = k_flat.shape[1]
     kv_dtype = k_flat.dtype if k_flat.dtype in KV_HEAD_BYTES else torch.bfloat16
     plan = beam_plan(g, t, n_heads, beams, kv_dtype, n_sms)
+    rows = beam_rows(kv_dtype)
+    n_warps = BEAM_INT4_WARPS if kv_dtype == torch.uint8 else BEAM_WARPS
     qf = q.to(torch.bfloat16).float()
     kf = _codes(k_flat).float().reshape(g, t, n_heads, hd)
     vf = _codes(v_flat).float().reshape(g, t, n_heads, hd)
@@ -488,18 +549,18 @@ def beam_walk(q, k_flat, v_flat, *, n_heads, k_scale=None, v_scale=None, p_dtype
     qscale = torch.tensor(0.125 * LOG2E, dtype=torch.float32)
     out = torch.empty(g, beams, n_heads, hd, dtype=out_dtype, device=q.device)
     for mt in range(plan.m_tiles):
-        qt = qf[:, mt * BEAM_ROWS:(mt + 1) * BEAM_ROWS]  # (G, R, H, 64)
+        qt = qf[:, mt * rows:(mt + 1) * rows]  # (G, R, H, 64)
         shares = []
         for x in range(plan.splits):
             k0 = x * plan.keys_per_split
             k1 = min(t, k0 + plan.keys_per_split)
             n_tiles = -(-(k1 - k0) // BEAM_KEY_TILE)
             warps = []
-            for w in range(BEAM_WARPS):
+            for w in range(n_warps):
                 m = torch.full(qt.shape[:3], float("-inf"), device=q.device)
                 l = torch.zeros(qt.shape[:3], device=q.device)
                 o = torch.zeros(qt.shape, device=q.device)
-                for i in range(w, n_tiles, BEAM_WARPS):
+                for i in range(w, n_tiles, n_warps):
                     a = k0 + i * BEAM_KEY_TILE
                     e = min(k1, a + BEAM_KEY_TILE)
                     s = torch.einsum("grhd,gnhd->grhn", qt, kf[:, a:e])
@@ -516,7 +577,7 @@ def beam_walk(q, k_flat, v_flat, *, n_heads, k_scale=None, v_scale=None, p_dtype
                 warps.append((m, l, o))
             shares.append(_merge(warps))
         _, l, o = _merge(shares)
-        out[:, mt * BEAM_ROWS:(mt + 1) * BEAM_ROWS] = (o / l[..., None]).to(out_dtype)
+        out[:, mt * rows:(mt + 1) * rows] = (o / l[..., None]).to(out_dtype)
     return out
 
 
@@ -781,6 +842,9 @@ def decode_attention(
             not isinstance(ring_pos, torch.Tensor) or ring_pos.shape != ()
             or ring_pos.dtype != torch.int32 or ring_pos.get_device() != card):
         raise ValueError("K2's ring_pos is a 0-d int32 tensor on q's card")
+    if mode == KV_INT8_HEADS and not q_f32 and (ks_ptr | vs_ptr) % 4:
+        raise ValueError("K2's ring kernel copies per-head bf16 scales by 4-byte words: they "
+                         "start 4-byte aligned")
     arg = _ring_arg(b, t, n_heads, k_flat.dtype, card, mode == KV_INT8_HEADS, q.dtype)
     entry = "kwt_decode_attention_ring_f32" if q_f32 else "kwt_decode_attention_ring"
     _check(_build.function("decode_attention_ring", entry)(

@@ -38,7 +38,8 @@ card's name and power limit.
 --sweep adds the grids of the head kernel over int8 K/V under fp32 q
 (B=16, T=1500, 20 and 10 heads) by heads a CTA x key shares, through its
 C entry (`head_plan` sizes them on the card; tools/beam_probe.py sweeps
-the int4 beam form's shares and rings).
+the int4 beam form's shapes and shares, tools/ring_probe.py the ring
+kernel's heads and threads a CTA).
 
 --k5-sweep adds K5's fp32 causal form at T=128 over batch x heads of 1 x
 1 (one cluster: its latency), 1 x 20, 4 x 20 and 8 x 20 (the path's), and
@@ -51,6 +52,12 @@ splits between one cluster's latency and the card's throughput.
 - K2 beam: the beam form at beam search's shape (12 groups x 5 beams over
   T=1500): fp32 q over fp32, int8 (fp32 row scales) and packed int4 K/V
   (phase 4k(b)), and bf16 q over bf16, int8 and int4 K/V.
+- K2 ring: the stream's self call at phase 3's and 4j(c)'s shape (W=48
+  rows over a T=176 ring, ring_pos 40, per-row valid lengths over [1, 176]
+  that wrap) over int8 with fp32 row scales, int8 with bf16 per-head
+  scales (the int4 cache's self K/V) and bf16, and int8 at 4g's W=60; and
+  the per-row int8 form on a CTA a (row, head) through the C entry, at
+  W=48 and 60 (a probe: no path routes it there).
 
 A row whose call launches more than one kernel (K5 fp32 cross and K7
 fp32, for instance) also records kernels_ms: the device ms a call spends
@@ -79,6 +86,7 @@ HEADS, SELF_ROWS, SELF_T = 20, 16, 51  # phase 4: B=16, prompt 3 + 48 tokens
 TRAIN_B, LABELS, T_ENC = 8, 128, 1500   # phase 4b
 ENC_B = 16                              # phase 4k(a)'s fp32 encoder batch
 STREAM_B = 48                           # phase 4e's window: the stream's cross call
+RING_T, RING_POS, BEAM_STREAM_W = 176, 40, 60  # the stream's ring; 4g's window
 N_MELS, D_MODEL = 128, 1280             # large-v3's stem
 
 
@@ -309,6 +317,74 @@ def _head_probe_rows():
     return rows
 
 
+def _ring_inputs(w, mode, seed=90, t=RING_T, ring_pos=RING_POS):
+    """(q, k, v, k_scale, v_scale, valid, ring_pos) of a stream's ring call
+    at phase 3's shape: W rows over T=176 slots, valid lengths over [1, 176],
+    ring_pos 40 (most rows wrap); with ring_pos None, a self call as phase
+    4's: valid the int T (every slot of every row), ring_pos None."""
+    q = _randn(w, HEADS, 64, seed=seed)
+    kv = []
+    for s in (seed + 1, seed + 2):
+        x = _randn(w, t, HEADS * 64, seed=s)
+        if mode == "int8":
+            kv.append(whisper.quantize_kv_rows(x))
+        elif mode == "int8h":
+            kv.append(whisper.quantize_kv_heads(x, HEADS, 8))
+        else:
+            kv.append((x, None))
+    (k, ks), (v, vs) = kv
+    if ring_pos is None:
+        return q, k, v, ks, vs, t, None
+    valid = torch.linspace(1, t, w, device=q.device).round().to(torch.int32)
+    return q, k, v, ks, vs, valid, torch.tensor(ring_pos, dtype=torch.int32, device=q.device)
+
+
+def _ring_rows():
+    """K2's ring call in each self-cache mode -> {name: call}."""
+    rows = {}
+    for name, w, mode in (("ring_int8", STREAM_B, "int8"), ("ring_int8h", STREAM_B, "int8h"),
+                          ("ring_bf16", STREAM_B, "bf16"),
+                          ("ring_int8_w60", BEAM_STREAM_W, "int8")):
+        q, k, v, ks, vs, valid, ring = _ring_inputs(w, mode)
+
+        def call(q=q, k=k, v=v, ks=ks, vs=vs, valid=valid, ring=ring):
+            return da.decode_attention(q, k, v, valid, n_heads=HEADS, k_scale=ks, v_scale=vs,
+                                       ring_pos=ring)
+
+        rows[name] = call
+    return rows
+
+
+def _ring_entry(inputs, heads, fn=None):
+    """A call of the ring kernel's C entry (`fn`, else the built one's) at
+    a chosen grid: heads a CTA."""
+    q, k, v, ks, vs, valid, ring = inputs
+    mode = (da.KV_BF16 if ks is None else
+            da.KV_INT8_HEADS if ks.dtype == torch.bfloat16 else da.KV_INT8)
+    out = torch.empty_like(q)
+    fn = fn or _build.function("decode_attention_ring", "kwt_decode_attention_ring")
+
+    def call():
+        rc = fn(0, q.data_ptr(), q.stride(0), k.data_ptr(), v.data_ptr(),
+                None if ks is None else ks.data_ptr(), None if vs is None else vs.data_ptr(),
+                *((None, valid) if isinstance(valid, int) else (valid.data_ptr(), 0)),
+                None if ring is None else ring.data_ptr(), out.data_ptr(),
+                q.shape[0], k.shape[1], HEADS, heads, mode, _build.stream_handle(0))
+        if rc != 0:
+            raise RuntimeError(f"ring kernel launch failed: cudaError {rc}")
+        return out
+
+    return call
+
+
+def _ring_probe_rows():
+    """The per-row int8 ring form on a CTA a (row, head) at W=48 and 60 ->
+    {name: call}."""
+    return {name: _ring_entry(_ring_inputs(w, "int8"), 1)
+            for name, w in (("ring_int8_heads1", STREAM_B),
+                            ("ring_int8_w60_heads1", BEAM_STREAM_W))}
+
+
 def _k8_rows():
     """K8 at the encoder's shape, fp32-q and bf16 forms -> {name: call}."""
     rows = {}
@@ -390,7 +466,7 @@ def measure(reps: int) -> dict:
     # identical kernel read 5-6 % apart in one run where only one tree
     # allocated the probe's tensors first, and alike with them last)
     makers = (_self_rows, _k2_cross_rows, _k1_f32_rows, _k5_rows, _k7_f32_rows, _k8_rows,
-              _beam_rows, _head_probe_rows)
+              _beam_rows, _ring_rows, _head_probe_rows, _ring_probe_rows)
     rows = {}
     for make in makers:
         rows.update(make())

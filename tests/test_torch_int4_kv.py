@@ -212,30 +212,41 @@ def test_beam_twin_takes_per_head_scales_on_the_head_axis():
 
 
 @pytest.mark.parametrize("form", ["ring-int8-heads", "beam-int4", "beam-int4-8-shares",
-                                  "beam-int4-one-share"])
+                                  "beam-int4-one-share", "beam-int4-K1", "beam-int4-K8",
+                                  "beam-int4-K9", "beam-int4-K17"])
 def test_kernel_walks_match_jax(form):
     """The ring and beam kernels' arithmetic in their order with per-head
-    scales (fp32 P and output) against JAX's reference; the beam walk on
-    `beam_plan`'s key shares of packed int4: 3 (2 groups over T=150), a
-    full cluster of 8 (one group over T=1500) and one (a card of one SM),
-    also with P * v_scale rounded to bf16 as the kernel does, within the
-    card's max |err| 2e-3."""
+    scales (fp32 P and output) against JAX's reference: the ring walk on
+    the per-head form's grid (the per-row form's at even H) with a
+    ring_pos; the beam
+    walk on `beam_plan`'s key shares of packed int4 (8-beam tiles): 3 (2
+    groups over T=150), a full cluster of 8 (one group over T=1500) and one
+    (a card of one SM) at 5 beams, and 1, 8, 9 and 17 beams (one to three
+    tiles), also with P * v_scale rounded to bf16 as the kernel does,
+    within the card's max |err| 2e-3."""
     if form == "ring-int8-heads":
         q, (k, ks, jk, jks), (v, vs, jv, jvs) = _kv(8, 8)
         q = torch.from_numpy(q).bfloat16().float().numpy()  # the walks take q as bf16
         valid = np.array([T, 40, 1], np.int32)
+        plan = tda.ring_plan(B, T, H, torch.int8, per_head=True)
+        assert plan[:3] == tda.ring_plan(B, T, H, torch.int8)[:3]
         ref = jda.decode_attention_reference(jnp.asarray(q), jk, jv, jnp.asarray(valid),
                                              n_heads=H, k_scale=jks, v_scale=jvs, ring_pos=12)
         got = tda.ring_walk(torch.from_numpy(q), k, v, torch.from_numpy(valid), 12, n_heads=H,
                             k_scale=ks, v_scale=vs, out_dtype=torch.float32)
     else:
-        g, t, n_sms, splits = {"beam-int4": (2, 150, tda.N_SMS, 3),
-                               "beam-int4-8-shares": (1, 1500, tda.N_SMS, 8),
-                               "beam-int4-one-share": (2, 150, 1, 1)}[form]
+        g, t, n_sms, splits, beams = {"beam-int4": (2, 150, tda.N_SMS, 3, 5),
+                                      "beam-int4-8-shares": (1, 1500, tda.N_SMS, 8, 5),
+                                      "beam-int4-one-share": (2, 150, 1, 1, 5),
+                                      "beam-int4-K1": (2, 150, tda.N_SMS, 3, 1),
+                                      "beam-int4-K8": (2, 150, tda.N_SMS, 3, 8),
+                                      "beam-int4-K9": (2, 150, tda.N_SMS, 3, 9),
+                                      "beam-int4-K17": (2, 150, tda.N_SMS, 3, 17)}[form]
         _, (k, ks, jk, jks), (v, vs, jv, jvs) = _kv(9, 4, t=t, b=g)
-        q = torch.from_numpy(np.random.default_rng(10).standard_normal((g, 5, H, HD))
+        q = torch.from_numpy(np.random.default_rng(10).standard_normal((g, beams, H, HD))
                              ).bfloat16().float()
-        assert tda.beam_plan(g, t, H, 5, torch.uint8, n_sms).splits == splits
+        plan = tda.beam_plan(g, t, H, beams, torch.uint8, n_sms)
+        assert plan.splits == splits and plan.m_tiles == -(-beams // tda.BEAM_INT4_BEAMS)
         ref = jda.decode_attention_reference_beam(jnp.asarray(q.numpy()), jk, jv, n_heads=H,
                                                   k_scale=jks, v_scale=jvs)
         got = tda.beam_walk(q, k, v, n_heads=H, k_scale=ks, v_scale=vs, p_dtype=None,
@@ -296,17 +307,24 @@ def test_plans_count_each_modes_bytes():
     """The prefix CTA's shared memory at the cross call (T=1500, 8 CTAs of
     188 rows): int8 per row as before; int4 takes the head kernel, whose
     CTA (4 heads, 375 rows, per-head bf16 scales) fits three an SM, and the
-    row kernel's plan refuses it; ring per-head scales take a float a head
-    a slot; the beam ring of int4 tiles 16 stages of 2 KB."""
+    row kernel's plan refuses it; ring per-head scales take the 4-byte
+    words holding a slot's heads (at two heads a CTA one at even H, two at
+    odd), so the stream's ring takes the per-row form's two heads a CTA;
+    the int4 beam kernel's CTA holds its ring of 16 stages of 2 KB K and V
+    tiles and scale words, and O of 8 beams for each of 8 consumer warps,
+    on one key share."""
     assert tda.prefix_smem_bytes(188, 20, torch.int8) == 105120
     with pytest.raises(ValueError, match="head kernel"):
         tda.prefix_smem_bytes(188, 20, torch.uint8, per_head=True)
     int4 = tda.head_smem_bytes(375, 4)
     assert int4 == 49184 and 3 * (int4 + 1024) <= tda.SM_SMEM
-    assert (tda.ring_smem_bytes(176, 2, torch.int8, per_head=True)
-            - tda.ring_smem_bytes(176, 2, torch.int8) == 8 * 176)
+    for n_heads, words in ((20, 1), (21, 2)):  # a slot's two heads start a word at even H
+        assert (tda.ring_smem_bytes(176, 2, torch.int8, per_head=True, n_heads=n_heads)
+                - tda.ring_smem_bytes(176, 2, torch.int8) == 8 * 176 * (words - 1))
     assert tda.ring_plan(48, 176, 20, torch.int8, 132, per_head=True).heads == 2
-    assert tda.beam_smem_bytes(torch.uint8) == 96256  # 92160 for int8
+    assert (tda.BEAM_INT4_STAGES, tda.BEAM_INT4_WARPS) == (16, 8)
+    assert tda.beam_smem_bytes(torch.uint8) == 94208  # 92160 for int8
+    assert tda.beam_smem_bytes(torch.int8) == 92160
     assert tda.beam_plan(12, 1500, 20, 5, torch.uint8).grid == (1, 20, 12)
 
 

@@ -15,9 +15,11 @@ batch row) divides the grid. Its ring form's plan (`ring_plan`,
 `ring_slot`) reads every (row, head) in exactly one CTA at exactly the
 slots of the brute-force age mask, and holds a CTA's K and V in shared
 memory for every ring the decoder can fill (T <= 448) and raises where one
-head cannot fit; its beam form's plan (`beam_plan`) covers every (group,
-head, beam, key) once with a cluster that divides the grid, takes any beam
-count, and fits two CTAs an SM at beam search's 12 x 5 over T=1500.
+head cannot fit, and over int8 with per-head scales gives a ring call one
+(row, head) a CTA whose 4-byte scale words hold each of its heads' bf16s;
+its beam form's plan (`beam_plan`) covers every (group, head, beam, key)
+once with a cluster that divides the grid, takes any beam count, and fits
+its CTAs an SM in one wave at beam search's 12 x 5 over T=1500.
 
 K3 (ops/mel.py `fft_plan`, `fft_index_maps`): the kernel's FFT, its
 window, radix constants, twiddles and stage indices applied stage by stage
@@ -171,26 +173,27 @@ def test_ring_plan_prefers_a_full_card():
 
 
 @pytest.mark.parametrize("t", [1, 51, 1500])
-@pytest.mark.parametrize("beams", [1, 5, 6, 7, 16, 17])
+@pytest.mark.parametrize("beams", [1, 5, 6, 7, 8, 9, 16, 17])
 def test_beam_plan_covers_each_key_once(beams, t):
     """K2's beam form: over `beam_plan`'s grid, CTA (x, y, z) reads keys
     [x * keys_per_split, ...) of head y % H of group z for beams
-    [16 (y // H), ...): every (group, head, beam, key) exactly once, whole
-    64-key tiles a share, and what the launch needs of the cluster, which
-    is the grid's x (the key shares of one (group, head, tile)): at most 8
-    CTAs, and no share without keys. Beam counts past 6, which the earlier
-    kernel refused, take more 16-beam tiles."""
+    [R (y // H), ...), R the tile's `beam_rows` (16; packed int4's 8):
+    every (group, head, beam, key) exactly once, whole 64-key tiles a
+    share, and what the launch needs of the cluster, which is the grid's x
+    (the key shares of one (group, head, tile)): at most 8 CTAs, and no
+    share without keys. Beam counts past a tile take more tiles."""
     n_heads = 20
     for g, kv_dtype in itertools.product((1, 2, 12), (torch.int8, torch.uint8)):
         plan = da.beam_plan(g, t, n_heads, beams, kv_dtype)
+        rows = da.beam_rows(kv_dtype)
         splits, y_dim, z_dim = plan.grid
         assert (y_dim, z_dim) == (n_heads * plan.m_tiles, g) and splits == plan.splits
         assert 1 <= splits <= da.MAX_CLUSTER
         assert (splits - 1) * plan.keys_per_split < t <= splits * plan.keys_per_split
         assert plan.keys_per_split % da.BEAM_KEY_TILE == 0
-        assert plan.m_tiles == -(-beams // da.BEAM_ROWS)
-        if splits > 1:  # key shares only while the CTAs would not fill two an SM
-            assert splits * y_dim * z_dim <= 2 * da.N_SMS
+        assert plan.m_tiles == -(-beams // rows)
+        if splits > 1:  # key shares only while the CTAs would not fill one wave
+            assert splits * y_dim * z_dim <= da.beam_ctas_per_sm(kv_dtype) * da.N_SMS
         seen = np.zeros((g, n_heads, beams, t), np.int64)
         for x in range(splits):
             k0 = x * plan.keys_per_split
@@ -199,21 +202,76 @@ def test_beam_plan_covers_each_key_once(beams, t):
             for y in range(y_dim):
                 h, mt = y % n_heads, y // n_heads
                 for z in range(z_dim):
-                    seen[z, h, mt * da.BEAM_ROWS:(mt + 1) * da.BEAM_ROWS, k0:k1] += 1
+                    seen[z, h, mt * rows:(mt + 1) * rows, k0:k1] += 1
         assert (seen == 1).all()
 
 
 def test_beam_plan_fits_two_ctas_an_sm():
     """At beam search's shape (12 groups x 5 beams over T=1500, 20 heads)
-    the plan is one CTA per (group, head), 240 CTAs and no key split, two to
-    an SM in every bf16-q dtype (int8, bf16, packed int4); two groups split
-    each row's keys over a cluster, one group over a full one."""
-    for kv_dtype in (torch.int8, torch.bfloat16, torch.uint8):
+    the plan is one CTA per (group, head, beam tile) in one wave: int8 and
+    bf16 240 CTAs and no key split, two to an SM; packed int4's kernel
+    (8-beam tiles, BEAM_INT4_WARPS consumer warps) as many key shares as
+    keep its grid within BEAM_INT4_CTAS_PER_SM an SM, whose shared memory
+    holds them. Two groups split each row's keys over a cluster, one group
+    over a full one."""
+    for kv_dtype in (torch.int8, torch.bfloat16):
         plan = da.beam_plan(12, 1500, 20, 5, kv_dtype)
         assert plan.grid == (1, 20, 12) and plan.keys_per_split >= 1500
         assert 2 * (plan.smem + 1024) <= da.SM_SMEM
+    plan = da.beam_plan(12, 1500, 20, 5, torch.uint8)
+    ctas = da.BEAM_INT4_CTAS_PER_SM
+    assert plan.m_tiles == 1 and plan.splits == max(1, ctas * da.N_SMS // 240)
+    assert plan.splits * 240 <= ctas * da.N_SMS  # one wave
+    assert ctas * (plan.smem + 1024) <= da.SM_SMEM
+    assert plan.smem == da.beam_smem_bytes(torch.uint8)
     assert da.beam_plan(2, 1500, 20, 5, torch.int8).grid == (6, 20, 2)
     assert da.beam_plan(1, 1500, 20, 5, torch.uint8).grid == (8, 20, 1)
+
+
+@pytest.mark.parametrize("b, t, n_heads", [(48, 176, 20), (60, 176, 20), (48, 176, 10),
+                                          (3, 448, 20), (5, 51, 7)])
+def test_ring_plan_per_head_copies_scale_words(b, t, n_heads):
+    """K2's ring form over int8 with bf16 per-head scales: the per-row
+    form's grid where H is even (at two heads a CTA the slot's scale words
+    then add no shared memory: one word a pair of heads), four CTAs an SM
+    and one wave at the stream's 48 rows; its shared memory the kernel's layout
+    with `ring_scale_words`. Each slot's copies (4-byte words) hold every
+    head of the CTA at the half the kernel picks, read no word that holds
+    none of them, and copy 2 bytes of a word whose second half is past the
+    (B, T, H) tensor."""
+    plan = da.ring_plan(b, t, n_heads, torch.int8, 132, per_head=True)
+    row = da.ring_plan(b, t, n_heads, torch.int8, 132)
+    assert plan.grid == (n_heads // plan.heads, b)
+    assert plan.smem == da.ring_smem_bytes(t, plan.heads, torch.int8, True, n_heads=n_heads)
+    if n_heads % 2 == 0:
+        assert plan[:2] == row[:2]
+        assert (plan.smem == row.smem) == (plan.heads <= 2)
+    if (b, t, n_heads) == (48, 176, 20):
+        assert plan.heads == 2 and 4 * (plan.smem + 1024) <= da.SM_SMEM
+        assert plan.grid[0] * plan.grid[1] <= 4 * 132
+    n_scales = b * t * n_heads
+    for hpc in (h for h in da.RING_HEADS if n_heads % h == 0):
+        words = da.ring_scale_words(hpc, True, n_heads)
+        assert words == hpc // 2 + (1 if hpc % 2 or n_heads % 2 else 0)
+        extra = (da.ring_smem_bytes(t, hpc, torch.int8, True, n_heads=n_heads)
+                 - da.ring_smem_bytes(t, hpc, torch.int8, n_heads=n_heads))
+        assert extra == 8 * t * (words - 1)
+        for y in sorted({0, b - 1}):  # the first row and the last (the tensor's end)
+            for slot in range(t):
+                for h0 in range(0, n_heads, hpc):
+                    el0 = (y * t + slot) * n_heads + h0
+                    copies = da.ring_scale_copies(el0, hpc, n_scales, n_heads)
+                    assert len(copies) == words
+                    held = set()
+                    for word, nbytes in copies:
+                        assert nbytes in (0, 2, 4)
+                        if nbytes:  # a word that holds one of the CTA's heads
+                            assert el0 - 1 <= 2 * word < el0 + hpc
+                        held.update(range(2 * word, 2 * word + nbytes // 2))
+                    assert max(held) < n_scales
+                    for e in range(hpc):
+                        word, half = ((el0 & 1) + e) >> 1, (el0 + e) & 1
+                        assert copies[word][0] * 2 + half == el0 + e and el0 + e in held
 
 
 def test_beam_wrapper_says_why_it_refuses():

@@ -432,35 +432,51 @@ def test_decode_attention_kernel_replays_in_a_cuda_graph(int8):
     assert torch.equal(out, want)
 
 
-@pytest.mark.parametrize("int8", [True, False], ids=["int8", "bf16"])
+@pytest.mark.parametrize("mode", ["int8", "bf16", "int8h"])
 @pytest.mark.parametrize("t", [51, 176, 448])
 @pytest.mark.parametrize("at", ["third", "first", "last"])
-def test_decode_attention_ring_kernel(int8, t, at):
-    """K2's ring form (csrc/decode_attention_ring.cu): each row's keys are
-    its valid most recent slots, ending at ring_pos (a third of the way in,
-    slot 0, or slot t - 1); rows longer than ring_pos + 1 wrap past slot
-    t - 1, one row ends exactly at slot 0, another takes every slot. One
-    launch a call."""
+def test_decode_attention_ring_kernel(mode, t, at):
+    """K2's ring form (csrc/decode_attention_ring.cu) over int8 with fp32
+    row scales, bf16, and int8 with bf16 per-head scales (the int4 cache's
+    self K/V: a CTA a (row, head), the scale words by cp.async): each row's
+    keys are its valid most recent slots, ending at ring_pos (a third of the
+    way in, slot 0, or slot t - 1); rows longer than ring_pos + 1 wrap past
+    slot t - 1, one row ends exactly at slot 0, another takes every slot.
+    One launch a call, the same bits from two launches, and the same bits
+    from a replayed CUDA graph, again after ring_pos and q change."""
     b, h = 6, 20
     ring = {"third": t // 3, "first": 0, "last": t - 1}[at]
-    q, k, v, ks, vs = _decode_inputs(b, t, h, int8, seed=70)
+    if mode == "int8h":
+        q, k, v, ks, vs = _self_inputs(b, t, h, mode, seed=70)
+    else:
+        q, k, v, ks, vs = _decode_inputs(b, t, h, mode == "int8", seed=70)
     valid = torch.tensor([t, 1, ring + 1, min(t, ring + 2), t - 1, (2 * t) // 3],
                          dtype=torch.int32, device="cuda")
     ring_pos = torch.tensor(ring, dtype=torch.int32, device="cuda")
+    kw = dict(n_heads=h, k_scale=ks, v_scale=vs, ring_pos=ring_pos)
     before = da.decode_attention.ring_launches
-    got = da.decode_attention(q, k, v, valid, n_heads=h, k_scale=ks, v_scale=vs,
-                              ring_pos=ring_pos)
+    got = da.decode_attention(q, k, v, valid, **kw)
+    again = da.decode_attention(q, k, v, valid, **kw)
     torch.cuda.synchronize()
-    assert da.decode_attention.ring_launches == before + 1
-    ref = da.decode_attention_reference(q, k, v, valid, n_heads=h, k_scale=ks, v_scale=vs,
-                                        ring_pos=ring_pos)
+    assert da.decode_attention.ring_launches == before + 2 and torch.equal(got, again)
+    ref = da.decode_attention_reference(q, k, v, valid, **kw)
     _assert_near(got, ref, atol=2e-3)
     # a scalar valid length over the same ring
-    got = da.decode_attention(q, k, v, t - 5, n_heads=h, k_scale=ks, v_scale=vs,
-                              ring_pos=ring_pos)
-    ref = da.decode_attention_reference(q, k, v, t - 5, n_heads=h, k_scale=ks, v_scale=vs,
-                                        ring_pos=ring_pos)
+    got = da.decode_attention(q, k, v, t - 5, **kw)
+    ref = da.decode_attention_reference(q, k, v, t - 5, **kw)
     _assert_near(got, ref, atol=2e-3)
+    # a captured call replays with the ring_pos and q of the moment
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = da.decode_attention(q, k, v, valid, **kw)
+    for step in range(2):
+        if step:
+            ring_pos.fill_((ring + 7) % t)
+            q.copy_(_randn(b, h, 64, seed=71))
+        graph.replay()
+        want = da.decode_attention(q, k, v, valid, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
 
 
 def _self_inputs(b, t, h, mode, seed):
@@ -753,7 +769,8 @@ def test_decode_attention_per_head_forms_replay_in_a_cuda_graph(form):
 
 @pytest.mark.parametrize("bad", ["int4-fp32-scales", "int4-row-scales", "int8-head-shape",
                                  "int8-fp16-scales", "ring-int4", "beam-int8-heads",
-                                 "beam-int4-misaligned-scales", "int4-no-scales"])
+                                 "beam-int4-misaligned-scales", "int4-no-scales",
+                                 "ring-int8-heads-misaligned-scales"])
 def test_decode_attention_refuses_mismatched_scales(bad):
     """On the card each K/V mode takes only its own scales, and a form
     refuses a mode its kernel lacks, with a ValueError and no launch."""
@@ -775,6 +792,13 @@ def test_decode_attention_refuses_mismatched_scales(bad):
         kw["ring_pos"] = torch.tensor(3, dtype=torch.int32, device="cuda")
     elif bad == "int4-no-scales":
         k, v, ks, vs = k4, v4, None, None
+    elif bad == "ring-int8-heads-misaligned-scales":  # one bf16 into a buffer: 2-byte aligned
+        ks, vs = (torch.empty(x.numel() + 1, dtype=torch.bfloat16, device="cuda")[1:].view(x.shape)
+                  for x in (ks8, vs8))
+        ks.copy_(ks8)
+        vs.copy_(vs8)
+        k, v = k8, v8
+        kw["ring_pos"] = torch.tensor(3, dtype=torch.int32, device="cuda")
     else:
         qb = _randn(2, 3, h, 64, seed=112)
         if bad == "beam-int8-heads":
@@ -2339,15 +2363,15 @@ def test_decode_attention_int8_heads_replay_in_a_cuda_graph():
 
 
 @pytest.mark.parametrize("g", [1, 12])
-@pytest.mark.parametrize("beams", [1, 5, 16, 17])
+@pytest.mark.parametrize("beams", [1, 5, 8, 9, 16, 17])
 @pytest.mark.parametrize("t", [1, 63, 1500])
 def test_decode_attention_beam_int4_grid(t, beams, g):
     """K2's int4 beam form (bf16 q, packed int4 K/V with bf16 per-head
-    scales) at one group (the most key shares) and at beam search's 12
-    groups, T = 1, 63, 1500, 1 to 17 beams (two
-    16-beam tiles): max |err| <= 2e-3 against the twin, one launch, the same
-    bits from two launches, and the same bits again from a replayed CUDA
-    graph."""
+    scales: its own kernel, keys as mma.sync's M, 8-beam tiles) at one
+    group (the most key shares) and at beam search's 12 groups, T = 1, 63,
+    1500, 1 to 17 beams (one to three tiles): max |err| <= 2e-3 against the
+    twin, one launch, the same bits from two launches, and the same bits
+    again from a replayed CUDA graph."""
     h = 20
     q = _randn(g, beams, h, 64, seed=300)
     k, v, ks, vs = _f32_kv(g, t, h, "int4", seed=301)

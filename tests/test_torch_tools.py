@@ -12,7 +12,7 @@ import torch
 from kotoba_whisper_tpu_torch.ops import _build
 from kotoba_whisper_tpu_torch.ops import decode_attention as da
 from kotoba_whisper_tpu_torch.tools import (
-    beam_probe, enc_exp, k8_probe, kernel_time, stem_exp, step_time, vpu_cal,
+    beam_probe, enc_exp, k8_probe, kernel_time, ring_probe, stem_exp, step_time, vpu_cal,
 )
 
 TINY = ["--preset", "test-tiny", "--batch", "2", "--device", "cpu"]
@@ -85,30 +85,84 @@ def test_tools_raise_without_a_card(monkeypatch):
 
 
 def test_beam_probe_patches_fit_the_beam_source():
-    """Each of beam_probe's variants applies TWO_FORMS (the kernel templated
-    on its ring and the half form, a C entry with a `stages` argument) and
-    then its own patches once to the beam source without its fp32 form
-    (the launch bound, the knockouts); the shipped source has neither the
-    half form nor the argument; a patch whose text is gone raises."""
+    """Each of beam_probe's variants applies its patches once to the beam
+    source without its fp32 form: the sweep's variants the int4 kernel's
+    shape (consumer warps, CTAs an SM, ring stages), which the shipped
+    source names as ops/decode_attention.py's BEAM_INT4_* do, the
+    knockouts lines of `beam_int4_kernel` (the nibble conversions, the
+    scale copies, the mma); every variant but "as_is" changes the source,
+    no two alike, and the shipped shape is not swept twice; a patch whose
+    text is gone raises."""
     src = open(_build.source_path("decode_attention_beam")).read()
-    assert "kHalf" not in src and "int stages, int kv_mode" not in src
+    assert beam_probe.SHAPE in src and "beam_int4_kernel" in src
     base = beam_probe.patched_source(src, "as_is")
     assert "struct __align__(16) F32Smem" not in base and "kwt_decode_attention_beam(" in base
-    assert "template <typename KV, int kS, bool kHalf>" in base
-    assert "int stages, int kv_mode, void* stream" in base and "KWT_BEAM(6, true)" in base
-    assert len(beam_probe.ENTRY_ARGTYPES) == len(
-        _build.SIGNATURES["decode_attention_beam"]["kwt_decode_attention_beam"]) + 1
-    for variant in beam_probe.PATCHES:
-        assert (beam_probe.patched_source(src, variant) == base) == (variant == "as_is"), variant
+    shipped = (da.BEAM_INT4_WARPS, da.BEAM_INT4_CTAS_PER_SM, da.BEAM_INT4_STAGES)
+    assert shipped not in beam_probe.SWEEP.values() and beam_probe.variant_shape("as_is") == shipped
+    sources = {variant: beam_probe.patched_source(src, variant) for variant in beam_probe.PATCHES}
+    assert len(set(sources.values())) == len(sources)
+    for variant, text in sources.items():
+        assert (text == base) == (variant == "as_is"), variant
+        w, c, st = beam_probe.variant_shape(variant)
+        assert (f"constexpr int kInt4Warps = {w}, kInt4CtasPerSm = {c}, kInt4Stages = {st};"
+                in text), variant
     with pytest.raises(ValueError, match="exactly once"):
         beam_probe.patched_source(
-            src.replace("mma_bf16(oacc[nb], pa[j], bv[nb][0], bv[nb][1]);", ""), "as_is")
+            src.replace("mma_bf16(oacc[mb], a, pb[j][0], pb[j][1]);", ""), "no_mma")
 
 
 def test_beam_probe_raises_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         beam_probe.main([])
+
+
+def test_ring_probe_patches_fit_the_ring_source():
+    """Each of ring_probe's variants applies its patches once to the ring
+    source: "t128" the ring CTA's threads (256 shipped, as RING_WARPS
+    says), "no_cap" its launch bounds, "plain_words" the per-head scale copies and the arrival on K's
+    barrier, "no_scales" the copy loop, "no_halves" the two reads of a
+    scale at use; every variant but "as_is" changes the source, no two
+    alike, and only the knockouts go unchecked; a patch whose text is gone
+    raises."""
+    src = open(_build.source_path("decode_attention_ring")).read()
+    assert ring_probe.THREADS == f"constexpr int kThreads = {32 * da.RING_WARPS};"
+    sources = {variant: ring_probe.patched_source(src, variant) for variant in ring_probe.PATCHES}
+    assert sources["as_is"] == src and len(set(sources.values())) == len(sources)
+    assert "constexpr int kThreads = 128;" in sources["t128"]
+    assert "__launch_bounds__(kThreads)\n" in sources["no_cap"]
+    assert "cp_async4(ks_s + slot * sw + e" not in sources["plain_words"]
+    assert "mbar_arrive(&bars[0]);" in sources["plain_words"]
+    assert "bf16_half(vs_w" not in sources["no_halves"]
+    assert set(ring_probe.CHECKED) == set(ring_probe.PATCHES) - {"no_scales", "no_halves"}
+    with pytest.raises(ValueError, match="exactly once"):
+        ring_probe.patched_source(src.replace(ring_probe.THREADS, ""), "as_is")
+
+
+def test_ring_probe_raises_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ring_probe.main([])
+
+
+def test_probe_ptxas_reads_the_named_entry():
+    """The probes' ptxas reader takes the registers and spill bytes of the
+    entry function whose mangled name holds the kernel's, and None where
+    the log lacks it."""
+    log = ("ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_111ring_kernelIaLb0EEvv' "
+           "for 'sm_90a'\nptxas info    : Function properties for x\n"
+           "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+           "ptxas info    : Used 40 registers\n"
+           "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_111ring_kernelIaLb1EEvv' "
+           "for 'sm_90a'\nptxas info    : Function properties for y\n"
+           "    8 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads\n"
+           "ptxas info    : Used 64 registers\n")
+    assert beam_probe.ptxas(log, ring_probe.KERNELS["int8"]) == {
+        "registers": 40, "spill_store_bytes": 0}
+    assert beam_probe.ptxas(log, ring_probe.KERNELS["int8h"]) == {
+        "registers": 64, "spill_store_bytes": 8}
+    assert beam_probe.ptxas(log, "beam_int4_kernel") == {
+        "registers": None, "spill_store_bytes": None}
 
 
 def test_k8_probe_raises_without_a_card(monkeypatch):
@@ -156,7 +210,9 @@ _KERNEL_TIME_GROUPS = {
                  "k8_bf16_qk", "k8_bf16_qkpv"],
     "_beam_rows": ["beam_f32", "beam_f32_int8", "beam_f32_int4", "beam_bf16", "beam_bf16_int8",
                    "beam_bf16_int4"],
-    "_head_probe_rows": ["k2_int8_heads_bf16q", "k2_int8_heads_bf16q_b48"]}
+    "_ring_rows": ["ring_int8", "ring_int8h", "ring_bf16", "ring_int8_w60"],
+    "_head_probe_rows": ["k2_int8_heads_bf16q", "k2_int8_heads_bf16q_b48"],
+    "_ring_probe_rows": ["ring_int8_heads1", "ring_int8_w60_heads1"]}
 
 
 def _stub_kernel_time(monkeypatch):
@@ -168,9 +224,9 @@ def _stub_kernel_time(monkeypatch):
 
 
 def test_kernel_time_times_every_row(monkeypatch):
-    """One run times every row group (K2's self, cross and beam calls,
-    K1/K4 fp32, K5 fp32, K7 fp32, K8), each `reps` times; the rows' names
-    are the ones two trees' records are compared by."""
+    """One run times every row group (K2's self, cross, beam and ring calls,
+    K1/K4 fp32, K5 fp32, K7 fp32, K8, the probes last), each `reps` times;
+    the rows' names are the ones two trees' records are compared by."""
     _stub_kernel_time(monkeypatch)
     rec = kernel_time.measure(2)
     assert list(rec) == [n for names in _KERNEL_TIME_GROUPS.values() for n in names]
@@ -236,6 +292,58 @@ def test_kernel_time_sweeps_name_every_grid(monkeypatch):
         n_heads, hg, shares, rows, mode, q_f32 = args[12:18]
         assert fn == "kwt_decode_attention_heads" and name == f"H{n_heads} h{hg} s{shares}"
         assert shares * rows >= 1500 > (shares - 1) * rows and (mode, q_f32) == (da.KV_INT8, 1)
+
+
+def _ring_args(args):
+    """(W, T, H, heads a CTA, K/V mode) of a ring entry call, whether it
+    passed valid rows and whether a ring_pos."""
+    return args[11:16], args[7] is not None, args[9] is not None
+
+
+def test_kernel_time_ring_probe_takes_a_head_a_cta(monkeypatch):
+    """The ring probe rows call the ring kernel's entry over int8 with fp32
+    row scales at W=48 and 60 (T=176, per-row valid lengths, a ring_pos)
+    on a CTA a (row, head)."""
+    calls = _stub_head_entries(monkeypatch)
+    rows = kernel_time._ring_probe_rows()
+    assert list(rows) == ["ring_int8_heads1", "ring_int8_w60_heads1"]
+    for call in rows.values():
+        call()
+    for (fn, args), w in zip(calls, (48, 60)):
+        assert fn == "kwt_decode_attention_ring"
+        assert _ring_args(args) == ((w, 176, 20, 1, da.KV_INT8), True, True)
+
+
+def test_ring_probe_times_every_row_at_every_grid(monkeypatch):
+    """A ring_probe variant times the self call (B=16, T=51, valid the int
+    51, no valid rows or ring_pos) and the stream's ring call (W=48, T=176,
+    valid rows, a ring_pos), each over int8 with per-head and with row
+    scales, at every heads a CTA of RING_HEADS, through the variant's own C
+    entry."""
+    calls = _stub_head_entries(monkeypatch)
+
+    class Lib:
+        @staticmethod
+        def kwt_decode_attention_ring(*args):
+            calls.append(("variant", args))
+            return 0
+
+    rows = {name: (kernel_time._ring_inputs(w, "int8h" if per_head else "int8", t=t,
+                                            ring_pos=ring_pos), None)
+            for name, (w, t, per_head, ring_pos) in ring_probe.ROWS.items()}
+    rec = ring_probe._run(Lib, "", "no_scales", rows)
+    assert list(rec["ms"]) == [f"{name} h{h}" for name in ring_probe.ROWS for h in da.RING_HEADS]
+    want = {"self_int8h": (16, 51, da.KV_INT8_HEADS, False),
+            "self_int8": (16, 51, da.KV_INT8, False),
+            "ring_int8h": (48, 176, da.KV_INT8_HEADS, True),
+            "ring_int8": (48, 176, da.KV_INT8, True)}
+    for (fn, args), name in zip(calls, rec["ms"]):
+        row, heads = name.split(" h")
+        w, t, mode, ring = want[row]
+        assert fn == "variant"
+        assert _ring_args(args) == ((w, t, 20, int(heads), mode), ring, ring)
+        assert args[8] == (0 if ring else 51)
+    assert len(calls) == len(rec["ms"])
 
 
 def test_kernel_time_split_keeps_rows_of_several_kernels(monkeypatch):
