@@ -20,7 +20,9 @@ k/v (B, Tk, H, D), O (B, Tq, H, D), LSE (B, H, Tq). The forward kernels
 read q, k and v with strides of their own, so the column blocks of a fused
 qkv (or kv) projection go in without copies, through TMA tensor maps whose
 byte strides `_fwd_plan` plans (multiples of 16). `causal_tile_plan`
-mirrors the key tiles each 128-row work item of K4 visits and masks;
+mirrors the key tiles each work item of K4 visits and masks (the bf16
+kernel's 128 rows over 128-key tiles, the fp32 kernel's 64 rows over
+64-key tiles);
 `bwd_tile_plan` the 64-row query tiles each 128-key work item of K5
 visits and masks, and `_bwd_plan` K5's strides (q, k, v and dO through
 tensor maps as K1's, O read by the pre-pass) and scratch.
@@ -241,15 +243,18 @@ def _map_strides(shape, stride, size):
     return head, token, batch
 
 
-def causal_tile_plan(tq, tk, q0):
-    """K4's plan for the work item of query rows [q0, q0 + TILE) under the
-    end-aligned mask (row i sees keys j <= i + tk - tq): the number of
-    TILE-key tiles it visits, in ascending order from key 0, and how many
-    leading ones lie wholly below its first row's bound and so need no
-    mask (csrc/flash_attention_sm90.cu `plan_item`). -> (n_tiles, n_free)."""
-    offset, last_row = tk - tq, min(q0 + TILE - 1, tq - 1)
-    n_tiles = min(-(-tk // TILE), (last_row + offset) // TILE + 1)
-    return n_tiles, min(n_tiles, (q0 + offset + 1) // TILE)
+def causal_tile_plan(tq, tk, q0, rows=TILE, keys=TILE):
+    """K4's plan for the query rows [q0, q0 + rows) under the end-aligned
+    mask (row i sees keys j <= i + tk - tq): the number of `keys`-key tiles
+    they visit, in ascending order from key 0, and how many leading ones
+    lie wholly below their first row's bound and so need no mask. The
+    bf16 kernel's work item is TILE rows over TILE-key tiles
+    (csrc/flash_attention_sm90.cu `plan_item`); the fp32 causal kernel's
+    CTA F32_CAUSAL_ROWS rows over F32_TC_KEYS-key tiles
+    (csrc/flash_attention_f32.cu `causal_tiles`). -> (n_tiles, n_free)."""
+    offset, last_row = tk - tq, min(q0 + rows - 1, tq - 1)
+    n_tiles = min(-(-tk // keys), (last_row + offset) // keys + 1)
+    return n_tiles, min(n_tiles, (q0 + offset + 1) // keys)
 
 
 # K5's tiles: a work item is one 128-key tile of one (batch, head); it
@@ -354,10 +359,11 @@ def _f32_plan(q_layout, k_layout, v_layout, causal, no_max=False):
                                                 int(no_max))
 
 
-# K1's fp32 form (csrc/flash_attention_f32.cu, the non-causal kernel, kTcBN):
-# the keys of a tile, over which each tile's P V is summed apart before it
-# is added to O
-F32_TC_KEYS = 64
+# K1/K4's fp32 form (csrc/flash_attention_f32.cu kTcRows, kTcBN): the query
+# rows of a causal CTA (and of each consumer warpgroup of the non-causal
+# kernel), and the keys of a tile, over which each tile's P V is summed
+# apart before it is added to O
+F32_CAUSAL_ROWS, F32_TC_KEYS = 64, 64
 
 
 # K5's fp32 form (csrc/flash_attention_bwd_f32.cu). The causal cluster form:

@@ -1,6 +1,6 @@
 """Device time of K2's self-attention, cross and beam calls, K1/K4's fp32
-forms, K5's fp32 backward, K7's fp32 form and K8 at the shapes of the path
-that runs them, alone on the card, so two trees of the repository can be
+forms, K5's fp32 backward, K7's fp32 form, K8 and K9 at the shapes of the
+path that runs them, alone on the card, so two trees of the repository can be
 timed in turns (one process each, alternating which
 runs first) on one card: run it from two `git archive` checkouts, copying
 this file into one that lacks it. It calls only the wrappers' public entry
@@ -46,6 +46,12 @@ kernel's heads and threads a CTA).
 at T=64 (one key tile, no cluster partner) and 256, 8 x 20: how its time
 splits between one cluster's latency and the card's throughput.
 
+--k4-sweep adds K4's fp32 form (the causal forward) at the shapes at which
+tests/test_torch_kernels_cuda.py runs it, (B, Tq, Tk, H), and beside each
+its probe: the non-causal 3xTF32 kernel with the causal mask on its
+128-row items, built from a patch of csrc/flash_attention_f32.cu
+(K4_PROBE_PATCHES) into build/k4_probe/ and held to the twin first.
+
 - K8: the int8 attention core at the encoder's shape (B=16, T=1500), its
   fp32-q form (phase 4k(f): qk, qkpv and both no-max forms) and the bf16
   form's qk and qkpv (phase 4d).
@@ -58,6 +64,8 @@ splits between one cluster's latency and the card's throughput.
   scales (the int4 cache's self K/V) and bf16, and int8 at 4g's W=60; and
   the per-row int8 form on a CTA a (row, head) through the C entry, at
   W=48 and 60 (a probe: no path routes it there).
+- K9: the calibration loop at the JAX tool's block (512 x 1536 x 64 fp32),
+  softmax and exp (tools.vpu_cal's runs, chip_smoke.py's phase 3).
 
 A row whose call launches more than one kernel (K5 fp32 cross and K7
 fp32, for instance) also records kernels_ms: the device ms a call spends
@@ -65,11 +73,13 @@ in each of its kernels (torch.profiler's CUDA kernel times over 20 calls;
 a CUDA graph hides them).
 
 Usage: python -m kotoba_whisper_tpu_torch.tools.kernel_time [--reps 3] [--sweep] [--k5-sweep]
+       [--k4-sweep]
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import time
 
@@ -81,6 +91,7 @@ from kotoba_whisper_tpu_torch.ops import _build
 from kotoba_whisper_tpu_torch.ops import conv_stem as cs
 from kotoba_whisper_tpu_torch.ops import decode_attention as da
 from kotoba_whisper_tpu_torch.ops import flash_attention as fa
+from kotoba_whisper_tpu_torch.tools import vpu_cal
 
 HEADS, SELF_ROWS, SELF_T = 20, 16, 51  # phase 4: B=16, prompt 3 + 48 tokens
 TRAIN_B, LABELS, T_ENC = 8, 128, 1500   # phase 4b
@@ -88,6 +99,16 @@ ENC_B = 16                              # phase 4k(a)'s fp32 encoder batch
 STREAM_B = 48                           # phase 4e's window: the stream's cross call
 RING_T, RING_POS, BEAM_STREAM_W = 176, 40, 60  # the stream's ring; 4g's window
 N_MELS, D_MODEL = 128, 1280             # large-v3's stem
+K9_BLOCK = (512, 1536, 64)              # the JAX calibration tool's (rows, cols, iters)
+# the shapes (B, Tq, Tk, H) at which tests/test_torch_kernels_cuda.py runs
+# K4's fp32 form (its forward tests, and the fp32 backward tests' forward
+# calls), the path's first
+K4_SWEEP = ((TRAIN_B, LABELS, LABELS, HEADS), (2, 130, 130, 3), (1, 1, 1, 1), (2, 65, 65, 2),
+            (2, 63, 63, 2), (2, 64, 64, 2), (2, 127, 127, 2), (2, 129, 129, 3),
+            (2, 300, 300, 3), (1, 37, 200, 2), (2, 128, 300, 2), (1, 1, 300, 1),
+            (2, 200, 200, 4), (2, 130, 130, 4), (2, 600, 600, 4), (2, 1, 1, 3), (2, 63, 63, 3),
+            (2, 65, 65, 3), (2, 127, 127, 3), (2, 1, 128, 3), (2, 65, 300, 2),
+            (1, 100, 448, 4), (1, 448, 448, 2), (1, 64, 64, 2))
 
 
 def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
@@ -429,6 +450,13 @@ def _beam_rows():
     return rows
 
 
+def _k9_rows():
+    """K9's calibration loop, softmax and exp -> {name: call}."""
+    rows, cols, iters = K9_BLOCK
+    x = _randn(rows, cols, seed=95, dtype=torch.float32)
+    return {f"k9_{op}": (lambda op=op: vpu_cal.vpu_cal(x, iters, op)) for op in ("softmax", "exp")}
+
+
 def head_sweep() -> dict:
     """Device ms of the int8 head kernel under fp32 q at the cross call
     (B=16, T=1500) by heads a CTA x key shares, at 20 and 10 heads ->
@@ -459,14 +487,106 @@ def k5_sweep() -> dict:
     return out
 
 
+# csrc/flash_attention_f32.cu patched into K4 fp32's probe, which --k4-sweep
+# times beside the shipped kernel (ROADMAP tier B item 10): the end-aligned
+# causal mask on the non-causal kernel's 128-row work items. The producer
+# fills the key tiles at or below an item's last row's bound, each consumer
+# computes those at or below its own rows' and releases the rest unread (so
+# that the ring's phases stay in step), and a causal call takes that kernel
+# in place of the causal one. Each text is found once in the source.
+K4_PROBE_PATCHES = (
+    ("      for (int j = 0; j < n_kt; ++j, ++it) {\n        const int st",
+     "      const int n_j = causal_tiles(tq, tk, (w - bh * n_qtiles) * kTcBM, kTcBM);\n"
+     "      for (int j = 0; j < n_j; ++j, ++it) {\n        const int st"),
+    ("    for (int j = 0; j < n_kt; ++j, ++it) {\n      const int st",
+     "    const int n_item = causal_tiles(tq, tk, qrow0 - c * kTcRows, kTcBM);\n"
+     "    const int n_mine = causal_tiles(tq, tk, qrow0, kTcRows);\n"
+     "    const int n_free = min(n_mine, (qrow0 + tk - tq + 1) / kTcBN);\n"
+     "    for (int j = 0; j < n_mine; ++j, ++it) {\n      const int st"),
+    ("va, ragged,\n                   ragged ? tk - j * kTcBN - 2 * t4 : kTcBN, kTcBN);",
+     "va, ragged || j >= n_free,\n                   ragged ? tk - j * kTcBN - 2 * t4 : kTcBN,\n"
+     "                   qrow0 + r0 + tk - tq - j * kTcBN - 2 * t4);"),
+    ("      add_tile(oacc, otile, corr);\n    }\n    epilogue<kNoMax>",
+     "      add_tile(oacc, otile, corr);\n    }\n"
+     "    for (int j = n_mine; j < n_item; ++j, ++it) {\n"
+     "      const int st = it % kTcStages;\n"
+     "      mbar_wait(&s.full[st], (it / kTcStages) & 1);\n"
+     "      mbar_arrive(&s.empty[st]);\n"
+     "    }\n    epilogue<kNoMax>"),
+    ("  if (causal) {", "  if (false) {"),
+)
+
+
+def k4_probe_source(src: str) -> str:
+    """The fp32 attention source with K4_PROBE_PATCHES applied."""
+    from kotoba_whisper_tpu_torch.tools.beam_probe import replace_once
+
+    for old, new in K4_PROBE_PATCHES:
+        src = replace_once(src, old, new, "k4_probe")
+    return src
+
+
+def _k4_probe():
+    """K4 fp32's probe: `k4_probe_source` built by its own nvcc into
+    build/k4_probe/ -> its kwt_flash_attention_f32 entry."""
+    from kotoba_whisper_tpu_torch.tools.beam_probe import build_variants
+
+    src = k4_probe_source(open(_build.source_path("flash_attention_f32")).read())
+    (lib, _), = build_variants(os.path.join(os.path.dirname(_build.BUILD_DIR), "k4_probe"),
+                               {"wgmma_probe": src}, "flash_attention_f32",
+                               "kwt_flash_attention_f32", "k4_probe").values()
+    return lib.kwt_flash_attention_f32
+
+
+def _k4_probe_call(fn, q, k, v):
+    """A causal call of the probe's C entry on q, k, v with the wrapper's
+    plan -> a call returning (o, lse)."""
+    (b, tq, h), plan = fa._f32_plan((q.shape, q.stride()), (k.shape, k.stride()),
+                                    (v.shape, v.stride()), True)
+    o = q.new_empty((b, tq, h, 64))
+    lse = q.new_empty((b, h, tq))
+
+    def call():
+        rc = fn(0, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), plan,
+                _build.stream_handle(0))
+        if rc != 0:
+            raise RuntimeError(f"K4 fp32 probe launch failed: cudaError {rc}")
+        return o, lse
+
+    return call
+
+
+def k4_sweep() -> dict:
+    """Device ms of K4's fp32 form at K4_SWEEP's shapes, each beside its
+    probe, which is first held to the twin (relative L2 and LSE max |err|
+    <= 1e-5, the card test's bounds) -> {"BxTqxTkxH": ms,
+    "BxTqxTkxH wgmma_probe": ms}."""
+    probe = _k4_probe()
+    out = {}
+    for b, tq, tk, h in K4_SWEEP:
+        q = _randn(b, tq, h, 64, seed=73, dtype=torch.float32)
+        k, v = (_randn(b, tk, h, 64, seed=s, dtype=torch.float32) for s in (74, 75))
+        name = f"{b}x{tq}x{tk}x{h}"
+        out[name] = graph_ms(lambda: fa.flash_attention_fwd(q, k, v, causal=True))
+        call = _k4_probe_call(probe, q, k, v)
+        (o, lse), (ro, rlse) = call(), fa.flash_attention_reference(q, k, v, True)
+        rel, lse_err = float((o - ro).norm() / ro.norm()), float((lse - rlse).abs().max())
+        if not (rel <= 1e-5 and lse_err <= 1e-5):
+            raise RuntimeError(f"K4 fp32 probe at {name} is off the twin: rel-L2 {rel:.3e}, "
+                               f"LSE {lse_err:.3e}")
+        out[f"{name} wgmma_probe"] = graph_ms(call)
+    return out
+
+
 def measure(reps: int) -> dict:
-    # the probe's rows last: a tree without them (the parent in turns) then
-    # allocates every other row's tensors as this one does, at the same
+    # the probes' rows, then rows added later (K9), last: a
+    # tree without them (the parent in turns) then allocates every other
+    # row's tensors as this one does, at the same
     # addresses (on an H100 80GB HBM3 at 700 W the K2 beam int4 row's
     # identical kernel read 5-6 % apart in one run where only one tree
     # allocated the probe's tensors first, and alike with them last)
     makers = (_self_rows, _k2_cross_rows, _k1_f32_rows, _k5_rows, _k7_f32_rows, _k8_rows,
-              _beam_rows, _ring_rows, _head_probe_rows, _ring_probe_rows)
+              _beam_rows, _ring_rows, _head_probe_rows, _ring_probe_rows, _k9_rows)
     rows = {}
     for make in makers:
         rows.update(make())
@@ -487,6 +607,8 @@ def main(argv=None) -> dict:
                     help="also time the int8 head kernel's grids")
     ap.add_argument("--k5-sweep", action="store_true",
                     help="also time K5's fp32 causal form over batch, heads and T")
+    ap.add_argument("--k4-sweep", action="store_true",
+                    help="also time K4's fp32 form at its card tests' shapes")
     args = ap.parse_args(argv)
     resolve_device("cuda")
     rec = {"rows": measure(args.reps),
@@ -495,6 +617,8 @@ def main(argv=None) -> dict:
         rec["head_int8_sweep"] = head_sweep()
     if args.k5_sweep:
         rec["k5_f32_causal_sweep"] = k5_sweep()
+    if args.k4_sweep:
+        rec["k4_f32_sweep"] = k4_sweep()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
     rec["nvidia_smi"] = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else None

@@ -1086,8 +1086,14 @@ def test_int8_attention_reads_fused_projections_in_place():
 
 
 @pytest.mark.parametrize("op", ["softmax", "exp"])
-@pytest.mark.parametrize("rows, cols, iters", [(512, 1536, 64), (8, 128, 4), (3, 300, 5)])
+@pytest.mark.parametrize("rows, cols, iters", [
+    (512, 1536, 64), (8, 128, 4), (3, 300, 5), (1, 1, 3), (6, 129, 4), (5, 1000, 3),
+    (9, 2048, 2), (4, 127, 2)])
 def test_vpu_cal_kernel(op, rows, cols, iters):
+    """K9 against its twin at rtol 1e-4, acc and lsum (the sum of the row
+    sums, which sees a skipped exponential): the tool's block, rows not a
+    multiple of a CTA's, cols from one to the widest, not a multiple of a
+    row's width (tools/vpu_cal.py ROW_WARPS warps)."""
     x = torch.from_numpy(np.random.default_rng(0).standard_normal((rows, cols)).astype(
         np.float32)).cuda()
     got = vpu_cal.vpu_cal(x, iters, op)
@@ -1312,10 +1318,15 @@ def _assert_fp32(got, ref):
 @pytest.mark.parametrize("b, tq, tk, h, causal", [
     (2, 1500, 1500, 20, False), (2, 1500, 1500, 10, False), (1, 70, 130, 3, False),
     (3, 64, 1, 2, False), (2, 128, 1500, 20, False), (8, 128, 128, 20, True),
-    (2, 130, 130, 3, True), (1, 1, 1, 1, True), (2, 65, 65, 2, True)])
+    (2, 130, 130, 3, True), (1, 1, 1, 1, True), (2, 65, 65, 2, True), (2, 63, 63, 2, True),
+    (2, 64, 64, 2, True), (2, 127, 127, 2, True), (2, 129, 129, 3, True),
+    (2, 300, 300, 3, True), (1, 37, 200, 2, True), (2, 128, 300, 2, True),
+    (1, 1, 300, 1, True)])
 def test_flash_attention_f32_kernel(b, tq, tk, h, causal):
     """K1 and K4 in fp32: non-causal with Tq != Tk (the decoder's cross
-    attention), causal end-aligned, ragged tiles; O and the LSE."""
+    attention), causal end-aligned with Tq == Tk and Tq < Tk over the
+    causal form's 64-row consumers and 64-key tiles (T = 1, 63-65,
+    127-130, 300), ragged tiles; O and the LSE."""
     q = _randn(b, tq, h, 64, seed=200, dtype=torch.float32)
     k = _randn(b, tk, h, 64, seed=201, dtype=torch.float32)
     v = _randn(b, tk, h, 64, seed=202, dtype=torch.float32)

@@ -212,7 +212,8 @@ _KERNEL_TIME_GROUPS = {
                    "beam_bf16_int4"],
     "_ring_rows": ["ring_int8", "ring_int8h", "ring_bf16", "ring_int8_w60"],
     "_head_probe_rows": ["k2_int8_heads_bf16q", "k2_int8_heads_bf16q_b48"],
-    "_ring_probe_rows": ["ring_int8_heads1", "ring_int8_w60_heads1"]}
+    "_ring_probe_rows": ["ring_int8_heads1", "ring_int8_w60_heads1"],
+    "_k9_rows": ["k9_softmax", "k9_exp"]}
 
 
 def _stub_kernel_time(monkeypatch):
@@ -225,12 +226,118 @@ def _stub_kernel_time(monkeypatch):
 
 def test_kernel_time_times_every_row(monkeypatch):
     """One run times every row group (K2's self, cross, beam and ring calls,
-    K1/K4 fp32, K5 fp32, K7 fp32, K8, the probes last), each `reps` times;
+    K1/K4 fp32, K5 fp32, K7 fp32, K8, the probes, K9 last), each `reps`
+    times;
     the rows' names are the ones two trees' records are compared by."""
     _stub_kernel_time(monkeypatch)
     rec = kernel_time.measure(2)
     assert list(rec) == [n for names in _KERNEL_TIME_GROUPS.values() for n in names]
     assert all(len(r["device_ms"]) == 2 for r in rec.values())
+
+
+def _cpu_randn(monkeypatch):
+    monkeypatch.setattr(kernel_time, "_randn",
+                        lambda *shape, seed, dtype=torch.bfloat16: torch.randn(
+                            *shape, generator=torch.Generator().manual_seed(seed)).to(dtype))
+
+
+def test_kernel_time_k4_sweep_times_every_card_shape(monkeypatch):
+    """--k4-sweep times K4's fp32 form (causal, fp32 q, k and v) once at
+    each shape the card tests run it at, named B x Tq x Tk x H, the
+    training decoder's first, each beside the wgmma probe on the same
+    tensors, the probe held to the twin first; here on the twin."""
+    _cpu_randn(monkeypatch)
+    calls = []
+    fwd = kernel_time.fa.flash_attention_fwd
+
+    def spy(q, k, v, **kw):
+        calls.append((tuple(q.shape), tuple(k.shape), q.dtype, kw))
+        return fwd(q, k, v, **kw)
+
+    probes = []
+
+    def probe_call(fn, q, k, v):
+        assert fn == "probe entry"
+        probes.append((tuple(q.shape), tuple(k.shape)))
+        return lambda: kernel_time.fa.flash_attention_reference(q, k, v, True)
+
+    monkeypatch.setattr(kernel_time.fa, "flash_attention_fwd", spy)
+    monkeypatch.setattr(kernel_time, "_k4_probe", lambda: "probe entry")
+    monkeypatch.setattr(kernel_time, "_k4_probe_call", probe_call)
+    monkeypatch.setattr(kernel_time, "graph_ms", lambda call: call() and 0.0)
+    rec = kernel_time.k4_sweep()
+    assert list(rec) == [f"{b}x{tq}x{tk}x{h}{probe}" for b, tq, tk, h in kernel_time.K4_SWEEP
+                         for probe in ("", " wgmma_probe")]
+    assert probes == [(q, k) for q, k, _, _ in calls]
+    assert kernel_time.K4_SWEEP[0] == (8, 128, 128, 20)
+    assert len(set(kernel_time.K4_SWEEP)) == len(kernel_time.K4_SWEEP)
+    assert [(q, k) for q, k, _, _ in calls] == [((b, tq, h, 64), (b, tk, h, 64))
+                                               for b, tq, tk, h in kernel_time.K4_SWEEP]
+    assert all(dt == torch.float32 and kw == {"causal": True} for _, _, dt, kw in calls)
+
+
+def test_kernel_time_k4_sweep_refuses_a_probe_off_the_twin(monkeypatch):
+    """A probe whose output is off the twin stops the sweep before it is
+    timed."""
+    _cpu_randn(monkeypatch)
+
+    def probe_call(fn, q, k, v):
+        o, lse = kernel_time.fa.flash_attention_reference(q, k, v, True)
+        return lambda: (o, lse + 1e-4)
+
+    monkeypatch.setattr(kernel_time, "_k4_probe", lambda: None)
+    monkeypatch.setattr(kernel_time, "_k4_probe_call", probe_call)
+    monkeypatch.setattr(kernel_time, "K4_SWEEP", ((1, 65, 65, 1),))
+    monkeypatch.setattr(kernel_time, "graph_ms", lambda call: 0.0)
+    with pytest.raises(RuntimeError, match="1x65x65x1 is off the twin"):
+        kernel_time.k4_sweep()
+
+
+def test_k4_probe_patches_fit_the_f32_source():
+    """Each of the K4 fp32 probe's patches applies once to
+    csrc/flash_attention_f32.cu: the shipped source has no causal form of
+    the non-causal kernel, the patched one masks its items, walks only
+    their causal key tiles and routes a causal call to it."""
+    src = open(_build.source_path("flash_attention_f32")).read()
+    probe = kernel_time.k4_probe_source(src)
+    for old, new in kernel_time.K4_PROBE_PATCHES:
+        assert src.count(old) == 1 and probe.count(new) == 1
+    assert "n_item" not in src and "if (false) {" not in src
+    assert probe.count("causal_tiles(tq, tk, ") == src.count("causal_tiles(tq, tk, ") + 3
+    with pytest.raises(ValueError, match="not in the source exactly once"):
+        kernel_time.k4_probe_source(probe)
+
+
+def test_kernel_time_k4_probe_call_takes_the_causal_plan(monkeypatch):
+    """The probe's call passes the fp32 C entry the wrapper's causal plan
+    (plan[4] == 1: the patched entry routes it to the non-causal kernel)
+    and q, k, v, O and the LSE's addresses."""
+    calls = []
+    monkeypatch.setattr(kernel_time._build, "stream_handle", lambda card: 0)
+    q, k, v = (torch.zeros(8, 128, 20, 64) for _ in range(3))
+    call = kernel_time._k4_probe_call(lambda *args: calls.append(args) or 0, q, k, v)
+    o, lse = call()
+    (args,) = calls
+    assert o.shape == (8, 128, 20, 64) and lse.shape == (8, 20, 128)
+    assert args[1:6] == (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr())
+    layout = (q.shape, q.stride())
+    assert list(args[6]) == list(kernel_time.fa._f32_plan(layout, layout, layout, True)[1])
+    assert list(args[6])[:5] == [8, 128, 128, 20, 1]
+
+
+def test_kernel_time_k9_rows_run_the_tool_block(monkeypatch):
+    """The K9 rows call the calibration wrapper at the JAX tool's block
+    (512 x 1536 x 64), softmax and exp; here on the twin, at 2 iterations."""
+    _cpu_randn(monkeypatch)
+    monkeypatch.setattr(kernel_time, "K9_BLOCK", (512, 1536, 2))
+    before = vpu_cal.vpu_cal.launches
+    rows = kernel_time._k9_rows()
+    assert list(rows) == ["k9_softmax", "k9_exp"]
+    soft, exp = (call() for call in rows.values())
+    assert soft.shape == exp.shape == (512, 2)
+    torch.testing.assert_close(soft[:, 0], torch.full((512,), 2.0))
+    assert bool((soft[:, 1] > 2.0).all()) and torch.equal(exp[:, 0], exp[:, 1])
+    assert bool((exp[:, 0] > 1536).all()) and vpu_cal.vpu_cal.launches == before  # CPU: the twin
 
 
 @pytest.mark.parametrize("name, short", [
