@@ -156,7 +156,8 @@ Phases, in order; any failure exits nonzero and prints no result line:
      launches as phases 4 and 4b; (b) tensor parallel over two ranks on
      card 0 (a gloo group the script builds itself, NCCL refusing two
      ranks on one card): large-v3 fused bf16 and fused + w8a8 at 10 heads
-     a rank, int8 KV, B=16, prompt + 48 tokens, the share of tokens equal
+     a rank, int8 KV, B=16, prompt + 48 tokens (w8a8: + TP_W8A8_TOKENS,
+     24, for the smoke's time), the share of tokens equal
      to the one-card run, the first-step logits against it (rel-L2 5e-2),
      each rank's launches and wall, then a beam search and a stream for
      K2's beam and ring forms at 10 heads and a short int4-cache batch for
@@ -184,7 +185,22 @@ Phases, in order; any failure exits nonzero and prints no result line:
      from the cache (no launch); cli.eval_diff --strict --tolerance 1e-6 of
      the third run against the first; speed at 10 s, one trial; eval and
      speed at 10 s with --dtype float32; report of the metric and the
-     runtime JSONL;
+     runtime JSONL; then (a) the ASR -> MT cascade: a random-weights NLLB
+     checkpoint at NLLB-200-distilled-600M's widths (config.json,
+     pytorch_model.bin, a hand-written unigram tokenizer.json over all
+     256206 ids), eval --cascaded_mt --dtype float32 of the student on the
+     same set (the ASR half's launches those of the plain fp32 eval, the
+     MT half on stock torch ops), and the MT model on the card against its
+     CPU plain path on the set's first sentence: first-step logits, the
+     full decoder over the 128 greedy tokens, and the card's cached step
+     over them against the CPU's full decoder, each within F32_PATH_TOL,
+     and the greedy tokens equal; (b) ESB: prepare-eval-set
+     --corpus librispeech --to_tar on a tiny LibriSpeech layout, then eval
+     on the tar set; (c) eval/scaling.scaling_report at one card over the
+     student's encoder (K1 launched). parity-check and the NeMo baseline
+     are not driven here: they need `transformers` and `reazonspeech`,
+     which the card's machine lacks (tests/test_torch_parity_check.py and
+     tests/test_torch_cascaded.py run them on the CPU);
   5c. bilingual distillation: stage 2 with --text_lang_task
      ja:transcribe,en:translate, stage 3 keeping both label columns, then
      `python -m kotoba_whisper_tpu_torch distill-bilingual` on that chunk as
@@ -214,6 +230,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import csv
 import dataclasses
 import gc
 import io
@@ -279,6 +296,10 @@ SERVE_MAX_LENGTH = 32
 SERVE_WARMUP, SERVE_TRIALS = 1, 3   # the JAX harness's 2 and 5, cut for the smoke's time
 # phase 4j: the int4 streams' windows, fewer than 4e's 192 and 4g's 96
 J_STREAM_WINDOWS, J_BEAM_STREAM_WINDOWS = 48, 24
+# phase 4i(b): the w8a8 TP=2 run's decode steps, half of NEW_TOKENS: two
+# ranks on one card over gloo are host-bound (its 48 steps took 36-80 s
+# on an H100 80GB HBM3 at 700 W)
+TP_W8A8_TOKENS = 24
 
 
 def log(msg: str) -> None:
@@ -456,6 +477,232 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+# NLLB-200-distilled-600M's published widths (facebook/nllb-200-distilled-600M,
+# config.json), the cascade's MT model in phase 5 (stage 6)
+NLLB_600M = dict(vocab_size=256206, d_model=1024, encoder_layers=12, decoder_layers=12,
+                 encoder_attention_heads=16, decoder_attention_heads=16,
+                 encoder_ffn_dim=4096, decoder_ffn_dim=4096, max_position_embeddings=1024)
+
+
+def write_nllb_checkpoint(path: str, seed: int) -> None:
+    """A random-weights NLLB checkpoint at NLLB_600M: config.json,
+    pytorch_model.bin (torch.save of HF-named fp32 tensors, made on the
+    card) and a hand-written unigram tokenizer.json whose pieces span
+    every id (so every id the random model emits decodes): <s> <pad> </s>
+    <unk> at 0-3, the eval sentences' words, hex pieces, and jpn_Jpan and
+    eng_Latn as added tokens at the last two ids. The shared embedding is
+    drawn at std 0.002, a tenth of the init's: at d_model 1024 the scaled
+    input token otherwise dominates the tied logits, and the random model
+    repeats eng_Latn, which decodes to nothing."""
+    from kotoba_whisper_tpu_torch.models import text_seq2seq as ts
+
+    os.makedirs(path, exist_ok=True)
+    cfg = ts.TextSeq2SeqConfig(**NLLB_600M)
+    model = ts.init_params(cfg, torch.Generator(device="cuda").manual_seed(seed), device="cuda")
+    with torch.no_grad():
+        model.model.shared.weight.mul_(0.1)
+    sd = {f"model.{k}": v.cpu() for k, v in model.model.state_dict().items()}
+    del model
+    torch.save(sd, os.path.join(path, "pytorch_model.bin"))
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump({"model_type": "m2m_100", "architectures": ["M2M100ForConditionalGeneration"],
+                   "pad_token_id": 1, "eos_token_id": 2, "bos_token_id": 0,
+                   "decoder_start_token_id": 2, "scale_embedding": True, **NLLB_600M}, f)
+    n_pieces = NLLB_600M["vocab_size"] - 2
+    words = ["▁評価", "▁発話", "▁評", "価", "発", "話"] + [f"▁{i}" for i in range(10)]
+    vocab = [["<s>", 0.0], ["<pad>", 0.0], ["</s>", 0.0], ["<unk>", 0.0]] + [
+        [w, -3.0] for w in words]
+    vocab += [[f"▁x{i:x}", -8.0 - 1e-5 * i] for i in range(n_pieces - len(vocab))]
+    added = [{"id": n_pieces + i, "content": c, "special": True}
+             for i, c in enumerate(("jpn_Jpan", "eng_Latn"))]
+    with open(os.path.join(path, "tokenizer.json"), "w", encoding="utf-8") as f:
+        json.dump({"added_tokens": added, "normalizer": {"type": "NFKC"},
+                   "model": {"type": "Unigram", "unk_id": 3, "vocab": vocab}}, f,
+                  ensure_ascii=False)
+
+
+@dataclasses.dataclass(frozen=True)
+class EncoderScaling:
+    """make_pipeline / make_batch of eval/scaling.scaling_report for the
+    Whisper encoder of an HF-layout checkpoint dir over seeded log-mel
+    rows: `rows_per_device` 30 s windows a rank, in bf16."""
+
+    model_dir: str
+    rows_per_device: int
+
+    def make_pipeline(self, dev: torch.device):
+        from kotoba_whisper_tpu_torch.cli.common import load_model
+        from kotoba_whisper_tpu_torch.models.whisper import encode
+
+        model, _ = load_model(self.model_dir, dev, torch.bfloat16)
+        return lambda batch: encode(model, batch["mel"].to(torch.bfloat16), device=dev)
+
+    def make_batch(self, n_devices: int) -> dict:
+        with open(os.path.join(self.model_dir, "config.json")) as f:
+            cfg = json.load(f)
+        return {"mel": np.random.default_rng(0).standard_normal(
+            (self.rows_per_device * n_devices, cfg["num_mel_bins"],
+             2 * cfg["max_source_positions"])).astype(np.float32)}
+
+
+def cached_step_logits(model, src, tokens) -> torch.Tensor:
+    """The NLLB decoder's cached step (generate_greedy_text's) teacher-forced
+    over `tokens`: fp32 logits (B, T, vocab) on the model's device."""
+    from kotoba_whisper_tpu_torch.models import text_seq2seq as ts
+    from kotoba_whisper_tpu_torch.models.whisper import exact_fp32
+
+    dev = next(model.parameters()).device
+    ids, tokens = torch.as_tensor(src).long().to(dev), tokens.long().to(dev)
+    f32 = torch.float32
+    with torch.inference_mode(), exact_fp32(f32):
+        mask = ts._key_mask(model, ids)
+        cache = ts._init_cache(model, ts._encode(model, ids, f32), tokens.shape[1], f32)
+        return torch.stack([ts._decode_step(model, tokens[:, t:t + 1], cache, mask, f32)
+                            for t in range(tokens.shape[1])], 1)
+
+
+def stage6_cascade_esb_scaling(tmp: str, student_dir: str, eval_set: str, eval32_counts: dict,
+                               n_eval: int, card: str) -> None:
+    """Phase 5's stage-6 parts (a)-(c) on 5b's exported student and the
+    stage-6 eval set in `tmp`; `eval32_counts` are the plain fp32 eval's
+    launches on that set, which the cascade's ASR half must repeat."""
+    from kotoba_whisper_tpu_torch.__main__ import main as cli
+    from kotoba_whisper_tpu_torch.data import reazon
+    from kotoba_whisper_tpu_torch.eval.cascaded_s2t import source_ids
+    from kotoba_whisper_tpu_torch.eval.scaling import scaling_report
+    from kotoba_whisper_tpu_torch.models import text_seq2seq as ts
+    from kotoba_whisper_tpu_torch.tokenizer.unigram import NllbTokenizer
+
+    def rel(a, b):
+        a, b = a.float(), b.float()
+        return float((a - b).norm() / b.norm())
+
+    # ---- 5 (stage 6, a): the cascade, eval --cascaded_mt in fp32 ---------------
+    # A random NLLB checkpoint at NLLB-200-distilled-600M's widths, then the
+    # exported student's fp32 eval on the same set through the ASR -> MT
+    # cascade: the ASR half's launches are the plain fp32 eval's (the MT
+    # half runs on stock torch ops, as the JAX package runs it in XLA);
+    # then the MT model on the card against its CPU plain path on the eval
+    # set's first sentence: first-step logits and greedy tokens.
+    nllb_dir, eval_mt = os.path.join(tmp, "nllb"), os.path.join(tmp, "eval_mt")
+    t0 = time.perf_counter()
+    write_nllb_checkpoint(nllb_dir, seed=5)
+    t_write = time.perf_counter() - t0
+    buf = io.StringIO()
+    reset_every()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli(["eval", "--model", student_dir, "--tokenizer", "byte", "--dataset_dir", eval_set,
+             "--dataset_name", "synth", "--output_dir", eval_mt, "--dtype", "float32",
+             "--cascaded_mt", nllb_dir])
+    t_mt = time.perf_counter() - t0
+    mt_counts = nonzero(every_count())
+    with open(os.path.join(eval_mt, "metric.ja.translate.jsonl")) as f:
+        mt_metric = json.loads(f.read().splitlines()[-1])
+    (mt_csv,) = [n for n in os.listdir(eval_mt) if n.startswith("model-")]
+    with open(os.path.join(eval_mt, mt_csv), encoding="utf-8") as f:
+        mt_rows = list(csv.DictReader(f))
+    log(f"[5(a) cascade] NLLB checkpoint at 600M widths written in {t_write:.1f} s; eval "
+        f"--cascaded_mt --dtype float32: {t_mt:.1f} s [{card}]; launches {mt_counts} "
+        f"(plain fp32 eval {eval32_counts}); task {mt_metric['task']}, cer_norm "
+        f"{mt_metric['cer_norm']:.2f}; translations "
+        f"{[r['prediction_raw'][:40] for r in mt_rows]}")
+    if not (mt_counts == eval32_counts and mt_metric["task"] == "translate"
+            and len(mt_rows) == n_eval and all(r["prediction_raw"] for r in mt_rows)):
+        raise AssertionError(f"eval --cascaded_mt: launches {mt_counts}, metric {mt_metric}, "
+                             f"{len(mt_rows)} rows")
+    t0 = time.perf_counter()
+    nllb_cpu, nllb_cfg = ts.load_hf_checkpoint(nllb_dir)
+    nllb_gpu = copy.deepcopy(nllb_cpu).to("cuda")
+    nllb_tok = NllbTokenizer.from_pretrained_dir(nllb_dir)
+    sentence = "評価 発話 0"  # the eval set's first transcript
+    src = source_ids(nllb_tok.encode(sentence, "jpn_Jpan"), nllb_cfg.pad_token_id)
+    dec = np.asarray([[nllb_cfg.decoder_start_token_id, nllb_tok.lang_id("eng_Latn")]])
+    models = (("cuda", nllb_gpu), ("cpu", nllb_cpu))
+    enc = {where: ts.encode(m, src, device=where) for where, m in models}
+    step_logits = {where: ts.decode(m, dec, enc[where], src, device=where).cpu()
+                   for where, m in models}
+    mt_rel = rel(step_logits["cuda"], step_logits["cpu"])
+    mt_tokens = {where: ts.generate_greedy_text(
+        m, src, forced_bos=nllb_tok.lang_id("eng_Latn"), max_length=128,
+        device=where).cpu() for where, m in models}
+    # The random model repeats a token, so equal tokens say little of the
+    # cache and the positions: also the full decoder teacher-forced over the
+    # greedy output (card vs CPU), and the card's cached step over the same
+    # tokens against the CPU's full decoder, at every position.
+    full = {where: ts.decode(m, mt_tokens["cpu"], enc[where], src, device=where).cpu()
+            for where, m in models}
+    full_rel = rel(full["cuda"], full["cpu"])
+    cached_rel = rel(cached_step_logits(nllb_gpu, src, mt_tokens["cpu"]).cpu(), full["cpu"])
+    log(f"[5(a) cascade] NLLB on the card against its CPU plain path, source {src.shape[1]} "
+        f"wide: first-step logits rel-L2 {mt_rel:.2e}, full decoder over the 128 greedy "
+        f"tokens {full_rel:.2e}, the card's cached step against it {cached_rel:.2e} "
+        f"(<= {F32_PATH_TOL:.0e}); greedy tokens equal: "
+        f"{bool(torch.equal(mt_tokens['cuda'], mt_tokens['cpu']))}, "
+        f"{len(set(mt_tokens['cpu'][0].tolist()))} distinct ({time.perf_counter() - t0:.1f} s)")
+    if not (max(mt_rel, full_rel, cached_rel) <= F32_PATH_TOL
+            and torch.equal(mt_tokens["cuda"], mt_tokens["cpu"])):
+        raise AssertionError(f"NLLB card vs CPU: rel-L2 {mt_rel:.2e} / {full_rel:.2e} / "
+                             f"{cached_rel:.2e}, tokens {mt_tokens['cuda'][0, :16].tolist()} vs "
+                             f"{mt_tokens['cpu'][0, :16].tolist()}")
+    del enc, full
+    del nllb_cpu, nllb_gpu
+    shutil.rmtree(nllb_dir)
+    torch.cuda.empty_cache()
+
+    # ---- 5 (stage 6, b): ESB, prepare-eval-set --corpus librispeech --to_tar ----
+    # A tiny LibriSpeech layout (chapter dirs, .trans.txt rows, .flac members
+    # holding WAV bytes: the native decoder reads the content), prepared to a
+    # manifest and tar+tsv, then the student's eval on the tar set.
+    rng = np.random.default_rng(6)
+    libri = os.path.join(tmp, "LibriSpeech", "test-clean", "1089", "134686")
+    os.makedirs(libri)
+    esb_secs = (4, 9)
+    with open(os.path.join(libri, "1089-134686.trans.txt"), "w") as f:
+        for i, sec in enumerate(esb_secs):
+            with open(os.path.join(libri, f"1089-134686-000{i}.flac"), "wb") as w:
+                w.write(reazon.wav_bytes(rng.standard_normal(16000 * sec) * 0.1))
+            f.write(f"1089-134686-000{i} HE HOPED THERE WOULD BE STEW {i}\n")
+    esb_out, esb_eval = os.path.join(tmp, "esb_librispeech"), os.path.join(tmp, "eval_esb")
+    buf = io.StringIO()
+    reset_every()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli(["prepare-eval-set", "--corpus", "librispeech", "--split", "test.clean",
+             "--input", os.path.join(tmp, "LibriSpeech", "test-clean"), "--output_dir",
+             esb_out, "--to_tar"])
+        cli(["eval", "--model", student_dir, "--tokenizer", "byte", "--dataset_dir",
+             os.path.join(esb_out, "tar"), "--dataset_name", "esb/librispeech",
+             "--language", "en", "--output_dir", esb_eval])
+    esb_counts = nonzero(every_count())
+    with open(os.path.join(esb_eval, "metric.en.transcribe.jsonl")) as f:
+        esb_metric = json.loads(f.read().splitlines()[-1])
+    tar_files = sorted(os.listdir(os.path.join(esb_out, "tar")))
+    log(f"[5(b) esb] prepare-eval-set --corpus librispeech --to_tar, then eval: "
+        f"{time.perf_counter() - t0:.1f} s [{card}]; {buf.getvalue().splitlines()[:2]}; "
+        f"tar set {tar_files}; launches {esb_counts}; cer_norm {esb_metric['cer_norm']:.2f}")
+    if not (esb_counts.get("K1") == 4 * len(esb_secs) and esb_counts.get("K3") == len(esb_secs)
+            and esb_counts.get("K2") and esb_metric["dataset"] == "esb/librispeech"):
+        raise AssertionError(f"ESB route: launches {esb_counts}, metric {esb_metric}")
+
+    # ---- 5 (stage 6, c): the scaling report at one card -------------------------
+    # eval/scaling.scaling_report over the student's encoder (4 layers at
+    # large-v3 width, bf16), 16 windows, one warm-up and 2 trials, at count 1:
+    # one rank in this process (cli/common.launch).
+    job = EncoderScaling(student_dir, rows_per_device=B)
+    reset_every()
+    t0 = time.perf_counter()
+    points = scaling_report(job.make_pipeline, job.make_batch, audio_seconds_per_item=30.0,
+                            device_counts=[1], n_trials=2)
+    scale_counts = nonzero(every_count())
+    log(f"[5(c) scaling] {[dataclasses.asdict(p) for p in points]} in "
+        f"{time.perf_counter() - t0:.1f} s [{card}]; launches {scale_counts}")
+    if not ([p.n_devices for p in points] == [1] and points[0].efficiency == 1.0
+            and points[0].audio_s_per_s > 0 and scale_counts.get("K1") == 4 * 3):
+        raise AssertionError(f"scaling report {points}, launches {scale_counts}")
+    torch.cuda.empty_cache()
+
+
 def main_audio(feat) -> np.ndarray:
     """Phase 3's and 4's B=16 input: seeded noise at 0.1."""
     return (np.random.default_rng(0).standard_normal((B, feat.n_samples)) * 0.1
@@ -505,11 +752,19 @@ def join_card0_group(rank: int, port: int):
                          local_size=2)
 
 
+def tp_options(prompt, quant: bool):
+    """4i(b)'s GenerateOptions: prompt + NEW_TOKENS, w8a8 + TP_W8A8_TOKENS."""
+    from kotoba_whisper_tpu_torch.decode.greedy import GenerateOptions
+
+    return GenerateOptions(prompt_ids=prompt, max_length=len(prompt) + (
+        TP_W8A8_TOKENS if quant else NEW_TOKENS))
+
+
 def tp_rank(rank: int, port: int, out_dir: str) -> None:
     """Phase 4i(b), one rank of a model group of 2 on card 0: large-v3 at
     full width (seed 0, fused bf16, then fused + w8a8) split over the
-    group, int8 KV, B=16, prompt + 48 tokens (eot disabled); the first-step
-    logits; then 2 groups x 5 beams and a stream of 8 windows (W=4), 8
+    group, int8 KV, B=16, prompt + 48 tokens (w8a8: + TP_W8A8_TOKENS; eot
+    disabled); the first-step logits; then 2 groups x 5 beams and a stream of 8 windows (W=4), 8
     tokens each, for K2's beam and ring forms at the shard's 10 heads, and
     B=16 x 8 tokens over the int4 cache for its prefix form there. Each
     timed run is the model's first (no warm-up): its wall is a record."""
@@ -533,7 +788,6 @@ def tp_rank(rank: int, port: int, out_dir: str) -> None:
     st = SpecialTokens.for_vocab(large.vocab_size)
     st_fixed = dataclasses.replace(st, eot=-1)
     prompt = transcribe_prompt(st, st.lang_begin + 7)
-    opts = GenerateOptions(prompt_ids=prompt, max_length=len(prompt) + NEW_TOKENS)
     short = GenerateOptions(prompt_ids=prompt, max_length=len(prompt) + 8)
     feats = mel.log_mel_spectrogram(torch.from_numpy(main_audio(feat)).cuda(), feat).to(
         torch.bfloat16)
@@ -558,9 +812,10 @@ def tp_rank(rank: int, port: int, out_dir: str) -> None:
 
     for label, quant in (("bf16", False), ("w8a8", True)):
         m = model(quant)
+        o = tp_options(prompt, quant)
         out[f"{label}/tokens"] = timed(label, lambda: generate_greedy(
-            m, feats, opts, st_fixed, kv_dtype="int8")).cpu().numpy()
-        out[f"{label}/logits"] = first_step_logits(m, feats, prompt, opts.max_length
+            m, feats, o, st_fixed, kv_dtype="int8")).cpu().numpy()
+        out[f"{label}/logits"] = first_step_logits(m, feats, prompt, o.max_length
                                                    ).cpu().numpy()
         info[f"{label}/heads"] = whisper.rank_heads(m, large.decoder_attention_heads)
         if not quant:
@@ -3030,9 +3285,10 @@ def main() -> int:
     feats_tp = mel.log_mel_spectrogram(audio, feat).to(torch.bfloat16)
     tp_ref = {}
     for label, m in (("bf16", model), ("w8a8", None)):
+        o = tp_options(prompt, m is None)
         m = m or quantize_for_inference(copy.deepcopy(model))
-        tp_ref[label] = (generate_greedy(m, feats_tp, opts, st_fixed, kv_dtype="int8").cpu(),
-                         first_step_logits(m, feats_tp, prompt, opts.max_length).cpu())
+        tp_ref[label] = (generate_greedy(m, feats_tp, o, st_fixed, kv_dtype="int8").cpu(),
+                         first_step_logits(m, feats_tp, prompt, o.max_length).cpu())
         del m
     del model, audio, audio_f, feats_tp
     torch.cuda.empty_cache()
@@ -3414,7 +3670,7 @@ def main() -> int:
     # Two spawned ranks share card 0 over a gloo group (tp_rank): large-v3
     # at full width split over a model group of 2 (10 heads, a K/V width of
     # 640 and half of each ffn a rank), fused bf16 then fused + w8a8, int8
-    # KV, B=16, prompt + 48 tokens; the share of tokens equal to the
+    # KV, B=16, prompt + 48 tokens (w8a8: + 24); the share of tokens equal to the
     # one-card kernel run on the same weights (bf16 drift flips near ties:
     # a record, not a fault), the first-step logits held to it at rel-L2
     # 5e-2, each rank's launches and wall (two ranks on one card: a record,
@@ -3434,14 +3690,15 @@ def main() -> int:
         share = float((tp_out[0][f"{label}/tokens"] == ref_toks.numpy()).mean())
         lg = [rel(torch.from_numpy(o[f"{label}/logits"]), ref_logits) for o in tp_out]
         walls = [i[label]["wall_s"] for i in tp_info]
-        log(f"[4i-b] TP=2 {label}: heads a rank {tp_info[0][f'{label}/heads']}; ranks' tokens "
-            f"equal {same}; share equal to the one-card run {share:.4f}; first-step logits "
+        steps = TP_W8A8_TOKENS if label == "w8a8" else NEW_TOKENS
+        log(f"[4i-b] TP=2 {label}, {steps} tokens: heads a rank {tp_info[0][f'{label}/heads']}; "
+            f"ranks' tokens equal {same}; share equal to the one-card run {share:.4f}; first-step logits "
             f"rel-L2 {lg[0]:.3e} / {lg[1]:.3e} (tol 5e-2); wall {walls[0]:.3f} / {walls[1]:.3f} s "
             f"({B * feat.chunk_length_s / max(walls):.1f} audio-s/s for the group); launches "
             f"rank 0 {tp_info[0][label]['launches']}, rank 1 {tp_info[1][label]['launches']} "
             f"[{card}]")
-        want = {"K1": large.encoder_layers, "K2": large.decoder_layers * NEW_TOKENS,
-                "K2self": large.decoder_layers * NEW_TOKENS}
+        want = {"K1": large.encoder_layers, "K2": large.decoder_layers * steps,
+                "K2self": large.decoder_layers * steps}
         if not (same and max(lg) <= 5e-2 and all(i[label]["launches"] == want
                                                   for i in tp_info)
                 and tp_info[0][f"{label}/heads"] == h_tp):
@@ -3893,6 +4150,9 @@ def main() -> int:
             log("[driver] report " + " ".join(argv[2:]) + ":\n" + "\n".join(lines))
             if len(lines) != 3 or not lines[2].startswith(f"| {student_dir}"):
                 raise AssertionError(f"report printed {lines}")
+
+        # ---- 5 (stage 6, a-c): the cascade, ESB, the scaling report
+        stage6_cascade_esb_scaling(tmp, student_dir, eval_set, eval32_counts, n_eval, card)
 
     # ---- 5d. the experiment tools ---------------------------------------------
     tool_launches = {}

@@ -1,10 +1,10 @@
 """Unified CLI: `python -m kotoba_whisper_tpu_torch <stage> [args...]`.
 
-The stages the port runs, each one driver module's main(): pseudo-label
-(stage 2) -> filter (stage 3) -> merge -> create-student (stage 4) ->
-distill or distill-bilingual (stage 5), then stage 6: prepare-eval-set,
-eval, speed and report. The JAX package's parity-check is not ported yet
-and raises so.
+The stages, each one driver module's main(): pseudo-label (stage 2) ->
+filter (stage 3) -> merge -> create-student (stage 4) -> distill or
+distill-bilingual (stage 5), then stage 6: prepare-eval-set, eval, speed
+and report; and parity-check against the HF stack (CPU oracle, needs
+`transformers`). The same stages as the JAX package's CLI.
 """
 from __future__ import annotations
 
@@ -27,9 +27,11 @@ STAGES = {
         "kotoba_whisper_tpu_torch.cli.prepare_eval_set",
         "materialize an eval dataset into the tar+tsv layout",
     ),
+    "parity-check": (
+        "kotoba_whisper_tpu_torch.cli.parity_check",
+        "token/logit parity vs the reference stack on real weights",
+    ),
 }
-# the JAX package's stages the port does not have yet
-NOT_PORTED = ("parity-check",)
 
 
 def main(argv=None) -> None:
@@ -40,8 +42,6 @@ def main(argv=None) -> None:
             print(f"  {name:18s} {desc}")
         raise SystemExit(0 if argv else 2)
     stage = argv[0]
-    if stage in NOT_PORTED:
-        raise SystemExit(f"stage {stage!r} is not ported yet")
     if stage not in STAGES:
         raise SystemExit(f"unknown stage {stage!r}; try --help")
     importlib.import_module(STAGES[stage][0]).main(argv[1:])

@@ -57,6 +57,21 @@ def iter_tar_utterances(
             yield Utterance(member.name, payload.read(), text)
 
 
+def check_tar_integrity(tar_path: str) -> bool:
+    """True when every member extracts cleanly (downloader health check)."""
+    try:
+        with tarfile.open(tar_path, "r") as tf:
+            for member in tf:
+                if member.isfile():
+                    f = tf.extractfile(member)
+                    if f is None:
+                        return False
+                    f.read()
+        return True
+    except (tarfile.TarError, OSError, EOFError):
+        return False
+
+
 def iter_dataset_dir(
     dataset_dir: str,
     tsv_name: str = "transcript.tsv",

@@ -263,6 +263,15 @@ def finish_log_mel(log_frames: torch.Tensor) -> torch.Tensor:
     return ((x + 4.0) / 4.0).transpose(1, 2)
 
 
+def pad_or_trim(audio: np.ndarray, n_samples: int) -> np.ndarray:
+    """Host-side pad/trim to the 30 s window (feature_extractor.pad)."""
+    t = audio.shape[-1]
+    if t >= n_samples:
+        return audio[..., :n_samples]
+    pad = [(0, 0)] * (audio.ndim - 1) + [(0, n_samples - t)]
+    return np.pad(audio, pad)
+
+
 def log_mel_spectrogram(
     audio, cfg: FeatureConfig = FeatureConfig(), *, device="cuda"
 ) -> torch.Tensor:

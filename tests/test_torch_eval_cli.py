@@ -14,7 +14,8 @@
   the JAX key lets it collide with the fp32-wire row.
 - prepare_eval_set and iter_eval_set: manifest -> tar+tsv round trips equal
   to the JAX package's.
-- what is not ported raises so: --corpus, a NeMo model, --cascaded_mt.
+- the flags the port once refused (--corpus, a NeMo model, --cascaded_mt)
+  now run, and fail as the JAX drivers fail on bad input.
 """
 import csv
 import json
@@ -294,14 +295,18 @@ def test_prepare_eval_set_round_trip_matches_jax(tmp_path):
 
 
 def test_what_is_not_ported_raises(checkpoint, eval_set, tmp_path):
+    """Nothing of these drivers is left unported: --corpus, a NeMo model
+    and --cascaded_mt run (tests/test_torch_esb.py, test_torch_cascaded.py)
+    and raise as the JAX drivers raise: an unknown corpus, a NeMo model
+    without the reazonspeech package, an MT dir without a checkpoint."""
     from kotoba_whisper_tpu_torch.cli import eval_short_form, prepare_eval_set
 
-    with pytest.raises(SystemExit, match="not ported yet"):
+    with pytest.raises(ValueError, match="unknown ESB corpus"):
         prepare_eval_set.main(["--input", str(tmp_path), "--output_dir", str(tmp_path),
-                               "--corpus", "librispeech"])
-    with pytest.raises(SystemExit, match="not ported yet"):
+                               "--corpus", "switchboard"])
+    with pytest.raises(ImportError, match="reazonspeech"):
         eval_short_form.main(["--model", "reazon-research/reazonspeech-nemo-v2",
                               "--dataset_dir", eval_set, "--device", "cpu"])
-    with pytest.raises(SystemExit, match="not ported yet"):
+    with pytest.raises(FileNotFoundError, match="config.json"):
         eval_short_form.main(_eval_args(checkpoint, eval_set, str(tmp_path),
                                         "--cascaded_mt", str(tmp_path), "--device", "cpu"))
