@@ -82,7 +82,7 @@ Phases, in order; any failure exits nonzero and prints no result line:
      and large-v3 (4c's models), max_length 32, 15 s chunks, durations
      10 / 30 / 60 / 300 s of generate_dummy_audio, configs (a) compute KV
      and GEMMs, (b) int8 KV + w8a8, (c) (b) over the int16 wire; 1 warm-up
-     and 3 trials a duration, seconds and audio-s/s beside nvidia-smi's name
+     and 2 trials a duration, seconds and audio-s/s beside nvidia-smi's name
      and power limit; one 300 s call a config with its launches (K3 1, K1
      one an encoder layer, K2 prefix and self one a decoder layer a step); on PCM-sourced
      300 s audio the int16 and fp32 wires' log-mel bit for bit and (b) and
@@ -126,10 +126,23 @@ Phases, in order; any failure exits nonzero and prints no result line:
      (launches K1 32, K3 1, K2 prefix 1536 and self 1536; the share of tokens equal to
      phase 4's int8 tokens), (b) 4f's beam search, (c) a stream on 4e's
      settings over 48 windows, (d) a beam stream on 4g's settings over 24
-     windows, (e) AsrPipeline at 30 s, 1 warm-up and 3 trials, (f) at B=2
+     windows, (e) AsrPipeline at 30 s, 1 warm-up and 2 trials, (f) at B=2
      on three seeds the first-step logits of the kernel path against the
      plain path; launches by form, the cross cache's bytes in int8 and
      int4, audio-s/s beside phases 4 and 4f;
+  4t. the experiment tools' timed bodies on this phase's models, one trial
+     each, depths cut (each cut in the code's comment): dec_exp (B=48, 8
+     steps, its four variants, w8a8 on 4c's copy; each host_ms within its
+     total_ms, host_bound logged), beam_exp (9 x 5, 8 steps, max_len 24),
+     stream_exp (2 rounds of 8, and --lockstep), stream_ab (lockstep-real
+     and stream-real over 48 windows), speed_decomp (60 s), matmul_cal
+     (bf16, int8, fp32 at 8 steps), enc_exp's ab_gemmonly and bf16out at
+     batch 4, and train_exp (in 4b, on its teacher, B=8): each record's
+     keys, its times positive and the card's name; then a stream on 4e's
+     settings over 96 windows (bf16, int8 KV) and a beam stream on 4g's
+     over 48, each with prefetch off, on, off, on: tokens (and scores) and
+     launches equal, the KWT_STREAM_TRACE line counting prefetched refills
+     with prefetch on and none off, the lines and walls logged;
   4k. fp32 (the JAX package's --dtype float32): large-v3 with seeded
      random fp32 weights through the kernels' fp32 forms: (a) phase 4's
      B=16 batch with int8, int4 and compute KV (launches K1 32, K3 1, K2
@@ -293,9 +306,14 @@ F32_TRAIN_GRAD_TOL = 1e-4
 # phase 4h: the serving table's settings (eval_pipeline/runtime_pipeline.tpu-v5e.jsonl)
 SERVE_DURATIONS = (10, 30, 60, 300)
 SERVE_MAX_LENGTH = 32
-SERVE_WARMUP, SERVE_TRIALS = 1, 3   # the JAX harness's 2 and 5, cut for the smoke's time
+# the JAX harness's 2 and 5, cut for the smoke's time: 4h took 190-207 s with 3
+# trials, and phase 4t's tools and prefetch runs needed the room
+SERVE_WARMUP, SERVE_TRIALS = 1, 2
 # phase 4j: the int4 streams' windows, fewer than 4e's 192 and 4g's 96
 J_STREAM_WINDOWS, J_BEAM_STREAM_WINDOWS = 48, 24
+# phase 4t: the prefetch runs' windows, the first of 4e's and 4g's: more than
+# the initial fill takes (48 rows, 12 groups), so that refills follow it
+T_STREAM_WINDOWS, T_BEAM_STREAM_WINDOWS = 96, 48
 # phase 4i(b): the w8a8 TP=2 run's decode steps, half of NEW_TOKENS: two
 # ranks on one card over gloo are host-bound (its 48 steps took 36-80 s
 # on an H100 80GB HBM3 at 700 W)
@@ -467,6 +485,51 @@ def card_memory() -> str:
 
 def nonzero(counts):
     return {k: n for k, n in counts.items() if n}
+
+
+# phase 4t: each experiment tool's record must hold these keys (the JAX
+# tool's, with the card's name); every time in it must be positive
+TOOL_KEYS = {
+    "dec_exp": {"config", "full", "no_head", "cross_t64", "w8a8", "attribution_per_step",
+                "host_bound", "device"},
+    "beam_exp": {"encode_ms", "init_shared_ms", "prefill_ms", "step_shared_ms", "init_repl_ms",
+                 "step_repl_ms", "full_ms", "full_per_step_ms", "config", "device"},
+    "stream_exp": {"empty_state_ms", "encode_refill_ms", "round_ms", "per_step_ms", "config",
+                   "device"},
+    "stream_exp --lockstep": {"lockstep_e2e_ms", "device"},
+    "stream_ab lockstep-real": {"config", "value", "detail", "device"},
+    "stream_ab stream-real": {"config", "value", "detail", "device"},
+    "speed_decomp": {"host_chunk", "h2d", "mel", "decode", "d2h", "merge", "total_split",
+                     "fused_total", "n_chunks", "config", "device"},
+    "matmul_cal": {"shape", "dtype", "ms", "tflops", "device"},
+    "enc_exp": {"variant", "batch", "ms_mean", "ms_min", "compile_s", "device"},
+    "train_exp": {"batch", "remat", "microbatches", "ms_step", "audio_s_per_s", "compile_s",
+                  "device"},
+}
+TIME_KEYS = ("ms", "_s", "value", "tflops")
+
+
+def check_tool_record(label: str, rec: dict, kind: str, card: str) -> None:
+    """Log a tool's record; fail unless it holds its keys, names the card
+    and every time in it (a number under a key that ends in ms or _s or
+    starts with ms_, a rate; not the attribution's differences) is
+    positive."""
+    log(f"[4t] {label}: {json.dumps(rec)} [{card}]")
+    missing = TOOL_KEYS[label.split(" (")[0]] - set(rec)
+
+    def times(node, key=""):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                if k != "attribution_per_step":
+                    yield from times(v, k)
+        elif isinstance(node, (int, float)) and not isinstance(node, bool) and (
+                key.endswith(TIME_KEYS) or key.startswith("ms_")):
+            yield key, node
+
+    bad = [(k, v) for k, v in times(rec) if not v > 0]
+    if missing or bad or rec.get("device") != kind:
+        raise AssertionError(f"4t {label}: keys missing {sorted(missing)}, times not positive "
+                             f"{bad}, device {rec.get('device')!r} (the card: {kind!r})")
 
 
 def free_port() -> int:
@@ -919,6 +982,7 @@ def main() -> int:
     from kotoba_whisper_tpu_torch.decode.logits_rules import apply_rules
     from kotoba_whisper_tpu_torch.decode.longform import chunk_audio
     from kotoba_whisper_tpu_torch.decode.pipeline import AsrPipeline
+    from kotoba_whisper_tpu_torch.decode.streaming import _encode_only as stream_encode
     from kotoba_whisper_tpu_torch.decode.streaming import _pool as stream_pool
     from kotoba_whisper_tpu_torch.decode.streaming import _prompt_tokens as stream_prompt_tokens
     from kotoba_whisper_tpu_torch.models import whisper
@@ -2485,8 +2549,9 @@ def main() -> int:
     # round, ring layout, int8 KV, capacity 176, bench.py's budgets, eot
     # live; log-mel in batches of 16 inside the timed window; a warm-up on
     # 24 windows, then the best of 2 trials. Refills and steps are timed by
-    # wrapping the module's own _refill and _steps (device-synchronised),
-    # the steps counted by its apply_rules calls (one a step).
+    # wrapping the stream's refill (`_Feed.refill`: the encode and the move
+    # into the window) and the module's _steps (device-synchronised), the
+    # steps counted by its apply_rules calls (one a step).
     audio_g, prompt_g, stops_g, opts_g = step_time.beam_stream_workload(st, feat)
     n_g, p_g, bcfg = audio_g.shape[0], len(prompt_g), step_time.BEAM_STREAM
     phase = {"refill_s": 0.0, "steps_s": 0.0, "refills": 0, "steps": 0}
@@ -2495,19 +2560,21 @@ def main() -> int:
         def run(*a, **kw):
             torch.cuda.synchronize()
             t = time.perf_counter()
-            fn(*a, **kw)
+            out = fn(*a, **kw)
             torch.cuda.synchronize()
             phase[f"{key}_s"] += time.perf_counter() - t
             if key == "refill":
                 phase["refills"] += 1
+            return out
         return run
 
     def counted_rules(*a, **kw):
         phase["steps"] += 1
         return apply_rules(*a, **kw)
 
-    sb_saved = (sb._refill, sb._steps, sb.apply_rules)
-    sb._refill, sb._steps = timed_phase(sb._refill, "refill"), timed_phase(sb._steps, "steps")
+    sb_saved = (sb._Feed.refill, sb._steps, sb.apply_rules)
+    sb._Feed.refill = timed_phase(sb._Feed.refill, "refill")
+    sb._steps = timed_phase(sb._steps, "steps")
     sb.apply_rules = counted_rules
     try:
         def beam_stream_run(n_run):
@@ -2523,7 +2590,7 @@ def main() -> int:
             toks_g, scores_g = beam_stream_run(n_g)
             g_trials.append((time.perf_counter() - t0, dict(phase), nonzero(every_count())))
     finally:
-        sb._refill, sb._steps, sb.apply_rules = sb_saved
+        sb._Feed.refill, sb._steps, sb.apply_rules = sb_saved
     if args.profile:  # the warm-up's prefix, unwrapped: a trace of the whole
         # stream holds ~1.5 M events, which torch.profiler takes many minutes to table
         profile_run(lambda: beam_stream_run(2 * bcfg.groups), "profile_beam_stream.txt",
@@ -2571,7 +2638,8 @@ def main() -> int:
         pool_tokens = stream_prompt_tokens(opts_g, large.pad_token_id, 2 * bcfg.num_beams,
                                            torch.device("cuda"))
         _, *pool = stream_pool(0, 2, 2, stops_g, opts_g.max_length, torch.device("cuda"))
-        sb._refill(m, state, feats_g, pool_tokens, *pool, opts_g, bcfg.num_beams, True)
+        sb._refill_from_enc(m, state, stream_encode(m, feats_g), pool_tokens, *pool, opts_g,
+                            bcfg.num_beams, True)
         rows = torch.arange(2 * bcfg.num_beams, device="cuda")
         last = state.tokens[rows, state.cache.length][:, None]
         logits, _ = whisper.decode(m, last, cache=state.cache, ring_pos=state.ring,
@@ -2587,7 +2655,8 @@ def main() -> int:
         f"{float((lg_k - lg_p).abs().max()):.3e}")
     if not (bool(torch.isfinite(lg_k).all()) and lg_rel <= 5e-2):
         raise AssertionError("4g: the beam stream's kernel path disagrees with the plain path")
-    audio_jg = audio_g[:J_BEAM_STREAM_WINDOWS].clone()  # phase 4j(d)'s windows
+    audio_tg = audio_g[:T_BEAM_STREAM_WINDOWS].clone()  # phase 4t's windows
+    audio_jg = audio_tg[:J_BEAM_STREAM_WINDOWS]  # phase 4j(d)'s
     del audio_g
 
     # ---- 4h. serving: AsrPipeline and evaluate_speed at the runtime table's configs
@@ -2596,7 +2665,7 @@ def main() -> int:
     # layers, a new model) and large-v3 (4c's fused bf16 model and its w8a8
     # copy), max_length 32, 15 s chunks, durations 10 / 30 / 60 / 300 s,
     # configs (a) compute KV and GEMMs, (b) int8 KV + w8a8, (c) (b) with the
-    # int16 wire; generate_dummy_audio inputs, 1 warm-up + 3 trials (the JAX
+    # int16 wire; generate_dummy_audio inputs, 1 warm-up + 2 trials (the JAX
     # harness takes 2 + 5; cut for the smoke's time). The tokenizer is a
     # byte-level stand-in with whisper's own id layout (50257 text ids, each
     # a byte; specials and 1501 timestamps where the model's vocab has them).
@@ -2767,7 +2836,7 @@ def main() -> int:
                     for row in rows)):
         raise AssertionError(f"4h: the runtime table holds {len(rows)} rows, expected "
                              f"{len(serve_models) * len(serve_configs)} with every duration")
-    del qmodel, dmodel, serve_models, pipes, beam_pipe, m_bf16, m_w8a8, m_h
+    del dmodel, serve_models, pipes, beam_pipe, m_bf16, m_w8a8, m_h  # qmodel: until 4t
     torch.cuda.empty_cache()
 
     # ---- 4d. encoder variants at B=16 ---------------------------------------
@@ -2856,7 +2925,8 @@ def main() -> int:
         f"{wall_l / wall_s:.2f}x; utterances whose tokens agree {agree:.3f} (reported, not "
         f"gated: bf16 drift flips near-ties); rows with a pad id among their sampled tokens "
         f"{pads_inside}")
-    audio_js = audio_s[:J_STREAM_WINDOWS].clone()  # phase 4j(c)'s windows
+    audio_ts = audio_s[:T_STREAM_WINDOWS].clone()  # phase 4t's windows
+    audio_js = audio_ts[:J_STREAM_WINDOWS]  # phase 4j(c)'s
     del audio_s, toks_l
     torch.cuda.empty_cache()
 
@@ -3068,7 +3138,151 @@ def main() -> int:
     int4_launches = {"K2int4": j_counts["a"]["K2"], "K2selfint4": j_counts["a"]["K2self"],
                      "K2beamint4": j_counts["b"]["K2beam"],
                      "K2ringint4": j_counts["c"]["K2ring"]}
-    del audio_js, audio_jg, pipe_j
+    del pipe_j
+
+    # ---- 4t. the experiment tools' timed bodies, then the streams' prefetch ---
+    # Each new tool of kotoba_whisper_tpu_torch/tools/ once, on the smoke's
+    # own models (the fused bf16 large-v3 and 4c's w8a8 copy), one trial,
+    # depths cut for the smoke's time: dec_exp at B=48 over 8 steps (not
+    # 48), all four variants, w8a8 on 4c's copy; beam_exp 9 groups x 5 beams,
+    # 8 steps (not 32), max_len 24 (not 64); stream_exp 2 rounds (not 6) of
+    # 8, and --lockstep at 8 tokens; stream_ab's lockstep-real and
+    # stream-real over 48 windows (not 192); speed_decomp at 60 s (not
+    # 300); matmul_cal in bf16, int8 and fp32 at 8 steps (not 32); enc_exp's
+    # ab_gemmonly and bf16out at batch 4 (not 32); train_exp in 4b, on its
+    # teacher. dec_exp's attribution is logged with its host_bound flag
+    # (where the step is host-bound its differences split the host's issue
+    # time, not device work). Then a stream on 4e's settings (bf16, int8
+    # KV) over 4e's first 96 windows and a beam stream on 4g's over 4g's
+    # first 48, each with prefetch off, on, off, on: tokens (and scores)
+    # equal, launches equal, KWT_STREAM_TRACE lines and walls logged, and
+    # the trace counting prefetched refills with prefetch on (none off).
+    from kotoba_whisper_tpu_torch.tools import (
+        beam_exp, dec_exp, matmul_cal, speed_decomp, stream_ab, stream_exp,
+    )
+
+    t_t = time.perf_counter()
+    tool_s = {}
+
+    def tool_run(label, fn):
+        """fn() with its printed lines kept out of the log -> its result."""
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            out = fn()
+        torch.cuda.synchronize()
+        tool_s[label] = time.perf_counter() - t
+        return out
+
+    enc48 = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (48, large.max_source_positions, large.d_model)).astype(np.float32)).cuda().to(
+        torch.bfloat16)
+    rec = tool_run("dec_exp", lambda: dec_exp.run(model, enc48, st, n_steps=8, trials=1,
+                                                  kv_dtype="int8", w8a8_model=qmodel))
+    del enc48
+    check_tool_record("dec_exp (B=48, 8 steps)", rec, kind, card)
+    share = {v: rec[v]["host_ms"] / rec[v]["total_ms"] for v in dec_exp.VARIANTS}
+    meaning = ("splits the host's issue time, not device work" if rec["host_bound"]
+               else "splits device work")
+    log(f"[4t] dec_exp: host_ms / total_ms {share}; host_bound {rec['host_bound']}: the "
+        f"attribution {meaning} [{card}]")
+    if not all(0 < x <= 1 for x in share.values()):  # the host's clock stops first
+        raise AssertionError(f"4t dec_exp: host_ms outside (0, total_ms]: {share}")
+    audio9 = (np.random.default_rng(0).standard_normal((9, feat.n_samples)) * 0.1).astype(
+        np.float32)
+    feats9 = mel.log_mel_spectrogram(audio9, feat).to(torch.bfloat16)
+    rec = tool_run("beam_exp", lambda: beam_exp.run(model, feats9, st, beams=5, n_steps=8,
+                                                    trials=1, max_len=24, kv_dtype="int8",
+                                                    config={"gemm": "compute"}))
+    check_tool_record("beam_exp (9 x 5, 8 steps, max_len 24)", rec, kind, card)
+    feats16 = mel.log_mel_spectrogram(audio9.repeat(2, axis=0)[:16], feat).to(torch.bfloat16)
+    rec = tool_run("stream_exp", lambda: stream_exp.phases(
+        model, feats16, st, window=48, rounds=2, n_steps=8, kv_dtype="int8"))
+    check_tool_record("stream_exp (2 rounds of 8)", rec, kind, card)
+    rec = tool_run("stream_exp --lockstep", lambda: stream_exp.lockstep(
+        model, feats16, st, window=48, n_steps=8, kv_dtype="int8"))
+    check_tool_record("stream_exp --lockstep (8 tokens)", rec, kind, card)
+    del feats9, feats16
+    recs = tool_run("stream_ab", lambda: stream_ab.run(model, st, feat, n=48, batch=48,
+                                                       kv_dtype="int8"))
+    for r in recs:
+        check_tool_record(f"stream_ab {r['config']} (48 windows)", r, kind, card)
+    rec = tool_run("speed_decomp", lambda: speed_decomp.run(model, serve_tok, duration=60.0,
+                                                            trials=1))
+    check_tool_record("speed_decomp (60 s)", rec, kind, card)
+    mm_tflops = {}  # the GEMM rates that 4b and 4b-f32 split their steps by
+    for dt in ("bf16", "int8", "float32"):
+        rec = tool_run(f"matmul_cal {dt}", lambda: matmul_cal.main(
+            ["--steps", "8", "--trials", "1", "--dtype", dt]))
+        check_tool_record(f"matmul_cal ({dt}, 8 steps)", rec, kind, card)
+        mm_tflops[dt] = rec["tflops"]
+    feats4 = mel.log_mel_spectrogram(audio[:4], feat).to(torch.bfloat16)
+    enc_variants_t = enc_exp.make_variants(model)
+    for v in ("ab_gemmonly", "bf16out"):
+        rec = tool_run(f"enc_exp {v}", lambda: enc_exp.time_variant(enc_variants_t[v], feats4, 1,
+                                                                     v))
+        check_tool_record(f"enc_exp ({v}, batch 4)", rec, kind, card)
+    del feats4, enc_variants_t, qmodel
+    torch.cuda.empty_cache()
+
+    def prefetch_run(label, fn, prefetch):
+        """fn() under KWT_STREAM_TRACE -> (its result, wall, launches);
+        fails unless the trace counts prefetched refills with prefetch on
+        and none with it off."""
+        torch.cuda.synchronize()
+        reset_every()
+        buf = io.StringIO()
+        os.environ["KWT_STREAM_TRACE"] = "1"
+        try:
+            with contextlib.redirect_stderr(buf):
+                t = time.perf_counter()
+                out = fn()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t
+        finally:
+            os.environ.pop("KWT_STREAM_TRACE")
+        trace = [json.loads(line.split(" ", 1)[1]) for line in buf.getvalue().splitlines()
+                 if line.startswith("KWT_STREAM_TRACE ")]
+        counts = nonzero(every_count())
+        log(f"[4t] {label}, prefetch {'on' if prefetch else 'off'}: wall {wall:.3f} s; "
+            f"KWT_STREAM_TRACE {json.dumps(trace)}; launches {counts} [{card}]")
+        if len(trace) != 1 or (trace[0]["prefetched"] > 0) != prefetch:
+            raise AssertionError(f"4t {label}: prefetch {prefetch}, but the trace {trace} counts "
+                                 f"{'no' if prefetch else 'some'} prefetched refills")
+        return out, wall, counts
+
+    pf = {False: [], True: []}
+    for prefetch in (False, True, False, True):
+        pf[prefetch].append(prefetch_run(
+            f"stream, {T_STREAM_WINDOWS} windows, int8 KV",
+            lambda: step_time.run_stream(model, audio_ts, opts_s, st_fixed, stops_s, feat,
+                                         stream=dataclasses.replace(scfg, prefetch=prefetch)),
+            prefetch))
+    (tk_off, _, n_off), (tk_on, _, n_on) = pf[False][0], pf[True][0]
+    if not (all(np.array_equal(r[0], tk_off) for r in pf[False] + pf[True])
+            and all(r[2] == n_off for r in pf[False] + pf[True])):
+        raise AssertionError("4t: the stream's tokens or launches differ with prefetch on")
+    pfb = {False: [], True: []}
+    for prefetch in (False, True, False, True):
+        pfb[prefetch].append(prefetch_run(
+            f"beam stream, {T_BEAM_STREAM_WINDOWS} windows, int8 KV",
+            lambda: step_time.run_beam_stream(model, audio_tg, opts_g, st, stops_g, feat,
+                                              stream=dataclasses.replace(bcfg,
+                                                                         prefetch=prefetch)),
+            prefetch))
+    (tk_off, sc_off), n_off = pfb[False][0][0], pfb[False][0][2]
+    if not all(np.array_equal(r[0][0], tk_off) and np.array_equal(r[0][1], sc_off)
+               and r[2] == n_off for r in pfb[False] + pfb[True]):
+        raise AssertionError("4t: the beam stream's tokens, scores or launches differ with "
+                             "prefetch on")
+    walls = {name: {on: [round(r[1], 3) for r in runs[on]] for on in (False, True)}
+             for name, runs in (("stream", pf), ("beam stream", pfb))}
+    log(f"[4t] prefetch: tokens (and the beam's scores) equal; walls off / on: stream "
+        f"{walls['stream'][False]} / {walls['stream'][True]} s, beam stream "
+        f"{walls['beam stream'][False]} / {walls['beam stream'][True]} s; tools "
+        f"{ {k: round(v, 1) for k, v in tool_s.items()} } s; "
+        f"{time.perf_counter() - t_t:.1f} s for the phase (train_exp in 4b) [{card}]")
+    del audio_ts, audio_tg, audio_js, audio_jg, pf, pfb
 
     # ---- 4k. fp32 at large-v3 width and depth --------------------------------
     # The JAX package's --dtype float32: large-v3 with seeded random fp32
@@ -3077,7 +3291,7 @@ def main() -> int:
     # compute (fp32) KV, launches exact; (b) 4f's beam search (12 x 5) with
     # compute and int4 KV; (c) a stream on 4e's settings over its first 48
     # windows, compute KV (K2's fp32 ring form); (d) AsrPipeline at 30 s, 1
-    # warm-up and 3 trials; (e) at B=2 on three seeds the kernel path, run
+    # warm-up and 2 trials; (e) at B=2 on three seeds the kernel path, run
     # under torch's default TF32 flags (cuDNN's allow_tf32 on) so that the
     # model code alone keeps TF32 out, against the plain path: the encoder
     # and the first-step logits within F32_PATH_TOL and the 48 greedy tokens
@@ -3423,6 +3637,33 @@ def main() -> int:
     if mb_launches != {k: 2 * n for k, n in per_step.items()} or not math.isfinite(mb_loss):
         raise AssertionError(f"microbatch step: launches {mb_launches}, loss {mb_loss}")
 
+    # ---- 4t (train_exp). the train-step tool's body on 4b's teacher -----------
+    from kotoba_whisper_tpu_torch.tools import train_exp
+
+    student_t = train_exp.build_student(teacher, large, 2)
+    batch_t = train_exp.make_batch(large, TRAIN_B, LABELS, "cuda")
+    rec = train_exp.run(teacher, student_t, batch_t, trials=1)
+    check_tool_record(f"train_exp (B={TRAIN_B}, one step after the warm-up)", rec, kind, card)
+    # the step's library products (GEMMs and convs, forward, remat and
+    # backward; the kernels' attention not among them), counted by
+    # torch's FlopCounterMode over one more step, against matmul_cal's
+    # rates: their share of 4b's step here, of 4b-f32's there
+    from torch.utils.flop_counter import FlopCounterMode
+
+    opt_t, sched_t = optim.make_optimizer(student_t, lr=1e-4, warmup_steps=0)
+    with FlopCounterMode(display=False) as flop_counter:
+        distill.make_train_step(dc, sched_t)(distill.TrainState(student_t, opt_t), teacher,
+                                             batch_t)
+    step_flops = sum(n for op, n in flop_counter.get_flop_counts()["Global"].items()
+                     if "bmm" not in str(op) and "attention" not in str(op))
+    log(f"[4t] the B={TRAIN_B} x {LABELS} step's GEMM and conv work: {step_flops / 1e12:.3f} "
+        f"TFLOP; at matmul_cal's bf16 rate ({mm_tflops['bf16']:.1f} TFLOP/s) "
+        f"{step_flops / mm_tflops['bf16'] / 1e9:.1f} ms of 4b's {step_s * 1e3:.1f} ms step; at "
+        f"its fp32 rate ({mm_tflops['float32']:.1f} TFLOP/s) "
+        f"{step_flops / mm_tflops['float32'] / 1e9:.1f} ms (4b-f32's step below) [{card}]")
+    del student_t, batch_t, opt_t
+    torch.cuda.empty_cache()
+
     # ---- 5c (its step). the bilingual trainer's step at full width ------------
     # train/distill_multitask on 4b's teacher and 2-layer student: two
     # datasets of B=4 x 128 labels, the first with two task keys and KL, the
@@ -3588,7 +3829,9 @@ def main() -> int:
         f"{TRAIN_B * feat.chunk_length_s / step32_s:.1f} training audio-s/s/card, peak memory "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB [{card}]; launches over the "
         f"{TRAIN_STEPS} steps {f32_train_launches}; the warm-up step's C entries {entries}; "
-        f"metrics {metrics32}")
+        f"metrics {metrics32}; its GEMM and conv work ({step_flops / 1e12:.3f} TFLOP, 4t) at "
+        f"matmul_cal's fp32 rate: {step_flops / mm_tflops['float32'] / 1e9:.1f} ms, "
+        f"{step_flops / mm_tflops['float32'] / 1e9 / (step32_s * 1e3) * 100:.1f} % of the step")
     if f32_train_launches != {k: TRAIN_STEPS * n for k, n in per_step.items()} or (
             entries != want_entries):
         raise AssertionError(f"4b-f32 launches {f32_train_launches} (expected {TRAIN_STEPS} x "

@@ -8,10 +8,11 @@ rotates and resumes checkpoints with the exact data position, logs the
 JAX driver's metric names (train/loss|ce_loss|kl_loss|grad_norm|
 learning_rate|time) and exports the student in HF layout at the end.
 
-The flags mirror the JAX driver's. Not ported (it raises): wandb.
---dtype float32 trains on the card through the fp32 forms of K1, K4 and
-K5 (fp32 compute and fp32 master weights); on the CPU (--device cpu)
-through the kernels' plain twins.
+The flags mirror the JAX driver's. --wandb_project mirrors the first
+rank's metrics to wandb (train/logging.MetricLogger). --dtype float32
+trains on the card through the fp32 forms of K1, K4 and K5 (fp32 compute
+and fp32 master weights); on the CPU (--device cpu) through the kernels'
+plain twins.
 
 Parallel runs, one process a card: --num_devices N takes N cards of this
 host (default: every card; one process with --device cpu), a mesh of
@@ -84,11 +85,13 @@ def _parser() -> argparse.ArgumentParser:
     return ap
 
 
-def _check_ported(arg, dev: torch.device) -> None:
-    """--dtype float32 trains on the card through the fp32 forms of K1, K4
-    and K5, as on the CPU; --wandb_project is not ported."""
-    if arg.wandb_project is not None:
-        raise SystemExit("distill: --wandb_project is not ported yet")
+def make_logger(arg, main: bool):
+    """The run's MetricLogger: the first rank writes the JSONL file and
+    gets --wandb_project, the others neither (the JAX driver's rule)."""
+    from kotoba_whisper_tpu_torch.train.logging import MetricLogger
+
+    return MetricLogger(arg.output_dir if main else None,
+                        wandb_project=arg.wandb_project if main else None)
 
 
 def main(argv=None) -> None:
@@ -112,9 +115,7 @@ def _run(arg, dev: torch.device) -> None:
     from kotoba_whisper_tpu_torch.parallel import multihost, sharded
     from kotoba_whisper_tpu_torch.train import checkpoint, distill, optim
     from kotoba_whisper_tpu_torch.train.loader import DataPosition, ScheduleLoader
-    from kotoba_whisper_tpu_torch.train.logging import MetricLogger
 
-    _check_ported(arg, dev)
     compute_dtype = torch.bfloat16 if arg.dtype == "bfloat16" else torch.float32
 
     split_dirs = resolve_split_dirs(arg.train_splits or arg.data_dir)
@@ -181,7 +182,7 @@ def _run(arg, dev: torch.device) -> None:
         if main:
             print(f"resumed from {path} (step {resumed_step}, {pos})")
 
-    logger = MetricLogger(arg.output_dir if main else None)
+    logger = make_logger(arg, main)
     ccfg = CollatorConfig(
         max_target_length=arg.max_label_length,
         decoder_start_token_id=s_cfg.decoder_start_token_id,
@@ -222,6 +223,7 @@ def _run(arg, dev: torch.device) -> None:
             break
 
     save(loader.next_position(last_pos))
+    logger.close()
     if main:
         checkpoint.export_hf_model(f"{arg.output_dir}/final", state.model, s_cfg)
         print(f"training done at step {state.step}; model exported to {arg.output_dir}/final")

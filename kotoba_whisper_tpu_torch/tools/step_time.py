@@ -42,6 +42,8 @@ keeps the prefix form's clusters.
 
 `beam_stream_workload` and `run_beam_stream` hold phase 4g's inputs and
 stream (bench.py's beam-stream-w8a8 geometry), which chip_smoke.py draws.
+`fused_setup`, `sync` and `device_name` are the experiment tools' common
+set-up (tools/dec_exp.py, beam_exp, stream_exp, stream_ab).
 
 Usage: python -m kotoba_whisper_tpu_torch.tools.step_time [--stream | --ring | --beam |
        --self] [--trials 3]
@@ -84,6 +86,29 @@ BEAM_STREAM_WINDOWS, BEAM_STREAM_MEL_BATCH = 96, 16
 K2_STEPS = 4  # decode steps of 32 calls a --ring or --beam trial
 
 
+def fused_setup(preset: str, dev, dtype=torch.bfloat16):
+    """The experiment tools' model, as bench.py's `_large_v3_setup` builds
+    the JAX one: seeded random `preset` weights in `dtype` with fused
+    projections -> (cfg, special tokens, feature config, model)."""
+    cfg = PRESETS[preset]
+    model = whisper.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev,
+                                dtype=dtype)
+    return (cfg, SpecialTokens.for_vocab(cfg.vocab_size), FeatureConfig(n_mels=cfg.num_mel_bins),
+            fuse_for_inference(model))
+
+
+def sync(dev) -> None:
+    """The tools' timing fence: wait for the card's queued work."""
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def device_name(dev) -> str:
+    """The card's name for a tool's record ("cpu" on the CPU)."""
+    dev = torch.device(dev)
+    return "cpu" if dev.type == "cpu" else torch.cuda.get_device_name(dev)
+
+
 def realistic_stops(n: int, prompt_len: int, rng) -> np.ndarray:
     """Total-token budgets ~ 6 + Gamma(k=3.2, theta=5.9): bench.py's
     `_realistic_stops`, the JAX bench's fit of the ReazonSpeech
@@ -119,27 +144,27 @@ def beam_stream_workload(st: SpecialTokens, feat: FeatureConfig):
     return audio, prompt, stops, GenerateOptions(prompt_ids=prompt, max_length=STREAM_CAPACITY)
 
 
-def run_beam_stream(model, audio, opts, st, stops, feat, kv_dtype="int8"):
+def run_beam_stream(model, audio, opts, st, stops, feat, kv_dtype="int8", stream=BEAM_STREAM):
     """generate_beam_streaming over the windows of `audio` (the first
     len(audio) budgets), int8 KV (bench.py's; int4 in phase 4j), log-mel in
     batches of 16 as bench.py's beam stream computes it -> (tokens,
-    scores)."""
+    scores). `stream`: BEAM_STREAM, or it with prefetch on."""
     b = BEAM_STREAM_MEL_BATCH
     feats = torch.cat([mel.log_mel_spectrogram(audio[i:i + b].float(), feat).to(torch.bfloat16)
                        for i in range(0, audio.shape[0], b)])
-    return generate_beam_streaming(model, feats, opts, st, kv_dtype=kv_dtype, stream=BEAM_STREAM,
+    return generate_beam_streaming(model, feats, opts, st, kv_dtype=kv_dtype, stream=stream,
                                    stop_at=stops[:audio.shape[0]])
 
 
-def run_stream(model, audio, opts, st_fixed, stops, feat, kv_dtype="int8"):
+def run_stream(model, audio, opts, st_fixed, stops, feat, kv_dtype="int8", stream=STREAM):
     """generate_greedy_streaming over the windows of `audio` (the first
     len(audio) budgets), int8 KV (int4 in phase 4j), log-mel in
-    refill-sized batches."""
-    e = STREAM.encode_batch
+    refill-sized batches. `stream`: STREAM, or it with prefetch on."""
+    e = stream.encode_batch
     feats = torch.cat([mel.log_mel_spectrogram(audio[i:i + e].float(), feat).to(torch.bfloat16)
                        for i in range(0, audio.shape[0], e)])
     return generate_greedy_streaming(model, feats, opts, st_fixed, kv_dtype=kv_dtype,
-                                     stream=STREAM, stop_at=stops[:audio.shape[0]])
+                                     stream=stream, stop_at=stops[:audio.shape[0]])
 
 
 def _timed(fn):

@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from kotoba_whisper_tpu_torch.core.config import FeatureConfig
+from kotoba_whisper_tpu_torch.decode import streaming
 from kotoba_whisper_tpu_torch.ops import _build
 from kotoba_whisper_tpu_torch.ops import conv_stem as cs
 from kotoba_whisper_tpu_torch.ops import decode_attention as da
@@ -328,3 +329,26 @@ def test_wrapper_launches_on_the_tensors_card(launches, kernel):
 def test_every_entry_has_a_wrapper_case():
     entries = {fn for fns in _build.SIGNATURES.values() for fn in fns}
     assert entries == {entry for _, entry in WRAPPERS.values()}
+
+
+def test_stream_read_back_waits_on_the_tensors_card(monkeypatch):
+    """The streams' read-back (decode/streaming._read_back, which
+    decode/streaming_beam.py shares) records the event the host waits on
+    on the stream of the tensors' card, where the non-blocking copies are
+    queued, not on the current card's."""
+    recorded = []
+
+    class Event:
+        def record(self, stream=None):
+            recorded.append(stream)
+
+    real_empty = torch.empty
+    monkeypatch.setattr(torch.cuda, "Event", Event)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: ("stream", torch.device(device or "cuda:0").index))
+    monkeypatch.setattr(torch, "empty", lambda *shape, pin_memory=False, **kw: real_empty(
+        *shape, **kw))
+    tensors = [on_card(torch.arange(6)), on_card(torch.tensor([True, False]))]
+    host, done = streaming._read_back(tensors)
+    assert done is not None and recorded == [("stream", CARD)]
+    assert [h.tolist() for h in host] == [list(range(6)), [True, False]]

@@ -257,21 +257,19 @@ def test_distill_still_refuses_fp32_naming_k5(monkeypatch):
     """Training in fp32 on the card runs through K5's fp32 form now: both
     trainers take --dtype float32 for a CUDA device and get past their
     checks (distill to loading the student, distill-bilingual to loading
-    its datasets: stubs, no card needed); only --wandb_project refuses."""
+    its datasets: stubs, no card needed), --wandb_project included."""
     from kotoba_whisper_tpu_torch.data import shards
 
     args = distill._parser().parse_args(
         ["--data_dir", "d", "--student", "s", "--teacher", "t", "--output_dir", "o",
          "--dtype", "float32"])
-    distill._check_ported(args, CUDA)
     monkeypatch.setattr(shards, "resolve_split_dirs", lambda spec: [spec])
     monkeypatch.setattr(common, "load_tokenizer", lambda spec: None)
     monkeypatch.setattr(common, "load_model", _reach)
-    with pytest.raises(_Reached):
-        distill._run(args, CUDA)
-    args.wandb_project = "p"
-    with pytest.raises(SystemExit, match="--wandb_project is not ported yet"):
-        distill._check_ported(args, CUDA)
+    for project in (None, "p"):
+        args.wandb_project = project
+        with pytest.raises(_Reached):
+            distill._run(args, CUDA)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(distill_bilingual, "load_datasets", _reach)
     with pytest.raises(_Reached):

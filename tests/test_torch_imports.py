@@ -55,8 +55,9 @@ def test_sources_keep_to_the_port(path):
 def test_port_tools_are_covered():
     """The port's experiment tools are modules of the package, so the
     import check above and the source checks below take them in."""
-    assert {"kotoba_whisper_tpu_torch.tools.enc_exp", "kotoba_whisper_tpu_torch.tools.stem_exp",
-            "kotoba_whisper_tpu_torch.tools.vpu_cal"} <= set(MODULES)
+    assert {f"kotoba_whisper_tpu_torch.tools.{name}" for name in (
+        "enc_exp", "stem_exp", "vpu_cal", "matmul_cal", "train_exp", "dec_exp", "beam_exp",
+        "stream_exp", "stream_ab", "speed_decomp")} <= set(MODULES)
 
 
 # where the TPU kernels live: the JAX package's ops, and the calibration

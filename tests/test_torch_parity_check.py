@@ -14,8 +14,8 @@ byte` (specials right above the 256 bytes) the prompt is not HF's and
 both exit 1.
 
 Also: the port's CLI has every stage of the JAX package's and no
-refusal list, and what the port still refuses is wandb and the streams'
-prefetch.
+refusal list, and no source of the port raises on something "not
+ported" (wandb and the streams' prefetch were the last).
 """
 from __future__ import annotations
 
@@ -114,9 +114,5 @@ def test_the_port_refuses_only_wandb_and_prefetch():
         f"{p.relative_to(REPO)}:{i}"
         for p in (REPO / "kotoba_whisper_tpu_torch").rglob("*.py")
         for i, line in enumerate(p.read_text().splitlines(), 1)
-        if re.search(r"raise .*not ported", line))
-    assert [h.split(":")[0] for h in hits] == [
-        "kotoba_whisper_tpu_torch/cli/distill.py",
-        "kotoba_whisper_tpu_torch/decode/streaming.py",
-        "kotoba_whisper_tpu_torch/decode/streaming_beam.py",
-        "kotoba_whisper_tpu_torch/train/logging.py"], hits
+        if re.search(r"raise .*not ported|not ported yet", line))
+    assert hits == [], hits

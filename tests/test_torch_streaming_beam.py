@@ -147,10 +147,12 @@ def test_scatter_stream_equals_lockstep_beam(setup, name):
 
 
 def test_unported_options_raise(setup):
+    """prefetch runs now (tests/test_torch_prefetch.py holds its tokens
+    and scores); an unknown layout still raises."""
     model, mels, _, opts, _, _ = setup
-    with pytest.raises(ValueError, match="prefetch is not ported"):
-        tsb.generate_beam_streaming(model, mels[:2], opts, ST,
-                                    stream=tsb.BeamStreamConfig(prefetch=True), device="cpu")
+    toks, scores = tsb.generate_beam_streaming(
+        model, mels[:2], opts, ST, stream=tsb.BeamStreamConfig(prefetch=True), device="cpu")
+    assert toks.shape == (2, MAX_LEN) and scores.shape == (2,)
     with pytest.raises(ValueError, match="layout"):
         tsb.generate_beam_streaming(model, mels[:2], opts, ST,
                                     stream=tsb.BeamStreamConfig(layout="rows"), device="cpu")

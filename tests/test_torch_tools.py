@@ -12,7 +12,8 @@ import torch
 from kotoba_whisper_tpu_torch.ops import _build
 from kotoba_whisper_tpu_torch.ops import decode_attention as da
 from kotoba_whisper_tpu_torch.tools import (
-    beam_probe, enc_exp, k8_probe, kernel_time, ring_probe, stem_exp, step_time, vpu_cal,
+    beam_exp, beam_probe, dec_exp, enc_exp, k8_probe, kernel_time, matmul_cal, ring_probe,
+    speed_decomp, stem_exp, step_time, stream_ab, stream_exp, train_exp, vpu_cal,
 )
 
 TINY = ["--preset", "test-tiny", "--batch", "2", "--device", "cpu"]
@@ -189,11 +190,16 @@ def test_step_time_raises_without_a_card(monkeypatch):
         step_time.main([])
 
 
-@pytest.mark.parametrize("tool, argv", [(step_time, ["--self"]), (kernel_time, [])],
-                         ids=["step_time-self", "kernel_time"])
+@pytest.mark.parametrize("tool, argv", [
+    (step_time, ["--self"]), (kernel_time, []), (matmul_cal, []), (train_exp, []), (dec_exp, []),
+    (beam_exp, []), (stream_exp, []), (stream_exp, ["--lockstep"]), (stream_ab, []),
+    (stream_ab, ["--beam"]), (speed_decomp, [])],
+    ids=["step_time-self", "kernel_time", "matmul_cal", "train_exp", "dec_exp", "beam_exp",
+         "stream_exp", "stream_exp-lockstep", "stream_ab", "stream_ab-beam", "speed_decomp"])
 def test_timing_tools_raise_without_a_card(monkeypatch, tool, argv):
-    """K2's self-call timing and the kernel timing tool measure the card
-    only: without one they raise before any work."""
+    """K2's self-call timing, the kernel timing tool and the experiment
+    tools measure the card unless asked for the CPU (--device cpu): without
+    a card they raise before any work."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tool.main(argv)
